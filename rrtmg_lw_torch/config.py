@@ -1,0 +1,59 @@
+"""Static configuration for the PyTorch port of the LW radiation model.
+
+Same fields as ``rrtmg_lw_tpu.config.LWConfig`` (the reference's flag
+system, doc/rrtmg_lw_instructions.txt:72-143), except that the JAX
+package's three backend switches (``taumol_impl``, ``rt_impl``,
+``pallas_interpret``) collapse into one ``impl``:
+
+  "cuda"   the hand-written CUDA kernels (needs a CUDA device, float32)
+  "eager"  the plain PyTorch versions of those kernels, on any device
+  "auto"   "cuda" on a CUDA device, "eager" on the CPU
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+IMPLS = ("auto", "cuda", "eager")
+
+
+@dataclasses.dataclass(frozen=True)
+class LWConfig:
+    icld: int = 0
+    idrv: int = 0
+    iaer: int = 0
+    inflag: int = 2
+    iceflag: int = 3
+    liqflag: int = 1
+    irng: int = 2
+    imca: int = 1
+    idcor: int = 0
+    istart: int = 1
+    iend: int = 16
+    use_lut: bool = True
+    impl: str = "auto"
+    dtype: str = "float64"     # torch dtype name: "float32" | "float64"
+    cpdair: float = 1.004e3
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        dt = getattr(torch, self.dtype, None)
+        if not isinstance(dt, torch.dtype):
+            raise ValueError(f"unknown torch dtype {self.dtype!r}")
+        return dt
+
+    def resolve_impl(self, device) -> str:
+        """The implementation this config runs on ``device``."""
+        device = torch.device(device)
+        if self.impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {self.impl!r}")
+        if self.impl == "auto":
+            return "cuda" if device.type == "cuda" else "eager"
+        if self.impl == "cuda" and device.type != "cuda":
+            raise ValueError(f"impl='cuda' needs a CUDA device, got {device}")
+        return self.impl
+
+    def replace(self, **kw) -> "LWConfig":
+        return dataclasses.replace(self, **kw)

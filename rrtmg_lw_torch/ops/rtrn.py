@@ -1,0 +1,248 @@
+"""Longwave radiative transfer: linear-in-tau level recurrence.
+
+Port of ``rrtmg_lw_tpu.ops.rtrn`` (rtrnmc.f90:51-595 / rtrn.f90:51-606,
+random overlap and McICA) for ``use_lut=False``: the closed-form exp
+with the two-division Planck transition ``1 - 2 (1/od - e/(1-e))``.
+Every quantity that does not depend on the running radiance is computed
+elementwise over (B, L, G) first; the sweeps are Python loops over
+levels carrying only the radiance (B, G).
+
+``rt_fluxes_blocked`` is the plain version of the RT sweep kernel
+(``ops.rtrn_cuda``): the same function on the kernel's layouts.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..constants import (FLUXFAC, REC_6, SECDIFF_A0, SECDIFF_A1, SECDIFF_A2,
+                         SECDIFF_FIXED, WTDIFF)
+from .cldprop import CLDMIN
+
+
+class RTOut(NamedTuple):
+    totuflux: torch.Tensor     # (B, L+1)
+    totdflux: torch.Tensor
+    htr: torch.Tensor          # (B, L)
+    totuclfl: torch.Tensor
+    totdclfl: torch.Tensor
+    htrc: torch.Tensor
+
+
+def _lut_unported():
+    return NotImplementedError(
+        "use_lut=True (exp/tfn lookup tables) is not ported yet; "
+        "see ROADMAP.md Queue 1 item 10")
+
+
+def secdiff(pwvcm, dtype):
+    """Per-band diffusivity secant (B, 16); rtrnmc.f90:273-281."""
+    def c(x):
+        return torch.as_tensor(x).to(pwvcm.device, dtype)
+    var = c(SECDIFF_A0)[None, :] + c(SECDIFF_A1)[None, :] * torch.exp(
+        c(SECDIFF_A2)[None, :] * pwvcm.to(dtype)[:, None])
+    var = torch.clamp(var, 1.50, 1.80)
+    fixed = torch.as_tensor(SECDIFF_FIXED, device=pwvcm.device)
+    return torch.where(fixed[None, :], torch.full_like(var, 1.66), var)
+
+
+def _gas_factors(od, use_lut=False):
+    """atrans, tf_gas (Planck transition), od_eff (rtrnmc.f90:361-425)."""
+    if use_lut:
+        raise _lut_unported()
+    small = od <= 0.06
+    # clamp at the branch threshold keeps the unselected branch finite
+    od_safe = torch.clamp(od, min=0.06)
+    e_safe = torch.exp(-od_safe)
+    atrans = torch.where(small, od - 0.5 * od * od, 1.0 - e_safe)
+    tf = torch.where(small, REC_6 * od,
+                     1.0 - 2.0 * (1.0 / od_safe - e_safe / (1.0 - e_safe)))
+    return atrans, tf, od
+
+
+def _tot_factors(odtot, use_lut=False):
+    """atot, tf_tot for the gas+cloud optical depth."""
+    if use_lut:
+        raise _lut_unported()
+    small = odtot < 0.06
+    ots = torch.clamp(odtot, min=0.06)
+    e_safe = torch.exp(-ots)
+    return (torch.where(small, odtot - 0.5 * odtot * odtot, 1.0 - e_safe),
+            torch.where(small, REC_6 * odtot,
+                        1.0 - 2.0 * (1.0 / ots - e_safe / (1.0 - e_safe))))
+
+
+def precompute(taut, cldf_g, odcld_g, cld_gate, fracs, planklay, planklev,
+               pwvcm, ngb0, use_lut=False):
+    """Elementwise (B, L, G) precompute of the RT sweep."""
+    secd_g = secdiff(pwvcm, taut.dtype)[:, ngb0]        # (B, G)
+    od = torch.clamp(secd_g[:, None, :] * taut, min=0.0)
+    atrans, tf_gas, od_eff = _gas_factors(od, use_lut)
+
+    blay = planklay[..., ngb0]                           # (B, L, G)
+    dpup = planklev[:, 1:, :][..., ngb0] - blay
+    dpdn = planklev[:, :-1, :][..., ngb0] - blay
+
+    bbd = fracs * (blay + tf_gas * dpdn)
+    bbugas = fracs * (blay + tf_gas * dpup)
+    gassrc_dn = atrans * bbd
+
+    zero = torch.zeros_like(taut)
+    odcld_eff = torch.where(cld_gate, secd_g[:, None, :] * odcld_g, zero)
+    abscld = 1.0 - torch.exp(-odcld_eff)
+    efclfrac = torch.where(cld_gate, abscld * cldf_g, zero)
+
+    atot, tf_tot = _tot_factors(od_eff + odcld_eff, use_lut)
+    bbdtot = fracs * (blay + tf_tot * dpdn)
+    bbutot = fracs * (blay + tf_tot * dpup)
+    return dict(atrans=atrans, atot=atot, bbd=bbd, bbugas=bbugas,
+                bbutot=bbutot, bbdtot=bbdtot, gassrc_dn=gassrc_dn,
+                efclfrac=efclfrac)
+
+
+def band_weights(delwave, ngb0):
+    """Per-g flux weights WTDIFF * delwave(band) * FLUXFAC (numpy)."""
+    return WTDIFF * np.asarray(delwave, np.float64)[ngb0] * FLUXFAC
+
+
+def heating(fnet, pz, heatfac_val):
+    """(B, L+1) net flux -> (B, L) heating rate (K/day)."""
+    dp = pz[:, :-1] - pz[:, 1:]
+    return heatfac_val * (fnet[:, :-1] - fnet[:, 1:]) / dp
+
+
+def rt_random_overlap(taut, fracs, planklay, planklev, plankbnd, semiss,
+                      pwvcm, pz, cldf_g, odcld_g, *, cloudy_lay, cld_gate,
+                      static, use_lut=False, heatfac_val):
+    """Random-overlap / McICA RT (rtrnmc.f90 semantics), idrv=0, all 16
+    bands.  Cloud inputs per g-point: cldf_g, odcld_g (B, L, G)."""
+    ngb0, wg = g_tables(static, taut.device, taut.dtype)
+    if taut.shape[-1] != len(ngb0):
+        raise ValueError("taut g-dim must cover all 140 g-points")
+    up, dn, upc, dnc = _sweep(taut, fracs, planklay, planklev, plankbnd,
+                              semiss, pwvcm, cldf_g, odcld_g, cloudy_lay,
+                              cld_gate, ngb0, wg, use_lut)
+    return RTOut(up, dn, heating(up - dn, pz, heatfac_val), upc, dnc,
+                 heating(upc - dnc, pz, heatfac_val))
+
+
+def g_tables(static, device, dtype):
+    """Band of each g-point (int32, 0-based) and its flux weight."""
+    ngb0 = np.asarray(static["ngb"]) - 1
+    return (torch.as_tensor(ngb0, dtype=torch.int32, device=device),
+            torch.as_tensor(band_weights(static["delwave"], ngb0)).to(
+                device, dtype))
+
+
+def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
+           cldf_g, odcld_g, cloudy_lay, cld_gate, ngb0, wg, use_lut):
+    """Down and up sweeps -> (up, down, clear up, clear down) (B, L+1)."""
+    dtype = taut.dtype
+    B, L, G = taut.shape
+    ngb0 = ngb0.long()
+
+    pre = precompute(taut, cldf_g, odcld_g, cld_gate, fracs, planklay,
+                     planklev, pwvcm, ngb0, use_lut)
+    at, atot = pre["atrans"], pre["atot"]
+    ef, cf = pre["efclfrac"], cldf_g
+    cly = cloudy_lay[..., None]                          # (B, L, 1)
+    # cloud-in-path-above flag per layer: reverse cumulative OR
+    iclddn = torch.flip(torch.cumsum(torch.flip(cloudy_lay.int(), [1]), 1),
+                        [1]) > 0                         # (B, L)
+    anyc = iclddn[:, :1]                                 # (B, 1)
+
+    # ---- downward sweep (lev = L-1 .. 0), radiance at layer bottoms ----
+    zero = torch.zeros((B, G), dtype=dtype, device=taut.device)
+    radld, radclrd = zero, zero
+    drad = [zero] * (L + 1)
+    cdrad = [zero] * (L + 1)
+    for lev in range(L - 1, -1, -1):
+        a, ato, bbd = at[:, lev], atot[:, lev], pre["bbd"][:, lev]
+        gs = pre["gassrc_dn"][:, lev]
+        rad_cld = (radld - radld * (a + ef[:, lev] * (1.0 - a)) + gs
+                   + cf[:, lev] * (pre["bbdtot"][:, lev] * ato - gs))
+        rad_clr = radld + (bbd - radld) * a
+        radld = torch.where(cly[:, lev], rad_cld, rad_clr)
+        radclrd = torch.where(iclddn[:, lev, None],
+                              radclrd + (bbd - radclrd) * a, radld)
+        drad[lev], cdrad[lev] = radld, radclrd
+
+    # ---- surface reflection ----
+    rad0 = fracs[:, 0, :] * plankbnd[:, ngb0]
+    reflect = 1.0 - semiss[:, ngb0]
+    radlu = rad0 + reflect * radld
+    radclru = rad0 + reflect * radclrd
+    urad, curad = [radlu], [radclru]
+
+    # ---- upward sweep (lev = 0 .. L-1), radiance at layer tops ----
+    for lev in range(L):
+        a, ato, bbu = at[:, lev], atot[:, lev], pre["bbugas"][:, lev]
+        gs = bbu * a
+        rad_cld = (radlu - radlu * (a + ef[:, lev] * (1.0 - a)) + gs
+                   + cf[:, lev] * (pre["bbutot"][:, lev] * ato - gs))
+        rad_clr = radlu + (bbu - radlu) * a
+        radlu = torch.where(cly[:, lev], rad_cld, rad_clr)
+        radclru = torch.where(anyc, radclru + (bbu - radclru) * a, radlu)
+        urad.append(radlu)
+        curad.append(radclru)
+
+    def flux(rads):  # L+1 x (B, G) -> (B, L+1)
+        return torch.einsum("lbg,g->bl", torch.stack(rads), wg)
+
+    return flux(urad), flux(drad), flux(curad), flux(cdrad)
+
+
+def compact_cloud_optics(mask_t, cw_t, abi_t, abl_t, ngb0, dtype):
+    """Compact McICA fields -> per-g cldf_g, odcld_g (B, L, 140).
+
+    The cldprmc arithmetic (rrtmg_lw_cldprmc.f90:128-142) on the
+    products mask x per-layer water path, as the RT kernel forms them:
+    ciwp_g = ciwp * mask, clwp_g = clwp * mask, taucmc = 0."""
+    G = len(ngb0)
+
+    def tb(x):                                   # (L, *, B) -> (B, L, *)
+        return x.permute(2, 0, 1)
+
+    cldf_g = tb(mask_t[:, :G, :]).to(dtype)
+    ciwp = tb(cw_t[:, 0:1, :]).to(dtype) * cldf_g
+    clwp = tb(cw_t[:, 1:2, :]).to(dtype) * cldf_g
+    absc_i = tb(abi_t)[..., ngb0]
+    absc_l = tb(abl_t)[..., ngb0]
+    zero = torch.zeros_like(cldf_g)
+    absc_i = torch.where(ciwp == 0.0, zero, absc_i)
+    absc_l = torch.where(clwp == 0.0, zero, absc_l)
+    cwp = ciwp + clwp
+    active = (cldf_g >= CLDMIN) & (cwp >= CLDMIN)      # taucmc = 0
+    odcld_g = torch.where(active, ciwp * absc_i + clwp * absc_l, zero)
+    return cldf_g, odcld_g
+
+
+def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
+                      semiss, pwvcm, ngb0, wg, cloud_fields=None):
+    """Band-integrated fluxes (4, L+1, B) = [up, down, clear up, clear
+    down] from the kernel layouts: the plain version of
+    ``rtrn_cuda.rt_fluxes_blocked``.
+
+    taut_t, fracs_t (L, 140, B); planklay_t (L, 16, B); planklev_t
+    (L+1, 16, B); plankbnd, semiss (B, 16); pwvcm (B,); ngb0, wg the
+    ``g_tables`` of the static tables (140,).  cloud_fields
+    is None (clear sky) or the compact McICA fields (mask (L, 144, B),
+    cw (L, 2, B) = [ciwp, clwp], abi, abl (L, 16, B)); a g-point is
+    cloudy where mask >= 0.5."""
+    dtype = taut_t.dtype
+    taut = taut_t.permute(2, 0, 1)
+    if cloud_fields is None:
+        cldf_g = odcld_g = torch.zeros_like(taut)
+        gate = torch.zeros(taut.shape, dtype=torch.bool, device=taut.device)
+    else:
+        cldf_g, odcld_g = compact_cloud_optics(*cloud_fields, ngb0.long(),
+                                               dtype)
+        gate = cldf_g >= 0.5
+    fluxes = _sweep(taut, fracs_t.permute(2, 0, 1),
+                    planklay_t.permute(2, 0, 1), planklev_t.permute(2, 0, 1),
+                    plankbnd, semiss, pwvcm, cldf_g, odcld_g,
+                    gate.any(dim=-1), gate, ngb0, wg, use_lut=False)
+    return torch.stack(fluxes).permute(0, 2, 1).contiguous()

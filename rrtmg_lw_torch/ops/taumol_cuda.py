@@ -1,0 +1,226 @@
+"""Taumol forward kernel (K2), csrc/taumol.cu.
+
+Replaces ``rrtmg_lw_tpu/ops/taumol_pallas.py::PallasTaumol._build.kernel``.
+The TPU kernel selected table rows with one-hot matmuls over bf16
+splits inside 64-row pressure windows; on the H100 a gather from the
+~1 MB table set is native, so this kernel gathers directly, in float32.
+
+``pack_tables`` compiles ``taumol.BAND_SPECS`` once into
+  * one flat float32 buffer holding every band's tables (row-major,
+    ``ng`` floats per row) plus chi_mls and the per-g rescale vectors,
+  * an int32 descriptor of ``len(DESC_FIELDS)`` words per (band,
+    region); float constants are stored bit-cast.
+The kernel runs one thread per (column, layer, band) and reads the
+descriptor of its band and region.  ``DESC_FIELDS``, ``FLOAT_FIELDS``
+and ``INT_FIELDS`` must match the enums in csrc/taumol.cu (a CPU test
+compares them).
+
+The wrapper consumes the port's setcoef outputs, exactly as
+``TaumolEngine.forward`` does; on a CPU tensor it runs the plain
+version, ``TaumolEngine.blocked``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..types import NGPT
+from .taumol import (_GAS_CHI, BAND_SPECS, NBANDS, NG, NSPA, NSPB,
+                     postscale_vector, refrat)
+
+# per-cell float inputs, packed (NF, L, B)
+FLOAT_FIELDS = (
+    "colh2o", "colco2", "colo3", "coln2o", "colco", "colch4", "colo2",
+    "colbrd", "fac00", "fac01", "fac10", "fac11",
+    "rat_h2oco2", "rat_h2oco2_1", "rat_h2oo3", "rat_h2oo3_1",
+    "rat_h2on2o", "rat_h2on2o_1", "rat_h2och4", "rat_h2och4_1",
+    "rat_n2oco2", "rat_n2oco2_1", "rat_o3co2", "rat_o3co2_1",
+    "selffac", "selffrac", "forfac", "forfrac", "minorfrac", "scaleminor",
+    "scaleminorn2", "coldry", "wx0", "wx1", "wx2", "wx3", "pavel")
+# per-cell int inputs, packed (NI, L, B)
+INT_FIELDS = ("laytrop", "jp", "jt", "jt1", "indself", "indfor", "indminor")
+
+MAX_MINORS = 3
+MAX_CFCS = 2
+_MINOR_FIELDS = ("KIND", "OFF", "NK", "COLA", "COLB", "ADJ_GAS", "ADJ_CHI",
+                 "ADJ_THRESH", "ADJ_BASE", "ADJ_EXPNT", "ADJ_CHICONST",
+                 "REF_G1", "REF_G2", "REFRAT")
+DESC_FIELDS = (
+    ("ZERO", "GOFF", "NGB", "KEY1", "KEY2", "RAT0", "RAT1", "NSP", "ETA4",
+     "ABS_OFF", "NROW", "NA", "SELF_OFF", "FOR_OFF", "NMINOR")
+    + tuple(f"M{i}_{f}" for i in range(MAX_MINORS) for f in _MINOR_FIELDS)
+    + ("NCFC",)
+    + tuple(f"C{i}_{f}" for i in range(MAX_CFCS) for f in ("WX", "OFF"))
+    + ("CORR", "POST_OFF", "FRAC_OFF", "FRAC_ETA", "FRAC_NROW", "FRAC_G1",
+       "FRAC_G2", "FRAC_REFRAT"))
+_D = {name: i for i, name in enumerate(DESC_FIELDS)}
+_F = {name: i for i, name in enumerate(FLOAT_FIELDS)}
+_CORR = {None: 0, "b1l": 1, "b1u": 2, "b2": 3}
+# BIN_SLOTS of TaumolEngine.bins, written when the kernel gets a bins buffer
+NBIN = 4
+
+
+def _f32_bits(x: float) -> int:
+    return int(np.array(x, np.float32).view(np.int32))
+
+
+def _col(gas: str) -> int:
+    return _F["col" + gas]
+
+
+def pack_tables(ktables: dict, static: dict):
+    """(flat float32 tables, (16, 2, NDESC) int32 descriptors, offsets
+    {(band key, table name): offset})."""
+    chunks, offsets = [], {}
+    size = 0
+
+    def put(key, arr):
+        nonlocal size
+        arr = np.ascontiguousarray(arr, np.float32).reshape(-1)
+        offsets[key] = size
+        chunks.append(arr)
+        size += arr.size
+        return offsets[key]
+
+    chi = np.asarray(static["chi_mls"], np.float64)
+    chi_off = put(("chi", "chi_mls"), chi)
+    desc = np.zeros((NBANDS, 2, len(DESC_FIELDS)), np.int32)
+    goff = 0
+    for bspec in BAND_SPECS:
+        b = bspec.band
+        bk = f"b{b:02d}"
+        tabs = ktables[bk]
+        ng = NG[b - 1]
+        for name in sorted(set(tabs) - {"absa", "absb"}):
+            put((bk, name), tabs[name])
+        absa, absb = tabs["absa"], tabs.get("absb")
+        fused = absa if absb is None else np.concatenate([absa, absb], 0)
+        abs_off = put((bk, "_abs"), fused)
+        for r, (spec, lower) in enumerate(((bspec.lower, True),
+                                           (bspec.upper, False))):
+            d = desc[b - 1, r]
+
+            def setf(name, value):
+                d[_D[name]] = value
+
+            setf("GOFF", goff)
+            setf("NGB", ng)
+            setf("ZERO", int(spec.zero))
+            if spec.zero:
+                continue
+            setf("NSP", NSPA[b - 1] if lower else NSPB[b - 1])
+            setf("KEY1", _col(spec.key1) if spec.key1 else -1)
+            setf("KEY2", _col(spec.key2) if spec.key2 else -1)
+            setf("RAT0", _F["rat_" + spec.rat] if spec.rat else -1)
+            setf("RAT1", _F["rat_" + spec.rat + "_1"] if spec.rat else -1)
+            setf("ETA4", int(lower and spec.key2 is not None))
+            setf("ABS_OFF", abs_off)
+            setf("NROW", fused.shape[0])
+            setf("NA", absa.shape[0])
+            setf("SELF_OFF", offsets[bk, "selfref"] if spec.tauself else -1)
+            setf("FOR_OFF", offsets[bk, "forref"] if spec.taufor else -1)
+            if len(spec.minors) > MAX_MINORS or len(spec.cfcs) > MAX_CFCS:
+                raise ValueError(f"band {b}: too many minor/CFC terms")
+            setf("NMINOR", len(spec.minors))
+            for i, m in enumerate(spec.minors):
+                p = f"M{i}_"
+                setf(p + "KIND", int(m.kind == "eta"))
+                setf(p + "OFF", offsets[bk, m.table])
+                setf(p + "NK", tabs[m.table].shape[1]
+                     if m.kind == "eta" else 0)
+                cola, colb = {
+                    "scale_n2": ("colbrd", "scaleminorn2"),
+                    "scale_o2": ("colo2", "scaleminor"),
+                    "scale_brd": ("colbrd", "scaleminor"),
+                }.get(m.col, (m.col if m.col.startswith("col") else None,
+                              None))
+                setf(p + "COLA", _F[cola] if cola else -1)
+                setf(p + "COLB", _F[colb] if colb else -1)
+                setf(p + "ADJ_GAS", _col(m.adj.gas) if m.adj else -1)
+                setf(p + "ADJ_CHI", -1)
+                if m.adj is not None:
+                    if m.adj.chi_const is None:
+                        setf(p + "ADJ_CHI", chi_off
+                             + (_GAS_CHI[m.adj.gas] - 1) * chi.shape[1])
+                    else:
+                        setf(p + "ADJ_CHICONST", _f32_bits(m.adj.chi_const))
+                    setf(p + "ADJ_THRESH", _f32_bits(m.adj.threshold))
+                    setf(p + "ADJ_BASE", _f32_bits(m.adj.base))
+                    setf(p + "ADJ_EXPNT", _f32_bits(m.adj.expnt))
+                if m.refrat is not None:
+                    g1, g2, plev = m.refrat
+                    setf(p + "REF_G1", _col(g1))
+                    setf(p + "REF_G2", _col(g2))
+                    setf(p + "REFRAT", _f32_bits(refrat(chi, g1, g2, plev)))
+            setf("NCFC", len(spec.cfcs))
+            for i, (wx_i, vec) in enumerate(spec.cfcs):
+                setf(f"C{i}_WX", _F[f"wx{wx_i - 1}"])
+                setf(f"C{i}_OFF", offsets[bk, vec])
+            setf("CORR", _CORR[spec.corradj])
+            setf("POST_OFF", put((bk, f"_post{r}"),
+                                 postscale_vector(spec, ng))
+                 if spec.postscale else -1)
+            ftab = tabs[spec.frac]
+            setf("FRAC_OFF", offsets[bk, spec.frac])
+            if spec.frac_eta is not None:
+                g1, g2, plev = spec.frac_eta
+                setf("FRAC_ETA", 1)
+                setf("FRAC_NROW", ftab.shape[0])
+                setf("FRAC_G1", _col(g1))
+                setf("FRAC_G2", _col(g2))
+                setf("FRAC_REFRAT", _f32_bits(refrat(chi, g1, g2, plev)))
+        goff += ng
+    if goff != NGPT:
+        raise ValueError(f"bands cover {goff} g-points, expected {NGPT}")
+    return np.concatenate(chunks), desc, offsets
+
+
+def _pack_inputs(sc, prof):
+    """(NF, L, B) float32 and (NI, L, B) int32 per-cell inputs."""
+    named = sc._asdict()
+    named.update(coldry=prof.coldry, pavel=prof.pavel,
+                 **{f"wx{i}": prof.wx[..., i] for i in range(4)})
+    named["laytrop"] = sc.laytrop_mask
+    fld = torch.stack([named[k].t() for k in FLOAT_FIELDS]).to(
+        torch.float32).contiguous()
+    ifld = torch.stack([named[k].t().to(torch.int32)
+                        for k in INT_FIELDS]).contiguous()
+    return fld, ifld
+
+
+def taumol_blocked(sc, prof, engine, kernel_tabs, kernel_desc, bins=None):
+    """taug, fracs (L, 140, B) for all bands.
+
+    ``engine`` is the plain ``TaumolEngine`` (used for CPU tensors);
+    ``kernel_tabs`` / ``kernel_desc`` come from ``pack_tables`` on the
+    device.  ``bins``, if given, is a (16, NBIN, L, B) int32 tensor the
+    kernel fills with the interpolation bins it used (the layout of
+    ``TaumolEngine.bins``)."""
+    if sc.jp.device.type == "cpu":
+        if bins is not None:
+            bins.copy_(engine.bins(sc, prof))
+        return engine.blocked(sc, prof)
+    B, L = sc.jp.shape
+    dev = sc.jp.device
+    fld, ifld = _pack_inputs(sc, prof)
+    _build.check(kernel_tabs, "kernel_tabs", torch.float32,
+                 kernel_tabs.shape, dev)
+    _build.check(kernel_desc, "kernel_desc", torch.int32,
+                 (NBANDS, 2, len(DESC_FIELDS)), dev)
+    if bins is not None:
+        _build.check(bins, "bins", torch.int32, (NBANDS, NBIN, L, B), dev)
+    ndesc = _build.library().rrtm_taumol_ndesc()
+    if ndesc != len(DESC_FIELDS):
+        raise RuntimeError(f"taumol.cu has {ndesc} descriptor words, "
+                           f"pack_tables {len(DESC_FIELDS)}")
+    taug = torch.empty((L, NGPT, B), dtype=torch.float32, device=dev)
+    fracs = torch.empty_like(taug)
+    _build.launch("rrtm_taumol", fld, ifld, kernel_tabs, kernel_desc, taug,
+                  fracs, bins, L, B)
+    taumol_blocked.launches += 1
+    return taug, fracs
+
+
+taumol_blocked.launches = 0

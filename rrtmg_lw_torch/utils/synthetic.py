@@ -1,0 +1,107 @@
+"""Deterministic synthetic inputs (atmospheres, McICA clouds).
+
+numpy-only copies of ``rrtmg_lw_tpu.utils.synthetic.make_atmosphere``
+and ``make_mcica_clouds(layout="compact")``: the same RNG calls in the
+same order, so for one seed the arrays are bitwise equal to the JAX
+package's.  Arrays are host numpy inside the port's NamedTuples; turn
+them into tensors with ``Atmosphere.from_numpy(atm, device, dtype)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..types import Atmosphere, McicaCloudsCompact
+
+
+def make_atmosphere(ncol=4, nlay=51, seed=0, dtype=np.float64, aod=0.0):
+    """A smooth, physically plausible batch of mid-latitude-ish columns.
+
+    ``aod`` > 0 fills tauaer with a boundary-layer aerosol of total
+    column optical depth ~aod per band, decaying over ~2 km."""
+    rng = np.random.default_rng(seed)
+    # sigma-coordinate levels, surface ~1013 mb to exactly 0.03 mb
+    lev = np.linspace(0, 1, nlay + 1)
+    plev = 1013.0 * (0.03 / 1013.0) ** (lev ** 1.15)
+    plev = np.broadcast_to(plev, (ncol, nlay + 1)).copy()
+    plev *= (1.0 + 0.02 * rng.standard_normal((ncol, 1)))
+    play = 0.5 * (plev[:, :-1] + plev[:, 1:])
+
+    # temperature: lapse to tropopause at ~12 km, warming stratosphere
+    z = -7.0 * np.log(play / plev[:, :1])
+    tsfc = 288.0 + 5.0 * rng.standard_normal(ncol)
+    tlay = np.where(z < 12.0, tsfc[:, None] - 6.5 * z,
+                    np.where(z < 20.0, tsfc[:, None] - 6.5 * 12.0,
+                             tsfc[:, None] - 78.0 + 1.5 * (z - 20.0)))
+    tlay = np.clip(tlay, 180.0, 320.0)
+    zlev = -7.0 * np.log(plev / plev[:, :1])
+    tlev = np.where(zlev < 12.0, tsfc[:, None] - 6.5 * zlev,
+                    np.where(zlev < 20.0, tsfc[:, None] - 6.5 * 12.0,
+                             tsfc[:, None] - 78.0 + 1.5 * (zlev - 20.0)))
+    tlev = np.clip(tlev, 180.0, 320.0)
+
+    h2o = 0.02 * (play / 1013.0) ** 3 + 3e-6
+    o3 = 1e-6 * np.exp(-((np.log(play) - np.log(10.0)) ** 2) / 2.0) + 1e-8
+
+    ones = np.ones_like(play)
+
+    tauaer = np.zeros((ncol, nlay, 16))
+    if aod > 0.0:
+        w = np.exp(-z / 2.0)
+        w /= w.sum(axis=1, keepdims=True)
+        band = 1.0 - 0.4 * np.arange(16) / 15.0
+        tauaer = aod * w[:, :, None] * band
+
+    def arr(x):
+        return np.asarray(x, dtype)
+
+    return Atmosphere(
+        play=arr(play), plev=arr(plev), tlay=arr(tlay), tlev=arr(tlev),
+        tsfc=arr(tsfc),
+        h2ovmr=arr(h2o), co2vmr=arr(3.55e-4 * ones), o3vmr=arr(o3),
+        n2ovmr=arr(3.2e-7 * ones), covmr=arr(1.5e-7 * ones),
+        ch4vmr=arr(1.7e-6 * ones), o2vmr=arr(0.209 * ones),
+        cfc11vmr=arr(2.6e-10 * ones), cfc12vmr=arr(5.4e-10 * ones),
+        cfc22vmr=arr(1.0e-10 * ones), ccl4vmr=arr(1.0e-10 * ones),
+        emis=arr(np.full((ncol, 16), 0.95)),
+        tauaer=arr(tauaer),
+    )
+
+
+def make_mcica_clouds(ncol=4, nlay=51, seed=2, dtype=np.float64, ngpt=140,
+                      mask_dtype=None, clear_frac=0.0):
+    """A plausible binary McICA cloud state in the compact generator
+    form: the (nlay, 144, ncol) sub-column mask plus per-layer water
+    paths.  ``clear_frac`` leaves that fraction of columns cloud-free."""
+    rng = np.random.default_rng(seed)
+    npdt = np.float32 if np.dtype(dtype) == np.float32 else np.float64
+    lo = 3 + rng.integers(0, 3, ncol)
+    first = int(round(clear_frac * ncol))
+    ncld = ncol - first
+    cols = np.arange(first, ncol)
+    rows = np.minimum(lo[cols, None] + np.arange(4), nlay - 1)  # (ncld, 4)
+    if ncld:
+        m = rng.random((ncld, 4, ngpt)) < 0.6
+        cw = 25.0 + 20.0 * rng.random((ncld, 1, 1))
+        ci = 5.0 * rng.random((ncld, 1, 1))
+    else:
+        m = np.zeros((0, 4, ngpt), bool)
+        cw = ci = np.zeros((0, 1, 1))
+
+    def arr(x):
+        return np.asarray(x, dtype)
+
+    gp = -(-ngpt // 8) * 8
+    mask = np.zeros((nlay, gp, ncol), npdt if mask_dtype is None
+                    else mask_dtype)
+    for j in range(4):                 # only the ~4 cloudy layers
+        mask[rows[:, j], :ngpt, cols] = m[:, j, :]
+    anyc = m.any(axis=2)                        # (ncld, 4)
+    ciwp_l = np.zeros((ncol, nlay))
+    clwp_l = np.zeros((ncol, nlay))
+    ciwp_l[cols[:, None], rows] = np.where(anyc, ci[:, :, 0], 0.0)
+    clwp_l[cols[:, None], rows] = np.where(anyc, cw[:, :, 0], 0.0)
+    return McicaCloudsCompact(
+        cldfmc=mask, ciwp=arr(ciwp_l), clwp=arr(clwp_l),
+        reicmc=arr(np.full((ncol, nlay), 30.0)),
+        relqmc=arr(np.full((ncol, nlay), 10.0)))

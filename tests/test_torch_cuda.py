@@ -1,0 +1,169 @@
+"""The four CUDA kernels of rrtmg_lw_torch against their plain PyTorch
+versions on the card, at small and ragged shapes (chip_smoke.py covers
+the main-path shapes), plus the wrappers' input checks and launch
+counters.
+
+Marked ``cuda``: every test skips without a CUDA device.  This file
+imports no JAX, so it also runs on a machine with a GPU and no JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances are chip_smoke.py's: 1e-6 relative (Planck, cloud
+coefficients), 3.05e-5 (taug relative with |ref| floored at 1e-2,
+fracs absolute) with every interpolation bin equal, 2e-5 of each
+column's max |flux| (RT sweep, model).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rrtmg_lw_torch import Atmosphere, LWConfig, McicaCloudsCompact, make_model
+from rrtmg_lw_torch.ops import cldprop, rtrn
+from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_blocked
+from rrtmg_lw_torch.ops.inatm import inatm
+from rrtmg_lw_torch.ops.planck_cuda import planck_interp_blocked
+from rrtmg_lw_torch.ops.rtrn_cuda import rt_fluxes_blocked
+from rrtmg_lw_torch.ops.setcoef import interp_planck_blocked, setcoef
+from rrtmg_lw_torch.ops.taumol_cuda import NBIN, taumol_blocked
+from rrtmg_lw_torch.utils.synthetic import make_atmosphere, make_mcica_clouds
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc")
+    return torch.device("cuda", 0)
+
+
+def _model(dev, icld=2, impl="cuda"):
+    return make_model(LWConfig(icld=icld, imca=1, dtype="float32",
+                               use_lut=False, impl=impl), device=dev)
+
+
+def _case(dev, B, L, clear_frac=0.0, boost=None):
+    atm = Atmosphere.from_numpy(make_atmosphere(B, L, seed=B + L), dev,
+                                torch.float32)
+    clouds = McicaCloudsCompact.from_numpy(
+        make_mcica_clouds(B, L, seed=L, mask_dtype=np.int8,
+                          clear_frac=clear_frac), dev, torch.float32)
+    prof = inatm(atm, torch.float32)
+    if boost is not None:
+        prof = prof._replace(wkl=prof.wkl * torch.as_tensor(
+            boost, dtype=torch.float32, device=dev))
+    return atm, clouds, prof
+
+
+def flux_err(a, b):
+    diff = (a.double() - b.double()).abs().flatten(0, -2).amax(0)
+    scale = a.double().abs().flatten(0, -2).amax(0).clamp(min=1.0)
+    return float((diff / scale).max())
+
+
+@pytest.mark.parametrize("N,B", [(1, 1), (7, 37), (61, 300)])
+def test_planck_kernel_matches_plain(dev, N, B):
+    model = _model(dev)
+    temp = 150.0 + 200.0 * torch.rand((N, B), device=dev)   # both clamps
+    got = planck_interp_blocked(temp, model.totplnk)
+    ref = interp_planck_blocked(temp, model.totplnk)
+    assert got.shape == (N, 16, B)
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("iceflag", [2, 3])
+def test_cldcoef_kernel_matches_plain(dev, iceflag):
+    model = _model(dev)
+    reic = torch.cat([torch.linspace(1.0, 150.0, 300),
+                      torch.tensor([5.0, 131.0, 140.0, 3 * 46 + 2.0])])
+    relq = torch.cat([torch.linspace(0.5, 65.0, 300),
+                      torch.tensor([1.5, 2.0, 59.5, 60.0])])
+    reic = reic.reshape(8, 38).to(dev)
+    relq = relq.reshape(8, 38).to(dev)
+    static = model.static_tensors()
+    got = ice_liq_coeffs_blocked(reic, relq, iceflag, 1, static)
+    ref = cldprop.ice_liq_coeffs_blocked(reic, relq, iceflag, 1, static)
+    for g, r in zip(got, ref):
+        assert g.shape == (38, 16, 8)
+        assert float((g - r).abs().max() / r.abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("B,L,boost", [(37, 23, None), (1, 60, None),
+                                       (64, 40, (1, 8, 1, 50, 1, 20, 1))])
+def test_taumol_kernel_matches_plain(dev, B, L, boost):
+    model = _model(dev)
+    _, _, prof = _case(dev, B, L, boost=boost)
+    sc = setcoef(prof, model.static_tensors(), planck=False)
+    bins = torch.empty((16, NBIN, L, B), dtype=torch.int32, device=dev)
+    tg, fr = taumol_blocked(sc, prof, model.engine, model.kernel_tabs,
+                            model.kernel_desc, bins=bins)
+    tg_p, fr_p = model.engine.blocked(sc, prof)
+    assert torch.equal(bins, model.engine.bins(sc, prof))
+    e_t = ((tg.double() - tg_p.double()).abs()
+           / tg_p.double().abs().clamp(min=1e-2)).max()
+    assert float(e_t) <= 3.05e-5
+    assert float((fr - fr_p).abs().max()) <= 3.05e-5
+
+
+@pytest.mark.parametrize("B,L,clear_frac", [(37, 13, 0.0), (5, 1, 0.0),
+                                            (96, 30, 0.5)])
+def test_rt_kernel_matches_plain(dev, B, L, clear_frac):
+    model = _model(dev)
+    _, clouds, prof = _case(dev, B, L, clear_frac=clear_frac)
+    static = model.static_tensors()
+    sc = setcoef(prof, static, planck=False)
+    tg, fr = model.engine.blocked(sc, prof)
+    play = interp_planck_blocked(prof.tavel.t().contiguous(), model.totplnk)
+    plev = interp_planck_blocked(prof.tz.t().contiguous(), model.totplnk)
+    abi, abl = cldprop.ice_liq_coeffs_blocked(clouds.reicmc, clouds.relqmc,
+                                              3, 1, static)
+    cw = torch.stack([clouds.ciwp.t(), clouds.clwp.t()], 1).contiguous()
+    for fields in (None, (clouds.cldfmc, cw, abi, abl)):
+        args = (tg, fr, play, plev, sc.plankbnd, prof.semiss, prof.pwvcm,
+                model.ngb0, model.wg, fields)
+        got = rt_fluxes_blocked(*args)
+        ref = rtrn.rt_fluxes_blocked(*args)
+        assert got.shape == (4, L + 1, B)
+        assert torch.isfinite(got).all()
+        assert flux_err(ref, got) <= 2e-5
+
+
+@pytest.mark.parametrize("icld", [0, 2])
+def test_model_cuda_matches_eager(dev, icld):
+    atm, clouds, _ = _case(dev, 200, 30)
+    cl = clouds if icld else None
+    fk = _model(dev, icld)(atm, cl)
+    fe = _model(dev, icld, impl="eager")(atm, cl)
+    for name in ("uflx", "dflx", "uflxc", "dflxc"):
+        assert flux_err(getattr(fe, name).t(), getattr(fk, name).t()) <= 2e-5
+    if icld:
+        assert torch.equal(fk.cld_bounds_ok, fe.cld_bounds_ok)
+
+
+def test_launch_counters_count_kernel_launches(dev):
+    wrappers = (taumol_blocked, planck_interp_blocked,
+                ice_liq_coeffs_blocked, rt_fluxes_blocked)
+    atm, clouds, _ = _case(dev, 64, 10)
+    before = [w.launches for w in wrappers]
+    _model(dev, 2)(atm, clouds)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 2, 1, 1]
+    before = [w.launches for w in wrappers]
+    _model(dev, 2, impl="eager")(atm, clouds)
+    assert [w.launches for w in wrappers] == before
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    model = _model(dev)
+    temp = torch.full((3, 8), 250.0, device=dev)
+    with pytest.raises(TypeError):
+        planck_interp_blocked(temp.double(), model.totplnk)
+    with pytest.raises(ValueError):
+        planck_interp_blocked(torch.full((8, 3), 250.0, device=dev).t(),
+                              model.totplnk)
+    with pytest.raises(ValueError):
+        planck_interp_blocked(temp, model.totplnk[:100])
+    with pytest.raises(NotImplementedError):
+        ice_liq_coeffs_blocked(temp, temp, 0, 1, model.static_tensors())
+    with pytest.raises(ValueError):
+        make_model(LWConfig(icld=0, use_lut=False, impl="cuda"), device=dev)

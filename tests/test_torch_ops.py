@@ -1,0 +1,266 @@
+"""Each module of the PyTorch port that holds a kernel, in its plain
+PyTorch version, against the JAX package's XLA counterpart in float64 on
+the same seeded numpy inputs: inatm, setcoef (+ the Planck plain
+version), the cloud coefficients, taumol and the RT sweep.
+
+Tolerance: 1e-12 relative (float64; the two sides run the same
+operations, in different orders only inside reductions), integer
+indices exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from rrtmg_lw_tpu import LWConfig as JConfig, make_model as jmake_model
+from rrtmg_lw_tpu.ops import cldprop as jcldprop
+from rrtmg_lw_tpu.ops import rtrn as jrtrn
+from rrtmg_lw_tpu.ops import setcoef as jsetcoef
+from rrtmg_lw_tpu.ops.inatm import inatm as jinatm
+from rrtmg_lw_tpu.utils import synthetic as jsyn
+
+from rrtmg_lw_torch import Atmosphere, LWConfig, McicaCloudsCompact, make_model
+from rrtmg_lw_torch.data.ktables import tables_from_numpy
+from rrtmg_lw_torch.ops import cldprop, rtrn, setcoef
+from rrtmg_lw_torch.ops.inatm import inatm
+from rrtmg_lw_torch.utils import synthetic as tsyn
+
+torch.set_num_threads(1)
+
+B, L = 8, 20
+RTOL = 1e-12
+INT_FIELDS = ("laytrop_mask", "jp", "jt", "jt1", "indself", "indfor",
+              "indminor")
+
+
+def assert_rel(got, ref, tol=RTOL, name=""):
+    """max |got - ref| <= tol * max |ref| (exact zeros must match)."""
+    got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got)
+    ref = np.asarray(ref)
+    assert got.shape == ref.shape, (name, got.shape, ref.shape)
+    scale = np.abs(ref).max()
+    err = np.abs(got - ref).max()
+    assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """The JAX model (XLA engines, f64) and the port built from its
+    tables, with both packages' profile and setcoef outputs."""
+    jm = jmake_model(JConfig(icld=2, imca=1, use_lut=False,
+                             taumol_impl="xla", rt_impl="xla"))
+    tm = make_model(LWConfig(icld=2, imca=1, use_lut=False),
+                    tables=tables_from_numpy(jm.ktables, jm.static_np))
+    jprof = jinatm(jsyn.make_atmosphere(B, L), dtype=jnp.float64)
+    tprof = inatm(Atmosphere.from_numpy(tsyn.make_atmosphere(B, L)))
+    return dict(jm=jm, tm=tm, jprof=jprof, tprof=tprof,
+                jsc=jsetcoef.setcoef(jprof, jm.static),
+                tsc=setcoef.setcoef(tprof, tm.static_tensors()))
+
+
+def test_inatm_matches_jax(pair):
+    for name in pair["tprof"]._fields:
+        assert_rel(getattr(pair["tprof"], name),
+                   getattr(pair["jprof"], name), name=name)
+
+
+def test_setcoef_matches_jax(pair):
+    tsc, jsc = pair["tsc"], pair["jsc"]
+    assert bool(tsc.laytrop_mask.any()) and not bool(tsc.laytrop_mask.all())
+    for name in tsc._fields:
+        got, ref = getattr(tsc, name), np.asarray(getattr(jsc, name))
+        if name in INT_FIELDS:
+            assert got.dtype in (torch.int32, torch.bool), name
+            np.testing.assert_array_equal(got.numpy(), ref, err_msg=name)
+        else:
+            assert_rel(got, ref, name=name)
+
+
+def test_planck_plain_matches_jax(pair):
+    tprof, jsc = pair["tprof"], pair["jsc"]
+    tot = pair["tm"].totplnk
+    got = setcoef.interp_planck_blocked(tprof.tavel.t().contiguous(), tot)
+    assert_rel(got, np.asarray(jsc.planklay).transpose(1, 2, 0))
+    got = setcoef.interp_planck_blocked(tprof.tz.t().contiguous(), tot)
+    assert_rel(got, np.asarray(jsc.planklev).transpose(1, 2, 0))
+    # the clamped ends of the table (ind = 1 and 180) extrapolate
+    temp = np.array([[100.0, 159.0, 159.5, 160.0, 250.25, 339.0, 339.9,
+                      345.0]])
+    ind, frac = jsetcoef._planck_index(jnp.asarray(temp))
+    ref = jsetcoef._interp_planck(jnp.asarray(pair["jm"].static_np[
+        "totplnk"]), ind, frac)
+    got = setcoef.interp_planck_blocked(torch.as_tensor(temp), tot)
+    assert_rel(got, np.asarray(ref).transpose(0, 2, 1))
+
+
+def _radii():
+    """Effective radii across both tables, the clamps and the index
+    special cases (ice index == nmax, liquid index 0 and 58)."""
+    reic = np.concatenate([np.linspace(1.0, 150.0, 57),
+                           [2.0, 5.0, 131.0, 140.0, 3 * 43 + 2.0,
+                            3 * 46 + 2.0, 3 * 46 + 2.5]])
+    relq = np.concatenate([np.linspace(0.5, 65.0, 57),
+                           [1.5, 2.0, 2.5, 59.5, 60.0, 59.9, 61.0]])
+    return reic.reshape(8, 8), relq.reshape(8, 8)
+
+
+@pytest.mark.parametrize("iceflag", [2, 3])
+def test_cloud_coeffs_plain_match_jax(pair, iceflag):
+    reic, relq = _radii()
+    static_np = pair["jm"].static_np
+    ji, jl, jok = jcldprop._ice_liq_coeffs(
+        jnp.asarray(reic), jnp.asarray(relq), iceflag, 1, static_np,
+        jnp.float64)
+    static = pair["tm"].static_tensors()
+    ti, tl, tok = cldprop._ice_liq_coeffs(torch.as_tensor(reic),
+                                          torch.as_tensor(relq), iceflag, 1,
+                                          static)
+    assert_rel(ti, ji, name="abscoice")
+    assert_rel(tl, jl, name="abscoliq")
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    assert not tok.all() and tok.any()
+
+    # the blocked (L, 16, B) form the RT sweep reads
+    clouds = McicaCloudsCompact(None, None, None, torch.as_tensor(reic),
+                                torch.as_tensor(relq))
+    ai, al, ok = cldprop.cloud_optics_bands_blocked(
+        clouds, static, iceflag=iceflag, liqflag=1)
+    jclouds = jsyn.make_mcica_clouds(8, 8, layout="compact")._replace(
+        reicmc=jnp.asarray(reic), relqmc=jnp.asarray(relq))
+    jai, jal, jok2 = jcldprop.cloud_optics_bands_blocked(
+        jclouds, static_np, iceflag=iceflag, liqflag=1, use_pallas=False)
+    assert_rel(ai, jai)
+    assert_rel(al, jal)
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jok2))
+
+
+def test_cloud_coeffs_unported_flags_raise(pair):
+    reic, relq = (torch.full((2, 3), 20.0) for _ in range(2))
+    static = pair["tm"].static_tensors()
+    for ice, liq in ((0, 1), (1, 1), (3, 0)):
+        with pytest.raises(NotImplementedError):
+            cldprop._ice_liq_coeffs(reic, relq, ice, liq, static)
+
+
+def _band_slices():
+    from rrtmg_lw_torch.ops.taumol import NG
+    ofs = np.concatenate([[0], np.cumsum(NG)])
+    return {b: slice(ofs[b - 1], ofs[b]) for b in range(1, 17)}
+
+
+@pytest.mark.parametrize("case", ["plain", "chi_slot"])
+def test_taumol_plain_matches_jax(pair, case):
+    """Every band and region; "chi_slot" boosts CO2/N2O/CH4 past the
+    minor-gas over-abundance thresholds, so the adjustment branch with
+    the chi_mls(gas, jp+1) reference is taken (taumol.f90:548)."""
+    jprof, tprof = pair["jprof"], pair["tprof"]
+    jm, tm = pair["jm"], pair["tm"]
+    if case == "chi_slot":
+        boost = np.ones(7)
+        boost[1], boost[3], boost[5] = 8.0, 50.0, 20.0
+        jprof = jprof._replace(wkl=jprof.wkl * boost)
+        tprof = tprof._replace(wkl=tprof.wkl * torch.as_tensor(boost))
+        jsc = jsetcoef.setcoef(jprof, jm.static)
+        tsc = setcoef.setcoef(tprof, tm.static_tensors())
+    else:
+        jsc, tsc = pair["jsc"], pair["tsc"]
+    jt, jf = jm.engine(jsc, jprof)
+    tt, tf = tm.engine(tsc, tprof)
+    jt, jf = np.asarray(jt), np.asarray(jf)
+    upper = ~tsc.laytrop_mask.numpy()
+    assert upper.any() and (~upper).any()
+    for b, sl in _band_slices().items():
+        assert_rel(tt[..., sl], jt[..., sl], name=f"taug band {b}")
+        assert_rel(tf[..., sl], jf[..., sl], name=f"fracs band {b}")
+    # band 16 upper: nspb(16)=0 pins the absb rows (taumol.f90:195-196)
+    sl = _band_slices()[16]
+    assert_rel(tt.numpy()[upper][:, sl], jt[upper][:, sl])
+    # the kernel layout and the bins the kernel must reproduce
+    tg_t, fr_t = tm.engine.blocked(tsc, tprof)
+    assert torch.equal(tg_t, tt.permute(1, 2, 0))
+    bins = tm.engine.bins(tsc, tprof)
+    assert bins.shape == (16, 4, L, B) and bins.dtype == torch.int32
+    assert (bins[11, :, upper.T] == -1).all()      # band 12 upper is zero
+
+
+def _per_g_clouds(seed):
+    rng = np.random.default_rng(seed)
+    cldf = (rng.random((B, L, 140)) < 0.3).astype(np.float64)
+    cldf[:, L // 2:] = 0.0                        # clear above mid-column
+    odcld = rng.random((B, L, 140)) * 3.0
+    return cldf, odcld
+
+
+@pytest.mark.parametrize("cloudy", [False, True])
+def test_rt_plain_matches_jax(pair, cloudy):
+    jm, jsc, jprof = pair["jm"], pair["jsc"], pair["jprof"]
+    tm, tsc, tprof = pair["tm"], pair["tsc"], pair["tprof"]
+    jt, jf = jm.engine(jsc, jprof)
+    taut = np.asarray(jt) + 0.01
+    cldf, odcld = _per_g_clouds(5) if cloudy else \
+        (np.zeros((B, L, 140)),) * 2
+    gate = cldf >= 0.5
+    ref = jrtrn.rt_random_overlap(
+        jnp.asarray(taut), jf, jsc.planklay, jsc.planklev, jsc.plankbnd,
+        jsc.dplankbnd_dt, jprof.semiss, jprof.pwvcm, jprof.pz,
+        jnp.asarray(cldf), jnp.asarray(odcld),
+        cloudy_lay=jnp.asarray(gate.any(-1)), cld_gate=jnp.asarray(gate),
+        static=jm.static_np, luts=None, use_lut=False,
+        heatfac_val=jm.heatfac)
+    t = torch.as_tensor
+    got = rtrn.rt_random_overlap(
+        t(taut), t(np.array(jf)), tsc.planklay, tsc.planklev, tsc.plankbnd,
+        tprof.semiss, tprof.pwvcm, tprof.pz, t(cldf), t(odcld),
+        cloudy_lay=t(gate.any(-1)), cld_gate=t(gate), static=tm.static_np,
+        heatfac_val=tm.heatfac)
+    for name in got._fields:
+        assert_rel(getattr(got, name), getattr(ref, name), name=name)
+    if cloudy:                      # the clear twin leaves the cloudy stream
+        assert not np.allclose(np.asarray(ref.totuflux),
+                               np.asarray(ref.totuclfl))
+
+
+def test_rt_sweep_plain_compact_matches_jax(pair):
+    """The plain version of the RT kernel on its own layouts with the
+    compact McICA fields, against the JAX path for the same clouds
+    (compact -> per-g products -> cldprmc -> rt_random_overlap)."""
+    jm, jsc, jprof = pair["jm"], pair["jsc"], pair["jprof"]
+    tm, tsc, tprof = pair["tm"], pair["tsc"], pair["tprof"]
+    jcl = jsyn.make_mcica_clouds(B, L, layout="compact", mask_dtype=np.int8)
+    tcl = McicaCloudsCompact.from_numpy(
+        tsyn.make_mcica_clouds(B, L, mask_dtype=np.int8))
+    jt, jf = jm.engine(jsc, jprof)
+    jtaut = jt + jprof.taua[..., jm.ngb0]
+    batch = jcl.to_blocked().to_batch()
+    taucmc, _ = jcldprop.cldprmc(batch, jm.static_np, inflag=2, iceflag=3,
+                                 liqflag=1)
+    gate = batch.cldfmc >= 0.5
+    ref = jrtrn.rt_random_overlap(
+        jtaut, jf, jsc.planklay, jsc.planklev, jsc.plankbnd,
+        jsc.dplankbnd_dt, jprof.semiss, jprof.pwvcm, jprof.pz, batch.cldfmc,
+        taucmc, cloudy_lay=gate.any(-1), cld_gate=gate,
+        static=jm.static_np, luts=None, use_lut=False,
+        heatfac_val=jm.heatfac)
+
+    def blocked(x):
+        return torch.as_tensor(np.array(x)).permute(1, 2, 0).contiguous()
+
+    abi, abl, _ = cldprop.cloud_optics_bands_blocked(
+        tcl, tm.static_tensors(), iceflag=3, liqflag=1)
+    cw = torch.stack([tcl.ciwp.t(), tcl.clwp.t()], 1).contiguous()
+    out = rtrn.rt_fluxes_blocked(
+        blocked(jtaut), blocked(jf), blocked(jsc.planklay),
+        blocked(jsc.planklev), tsc.plankbnd, tprof.semiss, tprof.pwvcm,
+        tm.ngb0, tm.wg, (tcl.cldfmc, cw, abi, abl))
+    assert out.shape == (4, L + 1, B)
+    for i, name in enumerate(("totuflux", "totdflux", "totuclfl",
+                              "totdclfl")):
+        assert_rel(out[i].t(), getattr(ref, name), name=name)
+
+
+def test_rt_lut_unported(pair):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rtrn._gas_factors(torch.ones(3), use_lut=True)

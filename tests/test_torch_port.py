@@ -1,0 +1,262 @@
+"""The PyTorch port's scaffold against the JAX package: no JAX import,
+the same band descriptions, constants, tables and synthetic inputs, the
+taumol kernel's descriptor layout, and the CPU dispatch of every CUDA
+kernel wrapper (no nvcc here: a CPU tensor must reach the plain
+version and never the kernel library)."""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import rrtmg_lw_tpu.constants as jconst
+from rrtmg_lw_tpu.data import ktables as jkt
+from rrtmg_lw_tpu.ops import taumol as jtaumol
+from rrtmg_lw_tpu.utils import synthetic as jsyn
+
+import rrtmg_lw_torch.constants as tconst
+from rrtmg_lw_torch import LWConfig, make_model
+from rrtmg_lw_torch import _build
+from rrtmg_lw_torch.data import ktables as tkt
+from rrtmg_lw_torch.ops import taumol as ttaumol
+from rrtmg_lw_torch.ops import taumol_cuda
+from rrtmg_lw_torch.utils import synthetic as tsyn
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_never_imports_jax():
+    code = ("import sys, pkgutil, importlib, rrtmg_lw_torch\n"
+            "for m in pkgutil.walk_packages(rrtmg_lw_torch.__path__, "
+            "'rrtmg_lw_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "import chip_smoke\n"
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'rrtmg_lw_tpu'))]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def _spec_dicts(specs):
+    return [dataclasses.asdict(s) for s in specs]
+
+
+def test_band_specs_equal_jax():
+    assert _spec_dicts(ttaumol.BAND_SPECS) == _spec_dicts(jtaumol.BAND_SPECS)
+    assert (ttaumol.NG, ttaumol.NSPA, ttaumol.NSPB) == \
+        (jtaumol.NG, jtaumol.NSPA, jtaumol.NSPB)
+    assert ttaumol._GAS_CHI == jtaumol._GAS_CHI
+
+
+def test_constants_equal_jax():
+    names = [n for n in dir(jconst) if n.isupper()]
+    assert names
+    for n in names:
+        np.testing.assert_array_equal(getattr(tconst, n), getattr(jconst, n),
+                                      err_msg=n)
+    assert tconst.heatfac(1003.5) == jconst.heatfac(1003.5)
+
+
+def test_assets_load_like_jax():
+    kt_t, real_t = tkt.load_ktables()
+    kt_j, real_j = jkt.load_ktables()
+    assert real_t == real_j
+    assert kt_t.keys() == kt_j.keys()
+    for bk in kt_j:
+        assert kt_t[bk].keys() == kt_j[bk].keys()
+        for name, arr in kt_j[bk].items():
+            np.testing.assert_array_equal(kt_t[bk][name], arr)
+    st_t, st_j = tkt.load_static(), jkt.load_static()
+    assert st_t.keys() == st_j.keys()
+    for k in st_j:
+        np.testing.assert_array_equal(st_t[k], st_j[k])
+
+
+def test_tables_from_numpy_round_trips():
+    from rrtmg_lw_tpu import LWConfig as JConfig, make_model as jmake_model
+    jm = jmake_model(JConfig(taumol_impl="xla", rt_impl="xla"))
+    kt, static = jm.ktables, jm.static_np
+    tabs = tkt.tables_from_numpy(kt, static, "cpu", torch.float64)
+    kt2, st2 = tabs.to_numpy()
+    for bk in kt:
+        for name, arr in kt[bk].items():
+            np.testing.assert_array_equal(kt2[bk][name], arr)
+    for k in static:
+        np.testing.assert_array_equal(st2[k], static[k])
+    # the kernel's flat float32 buffer holds every table at its offset
+    flat = tabs.kernel_tabs.numpy()
+    assert flat.dtype == np.float32
+    for (bk, name), off in tabs.kernel_offsets.items():
+        if bk == "chi":
+            src = static["chi_mls"]
+        elif name == "_abs":
+            src = np.concatenate([kt[bk]["absa"]]
+                                 + ([kt[bk]["absb"]] if "absb" in kt[bk]
+                                    else []))
+        elif name.startswith("_post"):
+            continue
+        else:
+            src = kt[bk][name]
+        np.testing.assert_array_equal(
+            flat[off:off + src.size], src.astype(np.float32).reshape(-1),
+            err_msg=f"{bk}/{name}")
+    # and a model built from them runs
+    model = make_model(LWConfig(icld=0, use_lut=False), tables=tabs)
+    assert model.is_real_kdata
+
+
+@pytest.mark.parametrize("seed,clear_frac", [(0, 0.0), (3, 0.25)])
+def test_synthetic_bitwise_equal_jax(seed, clear_frac):
+    for dt in (np.float64, np.float32):
+        a_t = tsyn.make_atmosphere(ncol=6, nlay=17, seed=seed, dtype=dt,
+                                   aod=0.1)
+        a_j = jsyn.make_atmosphere(ncol=6, nlay=17, seed=seed, dtype=dt,
+                                   aod=0.1)
+        for name in a_j._fields:
+            x, y = getattr(a_t, name), getattr(a_j, name)
+            assert x.dtype == y.dtype, name
+            np.testing.assert_array_equal(x, y, err_msg=name)
+        c_t = tsyn.make_mcica_clouds(ncol=6, nlay=17, seed=seed + 2, dtype=dt,
+                                     mask_dtype=np.int8,
+                                     clear_frac=clear_frac)
+        c_j = jsyn.make_mcica_clouds(ncol=6, nlay=17, seed=seed + 2, dtype=dt,
+                                     layout="compact", mask_dtype=np.int8,
+                                     clear_frac=clear_frac)
+        for name in c_j._fields:
+            x, y = getattr(c_t, name), getattr(c_j, name)
+            assert x.dtype == y.dtype and x.shape == y.shape, name
+            np.testing.assert_array_equal(x, y, err_msg=name)
+
+
+def _c_enum(src, name):
+    body = re.search(r"enum " + name + r" \{(.*?)\};", src, re.S).group(1)
+    return [t.strip() for t in body.replace("\n", " ").split(",")
+            if t.strip()]
+
+
+def test_taumol_descriptor_layout_matches_cuda_source():
+    src = open(os.path.join(REPO, "rrtmg_lw_torch", "csrc",
+                            "taumol.cu")).read()
+    assert _c_enum(src, "FloatField") == \
+        ["F_" + f.upper() for f in taumol_cuda.FLOAT_FIELDS] + ["NF"]
+    assert _c_enum(src, "IntField") == \
+        ["I_" + f.upper() for f in taumol_cuda.INT_FIELDS] + ["NI"]
+    assert _c_enum(src, "Desc") == \
+        ["D_" + f for f in taumol_cuda.DESC_FIELDS] + ["NDESC"]
+    assert re.search(r"NBIN = %d;" % taumol_cuda.NBIN, src)
+    assert len(ttaumol.BIN_SLOTS) == taumol_cuda.NBIN
+
+
+def test_taumol_descriptors_cover_band_specs():
+    kt, _ = jkt.load_ktables()
+    _, desc, _ = taumol_cuda.pack_tables(kt, jkt.load_static())
+    D = {n: i for i, n in enumerate(taumol_cuda.DESC_FIELDS)}
+    goff = 0
+    for bspec in ttaumol.BAND_SPECS:
+        for r, spec in enumerate((bspec.lower, bspec.upper)):
+            d = desc[bspec.band - 1, r]
+            assert d[D["GOFF"]] == goff and d[D["NGB"]] == ttaumol.NG[
+                bspec.band - 1]
+            assert d[D["ZERO"]] == int(spec.zero)
+            if spec.zero:
+                continue
+            assert d[D["NMINOR"]] == len(spec.minors)
+            assert d[D["NCFC"]] == len(spec.cfcs)
+            assert d[D["FRAC_ETA"]] == int(spec.frac_eta is not None)
+            assert (d[D["POST_OFF"]] >= 0) == bool(spec.postscale)
+        goff += ttaumol.NG[bspec.band - 1]
+    # band 16 upper keeps nspb = 0 (taumol.f90:195-196)
+    assert desc[15, 1, D["NSP"]] == 0
+    assert goff == 140
+
+
+def test_config_impl_resolution():
+    assert LWConfig().resolve_impl("cpu") == "eager"
+    assert LWConfig(impl="eager").resolve_impl("cpu") == "eager"
+    with pytest.raises(ValueError):
+        LWConfig(impl="cuda").resolve_impl("cpu")
+    with pytest.raises(ValueError):
+        LWConfig(impl="pallas").resolve_impl("cpu")
+    assert LWConfig(dtype="float32").torch_dtype == torch.float32
+    with pytest.raises(ValueError):
+        make_model(LWConfig(impl="cuda", use_lut=False))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(idrv=1), dict(use_lut=True), dict(icld=1, imca=0),
+    dict(icld=2, imca=0), dict(icld=3, imca=0), dict(istart=16),
+    dict(icld=2, inflag=0)])
+def test_unported_configs_raise(kw):
+    cfg = dict(use_lut=False)
+    cfg.update(kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_model(LWConfig(**cfg))
+
+
+def test_build_hash_covers_sources():
+    names = {p.name for p in _build.sources()}
+    assert {"planck.cu", "cldcoef.cu", "taumol.cu", "rtrn.cu",
+            "rrtm.cuh"} <= names
+    assert _build.source_hash() == _build.source_hash()
+    assert "-fmad=false" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_cuda_wrappers_send_cpu_tensors_to_plain_versions(monkeypatch):
+    from rrtmg_lw_torch import Atmosphere, McicaCloudsCompact
+    from rrtmg_lw_torch.ops import cldcoef_cuda, cldprop, planck_cuda, rtrn
+    from rrtmg_lw_torch.ops import rtrn_cuda, setcoef
+    from rrtmg_lw_torch.ops.inatm import inatm
+
+    def no_kernels(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA kernel library")
+    monkeypatch.setattr(_build, "library", no_kernels)
+    monkeypatch.setattr(_build, "launch", no_kernels)
+    wrappers = (planck_cuda.planck_interp_blocked,
+                cldcoef_cuda.ice_liq_coeffs_blocked,
+                taumol_cuda.taumol_blocked, rtrn_cuda.rt_fluxes_blocked)
+    before = [w.launches for w in wrappers]
+
+    B, L = 5, 9
+    model = make_model(LWConfig(icld=2, use_lut=False))
+    atm = Atmosphere.from_numpy(tsyn.make_atmosphere(B, L))
+    cl = McicaCloudsCompact.from_numpy(
+        tsyn.make_mcica_clouds(B, L, mask_dtype=np.int8))
+    prof = inatm(atm)
+    static = model.static_tensors()
+    sc = setcoef.setcoef(prof, static, planck=False)
+
+    temp = prof.tz.t().contiguous()
+    assert torch.equal(planck_cuda.planck_interp_blocked(temp, model.totplnk),
+                       setcoef.interp_planck_blocked(temp, model.totplnk))
+    got = cldcoef_cuda.ice_liq_coeffs_blocked(cl.reicmc, cl.relqmc, 3, 1,
+                                              static)
+    ref = cldprop.ice_liq_coeffs_blocked(cl.reicmc, cl.relqmc, 3, 1, static)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    bins = torch.empty((16, taumol_cuda.NBIN, L, B), dtype=torch.int32)
+    tg, fr = taumol_cuda.taumol_blocked(sc, prof, model.engine,
+                                        model.kernel_tabs, model.kernel_desc,
+                                        bins=bins)
+    tg_p, fr_p = model.engine.blocked(sc, prof)
+    assert torch.equal(tg, tg_p) and torch.equal(fr, fr_p)
+    assert torch.equal(bins, model.engine.bins(sc, prof))
+    play = setcoef.interp_planck_blocked(prof.tavel.t().contiguous(),
+                                         model.totplnk)
+    plev = setcoef.interp_planck_blocked(temp, model.totplnk)
+    cw = torch.stack([cl.ciwp.t(), cl.clwp.t()], 1).contiguous()
+    for fields in (None, (cl.cldfmc, cw, *ref)):
+        args = (tg, fr, play, plev, sc.plankbnd, prof.semiss, prof.pwvcm,
+                model.ngb0, model.wg, fields)
+        assert torch.equal(rtrn_cuda.rt_fluxes_blocked(*args),
+                           rtrn.rt_fluxes_blocked(*args))
+    assert [w.launches for w in wrappers] == before
