@@ -1,8 +1,9 @@
 """Builds the hand-written CUDA kernels and binds them with ctypes.
 
-``csrc/*.cu`` compile with ``nvcc`` into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), at
-first use, into ``build/rrtmg_lw_torch/<hash>/`` beside the package;
+``csrc/*.cu`` compile with ``nvcc``, one process per source, all
+started together, and link into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), at first
+use, into ``build/rrtmg_lw_torch/<hash>/`` beside the package;
 the hash covers the sources and the flags, so an edited kernel
 rebuilds.  Every entry point takes raw device pointers and the CUDA
 stream as ``c_void_p`` and returns ``cudaGetLastError()`` after its
@@ -35,16 +36,18 @@ LIB_NAME = "librrtmg_lw_torch.so"
 # plain PyTorch version, which rounds op by op.  No --use_fast_math: it
 # changes expf and division.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 P, I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "rrtm_planck": (P, P, P, I, I, P),
+    "rrtm_planck_bwd": (P, P, P, P, I, I, P),
     "rrtm_cldcoef": (P, P, P, P, P, P, I, I, I, P),
     "rrtm_taumol": (P, P, P, P, P, P, P, I, I, P),
+    "rrtm_taumol_bwd": (P, P, P, P, P, P, P, I, I, P),
     "rrtm_rt": (P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, P),
+    "rrtm_rt_bwd": (P,) * 21 + (I, I, I, P),
     "rrtm_taumol_ndesc": (),
 }
 
@@ -82,17 +85,36 @@ def build() -> tuple[pathlib.Path, float]:
     if lib.exists():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
+    tag = os.getpid()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all at once, then one link
+    jobs = []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out[-4000:])
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    if not failed:
+        cmd = [nvcc(), "-shared", "-gencode", NVCC_FLAGS[1], "-o", str(tmp),
+               *[str(obj) for _, obj, _ in jobs]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stderr[-4000:])
     secs = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           + res.stderr[-4000:])
+    (out_dir / "build.log").write_text("\n".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)                # atomic against a parallel build
     return lib, secs
 

@@ -34,118 +34,11 @@
 // sweep forms cloudy_lay per layer with a warp ballot OR-ed into shared
 // memory before any g of the layer is updated, keeps it for the up
 // sweep, and carries iclddn as a running OR from the top.
-#include <stdint.h>
-
-#include "rrtm.cuh"
+#include "rtrn.cuh"
 
 namespace {
 
-constexpr int NX = 32;                                  // columns per block
-constexpr int NY = 16;                                  // g-lanes per column
-constexpr int GPT = (rrtm::NGPT + NY - 1) / NY;         // g-points per thread
-constexpr float CLDMIN = 1.0e-20f;
-constexpr float REC_6 = 0.166667f;
-
-// rtrn._gas_factors: absorptivity and Planck transition, small-od branch
-// for od <= 0.06.
-__device__ __forceinline__ void gas_factors(float od, float& a, float& tf) {
-    if (od <= 0.06f) {
-        a = od - 0.5f * od * od;
-        tf = REC_6 * od;
-    } else {
-        const float e = expf(-od);
-        a = 1.0f - e;
-        tf = 1.0f - 2.0f * (1.0f / od - e / (1.0f - e));
-    }
-}
-
-// rtrn._tot_factors: the same for gas + cloud, small branch od < 0.06.
-__device__ __forceinline__ void tot_factors(float od, float& a, float& tf) {
-    if (od < 0.06f) {
-        a = od - 0.5f * od * od;
-        tf = REC_6 * od;
-    } else {
-        const float e = expf(-od);
-        a = 1.0f - e;
-        tf = 1.0f - 2.0f * (1.0f / od - e / (1.0f - e));
-    }
-}
-
-struct Inputs {
-    const float* taut;     // (L, 140, B)
-    const float* fracs;    // (L, 140, B)
-    const float* play;     // (L, 16, B)
-    const float* plev;     // (L+1, 16, B)
-    const float* surf;     // (3, 16, B): secdiff, semiss, plankbnd
-    const int8_t* mask;    // (L, 144, B) or null
-    const float* cw;       // (L, 2, B): ciwp, clwp
-    const float* abi;      // (L, 16, B)
-    const float* abl;      // (L, 16, B)
-    int L, B;
-};
-
-// Per (layer, g) factors of one sweep step.  `lev` is the level whose
-// Planck source bounds the step (l for the down sweep, l+1 for up).
-struct Step {
-    float at, atot, ef, cf, src, srctot;
-};
-
-template <bool CLOUDY>
-__device__ __forceinline__ Step layer_step(const Inputs& in, int l, int lev,
-                                           int g, int bd, float secd,
-                                           float mask, float cw0, float cw1,
-                                           int b) {
-    const size_t B = in.B;
-    const size_t gi = ((size_t)l * rrtm::NGPT + g) * B + b;
-    const float fr = in.fracs[gi];
-    const float bl = in.play[((size_t)l * rrtm::NBAND + bd) * B + b];
-    const float dp = in.plev[((size_t)lev * rrtm::NBAND + bd) * B + b] - bl;
-    const float od = fmaxf(secd * in.taut[gi], 0.0f);
-    float tfg;
-    Step s;
-    gas_factors(od, s.at, tfg);
-    s.src = fr * (bl + tfg * dp);
-    s.atot = s.at;
-    s.ef = s.cf = 0.0f;
-    s.srctot = s.src;
-    if (CLOUDY) {
-        // cldprmc on the compact products (mask x per-layer water path)
-        const float cf = mask;
-        const bool gate = cf >= 0.5f;
-        const float ciwp = cw0 * cf;
-        const float clwp = cw1 * cf;
-        const size_t bi = ((size_t)l * rrtm::NBAND + bd) * B + b;
-        const float ai = ciwp == 0.0f ? 0.0f : in.abi[bi];
-        const float al = clwp == 0.0f ? 0.0f : in.abl[bi];
-        const float cwp = ciwp + clwp;
-        const bool active = cf >= CLDMIN && cwp >= CLDMIN;
-        const float odcld = active ? ciwp * ai + clwp * al : 0.0f;
-        const float odce = gate ? secd * odcld : 0.0f;
-        const float abscld = 1.0f - expf(-odce);
-        s.ef = gate ? abscld * cf : 0.0f;
-        s.cf = cf;
-        float tft;
-        tot_factors(od + odce, s.atot, tft);
-        s.srctot = fr * (bl + tft * dp);
-    }
-    return s;
-}
-
-// One level of the total-sky stream and its clear twin (rtrn.py
-// down_step / up_step).  In a cloudy layer (cly) the cloudy recurrence
-// runs for every g of the column; the clear twin follows the clear
-// recurrence where `twin` holds and copies the total-sky stream
-// elsewhere.  Clear sky is cly = twin = false.
-__device__ __forceinline__ void advance(float& rad, float& radc,
-                                        const Step& f, bool cly, bool twin) {
-    const float gs = f.at * f.src;
-    const float rcld = rad - rad * (f.at + f.ef * (1.0f - f.at)) + gs
-                       + f.cf * (f.srctot * f.atot - gs);
-    const float rclr = rad + (f.src - rad) * f.at;
-    const float rn = cly ? rcld : rclr;
-    radc = twin ? radc + (f.src - radc) * f.at : rn;
-    rad = rn;
-}
+using namespace rrtm::rt;
 
 // Sum the g-lanes' partial fluxes of each column in a fixed order and
 // write flux rows f0 (lane 0) and f1 (lane 1) of out (4, L+1, B) at
@@ -166,8 +59,6 @@ __device__ __forceinline__ void reduce_write(float (*part)[NY][NX], float s0,
     }
     __syncthreads();
 }
-
-enum Flux { UP = 0, DOWN = 1, CLR_UP = 2, CLR_DOWN = 3 };
 
 template <bool CLOUDY>
 __global__ void __launch_bounds__(NX * NY)

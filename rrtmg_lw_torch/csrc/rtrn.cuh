@@ -1,0 +1,124 @@
+// Shared by K1 (rtrn.cu) and its adjoint K6 (rtrn_bwd.cu): the block
+// layout, the inputs, and one step of the sweep recurrences of
+// ops/rtrn.py (use_lut=False, the two-division Planck transition).
+#pragma once
+
+#include <stdint.h>
+
+#include "rrtm.cuh"
+
+namespace rrtm {
+namespace rt {
+
+constexpr int NX = 32;                                  // columns per block
+constexpr int NY = 16;                                  // g-lanes per column
+constexpr int GPT = (rrtm::NGPT + NY - 1) / NY;         // g-points per thread
+constexpr float CLDMIN = 1.0e-20f;
+constexpr float REC_6 = 0.166667f;
+
+// rows of the (4, L+1, B) flux output
+enum Flux { UP = 0, DOWN = 1, CLR_UP = 2, CLR_DOWN = 3 };
+
+// rtrn._gas_factors: absorptivity and Planck transition, small-od branch
+// for od <= 0.06.
+__device__ __forceinline__ void gas_factors(float od, float& a, float& tf) {
+    if (od <= 0.06f) {
+        a = od - 0.5f * od * od;
+        tf = REC_6 * od;
+    } else {
+        const float e = expf(-od);
+        a = 1.0f - e;
+        tf = 1.0f - 2.0f * (1.0f / od - e / (1.0f - e));
+    }
+}
+
+// rtrn._tot_factors: the same for gas + cloud, small branch od < 0.06.
+__device__ __forceinline__ void tot_factors(float od, float& a, float& tf) {
+    if (od < 0.06f) {
+        a = od - 0.5f * od * od;
+        tf = REC_6 * od;
+    } else {
+        const float e = expf(-od);
+        a = 1.0f - e;
+        tf = 1.0f - 2.0f * (1.0f / od - e / (1.0f - e));
+    }
+}
+
+struct Inputs {
+    const float* taut;     // (L, 140, B)
+    const float* fracs;    // (L, 140, B)
+    const float* play;     // (L, 16, B)
+    const float* plev;     // (L+1, 16, B)
+    const float* surf;     // (3, 16, B): secdiff, semiss, plankbnd
+    const int8_t* mask;    // (L, 144, B) or null
+    const float* cw;       // (L, 2, B): ciwp, clwp
+    const float* abi;      // (L, 16, B)
+    const float* abl;      // (L, 16, B)
+    int L, B;
+};
+
+// Per (layer, g) factors of one sweep step.  `lev` is the level whose
+// Planck source bounds the step (l for the down sweep, l+1 for up).
+struct Step {
+    float at, atot, ef, cf, src, srctot;
+};
+
+template <bool CLOUDY>
+__device__ __forceinline__ Step layer_step(const Inputs& in, int l, int lev,
+                                           int g, int bd, float secd,
+                                           float mask, float cw0, float cw1,
+                                           int b) {
+    const size_t B = in.B;
+    const size_t gi = ((size_t)l * rrtm::NGPT + g) * B + b;
+    const float fr = in.fracs[gi];
+    const float bl = in.play[((size_t)l * rrtm::NBAND + bd) * B + b];
+    const float dp = in.plev[((size_t)lev * rrtm::NBAND + bd) * B + b] - bl;
+    const float od = fmaxf(secd * in.taut[gi], 0.0f);
+    float tfg;
+    Step s;
+    gas_factors(od, s.at, tfg);
+    s.src = fr * (bl + tfg * dp);
+    s.atot = s.at;
+    s.ef = s.cf = 0.0f;
+    s.srctot = s.src;
+    if (CLOUDY) {
+        // cldprmc on the compact products (mask x per-layer water path)
+        const float cf = mask;
+        const bool gate = cf >= 0.5f;
+        const float ciwp = cw0 * cf;
+        const float clwp = cw1 * cf;
+        const size_t bi = ((size_t)l * rrtm::NBAND + bd) * B + b;
+        const float ai = ciwp == 0.0f ? 0.0f : in.abi[bi];
+        const float al = clwp == 0.0f ? 0.0f : in.abl[bi];
+        const float cwp = ciwp + clwp;
+        const bool active = cf >= CLDMIN && cwp >= CLDMIN;
+        const float odcld = active ? ciwp * ai + clwp * al : 0.0f;
+        const float odce = gate ? secd * odcld : 0.0f;
+        const float abscld = 1.0f - expf(-odce);
+        s.ef = gate ? abscld * cf : 0.0f;
+        s.cf = cf;
+        float tft;
+        tot_factors(od + odce, s.atot, tft);
+        s.srctot = fr * (bl + tft * dp);
+    }
+    return s;
+}
+
+// One level of the total-sky stream and its clear twin (rtrn.py
+// down_step / up_step).  In a cloudy layer (cly) the cloudy recurrence
+// runs for every g of the column; the clear twin follows the clear
+// recurrence where `twin` holds and copies the total-sky stream
+// elsewhere.  Clear sky is cly = twin = false.
+__device__ __forceinline__ void advance(float& rad, float& radc,
+                                        const Step& f, bool cly, bool twin) {
+    const float gs = f.at * f.src;
+    const float rcld = rad - rad * (f.at + f.ef * (1.0f - f.at)) + gs
+                       + f.cf * (f.srctot * f.atot - gs);
+    const float rclr = rad + (f.src - rad) * f.at;
+    const float rn = cly ? rcld : rclr;
+    radc = twin ? radc + (f.src - radc) * f.at : rn;
+    rad = rn;
+}
+
+}  // namespace rt
+}  // namespace rrtm

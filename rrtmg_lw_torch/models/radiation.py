@@ -10,8 +10,11 @@ branch, models/radiation.py:161-183, 256-269).  One step runs
   -> heating rates from the fluxes.
 
 With ``impl="cuda"`` the four stages marked K run the hand-written CUDA
-kernels; with ``impl="eager"`` their plain PyTorch versions, on the
-same layouts.  Configurations outside this slice raise
+kernels, each inside a ``torch.autograd.Function`` whose backward is a
+kernel too (K5 taumol, K3b Planck, K6 RT; K4's inputs are not
+differentiated); with ``impl="eager"`` their plain PyTorch versions, on
+the same layouts, under plain autograd.  Configurations outside this
+slice raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 

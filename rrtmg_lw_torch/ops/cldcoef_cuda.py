@@ -3,6 +3,11 @@
 Replaces ``rrtmg_lw_tpu/ops/cldcoef_pallas.py::_build.kernel``.  On a
 CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain version, ``cldprop.ice_liq_coeffs_blocked``.
+
+The kernel has no backward: the effective radii are not differentiated
+on the port's gradient path (the JAX package differentiates only the
+Atmosphere, and cldcoef_pallas.py has no custom_vjp), so a CUDA call
+whose radii require grad raises instead of handing back a constant.
 """
 
 from __future__ import annotations
@@ -20,6 +25,12 @@ def ice_liq_coeffs_blocked(reic, relq, iceflag, liqflag, tables):
     if reic.device.type == "cpu":
         return cldprop.ice_liq_coeffs_blocked(reic, relq, iceflag, liqflag,
                                               tables)
+    if torch.is_grad_enabled() and (reic.requires_grad
+                                    or relq.requires_grad):
+        raise NotImplementedError(
+            "gradients with respect to the effective radii (reic, relq) "
+            "through the cloud-coefficient kernel are not ported yet; see "
+            "ROADMAP.md Queue 1 item 9")
     name, _, nmax = cldprop._ice_params(iceflag)
     cldprop._check_liqflag(liqflag)
     B, L = reic.shape

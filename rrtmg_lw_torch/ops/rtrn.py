@@ -7,8 +7,10 @@ Every quantity that does not depend on the running radiance is computed
 elementwise over (B, L, G) first; the sweeps are Python loops over
 levels carrying only the radiance (B, G).
 
-``rt_fluxes_blocked`` is the plain version of the RT sweep kernel
-(``ops.rtrn_cuda``): the same function on the kernel's layouts.
+``rt_sweep_blocked`` is the plain version of the RT sweep kernel
+(``ops.rtrn_cuda``): the same function on the kernel's layouts, with
+the per-column surface rows (``surf_rows``) as one input;
+``rt_sweep_vjp`` is the plain version of its backward kernel.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from ..constants import (FLUXFAC, REC_6, SECDIFF_A0, SECDIFF_A1, SECDIFF_A2,
                          SECDIFF_FIXED, WTDIFF)
+from ._autograd import plain_vjp
 from .cldprop import CLDMIN
 
 
@@ -76,10 +79,14 @@ def _tot_factors(odtot, use_lut=False):
 
 
 def precompute(taut, cldf_g, odcld_g, cld_gate, fracs, planklay, planklev,
-               pwvcm, ngb0, use_lut=False):
-    """Elementwise (B, L, G) precompute of the RT sweep."""
-    secd_g = secdiff(pwvcm, taut.dtype)[:, ngb0]        # (B, G)
-    od = torch.clamp(secd_g[:, None, :] * taut, min=0.0)
+               secd, ngb0, use_lut=False):
+    """Elementwise (B, L, G) precompute of the RT sweep; secd is the
+    per-band diffusivity secant (B, 16)."""
+    secd_g = secd[:, ngb0]                               # (B, G)
+    # maximum, not clamp: at od = 0 (g-points whose taut is zero) both
+    # sides get half the gradient, as jnp.maximum gives in JAX
+    od = secd_g[:, None, :] * taut
+    od = torch.maximum(od, torch.zeros_like(od))
     atrans, tf_gas, od_eff = _gas_factors(od, use_lut)
 
     blay = planklay[..., ngb0]                           # (B, L, G)
@@ -123,8 +130,9 @@ def rt_random_overlap(taut, fracs, planklay, planklev, plankbnd, semiss,
     if taut.shape[-1] != len(ngb0):
         raise ValueError("taut g-dim must cover all 140 g-points")
     up, dn, upc, dnc = _sweep(taut, fracs, planklay, planklev, plankbnd,
-                              semiss, pwvcm, cldf_g, odcld_g, cloudy_lay,
-                              cld_gate, ngb0, wg, use_lut)
+                              semiss, secdiff(pwvcm, taut.dtype), cldf_g,
+                              odcld_g, cloudy_lay, cld_gate, ngb0, wg,
+                              use_lut)
     return RTOut(up, dn, heating(up - dn, pz, heatfac_val), upc, dnc,
                  heating(upc - dnc, pz, heatfac_val))
 
@@ -137,7 +145,7 @@ def g_tables(static, device, dtype):
                 device, dtype))
 
 
-def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
+def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
            cldf_g, odcld_g, cloudy_lay, cld_gate, ngb0, wg, use_lut):
     """Down and up sweeps -> (up, down, clear up, clear down) (B, L+1)."""
     dtype = taut.dtype
@@ -145,7 +153,7 @@ def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
     ngb0 = ngb0.long()
 
     pre = precompute(taut, cldf_g, odcld_g, cld_gate, fracs, planklay,
-                     planklev, pwvcm, ngb0, use_lut)
+                     planklev, secd, ngb0, use_lut)
     at, atot = pre["atrans"], pre["atot"]
     ef, cf = pre["efclfrac"], cldf_g
     cly = cloudy_lay[..., None]                          # (B, L, 1)
@@ -220,17 +228,24 @@ def compact_cloud_optics(mask_t, cw_t, abi_t, abl_t, ngb0, dtype):
     return cldf_g, odcld_g
 
 
-def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
-                      semiss, pwvcm, ngb0, wg, cloud_fields=None):
+def surf_rows(plankbnd, semiss, pwvcm, dtype):
+    """Per-column surface rows (3, 16, B) of the RT sweep: diffusivity
+    secant, emissivity, surface Planck source."""
+    return torch.stack([secdiff(pwvcm, dtype).t(), semiss.t(),
+                        plankbnd.t()]).to(dtype).contiguous()
+
+
+def rt_sweep_blocked(taut_t, fracs_t, planklay_t, planklev_t, surf, ngb0,
+                     wg, cloud_fields=None):
     """Band-integrated fluxes (4, L+1, B) = [up, down, clear up, clear
-    down] from the kernel layouts: the plain version of
-    ``rtrn_cuda.rt_fluxes_blocked``.
+    down] from the kernel layouts: the plain version of the RT sweep
+    kernel (``rtrn_cuda.RTFn``).
 
     taut_t, fracs_t (L, 140, B); planklay_t (L, 16, B); planklev_t
-    (L+1, 16, B); plankbnd, semiss (B, 16); pwvcm (B,); ngb0, wg the
-    ``g_tables`` of the static tables (140,).  cloud_fields
-    is None (clear sky) or the compact McICA fields (mask (L, 144, B),
-    cw (L, 2, B) = [ciwp, clwp], abi, abl (L, 16, B)); a g-point is
+    (L+1, 16, B); surf (3, 16, B) from ``surf_rows``; ngb0, wg the
+    ``g_tables`` of the static tables (140,).  cloud_fields is None
+    (clear sky) or the compact McICA fields (mask (L, 144, B), cw
+    (L, 2, B) = [ciwp, clwp], abi, abl (L, 16, B)); a g-point is
     cloudy where mask >= 0.5."""
     dtype = taut_t.dtype
     taut = taut_t.permute(2, 0, 1)
@@ -241,8 +256,34 @@ def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
         cldf_g, odcld_g = compact_cloud_optics(*cloud_fields, ngb0.long(),
                                                dtype)
         gate = cldf_g >= 0.5
+    secd, semiss, plankbnd = (s.t() for s in surf)
     fluxes = _sweep(taut, fracs_t.permute(2, 0, 1),
                     planklay_t.permute(2, 0, 1), planklev_t.permute(2, 0, 1),
-                    plankbnd, semiss, pwvcm, cldf_g, odcld_g,
+                    plankbnd, semiss, secd, cldf_g, odcld_g,
                     gate.any(dim=-1), gate, ngb0, wg, use_lut=False)
     return torch.stack(fluxes).permute(0, 2, 1).contiguous()
+
+
+def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
+                 abl_t, mask, ngb0, wg, ct, needs=(True,) * 8):
+    """ct (4, L+1, B) -> cotangents of (taut_t, fracs_t, planklay_t,
+    planklev_t, surf, cw_t, abi_t, abl_t), None where ``needs`` is False
+    or the input is None (clear sky): the plain version of
+    ``rtrn_cuda.rt_sweep_vjp``."""
+    def fn(*x):
+        cf = None if mask is None else (mask, *x[5:])
+        return rt_sweep_blocked(*x[:5], ngb0, wg, cf)
+    xs = (taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t)
+    return plain_vjp(fn, xs, [n and x is not None for n, x in zip(needs, xs)],
+                     (ct,))
+
+
+def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
+                      semiss, pwvcm, ngb0, wg, cloud_fields=None):
+    """``rt_sweep_blocked`` with the surface rows formed from plankbnd,
+    semiss (B, 16) and pwvcm (B,): the plain version of
+    ``rtrn_cuda.rt_fluxes_blocked``."""
+    return rt_sweep_blocked(taut_t, fracs_t, planklay_t, planklev_t,
+                            surf_rows(plankbnd, semiss, pwvcm,
+                                      taut_t.dtype),
+                            ngb0, wg, cloud_fields)

@@ -6,7 +6,8 @@ jp / laytrop come from ``log(pavel)`` here, once: the taumol kernel
 takes them as inputs and never recomputes a log.
 
 ``interp_planck_blocked`` is the plain version of the Planck kernel
-(``ops.planck_cuda``).  Index arrays returned are 0-based int32.
+(``ops.planck_cuda``), ``interp_planck_vjp`` that of its backward.
+Index arrays returned are 0-based int32.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..types import Profile, SetcoefOut
+from ._autograd import plain_vjp
 
 STPFAC = 296.0 / 1013.0
 
@@ -46,6 +48,14 @@ def interp_planck_blocked(temp_t, totplnk):
     ind, frac = _planck_index(temp_t)
     return _interp_planck(totplnk.to(temp_t.dtype), ind,
                           frac).permute(0, 2, 1).contiguous()
+
+
+def interp_planck_vjp(temp_t, totplnk, ct):
+    """ct (N, 16, B) -> the cotangent of temp_t (N, B): the plain version
+    of ``planck_cuda.planck_interp_vjp`` (the table slope at the taps
+    the forward used, summed over bands against ct)."""
+    return plain_vjp(interp_planck_blocked, (temp_t, totplnk),
+                     (True, False), (ct,))[0]
 
 
 def setcoef(prof: Profile, static: dict, *, istart: int = 1, idrv: int = 0,

@@ -275,12 +275,14 @@ class TaumolEngine(torch.nn.Module):
 
     def _adjusted_col(self, sc: SetcoefOut, prof: Profile, adj: Adj):
         colgas = getattr(sc, "col" + adj.gas)
-        chi_gas = colgas / prof.coldry
         if adj.chi_const is not None:
-            chiref = torch.full_like(chi_gas, adj.chi_const)
+            chiref = torch.full_like(colgas, adj.chi_const)
         else:
             chiref = self.chi_t[_GAS_CHI[adj.gas] - 1][sc.jp.long() + 1]
-        ratio = 1.0e20 * chi_gas / chiref
+        # 1e20 * (colgas / coldry) / chiref, grouped so that no step of
+        # its float32 vjp underflows: d(colgas / coldry) / d coldry forms
+        # colgas / coldry**2 (~1e-47) and flushes to zero
+        ratio = 1.0e20 * colgas / (prof.coldry * chiref)
         excess = torch.where(ratio > adj.threshold, ratio - adj.base, 1.0)
         adjfac = adj.base + excess ** adj.expnt
         adjcol = adjfac * chiref * prof.coldry * 1.0e-20

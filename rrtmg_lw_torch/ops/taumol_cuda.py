@@ -1,23 +1,29 @@
-"""Taumol forward kernel (K2), csrc/taumol.cu.
+"""Taumol forward kernel (K2), csrc/taumol.cu, and its backward (K5),
+csrc/taumol_bwd.cu.
 
-Replaces ``rrtmg_lw_tpu/ops/taumol_pallas.py::PallasTaumol._build.kernel``.
-The TPU kernel selected table rows with one-hot matmuls over bf16
-splits inside 64-row pressure windows; on the H100 a gather from the
-~1 MB table set is native, so this kernel gathers directly, in float32.
+K2 replaces ``rrtmg_lw_tpu/ops/taumol_pallas.py::PallasTaumol._build.kernel``,
+K5 its ``kernel_bwd``.  The TPU kernels selected table rows with one-hot
+matmuls over bf16 splits inside 64-row pressure windows; on the H100 a
+gather from the ~1 MB table set is native, so both gather directly, in
+float32.
 
 ``pack_tables`` compiles ``taumol.BAND_SPECS`` once into
   * one flat float32 buffer holding every band's tables (row-major,
     ``ng`` floats per row) plus chi_mls and the per-g rescale vectors,
   * an int32 descriptor of ``len(DESC_FIELDS)`` words per (band,
     region); float constants are stored bit-cast.
-The kernel runs one thread per (column, layer, band) and reads the
-descriptor of its band and region.  ``DESC_FIELDS``, ``FLOAT_FIELDS``
-and ``INT_FIELDS`` must match the enums in csrc/taumol.cu (a CPU test
-compares them).
+The kernels run one thread per (column, layer, band) (K2) or per
+(column, layer) (K5) and read the descriptor of the band and region.
+``DESC_FIELDS``, ``FLOAT_FIELDS`` and ``INT_FIELDS`` must match the
+enums in csrc/taumol.cuh (a CPU test compares them).
 
-The wrapper consumes the port's setcoef outputs, exactly as
-``TaumolEngine.forward`` does; on a CPU tensor it runs the plain
-version, ``TaumolEngine.blocked``.
+``taumol_blocked`` consumes the port's setcoef outputs, exactly as
+``TaumolEngine.forward`` does, and packs them into (NF, L, B) float and
+(NI, L, B) int fields outside ``TaumolFn``, so autograd carries the
+fields' cotangents back through the packing and the plain setcoef.  On
+a CPU tensor the Function runs the plain versions, ``taumol_packed``
+(``TaumolEngine.blocked`` on the unpacked fields) and
+``taumol_packed_vjp``.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..types import NGPT
+from ..types import NGPT, Profile, SetcoefOut
+from ._autograd import plain_vjp
 from .taumol import (_GAS_CHI, BAND_SPECS, NBANDS, NG, NSPA, NSPB,
                      postscale_vector, refrat)
 
@@ -178,16 +185,93 @@ def pack_tables(ktables: dict, static: dict):
 
 
 def _pack_inputs(sc, prof):
-    """(NF, L, B) float32 and (NI, L, B) int32 per-cell inputs."""
+    """(NF, L, B) float and (NI, L, B) int32 per-cell inputs."""
     named = sc._asdict()
     named.update(coldry=prof.coldry, pavel=prof.pavel,
                  **{f"wx{i}": prof.wx[..., i] for i in range(4)})
     named["laytrop"] = sc.laytrop_mask
     fld = torch.stack([named[k].t() for k in FLOAT_FIELDS]).to(
-        torch.float32).contiguous()
+        sc.fac00.dtype).contiguous()
     ifld = torch.stack([named[k].t().to(torch.int32)
                         for k in INT_FIELDS]).contiguous()
     return fld, ifld
+
+
+def _unpack_inputs(fld, ifld):
+    """The (SetcoefOut, Profile) that ``TaumolEngine`` reads, as (B, L)
+    tensors from the packed fields (Profile fields it does not read are
+    None)."""
+    f = {k: fld[i].t().contiguous() for i, k in enumerate(FLOAT_FIELDS)}
+    n = {k: ifld[i].t().contiguous() for i, k in enumerate(INT_FIELDS)}
+    named = {**f, **n, "laytrop_mask": n["laytrop"] != 0}
+    sc = SetcoefOut(**{k: named.get(k) for k in SetcoefOut._fields})
+    prof = Profile(**{**dict.fromkeys(Profile._fields),
+                      "coldry": f["coldry"], "pavel": f["pavel"],
+                      "wx": torch.stack([f[f"wx{i}"] for i in range(4)], -1)})
+    return sc, prof
+
+
+def taumol_packed(engine, fld, ifld):
+    """taug, fracs (L, 140, B) from the packed fields: the plain version
+    of K2."""
+    return engine.blocked(*_unpack_inputs(fld, ifld))
+
+
+def taumol_packed_vjp(engine, fld, ifld, ct_taug, ct_fracs):
+    """ct_taug, ct_fracs (L, 140, B) -> the cotangent of fld (NF, L, B):
+    the plain version of K5."""
+    return plain_vjp(lambda f: taumol_packed(engine, f, ifld), (fld,),
+                     (True,), (ct_taug, ct_fracs))[0]
+
+
+def _check_packed(fld, ifld, kernel_tabs, kernel_desc):
+    _, L, B = fld.shape
+    dev = fld.device
+    _build.check(fld, "fld", torch.float32, (len(FLOAT_FIELDS), L, B), dev)
+    _build.check(ifld, "ifld", torch.int32, (len(INT_FIELDS), L, B), dev)
+    _build.check(kernel_tabs, "kernel_tabs", torch.float32,
+                 kernel_tabs.shape, dev)
+    _build.check(kernel_desc, "kernel_desc", torch.int32,
+                 (NBANDS, 2, len(DESC_FIELDS)), dev)
+    ndesc = _build.library().rrtm_taumol_ndesc()
+    if ndesc != len(DESC_FIELDS):
+        raise RuntimeError(f"taumol.cuh has {ndesc} descriptor words, "
+                           f"pack_tables {len(DESC_FIELDS)}")
+    return L, B
+
+
+class TaumolFn(torch.autograd.Function):
+    """(fld, ifld, engine, kernel_tabs, kernel_desc, bins) -> taug, fracs
+    (L, 140, B).  Backward K5, to fld only; ``bins`` (or None) is filled
+    as ``taumol_blocked`` says."""
+
+    @staticmethod
+    def forward(ctx, fld, ifld, engine, kernel_tabs, kernel_desc, bins):
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(fld, ifld, kernel_tabs, kernel_desc)
+            ctx.engine = engine
+        if fld.device.type == "cpu":
+            if bins is not None:
+                bins.copy_(engine.bins(*_unpack_inputs(fld, ifld)))
+            return taumol_packed(engine, fld, ifld)
+        L, B = _check_packed(fld, ifld, kernel_tabs, kernel_desc)
+        if bins is not None:
+            _build.check(bins, "bins", torch.int32, (NBANDS, NBIN, L, B),
+                         fld.device)
+        taug = torch.empty((L, NGPT, B), dtype=torch.float32,
+                           device=fld.device)
+        fracs = torch.empty_like(taug)
+        _build.launch("rrtm_taumol", fld, ifld, kernel_tabs, kernel_desc,
+                      taug, fracs, bins, L, B)
+        taumol_blocked.launches += 1
+        return taug, fracs
+
+    @staticmethod
+    def backward(ctx, ct_taug, ct_fracs):
+        fld, ifld, tabs, desc = ctx.saved_tensors
+        return (taumol_vjp(fld, ifld, ctx.engine, tabs, desc,
+                           ct_taug.contiguous(), ct_fracs.contiguous()),
+                None, None, None, None, None)
 
 
 def taumol_blocked(sc, prof, engine, kernel_tabs, kernel_desc, bins=None):
@@ -198,29 +282,25 @@ def taumol_blocked(sc, prof, engine, kernel_tabs, kernel_desc, bins=None):
     device.  ``bins``, if given, is a (16, NBIN, L, B) int32 tensor the
     kernel fills with the interpolation bins it used (the layout of
     ``TaumolEngine.bins``)."""
-    if sc.jp.device.type == "cpu":
-        if bins is not None:
-            bins.copy_(engine.bins(sc, prof))
-        return engine.blocked(sc, prof)
-    B, L = sc.jp.shape
-    dev = sc.jp.device
     fld, ifld = _pack_inputs(sc, prof)
-    _build.check(kernel_tabs, "kernel_tabs", torch.float32,
-                 kernel_tabs.shape, dev)
-    _build.check(kernel_desc, "kernel_desc", torch.int32,
-                 (NBANDS, 2, len(DESC_FIELDS)), dev)
-    if bins is not None:
-        _build.check(bins, "bins", torch.int32, (NBANDS, NBIN, L, B), dev)
-    ndesc = _build.library().rrtm_taumol_ndesc()
-    if ndesc != len(DESC_FIELDS):
-        raise RuntimeError(f"taumol.cu has {ndesc} descriptor words, "
-                           f"pack_tables {len(DESC_FIELDS)}")
-    taug = torch.empty((L, NGPT, B), dtype=torch.float32, device=dev)
-    fracs = torch.empty_like(taug)
-    _build.launch("rrtm_taumol", fld, ifld, kernel_tabs, kernel_desc, taug,
-                  fracs, bins, L, B)
-    taumol_blocked.launches += 1
-    return taug, fracs
+    return TaumolFn.apply(fld, ifld, engine, kernel_tabs, kernel_desc, bins)
+
+
+def taumol_vjp(fld, ifld, engine, kernel_tabs, kernel_desc, ct_taug,
+               ct_fracs):
+    """K5: ct_taug, ct_fracs (L, 140, B) -> the cotangent of fld
+    (NF, L, B)."""
+    if fld.device.type == "cpu":
+        return taumol_packed_vjp(engine, fld, ifld, ct_taug, ct_fracs)
+    L, B = _check_packed(fld, ifld, kernel_tabs, kernel_desc)
+    for name, ct in (("ct_taug", ct_taug), ("ct_fracs", ct_fracs)):
+        _build.check(ct, name, torch.float32, (L, NGPT, B), fld.device)
+    ct_fld = torch.empty_like(fld)
+    _build.launch("rrtm_taumol_bwd", fld, ifld, kernel_tabs, kernel_desc,
+                  ct_taug, ct_fracs, ct_fld, L, B)
+    taumol_vjp.launches += 1
+    return ct_fld
 
 
 taumol_blocked.launches = 0
+taumol_vjp.launches = 0

@@ -1,7 +1,8 @@
-"""The four CUDA kernels of rrtmg_lw_torch against their plain PyTorch
+"""The CUDA kernels of rrtmg_lw_torch against their plain PyTorch
 versions on the card, at small and ragged shapes (chip_smoke.py covers
 the main-path shapes), plus the wrappers' input checks and launch
-counters.
+counters: the four forward kernels and the three backward kernels (K3b
+Planck slope, K5 taumol, K6 RT adjoint) against the plain vjps.
 
 Marked ``cuda``: every test skips without a CUDA device.  This file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
@@ -11,7 +12,11 @@ imports no JAX, so it also runs on a machine with a GPU and no JAX:
 Tolerances are chip_smoke.py's: 1e-6 relative (Planck, cloud
 coefficients), 3.05e-5 (taug relative with |ref| floored at 1e-2,
 fracs absolute) with every interpolation bin equal, 2e-5 of each
-column's max |flux| (RT sweep, model).
+column's max |flux| (RT sweep, model).  Backward kernels (the same f32
+math summed in another order): 1e-4 of max |plain| per output (K3b,
+K5), 1e-3 (K6, a recurrence over the levels); the model's gradients
+2e-2 of max |eager| per Atmosphere field (the gate the JAX package
+holds its kernel backward to, tests/test_taumol_bwd.py:101).
 """
 
 import numpy as np
@@ -22,10 +27,15 @@ from rrtmg_lw_torch import Atmosphere, LWConfig, McicaCloudsCompact, make_model
 from rrtmg_lw_torch.ops import cldprop, rtrn
 from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_blocked
 from rrtmg_lw_torch.ops.inatm import inatm
-from rrtmg_lw_torch.ops.planck_cuda import planck_interp_blocked
-from rrtmg_lw_torch.ops.rtrn_cuda import rt_fluxes_blocked
-from rrtmg_lw_torch.ops.setcoef import interp_planck_blocked, setcoef
-from rrtmg_lw_torch.ops.taumol_cuda import NBIN, taumol_blocked
+from rrtmg_lw_torch.ops.planck_cuda import (planck_interp_blocked,
+                                            planck_interp_vjp)
+from rrtmg_lw_torch.ops.rtrn_cuda import rt_fluxes_blocked, rt_sweep_vjp
+from rrtmg_lw_torch.ops.setcoef import (interp_planck_blocked,
+                                        interp_planck_vjp, setcoef)
+from rrtmg_lw_torch.ops.taumol_cuda import (NBIN, _pack_inputs,
+                                            taumol_blocked,
+                                            taumol_packed_vjp, taumol_vjp)
+from rrtmg_lw_torch.parallel import make_grad_step
 from rrtmg_lw_torch.utils.synthetic import make_atmosphere, make_mcica_clouds
 
 pytestmark = pytest.mark.cuda
@@ -167,3 +177,105 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         ice_liq_coeffs_blocked(temp, temp, 0, 1, model.static_tensors())
     with pytest.raises(ValueError):
         make_model(LWConfig(icld=0, use_lut=False, impl="cuda"), device=dev)
+
+
+def rel_err(got, ref):
+    """max |got - ref| / max |ref| (0 when both are all zero)."""
+    scale = float(ref.double().abs().max())
+    diff = float((got.double() - ref.double()).abs().max())
+    return diff / scale if scale > 0 else diff
+
+
+def _randn(shape, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev)
+
+
+@pytest.mark.parametrize("N,B", [(1, 1), (7, 37), (61, 300)])
+def test_planck_bwd_kernel_matches_plain_vjp(dev, N, B):
+    model = _model(dev)
+    temp = 150.0 + 200.0 * torch.rand((N, B), device=dev)   # both clamps
+    ct = _randn((N, 16, B), dev, N + B)
+    got = planck_interp_vjp(temp, model.totplnk, ct)
+    ref = interp_planck_vjp(temp, model.totplnk, ct)
+    assert got.shape == (N, B)
+    assert rel_err(got, ref) <= 1e-4
+    assert torch.equal(got, planck_interp_vjp(temp, model.totplnk, ct))
+
+
+@pytest.mark.parametrize("B,L,boost", [(37, 7, None), (5, 1, None),
+                                       (70, 7, (1, 8, 1, 50, 1, 20, 1))])
+def test_taumol_bwd_kernel_matches_plain_vjp(dev, B, L, boost):
+    model = _model(dev)
+    _, _, prof = _case(dev, B, L, boost=boost)
+    sc = setcoef(prof, model.static_tensors(), planck=False)
+    fld, ifld = _pack_inputs(sc, prof)
+    ct_t = _randn((L, 140, B), dev, 1)
+    ct_f = _randn((L, 140, B), dev, 2)
+    args = (fld, ifld, model.engine, model.kernel_tabs, model.kernel_desc,
+            ct_t, ct_f)
+    got = taumol_vjp(*args)
+    ref = taumol_packed_vjp(model.engine, fld, ifld, ct_t, ct_f)
+    assert got.shape == fld.shape and torch.isfinite(got).all()
+    for f in range(fld.shape[0]):
+        assert rel_err(got[f], ref[f]) <= 1e-4, f
+    assert torch.equal(got, taumol_vjp(*args))
+
+
+@pytest.mark.parametrize("B,L,cloudy", [(37, 7, True), (5, 1, True),
+                                        (45, 7, False), (1, 7, True)])
+def test_rt_bwd_kernel_matches_plain_vjp(dev, B, L, cloudy):
+    model = _model(dev)
+    _, clouds, prof = _case(dev, B, L, clear_frac=0.3)
+    static = model.static_tensors()
+    sc = setcoef(prof, static, planck=False)
+    tg, fr = model.engine.blocked(sc, prof)
+    play = interp_planck_blocked(prof.tavel.t().contiguous(), model.totplnk)
+    plev = interp_planck_blocked(prof.tz.t().contiguous(), model.totplnk)
+    abi, abl = cldprop.ice_liq_coeffs_blocked(clouds.reicmc, clouds.relqmc,
+                                              3, 1, static)
+    cw = torch.stack([clouds.ciwp.t(), clouds.clwp.t()], 1).contiguous()
+    surf = rtrn.surf_rows(sc.plankbnd, prof.semiss, prof.pwvcm,
+                          torch.float32)
+    cf = (cw, abi, abl, clouds.cldfmc) if cloudy else (None,) * 4
+    ct = _randn((4, L + 1, B), dev, 3)
+    args = (tg, fr, play, plev, surf, *cf, model.ngb0, model.wg, ct)
+    got = rt_sweep_vjp(*args)
+    ref = rtrn.rt_sweep_vjp(*args)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if r is None:
+            assert g is None and not cloudy
+            continue
+        assert g.shape == r.shape and torch.isfinite(g).all(), i
+        assert rel_err(g, r) <= 1e-3, i
+    again = rt_sweep_vjp(*args)
+    assert all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_cldcoef_guard_raises_when_radii_require_grad(dev):
+    model = _model(dev)
+    reic = torch.full((4, 3), 30.0, device=dev, requires_grad=True)
+    relq = torch.full((4, 3), 10.0, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ice_liq_coeffs_blocked(reic, relq, 3, 1, model.static_tensors())
+    with torch.no_grad():
+        ice_liq_coeffs_blocked(reic, relq, 3, 1, model.static_tensors())
+
+
+@pytest.mark.parametrize("icld", [0, 2])
+def test_model_cuda_backward_matches_eager(dev, icld):
+    atm, clouds, _ = _case(dev, 67, 20)
+    cl = clouds if icld else None
+    tlay = atm.tlay.clone().requires_grad_()
+    fl = _model(dev, icld)(atm._replace(tlay=tlay), cl)
+    ((fl.hr ** 2).mean() + (fl.uflx[:, -1] ** 2).mean()).backward()
+    assert tlay.grad is not None
+    wrappers = (taumol_vjp, planck_interp_vjp, rt_sweep_vjp)
+    before = [w.launches for w in wrappers]
+    _, g_k = make_grad_step(_model(dev, icld))(atm, cl)
+    # Planck at layer and at level temperatures
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 2, 1]
+    assert rel_err(g_k.tlay, tlay.grad) <= 1e-6
+    _, g_e = make_grad_step(_model(dev, icld, impl="eager"))(atm, cl)
+    for name in Atmosphere._fields:
+        assert rel_err(getattr(g_k, name), getattr(g_e, name)) <= 2e-2, name

@@ -40,7 +40,10 @@ def test_port_never_imports_jax():
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'rrtmg_lw_tpu'))]\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "for m in ('rrtmg_lw_torch.parallel.api', "
+            "'rrtmg_lw_torch.ops._autograd'):\n"
+            "    assert m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -145,8 +148,8 @@ def _c_enum(src, name):
 
 
 def test_taumol_descriptor_layout_matches_cuda_source():
-    src = open(os.path.join(REPO, "rrtmg_lw_torch", "csrc",
-                            "taumol.cu")).read()
+    src = "".join(open(os.path.join(REPO, "rrtmg_lw_torch", "csrc", f)).read()
+                  for f in ("taumol.cuh", "taumol.cu"))
     assert _c_enum(src, "FloatField") == \
         ["F_" + f.upper() for f in taumol_cuda.FLOAT_FIELDS] + ["NF"]
     assert _c_enum(src, "IntField") == \
@@ -206,7 +209,8 @@ def test_unported_configs_raise(kw):
 def test_build_hash_covers_sources():
     names = {p.name for p in _build.sources()}
     assert {"planck.cu", "cldcoef.cu", "taumol.cu", "rtrn.cu",
-            "rrtm.cuh"} <= names
+            "taumol_bwd.cu", "rtrn_bwd.cu", "rrtm.cuh", "taumol.cuh",
+            "rtrn.cuh"} <= names
     assert _build.source_hash() == _build.source_hash()
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
