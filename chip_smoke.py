@@ -8,15 +8,24 @@ sm_90a):
 
 Phases, each raising on failure (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the seven CUDA kernels from csrc/ (one nvcc per source, in
+  2. build: the CUDA kernels from csrc/ (one nvcc per source, in
      parallel), timed;
   3. each kernel against its plain PyTorch version on the card at the
      main-path shapes (B=16384 columns, L=60 layers, float32), with the
-     max error and CUDA-event times of both;
-  4. end to end: clear sky and McICA (compact int8-mask clouds), 3 steps
-     each through the kernels, launch counters reset just before and
-     read just after; fluxes held against the same model run with
-     impl="eager" on the card;
+     max error and CUDA-event times of both and the bound of each (the
+     larger of its bytes over the HBM rate and its operations over the
+     f32 rate); the RT sweep in its clear/compact, banded and maxrand
+     modes and the overlap rows, each also bitwise equal over two runs;
+     the deterministic-cloud modes on make_band_clouds and on a cloud
+     field whose fractions vary inside cloudy blocks;
+  4. end to end, cell by cell: clear sky and McICA (compact int8-mask
+     clouds), then deterministic clouds (BandClouds, imca=0) band_cloudy
+     (icld=1) and maxrand_cloudy (icld=2), 3 steps each through the
+     kernels, and one icld=3 step; for each cell the launch counters are
+     set to 0 just before and read just after, and every kernel must
+     have launched exactly as often as that cell's path does (0 for the
+     others); fluxes held against the same model run with impl="eager"
+     on the card;
   5. deep: one McICA step at L=140 with the same checks;
   6. grad: each backward kernel (K3b Planck slope, K5 taumol, K6 RT
      adjoint) against the plain vjp of its forward's plain version on the
@@ -43,6 +52,7 @@ import time
 import numpy as np
 import torch
 
+# the width and depths of utils/profiling.py's cells, whose inputs these are
 B_MAIN, L_MAIN, L_DEEP, STEPS = 16384, 60, 140, 3
 B_CHUNK = 4096             # columns per eager grad step in the step check
 # tolerances of the TPU port's on-chip gates (tools/tpu_verify.py:97,
@@ -57,6 +67,26 @@ TOL_BWD, TOL_BWD_RT = 1e-4, 1e-3
 # for a loss linear in the fluxes: f32 against f64 on the CPU reads
 # <= 1.1e-5 (tests/test_torch_grad.py::test_f32_gradient_conditioning)
 TOL_STEP = 1e-4
+# overlap rows against their plain version: the discrete rows (0-3) equal,
+# the factor rows within this share of max |plain| (the same elementwise
+# f32 arithmetic; expected bitwise)
+TOL_ROWS = 1e-6
+
+# the bound of a kernel: the larger of its bytes (each input read once,
+# each output written once) over the H100 SXM's HBM rate and its
+# operations over its f32 rate outside the tensor cores (NVIDIA's data
+# sheet, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# operations per element of the main loop, estimated from the kernel
+# sources (add, multiply, compare, select, expf and division one each),
+# rounded up: per (layer, g, column) for taumol and the RT sweeps
+# (down + up sweep; the cloud terms only in a cloudy layer), per output
+# element for Planck and the cloud coefficients, per (layer, column) for
+# the overlap rows
+OPS = dict(taumol=60, planck=8, cldcoef=10, rt_clear=60, rt_cloud=40,
+           rt_maxrand=60, overlap=100, taumol_bwd=200, planck_bwd=8,
+           rt_adjoint=270)
 
 KERNELS = (  # name, source, replaced TPU kernel
     ("taumol", "rrtmg_lw_torch/csrc/taumol.cu",
@@ -73,6 +103,12 @@ KERNELS = (  # name, source, replaced TPU kernel
      "rrtmg_lw_tpu/ops/planck_pallas.py:137"),
     ("rt_adjoint", "rrtmg_lw_torch/csrc/rtrn_bwd.cu",
      "rrtmg_lw_tpu/ops/rtrn_bwd.py:259"),
+    ("rt_sweep_banded", "rrtmg_lw_torch/csrc/rtrn.cu",
+     "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
+    ("rt_sweep_maxrand", "rrtmg_lw_torch/csrc/rtrn.cu",
+     "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
+    ("overlap_rows", "rrtmg_lw_torch/csrc/overlap.cu",
+     "rrtmg_lw_tpu/ops/rtrn_pallas.py:1155"),
 )
 
 
@@ -103,6 +139,20 @@ def cuda_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def bound(inputs, outputs, ops):
+    """bound_ms, bound_by and library_ms (None: no one PyTorch call
+    computes any of these kernels' functions) of a kernel that reads
+    ``inputs`` and writes ``outputs`` (tensors, None skipped) and does
+    ``ops`` operations."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*inputs, *outputs) if t is not None)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
 def flux_err(a, b):
     """max over columns of max |a - b| / max(max |a|, 1), for (.., B)
     arrays with columns last."""
@@ -112,32 +162,45 @@ def flux_err(a, b):
     return float((diff / scale).max())
 
 
-def inputs(nlay, device):
-    from rrtmg_lw_torch import Atmosphere, McicaCloudsCompact
-    from rrtmg_lw_torch.utils.synthetic import (make_atmosphere,
-                                                make_mcica_clouds)
-    atm = Atmosphere.from_numpy(make_atmosphere(B_MAIN, nlay, seed=0),
-                                device, torch.float32)
-    clouds = McicaCloudsCompact.from_numpy(
-        make_mcica_clouds(B_MAIN, nlay, seed=2, mask_dtype=np.int8),
-        device, torch.float32)
-    return atm, clouds
+def inputs(cell, device):
+    """The synthetic inputs of ``cell`` (utils/profiling.py's builder)."""
+    from rrtmg_lw_torch.utils.profiling import cell_inputs
+    return cell_inputs(cell, device)
+
+
+def mixed_clouds(bc, device):
+    """``bc`` with random fractions in half the (column, layer) cells, so
+    they rise and fall inside cloudy blocks; every third column clear,
+    every fifth overcast; liquid where cloudy, ice above fraction 0.5."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    shape = bc.cldfrac.shape
+    cf = (torch.rand(shape, generator=gen, device=device)
+          * (torch.rand(shape, generator=gen, device=device) < 0.5))
+    cf[::3] = 0.0
+    cf[1::5] = 1.0
+    zero = torch.zeros_like(cf)
+    return bc._replace(cldfrac=cf, clwp=torch.where(cf > 0, 20.0, zero),
+                       ciwp=torch.where(cf > 0.5, 5.0, zero))
 
 
 def phase_kernels(device):
     """Each kernel vs its plain version at the main-path shapes."""
     from rrtmg_lw_torch import LWConfig, make_model
-    from rrtmg_lw_torch.ops import cldprop, rtrn
+    from rrtmg_lw_torch.ops import cldprop, rtrn, rtrnmr
     from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_blocked
     from rrtmg_lw_torch.ops.inatm import inatm
     from rrtmg_lw_torch.ops.planck_cuda import planck_interp_blocked
-    from rrtmg_lw_torch.ops.rtrn_cuda import rt_fluxes_blocked
+    from rrtmg_lw_torch.ops.rtrn_cuda import (rt_fluxes_banded,
+                                              rt_fluxes_blocked,
+                                              rt_fluxes_maxrand)
+    from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows
     from rrtmg_lw_torch.ops.setcoef import interp_planck_blocked, setcoef
-    from rrtmg_lw_torch.ops.taumol_cuda import NBIN, taumol_blocked
+    from rrtmg_lw_torch.ops.taumol_cuda import (NBIN, _pack_inputs,
+                                                taumol_blocked)
 
     model = make_model(LWConfig(icld=2, imca=1, dtype="float32",
                                 use_lut=False, impl="cuda"), device=device)
-    atm, clouds = inputs(L_MAIN, device)
+    atm, clouds = inputs("mcica_cloudy", device)
     prof = inatm(atm, dtype=torch.float32)
     static = model.static_tensors()
     sc = setcoef(prof, static, planck=False)
@@ -165,7 +228,10 @@ def phase_kernels(device):
         ms=cuda_ms(lambda: taumol_blocked(sc, prof, model.engine,
                                           model.kernel_tabs,
                                           model.kernel_desc), 5),
-        plain_ms=cuda_ms(lambda: model.engine.blocked(sc, prof), 2))
+        plain_ms=cuda_ms(lambda: model.engine.blocked(sc, prof), 2),
+        **bound((*_pack_inputs(sc, prof), model.kernel_tabs,
+                 model.kernel_desc), (tg_k, fr_k),
+                OPS["taumol"] * tg_k.numel()))
     print(f"taumol: taug rel {e_t:.3g}, fracs abs {e_f:.3g}, bins equal "
           f"({bins_k.numel()} cells x bands x slots)")
 
@@ -182,7 +248,9 @@ def phase_kernels(device):
         ms=cuda_ms(lambda: (planck_interp_blocked(tlay, tot),
                             planck_interp_blocked(tlev, tot)), 20),
         plain_ms=cuda_ms(lambda: (interp_planck_blocked(tlay, tot),
-                                  interp_planck_blocked(tlev, tot)), 20))
+                                  interp_planck_blocked(tlev, tot)), 20),
+        **bound((tlay, tot, tlev, tot), [k for k, _ in outs],
+                OPS["planck"] * sum(k.numel() for k, _ in outs)))
     planklay_t, planklev_t = outs[0][0], outs[1][0]
 
     # K4 cloud coefficients
@@ -198,7 +266,9 @@ def phase_kernels(device):
         ms=cuda_ms(lambda: ice_liq_coeffs_blocked(reic, relq, 3, 1,
                                                   static), 20),
         plain_ms=cuda_ms(lambda: cldprop.ice_liq_coeffs_blocked(
-            reic, relq, 3, 1, static), 20))
+            reic, relq, 3, 1, static), 20),
+        **bound((reic, relq, static["absice3"], static["absliq1"]), kk,
+                OPS["cldcoef"] * sum(k.numel() for k in kk)))
 
     # K1 RT sweep, clear and compact McICA, on the kernels' outputs
     taut = tg_k + prof.taua.permute(1, 2, 0)[:, model.ngb0.long(), :]
@@ -215,17 +285,82 @@ def phase_kernels(device):
         absd.append(float((fk - fp).abs().max()))
     need(max(errs) <= TOL_FLUX,
          f"rt_sweep: flux err clear {errs[0]:.3g} cloudy {errs[1]:.3g}")
+    mask = clouds.cldfmc
+    ncld = int((mask[:, :140] != 0).any(1).sum())     # cloudy (layer, col)
     res["rt_sweep"] = dict(
         max_abs_err=max(absd), max_rel_err=max(errs),
         ms=cuda_ms(lambda: rt_fluxes_blocked(*args, cloud_fields=fields),
                    5),
         plain_ms=cuda_ms(lambda: rtrn.rt_fluxes_blocked(
-            *args, cloud_fields=fields), 2))
+            *args, cloud_fields=fields), 2),
+        **bound((*args, *fields), (fk,),
+                140 * (OPS["rt_clear"] * L_MAIN * B_MAIN
+                       + OPS["rt_cloud"] * ncld)))
     print(f"rt_sweep: flux err clear {errs[0]:.3g}, cloudy {errs[1]:.3g}")
+
+    # the deterministic-cloud modes, on make_band_clouds (the main path's
+    # clouds: one fraction per deck) and on a field whose fractions rise
+    # and fall inside cloudy blocks, the regimes the maxrand factors carry:
+    # the overlap rows first (bitwise expected), then K1 banded and
+    # maxrand on them; times on the main path's clouds
+    _, bc = inputs("band_cloudy", device)
+    errs = {k: [] for k in ("overlap_rows", "rt_sweep_banded",
+                            "rt_sweep_maxrand")}
+    for tag, b in (("decks", bc), ("mixed", mixed_clouds(bc, device))):
+        cldf = b.cldfrac
+        rows_k, rows_p = overlap_rows(cldf), rtrnmr.overlap_rows(cldf)
+        nbad = int((rows_k[:, :4] != rows_p[:, :4]).sum())
+        e = rel_err(rows_k[:, 4:], rows_p[:, 4:])
+        need(nbad == 0 and e <= TOL_ROWS, f"overlap_rows ({tag}): {nbad} "
+             f"discrete rows differ, factor err {e:.3g}")
+        need(torch.equal(rows_k, overlap_rows(cldf)),
+             f"overlap_rows ({tag}): two runs differ")
+        errs["overlap_rows"].append(
+            (float((rows_k - rows_p).abs().max()), e))
+        print(f"overlap_rows ({tag}): discrete rows equal, factor err "
+              f"{e:.3g}, nonzero factors "
+              f"{float((rows_p[:, 4:] != 0).double().mean()):.1%}")
+        if tag == "decks":
+            res["overlap_rows"] = dict(
+                ms=cuda_ms(lambda: overlap_rows(cldf), 20),
+                plain_ms=cuda_ms(lambda: rtrnmr.overlap_rows(cldf), 2),
+                **bound((cldf,), (rows_k,), OPS["overlap"] * cldf.numel()))
+        taucb, _ = cldprop.cldprop_banded_blocked(
+            b, static, inflag=2, iceflag=3, liqflag=1,
+            coeffs=ice_liq_coeffs_blocked)
+        cldf_t = cldf.t().contiguous()
+        ncld = int((cldf >= rtrn.CLOUD_GATE).sum())
+        for name, kern, plain, cld_k, cld_p, ops in (
+                ("rt_sweep_banded", rt_fluxes_banded, rtrn.rt_fluxes_banded,
+                 cldf_t, cldf_t, OPS["rt_cloud"]),
+                ("rt_sweep_maxrand", rt_fluxes_maxrand,
+                 rtrn.rt_fluxes_maxrand, rows_k, rows_p, OPS["rt_maxrand"])):
+            fk = kern(*args, cld_k, taucb)
+            fp = plain(*args, cld_p, taucb)
+            need(torch.isfinite(fk).all(), f"{name} ({tag}): non-finite")
+            err = flux_err(fp, fk)
+            need(err <= TOL_FLUX,
+                 f"{name} ({tag}): flux err {err:.3g} > {TOL_FLUX}")
+            need(torch.equal(fk, kern(*args, cld_k, taucb)),
+                 f"{name} ({tag}): two runs differ")
+            need(not torch.allclose(fk[0], fk[2]), f"{name} ({tag}): the "
+                 "clouds left the all-sky fluxes unchanged")
+            errs[name].append((float((fk - fp).abs().max()), err))
+            print(f"{name} ({tag}): flux err {err:.3g}")
+            if tag == "decks":
+                res[name] = dict(
+                    ms=cuda_ms(lambda: kern(*args, cld_k, taucb), 5),
+                    plain_ms=cuda_ms(lambda: plain(*args, cld_p, taucb), 2),
+                    **bound((*args, cld_k, taucb), (fk,), 140 * (
+                        OPS["rt_clear"] * L_MAIN * B_MAIN + ops * ncld)))
+    for name, e in errs.items():
+        res[name].update(max_abs_err=max(a for a, _ in e),
+                         max_rel_err=max(r for _, r in e))
     for name, r in res.items():
         print(f"{name}: max_abs_err {r['max_abs_err']:.3g} "
               f"max_rel_err {r['max_rel_err']:.3g} kernel {r['ms']:.3f} ms "
-              f"plain {r['plain_ms']:.3f} ms")
+              f"plain {r['plain_ms']:.3f} ms bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']})")
     return res
 
 
@@ -259,51 +394,74 @@ def compare_models(tag, fk, fe, cloudy):
     return err
 
 
-def phase_end_to_end(device, counters):
-    from rrtmg_lw_torch import LWConfig, make_model
-    cfg = dict(dtype="float32", use_lut=False)
-    atm, clouds = inputs(L_MAIN, device)
-    models = {(icld, impl): make_model(
-        LWConfig(icld=icld, imca=1, impl=impl, **cfg), device=device)
-        for icld in (0, 2) for impl in ("cuda", "eager")}
-    # warm up outside the counted run (first launches, allocator)
-    for icld in (0, 2):
-        models[icld, "cuda"](atm, clouds if icld else None)
-    torch.cuda.synchronize()
-
+def counted_steps(tag, model, atm, clouds, steps, counters, per_step):
+    """``steps`` calls of ``model`` with every launch counter set to 0
+    just before and read just after: each must read its ``per_step``
+    count (0 where absent) times ``steps``.  (fluxes, ms, counts)."""
     for fn in counters.values():
         fn.launches = 0
-    runs = {}
-    for icld in (0, 2):
-        cl = clouds if icld else None
-        runs[icld, "cuda"] = run_steps(models[icld, "cuda"], atm, cl, STEPS)
-        if icld == 0:
-            need(counters["cldcoef"].launches == 0,
-                 "cldcoef launched on the clear run")
-    launches = {k: fn.launches for k, fn in counters.items()}
-    need(all(n > 0 for n in launches.values()),
-         f"a kernel of the main path never launched: {launches}")
-    print(f"launches in the main-path run: {launches}")
+    fl, ms = run_steps(model, atm, clouds, steps)
+    counts = {k: fn.launches for k, fn in counters.items()}
+    want = {k: per_step.get(k, 0) * steps for k in counters}
+    need(counts == want, f"{tag}: launches {counts}, expected {want}")
+    print(f"{tag}: launches in its {steps} step(s): {counts}")
+    return fl, ms, counts
 
-    rows = []
-    for icld in (0, 2):
-        cl = clouds if icld else None
-        runs[icld, "eager"] = run_steps(models[icld, "eager"], atm, cl, 1)
-        tag = "clear" if icld == 0 else "mcica_cloudy"
-        err = compare_models(tag, runs[icld, "cuda"][0],
-                             runs[icld, "eager"][0], icld)
-        for impl in ("cuda", "eager"):
-            ms = runs[icld, impl][1]
+
+def forward_cells(device, counters, cells):
+    """Each cell of ``cells`` ((tag, icld, imca, clouds input, steps,
+    launches per step)) through the kernels, counted on its own, then
+    once through the eager model on the card; fluxes held to eager."""
+    from rrtmg_lw_torch import LWConfig, make_model
+    cfg = dict(dtype="float32", use_lut=False)
+    launches, rows = {}, []
+    for tag, icld, imca, cell, steps, per_step in cells:
+        atm, clouds = inputs(cell, device)
+        if icld == 0:
+            clouds = None
+        models = {impl: make_model(LWConfig(icld=icld, imca=imca, impl=impl,
+                                            **cfg), device=device)
+                  for impl in ("cuda", "eager")}
+        models["cuda"](atm, clouds)          # warm-up (first launches)
+        torch.cuda.synchronize()
+        fk, ms, launches[tag] = counted_steps(tag, models["cuda"], atm,
+                                              clouds, steps, counters,
+                                              per_step)
+        fe, ms_e = run_steps(models["eager"], atm, clouds, 1)
+        err = compare_models(tag, fk, fe, icld)
+        if imca == 0:
+            need(not torch.allclose(fk.uflx, fk.uflxc),
+                 f"{tag}: the clouds left the all-sky fluxes unchanged")
+        for impl, t in (("cuda", ms), ("eager", ms_e)):
             rows.append(dict(cell=tag, impl=impl, ncol=B_MAIN, nlay=L_MAIN,
-                             ms_per_step=ms,
-                             cols_per_sec=B_MAIN / (ms * 1e-3)))
+                             ms_per_step=t, cols_per_sec=B_MAIN / (t * 1e-3),
+                             **(dict(launches=launches[tag])
+                                if impl == "cuda" else {})))
         print(f"{tag}: flux err cuda vs eager {err:.3g}")
+        del models, atm, clouds, fk, fe
+        torch.cuda.empty_cache()
     return launches, rows
+
+
+# forward cells: tag, icld, imca, inputs, steps, launches per step
+FWD = dict(taumol=1, planck=2, cldcoef=1)
+CELLS_MAIN = (("clear", 0, 1, "clear", STEPS,
+               dict(FWD, cldcoef=0, rt_sweep=1)),
+              ("mcica_cloudy", 2, 1, "mcica_cloudy", STEPS,
+               dict(FWD, rt_sweep=1)))
+# deterministic clouds (imca=0): K1 banded for icld=1, the overlap rows
+# and K1 maxrand for icld 2/3 (icld=3 reaches the same kernels: one step)
+CELLS_BAND = (("band_cloudy", 1, 0, "band_cloudy", STEPS,
+               dict(FWD, rt_sweep_banded=1)),
+              ("maxrand_cloudy", 2, 0, "band_cloudy", STEPS,
+               dict(FWD, rt_sweep_maxrand=1, overlap_rows=1)),
+              ("maxrand_cloudy_icld3", 3, 0, "band_cloudy", 1,
+               dict(FWD, rt_sweep_maxrand=1, overlap_rows=1)))
 
 
 def phase_deep(device, counters):
     from rrtmg_lw_torch import LWConfig, make_model
-    atm, clouds = inputs(L_DEEP, device)
+    atm, clouds = inputs("mcica_cloudy_deep", device)
     out = {}
     for impl in ("cuda", "eager"):
         m = make_model(LWConfig(icld=2, imca=1, dtype="float32",
@@ -361,7 +519,7 @@ def phase_grad_kernels(device):
 
     model = make_model(LWConfig(icld=2, imca=1, dtype="float32",
                                 use_lut=False, impl="cuda"), device=device)
-    atm, clouds = inputs(L_MAIN, device)
+    atm, clouds = inputs("mcica_cloudy", device)
     prof = inatm(atm, dtype=torch.float32)
     static = model.static_tensors()
     gen = torch.Generator(device=device).manual_seed(5)
@@ -399,7 +557,9 @@ def phase_grad_kernels(device):
         ms=cuda_ms(lambda: [planck_interp_vjp(t, tot, c)
                             for t, c in zip(temps, cts)], 20),
         plain_ms=cuda_ms(lambda: [interp_planck_vjp(t, tot, c)
-                                  for t, c in zip(temps, cts)], 5))
+                                  for t, c in zip(temps, cts)], 5),
+        **bound((*temps, tot, tot, *cts), temps,
+                OPS["planck_bwd"] * sum(c.numel() for c in cts)))
 
     # K5 per field, on the main-path cells and on boosted ones that cross
     # the minor-gas over-abundance thresholds
@@ -420,7 +580,9 @@ def phase_grad_kernels(device):
         ms=cuda_ms(lambda: taumol_vjp(fld, ifld, eng, tabs, desc, ct_t,
                                       ct_f), 5),
         plain_ms=cuda_ms(lambda: taumol_packed_vjp(eng, fld, ifld, ct_t,
-                                                   ct_f), 2))
+                                                   ct_f), 2),
+        **bound((fld, ifld, tabs, desc, ct_t, ct_f), (fld,),
+                OPS["taumol_bwd"] * ct_t.numel()))
 
     # K6, clear and compact McICA, on the forward's own tensors
     taug, fracs = taumol_packed(eng, fld, ifld)
@@ -442,7 +604,8 @@ def phase_grad_kernels(device):
     res["rt_adjoint"] = check("rt_adjoint", out, ref, TOL_BWD_RT, again)
     res["rt_adjoint"].update(
         ms=cuda_ms(lambda: rt_sweep_vjp(*args), 5),
-        plain_ms=cuda_ms(lambda: rtrn.rt_sweep_vjp(*args), 1))
+        plain_ms=cuda_ms(lambda: rtrn.rt_sweep_vjp(*args), 1),
+        **bound(args, out[-8:], OPS["rt_adjoint"] * taut.numel()))
     for name, r in res.items():
         print(f"{name}: max_abs_err {r['max_abs_err']:.3g} "
               f"max_rel_err {r['max_rel_err']:.3g} kernel {r['ms']:.3f} ms "
@@ -469,7 +632,7 @@ def phase_grad_step(device, counters):
     from rrtmg_lw_torch import LWConfig, make_model
     from rrtmg_lw_torch.parallel import make_grad_step
     cfg = dict(dtype="float32", use_lut=False)
-    atm, clouds = inputs(L_MAIN, device)
+    atm, clouds = inputs("mcica_cloudy", device)
     # The gate's loss sums seeded cotangents times uflx, dflx, uflxc and
     # dflxc over every level and column.  Linear in the fluxes, its
     # gradient reads the forward only through the kernels' linearization
@@ -542,9 +705,18 @@ def main() -> int:
     from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_blocked
     from rrtmg_lw_torch.ops.planck_cuda import (planck_interp_blocked,
                                                 planck_interp_vjp)
-    from rrtmg_lw_torch.ops.rtrn_cuda import rt_fluxes_blocked, rt_sweep_vjp
+    from rrtmg_lw_torch.ops.rtrn_cuda import (rt_fluxes_banded,
+                                              rt_fluxes_blocked,
+                                              rt_fluxes_maxrand,
+                                              rt_sweep_vjp)
+    from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows
     from rrtmg_lw_torch.ops.taumol_cuda import taumol_blocked, taumol_vjp
+    from rrtmg_lw_torch.utils import profiling
 
+    need(profiling.NCOL == B_MAIN
+         and profiling.CELLS["mcica_cloudy"][3] == L_MAIN
+         and profiling.CELLS["mcica_cloudy_deep"][3] == L_DEEP,
+         "the cells' inputs are not of this script's shapes")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -571,12 +743,22 @@ def main() -> int:
     res = phase_kernels(device)
     torch.cuda.empty_cache()
 
-    # 4. end to end, with the launch counters
+    # 4. end to end, each cell with its own launch counts: clear and
+    # McICA, then the deterministic clouds
     counters = {"taumol": taumol_blocked, "planck": planck_interp_blocked,
                 "cldcoef": ice_liq_coeffs_blocked,
                 "rt_sweep": rt_fluxes_blocked}
-    launches, rows = phase_end_to_end(device, counters)
-    torch.cuda.empty_cache()
+    fwd_counters = dict(counters, rt_sweep_banded=rt_fluxes_banded,
+                        rt_sweep_maxrand=rt_fluxes_maxrand,
+                        overlap_rows=overlap_rows)
+    cell_launches, rows = forward_cells(device, fwd_counters,
+                                        CELLS_MAIN + CELLS_BAND)
+    # each kernel's launches: those of the first cell that runs it
+    launches = {}
+    for counts in cell_launches.values():
+        for k, n in counts.items():
+            if n and k not in launches:
+                launches[k] = n
 
     # 5. deep
     rows += phase_deep(device, counters)

@@ -8,6 +8,11 @@ package's three backend switches (``taumol_impl``, ``rt_impl``,
   "cuda"   the hand-written CUDA kernels (needs a CUDA device, float32)
   "eager"  the plain PyTorch versions of those kernels, on any device
   "auto"   "cuda" on a CUDA device, "eager" on the CPU
+
+The entry points (``make_model``, the ``from_numpy`` of the input
+types, ``load_tables``) run on the card unless the caller names another
+device: ``resolve_device`` turns their ``device=None`` into CUDA, and
+raises where there is none.
 """
 
 from __future__ import annotations
@@ -17,6 +22,17 @@ import dataclasses
 import torch
 
 IMPLS = ("auto", "cuda", "eager")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the CUDA device when it is None; raises
+    RuntimeError when None is given and no CUDA device exists."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on "
+                           "the CPU")
+    return torch.device("cuda")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,6 +15,20 @@ constexpr int NY = 16;                                  // g-lanes per column
 constexpr int GPT = (rrtm::NGPT + NY - 1) / NY;         // g-points per thread
 constexpr float CLDMIN = 1.0e-20f;
 constexpr float REC_6 = 0.166667f;
+// a layer holds a per-band cloud where cldfrac >= CLOUD_GATE (banded and
+// maxrand modes; rtrn.CLOUD_GATE)
+constexpr float CLOUD_GATE = 1.0e-6f;
+
+// K1's modes (rtrn_cuda.MODES): clear sky; compact McICA (mask x layer
+// water paths); per-band clouds under random overlap (icld=1); per-band
+// clouds under maximum-random overlap (icld 2/3)
+enum Mode { CLEAR = 0, COMPACT = 1, BANDED = 2, MAXRAND = 3 };
+
+// rows of the (L, 16, B) overlap rows of the maxrand mode
+// (rtrnmr.overlap_rows): cldfrac, restart flags of the up and down
+// sub-streams, cloud at or above, 6 down factors, 6 up factors
+enum Row { R_CLDF = 0, R_IST_UP = 1, R_IST_DN = 2, R_ICLDDN = 3,
+           R_DN = 4, R_UP = 10, NROW = 16 };
 
 // rows of the (4, L+1, B) flux output
 enum Flux { UP = 0, DOWN = 1, CLR_UP = 2, CLR_DOWN = 3 };
@@ -55,6 +69,9 @@ struct Inputs {
     const float* abi;      // (L, 16, B)
     const float* abl;      // (L, 16, B)
     int L, B;
+    // banded: cldfrac (L, B); maxrand: overlap rows (L, 16, B)
+    const float* cld = nullptr;
+    const float* taucb = nullptr;  // (L, 16, B) cloud od per band
 };
 
 // Per (layer, g) factors of one sweep step.  `lev` is the level whose
@@ -63,10 +80,12 @@ struct Step {
     float at, atot, ef, cf, src, srctot;
 };
 
-template <bool CLOUDY>
+// `cf` is the compact mask value of this g (COMPACT) or the layer's
+// cloud fraction (BANDED, MAXRAND).
+template <int MODE>
 __device__ __forceinline__ Step layer_step(const Inputs& in, int l, int lev,
                                            int g, int bd, float secd,
-                                           float mask, float cw0, float cw1,
+                                           float cf, float cw0, float cw1,
                                            int b) {
     const size_t B = in.B;
     const size_t gi = ((size_t)l * rrtm::NGPT + g) * B + b;
@@ -81,9 +100,8 @@ __device__ __forceinline__ Step layer_step(const Inputs& in, int l, int lev,
     s.atot = s.at;
     s.ef = s.cf = 0.0f;
     s.srctot = s.src;
-    if (CLOUDY) {
+    if (MODE == COMPACT) {
         // cldprmc on the compact products (mask x per-layer water path)
-        const float cf = mask;
         const bool gate = cf >= 0.5f;
         const float ciwp = cw0 * cf;
         const float clwp = cw1 * cf;
@@ -96,6 +114,16 @@ __device__ __forceinline__ Step layer_step(const Inputs& in, int l, int lev,
         const float odce = gate ? secd * odcld : 0.0f;
         const float abscld = 1.0f - expf(-odce);
         s.ef = gate ? abscld * cf : 0.0f;
+        s.cf = cf;
+        float tft;
+        tot_factors(od + odce, s.atot, tft);
+        s.srctot = fr * (bl + tft * dp);
+    } else if ((MODE == BANDED || MODE == MAXRAND) && cf >= CLOUD_GATE) {
+        // per-band cloud od of this g's band, on the spectral band's
+        // diffusivity; the cloud factors are read only in a cloudy layer
+        const float odce =
+            secd * in.taucb[((size_t)l * rrtm::NBAND + bd) * B + b];
+        if (MODE == BANDED) s.ef = (1.0f - expf(-odce)) * cf;
         s.cf = cf;
         float tft;
         tot_factors(od + odce, s.atot, tft);
@@ -116,6 +144,43 @@ __device__ __forceinline__ void advance(float& rad, float& radc,
                        + f.cf * (f.srctot * f.atot - gs);
     const float rclr = rad + (f.src - rad) * f.at;
     const float rn = cly ? rcld : rclr;
+    radc = twin ? radc + (f.src - radc) * f.at : rn;
+    rad = rn;
+}
+
+// One level of the maximum-random overlap recursion (rtrn._sweep_maxrand,
+// rtrnmr.f90:591-615 down, 678-703 up).  In a cloudy layer (cly) the
+// total-sky stream is the sum of a cloudy (cr) and a clear (kr)
+// sub-stream that exchange a correction radiance (rr), restarted from the
+// stream entering the layer where `ist` holds; fac are the layer's six
+// overlap factors (clr1, clr2, cld1, cld2, cmb1, cmb2).  Elsewhere the
+// clear recurrence runs and the sub-streams keep their values.  The clear
+// twin is advance()'s.
+__device__ __forceinline__ void advance_mr(float& rad, float& radc,
+                                           float& cr, float& kr, float& rr,
+                                           const Step& f, bool cly,
+                                           bool twin, bool ist,
+                                           const float* fac) {
+    const float gs = f.at * f.src;
+    float rn = rad + (f.src - rad) * f.at;
+    if (cly) {
+        const float c = f.cf;
+        const float cr0 = ist ? c * rad : cr;
+        const float kr0 = ist ? rad - c * rad : kr;
+        const float rr0 = ist ? 0.0f : rr;
+        const float ttot = 1.0f - f.atot;
+        const float cldsrc = f.srctot * f.atot;
+        const float cr1 = cr0 * ttot + c * cldsrc;
+        const float kr1 = kr0 * (1.0f - f.at) + (1.0f - c) * gs;
+        const float radmod = rr0 * (fac[0] * (1.0f - f.at) + fac[2] * ttot)
+                             - fac[4] * gs + fac[5] * cldsrc;
+        const float r = -radmod + fac[1] * (kr1 + radmod)
+                        - fac[3] * (cr1 - radmod);
+        cr = cr1 + r;
+        kr = kr1 - r;
+        rr = r;
+        rn = cr1 + kr1;
+    }
     radc = twin ? radc + (f.src - radc) * f.at : rn;
     rad = rn;
 }

@@ -213,6 +213,7 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
     // gp[NQ or 2][140][NX] per-g values, then cly_bits[L]
     extern __shared__ float dyn[];
     constexpr int NQS = CLOUDY ? NQ : 2;
+    constexpr int FWD = CLOUDY ? COMPACT : CLEAR;   // K1's mode
     float* gp_s = dyn;
     unsigned int* cly_bits = (unsigned int*)(dyn + NQS * rrtm::NGPT * NX);
     __shared__ float bpart[2][rrtm::NBAND][NX];
@@ -290,8 +291,8 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
         for (int k = 0; k < GPT; ++k) {
             const int g = ty + k * NY;
             if (g >= rrtm::NGPT) continue;
-            const Step f = layer_step<CLOUDY>(in, l, l, g, bnd[k], secd[k],
-                                              m[k], cw0, cw1, b);
+            const Step f = layer_step<FWD>(in, l, l, g, bnd[k], secd[k],
+                                           m[k], cw0, cw1, b);
             advance(rad[k], radc[k], f, cly, icl);
             if (valid) {
                 sD[at_lg(l, g)] = rad[k];
@@ -328,8 +329,8 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
                 sU[at_lg(l, g)] = rad[k];
                 if (CLOUDY) sUc[at_lg(l, g)] = radc[k];
             }
-            const Step f = layer_step<CLOUDY>(in, l, l + 1, g, bnd[k],
-                                              secd[k], m[k], cw0, cw1, b);
+            const Step f = layer_step<FWD>(in, l, l + 1, g, bnd[k],
+                                           secd[k], m[k], cw0, cw1, b);
             advance(rad[k], radc[k], f, cly, anyc);
         }
     }

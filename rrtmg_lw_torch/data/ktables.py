@@ -21,12 +21,14 @@ import pathlib
 import numpy as np
 import torch
 
+from ..config import resolve_device
+
 ASSET_DIR = (pathlib.Path(__file__).resolve().parents[2]
              / "rrtmg_lw_tpu" / "assets")
 
 # static arrays the port uses as tensors (the rest stay numpy)
 STATIC_TENSORS = ("totplnk", "totplnkderiv", "preflog", "tref", "chi_mls",
-                  "absice2", "absice3", "absliq1")
+                  "absice2", "absice3", "absliq1", "abscld1")
 
 
 def load_static() -> dict:
@@ -82,10 +84,13 @@ class Tables:
         return kt, st
 
 
-def tables_from_numpy(ktables: dict, static: dict, device="cpu",
+def tables_from_numpy(ktables: dict, static: dict, device=None,
                       dtype=torch.float64, is_real: bool = True) -> Tables:
-    """Tensors on ``device`` for numpy ``ktables`` and ``static``."""
+    """Tensors on ``device`` (the CUDA device when None) for numpy
+    ``ktables`` and ``static``."""
     from ..ops.taumol_cuda import pack_tables
+
+    device = resolve_device(device)
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64)).to(device, dtype)
@@ -101,8 +106,9 @@ def tables_from_numpy(ktables: dict, static: dict, device="cpu",
                   kernel_offsets=offsets, is_real=is_real)
 
 
-def load_tables(device="cpu", dtype=torch.float64) -> Tables:
-    """load_ktables + load_static, carried to ``device``."""
+def load_tables(device=None, dtype=torch.float64) -> Tables:
+    """load_ktables + load_static, carried to ``device`` (the CUDA device
+    when None)."""
     ktables, is_real = load_ktables()
     return tables_from_numpy(ktables, load_static(), device, dtype,
                              is_real=is_real)

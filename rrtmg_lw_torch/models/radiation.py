@@ -1,21 +1,28 @@
 """The main-path model: batched longwave radiative transfer.
 
 PyTorch port of ``rrtmg_lw_tpu.models.radiation.RRTMGLW`` for the
-forward clear-sky and McICA-cloudy step (the JAX model's blocked
-branch, models/radiation.py:161-183, 256-269).  One step runs
+forward clear-sky, McICA-cloudy and deterministic-cloud step (the JAX
+model's blocked branch, models/radiation.py:161-183, 256-269,
+297-358).  One step runs
 
   inatm -> setcoef -> taumol (K2) -> taut = taug + taua[..., ngb]
   -> Planck at layer and level temperatures (K3)
-  -> ice/liquid coefficients (K4, cloudy only) -> RT sweep (K1)
+  -> cloud optics: ice/liquid coefficients (K4; McICA, and per-band
+     clouds with inflag=2)
+  -> RT sweep (K1: clear, compact McICA, banded icld=1, or maxrand
+     icld 2/3 after the overlap rows of the cloud fraction)
   -> heating rates from the fluxes.
 
-With ``impl="cuda"`` the four stages marked K run the hand-written CUDA
-kernels, each inside a ``torch.autograd.Function`` whose backward is a
-kernel too (K5 taumol, K3b Planck, K6 RT; K4's inputs are not
-differentiated); with ``impl="eager"`` their plain PyTorch versions, on
-the same layouts, under plain autograd.  Configurations outside this
-slice raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+With ``impl="cuda"`` the stages marked K (and the overlap rows) run the
+hand-written CUDA kernels, each inside a ``torch.autograd.Function``
+whose backward is a kernel too for clear sky and McICA (K5 taumol, K3b
+Planck, K6 RT; K4's inputs are not differentiated; the banded and
+maxrand backward raise on the card); with ``impl="eager"`` their plain
+PyTorch versions, on the same layouts, under plain autograd.
+Configurations outside the port raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
+
+The model runs on the CUDA device unless ``device`` names another.
 """
 
 from __future__ import annotations
@@ -24,18 +31,21 @@ from typing import Optional
 
 import torch
 
-from ..config import LWConfig
+from ..config import LWConfig, resolve_device
 from ..constants import heatfac
 from ..data.ktables import STATIC_TENSORS, Tables, load_tables
-from ..ops import cldprop, rtrn
+from ..ops import cldprop, rtrn, rtrnmr
 from ..ops.cldcoef_cuda import ice_liq_coeffs_blocked
 from ..ops.inatm import inatm
 from ..ops.planck_cuda import planck_interp_blocked
-from ..ops.rtrn_cuda import rt_fluxes_blocked
+from ..ops.rtrn_cuda import (rt_fluxes_banded, rt_fluxes_blocked,
+                             rt_fluxes_maxrand)
+from ..ops.rtrnmr_cuda import overlap_rows
 from ..ops.setcoef import interp_planck_blocked, setcoef
 from ..ops.taumol import TaumolEngine
 from ..ops.taumol_cuda import taumol_blocked
-from ..types import Atmosphere, Fluxes, McicaCloudsCompact, Profile
+from ..types import (Atmosphere, BandClouds, Fluxes, McicaCloudsCompact,
+                     Profile)
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -45,12 +55,19 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 
 def check_supported(cfg: LWConfig) -> None:
-    """Raise NotImplementedError for configurations outside the slice."""
-    if cfg.icld != 0 and cfg.imca != 1:
-        raise _unported(f"icld={cfg.icld} without McICA (imca=0)",
-                        "Queue 1 item 10")
+    """Raise NotImplementedError for configurations outside the port."""
     if cfg.icld not in range(6):
         raise ValueError(f"icld must be 0..5, got {cfg.icld}")
+    if cfg.icld != 0 and cfg.imca != 1:
+        if cfg.icld > 3:
+            raise _unported(f"icld={cfg.icld} without McICA (imca=0)",
+                            "Queue 1 item 10")
+        if not cldprop.cloud_bands_static(cfg.inflag, cfg.iceflag,
+                                          cfg.liqflag):
+            raise _unported(
+                f"per-band clouds with inflag={cfg.inflag}, iceflag="
+                f"{cfg.iceflag}, liqflag={cfg.liqflag} (cldprop_ncbands)",
+                "Queue 1 item 10")
     if cfg.idrv != 0:
         raise _unported("idrv=1 (dF/dT surface)", "Queue 1 item 10")
     if cfg.use_lut:
@@ -58,20 +75,20 @@ def check_supported(cfg: LWConfig) -> None:
                         "Queue 1 item 10")
     if (cfg.istart, cfg.iend) != (1, 16):
         raise _unported("a band subset (istart/iend)", "Queue 1 item 10")
-    if cfg.icld != 0 and cfg.inflag != 2:
-        raise _unported(f"inflag={cfg.inflag}", "Queue 1 item 10")
+    if cfg.icld != 0 and cfg.imca == 1 and cfg.inflag != 2:
+        raise _unported(f"McICA with inflag={cfg.inflag}", "Queue 1 item 10")
 
 
 class RRTMGLW(torch.nn.Module):
     """Holds the k-tables and static tables as buffers on one device;
     ``model(atm, clouds)`` returns Fluxes."""
 
-    def __init__(self, config: LWConfig = LWConfig(), device="cpu",
+    def __init__(self, config: LWConfig = LWConfig(), device=None,
                  tables: Optional[Tables] = None):
         super().__init__()
         check_supported(config)
         self.config = config
-        device = torch.device(device)
+        device = resolve_device(device)
         self.impl = config.resolve_impl(device)
         dtype = config.torch_dtype
         if self.impl == "cuda" and dtype != torch.float32:
@@ -99,13 +116,13 @@ class RRTMGLW(torch.nn.Module):
         """The static-table buffers by name (setcoef, cloud optics)."""
         return {k: getattr(self, k) for k in STATIC_TENSORS}
 
-    def forward(self, atm: Atmosphere,
-                clouds: Optional[McicaCloudsCompact] = None) -> Fluxes:
+    def forward(self, atm: Atmosphere, clouds=None) -> Fluxes:
+        """``clouds``: None (clear sky), ``McicaCloudsCompact`` (imca=1)
+        or ``BandClouds`` (imca=0)."""
         return self.from_profile(inatm(atm, dtype=self.config.torch_dtype),
                                  clouds)
 
-    def from_profile(self, prof: Profile,
-                     clouds: Optional[McicaCloudsCompact] = None) -> Fluxes:
+    def from_profile(self, prof: Profile, clouds=None) -> Fluxes:
         """The step from an already-processed Profile (after inatm)."""
         cfg = self.config
         cuda = self.impl == "cuda"
@@ -129,22 +146,46 @@ class RRTMGLW(torch.nn.Module):
         planklay_t = planck(prof.tavel.t().contiguous(), self.totplnk)
         planklev_t = planck(prof.tz.t().contiguous(), self.totplnk)
 
-        cloud_fields = bounds_ok = None
-        if cfg.icld != 0 and clouds is not None:
+        rt_args = (taut_t, fracs_t, planklay_t, planklev_t, sc.plankbnd,
+                   prof.semiss, prof.pwvcm, self.ngb0, self.wg)
+        coeffs = (ice_liq_coeffs_blocked if cuda
+                  else cldprop.ice_liq_coeffs_blocked)
+        bounds_ok = None
+        if cfg.icld == 0 or clouds is None:
+            fl = (rt_fluxes_blocked if cuda
+                  else rtrn.rt_fluxes_blocked)(*rt_args)
+        elif cfg.imca == 1:
+            if isinstance(clouds, BandClouds):
+                raise TypeError("BandClouds need imca=0; McICA (imca=1) "
+                                "takes McicaCloudsCompact")
             if not isinstance(clouds, McicaCloudsCompact):
                 raise _unported(f"{type(clouds).__name__} clouds (only "
                                 "McicaCloudsCompact)", "Queue 1 item 10")
             abi_t, abl_t, bounds_ok = cldprop.cloud_optics_bands_blocked(
                 clouds, static, iceflag=cfg.iceflag, liqflag=cfg.liqflag,
-                coeffs=(ice_liq_coeffs_blocked if cuda
-                        else cldprop.ice_liq_coeffs_blocked))
+                coeffs=coeffs)
             cw_t = torch.stack([clouds.ciwp.t(), clouds.clwp.t()],
                                dim=1).to(taut_t.dtype).contiguous()
-            cloud_fields = (clouds.cldfmc, cw_t, abi_t, abl_t)
-
-        rt = rt_fluxes_blocked if cuda else rtrn.rt_fluxes_blocked
-        fl = rt(taut_t, fracs_t, planklay_t, planklev_t, sc.plankbnd,
-                prof.semiss, prof.pwvcm, self.ngb0, self.wg, cloud_fields)
+            fl = (rt_fluxes_blocked if cuda else rtrn.rt_fluxes_blocked)(
+                *rt_args, (clouds.cldfmc, cw_t, abi_t, abl_t))
+        else:
+            if not isinstance(clouds, BandClouds):
+                raise TypeError(f"imca=0 takes BandClouds, got "
+                                f"{type(clouds).__name__}")
+            # per-band cloud od stays at band resolution into the kernel,
+            # which expands it to g by ngb
+            taucb_t, bounds_ok = cldprop.cldprop_banded_blocked(
+                clouds, static, inflag=cfg.inflag,
+                iceflag=cfg.iceflag, liqflag=cfg.liqflag, coeffs=coeffs)
+            cldfrac = clouds.cldfrac.to(taut_t.dtype)
+            if cfg.icld == 1:
+                fl = (rt_fluxes_banded if cuda else rtrn.rt_fluxes_banded)(
+                    *rt_args, cldfrac.t().contiguous(), taucb_t)
+            else:
+                rows = (overlap_rows if cuda
+                        else rtrnmr.overlap_rows)(cldfrac.contiguous())
+                fl = (rt_fluxes_maxrand if cuda
+                      else rtrn.rt_fluxes_maxrand)(*rt_args, rows, taucb_t)
         uflx, dflx, uflxc, dflxc = (f.t() for f in fl)
         return Fluxes(uflx, dflx, rtrn.heating(uflx - dflx, prof.pz,
                                                self.heatfac),
@@ -153,9 +194,10 @@ class RRTMGLW(torch.nn.Module):
                       cld_bounds_ok=bounds_ok)
 
 
-def make_model(config: LWConfig = LWConfig(), device="cpu",
+def make_model(config: LWConfig = LWConfig(), device=None,
                tables: Optional[Tables] = None) -> RRTMGLW:
-    """``tables``: a ``data.ktables.Tables`` (e.g. from
+    """The model on ``device`` (the CUDA device when None; raises where
+    there is none).  ``tables``: a ``data.ktables.Tables`` (e.g. from
     ``tables_from_numpy(jax_model.ktables, jax_model.static_np)``) in
     place of loading the assets."""
     return RRTMGLW(config, device=device, tables=tables)

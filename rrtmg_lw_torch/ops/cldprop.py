@@ -1,4 +1,4 @@
-"""Cloud optics for McICA clouds (inflag=2).
+"""Cloud optics: McICA clouds (inflag=2) and per-band clouds (imca=0).
 
 Port of the tabulated branches of ``rrtmg_lw_tpu.ops.cldprop``
 (rrtmg_lw_cldprmc.f90:210-268): Key/Streamer (iceflag 2, absice2
@@ -6,6 +6,13 @@ Port of the tabulated branches of ``rrtmg_lw_tpu.ops.cldprop``
 absliq1 58x16) liquid.  ``_ice_liq_coeffs`` is the plain version of the
 cloud-coefficient kernel (``ops.cldcoef_cuda``).  Other flags raise
 ``NotImplementedError``.
+
+For per-band clouds (``BandClouds``, rrtmg_lw_cldprop.f90:50-295)
+``cldprop`` and ``cldprop_banded_blocked`` cover the configurations
+whose cloud bands are statically the 16 spectral bands
+(``cloud_bands_static``): inflag 0 (input od), inflag 1 (grey
+``abscld1``), and inflag 2 with iceflag 2/3 and liqflag 1.  The others
+(the reference's running ``ncbands``) raise ``NotImplementedError``.
 
 The reference hard-stops on out-of-range particle sizes
 (cldprmc.f90:204-253); here sizes are clamped and a boolean
@@ -76,6 +83,71 @@ def ice_liq_coeffs_blocked(reic, relq, iceflag, liqflag, tables):
     abi, abl, _ = _ice_liq_coeffs(reic, relq, iceflag, liqflag, tables)
     return (abi.permute(1, 2, 0).contiguous(),
             abl.permute(1, 2, 0).contiguous())
+
+
+def cloud_bands_static(inflag: int, iceflag: int, liqflag: int) -> bool:
+    """True when the cloud bands are the 16 spectral bands for every
+    cloudy layer (rrtmg_lw_cldprop.f90:191,197,229,245,278): inflag 0/1,
+    or inflag 2 with a 16-band ice table and Hu & Stamnes liquid."""
+    return inflag in (0, 1) or (iceflag in (2, 3) and liqflag == 1)
+
+
+def _check_static(inflag, iceflag, liqflag):
+    if inflag not in (0, 1, 2):
+        raise ValueError(f"inflag must be 0, 1 or 2, got {inflag}")
+    if not cloud_bands_static(inflag, iceflag, liqflag):
+        raise NotImplementedError(
+            f"per-band clouds with inflag={inflag}, iceflag={iceflag}, "
+            f"liqflag={liqflag} (the running ncbands of cldprop_ncbands / "
+            "expand_cloud_bands) are not ported yet; see ROADMAP.md "
+            "Queue 1 item 10")
+
+
+def _active(clouds):
+    """(B, L) cloudy-layer flag of cldprop and the total water path."""
+    cwp = clouds.ciwp + clouds.clwp
+    tauctot = clouds.tauc.sum(dim=-1)
+    active = (clouds.cldfrac >= CLDMIN) & ((cwp >= CLDMIN)
+                                           | (tauctot >= CLDMIN))
+    return active, cwp
+
+
+def cldprop(clouds, tables: dict, *, inflag: int, iceflag: int,
+            liqflag: int):
+    """Per-band cloud optical depth (B, L, 16) and bounds_ok (B, L) of
+    ``BandClouds``: ``cldprop_banded_blocked`` in the JAX package's
+    layout."""
+    tau_t, ok = cldprop_banded_blocked(clouds, tables, inflag=inflag,
+                                       iceflag=iceflag, liqflag=liqflag)
+    return tau_t.permute(2, 0, 1), ok
+
+
+def cldprop_banded_blocked(clouds, tables: dict, *, inflag: int,
+                           iceflag: int, liqflag: int,
+                           coeffs=ice_liq_coeffs_blocked):
+    """Per-band cloud optical depth of ``BandClouds`` in the (L, 16, B)
+    layout the RT sweep reads, taucb_t, and bounds_ok (B, L); ``tables``
+    holds the cloud tables and ``abscld1``.  ``coeffs`` (inflag 2) is
+    this module's plain ``ice_liq_coeffs_blocked`` or the kernel's
+    wrapper of the same signature."""
+    _check_static(inflag, iceflag, liqflag)
+    B, L = clouds.cldfrac.shape
+    active, cwp = _active(clouds)
+    act_t = active.t()[:, None, :]                       # (L, 1, B)
+    if inflag == 0:
+        tau_t = torch.where(act_t, clouds.tauc.permute(1, 2, 0), 0.0)
+        return tau_t.contiguous(), torch.ones_like(active)
+    if inflag == 1:
+        grey = (tables["abscld1"] * cwp).t()[:, None, :].expand(L, 16, B)
+        return (torch.where(act_t, grey, 0.0).contiguous(),
+                torch.ones_like(active))
+    abi_t, abl_t = coeffs(clouds.reic, clouds.relq, iceflag, liqflag, tables)
+    ciwp_t = clouds.ciwp.t()[:, None, :]
+    clwp_t = clouds.clwp.t()[:, None, :]
+    abi_t = torch.where(ciwp_t == 0.0, 0.0, abi_t)
+    abl_t = torch.where(clwp_t == 0.0, 0.0, abl_t)
+    tau_t = torch.where(act_t, ciwp_t * abi_t + clwp_t * abl_t, 0.0)
+    return tau_t.contiguous(), bounds_ok(clouds.reic, clouds.relq, iceflag)
 
 
 def cloud_optics_bands_blocked(clouds, tables: dict, *, iceflag: int,

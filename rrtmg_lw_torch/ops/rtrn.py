@@ -11,6 +11,11 @@ levels carrying only the radiance (B, G).
 (``ops.rtrn_cuda``): the same function on the kernel's layouts, with
 the per-column surface rows (``surf_rows``) as one input;
 ``rt_sweep_vjp`` is the plain version of its backward kernel.
+``rt_sweep_banded`` and ``rt_sweep_maxrand`` are the plain versions of
+the kernel's two deterministic-cloud modes: random overlap of per-band
+clouds (icld=1, rtrn.f90) and maximum-random overlap (icld 2/3,
+rtrnmr.f90, the sub-stream recursion ``_sweep_maxrand`` fed by the
+overlap rows of ``ops.rtrnmr``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,16 @@ from ..constants import (FLUXFAC, REC_6, SECDIFF_A0, SECDIFF_A1, SECDIFF_A2,
                          SECDIFF_FIXED, WTDIFF)
 from ._autograd import plain_vjp
 from .cldprop import CLDMIN
+
+# a layer holds a per-band cloud where cldfrac >= CLOUD_GATE (icld 1-3;
+# the JAX package's gate_thresh, models/radiation.py:335)
+CLOUD_GATE = 1.0e-6
+# rows of the (L, 16, B) overlap rows (rtrnmr.overlap_rows) of the
+# maxrand mode: cldfrac, istcld (up restart), istcldd (down restart),
+# iclddn (cloud at or above), the 6 down factors, the 6 up factors
+ROW_CLDF, ROW_IST_UP, ROW_IST_DN, ROW_ICLDDN = 0, 1, 2, 3
+ROWS_DN, ROWS_UP = slice(4, 10), slice(10, 16)
+NROWS = 16
 
 
 class RTOut(NamedTuple):
@@ -203,6 +218,80 @@ def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
     return flux(urad), flux(drad), flux(curad), flux(cdrad)
 
 
+def _sweep_maxrand(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
+                   rows, odcld_g, ngb0, wg):
+    """Maximum-random overlap sweeps (rtrnmr.f90:591-615 down, 678-703
+    up) -> (up, down, clear up, clear down) (B, L+1).  rows (B, L, 16)
+    are ``rtrnmr.overlap_rows`` per column; odcld_g (B, L, G) the cloud
+    od of each g's band."""
+    dtype = taut.dtype
+    B, L, G = taut.shape
+    ngb0 = ngb0.long()
+    cf = rows[..., ROW_CLDF]                             # (B, L)
+    cloudy = cf >= CLOUD_GATE
+    pre = precompute(taut, cf[..., None].expand(B, L, G), odcld_g,
+                     cloudy[..., None].expand(B, L, G), fracs, planklay,
+                     planklev, secd, ngb0)
+    at, atot = pre["atrans"], pre["atot"]
+    icl = rows[..., ROW_ICLDDN] > 0.0                    # cloud at or above
+
+    def step(rad, radc, sub, l, src, srctot, gs, ist, facs, twin):
+        """Layer l of the total-sky stream (with its cloudy, clear and
+        correction sub-streams) and of its clear twin."""
+        cr, kr, rr = sub
+        c, a, ato = cf[:, l, None], at[:, l], atot[:, l]
+        fclr1, fclr2, fcld1, fcld2, fcmb1, fcmb2 = (
+            f[:, None] for f in rows[:, l, facs].unbind(-1))
+        st = ist[:, l, None]
+        cr0 = torch.where(st, c * rad, cr)
+        kr0 = torch.where(st, rad - c * rad, kr)
+        rr0 = torch.where(st, 0.0, rr)
+        ttot = 1.0 - ato
+        cldsrc = srctot * ato
+        cr1 = cr0 * ttot + c * cldsrc
+        kr1 = kr0 * (1.0 - a) + (1.0 - c) * gs
+        radmod = (rr0 * (fclr1 * (1.0 - a) + fcld1 * ttot)
+                  - fcmb1 * gs + fcmb2 * cldsrc)
+        rn = -radmod + fclr2 * (kr1 + radmod) - fcld2 * (cr1 - radmod)
+        cly = cloudy[:, l, None]
+        new = torch.where(cly, cr1 + kr1, rad + (src - rad) * a)
+        sub = (torch.where(cly, cr1 + rn, cr), torch.where(cly, kr1 - rn, kr),
+               torch.where(cly, rn, rr))
+        return new, torch.where(twin, radc + (src - radc) * a, new), sub
+
+    zero = torch.zeros((B, G), dtype=dtype, device=taut.device)
+    ist_dn = rows[..., ROW_IST_DN] > 0.0
+    rad = radc = zero
+    sub = (zero, zero, zero)
+    drad = [zero] * (L + 1)
+    cdrad = [zero] * (L + 1)
+    for lev in range(L - 1, -1, -1):
+        rad, radc, sub = step(rad, radc, sub, lev, pre["bbd"][:, lev],
+                              pre["bbdtot"][:, lev], pre["gassrc_dn"][:, lev],
+                              ist_dn, ROWS_DN, icl[:, lev, None])
+        drad[lev], cdrad[lev] = rad, radc
+
+    rad0 = fracs[:, 0, :] * plankbnd[:, ngb0]
+    reflect = 1.0 - semiss[:, ngb0]
+    rad = rad0 + reflect * rad
+    radc = rad0 + reflect * radc
+    urad, curad = [rad], [radc]
+    ist_up = rows[..., ROW_IST_UP] > 0.0
+    anyc = icl[:, :1]
+    sub = (zero, zero, zero)
+    for lev in range(L):
+        bbu = pre["bbugas"][:, lev]
+        rad, radc, sub = step(rad, radc, sub, lev, bbu, pre["bbutot"][:, lev],
+                              bbu * at[:, lev], ist_up, ROWS_UP, anyc)
+        urad.append(rad)
+        curad.append(radc)
+
+    def flux(rads):  # L+1 x (B, G) -> (B, L+1)
+        return torch.einsum("lbg,g->bl", torch.stack(rads), wg)
+
+    return flux(urad), flux(drad), flux(curad), flux(cdrad)
+
+
 def compact_cloud_optics(mask_t, cw_t, abi_t, abl_t, ngb0, dtype):
     """Compact McICA fields -> per-g cldf_g, odcld_g (B, L, 140).
 
@@ -264,6 +353,53 @@ def rt_sweep_blocked(taut_t, fracs_t, planklay_t, planklev_t, surf, ngb0,
     return torch.stack(fluxes).permute(0, 2, 1).contiguous()
 
 
+def _band_layouts(taut_t, fracs_t, planklay_t, planklev_t, surf, taucb_t,
+                  ngb0):
+    """(L, *, B) kernel inputs -> (B, L, *) sweep inputs, the band cloud
+    od expanded to g, and the surface rows."""
+    def tb(x):
+        return x.permute(2, 0, 1)
+    secd, semiss, plankbnd = (s.t() for s in surf)
+    return (tb(taut_t), tb(fracs_t), tb(planklay_t), tb(planklev_t),
+            plankbnd, semiss, secd, tb(taucb_t)[..., ngb0.long()])
+
+
+def rt_sweep_banded(taut_t, fracs_t, planklay_t, planklev_t, surf, cldf_t,
+                    taucb_t, ngb0, wg):
+    """Fluxes (4, L+1, B) under random overlap of per-band clouds
+    (icld=1): the plain version of the RT kernel's banded mode.
+    cldf_t (L, B) the cloud fraction, taucb_t (L, 16, B) the cloud od
+    per band (``cldprop.cldprop_banded_blocked``); a layer is cloudy
+    where cldf >= CLOUD_GATE, for every g."""
+    taut, fracs, play, plev, plankbnd, semiss, secd, odcld_g = \
+        _band_layouts(taut_t, fracs_t, planklay_t, planklev_t, surf,
+                      taucb_t, ngb0)
+    B, L, G = taut.shape
+    cf = cldf_t.t()
+    cloudy = cf >= CLOUD_GATE
+    fluxes = _sweep(taut, fracs, play, plev, plankbnd, semiss, secd,
+                    cf[..., None].expand(B, L, G), odcld_g, cloudy,
+                    cloudy[..., None].expand(B, L, G), ngb0, wg,
+                    use_lut=False)
+    return torch.stack(fluxes).permute(0, 2, 1).contiguous()
+
+
+def rt_sweep_maxrand(taut_t, fracs_t, planklay_t, planklev_t, surf, rows_t,
+                     taucb_t, ngb0, wg):
+    """Fluxes (4, L+1, B) under maximum-random overlap (icld 2/3): the
+    plain version of the RT kernel's maxrand mode.  rows_t (L, 16, B)
+    from ``rtrnmr.overlap_rows``, taucb_t as ``rt_sweep_banded``."""
+    taut, fracs, play, plev, plankbnd, semiss, secd, odcld_g = \
+        _band_layouts(taut_t, fracs_t, planklay_t, planklev_t, surf,
+                      taucb_t, ngb0)
+    fluxes = _sweep_maxrand(taut, fracs, play, plev, plankbnd, semiss, secd,
+                            rows_t.permute(2, 0, 1), odcld_g, ngb0, wg)
+    return torch.stack(fluxes).permute(0, 2, 1).contiguous()
+
+
+SWEEPS = {"banded": rt_sweep_banded, "maxrand": rt_sweep_maxrand}
+
+
 def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
                  abl_t, mask, ngb0, wg, ct, needs=(True,) * 8):
     """ct (4, L+1, B) -> cotangents of (taut_t, fracs_t, planklay_t,
@@ -287,3 +423,23 @@ def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
                             surf_rows(plankbnd, semiss, pwvcm,
                                       taut_t.dtype),
                             ngb0, wg, cloud_fields)
+
+
+def rt_fluxes_banded(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
+                     semiss, pwvcm, ngb0, wg, cldf_t, taucb_t):
+    """``rt_sweep_banded`` with the surface rows formed from plankbnd,
+    semiss (B, 16) and pwvcm (B,): the plain version of
+    ``rtrn_cuda.rt_fluxes_banded``."""
+    return rt_sweep_banded(taut_t, fracs_t, planklay_t, planklev_t,
+                           surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype),
+                           cldf_t, taucb_t, ngb0, wg)
+
+
+def rt_fluxes_maxrand(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
+                      semiss, pwvcm, ngb0, wg, rows_t, taucb_t):
+    """``rt_sweep_maxrand`` with the surface rows formed as in
+    ``rt_fluxes_banded``: the plain version of
+    ``rtrn_cuda.rt_fluxes_maxrand``."""
+    return rt_sweep_maxrand(taut_t, fracs_t, planklay_t, planklev_t,
+                            surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype),
+                            rows_t, taucb_t, ngb0, wg)

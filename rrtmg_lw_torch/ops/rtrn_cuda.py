@@ -2,11 +2,16 @@
 (K6), csrc/rtrn_bwd.cu.
 
 K1 replaces ``rrtmg_lw_tpu/ops/rtrn_pallas.py::_build_kernel.kernel``
-in its clear and compact-cloud modes (idrv=0); K6 replaces the JAX
-package's unrolled XLA backward of it (``ops/rtrn_bwd.py:259``
-``rt_bwd_fluxes``).  ``RTFn`` pairs them for autograd.  On a CUDA tensor
-each wrapper launches its kernel (or raises); on a CPU tensor it runs
-the plain version, ``rtrn.rt_sweep_blocked`` and ``rtrn.rt_sweep_vjp``.
+in its clear, compact-cloud, banded (icld=1) and maxrand (icld 2/3)
+modes (idrv=0); K6 replaces the JAX package's unrolled XLA backward of
+it (``ops/rtrn_bwd.py:259`` ``rt_bwd_fluxes``) in the clear and compact
+modes.  ``RTFn`` pairs them for autograd; ``RTBandFn`` holds the banded
+and maxrand modes, whose adjoint is not ported: on the card their
+backward raises.  On a CUDA tensor each wrapper launches its kernel (or
+raises); on a CPU tensor it runs the plain version
+(``rtrn.rt_sweep_blocked``, ``rtrn.rt_sweep_vjp``,
+``rtrn.rt_sweep_banded``, ``rtrn.rt_sweep_maxrand``) and, backward, its
+plain vjp.
 """
 
 from __future__ import annotations
@@ -16,6 +21,10 @@ import torch
 from .. import _build
 from ..types import NGPT, NGPT_PAD
 from . import rtrn
+from ._autograd import plain_vjp
+
+# the kernel's mode argument (csrc/rtrn.cuh enum Mode)
+MODES = {"clear": 0, "compact": 1, "banded": 2, "maxrand": 3}
 
 
 def _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t,
@@ -58,8 +67,8 @@ class RTFn(torch.autograd.Function):
         out = torch.empty((4, L + 1, B), dtype=torch.float32,
                           device=taut_t.device)
         _build.launch("rrtm_rt", taut_t, fracs_t, planklay_t, planklev_t,
-                      surf, ngb0, wg, mask, cw_t, abi_t, abl_t, out, L, B,
-                      int(mask is not None))
+                      surf, ngb0, wg, mask, cw_t, abi_t, abl_t, None, None,
+                      out, L, B, MODES["clear" if mask is None else "compact"])
         rt_fluxes_blocked.launches += 1
         return out
 
@@ -82,6 +91,71 @@ def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
         mask, cw_t, abi_t, abl_t = cloud_fields
     return RTFn.apply(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
                       abi_t, abl_t, mask, ngb0, wg)
+
+
+class RTBandFn(torch.autograd.Function):
+    """(mode, taut_t, fracs_t, planklay_t, planklev_t, surf, cld, taucb_t,
+    ngb0, wg) -> fluxes (4, L+1, B), K1 in the banded mode (cld: cloud
+    fraction (L, B)) or the maxrand mode (cld: overlap rows (L, 16, B)).
+    Backward: the plain vjp on the CPU; on the card it raises."""
+
+    @staticmethod
+    def forward(ctx, mode, taut_t, fracs_t, planklay_t, planklev_t, surf,
+                cld, taucb_t, ngb0, wg):
+        ctx.mode, ctx.device_type = mode, taut_t.device.type
+        args = (taut_t, fracs_t, planklay_t, planklev_t, surf, cld, taucb_t,
+                ngb0, wg)
+        if taut_t.device.type == "cpu":
+            # the plain vjp reads them; on the card backward only raises
+            if any(ctx.needs_input_grad[1:8]):
+                ctx.save_for_backward(*args)
+            return rtrn.SWEEPS[mode](*args)
+        L, B = _check(*args[:5], None, None, None, None, ngb0, wg)
+        dev = taut_t.device
+        rows = (L, B) if mode == "banded" else (L, rtrn.NROWS, B)
+        _build.check(cld, "cldf_t" if mode == "banded" else "rows_t",
+                     torch.float32, rows, dev)
+        _build.check(taucb_t, "taucb_t", torch.float32, (L, 16, B), dev)
+        out = torch.empty((4, L + 1, B), dtype=torch.float32, device=dev)
+        _build.launch("rrtm_rt", taut_t, fracs_t, planklay_t, planklev_t,
+                      surf, ngb0, wg, None, None, None, None, cld, taucb_t,
+                      out, L, B, MODES[mode])
+        BAND_WRAPPERS[mode].launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        if ctx.device_type != "cpu":
+            raise NotImplementedError(
+                f"gradients through the {ctx.mode} RT sweep (deterministic "
+                "clouds, imca=0) on the card: its adjoint kernel is not "
+                "ported yet; see ROADMAP.md Queue 1 item 9")
+        x = ctx.saved_tensors
+        ngb0, wg = x[7:]
+        grads = plain_vjp(lambda *a: rtrn.SWEEPS[ctx.mode](*a, ngb0, wg),
+                          x[:7], ctx.needs_input_grad[1:8], (ct,))
+        return (None, *grads, None, None)
+
+
+def rt_fluxes_banded(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
+                     semiss, pwvcm, ngb0, wg, cldf_t, taucb_t):
+    """K1 banded mode: fluxes (4, L+1, B) under random overlap of
+    per-band clouds; arguments as ``rtrn.rt_fluxes_banded``."""
+    surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype)
+    return RTBandFn.apply("banded", taut_t, fracs_t, planklay_t, planklev_t,
+                          surf, cldf_t, taucb_t, ngb0, wg)
+
+
+def rt_fluxes_maxrand(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
+                      semiss, pwvcm, ngb0, wg, rows_t, taucb_t):
+    """K1 maxrand mode: fluxes (4, L+1, B) under maximum-random overlap;
+    arguments as ``rtrn.rt_fluxes_maxrand``."""
+    surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype)
+    return RTBandFn.apply("maxrand", taut_t, fracs_t, planklay_t,
+                          planklev_t, surf, rows_t, taucb_t, ngb0, wg)
+
+
+BAND_WRAPPERS = {"banded": rt_fluxes_banded, "maxrand": rt_fluxes_maxrand}
 
 
 def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
@@ -114,4 +188,6 @@ def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
 
 
 rt_fluxes_blocked.launches = 0
+rt_fluxes_banded.launches = 0
+rt_fluxes_maxrand.launches = 0
 rt_sweep_vjp.launches = 0

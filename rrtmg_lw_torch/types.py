@@ -8,8 +8,9 @@ can be compared array by array:
     layout (the reference's cldfmcl(ngptlw, ncol, nlay)).
 
 ``from_numpy`` converts host numpy arrays (e.g. from
-``rrtmg_lw_torch.utils.synthetic``) to tensors on ``device``: floating
-arrays take ``dtype``, integer and boolean arrays keep their own type.
+``rrtmg_lw_torch.utils.synthetic``) to tensors on ``device`` (the CUDA
+device when None; ``config.resolve_device``): floating arrays take
+``dtype``, integer and boolean arrays keep their own type.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from .config import resolve_device
 
 NBANDS = 16
 NGPT = 140
@@ -33,8 +36,9 @@ def _tensor(x, device, dtype):
     return t.to(device)
 
 
-def _from_numpy(cls, src, device="cpu", dtype=torch.float64):
+def _from_numpy(cls, src, device=None, dtype=torch.float64):
     """Build ``cls`` from a NamedTuple or mapping of arrays."""
+    device = resolve_device(device)
     fields = src._asdict() if hasattr(src, "_asdict") else dict(src)
     return cls(**{k: _tensor(v, device, dtype) for k, v in fields.items()
                   if k in cls._fields})
@@ -92,6 +96,18 @@ class McicaCloudsCompact(NamedTuple):
     clwp: torch.Tensor         # (B, L) in-cloud liquid water path
     reicmc: torch.Tensor       # (B, L)
     relqmc: torch.Tensor       # (B, L)
+
+    from_numpy = classmethod(_from_numpy)
+
+
+class BandClouds(NamedTuple):
+    """Per-band deterministic cloud state (non-McICA, imca=0)."""
+    cldfrac: torch.Tensor      # (B, L)
+    tauc: torch.Tensor         # (B, L, NBANDS) input cloud od (inflag 0)
+    ciwp: torch.Tensor         # (B, L)
+    clwp: torch.Tensor         # (B, L)
+    reic: torch.Tensor         # (B, L)
+    relq: torch.Tensor         # (B, L)
 
     from_numpy = classmethod(_from_numpy)
 

@@ -1,0 +1,142 @@
+"""Where the time of a step goes on the card.
+
+    python -m rrtmg_lw_torch.utils.profiling [--out profile.json]
+
+For each cell (``CELLS``, at ``NCOL`` columns: the forward step, or the
+gradient step of
+``parallel.make_grad_step`` for the ``*_grad`` cells): the median and
+quartiles of 20 host-timed steps (host clock around work that ends in ``torch.cuda.synchronize``),
+then ``torch.profiler`` over 5 steps: device busy ms per step (the union
+of the CUDA kernel and memcpy/memset intervals), the idle share
+``1 - busy / wall``, device ms per step of each hand-written kernel (by
+its symbol) and of everything else ("glue"), the CUDA launches per step,
+and the peak device memory.  Prints one JSON line per cell.  Needs a
+CUDA device.  ``cell_inputs`` makes each cell's synthetic inputs; the
+repository's ``chip_smoke.py`` runs its cells on the same ones.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import time
+
+import numpy as np
+import torch
+
+NCOL = 16384            # columns of every cell
+# cell -> (icld, imca, cloud generator, layers, gradient step)
+CELLS = {"clear": (0, 1, None, 60, False),
+         "mcica_cloudy": (2, 1, "mcica", 60, False),
+         "band_cloudy": (1, 0, "band", 60, False),
+         "maxrand_cloudy": (2, 0, "band", 60, False),
+         "mcica_cloudy_deep": (2, 1, "mcica", 140, False),
+         "mcica_cloudy_grad": (2, 1, "mcica", 60, True),
+         "clear_grad": (0, 1, None, 60, True)}
+# fragment of the demangled symbol -> kernel (csrc/*.cu)
+KERNEL_SYMBOLS = (("rt_kernel<0>", "K1 clear"), ("rt_kernel<1>",
+                  "K1 compact"), ("rt_kernel<2>", "K1 banded"),
+                  ("rt_kernel<3>", "K1 maxrand"), ("taumol_kernel", "K2"),
+                  ("planck_kernel", "K3"), ("cldcoef_kernel", "K4"),
+                  ("overlap_kernel", "overlap"), ("rt_bwd_kernel", "K6"),
+                  ("taumol_bwd_kernel", "K5"), ("planck_bwd_kernel", "K3b"))
+
+
+def cell_inputs(cell, device):
+    """(Atmosphere, clouds or None) of ``cell``, float32 on ``device``:
+    the atmosphere from seed 0, McICA compact clouds (int8 mask) from
+    seed 2, band clouds from seed 1."""
+    from ..types import Atmosphere, BandClouds, McicaCloudsCompact
+    from .synthetic import (make_atmosphere, make_band_clouds,
+                            make_mcica_clouds)
+    _, _, kind, nlay, _ = CELLS[cell]
+    atm = Atmosphere.from_numpy(make_atmosphere(NCOL, nlay, seed=0), device,
+                                torch.float32)
+    if kind == "mcica":
+        return atm, McicaCloudsCompact.from_numpy(
+            make_mcica_clouds(NCOL, nlay, seed=2, mask_dtype=np.int8),
+            device, torch.float32)
+    if kind == "band":
+        return atm, BandClouds.from_numpy(
+            make_band_clouds(NCOL, nlay, seed=1), device, torch.float32)
+    return atm, None
+
+
+def _union_ms(intervals):
+    """Total length of the union of (start, end) intervals, in ms."""
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def profile_cell(cell, device, steps=20, traced=5):
+    from .. import LWConfig, make_model
+    from ..parallel import make_grad_step
+    icld, imca, _, nlay, grad = CELLS[cell]
+    model = make_model(LWConfig(icld=icld, imca=imca, dtype="float32",
+                                use_lut=False), device=device)
+    step = make_grad_step(model) if grad else model
+    atm, clouds = cell_inputs(cell, device)
+    for _ in range(2):                                   # warm-up
+        step(atm, clouds)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step(atm, clouds)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    q1, med, q3 = statistics.quantiles(walls, n=4)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        for _ in range(traced):
+            step(atm, clouds)
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _union_ms([(e.time_range.start, e.time_range.end)
+                      for e in dev_events]) / traced
+    kernels = dict.fromkeys((k for _, k in KERNEL_SYMBOLS), 0.0)
+    for e in dev_events:
+        k = next((k for sym, k in KERNEL_SYMBOLS if sym in e.name), None)
+        if k is not None:
+            kernels[k] += e.time_range.elapsed_us() / 1e3 / traced
+    glue = busy - sum(kernels.values())
+    return dict(cell=cell, ncol=NCOL, nlay=nlay, device=torch.cuda.
+                get_device_name(0), wall_ms_median=med, wall_ms_q1=q1,
+                wall_ms_q3=q3, cols_per_sec=NCOL / (med * 1e-3),
+                busy_ms=busy, idle_share=1.0 - busy / med,
+                kernel_ms={k: v for k, v in kernels.items() if v},
+                glue_ms=glue, launches_per_step=len(dev_events) / traced,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None,
+                    help="also write the JSON lines to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling needs a CUDA device")
+    device = torch.device("cuda", 0)
+    lines = []
+    for cell in CELLS:
+        lines.append(json.dumps(profile_cell(cell, device)))
+        print(lines[-1], flush=True)
+        torch.cuda.empty_cache()
+    if args.out:
+        path = pathlib.Path(args.out)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text("\n".join(lines) + "\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,9 @@
-"""Deterministic synthetic inputs (atmospheres, McICA clouds).
+"""Deterministic synthetic inputs (atmospheres, McICA and band clouds).
 
-numpy-only copies of ``rrtmg_lw_tpu.utils.synthetic.make_atmosphere``
-and ``make_mcica_clouds(layout="compact")``: the same RNG calls in the
-same order, so for one seed the arrays are bitwise equal to the JAX
-package's.  Arrays are host numpy inside the port's NamedTuples; turn
+numpy-only copies of ``rrtmg_lw_tpu.utils.synthetic.make_atmosphere``,
+``make_band_clouds`` and ``make_mcica_clouds(layout="compact")``: the
+same RNG calls in the same order, so for one seed the arrays are
+bitwise equal to the JAX package's.  Arrays are host numpy inside the port's NamedTuples; turn
 them into tensors with ``Atmosphere.from_numpy(atm, device, dtype)``.
 """
 
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..types import Atmosphere, McicaCloudsCompact
+from ..types import Atmosphere, BandClouds, McicaCloudsCompact
 
 
 def make_atmosphere(ncol=4, nlay=51, seed=0, dtype=np.float64, aod=0.0):
@@ -66,6 +66,35 @@ def make_atmosphere(ncol=4, nlay=51, seed=0, dtype=np.float64, aod=0.0):
         emis=arr(np.full((ncol, 16), 0.95)),
         tauaer=arr(tauaer),
     )
+
+
+def make_band_clouds(ncol=4, nlay=51, seed=1, dtype=np.float64):
+    """A plausible two-deck per-band cloud state (imca=0): a liquid deck
+    of 3 layers from layer 3-5 and an ice deck of 2 layers from
+    nlay // 2 + 0-2, each of one cloud fraction per column."""
+    rng = np.random.default_rng(seed)
+    cldfrac = np.zeros((ncol, nlay))
+    ciwp = np.zeros((ncol, nlay))
+    clwp = np.zeros((ncol, nlay))
+    lo = 3 + rng.integers(0, 3, ncol)
+    hi = nlay // 2 + rng.integers(0, 3, ncol)
+    cols = np.arange(ncol)
+    # decks past the top layer pile onto it (tiny nlay)
+    lo_rows = np.minimum(lo[:, None] + np.arange(3), nlay - 1)  # (ncol, 3)
+    hi_rows = np.minimum(hi[:, None] + np.arange(2), nlay - 1)  # (ncol, 2)
+    cldfrac[cols[:, None], lo_rows] = 0.4 + 0.4 * rng.random((ncol, 1))
+    clwp[cols[:, None], lo_rows] = 20.0 + 30.0 * rng.random((ncol, 1))
+    cldfrac[cols[:, None], hi_rows] = 0.3 + 0.5 * rng.random((ncol, 1))
+    ciwp[cols[:, None], hi_rows] = 10.0 + 20.0 * rng.random((ncol, 1))
+
+    def arr(x):
+        return np.asarray(x, dtype)
+
+    return BandClouds(
+        cldfrac=arr(cldfrac), tauc=arr(np.zeros((ncol, nlay, 16))),
+        ciwp=arr(ciwp), clwp=arr(clwp),
+        reic=arr(np.full((ncol, nlay), 30.0)),
+        relq=arr(np.full((ncol, nlay), 10.0)))
 
 
 def make_mcica_clouds(ncol=4, nlay=51, seed=2, dtype=np.float64, ngpt=140,

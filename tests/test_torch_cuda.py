@@ -1,8 +1,9 @@
 """The CUDA kernels of rrtmg_lw_torch against their plain PyTorch
 versions on the card, at small and ragged shapes (chip_smoke.py covers
 the main-path shapes), plus the wrappers' input checks and launch
-counters: the four forward kernels and the three backward kernels (K3b
-Planck slope, K5 taumol, K6 RT adjoint) against the plain vjps.
+counters: the four forward kernels (K1 in its clear, compact, banded and
+maxrand modes), the overlap-rows kernel, and the three backward kernels
+(K3b Planck slope, K5 taumol, K6 RT adjoint) against the plain vjps.
 
 Marked ``cuda``: every test skips without a CUDA device.  This file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
@@ -12,7 +13,9 @@ imports no JAX, so it also runs on a machine with a GPU and no JAX:
 Tolerances are chip_smoke.py's: 1e-6 relative (Planck, cloud
 coefficients), 3.05e-5 (taug relative with |ref| floored at 1e-2,
 fracs absolute) with every interpolation bin equal, 2e-5 of each
-column's max |flux| (RT sweep, model).  Backward kernels (the same f32
+column's max |flux| (RT sweep, model); the overlap rows: the discrete
+rows equal and the factors within 1e-6 of max |plain| (the same
+elementwise f32 arithmetic).  Backward kernels (the same f32
 math summed in another order): 1e-4 of max |plain| per output (K3b,
 K5), 1e-3 (K6, a recurrence over the levels); the model's gradients
 2e-2 of max |eager| per Atmosphere field (the gate the JAX package
@@ -23,20 +26,25 @@ import numpy as np
 import pytest
 import torch
 
-from rrtmg_lw_torch import Atmosphere, LWConfig, McicaCloudsCompact, make_model
-from rrtmg_lw_torch.ops import cldprop, rtrn
+from rrtmg_lw_torch import (Atmosphere, BandClouds, LWConfig,
+                            McicaCloudsCompact, make_model)
+from rrtmg_lw_torch.ops import cldprop, rtrn, rtrnmr
 from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_blocked
 from rrtmg_lw_torch.ops.inatm import inatm
 from rrtmg_lw_torch.ops.planck_cuda import (planck_interp_blocked,
                                             planck_interp_vjp)
-from rrtmg_lw_torch.ops.rtrn_cuda import rt_fluxes_blocked, rt_sweep_vjp
+from rrtmg_lw_torch.ops.rtrn_cuda import (rt_fluxes_banded, rt_fluxes_blocked,
+                                          rt_fluxes_maxrand, rt_sweep_vjp)
+from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows
 from rrtmg_lw_torch.ops.setcoef import (interp_planck_blocked,
                                         interp_planck_vjp, setcoef)
 from rrtmg_lw_torch.ops.taumol_cuda import (NBIN, _pack_inputs,
                                             taumol_blocked,
                                             taumol_packed_vjp, taumol_vjp)
 from rrtmg_lw_torch.parallel import make_grad_step
-from rrtmg_lw_torch.utils.synthetic import make_atmosphere, make_mcica_clouds
+from rrtmg_lw_torch.utils.synthetic import (make_atmosphere,
+                                            make_band_clouds,
+                                            make_mcica_clouds)
 
 pytestmark = pytest.mark.cuda
 
@@ -279,3 +287,95 @@ def test_model_cuda_backward_matches_eager(dev, icld):
     _, g_e = make_grad_step(_model(dev, icld, impl="eager"))(atm, cl)
     for name in Atmosphere._fields:
         assert rel_err(getattr(g_k, name), getattr(g_e, name)) <= 2e-2, name
+
+
+def _band_clouds(dev, B, L, pattern):
+    """make_band_clouds with the cloud fraction replaced by ``pattern``:
+    "decks" (the generator's), "clear", "overcast" (cldfrac 1 in every
+    layer) or "mixed" (random fractions, clear and overcast columns)."""
+    bc = make_band_clouds(B, L, seed=L)
+    rng = np.random.default_rng(B + L)
+    cf = bc.cldfrac
+    if pattern == "clear":
+        cf = np.zeros_like(cf)
+    elif pattern == "overcast":
+        cf = np.ones_like(cf)
+    elif pattern == "mixed":
+        cf = rng.random(cf.shape) * (rng.random(cf.shape) < 0.5)
+        cf[::3] = 0.0
+        cf[1::5] = 1.0
+    bc = bc._replace(cldfrac=cf, clwp=np.where(cf > 0, 20.0, 0.0),
+                     ciwp=np.where(cf > 0.5, 5.0, 0.0))
+    return BandClouds.from_numpy(bc, dev, torch.float32)
+
+
+@pytest.mark.parametrize("B,L,pattern", [(37, 13, "decks"), (5, 1, "mixed"),
+                                         (3, 2, "overcast"), (33, 7, "clear"),
+                                         (96, 30, "mixed")])
+def test_overlap_kernel_matches_plain(dev, B, L, pattern):
+    cf = _band_clouds(dev, B, L, pattern).cldfrac
+    got, ref = overlap_rows(cf), rtrnmr.overlap_rows(cf)
+    assert got.shape == (L, 16, B)
+    assert torch.equal(got[:, :4], ref[:, :4])
+    assert rel_err(got[:, 4:], ref[:, 4:]) <= 1e-6
+    assert torch.equal(got, overlap_rows(cf))
+
+
+@pytest.mark.parametrize("B,L,pattern", [(37, 13, "decks"), (5, 1, "mixed"),
+                                         (3, 2, "overcast"), (33, 7, "clear"),
+                                         (96, 30, "mixed")])
+def test_rt_band_modes_match_plain(dev, B, L, pattern):
+    model = _model(dev)
+    _, _, prof = _case(dev, B, L)
+    bc = _band_clouds(dev, B, L, pattern)
+    static = model.static_tensors()
+    sc = setcoef(prof, static, planck=False)
+    tg, fr = model.engine.blocked(sc, prof)
+    play = interp_planck_blocked(prof.tavel.t().contiguous(), model.totplnk)
+    plev = interp_planck_blocked(prof.tz.t().contiguous(), model.totplnk)
+    taucb, _ = cldprop.cldprop_banded_blocked(bc, static, inflag=2,
+                                              iceflag=3, liqflag=1)
+    args = (tg, fr, play, plev, sc.plankbnd, prof.semiss, prof.pwvcm,
+            model.ngb0, model.wg)
+    for kern, plain, cld in (
+            (rt_fluxes_banded, rtrn.rt_fluxes_banded,
+             bc.cldfrac.t().contiguous()),
+            (rt_fluxes_maxrand, rtrn.rt_fluxes_maxrand,
+             rtrnmr.overlap_rows(bc.cldfrac))):
+        got = kern(*args, cld, taucb)
+        ref = plain(*args, cld, taucb)
+        assert got.shape == (4, L + 1, B) and torch.isfinite(got).all()
+        assert flux_err(ref, got) <= 2e-5
+        assert torch.equal(got, kern(*args, cld, taucb))
+
+
+@pytest.mark.parametrize("icld", [1, 2, 3])
+def test_model_band_clouds_cuda_matches_eager(dev, icld):
+    atm, _, _ = _case(dev, 200, 30)
+    bc = _band_clouds(dev, 200, 30, "decks")
+    cfg = dict(icld=icld, imca=0, dtype="float32", use_lut=False)
+    wrappers = (taumol_blocked, planck_interp_blocked, ice_liq_coeffs_blocked,
+                rt_fluxes_blocked, rt_fluxes_banded, rt_fluxes_maxrand,
+                overlap_rows)
+    before = [w.launches for w in wrappers]
+    fk = make_model(LWConfig(**cfg), device=dev)(atm, bc)
+    mr = int(icld > 1)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [1, 2, 1, 0, 1 - mr, mr, mr]
+    fe = make_model(LWConfig(impl="eager", **cfg), device=dev)(atm, bc)
+    for name in ("uflx", "dflx", "uflxc", "dflxc"):
+        assert flux_err(getattr(fe, name).t(), getattr(fk, name).t()) <= 2e-5
+    assert torch.equal(fk.cld_bounds_ok, fe.cld_bounds_ok)
+    assert not torch.allclose(fk.uflx, fk.uflxc)
+
+
+@pytest.mark.parametrize("icld", [1, 2])
+def test_band_clouds_backward_raises_on_card(dev, icld):
+    """The banded and maxrand adjoints are not ported: on the card their
+    backward raises instead of dropping the gradient."""
+    atm, _, _ = _case(dev, 40, 10)
+    bc = _band_clouds(dev, 40, 10, "decks")
+    model = make_model(LWConfig(icld=icld, imca=0, dtype="float32",
+                                use_lut=False), device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_grad_step(model)(atm, bc)

@@ -74,10 +74,10 @@ def noisy_atmosphere(B, L, seed=7):
 
 
 def small_case(B=3, L=6):
-    model = make_model(LWConfig(icld=2, use_lut=False))
-    atm = Atmosphere.from_numpy(tsyn.make_atmosphere(B, L))
+    model = make_model(LWConfig(icld=2, use_lut=False), device="cpu")
+    atm = Atmosphere.from_numpy(tsyn.make_atmosphere(B, L), "cpu")
     cl = McicaCloudsCompact.from_numpy(
-        tsyn.make_mcica_clouds(B, L, mask_dtype=np.int8))
+        tsyn.make_mcica_clouds(B, L, mask_dtype=np.int8), "cpu")
     prof = inatm(atm)
     sc = setcoef.setcoef(prof, model.static_tensors(), planck=False)
     return model, atm, cl, prof, sc
@@ -183,11 +183,11 @@ def test_kernel_path_differentiates_every_field(icld):
     """The model's impl="cuda" code path (the wrappers), run on the CPU:
     every Atmosphere field gets the eager path's gradient."""
     B, L = 3, 8
-    atm = Atmosphere.from_numpy(noisy_atmosphere(B, L))
+    atm = Atmosphere.from_numpy(noisy_atmosphere(B, L), "cpu")
     cl = McicaCloudsCompact.from_numpy(tsyn.make_mcica_clouds(
-        B, L, mask_dtype=np.int8)) if icld else None
-    eager = make_model(LWConfig(icld=icld, use_lut=False))
-    kernels = make_model(LWConfig(icld=icld, use_lut=False))
+        B, L, mask_dtype=np.int8), "cpu") if icld else None
+    eager = make_model(LWConfig(icld=icld, use_lut=False), device="cpu")
+    kernels = make_model(LWConfig(icld=icld, use_lut=False), device="cpu")
     kernels.impl = "cuda"
     loss_e, g_e = make_grad_step(eager)(atm, cl)
     loss_k, g_k = make_grad_step(kernels)(atm, cl)
@@ -218,13 +218,13 @@ def test_grad_step_matches_jax_value_and_grad(icld):
 
     jl, jg = jax.jit(jax.value_and_grad(jloss))(
         jax.tree_util.tree_map(jnp.asarray, natm))
-    tables = tables_from_numpy(jm.ktables, jm.static_np)
-    atm = Atmosphere.from_numpy(natm)
+    tables = tables_from_numpy(jm.ktables, jm.static_np, device="cpu")
+    atm = Atmosphere.from_numpy(natm, "cpu")
     cl = None if ncl is None else McicaCloudsCompact.from_numpy(
-        tsyn.make_mcica_clouds(B, L, mask_dtype=np.int8))
+        tsyn.make_mcica_clouds(B, L, mask_dtype=np.int8), "cpu")
     for impl in ("eager", "cuda"):
         model = make_model(LWConfig(icld=icld, imca=1, use_lut=False),
-                           tables=tables)
+                           device="cpu", tables=tables)
         model.impl = impl          # "cuda": the Functions, on the CPU
         loss, g = make_grad_step(model)(atm, cl)
         assert abs(float(loss) - float(jl)) <= 1e-12 * abs(float(jl))
@@ -239,13 +239,14 @@ def test_taumol_plain_vjp_matches_jax_vjp():
     B, L = 4, 12
     jm = jmake_model(JConfig(icld=0, use_lut=False, taumol_impl="xla",
                              rt_impl="xla"))
-    tm = make_model(LWConfig(icld=0, use_lut=False),
-                    tables=tables_from_numpy(jm.ktables, jm.static_np))
+    tm = make_model(LWConfig(icld=0, use_lut=False), device="cpu",
+                    tables=tables_from_numpy(jm.ktables, jm.static_np,
+                                             device="cpu"))
     natm = noisy_atmosphere(B, L)
     jprof = jinatm(jax.tree_util.tree_map(jnp.asarray, natm),
                    dtype=jnp.float64)
     jsc = jsetcoef.setcoef(jprof, jm.static)
-    tprof = inatm(Atmosphere.from_numpy(natm))
+    tprof = inatm(Atmosphere.from_numpy(natm, "cpu"))
     tsc = setcoef.setcoef(tprof, tm.static_tensors(), planck=False)
     rng = np.random.default_rng(3)
     ct_t, ct_f = (rng.standard_normal((B, L, 140)) for _ in range(2))
@@ -278,9 +279,9 @@ def test_taumol_plain_vjp_matches_jax_vjp():
 def test_grad_olr_wrt_tlay_matches_fd():
     """Mirrors tests/test_autodiff.py::test_grad_olr_wrt_tlay_matches_fd
     through the Functions on the CPU."""
-    model = make_model(LWConfig(icld=0, use_lut=False))
+    model = make_model(LWConfig(icld=0, use_lut=False), device="cpu")
     model.impl = "cuda"
-    atm = Atmosphere.from_numpy(tsyn.make_atmosphere(2, 12))
+    atm = Atmosphere.from_numpy(tsyn.make_atmosphere(2, 12), "cpu")
 
     def olr_sum(fl):
         return fl.uflx[:, -1].sum()
@@ -309,9 +310,9 @@ def test_grad_finite_at_adjusted_col_threshold():
     to base, so the fractional power's base is at 0+) and boosted far
     past it must give finite gradients."""
     B, L = 4, 10
-    model = make_model(LWConfig(icld=0, use_lut=False))
+    model = make_model(LWConfig(icld=0, use_lut=False), device="cpu")
     model.impl = "cuda"
-    atm = Atmosphere.from_numpy(tsyn.make_atmosphere(B, L))
+    atm = Atmosphere.from_numpy(tsyn.make_atmosphere(B, L), "cpu")
     sc = setcoef.setcoef(inatm(atm), model.static_tensors(), planck=False)
     chi = torch.as_tensor(model.static_np["chi_mls"])
     ref = chi[:, sc.jp.long() + 1]               # chi_mls(gas, jp+1)
@@ -325,8 +326,8 @@ def test_grad_finite_at_adjusted_col_threshold():
     _, g = make_grad_step(model)(atm)
     for name in ("n2ovmr", "ch4vmr", "co2vmr", "play", "plev"):
         assert torch.isfinite(getattr(g, name)).all(), name
-    _, g_e = make_grad_step(make_model(LWConfig(icld=0, use_lut=False)))(
-        atm)
+    _, g_e = make_grad_step(make_model(LWConfig(icld=0, use_lut=False),
+                                       device="cpu"))(atm)
     assert rel_err(g.co2vmr, g_e.co2vmr.numpy()) <= 1e-12
 
 
@@ -359,7 +360,8 @@ def test_f32_gradient_conditioning(icld):
 
     out = {}
     for dtype in ("float32", "float64"):
-        model = make_model(LWConfig(icld=icld, dtype=dtype, use_lut=False))
+        model = make_model(LWConfig(icld=icld, dtype=dtype, use_lut=False),
+                           device="cpu")
         dt = getattr(torch, dtype)
         atm = Atmosphere.from_numpy(natm, torch.device("cpu"), dt)
         cl = None if ncl is None else McicaCloudsCompact.from_numpy(

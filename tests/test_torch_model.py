@@ -1,11 +1,14 @@
 """The PyTorch port's whole forward step (the eager path, which runs the
-plain versions of the four kernels) against the JAX model with its XLA
-engines, on the same seeded numpy inputs: clear sky and McICA with
-compact int8-mask clouds.
+plain versions of the kernels) against the JAX model with its XLA
+engines, on the same seeded numpy inputs: clear sky, McICA with compact
+int8-mask clouds, and deterministic per-band clouds (imca=0: icld=1
+random overlap, icld 2/3 maximum-random overlap; inflag 0, 1 and 2).
 
 Tolerances: in float64, 1e-11 W/m2 on fluxes and 2e-9 K/day on heating
 rates (measured here: ~1.2e-13 W/m2 and ~2.2e-11 K/day, the heating
-difference coming from the thinnest top layers); the port in float32
+difference coming from the thinnest top layers); for the per-band
+clouds 1e-11 W/m2 and 1e-11 of max |hr| (measured ~1.7e-13 W/m2 and
+~3e-15 of a max |hr| ~3000 K/day in the top layer); the port in float32
 against JAX in float64 holds the reference-accuracy bounds of
 tests/test_f32_accuracy.py (< 5e-3 W/m2, < 0.05 K/day).
 """
@@ -17,12 +20,14 @@ import torch
 import jax.numpy as jnp
 
 from rrtmg_lw_tpu import LWConfig as JConfig, make_model as jmake_model
+from rrtmg_lw_tpu.types import BandClouds as JBandClouds
 from rrtmg_lw_tpu.utils import synthetic as jsyn
 
-from rrtmg_lw_torch import (Atmosphere, LWConfig, McicaCloudsCompact,
-                            make_model)
+from rrtmg_lw_torch import (Atmosphere, BandClouds, LWConfig,
+                            McicaCloudsCompact, make_model)
 from rrtmg_lw_torch.data.ktables import tables_from_numpy
 from rrtmg_lw_torch.ops.inatm import inatm
+from rrtmg_lw_torch.parallel import make_grad_step
 from rrtmg_lw_torch.utils import synthetic as tsyn
 
 torch.set_num_threads(1)
@@ -61,7 +66,8 @@ def test_model_matches_jax_f64(icld):
     B, L = 8, 20
     jm, ref = _jax(B, L, icld)
     model = make_model(LWConfig(icld=icld, imca=1, use_lut=False),
-                       tables=tables_from_numpy(jm.ktables, jm.static_np))
+                       device="cpu", tables=tables_from_numpy(
+                           jm.ktables, jm.static_np, device="cpu"))
     assert model.impl == "eager"
     out = model(*_inputs(B, L, icld, "float64"))
     for name in FLUXES + HEATING:
@@ -83,7 +89,7 @@ def test_model_f32_within_reference_contract(icld):
     B, L = 8, 60
     _, ref = _jax(B, L, icld)
     out = make_model(LWConfig(icld=icld, imca=1, dtype="float32",
-                              use_lut=False))(*_inputs(B, L, icld,
+                              use_lut=False), device="cpu")(*_inputs(B, L, icld,
                                                        "float32"))
     assert out.uflx.dtype == torch.float32
     assert _max_diff(out, ref, ("uflx", "dflx")) < 5e-3
@@ -92,7 +98,7 @@ def test_model_f32_within_reference_contract(icld):
 
 def test_from_profile_is_the_call():
     B, L = 4, 12
-    model = make_model(LWConfig(icld=2, use_lut=False))
+    model = make_model(LWConfig(icld=2, use_lut=False), device="cpu")
     atm, clouds = _inputs(B, L, 2, "float64")
     a = model(atm, clouds)
     b = model.from_profile(inatm(atm), clouds)
@@ -103,7 +109,7 @@ def test_from_profile_is_the_call():
 def test_deep_profile_finite():
     """nlay=140 (the deep cell), McICA, float64 eager."""
     B, L = 2, 140
-    out = make_model(LWConfig(icld=2, use_lut=False))(
+    out = make_model(LWConfig(icld=2, use_lut=False), device="cpu")(
         *_inputs(B, L, 2, "float64"))
     for name in FLUXES + HEATING:
         assert torch.isfinite(getattr(out, name)).all(), name
@@ -111,7 +117,88 @@ def test_deep_profile_finite():
 
 
 def test_clouds_other_than_compact_raise():
-    model = make_model(LWConfig(icld=2, use_lut=False))
+    model = make_model(LWConfig(icld=2, use_lut=False), device="cpu")
     atm, _ = _inputs(2, 6, 0, "float64")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model(atm, (jnp.zeros(1),))
+
+
+def band_clouds(B, L, dtype=np.float64):
+    """make_band_clouds with the fractions varied inside each deck (so
+    both overlap regimes, rising and falling, occur), one overcast deck
+    and in-cloud optical depths for inflag 0."""
+    bc = tsyn.make_band_clouds(B, L, dtype=dtype)
+    rng = np.random.default_rng(7)
+    cf = bc.cldfrac * (0.6 + 0.4 * rng.random(bc.cldfrac.shape))
+    cf[0, 3:6] = 1.0
+    tauc = rng.random((B, L, 16)) * (cf[..., None] > 0)
+    return bc._replace(cldfrac=cf.astype(dtype), tauc=tauc.astype(dtype))
+
+
+def _max_abs(a, b, name):
+    return float(np.abs(getattr(a, name).double().numpy()
+                        - np.asarray(getattr(b, name))).max())
+
+
+@pytest.mark.parametrize("icld,inflag", [(1, 2), (2, 2), (3, 2), (1, 0),
+                                         (1, 1), (2, 0), (2, 1)])
+def test_band_clouds_model_matches_jax_f64(icld, inflag):
+    B, L = 6, 12
+    jm = jmake_model(JConfig(icld=icld, imca=0, inflag=inflag,
+                             use_lut=False, taumol_impl="xla",
+                             rt_impl="xla"))
+    nbc = band_clouds(B, L)
+    ref = jm(jsyn.make_atmosphere(B, L), JBandClouds(*nbc))
+    model = make_model(LWConfig(icld=icld, imca=0, inflag=inflag,
+                                use_lut=False), device="cpu",
+                       tables=tables_from_numpy(jm.ktables, jm.static_np,
+                                                device="cpu"))
+    out = model(Atmosphere.from_numpy(tsyn.make_atmosphere(B, L), "cpu"),
+                BandClouds.from_numpy(nbc, "cpu"))
+    for name in FLUXES:
+        assert _max_abs(out, ref, name) <= 1e-11, name
+    for name in HEATING:
+        scale = float(np.abs(np.asarray(getattr(ref, name))).max())
+        assert _max_abs(out, ref, name) <= 1e-11 * scale, name
+    np.testing.assert_array_equal(out.cld_bounds_ok.numpy(),
+                                  np.asarray(ref.cld_bounds_ok))
+    assert not torch.allclose(out.uflx, out.uflxc)
+
+
+@pytest.mark.parametrize("icld", [1, 2, 3])
+def test_band_clouds_model_f32_within_reference_contract(icld):
+    B, L = 6, 40
+    jm = jmake_model(JConfig(icld=icld, imca=0, use_lut=False,
+                             taumol_impl="xla", rt_impl="xla"))
+    ref = jm(jsyn.make_atmosphere(B, L), JBandClouds(*band_clouds(B, L)))
+    out = make_model(LWConfig(icld=icld, imca=0, dtype="float32",
+                              use_lut=False), device="cpu")(
+        Atmosphere.from_numpy(tsyn.make_atmosphere(B, L, dtype=np.float32),
+                              "cpu", torch.float32),
+        BandClouds.from_numpy(band_clouds(B, L, np.float32), "cpu",
+                              torch.float32))
+    assert out.uflx.dtype == torch.float32
+    assert _max_diff(out, ref, ("uflx", "dflx")) < 5e-3
+    assert _max_diff(out, ref, ("hr",)) < 0.05
+
+
+@pytest.mark.parametrize("icld", [1, 2])
+def test_band_clouds_functions_grad_on_cpu(icld):
+    """With impl="cuda" on the CPU the banded / maxrand Functions run
+    their plain forward and vjp: the gradient step equals plain
+    autograd's."""
+    B, L = 3, 10
+    atm = Atmosphere.from_numpy(tsyn.make_atmosphere(B, L), "cpu")
+    bc = BandClouds.from_numpy(band_clouds(B, L), "cpu")
+    cfg = LWConfig(icld=icld, imca=0, use_lut=False)
+    eager = make_model(cfg, device="cpu")
+    kernels = make_model(cfg, device="cpu")
+    kernels.impl = "cuda"
+    loss_e, g_e = make_grad_step(eager)(atm, bc)
+    loss_k, g_k = make_grad_step(kernels)(atm, bc)
+    assert torch.equal(loss_e, loss_k)
+    for name in Atmosphere._fields:
+        a, b = getattr(g_k, name), getattr(g_e, name)
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-12 * max(scale, 1e-300), name
+    assert float(g_k.tlay.abs().max()) > 0

@@ -1,11 +1,14 @@
 """Each module of the PyTorch port that holds a kernel, in its plain
 PyTorch version, against the JAX package's XLA counterpart in float64 on
 the same seeded numpy inputs: inatm, setcoef (+ the Planck plain
-version), the cloud coefficients, taumol and the RT sweep.
+version), the cloud coefficients, taumol, the RT sweep, and for
+deterministic clouds the per-band cloud optics (cldprop), the
+maximum-random overlap rows and the banded and maxrand sweeps.
 
 Tolerance: 1e-12 relative (float64; the two sides run the same
 operations, in different orders only inside reductions), integer
-indices exact.
+indices exact; 1e-14 for the overlap rows and the cloud optics (the
+same elementwise operations, no reduction).
 """
 
 import numpy as np
@@ -17,13 +20,15 @@ import jax.numpy as jnp
 from rrtmg_lw_tpu import LWConfig as JConfig, make_model as jmake_model
 from rrtmg_lw_tpu.ops import cldprop as jcldprop
 from rrtmg_lw_tpu.ops import rtrn as jrtrn
+from rrtmg_lw_tpu.ops import rtrnmr as jrtrnmr
 from rrtmg_lw_tpu.ops import setcoef as jsetcoef
 from rrtmg_lw_tpu.ops.inatm import inatm as jinatm
 from rrtmg_lw_tpu.utils import synthetic as jsyn
 
-from rrtmg_lw_torch import Atmosphere, LWConfig, McicaCloudsCompact, make_model
+from rrtmg_lw_torch import (Atmosphere, BandClouds, LWConfig,
+                            McicaCloudsCompact, make_model)
 from rrtmg_lw_torch.data.ktables import tables_from_numpy
-from rrtmg_lw_torch.ops import cldprop, rtrn, setcoef
+from rrtmg_lw_torch.ops import cldprop, rtrn, rtrnmr, setcoef
 from rrtmg_lw_torch.ops.inatm import inatm
 from rrtmg_lw_torch.utils import synthetic as tsyn
 
@@ -52,10 +57,11 @@ def pair():
     tables, with both packages' profile and setcoef outputs."""
     jm = jmake_model(JConfig(icld=2, imca=1, use_lut=False,
                              taumol_impl="xla", rt_impl="xla"))
-    tm = make_model(LWConfig(icld=2, imca=1, use_lut=False),
-                    tables=tables_from_numpy(jm.ktables, jm.static_np))
+    tm = make_model(LWConfig(icld=2, imca=1, use_lut=False), device="cpu",
+                    tables=tables_from_numpy(jm.ktables, jm.static_np,
+                                             device="cpu"))
     jprof = jinatm(jsyn.make_atmosphere(B, L), dtype=jnp.float64)
-    tprof = inatm(Atmosphere.from_numpy(tsyn.make_atmosphere(B, L)))
+    tprof = inatm(Atmosphere.from_numpy(tsyn.make_atmosphere(B, L), "cpu"))
     return dict(jm=jm, tm=tm, jprof=jprof, tprof=tprof,
                 jsc=jsetcoef.setcoef(jprof, jm.static),
                 tsc=setcoef.setcoef(tprof, tm.static_tensors()))
@@ -231,7 +237,7 @@ def test_rt_sweep_plain_compact_matches_jax(pair):
     tm, tsc, tprof = pair["tm"], pair["tsc"], pair["tprof"]
     jcl = jsyn.make_mcica_clouds(B, L, layout="compact", mask_dtype=np.int8)
     tcl = McicaCloudsCompact.from_numpy(
-        tsyn.make_mcica_clouds(B, L, mask_dtype=np.int8))
+        tsyn.make_mcica_clouds(B, L, mask_dtype=np.int8), "cpu")
     jt, jf = jm.engine(jsc, jprof)
     jtaut = jt + jprof.taua[..., jm.ngb0]
     batch = jcl.to_blocked().to_batch()
@@ -264,3 +270,155 @@ def test_rt_sweep_plain_compact_matches_jax(pair):
 def test_rt_lut_unported(pair):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rtrn._gas_factors(torch.ones(3), use_lut=True)
+
+
+def overlap_patterns():
+    """(8, 12) cloud fractions: contiguous blocks rising, falling and
+    equal, cldfrac 1.0, values on both sides of the 1e-6 gate, a clear
+    column, a column cloudy in every layer, random blocks."""
+    rng = np.random.default_rng(11)
+    cf = np.zeros((8, 12))
+    cf[0, 2:6] = [0.2, 0.4, 0.6, 0.8]                 # rising
+    cf[0, 8:11] = [0.9, 0.5, 0.1]                     # falling
+    cf[1, 1:9] = [0.2, 0.4, 0.6, 0.8, 1.0, 0.7, 0.5, 0.3]
+    cf[2, 3:7] = 0.5                                  # equal
+    cf[2, 9:11] = 1.0
+    cf[3, :] = 1.0                                    # overcast
+    cf[4, 2:7] = [1e-6, 0.3, 9.99e-7, 1e-6, 0.4]      # on the gate
+    # cf[5] clear
+    cf[6, :] = 0.05 + 0.9 * rng.random(12)            # cloudy everywhere
+    cf[7, [0, 2, 3, 5, 11]] = [0.4, 0.6, 0.1, 1.0, 0.3]
+    return cf
+
+
+def test_overlap_factors_match_jax():
+    cf = overlap_patterns()
+    cloudy = cf >= 1e-6
+    for jf, tf in ((jrtrnmr._overlap_factors_up, rtrnmr.overlap_factors_up),
+                   (jrtrnmr._overlap_factors_down,
+                    rtrnmr.overlap_factors_down)):
+        jfacs, jist = jf(jnp.asarray(cf), jnp.asarray(cloudy))
+        tfacs, tist = tf(torch.as_tensor(cf), torch.as_tensor(cloudy))
+        np.testing.assert_array_equal(tist.numpy(), np.asarray(jist))
+        assert len(tfacs) == len(jfacs) == 6
+        for t, j in zip(tfacs, jfacs):
+            assert np.abs(t.numpy() - np.asarray(j)).max() <= 1e-14
+        assert any(np.asarray(j).any() for j in jfacs)
+
+
+def test_overlap_rows_match_jax_rows16():
+    """The (L, 16, B) rows against the stack rt_maxrandom_pallas builds
+    (rtrn_pallas.py:1155-1166) from the JAX pre-passes."""
+    cf = overlap_patterns()
+    cloudy = jnp.asarray(cf >= 1e-6)
+    up, istcld = jrtrnmr._overlap_factors_up(jnp.asarray(cf), cloudy)
+    dn, istcldd = jrtrnmr._overlap_factors_down(jnp.asarray(cf), cloudy)
+    iclddn = jnp.flip(jnp.cumsum(jnp.flip(cloudy.astype(jnp.int32), 1), 1),
+                      1) > 0
+    rows = [jnp.asarray(cf), istcld, istcldd, iclddn, *dn, *up]
+    ref = np.stack([np.asarray(r, np.float64).T for r in rows], axis=1)
+    got = rtrnmr.overlap_rows(torch.as_tensor(cf))
+    assert got.shape == (12, 16, 8)
+    np.testing.assert_array_equal(got[:, :4].numpy(), ref[:, :4])
+    assert np.abs(got.numpy() - ref).max() <= 1e-14
+
+
+def band_clouds_np(B, Lc, seed=4):
+    """make_band_clouds with the fractions varied inside the decks (so
+    both overlap regimes occur), an overcast deck, in-cloud od for
+    inflag 0 and radii across the table ranges."""
+    bc = jsyn.make_band_clouds(B, Lc)
+    rng = np.random.default_rng(seed)
+    cf = bc.cldfrac * (0.6 + 0.4 * rng.random(bc.cldfrac.shape))
+    cf[0, 2:5] = 1.0
+    return bc._replace(
+        cldfrac=cf, tauc=rng.random((B, Lc, 16)) * (cf[..., None] > 0),
+        reic=5.0 + 130.0 * rng.random((B, Lc)),
+        relq=2.5 + 57.5 * rng.random((B, Lc)))
+
+
+@pytest.mark.parametrize("inflag,iceflag", [(0, 3), (1, 3), (2, 2), (2, 3)])
+def test_cldprop_matches_jax(pair, inflag, iceflag):
+    nbc = band_clouds_np(B, L)
+    jbc = type(nbc)(*(jnp.asarray(x) for x in nbc))
+    tbc = BandClouds.from_numpy(nbc, "cpu")
+    static = pair["tm"].static_tensors()
+    kw = dict(inflag=inflag, iceflag=iceflag, liqflag=1)
+    jt, jok = jcldprop.cldprop(jbc, pair["jm"].static_np, **kw)
+    tt, tok = cldprop.cldprop(tbc, static, **kw)
+    assert_rel(tt, jt, tol=1e-14)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    jb, jokb = jcldprop.cldprop_banded_blocked(jbc, pair["jm"].static_np,
+                                               **kw)
+    tb, tokb = cldprop.cldprop_banded_blocked(tbc, static, **kw)
+    assert tb.shape == (L, 16, B) and tb.is_contiguous()
+    assert_rel(tb, jb, tol=1e-14)
+    np.testing.assert_array_equal(tokb.numpy(), np.asarray(jokb))
+    assert float(tt.abs().max()) > 0
+
+
+def test_cldprop_ncbands_configs_raise(pair):
+    tbc = BandClouds.from_numpy(band_clouds_np(2, 4), "cpu")
+    static = pair["tm"].static_tensors()
+    for ice, liq in ((0, 1), (1, 1), (3, 0)):
+        assert not cldprop.cloud_bands_static(2, ice, liq)
+        for fn in (cldprop.cldprop, cldprop.cldprop_banded_blocked):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                fn(tbc, static, inflag=2, iceflag=ice, liqflag=liq)
+
+
+@pytest.mark.parametrize("mode", ["banded", "maxrand"])
+def test_rt_band_sweeps_plain_match_jax(pair, mode):
+    """The plain banded / maxrand sweeps in the kernel layouts (and the
+    port's (B, L, G) rt_maxrandom) against the JAX package's
+    rt_random_overlap / rt_maxrandom on the same clouds."""
+    jm, jsc, jprof = pair["jm"], pair["jsc"], pair["jprof"]
+    tm, tsc, tprof = pair["tm"], pair["tsc"], pair["tprof"]
+    nbc = band_clouds_np(B, L)
+    jbc = type(nbc)(*(jnp.asarray(x) for x in nbc))
+    tbc = BandClouds.from_numpy(nbc, "cpu")
+    jt, jf = jm.engine(jsc, jprof)
+    jtaut = jt + jprof.taua[..., jm.ngb0]
+    taucloud, _ = jcldprop.cldprop(jbc, jm.static_np, inflag=2, iceflag=3,
+                                   liqflag=1)
+    odcld_g = taucloud[..., jm.ngb0]
+    args = (jtaut, jf, jsc.planklay, jsc.planklev, jsc.plankbnd,
+            jsc.dplankbnd_dt, jprof.semiss, jprof.pwvcm, jprof.pz)
+    kw = dict(static=jm.static_np, luts=None, use_lut=False,
+              heatfac_val=jm.heatfac)
+    if mode == "banded":
+        cldf_g = jnp.broadcast_to(jbc.cldfrac[..., None], odcld_g.shape)
+        gate = cldf_g >= 1e-6
+        ref = jrtrn.rt_random_overlap(*args, cldf_g, odcld_g,
+                                      cloudy_lay=gate.any(-1), cld_gate=gate,
+                                      **kw)
+    else:
+        ref = jrtrnmr.rt_maxrandom(*args, jbc.cldfrac, odcld_g, **kw)
+        t = torch.as_tensor
+        got = rtrnmr.rt_maxrandom(
+            t(np.array(jtaut)), t(np.array(jf)), tsc.planklay, tsc.planklev,
+            tsc.plankbnd, tprof.semiss, tprof.pwvcm, tprof.pz, tbc.cldfrac,
+            t(np.array(odcld_g)), static=tm.static_np, heatfac_val=tm.heatfac)
+        for name in got._fields:
+            # heating rates divide flux differences (~1e-13 of reordered
+            # g sums) by the thin top layers' dp
+            tol = 1e-10 if name in ("htr", "htrc") else RTOL
+            assert_rel(getattr(got, name), getattr(ref, name), tol, name)
+
+    def blocked(x):
+        return torch.as_tensor(np.array(x)).permute(1, 2, 0).contiguous()
+
+    taucb, _ = cldprop.cldprop_banded_blocked(tbc, tm.static_tensors(),
+                                              inflag=2, iceflag=3, liqflag=1)
+    cld = (tbc.cldfrac.t().contiguous() if mode == "banded"
+           else rtrnmr.overlap_rows(tbc.cldfrac))
+    fn = rtrn.rt_fluxes_banded if mode == "banded" else rtrn.rt_fluxes_maxrand
+    out = fn(blocked(jtaut), blocked(jf), blocked(jsc.planklay),
+             blocked(jsc.planklev), tsc.plankbnd, tprof.semiss, tprof.pwvcm,
+             tm.ngb0, tm.wg, cld, taucb)
+    assert out.shape == (4, L + 1, B)
+    for i, name in enumerate(("totuflux", "totdflux", "totuclfl",
+                              "totdclfl")):
+        assert_rel(out[i].t(), getattr(ref, name), name=name)
+    # the clouds move the all-sky fluxes away from the clear twin
+    assert not np.allclose(np.asarray(ref.totuflux), np.asarray(ref.totuclfl))

@@ -1,8 +1,9 @@
 """The PyTorch port's scaffold against the JAX package: no JAX import,
 the same band descriptions, constants, tables and synthetic inputs, the
-taumol kernel's descriptor layout, and the CPU dispatch of every CUDA
+taumol kernel's descriptor layout, the CPU dispatch of every CUDA
 kernel wrapper (no nvcc here: a CPU tensor must reach the plain
-version and never the kernel library)."""
+version and never the kernel library), and the entry points' default
+device (the card, or an error where there is none)."""
 
 import dataclasses
 import os
@@ -114,7 +115,8 @@ def test_tables_from_numpy_round_trips():
             flat[off:off + src.size], src.astype(np.float32).reshape(-1),
             err_msg=f"{bk}/{name}")
     # and a model built from them runs
-    model = make_model(LWConfig(icld=0, use_lut=False), tables=tabs)
+    model = make_model(LWConfig(icld=0, use_lut=False), device="cpu",
+                       tables=tabs)
     assert model.is_real_kdata
 
 
@@ -139,6 +141,16 @@ def test_synthetic_bitwise_equal_jax(seed, clear_frac):
             x, y = getattr(c_t, name), getattr(c_j, name)
             assert x.dtype == y.dtype and x.shape == y.shape, name
             np.testing.assert_array_equal(x, y, err_msg=name)
+        for nlay in (17, 2):            # decks past the top layer pile up
+            b_t = tsyn.make_band_clouds(ncol=6, nlay=nlay, seed=seed + 1,
+                                        dtype=dt)
+            b_j = jsyn.make_band_clouds(ncol=6, nlay=nlay, seed=seed + 1,
+                                        dtype=dt)
+            assert b_t._fields == b_j._fields
+            for name in b_j._fields:
+                x, y = getattr(b_t, name), getattr(b_j, name)
+                assert x.dtype == y.dtype and x.shape == y.shape, name
+                np.testing.assert_array_equal(x, y, err_msg=name)
 
 
 def _c_enum(src, name):
@@ -192,34 +204,34 @@ def test_config_impl_resolution():
         LWConfig(impl="pallas").resolve_impl("cpu")
     assert LWConfig(dtype="float32").torch_dtype == torch.float32
     with pytest.raises(ValueError):
-        make_model(LWConfig(impl="cuda", use_lut=False))
+        make_model(LWConfig(impl="cuda", use_lut=False), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [
-    dict(idrv=1), dict(use_lut=True), dict(icld=1, imca=0),
-    dict(icld=2, imca=0), dict(icld=3, imca=0), dict(istart=16),
-    dict(icld=2, inflag=0)])
+    dict(idrv=1), dict(use_lut=True), dict(icld=1, imca=0, iceflag=1),
+    dict(icld=2, imca=0, liqflag=0), dict(icld=2, imca=0, idrv=1),
+    dict(istart=16), dict(icld=2, inflag=0)])
 def test_unported_configs_raise(kw):
     cfg = dict(use_lut=False)
     cfg.update(kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model(LWConfig(**cfg))
+        make_model(LWConfig(**cfg), device="cpu")
 
 
 def test_build_hash_covers_sources():
     names = {p.name for p in _build.sources()}
     assert {"planck.cu", "cldcoef.cu", "taumol.cu", "rtrn.cu",
-            "taumol_bwd.cu", "rtrn_bwd.cu", "rrtm.cuh", "taumol.cuh",
-            "rtrn.cuh"} <= names
+            "taumol_bwd.cu", "rtrn_bwd.cu", "overlap.cu", "rrtm.cuh",
+            "taumol.cuh", "rtrn.cuh"} <= names
     assert _build.source_hash() == _build.source_hash()
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
 def test_cuda_wrappers_send_cpu_tensors_to_plain_versions(monkeypatch):
-    from rrtmg_lw_torch import Atmosphere, McicaCloudsCompact
+    from rrtmg_lw_torch import Atmosphere, BandClouds, McicaCloudsCompact
     from rrtmg_lw_torch.ops import cldcoef_cuda, cldprop, planck_cuda, rtrn
-    from rrtmg_lw_torch.ops import rtrn_cuda, setcoef
+    from rrtmg_lw_torch.ops import rtrn_cuda, rtrnmr, rtrnmr_cuda, setcoef
     from rrtmg_lw_torch.ops.inatm import inatm
 
     def no_kernels(*a, **k):
@@ -228,14 +240,16 @@ def test_cuda_wrappers_send_cpu_tensors_to_plain_versions(monkeypatch):
     monkeypatch.setattr(_build, "launch", no_kernels)
     wrappers = (planck_cuda.planck_interp_blocked,
                 cldcoef_cuda.ice_liq_coeffs_blocked,
-                taumol_cuda.taumol_blocked, rtrn_cuda.rt_fluxes_blocked)
+                taumol_cuda.taumol_blocked, rtrn_cuda.rt_fluxes_blocked,
+                rtrn_cuda.rt_fluxes_banded, rtrn_cuda.rt_fluxes_maxrand,
+                rtrnmr_cuda.overlap_rows)
     before = [w.launches for w in wrappers]
 
     B, L = 5, 9
-    model = make_model(LWConfig(icld=2, use_lut=False))
-    atm = Atmosphere.from_numpy(tsyn.make_atmosphere(B, L))
+    model = make_model(LWConfig(icld=2, use_lut=False), device="cpu")
+    atm = Atmosphere.from_numpy(tsyn.make_atmosphere(B, L), "cpu")
     cl = McicaCloudsCompact.from_numpy(
-        tsyn.make_mcica_clouds(B, L, mask_dtype=np.int8))
+        tsyn.make_mcica_clouds(B, L, mask_dtype=np.int8), "cpu")
     prof = inatm(atm)
     static = model.static_tensors()
     sc = setcoef.setcoef(prof, static, planck=False)
@@ -263,4 +277,56 @@ def test_cuda_wrappers_send_cpu_tensors_to_plain_versions(monkeypatch):
                 model.ngb0, model.wg, fields)
         assert torch.equal(rtrn_cuda.rt_fluxes_blocked(*args),
                            rtrn.rt_fluxes_blocked(*args))
+    bc = BandClouds.from_numpy(tsyn.make_band_clouds(B, L), "cpu")
+    rows = rtrnmr_cuda.overlap_rows(bc.cldfrac)
+    assert torch.equal(rows, rtrnmr.overlap_rows(bc.cldfrac))
+    taucb, _ = cldprop.cldprop_banded_blocked(
+        bc, static, inflag=2, iceflag=3, liqflag=1,
+        coeffs=cldcoef_cuda.ice_liq_coeffs_blocked)
+    args = (tg, fr, play, plev, sc.plankbnd, prof.semiss, prof.pwvcm,
+            model.ngb0, model.wg)
+    for kern, plain, cld in (
+            (rtrn_cuda.rt_fluxes_banded, rtrn.rt_fluxes_banded,
+             bc.cldfrac.t().contiguous()),
+            (rtrn_cuda.rt_fluxes_maxrand, rtrn.rt_fluxes_maxrand, rows)):
+        assert torch.equal(kern(*args, cld, taucb), plain(*args, cld, taucb))
     assert [w.launches for w in wrappers] == before
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a device the entry points take the CUDA device; where
+    there is none they raise and never carry on on the CPU."""
+    from rrtmg_lw_torch import Atmosphere, BandClouds, McicaCloudsCompact
+    from rrtmg_lw_torch.config import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_model(LWConfig(use_lut=False))
+    for cls, arrays in ((Atmosphere, tsyn.make_atmosphere(2, 3)),
+                        (McicaCloudsCompact, tsyn.make_mcica_clouds(2, 3)),
+                        (BandClouds, tsyn.make_band_clouds(2, 3))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls.from_numpy(arrays)
+        assert cls.from_numpy(arrays, "cpu")[0].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tkt.load_tables()
+    kt, _ = tkt.load_ktables()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tkt.tables_from_numpy(kt, tkt.load_static())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cloud_types_must_match_imca():
+    from rrtmg_lw_torch import Atmosphere, BandClouds, McicaCloudsCompact
+    B, L = 2, 5
+    atm = Atmosphere.from_numpy(tsyn.make_atmosphere(B, L), "cpu")
+    band = BandClouds.from_numpy(tsyn.make_band_clouds(B, L), "cpu")
+    mcica = McicaCloudsCompact.from_numpy(
+        tsyn.make_mcica_clouds(B, L, mask_dtype=np.int8), "cpu")
+    with pytest.raises(TypeError):
+        make_model(LWConfig(icld=2, imca=0, use_lut=False),
+                   device="cpu")(atm, mcica)
+    with pytest.raises(TypeError):
+        make_model(LWConfig(icld=2, imca=1, use_lut=False),
+                   device="cpu")(atm, band)
