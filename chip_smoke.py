@@ -9,23 +9,30 @@ sm_90a):
 Phases, each raising on failure (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the CUDA kernels from csrc/ (one nvcc per source, in
-     parallel), timed;
+     parallel), timed, with the registers and spills ptxas reports;
   3. each kernel against its plain PyTorch version on the card at the
      main-path shapes (B=16384 columns, L=60 layers, float32), with the
      max error and CUDA-event times of both and the bound of each (the
      larger of its bytes over the HBM rate and its operations over the
-     f32 rate); the RT sweep in its clear/compact, banded and maxrand
-     modes and the overlap rows, each also bitwise equal over two runs;
-     the deterministic-cloud modes on make_band_clouds and on a cloud
-     field whose fractions vary inside cloudy blocks;
+     f32 rate); the RT sweep in all six modes (clear/compact, banded,
+     maxrand, fused on McicaCloudsBlocked, cldf-odcld on the same clouds
+     with an input cloud od) and each at idrv=1, and the overlap rows,
+     each also bitwise equal over two runs, the idrv=1 flux rows bitwise
+     equal to idrv=0's; the deterministic-cloud modes on make_band_clouds
+     and on a cloud field whose fractions vary inside cloudy blocks;
   4. end to end, cell by cell: clear sky and McICA (compact int8-mask
-     clouds), then deterministic clouds (BandClouds, imca=0) band_cloudy
-     (icld=1) and maxrand_cloudy (icld=2), 3 steps each through the
-     kernels, and one icld=3 step; for each cell the launch counters are
-     set to 0 just before and read just after, and every kernel must
-     have launched exactly as often as that cell's path does (0 for the
-     others); fluxes held against the same model run with impl="eager"
-     on the card;
+     clouds), deterministic clouds (BandClouds, imca=0) band_cloudy
+     (icld=1) and maxrand_cloudy (icld=2), McICA per-g clouds
+     (mcica_blocked, inflag=2: K1 fused; mcica_tauc, inflag=0: K1
+     cldf-odcld), and clear, McICA and maxrand at idrv=1, 3 steps each
+     through the kernels; one step each of icld=3 and of the banded,
+     fused and cldf-odcld paths at idrv=1; for each cell the launch
+     counters are set to 0 just before and read just after, and every
+     kernel must have launched exactly as often as that cell's path does
+     (0 for the others); fluxes (and duflx_dt / duflxc_dt at idrv=1) held
+     against the same model run with impl="eager" on the card; then one
+     from_profile step with Profile.dtbound set and one float-mask
+     McicaCloudsCompact step (K1 fused), each against eager;
   5. deep: one McICA step at L=140 with the same checks;
   6. grad: each backward kernel (K3b Planck slope, K5 taumol, K6 RT
      adjoint) against the plain vjp of its forward's plain version on the
@@ -36,7 +43,9 @@ Phases, each raising on failure (any failure exits non-zero):
      just after, peak memory; its gradients of a column-sum loss, linear
      in the four flux arrays with seeded cotangents, held on all 16384
      columns against the eager step's (run in column chunks); clear sky,
-     1 step, the same check.
+     1 step, the same check; the McICA step at idrv=1 bitwise equal to
+     idrv=0's, and a cotangent of duflx_dt or a backward through the
+     fused mode raising NotImplementedError.
 The last two lines of stdout are the kernels' JSON summary and
 {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and
 prints no result.
@@ -86,7 +95,7 @@ F32_OPS_PER_S = 67e12
 # the overlap rows
 OPS = dict(taumol=60, planck=8, cldcoef=10, rt_clear=60, rt_cloud=40,
            rt_maxrand=60, overlap=100, taumol_bwd=200, planck_bwd=8,
-           rt_adjoint=270)
+           rt_adjoint=270, rt_ddt=10)
 
 KERNELS = (  # name, source, replaced TPU kernel
     ("taumol", "rrtmg_lw_torch/csrc/taumol.cu",
@@ -109,7 +118,11 @@ KERNELS = (  # name, source, replaced TPU kernel
      "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
     ("overlap_rows", "rrtmg_lw_torch/csrc/overlap.cu",
      "rrtmg_lw_tpu/ops/rtrn_pallas.py:1155"),
-)
+) + tuple((name, "rrtmg_lw_torch/csrc/rtrn.cu",
+           "rrtmg_lw_tpu/ops/rtrn_pallas.py:140") for name in (
+    "rt_sweep_fused", "rt_sweep_cldf_od", "rt_sweep_idrv",
+    "rt_sweep_banded_idrv", "rt_sweep_maxrand_idrv", "rt_sweep_fused_idrv",
+    "rt_sweep_cldf_od_idrv"))
 
 
 def need(cond, msg):
@@ -139,13 +152,13 @@ def cuda_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def bound(inputs, outputs, ops):
+def bound(inputs, outputs, ops, nbytes=0):
     """bound_ms, bound_by and library_ms (None: no one PyTorch call
     computes any of these kernels' functions) of a kernel that reads
-    ``inputs`` and writes ``outputs`` (tensors, None skipped) and does
-    ``ops`` operations."""
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (*inputs, *outputs) if t is not None)
+    ``inputs`` and writes ``outputs`` (tensors, None skipped), moves
+    ``nbytes`` more and does ``ops`` operations."""
+    nbytes += sum(t.numel() * t.element_size()
+                  for t in (*inputs, *outputs) if t is not None)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
@@ -330,6 +343,11 @@ def phase_kernels(device):
             coeffs=ice_liq_coeffs_blocked)
         cldf_t = cldf.t().contiguous()
         ncld = int((cldf >= rtrn.CLOUD_GATE).sum())
+        if tag == "decks":
+            band_in = {"rt_sweep_banded": ((cldf_t, taucb), (cldf_t, taucb),
+                                           ncld),
+                       "rt_sweep_maxrand": ((rows_k, taucb), (rows_p, taucb),
+                                            ncld)}
         for name, kern, plain, cld_k, cld_p, ops in (
                 ("rt_sweep_banded", rt_fluxes_banded, rtrn.rt_fluxes_banded,
                  cldf_t, cldf_t, OPS["rt_cloud"]),
@@ -356,11 +374,96 @@ def phase_kernels(device):
     for name, e in errs.items():
         res[name].update(max_abs_err=max(a for a, _ in e),
                          max_rel_err=max(r for _, r in e))
+    res.update(k1_per_g_and_idrv(device, model, (*args, sc.dplankbnd_dt),
+                                 fields, band_in))
     for name, r in res.items():
         print(f"{name}: max_abs_err {r['max_abs_err']:.3g} "
               f"max_rel_err {r['max_rel_err']:.3g} kernel {r['ms']:.3f} ms "
               f"plain {r['plain_ms']:.3f} ms bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']})")
+    return res
+
+
+def k1_per_g_and_idrv(device, model, args, compact, band_in):
+    """K1's fused and cldf-odcld modes on the mcica_blocked and mcica_tauc
+    cells' clouds, then every mode at idrv=1 against its plain version:
+    flux (and d/dT) error, bitwise repeat, the idrv=1 flux rows bitwise
+    equal to the idrv=0 launch's, clouds that move the all-sky fluxes;
+    kernel, plain and bound ms.  ``args`` are phase 3's sweep inputs,
+    ``compact`` its compact McICA fields, ``band_in`` the banded and
+    maxrand modes' cloud inputs (kernel, plain, cloudy layers) on the
+    decks."""
+    from rrtmg_lw_torch.ops import cldprop, rtrn
+    from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_blocked
+    from rrtmg_lw_torch.ops.rtrn_cuda import WRAPPERS
+    static = model.static_tensors()
+    sc_dpl = args[-1]
+    args = args[:-1]
+    _, cb = inputs("mcica_blocked", device)
+    _, ct = inputs("mcica_tauc", device)
+    abi, abl = ice_liq_coeffs_blocked(cb.reicmc, cb.relqmc, 3, 1, static)
+    odc, cfc, _ = cldprop.cldprmc_blocked(ct, static, inflag=0, iceflag=3,
+                                          liqflag=1)
+    gate = cb.cldfmc[:, :140] >= 0.5            # the cloudy (layer, g, col)
+    ngate = int(gate.sum())
+    ncld = int(gate.any(1).sum())               # cloudy (layer, col)
+    cloud_ops = 140 * ncld
+    ncld_c = int((compact[0][:, :140] != 0).any(1).sum())
+    # entry: (mode, [(cloud args kernel, plain)], bound inputs, extra
+    # bytes (the per-g arrays read only where a g-point is cloudy), ops)
+    cases = {
+        "rt_sweep": ("blocked", [((), ()), ((compact,), (compact,))],
+                     compact, 0, OPS["rt_cloud"] * 140 * ncld_c),
+        "rt_sweep_fused": ("fused", [(((*cb[:4], abi, abl),),) * 2],
+                           (cb.cldfmc, abi, abl), 3 * 4 * ngate,
+                           OPS["rt_cloud"] * cloud_ops),
+        "rt_sweep_cldf_od": ("cldf_od", [(((cfc, odc),),) * 2], (cfc,),
+                             4 * ngate, OPS["rt_cloud"] * cloud_ops),
+    }
+    for name in ("rt_sweep_banded", "rt_sweep_maxrand"):
+        kin, pin, nc = band_in[name]
+        cases[name] = (name.split("_")[-1], [(kin, pin)], kin, 0,
+                       OPS["rt_cloud" if name.endswith("banded")
+                           else "rt_maxrand"] * 140 * nc)
+    base = OPS["rt_clear"] * L_MAIN * B_MAIN * 140
+    res = {}
+    for name, (mode, clouds, bin_, nb, ops) in cases.items():
+        kern, plain = WRAPPERS[mode], rtrn.FLUXES[mode]
+        new_mode = mode in ("fused", "cldf_od")
+        for idrv in ((0, 1) if new_mode else (1,)):
+            tag = name + ("_idrv" if idrv else "")
+            kw = dict(dplankbnd_dt=sc_dpl) if idrv else {}
+            errs, absd = [], []
+            for ck, cp in clouds:
+                k0 = kern(*args, *ck)
+                fk = kern(*args, *ck, **kw)
+                fp = plain(*args, *cp, **kw)
+                if idrv:
+                    need(torch.equal(fk[0], k0), f"{tag}: the flux rows "
+                         "differ from the idrv=0 launch's")
+                    fk, fp = torch.cat(fk), torch.cat(fp)
+                    again = torch.cat(kern(*args, *ck, **kw))
+                else:
+                    again = kern(*args, *ck)
+                need(bool(torch.isfinite(fk).all()), f"{tag}: non-finite")
+                errs.append(flux_err(fp, fk))
+                absd.append(float((fk - fp).abs().max()))
+                need(torch.equal(fk, again), f"{tag}: two runs differ")
+                if ck:
+                    need(not torch.allclose(fk[0], fk[2]), f"{tag}: the "
+                         "clouds left the all-sky fluxes unchanged")
+            need(max(errs) <= TOL_FLUX, f"{tag}: flux err {max(errs):.3g}")
+            ck, cp = clouds[-1]
+            res[tag] = dict(
+                max_abs_err=max(absd), max_rel_err=max(errs),
+                ms=cuda_ms(lambda: kern(*args, *ck, **kw), 5),
+                plain_ms=cuda_ms(lambda: plain(*args, *cp, **kw), 2),
+                **bound((*args, *bin_) + ((sc_dpl,) if idrv else ()),
+                        (fk,), base + ops + (OPS["rt_ddt"] * L_MAIN
+                                             * B_MAIN * 140 if idrv else 0),
+                        nb))
+            print(f"{tag}: flux err {max(errs):.3g}"
+                  + (", flux rows equal to idrv=0" if idrv else ""))
     return res
 
 
@@ -381,8 +484,17 @@ def compare_models(tag, fk, fe, cloudy):
         x = getattr(fk, name)
         need(x.shape[0] == B and torch.isfinite(x).all(),
              f"{tag}: {name} not finite or mis-shaped {tuple(x.shape)}")
+    names = ("uflx", "dflx", "uflxc", "dflxc")
+    if fk.duflx_dt is not None:
+        names += ("duflx_dt", "duflxc_dt")
+        need(fe.duflx_dt is not None
+             and bool(torch.isfinite(fk.duflx_dt).all()
+                      and torch.isfinite(fk.duflxc_dt).all())
+             and bool((fk.duflx_dt[:, 0] > 0).all()),
+             f"{tag}: duflx_dt missing, not finite or not positive at the "
+             "surface")
     err = max(flux_err(getattr(fe, n).t(), getattr(fk, n).t())
-              for n in ("uflx", "dflx", "uflxc", "dflxc"))
+              for n in names)
     need(err <= TOL_FLUX, f"{tag}: flux err vs eager {err:.3g}")
     olr = fk.uflx[:, -1]
     need(bool(((olr > 100) & (olr < 400)).all()),
@@ -409,18 +521,18 @@ def counted_steps(tag, model, atm, clouds, steps, counters, per_step):
 
 
 def forward_cells(device, counters, cells):
-    """Each cell of ``cells`` ((tag, icld, imca, clouds input, steps,
-    launches per step)) through the kernels, counted on its own, then
-    once through the eager model on the card; fluxes held to eager."""
-    from rrtmg_lw_torch import LWConfig, make_model
-    cfg = dict(dtype="float32", use_lut=False)
+    """Each cell of ``cells`` ((tag, cell of utils/profiling.py, steps,
+    launches per step[, config overrides])) through the kernels, counted
+    on its own, then once through the eager model on the card; fluxes
+    held to eager."""
+    from rrtmg_lw_torch import make_model
+    from rrtmg_lw_torch.utils.profiling import CELLS
     launches, rows = {}, []
-    for tag, icld, imca, cell, steps, per_step in cells:
+    for tag, cell, steps, per_step, *over in cells:
         atm, clouds = inputs(cell, device)
-        if icld == 0:
-            clouds = None
-        models = {impl: make_model(LWConfig(icld=icld, imca=imca, impl=impl,
-                                            **cfg), device=device)
+        models = {impl: make_model(CELLS[cell].config(impl=impl,
+                                                      **dict(*over)),
+                                   device=device)
                   for impl in ("cuda", "eager")}
         models["cuda"](atm, clouds)          # warm-up (first launches)
         torch.cuda.synchronize()
@@ -428,8 +540,8 @@ def forward_cells(device, counters, cells):
                                               clouds, steps, counters,
                                               per_step)
         fe, ms_e = run_steps(models["eager"], atm, clouds, 1)
-        err = compare_models(tag, fk, fe, icld)
-        if imca == 0:
+        err = compare_models(tag, fk, fe, clouds is not None)
+        if clouds is not None:
             need(not torch.allclose(fk.uflx, fk.uflxc),
                  f"{tag}: the clouds left the all-sky fluxes unchanged")
         for impl, t in (("cuda", ms), ("eager", ms_e)):
@@ -443,20 +555,82 @@ def forward_cells(device, counters, cells):
     return launches, rows
 
 
-# forward cells: tag, icld, imca, inputs, steps, launches per step
+# forward cells: tag, cell of utils/profiling.py (its inputs and config),
+# steps, launches per step[, config overrides]
 FWD = dict(taumol=1, planck=2, cldcoef=1)
-CELLS_MAIN = (("clear", 0, 1, "clear", STEPS,
-               dict(FWD, cldcoef=0, rt_sweep=1)),
-              ("mcica_cloudy", 2, 1, "mcica_cloudy", STEPS,
-               dict(FWD, rt_sweep=1)))
+NO_K4 = dict(FWD, cldcoef=0)
+CELLS_MAIN = (("clear", "clear", STEPS, dict(NO_K4, rt_sweep=1)),
+              ("mcica_cloudy", "mcica_cloudy", STEPS, dict(FWD, rt_sweep=1)))
 # deterministic clouds (imca=0): K1 banded for icld=1, the overlap rows
 # and K1 maxrand for icld 2/3 (icld=3 reaches the same kernels: one step)
-CELLS_BAND = (("band_cloudy", 1, 0, "band_cloudy", STEPS,
+CELLS_BAND = (("band_cloudy", "band_cloudy", STEPS,
                dict(FWD, rt_sweep_banded=1)),
-              ("maxrand_cloudy", 2, 0, "band_cloudy", STEPS,
+              ("maxrand_cloudy", "maxrand_cloudy", STEPS,
                dict(FWD, rt_sweep_maxrand=1, overlap_rows=1)),
-              ("maxrand_cloudy_icld3", 3, 0, "band_cloudy", 1,
-               dict(FWD, rt_sweep_maxrand=1, overlap_rows=1)))
+              ("maxrand_cloudy_icld3", "maxrand_cloudy", 1,
+               dict(FWD, rt_sweep_maxrand=1, overlap_rows=1), dict(icld=3)))
+# McICA per-g arrays: K1 fused (inflag=2, K4 for the coefficients) and
+# cldf-odcld (inflag=0: the input cloud od, no K4); then idrv=1, whose
+# launches also count on the wrapper's idrv counter (the banded, fused
+# and cldf-odcld paths at idrv=1: one step each)
+CELLS_PER_G = (("mcica_blocked", "mcica_blocked", STEPS,
+                dict(FWD, rt_sweep_fused=1)),
+               ("mcica_tauc", "mcica_tauc", STEPS,
+                dict(NO_K4, rt_sweep_cldf_od=1)))
+CELLS_IDRV = (("clear_idrv", "clear_idrv", STEPS,
+               dict(NO_K4, rt_sweep=1, rt_sweep_idrv=1)),
+              ("mcica_cloudy_idrv", "mcica_cloudy_idrv", STEPS,
+               dict(FWD, rt_sweep=1, rt_sweep_idrv=1)),
+              ("maxrand_cloudy_idrv", "maxrand_cloudy_idrv", STEPS,
+               dict(FWD, rt_sweep_maxrand=1, rt_sweep_maxrand_idrv=1,
+                    overlap_rows=1)),
+              ("band_cloudy_idrv", "band_cloudy_idrv", 1,
+               dict(FWD, rt_sweep_banded=1, rt_sweep_banded_idrv=1)),
+              ("mcica_blocked_idrv", "mcica_blocked_idrv", 1,
+               dict(FWD, rt_sweep_fused=1, rt_sweep_fused_idrv=1)),
+              ("mcica_tauc_idrv", "mcica_tauc_idrv", 1,
+               dict(NO_K4, rt_sweep_cldf_od=1, rt_sweep_cldf_od_idrv=1)))
+
+
+def extra_steps(device, counters):
+    """One from_profile step with Profile.dtbound set (a seeded +-2 K
+    field; idrv=1, McICA) and one step with a float32 compact mask (K1
+    fused), each through the kernels against eager on the card."""
+    from rrtmg_lw_torch import make_model
+    from rrtmg_lw_torch.ops.inatm import inatm
+    from rrtmg_lw_torch.utils.profiling import CELLS
+    atm, clouds = inputs("mcica_cloudy_idrv", device)
+    prof = inatm(atm, torch.float32)
+    gen = torch.Generator(device=device).manual_seed(11)
+    dtb = 4.0 * torch.rand(B_MAIN, generator=gen, device=device) - 2.0
+    out = {impl: make_model(CELLS["mcica_cloudy_idrv"].config(impl=impl),
+                            device=device).from_profile(
+                                prof._replace(dtbound=dtb), clouds)
+           for impl in ("cuda", "eager")}
+    err = compare_models("dtbound", out["cuda"], out["eager"], True)
+    plain = make_model(CELLS["mcica_cloudy_idrv"].config(impl="cuda"),
+                       device=device).from_profile(prof, clouds)
+    fk = out["cuda"]
+    need(torch.equal(fk.dflx, plain.dflx)
+         and torch.equal(fk.uflx, plain.uflx + plain.duflx_dt * dtb[:, None])
+         and not torch.equal(fk.hr, plain.hr),
+         "dtbound: the adjustment is not uflx + duflx_dt * dtbound")
+    print(f"dtbound: flux err cuda vs eager {err:.3g}, uflx moved by "
+          f"up to {float((fk.uflx - plain.uflx).abs().max()):.3g} W/m2")
+
+    atm, clouds = inputs("mcica_cloudy", device)
+    fmask = clouds._replace(cldfmc=clouds.cldfmc.float())
+    model = make_model(CELLS["mcica_cloudy"].config(impl="cuda"),
+                       device=device)
+    fk, _, _ = counted_steps("mcica_float_mask", model, atm, fmask, 1,
+                             counters, dict(FWD, rt_sweep_fused=1))
+    fe = make_model(CELLS["mcica_cloudy"].config(impl="eager"),
+                    device=device)(atm, fmask)
+    err = compare_models("mcica_float_mask", fk, fe, True)
+    same = all(torch.equal(getattr(fk, n), getattr(model(atm, clouds), n))
+               for n in ("uflx", "dflx", "uflxc", "dflxc"))
+    print(f"mcica_float_mask: flux err cuda vs eager {err:.3g}; "
+          f"{'bitwise equal to' if same else 'differs from'} the int8 mask")
 
 
 def phase_deep(device, counters):
@@ -698,6 +872,56 @@ def phase_grad_step(device, counters):
     return launches, rows
 
 
+def phase_grad_idrv(device):
+    """The McICA gradient step (default loss) at idrv=1 runs through K6
+    and gives the idrv=0 step's loss and gradients bitwise (the loss reads
+    no d/dT; both with deterministic algorithms, under which two idrv=0
+    steps are bitwise equal too); a loss that reads duflx_dt, and a backward through the
+    fused mode, raise NotImplementedError on the card."""
+    from rrtmg_lw_torch import Atmosphere, make_model
+    from rrtmg_lw_torch.parallel import make_grad_step
+    from rrtmg_lw_torch.utils.profiling import CELLS
+    atm, clouds = inputs("mcica_cloudy", device)
+    steps = [make_grad_step(make_model(CELLS[c].config(impl="cuda"),
+                                       device=device))
+             for c in ("mcica_cloudy", "mcica_cloudy", "mcica_cloudy_idrv")]
+    # autograd's scatter-adds (the backward of the band -> g gathers) use
+    # float atomics on the card unless deterministic algorithms are on
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (l0, g0), (lr, gr), (l1, g1) = (step(atm, clouds) for step in steps)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    def diffs(ga, gb):
+        return {n: float((a - b).abs().max()) for n, a, b in
+                zip(Atmosphere._fields, ga, gb) if not torch.equal(a, b)}
+    need(torch.equal(l0, lr) and not diffs(g0, gr),
+         f"mcica_cloudy_grad: two deterministic steps differ: {diffs(g0, gr)}")
+    need(torch.equal(l0, l1) and not diffs(g0, g1),
+         f"mcica_cloudy_idrv_grad: gradients differ from idrv=0's: "
+         f"{diffs(g0, g1)}")
+    del steps, g0, gr, g1
+    idrv = make_model(CELLS["mcica_cloudy_idrv"].config(impl="cuda"),
+                      device=device)
+    atm_b, blk = inputs("mcica_blocked", device)
+    fused = make_model(CELLS["mcica_blocked"].config(impl="cuda"),
+                       device=device)
+    for tag, step, a, c in (
+            ("d/dT cotangent", make_grad_step(idrv, lambda f: (
+                f.duflx_dt ** 2).mean()), atm, clouds),
+            ("fused backward", make_grad_step(fused), atm_b, blk)):
+        try:
+            step(a, c)
+        except NotImplementedError as e:
+            need("ROADMAP" in str(e), f"{tag}: {e}")
+        else:
+            need(False, f"{tag}: the backward did not raise on the card")
+        print(f"grad: {tag} raises NotImplementedError on the card")
+    print("mcica_cloudy_idrv_grad: loss and gradients bitwise equal to "
+          "idrv=0's (deterministic algorithms)")
+
+
 def main() -> int:
     # importing the port first: from a directory without it this fails
     # before anything is printed
@@ -707,6 +931,8 @@ def main() -> int:
                                                 planck_interp_vjp)
     from rrtmg_lw_torch.ops.rtrn_cuda import (rt_fluxes_banded,
                                               rt_fluxes_blocked,
+                                              rt_fluxes_cldf_od,
+                                              rt_fluxes_fused,
                                               rt_fluxes_maxrand,
                                               rt_sweep_vjp)
     from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows
@@ -714,8 +940,9 @@ def main() -> int:
     from rrtmg_lw_torch.utils import profiling
 
     need(profiling.NCOL == B_MAIN
-         and profiling.CELLS["mcica_cloudy"][3] == L_MAIN
-         and profiling.CELLS["mcica_cloudy_deep"][3] == L_DEEP,
+         and all(c.nlay == L_MAIN for k, c in profiling.CELLS.items()
+                 if k != "mcica_cloudy_deep")
+         and profiling.CELLS["mcica_cloudy_deep"].nlay == L_DEEP,
          "the cells' inputs are not of this script's shapes")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -750,9 +977,18 @@ def main() -> int:
                 "rt_sweep": rt_fluxes_blocked}
     fwd_counters = dict(counters, rt_sweep_banded=rt_fluxes_banded,
                         rt_sweep_maxrand=rt_fluxes_maxrand,
-                        overlap_rows=overlap_rows)
-    cell_launches, rows = forward_cells(device, fwd_counters,
-                                        CELLS_MAIN + CELLS_BAND)
+                        overlap_rows=overlap_rows,
+                        rt_sweep_fused=rt_fluxes_fused,
+                        rt_sweep_cldf_od=rt_fluxes_cldf_od,
+                        rt_sweep_idrv=rt_fluxes_blocked.idrv,
+                        rt_sweep_banded_idrv=rt_fluxes_banded.idrv,
+                        rt_sweep_maxrand_idrv=rt_fluxes_maxrand.idrv,
+                        rt_sweep_fused_idrv=rt_fluxes_fused.idrv,
+                        rt_sweep_cldf_od_idrv=rt_fluxes_cldf_od.idrv)
+    cell_launches, rows = forward_cells(
+        device, fwd_counters, CELLS_MAIN + CELLS_BAND + CELLS_PER_G
+        + CELLS_IDRV)
+    extra_steps(device, fwd_counters)
     # each kernel's launches: those of the first cell that runs it
     launches = {}
     for counts in cell_launches.values():
@@ -771,6 +1007,8 @@ def main() -> int:
                     rt_adjoint=rt_sweep_vjp)
     grad_launches, grad_rows = phase_grad_step(device, counters)
     rows += grad_rows
+    phase_grad_idrv(device)
+    torch.cuda.empty_cache()
     launches.update({k: grad_launches[k]
                      for k in ("taumol_bwd", "planck_bwd", "rt_adjoint")})
     for r in rows:

@@ -10,13 +10,14 @@ never imports JAX; ``rrtmg_lw_tpu`` is the reference it is tested against.
 
 from .config import LWConfig
 from .models.radiation import RRTMGLW, make_model
-from .types import (Atmosphere, BandClouds, Fluxes, McicaCloudsCompact,
-                    Profile, SetcoefOut)
+from .types import (Atmosphere, BandClouds, Fluxes, McicaClouds,
+                    McicaCloudsBlocked, McicaCloudsCompact, Profile,
+                    SetcoefOut)
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "LWConfig", "Atmosphere", "BandClouds", "Fluxes", "McicaCloudsCompact",
-    "Profile",
-    "SetcoefOut", "RRTMGLW", "make_model", "__version__",
+    "LWConfig", "Atmosphere", "BandClouds", "Fluxes", "McicaClouds",
+    "McicaCloudsBlocked", "McicaCloudsCompact", "Profile", "SetcoefOut",
+    "RRTMGLW", "make_model", "__version__",
 ]

@@ -46,7 +46,7 @@ SIGNATURES = {
     "rrtm_cldcoef": (P, P, P, P, P, P, I, I, I, P),
     "rrtm_taumol": (P, P, P, P, P, P, P, I, I, P),
     "rrtm_taumol_bwd": (P, P, P, P, P, P, P, I, I, P),
-    "rrtm_rt": (P,) * 14 + (I, I, I, P),
+    "rrtm_rt": (P,) * 18 + (I, I, I, I, P),
     "rrtm_overlap": (P, P, I, I, P),
     "rrtm_rt_bwd": (P,) * 21 + (I, I, I, P),
     "rrtm_taumol_ndesc": (),

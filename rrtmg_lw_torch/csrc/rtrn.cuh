@@ -21,8 +21,17 @@ constexpr float CLOUD_GATE = 1.0e-6f;
 
 // K1's modes (rtrn_cuda.MODES): clear sky; compact McICA (mask x layer
 // water paths); per-band clouds under random overlap (icld=1); per-band
-// clouds under maximum-random overlap (icld 2/3)
-enum Mode { CLEAR = 0, COMPACT = 1, BANDED = 2, MAXRAND = 3 };
+// clouds under maximum-random overlap (icld 2/3); McICA per-g arrays with
+// cldprmc inline (fused, inflag=2); McICA per-g cloud fraction and cloud
+// od (cldf-odcld, after cldprmc)
+enum Mode { CLEAR = 0, COMPACT = 1, BANDED = 2, MAXRAND = 3, FUSED = 4,
+            CLDF_OD = 5 };
+
+// modes whose cloud fraction is per g-point (a layer is cloudy where any
+// g of it is, formed by a warp ballot)
+__host__ __device__ constexpr bool per_g_clouds(int mode) {
+    return mode == COMPACT || mode == FUSED || mode == CLDF_OD;
+}
 
 // rows of the (L, 16, B) overlap rows of the maxrand mode
 // (rtrnmr.overlap_rows): cldfrac, restart flags of the up and down
@@ -30,8 +39,10 @@ enum Mode { CLEAR = 0, COMPACT = 1, BANDED = 2, MAXRAND = 3 };
 enum Row { R_CLDF = 0, R_IST_UP = 1, R_IST_DN = 2, R_ICLDDN = 3,
            R_DN = 4, R_UP = 10, NROW = 16 };
 
-// rows of the (4, L+1, B) flux output
-enum Flux { UP = 0, DOWN = 1, CLR_UP = 2, CLR_DOWN = 3 };
+// rows of the (4, L+1, B) flux output; idrv=1 adds the derivatives of
+// the upward fluxes with respect to the surface temperature, (6, L+1, B)
+enum Flux { UP = 0, DOWN = 1, CLR_UP = 2, CLR_DOWN = 3, D_UP = 4,
+            D_CLR_UP = 5 };
 
 // rtrn._gas_factors: absorptivity and Planck transition, small-od branch
 // for od <= 0.06.
@@ -63,7 +74,9 @@ struct Inputs {
     const float* fracs;    // (L, 140, B)
     const float* play;     // (L, 16, B)
     const float* plev;     // (L+1, 16, B)
-    const float* surf;     // (3, 16, B): secdiff, semiss, plankbnd
+    // (3, 16, B): secdiff, semiss, plankbnd; idrv: (4, 16, B), + the
+    // temperature derivative of plankbnd
+    const float* surf;
     const int8_t* mask;    // (L, 144, B) or null
     const float* cw;       // (L, 2, B): ciwp, clwp
     const float* abi;      // (L, 16, B)
@@ -72,7 +85,24 @@ struct Inputs {
     // banded: cldfrac (L, B); maxrand: overlap rows (L, 16, B)
     const float* cld = nullptr;
     const float* taucb = nullptr;  // (L, 16, B) cloud od per band
+    // per-g McICA arrays (L, 144, B): cloud fraction (fused, cldf-odcld),
+    // water paths (fused) and cloud od (fused: the input taucmc;
+    // cldf-odcld: cldprmc's output)
+    const float* cldf = nullptr;
+    const float* ciwp = nullptr;
+    const float* clwp = nullptr;
+    const float* tauc = nullptr;
 };
+
+// The per-g cloud fraction of g at layer l: the compact mask or the
+// cldfmc array.
+template <int MODE>
+__device__ __forceinline__ float g_cloud_fraction(const Inputs& in, int l,
+                                                  int g, int b) {
+    const size_t i = ((size_t)l * rrtm::NGPT_PAD + g) * (size_t)in.B + b;
+    if (MODE == COMPACT) return (float)in.mask[i];
+    return in.cldf[i];
+}
 
 // Per (layer, g) factors of one sweep step.  `lev` is the level whose
 // Planck source bounds the step (l for the down sweep, l+1 for up).
@@ -80,8 +110,8 @@ struct Step {
     float at, atot, ef, cf, src, srctot;
 };
 
-// `cf` is the compact mask value of this g (COMPACT) or the layer's
-// cloud fraction (BANDED, MAXRAND).
+// `cf` is the cloud fraction of this g (COMPACT: the mask value; FUSED,
+// CLDF_OD: cldfmc) or the layer's cloud fraction (BANDED, MAXRAND).
 template <int MODE>
 __device__ __forceinline__ Step layer_step(const Inputs& in, int l, int lev,
                                            int g, int bd, float secd,
@@ -118,6 +148,36 @@ __device__ __forceinline__ Step layer_step(const Inputs& in, int l, int lev,
         float tft;
         tot_factors(od + odce, s.atot, tft);
         s.srctot = fr * (bl + tft * dp);
+    } else if (MODE == FUSED || MODE == CLDF_OD) {
+        // the per-g arrays are read only where the g-point is cloudy:
+        // elsewhere the cloud od does not enter
+        const bool gate = cf >= 0.5f;
+        float odce = 0.0f;
+        if (gate) {
+            const size_t pi = ((size_t)l * rrtm::NGPT_PAD + g) * B + b;
+            float odcld;
+            if (MODE == CLDF_OD) {
+                odcld = in.tauc[pi];
+            } else {
+                // cldprmc (rrtmg_lw_cldprmc.f90:128-142) inline
+                const float ciwp = in.ciwp[pi];
+                const float clwp = in.clwp[pi];
+                const float tauc = in.tauc[pi];
+                const size_t bi = ((size_t)l * rrtm::NBAND + bd) * B + b;
+                const float ai = ciwp == 0.0f ? 0.0f : in.abi[bi];
+                const float al = clwp == 0.0f ? 0.0f : in.abl[bi];
+                const float cwp = ciwp + clwp;
+                const bool active =
+                    cf >= CLDMIN && (cwp >= CLDMIN || tauc >= CLDMIN);
+                odcld = active ? ciwp * ai + clwp * al : tauc;
+            }
+            odce = secd * odcld;
+            s.ef = (1.0f - expf(-odce)) * cf;
+        }
+        s.cf = cf;
+        float tft;
+        tot_factors(od + odce, s.atot, tft);
+        s.srctot = fr * (bl + tft * dp);
     } else if ((MODE == BANDED || MODE == MAXRAND) && cf >= CLOUD_GATE) {
         // per-band cloud od of this g's band, on the spectral band's
         // diffusivity; the cloud factors are read only in a cloudy layer
@@ -146,6 +206,22 @@ __device__ __forceinline__ void advance(float& rad, float& radc,
     const float rn = cly ? rcld : rclr;
     radc = twin ? radc + (f.src - radc) * f.at : rn;
     rad = rn;
+}
+
+// One layer of the up sweep's derivatives with respect to the surface
+// temperature (idrv=1; rtrn._ddt_step, rtrnmc.f90:495-527): dl through
+// the gas transmittance, in a cloudy layer (cly) through the blend of the
+// cloudy and clear transmittances with the cloud fraction (every mode,
+// maxrand too); the clear twin dc through the gas alone where `twin`
+// holds, else dl.
+__device__ __forceinline__ void advance_ddt(float& dl, float& dc,
+                                            const Step& f, bool cly,
+                                            bool twin) {
+    const float dn = cly ? dl * f.cf * (1.0f - f.atot)
+                               + dl * (1.0f - f.cf) * (1.0f - f.at)
+                         : dl * (1.0f - f.at);
+    dc = twin ? dc * (1.0f - f.at) : dn;
+    dl = dn;
 }
 
 // One level of the maximum-random overlap recursion (rtrn._sweep_maxrand,

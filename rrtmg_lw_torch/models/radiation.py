@@ -2,25 +2,33 @@
 
 PyTorch port of ``rrtmg_lw_tpu.models.radiation.RRTMGLW`` for the
 forward clear-sky, McICA-cloudy and deterministic-cloud step (the JAX
-model's blocked branch, models/radiation.py:161-183, 256-269,
-297-358).  One step runs
+model's blocked branch, models/radiation.py:161-183, 246-358, 385-401).
+One step runs
 
   inatm -> setcoef -> taumol (K2) -> taut = taug + taua[..., ngb]
   -> Planck at layer and level temperatures (K3)
-  -> cloud optics: ice/liquid coefficients (K4; McICA, and per-band
-     clouds with inflag=2)
-  -> RT sweep (K1: clear, compact McICA, banded icld=1, or maxrand
+  -> cloud optics: ice/liquid coefficients (K4; McICA with inflag=2,
+     and per-band clouds with inflag=2), or cldprmc (McICA inflag=0)
+  -> RT sweep (K1: clear; McICA compact (generator-form int8 mask),
+     fused (per-g arrays, cldprmc inside the kernel) or cldf-odcld
+     (per-g cloud fraction and cloud od); banded icld=1, or maxrand
      icld 2/3 after the overlap rows of the cloud fraction)
   -> heating rates from the fluxes.
 
+With idrv=1 the sweep also gives the upward fluxes' derivatives with
+respect to the surface temperature (``Fluxes.duflx_dt``,
+``duflxc_dt``), and a ``Profile.dtbound`` moves the upward fluxes and
+heating rates by that derivative times dtbound (the column-mode
+adjustment, rrtmg_lw.1col.f90:587-610).
+
 With ``impl="cuda"`` the stages marked K (and the overlap rows) run the
 hand-written CUDA kernels, each inside a ``torch.autograd.Function``
-whose backward is a kernel too for clear sky and McICA (K5 taumol, K3b
-Planck, K6 RT; K4's inputs are not differentiated; the banded and
-maxrand backward raise on the card); with ``impl="eager"`` their plain
-PyTorch versions, on the same layouts, under plain autograd.
-Configurations outside the port raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+whose backward is a kernel too for clear sky and McICA compact (K5
+taumol, K3b Planck, K6 RT; K4's inputs are not differentiated; the
+other sweep modes' backward, and that of the d/dT outputs, raise on the
+card); with ``impl="eager"`` their plain PyTorch versions, on the same
+layouts, under plain autograd.  Configurations outside the port raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 The model runs on the CUDA device unless ``device`` names another.
 """
@@ -38,14 +46,15 @@ from ..ops import cldprop, rtrn, rtrnmr
 from ..ops.cldcoef_cuda import ice_liq_coeffs_blocked
 from ..ops.inatm import inatm
 from ..ops.planck_cuda import planck_interp_blocked
-from ..ops.rtrn_cuda import (rt_fluxes_banded, rt_fluxes_blocked,
-                             rt_fluxes_maxrand)
+from ..ops.rtrn_cuda import WRAPPERS
 from ..ops.rtrnmr_cuda import overlap_rows
 from ..ops.setcoef import interp_planck_blocked, setcoef
 from ..ops.taumol import TaumolEngine
 from ..ops.taumol_cuda import taumol_blocked
-from ..types import (Atmosphere, BandClouds, Fluxes, McicaCloudsCompact,
-                     Profile)
+from ..types import (Atmosphere, BandClouds, Fluxes, McicaClouds,
+                     McicaCloudsBlocked, McicaCloudsCompact, Profile, pad_g)
+
+MCICA = (McicaCloudsCompact, McicaCloudsBlocked, McicaClouds)
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -68,15 +77,17 @@ def check_supported(cfg: LWConfig) -> None:
                 f"per-band clouds with inflag={cfg.inflag}, iceflag="
                 f"{cfg.iceflag}, liqflag={cfg.liqflag} (cldprop_ncbands)",
                 "Queue 1 item 10")
-    if cfg.idrv != 0:
-        raise _unported("idrv=1 (dF/dT surface)", "Queue 1 item 10")
+    if cfg.idrv not in (0, 1):
+        raise ValueError(f"idrv must be 0 or 1, got {cfg.idrv}")
     if cfg.use_lut:
         raise _unported("use_lut=True (exp/tfn lookup tables)",
                         "Queue 1 item 10")
     if (cfg.istart, cfg.iend) != (1, 16):
         raise _unported("a band subset (istart/iend)", "Queue 1 item 10")
-    if cfg.icld != 0 and cfg.imca == 1 and cfg.inflag != 2:
-        raise _unported(f"McICA with inflag={cfg.inflag}", "Queue 1 item 10")
+    if cfg.icld != 0 and cfg.imca == 1 and cfg.inflag not in (0, 2):
+        # as the JAX package's cldprmc (rrtmg_lw_cldprmc.f90:191)
+        raise ValueError(f"INFLAG={cfg.inflag} not available with McICA "
+                         "(inflag 0 or 2)")
 
 
 class RRTMGLW(torch.nn.Module):
@@ -117,8 +128,9 @@ class RRTMGLW(torch.nn.Module):
         return {k: getattr(self, k) for k in STATIC_TENSORS}
 
     def forward(self, atm: Atmosphere, clouds=None) -> Fluxes:
-        """``clouds``: None (clear sky), ``McicaCloudsCompact`` (imca=1)
-        or ``BandClouds`` (imca=0)."""
+        """``clouds``: None (clear sky), ``McicaCloudsCompact``,
+        ``McicaCloudsBlocked`` or ``McicaClouds`` (imca=1), or
+        ``BandClouds`` (imca=0)."""
         return self.from_profile(inatm(atm, dtype=self.config.torch_dtype),
                                  clouds)
 
@@ -148,26 +160,19 @@ class RRTMGLW(torch.nn.Module):
 
         rt_args = (taut_t, fracs_t, planklay_t, planklev_t, sc.plankbnd,
                    prof.semiss, prof.pwvcm, self.ngb0, self.wg)
+        dpl = sc.dplankbnd_dt if cfg.idrv else None
+        sweeps = WRAPPERS if cuda else rtrn.FLUXES
         coeffs = (ice_liq_coeffs_blocked if cuda
                   else cldprop.ice_liq_coeffs_blocked)
         bounds_ok = None
         if cfg.icld == 0 or clouds is None:
-            fl = (rt_fluxes_blocked if cuda
-                  else rtrn.rt_fluxes_blocked)(*rt_args)
+            fl = sweeps["blocked"](*rt_args, dplankbnd_dt=dpl)
         elif cfg.imca == 1:
-            if isinstance(clouds, BandClouds):
-                raise TypeError("BandClouds need imca=0; McICA (imca=1) "
-                                "takes McicaCloudsCompact")
-            if not isinstance(clouds, McicaCloudsCompact):
-                raise _unported(f"{type(clouds).__name__} clouds (only "
-                                "McicaCloudsCompact)", "Queue 1 item 10")
-            abi_t, abl_t, bounds_ok = cldprop.cloud_optics_bands_blocked(
-                clouds, static, iceflag=cfg.iceflag, liqflag=cfg.liqflag,
-                coeffs=coeffs)
-            cw_t = torch.stack([clouds.ciwp.t(), clouds.clwp.t()],
-                               dim=1).to(taut_t.dtype).contiguous()
-            fl = (rt_fluxes_blocked if cuda else rtrn.rt_fluxes_blocked)(
-                *rt_args, (clouds.cldfmc, cw_t, abi_t, abl_t))
+            if not isinstance(clouds, MCICA):
+                raise TypeError(f"McICA (imca=1) takes McicaCloudsCompact, "
+                                f"McicaCloudsBlocked or McicaClouds, got "
+                                f"{type(clouds).__name__}")
+            fl, bounds_ok = self._mcica(clouds, rt_args, sweeps, coeffs, dpl)
         else:
             if not isinstance(clouds, BandClouds):
                 raise TypeError(f"imca=0 takes BandClouds, got "
@@ -179,19 +184,62 @@ class RRTMGLW(torch.nn.Module):
                 iceflag=cfg.iceflag, liqflag=cfg.liqflag, coeffs=coeffs)
             cldfrac = clouds.cldfrac.to(taut_t.dtype)
             if cfg.icld == 1:
-                fl = (rt_fluxes_banded if cuda else rtrn.rt_fluxes_banded)(
-                    *rt_args, cldfrac.t().contiguous(), taucb_t)
+                fl = sweeps["banded"](*rt_args, cldfrac.t().contiguous(),
+                                      taucb_t, dplankbnd_dt=dpl)
             else:
                 rows = (overlap_rows if cuda
                         else rtrnmr.overlap_rows)(cldfrac.contiguous())
-                fl = (rt_fluxes_maxrand if cuda
-                      else rtrn.rt_fluxes_maxrand)(*rt_args, rows, taucb_t)
+                fl = sweeps["maxrand"](*rt_args, rows, taucb_t,
+                                       dplankbnd_dt=dpl)
+        duflx_dt = duflxc_dt = None
+        if cfg.idrv:
+            fl, ddt = fl
+            duflx_dt, duflxc_dt = ddt[0].t(), ddt[1].t()
         uflx, dflx, uflxc, dflxc = (f.t() for f in fl)
+        if duflx_dt is not None and prof.dtbound is not None:
+            # column-mode dtbound flux adjustment (rrtmg_lw.1col.f90:
+            # 587-610; the JAX model's radiation.py:388-399)
+            dtb = prof.dtbound.to(uflx.dtype)[:, None]
+            uflx = uflx + duflx_dt * dtb
+            uflxc = uflxc + duflxc_dt * dtb
         return Fluxes(uflx, dflx, rtrn.heating(uflx - dflx, prof.pz,
                                                self.heatfac),
                       uflxc, dflxc, rtrn.heating(uflxc - dflxc, prof.pz,
                                                  self.heatfac),
-                      cld_bounds_ok=bounds_ok)
+                      duflx_dt, duflxc_dt, bounds_ok)
+
+    def _mcica(self, clouds, rt_args, sweeps, coeffs, dpl):
+        """The McICA sweep, dispatched as the JAX blocked branch
+        (radiation.py:246-296): compact int8-mask clouds with inflag=2
+        stream into K1's compact mode; per-g arrays with inflag=2 into
+        its fused mode (a float-mask compact form too: its per-g products
+        are exact for any mask value); with inflag=0 cldprmc_blocked
+        forms the per-g cloud od for its cldf-odcld mode.  -> (the
+        sweep's output, bounds_ok)."""
+        cfg = self.config
+        static = self.static_tensors()
+        if isinstance(clouds, McicaCloudsCompact) and (
+                cfg.inflag != 2 or clouds.cldfmc.dtype != torch.int8):
+            clouds = clouds.to_blocked()
+        if isinstance(clouds, McicaClouds) and cfg.inflag == 2:
+            clouds = clouds.to_blocked()
+        if cfg.inflag == 0:
+            odcld_t, cldf_t, ok = cldprop.cldprmc_blocked(
+                clouds, static, inflag=0, iceflag=cfg.iceflag,
+                liqflag=cfg.liqflag, coeffs=coeffs)
+            return sweeps["cldf_od"](*rt_args, (cldf_t, odcld_t),
+                                     dplankbnd_dt=dpl), ok
+        abi_t, abl_t, ok = cldprop.cloud_optics_bands_blocked(
+            clouds, static, iceflag=cfg.iceflag, liqflag=cfg.liqflag,
+            coeffs=coeffs)
+        if isinstance(clouds, McicaCloudsCompact):
+            cw_t = torch.stack([clouds.ciwp.t(), clouds.clwp.t()],
+                               dim=1).to(rt_args[0].dtype).contiguous()
+            return sweeps["blocked"](*rt_args, (clouds.cldfmc, cw_t, abi_t,
+                                                abl_t), dplankbnd_dt=dpl), ok
+        return sweeps["fused"](*rt_args, (*(pad_g(x) for x in clouds[:4]),
+                                          abi_t, abl_t),
+                               dplankbnd_dt=dpl), ok
 
 
 def make_model(config: LWConfig = LWConfig(), device=None,

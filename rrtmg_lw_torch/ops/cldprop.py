@@ -7,6 +7,14 @@ absliq1 58x16) liquid.  ``_ice_liq_coeffs`` is the plain version of the
 cloud-coefficient kernel (``ops.cldcoef_cuda``).  Other flags raise
 ``NotImplementedError``.
 
+For McICA clouds with per-g arrays (``McicaClouds``,
+``McicaCloudsBlocked``; rrtmg_lw_cldprmc.f90:51-273) ``cldprmc`` and
+``cldprmc_blocked`` give the per-g cloud od: inflag 0 takes the input
+``taucmc``, inflag 2 the parameterized optics; inflag 1 raises
+``ValueError`` (grey optics are not available with McICA,
+cldprmc.f90:191).  ``cldprmc_od`` is that arithmetic, which the RT
+kernel's fused mode repeats inline.
+
 For per-band clouds (``BandClouds``, rrtmg_lw_cldprop.f90:50-295)
 ``cldprop`` and ``cldprop_banded_blocked`` cover the configurations
 whose cloud bands are statically the 16 spectral bands
@@ -21,9 +29,15 @@ The reference hard-stops on out-of-range particle sizes
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..types import McicaCloudsBlocked, _to_blocked, pad_g
+from .taumol import NG
+
 CLDMIN = 1.0e-20
+# the band of each g-point, 0-based (the static tables' ngb - 1)
+NGB0 = np.repeat(np.arange(len(NG)), NG)
 
 
 def _ice_params(iceflag):
@@ -148,6 +162,73 @@ def cldprop_banded_blocked(clouds, tables: dict, *, inflag: int,
     abl_t = torch.where(clwp_t == 0.0, 0.0, abl_t)
     tau_t = torch.where(act_t, ciwp_t * abi_t + clwp_t * abl_t, 0.0)
     return tau_t.contiguous(), bounds_ok(clouds.reic, clouds.relq, iceflag)
+
+
+def cldprmc_od(cldf, ciwp, clwp, tauc, absc_i, absc_l):
+    """Per-g in-cloud optical depth (rrtmg_lw_cldprmc.f90:128-142): the
+    water paths times their band's absorption coefficients where the
+    g-point holds cloud, else the input od ``tauc``; every argument has
+    the per-g shape (the coefficients already gathered by band)."""
+    absc_i = torch.where(ciwp == 0.0, 0.0, absc_i)
+    absc_l = torch.where(clwp == 0.0, 0.0, absc_l)
+    cwp = ciwp + clwp
+    active = (cldf >= CLDMIN) & ((cwp >= CLDMIN) | (tauc >= CLDMIN))
+    return torch.where(active, ciwp * absc_i + clwp * absc_l, tauc)
+
+
+def _check_mcica_inflag(inflag):
+    if inflag == 1:
+        raise ValueError("INFLAG=1 not available with McICA "
+                         "(cldprmc.f90:191)")
+    if inflag not in (0, 2):
+        raise ValueError(f"inflag must be 0, 1 or 2, got {inflag}")
+
+
+def cldprmc(clouds, tables: dict, *, inflag: int, iceflag: int,
+            liqflag: int):
+    """Per-g cloud optical depth (B, L, 140) and bounds_ok (B, L) of
+    ``McicaClouds``."""
+    _check_mcica_inflag(inflag)
+    if inflag == 0:
+        return clouds.taucmc, torch.ones(clouds.reicmc.shape,
+                                          dtype=torch.bool,
+                                          device=clouds.reicmc.device)
+    ai, al, ok = _ice_liq_coeffs(clouds.reicmc, clouds.relqmc, iceflag,
+                                 liqflag, tables)
+    return cldprmc_od(clouds.cldfmc, clouds.ciwpmc, clouds.clwpmc,
+                      clouds.taucmc, ai[..., NGB0], al[..., NGB0]), ok
+
+
+def cldprmc_blocked(clouds, tables: dict, *, inflag: int, iceflag: int,
+                    liqflag: int, coeffs=ice_liq_coeffs_blocked):
+    """``cldprmc`` in the RT kernel's padded (L, 144, B) layout:
+    (taucmc_t, cldfmc_t, bounds_ok), pad rows zero.  ``McicaClouds``
+    (B, L, 140) are relaid once; ``McicaCloudsBlocked`` are used as they
+    are (padded when they arrive with 140 rows).  ``coeffs`` as in
+    ``cldprop_banded_blocked``."""
+    _check_mcica_inflag(inflag)
+    t = pad_g if isinstance(clouds, McicaCloudsBlocked) else _to_blocked
+    cldf_t = t(clouds.cldfmc)
+    if inflag == 0:
+        return t(clouds.taucmc), cldf_t, torch.ones(
+            clouds.reicmc.shape, dtype=torch.bool,
+            device=clouds.reicmc.device)
+    abi_t, abl_t = coeffs(clouds.reicmc, clouds.relqmc, iceflag, liqflag,
+                          tables)
+    ok = bounds_ok(clouds.reicmc, clouds.relqmc, iceflag)
+    if isinstance(clouds, McicaCloudsBlocked):
+        # pad rows gather band 0; their cldfmc and taucmc are zero
+        G = clouds.cldfmc.shape[1]
+        ngb = torch.as_tensor(np.pad(NGB0, (0, G - len(NGB0))),
+                              device=abi_t.device)
+        tau = cldprmc_od(clouds.cldfmc, clouds.ciwpmc, clouds.clwpmc,
+                         clouds.taucmc, abi_t.index_select(1, ngb),
+                         abl_t.index_select(1, ngb))
+    else:
+        tau = cldprmc_od(clouds.cldfmc, clouds.ciwpmc, clouds.clwpmc,
+                         clouds.taucmc, abi_t.permute(2, 0, 1)[..., NGB0],
+                         abl_t.permute(2, 0, 1)[..., NGB0])
+    return t(tau), cldf_t, ok
 
 
 def cloud_optics_bands_blocked(clouds, tables: dict, *, iceflag: int,

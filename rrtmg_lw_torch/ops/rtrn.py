@@ -5,11 +5,17 @@ random overlap and McICA) for ``use_lut=False``: the closed-form exp
 with the two-division Planck transition ``1 - 2 (1/od - e/(1-e))``.
 Every quantity that does not depend on the running radiance is computed
 elementwise over (B, L, G) first; the sweeps are Python loops over
-levels carrying only the radiance (B, G).
+levels carrying only the radiance (B, G).  With idrv=1 (a
+``dplankbnd_dt`` given) the up sweep also carries the derivative of
+the upward radiance with respect to the surface temperature and its
+clear twin (rtrnmc.f90:495-527), as the JAX package computes them: in a
+cloudy layer the random-overlap blend of the cloudy and clear
+transmittances, in the maxrand sweep too.
 
 ``rt_sweep_blocked`` is the plain version of the RT sweep kernel
 (``ops.rtrn_cuda``): the same function on the kernel's layouts, with
-the per-column surface rows (``surf_rows``) as one input;
+the per-column surface rows (``surf_rows``) as one input, in its clear,
+compact McICA, per-g cldf-odcld and fused (cldprmc inline) modes;
 ``rt_sweep_vjp`` is the plain version of its backward kernel.
 ``rt_sweep_banded`` and ``rt_sweep_maxrand`` are the plain versions of
 the kernel's two deterministic-cloud modes: random overlap of per-band
@@ -20,7 +26,7 @@ overlap rows of ``ops.rtrnmr``).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,7 +34,7 @@ import torch
 from ..constants import (FLUXFAC, REC_6, SECDIFF_A0, SECDIFF_A1, SECDIFF_A2,
                          SECDIFF_FIXED, WTDIFF)
 from ._autograd import plain_vjp
-from .cldprop import CLDMIN
+from .cldprop import CLDMIN, cldprmc_od
 
 # a layer holds a per-band cloud where cldfrac >= CLOUD_GATE (icld 1-3;
 # the JAX package's gate_thresh, models/radiation.py:335)
@@ -48,6 +54,8 @@ class RTOut(NamedTuple):
     totuclfl: torch.Tensor
     totdclfl: torch.Tensor
     htrc: torch.Tensor
+    dtotuflux_dt: Optional[torch.Tensor] = None     # (B, L+1), idrv=1
+    dtotuclfl_dt: Optional[torch.Tensor] = None
 
 
 def _lut_unported():
@@ -136,20 +144,29 @@ def heating(fnet, pz, heatfac_val):
     return heatfac_val * (fnet[:, :-1] - fnet[:, 1:]) / dp
 
 
+def rt_out(fluxes, pz, heatfac_val):
+    """RTOut from (up, down, clear up, clear down[, d up/dT, d clear
+    up/dT]) (B, L+1)."""
+    up, dn, upc, dnc = fluxes[:4]
+    return RTOut(up, dn, heating(up - dn, pz, heatfac_val), upc, dnc,
+                 heating(upc - dnc, pz, heatfac_val), *fluxes[4:])
+
+
 def rt_random_overlap(taut, fracs, planklay, planklev, plankbnd, semiss,
                       pwvcm, pz, cldf_g, odcld_g, *, cloudy_lay, cld_gate,
-                      static, use_lut=False, heatfac_val):
-    """Random-overlap / McICA RT (rtrnmc.f90 semantics), idrv=0, all 16
-    bands.  Cloud inputs per g-point: cldf_g, odcld_g (B, L, G)."""
+                      static, use_lut=False, heatfac_val, idrv=0,
+                      dplankbnd_dt=None):
+    """Random-overlap / McICA RT (rtrnmc.f90 semantics), all 16 bands.
+    Cloud inputs per g-point: cldf_g, odcld_g (B, L, G).  idrv=1 also
+    gives d(up)/dT_sfc from ``dplankbnd_dt`` (B, 16)."""
     ngb0, wg = g_tables(static, taut.device, taut.dtype)
     if taut.shape[-1] != len(ngb0):
         raise ValueError("taut g-dim must cover all 140 g-points")
-    up, dn, upc, dnc = _sweep(taut, fracs, planklay, planklev, plankbnd,
-                              semiss, secdiff(pwvcm, taut.dtype), cldf_g,
-                              odcld_g, cloudy_lay, cld_gate, ngb0, wg,
-                              use_lut)
-    return RTOut(up, dn, heating(up - dn, pz, heatfac_val), upc, dnc,
-                 heating(upc - dnc, pz, heatfac_val))
+    return rt_out(_sweep(taut, fracs, planklay, planklev, plankbnd, semiss,
+                         secdiff(pwvcm, taut.dtype), cldf_g, odcld_g,
+                         cloudy_lay, cld_gate, ngb0, wg, use_lut,
+                         dplankbnd_dt if idrv else None),
+                  pz, heatfac_val)
 
 
 def g_tables(static, device, dtype):
@@ -160,9 +177,28 @@ def g_tables(static, device, dtype):
                 device, dtype))
 
 
+def _ddt_step(dlu, dclru, a, ato, cf, cly, twin):
+    """One layer of the d/dT up sweep (idrv=1; rtrnmc.f90:495-527): the
+    derivative dlu of the upward radiance and its clear twin dclru,
+    through the layer's gas transmittance 1 - a, and in a cloudy layer
+    (cly) through the blend of the cloudy (1 - ato) and clear ones with
+    the cloud fraction cf."""
+    dn = torch.where(cly, dlu * cf * (1.0 - ato) + dlu * (1.0 - cf) * (1.0 - a),
+                     dlu * (1.0 - a))
+    return dn, torch.where(twin, dclru * (1.0 - a), dn)
+
+
+def flux(rads, wg):
+    """L+1 x (B, G) radiances -> (B, L+1) fluxes."""
+    return torch.einsum("lbg,g->bl", torch.stack(rads), wg)
+
+
 def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
-           cldf_g, odcld_g, cloudy_lay, cld_gate, ngb0, wg, use_lut):
-    """Down and up sweeps -> (up, down, clear up, clear down) (B, L+1)."""
+           cldf_g, odcld_g, cloudy_lay, cld_gate, ngb0, wg, use_lut,
+           dplankbnd_dt=None):
+    """Down and up sweeps -> (up, down, clear up, clear down) (B, L+1),
+    and (d up/dT, d clear up/dT) when ``dplankbnd_dt`` (B, 16) is given
+    (idrv=1)."""
     dtype = taut.dtype
     B, L, G = taut.shape
     ngb0 = ngb0.long()
@@ -199,6 +235,10 @@ def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
     radlu = rad0 + reflect * radld
     radclru = rad0 + reflect * radclrd
     urad, curad = [radlu], [radclru]
+    idrv = dplankbnd_dt is not None
+    if idrv:
+        dlu = dclru = fracs[:, 0, :] * dplankbnd_dt[:, ngb0]
+        durad, dcurad = [dlu], [dclru]
 
     # ---- upward sweep (lev = 0 .. L-1), radiance at layer tops ----
     for lev in range(L):
@@ -211,19 +251,24 @@ def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
         radclru = torch.where(anyc, radclru + (bbu - radclru) * a, radlu)
         urad.append(radlu)
         curad.append(radclru)
+        if idrv:
+            dlu, dclru = _ddt_step(dlu, dclru, a, ato, cf[:, lev],
+                                   cly[:, lev], anyc)
+            durad.append(dlu)
+            dcurad.append(dclru)
 
-    def flux(rads):  # L+1 x (B, G) -> (B, L+1)
-        return torch.einsum("lbg,g->bl", torch.stack(rads), wg)
-
-    return flux(urad), flux(drad), flux(curad), flux(cdrad)
+    out = (flux(urad, wg), flux(drad, wg), flux(curad, wg),
+           flux(cdrad, wg))
+    return out + ((flux(durad, wg), flux(dcurad, wg)) if idrv else ())
 
 
 def _sweep_maxrand(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
-                   rows, odcld_g, ngb0, wg):
+                   rows, odcld_g, ngb0, wg, dplankbnd_dt=None):
     """Maximum-random overlap sweeps (rtrnmr.f90:591-615 down, 678-703
-    up) -> (up, down, clear up, clear down) (B, L+1).  rows (B, L, 16)
-    are ``rtrnmr.overlap_rows`` per column; odcld_g (B, L, G) the cloud
-    od of each g's band."""
+    up) -> (up, down, clear up, clear down) (B, L+1), and the d/dT pair
+    when ``dplankbnd_dt`` is given, as ``_sweep``.  rows (B, L, 16) are
+    ``rtrnmr.overlap_rows`` per column; odcld_g (B, L, G) the cloud od
+    of each g's band."""
     dtype = taut.dtype
     B, L, G = taut.shape
     ngb0 = ngb0.long()
@@ -279,17 +324,31 @@ def _sweep_maxrand(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
     ist_up = rows[..., ROW_IST_UP] > 0.0
     anyc = icl[:, :1]
     sub = (zero, zero, zero)
+    idrv = dplankbnd_dt is not None
+    if idrv:
+        dlu = dclru = fracs[:, 0, :] * dplankbnd_dt[:, ngb0]
+        durad, dcurad = [dlu], [dclru]
     for lev in range(L):
         bbu = pre["bbugas"][:, lev]
         rad, radc, sub = step(rad, radc, sub, lev, bbu, pre["bbutot"][:, lev],
                               bbu * at[:, lev], ist_up, ROWS_UP, anyc)
         urad.append(rad)
         curad.append(radc)
+        if idrv:
+            dlu, dclru = _ddt_step(dlu, dclru, at[:, lev], atot[:, lev],
+                                   cf[:, lev, None], cloudy[:, lev, None],
+                                   anyc)
+            durad.append(dlu)
+            dcurad.append(dclru)
 
-    def flux(rads):  # L+1 x (B, G) -> (B, L+1)
-        return torch.einsum("lbg,g->bl", torch.stack(rads), wg)
+    out = (flux(urad, wg), flux(drad, wg), flux(curad, wg),
+           flux(cdrad, wg))
+    return out + ((flux(durad, wg), flux(dcurad, wg)) if idrv else ())
 
-    return flux(urad), flux(drad), flux(curad), flux(cdrad)
+
+def _tb(x):
+    """(L, *, B) -> (B, L, *)."""
+    return x.permute(2, 0, 1)
 
 
 def compact_cloud_optics(mask_t, cw_t, abi_t, abl_t, ngb0, dtype):
@@ -299,79 +358,105 @@ def compact_cloud_optics(mask_t, cw_t, abi_t, abl_t, ngb0, dtype):
     products mask x per-layer water path, as the RT kernel forms them:
     ciwp_g = ciwp * mask, clwp_g = clwp * mask, taucmc = 0."""
     G = len(ngb0)
-
-    def tb(x):                                   # (L, *, B) -> (B, L, *)
-        return x.permute(2, 0, 1)
-
-    cldf_g = tb(mask_t[:, :G, :]).to(dtype)
-    ciwp = tb(cw_t[:, 0:1, :]).to(dtype) * cldf_g
-    clwp = tb(cw_t[:, 1:2, :]).to(dtype) * cldf_g
-    absc_i = tb(abi_t)[..., ngb0]
-    absc_l = tb(abl_t)[..., ngb0]
-    zero = torch.zeros_like(cldf_g)
-    absc_i = torch.where(ciwp == 0.0, zero, absc_i)
-    absc_l = torch.where(clwp == 0.0, zero, absc_l)
-    cwp = ciwp + clwp
-    active = (cldf_g >= CLDMIN) & (cwp >= CLDMIN)      # taucmc = 0
-    odcld_g = torch.where(active, ciwp * absc_i + clwp * absc_l, zero)
-    return cldf_g, odcld_g
+    cldf_g = _tb(mask_t[:, :G, :]).to(dtype)
+    ciwp = _tb(cw_t[:, 0:1, :]).to(dtype) * cldf_g
+    clwp = _tb(cw_t[:, 1:2, :]).to(dtype) * cldf_g
+    return cldf_g, cldprmc_od(cldf_g, ciwp, clwp, torch.zeros_like(cldf_g),
+                              _tb(abi_t)[..., ngb0], _tb(abl_t)[..., ngb0])
 
 
-def surf_rows(plankbnd, semiss, pwvcm, dtype):
-    """Per-column surface rows (3, 16, B) of the RT sweep: diffusivity
-    secant, emissivity, surface Planck source."""
-    return torch.stack([secdiff(pwvcm, dtype).t(), semiss.t(),
-                        plankbnd.t()]).to(dtype).contiguous()
+def fused_cloud_optics(cldf_t, ciwp_t, clwp_t, tauc_t, abi_t, abl_t, ngb0):
+    """The fused mode's per-g McICA arrays (L, 144, B) and per-band
+    coefficients (L, 16, B) -> cldf_g, odcld_g (B, L, 140): cldprmc
+    (inflag=2) as the RT kernel runs it inline."""
+    G = len(ngb0)
+    cldf, ciwp, clwp, tauc = (_tb(x[:, :G, :]) for x in
+                              (cldf_t, ciwp_t, clwp_t, tauc_t))
+    return cldf, cldprmc_od(cldf, ciwp, clwp, tauc, _tb(abi_t)[..., ngb0],
+                            _tb(abl_t)[..., ngb0])
+
+
+def surf_rows(plankbnd, semiss, pwvcm, dtype, dplankbnd_dt=None):
+    """Per-column surface rows of the RT sweep, (3, 16, B): diffusivity
+    secant, emissivity, surface Planck source; (4, 16, B) with the
+    Planck source's temperature derivative ``dplankbnd_dt`` (idrv=1)."""
+    rows = [secdiff(pwvcm, dtype).t(), semiss.t(), plankbnd.t()]
+    if dplankbnd_dt is not None:
+        rows.append(dplankbnd_dt.t())
+    return torch.stack(rows).to(dtype).contiguous()
+
+
+def _surf(surf):
+    """surf rows -> secd, semiss, plankbnd (B, 16) and dplankbnd_dt
+    (B, 16) or None."""
+    secd, semiss, plankbnd = (s.t() for s in surf[:3])
+    return secd, semiss, plankbnd, (surf[3].t() if len(surf) == 4
+                                    else None)
+
+
+def _g_clouds(cloud_fields, taut, ngb0):
+    """cldf_g, odcld_g (B, L, 140) and the per-g gate of the cloud
+    fields of ``rt_sweep_blocked``."""
+    if cloud_fields is None:
+        zero = torch.zeros_like(taut)
+        return zero, zero, torch.zeros(taut.shape, dtype=torch.bool,
+                                       device=taut.device)
+    if len(cloud_fields) == 4:
+        cldf_g, odcld_g = compact_cloud_optics(*cloud_fields, ngb0,
+                                               taut.dtype)
+    elif len(cloud_fields) == 6:
+        cldf_g, odcld_g = fused_cloud_optics(*cloud_fields, ngb0)
+    else:
+        cldf_g, odcld_g = (_tb(x[:, :len(ngb0), :]) for x in cloud_fields)
+    return cldf_g, odcld_g, cldf_g >= 0.5
 
 
 def rt_sweep_blocked(taut_t, fracs_t, planklay_t, planklev_t, surf, ngb0,
                      wg, cloud_fields=None):
     """Band-integrated fluxes (4, L+1, B) = [up, down, clear up, clear
-    down] from the kernel layouts: the plain version of the RT sweep
-    kernel (``rtrn_cuda.RTFn``).
+    down] from the kernel layouts, and rows 4-5 = [d up/dT, d clear
+    up/dT] when surf has the fourth row (idrv=1): the plain version of
+    the RT sweep kernel.
 
     taut_t, fracs_t (L, 140, B); planklay_t (L, 16, B); planklev_t
-    (L+1, 16, B); surf (3, 16, B) from ``surf_rows``; ngb0, wg the
-    ``g_tables`` of the static tables (140,).  cloud_fields is None
-    (clear sky) or the compact McICA fields (mask (L, 144, B), cw
-    (L, 2, B) = [ciwp, clwp], abi, abl (L, 16, B)); a g-point is
-    cloudy where mask >= 0.5."""
-    dtype = taut_t.dtype
-    taut = taut_t.permute(2, 0, 1)
-    if cloud_fields is None:
-        cldf_g = odcld_g = torch.zeros_like(taut)
-        gate = torch.zeros(taut.shape, dtype=torch.bool, device=taut.device)
-    else:
-        cldf_g, odcld_g = compact_cloud_optics(*cloud_fields, ngb0.long(),
-                                               dtype)
-        gate = cldf_g >= 0.5
-    secd, semiss, plankbnd = (s.t() for s in surf)
-    fluxes = _sweep(taut, fracs_t.permute(2, 0, 1),
-                    planklay_t.permute(2, 0, 1), planklev_t.permute(2, 0, 1),
+    (L+1, 16, B); surf (3|4, 16, B) from ``surf_rows``; ngb0, wg the
+    ``g_tables`` of the static tables (140,).  cloud_fields, one per
+    mode (a g-point is cloudy where its cloud fraction >= 0.5):
+      None: clear sky;
+      compact McICA: mask (L, 144, B), cw (L, 2, B) = [ciwp, clwp],
+        abi, abl (L, 16, B);
+      cldf-odcld: cldf_t, odcld_t (L, 144, B), the per-g cloud fraction
+        and in-cloud od (``cldprop.cldprmc_blocked``);
+      fused: cldf_t, ciwp_t, clwp_t, tauc_t (L, 144, B), abi, abl
+        (L, 16, B), cldprmc (inflag=2) on them."""
+    ngb0l = ngb0.long()
+    taut = _tb(taut_t)
+    cldf_g, odcld_g, gate = _g_clouds(cloud_fields, taut, ngb0l)
+    secd, semiss, plankbnd, dpl = _surf(surf)
+    fluxes = _sweep(taut, _tb(fracs_t), _tb(planklay_t), _tb(planklev_t),
                     plankbnd, semiss, secd, cldf_g, odcld_g,
-                    gate.any(dim=-1), gate, ngb0, wg, use_lut=False)
+                    gate.any(dim=-1), gate, ngb0, wg, use_lut=False,
+                    dplankbnd_dt=dpl)
     return torch.stack(fluxes).permute(0, 2, 1).contiguous()
 
 
 def _band_layouts(taut_t, fracs_t, planklay_t, planklev_t, surf, taucb_t,
                   ngb0):
     """(L, *, B) kernel inputs -> (B, L, *) sweep inputs, the band cloud
-    od expanded to g, and the surface rows."""
-    def tb(x):
-        return x.permute(2, 0, 1)
-    secd, semiss, plankbnd = (s.t() for s in surf)
-    return (tb(taut_t), tb(fracs_t), tb(planklay_t), tb(planklev_t),
-            plankbnd, semiss, secd, tb(taucb_t)[..., ngb0.long()])
+    od expanded to g, and the surface rows (``_surf``)."""
+    return (_tb(taut_t), _tb(fracs_t), _tb(planklay_t), _tb(planklev_t),
+            _tb(taucb_t)[..., ngb0.long()], *_surf(surf))
 
 
 def rt_sweep_banded(taut_t, fracs_t, planklay_t, planklev_t, surf, cldf_t,
                     taucb_t, ngb0, wg):
-    """Fluxes (4, L+1, B) under random overlap of per-band clouds
+    """Fluxes (4|6, L+1, B) under random overlap of per-band clouds
     (icld=1): the plain version of the RT kernel's banded mode.
     cldf_t (L, B) the cloud fraction, taucb_t (L, 16, B) the cloud od
     per band (``cldprop.cldprop_banded_blocked``); a layer is cloudy
-    where cldf >= CLOUD_GATE, for every g."""
-    taut, fracs, play, plev, plankbnd, semiss, secd, odcld_g = \
+    where cldf >= CLOUD_GATE, for every g.  surf as
+    ``rt_sweep_blocked``."""
+    taut, fracs, play, plev, odcld_g, secd, semiss, plankbnd, dpl = \
         _band_layouts(taut_t, fracs_t, planklay_t, planklev_t, surf,
                       taucb_t, ngb0)
     B, L, G = taut.shape
@@ -380,24 +465,37 @@ def rt_sweep_banded(taut_t, fracs_t, planklay_t, planklev_t, surf, cldf_t,
     fluxes = _sweep(taut, fracs, play, plev, plankbnd, semiss, secd,
                     cf[..., None].expand(B, L, G), odcld_g, cloudy,
                     cloudy[..., None].expand(B, L, G), ngb0, wg,
-                    use_lut=False)
+                    use_lut=False, dplankbnd_dt=dpl)
     return torch.stack(fluxes).permute(0, 2, 1).contiguous()
 
 
 def rt_sweep_maxrand(taut_t, fracs_t, planklay_t, planklev_t, surf, rows_t,
                      taucb_t, ngb0, wg):
-    """Fluxes (4, L+1, B) under maximum-random overlap (icld 2/3): the
-    plain version of the RT kernel's maxrand mode.  rows_t (L, 16, B)
-    from ``rtrnmr.overlap_rows``, taucb_t as ``rt_sweep_banded``."""
-    taut, fracs, play, plev, plankbnd, semiss, secd, odcld_g = \
+    """Fluxes (4|6, L+1, B) under maximum-random overlap (icld 2/3):
+    the plain version of the RT kernel's maxrand mode.  rows_t
+    (L, 16, B) from ``rtrnmr.overlap_rows``, taucb_t and surf as
+    ``rt_sweep_banded``."""
+    taut, fracs, play, plev, odcld_g, secd, semiss, plankbnd, dpl = \
         _band_layouts(taut_t, fracs_t, planklay_t, planklev_t, surf,
                       taucb_t, ngb0)
     fluxes = _sweep_maxrand(taut, fracs, play, plev, plankbnd, semiss, secd,
-                            rows_t.permute(2, 0, 1), odcld_g, ngb0, wg)
+                            _tb(rows_t), odcld_g, ngb0, wg,
+                            dplankbnd_dt=dpl)
     return torch.stack(fluxes).permute(0, 2, 1).contiguous()
 
 
-SWEEPS = {"banded": rt_sweep_banded, "maxrand": rt_sweep_maxrand}
+def _sweep_g(taut_t, fracs_t, planklay_t, planklev_t, surf, *rest):
+    """``rt_sweep_blocked`` with the per-g cloud fields spread out before
+    ngb0 and wg."""
+    *fields, ngb0, wg = rest
+    return rt_sweep_blocked(taut_t, fracs_t, planklay_t, planklev_t, surf,
+                            ngb0, wg, tuple(fields))
+
+
+# the plain versions of K1's modes behind ``rtrn_cuda.RTSweepFn``:
+# (taut_t, fracs_t, planklay_t, planklev_t, surf, *clouds, ngb0, wg)
+SWEEPS = {"banded": rt_sweep_banded, "maxrand": rt_sweep_maxrand,
+          "fused": _sweep_g, "cldf_od": _sweep_g}
 
 
 def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
@@ -414,32 +512,52 @@ def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
                      (ct,))
 
 
+def split_ddt(out):
+    """(4|6, L+1, B) -> the fluxes (4, L+1, B), or (fluxes, d/dT rows
+    (2, L+1, B)) when idrv=1: the return of every ``rt_fluxes_*``."""
+    return out if out.shape[0] == 4 else (out[:4], out[4:])
+
+
 def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
-                      semiss, pwvcm, ngb0, wg, cloud_fields=None):
+                      semiss, pwvcm, ngb0, wg, cloud_fields=None,
+                      dplankbnd_dt=None):
     """``rt_sweep_blocked`` with the surface rows formed from plankbnd,
-    semiss (B, 16) and pwvcm (B,): the plain version of
-    ``rtrn_cuda.rt_fluxes_blocked``."""
-    return rt_sweep_blocked(taut_t, fracs_t, planklay_t, planklev_t,
-                            surf_rows(plankbnd, semiss, pwvcm,
-                                      taut_t.dtype),
-                            ngb0, wg, cloud_fields)
+    semiss, dplankbnd_dt (B, 16; None for idrv=0) and pwvcm (B,), split
+    by ``split_ddt``: the plain version of ``rtrn_cuda.rt_fluxes_blocked``
+    (and of ``rt_fluxes_fused`` / ``rt_fluxes_cldf_od``, whose cloud
+    fields select those modes)."""
+    return split_ddt(rt_sweep_blocked(
+        taut_t, fracs_t, planklay_t, planklev_t,
+        surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype, dplankbnd_dt),
+        ngb0, wg, cloud_fields))
 
 
 def rt_fluxes_banded(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
-                     semiss, pwvcm, ngb0, wg, cldf_t, taucb_t):
-    """``rt_sweep_banded`` with the surface rows formed from plankbnd,
-    semiss (B, 16) and pwvcm (B,): the plain version of
+                     semiss, pwvcm, ngb0, wg, cldf_t, taucb_t,
+                     dplankbnd_dt=None):
+    """``rt_sweep_banded`` with the surface rows formed as in
+    ``rt_fluxes_blocked``: the plain version of
     ``rtrn_cuda.rt_fluxes_banded``."""
-    return rt_sweep_banded(taut_t, fracs_t, planklay_t, planklev_t,
-                           surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype),
-                           cldf_t, taucb_t, ngb0, wg)
+    return split_ddt(rt_sweep_banded(
+        taut_t, fracs_t, planklay_t, planklev_t,
+        surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype, dplankbnd_dt),
+        cldf_t, taucb_t, ngb0, wg))
 
 
 def rt_fluxes_maxrand(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
-                      semiss, pwvcm, ngb0, wg, rows_t, taucb_t):
+                      semiss, pwvcm, ngb0, wg, rows_t, taucb_t,
+                      dplankbnd_dt=None):
     """``rt_sweep_maxrand`` with the surface rows formed as in
-    ``rt_fluxes_banded``: the plain version of
+    ``rt_fluxes_blocked``: the plain version of
     ``rtrn_cuda.rt_fluxes_maxrand``."""
-    return rt_sweep_maxrand(taut_t, fracs_t, planklay_t, planklev_t,
-                            surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype),
-                            rows_t, taucb_t, ngb0, wg)
+    return split_ddt(rt_sweep_maxrand(
+        taut_t, fracs_t, planklay_t, planklev_t,
+        surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype, dplankbnd_dt),
+        rows_t, taucb_t, ngb0, wg))
+
+
+# the model's RT step per K1 mode, plain versions (``rtrn_cuda.WRAPPERS``
+# holds the kernels'); rt_fluxes_blocked's cloud fields select its mode
+FLUXES = {"blocked": rt_fluxes_blocked, "fused": rt_fluxes_blocked,
+          "cldf_od": rt_fluxes_blocked, "banded": rt_fluxes_banded,
+          "maxrand": rt_fluxes_maxrand}

@@ -2,16 +2,22 @@
 (K6), csrc/rtrn_bwd.cu.
 
 K1 replaces ``rrtmg_lw_tpu/ops/rtrn_pallas.py::_build_kernel.kernel``
-in its clear, compact-cloud, banded (icld=1) and maxrand (icld 2/3)
-modes (idrv=0); K6 replaces the JAX package's unrolled XLA backward of
-it (``ops/rtrn_bwd.py:259`` ``rt_bwd_fluxes``) in the clear and compact
-modes.  ``RTFn`` pairs them for autograd; ``RTBandFn`` holds the banded
-and maxrand modes, whose adjoint is not ported: on the card their
-backward raises.  On a CUDA tensor each wrapper launches its kernel (or
-raises); on a CPU tensor it runs the plain version
-(``rtrn.rt_sweep_blocked``, ``rtrn.rt_sweep_vjp``,
-``rtrn.rt_sweep_banded``, ``rtrn.rt_sweep_maxrand``) and, backward, its
-plain vjp.
+in all its modes: clear, compact-cloud, banded (icld=1), maxrand (icld
+2/3), fused (McICA per-g arrays, cldprmc inline) and cldf-odcld (McICA
+per-g cloud fraction and cloud od), each at idrv=0 or 1; K6 replaces
+the JAX package's unrolled XLA backward of it (``ops/rtrn_bwd.py:259``
+``rt_bwd_fluxes``) in the clear and compact modes.  ``RTFn`` pairs them
+for autograd; ``RTSweepFn`` holds the other four modes, whose adjoint is
+not ported: on the card their backward raises.  With idrv=1 (a fourth
+surface row, ``dplankbnd_dt``) each returns the fluxes and their
+derivatives with respect to the surface temperature (2, L+1, B); on the
+card a cotangent of the latter raises too.  On a CUDA tensor each
+wrapper launches its kernel (or raises); on a CPU tensor it runs the
+plain version (``rtrn.rt_sweep_blocked``, ``rtrn.rt_sweep_vjp``,
+``rtrn.SWEEPS``) and, backward, its plain vjp.
+
+Each wrapper counts its launches in ``.launches`` and those at idrv=1
+in ``.idrv.launches``.
 """
 
 from __future__ import annotations
@@ -24,11 +30,30 @@ from . import rtrn
 from ._autograd import plain_vjp
 
 # the kernel's mode argument (csrc/rtrn.cuh enum Mode)
-MODES = {"clear": 0, "compact": 1, "banded": 2, "maxrand": 3}
+MODES = {"clear": 0, "compact": 1, "banded": 2, "maxrand": 3, "fused": 4,
+         "cldf_od": 5}
+# the (L, *, B) cloud inputs of each mode after the sweep's own inputs:
+# name and g/band/row count (None: (L, B))
+CLOUD_INPUTS = {
+    "banded": (("cldf_t", None), ("taucb_t", 16)),
+    "maxrand": (("rows_t", rtrn.NROWS), ("taucb_t", 16)),
+    "fused": (("cldf_t", NGPT_PAD), ("ciwp_t", NGPT_PAD),
+              ("clwp_t", NGPT_PAD), ("tauc_t", NGPT_PAD), ("abi_t", 16),
+              ("abl_t", 16)),
+    "cldf_od": (("cldf_t", NGPT_PAD), ("odcld_t", NGPT_PAD)),
+}
+_UNPORTED_ADJOINT = "see ROADMAP.md Queue 1 item 9"
+
+
+class Launches:
+    """A launch counter: ``launches`` goes up by one per kernel launch."""
+
+    def __init__(self):
+        self.launches = 0
 
 
 def _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t,
-           mask, ngb0, wg):
+           mask, ngb0, wg, surf_rows=(3, 4)):
     L, _, B = taut_t.shape
     dev = taut_t.device
     f32 = torch.float32
@@ -36,7 +61,8 @@ def _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t,
     _build.check(fracs_t, "fracs_t", f32, (L, NGPT, B), dev)
     _build.check(planklay_t, "planklay_t", f32, (L, 16, B), dev)
     _build.check(planklev_t, "planklev_t", f32, (L + 1, 16, B), dev)
-    _build.check(surf, "surf", f32, (3, 16, B), dev)
+    nsurf = surf.shape[0] if surf.shape[0] in surf_rows else surf_rows[0]
+    _build.check(surf, "surf", f32, (nsurf, 16, B), dev)
     _build.check(ngb0, "ngb0", torch.int32, (NGPT,), dev)
     _build.check(wg, "wg", f32, (NGPT,), dev)
     if mask is not None:
@@ -47,115 +73,209 @@ def _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t,
     return L, B
 
 
+def _launch(mode, wrapper, taut_t, fracs_t, planklay_t, planklev_t, surf,
+            ngb0, wg, mask=None, cw=None, abi=None, abl=None, cld=None,
+            taucb=None, cldf=None, ciwp=None, clwp=None, tauc=None):
+    """K1 in ``mode``; counted on ``wrapper``.  -> (4|6, L+1, B)."""
+    L, _, B = taut_t.shape
+    idrv = surf.shape[0] == 4
+    out = torch.empty((6 if idrv else 4, L + 1, B), dtype=torch.float32,
+                      device=taut_t.device)
+    _build.launch("rrtm_rt", taut_t, fracs_t, planklay_t, planklev_t, surf,
+                  ngb0, wg, mask, cw, abi, abl, cld, taucb, cldf, ciwp, clwp,
+                  tauc, out, L, B, MODES[mode], int(idrv))
+    wrapper.launches += 1
+    if idrv:
+        wrapper.idrv.launches += 1
+    return out
+
+
+def _full_ct(ct, ct_ddt, shape, like):
+    """The (6, L+1, B) cotangent of an idrv=1 sweep, zeros where None."""
+    def z(n):
+        return torch.zeros((n,) + tuple(shape[1:]), dtype=like.dtype,
+                           device=like.device)
+    return torch.cat([z(4) if ct is None else ct,
+                      z(2) if ct_ddt is None else ct_ddt])
+
+
 class RTFn(torch.autograd.Function):
     """(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
     abl_t, mask, ngb0, wg) -> fluxes (4, L+1, B); the four cloud inputs
-    are None for clear sky.  Backward K6; mask, ngb0 and wg get None."""
+    are None for clear sky.  With a (4, 16, B) surf (idrv=1): (fluxes,
+    d/dT (2, L+1, B)).  Backward K6 on the fluxes' cotangent (the d/dT
+    row of surf gets zero); mask, ngb0 and wg get None.  On the card a
+    cotangent of d/dT raises."""
 
     @staticmethod
     def forward(ctx, taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
                 abi_t, abl_t, mask, ngb0, wg):
         args = (taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
                 abl_t, mask, ngb0, wg)
+        ctx.set_materialize_grads(False)
+        ctx.device_type = taut_t.device.type
         if any(ctx.needs_input_grad[:8]):
             ctx.save_for_backward(*args)
         if taut_t.device.type == "cpu":
             cf = None if mask is None else (mask, cw_t, abi_t, abl_t)
-            return rtrn.rt_sweep_blocked(taut_t, fracs_t, planklay_t,
-                                         planklev_t, surf, ngb0, wg, cf)
-        L, B = _check(*args)
-        out = torch.empty((4, L + 1, B), dtype=torch.float32,
-                          device=taut_t.device)
-        _build.launch("rrtm_rt", taut_t, fracs_t, planklay_t, planklev_t,
-                      surf, ngb0, wg, mask, cw_t, abi_t, abl_t, None, None,
-                      out, L, B, MODES["clear" if mask is None else "compact"])
-        rt_fluxes_blocked.launches += 1
-        return out
+            out = rtrn.rt_sweep_blocked(taut_t, fracs_t, planklay_t,
+                                        planklev_t, surf, ngb0, wg, cf)
+        else:
+            _check(*args)
+            out = _launch("clear" if mask is None else "compact",
+                          rt_fluxes_blocked, taut_t, fracs_t, planklay_t,
+                          planklev_t, surf, ngb0, wg, mask, cw_t, abi_t,
+                          abl_t)
+        return rtrn.split_ddt(out)
 
     @staticmethod
-    def backward(ctx, ct):
-        grads = rt_sweep_vjp(*ctx.saved_tensors, ct.contiguous(),
-                             needs=ctx.needs_input_grad[:8])
+    def backward(ctx, ct, ct_ddt=None):
+        x = list(ctx.saved_tensors)
+        nsurf = x[4].shape[0]
+        if ct_ddt is None:
+            if ct is None:
+                return (None,) * 11
+            x[4] = x[4][:3]             # the fluxes do not read row 3
+        elif ctx.device_type != "cpu":
+            raise NotImplementedError(
+                "gradients of duflx_dt / duflxc_dt (idrv=1) on the card: "
+                "the adjoint of the d/dT sweep is not ported yet; "
+                + _UNPORTED_ADJOINT)
+        else:
+            ct = _full_ct(ct, ct_ddt, (6,) + tuple(ct_ddt.shape[1:]),
+                          ct_ddt)
+        grads = list(rt_sweep_vjp(*x, ct.contiguous(),
+                                  needs=ctx.needs_input_grad[:8]))
+        if grads[4] is not None and grads[4].shape[0] < nsurf:
+            grads[4] = torch.nn.functional.pad(grads[4], (0, 0, 0, 0, 0, 1))
         return (*grads, None, None, None)
 
 
 def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
-                      semiss, pwvcm, ngb0, wg, cloud_fields=None):
-    """Band-integrated fluxes (4, L+1, B) = [up, down, clear up, clear
-    down]; arguments as ``rtrn.rt_fluxes_blocked`` (the compact mask
-    must be int8 here).  The surface rows are formed outside ``RTFn``,
-    so autograd differentiates the diffusivity secant."""
-    surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype)
+                      semiss, pwvcm, ngb0, wg, cloud_fields=None,
+                      dplankbnd_dt=None):
+    """K1 clear or compact: band-integrated fluxes (4, L+1, B) = [up,
+    down, clear up, clear down], and with ``dplankbnd_dt`` (B, 16)
+    (idrv=1) a pair (fluxes, d/dT (2, L+1, B)); arguments as
+    ``rtrn.rt_fluxes_blocked`` (cloud_fields None or the compact McICA
+    4-tuple; the compact mask must be int8 here).  The surface rows are
+    formed outside ``RTFn``, so autograd differentiates the diffusivity
+    secant."""
+    surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype,
+                          dplankbnd_dt)
     cw_t = abi_t = abl_t = mask = None
     if cloud_fields is not None:
+        if len(cloud_fields) != 4:
+            raise ValueError("rt_fluxes_blocked takes the compact McICA "
+                             "fields; per-g arrays go to rt_fluxes_fused "
+                             "or rt_fluxes_cldf_od")
         mask, cw_t, abi_t, abl_t = cloud_fields
     return RTFn.apply(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
                       abi_t, abl_t, mask, ngb0, wg)
 
 
-class RTBandFn(torch.autograd.Function):
-    """(mode, taut_t, fracs_t, planklay_t, planklev_t, surf, cld, taucb_t,
-    ngb0, wg) -> fluxes (4, L+1, B), K1 in the banded mode (cld: cloud
-    fraction (L, B)) or the maxrand mode (cld: overlap rows (L, 16, B)).
-    Backward: the plain vjp on the CPU; on the card it raises."""
+class RTSweepFn(torch.autograd.Function):
+    """(mode, ngb0, wg, taut_t, fracs_t, planklay_t, planklev_t, surf,
+    *clouds) -> fluxes (4, L+1, B), or with a (4, 16, B) surf (fluxes,
+    d/dT (2, L+1, B)): K1 in the banded, maxrand, fused or cldf-odcld
+    mode, ``clouds`` as ``CLOUD_INPUTS[mode]``.  Backward: the plain
+    vjp on the CPU; on the card it raises."""
 
     @staticmethod
-    def forward(ctx, mode, taut_t, fracs_t, planklay_t, planklev_t, surf,
-                cld, taucb_t, ngb0, wg):
-        ctx.mode, ctx.device_type = mode, taut_t.device.type
-        args = (taut_t, fracs_t, planklay_t, planklev_t, surf, cld, taucb_t,
-                ngb0, wg)
-        if taut_t.device.type == "cpu":
+    def forward(ctx, mode, ngb0, wg, *x):
+        ctx.mode, ctx.device_type = mode, x[0].device.type
+        ctx.set_materialize_grads(False)
+        if x[0].device.type == "cpu":
             # the plain vjp reads them; on the card backward only raises
-            if any(ctx.needs_input_grad[1:8]):
-                ctx.save_for_backward(*args)
-            return rtrn.SWEEPS[mode](*args)
-        L, B = _check(*args[:5], None, None, None, None, ngb0, wg)
-        dev = taut_t.device
-        rows = (L, B) if mode == "banded" else (L, rtrn.NROWS, B)
-        _build.check(cld, "cldf_t" if mode == "banded" else "rows_t",
-                     torch.float32, rows, dev)
-        _build.check(taucb_t, "taucb_t", torch.float32, (L, 16, B), dev)
-        out = torch.empty((4, L + 1, B), dtype=torch.float32, device=dev)
-        _build.launch("rrtm_rt", taut_t, fracs_t, planklay_t, planklev_t,
-                      surf, ngb0, wg, None, None, None, None, cld, taucb_t,
-                      out, L, B, MODES[mode])
-        BAND_WRAPPERS[mode].launches += 1
-        return out
+            if any(ctx.needs_input_grad[3:]):
+                ctx.save_for_backward(ngb0, wg, *x)
+            return rtrn.split_ddt(rtrn.SWEEPS[mode](*x, ngb0, wg))
+        L, B = _check(*x[:5], None, None, None, None, ngb0, wg)
+        clouds = x[5:]
+        for t, (name, n) in zip(clouds, CLOUD_INPUTS[mode], strict=True):
+            _build.check(t, name, torch.float32,
+                         (L, B) if n is None else (L, n, B), x[0].device)
+        kw = (dict(cld=clouds[0], taucb=clouds[1])
+              if mode in ("banded", "maxrand") else
+              dict(cldf=clouds[0], tauc=clouds[1]) if mode == "cldf_od" else
+              dict(cldf=clouds[0], ciwp=clouds[1], clwp=clouds[2],
+                   tauc=clouds[3], abi=clouds[4], abl=clouds[5]))
+        return rtrn.split_ddt(_launch(mode, WRAPPERS[mode], *x[:5], ngb0, wg,
+                                      **kw))
 
     @staticmethod
-    def backward(ctx, ct):
+    def backward(ctx, ct, ct_ddt=None):
         if ctx.device_type != "cpu":
             raise NotImplementedError(
-                f"gradients through the {ctx.mode} RT sweep (deterministic "
-                "clouds, imca=0) on the card: its adjoint kernel is not "
-                "ported yet; see ROADMAP.md Queue 1 item 9")
-        x = ctx.saved_tensors
-        ngb0, wg = x[7:]
+                f"gradients through the {ctx.mode} RT sweep on the card: "
+                "its adjoint kernel is not ported yet; " + _UNPORTED_ADJOINT)
+        ngb0, wg, *x = ctx.saved_tensors
+        if x[4].shape[0] == 4:
+            like = ct if ct is not None else ct_ddt
+            ct = _full_ct(ct, ct_ddt, (6,) + tuple(like.shape[1:]), like)
         grads = plain_vjp(lambda *a: rtrn.SWEEPS[ctx.mode](*a, ngb0, wg),
-                          x[:7], ctx.needs_input_grad[1:8], (ct,))
-        return (None, *grads, None, None)
+                          x, ctx.needs_input_grad[3:], (ct,))
+        return (None, None, None, *grads)
+
+
+def _sweep(mode, taut_t, fracs_t, planklay_t, planklev_t, plankbnd, semiss,
+           pwvcm, ngb0, wg, clouds, dplankbnd_dt):
+    surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype,
+                          dplankbnd_dt)
+    return RTSweepFn.apply(mode, ngb0, wg, taut_t, fracs_t, planklay_t,
+                           planklev_t, surf, *clouds)
 
 
 def rt_fluxes_banded(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
-                     semiss, pwvcm, ngb0, wg, cldf_t, taucb_t):
+                     semiss, pwvcm, ngb0, wg, cldf_t, taucb_t,
+                     dplankbnd_dt=None):
     """K1 banded mode: fluxes (4, L+1, B) under random overlap of
-    per-band clouds; arguments as ``rtrn.rt_fluxes_banded``."""
-    surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype)
-    return RTBandFn.apply("banded", taut_t, fracs_t, planklay_t, planklev_t,
-                          surf, cldf_t, taucb_t, ngb0, wg)
+    per-band clouds (and d/dT with ``dplankbnd_dt``); arguments as
+    ``rtrn.rt_fluxes_banded``."""
+    return _sweep("banded", taut_t, fracs_t, planklay_t, planklev_t,
+                  plankbnd, semiss, pwvcm, ngb0, wg, (cldf_t, taucb_t),
+                  dplankbnd_dt)
 
 
 def rt_fluxes_maxrand(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
-                      semiss, pwvcm, ngb0, wg, rows_t, taucb_t):
-    """K1 maxrand mode: fluxes (4, L+1, B) under maximum-random overlap;
-    arguments as ``rtrn.rt_fluxes_maxrand``."""
-    surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype)
-    return RTBandFn.apply("maxrand", taut_t, fracs_t, planklay_t,
-                          planklev_t, surf, rows_t, taucb_t, ngb0, wg)
+                      semiss, pwvcm, ngb0, wg, rows_t, taucb_t,
+                      dplankbnd_dt=None):
+    """K1 maxrand mode: fluxes (4, L+1, B) under maximum-random overlap
+    (and d/dT with ``dplankbnd_dt``); arguments as
+    ``rtrn.rt_fluxes_maxrand``."""
+    return _sweep("maxrand", taut_t, fracs_t, planklay_t, planklev_t,
+                  plankbnd, semiss, pwvcm, ngb0, wg, (rows_t, taucb_t),
+                  dplankbnd_dt)
 
 
-BAND_WRAPPERS = {"banded": rt_fluxes_banded, "maxrand": rt_fluxes_maxrand}
+def rt_fluxes_fused(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
+                    semiss, pwvcm, ngb0, wg, cloud_fields,
+                    dplankbnd_dt=None):
+    """K1 fused mode: fluxes (4, L+1, B) of McICA per-g arrays with
+    cldprmc (inflag=2) inside the kernel (and d/dT with
+    ``dplankbnd_dt``).  cloud_fields = (cldf_t, ciwp_t, clwp_t, tauc_t)
+    (L, 144, B) and (abi_t, abl_t) (L, 16, B), as
+    ``rtrn.rt_sweep_blocked``."""
+    return _sweep("fused", taut_t, fracs_t, planklay_t, planklev_t,
+                  plankbnd, semiss, pwvcm, ngb0, wg, cloud_fields,
+                  dplankbnd_dt)
+
+
+def rt_fluxes_cldf_od(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
+                      semiss, pwvcm, ngb0, wg, cloud_fields,
+                      dplankbnd_dt=None):
+    """K1 cldf-odcld mode: fluxes (4, L+1, B) of McICA per-g cloud
+    fraction and cloud od, cloud_fields = (cldf_t, odcld_t) (L, 144, B)
+    from ``cldprop.cldprmc_blocked`` (and d/dT with ``dplankbnd_dt``)."""
+    return _sweep("cldf_od", taut_t, fracs_t, planklay_t, planklev_t,
+                  plankbnd, semiss, pwvcm, ngb0, wg, cloud_fields,
+                  dplankbnd_dt)
+
+
+# the model's RT step per K1 mode (``rtrn.FLUXES`` holds the plain ones)
+WRAPPERS = {"blocked": rt_fluxes_blocked, "fused": rt_fluxes_fused,
+            "cldf_od": rt_fluxes_cldf_od, "banded": rt_fluxes_banded,
+            "maxrand": rt_fluxes_maxrand}
 
 
 def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
@@ -168,7 +288,7 @@ def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
                                  surf, cw_t, abi_t, abl_t, mask, ngb0, wg,
                                  ct, needs)
     L, B = _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
-                  abl_t, mask, ngb0, wg)
+                  abl_t, mask, ngb0, wg, surf_rows=(3,))
     dev = taut_t.device
     _build.check(ct, "ct", torch.float32, (4, L + 1, B), dev)
     cloudy = mask is not None
@@ -187,7 +307,7 @@ def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
     return tuple(g if n else None for g, n in zip(grads, needs))
 
 
-rt_fluxes_blocked.launches = 0
-rt_fluxes_banded.launches = 0
-rt_fluxes_maxrand.launches = 0
+for _w in WRAPPERS.values():
+    _w.launches = 0
+    _w.idrv = Launches()
 rt_sweep_vjp.launches = 0

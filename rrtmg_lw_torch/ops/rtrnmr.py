@@ -1,7 +1,7 @@
 """Maximum-random cloud overlap: the per-column overlap factors.
 
 Port of ``rrtmg_lw_tpu.ops.rtrnmr`` (rrtmg_lw_rtrnmr.f90:51-806) for
-idrv=0 and ``use_lut=False``.  Two per-column passes compute the
+``use_lut=False``.  Two per-column passes compute the
 clear/cloud transfer factors between adjacent layers in each sweep
 direction (:347-428 up, :430-506 down), carrying the (rat1, rat2) state
 across contiguous cloudy blocks; the radiance recursion
@@ -129,16 +129,16 @@ def overlap_rows(cldfrac):
 
 def rt_maxrandom(taut, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
                  pz, cldfrac, odcld_g, *, static, heatfac_val,
-                 use_lut=False):
-    """Maximum-random overlap RT (rtrnmr.f90), idrv=0, all 16 bands, in
-    the (B, L, G) layout: cldfrac (B, L) per layer, odcld_g (B, L, G)
-    the per-band cloud od expanded by band of g."""
+                 use_lut=False, idrv=0, dplankbnd_dt=None):
+    """Maximum-random overlap RT (rtrnmr.f90), all 16 bands, in the
+    (B, L, G) layout: cldfrac (B, L) per layer, odcld_g (B, L, G) the
+    per-band cloud od expanded by band of g.  idrv=1 also gives
+    d(up)/dT_sfc from ``dplankbnd_dt`` (B, 16)."""
     if use_lut:
         raise rtrn._lut_unported()
     ngb0, wg = rtrn.g_tables(static, taut.device, taut.dtype)
     rows = overlap_rows(cldfrac).permute(2, 0, 1)      # (B, L, 16)
-    up, dn, upc, dnc = rtrn._sweep_maxrand(
+    return rtrn.rt_out(rtrn._sweep_maxrand(
         taut, fracs, planklay, planklev, plankbnd, semiss,
-        rtrn.secdiff(pwvcm, taut.dtype), rows, odcld_g, ngb0, wg)
-    return rtrn.RTOut(up, dn, rtrn.heating(up - dn, pz, heatfac_val), upc,
-                      dnc, rtrn.heating(upc - dnc, pz, heatfac_val))
+        rtrn.secdiff(pwvcm, taut.dtype), rows, odcld_g, ngb0, wg,
+        dplankbnd_dt if idrv else None), pz, heatfac_val)

@@ -4,8 +4,10 @@ Same fields and layouts as ``rrtmg_lw_tpu.types`` so the two packages
 can be compared array by array:
   * leading axis = columns, then layers (bottom -> top), g-points or
     bands last: (B, L), (B, L+1), (B, L, G);
-  * the compact McICA mask keeps the generator's g-major (L, 144, B)
-    layout (the reference's cldfmcl(ngptlw, ncol, nlay)).
+  * the McICA per-g arrays of ``McicaCloudsBlocked`` and the compact
+    mask keep the generator's g-major (L, 144, B) layout (the
+    reference's cldfmcl(ngptlw, ncol, nlay)), g zero-padded 140 -> 144;
+    ``McicaClouds`` holds them (B, L, 140).
 
 ``from_numpy`` converts host numpy arrays (e.g. from
 ``rrtmg_lw_torch.utils.synthetic``) to tensors on ``device`` (the CUDA
@@ -82,8 +84,60 @@ class Profile(NamedTuple):
     wx: torch.Tensor           # (B, L, 4) cross-section amounts * 1e-20
     pwvcm: torch.Tensor        # (B,)
     taua: torch.Tensor         # (B, L, NBANDS)
+    dtbound: Optional[torch.Tensor] = None  # (B,) surface dT, idrv adjust
 
     from_numpy = classmethod(_from_numpy)
+
+
+def pad_g(x):
+    """(L, G, B) per-g array -> contiguous (L, NGPT_PAD, B), zero rows
+    appended where G < NGPT_PAD."""
+    if x.shape[1] != NGPT_PAD:
+        x = torch.nn.functional.pad(x, (0, 0, 0, NGPT_PAD - x.shape[1]))
+    return x.contiguous()
+
+
+def _to_blocked(x):
+    """(B, L, G) -> (L, NGPT_PAD, B), g zero-padded."""
+    return pad_g(x.permute(1, 2, 0))
+
+
+class McicaClouds(NamedTuple):
+    """Per-g-point stochastic cloud state (McICA), batch layout."""
+    cldfmc: torch.Tensor       # (B, L, NGPT) 0/1 cloud fraction
+    ciwpmc: torch.Tensor       # (B, L, NGPT) in-cloud ice water path
+    clwpmc: torch.Tensor       # (B, L, NGPT)
+    taucmc: torch.Tensor       # (B, L, NGPT) in-cloud optical depth
+    reicmc: torch.Tensor       # (B, L)
+    relqmc: torch.Tensor       # (B, L)
+
+    from_numpy = classmethod(_from_numpy)
+
+    def to_blocked(self) -> "McicaCloudsBlocked":
+        """The per-g arrays relaid once to (L, NGPT_PAD, B), as
+        ``cldprop.cldprmc_blocked`` relays batch input."""
+        return McicaCloudsBlocked(*(_to_blocked(x) for x in self[:4]),
+                                  self.reicmc, self.relqmc)
+
+
+class McicaCloudsBlocked(NamedTuple):
+    """McicaClouds with the per-g arrays in the RT kernel's padded
+    (L, NGPT_PAD, B) layout (pad rows zero), as a host pipeline that
+    stores sub-columns g-major like the reference's
+    cldfmcl(ngptlw, ncol, nlay) (rrtmg_lw_rad.f90:117) produces them."""
+    cldfmc: torch.Tensor       # (L, NGPT_PAD, B) 0/1 cloud fraction
+    ciwpmc: torch.Tensor       # (L, NGPT_PAD, B) in-cloud ice water path
+    clwpmc: torch.Tensor       # (L, NGPT_PAD, B)
+    taucmc: torch.Tensor       # (L, NGPT_PAD, B) in-cloud optical depth
+    reicmc: torch.Tensor       # (B, L)
+    relqmc: torch.Tensor       # (B, L)
+
+    from_numpy = classmethod(_from_numpy)
+
+    def to_batch(self) -> McicaClouds:
+        """Relayout back to (B, L, NGPT)."""
+        return McicaClouds(*(x[:, :NGPT, :].permute(2, 0, 1)
+                             for x in self[:4]), self.reicmc, self.relqmc)
 
 
 class McicaCloudsCompact(NamedTuple):
@@ -98,6 +152,15 @@ class McicaCloudsCompact(NamedTuple):
     relqmc: torch.Tensor       # (B, L)
 
     from_numpy = classmethod(_from_numpy)
+
+    def to_blocked(self) -> McicaCloudsBlocked:
+        """Materialize the per-g products (mask x per-layer path, taucmc
+        zero) in the working dtype of the water paths."""
+        m = self.cldfmc.to(self.ciwp.dtype)
+        ci = self.ciwp.t()[:, None, :] * m
+        cl = self.clwp.t()[:, None, :] * m
+        return McicaCloudsBlocked(m, ci, cl, torch.zeros_like(m),
+                                  self.reicmc, self.relqmc)
 
 
 class BandClouds(NamedTuple):
@@ -167,6 +230,8 @@ class Fluxes(NamedTuple):
     uflxc: torch.Tensor        # (B, L+1) clear-sky
     dflxc: torch.Tensor
     hrc: torch.Tensor
+    duflx_dt: Optional[torch.Tensor] = None   # (B, L+1), idrv=1
+    duflxc_dt: Optional[torch.Tensor] = None  # (B, L+1), idrv=1
     # per-(column, layer) False where cloud particle sizes were outside
     # the parameterization range and were clamped (the reference stops
     # instead, rrtmg_lw_cldprmc.f90:204-253); None for clear sky

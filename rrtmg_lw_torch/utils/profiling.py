@@ -22,45 +22,86 @@ import json
 import pathlib
 import statistics
 import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 NCOL = 16384            # columns of every cell
-# cell -> (icld, imca, cloud generator, layers, gradient step)
-CELLS = {"clear": (0, 1, None, 60, False),
-         "mcica_cloudy": (2, 1, "mcica", 60, False),
-         "band_cloudy": (1, 0, "band", 60, False),
-         "maxrand_cloudy": (2, 0, "band", 60, False),
-         "mcica_cloudy_deep": (2, 1, "mcica", 140, False),
-         "mcica_cloudy_grad": (2, 1, "mcica", 60, True),
-         "clear_grad": (0, 1, None, 60, True)}
+
+
+class Cell(NamedTuple):
+    icld: int
+    imca: int
+    clouds: Optional[str]      # cloud generator (``cell_inputs``)
+    nlay: int
+    grad: bool = False         # the gradient step
+    inflag: int = 2
+    idrv: int = 0
+
+    def config(self, **kw):
+        """The cell's LWConfig (float32, no lookup tables)."""
+        from .. import LWConfig
+        return LWConfig(icld=self.icld, imca=self.imca, inflag=self.inflag,
+                        idrv=self.idrv, dtype="float32",
+                        use_lut=False).replace(**kw)
+
+
+CELLS = {"clear": Cell(0, 1, None, 60),
+         "mcica_cloudy": Cell(2, 1, "mcica", 60),
+         "band_cloudy": Cell(1, 0, "band", 60),
+         "maxrand_cloudy": Cell(2, 0, "band", 60),
+         "mcica_blocked": Cell(2, 1, "mcica_blocked", 60),
+         "mcica_tauc": Cell(2, 1, "mcica_tauc", 60, inflag=0),
+         "clear_idrv": Cell(0, 1, None, 60, idrv=1),
+         "mcica_cloudy_idrv": Cell(2, 1, "mcica", 60, idrv=1),
+         "maxrand_cloudy_idrv": Cell(2, 0, "band", 60, idrv=1),
+         "band_cloudy_idrv": Cell(1, 0, "band", 60, idrv=1),
+         "mcica_blocked_idrv": Cell(2, 1, "mcica_blocked", 60, idrv=1),
+         "mcica_tauc_idrv": Cell(2, 1, "mcica_tauc", 60, inflag=0, idrv=1),
+         "mcica_cloudy_deep": Cell(2, 1, "mcica", 140),
+         "mcica_cloudy_grad": Cell(2, 1, "mcica", 60, True),
+         "clear_grad": Cell(0, 1, None, 60, True)}
 # fragment of the demangled symbol -> kernel (csrc/*.cu)
-KERNEL_SYMBOLS = (("rt_kernel<0>", "K1 clear"), ("rt_kernel<1>",
-                  "K1 compact"), ("rt_kernel<2>", "K1 banded"),
-                  ("rt_kernel<3>", "K1 maxrand"), ("taumol_kernel", "K2"),
-                  ("planck_kernel", "K3"), ("cldcoef_kernel", "K4"),
-                  ("overlap_kernel", "overlap"), ("rt_bwd_kernel", "K6"),
-                  ("taumol_bwd_kernel", "K5"), ("planck_bwd_kernel", "K3b"))
+KERNEL_SYMBOLS = tuple(
+    (f"rt_kernel<{m}, {b}>", f"K1 {name}{' idrv' if b == 'true' else ''}")
+    for m, name in enumerate(("clear", "compact", "banded", "maxrand",
+                              "fused", "cldf_od"))
+    for b in ("false", "true")) + (
+    ("taumol_kernel", "K2"), ("planck_kernel", "K3"),
+    ("cldcoef_kernel", "K4"), ("overlap_kernel", "overlap"),
+    ("rt_bwd_kernel", "K6"), ("taumol_bwd_kernel", "K5"),
+    ("planck_bwd_kernel", "K3b"))
 
 
 def cell_inputs(cell, device):
     """(Atmosphere, clouds or None) of ``cell``, float32 on ``device``:
-    the atmosphere from seed 0, McICA compact clouds (int8 mask) from
-    seed 2, band clouds from seed 1."""
-    from ..types import Atmosphere, BandClouds, McicaCloudsCompact
+    the atmosphere from seed 0, McICA clouds from seed 2 (compact with
+    an int8 mask; "mcica_blocked" the per-g arrays; "mcica_tauc" these
+    with an input cloud od taucmc = cldfmc x (0.05 ciwpmc + 0.1
+    clwpmc)), band clouds from seed 1."""
+    from ..types import (Atmosphere, BandClouds, McicaCloudsBlocked,
+                         McicaCloudsCompact)
     from .synthetic import (make_atmosphere, make_band_clouds,
                             make_mcica_clouds)
-    _, _, kind, nlay, _ = CELLS[cell]
-    atm = Atmosphere.from_numpy(make_atmosphere(NCOL, nlay, seed=0), device,
-                                torch.float32)
-    if kind == "mcica":
+    c = CELLS[cell]
+    atm = Atmosphere.from_numpy(make_atmosphere(NCOL, c.nlay, seed=0),
+                                device, torch.float32)
+    if c.clouds == "mcica":
         return atm, McicaCloudsCompact.from_numpy(
-            make_mcica_clouds(NCOL, nlay, seed=2, mask_dtype=np.int8),
+            make_mcica_clouds(NCOL, c.nlay, seed=2, mask_dtype=np.int8),
             device, torch.float32)
-    if kind == "band":
+    if c.clouds in ("mcica_blocked", "mcica_tauc"):
+        cl = McicaCloudsBlocked.from_numpy(
+            make_mcica_clouds(NCOL, c.nlay, seed=2, dtype=np.float32,
+                              layout="blocked"), device, torch.float32)
+        if c.clouds == "mcica_tauc":
+            cl = cl._replace(taucmc=cl.cldfmc * (0.05 * cl.ciwpmc
+                                                 + 0.1 * cl.clwpmc))
+        return atm, cl
+    if c.clouds == "band":
         return atm, BandClouds.from_numpy(
-            make_band_clouds(NCOL, nlay, seed=1), device, torch.float32)
+            make_band_clouds(NCOL, c.nlay, seed=1), device, torch.float32)
     return atm, None
 
 
@@ -75,12 +116,11 @@ def _union_ms(intervals):
 
 
 def profile_cell(cell, device, steps=20, traced=5):
-    from .. import LWConfig, make_model
+    from .. import make_model
     from ..parallel import make_grad_step
-    icld, imca, _, nlay, grad = CELLS[cell]
-    model = make_model(LWConfig(icld=icld, imca=imca, dtype="float32",
-                                use_lut=False), device=device)
-    step = make_grad_step(model) if grad else model
+    c = CELLS[cell]
+    model = make_model(c.config(), device=device)
+    step = make_grad_step(model) if c.grad else model
     atm, clouds = cell_inputs(cell, device)
     for _ in range(2):                                   # warm-up
         step(atm, clouds)
@@ -110,7 +150,7 @@ def profile_cell(cell, device, steps=20, traced=5):
         if k is not None:
             kernels[k] += e.time_range.elapsed_us() / 1e3 / traced
     glue = busy - sum(kernels.values())
-    return dict(cell=cell, ncol=NCOL, nlay=nlay, device=torch.cuda.
+    return dict(cell=cell, ncol=NCOL, nlay=c.nlay, device=torch.cuda.
                 get_device_name(0), wall_ms_median=med, wall_ms_q1=q1,
                 wall_ms_q3=q3, cols_per_sec=NCOL / (med * 1e-3),
                 busy_ms=busy, idle_share=1.0 - busy / med,

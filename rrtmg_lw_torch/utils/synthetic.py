@@ -1,7 +1,7 @@
 """Deterministic synthetic inputs (atmospheres, McICA and band clouds).
 
 numpy-only copies of ``rrtmg_lw_tpu.utils.synthetic.make_atmosphere``,
-``make_band_clouds`` and ``make_mcica_clouds(layout="compact")``: the
+``make_band_clouds`` and ``make_mcica_clouds`` (every layout): the
 same RNG calls in the same order, so for one seed the arrays are
 bitwise equal to the JAX package's.  Arrays are host numpy inside the port's NamedTuples; turn
 them into tensors with ``Atmosphere.from_numpy(atm, device, dtype)``.
@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..types import Atmosphere, BandClouds, McicaCloudsCompact
+from ..types import (Atmosphere, BandClouds, McicaClouds, McicaCloudsBlocked,
+                     McicaCloudsCompact)
 
 
 def make_atmosphere(ncol=4, nlay=51, seed=0, dtype=np.float64, aod=0.0):
@@ -98,10 +99,17 @@ def make_band_clouds(ncol=4, nlay=51, seed=1, dtype=np.float64):
 
 
 def make_mcica_clouds(ncol=4, nlay=51, seed=2, dtype=np.float64, ngpt=140,
-                      mask_dtype=None, clear_frac=0.0):
-    """A plausible binary McICA cloud state in the compact generator
-    form: the (nlay, 144, ncol) sub-column mask plus per-layer water
-    paths.  ``clear_frac`` leaves that fraction of columns cloud-free."""
+                      layout="compact", mask_dtype=None, clear_frac=0.0):
+    """A plausible binary McICA cloud state: ~4 cloudy layers per column
+    whose sub-columns are cloudy with probability 0.6, one ice and one
+    liquid water path per column.  ``clear_frac`` leaves that fraction
+    of columns cloud-free.
+
+    ``layout``: "compact" (the default here; the JAX package's is
+    "batch") gives ``McicaCloudsCompact``, the (nlay, 144, ncol)
+    sub-column mask (float, or ``mask_dtype``) plus per-layer water
+    paths; "blocked" ``McicaCloudsBlocked``, the per-g arrays
+    (nlay, 144, ncol); "batch" ``McicaClouds``, (ncol, nlay, 140)."""
     rng = np.random.default_rng(seed)
     npdt = np.float32 if np.dtype(dtype) == np.float32 else np.float64
     lo = 3 + rng.integers(0, 3, ncol)
@@ -120,17 +128,46 @@ def make_mcica_clouds(ncol=4, nlay=51, seed=2, dtype=np.float64, ngpt=140,
     def arr(x):
         return np.asarray(x, dtype)
 
+    reic = arr(np.full((ncol, nlay), 30.0))
+    relq = arr(np.full((ncol, nlay), 10.0))
     gp = -(-ngpt // 8) * 8
-    mask = np.zeros((nlay, gp, ncol), npdt if mask_dtype is None
-                    else mask_dtype)
-    for j in range(4):                 # only the ~4 cloudy layers
-        mask[rows[:, j], :ngpt, cols] = m[:, j, :]
-    anyc = m.any(axis=2)                        # (ncld, 4)
-    ciwp_l = np.zeros((ncol, nlay))
-    clwp_l = np.zeros((ncol, nlay))
-    ciwp_l[cols[:, None], rows] = np.where(anyc, ci[:, :, 0], 0.0)
-    clwp_l[cols[:, None], rows] = np.where(anyc, cw[:, :, 0], 0.0)
-    return McicaCloudsCompact(
-        cldfmc=mask, ciwp=arr(ciwp_l), clwp=arr(clwp_l),
-        reicmc=arr(np.full((ncol, nlay), 30.0)),
-        relqmc=arr(np.full((ncol, nlay), 10.0)))
+
+    def fill_blocked(values, out_dtype=npdt):
+        """(nlay, gp, ncol) with values[c, j, g] at [rows[c, j], g,
+        cols[c]]: only the ~4 cloudy layers per column are written."""
+        out = np.zeros((nlay, gp, ncol), out_dtype)
+        for j in range(4):
+            out[rows[:, j], :ngpt, cols] = values[:, j, :]
+        return out
+
+    if layout == "compact":
+        mask = fill_blocked(m, npdt if mask_dtype is None else mask_dtype)
+        anyc = m.any(axis=2)                        # (ncld, 4)
+        ciwp_l = np.zeros((ncol, nlay))
+        clwp_l = np.zeros((ncol, nlay))
+        ciwp_l[cols[:, None], rows] = np.where(anyc, ci[:, :, 0], 0.0)
+        clwp_l[cols[:, None], rows] = np.where(anyc, cw[:, :, 0], 0.0)
+        return McicaCloudsCompact(
+            cldfmc=mask, ciwp=arr(ciwp_l), clwp=arr(clwp_l),
+            reicmc=reic, relqmc=relq)
+    if layout == "blocked":
+        return McicaCloudsBlocked(
+            cldfmc=fill_blocked(m),
+            ciwpmc=fill_blocked(np.where(m, ci, 0.0)),
+            clwpmc=fill_blocked(np.where(m, cw, 0.0)),
+            taucmc=np.zeros((nlay, gp, ncol), npdt),
+            reicmc=reic, relqmc=relq)
+    if layout != "batch":
+        raise ValueError(f"layout must be compact, blocked or batch, got "
+                         f"{layout!r}")
+    cldf = np.zeros((ncol, nlay, ngpt), npdt)
+    ciwp = np.zeros((ncol, nlay, ngpt), npdt)
+    clwp = np.zeros((ncol, nlay, ngpt), npdt)
+    if ncld:
+        cldf[cols[:, None], rows] = m
+        clwp[cols[:, None], rows] = np.where(m, cw, 0.0)
+        ciwp[cols[:, None], rows] = np.where(m, ci, 0.0)
+    return McicaClouds(
+        cldfmc=arr(cldf), ciwpmc=arr(ciwp), clwpmc=arr(clwp),
+        taucmc=arr(np.zeros((ncol, nlay, ngpt), npdt)), reicmc=reic,
+        relqmc=relq)

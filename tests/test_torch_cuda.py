@@ -1,9 +1,10 @@
 """The CUDA kernels of rrtmg_lw_torch against their plain PyTorch
 versions on the card, at small and ragged shapes (chip_smoke.py covers
 the main-path shapes), plus the wrappers' input checks and launch
-counters: the four forward kernels (K1 in its clear, compact, banded and
-maxrand modes), the overlap-rows kernel, and the three backward kernels
-(K3b Planck slope, K5 taumol, K6 RT adjoint) against the plain vjps.
+counters: the four forward kernels (K1 in its clear, compact, banded,
+maxrand, fused and cldf-odcld modes, each at idrv 0 and 1), the
+overlap-rows kernel, and the three backward kernels (K3b Planck slope,
+K5 taumol, K6 RT adjoint) against the plain vjps.
 
 Marked ``cuda``: every test skips without a CUDA device.  This file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
@@ -27,14 +28,16 @@ import pytest
 import torch
 
 from rrtmg_lw_torch import (Atmosphere, BandClouds, LWConfig,
-                            McicaCloudsCompact, make_model)
+                            McicaCloudsBlocked, McicaCloudsCompact,
+                            make_model)
 from rrtmg_lw_torch.ops import cldprop, rtrn, rtrnmr
 from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_blocked
 from rrtmg_lw_torch.ops.inatm import inatm
 from rrtmg_lw_torch.ops.planck_cuda import (planck_interp_blocked,
                                             planck_interp_vjp)
-from rrtmg_lw_torch.ops.rtrn_cuda import (rt_fluxes_banded, rt_fluxes_blocked,
-                                          rt_fluxes_maxrand, rt_sweep_vjp)
+from rrtmg_lw_torch.ops.rtrn_cuda import (WRAPPERS, rt_fluxes_banded,
+                                          rt_fluxes_blocked, rt_fluxes_maxrand,
+                                          rt_sweep_vjp)
 from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows
 from rrtmg_lw_torch.ops.setcoef import (interp_planck_blocked,
                                         interp_planck_vjp, setcoef)
@@ -379,3 +382,135 @@ def test_band_clouds_backward_raises_on_card(dev, icld):
                                 use_lut=False), device=dev)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_grad_step(model)(atm, bc)
+
+
+def _sweep_inputs(dev, B, L):
+    """The RT sweep's inputs on a small case, and each K1 mode's cloud
+    arguments: compact, fused and cldf-odcld on make_mcica_clouds (the
+    per-g arrays with an input cloud od for cldf-odcld), banded and
+    maxrand on make_band_clouds."""
+    model = _model(dev)
+    _, clouds, prof = _case(dev, B, L, clear_frac=0.3)
+    static = model.static_tensors()
+    sc = setcoef(prof, static, planck=False)
+    tg, fr = model.engine.blocked(sc, prof)
+    play = interp_planck_blocked(prof.tavel.t().contiguous(), model.totplnk)
+    plev = interp_planck_blocked(prof.tz.t().contiguous(), model.totplnk)
+    abi, abl = cldprop.ice_liq_coeffs_blocked(clouds.reicmc, clouds.relqmc,
+                                              3, 1, static)
+    cw = torch.stack([clouds.ciwp.t(), clouds.clwp.t()], 1).contiguous()
+    blk = McicaCloudsBlocked.from_numpy(
+        make_mcica_clouds(B, L, seed=L, layout="blocked", clear_frac=0.3),
+        dev, torch.float32)
+    tauc = blk._replace(taucmc=blk.cldfmc * (0.05 * blk.ciwpmc
+                                             + 0.1 * blk.clwpmc))
+    odc, cfc, _ = cldprop.cldprmc_blocked(tauc, static, inflag=0, iceflag=3,
+                                          liqflag=1)
+    bc = _band_clouds(dev, B, L, "mixed")
+    taucb, _ = cldprop.cldprop_banded_blocked(bc, static, inflag=2,
+                                              iceflag=3, liqflag=1)
+    args = (tg, fr, play, plev, sc.plankbnd, prof.semiss, prof.pwvcm,
+            model.ngb0, model.wg)
+    modes = {"clear": ("blocked", ()),
+             "compact": ("blocked", ((clouds.cldfmc, cw, abi, abl),)),
+             "fused": ("fused", ((*blk[:4], abi, abl),)),
+             "cldf_od": ("cldf_od", ((cfc, odc),)),
+             "banded": ("banded", (bc.cldfrac.t().contiguous(), taucb)),
+             "maxrand": ("maxrand", (rtrnmr.overlap_rows(bc.cldfrac),
+                                     taucb))}
+    return args, sc.dplankbnd_dt, modes
+
+
+@pytest.mark.parametrize("B,L", [(37, 13), (5, 1), (96, 30)])
+def test_rt_all_modes_and_idrv_match_plain(dev, B, L):
+    """Every K1 instantiation against its plain version; the idrv=1 flux
+    rows bitwise equal to the idrv=0 launch's; two runs bitwise equal."""
+    args, dpl, modes = _sweep_inputs(dev, B, L)
+    for name, (w, extra) in modes.items():
+        kern = WRAPPERS[w]
+        k0 = kern(*args, *extra)
+        k1, d1 = kern(*args, *extra, dplankbnd_dt=dpl)
+        p1, pd1 = rtrn.FLUXES[w](*args, *extra, dplankbnd_dt=dpl)
+        assert k0.shape == (4, L + 1, B) and d1.shape == (2, L + 1, B)
+        assert torch.isfinite(d1).all(), name
+        assert flux_err(rtrn.FLUXES[w](*args, *extra), k0) <= 2e-5, name
+        assert flux_err(torch.cat([p1, pd1]), torch.cat([k1, d1])) <= 2e-5
+        assert torch.equal(k0, k1), name
+        again = kern(*args, *extra, dplankbnd_dt=dpl)
+        assert torch.equal(k1, again[0]) and torch.equal(d1, again[1])
+
+
+def test_rt_idrv_launch_counters(dev):
+    args, dpl, modes = _sweep_inputs(dev, 40, 7)
+    for name, (w, extra) in modes.items():
+        kern = WRAPPERS[w]
+        before = (kern.launches, kern.idrv.launches)
+        kern(*args, *extra)
+        kern(*args, *extra, dplankbnd_dt=dpl)
+        assert (kern.launches - before[0], kern.idrv.launches - before[1]) \
+            == (2, 1), name
+
+
+@pytest.mark.parametrize("icld,inflag,layout", [(0, 2, None),
+                                                (2, 2, "blocked"),
+                                                (2, 0, "blocked"),
+                                                (2, 2, "batch"),
+                                                (2, 2, "float_mask")])
+def test_model_per_g_and_idrv_cuda_matches_eager(dev, icld, inflag, layout):
+    """McICA per-g clouds (fused, cldf-odcld), a float compact mask (to the
+    fused mode) and idrv=1, through the kernels against eager."""
+    from rrtmg_lw_torch import McicaClouds
+    B, L = 200, 30
+    atm, compact, _ = _case(dev, B, L)
+    if layout == "float_mask":
+        cl = compact._replace(cldfmc=compact.cldfmc.float())
+    elif layout is None:
+        cl = None
+    else:
+        n = make_mcica_clouds(B, L, seed=L, layout=layout)
+        if inflag == 0:
+            n = n._replace(taucmc=n.cldfmc * (0.05 * n.ciwpmc
+                                              + 0.1 * n.clwpmc))
+        cl = (McicaCloudsBlocked if layout == "blocked" else
+              McicaClouds).from_numpy(n, dev, torch.float32)
+    cfg = dict(icld=icld, imca=1, inflag=inflag, idrv=1, dtype="float32",
+               use_lut=False)
+    fk = make_model(LWConfig(**cfg), device=dev)(atm, cl)
+    fe = make_model(LWConfig(impl="eager", **cfg), device=dev)(atm, cl)
+    for name in ("uflx", "dflx", "uflxc", "dflxc", "duflx_dt", "duflxc_dt"):
+        assert flux_err(getattr(fe, name).t(), getattr(fk, name).t()) <= 2e-5
+    if cl is not None:
+        assert not torch.allclose(fk.uflx, fk.uflxc)
+    if layout == "float_mask":
+        f8 = make_model(LWConfig(**cfg), device=dev)(atm, compact)
+        for name in ("uflx", "dflx", "uflxc", "dflxc"):
+            assert flux_err(getattr(f8, name).t(), getattr(fk, name).t()) \
+                <= 2e-5
+
+
+def test_unported_adjoints_raise_on_card(dev):
+    """No gradient is dropped: a cotangent of duflx_dt, and a backward
+    through the fused or cldf-odcld mode, raise; the default loss at
+    idrv=1 runs and equals idrv=0's step."""
+    atm, clouds, _ = _case(dev, 40, 10)
+    cfg = dict(icld=2, imca=1, dtype="float32", use_lut=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_grad_step(make_model(LWConfig(idrv=1, **cfg), device=dev),
+                       lambda f: f.duflx_dt.sum())(atm, clouds)
+    # autograd's scatter-adds use float atomics unless deterministic
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        l0, g0 = make_grad_step(make_model(LWConfig(**cfg), device=dev))(
+            atm, clouds)
+        l1, g1 = make_grad_step(make_model(LWConfig(idrv=1, **cfg),
+                                           device=dev))(atm, clouds)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    blk = McicaCloudsBlocked.from_numpy(
+        make_mcica_clouds(40, 10, layout="blocked"), dev, torch.float32)
+    for inflag in (0, 2):
+        model = make_model(LWConfig(inflag=inflag, **cfg), device=dev)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_grad_step(model)(atm, blk)

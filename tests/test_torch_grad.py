@@ -378,3 +378,60 @@ def test_f32_gradient_conditioning(icld):
     for name in Atmosphere._fields:
         assert rel_err(getattr(l32, name), getattr(l64, name).numpy()) \
             <= 1e-4, name
+
+
+# --------------------------------------------------------------- (g)
+
+@pytest.mark.parametrize("icld", [0, 2])
+def test_idrv_grad_step_equals_idrv0(icld):
+    """At idrv=1 the default loss reads no d/dT: the gradient step through
+    the Functions (impl="cuda" on the CPU) is the idrv=0 step's, and the
+    d/dT row of the surface rows gets a zero cotangent."""
+    B, L = 3, 8
+    atm = Atmosphere.from_numpy(noisy_atmosphere(B, L), "cpu")
+    cl = McicaCloudsCompact.from_numpy(tsyn.make_mcica_clouds(
+        B, L, mask_dtype=np.int8), "cpu") if icld else None
+    out = []
+    for idrv in (0, 1):
+        model = make_model(LWConfig(icld=icld, idrv=idrv, use_lut=False),
+                           device="cpu")
+        model.impl = "cuda"
+        out.append(make_grad_step(model)(atm, cl))
+    (l0, g0), (l1, g1) = out
+    assert torch.equal(l0, l1)
+    for name in Atmosphere._fields:
+        assert torch.equal(getattr(g0, name), getattr(g1, name)), name
+
+
+def test_ddt_loss_grad_matches_jax_value_and_grad():
+    """A loss that reads duflx_dt and duflxc_dt (idrv=1, McICA): on the
+    CPU the Functions' plain vjps cover the d/dT outputs, and the
+    gradients match jax.value_and_grad's."""
+    B, L = 4, 12
+    jm = jmake_model(JConfig(icld=2, imca=1, idrv=1, use_lut=False,
+                             taumol_impl="xla", rt_impl="xla"))
+    natm = noisy_atmosphere(B, L)
+    ncl = jsyn.make_mcica_clouds(B, L, layout="compact", mask_dtype=np.int8)
+    jcl = jax.tree_util.tree_map(jnp.asarray, ncl)
+
+    def loss(fl):
+        return ((fl.uflx[:, -1] ** 2).mean() + (fl.duflx_dt ** 2).mean()
+                + fl.duflxc_dt[:, -1].mean())
+
+    jl, jg = jax.jit(jax.value_and_grad(lambda a: loss(jm(a, jcl))))(
+        jax.tree_util.tree_map(jnp.asarray, natm))
+    tables = tables_from_numpy(jm.ktables, jm.static_np, device="cpu")
+    atm = Atmosphere.from_numpy(natm, "cpu")
+    cl = McicaCloudsCompact.from_numpy(
+        tsyn.make_mcica_clouds(B, L, mask_dtype=np.int8), "cpu")
+    for impl in ("eager", "cuda"):
+        model = make_model(LWConfig(icld=2, imca=1, idrv=1, use_lut=False),
+                           device="cpu", tables=tables)
+        model.impl = impl
+        lv, g = make_grad_step(model, loss)(atm, cl)
+        assert abs(float(lv) - float(jl)) <= 1e-12 * abs(float(jl))
+        for name in Atmosphere._fields:
+            assert rel_err(getattr(g, name), getattr(jg, name)) <= 1e-10, \
+                (impl, name)
+        # the d/dT terms reach the surface temperature and emissivity
+        assert bool((g.tsfc != 0).all()) and bool((g.emis != 0).any())

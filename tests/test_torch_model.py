@@ -20,11 +20,13 @@ import torch
 import jax.numpy as jnp
 
 from rrtmg_lw_tpu import LWConfig as JConfig, make_model as jmake_model
+from rrtmg_lw_tpu.ops.inatm import inatm as jinatm
 from rrtmg_lw_tpu.types import BandClouds as JBandClouds
 from rrtmg_lw_tpu.utils import synthetic as jsyn
 
-from rrtmg_lw_torch import (Atmosphere, BandClouds, LWConfig,
-                            McicaCloudsCompact, make_model)
+from rrtmg_lw_torch import (Atmosphere, BandClouds, LWConfig, McicaClouds,
+                            McicaCloudsBlocked, McicaCloudsCompact,
+                            make_model)
 from rrtmg_lw_torch.data.ktables import tables_from_numpy
 from rrtmg_lw_torch.ops.inatm import inatm
 from rrtmg_lw_torch.parallel import make_grad_step
@@ -117,9 +119,10 @@ def test_deep_profile_finite():
 
 
 def test_clouds_other_than_compact_raise():
+    """McICA takes the three McICA cloud types and nothing else."""
     model = make_model(LWConfig(icld=2, use_lut=False), device="cpu")
     atm, _ = _inputs(2, 6, 0, "float64")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="McicaCloudsBlocked"):
         model(atm, (jnp.zeros(1),))
 
 
@@ -202,3 +205,142 @@ def test_band_clouds_functions_grad_on_cpu(icld):
         scale = float(b.abs().max())
         assert float((a - b).abs().max()) <= 1e-12 * max(scale, 1e-300), name
     assert float(g_k.tlay.abs().max()) > 0
+
+
+def _mcica_tauc(cl):
+    """McICA clouds with an input cloud od taucmc = cldfmc x (0.05 ciwpmc
+    + 0.1 clwpmc) (numpy, either per-g layout)."""
+    cf, ci, cw = (np.asarray(x) for x in cl[:3])
+    return cl._replace(taucmc=cf * (0.05 * ci + 0.1 * cw))
+
+
+def _cloud_case(kind, B, L, inflag):
+    """(JAX clouds, port clouds on the CPU) of one cloud input form."""
+    if kind == "band":
+        nbc = band_clouds(B, L)
+        return JBandClouds(*nbc), BandClouds.from_numpy(nbc, "cpu")
+    if kind == "compact":
+        return (jsyn.make_mcica_clouds(B, L, layout="compact",
+                                       mask_dtype=np.int8),
+                McicaCloudsCompact.from_numpy(tsyn.make_mcica_clouds(
+                    B, L, mask_dtype=np.int8), "cpu"))
+    jcl = jsyn.make_mcica_clouds(B, L, layout=kind)
+    tcl = tsyn.make_mcica_clouds(B, L, layout=kind)
+    if inflag == 0:
+        jcl, tcl = _mcica_tauc(jcl), _mcica_tauc(tcl)
+    cls = McicaCloudsBlocked if kind == "blocked" else McicaClouds
+    return (type(jcl)(*(jnp.asarray(x) for x in jcl)),
+            cls.from_numpy(tcl, "cpu"))
+
+
+IDRV_CASES = [(0, 1, 2, None), (2, 1, 2, "compact"), (2, 1, 2, "blocked"),
+              (2, 1, 0, "blocked"), (2, 1, 2, "batch"), (2, 1, 0, "batch"),
+              (1, 0, 2, "band"), (2, 0, 2, "band")]
+
+
+@pytest.mark.parametrize("icld,imca,inflag,kind", IDRV_CASES)
+def test_idrv_model_matches_jax_f64(icld, imca, inflag, kind):
+    """idrv=1 in every cloud treatment and McICA input form: the fluxes
+    and duflx_dt / duflxc_dt against the JAX model (XLA engines)."""
+    B, L = 5, 12
+    jm = jmake_model(JConfig(icld=icld, imca=imca, inflag=inflag, idrv=1,
+                             use_lut=False, taumol_impl="xla",
+                             rt_impl="xla"))
+    jcl, tcl = _cloud_case(kind, B, L, inflag) if kind else (None, None)
+    ref = jm(jsyn.make_atmosphere(B, L), jcl)
+    model = make_model(LWConfig(icld=icld, imca=imca, inflag=inflag, idrv=1,
+                                use_lut=False), device="cpu",
+                       tables=tables_from_numpy(jm.ktables, jm.static_np,
+                                                device="cpu"))
+    out = model(Atmosphere.from_numpy(tsyn.make_atmosphere(B, L), "cpu"),
+                tcl)
+    for name in FLUXES + ("duflx_dt", "duflxc_dt"):
+        assert _max_abs(out, ref, name) <= 1e-11, name
+    for name in HEATING:
+        scale = float(np.abs(np.asarray(getattr(ref, name))).max())
+        assert _max_abs(out, ref, name) <= 1e-11 * scale, name
+    assert float(out.duflx_dt.min()) > 0
+    if kind:
+        np.testing.assert_array_equal(out.cld_bounds_ok.numpy(),
+                                      np.asarray(ref.cld_bounds_ok))
+        assert not torch.allclose(out.uflx, out.uflxc)
+        assert not torch.allclose(out.duflx_dt, out.duflxc_dt)
+    # the idrv=0 step gives the same fluxes and no derivatives
+    out0 = make_model(LWConfig(icld=icld, imca=imca, inflag=inflag,
+                               use_lut=False), device="cpu",
+                      tables=tables_from_numpy(jm.ktables, jm.static_np,
+                                               device="cpu"))(
+        Atmosphere.from_numpy(tsyn.make_atmosphere(B, L), "cpu"), tcl)
+    assert out0.duflx_dt is None and out0.duflxc_dt is None
+    for name in FLUXES:
+        assert torch.equal(getattr(out, name), getattr(out0, name)), name
+
+
+@pytest.mark.parametrize("icld,kind", [(0, None), (2, "blocked")])
+def test_dtbound_adjustment_matches_jax(icld, kind):
+    """from_profile with Profile.dtbound set (idrv=1): upward fluxes and
+    heating rates moved by d/dT x dtbound, as the JAX model does on its
+    own Profile._replace(dtbound=...)."""
+    B, L = 5, 12
+    jm = jmake_model(JConfig(icld=icld, idrv=1, use_lut=False,
+                             taumol_impl="xla", rt_impl="xla"))
+    jcl, tcl = _cloud_case(kind, B, L, 2) if kind else (None, None)
+    dtb = np.random.default_rng(3).uniform(-2.0, 2.0, B)
+    jprof = jinatm(jsyn.make_atmosphere(B, L), dtype=jnp.float64)
+    ref = jm.from_profile(jprof._replace(dtbound=jnp.asarray(dtb)), jcl)
+    model = make_model(LWConfig(icld=icld, idrv=1, use_lut=False),
+                       device="cpu", tables=tables_from_numpy(
+                           jm.ktables, jm.static_np, device="cpu"))
+    prof = inatm(Atmosphere.from_numpy(tsyn.make_atmosphere(B, L), "cpu"))
+    out = model.from_profile(prof._replace(dtbound=torch.as_tensor(dtb)),
+                             tcl)
+    for name in FLUXES + ("duflx_dt", "duflxc_dt"):
+        assert _max_abs(out, ref, name) <= 1e-11, name
+    for name in HEATING:
+        scale = float(np.abs(np.asarray(getattr(ref, name))).max())
+        assert _max_abs(out, ref, name) <= 1e-11 * scale, name
+    plain = model.from_profile(prof, tcl)
+    assert torch.equal(out.dflx, plain.dflx)
+    assert torch.allclose(out.uflx, plain.uflx + plain.duflx_dt
+                          * torch.as_tensor(dtb)[:, None], rtol=0,
+                          atol=1e-12)
+    assert not torch.allclose(out.hr, plain.hr)
+
+
+def test_float_mask_runs_the_fused_mode():
+    """A float McicaCloudsCompact mask is exact for any value: the model
+    takes its per-g products to the fused mode (``impl="cuda"`` on the
+    CPU: the wrappers' plain route), which gives the int8 mask's fluxes
+    where the mask is binary, and the JAX package's where it is not."""
+    from rrtmg_lw_torch.ops import rtrn_cuda
+    B, L = 5, 12
+    jm = jmake_model(JConfig(icld=2, use_lut=False, taumol_impl="xla",
+                             rt_impl="xla"))
+    tables = tables_from_numpy(jm.ktables, jm.static_np, device="cpu")
+    atm = Atmosphere.from_numpy(tsyn.make_atmosphere(B, L), "cpu")
+    nf = tsyn.make_mcica_clouds(B, L)                   # float 0/1 mask
+    assert nf.cldfmc.dtype == np.float64
+    calls = []
+    model = make_model(LWConfig(icld=2, use_lut=False), device="cpu",
+                       tables=tables)
+    model.impl = "cuda"
+    fused = rtrn_cuda.WRAPPERS["fused"]
+    rtrn_cuda.WRAPPERS["fused"] = lambda *a, **k: calls.append(1) or \
+        fused(*a, **k)
+    try:
+        got = model(atm, McicaCloudsCompact.from_numpy(nf, "cpu"))
+        ref8 = model(atm, McicaCloudsCompact.from_numpy(
+            tsyn.make_mcica_clouds(B, L, mask_dtype=np.int8), "cpu"))
+        frac = nf._replace(cldfmc=nf.cldfmc * 0.8)      # not binary
+        got_f = model(atm, McicaCloudsCompact.from_numpy(frac, "cpu"))
+    finally:
+        rtrn_cuda.WRAPPERS["fused"] = fused
+    assert len(calls) == 2
+    for name in FLUXES:
+        assert torch.equal(getattr(got, name), getattr(ref8, name)), name
+    jf = jsyn.make_mcica_clouds(B, L, layout="compact")
+    ref_f = jm(jsyn.make_atmosphere(B, L),
+               jf._replace(cldfmc=jf.cldfmc * 0.8))
+    for name in FLUXES:
+        assert _max_abs(got_f, ref_f, name) <= 1e-11, name
+    assert not torch.allclose(got_f.uflx, got.uflx)

@@ -41,7 +41,11 @@ INT_FIELDS = ("laytrop_mask", "jp", "jt", "jt1", "indself", "indfor",
 
 
 def assert_rel(got, ref, tol=RTOL, name=""):
-    """max |got - ref| <= tol * max |ref| (exact zeros must match)."""
+    """max |got - ref| <= tol * max |ref| (exact zeros must match); an
+    optional field absent (None) on one side must be absent on both."""
+    if ref is None or got is None:
+        assert got is None and ref is None, name
+        return
     got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) \
         else np.asarray(got)
     ref = np.asarray(ref)
@@ -422,3 +426,191 @@ def test_rt_band_sweeps_plain_match_jax(pair, mode):
         assert_rel(out[i].t(), getattr(ref, name), name=name)
     # the clouds move the all-sky fluxes away from the clear twin
     assert not np.allclose(np.asarray(ref.totuflux), np.asarray(ref.totuclfl))
+
+
+def mcica_per_g_np(B, Lc, seed=6, layout="batch"):
+    """make_mcica_clouds with radii across and past the table ranges, an
+    input
+    cloud od taucmc nonzero in half the cloudy cells, and no ice in a
+    tenth of the cells."""
+    cl = jsyn.make_mcica_clouds(B, Lc, layout=layout)
+    rng = np.random.default_rng(seed)
+    cf = np.asarray(cl.cldfmc)
+    tauc = cf * rng.random(cf.shape) * 2.0 * (rng.random(cf.shape) < 0.5)
+    ciwp = np.where(rng.random(cf.shape) < 0.1, 0.0, np.asarray(cl.ciwpmc))
+    return cl._replace(taucmc=tauc, ciwpmc=ciwp,
+                       reicmc=1.0 + 149.0 * rng.random((B, Lc)),
+                       relqmc=0.5 + 64.5 * rng.random((B, Lc)))
+
+
+@pytest.mark.parametrize("inflag", [0, 2])
+@pytest.mark.parametrize("layout", ["batch", "blocked"])
+def test_cldprmc_matches_jax(pair, inflag, layout):
+    """cldprmc (batch input) and cldprmc_blocked (batch and blocked
+    input) against rrtmg_lw_tpu.ops.cldprop on the same per-g clouds."""
+    from rrtmg_lw_torch import McicaClouds, McicaCloudsBlocked
+    ncl = mcica_per_g_np(B, L, layout=layout)
+    jcl = type(ncl)(*(jnp.asarray(x) for x in ncl))
+    tcl = (McicaCloudsBlocked if layout == "blocked"
+           else McicaClouds).from_numpy(ncl, "cpu")
+    static = pair["tm"].static_tensors()
+    kw = dict(inflag=inflag, iceflag=3, liqflag=1)
+    jt, jcf, jok = jcldprop.cldprmc_blocked(jcl, pair["jm"].static_np, **kw)
+    tt, tcf, tok = cldprop.cldprmc_blocked(tcl, static, **kw)
+    assert tt.shape == tcf.shape == (L, 144, B) and tt.is_contiguous()
+    assert_rel(tt, jt, tol=1e-14)
+    np.testing.assert_array_equal(tcf.numpy(), np.asarray(jcf))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    assert not tt[:, 140:].any()
+    if layout == "batch":
+        jt2, jok2 = jcldprop.cldprmc(jcl, pair["jm"].static_np, **kw)
+        tt2, tok2 = cldprop.cldprmc(tcl, static, **kw)
+        assert_rel(tt2, jt2, tol=1e-14)
+        np.testing.assert_array_equal(tok2.numpy(), np.asarray(jok2))
+        # the blocked relayout holds the same values
+        assert torch.equal(tt[:, :140].permute(2, 0, 1), tt2)
+    if inflag == 2:
+        assert not tok.all() and float(tt.abs().max()) > 0
+    with pytest.raises(ValueError, match="INFLAG=1"):
+        cldprop.cldprmc_blocked(tcl, static, inflag=1, iceflag=3, liqflag=1)
+
+
+def _rt_case(pair):
+    """The JAX profile's taut, fracs and setcoef, and both packages'
+    sweep arguments (B, L, G layouts)."""
+    jm, jsc, jprof = pair["jm"], pair["jsc"], pair["jprof"]
+    tm, tsc, tprof = pair["tm"], pair["tsc"], pair["tprof"]
+    jt, jf = jm.engine(jsc, jprof)
+    taut = np.array(jt + jprof.taua[..., jm.ngb0])
+    jargs = (jnp.asarray(taut), jf, jsc.planklay, jsc.planklev, jsc.plankbnd,
+             jsc.dplankbnd_dt, jprof.semiss, jprof.pwvcm, jprof.pz)
+    t = torch.as_tensor
+    targs = (t(taut), t(np.array(jf)), tsc.planklay, tsc.planklev,
+             tsc.plankbnd, tprof.semiss, tprof.pwvcm, tprof.pz)
+    return jargs, targs
+
+
+@pytest.mark.parametrize("cloudy", [False, True])
+def test_rt_idrv_matches_jax(pair, cloudy):
+    """rt_random_overlap at idrv=1: every RTOut field, the two d/dT
+    fields included, against the JAX package's."""
+    jm, tm, tsc = pair["jm"], pair["tm"], pair["tsc"]
+    jargs, targs = _rt_case(pair)
+    cldf, odcld = _per_g_clouds(5) if cloudy else \
+        (np.zeros((B, L, 140)),) * 2
+    gate = cldf >= 0.5
+    ref = jrtrn.rt_random_overlap(
+        *jargs, jnp.asarray(cldf), jnp.asarray(odcld),
+        cloudy_lay=jnp.asarray(gate.any(-1)), cld_gate=jnp.asarray(gate),
+        static=jm.static_np, luts=None, use_lut=False, idrv=1,
+        heatfac_val=jm.heatfac)
+    t = torch.as_tensor
+    got = rtrn.rt_random_overlap(
+        *targs, t(cldf), t(odcld), cloudy_lay=t(gate.any(-1)),
+        cld_gate=t(gate), static=tm.static_np, heatfac_val=tm.heatfac,
+        idrv=1, dplankbnd_dt=tsc.dplankbnd_dt)
+    assert got.dtotuflux_dt is not None and len(got) == len(ref) == 8
+    for name in got._fields:
+        # heating rates: reordered g sums over the thin top layers' dp
+        tol = 1e-10 if name in ("htr", "htrc") else RTOL
+        assert_rel(getattr(got, name), getattr(ref, name), tol, name)
+    # the clear twin's derivative leaves the all-sky one under clouds
+    d, dc = np.asarray(ref.dtotuflux_dt), np.asarray(ref.dtotuclfl_dt)
+    assert np.allclose(d, dc) != cloudy
+    assert (d > 0).all()
+
+
+def test_rt_maxrandom_idrv_matches_jax(pair):
+    jm, tm, tsc = pair["jm"], pair["tm"], pair["tsc"]
+    jargs, targs = _rt_case(pair)
+    nbc = band_clouds_np(B, L)
+    taucloud, _ = jcldprop.cldprop(type(nbc)(*(jnp.asarray(x) for x in nbc)),
+                                   jm.static_np, inflag=2, iceflag=3,
+                                   liqflag=1)
+    odcld_g = np.array(taucloud[..., jm.ngb0])
+    ref = jrtrnmr.rt_maxrandom(*jargs, jnp.asarray(nbc.cldfrac),
+                               jnp.asarray(odcld_g), static=jm.static_np,
+                               luts=None, use_lut=False, idrv=1,
+                               heatfac_val=jm.heatfac)
+    got = rtrnmr.rt_maxrandom(*targs, torch.as_tensor(nbc.cldfrac),
+                              torch.as_tensor(odcld_g), static=tm.static_np,
+                              heatfac_val=tm.heatfac, idrv=1,
+                              dplankbnd_dt=tsc.dplankbnd_dt)
+    assert len(got) == len(ref) == 8
+    for name in got._fields:
+        tol = 1e-10 if name in ("htr", "htrc") else RTOL
+        assert_rel(getattr(got, name), getattr(ref, name), tol, name)
+    assert not np.allclose(np.asarray(ref.dtotuflux_dt),
+                           np.asarray(ref.dtotuclfl_dt))
+
+
+@pytest.mark.parametrize("inflag", [0, 2])
+def test_rt_sweep_plain_per_g_modes_match_jax(pair, inflag):
+    """The plain versions of K1's fused (inflag=2) and cldf-odcld
+    (inflag=0) modes on the kernel layouts, idrv 0 and 1, against the
+    JAX package's cldprmc + rt_random_overlap on the same per-g
+    clouds."""
+    from rrtmg_lw_torch import McicaCloudsBlocked
+    jm, tm, tsc, tprof = pair["jm"], pair["tm"], pair["tsc"], pair["tprof"]
+    jargs, _ = _rt_case(pair)
+    nblk = mcica_per_g_np(B, L, layout="blocked")
+    jbatch = type(nblk)(*(jnp.asarray(x) for x in nblk)).to_batch()
+    taucmc, _ = jcldprop.cldprmc(jbatch, jm.static_np, inflag=inflag,
+                                 iceflag=3, liqflag=1)
+    gate = jbatch.cldfmc >= 0.5
+    ref = jrtrn.rt_random_overlap(
+        *jargs, jbatch.cldfmc, taucmc, cloudy_lay=gate.any(-1),
+        cld_gate=gate, static=jm.static_np, luts=None, use_lut=False,
+        idrv=1, heatfac_val=jm.heatfac)
+
+    def blocked(x):
+        return torch.as_tensor(np.array(x)).permute(1, 2, 0).contiguous()
+
+    tblk = McicaCloudsBlocked.from_numpy(nblk, "cpu")
+    static = tm.static_tensors()
+    if inflag == 2:
+        abi, abl, _ = cldprop.cloud_optics_bands_blocked(
+            tblk, static, iceflag=3, liqflag=1)
+        fields = (*tblk[:4], abi, abl)
+    else:
+        tauc, cldf, _ = cldprop.cldprmc_blocked(tblk, static, inflag=0,
+                                                iceflag=3, liqflag=1)
+        fields = (cldf, tauc)
+    args = (blocked(jargs[0]), blocked(jargs[1]), blocked(jargs[2]),
+            blocked(jargs[3]), tsc.plankbnd, tprof.semiss, tprof.pwvcm,
+            tm.ngb0, tm.wg, fields)
+    out0 = rtrn.rt_fluxes_blocked(*args)
+    out, ddt = rtrn.rt_fluxes_blocked(*args, dplankbnd_dt=tsc.dplankbnd_dt)
+    assert out.shape == (4, L + 1, B) and ddt.shape == (2, L + 1, B)
+    assert torch.equal(out, out0)
+    for i, name in enumerate(("totuflux", "totdflux", "totuclfl",
+                              "totdclfl", "dtotuflux_dt", "dtotuclfl_dt")):
+        assert_rel(torch.cat([out, ddt])[i].t(), getattr(ref, name),
+                   name=name)
+    assert not np.allclose(np.asarray(ref.totuflux),
+                           np.asarray(ref.totuclfl))
+
+
+def test_duflx_dt_is_the_derivative_wrt_the_surface_source(pair):
+    """An independent witness of the d/dT recursion: in clear sky the
+    derivative of uflx along plankbnd in the direction dplankbnd_dt
+    (forward-mode AD through the plain sweep) is duflx_dt."""
+    tm, tsc = pair["tm"], pair["tsc"]
+    _, targs = _rt_case(pair)
+    taut, fracs, play, plev, plankbnd, semiss, pwvcm, pz = targs
+    zero = torch.zeros_like(taut)
+    kw = dict(cloudy_lay=torch.zeros((B, L), dtype=torch.bool),
+              cld_gate=zero.bool(), static=tm.static_np,
+              heatfac_val=tm.heatfac)
+
+    def uflx(pb):
+        return rtrn.rt_random_overlap(taut, fracs, play, plev, pb, semiss,
+                                      pwvcm, pz, zero, zero, **kw).totuflux
+
+    _, jvp = torch.func.jvp(uflx, (plankbnd,), (tsc.dplankbnd_dt,))
+    got = rtrn.rt_random_overlap(taut, fracs, play, plev, plankbnd, semiss,
+                                 pwvcm, pz, zero, zero, idrv=1,
+                                 dplankbnd_dt=tsc.dplankbnd_dt, **kw)
+    assert_rel(got.dtotuflux_dt, jvp.numpy())
+    assert_rel(got.dtotuclfl_dt, jvp.numpy())
+    assert float(jvp.abs().max()) > 0

@@ -131,16 +131,21 @@ def test_synthetic_bitwise_equal_jax(seed, clear_frac):
             x, y = getattr(a_t, name), getattr(a_j, name)
             assert x.dtype == y.dtype, name
             np.testing.assert_array_equal(x, y, err_msg=name)
-        c_t = tsyn.make_mcica_clouds(ncol=6, nlay=17, seed=seed + 2, dtype=dt,
-                                     mask_dtype=np.int8,
-                                     clear_frac=clear_frac)
-        c_j = jsyn.make_mcica_clouds(ncol=6, nlay=17, seed=seed + 2, dtype=dt,
-                                     layout="compact", mask_dtype=np.int8,
-                                     clear_frac=clear_frac)
-        for name in c_j._fields:
-            x, y = getattr(c_t, name), getattr(c_j, name)
-            assert x.dtype == y.dtype and x.shape == y.shape, name
-            np.testing.assert_array_equal(x, y, err_msg=name)
+        for layout, kw in (("compact", dict(mask_dtype=np.int8)),
+                           ("compact", {}), ("blocked", {}), ("batch", {})):
+            c_t = tsyn.make_mcica_clouds(ncol=6, nlay=17, seed=seed + 2,
+                                         dtype=dt, clear_frac=clear_frac,
+                                         **(dict(layout=layout, **kw)
+                                            if layout != "compact" else kw))
+            c_j = jsyn.make_mcica_clouds(ncol=6, nlay=17, seed=seed + 2,
+                                         dtype=dt, layout=layout,
+                                         clear_frac=clear_frac, **kw)
+            assert c_t._fields == c_j._fields
+            assert type(c_t).__name__ == type(c_j).__name__
+            for name in c_j._fields:
+                x, y = getattr(c_t, name), getattr(c_j, name)
+                assert x.dtype == y.dtype and x.shape == y.shape, name
+                np.testing.assert_array_equal(x, y, err_msg=name)
         for nlay in (17, 2):            # decks past the top layer pile up
             b_t = tsyn.make_band_clouds(ncol=6, nlay=nlay, seed=seed + 1,
                                         dtype=dt)
@@ -157,6 +162,20 @@ def _c_enum(src, name):
     body = re.search(r"enum " + name + r" \{(.*?)\};", src, re.S).group(1)
     return [t.strip() for t in body.replace("\n", " ").split(",")
             if t.strip()]
+
+
+def test_rt_modes_match_cuda_source():
+    """The K1 mode numbers of the wrappers are the kernel's enum Mode."""
+    from rrtmg_lw_torch.ops import rtrn_cuda
+    src = open(os.path.join(REPO, "rrtmg_lw_torch", "csrc",
+                            "rtrn.cuh")).read()
+    names = [t.split("=")[0].strip() for t in _c_enum(src, "Mode")]
+    values = [int(t.split("=")[1]) for t in _c_enum(src, "Mode")]
+    assert values == list(range(len(names)))
+    assert names == [m.upper() for m in rtrn_cuda.MODES]
+    assert list(rtrn_cuda.MODES.values()) == values
+    assert set(rtrn_cuda.CLOUD_INPUTS) | {"clear", "compact"} == \
+        set(rtrn_cuda.MODES)
 
 
 def test_taumol_descriptor_layout_matches_cuda_source():
@@ -208,14 +227,26 @@ def test_config_impl_resolution():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(idrv=1), dict(use_lut=True), dict(icld=1, imca=0, iceflag=1),
-    dict(icld=2, imca=0, liqflag=0), dict(icld=2, imca=0, idrv=1),
-    dict(istart=16), dict(icld=2, inflag=0)])
+    dict(use_lut=True, idrv=1), dict(use_lut=True),
+    dict(icld=1, imca=0, iceflag=1), dict(icld=2, imca=0, liqflag=0),
+    dict(icld=3, imca=0, liqflag=0), dict(istart=16),
+    dict(istart=16, icld=1)])
 def test_unported_configs_raise(kw):
     cfg = dict(use_lut=False)
     cfg.update(kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_model(LWConfig(**cfg), device="cpu")
+
+
+@pytest.mark.parametrize("icld", [1, 2])
+def test_mcica_inflag1_raises_value_error(icld):
+    """Grey cloud optics (inflag=1) are not available with McICA, as in
+    the JAX package (rrtmg_lw_cldprmc.f90:191); per-band clouds take it."""
+    with pytest.raises(ValueError, match="INFLAG=1"):
+        make_model(LWConfig(icld=icld, imca=1, inflag=1, use_lut=False),
+                   device="cpu")
+    make_model(LWConfig(icld=icld, imca=0, inflag=1, use_lut=False),
+               device="cpu")
 
 
 def test_build_hash_covers_sources():
@@ -229,7 +260,8 @@ def test_build_hash_covers_sources():
 
 
 def test_cuda_wrappers_send_cpu_tensors_to_plain_versions(monkeypatch):
-    from rrtmg_lw_torch import Atmosphere, BandClouds, McicaCloudsCompact
+    from rrtmg_lw_torch import (Atmosphere, BandClouds, McicaCloudsBlocked,
+                                McicaCloudsCompact)
     from rrtmg_lw_torch.ops import cldcoef_cuda, cldprop, planck_cuda, rtrn
     from rrtmg_lw_torch.ops import rtrn_cuda, rtrnmr, rtrnmr_cuda, setcoef
     from rrtmg_lw_torch.ops.inatm import inatm
@@ -240,9 +272,9 @@ def test_cuda_wrappers_send_cpu_tensors_to_plain_versions(monkeypatch):
     monkeypatch.setattr(_build, "launch", no_kernels)
     wrappers = (planck_cuda.planck_interp_blocked,
                 cldcoef_cuda.ice_liq_coeffs_blocked,
-                taumol_cuda.taumol_blocked, rtrn_cuda.rt_fluxes_blocked,
-                rtrn_cuda.rt_fluxes_banded, rtrn_cuda.rt_fluxes_maxrand,
-                rtrnmr_cuda.overlap_rows)
+                taumol_cuda.taumol_blocked, rtrnmr_cuda.overlap_rows,
+                *rtrn_cuda.WRAPPERS.values(),
+                *(w.idrv for w in rtrn_cuda.WRAPPERS.values()))
     before = [w.launches for w in wrappers]
 
     B, L = 5, 9
@@ -272,11 +304,25 @@ def test_cuda_wrappers_send_cpu_tensors_to_plain_versions(monkeypatch):
                                          model.totplnk)
     plev = setcoef.interp_planck_blocked(temp, model.totplnk)
     cw = torch.stack([cl.ciwp.t(), cl.clwp.t()], 1).contiguous()
-    for fields in (None, (cl.cldfmc, cw, *ref)):
-        args = (tg, fr, play, plev, sc.plankbnd, prof.semiss, prof.pwvcm,
-                model.ngb0, model.wg, fields)
-        assert torch.equal(rtrn_cuda.rt_fluxes_blocked(*args),
-                           rtrn.rt_fluxes_blocked(*args))
+    blk = McicaCloudsBlocked.from_numpy(
+        tsyn.make_mcica_clouds(B, L, layout="blocked"), "cpu")
+    tauc, cldf, _ = cldprop.cldprmc_blocked(blk, static, inflag=2,
+                                            iceflag=3, liqflag=1)
+    args = (tg, fr, play, plev, sc.plankbnd, prof.semiss, prof.pwvcm,
+            model.ngb0, model.wg)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(
+            a if isinstance(a, tuple) else (a,),
+            b if isinstance(b, tuple) else (b,)))
+    for mode, fields in (("blocked", None), ("blocked", (cl.cldfmc, cw, *ref)),
+                         ("fused", (*blk[:4], *ref)),
+                         ("cldf_od", (cldf, tauc))):
+        for dpl in (None, sc.dplankbnd_dt):
+            got = rtrn_cuda.WRAPPERS[mode](*args, fields, dplankbnd_dt=dpl)
+            want = rtrn.FLUXES[mode](*args, fields, dplankbnd_dt=dpl)
+            assert isinstance(got, tuple) == (dpl is not None)
+            assert same(got, want), (mode, dpl is None)
     bc = BandClouds.from_numpy(tsyn.make_band_clouds(B, L), "cpu")
     rows = rtrnmr_cuda.overlap_rows(bc.cldfrac)
     assert torch.equal(rows, rtrnmr.overlap_rows(bc.cldfrac))
@@ -290,6 +336,8 @@ def test_cuda_wrappers_send_cpu_tensors_to_plain_versions(monkeypatch):
              bc.cldfrac.t().contiguous()),
             (rtrn_cuda.rt_fluxes_maxrand, rtrn.rt_fluxes_maxrand, rows)):
         assert torch.equal(kern(*args, cld, taucb), plain(*args, cld, taucb))
+        assert same(kern(*args, cld, taucb, dplankbnd_dt=sc.dplankbnd_dt),
+                    plain(*args, cld, taucb, dplankbnd_dt=sc.dplankbnd_dt))
     assert [w.launches for w in wrappers] == before
 
 
