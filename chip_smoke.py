@@ -19,7 +19,16 @@ Phases, each raising on failure (any failure exits non-zero):
      with an input cloud od) and each at idrv=1, and the overlap rows,
      each also bitwise equal over two runs, the idrv=1 flux rows bitwise
      equal to idrv=0's; the deterministic-cloud modes on make_band_clouds
-     and on a cloud field whose fractions vary inside cloudy blocks;
+     and on a cloud field whose fractions vary inside cloudy blocks; then
+     reduced spectral storage (K7, RRTMG_SPEC_DTYPE): K2 in bf16, f16 and
+     logu16 against the plain encode of K2's own float32 output (bf16 /
+     f16 bitwise, logu16 codes equal or one apart, the share printed) and
+     of the plain K2's (at most one step apart), and K1 in all 6 modes x
+     idrv 0/1 x those 3 storages against the plain decode + aerosol add +
+     sweep on the same codes, within TOL_FLUX and bitwise over two runs,
+     on a seeded aerosol od that a dropped add, or one read at other
+     bands, layers or columns, would fail (each fault must leave
+     TOL_FLUX);
   4. end to end, cell by cell: clear sky and McICA (compact int8-mask
      clouds), deterministic clouds (BandClouds, imca=0) band_cloudy
      (icld=1) and maxrand_cloudy (icld=2), McICA per-g clouds
@@ -32,7 +41,15 @@ Phases, each raising on failure (any failure exits non-zero):
      (0 for the others); fluxes (and duflx_dt / duflxc_dt at idrv=1) held
      against the same model run with impl="eager" on the card; then one
      from_profile step with Profile.dtbound set and one float-mask
-     McicaCloudsCompact step (K1 fused), each against eager;
+     McicaCloudsCompact step (K1 fused), each against eager; then the
+     reduced-storage cells, counted the same way: clear and McICA in
+     logu16 (3 steps each), one step of McICA in bf16 and in f16 and of
+     the banded, maxrand, fused and cldf-odcld paths in logu16, on an
+     atmosphere with aerosol, each sweep receiving taug in storage and
+     the nonzero aerosol od apart, each step
+     held to the eager model with the same storage and to the float32
+     step (logu16 within TOL_TAUMOL of max |flux|; bf16 / f16 printed);
+     peak memory of a clear and a McICA step, float32 against logu16;
   5. deep: one McICA step at L=140 with the same checks;
   6. grad: each backward kernel (K3b Planck slope, K5 taumol, K6 RT
      adjoint) against the plain vjp of its forward's plain version on the
@@ -45,7 +62,12 @@ Phases, each raising on failure (any failure exits non-zero):
      columns against the eager step's (run in column chunks); clear sky,
      1 step, the same check; the McICA step at idrv=1 bitwise equal to
      idrv=0's, and a cotangent of duflx_dt or a backward through the
-     fused mode raising NotImplementedError.
+     fused mode raising NotImplementedError; a logu16 grad step raising
+     NotImplementedError on both impls;
+  7. probes (utils/probes.py, the archived Pallas probes' counterparts):
+     the one-hot selection product (bf16 and exact, dout 128 and 1656)
+     and the row gather bitwise equal to tbl[idx], their rates, the
+     launch latency and the 4096^3 matmul rates.
 The last two lines of stdout are the kernels' JSON summary and
 {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and
 prints no result.
@@ -87,16 +109,19 @@ TOL_ROWS = 1e-6
 # sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12      # dense bf16 on the tensor cores
 # operations per element of the main loop, estimated from the kernel
 # sources (add, multiply, compare, select, expf and division one each),
 # rounded up: per (layer, g, column) for taumol and the RT sweeps
 # (down + up sweep; the cloud terms only in a cloudy layer), per output
 # element for Planck and the cloud coefficients, per (layer, column) for
-# the overlap rows
+# the overlap rows; spec_codec per logu16 encode or decode (log or exp,
+# clip, round)
 OPS = dict(taumol=60, planck=8, cldcoef=10, rt_clear=60, rt_cloud=40,
            rt_maxrand=60, overlap=100, taumol_bwd=200, planck_bwd=8,
-           rt_adjoint=270, rt_ddt=10)
+           rt_adjoint=270, rt_ddt=10, spec_codec=10)
 
+K1_SRC = "rrtmg_lw_torch/csrc/rtrn_kernel.cuh"
 KERNELS = (  # name, source, replaced TPU kernel
     ("taumol", "rrtmg_lw_torch/csrc/taumol.cu",
      "rrtmg_lw_tpu/ops/taumol_pallas.py:1068"),
@@ -104,25 +129,30 @@ KERNELS = (  # name, source, replaced TPU kernel
      "rrtmg_lw_tpu/ops/planck_pallas.py:47"),
     ("cldcoef", "rrtmg_lw_torch/csrc/cldcoef.cu",
      "rrtmg_lw_tpu/ops/cldcoef_pallas.py:43"),
-    ("rt_sweep", "rrtmg_lw_torch/csrc/rtrn.cu",
-     "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
+    ("rt_sweep", K1_SRC, "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
     ("taumol_bwd", "rrtmg_lw_torch/csrc/taumol_bwd.cu",
      "rrtmg_lw_tpu/ops/taumol_pallas.py:1116"),
     ("planck_bwd", "rrtmg_lw_torch/csrc/planck.cu",
      "rrtmg_lw_tpu/ops/planck_pallas.py:137"),
     ("rt_adjoint", "rrtmg_lw_torch/csrc/rtrn_bwd.cu",
      "rrtmg_lw_tpu/ops/rtrn_bwd.py:259"),
-    ("rt_sweep_banded", "rrtmg_lw_torch/csrc/rtrn.cu",
-     "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
-    ("rt_sweep_maxrand", "rrtmg_lw_torch/csrc/rtrn.cu",
-     "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
+    ("rt_sweep_banded", K1_SRC, "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
+    ("rt_sweep_maxrand", K1_SRC, "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
     ("overlap_rows", "rrtmg_lw_torch/csrc/overlap.cu",
      "rrtmg_lw_tpu/ops/rtrn_pallas.py:1155"),
-) + tuple((name, "rrtmg_lw_torch/csrc/rtrn.cu",
-           "rrtmg_lw_tpu/ops/rtrn_pallas.py:140") for name in (
+) + tuple((name, K1_SRC, "rrtmg_lw_tpu/ops/rtrn_pallas.py:140") for name in (
     "rt_sweep_fused", "rt_sweep_cldf_od", "rt_sweep_idrv",
     "rt_sweep_banded_idrv", "rt_sweep_maxrand_idrv", "rt_sweep_fused_idrv",
-    "rt_sweep_cldf_od_idrv"))
+    "rt_sweep_cldf_od_idrv")) + (
+    # K7, the spectral codec: K2's store and K1's reads in logu16 storage
+    ("taumol_spec", "rrtmg_lw_torch/csrc/taumol.cu",
+     "rrtmg_lw_tpu/ops/taumol_pallas.py:867"),
+    ("rt_sweep_spec", K1_SRC, "rrtmg_lw_tpu/ops/rtrn_pallas.py:260"),
+    # the archived probes
+    ("probe_onehot", "rrtmg_lw_torch/csrc/probes.cu",
+     "tools/archive/calib.py:31"),
+    ("probe_gather", "rrtmg_lw_torch/csrc/probes.cu",
+     "tools/archive/test_pallas_gather.py:17"))
 
 
 def need(cond, msg):
@@ -152,18 +182,19 @@ def cuda_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def bound(inputs, outputs, ops, nbytes=0):
+def bound(inputs, outputs, ops, nbytes=0, ops_rate=F32_OPS_PER_S,
+          library_ms=None):
     """bound_ms, bound_by and library_ms (None: no one PyTorch call
-    computes any of these kernels' functions) of a kernel that reads
-    ``inputs`` and writes ``outputs`` (tensors, None skipped), moves
-    ``nbytes`` more and does ``ops`` operations."""
+    computes the kernel's function) of a kernel that reads ``inputs`` and
+    writes ``outputs`` (tensors, None skipped), moves ``nbytes`` more and
+    does ``ops`` operations at ``ops_rate``."""
     nbytes += sum(t.numel() * t.element_size()
                   for t in (*inputs, *outputs) if t is not None)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_rate * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None)
+                library_ms=library_ms)
 
 
 def flux_err(a, b):
@@ -175,10 +206,11 @@ def flux_err(a, b):
     return float((diff / scale).max())
 
 
-def inputs(cell, device):
-    """The synthetic inputs of ``cell`` (utils/profiling.py's builder)."""
+def inputs(cell, device, aod=None):
+    """The synthetic inputs of ``cell`` (utils/profiling.py's
+    ``cell_inputs``), with the aerosol od ``aod`` (default the cell's)."""
     from rrtmg_lw_torch.utils.profiling import cell_inputs
-    return cell_inputs(cell, device)
+    return cell_inputs(cell, device, aod)
 
 
 def mixed_clouds(bc, device):
@@ -922,6 +954,345 @@ def phase_grad_idrv(device):
           "idrv=0's (deterministic algorithms)")
 
 
+# reduced spectral storage (RRTMG_SPEC_DTYPE, K7): the storage dtypes
+SPECS = ("bf16", "f16", "logu16")
+FLUX_NAMES = ("uflx", "dflx", "uflxc", "dflxc")
+
+
+def flat(out):
+    """A sweep's fluxes, with the d/dT rows after them at idrv=1."""
+    return torch.cat(out) if isinstance(out, tuple) else out
+
+
+def phase_storage_kernels(device):
+    """K2 in each reduced storage against the plain encode of K2's own
+    float32 output (bf16 / f16 bitwise, logu16 codes equal or one apart)
+    and of the plain K2's; K1 in every mode x idrv 0/1 x storage against
+    the plain decode + aerosol add + sweep on the same codes, within
+    TOL_FLUX per column and bitwise over two runs, on a seeded aerosol od
+    that varies in layer, band and column: the same check of a K1 that
+    dropped the add, or read taua at reversed bands or layers or at
+    shifted columns, must fail.  Times of the logu16 K2 and of the logu16
+    compact sweep."""
+    from rrtmg_lw_torch import LWConfig, make_model
+    from rrtmg_lw_torch.ops import rtrn
+    from rrtmg_lw_torch.ops.inatm import inatm
+    from rrtmg_lw_torch.ops.planck_cuda import planck_interp_blocked
+    from rrtmg_lw_torch.ops.rtrn_cuda import WRAPPERS
+    from rrtmg_lw_torch.ops.setcoef import setcoef
+    from rrtmg_lw_torch.ops.spec_codec import (SPEC_DTYPES, spec_load_frac,
+                                               spec_load_taut, spec_order,
+                                               spec_store)
+    from rrtmg_lw_torch.ops.taumol_cuda import _pack_inputs, taumol_blocked
+    from rrtmg_lw_torch.utils.profiling import AOD_SPEC
+    from rrtmg_lw_torch.utils.snapshot import k1_cloud_args
+
+    model = make_model(LWConfig(icld=2, imca=1, dtype="float32",
+                                use_lut=False, impl="cuda"), device=device)
+    atm, clouds = inputs("mcica_cloudy", device, aod=AOD_SPEC)
+    prof = inatm(atm, dtype=torch.float32)
+    static = model.static_tensors()
+    sc = setcoef(prof, static, planck=False)
+    eng, tabs, desc = model.engine, model.kernel_tabs, model.kernel_desc
+    f32_k = taumol_blocked(sc, prof, eng, tabs, desc)
+    f32_p = eng.blocked(sc, prof)
+    res, codes = {}, {}
+    for spec in SPECS:
+        sdt = SPEC_DTYPES[spec]
+        got = taumol_blocked(sc, prof, eng, tabs, desc, spec_dtype=sdt)
+        again = taumol_blocked(sc, prof, eng, tabs, desc, spec_dtype=sdt)
+        need(all(torch.equal(spec_order(a), spec_order(b))
+                 for a, b in zip(got, again)),
+             f"taumol_spec {spec}: two runs differ")
+        line, err = [], 0.0
+        for k, xk, xp, which in zip(got, f32_k, f32_p, ("tg", "fr")):
+            d_own = (spec_order(k)
+                     - spec_order(spec_store(xk, sdt, which))).abs()
+            plain = spec_store(xp, sdt, which)
+            d_plain = (spec_order(k) - spec_order(plain)).abs()
+            n_own, n_plain = int((d_own != 0).sum()), int((d_plain != 0).sum())
+            need(int(d_own.max()) <= (1 if spec == "logu16" else 0)
+                 and int(d_plain.max()) <= 1,
+                 f"taumol_spec {spec} {which}: {n_own} elements off the "
+                 f"encode of K2's float32 output (max {int(d_own.max())}), "
+                 f"{n_plain} off the plain K2's (max {int(d_plain.max())})")
+            load = spec_load_taut if which == "tg" else spec_load_frac
+            err = max(err, float((load(k) - load(plain)).abs().max()))
+            line.append(f"{which} {n_own} ({n_own / k.numel():.2e}) / "
+                        f"{n_plain} ({n_plain / k.numel():.2e})")
+        print(f"taumol_spec {spec}: elements one step off the encode of "
+              f"K2's float32 output / of the plain K2's: " + "; ".join(line)
+              + f"; max |decoded diff| vs plain {err:.3g}")
+        codes[spec] = got
+        if spec == "logu16":
+            res["taumol_spec"] = dict(
+                max_abs_err=err,
+                ms=cuda_ms(lambda: taumol_blocked(sc, prof, eng, tabs, desc,
+                                                  spec_dtype=sdt), 5),
+                plain_ms=cuda_ms(lambda: [
+                    spec_store(x, sdt, w) for x, w in
+                    zip(eng.blocked(sc, prof), ("tg", "fr"))], 2),
+                **bound((*_pack_inputs(sc, prof), tabs, desc), got,
+                        (OPS["taumol"] + OPS["spec_codec"])
+                        * got[0].numel()))
+    del f32_k, f32_p
+
+    # the aerosol od K1 adds after the decode, up to 0.02 per layer and
+    # band (a column od ~0.6), different in every (layer, band, column)
+    gen = torch.Generator(device=device).manual_seed(4)
+    taua_t = 0.02 * torch.rand((L_MAIN, 16, B_MAIN), generator=gen,
+                               device=device)
+    faults = {"no aerosol add": torch.zeros_like(taua_t),
+              "bands reversed": taua_t.flip(1).contiguous(),
+              "layers reversed": taua_t.flip(0).contiguous(),
+              "columns shifted": taua_t.roll(1, 2).contiguous()}
+    rest = (planck_interp_blocked(prof.tavel.t().contiguous(), model.totplnk),
+            planck_interp_blocked(prof.tz.t().contiguous(), model.totplnk),
+            sc.plankbnd, prof.semiss, prof.pwvcm, model.ngb0, model.wg)
+    modes = k1_cloud_args(device, static, clouds)
+    worst = (0.0, 0.0)
+    for spec in SPECS:
+        tg, fr = codes[spec]
+        errs, moved = [], []
+        for name, (w, cl) in modes.items():
+            kern, plain = WRAPPERS[w], rtrn.FLUXES[w]
+            fp = plain(tg, fr, *rest, *cl, taua_t=taua_t)
+            for fault, ta in faults.items():
+                e = flux_err(fp, kern(tg, fr, *rest, *cl, taua_t=ta))
+                need(e > TOL_FLUX, f"rt_sweep_spec {spec} {name}: with "
+                     f"{fault} K1 would pass ({e:.3g} <= {TOL_FLUX})")
+                moved.append(e)
+            for idrv in (0, 1):
+                kw = dict(taua_t=taua_t,
+                          dplankbnd_dt=sc.dplankbnd_dt if idrv else None)
+                fk = flat(kern(tg, fr, *rest, *cl, **kw))
+                fp = flat(plain(tg, fr, *rest, *cl, **kw))
+                tag = f"rt_sweep_spec {spec} {name}" + (" idrv" if idrv
+                                                        else "")
+                need(bool(torch.isfinite(fk).all()), f"{tag}: non-finite")
+                need(torch.equal(fk, flat(kern(tg, fr, *rest, *cl, **kw))),
+                     f"{tag}: two runs differ")
+                e = flux_err(fp, fk)
+                need(e <= TOL_FLUX, f"{tag}: flux err {e:.3g} > {TOL_FLUX}")
+                errs.append(e)
+                worst = max(worst, (e, float((fk - fp).abs().max())))
+        print(f"rt_sweep_spec {spec}: 6 modes x idrv 0/1 within "
+              f"{max(errs):.3g} of the plain decode-add-sweep per column, "
+              "bitwise over two runs; with the aerosol add dropped or "
+              f"misread ({', '.join(faults)}) at least {min(moved):.3g}")
+    tg, fr = codes["logu16"]
+    cf = modes["compact"][1]
+    ncld = int((clouds.cldfmc[:, :140] != 0).any(1).sum())
+    kw = dict(taua_t=taua_t)
+    fk = WRAPPERS["blocked"](tg, fr, *rest, *cf, **kw)
+    res["rt_sweep_spec"] = dict(
+        max_abs_err=worst[1], max_rel_err=worst[0],
+        ms=cuda_ms(lambda: WRAPPERS["blocked"](tg, fr, *rest, *cf, **kw), 5),
+        plain_ms=cuda_ms(lambda: rtrn.FLUXES["blocked"](tg, fr, *rest, *cf,
+                                                        **kw), 2),
+        **bound((tg, fr, taua_t, *rest, *cf[0]), (fk,),
+                140 * (OPS["rt_clear"] * L_MAIN * B_MAIN
+                       + OPS["rt_cloud"] * ncld)
+                + 2 * OPS["spec_codec"] * tg.numel()))
+    for name in ("taumol_spec", "rt_sweep_spec"):
+        r = res[name]
+        print(f"{name}: max_abs_err {r['max_abs_err']:.3g} kernel "
+              f"{r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+    return res
+
+
+# reduced-storage cells: tag, cell of utils/profiling.py, steps, launches
+# per step, storage; the main path's two cells in logu16 for 3 steps, one
+# step of the other storages and of the other K1 modes
+SPEC_FWD = dict(FWD, taumol_spec=1)
+CELLS_SPEC = (
+    ("clear_logu16", "clear_logu16", STEPS,
+     dict(SPEC_FWD, cldcoef=0, rt_sweep=1, rt_sweep_spec=1), "logu16"),
+    ("mcica_cloudy_logu16", "mcica_cloudy_logu16", STEPS,
+     dict(SPEC_FWD, rt_sweep=1, rt_sweep_spec=1), "logu16"),
+    ("mcica_cloudy_bf16", "mcica_cloudy", 1,
+     dict(SPEC_FWD, rt_sweep=1, rt_sweep_spec=1), "bf16"),
+    ("mcica_cloudy_f16", "mcica_cloudy", 1,
+     dict(SPEC_FWD, rt_sweep=1, rt_sweep_spec=1), "f16"),
+    ("band_cloudy_logu16", "band_cloudy", 1,
+     dict(SPEC_FWD, rt_sweep_banded=1, rt_sweep_banded_spec=1), "logu16"),
+    ("maxrand_cloudy_logu16", "maxrand_cloudy", 1,
+     dict(SPEC_FWD, rt_sweep_maxrand=1, rt_sweep_maxrand_spec=1,
+          overlap_rows=1), "logu16"),
+    ("mcica_blocked_logu16", "mcica_blocked", 1,
+     dict(SPEC_FWD, rt_sweep_fused=1, rt_sweep_fused_spec=1), "logu16"),
+    ("mcica_tauc_logu16", "mcica_tauc", 1,
+     dict(SPEC_FWD, cldcoef=0, rt_sweep_cldf_od=1, rt_sweep_cldf_od_spec=1),
+     "logu16"))
+
+
+def storage_cells(device, counters):
+    """Each cell of CELLS_SPEC through the kernels with its storage, on an
+    atmosphere with aerosol (AOD_SPEC), counted on its own; every K1
+    launch must receive taug / fracs in that storage and the nonzero
+    aerosol od apart (no add outside K1); fluxes held to the eager model
+    with the same storage on the card, and to the float32 step: logu16
+    within TOL_TAUMOL of max |flux|, bf16 / f16 printed."""
+    from rrtmg_lw_torch.ops import rtrn_cuda
+    from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES
+    from rrtmg_lw_torch.utils.profiling import AOD_SPEC, CELLS
+    launches, rows, seen = {}, [], []
+    launch = rtrn_cuda._launch
+
+    def spy(mode, wrapper, taut_t, *a, taua=None, **kw):
+        seen.append((taut_t.dtype, taua))
+        return launch(mode, wrapper, taut_t, *a, taua=taua, **kw)
+
+    rtrn_cuda._launch = spy
+    try:
+        for tag, cell, steps, per_step, spec in CELLS_SPEC:
+            atm, clouds = inputs(cell, device, aod=AOD_SPEC)
+            need(float(atm.tauaer.min()) > 0.0,
+                 f"{tag}: the atmosphere has no aerosol")
+            c = CELLS[cell]
+            model = c.make_model(device, spec=spec, impl="cuda")
+            need(model.spec_dtype == SPEC_DTYPES[spec]
+                 and model.reduced_storage, f"{tag}: storage not set")
+            model(atm, clouds)                       # warm-up
+            torch.cuda.synchronize()
+            seen.clear()
+            fk, ms, launches[tag] = counted_steps(tag, model, atm, clouds,
+                                                  steps, counters, per_step)
+            got = [(d, None if t is None else float(t.min()))
+                   for d, t in seen]
+            need(len(got) == steps and all(
+                d == SPEC_DTYPES[spec] and t is not None and t > 0.0
+                for d, t in got),
+                 f"{tag}: K1 received {got} (storage, least aerosol od), "
+                 f"expected taug in {SPEC_DTYPES[spec]} and the aerosol od "
+                 "apart")
+            fe, ms_e = run_steps(c.make_model(device, spec=spec,
+                                              impl="eager"), atm, clouds, 1)
+            err = compare_models(tag, fk, fe, clouds is not None)
+            f32 = c.make_model(device, spec="", impl="cuda")(atm, clouds)
+            e32 = max(rel_err(getattr(fk, n), getattr(f32, n))
+                      for n in FLUX_NAMES)
+            e32c = max(flux_err(getattr(f32, n).t(), getattr(fk, n).t())
+                       for n in FLUX_NAMES)
+            if spec == "logu16":
+                need(e32 <= TOL_TAUMOL, f"{tag}: flux err vs the float32 "
+                     f"step {e32:.3g} of max |flux| > {TOL_TAUMOL}")
+            print(f"{tag}: flux err cuda vs eager {err:.3g}; vs the float32 "
+                  f"step {e32:.3g} of max |flux| ({e32c:.3g} per column)"
+                  + ("" if spec == "logu16" else ", not gated"))
+            for impl, t in (("cuda", ms), ("eager", ms_e)):
+                rows.append(dict(cell=tag, impl=impl, ncol=B_MAIN,
+                                 nlay=L_MAIN, ms_per_step=t,
+                                 cols_per_sec=B_MAIN / (t * 1e-3),
+                                 err_vs_f32=e32,
+                                 **(dict(launches=launches[tag])
+                                    if impl == "cuda" else {})))
+            del model, atm, clouds, fk, fe, f32
+            torch.cuda.empty_cache()
+    finally:
+        rtrn_cuda._launch = launch
+    return launches, rows
+
+
+def peak_memory(device):
+    """Peak device memory of one forward step of ``clear`` and
+    ``mcica_cloudy``, in float32 and in logu16 storage (allocations since
+    the reset after a warm-up step, the model and inputs included)."""
+    from rrtmg_lw_torch.utils.profiling import CELLS
+    out = {}
+    for cell in ("clear", "mcica_cloudy"):
+        atm, clouds = inputs(cell, device)
+        for spec in ("", "logu16"):
+            model = CELLS[cell].make_model(device, spec=spec, impl="cuda")
+            model(atm, clouds)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model(atm, clouds)
+            torch.cuda.synchronize()
+            out[cell, spec or "f32"] = torch.cuda.max_memory_allocated()
+            del model
+            torch.cuda.empty_cache()
+        print(f"peak memory {cell}: float32 {out[cell, 'f32'] / 2**30:.3f} "
+              f"GiB, logu16 {out[cell, 'logu16'] / 2**30:.3f} GiB "
+              f"({(out[cell, 'f32'] - out[cell, 'logu16']) / 1e9:.3f} GB "
+              "less)")
+    return out
+
+
+def storage_grad_raises(device):
+    """A gradient step of a logu16 model raises NotImplementedError on
+    both impls (cuda at B=16384, eager on 256 columns)."""
+    from rrtmg_lw_torch.parallel import make_grad_step
+    from rrtmg_lw_torch.utils.profiling import CELLS
+    atm, clouds = inputs("mcica_cloudy", device)
+    for impl, (a, c) in (("cuda", (atm, clouds)),
+                         ("eager", columns(atm, clouds, slice(0, 256)))):
+        model = CELLS["mcica_cloudy_logu16"].make_model(device, impl=impl)
+        try:
+            make_grad_step(model)(a, c)
+        except NotImplementedError as e:
+            need("RRTMG_SPEC_DTYPE" in str(e), f"grad logu16 {impl}: {e}")
+        else:
+            need(False, f"grad logu16 {impl}: the backward did not raise")
+        print(f"grad: a logu16 step raises NotImplementedError ({impl})")
+
+
+def phase_probes(device):
+    """The archived probes' counterparts (utils/probes.py): bitwise
+    checks, then the one-hot and gather rates, launch latency and matmul
+    rates.  -> (kernel entries, launches during the probes)."""
+    from rrtmg_lw_torch.utils import probes
+    probes.onehot_select.launches = probes.gather_rows.launches = 0
+    m = probes.measure(device)
+    launches = dict(probe_onehot=probes.onehot_select.launches,
+                    probe_gather=probes.gather_rows.launches)
+    for name, r in m.items():
+        if name.startswith("onehot"):
+            print(f"probe {name}: bitwise equal to tbl[idx]; kernel "
+                  f"{r['ms']:.4f} ms = {r['tflops_as_archived']:.1f} TFLOP/s "
+                  f"as test_mxu_rate.py counts (C R D 2), "
+                  f"{r['tflops_done']:.1f} done, {r['gbps_written']:.0f} "
+                  f"GB/s written; plain {r['plain_ms']:.3f} ms, tbl[idx] "
+                  f"{r['library_ms']:.4f} ms")
+        elif name.startswith("gather_onehot"):
+            print(f"probe {name}: the one-hot's rows by the gather kernel, "
+                  f"bitwise equal to tbl[idx]; {r['ms']:.4f} ms = "
+                  f"{r['gbps_written']:.0f} GB/s written")
+        elif name == "gather":
+            print(f"probe gather (1760 x 16)[{probes.C_PROBE}]: bitwise "
+                  f"equal to tbl[idx]; kernel {r['ms']:.4f} ms = "
+                  f"{r['gbps_written']:.0f} GB/s written, "
+                  f"{r['rows_per_s']:.3g} rows/s; plain {r['plain_ms']:.4f} "
+                  f"ms, tbl[idx] {r['library_ms']:.4f} ms")
+        elif name.startswith("matmul"):
+            print(f"probe {name} {probes.MATMUL_N}^3 (torch.matmul): "
+                  f"{r['ms']:.3f} ms = {r['tflops']:.1f} TFLOP/s; chained "
+                  f"{r['chained_ms']:.3f} ms = {r['chained_tflops']:.1f}")
+    print("probe launch latency, host ms per one-hot (bf16, dout 128) "
+          "launch, n back to back: " + ", ".join(
+              f"n={n} {t:.4f}" for n, t in m["latency_ms_per_iter"].items())
+          + f"; dependent chain {m['chained_onehot_ms_per_iter']:.4f} ms")
+    idx, tbl = probes.probe_inputs(device)
+    gidx, gtbl = probes.probe_inputs(device, R=probes.R_GATHER,
+                                     D=probes.D_GATHER)
+    C, dout = probes.C_PROBE, probes.DOUT_PROBE
+    kpad = (probes.R_PROBE + 15) // 16 * 16
+    on, g = m[f"onehot_exact_{dout}"], m["gather"]
+    res = {
+        "probe_onehot": dict(
+            max_abs_err=0.0, ms=on["ms"], plain_ms=on["plain_ms"],
+            **bound((idx, tbl[:, :dout]), (), C * kpad * dout * 2 * 3,
+                    nbytes=C * dout * 4, ops_rate=BF16_TC_OPS_PER_S,
+                    library_ms=on["library_ms"])),
+        "probe_gather": dict(
+            max_abs_err=0.0, ms=g["ms"], plain_ms=g["plain_ms"],
+            **bound((gidx, gtbl), (), 0, nbytes=gidx.numel() * gtbl.shape[1]
+                    * 4, library_ms=g["library_ms"]))}
+    return res, launches
+
+
 def main() -> int:
     # importing the port first: from a directory without it this fails
     # before anything is printed
@@ -966,8 +1337,10 @@ def main() -> int:
         if "entry function" in line or "Used" in line or "spill" in line:
             print("  " + line.strip())
 
-    # 3. kernels vs plain versions
+    # 3. kernels vs plain versions; then K2 and K1 in reduced storage
     res = phase_kernels(device)
+    torch.cuda.empty_cache()
+    res.update(phase_storage_kernels(device))
     torch.cuda.empty_cache()
 
     # 4. end to end, each cell with its own launch counts: clear and
@@ -984,11 +1357,22 @@ def main() -> int:
                         rt_sweep_banded_idrv=rt_fluxes_banded.idrv,
                         rt_sweep_maxrand_idrv=rt_fluxes_maxrand.idrv,
                         rt_sweep_fused_idrv=rt_fluxes_fused.idrv,
-                        rt_sweep_cldf_od_idrv=rt_fluxes_cldf_od.idrv)
+                        rt_sweep_cldf_od_idrv=rt_fluxes_cldf_od.idrv,
+                        taumol_spec=taumol_blocked.spec,
+                        rt_sweep_spec=rt_fluxes_blocked.spec,
+                        rt_sweep_banded_spec=rt_fluxes_banded.spec,
+                        rt_sweep_maxrand_spec=rt_fluxes_maxrand.spec,
+                        rt_sweep_fused_spec=rt_fluxes_fused.spec,
+                        rt_sweep_cldf_od_spec=rt_fluxes_cldf_od.spec)
     cell_launches, rows = forward_cells(
         device, fwd_counters, CELLS_MAIN + CELLS_BAND + CELLS_PER_G
         + CELLS_IDRV)
     extra_steps(device, fwd_counters)
+    # the reduced-storage cells (K7), and peak memory f32 vs logu16
+    spec_launches, spec_rows = storage_cells(device, fwd_counters)
+    cell_launches.update(spec_launches)
+    rows += spec_rows
+    peak_memory(device)
     # each kernel's launches: those of the first cell that runs it
     launches = {}
     for counts in cell_launches.values():
@@ -1008,9 +1392,15 @@ def main() -> int:
     grad_launches, grad_rows = phase_grad_step(device, counters)
     rows += grad_rows
     phase_grad_idrv(device)
+    storage_grad_raises(device)
     torch.cuda.empty_cache()
     launches.update({k: grad_launches[k]
                      for k in ("taumol_bwd", "planck_bwd", "rt_adjoint")})
+
+    # 7. the archived probes' counterparts
+    probe_res, probe_launches = phase_probes(device)
+    res.update(probe_res)
+    launches.update(probe_launches)
     for r in rows:
         print("e2e " + json.dumps(r))
 

@@ -44,12 +44,14 @@ SIGNATURES = {
     "rrtm_planck": (P, P, P, I, I, P),
     "rrtm_planck_bwd": (P, P, P, P, I, I, P),
     "rrtm_cldcoef": (P, P, P, P, P, P, I, I, I, P),
-    "rrtm_taumol": (P, P, P, P, P, P, P, I, I, P),
+    "rrtm_taumol": (P, P, P, P, P, P, P, I, I, I, P),
     "rrtm_taumol_bwd": (P, P, P, P, P, P, P, I, I, P),
-    "rrtm_rt": (P,) * 18 + (I, I, I, I, P),
+    "rrtm_rt": (P,) * 19 + (I,) * 5 + (P,),
     "rrtm_overlap": (P, P, I, I, P),
     "rrtm_rt_bwd": (P,) * 21 + (I, I, I, P),
     "rrtm_taumol_ndesc": (),
+    "rrtm_probe_onehot": (P, P, P, I, I, I, I, I, P),
+    "rrtm_probe_gather": (P, P, P, I, I, I, P),
 }
 
 
@@ -145,6 +147,13 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.rrtm_error_string(err).decode()}")
+
+
+class Launches:
+    """A launch counter: ``launches`` goes up by one per kernel launch."""
+
+    def __init__(self):
+        self.launches = 0
 
 
 def check(x: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

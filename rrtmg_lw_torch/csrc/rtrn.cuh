@@ -5,7 +5,10 @@
 
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "rrtm.cuh"
+#include "spec.cuh"
 
 namespace rrtm {
 namespace rt {
@@ -94,6 +97,19 @@ struct Inputs {
     const float* tauc = nullptr;
 };
 
+// K1's inputs in reduced storage (SPEC != SPEC_F32): taut and fracs
+// point at taug and fracs in that storage, and the aerosol od (L, 16, B)
+// is added to the decoded taug; in float32 (Inputs) taut already holds
+// it.  A struct of its own, so that the float32 kernels' parameters stay
+// as they were.
+struct SpecInputs : Inputs {
+    const float* taua = nullptr;
+};
+
+template <int SPEC>
+using KernelInputs =
+    std::conditional_t<SPEC == SPEC_F32, Inputs, SpecInputs>;
+
 // The per-g cloud fraction of g at layer l: the compact mask or the
 // cldfmc array.
 template <int MODE>
@@ -112,17 +128,22 @@ struct Step {
 
 // `cf` is the cloud fraction of this g (COMPACT: the mask value; FUSED,
 // CLDF_OD: cldfmc) or the layer's cloud fraction (BANDED, MAXRAND).
-template <int MODE>
-__device__ __forceinline__ Step layer_step(const Inputs& in, int l, int lev,
+// SPEC: the storage of taut and fracs (spec.cuh); in reduced storage
+// the aerosol od of the band is added to the decoded taug.
+template <int MODE, int SPEC = SPEC_F32, typename In = Inputs>
+__device__ __forceinline__ Step layer_step(const In& in, int l, int lev,
                                            int g, int bd, float secd,
                                            float cf, float cw0, float cw1,
                                            int b) {
     const size_t B = in.B;
     const size_t gi = ((size_t)l * rrtm::NGPT + g) * B + b;
-    const float fr = in.fracs[gi];
+    const float fr = spec_load<SPEC, false>(in.fracs, gi);
     const float bl = in.play[((size_t)l * rrtm::NBAND + bd) * B + b];
     const float dp = in.plev[((size_t)lev * rrtm::NBAND + bd) * B + b] - bl;
-    const float od = fmaxf(secd * in.taut[gi], 0.0f);
+    float tau = spec_load<SPEC, true>(in.taut, gi);
+    if constexpr (SPEC != SPEC_F32)
+        tau = tau + in.taua[((size_t)l * rrtm::NBAND + bd) * B + b];
+    const float od = fmaxf(secd * tau, 0.0f);
     float tfg;
     Step s;
     gas_factors(od, s.at, tfg);

@@ -18,12 +18,18 @@
 // one layer run before the next, so a layer's inputs stay in L2 across
 // the 16 bands.
 //
+// Storage (RRTMG_SPEC_DTYPE, spec.cuh): one instantiation per storage
+// type; the reduced ones encode each element at the store (the Pallas
+// kernel's _enc / write_out, taumol_pallas.py:866-884) and write half
+// the bytes.
+//
 // Index exactness: jp and laytrop come in from setcoef (never a log
 // here); the eta bins (trunc of computed floats) use the plain version's
 // operation order and the library is built with -fmad=false, so no
 // contracted FMA moves a bin.  Every clip of taumol.py:357-417 is kept.
 #include <stdint.h>
 
+#include "spec.cuh"
 #include "taumol.cuh"
 
 namespace {
@@ -33,11 +39,16 @@ using namespace rrtm::taumol;
 constexpr int NBIN = 4;         // TaumolEngine.BIN_SLOTS
 constexpr int THREADS = 128;
 
+// SPEC: the storage of taug and fracs (spec.cuh); the float32
+// instantiation stores as it always did
+template <int SPEC>
 __global__ void __launch_bounds__(THREADS)
 taumol_kernel(const float* __restrict__ fld, const int* __restrict__ ifld,
               const float* __restrict__ T, const int* __restrict__ desc,
-              float* __restrict__ taug, float* __restrict__ fracs,
+              typename rrtm::SpecType<SPEC>::T* __restrict__ taug,
+              typename rrtm::SpecType<SPEC>::T* __restrict__ fracs,
               int* __restrict__ bins, int L, int B) {
+    using rrtm::spec_enc;
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     const int band = blockIdx.y;
     const int l = blockIdx.z;
@@ -50,14 +61,14 @@ taumol_kernel(const float* __restrict__ fld, const int* __restrict__ ifld,
     const bool lower = I(I_LAYTROP) != 0;
     const int* D = desc + (band * 2 + (lower ? 0 : 1)) * NDESC;
     const int ng = D[D_NGB];
-    float* tg = taug + ((size_t)l * rrtm::NGPT + D[D_GOFF]) * B + b;
-    float* fr = fracs + ((size_t)l * rrtm::NGPT + D[D_GOFF]) * B + b;
+    auto* tg = taug + ((size_t)l * rrtm::NGPT + D[D_GOFF]) * B + b;
+    auto* fr = fracs + ((size_t)l * rrtm::NGPT + D[D_GOFF]) * B + b;
     int bin_key0 = -1, bin_key1 = -1, bin_frac = -1, bin_minor = -1;
 
     if (D[D_ZERO]) {
         for (int g = 0; g < ng; ++g) {
-            tg[(size_t)g * B] = 0.0f;
-            fr[(size_t)g * B] = 0.0f;
+            tg[(size_t)g * B] = spec_enc<SPEC, true>(0.0f);
+            fr[(size_t)g * B] = spec_enc<SPEC, false>(0.0f);
         }
     } else {
         const float scale = lower ? 8.0f : 4.0f;
@@ -267,8 +278,8 @@ taumol_kernel(const float* __restrict__ fld, const int* __restrict__ ifld,
             } else {
                 frv = ft[g];
             }
-            tg[(size_t)g * B] = tau;
-            fr[(size_t)g * B] = frv;
+            tg[(size_t)g * B] = spec_enc<SPEC, true>(tau);
+            fr[(size_t)g * B] = spec_enc<SPEC, false>(frv);
         }
     }
 
@@ -280,20 +291,49 @@ taumol_kernel(const float* __restrict__ fld, const int* __restrict__ ifld,
     }
 }
 
+template <int SPEC>
+void launch(const float* fld, const int* ifld, const float* tabs,
+            const int* desc, void* taug, void* fracs, int* bins, int L,
+            int B, cudaStream_t s) {
+    using T = typename rrtm::SpecType<SPEC>::T;
+    dim3 grid((B + THREADS - 1) / THREADS, rrtm::NBAND, L);
+    taumol_kernel<SPEC><<<grid, THREADS, 0, s>>>(
+        fld, ifld, tabs, desc, static_cast<T*>(taug),
+        static_cast<T*>(fracs), bins, L, B);
+}
+
 }  // namespace
 
 RRTM_API int rrtm_taumol_ndesc() { return NDESC; }
 
 // fld (NF, L, B) f32; ifld (NI, L, B) i32; tabs flat f32; desc
-// (16, 2, NDESC) i32 -> taug, fracs (L, 140, B); bins (16, 4, L, B) i32
-// or null.
+// (16, 2, NDESC) i32 -> taug, fracs (L, 140, B) in storage `spec`
+// (spec.cuh: float32, bfloat16, float16 or logu16 codes); bins
+// (16, 4, L, B) i32 or null.
 RRTM_API int rrtm_taumol(const float* fld, const int* ifld, const float* tabs,
-                         const int* desc, float* taug, float* fracs,
-                         int* bins, int L, int B, void* stream) {
-    if (L > 0 && B > 0) {
-        dim3 grid((B + THREADS - 1) / THREADS, rrtm::NBAND, L);
-        taumol_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-            fld, ifld, tabs, desc, taug, fracs, bins, L, B);
+                         const int* desc, void* taug, void* fracs,
+                         int* bins, int L, int B, int spec, void* stream) {
+    if (L <= 0 || B <= 0) return (int)cudaGetLastError();
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (spec) {
+    case rrtm::SPEC_F32:
+        launch<rrtm::SPEC_F32>(fld, ifld, tabs, desc, taug, fracs, bins, L,
+                               B, s);
+        break;
+    case rrtm::SPEC_BF16:
+        launch<rrtm::SPEC_BF16>(fld, ifld, tabs, desc, taug, fracs, bins, L,
+                                B, s);
+        break;
+    case rrtm::SPEC_F16:
+        launch<rrtm::SPEC_F16>(fld, ifld, tabs, desc, taug, fracs, bins, L,
+                               B, s);
+        break;
+    case rrtm::SPEC_LOGU16:
+        launch<rrtm::SPEC_LOGU16>(fld, ifld, tabs, desc, taug, fracs, bins,
+                                  L, B, s);
+        break;
+    default:
+        return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
 }

@@ -30,6 +30,16 @@ card); with ``impl="eager"`` their plain PyTorch versions, on the same
 layouts, under plain autograd.  Configurations outside the port raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 
+Reduced spectral storage: ``RRTMG_SPEC_DTYPE`` (read once, at
+construction, as the JAX package's ``PallasTaumol`` reads it; values
+``''``/``f32``/``bf16``/``f16``/``logu16``, ``spec_codec``) sets
+``model.spec_dtype``.  In float32, on both impls, taumol then stores
+taug and fracs in that dtype (K2 encodes at its store), the aerosol od
+stays apart at band resolution, and the sweep decodes them and adds it
+(K1 inside the kernel, the eager twin by ``spec_codec.spec_inputs``).
+A backward through such a step raises NotImplementedError.  A float64
+model ignores the variable, as the JAX package's XLA engine does.
+
 The model runs on the CUDA device unless ``device`` names another.
 """
 
@@ -42,7 +52,7 @@ import torch
 from ..config import LWConfig, resolve_device
 from ..constants import heatfac
 from ..data.ktables import STATIC_TENSORS, Tables, load_tables
-from ..ops import cldprop, rtrn, rtrnmr
+from ..ops import cldprop, rtrn, rtrnmr, spec_codec
 from ..ops.cldcoef_cuda import ice_liq_coeffs_blocked
 from ..ops.inatm import inatm
 from ..ops.planck_cuda import planck_interp_blocked
@@ -102,6 +112,7 @@ class RRTMGLW(torch.nn.Module):
         device = resolve_device(device)
         self.impl = config.resolve_impl(device)
         dtype = config.torch_dtype
+        self.spec_dtype = spec_codec.spec_dtype_from_env()
         if self.impl == "cuda" and dtype != torch.float32:
             raise ValueError("the CUDA kernels run in float32; use "
                              "dtype='float32' or impl='eager'")
@@ -123,6 +134,13 @@ class RRTMGLW(torch.nn.Module):
         self.register_buffer("wg", wg)
         self.heatfac = heatfac(config.cpdair)
 
+    @property
+    def reduced_storage(self) -> bool:
+        """True where taug / fracs are stored in 16 bits: a float32
+        model with a reduced ``spec_dtype``."""
+        return (self.config.torch_dtype == torch.float32
+                and self.spec_dtype != torch.float32)
+
     def static_tensors(self) -> dict:
         """The static-table buffers by name (setcoef, cloud optics)."""
         return {k: getattr(self, k) for k in STATIC_TENSORS}
@@ -140,19 +158,33 @@ class RRTMGLW(torch.nn.Module):
         cuda = self.impl == "cuda"
         static = self.static_tensors()
         sc = setcoef(prof, static, planck=False)
+        reduced = self.reduced_storage
+        sdt = self.spec_dtype if reduced else torch.float32
 
         if cuda:
             taug_t, fracs_t = taumol_blocked(sc, prof, self.engine,
                                              self.kernel_tabs,
-                                             self.kernel_desc)
+                                             self.kernel_desc,
+                                             spec_dtype=sdt)
         else:
             taug_t, fracs_t = self.engine.blocked(sc, prof)
-        # (L, 140, B) += aerosol optical depth of each g-point's band.  The
-        # band -> g gather runs on a contiguous (L, 16, B) copy: gathering
-        # from the permuted view leaves a strided operand that made this
-        # add alone ~4.8 ms of a 13.8 ms step on the H100.
+            if reduced:
+                taug_t = spec_codec.spec_store(taug_t, sdt, "tg")
+                fracs_t = spec_codec.spec_store(fracs_t, sdt, "fr")
         taua_t = prof.taua.permute(1, 2, 0).contiguous()
-        taut_t = taug_t.add_(taua_t.index_select(1, self.ngb0.long()))
+        if reduced:
+            # taug / fracs stay in storage; the sweep decodes them and
+            # adds the aerosol od (L, 16, B) of each g's band
+            taut_t = taug_t
+            sweep_kw = dict(taua_t=taua_t)
+        else:
+            # (L, 140, B) += aerosol optical depth of each g-point's band.
+            # The band -> g gather runs on a contiguous (L, 16, B) copy:
+            # gathering from the permuted view leaves a strided operand
+            # that made this add alone ~4.8 ms of a 13.8 ms step on the
+            # H100.
+            taut_t = taug_t.add_(taua_t.index_select(1, self.ngb0.long()))
+            sweep_kw = {}
 
         planck = planck_interp_blocked if cuda else interp_planck_blocked
         planklay_t = planck(prof.tavel.t().contiguous(), self.totplnk)
@@ -160,19 +192,20 @@ class RRTMGLW(torch.nn.Module):
 
         rt_args = (taut_t, fracs_t, planklay_t, planklev_t, sc.plankbnd,
                    prof.semiss, prof.pwvcm, self.ngb0, self.wg)
-        dpl = sc.dplankbnd_dt if cfg.idrv else None
+        sweep_kw["dplankbnd_dt"] = sc.dplankbnd_dt if cfg.idrv else None
         sweeps = WRAPPERS if cuda else rtrn.FLUXES
         coeffs = (ice_liq_coeffs_blocked if cuda
                   else cldprop.ice_liq_coeffs_blocked)
         bounds_ok = None
         if cfg.icld == 0 or clouds is None:
-            fl = sweeps["blocked"](*rt_args, dplankbnd_dt=dpl)
+            fl = sweeps["blocked"](*rt_args, **sweep_kw)
         elif cfg.imca == 1:
             if not isinstance(clouds, MCICA):
                 raise TypeError(f"McICA (imca=1) takes McicaCloudsCompact, "
                                 f"McicaCloudsBlocked or McicaClouds, got "
                                 f"{type(clouds).__name__}")
-            fl, bounds_ok = self._mcica(clouds, rt_args, sweeps, coeffs, dpl)
+            fl, bounds_ok = self._mcica(clouds, rt_args, sweeps, coeffs,
+                                        sweep_kw)
         else:
             if not isinstance(clouds, BandClouds):
                 raise TypeError(f"imca=0 takes BandClouds, got "
@@ -182,15 +215,23 @@ class RRTMGLW(torch.nn.Module):
             taucb_t, bounds_ok = cldprop.cldprop_banded_blocked(
                 clouds, static, inflag=cfg.inflag,
                 iceflag=cfg.iceflag, liqflag=cfg.liqflag, coeffs=coeffs)
-            cldfrac = clouds.cldfrac.to(taut_t.dtype)
+            cldfrac = clouds.cldfrac.to(cfg.torch_dtype)
             if cfg.icld == 1:
                 fl = sweeps["banded"](*rt_args, cldfrac.t().contiguous(),
-                                      taucb_t, dplankbnd_dt=dpl)
+                                      taucb_t, **sweep_kw)
             else:
                 rows = (overlap_rows if cuda
                         else rtrnmr.overlap_rows)(cldfrac.contiguous())
-                fl = sweeps["maxrand"](*rt_args, rows, taucb_t,
-                                       dplankbnd_dt=dpl)
+                fl = sweeps["maxrand"](*rt_args, rows, taucb_t, **sweep_kw)
+        if reduced:
+            # no cotangent through the stored taug / fracs (nor through
+            # taumol's inputs, which the codes cut from the graph)
+            anchors = [t for t in (*sc, prof.coldry, prof.pavel, prof.wx)
+                       if isinstance(t, torch.Tensor)
+                       and t.is_floating_point()]
+            fl = (tuple(spec_codec.forbid_grad(x, anchors) for x in fl)
+                  if isinstance(fl, tuple)
+                  else spec_codec.forbid_grad(fl, anchors))
         duflx_dt = duflxc_dt = None
         if cfg.idrv:
             fl, ddt = fl
@@ -208,7 +249,7 @@ class RRTMGLW(torch.nn.Module):
                                                  self.heatfac),
                       duflx_dt, duflxc_dt, bounds_ok)
 
-    def _mcica(self, clouds, rt_args, sweeps, coeffs, dpl):
+    def _mcica(self, clouds, rt_args, sweeps, coeffs, sweep_kw):
         """The McICA sweep, dispatched as the JAX blocked branch
         (radiation.py:246-296): compact int8-mask clouds with inflag=2
         stream into K1's compact mode; per-g arrays with inflag=2 into
@@ -228,18 +269,17 @@ class RRTMGLW(torch.nn.Module):
                 clouds, static, inflag=0, iceflag=cfg.iceflag,
                 liqflag=cfg.liqflag, coeffs=coeffs)
             return sweeps["cldf_od"](*rt_args, (cldf_t, odcld_t),
-                                     dplankbnd_dt=dpl), ok
+                                     **sweep_kw), ok
         abi_t, abl_t, ok = cldprop.cloud_optics_bands_blocked(
             clouds, static, iceflag=cfg.iceflag, liqflag=cfg.liqflag,
             coeffs=coeffs)
         if isinstance(clouds, McicaCloudsCompact):
             cw_t = torch.stack([clouds.ciwp.t(), clouds.clwp.t()],
-                               dim=1).to(rt_args[0].dtype).contiguous()
+                               dim=1).to(cfg.torch_dtype).contiguous()
             return sweeps["blocked"](*rt_args, (clouds.cldfmc, cw_t, abi_t,
-                                                abl_t), dplankbnd_dt=dpl), ok
+                                                abl_t), **sweep_kw), ok
         return sweeps["fused"](*rt_args, (*(pad_g(x) for x in clouds[:4]),
-                                          abi_t, abl_t),
-                               dplankbnd_dt=dpl), ok
+                                          abi_t, abl_t), **sweep_kw), ok
 
 
 def make_model(config: LWConfig = LWConfig(), device=None,

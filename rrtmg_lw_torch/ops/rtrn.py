@@ -22,6 +22,11 @@ the kernel's two deterministic-cloud modes: random overlap of per-band
 clouds (icld=1, rtrn.f90) and maximum-random overlap (icld 2/3,
 rtrnmr.f90, the sub-stream recursion ``_sweep_maxrand`` fed by the
 overlap rows of ``ops.rtrnmr``).
+
+The ``rt_fluxes_*`` functions take ``taua_t`` (L, 16, B) with taut_t and
+fracs_t in reduced spectral storage (``spec_codec``): they decode them
+and add the aerosol od of each g's band first, as K1 does in that
+storage; in float32 taut_t holds taug + taua already.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from ..constants import (FLUXFAC, REC_6, SECDIFF_A0, SECDIFF_A1, SECDIFF_A2,
                          SECDIFF_FIXED, WTDIFF)
 from ._autograd import plain_vjp
 from .cldprop import CLDMIN, cldprmc_od
+from .spec_codec import spec_inputs
 
 # a layer holds a per-band cloud where cldfrac >= CLOUD_GATE (icld 1-3;
 # the JAX package's gate_thresh, models/radiation.py:335)
@@ -520,39 +526,39 @@ def split_ddt(out):
 
 def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
                       semiss, pwvcm, ngb0, wg, cloud_fields=None,
-                      dplankbnd_dt=None):
+                      dplankbnd_dt=None, taua_t=None):
     """``rt_sweep_blocked`` with the surface rows formed from plankbnd,
     semiss, dplankbnd_dt (B, 16; None for idrv=0) and pwvcm (B,), split
     by ``split_ddt``: the plain version of ``rtrn_cuda.rt_fluxes_blocked``
     (and of ``rt_fluxes_fused`` / ``rt_fluxes_cldf_od``, whose cloud
     fields select those modes)."""
     return split_ddt(rt_sweep_blocked(
-        taut_t, fracs_t, planklay_t, planklev_t,
-        surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype, dplankbnd_dt),
+        *spec_inputs(taut_t, fracs_t, taua_t, ngb0), planklay_t, planklev_t,
+        surf_rows(plankbnd, semiss, pwvcm, planklay_t.dtype, dplankbnd_dt),
         ngb0, wg, cloud_fields))
 
 
 def rt_fluxes_banded(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
                      semiss, pwvcm, ngb0, wg, cldf_t, taucb_t,
-                     dplankbnd_dt=None):
+                     dplankbnd_dt=None, taua_t=None):
     """``rt_sweep_banded`` with the surface rows formed as in
     ``rt_fluxes_blocked``: the plain version of
     ``rtrn_cuda.rt_fluxes_banded``."""
     return split_ddt(rt_sweep_banded(
-        taut_t, fracs_t, planklay_t, planklev_t,
-        surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype, dplankbnd_dt),
+        *spec_inputs(taut_t, fracs_t, taua_t, ngb0), planklay_t, planklev_t,
+        surf_rows(plankbnd, semiss, pwvcm, planklay_t.dtype, dplankbnd_dt),
         cldf_t, taucb_t, ngb0, wg))
 
 
 def rt_fluxes_maxrand(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
                       semiss, pwvcm, ngb0, wg, rows_t, taucb_t,
-                      dplankbnd_dt=None):
+                      dplankbnd_dt=None, taua_t=None):
     """``rt_sweep_maxrand`` with the surface rows formed as in
     ``rt_fluxes_blocked``: the plain version of
     ``rtrn_cuda.rt_fluxes_maxrand``."""
     return split_ddt(rt_sweep_maxrand(
-        taut_t, fracs_t, planklay_t, planklev_t,
-        surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype, dplankbnd_dt),
+        *spec_inputs(taut_t, fracs_t, taua_t, ngb0), planklay_t, planklev_t,
+        surf_rows(plankbnd, semiss, pwvcm, planklay_t.dtype, dplankbnd_dt),
         rows_t, taucb_t, ngb0, wg))
 
 

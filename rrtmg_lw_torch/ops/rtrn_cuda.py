@@ -16,8 +16,15 @@ wrapper launches its kernel (or raises); on a CPU tensor it runs the
 plain version (``rtrn.rt_sweep_blocked``, ``rtrn.rt_sweep_vjp``,
 ``rtrn.SWEEPS``) and, backward, its plain vjp.
 
-Each wrapper counts its launches in ``.launches`` and those at idrv=1
-in ``.idrv.launches``.
+Reduced spectral storage (``spec_codec``): taut_t and fracs_t may hold
+taug and fracs in bfloat16, float16 or logu16 codes (uint16), with the
+aerosol od ``taua_t`` (L, 16, B) given apart; K1 decodes them and adds
+taua_t itself (the plain route: ``spec_codec.spec_inputs``, then the
+plain sweep).  In float32 taut_t already holds taug + taua and taua_t is
+None.  A backward through reduced storage raises NotImplementedError.
+
+Each wrapper counts its launches in ``.launches``, those at idrv=1 in
+``.idrv.launches`` and those in reduced storage in ``.spec.launches``.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from .. import _build
 from ..types import NGPT, NGPT_PAD
 from . import rtrn
 from ._autograd import plain_vjp
+from .spec_codec import GRAD_MESSAGE, REDUCED, SPEC_CODES, spec_inputs
 
 # the kernel's mode argument (csrc/rtrn.cuh enum Mode)
 MODES = {"clear": 0, "compact": 1, "banded": 2, "maxrand": 3, "fused": 4,
@@ -45,20 +53,25 @@ CLOUD_INPUTS = {
 _UNPORTED_ADJOINT = "see ROADMAP.md Queue 1 item 9"
 
 
-class Launches:
-    """A launch counter: ``launches`` goes up by one per kernel launch."""
-
-    def __init__(self):
-        self.launches = 0
-
-
 def _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t,
-           mask, ngb0, wg, surf_rows=(3, 4)):
+           mask, ngb0, wg, surf_rows=(3, 4), taua_t=None):
     L, _, B = taut_t.shape
     dev = taut_t.device
     f32 = torch.float32
-    _build.check(taut_t, "taut_t", f32, (L, NGPT, B), dev)
-    _build.check(fracs_t, "fracs_t", f32, (L, NGPT, B), dev)
+    sdt = taut_t.dtype
+    if sdt not in SPEC_CODES:
+        raise TypeError(f"taut_t: dtype {sdt}, K1 reads "
+                        f"{tuple(SPEC_CODES)}")
+    _build.check(taut_t, "taut_t", sdt, (L, NGPT, B), dev)
+    _build.check(fracs_t, "fracs_t", sdt, (L, NGPT, B), dev)
+    if sdt == f32:
+        if taua_t is not None:
+            raise ValueError("taua_t is for reduced storage: in float32 "
+                             "taut_t holds taug + taua")
+    else:
+        if taua_t is None:
+            raise ValueError(f"taut_t in {sdt} needs taua_t (L, 16, B)")
+        _build.check(taua_t, "taua_t", f32, (L, 16, B), dev)
     _build.check(planklay_t, "planklay_t", f32, (L, 16, B), dev)
     _build.check(planklev_t, "planklev_t", f32, (L + 1, 16, B), dev)
     nsurf = surf.shape[0] if surf.shape[0] in surf_rows else surf_rows[0]
@@ -75,18 +88,23 @@ def _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t,
 
 def _launch(mode, wrapper, taut_t, fracs_t, planklay_t, planklev_t, surf,
             ngb0, wg, mask=None, cw=None, abi=None, abl=None, cld=None,
-            taucb=None, cldf=None, ciwp=None, clwp=None, tauc=None):
-    """K1 in ``mode``; counted on ``wrapper``.  -> (4|6, L+1, B)."""
+            taucb=None, cldf=None, ciwp=None, clwp=None, tauc=None,
+            taua=None):
+    """K1 in ``mode``, in the storage of taut_t; counted on ``wrapper``.
+    -> (4|6, L+1, B)."""
     L, _, B = taut_t.shape
     idrv = surf.shape[0] == 4
     out = torch.empty((6 if idrv else 4, L + 1, B), dtype=torch.float32,
                       device=taut_t.device)
+    spec = SPEC_CODES[taut_t.dtype]
     _build.launch("rrtm_rt", taut_t, fracs_t, planklay_t, planklev_t, surf,
                   ngb0, wg, mask, cw, abi, abl, cld, taucb, cldf, ciwp, clwp,
-                  tauc, out, L, B, MODES[mode], int(idrv))
+                  tauc, taua, out, L, B, MODES[mode], int(idrv), spec)
     wrapper.launches += 1
     if idrv:
         wrapper.idrv.launches += 1
+    if spec:
+        wrapper.spec.launches += 1
     return out
 
 
@@ -101,40 +119,45 @@ def _full_ct(ct, ct_ddt, shape, like):
 
 class RTFn(torch.autograd.Function):
     """(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
-    abl_t, mask, ngb0, wg) -> fluxes (4, L+1, B); the four cloud inputs
-    are None for clear sky.  With a (4, 16, B) surf (idrv=1): (fluxes,
-    d/dT (2, L+1, B)).  Backward K6 on the fluxes' cotangent (the d/dT
-    row of surf gets zero); mask, ngb0 and wg get None.  On the card a
-    cotangent of d/dT raises."""
+    abl_t, mask, ngb0, wg, taua_t) -> fluxes (4, L+1, B); the four cloud
+    inputs are None for clear sky, taua_t None in float32 storage.  With
+    a (4, 16, B) surf (idrv=1): (fluxes, d/dT (2, L+1, B)).  Backward K6
+    on the fluxes' cotangent (the d/dT row of surf gets zero); mask, ngb0
+    and wg get None.  On the card a cotangent of d/dT raises; in reduced
+    storage any backward raises."""
 
     @staticmethod
     def forward(ctx, taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
-                abi_t, abl_t, mask, ngb0, wg):
+                abi_t, abl_t, mask, ngb0, wg, taua_t=None):
         args = (taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
                 abl_t, mask, ngb0, wg)
         ctx.set_materialize_grads(False)
         ctx.device_type = taut_t.device.type
-        if any(ctx.needs_input_grad[:8]):
+        ctx.reduced = taut_t.dtype in REDUCED
+        if any(ctx.needs_input_grad[:8]) and not ctx.reduced:
             ctx.save_for_backward(*args)
         if taut_t.device.type == "cpu":
             cf = None if mask is None else (mask, cw_t, abi_t, abl_t)
-            out = rtrn.rt_sweep_blocked(taut_t, fracs_t, planklay_t,
-                                        planklev_t, surf, ngb0, wg, cf)
+            out = rtrn.rt_sweep_blocked(
+                *spec_inputs(taut_t, fracs_t, taua_t, ngb0), planklay_t,
+                planklev_t, surf, ngb0, wg, cf)
         else:
-            _check(*args)
+            _check(*args, taua_t=taua_t)
             out = _launch("clear" if mask is None else "compact",
                           rt_fluxes_blocked, taut_t, fracs_t, planklay_t,
                           planklev_t, surf, ngb0, wg, mask, cw_t, abi_t,
-                          abl_t)
+                          abl_t, taua=taua_t)
         return rtrn.split_ddt(out)
 
     @staticmethod
     def backward(ctx, ct, ct_ddt=None):
+        if ctx.reduced:
+            raise NotImplementedError(GRAD_MESSAGE)
         x = list(ctx.saved_tensors)
         nsurf = x[4].shape[0]
         if ct_ddt is None:
             if ct is None:
-                return (None,) * 11
+                return (None,) * 12
             x[4] = x[4][:3]             # the fluxes do not read row 3
         elif ctx.device_type != "cpu":
             raise NotImplementedError(
@@ -148,20 +171,20 @@ class RTFn(torch.autograd.Function):
                                   needs=ctx.needs_input_grad[:8]))
         if grads[4] is not None and grads[4].shape[0] < nsurf:
             grads[4] = torch.nn.functional.pad(grads[4], (0, 0, 0, 0, 0, 1))
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
                       semiss, pwvcm, ngb0, wg, cloud_fields=None,
-                      dplankbnd_dt=None):
+                      dplankbnd_dt=None, taua_t=None):
     """K1 clear or compact: band-integrated fluxes (4, L+1, B) = [up,
     down, clear up, clear down], and with ``dplankbnd_dt`` (B, 16)
     (idrv=1) a pair (fluxes, d/dT (2, L+1, B)); arguments as
     ``rtrn.rt_fluxes_blocked`` (cloud_fields None or the compact McICA
-    4-tuple; the compact mask must be int8 here).  The surface rows are
-    formed outside ``RTFn``, so autograd differentiates the diffusivity
-    secant."""
-    surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype,
+    4-tuple; the compact mask must be int8 here; taua_t with reduced
+    storage).  The surface rows are formed outside ``RTFn``, so autograd
+    differentiates the diffusivity secant."""
+    surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, planklay_t.dtype,
                           dplankbnd_dt)
     cw_t = abi_t = abl_t = mask = None
     if cloud_fields is not None:
@@ -171,26 +194,30 @@ def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
                              "or rt_fluxes_cldf_od")
         mask, cw_t, abi_t, abl_t = cloud_fields
     return RTFn.apply(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
-                      abi_t, abl_t, mask, ngb0, wg)
+                      abi_t, abl_t, mask, ngb0, wg, taua_t)
 
 
 class RTSweepFn(torch.autograd.Function):
-    """(mode, ngb0, wg, taut_t, fracs_t, planklay_t, planklev_t, surf,
-    *clouds) -> fluxes (4, L+1, B), or with a (4, 16, B) surf (fluxes,
-    d/dT (2, L+1, B)): K1 in the banded, maxrand, fused or cldf-odcld
-    mode, ``clouds`` as ``CLOUD_INPUTS[mode]``.  Backward: the plain
-    vjp on the CPU; on the card it raises."""
+    """(mode, ngb0, wg, taua_t, taut_t, fracs_t, planklay_t, planklev_t,
+    surf, *clouds) -> fluxes (4, L+1, B), or with a (4, 16, B) surf
+    (fluxes, d/dT (2, L+1, B)): K1 in the banded, maxrand, fused or
+    cldf-odcld mode, ``clouds`` as ``CLOUD_INPUTS[mode]``, taua_t None in
+    float32 storage.  Backward: the plain vjp on the CPU; on the card,
+    and in reduced storage, it raises."""
 
     @staticmethod
-    def forward(ctx, mode, ngb0, wg, *x):
+    def forward(ctx, mode, ngb0, wg, taua_t, *x):
         ctx.mode, ctx.device_type = mode, x[0].device.type
+        ctx.reduced = x[0].dtype in REDUCED
         ctx.set_materialize_grads(False)
         if x[0].device.type == "cpu":
             # the plain vjp reads them; on the card backward only raises
-            if any(ctx.needs_input_grad[3:]):
+            if any(ctx.needs_input_grad[4:]) and not ctx.reduced:
                 ctx.save_for_backward(ngb0, wg, *x)
-            return rtrn.split_ddt(rtrn.SWEEPS[mode](*x, ngb0, wg))
-        L, B = _check(*x[:5], None, None, None, None, ngb0, wg)
+            return rtrn.split_ddt(rtrn.SWEEPS[mode](
+                *spec_inputs(x[0], x[1], taua_t, ngb0), *x[2:], ngb0, wg))
+        L, B = _check(*x[:5], None, None, None, None, ngb0, wg,
+                      taua_t=taua_t)
         clouds = x[5:]
         for t, (name, n) in zip(clouds, CLOUD_INPUTS[mode], strict=True):
             _build.check(t, name, torch.float32,
@@ -201,10 +228,12 @@ class RTSweepFn(torch.autograd.Function):
               dict(cldf=clouds[0], ciwp=clouds[1], clwp=clouds[2],
                    tauc=clouds[3], abi=clouds[4], abl=clouds[5]))
         return rtrn.split_ddt(_launch(mode, WRAPPERS[mode], *x[:5], ngb0, wg,
-                                      **kw))
+                                      taua=taua_t, **kw))
 
     @staticmethod
     def backward(ctx, ct, ct_ddt=None):
+        if ctx.reduced:
+            raise NotImplementedError(GRAD_MESSAGE)
         if ctx.device_type != "cpu":
             raise NotImplementedError(
                 f"gradients through the {ctx.mode} RT sweep on the card: "
@@ -214,43 +243,43 @@ class RTSweepFn(torch.autograd.Function):
             like = ct if ct is not None else ct_ddt
             ct = _full_ct(ct, ct_ddt, (6,) + tuple(like.shape[1:]), like)
         grads = plain_vjp(lambda *a: rtrn.SWEEPS[ctx.mode](*a, ngb0, wg),
-                          x, ctx.needs_input_grad[3:], (ct,))
-        return (None, None, None, *grads)
+                          x, ctx.needs_input_grad[4:], (ct,))
+        return (None, None, None, None, *grads)
 
 
 def _sweep(mode, taut_t, fracs_t, planklay_t, planklev_t, plankbnd, semiss,
-           pwvcm, ngb0, wg, clouds, dplankbnd_dt):
-    surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, taut_t.dtype,
+           pwvcm, ngb0, wg, clouds, dplankbnd_dt, taua_t):
+    surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, planklay_t.dtype,
                           dplankbnd_dt)
-    return RTSweepFn.apply(mode, ngb0, wg, taut_t, fracs_t, planklay_t,
-                           planklev_t, surf, *clouds)
+    return RTSweepFn.apply(mode, ngb0, wg, taua_t, taut_t, fracs_t,
+                           planklay_t, planklev_t, surf, *clouds)
 
 
 def rt_fluxes_banded(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
                      semiss, pwvcm, ngb0, wg, cldf_t, taucb_t,
-                     dplankbnd_dt=None):
+                     dplankbnd_dt=None, taua_t=None):
     """K1 banded mode: fluxes (4, L+1, B) under random overlap of
     per-band clouds (and d/dT with ``dplankbnd_dt``); arguments as
     ``rtrn.rt_fluxes_banded``."""
     return _sweep("banded", taut_t, fracs_t, planklay_t, planklev_t,
                   plankbnd, semiss, pwvcm, ngb0, wg, (cldf_t, taucb_t),
-                  dplankbnd_dt)
+                  dplankbnd_dt, taua_t)
 
 
 def rt_fluxes_maxrand(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
                       semiss, pwvcm, ngb0, wg, rows_t, taucb_t,
-                      dplankbnd_dt=None):
+                      dplankbnd_dt=None, taua_t=None):
     """K1 maxrand mode: fluxes (4, L+1, B) under maximum-random overlap
     (and d/dT with ``dplankbnd_dt``); arguments as
     ``rtrn.rt_fluxes_maxrand``."""
     return _sweep("maxrand", taut_t, fracs_t, planklay_t, planklev_t,
                   plankbnd, semiss, pwvcm, ngb0, wg, (rows_t, taucb_t),
-                  dplankbnd_dt)
+                  dplankbnd_dt, taua_t)
 
 
 def rt_fluxes_fused(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
                     semiss, pwvcm, ngb0, wg, cloud_fields,
-                    dplankbnd_dt=None):
+                    dplankbnd_dt=None, taua_t=None):
     """K1 fused mode: fluxes (4, L+1, B) of McICA per-g arrays with
     cldprmc (inflag=2) inside the kernel (and d/dT with
     ``dplankbnd_dt``).  cloud_fields = (cldf_t, ciwp_t, clwp_t, tauc_t)
@@ -258,18 +287,18 @@ def rt_fluxes_fused(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
     ``rtrn.rt_sweep_blocked``."""
     return _sweep("fused", taut_t, fracs_t, planklay_t, planklev_t,
                   plankbnd, semiss, pwvcm, ngb0, wg, cloud_fields,
-                  dplankbnd_dt)
+                  dplankbnd_dt, taua_t)
 
 
 def rt_fluxes_cldf_od(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
                       semiss, pwvcm, ngb0, wg, cloud_fields,
-                      dplankbnd_dt=None):
+                      dplankbnd_dt=None, taua_t=None):
     """K1 cldf-odcld mode: fluxes (4, L+1, B) of McICA per-g cloud
     fraction and cloud od, cloud_fields = (cldf_t, odcld_t) (L, 144, B)
     from ``cldprop.cldprmc_blocked`` (and d/dT with ``dplankbnd_dt``)."""
     return _sweep("cldf_od", taut_t, fracs_t, planklay_t, planklev_t,
                   plankbnd, semiss, pwvcm, ngb0, wg, cloud_fields,
-                  dplankbnd_dt)
+                  dplankbnd_dt, taua_t)
 
 
 # the model's RT step per K1 mode (``rtrn.FLUXES`` holds the plain ones)
@@ -309,5 +338,6 @@ def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
 
 for _w in WRAPPERS.values():
     _w.launches = 0
-    _w.idrv = Launches()
+    _w.idrv = _build.Launches()
+    _w.spec = _build.Launches()
 rt_sweep_vjp.launches = 0

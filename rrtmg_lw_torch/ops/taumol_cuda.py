@@ -24,6 +24,13 @@ fields' cotangents back through the packing and the plain setcoef.  On
 a CPU tensor the Function runs the plain versions, ``taumol_packed``
 (``TaumolEngine.blocked`` on the unpacked fields) and
 ``taumol_packed_vjp``.
+
+With a reduced ``spec_dtype`` (``spec_codec``: bfloat16, float16, or
+uint16 for logu16 codes) K2 stores taug and fracs in that dtype, encoded
+at the store (K7); the plain version encodes ``taumol_packed``'s output
+with ``spec_codec.spec_store``.  The backward then raises
+NotImplementedError, as the JAX package's does.  Launches in reduced
+storage also count in ``taumol_blocked.spec.launches``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 from .. import _build
 from ..types import NGPT, Profile, SetcoefOut
 from ._autograd import plain_vjp
+from .spec_codec import GRAD_MESSAGE, REDUCED, SPEC_CODES, spec_store
 from .taumol import (_GAS_CHI, BAND_SPECS, NBANDS, NG, NSPA, NSPB,
                      postscale_vector, refrat)
 
@@ -241,49 +249,64 @@ def _check_packed(fld, ifld, kernel_tabs, kernel_desc):
 
 
 class TaumolFn(torch.autograd.Function):
-    """(fld, ifld, engine, kernel_tabs, kernel_desc, bins) -> taug, fracs
-    (L, 140, B).  Backward K5, to fld only; ``bins`` (or None) is filled
+    """(fld, ifld, engine, kernel_tabs, kernel_desc, bins, spec_dtype) ->
+    taug, fracs (L, 140, B) in ``spec_dtype``.  Backward K5, to fld only
+    (float32 storage; otherwise it raises); ``bins`` (or None) is filled
     as ``taumol_blocked`` says."""
 
     @staticmethod
-    def forward(ctx, fld, ifld, engine, kernel_tabs, kernel_desc, bins):
-        if ctx.needs_input_grad[0]:
+    def forward(ctx, fld, ifld, engine, kernel_tabs, kernel_desc, bins,
+                spec_dtype=torch.float32):
+        ctx.reduced = spec_dtype in REDUCED
+        if ctx.needs_input_grad[0] and not ctx.reduced:
             ctx.save_for_backward(fld, ifld, kernel_tabs, kernel_desc)
             ctx.engine = engine
         if fld.device.type == "cpu":
             if bins is not None:
                 bins.copy_(engine.bins(*_unpack_inputs(fld, ifld)))
-            return taumol_packed(engine, fld, ifld)
+            taug, fracs = taumol_packed(engine, fld, ifld)
+            if ctx.reduced:
+                return (spec_store(taug, spec_dtype, "tg"),
+                        spec_store(fracs, spec_dtype, "fr"))
+            return taug, fracs
         L, B = _check_packed(fld, ifld, kernel_tabs, kernel_desc)
         if bins is not None:
             _build.check(bins, "bins", torch.int32, (NBANDS, NBIN, L, B),
                          fld.device)
-        taug = torch.empty((L, NGPT, B), dtype=torch.float32,
-                           device=fld.device)
+        taug = torch.empty((L, NGPT, B), dtype=spec_dtype, device=fld.device)
         fracs = torch.empty_like(taug)
         _build.launch("rrtm_taumol", fld, ifld, kernel_tabs, kernel_desc,
-                      taug, fracs, bins, L, B)
+                      taug, fracs, bins, L, B, SPEC_CODES[spec_dtype])
         taumol_blocked.launches += 1
+        if ctx.reduced:
+            taumol_blocked.spec.launches += 1
         return taug, fracs
 
     @staticmethod
     def backward(ctx, ct_taug, ct_fracs):
+        if ctx.reduced:
+            raise NotImplementedError(GRAD_MESSAGE)
         fld, ifld, tabs, desc = ctx.saved_tensors
         return (taumol_vjp(fld, ifld, ctx.engine, tabs, desc,
                            ct_taug.contiguous(), ct_fracs.contiguous()),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
-def taumol_blocked(sc, prof, engine, kernel_tabs, kernel_desc, bins=None):
-    """taug, fracs (L, 140, B) for all bands.
+def taumol_blocked(sc, prof, engine, kernel_tabs, kernel_desc, bins=None,
+                   spec_dtype=torch.float32):
+    """taug, fracs (L, 140, B) for all bands, stored in ``spec_dtype``
+    (a key of ``spec_codec.SPEC_CODES``).
 
     ``engine`` is the plain ``TaumolEngine`` (used for CPU tensors);
     ``kernel_tabs`` / ``kernel_desc`` come from ``pack_tables`` on the
     device.  ``bins``, if given, is a (16, NBIN, L, B) int32 tensor the
     kernel fills with the interpolation bins it used (the layout of
     ``TaumolEngine.bins``)."""
+    if spec_dtype not in SPEC_CODES:
+        raise ValueError(f"no spectral storage {spec_dtype}")
     fld, ifld = _pack_inputs(sc, prof)
-    return TaumolFn.apply(fld, ifld, engine, kernel_tabs, kernel_desc, bins)
+    return TaumolFn.apply(fld, ifld, engine, kernel_tabs, kernel_desc, bins,
+                          spec_dtype)
 
 
 def taumol_vjp(fld, ifld, engine, kernel_tabs, kernel_desc, ct_taug,
@@ -303,4 +326,5 @@ def taumol_vjp(fld, ifld, engine, kernel_tabs, kernel_desc, ct_taug,
 
 
 taumol_blocked.launches = 0
+taumol_blocked.spec = _build.Launches()
 taumol_vjp.launches = 0

@@ -11,14 +11,19 @@ of the CUDA kernel and memcpy/memset intervals), the idle share
 ``1 - busy / wall``, device ms per step of each hand-written kernel (by
 its symbol) and of everything else ("glue"), the CUDA launches per step,
 and the peak device memory.  Prints one JSON line per cell.  Needs a
-CUDA device.  ``cell_inputs`` makes each cell's synthetic inputs; the
-repository's ``chip_smoke.py`` runs its cells on the same ones.
+CUDA device.  ``cell_inputs`` makes each cell's synthetic inputs and
+``Cell.make_model`` its model (a cell with ``spec`` set builds it under
+``RRTMG_SPEC_DTYPE``, the reduced spectral storage, on an atmosphere with
+aerosol); the repository's
+``chip_smoke.py`` runs its cells on the same ones.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import pathlib
 import statistics
 import time
@@ -28,6 +33,9 @@ import numpy as np
 import torch
 
 NCOL = 16384            # columns of every cell
+# the aerosol of the reduced-storage cells: K1 adds it inside the kernel
+# there, after the decode (make_atmosphere's column od per band)
+AOD_SPEC = 0.1
 
 
 class Cell(NamedTuple):
@@ -38,6 +46,8 @@ class Cell(NamedTuple):
     grad: bool = False         # the gradient step
     inflag: int = 2
     idrv: int = 0
+    spec: str = ""             # RRTMG_SPEC_DTYPE of its model
+    aod: float = 0.0           # aerosol od of its atmosphere
 
     def config(self, **kw):
         """The cell's LWConfig (float32, no lookup tables)."""
@@ -45,6 +55,29 @@ class Cell(NamedTuple):
         return LWConfig(icld=self.icld, imca=self.imca, inflag=self.inflag,
                         idrv=self.idrv, dtype="float32",
                         use_lut=False).replace(**kw)
+
+    def make_model(self, device, spec=None, **kw):
+        """The cell's model on ``device``, ``kw`` overriding its config,
+        built with ``RRTMG_SPEC_DTYPE`` set to ``spec`` (default: the
+        cell's)."""
+        from .. import make_model
+        with spec_env(self.spec if spec is None else spec):
+            return make_model(self.config(**kw), device=device)
+
+
+@contextlib.contextmanager
+def spec_env(spec: str):
+    """``RRTMG_SPEC_DTYPE`` set to ``spec`` inside the block, restored
+    after."""
+    old = os.environ.get("RRTMG_SPEC_DTYPE")
+    os.environ["RRTMG_SPEC_DTYPE"] = spec
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["RRTMG_SPEC_DTYPE"]
+        else:
+            os.environ["RRTMG_SPEC_DTYPE"] = old
 
 
 CELLS = {"clear": Cell(0, 1, None, 60),
@@ -59,24 +92,33 @@ CELLS = {"clear": Cell(0, 1, None, 60),
          "band_cloudy_idrv": Cell(1, 0, "band", 60, idrv=1),
          "mcica_blocked_idrv": Cell(2, 1, "mcica_blocked", 60, idrv=1),
          "mcica_tauc_idrv": Cell(2, 1, "mcica_tauc", 60, inflag=0, idrv=1),
+         "clear_logu16": Cell(0, 1, None, 60, spec="logu16",
+                              aod=AOD_SPEC),
+         "mcica_cloudy_logu16": Cell(2, 1, "mcica", 60, spec="logu16",
+                                     aod=AOD_SPEC),
          "mcica_cloudy_deep": Cell(2, 1, "mcica", 140),
          "mcica_cloudy_grad": Cell(2, 1, "mcica", 60, True),
          "clear_grad": Cell(0, 1, None, 60, True)}
-# fragment of the demangled symbol -> kernel (csrc/*.cu)
+# fragment of the demangled symbol -> kernel (csrc/*.cu); the last
+# template argument of K1 and K2 is the storage (csrc/spec.cuh)
+SPEC_NAMES = ("", " bf16", " f16", " logu16")
 KERNEL_SYMBOLS = tuple(
-    (f"rt_kernel<{m}, {b}>", f"K1 {name}{' idrv' if b == 'true' else ''}")
+    (f"rt_kernel<{m}, {b}, {s}>",
+     f"K1 {name}{' idrv' if b == 'true' else ''}{SPEC_NAMES[s]}")
     for m, name in enumerate(("clear", "compact", "banded", "maxrand",
                               "fused", "cldf_od"))
-    for b in ("false", "true")) + (
-    ("taumol_kernel", "K2"), ("planck_kernel", "K3"),
+    for b in ("false", "true") for s in range(4)) + tuple(
+    (f"taumol_kernel<{s}>", "K2" + SPEC_NAMES[s]) for s in range(4)) + (
+    ("planck_kernel", "K3"),
     ("cldcoef_kernel", "K4"), ("overlap_kernel", "overlap"),
     ("rt_bwd_kernel", "K6"), ("taumol_bwd_kernel", "K5"),
     ("planck_bwd_kernel", "K3b"))
 
 
-def cell_inputs(cell, device):
+def cell_inputs(cell, device, aod=None):
     """(Atmosphere, clouds or None) of ``cell``, float32 on ``device``:
-    the atmosphere from seed 0, McICA clouds from seed 2 (compact with
+    the atmosphere from seed 0 with the aerosol od ``aod`` (default the
+    cell's), McICA clouds from seed 2 (compact with
     an int8 mask; "mcica_blocked" the per-g arrays; "mcica_tauc" these
     with an input cloud od taucmc = cldfmc x (0.05 ciwpmc + 0.1
     clwpmc)), band clouds from seed 1."""
@@ -85,8 +127,10 @@ def cell_inputs(cell, device):
     from .synthetic import (make_atmosphere, make_band_clouds,
                             make_mcica_clouds)
     c = CELLS[cell]
-    atm = Atmosphere.from_numpy(make_atmosphere(NCOL, c.nlay, seed=0),
-                                device, torch.float32)
+    atm = Atmosphere.from_numpy(
+        make_atmosphere(NCOL, c.nlay, seed=0,
+                        aod=c.aod if aod is None else aod),
+        device, torch.float32)
     if c.clouds == "mcica":
         return atm, McicaCloudsCompact.from_numpy(
             make_mcica_clouds(NCOL, c.nlay, seed=2, mask_dtype=np.int8),
@@ -116,10 +160,9 @@ def _union_ms(intervals):
 
 
 def profile_cell(cell, device, steps=20, traced=5):
-    from .. import make_model
     from ..parallel import make_grad_step
     c = CELLS[cell]
-    model = make_model(c.config(), device=device)
+    model = c.make_model(device)
     step = make_grad_step(model) if c.grad else model
     atm, clouds = cell_inputs(cell, device)
     for _ in range(2):                                   # warm-up

@@ -21,6 +21,13 @@ math summed in another order): 1e-4 of max |plain| per output (K3b,
 K5), 1e-3 (K6, a recurrence over the levels); the model's gradients
 2e-2 of max |eager| per Atmosphere field (the gate the JAX package
 holds its kernel backward to, tests/test_taumol_bwd.py:101).
+
+Reduced spectral storage (RRTMG_SPEC_DTYPE, K7): K2 in bf16 / f16 equal
+to the plain encode of its own float32 output, logu16 codes at most one
+apart (logf against torch.log); K1 in every mode x idrv x storage within
+2e-5 of the plain decode + aerosol add + sweep, bitwise over two runs, on
+a seeded aerosol od that a dropped or misread add would fail.
+The probes (utils/probes.py) bitwise equal to tbl[idx].
 """
 
 import numpy as np
@@ -64,9 +71,9 @@ def _model(dev, icld=2, impl="cuda"):
                                use_lut=False, impl=impl), device=dev)
 
 
-def _case(dev, B, L, clear_frac=0.0, boost=None):
-    atm = Atmosphere.from_numpy(make_atmosphere(B, L, seed=B + L), dev,
-                                torch.float32)
+def _case(dev, B, L, clear_frac=0.0, boost=None, aod=0.0):
+    atm = Atmosphere.from_numpy(make_atmosphere(B, L, seed=B + L, aod=aod),
+                                dev, torch.float32)
     clouds = McicaCloudsCompact.from_numpy(
         make_mcica_clouds(B, L, seed=L, mask_dtype=np.int8,
                           clear_frac=clear_frac), dev, torch.float32)
@@ -514,3 +521,119 @@ def test_unported_adjoints_raise_on_card(dev):
         model = make_model(LWConfig(inflag=inflag, **cfg), device=dev)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_grad_step(model)(atm, blk)
+
+
+# ---- reduced spectral storage (K7) and the probes ----
+
+SPECS = {"bf16": torch.bfloat16, "f16": torch.float16,
+         "logu16": torch.uint16}
+
+
+@pytest.mark.parametrize("B,L", [(37, 23), (1, 60), (130, 7)])
+def test_taumol_spec_kernel_matches_plain_encode(dev, B, L):
+    from rrtmg_lw_torch.ops.spec_codec import spec_order, spec_store
+    model = _model(dev)
+    _, _, prof = _case(dev, B, L)
+    sc = setcoef(prof, model.static_tensors(), planck=False)
+    args = (sc, prof, model.engine, model.kernel_tabs, model.kernel_desc)
+    f32 = taumol_blocked(*args)
+    before = (taumol_blocked.launches, taumol_blocked.spec.launches)
+    for spec, sdt in SPECS.items():
+        got = taumol_blocked(*args, spec_dtype=sdt)
+        for k, x, which in zip(got, f32, ("tg", "fr")):
+            assert k.dtype == sdt and k.shape == (L, 140, B)
+            d = (spec_order(k) - spec_order(spec_store(x, sdt, which))).abs()
+            assert int(d.max()) <= (1 if spec == "logu16" else 0), spec
+    assert (taumol_blocked.launches - before[0],
+            taumol_blocked.spec.launches - before[1]) == (3, 3)
+
+
+@pytest.mark.parametrize("B,L", [(37, 13), (5, 1), (96, 30)])
+def test_rt_spec_modes_match_plain(dev, B, L):
+    """Every K1 mode x idrv in each reduced storage against the plain
+    decode + aerosol add + sweep on the same codes, with a seeded aerosol
+    od that differs in every (layer, band, column): the same check of a
+    K1 that dropped the add, or read taua at reversed bands or layers or
+    shifted columns, fails."""
+    from rrtmg_lw_torch.ops.spec_codec import spec_store
+    args, dpl, modes = _sweep_inputs(dev, B, L)
+    tg, fr = args[:2]
+    gen = torch.Generator(device=dev).manual_seed(B + L)
+    taua = 0.02 * torch.rand((L, 16, B), generator=gen, device=dev)
+    faults = [torch.zeros_like(taua), taua.flip(1).contiguous()]
+    if L > 1:
+        faults.append(taua.flip(0).contiguous())
+    if B > 1:
+        faults.append(taua.roll(1, 2).contiguous())
+    for spec, sdt in SPECS.items():
+        codes = (spec_store(tg, sdt, "tg"), spec_store(fr, sdt, "fr"))
+        for name, (w, extra) in modes.items():
+            kern, plain = WRAPPERS[w], rtrn.FLUXES[w]
+            ref = plain(*codes, *args[2:], *extra, taua_t=taua)
+            for bad in faults:
+                assert flux_err(ref, kern(*codes, *args[2:], *extra,
+                                          taua_t=bad)) > 2e-5, (spec, name)
+            for d in (None, dpl):
+                kw = dict(taua_t=taua, dplankbnd_dt=d)
+                got = kern(*codes, *args[2:], *extra, **kw)
+                ref = plain(*codes, *args[2:], *extra, **kw)
+                again = kern(*codes, *args[2:], *extra, **kw)
+                if d is not None:
+                    got, ref, again = (torch.cat(x) for x in (got, ref,
+                                                              again))
+                assert torch.isfinite(got).all(), (spec, name)
+                assert flux_err(ref, got) <= 2e-5, (spec, name, d is None)
+                assert torch.equal(got, again), (spec, name)
+
+
+def test_rt_spec_wrappers_check_storage(dev):
+    args, _, _ = _sweep_inputs(dev, 8, 4)
+    taua = torch.zeros((4, 16, 8), device=dev)
+    tg16 = args[0].to(torch.bfloat16)
+    fr16 = args[1].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="taua_t"):
+        rt_fluxes_blocked(tg16, fr16, *args[2:])
+    with pytest.raises(ValueError, match="taua_t"):
+        rt_fluxes_blocked(*args, taua_t=taua)
+    with pytest.raises(TypeError):
+        rt_fluxes_blocked(tg16, args[1], *args[2:], taua_t=taua)
+
+
+@pytest.mark.parametrize("spec", ["logu16", "bf16"])
+@pytest.mark.parametrize("icld", [0, 2])
+def test_model_spec_cuda_matches_eager(dev, monkeypatch, spec, icld):
+    atm, clouds, _ = _case(dev, 200, 30, aod=0.1)
+    assert float(atm.tauaer.min()) > 0.0
+    cl = clouds if icld else None
+    monkeypatch.setenv("RRTMG_SPEC_DTYPE", spec)
+    before = (taumol_blocked.spec.launches, rt_fluxes_blocked.spec.launches)
+    fk = _model(dev, icld)(atm, cl)
+    assert (taumol_blocked.spec.launches - before[0],
+            rt_fluxes_blocked.spec.launches - before[1]) == (1, 1)
+    fe = _model(dev, icld, impl="eager")(atm, cl)
+    for name in ("uflx", "dflx", "uflxc", "dflxc"):
+        assert flux_err(getattr(fe, name).t(), getattr(fk, name).t()) <= 2e-5
+    with pytest.raises(NotImplementedError, match="RRTMG_SPEC_DTYPE"):
+        make_grad_step(_model(dev, icld))(atm, cl)
+
+
+@pytest.mark.parametrize("C,R,D,dout", [(245, 65, 300, 128),
+                                        (1000, 17, 40, 37),
+                                        (300, 128, 129, 129)])
+def test_probe_onehot_kernel_is_the_row_selection(dev, C, R, D, dout):
+    from rrtmg_lw_torch.utils import probes
+    idx, tbl = probes.probe_inputs(dev, C=C, R=R, D=D)
+    before = probes.onehot_select.launches
+    for nsplit in (1, 3):
+        got = probes.onehot_select(idx, tbl, dout, nsplit)
+        want = tbl if nsplit == 3 else tbl.to(torch.bfloat16).float()
+        assert torch.equal(got, want[:, :dout][idx.long()]), nsplit
+        assert torch.equal(got, probes.onehot_plain(idx, tbl, dout, nsplit))
+    assert probes.onehot_select.launches - before == 2
+
+
+@pytest.mark.parametrize("C,R,D", [(4096 * 60, 1760, 16), (37, 5, 3)])
+def test_probe_gather_kernel_is_the_row_gather(dev, C, R, D):
+    from rrtmg_lw_torch.utils import probes
+    idx, tbl = probes.probe_inputs(dev, C=C, R=R, D=D)
+    assert torch.equal(probes.gather_rows(idx, tbl), tbl[idx.long()])

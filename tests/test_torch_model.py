@@ -11,6 +11,17 @@ clouds 1e-11 W/m2 and 1e-11 of max |hr| (measured ~1.7e-13 W/m2 and
 ~3e-15 of a max |hr| ~3000 K/day in the top layer); the port in float32
 against JAX in float64 holds the reference-accuracy bounds of
 tests/test_f32_accuracy.py (< 5e-3 W/m2, < 0.05 K/day).
+
+Reduced spectral storage (RRTMG_SPEC_DTYPE = bf16, f16, logu16): the
+port's float32 eager step against a JAX composition of the package's
+own functions (the XLA engine's taug / fracs through
+``taumol_pallas.spec_*``, then the aerosol add and the model's XLA
+sweep, as ``fluxes_xla`` does at rtrn_pallas.py:1007-1031 and
+:1182-1199), on an atmosphere with aerosol, within 1e-6 x max(|flux|, 1)
+per column (measured at most 2.7e-7, the float32 paths' own difference;
+the float32 step and an aerosol-free step both lie outside); float64
+ignores the variable (bitwise); a gradient through reduced storage
+raises.
 """
 
 import numpy as np
@@ -344,3 +355,146 @@ def test_float_mask_runs_the_fused_mode():
     for name in FLUXES:
         assert _max_abs(got_f, ref_f, name) <= 1e-11, name
     assert not torch.allclose(got_f.uflx, got.uflx)
+
+
+# ---- reduced spectral storage (RRTMG_SPEC_DTYPE) ----
+
+SPEC_CASES = [(0, 1, None), (2, 1, "compact"), (1, 0, "band"),
+              (2, 0, "band")]
+
+
+def _jax_storage_model(icld, imca, spec):
+    """The JAX model (XLA engines, float32) whose optical depth stores
+    taug and fracs as ``spec`` and reads them back before the aerosol
+    add: the package's own functions composed as its fluxes_xla does."""
+    from rrtmg_lw_tpu.ops import taumol_pallas as jtp
+    from rrtmg_lw_tpu.ops.setcoef import setcoef as jsetcoef
+    jm = jmake_model(JConfig(icld=icld, imca=imca, dtype="float32",
+                             use_lut=False, taumol_impl="xla",
+                             rt_impl="xla"))
+    cast = {"bf16": jnp.bfloat16, "f16": jnp.float16}
+
+    def store(x, which):
+        if spec == "logu16":
+            return (jtp.spec_encode_taug if which == "tg"
+                    else jtp.spec_encode_frac)(x)
+        return x.astype(cast[spec])
+
+    def optical_depth(prof, istart=1):
+        sc = jsetcoef(prof, jm.static, istart=istart, idrv=jm.config.idrv)
+        taug, fracs = jm.engine(sc, prof)
+        taut = jtp.spec_load_taut(store(taug, "tg")) + \
+            prof.taua[..., jm.ngb0]
+        return sc, taut, jtp.spec_load_frac(store(fracs, "fr"))
+
+    jm.optical_depth = optical_depth
+    return jm
+
+
+def _f32_inputs(kind, B, L):
+    """(JAX clouds, port clouds) in float32 of a cloud form, or None."""
+    if kind is None:
+        return None, None
+    if kind == "compact":
+        return (jsyn.make_mcica_clouds(B, L, dtype=jnp.float32,
+                                       layout="compact", mask_dtype=np.int8),
+                McicaCloudsCompact.from_numpy(tsyn.make_mcica_clouds(
+                    B, L, dtype=np.float32, mask_dtype=np.int8), "cpu",
+                    torch.float32))
+    nbc = band_clouds(B, L, np.float32)
+    return (JBandClouds(*nbc),
+            BandClouds.from_numpy(nbc, "cpu", torch.float32))
+
+
+def _col_err(got, ref):
+    """max over columns of max |got - ref| / max(max |ref|, 1)."""
+    g = got.double().numpy()
+    r = np.asarray(ref, np.float64)
+    return float((np.abs(g - r).max(1)
+                  / np.maximum(np.abs(r).max(1), 1.0)).max())
+
+
+# the storage step against the JAX composition, per column / max |flux|:
+# measured at most 2.7e-7 (float32 arithmetic in another order), below
+# the least any storage moves these fluxes from float32's, so a port
+# that skipped the encode or the aerosol add fails
+TOL_STORAGE = 1e-6
+
+
+@pytest.mark.parametrize("spec", ["bf16", "f16", "logu16"])
+@pytest.mark.parametrize("icld,imca,kind", SPEC_CASES)
+def test_storage_step_matches_jax(monkeypatch, icld, imca, kind, spec):
+    B, L = 16, 10
+    jm = _jax_storage_model(icld, imca, spec)
+    jcl, tcl = _f32_inputs(kind, B, L)
+    ref = jm(jsyn.make_atmosphere(B, L, dtype=jnp.float32, aod=0.1), jcl)
+    tables = tables_from_numpy(jm.ktables, jm.static_np, device="cpu")
+    cfg = LWConfig(icld=icld, imca=imca, dtype="float32", use_lut=False)
+    atm = Atmosphere.from_numpy(
+        tsyn.make_atmosphere(B, L, dtype=np.float32, aod=0.1), "cpu",
+        torch.float32)
+    assert float(atm.tauaer.min()) > 0.0
+    plain32 = make_model(cfg, device="cpu", tables=tables)
+    monkeypatch.setenv("RRTMG_SPEC_DTYPE", spec)
+    model = make_model(cfg, device="cpu", tables=tables)
+    assert model.reduced_storage and model.impl == "eager"
+    out = model(atm, tcl)
+    errs = {n: _col_err(getattr(out, n), getattr(ref, n)) for n in FLUXES}
+    # the limit tells reduced storage from float32, and from a step
+    # without the aerosol
+    apart = [max(_col_err(getattr(other, n), getattr(ref, n))
+                 for n in FLUXES)
+             for other in (plain32(atm, tcl), model(atm._replace(
+                 tauaer=torch.zeros_like(atm.tauaer)), tcl))]
+    print(f"{spec} icld={icld} imca={imca}: max per-column err "
+          f"{max(errs.values()):.3g}; float32 {apart[0]:.3g}, no aerosol "
+          f"{apart[1]:.3g}")
+    assert max(errs.values()) <= TOL_STORAGE, errs
+    assert min(apart) > TOL_STORAGE, apart
+    if kind:
+        assert not torch.allclose(out.uflx, out.uflxc)
+
+
+def test_storage_float64_changes_nothing(monkeypatch):
+    """A float64 model ignores RRTMG_SPEC_DTYPE (bitwise), as the JAX
+    package's XLA engine does; a float32 model does not."""
+    B, L = 5, 12
+    atm, clouds = _inputs(B, L, 2, "float64")
+    cfg = LWConfig(icld=2, use_lut=False)
+    base = make_model(cfg, device="cpu")(atm, clouds)
+    monkeypatch.setenv("RRTMG_SPEC_DTYPE", "logu16")
+    model = make_model(cfg, device="cpu")
+    assert model.spec_dtype == torch.uint16 and not model.reduced_storage
+    out = model(atm, clouds)
+    for name in FLUXES + HEATING:
+        assert torch.equal(getattr(out, name), getattr(base, name)), name
+    a32, c32 = _inputs(B, L, 2, "float32")
+    f32 = make_model(cfg.replace(dtype="float32"), device="cpu")
+    assert f32.reduced_storage
+    monkeypatch.delenv("RRTMG_SPEC_DTYPE")
+    plain32 = make_model(cfg.replace(dtype="float32"), device="cpu")
+    assert not torch.equal(f32(a32, c32).uflx, plain32(a32, c32).uflx)
+
+
+@pytest.mark.parametrize("impl", ["eager", "cuda"])
+def test_storage_gradient_raises(monkeypatch, impl):
+    """A gradient through a logu16 step raises NotImplementedError (JAX's
+    wording) on both impls (``impl="cuda"`` on the CPU: the wrappers'
+    plain route), also when only taumol's inputs require grad: the codes
+    cut them from the graph, and no gradient may come back silently
+    zero."""
+    B, L = 4, 10
+    monkeypatch.setenv("RRTMG_SPEC_DTYPE", "logu16")
+    model = make_model(LWConfig(icld=2, dtype="float32", use_lut=False),
+                       device="cpu")
+    model.impl = impl
+    atm, clouds = _inputs(B, L, 2, "float32")
+    with pytest.raises(NotImplementedError, match="RRTMG_SPEC_DTYPE"):
+        make_grad_step(model)(atm, clouds)
+    # ozone reaches the fluxes only through taumol
+    o3 = atm.o3vmr.clone().requires_grad_()
+    fl = model(atm._replace(o3vmr=o3), clouds)
+    with pytest.raises(NotImplementedError, match="RRTMG_SPEC_DTYPE"):
+        fl.uflx.sum().backward()
+    with torch.no_grad():
+        model(atm._replace(o3vmr=o3), clouds)

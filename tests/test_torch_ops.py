@@ -3,12 +3,19 @@ PyTorch version, against the JAX package's XLA counterpart in float64 on
 the same seeded numpy inputs: inatm, setcoef (+ the Planck plain
 version), the cloud coefficients, taumol, the RT sweep, and for
 deterministic clouds the per-band cloud optics (cldprop), the
-maximum-random overlap rows and the banded and maxrand sweeps.
+maximum-random overlap rows and the banded and maxrand sweeps.  Then,
+in float32, the spectral-storage codec (``spec_codec``) against the JAX
+package's ``taumol_pallas.spec_*`` functions, and the probes' plain
+versions against numpy's ``tbl[idx]``, the archived probes' reference.
 
 Tolerance: 1e-12 relative (float64; the two sides run the same
 operations, in different orders only inside reductions), integer
 indices exact; 1e-14 for the overlap rows and the cloud optics (the
-same elementwise operations, no reduction).
+same elementwise operations, no reduction).  The codec: logu16 codes
+equal or one apart on at most 1e-4 of the elements (a one-ulp
+difference of the two packages' float32 log at a rounding edge; none
+measured here), their decodes within one ulp (exp; measured: 2099 of
+26404 one ulp apart), fracs codes and bf16 / f16 casts bitwise.
 """
 
 import numpy as np
@@ -614,3 +621,146 @@ def test_duflx_dt_is_the_derivative_wrt_the_surface_source(pair):
     assert_rel(got.dtotuflux_dt, jvp.numpy())
     assert_rel(got.dtotuclfl_dt, jvp.numpy())
     assert float(jvp.abs().max()) > 0
+
+
+# ---- the spectral-storage codec (RRTMG_SPEC_DTYPE) against JAX ----
+
+@pytest.fixture(scope="module")
+def codec_inputs():
+    """float32 taug and fracs values: the grid of
+    tests/test_taumol_pallas.py:146-148 plus the JAX XLA engine's taug
+    (and fracs) on a seeded small atmosphere, and the JAX model."""
+    jm = jmake_model(JConfig(dtype="float32", use_lut=False,
+                             taumol_impl="xla", rt_impl="xla"))
+    jprof = jinatm(jsyn.make_atmosphere(B, L), dtype=jnp.float32)
+    tg, fr = jm.engine(jsetcoef.setcoef(jprof, jm.static), jprof)
+    grid = np.concatenate([[0.0, -1e-9, 5e-10, 1e-9],
+                           np.geomspace(2e-9, 3.9, 4000)])
+    x = np.concatenate([grid, np.asarray(tg).ravel()]).astype(np.float32)
+    f = np.concatenate([np.linspace(0.0, 1.0, 1000),
+                        np.asarray(fr).ravel()]).astype(np.float32)
+    return jm, x, f
+
+
+def _codes(u):
+    """uint16 codes of either package -> int64 numpy."""
+    if isinstance(u, torch.Tensor):
+        return (u.view(torch.int16).numpy().view(np.uint16)
+                .astype(np.int64))
+    return np.asarray(u).astype(np.int64)
+
+
+def test_spec_codec_logu16_matches_jax(codec_inputs):
+    from rrtmg_lw_tpu.ops import taumol_pallas as jtp
+    from rrtmg_lw_torch.ops import spec_codec
+    _, x, f = codec_inputs
+    got = spec_codec.spec_encode_taug(torch.from_numpy(x))
+    assert got.dtype == torch.uint16
+    uj = _codes(jtp.spec_encode_taug(jnp.asarray(x)))
+    ut = _codes(got)
+    off = np.abs(uj - ut)
+    print(f"logu16 codes one apart: {(off != 0).sum()} of {off.size}")
+    assert off.max() <= 1 and (off != 0).sum() <= 1e-4 * off.size
+    assert (ut[x <= np.float32(1e-9)] == 0).all() and (ut[x > 1e-9] > 0).all()
+    # decodes of the same codes within one ulp
+    dj = np.asarray(jtp.spec_decode_taug(jnp.asarray(uj.astype(np.uint16))))
+    dt = spec_codec.spec_decode_taug(got).numpy()
+    same = off == 0
+    assert dt.dtype == np.float32
+    assert (np.abs(dt - dj)[same] <= np.spacing(np.abs(dj))[same]).all()
+    np.testing.assert_array_equal(dt[ut == 0], 0.0)
+    np.testing.assert_array_equal(
+        _codes(spec_codec.spec_encode_frac(torch.from_numpy(f))),
+        _codes(jtp.spec_encode_frac(jnp.asarray(f))))
+    fu = spec_codec.spec_encode_frac(torch.from_numpy(f))
+    np.testing.assert_array_equal(
+        spec_codec.spec_decode_frac(fu).numpy(),
+        np.asarray(jtp.spec_decode_frac(jnp.asarray(_codes(fu).astype(
+            np.uint16)))))
+    # spec_load_* route codes to the decodes and upcast the rest
+    assert torch.equal(spec_codec.spec_load_taut(got),
+                       spec_codec.spec_decode_taug(got))
+    assert torch.equal(spec_codec.spec_load_frac(fu),
+                       spec_codec.spec_decode_frac(fu))
+
+
+@pytest.mark.parametrize("spec", ["bf16", "f16"])
+def test_spec_codec_casts_match_jax(codec_inputs, spec):
+    from rrtmg_lw_tpu.ops import taumol_pallas as jtp
+    from rrtmg_lw_torch.ops import spec_codec
+    _, x, f = codec_inputs
+    tdt = spec_codec.SPEC_DTYPES[spec]
+    jdt = {"bf16": jnp.bfloat16, "f16": jnp.float16}[spec]
+    for v, which in ((x, "tg"), (f, "fr")):
+        got = spec_codec.spec_store(torch.from_numpy(v), tdt, which)
+        ref = jnp.asarray(v).astype(jdt)
+        assert got.dtype == tdt
+        np.testing.assert_array_equal(
+            got.view(torch.int16).numpy(), np.asarray(ref).view(np.int16))
+        load = (spec_codec.spec_load_taut if which == "tg"
+                else spec_codec.spec_load_frac)
+        jload = jtp.spec_load_taut if which == "tg" else jtp.spec_load_frac
+        np.testing.assert_array_equal(load(got).numpy(),
+                                      np.asarray(jload(ref)))
+
+
+def test_spec_dtype_env_matches_jax(codec_inputs, monkeypatch):
+    """RRTMG_SPEC_DTYPE: the JAX package's values, and its ValueError
+    word for word for any other."""
+    from rrtmg_lw_tpu.ops.taumol_pallas import PallasTaumol
+    from rrtmg_lw_torch.ops import spec_codec
+    jm = codec_inputs[0]
+    want = {"": torch.float32, "f32": torch.float32,
+            "bf16": torch.bfloat16, "f16": torch.float16,
+            "logu16": torch.uint16}
+    for value, dt in want.items():
+        monkeypatch.setenv("RRTMG_SPEC_DTYPE", value)
+        assert spec_codec.spec_dtype_from_env() == dt
+    monkeypatch.delenv("RRTMG_SPEC_DTYPE")
+    assert spec_codec.spec_dtype_from_env() == torch.float32
+    monkeypatch.setenv("RRTMG_SPEC_DTYPE", "bogus")
+    with pytest.raises(ValueError) as jerr:
+        PallasTaumol(jm.ktables, jm.static_np)
+    with pytest.raises(ValueError) as terr:
+        make_model(LWConfig(dtype="float32", use_lut=False), device="cpu")
+    assert str(terr.value) == str(jerr.value)
+
+
+# ---- the probes' plain versions against the archived reference ----
+
+@pytest.mark.parametrize("nsplit,dout", [(3, 128), (1, 128), (3, None),
+                                         (1, 37)])
+def test_probe_onehot_plain_is_the_row_selection(nsplit, dout):
+    """onehot(idx, R) @ tbl[:, :dout] over bf16 planes: exact (three
+    planes) it is numpy's tbl[idx]; one plane, bf16(tbl)[idx]."""
+    from rrtmg_lw_torch.utils import probes
+    idx, tbl = probes.probe_inputs("cpu", C=700, R=65, D=300)
+    out = probes.onehot_select(idx, tbl, dout, nsplit)
+    ref_tbl = tbl if nsplit == 3 else tbl.to(torch.bfloat16).float()
+    ref = ref_tbl.numpy()[idx.numpy()][:, :dout]
+    assert out.shape == ref.shape
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_probe_gather_plain_is_the_row_gather():
+    from rrtmg_lw_torch.utils import probes
+    idx, tbl = probes.probe_inputs("cpu", C=1000, R=probes.R_GATHER,
+                                   D=probes.D_GATHER)
+    np.testing.assert_array_equal(probes.gather_rows(idx, tbl).numpy(),
+                                  tbl.numpy()[idx.numpy()])
+
+
+def test_bf16_three_way_split_reconstructs_the_table():
+    """hi + mid + lo bf16 planes of a seeded float32 table, summed lo,
+    mid, hi in float32 as the kernel does, give the table bit for bit;
+    also over exponents from 1e-30 to 1e30."""
+    from rrtmg_lw_torch.utils import probes
+    rng = np.random.default_rng(4)
+    _, tbl = probes.probe_inputs("cpu", R=65, D=1656)
+    wide = (rng.standard_normal((65, 400))
+            * 10.0 ** rng.integers(-30, 30, (65, 400))).astype(np.float32)
+    for t in (tbl, torch.from_numpy(wide)):
+        hi, mid, lo = probes.bf16_split(t, 3)
+        assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+        assert torch.equal((lo.float() + mid.float()) + hi.float(), t)
+        assert not torch.equal(hi.float(), t)

@@ -253,7 +253,9 @@ def test_build_hash_covers_sources():
     names = {p.name for p in _build.sources()}
     assert {"planck.cu", "cldcoef.cu", "taumol.cu", "rtrn.cu",
             "taumol_bwd.cu", "rtrn_bwd.cu", "overlap.cu", "rrtm.cuh",
-            "taumol.cuh", "rtrn.cuh"} <= names
+            "taumol.cuh", "rtrn.cuh", "spec.cuh", "rtrn_kernel.cuh",
+            "rtrn_bf16.cu", "rtrn_f16.cu", "rtrn_logu16.cu",
+            "probes.cu"} <= names
     assert _build.source_hash() == _build.source_hash()
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -378,3 +380,84 @@ def test_cloud_types_must_match_imca():
     with pytest.raises(TypeError):
         make_model(LWConfig(icld=2, imca=1, use_lut=False),
                    device="cpu")(atm, band)
+
+
+def test_spec_codes_and_constants_match_cuda_source():
+    """The storage argument of the kernels is spec.cuh's enum Spec, and
+    its float32 constants are the codec's, rounded as JAX rounds them."""
+    import jax.numpy as jnp
+    from rrtmg_lw_tpu.ops import taumol_pallas as jtp
+    from rrtmg_lw_torch.ops import spec_codec
+    src = open(os.path.join(REPO, "rrtmg_lw_torch", "csrc",
+                            "spec.cuh")).read()
+    names = [t.split("=")[0].strip() for t in _c_enum(src, "Spec")]
+    values = [int(t.split("=")[1]) for t in _c_enum(src, "Spec")]
+    assert names == ["SPEC_F32", "SPEC_BF16", "SPEC_F16", "SPEC_LOGU16"]
+    assert values == [spec_codec.SPEC_CODES[d] for d in (
+        torch.float32, torch.bfloat16, torch.float16, torch.uint16)]
+
+    def cuda_const(name):
+        lit = re.search(r"constexpr float " + name + r" = (\S+)f;",
+                        src).group(1)
+        return np.float32(float.fromhex(lit))
+    assert spec_codec.SPEC_LOG_LO == jtp.SPEC_LOG_LO
+    assert spec_codec._SPEC_LOG_SCALE == jtp._SPEC_LOG_SCALE
+    for name, value in (("SPEC_LOG_LO", jtp.SPEC_LOG_LO),
+                        ("SPEC_LOG_SCALE", jtp._SPEC_LOG_SCALE),
+                        ("SPEC_INV_SCALE", 1.0 / jtp._SPEC_LOG_SCALE),
+                        ("SPEC_INV_FRAC", 1.0 / 65535.0),
+                        ("SPEC_FLOOR", 1e-9)):
+        want = np.asarray(jnp.asarray(value, jnp.float32))
+        assert cuda_const(name) == want, name
+
+
+@pytest.mark.parametrize("spec", ["bf16", "f16", "logu16"])
+def test_cuda_wrappers_plain_route_in_storage(monkeypatch, spec):
+    """On CPU tensors the wrappers run the plain versions in reduced
+    storage too: K2's store as spec_store of the plain K2, K1 as the
+    decode + aerosol add + plain sweep; no kernel is reached, no launch
+    counted."""
+    from rrtmg_lw_torch import Atmosphere, McicaCloudsCompact
+    from rrtmg_lw_torch.ops import rtrn, rtrn_cuda, setcoef, spec_codec
+    from rrtmg_lw_torch.ops.inatm import inatm
+
+    def no_kernels(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA kernel library")
+    monkeypatch.setattr(_build, "library", no_kernels)
+    monkeypatch.setattr(_build, "launch", no_kernels)
+    sdt = spec_codec.SPEC_DTYPES[spec]
+    B, L = 4, 7
+    model = make_model(LWConfig(icld=2, dtype="float32", use_lut=False),
+                       device="cpu")
+    atm = Atmosphere.from_numpy(tsyn.make_atmosphere(B, L, dtype=np.float32),
+                                "cpu", torch.float32)
+    cl = McicaCloudsCompact.from_numpy(tsyn.make_mcica_clouds(
+        B, L, dtype=np.float32, mask_dtype=np.int8), "cpu", torch.float32)
+    prof = inatm(atm, torch.float32)
+    sc = setcoef.setcoef(prof, model.static_tensors(), planck=False)
+    counters = (taumol_cuda.taumol_blocked, taumol_cuda.taumol_blocked.spec,
+                *rtrn_cuda.WRAPPERS.values(),
+                *(w.spec for w in rtrn_cuda.WRAPPERS.values()))
+    before = [c.launches for c in counters]
+    tg, fr = taumol_cuda.taumol_blocked(sc, prof, model.engine,
+                                        model.kernel_tabs, model.kernel_desc,
+                                        spec_dtype=sdt)
+    tg_p, fr_p = model.engine.blocked(sc, prof)
+    assert tg.dtype == fr.dtype == sdt
+    assert torch.equal(tg.view(torch.int16), spec_codec.spec_store(
+        tg_p, sdt, "tg").view(torch.int16))
+    assert torch.equal(fr.view(torch.int16), spec_codec.spec_store(
+        fr_p, sdt, "fr").view(torch.int16))
+    taua = prof.taua.permute(1, 2, 0).contiguous()
+    play = setcoef.interp_planck_blocked(prof.tavel.t().contiguous(),
+                                         model.totplnk)
+    plev = setcoef.interp_planck_blocked(prof.tz.t().contiguous(),
+                                         model.totplnk)
+    rest = (play, plev, sc.plankbnd, prof.semiss, prof.pwvcm, model.ngb0,
+            model.wg)
+    got = rtrn_cuda.rt_fluxes_blocked(tg, fr, *rest, taua_t=taua)
+    taut = spec_codec.spec_load_taut(tg) + taua[:, model.ngb0.long()]
+    want = rtrn.rt_fluxes_blocked(taut, spec_codec.spec_load_frac(fr),
+                                  *rest)
+    assert torch.equal(got, want)
+    assert [c.launches for c in counters] == before
