@@ -9,7 +9,10 @@ sm_90a):
 Phases, each raising on failure (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the CUDA kernels from csrc/ (one nvcc per source, in
-     parallel), timed, with the registers and spills ptxas reports;
+     parallel), timed, with the registers and spills ptxas reports; for
+     each of K1's 48 instantiations its registers and spill stores, its
+     shared memory per block, blocks per SM (the CUDA occupancy API) and
+     levels in its ring;
   3. each kernel against its plain PyTorch version on the card at the
      main-path shapes (B=16384 columns, L=60 layers, float32), with the
      max error and CUDA-event times of both and the bound of each (the
@@ -19,7 +22,13 @@ Phases, each raising on failure (any failure exits non-zero):
      with an input cloud od) and each at idrv=1, and the overlap rows,
      each also bitwise equal over two runs, the idrv=1 flux rows bitwise
      equal to idrv=0's; the deterministic-cloud modes on make_band_clouds
-     and on a cloud field whose fractions vary inside cloudy blocks; then
+     and on a cloud field whose fractions vary inside cloudy blocks; K1's
+     48 instantiations (6 modes x idrv x 4 storages) on its edge cases
+     (utils/snapshot.py k1_edge_args: clear, overcast and
+     top-and-bottom-cloudy columns in runs across the 16-column tiles,
+     per-g cloud fractions in (0, 0.5), the g-point od exactly 0.06 and
+     0), each within TOL_FLUX of plain, bitwise over two runs, the idrv=1
+     flux rows bitwise equal to idrv=0's; then
      reduced spectral storage (K7, RRTMG_SPEC_DTYPE): K2 in bf16, f16 and
      logu16 against the plain encode of K2's own float32 output (bf16 /
      f16 bitwise, logu16 codes equal or one apart, the share printed) and
@@ -69,7 +78,13 @@ Phases, each raising on failure (any failure exits non-zero):
      and the row gather bitwise equal to tbl[idx], their rates, the
      launch latency and the 4096^3 matmul rates.
 The last two lines of stdout are the kernels' JSON summary and
-{"ok": true, "device": {...}}.  Without CUDA it exits non-zero and
+{"ok": true, "device": {...}}.  Each entry of the summary carries
+bytes_once (the bytes behind bound_ms); K1's entries (K1_LINES) also
+device_ms (the profiler's kernel time; ms, CUDA events around the
+wrapper, holds its host gaps too), their instantiation's registers,
+spill bytes, shared memory, blocks per SM, ring levels and achieved GB/s
+(bytes_once over device_ms), "rt_sweep" the table of all 48
+instantiations.  Without CUDA it exits non-zero and
 prints no result.
 """
 
@@ -130,6 +145,7 @@ KERNELS = (  # name, source, replaced TPU kernel
     ("cldcoef", "rrtmg_lw_torch/csrc/cldcoef.cu",
      "rrtmg_lw_tpu/ops/cldcoef_pallas.py:43"),
     ("rt_sweep", K1_SRC, "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
+    ("rt_sweep_clear", K1_SRC, "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
     ("taumol_bwd", "rrtmg_lw_torch/csrc/taumol_bwd.cu",
      "rrtmg_lw_tpu/ops/taumol_pallas.py:1116"),
     ("planck_bwd", "rrtmg_lw_torch/csrc/planck.cu",
@@ -182,6 +198,21 @@ def cuda_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def device_ms(fn, reps=5):
+    """Mean device ms per call of the K1 launches (torch.profiler, kernel
+    time alone) over ``reps`` calls after one warm-up: the wrapper's CUDA
+    events also hold the host gaps between its launches."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if "rt_kernel" in e.name) / 1e3 / reps
+
+
 def bound(inputs, outputs, ops, nbytes=0, ops_rate=F32_OPS_PER_S,
           library_ms=None):
     """bound_ms, bound_by and library_ms (None: no one PyTorch call
@@ -194,7 +225,7 @@ def bound(inputs, outputs, ops, nbytes=0, ops_rate=F32_OPS_PER_S,
     t_ops = ops / ops_rate * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=library_ms)
+                library_ms=library_ms, bytes_once=nbytes)
 
 
 def flux_err(a, b):
@@ -330,12 +361,20 @@ def phase_kernels(device):
         absd.append(float((fk - fp).abs().max()))
     need(max(errs) <= TOL_FLUX,
          f"rt_sweep: flux err clear {errs[0]:.3g} cloudy {errs[1]:.3g}")
+    res["rt_sweep_clear"] = dict(
+        max_abs_err=absd[0], max_rel_err=errs[0],
+        ms=cuda_ms(lambda: rt_fluxes_blocked(*args), 5),
+        device_ms=device_ms(lambda: rt_fluxes_blocked(*args)),
+        plain_ms=cuda_ms(lambda: rtrn.rt_fluxes_blocked(*args), 2),
+        **bound(args, (fk,), 140 * OPS["rt_clear"] * L_MAIN * B_MAIN))
     mask = clouds.cldfmc
     ncld = int((mask[:, :140] != 0).any(1).sum())     # cloudy (layer, col)
     res["rt_sweep"] = dict(
         max_abs_err=max(absd), max_rel_err=max(errs),
         ms=cuda_ms(lambda: rt_fluxes_blocked(*args, cloud_fields=fields),
                    5),
+        device_ms=device_ms(lambda: rt_fluxes_blocked(
+            *args, cloud_fields=fields)),
         plain_ms=cuda_ms(lambda: rtrn.rt_fluxes_blocked(
             *args, cloud_fields=fields), 2),
         **bound((*args, *fields), (fk,),
@@ -400,6 +439,7 @@ def phase_kernels(device):
             if tag == "decks":
                 res[name] = dict(
                     ms=cuda_ms(lambda: kern(*args, cld_k, taucb), 5),
+                    device_ms=device_ms(lambda: kern(*args, cld_k, taucb)),
                     plain_ms=cuda_ms(lambda: plain(*args, cld_p, taucb), 2),
                     **bound((*args, cld_k, taucb), (fk,), 140 * (
                         OPS["rt_clear"] * L_MAIN * B_MAIN + ops * ncld)))
@@ -408,6 +448,7 @@ def phase_kernels(device):
                          max_rel_err=max(r for _, r in e))
     res.update(k1_per_g_and_idrv(device, model, (*args, sc.dplankbnd_dt),
                                  fields, band_in))
+    k1_edge_cases(device, model, args, sc.dplankbnd_dt)
     for name, r in res.items():
         print(f"{name}: max_abs_err {r['max_abs_err']:.3g} "
               f"max_rel_err {r['max_rel_err']:.3g} kernel {r['ms']:.3f} ms "
@@ -489,6 +530,7 @@ def k1_per_g_and_idrv(device, model, args, compact, band_in):
             res[tag] = dict(
                 max_abs_err=max(absd), max_rel_err=max(errs),
                 ms=cuda_ms(lambda: kern(*args, *ck, **kw), 5),
+                device_ms=device_ms(lambda: kern(*args, *ck, **kw)),
                 plain_ms=cuda_ms(lambda: plain(*args, *cp, **kw), 2),
                 **bound((*args, *bin_) + ((sc_dpl,) if idrv else ()),
                         (fk,), base + ops + (OPS["rt_ddt"] * L_MAIN
@@ -497,6 +539,110 @@ def k1_per_g_and_idrv(device, model, args, compact, band_in):
             print(f"{tag}: flux err {max(errs):.3g}"
                   + (", flux rows equal to idrv=0" if idrv else ""))
     return res
+
+
+def k1_edge_cases(device, model, args, dpl):
+    """Every K1 instantiation (6 modes x idrv 0/1 x 4 storages) at full
+    width on ``utils.snapshot.k1_edge_args``: clear, overcast and
+    top-and-bottom-cloudy columns in runs across K1's 16-column tiles,
+    per-g cloud fractions in (0, 0.5), the g-point od forced to exactly
+    0.06 (the branch point of the gas and total-sky factors; in float32)
+    and to 0.  Each within TOL_FLUX of its plain version per column,
+    bitwise over two runs, the idrv=1 flux rows bitwise equal to
+    idrv=0's."""
+    from rrtmg_lw_torch.ops import rtrn
+    from rrtmg_lw_torch.ops.rtrn_cuda import WRAPPERS
+    from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES, spec_store
+    from rrtmg_lw_torch.utils.snapshot import k1_edge_args
+    eargs, modes, low = k1_edge_args(device, model.static_tensors(), args)
+    need(low > 0, "k1 edge: no element at od 0.06 with a cloud fraction "
+         "in (0, 0.5)")
+    gen = torch.Generator(device=device).manual_seed(8)
+    taua = 0.02 * torch.rand((L_MAIN, 16, B_MAIN), generator=gen,
+                             device=device)
+    worst = {}
+    for spec in ("f32",) + SPECS:
+        if spec == "f32":
+            a, kw = eargs, {}
+        else:
+            sdt = SPEC_DTYPES[spec]
+            a = (spec_store(eargs[0], sdt, "tg"),
+                 spec_store(eargs[1], sdt, "fr"), *eargs[2:])
+            kw = dict(taua_t=taua)
+        for name, (w, cl) in modes.items():
+            kern, plain = WRAPPERS[w], rtrn.FLUXES[w]
+            tag = f"k1 edge {spec} {name}"
+            k0 = kern(*a, *cl, **kw)
+            k1 = flat(kern(*a, *cl, dplankbnd_dt=dpl, **kw))
+            need(torch.equal(k1[:4], k0),
+                 f"{tag}: the idrv=1 flux rows differ from idrv=0's")
+            need(torch.equal(k1, flat(kern(*a, *cl, dplankbnd_dt=dpl,
+                                           **kw))), f"{tag}: two runs differ")
+            e = max(flux_err(plain(*a, *cl, **kw), k0),
+                    flux_err(flat(plain(*a, *cl, dplankbnd_dt=dpl, **kw)),
+                             k1))
+            need(bool(torch.isfinite(k1).all()) and e <= TOL_FLUX,
+                 f"{tag}: flux err {e:.3g} > {TOL_FLUX}")
+            worst[spec, name] = e
+    print(f"k1 edge cases: 48 instantiations within "
+          f"{max(worst.values()):.3g} of plain per column, bitwise over "
+          f"two runs, idrv=1 flux rows equal to idrv=0's; {low} elements "
+          "at od 0.06 with a cloud fraction in (0, 0.5)")
+
+
+def k1_build_info(log_path):
+    """Each K1 instantiation's registers and spill stores (ptxas -v in
+    the build log) and launch configuration (``rtrn_cuda.k1_info``):
+    {"<mode> idrv<0|1> <storage>": {...}}."""
+    import re
+    from rrtmg_lw_torch.ops.rtrn_cuda import MODES, k1_info
+    from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES
+    names = {v: k for k, v in MODES.items()}
+    storages = ("f32",) + SPECS
+    out, cur = {}, None
+    for line in log_path.read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([^' ]+)", line)
+        if m:
+            cur = re.search(r"rt_kernelILi(\d)ELb([01])ELi(\d)E", m.group(1))
+            continue
+        if cur is None:
+            continue
+        mode, idrv, spec = (int(x) for x in cur.groups())
+        key = f"{names[mode]} idrv{idrv} {storages[spec]}"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out.setdefault(key, {})["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    for key, r in out.items():
+        mode, idrv, spec = key.split()
+        info = k1_info(mode, int(idrv[-1]), SPEC_DTYPES.get(spec,
+                                                            torch.float32))
+        need(info["registers"] == r.get("registers"),
+             f"K1 {key}: {info['registers']} registers at run time, ptxas "
+             f"said {r.get('registers')}")
+        r.update(smem_bytes=info["static_smem"] + info["dynamic_smem"],
+                 blocks_per_sm=info["blocks_per_sm"],
+                 ring_levels=info["ring_levels"])
+    need(len(out) == 48 and all(len(r) == 5 for r in out.values()),
+         f"K1: {len(out)} instantiations in the build log, expected 48")
+    return out
+
+
+# the K1 instantiation behind each K1 line of the JSON summary
+K1_LINES = {"rt_sweep": "compact idrv0 f32", "rt_sweep_clear":
+            "clear idrv0 f32", "rt_sweep_banded": "banded idrv0 f32",
+            "rt_sweep_maxrand": "maxrand idrv0 f32",
+            "rt_sweep_fused": "fused idrv0 f32",
+            "rt_sweep_cldf_od": "cldf_od idrv0 f32",
+            "rt_sweep_idrv": "compact idrv1 f32",
+            "rt_sweep_banded_idrv": "banded idrv1 f32",
+            "rt_sweep_maxrand_idrv": "maxrand idrv1 f32",
+            "rt_sweep_fused_idrv": "fused idrv1 f32",
+            "rt_sweep_cldf_od_idrv": "cldf_od idrv1 f32",
+            "rt_sweep_spec": "compact idrv0 logu16"}
 
 
 def run_steps(model, atm, clouds, steps):
@@ -1088,6 +1234,8 @@ def phase_storage_kernels(device):
     res["rt_sweep_spec"] = dict(
         max_abs_err=worst[1], max_rel_err=worst[0],
         ms=cuda_ms(lambda: WRAPPERS["blocked"](tg, fr, *rest, *cf, **kw), 5),
+        device_ms=device_ms(
+            lambda: WRAPPERS["blocked"](tg, fr, *rest, *cf, **kw)),
         plain_ms=cuda_ms(lambda: rtrn.FLUXES["blocked"](tg, fr, *rest, *cf,
                                                         **kw), 2),
         **bound((tg, fr, taua_t, *rest, *cf[0]), (fk,),
@@ -1336,6 +1484,12 @@ def main() -> int:
     for line in (path.parent / "build.log").read_text().splitlines():
         if "entry function" in line or "Used" in line or "spill" in line:
             print("  " + line.strip())
+    k1_build = k1_build_info(path.parent / "build.log")
+    for key, r in k1_build.items():
+        print(f"K1 {key}: {r['registers']} registers, {r['spill_bytes']} B "
+              f"spill stores, {r['smem_bytes']} B shared memory, "
+              f"{r['blocks_per_sm']} blocks per SM, ring of "
+              f"{r['ring_levels']} levels")
 
     # 3. kernels vs plain versions; then K2 and K1 in reduced storage
     res = phase_kernels(device)
@@ -1404,6 +1558,15 @@ def main() -> int:
     for r in rows:
         print("e2e " + json.dumps(r))
 
+    launches["rt_sweep_clear"] = cell_launches["clear"]["rt_sweep"]
+    for name, key in K1_LINES.items():
+        r = res[name]
+        r.update(k1_build[key], instantiation=key,
+                 gbps=r["bytes_once"] / (r["device_ms"] * 1e-3) / 1e9)
+        print(f"{name} ({key}): device {r['device_ms']:.3f} ms, "
+              f"{r['gbps']:.0f} GB/s of its bytes read once, bound "
+              f"{r['bound_ms']:.3f} ms")
+    res["rt_sweep"]["k1_instantiations"] = k1_build
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **res[name])
                for name, src, rep in KERNELS]

@@ -47,6 +47,7 @@ SIGNATURES = {
     "rrtm_taumol": (P, P, P, P, P, P, P, I, I, I, P),
     "rrtm_taumol_bwd": (P, P, P, P, P, P, P, I, I, P),
     "rrtm_rt": (P,) * 19 + (I,) * 5 + (P,),
+    "rrtm_rt_info": (I, I, I, P),
     "rrtm_overlap": (P, P, I, I, P),
     "rrtm_rt_bwd": (P,) * 21 + (I, I, I, P),
     "rrtm_taumol_ndesc": (),

@@ -1,5 +1,5 @@
 // K1, the RT sweep kernel (rtrn_kernel.cuh): its float32 instantiations
-// (6 modes x idrv 0/1) and the entry point, which dispatches the reduced
+// (6 modes x idrv 0/1) and the entry points, which dispatch the reduced
 // storages to rtrn_bf16.cu, rtrn_f16.cu and rtrn_logu16.cu.
 #include "rtrn_kernel.cuh"
 
@@ -48,5 +48,20 @@ RRTM_API int rrtm_rt(const void* taut, const void* fracs, const float* play,
         return (int)launch_logu16(in, taua, ngb, wg, out, mode, idrv, s);
     default:
         return (int)cudaErrorInvalidValue;
+    }
+}
+
+// The launch configuration of K1 in `mode` at idrv in storage `spec`:
+// out[0..7] = registers per thread, local memory bytes per thread, static
+// and dynamic shared memory per block, blocks per SM, the ring's levels,
+// threads and columns per block (rtrn_kernel.cuh info).
+RRTM_API int rrtm_rt_info(int mode, int idrv, int spec, int* out) {
+    switch (spec) {
+    case rrtm::SPEC_F32:
+        return (int)info_storage<rrtm::SPEC_F32>(mode, idrv, out);
+    case rrtm::SPEC_BF16: return (int)info_bf16(mode, idrv, out);
+    case rrtm::SPEC_F16: return (int)info_f16(mode, idrv, out);
+    case rrtm::SPEC_LOGU16: return (int)info_logu16(mode, idrv, out);
+    default: return (int)cudaErrorInvalidValue;
     }
 }

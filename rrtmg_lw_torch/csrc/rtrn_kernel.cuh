@@ -25,52 +25,75 @@
 // their fluxes as rows 4 and 5; the flux arithmetic and its reduction
 // order are those of idrv = 0, so rows 0-3 are bitwise the same.
 //
-// Bound on the H100: bytes.  At B=16384, L=60 the inputs are ~1.1 GB
-// of taut + fracs (L, 140, B), 0.13 GB of Planck sources, plus 0.14 GB
-// of int8 mask (compact) or 0.06 GB of per-band cloud od and 4 MB of
-// cloud fraction (banded; maxrand adds 0.06 GB of overlap rows), against
-// ~30 flops and 1-2 expf per (level, g, column) and sweep: ~1.31 GB,
-// ~0.39 ms at 3.35 TB/s (banded), ~1.37 GB, ~0.41 ms (maxrand).  The
-// fused and cldf-odcld modes read the (L, 144, B) f32 cloud fraction
-// (0.57 GB) and the other per-g arrays only where a g-point is cloudy.
-// The up sweep RECOMPUTES the per-level factors from taut instead of
-// caching them: a cache of the 6 factors the up sweep needs would write
-// and re-read 6 x 4 B per (level, g, column) (~3.3 GB at that shape),
-// while recomputing re-reads only taut, fracs and the cloud inputs
-// (~1.2 GB) and costs one more expf (two when cloudy) per level.
+// What bounds it on the H100.  Each sweep reads taut and fracs (L, 140,
+// B) once, ~1.1 GB per sweep at B=16384, L=60 in float32 (the up sweep
+// RECOMPUTES its per-level factors from them: a cache of the 6 factors
+// would write and re-read ~3.3 GB), with the Planck rows and the cloud
+// inputs ~1.3 GB, ~0.39 ms at 3.35 TB/s; against that ~30 flops, an expf
+// and two IEEE divisions per (level, g, column) and sweep (~1 ms of issue
+// on 132 SMs).  Read once per sweep, the bytes are ~0.75 ms: the kernel
+// is held by both, and by the latency of the level recurrence between
+// them.
 //
-// Design: a block holds 32 columns (one warp across) x 16 g-lanes; each
-// thread carries the radiances of 9 of the 140 g-points of its column
-// in registers (maxrand: 5 floats per g, the total-sky stream, its clear
-// twin, and the cloudy, clear and correction sub-streams; idrv adds 2
-// per g in the up sweep).  Reads of (L, G, B) arrays coalesce across the
-// warp; the per-column cloud rows are read by every g-lane and served
-// from L1.  Per level, the g-weighted radiances are reduced across the
-// 16 lanes through shared memory in a fixed order: no atomics on the
-// fluxes, and the result is deterministic.
-//
-// Coupling across g-points: a layer is cloudy for a column when any of
-// its g-points has a cloud fraction >= 0.5 (compact, fused, cldf-odcld)
-// or where its cloud fraction is >= 1e-6 (banded, maxrand: the same for
-// every g).  The clear twin stream of every g follows the cloudy stream
-// until the first cloudy layer above (iclddn, down sweep) or anywhere in
-// the column (up sweep).  The per-g modes form cloudy_lay per layer with
-// a warp ballot OR-ed into shared memory before any g of the layer is
-// updated, keep it for the up sweep, and carry iclddn as a running OR
-// from the top; the banded mode reads the cloud fraction; the maxrand
-// mode reads iclddn, the sub-stream restart flags and the overlap factors
-// from the rows the overlap kernel (overlap.cu) made.
+// Design.  A block holds 16 columns x 16 g-lanes (256 threads, two blocks
+// per SM at <= 128 registers); each thread carries the radiances of 9 of
+// the 140 g-points of its column in registers (maxrand: 5 floats per g;
+// idrv adds 2 per g in the up sweep).
+// - Staged levels: every input row of a level (taut, fracs, the Planck
+//   rows of the 16 bands, the aerosol od in reduced storage, the mask,
+//   cloud fraction or overlap rows, the ice and liquid coefficients
+//   (fused) or per-band cloud od) is copied into a ring of RING levels
+//   in shared memory by cp.async, RING - 1 levels ahead of the one the
+//   sweep is on, 16 bytes a copy where the rows are 16-byte aligned and
+//   the tile is full (element by element otherwise: B not a multiple of
+//   4, 8 or 16 for 4-, 2- or 1-byte elements, or the ragged last tile).
+//   Each slot has an mbarrier on which every thread's copies arrive
+//   (cp.async.mbarrier.arrive.noinc); a thread waits on the slot of the
+//   level it reads, not on the block.  16-bit codes are decoded once per
+//   staged element, where the sweep reads them.
+// - One block barrier per level: it frees the ring slot of the previous
+//   level, publishes
+//   the g-lanes' partial fluxes of the previous level, which lanes 0-1
+//   (0-3 at idrv=1) then sum in a fixed order (deterministic, no atomics),
+//   and publishes the per-g modes' cloudy-layer flags of the next level.
+// - Cloudy-layer flags: a layer is cloudy for a column when any of its
+//   g-points has a cloud fraction >= 0.5 (compact, fused, cldf-odcld) or
+//   where its cloud fraction is >= 1e-6 (banded, maxrand).  In the per-g
+//   modes each warp ballots its g-points of level i+1 from the staged
+//   slot while the sweep is at level i; the ballots are OR-ed at level
+//   i+1.  The clear twin stream of every g follows the cloudy stream until
+//   the first cloudy layer above (iclddn, down sweep) or anywhere in the
+//   column (up sweep); maxrand reads iclddn, the sub-stream restart flags
+//   and the overlap factors from the rows the overlap kernel (overlap.cu)
+//   made.
+// - Cloud terms only where a g-point is cloudy (compact, fused,
+//   cldf-odcld): where the g's gate (cf >= 0.5) is false the cloud od is
+//   0 and the total-sky factors are the gas factors; they are taken from
+//   gas_factors except at od == 0.06 exactly, where the gas (od <= 0.06)
+//   and total (od < 0.06) branches differ and tot_factors runs as in the
+//   spec.  No cloud expf and no second pair of divisions runs outside the
+//   cloudy elements (under 5% of them in the McICA cells).  The per-g
+//   water paths and cloud od (fused, cldf-odcld) and compact's ice and
+//   liquid coefficients are read from device memory only there.
+// - Levels where no column of the tile is cloudy (a block-uniform
+//   branch) run the gas factors alone: the recurrences read nothing
+//   else there, so the results are bitwise those of the full step.
 //
 // Storage (RRTMG_SPEC_DTYPE): a third template parameter, SPEC
-// (spec.cuh), reads taut and fracs in float32 (taua already added by the
-// model) or as bf16, f16 or logu16 codes, decoded at each read
-// (rtrn_pallas.py:234, :259-261, :499), with the aerosol od of the band
-// added to the decoded taug inside the kernel (:263-275).  16-bit storage
-// halves the bytes of taut and fracs, read twice (down and up sweep).
-// rtrn.cu instantiates the float32 kernels and holds the entry point;
-// rtrn_bf16.cu, rtrn_f16.cu and rtrn_logu16.cu the reduced ones, one
-// translation unit each so that nvcc builds them in parallel.
+// (spec.cuh), stages taut and fracs in float32 (taua already added by the
+// model) or as bf16, f16 or logu16 codes (rtrn_pallas.py:234, :259-261,
+// :499), with the aerosol od of the band added to the decoded taug
+// inside the kernel (:263-275).  rtrn.cu instantiates the float32 kernels
+// and holds the entry points; rtrn_bf16.cu, rtrn_f16.cu and
+// rtrn_logu16.cu the reduced ones, one translation unit each so that nvcc
+// builds them in parallel.  K6 (rtrn_bwd.cu) keeps rtrn.cuh's layer_step
+// and block layout; nothing here is shared with it but the recurrences
+// (advance, advance_ddt, advance_mr) and the factor functions.
 #pragma once
+
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "rtrn.cuh"
 
@@ -88,6 +111,10 @@ cudaError_t launch_f16(const Inputs& in, const float* taua, const int* ngb,
 cudaError_t launch_logu16(const Inputs& in, const float* taua,
                           const int* ngb, const float* wg, float* out,
                           int mode, int idrv, cudaStream_t s);
+// the launch configuration of one instantiation (rrtm_rt_info)
+cudaError_t info_bf16(int mode, int idrv, int* out);
+cudaError_t info_f16(int mode, int idrv, int* out);
+cudaError_t info_logu16(int mode, int idrv, int* out);
 
 }  // namespace rt
 }  // namespace rrtm
@@ -96,231 +123,655 @@ namespace {
 
 using namespace rrtm::rt;
 
-// Sum the g-lanes' partial fluxes s[i] of each column in a fixed order
-// and write them to flux rows r0, r1 (, r2, r3) of out at level `lev`,
-// lane i summing s[i].
-template <int N>
-__device__ __forceinline__ void reduce_write(float (*part)[NY][NX],
-                                             const float (&s)[N], int r0,
-                                             int r1, int r2, int r3,
-                                             float* out, int lev, int L,
-                                             int B, int b, bool valid) {
-    const int tx = threadIdx.x, ty = threadIdx.y;
-#pragma unroll
-    for (int i = 0; i < N; ++i) part[i][ty][tx] = s[i];
-    __syncthreads();
-    if (ty < N && valid) {
-        const int r = ty == 0 ? r0 : ty == 1 ? r1 : ty == 2 ? r2 : r3;
-        float acc = 0.0f;
-#pragma unroll
-        for (int y = 0; y < NY; ++y) acc += part[ty][y][tx];
-        out[((size_t)r * (L + 1) + lev) * B + b] = acc;
+constexpr int KX = 16;                       // columns per block
+constexpr int KY = 16;                       // g-lanes per column
+constexpr int KT = KX * KY;                  // threads per block
+constexpr int KW = KT / 32;                  // warps per block
+constexpr int KG = rrtm::NGPT;               // g-points
+constexpr int KGPT = (KG + KY - 1) / KY;     // g-points per thread
+constexpr int KNB = rrtm::NBAND;
+constexpr int BLOCKS_PER_SM = 2;
+// shared memory of an SM on the H100 (228 KB) and the 1 KB the system
+// reserves per block
+constexpr int SMEM_SM = 233472;
+constexpr int SMEM_RESERVED = 1024;
+
+constexpr int align16(int x) { return (x + 15) & ~15; }
+
+// Byte layout of one level in the ring: the (g or band or row, column)
+// tiles of the level's inputs, KX columns each.
+template <int MODE, int SPEC>
+struct Slot {
+    static constexpr int ES = sizeof(typename rrtm::SpecType<SPEC>::T);
+    static constexpr int BAND_ROW = KX * 4;
+    static constexpr int TAU = 0;
+    static constexpr int FR = align16(TAU + KG * KX * ES);
+    static constexpr int PLAY = align16(FR + KG * KX * ES);
+    static constexpr int PLEV = PLAY + KNB * BAND_ROW;
+    static constexpr int TAUA = PLEV + KNB * BAND_ROW;
+    // the band rows of the cloud optics: fused: abi, abl (16, KX) each;
+    // banded, maxrand: taucb (16, KX).  Not in compact: its ~6 cloudy
+    // levels of 60 read abi, abl from device memory, cheaper than copying
+    // them at every level (measured on the H100: 1.73 against 1.71 ms,
+    // 4.00 against 3.75 at L=140)
+    static constexpr int BC =
+        TAUA + (SPEC != rrtm::SPEC_F32 ? KNB * BAND_ROW : 0);
+    static constexpr int NBC = MODE == FUSED ? 2 * KNB
+                               : (MODE == BANDED || MODE == MAXRAND) ? KNB
+                               : 0;
+    // compact: int8 mask (KG, KX), then cw (2, KX); fused, cldf-odcld:
+    // cldf (KG, KX); banded: cldfrac (KX); maxrand: rows (NROW, KX)
+    static constexpr int CLD = BC + NBC * BAND_ROW;
+    static constexpr int CW = align16(CLD + KG * KX);
+    static constexpr int END =
+        MODE == COMPACT ? CW + 2 * BAND_ROW
+        : (MODE == FUSED || MODE == CLDF_OD) ? CLD + KG * BAND_ROW
+        : MODE == BANDED ? CLD + BAND_ROW
+        : MODE == MAXRAND ? CLD + NROW * BAND_ROW : CLD;
+    static constexpr int BYTES = align16(END);
+};
+
+// The block's dynamic shared memory: the ring, one mbarrier per slot,
+// two buffers of the g-lanes' partial fluxes (NUP rows), two of the
+// warps' cloud ballots, the band and weight of every g, the columns'
+// diffusivity secants per band, and in maxrand the sub-stream carries.
+// What a thread would otherwise hold through the sweep in registers
+// (bands, secants, sub-streams) lives here: at 128 registers a thread
+// (two blocks per SM) the radiances and the step's temporaries fill
+// them.
+template <int MODE, bool IDRV, int SPEC>
+struct Layout {
+    using S = Slot<MODE, SPEC>;
+    static constexpr int NUP = IDRV ? 4 : 2;
+    // maxrand: the cloudy, clear and correction sub-streams of every g
+    static constexpr int SUB_BYTES = MODE == MAXRAND ? 3 * KGPT * KT * 4 : 0;
+    static constexpr int FIXED = 8 * 4 + 2 * NUP * KY * KX * 4 + 2 * KW * 4
+                                 + 2 * KG * 4 + KNB * KX * 4 + SUB_BYTES;
+    static constexpr int bytes(int ring) { return ring * S::BYTES + FIXED; }
+    // four levels where two blocks of them fit on an SM, else three
+    static constexpr int RING =
+        BLOCKS_PER_SM * (bytes(4) + SMEM_RESERVED) <= SMEM_SM ? 4 : 3;
+    static constexpr int BYTES = bytes(RING);
+    static constexpr int BAR = RING * S::BYTES;       // mbarriers (8 B each)
+    static constexpr int PART = BAR + 8 * 4;
+    static constexpr int CLYW = PART + 2 * NUP * KY * KX * 4;
+    static constexpr int NGB = CLYW + 2 * KW * 4;
+    static constexpr int WG = NGB + KG * 4;
+    static constexpr int SECD = WG + KG * 4;             // (16, KX)
+    static constexpr int SUB = SECD + KNB * KX * 4;      // (3, KGPT, KT)
+};
+
+// A copy of x the compiler cannot see through.  The staging's and the
+// reduction's per-thread offsets are the same at every level; computed
+// from an opaque thread index they are recomputed at each level instead
+// of being hoisted into registers held through the sweep.
+__device__ __forceinline__ int opaque(int x) {
+    int y;
+    asm volatile("mov.b32 %0, %1;\n" : "=r"(y) : "r"(x));
+    return y;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared.b64 [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// the mbarrier's arrival of this thread, once its cp.async copies issued
+// so far have landed
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n"
+                 :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+    const uint32_t a = smem_addr(bar);
+    unsigned done = 0;
+    while (!done) {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n"
+            "}\n"
+            : "=r"(done) : "r"(a), "r"(parity) : "memory");
     }
-    __syncthreads();
+}
+
+// Copy `rows` rows of `nvalid` elements of ES bytes, row r at
+// src + r * stride bytes, into the (rows, KX) tile at dst.  vec: the rows
+// are 16-byte aligned and the tile full, 16-byte copies; else element by
+// element, by cp.async for 4-byte elements and through registers for
+// narrower ones (made visible by the block barrier that precedes their
+// first read).  Columns from nvalid on are left unwritten: the sweep
+// reads column nvalid - 1 there.
+template <int ES>
+__device__ __forceinline__ void stage(unsigned char* dst,
+                                      const unsigned char* src, int rows,
+                                      size_t stride, int nvalid, bool vec,
+                                      int tid) {
+    constexpr int RB = KX * ES;
+    if (vec) {
+        constexpr int CPR = RB / 16;
+        for (int i = tid; i < rows * CPR; i += KT) {
+            const int r = i / CPR, j = i - r * CPR;
+            cp16(dst + r * RB + j * 16, src + r * stride + j * 16);
+        }
+    } else if constexpr (ES == 4) {
+        for (int i = tid; i < rows * nvalid; i += KT) {
+            const int r = i / nvalid, c = i - r * nvalid;
+            cp4(dst + r * RB + c * 4, src + r * stride + c * 4);
+        }
+    } else {
+        using E = std::conditional_t<ES == 2, uint16_t, uint8_t>;
+        constexpr int BATCH = 8;
+        const int n = rows * nvalid;
+        for (int i0 = tid; i0 < n; i0 += KT * BATCH) {
+            E v[BATCH];
+#pragma unroll
+            for (int j = 0; j < BATCH; ++j) {
+                const int i = i0 + j * KT;
+                if (i < n) {
+                    const int r = i / nvalid, c = i - r * nvalid;
+                    v[j] = *reinterpret_cast<const E*>(src + r * stride
+                                                       + c * ES);
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < BATCH; ++j) {
+                const int i = i0 + j * KT;
+                if (i < n) {
+                    const int r = i / nvalid, c = i - r * nvalid;
+                    *reinterpret_cast<E*>(dst + r * RB + c * ES) = v[j];
+                }
+            }
+        }
+    }
+}
+
+// can rows of ES-byte elements at `p`, `B` elements apart, go by 16 bytes
+template <int ES>
+__device__ __forceinline__ bool rows16(const void* p, int B) {
+    return ((uintptr_t)p & 15u) == 0 && ((size_t)B * ES) % 16 == 0;
+}
+
+// The per-g cloud fraction of g at column c of a staged level: the
+// compact mask or the cldfmc array.
+template <int MODE, int SPEC>
+__device__ __forceinline__ float staged_cf(const unsigned char* s, int g,
+                                           int c) {
+    using Sl = Slot<MODE, SPEC>;
+    if constexpr (MODE == COMPACT)
+        return (float)reinterpret_cast<const int8_t*>(s + Sl::CLD)[g * KX + c];
+    else
+        return reinterpret_cast<const float*>(s + Sl::CLD)[g * KX + c];
+}
+
+// The factors of one sweep step of (layer l, g, column c) from the staged
+// level s (rtrn.cuh layer_step's arithmetic, operation for operation),
+// with the cloud terms only where the g-point is cloudy.  `cf` is the
+// cloud fraction of this g (COMPACT: the mask value; FUSED, CLDF_OD:
+// cldfmc) or the layer's (BANDED, MAXRAND); b the global column.
+// CLOUDS false: the gas factors alone, for a level where no column of
+// the tile is cloudy (the recurrences then read nothing else).
+template <int MODE, int SPEC, bool CLOUDS, typename In>
+__device__ __forceinline__ Step staged_step(const unsigned char* s,
+                                            const In& in, int l, int g,
+                                            int bd, float secd, float cf,
+                                            float cw0, float cw1, int c,
+                                            int b) {
+    using Sl = Slot<MODE, SPEC>;
+    const size_t B = in.B;
+    const int gi = g * KX + c, bi_s = bd * KX + c;
+    const float* bc = reinterpret_cast<const float*>(s + Sl::BC);
+    const float fr = rrtm::spec_load<SPEC, false>(
+        reinterpret_cast<const float*>(s + Sl::FR), gi);
+    const float bl = reinterpret_cast<const float*>(s + Sl::PLAY)[bi_s];
+    const float dp =
+        reinterpret_cast<const float*>(s + Sl::PLEV)[bi_s] - bl;
+    float tau = rrtm::spec_load<SPEC, true>(
+        reinterpret_cast<const float*>(s + Sl::TAU), gi);
+    if constexpr (SPEC != rrtm::SPEC_F32)
+        tau = tau + reinterpret_cast<const float*>(s + Sl::TAUA)[bi_s];
+    const float od = fmaxf(secd * tau, 0.0f);
+    float tfg;
+    Step f;
+    gas_factors(od, f.at, tfg);
+    f.src = fr * (bl + tfg * dp);
+    f.atot = f.at;
+    f.ef = f.cf = 0.0f;
+    f.srctot = f.src;
+    if constexpr (CLOUDS && per_g_clouds(MODE)) {
+        f.cf = cf;
+        float odce = 0.0f;
+        const bool gate = cf >= 0.5f;
+        if (gate) {
+            float odcld;
+            if constexpr (MODE == COMPACT) {
+                // cldprmc on the compact products (mask x layer water path)
+                const size_t bi = ((size_t)l * rrtm::NBAND + bd) * B + b;
+                const float ciwp = cw0 * cf;
+                const float clwp = cw1 * cf;
+                const float ai = ciwp == 0.0f ? 0.0f : in.abi[bi];
+                const float al = clwp == 0.0f ? 0.0f : in.abl[bi];
+                const float cwp = ciwp + clwp;
+                const bool active = cf >= CLDMIN && cwp >= CLDMIN;
+                odcld = active ? ciwp * ai + clwp * al : 0.0f;
+            } else {
+                const size_t pi = ((size_t)l * rrtm::NGPT_PAD + g) * B + b;
+                if constexpr (MODE == CLDF_OD) {
+                    odcld = in.tauc[pi];
+                } else {
+                    // cldprmc (rrtmg_lw_cldprmc.f90:128-142) inline
+                    const float ciwp = in.ciwp[pi];
+                    const float clwp = in.clwp[pi];
+                    const float tauc = in.tauc[pi];
+                    const float ai = ciwp == 0.0f ? 0.0f : bc[bi_s];
+                    const float al =
+                        clwp == 0.0f ? 0.0f : bc[KNB * KX + bi_s];
+                    const float cwp = ciwp + clwp;
+                    const bool active =
+                        cf >= CLDMIN && (cwp >= CLDMIN || tauc >= CLDMIN);
+                    odcld = active ? ciwp * ai + clwp * al : tauc;
+                }
+            }
+            odce = secd * odcld;
+            f.ef = (1.0f - expf(-odce)) * cf;
+        }
+        // clear g-point: the total-sky factors are the gas factors, but
+        // at od == 0.06 where tot_factors takes its other branch
+        if (gate || od == 0.06f) {
+            float tft;
+            tot_factors(od + odce, f.atot, tft);
+            f.srctot = fr * (bl + tft * dp);
+        }
+    } else if constexpr (CLOUDS && (MODE == BANDED || MODE == MAXRAND)) {
+        if (cf >= CLOUD_GATE) {
+            // per-band cloud od of this g's band, on the spectral band's
+            // diffusivity
+            const float odce = secd * bc[bi_s];
+            if (MODE == BANDED) f.ef = (1.0f - expf(-odce)) * cf;
+            f.cf = cf;
+            float tft;
+            tot_factors(od + odce, f.atot, tft);
+            f.srctot = fr * (bl + tft * dp);
+        }
+    }
+    return f;
 }
 
 template <int MODE, bool IDRV, int SPEC>
-__global__ void __launch_bounds__(NX * NY)
+__global__ void __launch_bounds__(KT, BLOCKS_PER_SM)
 rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
           const float* __restrict__ wg, float* __restrict__ out) {
+    using Sl = Slot<MODE, SPEC>;
+    using Lo = Layout<MODE, IDRV, SPEC>;
     constexpr bool MR = MODE == MAXRAND;
     constexpr bool PERG = per_g_clouds(MODE);
-    constexpr int NSUB = MR ? GPT : 1;     // sub-stream carries (maxrand)
-    constexpr int ND = IDRV ? GPT : 1;     // d/dT carries (idrv)
-    constexpr int NUP = IDRV ? 4 : 2;      // flux rows of the up sweep
-    extern __shared__ unsigned int cly_bits[];   // (L,) column bitmasks
-    __shared__ float part[NUP][NY][NX];
-    __shared__ int ngb_s[rrtm::NGPT];
-    __shared__ float wg_s[rrtm::NGPT];
+    constexpr int ND = IDRV ? KGPT : 1;     // d/dT carries (idrv)
+    constexpr int NUP = Lo::NUP;            // flux rows of the up sweep
+    constexpr int RING = Lo::RING;
+    constexpr int ES = Sl::ES;
+    extern __shared__ __align__(16) unsigned char smem[];
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smem + Lo::BAR);
+    float* part = reinterpret_cast<float*>(smem + Lo::PART);
+    unsigned* clyw = reinterpret_cast<unsigned*>(smem + Lo::CLYW);
+    int* ngb_s = reinterpret_cast<int*>(smem + Lo::NGB);
+    float* wg_s = reinterpret_cast<float*>(smem + Lo::WG);
+    float* secd_s = reinterpret_cast<float*>(smem + Lo::SECD);
+    float* sub = reinterpret_cast<float*>(smem + Lo::SUB);
+
     const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * NX + tx;
+    const int tid = ty * KX + tx;
     const int L = in.L, B = in.B;
-    for (int i = tid; i < rrtm::NGPT; i += NX * NY) {
+    const int bt = blockIdx.x * KX;
+    const int nvalid = min(KX, B - bt);
+    const bool valid = tx < nvalid;
+    const int c = valid ? tx : nvalid - 1;  // ragged edge: compute, never write
+    const int b = bt + c;
+    for (int i = tid; i < KG; i += KT) {
         ngb_s[i] = ngb[i];
         wg_s[i] = wg[i];
     }
-    if (PERG)
-        for (int i = tid; i < L; i += NX * NY) cly_bits[i] = 0u;
-    __syncthreads();
+    static_assert(KNB * KX == KT, "one secant a thread");
+    secd_s[tid] = in.surf[(size_t)(tid / KX) * B + bt
+                          + min(tid % KX, nvalid - 1)];
+    if (tid == 0)
+        for (int r = 0; r < RING; ++r) mbar_init(&bar[r], KT);
 
-    const int b0 = blockIdx.x * NX + tx;
-    const bool valid = b0 < B;
-    const int b = valid ? b0 : B - 1;      // ragged edge: compute, never write
+    // 16-byte copies of a full tile where each array's rows allow them
+    const bool full = nvalid == KX;
+    const bool v_spec = full && rows16<ES>(in.taut, B)
+                        && rows16<ES>(in.fracs, B);
+    bool v_band = full && rows16<4>(in.play, B) && rows16<4>(in.plev, B);
+    bool v_cld = full;
+    if constexpr (SPEC != rrtm::SPEC_F32)
+        v_band = v_band && rows16<4>(in.taua, B);
+    if constexpr (MODE == FUSED)
+        v_band = v_band && rows16<4>(in.abi, B) && rows16<4>(in.abl, B);
+    else if constexpr (MODE == BANDED || MR)
+        v_band = v_band && rows16<4>(in.taucb, B);
+    if constexpr (MODE == COMPACT)
+        v_cld = full && rows16<1>(in.mask, B) && rows16<4>(in.cw, B);
+    else if constexpr (PERG)
+        v_cld = full && rows16<4>(in.cldf, B);
+    else if constexpr (MODE == BANDED || MR)
+        v_cld = full && rows16<4>(in.cld, B);
+    const size_t Bz = B;
 
-    int bnd[GPT];
-    float secd[GPT], rad[GPT], radc[GPT], m[GPT];
-    float cr[NSUB], kr[NSUB], rr[NSUB], dl[ND], dc[ND];
-#pragma unroll
-    for (int k = 0; k < GPT; ++k) {
-        const int g = ty + k * NY;
-        bnd[k] = g < rrtm::NGPT ? ngb_s[g] : 0;
-        secd[k] = in.surf[(size_t)bnd[k] * B + b];
-        rad[k] = radc[k] = m[k] = 0.0f;
-    }
-#pragma unroll
-    for (int k = 0; k < NSUB; ++k) cr[k] = kr[k] = rr[k] = 0.0f;
-    // maxrand: one (L, 16, B) row of this column at layer l
-    auto row = [&](int l, int r) {
-        return in.cld[((size_t)l * NROW + r) * B + b];
+    // copy the inputs of step j (down sweep: layer L-1-j, Planck level
+    // the same; up sweep j = L + l: layer l, Planck level l+1) into its
+    // slot, and arm the slot's mbarrier with this thread's copies
+    auto stage_step = [&](int j) {
+        const bool up = j >= L;
+        const int l = up ? j - L : L - 1 - j;
+        const int lev = up ? l + 1 : l;
+        unsigned char* s = smem + (j % RING) * Sl::BYTES;
+        const auto* taut = reinterpret_cast<const unsigned char*>(in.taut);
+        const auto* fracs = reinterpret_cast<const unsigned char*>(in.fracs);
+        const size_t gr = ((size_t)l * KG * Bz + bt) * ES;
+        const int tid = opaque(threadIdx.y * KX + threadIdx.x);
+        stage<ES>(s + Sl::TAU, taut + gr, KG, Bz * ES, nvalid, v_spec, tid);
+        stage<ES>(s + Sl::FR, fracs + gr, KG, Bz * ES, nvalid, v_spec, tid);
+        auto band_rows = [&](int off, const float* p, int row0, int rows) {
+            stage<4>(s + off,
+                     reinterpret_cast<const unsigned char*>(
+                         p + (size_t)row0 * Bz + bt),
+                     rows, Bz * 4, nvalid, v_band, tid);
+        };
+        band_rows(Sl::PLAY, in.play, l * KNB, KNB);
+        band_rows(Sl::PLEV, in.plev, lev * KNB, KNB);
+        if constexpr (SPEC != rrtm::SPEC_F32)
+            band_rows(Sl::TAUA, in.taua, l * KNB, KNB);
+        if constexpr (MODE == FUSED) {
+            band_rows(Sl::BC, in.abi, l * KNB, KNB);
+            band_rows(Sl::BC + KNB * Sl::BAND_ROW, in.abl, l * KNB, KNB);
+        } else if constexpr (MODE == BANDED || MR) {
+            band_rows(Sl::BC, in.taucb, l * KNB, KNB);
+        }
+        if constexpr (MODE == COMPACT) {
+            stage<1>(s + Sl::CLD,
+                     reinterpret_cast<const unsigned char*>(
+                         in.mask + (size_t)l * rrtm::NGPT_PAD * Bz + bt),
+                     KG, Bz, nvalid, v_cld, tid);
+            stage<4>(s + Sl::CW,
+                     reinterpret_cast<const unsigned char*>(
+                         in.cw + (size_t)l * 2 * Bz + bt),
+                     2, Bz * 4, nvalid, v_cld, tid);
+        } else if constexpr (PERG) {
+            stage<4>(s + Sl::CLD,
+                     reinterpret_cast<const unsigned char*>(
+                         in.cldf + (size_t)l * rrtm::NGPT_PAD * Bz + bt),
+                     KG, Bz * 4, nvalid, v_cld, tid);
+        } else if constexpr (MODE == BANDED) {
+            stage<4>(s + Sl::CLD,
+                     reinterpret_cast<const unsigned char*>(
+                         in.cld + (size_t)l * Bz + bt),
+                     1, Bz * 4, nvalid, v_cld, tid);
+        } else if constexpr (MR) {
+            stage<4>(s + Sl::CLD,
+                     reinterpret_cast<const unsigned char*>(
+                         in.cld + (size_t)l * NROW * Bz + bt),
+                     NROW, Bz * 4, nvalid, v_cld, tid);
+        }
+        mbar_arrive_copies(&bar[j % RING]);
     };
-
-    // ---- down sweep: layer L-1 .. 0, radiance at each layer bottom ----
-    bool icl = false;                      // cloud in path above (iclddn)
-    for (int l = L - 1; l >= 0; --l) {
-        bool cly = false, ist = false;
-        float cw0 = 0.0f, cw1 = 0.0f, cf = 0.0f, fac[6];
-        if (PERG) {
+    auto slot = [&](int j) -> const unsigned char* {
+        return smem + (j % RING) * Sl::BYTES;
+    };
+    auto wait_step = [&](int j) {
+        mbar_wait(&bar[j % RING], (unsigned)(j / RING) & 1u);
+    };
+    // per-g modes: this warp's ballot of the columns with a cloudy g-point
+    // at step j, into clyw[j & 1]
+    const int warp = tid >> 5, lane = tid & 31;
+    auto ballot_step = [&](int j) {
+        if constexpr (PERG) {
+            const unsigned char* s = slot(j);
             bool mine = false;
 #pragma unroll
-            for (int k = 0; k < GPT; ++k) {
-                const int g = ty + k * NY;
-                if (g < rrtm::NGPT) {
-                    m[k] = g_cloud_fraction<MODE>(in, l, g, b);
-                    mine |= m[k] >= 0.5f;
-                }
+            for (int k = 0; k < KGPT; ++k) {
+                const int g = ty + k * KY;
+                if (g < KG) mine |= staged_cf<MODE, SPEC>(s, g, c) >= 0.5f;
             }
             const unsigned bal = __ballot_sync(0xffffffffu, mine && valid);
-            if (tx == 0 && bal) atomicOr(&cly_bits[l], bal);
-            if (MODE == COMPACT) {
-                cw0 = in.cw[((size_t)l * 2) * B + b];
-                cw1 = in.cw[((size_t)l * 2 + 1) * B + b];
+            if (lane == 0) clyw[(j & 1) * KW + warp] = bal;
+        }
+    };
+    // the column's flag at step j: the OR of the warps' ballots, whose
+    // lanes 16-31 hold the odd g-lanes of the same 16 columns
+    auto cloudy_step = [&](int j) {
+        unsigned w = 0u;
+#pragma unroll
+        for (int i = 0; i < KW; ++i) w |= clyw[(j & 1) * KW + i];
+        w |= w >> 16;
+        return ((w >> tx) & 1u) != 0u;
+    };
+    // sum the g-lanes' partials p (nrow rows) of each column in a fixed
+    // order into flux rows r[0..nrow) at level lev
+    auto reduce_write = [&](const float* p, int nrow, int r0, int r1, int r2,
+                            int r3, int lev) {
+        const int t = opaque(tid);
+        if (t < nrow * KX) {
+            const int row = t / KX, col = t - row * KX;
+            if (col < nvalid) {
+                float acc = 0.0f;
+#pragma unroll
+                for (int y = 0; y < KY; ++y) acc += p[(row * KY + y) * KX + col];
+                const int r = row == 0 ? r0 : row == 1 ? r1 : row == 2 ? r2
+                                                                        : r3;
+                out[((size_t)r * (L + 1) + lev) * Bz + bt + col] = acc;
+            }
+        }
+    };
+    auto part_buf = [&](int j) { return part + (j & 1) * NUP * KY * KX; };
+    auto put_part = [&](int j, const auto& sacc) {
+        constexpr int nrow = sizeof(sacc) / sizeof(float);
+        float* p = part_buf(j);
+#pragma unroll
+        for (int r = 0; r < nrow; ++r) p[(r * KY + ty) * KX + tx] = sacc[r];
+    };
+
+    // prologue of a sweep whose first step is j0 of n: stage RING - 1
+    // steps, then the first step's flags
+    auto prologue = [&](int j0, int n) {
+        for (int j = j0; j < j0 + RING - 1 && j < j0 + n; ++j) stage_step(j);
+        __syncthreads();
+        wait_step(j0);
+        ballot_step(j0);
+        __syncthreads();
+    };
+
+    __syncthreads();                        // ngb_s, wg_s, the mbarriers
+    float rad[KGPT], radc[KGPT], dl[ND], dc[ND];
+#pragma unroll
+    for (int k = 0; k < KGPT; ++k) rad[k] = radc[k] = 0.0f;
+    // maxrand's sub-streams of g-point k: cr, kr, rr
+    auto subs = [&](int q, int k) -> float& {
+        return sub[(q * KGPT + k) * KT + tid];
+    };
+    auto zero_subs = [&] {
+        if constexpr (MR)
+#pragma unroll
+            for (int k = 0; k < KGPT; ++k)
+                subs(0, k) = subs(1, k) = subs(2, k) = 0.0f;
+    };
+    zero_subs();
+
+    // One sweep, down (layer L-1 .. 0, radiance at each layer bottom;
+    // steps 0 .. L-1, flux rows DOWN, CLR_DOWN) or up (layer 0 .. L-1,
+    // radiance at each layer top; steps L .. 2L-1, rows UP, CLR_UP and at
+    // idrv=1 D_UP, D_CLR_UP).  The clear twin follows the clear
+    // recurrence below the first cloudy layer from the top (down: the
+    // running iclddn) or in a column with any cloud (up: anyc).
+    bool icl = false;                      // cloud in path above (iclddn)
+    auto sweep = [&](auto upward, bool anyc) {
+        constexpr bool UPW = decltype(upward)::value;
+        constexpr int NR = UPW ? NUP : 2;
+        const int j0 = UPW ? L : 0;
+        // the partial fluxes of step j, at the level its layer bounds; up
+        // step L - 1 is the surface's, at level 0
+        auto flush = [&](int j) {
+            if (UPW)
+                reduce_write(part_buf(j), NUP, UP, CLR_UP, D_UP, D_CLR_UP,
+                             j - L + 1);
+            else
+                reduce_write(part_buf(j), 2, DOWN, CLR_DOWN, 0, 0, L - 1 - j);
+        };
+        prologue(j0, L);
+        for (int j = j0; j < j0 + L; ++j) {
+            if (UPW || j > j0) flush(j - 1);
+            if (j + RING - 1 < j0 + L) stage_step(j + RING - 1);
+            const int l = UPW ? j - L : L - 1 - j;
+            const unsigned char* s = slot(j);
+            bool cly = false, ist = false;
+            float cw0 = 0.0f, cw1 = 0.0f, cf = 0.0f, fac[6];
+            const float* cld = reinterpret_cast<const float*>(s + Sl::CLD);
+            if constexpr (PERG) {
+                cly = cloudy_step(j);
+                if constexpr (MODE == COMPACT) {
+                    const float* cw =
+                        reinterpret_cast<const float*>(s + Sl::CW);
+                    cw0 = cw[c];
+                    cw1 = cw[KX + c];
+                }
+            } else if constexpr (MODE == BANDED) {
+                cf = cld[c];
+                cly = cf >= CLOUD_GATE;
+            } else if constexpr (MR) {
+                cf = cld[R_CLDF * KX + c];
+                cly = cf >= CLOUD_GATE;
+                ist = cld[(UPW ? R_IST_UP : R_IST_DN) * KX + c] > 0.0f;
+#pragma unroll
+                for (int i = 0; i < 6; ++i)
+                    fac[i] = cld[((UPW ? R_UP : R_DN) + i) * KX + c];
+            }
+            if constexpr (!UPW)
+                icl = MR ? cld[R_ICLDDN * KX + c] > 0.0f : icl || cly;
+            const bool twin = UPW ? anyc : icl;
+            float sacc[NR] = {};
+            auto steps = [&](auto clouds) {
+                constexpr bool CL = decltype(clouds)::value;
+#pragma unroll
+                for (int k = 0; k < KGPT; ++k) {
+                    const int g = ty + k * KY;
+                    if (g >= KG) continue;
+                    const float cfg =
+                        CL && PERG ? staged_cf<MODE, SPEC>(s, g, c) : cf;
+                    const int bd = ngb_s[g];
+                    const Step f = staged_step<MODE, SPEC, CL>(
+                        s, in, l, g, bd, secd_s[bd * KX + c], cfg, cw0, cw1,
+                        c, b);
+                    if constexpr (MR)
+                        advance_mr(rad[k], radc[k], subs(0, k), subs(1, k),
+                                   subs(2, k), f, CL && cly, twin, ist, fac);
+                    else
+                        advance(rad[k], radc[k], f, CL && cly, twin);
+                    sacc[0] += wg_s[g] * rad[k];
+                    sacc[1] += wg_s[g] * radc[k];
+                    if constexpr (UPW && IDRV) {
+                        advance_ddt(dl[k], dc[k], f, CL && cly, twin);
+                        sacc[2] += wg_s[g] * dl[k];
+                        sacc[3] += wg_s[g] * dc[k];
+                    }
+                }
+            };
+            // every warp holds all KX columns: the branch is block-uniform
+            if (__any_sync(0xffffffffu, cly))
+                steps(std::true_type{});
+            else
+                steps(std::false_type{});
+            put_part(j, sacc);
+            if (j + 1 < j0 + L) {
+                wait_step(j + 1);
+                ballot_step(j + 1);
             }
             __syncthreads();
-            cly = (cly_bits[l] >> tx) & 1u;
-            icl = icl || cly;
-        } else if (MODE == BANDED) {
-            cf = in.cld[(size_t)l * B + b];
-            cly = cf >= CLOUD_GATE;
-            icl = icl || cly;
-        } else if (MR) {
-            cf = row(l, R_CLDF);
-            cly = cf >= CLOUD_GATE;
-            icl = row(l, R_ICLDDN) > 0.0f;
-            ist = row(l, R_IST_DN) > 0.0f;
-#pragma unroll
-            for (int i = 0; i < 6; ++i) fac[i] = row(l, R_DN + i);
         }
-        float s[2] = {0.0f, 0.0f};
-#pragma unroll
-        for (int k = 0; k < GPT; ++k) {
-            const int g = ty + k * NY;
-            if (g >= rrtm::NGPT) continue;
-            const Step f = layer_step<MODE, SPEC>(in, l, l, g, bnd[k],
-                                                  secd[k], PERG ? m[k] : cf,
-                                                  cw0, cw1, b);
-            if (MR)
-                advance_mr(rad[k], radc[k], cr[k % NSUB], kr[k % NSUB],
-                           rr[k % NSUB], f, cly, icl, ist, fac);
-            else
-                advance(rad[k], radc[k], f, cly, icl);
-            s[0] += wg_s[g] * rad[k];
-            s[1] += wg_s[g] * radc[k];
-        }
-        reduce_write(part, s, DOWN, CLR_DOWN, 0, 0, out, l, L, B, b0, valid);
-    }
-    if (ty < 2 && valid) {                 // nothing comes down at the top
-        const int r = ty == 0 ? DOWN : CLR_DOWN;
-        out[((size_t)r * (L + 1) + L) * B + b0] = 0.0f;
-    }
+        flush(j0 + L - 1);
+    };
 
-    // ---- surface reflection (and the d/dT seed) ----
+    sweep(std::false_type{}, false);
+    if (tid < 2 * KX && tid % KX < nvalid) {  // nothing comes down at the top
+        const int r = tid < KX ? DOWN : CLR_DOWN;
+        out[((size_t)r * (L + 1) + L) * Bz + bt + tid % KX] = 0.0f;
+    }
+    __syncthreads();                        // part_buf(L - 1) read
+
+    // ---- surface reflection (and the d/dT seed), as up step L - 1 ----
     {
-        float s[NUP] = {};
+        float sacc[NUP] = {};
 #pragma unroll
-        for (int k = 0; k < GPT; ++k) {
-            const int g = ty + k * NY;
-            if (g >= rrtm::NGPT) continue;
+        for (int k = 0; k < KGPT; ++k) {
+            const int g = ty + k * KY;
+            if (g >= KG) continue;
             const float fr0 =
-                rrtm::spec_load<SPEC, false>(in.fracs, (size_t)g * B + b);
+                rrtm::spec_load<SPEC, false>(in.fracs, (size_t)g * Bz + b);
+            const int bd = ngb_s[g];
             const float rad0 =
-                fr0 * in.surf[((size_t)2 * rrtm::NBAND + bnd[k]) * B + b];
+                fr0 * in.surf[((size_t)2 * rrtm::NBAND + bd) * Bz + b];
             const float reflect =
-                1.0f - in.surf[((size_t)rrtm::NBAND + bnd[k]) * B + b];
+                1.0f - in.surf[((size_t)rrtm::NBAND + bd) * Bz + b];
             rad[k] = rad0 + reflect * rad[k];
             radc[k] = rad0 + reflect * radc[k];
-            s[0] += wg_s[g] * rad[k];
-            s[1] += wg_s[g] * radc[k];
+            sacc[0] += wg_s[g] * rad[k];
+            sacc[1] += wg_s[g] * radc[k];
             if constexpr (IDRV) {
                 const float d0 =
-                    fr0 * in.surf[((size_t)3 * rrtm::NBAND + bnd[k]) * B + b];
+                    fr0 * in.surf[((size_t)3 * rrtm::NBAND + bd) * Bz + b];
                 dl[k] = dc[k] = d0;
-                s[2] += wg_s[g] * d0;
-                s[3] += wg_s[g] * d0;
+                sacc[2] += wg_s[g] * d0;
+                sacc[3] += wg_s[g] * d0;
             }
         }
-        reduce_write(part, s, UP, CLR_UP, D_UP, D_CLR_UP, out, 0, L, B, b0,
-                     valid);
+        put_part(L - 1, sacc);
     }
-#pragma unroll
-    for (int k = 0; k < NSUB; ++k) cr[k] = kr[k] = rr[k] = 0.0f;
-
-    // ---- up sweep: layer 0 .. L-1, radiance at each layer top ----
+    zero_subs();
     // any cloudy layer in the column: maxrand reads iclddn of layer 0
-    const bool anyc = MR ? row(0, R_ICLDDN) > 0.0f : icl;
-    for (int l = 0; l < L; ++l) {
-        bool cly = false, ist = false;
-        float cw0 = 0.0f, cw1 = 0.0f, cf = 0.0f, fac[6];
-        if (PERG) {
-            cly = (cly_bits[l] >> tx) & 1u;
-#pragma unroll
-            for (int k = 0; k < GPT; ++k) {
-                const int g = ty + k * NY;
-                if (g < rrtm::NGPT) m[k] = g_cloud_fraction<MODE>(in, l, g, b);
-            }
-            if (MODE == COMPACT) {
-                cw0 = in.cw[((size_t)l * 2) * B + b];
-                cw1 = in.cw[((size_t)l * 2 + 1) * B + b];
-            }
-        } else if (MODE == BANDED) {
-            cf = in.cld[(size_t)l * B + b];
-            cly = cf >= CLOUD_GATE;
-        } else if (MR) {
-            cf = row(l, R_CLDF);
-            cly = cf >= CLOUD_GATE;
-            ist = row(l, R_IST_UP) > 0.0f;
-#pragma unroll
-            for (int i = 0; i < 6; ++i) fac[i] = row(l, R_UP + i);
-        }
-        float s[NUP] = {};
-#pragma unroll
-        for (int k = 0; k < GPT; ++k) {
-            const int g = ty + k * NY;
-            if (g >= rrtm::NGPT) continue;
-            const Step f = layer_step<MODE, SPEC>(in, l, l + 1, g, bnd[k],
-                                                  secd[k], PERG ? m[k] : cf,
-                                                  cw0, cw1, b);
-            if (MR)
-                advance_mr(rad[k], radc[k], cr[k % NSUB], kr[k % NSUB],
-                           rr[k % NSUB], f, cly, anyc, ist, fac);
-            else
-                advance(rad[k], radc[k], f, cly, anyc);
-            s[0] += wg_s[g] * rad[k];
-            s[1] += wg_s[g] * radc[k];
-            if constexpr (IDRV) {
-                advance_ddt(dl[k], dc[k], f, cly, anyc);
-                s[2] += wg_s[g] * dl[k];
-                s[3] += wg_s[g] * dc[k];
-            }
-        }
-        reduce_write(part, s, UP, CLR_UP, D_UP, D_CLR_UP, out, l + 1, L, B,
-                     b0, valid);
-    }
+    sweep(std::true_type{},
+          MR ? in.cld[(size_t)R_ICLDDN * Bz + b] > 0.0f : icl);
+}
+
+// the shared memory attributes of an instantiation, set once per process
+template <int MODE, bool IDRV, int SPEC>
+cudaError_t prepare() {
+    static cudaError_t e = [] {
+        using Lo = Layout<MODE, IDRV, SPEC>;
+        cudaError_t r = cudaFuncSetAttribute(
+            rt_kernel<MODE, IDRV, SPEC>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, Lo::BYTES);
+        if (r != cudaSuccess) return r;
+        return cudaFuncSetAttribute(
+            rt_kernel<MODE, IDRV, SPEC>,
+            cudaFuncAttributePreferredSharedMemoryCarveout,
+            (int)cudaSharedmemCarveoutMaxShared);
+    }();
+    return e;
 }
 
 template <int MODE, bool IDRV, int SPEC>
 cudaError_t launch(const KernelInputs<SPEC>& in, const int* ngb,
                    const float* wg, float* out, cudaStream_t s) {
-    const dim3 block(NX, NY);
-    const dim3 grid((in.B + NX - 1) / NX);
-    const size_t smem =
-        per_g_clouds(MODE) ? (size_t)in.L * sizeof(unsigned int) : 0;
-    if (smem > 32 * 1024) {       // with the static arrays, past 48 KB
-        cudaError_t e = cudaFuncSetAttribute(
-            rt_kernel<MODE, IDRV, SPEC>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return e;
-    }
-    rt_kernel<MODE, IDRV, SPEC><<<grid, block, smem, s>>>(in, ngb, wg, out);
+    cudaError_t e = prepare<MODE, IDRV, SPEC>();
+    if (e != cudaSuccess) return e;
+    const dim3 block(KX, KY);
+    const dim3 grid((in.B + KX - 1) / KX);
+    rt_kernel<MODE, IDRV, SPEC>
+        <<<grid, block, Layout<MODE, IDRV, SPEC>::BYTES, s>>>(in, ngb, wg,
+                                                              out);
     return cudaGetLastError();
 }
 
@@ -329,6 +780,51 @@ cudaError_t launch(const KernelInputs<SPEC>& in, const int* ngb,
                    const float* wg, float* out, int idrv, cudaStream_t s) {
     return idrv ? launch<MODE, true, SPEC>(in, ngb, wg, out, s)
                 : launch<MODE, false, SPEC>(in, ngb, wg, out, s);
+}
+
+// out[0..7] = registers per thread, local memory bytes per thread (spill
+// stack), static and dynamic shared memory bytes per block, blocks per
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the ring's levels,
+// threads per block, columns per block
+template <int MODE, bool IDRV, int SPEC>
+cudaError_t info(int* out) {
+    using Lo = Layout<MODE, IDRV, SPEC>;
+    cudaError_t e = prepare<MODE, IDRV, SPEC>();
+    if (e != cudaSuccess) return e;
+    cudaFuncAttributes a;
+    e = cudaFuncGetAttributes(&a, rt_kernel<MODE, IDRV, SPEC>);
+    if (e != cudaSuccess) return e;
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, rt_kernel<MODE, IDRV, SPEC>, KT, Lo::BYTES);
+    if (e != cudaSuccess) return e;
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)a.sharedSizeBytes;
+    out[3] = Lo::BYTES;
+    out[4] = blocks;
+    out[5] = Lo::RING;
+    out[6] = KT;
+    out[7] = KX;
+    return cudaSuccess;
+}
+
+template <int MODE, int SPEC>
+cudaError_t info(int idrv, int* out) {
+    return idrv ? info<MODE, true, SPEC>(out) : info<MODE, false, SPEC>(out);
+}
+
+template <int SPEC>
+cudaError_t info_storage(int mode, int idrv, int* out) {
+    switch (mode) {
+    case CLEAR: return info<CLEAR, SPEC>(idrv, out);
+    case COMPACT: return info<COMPACT, SPEC>(idrv, out);
+    case BANDED: return info<BANDED, SPEC>(idrv, out);
+    case MAXRAND: return info<MAXRAND, SPEC>(idrv, out);
+    case FUSED: return info<FUSED, SPEC>(idrv, out);
+    case CLDF_OD: return info<CLDF_OD, SPEC>(idrv, out);
+    default: return cudaErrorInvalidValue;
+    }
 }
 
 // K1 in `mode` (enum Mode) with taut / fracs in storage SPEC; checks

@@ -9,3 +9,7 @@ cudaError_t rrtm::rt::launch_logu16(const Inputs& in, const float* taua,
     return launch_storage<rrtm::SPEC_LOGU16>(in, taua, ngb, wg, out, mode,
                                              idrv, s);
 }
+
+cudaError_t rrtm::rt::info_logu16(int mode, int idrv, int* out) {
+    return info_storage<rrtm::SPEC_LOGU16>(mode, idrv, out);
+}

@@ -29,6 +29,8 @@ Each wrapper counts its launches in ``.launches``, those at idrv=1 in
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _build
@@ -334,6 +336,25 @@ def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
                   scratch, L, B, int(cloudy))
     rt_sweep_vjp.launches += 1
     return tuple(g if n else None for g, n in zip(grads, needs))
+
+
+K1_INFO = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+           "blocks_per_sm", "ring_levels", "threads", "columns")
+
+
+def k1_info(mode, idrv, spec_dtype=torch.float32):
+    """K1's launch configuration in ``mode`` (a ``MODES`` key) at idrv
+    0/1 with taut in ``spec_dtype``: ``K1_INFO`` -> int, from the CUDA
+    runtime (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the card."""
+    buf = (ctypes.c_int * len(K1_INFO))()
+    lib = _build.library()
+    err = lib.rrtm_rt_info(MODES[mode], int(idrv), SPEC_CODES[spec_dtype],
+                           ctypes.cast(buf, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError("rrtm_rt_info: "
+                           + lib.rrtm_error_string(err).decode())
+    return dict(zip(K1_INFO, buf))
 
 
 for _w in WRAPPERS.values():

@@ -3,17 +3,23 @@
     PYTHONPATH=<checkout> python rrtmg_lw_torch/utils/snapshot.py --out A.pt
     python rrtmg_lw_torch/utils/snapshot.py --compare A.pt B.pt
 
-``--out`` runs, on the card, K2 in float32 storage, K1 in all six
-modes at idrv 0 and 1 and K6 in its clear and compact modes on the
-inputs of ``chip_smoke.py``'s phase 3 (``utils/profiling.py``'s
-``mcica_cloudy``, ``band_cloudy``, ``mcica_blocked`` and ``mcica_tauc``
-cells at B=16384, L=60; K6 on seeded cotangents) and saves their
-outputs.  Run it from each checkout (its own ``rrtmg_lw_torch`` first
-on the path), then ``--compare`` prints, per output, whether the two
-are bitwise equal, and exits non-zero unless all are.  The imports are
-absolute, so ``PYTHONPATH`` picks the checkout whose kernels run; only
-entry points that every checkout since the fourth slice (K1's fused and
-cldf-odcld modes, idrv=1) has are used.
+    PYTHONPATH=<checkout> python rrtmg_lw_torch/utils/snapshot.py \\
+        --k1-times T.json
+
+``--out`` runs, on the card, K2 in float32 storage, K3 at layer and
+level temperatures, K4, K5 and K6 (clear and compact; both on seeded
+cotangents), and K1 in all six modes at idrv 0 and 1, on the inputs of
+``chip_smoke.py``'s phase 3 (``utils/profiling.py``'s ``mcica_cloudy``,
+``band_cloudy``, ``mcica_blocked`` and ``mcica_tauc`` cells at
+B=16384, L=60) and on K1's edge cases (``k1_edge_args``), and saves
+their outputs.  Run it from each checkout (its own ``rrtmg_lw_torch``
+first on the path), then ``--compare`` prints, per output, whether the
+two are bitwise equal, and exits non-zero unless all are.
+``--k1-times`` writes the profiler's device ms of K1 in every mode,
+idrv and storage on the same inputs, and of compact at L=140.  The
+imports are absolute, so ``PYTHONPATH`` picks the checkout whose kernels
+run; only entry points that every checkout since the fifth slice
+(reduced storage) has are used.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+import numpy as np
 import torch
 
 
@@ -35,9 +42,6 @@ def k1_cloud_args(device, static, mc) -> dict:
     it."""
     from rrtmg_lw_torch.ops import cldprop, rtrnmr
     from rrtmg_lw_torch.utils.profiling import cell_inputs
-    abi, abl = cldprop.ice_liq_coeffs_blocked(mc.reicmc, mc.relqmc, 3, 1,
-                                              static)
-    cw = torch.stack([mc.ciwp.t(), mc.clwp.t()], 1).contiguous()
     _, bc = cell_inputs("band_cloudy", device)
     taucb, _ = cldprop.cldprop_banded_blocked(bc, static, inflag=2,
                                               iceflag=3, liqflag=1)
@@ -48,7 +52,7 @@ def k1_cloud_args(device, static, mc) -> dict:
     odc, cfc, _ = cldprop.cldprmc_blocked(tc, static, inflag=0, iceflag=3,
                                           liqflag=1)
     return {"clear": ("blocked", ()),
-            "compact": ("blocked", ((mc.cldfmc, cw, abi, abl),)),
+            "compact": ("blocked", (compact_args(static, mc),)),
             "banded": ("banded", (bc.cldfrac.t().contiguous(), taucb)),
             "maxrand": ("maxrand", (rtrnmr.overlap_rows(bc.cldfrac),
                                     taucb)),
@@ -56,34 +60,200 @@ def k1_cloud_args(device, static, mc) -> dict:
             "cldf_od": ("cldf_od", ((cfc, odc),))}
 
 
-def outputs(device) -> dict:
+def compact_args(static, mc) -> tuple:
+    """K1's compact cloud fields of McicaCloudsCompact ``mc``: (mask,
+    cw (L, 2, B), abi, abl (L, 16, B)), the coefficients by the plain
+    cloud optics."""
+    from rrtmg_lw_torch.ops import cldprop
+    abi, abl = cldprop.ice_liq_coeffs_blocked(mc.reicmc, mc.relqmc, 3, 1,
+                                              static)
+    cw = torch.stack([mc.ciwp.t(), mc.clwp.t()], 1).contiguous()
+    return mc.cldfmc, cw, abi, abl
+
+
+EDGE_KINDS = ("clear", "overcast", "top_bottom", "mixed")
+
+
+def make_edge_clouds(ncol, nlay, seed=9, ngpt=140):
+    """Clouds of K1's edge cases, float32 numpy arrays in the kernel
+    layouts.  Columns come in runs of 1-23 (so runs straddle K1's column
+    tiles; at most ncol // 4, so every kind is there from 4 columns on)
+    of four kinds (``EDGE_KINDS``): clear; overcast (every layer
+    and g-point cloudy); cloudy only in the bottom and the top layer;
+    mixed (per layer and g-point a third each clear, a cloud fraction in
+    (0, 0.5) and one in [0.5, 1)).  -> dict: kind (ncol,) index into
+    EDGE_KINDS; cldf_g, ciwp_g, clwp_g, tauc_g (nlay, 144, ncol) per-g
+    cloud fraction, water paths and cloud od; mask (nlay, 144, ncol) the
+    g-points with cldf_g >= 0.5 (compact); cw (nlay, 2, ncol) the layer
+    water paths (compact); cldfrac (nlay, ncol) and taucb (nlay, 16,
+    ncol) the per-band clouds (banded, maxrand), of the same kinds."""
+    rng = np.random.default_rng(seed)
+    kind = np.empty(ncol, np.int64)
+    i = k = 0
+    while i < ncol:
+        n = int(rng.integers(1, min(23, max(1, ncol // 4)) + 1))
+        kind[i:i + n] = k % len(EDGE_KINDS)
+        i, k = i + n, k + 1
+    gp = -(-ngpt // 8) * 8
+    f32 = np.float32
+
+    def rand(shape, lo, span):
+        return f32(lo) + f32(span) * rng.random(shape, dtype=f32)
+
+    shape = (nlay, ngpt, ncol)
+    high = rand(shape, 0.5, 0.5)                      # in [0.5, 1)
+    u = rng.random(shape, dtype=f32)
+    # mixed: clear, in (0, 0.5), in [0.5, 1), a third each
+    mixed = np.where(u < f32(1 / 3), f32(0.0),
+                     np.where(u < f32(2 / 3), rand(shape, 0.01, 0.48), high))
+    del u
+    ends = np.zeros((nlay, 1, 1), bool)
+    ends[[0, -1]] = True
+    cldf_g = np.zeros((nlay, gp, ncol), f32)
+    cldf_g[:, :ngpt] = np.select(
+        [kind == 1, kind == 2, kind == 3],
+        [high, np.where(ends, high, f32(0.0)), mixed], f32(0.0))
+    del high, mixed
+    cloudy = cldf_g > 0
+    ciwp_g = np.where(cloudy, rand(cldf_g.shape, 0.0, 5.0), f32(0.0))
+    clwp_g = np.where(cloudy, rand(cldf_g.shape, 20.0, 20.0), f32(0.0))
+    tauc_g = cldf_g * (f32(0.05) * ciwp_g + f32(0.1) * clwp_g)
+    lay = cloudy.any(1)                               # (nlay, ncol)
+    cw = np.stack([np.where(lay, rand(lay.shape, 0.0, 5.0), f32(0.0)),
+                   np.where(lay, rand(lay.shape, 20.0, 20.0), f32(0.0))], 1)
+    frac = rand((nlay, ncol), 0.3, 0.7)
+    mixed_l = rng.random((nlay, ncol), dtype=f32) * (
+        rng.random((nlay, ncol), dtype=f32) < 0.5)
+    cldfrac = np.select([kind == 1, kind == 2, kind == 3],
+                        [frac, np.where(ends[:, 0], frac, f32(0.0)), mixed_l],
+                        f32(0.0))
+    taucb = np.where(cldfrac[:, None] > 0, rand((nlay, 16, ncol), 0.2, 5.0),
+                     f32(0.0))
+    return dict(kind=kind, cldf_g=cldf_g, ciwp_g=ciwp_g, clwp_g=clwp_g,
+                tauc_g=tauc_g, mask=(cldf_g >= 0.5).astype(np.int8), cw=cw,
+                cldfrac=cldfrac, taucb=taucb)
+
+
+def force_od(taut_t, secd, ngb0, where, od):
+    """taut_t (L, 140, B) with secd[band of g] x taut_t equal to ``od``
+    in taut_t's floating type (the product the sweeps form) wherever
+    ``where`` (L, 140, B) holds and one value of taut_t reaches it;
+    secd (16, B).  -> (taut_t, the elements set)."""
+    s = secd[ngb0.long()].to(taut_t.dtype)               # (140, B)
+    target = torch.tensor(od, dtype=taut_t.dtype, device=taut_t.device)
+    t = (target / s).expand_as(taut_t)
+    for _ in range(2):                                   # one ulp either way
+        p = s * t
+        t = torch.where(p > target, torch.nextafter(t, torch.zeros_like(t)),
+                        torch.where(p < target,
+                                    torch.nextafter(t, torch.ones_like(t)),
+                                    t))
+    hit = where & (s * t == target)
+    return torch.where(hit, t, taut_t), hit
+
+
+def k1_edge_args(device, static, args, seed=9) -> tuple:
+    """K1's edge cases on the sweep inputs ``args`` (taut_t, fracs_t,
+    planklay_t, planklev_t, plankbnd, semiss, pwvcm, ngb0, wg; float32):
+    the clouds of ``make_edge_clouds`` in every mode, and taut_t with the
+    g-point od exactly 0.06 in every 13th element (the branch point of
+    the gas and total-sky factors) and 0 in every 17th.  -> (args with
+    that taut_t, {mode: (``rtrn_cuda.WRAPPERS`` key, cloud args)}, number
+    of elements at od 0.06 in the g-points with a cloud fraction in
+    (0, 0.5))."""
+    from rrtmg_lw_torch.ops import cldprop, rtrn, rtrnmr
+    taut, ngb0 = args[0], args[7]
+    L, _, B = taut.shape
+    e = make_edge_clouds(B, L, seed)
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    idx = torch.arange(taut.numel(), device=device).reshape(taut.shape)
+    secd = rtrn.surf_rows(args[4], args[5], args[6], torch.float32)[0]
+    taut, hit = force_od(taut, secd, ngb0, idx % 13 == 0, 0.06)
+    taut = torch.where(idx % 17 == 0, torch.zeros_like(taut), taut)
+    cf = t(e["cldf_g"])
+    low = int((hit & (cf[:, :140] > 0) & (cf[:, :140] < 0.5)).sum())
+    radius = torch.ones((B, L), device=device)
+    abi, abl = cldprop.ice_liq_coeffs_blocked(30.0 * radius, 10.0 * radius,
+                                              3, 1, static)
+    cldfrac = t(e["cldfrac"])
+    taucb = t(e["taucb"])
+    modes = {"clear": ("blocked", ()),
+             "compact": ("blocked", ((t(e["mask"], torch.int8), t(e["cw"]),
+                                      abi, abl),)),
+             "banded": ("banded", (cldfrac, taucb)),
+             "maxrand": ("maxrand",
+                         (rtrnmr.overlap_rows(cldfrac.t().contiguous()),
+                          taucb)),
+             "fused": ("fused", ((cf, t(e["ciwp_g"]), t(e["clwp_g"]),
+                                  t(e["tauc_g"]), abi, abl),)),
+             "cldf_od": ("cldf_od", ((cf, t(e["tauc_g"])),))}
+    return (taut, *args[1:]), modes, low
+
+
+def sweep_inputs(device, cell="mcica_cloudy") -> dict:
+    """Phase 3's K1 inputs (``cell``, B=16384; mcica_cloudy: L=60): the
+    model, profile, setcoef output, static tensors, compact clouds, the
+    sweep arguments (taut_t = taug + taua, fracs_t, planklay_t,
+    planklev_t, plankbnd, semiss, pwvcm, ngb0, wg) and the aerosol od
+    (L, 16, B)."""
     from rrtmg_lw_torch import LWConfig, make_model
-    from rrtmg_lw_torch.ops import rtrn
     from rrtmg_lw_torch.ops.inatm import inatm
-    from rrtmg_lw_torch.ops.rtrn_cuda import WRAPPERS, rt_sweep_vjp
     from rrtmg_lw_torch.ops.setcoef import interp_planck_blocked, setcoef
-    from rrtmg_lw_torch.ops.taumol_cuda import taumol_blocked
     from rrtmg_lw_torch.utils.profiling import cell_inputs
     model = make_model(LWConfig(icld=2, imca=1, dtype="float32",
                                 use_lut=False), device=device)
-    atm, mc = cell_inputs("mcica_cloudy", device)
+    atm, mc = cell_inputs(cell, device)
     prof = inatm(atm, torch.float32)
     static = model.static_tensors()
     sc = setcoef(prof, static, planck=False)
-    k2 = taumol_blocked(sc, prof, model.engine, model.kernel_tabs,
-                        model.kernel_desc)
     tg, fr = model.engine.blocked(sc, prof)
-    taut = tg + prof.taua.permute(1, 2, 0)[:, model.ngb0.long(), :]
+    taua = prof.taua.permute(1, 2, 0).contiguous()
+    taut = tg + taua[:, model.ngb0.long(), :]
     play, plev = (interp_planck_blocked(t.t().contiguous(), model.totplnk)
                   for t in (prof.tavel, prof.tz))
     args = (taut, fr, play, plev, sc.plankbnd, prof.semiss, prof.pwvcm,
             model.ngb0, model.wg)
-    modes = k1_cloud_args(device, static, mc)
+    return dict(model=model, prof=prof, sc=sc, static=static, mc=mc,
+                args=args, taug=tg, taua=taua)
+
+
+def outputs(device) -> dict:
+    """K2-K6 on phase 3's inputs, and K1 in every mode at idrv 0 and 1
+    on them and on ``k1_edge_args``' edge cases."""
+    from rrtmg_lw_torch.ops import rtrn
+    from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_blocked
+    from rrtmg_lw_torch.ops.planck_cuda import planck_interp_blocked
+    from rrtmg_lw_torch.ops.rtrn_cuda import WRAPPERS, rt_sweep_vjp
+    from rrtmg_lw_torch.ops.taumol_cuda import (_pack_inputs, taumol_blocked,
+                                                taumol_vjp)
+    x = sweep_inputs(device)
+    model, prof, sc, static, mc = (x[k] for k in ("model", "prof", "sc",
+                                                  "static", "mc"))
+    args = x["args"]
+    taut, fr, play, plev = args[:4]
+    k2 = taumol_blocked(sc, prof, model.engine, model.kernel_tabs,
+                        model.kernel_desc)
     out = {"k2_taug": k2[0], "k2_fracs": k2[1]}
-    for name, (w, clouds) in modes.items():
-        out[f"k1_{name}"] = WRAPPERS[w](*args, *clouds)
-        out[f"k1_{name}_idrv"] = torch.cat(
-            WRAPPERS[w](*args, *clouds, dplankbnd_dt=sc.dplankbnd_dt))
+    for name, t in (("k3_lay", prof.tavel), ("k3_lev", prof.tz)):
+        out[name] = planck_interp_blocked(t.t().contiguous(), model.totplnk)
+    out["k4_abi"], out["k4_abl"] = ice_liq_coeffs_blocked(
+        mc.reicmc, mc.relqmc, 3, 1, static)
+    gen = torch.Generator(device=device).manual_seed(5)
+    fld, ifld = _pack_inputs(sc, prof)
+    ct_t, ct_f = (torch.randn(taut.shape, generator=gen, device=device)
+                  for _ in range(2))
+    out["k5"] = taumol_vjp(fld, ifld, model.engine, model.kernel_tabs,
+                           model.kernel_desc, ct_t, ct_f)
+    modes = k1_cloud_args(device, static, mc)
+    eargs, emodes, _ = k1_edge_args(device, static, args)
+    for tag, a, ms in (("k1", args, modes), ("k1_edge", eargs, emodes)):
+        for name, (w, clouds) in ms.items():
+            out[f"{tag}_{name}"] = WRAPPERS[w](*a, *clouds)
+            out[f"{tag}_{name}_idrv"] = torch.cat(
+                WRAPPERS[w](*a, *clouds, dplankbnd_dt=sc.dplankbnd_dt))
     surf = rtrn.surf_rows(sc.plankbnd, prof.semiss, prof.pwvcm,
                           torch.float32)
     gen = torch.Generator(device=device).manual_seed(5)
@@ -98,11 +268,79 @@ def outputs(device) -> dict:
     return {k: v.cpu() for k, v in out.items()}
 
 
+def k1_times(device, reps=5) -> list:
+    """Device ms per launch of K1 (``torch.profiler``, the mean of
+    ``reps`` launches after one warm-up) in every mode x idrv 0/1 x
+    storage on phase 3's inputs, of compact float32 with the mask all
+    zero, and of compact float32 at L=140 (the mcica_cloudy_deep cell's
+    inputs).  -> [{mode, idrv, storage, nlay,
+    device_ms}]."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import WRAPPERS
+    from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES, spec_store
+
+    def run(fn):
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.time_range.elapsed_us() for e in prof.events()
+                   if "rt_kernel" in e.name) / 1e3 / reps
+
+    x = sweep_inputs(device)
+    args, dpl = x["args"], x["sc"].dplankbnd_dt
+    modes = k1_cloud_args(device, x["static"], x["mc"])
+    rows = []
+    for spec in ("f32", "bf16", "f16", "logu16"):
+        if spec == "f32":
+            a, kw = args, {}
+        else:
+            sdt = SPEC_DTYPES[spec]
+            a = (spec_store(x["taug"], sdt, "tg"),
+                 spec_store(args[1], sdt, "fr"), *args[2:])
+            kw = dict(taua_t=x["taua"])
+        for name, (w, clouds) in modes.items():
+            for idrv in (0, 1):
+                d = dict(dplankbnd_dt=dpl) if idrv else {}
+                ms = run(lambda: WRAPPERS[w](*a, *clouds, **kw, **d))
+                rows.append(dict(mode=name, idrv=idrv, storage=spec,
+                                 nlay=args[0].shape[0], device_ms=ms))
+                print(rows[-1], flush=True)
+    # compact with its mask all zero: the per-g machinery without clouds
+    mask, *rest = modes["compact"][1][0]
+    rows.append(dict(mode="compact, mask all zero", idrv=0, storage="f32",
+                     nlay=args[0].shape[0], device_ms=run(
+                         lambda: WRAPPERS["blocked"](
+                             *args, (torch.zeros_like(mask), *rest)))))
+    print(rows[-1], flush=True)
+    del x, args, modes
+    torch.cuda.empty_cache()
+    x = sweep_inputs(device, "mcica_cloudy_deep")
+    cf = compact_args(x["static"], x["mc"])
+    rows.append(dict(mode="compact", idrv=0, storage="f32", nlay=140,
+                     device_ms=run(lambda: WRAPPERS["blocked"](*x["args"],
+                                                               cf))))
+    print(rows[-1], flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out")
     ap.add_argument("--compare", nargs=2)
+    ap.add_argument("--k1-times", metavar="OUT",
+                    help="time K1 in every mode, idrv and storage into OUT "
+                         "(JSON)")
     args = ap.parse_args(argv)
+    if args.k1_times:
+        if not torch.cuda.is_available():
+            raise SystemExit("snapshot needs a CUDA device")
+        import json
+        import pathlib
+        rows = k1_times(torch.device("cuda", 0))
+        pathlib.Path(args.k1_times).write_text(json.dumps(rows, indent=1))
     if args.out:
         if not torch.cuda.is_available():
             raise SystemExit("snapshot needs a CUDA device")

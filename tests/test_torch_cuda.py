@@ -26,7 +26,10 @@ Reduced spectral storage (RRTMG_SPEC_DTYPE, K7): K2 in bf16 / f16 equal
 to the plain encode of its own float32 output, logu16 codes at most one
 apart (logf against torch.log); K1 in every mode x idrv x storage within
 2e-5 of the plain decode + aerosol add + sweep, bitwise over two runs, on
-a seeded aerosol od that a dropped or misread add would fail.
+a seeded aerosol od that a dropped or misread add would fail.  K1's 48
+instantiations on its edge cases (utils/snapshot.py k1_edge_args) at B
+of K1's 16-column tile +-1 and off 16, L = 1, past the ring and 140, and
+its launch configuration (at least two blocks per SM).
 The probes (utils/probes.py) bitwise equal to tbl[idx].
 """
 
@@ -445,6 +448,55 @@ def test_rt_all_modes_and_idrv_match_plain(dev, B, L):
         assert torch.equal(k0, k1), name
         again = kern(*args, *extra, dplankbnd_dt=dpl)
         assert torch.equal(k1, again[0]) and torch.equal(d1, again[1])
+
+
+@pytest.mark.parametrize("B,L", [(15, 5), (16, 1), (17, 9), (37, 5),
+                                 (100, 140)])
+def test_rt_edge_cases_every_instantiation_matches_plain(dev, B, L):
+    """K1's 48 instantiations (6 modes x idrv 0/1 x 4 storages) against
+    their plain versions on ``utils.snapshot.k1_edge_args``: B at the
+    16-column tile +-1 and off a multiple of 16 (element-wise staging),
+    L = 1, longer than the ring, 140; clear, overcast and
+    top-and-bottom-cloudy columns in runs across the tiles, per-g cloud
+    fractions in (0, 0.5), the g-point od exactly 0.06 and 0.  The idrv=1
+    flux rows bitwise equal to idrv=0's, two runs bitwise equal."""
+    from rrtmg_lw_torch.ops.spec_codec import spec_store
+    from rrtmg_lw_torch.utils.snapshot import k1_edge_args
+    args, dpl, _ = _sweep_inputs(dev, B, L)
+    args, modes, _ = k1_edge_args(dev, _model(dev).static_tensors(), args)
+    gen = torch.Generator(device=dev).manual_seed(B + L)
+    taua = 0.02 * torch.rand((L, 16, B), generator=gen, device=dev)
+    for spec in ("f32", *SPECS):
+        a, kw = args, {}
+        if spec != "f32":
+            a = (spec_store(args[0], SPECS[spec], "tg"),
+                 spec_store(args[1], SPECS[spec], "fr"), *args[2:])
+            kw = dict(taua_t=taua)
+        for name, (w, extra) in modes.items():
+            kern, plain = WRAPPERS[w], rtrn.FLUXES[w]
+            k0 = kern(*a, *extra, **kw)
+            k1, d1 = kern(*a, *extra, dplankbnd_dt=dpl, **kw)
+            p1, pd1 = plain(*a, *extra, dplankbnd_dt=dpl, **kw)
+            assert torch.isfinite(d1).all(), (spec, name)
+            assert flux_err(plain(*a, *extra, **kw), k0) <= 2e-5, (spec, name)
+            assert flux_err(torch.cat([p1, pd1]),
+                            torch.cat([k1, d1])) <= 2e-5, (spec, name)
+            assert torch.equal(k0, k1), (spec, name)
+            again = kern(*a, *extra, dplankbnd_dt=dpl, **kw)
+            assert torch.equal(k1, again[0]) and torch.equal(d1, again[1])
+
+
+def test_rt_kernel_launch_configuration(dev):
+    """Every K1 instantiation fits at least two 256-thread blocks on an
+    SM, its ring of levels included."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import MODES, k1_info
+    for spec in (torch.float32, *SPECS.values()):
+        for mode in MODES:
+            for idrv in (0, 1):
+                info = k1_info(mode, idrv, spec)
+                assert info["threads"] == 256 and info["columns"] == 16
+                assert info["blocks_per_sm"] >= 2, (mode, idrv, spec, info)
+                assert info["ring_levels"] in (3, 4)
 
 
 def test_rt_idrv_launch_counters(dev):

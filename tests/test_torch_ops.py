@@ -3,7 +3,9 @@ PyTorch version, against the JAX package's XLA counterpart in float64 on
 the same seeded numpy inputs: inatm, setcoef (+ the Planck plain
 version), the cloud coefficients, taumol, the RT sweep, and for
 deterministic clouds the per-band cloud optics (cldprop), the
-maximum-random overlap rows and the banded and maxrand sweeps.  Then,
+maximum-random overlap rows and the banded and maxrand sweeps, and the
+per-g sweep on K1's edge cases (clear, overcast and top-and-bottom
+columns, cloud fractions in (0, 0.5), od exactly 0.06 and 0).  Then,
 in float32, the spectral-storage codec (``spec_codec``) against the JAX
 package's ``taumol_pallas.spec_*`` functions, and the probes' plain
 versions against numpy's ``tbl[idx]``, the archived probes' reference.
@@ -596,6 +598,78 @@ def test_rt_sweep_plain_per_g_modes_match_jax(pair, inflag):
                    name=name)
     assert not np.allclose(np.asarray(ref.totuflux),
                            np.asarray(ref.totuclfl))
+
+
+@pytest.mark.parametrize("Be", [37, 64])
+def test_rt_sweep_plain_edge_cases_match_jax(pair, Be):
+    """The plain cldf-odcld sweep (K1's per-g layout) at idrv 0 and 1 on
+    K1's edge cases (``utils.snapshot.make_edge_clouds``): clear,
+    overcast and top-and-bottom-cloudy columns in runs across the
+    kernel's 16-column tiles, per-g cloud fractions in (0, 0.5), and the
+    g-point od exactly 0.06 (where the gas and total-sky factors take
+    different branches) and 0, against the JAX package's
+    rt_random_overlap on the same inputs."""
+    from rrtmg_lw_torch.utils.snapshot import EDGE_KINDS, make_edge_clouds
+    jm, tm = pair["jm"], pair["tm"]
+    natm = jsyn.make_atmosphere(Be, L, seed=Be)
+    jprof = jinatm(natm, dtype=jnp.float64)
+    jsc = jsetcoef.setcoef(jprof, jm.static)
+    tprof = inatm(Atmosphere.from_numpy(tsyn.make_atmosphere(Be, L, seed=Be),
+                                        "cpu"))
+    tsc = setcoef.setcoef(tprof, tm.static_tensors())
+    jt, jf = jm.engine(jsc, jprof)
+    taut = np.array(jt + jprof.taua[..., jm.ngb0])          # (B, L, G)
+    e = {k: v.astype(np.float64) if v.dtype == np.float32 else v
+         for k, v in make_edge_clouds(Be, L, seed=Be).items()}
+    kinds = set(e["kind"].tolist())
+    assert kinds == set(range(len(EDGE_KINDS)))
+    runs = np.flatnonzero(np.diff(e["kind"])) + 1            # run starts
+    assert (runs % 16 != 0).any()
+    # od = secd x taut exactly 0.06 in every 13th element, where both
+    # packages' diffusivity secants agree; 0 in every 17th
+    secd = np.array(jrtrn.secdiff(jprof.pwvcm, jnp.float64))[:, jm.ngb0]
+    same = secd == rtrn.secdiff(tprof.pwvcm, torch.float64)[
+        :, tm.ngb0.long()].numpy()
+    t06 = np.broadcast_to((0.06 / secd)[:, None, :], taut.shape).copy()
+    for _ in range(2):
+        p = secd[:, None, :] * t06
+        t06 = np.where(p > 0.06, np.nextafter(t06, 0.0),
+                       np.where(p < 0.06, np.nextafter(t06, 1.0), t06))
+    idx = np.arange(taut.size).reshape(taut.shape)
+    hit = (idx % 13 == 0) & same[:, None, :] & (secd[:, None, :] * t06
+                                                == 0.06)
+    taut = np.where(hit, t06, taut)
+    taut[idx % 17 == 0] = 0.0
+    cf = e["cldf_g"][:, :140].transpose(2, 0, 1)             # (B, L, G)
+    od = e["tauc_g"][:, :140].transpose(2, 0, 1)
+    assert (hit & (cf > 0) & (cf < 0.5)).sum() > 0
+    gate = cf >= 0.5
+    ref = jrtrn.rt_random_overlap(
+        jnp.asarray(taut), jf, jsc.planklay, jsc.planklev, jsc.plankbnd,
+        jsc.dplankbnd_dt, jprof.semiss, jprof.pwvcm, jprof.pz,
+        jnp.asarray(cf), jnp.asarray(od), cloudy_lay=jnp.asarray(gate.any(-1)),
+        cld_gate=jnp.asarray(gate), static=jm.static_np, luts=None,
+        use_lut=False, idrv=1, heatfac_val=jm.heatfac)
+
+    def blocked(x):
+        return torch.as_tensor(np.array(x)).permute(1, 2, 0).contiguous()
+
+    fields = (torch.as_tensor(e["cldf_g"]), torch.as_tensor(e["tauc_g"]))
+    args = (blocked(taut), blocked(jf), blocked(jsc.planklay),
+            blocked(jsc.planklev), tsc.plankbnd, tprof.semiss, tprof.pwvcm,
+            tm.ngb0, tm.wg, fields)
+    out0 = rtrn.rt_fluxes_blocked(*args)
+    out, ddt = rtrn.rt_fluxes_blocked(*args, dplankbnd_dt=tsc.dplankbnd_dt)
+    assert torch.equal(out, out0)
+    for i, name in enumerate(("totuflux", "totdflux", "totuclfl",
+                              "totdclfl", "dtotuflux_dt", "dtotuclfl_dt")):
+        assert_rel(torch.cat([out, ddt])[i].t(), getattr(ref, name),
+                   name=name)
+    # the clear columns' all-sky fluxes are their clear-sky ones; the
+    # overcast ones' are not
+    up, upc = np.asarray(ref.totuflux), np.asarray(ref.totuclfl)
+    assert np.array_equal(up[e["kind"] == 0], upc[e["kind"] == 0])
+    assert not np.allclose(up[e["kind"] == 1], upc[e["kind"] == 1])
 
 
 def test_duflx_dt_is_the_derivative_wrt_the_surface_source(pair):

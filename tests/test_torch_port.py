@@ -249,6 +249,62 @@ def test_mcica_inflag1_raises_value_error(icld):
                device="cpu")
 
 
+def test_k1_edge_cases_cover_what_they_promise():
+    """utils.snapshot's K1 edge cases (chip_smoke.py, the snapshot and the
+    cuda tests run K1 on them): every column kind, runs across the
+    16-column tiles, the g-point od exactly 0.06 in float32 where forced
+    (some of it at a per-g cloud fraction in (0, 0.5)), and each mode's
+    plain sweep finite on them."""
+    from rrtmg_lw_torch import Atmosphere
+    from rrtmg_lw_torch.ops import rtrn
+    from rrtmg_lw_torch.ops.inatm import inatm
+    from rrtmg_lw_torch.ops.rtrn_cuda import WRAPPERS
+    from rrtmg_lw_torch.ops.setcoef import interp_planck_blocked, setcoef
+    from rrtmg_lw_torch.utils.snapshot import (EDGE_KINDS, force_od,
+                                               k1_edge_args,
+                                               make_edge_clouds)
+    e = make_edge_clouds(40, 6)
+    assert set(e["kind"].tolist()) == set(range(len(EDGE_KINDS)))
+    starts = np.flatnonzero(np.diff(e["kind"])) + 1
+    assert (starts % 16 != 0).any()
+    overcast = e["kind"] == 1
+    assert (e["mask"][:, :140, overcast] == 1).all()
+    assert not e["cldf_g"][:, :, e["kind"] == 0].any()
+    top_bottom = e["cldf_g"][:, :140, e["kind"] == 2] > 0
+    assert top_bottom[[0, -1]].all() and not top_bottom[1:-1].any()
+
+    secd = 1.5 + 0.3 * torch.rand(16, 40, generator=torch.Generator()
+                                  .manual_seed(0))
+    ngb0 = torch.arange(140, dtype=torch.int32) % 16
+    taut = torch.rand(6, 140, 40, generator=torch.Generator().manual_seed(1))
+    got, hit = force_od(taut, secd, ngb0, torch.ones_like(taut, dtype=bool),
+                        0.06)
+    od = secd[ngb0.long()] * got
+    assert hit.float().mean() > 0.3
+    assert (od[hit] == torch.tensor(0.06)).all()
+    assert torch.equal(got[~hit], taut[~hit])
+
+    model = make_model(LWConfig(icld=2, imca=1, dtype="float32",
+                                use_lut=False), device="cpu")
+    atm = Atmosphere.from_numpy(tsyn.make_atmosphere(40, 6), "cpu",
+                                torch.float32)
+    prof = inatm(atm, torch.float32)
+    static = model.static_tensors()
+    sc = setcoef(prof, static, planck=False)
+    tg, fr = model.engine.blocked(sc, prof)
+    play, plev = (interp_planck_blocked(t.t().contiguous(), model.totplnk)
+                  for t in (prof.tavel, prof.tz))
+    args = (tg, fr, play, plev, sc.plankbnd, prof.semiss, prof.pwvcm,
+            model.ngb0, model.wg)
+    eargs, modes, low = k1_edge_args("cpu", static, args)
+    assert low > 0 and set(modes) == {"clear", "compact", "banded",
+                                      "maxrand", "fused", "cldf_od"}
+    for name, (w, cl) in modes.items():
+        out = rtrn.FLUXES[w](*eargs, *cl)
+        assert out.shape == (4, 7, 40) and torch.isfinite(out).all(), name
+        assert torch.equal(out, WRAPPERS[w](*eargs, *cl)), name
+
+
 def test_build_hash_covers_sources():
     names = {p.name for p in _build.sources()}
     assert {"planck.cu", "cldcoef.cu", "taumol.cu", "rtrn.cu",
