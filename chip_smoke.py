@@ -12,12 +12,18 @@ Phases, each raising on failure (any failure exits non-zero):
      parallel), timed, with the registers and spills ptxas reports; for
      each of K1's 48 instantiations its registers and spill stores, its
      shared memory per block, blocks per SM (the CUDA occupancy API) and
-     levels in its ring;
+     levels in its ring, and the same (but the ring) for K2's 4;
   3. each kernel against its plain PyTorch version on the card at the
      main-path shapes (B=16384 columns, L=60 layers, float32), with the
      max error and CUDA-event times of both and the bound of each (the
      larger of its bytes over the HBM rate and its operations over the
-     f32 rate); the RT sweep in all six modes (clear/compact, banded,
+     f32 rate); K2 also in all four storages on its edge cases
+     (utils/snapshot.py k2_edge_args: one column, widths off its block,
+     one layer, columns all lower, all upper or switching at laytrop,
+     rows clipped at the table's last row, minor gases on both sides of
+     their over-abundance threshold), float32 within TOL_TAUMOL of plain,
+     bins equal, the 16-bit storages equal to the encode of its float32
+     output (logu16 codes +-1); the RT sweep in all six modes (clear/compact, banded,
      maxrand, fused on McicaCloudsBlocked, cldf-odcld on the same clouds
      with an input cloud od) and each at idrv=1, and the overlap rows,
      each also bitwise equal over two runs, the idrv=1 flux rows bitwise
@@ -79,12 +85,12 @@ Phases, each raising on failure (any failure exits non-zero):
      launch latency and the 4096^3 matmul rates.
 The last two lines of stdout are the kernels' JSON summary and
 {"ok": true, "device": {...}}.  Each entry of the summary carries
-bytes_once (the bytes behind bound_ms); K1's entries (K1_LINES) also
-device_ms (the profiler's kernel time; ms, CUDA events around the
-wrapper, holds its host gaps too), their instantiation's registers,
-spill bytes, shared memory, blocks per SM, ring levels and achieved GB/s
-(bytes_once over device_ms), "rt_sweep" the table of all 48
-instantiations.  Without CUDA it exits non-zero and
+bytes_once (the bytes behind bound_ms); K1's and K2's entries
+(K1_LINES, K2_LINES) also device_ms (the profiler's kernel time; ms,
+CUDA events around the wrapper, holds its host gaps too), their
+instantiation's registers, spill bytes, shared memory, blocks per SM
+(K1: and ring levels) and achieved GB/s (bytes_once over device_ms),
+"rt_sweep" the table of all 48 K1 instantiations.  Without CUDA it exits non-zero and
 prints no result.
 """
 
@@ -198,19 +204,13 @@ def cuda_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def device_ms(fn, reps=5):
-    """Mean device ms per call of the K1 launches (torch.profiler, kernel
-    time alone) over ``reps`` calls after one warm-up: the wrapper's CUDA
-    events also hold the host gaps between its launches."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if "rt_kernel" in e.name) / 1e3 / reps
+def device_ms(fn, reps=5, symbol="rt_kernel"):
+    """Mean device ms per call of the launches of the kernel whose symbol
+    holds ``symbol`` (torch.profiler, kernel time alone; default K1) over
+    ``reps`` calls after one warm-up: the wrapper's CUDA events also hold
+    the host gaps between its launches."""
+    from rrtmg_lw_torch.utils.snapshot import kernel_ms
+    return kernel_ms(fn, symbol, reps)
 
 
 def bound(inputs, outputs, ops, nbytes=0, ops_rate=F32_OPS_PER_S,
@@ -298,18 +298,21 @@ def phase_kernels(device):
          "taumol: non-finite output")
     need(e_t <= TOL_TAUMOL and e_f <= TOL_TAUMOL,
          f"taumol: taug rel {e_t:.3g}, fracs abs {e_f:.3g} > {TOL_TAUMOL}")
+    def k2():
+        return taumol_blocked(sc, prof, model.engine, model.kernel_tabs,
+                              model.kernel_desc)
+
     res["taumol"] = dict(
         max_abs_err=max(float((tg_k - tg_p).abs().max()), e_f),
-        max_rel_err=e_t,
-        ms=cuda_ms(lambda: taumol_blocked(sc, prof, model.engine,
-                                          model.kernel_tabs,
-                                          model.kernel_desc), 5),
+        max_rel_err=e_t, ms=cuda_ms(k2, 5),
+        device_ms=device_ms(k2, symbol="taumol_kernel"),
         plain_ms=cuda_ms(lambda: model.engine.blocked(sc, prof), 2),
         **bound((*_pack_inputs(sc, prof), model.kernel_tabs,
                  model.kernel_desc), (tg_k, fr_k),
                 OPS["taumol"] * tg_k.numel()))
     print(f"taumol: taug rel {e_t:.3g}, fracs abs {e_f:.3g}, bins equal "
           f"({bins_k.numel()} cells x bands x slots)")
+    k2_edge_cases(device, model)
 
     # K3 Planck, at layer and level temperatures
     tlay, tlev = prof.tavel.t().contiguous(), prof.tz.t().contiguous()
@@ -631,6 +634,99 @@ def k1_build_info(log_path):
     return out
 
 
+def k2_edge_cases(device, model):
+    """K2 in all four storages on ``utils.snapshot.k2_edge_args`` at each
+    of ``K2_EDGE_SHAPES`` (one column, a warp's 32 columns +-1, a width
+    off the 128-column tile, one layer; columns all lower, all upper or switching at laytrop,
+    rows clipped at the table's last row, minor gases on both sides of
+    their over-abundance threshold): float32 within TOL_TAUMOL of the
+    plain engine (taug relative, fracs absolute), bins equal; each reduced
+    storage against the plain encode of K2's float32 output (bf16 / f16
+    bitwise, logu16 codes at most one apart), its bins equal too."""
+    from rrtmg_lw_torch.ops.spec_codec import (SPEC_DTYPES, spec_order,
+                                               spec_store)
+    from rrtmg_lw_torch.ops.taumol_cuda import (NBIN, TaumolFn,
+                                                _unpack_inputs,
+                                                taumol_packed)
+    from rrtmg_lw_torch.utils.snapshot import K2_EDGE_SHAPES, k2_edge_args
+    worst, total = 0.0, {}
+    for B, L in K2_EDGE_SHAPES:
+        fld, ifld, facts = k2_edge_args(device, model, B, L)
+        for k, n in facts.items():
+            total[k] = total.get(k, 0) + n
+        bins_p = model.engine.bins(*_unpack_inputs(fld, ifld))
+        tg_p, fr_p = taumol_packed(model.engine, fld, ifld)
+        f32 = None
+        for spec in ("f32",) + SPECS:
+            tag = f"k2 edge {B}x{L} {spec}"
+            bins = torch.empty((16, NBIN, L, B), dtype=torch.int32,
+                               device=device)
+            got = TaumolFn.apply(fld, ifld, model.engine, model.kernel_tabs,
+                                 model.kernel_desc, bins, SPEC_DTYPES[spec])
+            need(torch.equal(bins, bins_p), f"{tag}: bins differ")
+            if spec == "f32":
+                f32 = got
+                e_t = float(((got[0].double() - tg_p.double()).abs()
+                             / tg_p.double().abs().clamp(min=1e-2)).max())
+                e_f = float((got[1] - fr_p).abs().max())
+                need(bool(torch.isfinite(got[0]).all()
+                          and torch.isfinite(got[1]).all()),
+                     f"{tag}: non-finite output")
+                need(e_t <= TOL_TAUMOL and e_f <= TOL_TAUMOL,
+                     f"{tag}: taug rel {e_t:.3g}, fracs abs {e_f:.3g}")
+                worst = max(worst, e_t, e_f)
+                continue
+            for k, x, which in zip(got, f32, ("tg", "fr")):
+                d = int((spec_order(k) - spec_order(
+                    spec_store(x, SPEC_DTYPES[spec], which))).abs().max())
+                need(d <= (1 if spec == "logu16" else 0),
+                     f"{tag} {which}: {d} steps off the encode of K2's "
+                     "float32 output")
+    need(all(total[k] > 0 for k in ("both", "lower_only", "upper_only",
+                                    "last_row", "n2o_over", "n2o_under")),
+         f"k2 edge: an edge case is missing: {total}")
+    print(f"k2 edge cases: {len(K2_EDGE_SHAPES)} shapes "
+          f"{list(K2_EDGE_SHAPES)} x 4 storages, float32 within "
+          f"{worst:.3g} of plain, bins equal, 16-bit storages equal to "
+          f"the encode of K2's float32 output (logu16 +-1); {total}")
+
+
+def k2_build_info(log_path):
+    """Each K2 instantiation's registers and spill stores (ptxas -v in
+    the build log) and launch configuration (``taumol_cuda.k2_info``):
+    {storage: {...}}."""
+    import re
+    from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES
+    from rrtmg_lw_torch.ops.taumol_cuda import k2_info
+    storages = ("f32",) + SPECS
+    out, cur = {}, None
+    for line in log_path.read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([^' ]+)", line)
+        if m:
+            cur = re.search(r"taumol_kernelILi(\d)E", m.group(1))
+            continue
+        if cur is None:
+            continue
+        key = storages[int(cur.group(1))]
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out.setdefault(key, {})["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    for key, r in out.items():
+        info = k2_info(SPEC_DTYPES[key])
+        need(info["registers"] == r.get("registers"),
+             f"K2 {key}: {info['registers']} registers at run time, ptxas "
+             f"said {r.get('registers')}")
+        r.update(smem_bytes=info["static_smem"] + info["dynamic_smem"],
+                 blocks_per_sm=info["blocks_per_sm"])
+    need(len(out) == 4 and all(len(r) == 4 for r in out.values()),
+         f"K2: {len(out)} instantiations in the build log, expected 4")
+    return out
+
+
 # the K1 instantiation behind each K1 line of the JSON summary
 K1_LINES = {"rt_sweep": "compact idrv0 f32", "rt_sweep_clear":
             "clear idrv0 f32", "rt_sweep_banded": "banded idrv0 f32",
@@ -643,6 +739,8 @@ K1_LINES = {"rt_sweep": "compact idrv0 f32", "rt_sweep_clear":
             "rt_sweep_fused_idrv": "fused idrv1 f32",
             "rt_sweep_cldf_od_idrv": "cldf_od idrv1 f32",
             "rt_sweep_spec": "compact idrv0 logu16"}
+# the K2 instantiation behind each K2 line of the JSON summary
+K2_LINES = {"taumol": "f32", "taumol_spec": "logu16"}
 
 
 def run_steps(model, atm, clouds, steps):
@@ -1171,10 +1269,13 @@ def phase_storage_kernels(device):
               + f"; max |decoded diff| vs plain {err:.3g}")
         codes[spec] = got
         if spec == "logu16":
+            def k2():
+                return taumol_blocked(sc, prof, eng, tabs, desc,
+                                      spec_dtype=sdt)
+
             res["taumol_spec"] = dict(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: taumol_blocked(sc, prof, eng, tabs, desc,
-                                                  spec_dtype=sdt), 5),
+                max_abs_err=err, ms=cuda_ms(k2, 5),
+                device_ms=device_ms(k2, symbol="taumol_kernel"),
                 plain_ms=cuda_ms(lambda: [
                     spec_store(x, sdt, w) for x, w in
                     zip(eng.blocked(sc, prof), ("tg", "fr"))], 2),
@@ -1490,6 +1591,11 @@ def main() -> int:
               f"spill stores, {r['smem_bytes']} B shared memory, "
               f"{r['blocks_per_sm']} blocks per SM, ring of "
               f"{r['ring_levels']} levels")
+    k2_build = k2_build_info(path.parent / "build.log")
+    for key, r in k2_build.items():
+        print(f"K2 {key}: {r['registers']} registers, {r['spill_bytes']} B "
+              f"spill stores, {r['smem_bytes']} B shared memory, "
+              f"{r['blocks_per_sm']} blocks per SM")
 
     # 3. kernels vs plain versions; then K2 and K1 in reduced storage
     res = phase_kernels(device)
@@ -1567,6 +1673,13 @@ def main() -> int:
               f"{r['gbps']:.0f} GB/s of its bytes read once, bound "
               f"{r['bound_ms']:.3f} ms")
     res["rt_sweep"]["k1_instantiations"] = k1_build
+    for name, key in K2_LINES.items():
+        r = res[name]
+        r.update(k2_build[key], instantiation=key,
+                 gbps=r["bytes_once"] / (r["device_ms"] * 1e-3) / 1e9)
+        print(f"{name} ({key}): device {r['device_ms']:.3f} ms, "
+              f"{r['gbps']:.0f} GB/s of its bytes read once, bound "
+              f"{r['bound_ms']:.3f} ms")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **res[name])
                for name, src, rep in KERNELS]

@@ -45,6 +45,8 @@ SIGNATURES = {
     "rrtm_planck_bwd": (P, P, P, P, I, I, P),
     "rrtm_cldcoef": (P, P, P, P, P, P, I, I, I, P),
     "rrtm_taumol": (P, P, P, P, P, P, P, I, I, I, P),
+    "rrtm_taumol_info": (I, P),
+    "rrtm_taumol_shape": (P,),
     "rrtm_taumol_bwd": (P, P, P, P, P, P, P, I, I, P),
     "rrtm_rt": (P,) * 19 + (I,) * 5 + (P,),
     "rrtm_rt_info": (I, I, I, P),

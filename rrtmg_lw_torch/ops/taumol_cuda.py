@@ -9,11 +9,15 @@ float32.
 
 ``pack_tables`` compiles ``taumol.BAND_SPECS`` once into
   * one flat float32 buffer holding every band's tables (row-major,
-    ``ng`` floats per row) plus chi_mls and the per-g rescale vectors,
+    ``ng`` floats per row, each table starting on ``TAB_ALIGN`` floats)
+    plus chi_mls and the per-g rescale vectors,
   * an int32 descriptor of ``len(DESC_FIELDS)`` words per (band,
     region); float constants are stored bit-cast.
-The kernels run one thread per (column, layer, band) (K2) or per
-(column, layer) (K5) and read the descriptor of the band and region.
+K2 runs one thread per (column, layer), walking the 16 bands with each
+(band, region)'s structure compiled in (``shape_words``, written into
+csrc/taumol.cu by ``python -m rrtmg_lw_torch.ops.taumol_cuda``) and
+reading table rows 8 bytes at a time; K5 one thread per (column, layer) reading
+the descriptor of the band and region.
 ``DESC_FIELDS``, ``FLOAT_FIELDS`` and ``INT_FIELDS`` must match the
 enums in csrc/taumol.cuh (a CPU test compares them).
 
@@ -34,6 +38,8 @@ storage also count in ``taumol_blocked.spec.launches``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -75,6 +81,9 @@ _F = {name: i for i, name in enumerate(FLOAT_FIELDS)}
 _CORR = {None: 0, "b1l": 1, "b1u": 2, "b2": 3}
 # BIN_SLOTS of TaumolEngine.bins, written when the kernel gets a bins buffer
 NBIN = 4
+# every table of pack_tables starts on this many floats (8 bytes): K2
+# reads a row of ng floats (ng even) 8 bytes at a time
+TAB_ALIGN = 2
 
 
 def _f32_bits(x: float) -> int:
@@ -94,6 +103,10 @@ def pack_tables(ktables: dict, static: dict):
     def put(key, arr):
         nonlocal size
         arr = np.ascontiguousarray(arr, np.float32).reshape(-1)
+        pad = -size % TAB_ALIGN
+        if pad:
+            chunks.append(np.zeros(pad, np.float32))
+            size += pad
         offsets[key] = size
         chunks.append(arr)
         size += arr.size
@@ -192,6 +205,71 @@ def pack_tables(ktables: dict, static: dict):
     return np.concatenate(chunks), desc, offsets
 
 
+# The words of a (band, region) descriptor that BAND_SPECS alone fixes
+# (flags, counts, g offsets, field indices): K2 compiles them in (the
+# Shape tables between SHAPE_BEGIN and SHAPE_END in csrc/taumol.cu) and
+# reads the rest (table offsets and shapes, float constants) from the
+# descriptor it is given.  The words of SHAPE_SIGNS only say, by their
+# sign, whether a table is there.
+SHAPE_WORDS = frozenset(
+    ("ZERO", "GOFF", "NGB", "KEY1", "KEY2", "RAT0", "RAT1", "NSP", "ETA4",
+     "NMINOR", "NCFC", "CORR", "FRAC_ETA", "FRAC_G1", "FRAC_G2")
+    + tuple(f"M{i}_{f}" for i in range(MAX_MINORS)
+            for f in ("KIND", "COLA", "COLB", "ADJ_GAS", "REF_G1", "REF_G2"))
+    + tuple(f"C{i}_WX" for i in range(MAX_CFCS)))
+SHAPE_SIGNS = frozenset(("SELF_OFF", "FOR_OFF", "POST_OFF")
+                        + tuple(f"M{i}_ADJ_CHI" for i in range(MAX_MINORS)))
+SHAPE_SOURCE = _build.CSRC / "taumol.cu"
+SHAPE_BEGIN, SHAPE_END = "// BEGIN SHAPES\n", "// END SHAPES\n"
+
+
+def shape_words(desc) -> np.ndarray:
+    """The (16, 2, NDESC) descriptors with every word outside SHAPE_WORDS
+    zero, and those of SHAPE_SIGNS -1 where absent, else 0."""
+    out = np.zeros_like(np.asarray(desc, np.int32))
+    for name, i in _D.items():
+        if name in SHAPE_WORDS:
+            out[..., i] = desc[..., i]
+        elif name in SHAPE_SIGNS:
+            out[..., i] = np.where(desc[..., i] >= 0, 0, -1)
+    return out
+
+
+def shape_section(desc) -> str:
+    """csrc/taumol.cu's Shape tables, SHAPE_BEGIN to SHAPE_END, for
+    pack_tables' ``desc``."""
+    lines = [
+        SHAPE_BEGIN.rstrip(),
+        "// Generated by python -m rrtmg_lw_torch.ops.taumol_cuda from",
+        "// pack_tables' descriptors (ops/taumol_cuda.py::shape_words): the",
+        "// words that BAND_SPECS alone fixes, per (band, region); the other",
+        "// words are 0, and table presence words -1 (absent) or 0.  Do not",
+        "// edit: tests/test_torch_port.py holds it equal to the generator.",
+        "template <int BAND, int REGION> struct Shape;",
+    ]
+    for b, regions in enumerate(shape_words(desc)):
+        for r, words in enumerate(regions):
+            lines.append(f"template <> struct Shape<{b}, {r}> {{")
+            lines.append("    static constexpr int w[NDESC] = {")
+            row = "       "
+            for x in words:
+                item = f" {int(x)},"
+                if len(row) + len(item) > 76:
+                    lines.append(row)
+                    row = "       "
+                row += item
+            lines.append(row)
+            lines.append("    };")
+            lines.append("};")
+    return "\n".join(lines) + "\n" + SHAPE_END
+
+
+def source_shape_section(text: str) -> str:
+    """The SHAPE_BEGIN ... SHAPE_END section of csrc/taumol.cu's ``text``."""
+    a = text.index(SHAPE_BEGIN)
+    return text[a:text.index(SHAPE_END, a) + len(SHAPE_END)]
+
+
 def _pack_inputs(sc, prof):
     """(NF, L, B) float and (NI, L, B) int32 per-cell inputs."""
     named = sc._asdict()
@@ -248,6 +326,27 @@ def _check_packed(fld, ifld, kernel_tabs, kernel_desc):
     return L, B
 
 
+def _check_shape(kernel_desc):
+    """Raise unless ``kernel_desc``'s BAND_SPECS words are those K2 was
+    built with (``rrtm_taumol_shape``); once per descriptor tensor, and
+    again after an in-place change to it."""
+    if getattr(kernel_desc, "_k2_shape_version", None) == \
+            kernel_desc._version:
+        return
+    built = np.zeros(tuple(kernel_desc.shape), np.int32)
+    _build.library().rrtm_taumol_shape(built.ctypes.data)
+    want = shape_words(kernel_desc.cpu().numpy())
+    if not np.array_equal(built, want):
+        band, region, word = np.argwhere(built != want)[0]
+        raise RuntimeError(
+            f"kernel_desc's {DESC_FIELDS[word]} of band {band + 1} "
+            f"({('lower', 'upper')[region]}) is {want[band, region, word]}, "
+            f"K2 was built with {built[band, region, word]}: regenerate "
+            "csrc/taumol.cu's shapes (python -m rrtmg_lw_torch.ops."
+            "taumol_cuda)")
+    kernel_desc._k2_shape_version = kernel_desc._version
+
+
 class TaumolFn(torch.autograd.Function):
     """(fld, ifld, engine, kernel_tabs, kernel_desc, bins, spec_dtype) ->
     taug, fracs (L, 140, B) in ``spec_dtype``.  Backward K5, to fld only
@@ -270,6 +369,7 @@ class TaumolFn(torch.autograd.Function):
                         spec_store(fracs, spec_dtype, "fr"))
             return taug, fracs
         L, B = _check_packed(fld, ifld, kernel_tabs, kernel_desc)
+        _check_shape(kernel_desc)
         if bins is not None:
             _build.check(bins, "bins", torch.int32, (NBANDS, NBIN, L, B),
                          fld.device)
@@ -309,6 +409,24 @@ def taumol_blocked(sc, prof, engine, kernel_tabs, kernel_desc, bins=None,
                           spec_dtype)
 
 
+K2_INFO = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+           "blocks_per_sm", "threads", "columns")
+
+
+def k2_info(spec_dtype=torch.float32):
+    """K2's launch configuration with taug / fracs in ``spec_dtype``:
+    ``K2_INFO`` -> int, from the CUDA runtime (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the card."""
+    buf = (ctypes.c_int * len(K2_INFO))()
+    lib = _build.library()
+    err = lib.rrtm_taumol_info(SPEC_CODES[spec_dtype],
+                               ctypes.cast(buf, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError("rrtm_taumol_info: "
+                           + lib.rrtm_error_string(err).decode())
+    return dict(zip(K2_INFO, buf))
+
+
 def taumol_vjp(fld, ifld, engine, kernel_tabs, kernel_desc, ct_taug,
                ct_fracs):
     """K5: ct_taug, ct_fracs (L, 140, B) -> the cotangent of fld
@@ -328,3 +446,12 @@ def taumol_vjp(fld, ifld, engine, kernel_tabs, kernel_desc, ct_taug,
 taumol_blocked.launches = 0
 taumol_blocked.spec = _build.Launches()
 taumol_vjp.launches = 0
+
+
+if __name__ == "__main__":
+    from ..data.ktables import load_ktables, load_static
+    text = SHAPE_SOURCE.read_text()
+    SHAPE_SOURCE.write_text(text.replace(
+        source_shape_section(text),
+        shape_section(pack_tables(load_ktables()[0], load_static())[1])))
+    print(f"wrote the shapes of {SHAPE_SOURCE}")

@@ -4,19 +4,21 @@
     python rrtmg_lw_torch/utils/snapshot.py --compare A.pt B.pt
 
     PYTHONPATH=<checkout> python rrtmg_lw_torch/utils/snapshot.py \\
-        --k1-times T.json
+        --k1-times T1.json --k2-times T2.json
 
-``--out`` runs, on the card, K2 in float32 storage, K3 at layer and
-level temperatures, K4, K5 and K6 (clear and compact; both on seeded
-cotangents), and K1 in all six modes at idrv 0 and 1, on the inputs of
-``chip_smoke.py``'s phase 3 (``utils/profiling.py``'s ``mcica_cloudy``,
-``band_cloudy``, ``mcica_blocked`` and ``mcica_tauc`` cells at
-B=16384, L=60) and on K1's edge cases (``k1_edge_args``), and saves
+``--out`` runs, on the card, K2 in all four storages with its bins, K3
+at layer and level temperatures, K4, K5 and K6 (clear and compact; both
+on seeded cotangents), and K1 in all six modes at idrv 0 and 1, on the
+inputs of ``chip_smoke.py``'s phase 3 (``utils/profiling.py``'s
+``mcica_cloudy``, ``band_cloudy``, ``mcica_blocked`` and ``mcica_tauc``
+cells at B=16384, L=60), K1 also on its edge cases (``k1_edge_args``)
+and K2 on its own (``k2_edge_args``, ``K2_EDGE_SHAPES``), and saves
 their outputs.  Run it from each checkout (its own ``rrtmg_lw_torch``
 first on the path), then ``--compare`` prints, per output, whether the
 two are bitwise equal, and exits non-zero unless all are.
 ``--k1-times`` writes the profiler's device ms of K1 in every mode,
-idrv and storage on the same inputs, and of compact at L=140.  The
+idrv and storage on the same inputs, and of compact at L=140;
+``--k2-times`` those of K2 in every storage at L=60 and L=140.  The
 imports are absolute, so ``PYTHONPATH`` picks the checkout whose kernels
 run; only entry points that every checkout since the fifth slice
 (reduced storage) has are used.
@@ -193,6 +195,90 @@ def k1_edge_args(device, static, args, seed=9) -> tuple:
     return (taut, *args[1:]), modes, low
 
 
+# K2's edge shapes (columns, layers): one column, a warp's 32 columns
+# -1 and +1, a width off K2's 128-column tile, one layer
+K2_EDGE_SHAPES = ((1, 60), (31, 60), (33, 60), (1000, 60), (77, 1))
+K2_EDGE_KINDS = ("switch", "lower", "upper")
+# per-column gas factors (h2o, co2, o3, n2o, co, ch4, o2), in turn: none;
+# co2 and n2o over-abundant (their minor adjustments' ratio > threshold);
+# o3 (the o3-co2 eta at its top bins); ch4 (the h2o-ch4 eta at bin 0)
+K2_BOOSTS = ((1, 1, 1, 1, 1, 1, 1), (1, 8, 1, 20, 1, 1, 1),
+             (1, 1, 300, 1, 1, 1, 1), (1, 1, 1, 1, 1, 30, 1))
+
+
+def k2_edge_args(device, model, ncol, nlay, seed=11) -> tuple:
+    """K2's edge inputs at ``ncol`` columns and ``nlay`` layers: the
+    packed fields (fld (NF, nlay, ncol), ifld (NI, nlay, ncol)) that
+    ``taumol_cuda.TaumolFn`` takes, every cell a cell of setcoef's output
+    on a ``make_atmosphere`` at 60 layers.  Column b's gases are scaled by
+    ``K2_BOOSTS[(b // 2) % 4]``; every fourth column is hot and high (its
+    pressures x 0.2, so the top layers reach jp's last row, 57, and
+    temperatures above the reference's, so a single-key band's rows in
+    the upper region clip at nrow - 1).  Columns come in runs of 1-23 of
+    three kinds (``K2_EDGE_KINDS``): switch (the column's layers as
+    setcoef gave them, lower below laytrop and upper above; at nlay < 60
+    every (60 // nlay)-th), lower (its lower cells only) and upper (its
+    upper cells only, from the top down).  -> (fld, ifld, facts): counts
+    of columns of each kind that hold both regions, only lower or only
+    upper cells, of upper cells at jp = 57 and jt1 = 3 (the last-row
+    clip), and of cells whose n2o adjustment ratio is above / at most
+    its threshold 1.5."""
+    from rrtmg_lw_torch.ops.inatm import inatm
+    from rrtmg_lw_torch.ops.setcoef import setcoef
+    from rrtmg_lw_torch.ops.taumol_cuda import (FLOAT_FIELDS, INT_FIELDS,
+                                                _pack_inputs)
+    from rrtmg_lw_torch.types import Atmosphere
+    from rrtmg_lw_torch.utils.synthetic import make_atmosphere
+    src_l = 60
+    a = make_atmosphere(ncol, src_l, seed=seed, dtype=np.float32)._asdict()
+    cols = np.arange(ncol)
+    high = cols % 4 == 3
+    scale = np.where(high, np.float32(0.2), np.float32(1.0))[:, None]
+    a["play"], a["plev"] = a["play"] * scale, a["plev"] * scale
+    a["tlay"] = np.where(high[:, None], np.float32(310.0), a["tlay"])
+    boost = np.asarray(K2_BOOSTS, np.float32)[(cols // 2) % len(K2_BOOSTS)]
+    for i, gas in enumerate(("h2o", "co2", "o3", "n2o", "co", "ch4", "o2")):
+        a[gas + "vmr"] = a[gas + "vmr"] * boost[:, i:i + 1]
+    prof = inatm(Atmosphere.from_numpy(Atmosphere(**a), device,
+                                       torch.float32), torch.float32)
+    sc = setcoef(prof, model.static_tensors(), planck=False)
+    fld, ifld = _pack_inputs(sc, prof)                  # (N, 60, ncol)
+
+    rng = np.random.default_rng(seed)
+    kind = np.empty(ncol, np.int64)
+    i = k = 0
+    while i < ncol:
+        n = int(rng.integers(1, 24))
+        kind[i:i + n] = k % len(K2_EDGE_KINDS)
+        i, k = i + n, k + 1
+    nlow = ifld[INT_FIELDS.index("laytrop")].sum(0).cpu().numpy()
+    lay = np.arange(nlay)[:, None]
+    step = src_l // nlay
+    src = np.select(
+        [(kind == 1) & (nlow > 0), (kind == 2) | ((kind == 1) & (nlow == 0))],
+        [lay % np.maximum(nlow, 1),
+         src_l - 1 - lay % np.maximum(src_l - nlow, 1)], lay * step)
+    idx = torch.as_tensor(src, device=fld.device)[None].expand(
+        fld.shape[0], -1, -1)
+    fld = fld.gather(1, idx).contiguous()
+    ifld = ifld.gather(1, idx[:ifld.shape[0]]).contiguous()
+
+    lower = ifld[INT_FIELDS.index("laytrop")] != 0
+    jp = ifld[INT_FIELDS.index("jp")]
+    F = {n: fld[i] for i, n in enumerate(FLOAT_FIELDS)}
+    chi = model.engine.chi_t.to(fld.device, torch.float32)[3]     # n2o
+    ratio = 1.0e20 * F["coln2o"] / (F["coldry"] * chi[jp.long() + 1])
+    facts = dict(
+        both=int((lower.any(0) & ~lower.all(0)).sum()),
+        lower_only=int(lower.all(0).sum()),
+        upper_only=int((~lower).all(0).sum()),
+        last_row=int((~lower & (jp == 57)
+                      & (ifld[INT_FIELDS.index("jt1")] == 3)).sum()),
+        n2o_over=int((ratio > 1.5).sum()),
+        n2o_under=int((ratio <= 1.5).sum()))
+    return fld, ifld, facts
+
+
 def sweep_inputs(device, cell="mcica_cloudy") -> dict:
     """Phase 3's K1 inputs (``cell``, B=16384; mcica_cloudy: L=60): the
     model, profile, setcoef output, static tensors, compact clouds, the
@@ -227,22 +313,35 @@ def outputs(device) -> dict:
     from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_blocked
     from rrtmg_lw_torch.ops.planck_cuda import planck_interp_blocked
     from rrtmg_lw_torch.ops.rtrn_cuda import WRAPPERS, rt_sweep_vjp
-    from rrtmg_lw_torch.ops.taumol_cuda import (_pack_inputs, taumol_blocked,
+    from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES
+    from rrtmg_lw_torch.ops.taumol_cuda import (NBIN, TaumolFn, _pack_inputs,
                                                 taumol_vjp)
     x = sweep_inputs(device)
     model, prof, sc, static, mc = (x[k] for k in ("model", "prof", "sc",
                                                   "static", "mc"))
     args = x["args"]
     taut, fr, play, plev = args[:4]
-    k2 = taumol_blocked(sc, prof, model.engine, model.kernel_tabs,
-                        model.kernel_desc)
-    out = {"k2_taug": k2[0], "k2_fracs": k2[1]}
+    fld, ifld = _pack_inputs(sc, prof)
+    out = {}
+    k2_in = [("k2", fld, ifld)] + [
+        (f"k2_edge_{B}x{L}", *k2_edge_args(device, model, B, L)[:2])
+        for B, L in K2_EDGE_SHAPES]
+    for tag, f, i in k2_in:
+        for spec, sdt in SPEC_DTYPES.items():
+            if not spec:
+                continue
+            bins = torch.empty((16, NBIN, *f.shape[1:]), dtype=torch.int32,
+                               device=device)
+            k2 = TaumolFn.apply(f, i, model.engine, model.kernel_tabs,
+                                model.kernel_desc, bins, sdt)
+            out.update({f"{tag}_{spec}_taug": k2[0],
+                        f"{tag}_{spec}_fracs": k2[1],
+                        f"{tag}_{spec}_bins": bins})
     for name, t in (("k3_lay", prof.tavel), ("k3_lev", prof.tz)):
         out[name] = planck_interp_blocked(t.t().contiguous(), model.totplnk)
     out["k4_abi"], out["k4_abl"] = ice_liq_coeffs_blocked(
         mc.reicmc, mc.relqmc, 3, 1, static)
     gen = torch.Generator(device=device).manual_seed(5)
-    fld, ifld = _pack_inputs(sc, prof)
     ct_t, ct_f = (torch.randn(taut.shape, generator=gen, device=device)
                   for _ in range(2))
     out["k5"] = taumol_vjp(fld, ifld, model.engine, model.kernel_tabs,
@@ -279,15 +378,7 @@ def k1_times(device, reps=5) -> list:
     from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES, spec_store
 
     def run(fn):
-        fn()
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        return sum(e.time_range.elapsed_us() for e in prof.events()
-                   if "rt_kernel" in e.name) / 1e3 / reps
+        return kernel_ms(fn, "rt_kernel", reps)
 
     x = sweep_inputs(device)
     args, dpl = x["args"], x["sc"].dplankbnd_dt
@@ -326,6 +417,54 @@ def k1_times(device, reps=5) -> list:
     return rows
 
 
+def kernel_ms(fn, symbol, reps=5) -> float:
+    """Device ms per call of the kernels whose symbol holds ``symbol``
+    (``torch.profiler``), the mean of ``reps`` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if symbol in e.name) / 1e3 / reps
+
+
+def k2_times(device, reps=5) -> list:
+    """Device ms per launch of K2 in every storage on phase 3's inputs
+    (L=60) and the mcica_cloudy_deep cell's (L=140), B=16384.  -> [{nlay,
+    storage, device_ms}]."""
+    from rrtmg_lw_torch import LWConfig, make_model
+    from rrtmg_lw_torch.ops.inatm import inatm
+    from rrtmg_lw_torch.ops.setcoef import setcoef
+    from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES
+    from rrtmg_lw_torch.ops.taumol_cuda import taumol_blocked
+    from rrtmg_lw_torch.utils.profiling import cell_inputs
+    model = make_model(LWConfig(icld=2, imca=1, dtype="float32",
+                                use_lut=False), device=device)
+    rows = []
+    for cell in ("mcica_cloudy", "mcica_cloudy_deep"):
+        prof = inatm(cell_inputs(cell, device)[0], torch.float32)
+        sc = setcoef(prof, model.static_tensors(), planck=False)
+        for spec in ("f32", "bf16", "f16", "logu16"):
+            ms = kernel_ms(lambda: taumol_blocked(
+                sc, prof, model.engine, model.kernel_tabs, model.kernel_desc,
+                spec_dtype=SPEC_DTYPES[spec]), "taumol_kernel", reps)
+            rows.append(dict(nlay=prof.pavel.shape[1], storage=spec,
+                             device_ms=ms))
+            print(rows[-1], flush=True)
+    return rows
+
+
+def raw(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s bits: a floating tensor viewed as integers of its width."""
+    if not x.is_floating_point():
+        return x
+    return x.view({8: torch.int64, 4: torch.int32, 2: torch.int16}[
+        x.element_size()])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out")
@@ -333,14 +472,19 @@ def main(argv=None) -> int:
     ap.add_argument("--k1-times", metavar="OUT",
                     help="time K1 in every mode, idrv and storage into OUT "
                          "(JSON)")
+    ap.add_argument("--k2-times", metavar="OUT",
+                    help="time K2 in every storage at L=60 and 140 into OUT "
+                         "(JSON)")
     args = ap.parse_args(argv)
-    if args.k1_times:
+    for opt, times in ((args.k1_times, k1_times), (args.k2_times, k2_times)):
+        if not opt:
+            continue
         if not torch.cuda.is_available():
             raise SystemExit("snapshot needs a CUDA device")
         import json
         import pathlib
-        rows = k1_times(torch.device("cuda", 0))
-        pathlib.Path(args.k1_times).write_text(json.dumps(rows, indent=1))
+        rows = times(torch.device("cuda", 0))
+        pathlib.Path(opt).write_text(json.dumps(rows, indent=1))
     if args.out:
         if not torch.cuda.is_available():
             raise SystemExit("snapshot needs a CUDA device")
@@ -349,7 +493,8 @@ def main(argv=None) -> int:
         a, b = (torch.load(p) for p in args.compare)
         same = a.keys() == b.keys()
         for k in a:
-            eq = k in b and torch.equal(a[k], b[k])
+            eq = (k in b and a[k].dtype == b[k].dtype
+                  and torch.equal(raw(a[k]), raw(b[k])))
             same &= eq
             print(f"{k}: {'bitwise equal' if eq else 'DIFFERS'}")
         print("all bitwise equal" if same else "outputs differ")

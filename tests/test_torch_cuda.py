@@ -33,6 +33,8 @@ its launch configuration (at least two blocks per SM).
 The probes (utils/probes.py) bitwise equal to tbl[idx].
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -51,10 +53,12 @@ from rrtmg_lw_torch.ops.rtrn_cuda import (WRAPPERS, rt_fluxes_banded,
 from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows
 from rrtmg_lw_torch.ops.setcoef import (interp_planck_blocked,
                                         interp_planck_vjp, setcoef)
-from rrtmg_lw_torch.ops.taumol_cuda import (NBIN, _pack_inputs,
-                                            taumol_blocked,
+from rrtmg_lw_torch.ops.taumol_cuda import (DESC_FIELDS, NBIN, TaumolFn,
+                                            _pack_inputs, _unpack_inputs,
+                                            taumol_blocked, taumol_packed,
                                             taumol_packed_vjp, taumol_vjp)
 from rrtmg_lw_torch.parallel import make_grad_step
+from rrtmg_lw_torch.utils.snapshot import K2_EDGE_SHAPES, k2_edge_args
 from rrtmg_lw_torch.utils.synthetic import (make_atmosphere,
                                             make_band_clouds,
                                             make_mcica_clouds)
@@ -120,21 +124,62 @@ def test_cldcoef_kernel_matches_plain(dev, iceflag):
         assert float((g - r).abs().max() / r.abs().max()) <= 1e-6
 
 
-@pytest.mark.parametrize("B,L,boost", [(37, 23, None), (1, 60, None),
-                                       (64, 40, (1, 8, 1, 50, 1, 20, 1))])
-def test_taumol_kernel_matches_plain(dev, B, L, boost):
+@pytest.mark.parametrize("spec", ["f32", "bf16", "f16", "logu16"])
+@pytest.mark.parametrize("B,L,boost", [
+    (37, 23, None), (1, 60, None), (64, 40, (1, 8, 1, 50, 1, 20, 1)),
+    *((B, L, "edge") for B, L in K2_EDGE_SHAPES)])
+def test_taumol_kernel_matches_plain(dev, B, L, boost, spec):
+    """K2 against the plain engine (bins equal), on setcoef's output or
+    on K2's edge inputs (``k2_edge_args``); in a reduced storage, against
+    the plain encode of K2's own float32 output (bf16 / f16 bitwise,
+    logu16 codes at most one apart: logf against torch.log)."""
+    from rrtmg_lw_torch.ops.spec_codec import (SPEC_DTYPES, spec_order,
+                                               spec_store)
     model = _model(dev)
-    _, _, prof = _case(dev, B, L, boost=boost)
-    sc = setcoef(prof, model.static_tensors(), planck=False)
+    if boost == "edge":
+        fld, ifld, _ = k2_edge_args(dev, model, B, L)
+    else:
+        _, _, prof = _case(dev, B, L, boost=boost)
+        fld, ifld = _pack_inputs(
+            setcoef(prof, model.static_tensors(), planck=False), prof)
+    run = functools.partial(TaumolFn.apply, fld, ifld, model.engine,
+                            model.kernel_tabs, model.kernel_desc)
     bins = torch.empty((16, NBIN, L, B), dtype=torch.int32, device=dev)
-    tg, fr = taumol_blocked(sc, prof, model.engine, model.kernel_tabs,
-                            model.kernel_desc, bins=bins)
-    tg_p, fr_p = model.engine.blocked(sc, prof)
-    assert torch.equal(bins, model.engine.bins(sc, prof))
+    tg, fr = run(bins, torch.float32)
+    tg_p, fr_p = taumol_packed(model.engine, fld, ifld)
+    assert torch.equal(bins, model.engine.bins(*_unpack_inputs(fld, ifld)))
     e_t = ((tg.double() - tg_p.double()).abs()
            / tg_p.double().abs().clamp(min=1e-2)).max()
     assert float(e_t) <= 3.05e-5
     assert float((fr - fr_p).abs().max()) <= 3.05e-5
+    if spec != "f32":
+        sdt = SPEC_DTYPES[spec]
+        bins_s = torch.empty_like(bins)
+        for k, x, which in zip(run(bins_s, sdt), (tg, fr), ("tg", "fr")):
+            assert k.dtype == sdt and k.shape == (L, 140, B)
+            d = (spec_order(k) - spec_order(spec_store(x, sdt, which))).abs()
+            assert int(d.max()) <= (1 if spec == "logu16" else 0), spec
+        assert torch.equal(bins_s, bins)
+
+
+def test_taumol_kernel_refuses_other_band_structure(dev):
+    """K2 compiles in the descriptor words that BAND_SPECS fixes: its
+    wrapper raises on a descriptor whose such word differs (band 1
+    lower's ng here), also after an in-place change to one it took."""
+    model = _model(dev)
+    _, _, prof = _case(dev, 5, 3)
+    fld, ifld = _pack_inputs(
+        setcoef(prof, model.static_tensors(), planck=False), prof)
+    desc = model.kernel_desc.clone()
+
+    def run():
+        return TaumolFn.apply(fld, ifld, model.engine, model.kernel_tabs,
+                              desc, None, torch.float32)
+
+    run()
+    desc[0, 0, DESC_FIELDS.index("NGB")] += 2
+    with pytest.raises(RuntimeError, match="NGB of band 1"):
+        run()
 
 
 @pytest.mark.parametrize("B,L,clear_frac", [(37, 13, 0.0), (5, 1, 0.0),

@@ -205,6 +205,39 @@ def test_taumol_plain_matches_jax(pair, case):
     assert (bins[11, :, upper.T] == -1).all()      # band 12 upper is zero
 
 
+@pytest.mark.parametrize("ncol,nlay", [(33, 60), (77, 1)])
+def test_taumol_plain_matches_jax_on_k2_edge_inputs(pair, ncol, nlay):
+    """K2's edge inputs (``snapshot.k2_edge_args``: columns all lower, all
+    upper or switching at laytrop, rows clipped at the table's last row,
+    minor gases on both sides of their over-abundance threshold), widened
+    to float64, through the port's plain taumol and the JAX package's."""
+    from rrtmg_lw_tpu.types import Profile as JProfile
+    from rrtmg_lw_tpu.types import SetcoefOut as JSetcoefOut
+    from rrtmg_lw_torch.ops.taumol_cuda import _unpack_inputs
+    from rrtmg_lw_torch.utils.snapshot import k2_edge_args
+    jm, tm = pair["jm"], pair["tm"]
+    m32 = make_model(LWConfig(icld=2, imca=1, dtype="float32",
+                              use_lut=False), device="cpu",
+                     tables=tables_from_numpy(jm.ktables, jm.static_np,
+                                              device="cpu",
+                                              dtype=torch.float32))
+    fld, ifld, facts = k2_edge_args("cpu", m32, ncol, nlay)
+    assert facts["lower_only"] and facts["upper_only"]
+    assert facts["last_row"] and facts["n2o_over"] and facts["n2o_under"]
+    if nlay > 1:
+        assert facts["both"]
+    tsc, tprof = _unpack_inputs(fld.double(), ifld)
+    jsc = JSetcoefOut(**{k: None if v is None else jnp.asarray(v.numpy())
+                         for k, v in tsc._asdict().items()})
+    jprof = JProfile(**{k: None if v is None else jnp.asarray(v.numpy())
+                        for k, v in tprof._asdict().items()})
+    tt, tf = tm.engine(tsc, tprof)
+    jt, jf = (np.asarray(x) for x in jm.engine(jsc, jprof))
+    for b, sl in _band_slices().items():
+        assert_rel(tt[..., sl], jt[..., sl], name=f"taug band {b}")
+        assert_rel(tf[..., sl], jf[..., sl], name=f"fracs band {b}")
+
+
 def _per_g_clouds(seed):
     rng = np.random.default_rng(seed)
     cldf = (rng.random((B, L, 140)) < 0.3).astype(np.float64)

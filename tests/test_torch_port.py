@@ -214,6 +214,104 @@ def test_taumol_descriptors_cover_band_specs():
     assert goff == 140
 
 
+def test_taumol_kernel_launch_fits_the_card():
+    """K2's tile and thread constants, read from csrc/taumol.cu: its
+    shared memory (the tile's NF + NI input rows and the 32 descriptors,
+    static, the same in every storage) fits the 48 KB of static shared
+    memory a block may hold (so also the 227 KB of dynamic), and
+    MIN_BLOCKS blocks fit an SM's 228 KB, 2048 threads and 65536
+    registers (at least 32 a thread); its table alignment is
+    pack_tables', and a row load (VW floats) divides every band's ng."""
+    src = open(os.path.join(REPO, "rrtmg_lw_torch", "csrc",
+                            "taumol.cu")).read()
+
+    def const(name):
+        return int(re.search(r"\nconstexpr int %s = (\d+);" % name,
+                             src).group(1))
+
+    tb, min_blocks = const("TB"), const("MIN_BLOCKS")
+    assert "constexpr int THREADS = TB;" in src
+    assert "__launch_bounds__(THREADS, MIN_BLOCKS)" in src
+    assert const("TAB_ALIGN") == taumol_cuda.TAB_ALIGN
+    assert all(ng % const("VW") == 0 for ng in ttaumol.NG)
+    assert taumol_cuda.TAB_ALIGN % const("VW") == 0
+    shared = re.findall(r"__shared__ (float|int) (\w+)\[(.*?)\];", src)
+    assert [name for _, name, _ in shared] == ["sfld", "sifld", "sdesc"]
+    assert [size for _, _, size in shared] == \
+        ["NF * TB", "NI * TB", "NDESC_ALL"]
+    assert "constexpr int NDESC_ALL = rrtm::NBAND * 2 * NDESC;" in src
+    nf, ni = len(taumol_cuda.FLOAT_FIELDS), len(taumol_cuda.INT_FIELDS)
+    smem = 4 * ((nf + ni) * tb
+                + ttaumol.NBANDS * 2 * len(taumol_cuda.DESC_FIELDS))
+    assert re.search(r"taumol_kernel<SPEC><<<grid, THREADS, 0, s>>>", src)
+    assert smem <= 48 * 1024 <= 227 * 1024
+    assert min_blocks * (smem + 1024) <= 228 * 1024
+    assert tb % 32 == 0 and tb * min_blocks <= 2048
+    assert 65536 // (tb * min_blocks) >= 32
+
+
+def test_taumol_shape_header_matches_pack_tables():
+    """csrc/taumol.cu's Shape tables, the descriptor words K2 compiles
+    in, are what ``python -m rrtmg_lw_torch.ops.taumol_cuda`` writes from
+    pack_tables' descriptors: the BAND_SPECS words equal, the presence
+    words' signs equal, every other word zero."""
+    kt, static = jkt.load_ktables()[0], jkt.load_static()
+    desc = taumol_cuda.pack_tables(kt, static)[1]
+    with open(taumol_cuda.SHAPE_SOURCE) as f:
+        assert taumol_cuda.source_shape_section(f.read()) == \
+            taumol_cuda.shape_section(desc)
+    words = taumol_cuda.shape_words(desc)
+    for name, i in zip(taumol_cuda.DESC_FIELDS, range(desc.shape[-1])):
+        if name in taumol_cuda.SHAPE_WORDS:
+            np.testing.assert_array_equal(words[..., i], desc[..., i])
+        elif name in taumol_cuda.SHAPE_SIGNS:
+            np.testing.assert_array_equal(words[..., i] < 0,
+                                          desc[..., i] < 0)
+        else:
+            assert not words[..., i].any(), name
+    # the words the kernel reads at run time vary with the tables only
+    assert {"ABS_OFF", "NROW", "NA", "FRAC_OFF", "FRAC_NROW",
+            "FRAC_REFRAT"}.isdisjoint(taumol_cuda.SHAPE_WORDS)
+
+
+def test_taumol_tables_read_back_from_packed_layout():
+    """Every table of pack_tables' flat buffer starts on TAB_ALIGN floats
+    (K2 reads rows of ng floats 8 bytes at a time) and reads back
+    equal to the plain engine's buffer of it; the descriptors point at
+    them."""
+    model = make_model(LWConfig(dtype="float32", use_lut=False),
+                       device="cpu")
+    kt, static = jkt.load_ktables()[0], jkt.load_static()
+    flat, desc, offsets = taumol_cuda.pack_tables(kt, static)
+    assert flat.dtype == np.float32
+    assert all(off % taumol_cuda.TAB_ALIGN == 0 for off in offsets.values())
+    chi = np.asarray(static["chi_mls"], np.float32)
+    off = offsets["chi", "chi_mls"]
+    np.testing.assert_array_equal(flat[off:off + chi.size], chi.ravel())
+    eng = model.engine
+    D = {n: i for i, n in enumerate(taumol_cuda.DESC_FIELDS)}
+    for bspec in ttaumol.BAND_SPECS:
+        bk = f"b{bspec.band:02d}"
+        for name in [n for n in kt[bk] if n not in ("absa", "absb")] + \
+                ["_abs"]:
+            ref = getattr(eng, f"{bk}_{name}").numpy()
+            off = offsets[bk, name]
+            got = flat[off:off + ref.size].reshape(ref.shape)
+            np.testing.assert_array_equal(got, ref, err_msg=f"{bk} {name}")
+        for r, spec in enumerate((bspec.lower, bspec.upper)):
+            d = desc[bspec.band - 1, r]
+            if spec.zero:
+                continue
+            assert d[D["ABS_OFF"]] == offsets[bk, "_abs"]
+            assert d[D["FRAC_OFF"]] == offsets[bk, spec.frac]
+            if spec.postscale:
+                ng = ttaumol.NG[bspec.band - 1]
+                np.testing.assert_array_equal(
+                    flat[d[D["POST_OFF"]]:d[D["POST_OFF"]] + ng],
+                    ttaumol.postscale_vector(spec, ng).astype(np.float32))
+    np.testing.assert_array_equal(model.kernel_tabs.numpy(), flat)
+
+
 def test_config_impl_resolution():
     assert LWConfig().resolve_impl("cpu") == "eager"
     assert LWConfig(impl="eager").resolve_impl("cpu") == "eager"
