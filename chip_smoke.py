@@ -10,9 +10,11 @@ Phases, each raising on failure (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the CUDA kernels from csrc/ (one nvcc per source, in
      parallel), timed, with the registers and spills ptxas reports; for
-     each of K1's 48 instantiations its registers and spill stores, its
-     shared memory per block, blocks per SM (the CUDA occupancy API) and
-     levels in its ring, and the same (but the ring) for K2's 4;
+     each of K1's 52 instantiations (48, and the 4 of the gradient step
+     that keep the radiances for K6, which must not spill) its registers
+     and spill stores, its shared memory per block, blocks per SM (the
+     CUDA occupancy API) and levels in its ring, the same (but the ring)
+     for K2's 4, and K6's registers and spill stores;
   3. each kernel against its plain PyTorch version on the card at the
      main-path shapes (B=16384 columns, L=60 layers, float32), with the
      max error and CUDA-event times of both and the bound of each (the
@@ -69,10 +71,16 @@ Phases, each raising on failure (any failure exits non-zero):
   6. grad: each backward kernel (K3b Planck slope, K5 taumol, K6 RT
      adjoint) against the plain vjp of its forward's plain version on the
      phase-3 tensors (B=16384, L=60), errors, bitwise repeat and times;
+     K6 clear and compact, there and on K1's edge cases, fed the
+     radiances of K1's gradient-step launch on the same tensors, whose
+     fluxes must be bitwise those of K1's launch without them and whose
+     radiances within TOL_RADS of the plain sweep's; K6 without them
+     must raise;
      then the gradient step (make_grad_step, the default loss, w.r.t.
      every Atmosphere field) at B=16384, L=60 through the kernels: McICA,
      3 timed steps with the launch counters reset just before and read
-     just after, peak memory; its gradients of a column-sum loss, linear
+     just after (K1 keeping the radiances once a step, and never in a
+     forward cell), peak memory; its gradients of a column-sum loss, linear
      in the four flux arrays with seeded cotangents, held on all 16384
      columns against the eager step's (run in column chunks); clear sky,
      1 step, the same check; the McICA step at idrv=1 bitwise equal to
@@ -90,8 +98,9 @@ bytes_once (the bytes behind bound_ms); K1's and K2's entries
 CUDA events around the wrapper, holds its host gaps too), their
 instantiation's registers, spill bytes, shared memory, blocks per SM
 (K1: and ring levels) and achieved GB/s (bytes_once over device_ms),
-"rt_sweep" the table of all 48 K1 instantiations.  Without CUDA it exits non-zero and
-prints no result.
+"rt_sweep" the table of all 52 K1 instantiations; K6's entry
+(rt_adjoint) its registers, spill bytes, device_ms and GB/s.  Without
+CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -115,6 +124,9 @@ TOL_FLUX = 2e-5         # K1 / model: per column, / max(max |flux|, 1)
 # backward kernels against their plain vjps: the same f32 math summed in
 # another order, / max |plain| per output (K6: a recurrence over levels)
 TOL_BWD, TOL_BWD_RT = 1e-4, 1e-3
+# K1's kept radiances against the plain sweep's, / max |plain| (the
+# recurrence that TOL_FLUX holds summed over g, per g-point)
+TOL_RADS = 1e-5
 # the grad step against the eager one, per Atmosphere field / max |eager|,
 # for a loss linear in the fluxes: f32 against f64 on the CPU reads
 # <= 1.1e-5 (tests/test_torch_grad.py::test_f32_gradient_conditioning)
@@ -158,6 +170,8 @@ KERNELS = (  # name, source, replaced TPU kernel
      "rrtmg_lw_tpu/ops/planck_pallas.py:137"),
     ("rt_adjoint", "rrtmg_lw_torch/csrc/rtrn_bwd.cu",
      "rrtmg_lw_tpu/ops/rtrn_bwd.py:259"),
+    # K1's gradient-step launch, which keeps the radiances K6 reads
+    ("rt_sweep_save", K1_SRC, "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
     ("rt_sweep_banded", K1_SRC, "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
     ("rt_sweep_maxrand", K1_SRC, "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
     ("overlap_rows", "rrtmg_lw_torch/csrc/overlap.cu",
@@ -205,12 +219,31 @@ def cuda_ms(fn, reps):
 
 
 def device_ms(fn, reps=5, symbol="rt_kernel"):
-    """Mean device ms per call of the launches of the kernel whose symbol
-    holds ``symbol`` (torch.profiler, kernel time alone; default K1) over
-    ``reps`` calls after one warm-up: the wrapper's CUDA events also hold
-    the host gaps between its launches."""
-    from rrtmg_lw_torch.utils.snapshot import kernel_ms
-    return kernel_ms(fn, symbol, reps)
+    """Mean device ms of one launch of the kernel whose symbol holds
+    ``symbol`` (torch.profiler, kernel time alone; default K1) over
+    ``reps`` calls after one warm-up, each call launching it once: the
+    wrapper's CUDA events also hold the host gaps between its launches.
+    In a process that has traced many times before, a trace has held
+    only some of the launches (3 of 5 K6 launches; late in a full run one
+    or none): the mean is over the launches the trace holds, their count
+    is printed when short, and a trace with none is taken again."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if symbol in e.name]
+        if us:
+            break
+    need(us, f"the profiler saw no launch of {symbol}")
+    if len(us) != reps:
+        print(f"device_ms {symbol}: the trace held {len(us)} of {reps} "
+              "launches")
+    return sum(us) / len(us) / 1e3
 
 
 def bound(inputs, outputs, ops, nbytes=0, ops_rate=F32_OPS_PER_S,
@@ -596,7 +629,8 @@ def k1_edge_cases(device, model, args, dpl):
 def k1_build_info(log_path):
     """Each K1 instantiation's registers and spill stores (ptxas -v in
     the build log) and launch configuration (``rtrn_cuda.k1_info``):
-    {"<mode> idrv<0|1> <storage>": {...}}."""
+    {"<mode> idrv<0|1> <storage>[ save]": {...}}, " save" the four that
+    keep the radiances for K6 (clear and compact, float32)."""
     import re
     from rrtmg_lw_torch.ops.rtrn_cuda import MODES, k1_info
     from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES
@@ -607,12 +641,14 @@ def k1_build_info(log_path):
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?([^' ]+)", line)
         if m:
-            cur = re.search(r"rt_kernelILi(\d)ELb([01])ELi(\d)E", m.group(1))
+            cur = re.search(r"rt_kernelILi(\d)ELb([01])ELi(\d)ELb([01])E",
+                            m.group(1))
             continue
         if cur is None:
             continue
-        mode, idrv, spec = (int(x) for x in cur.groups())
-        key = f"{names[mode]} idrv{idrv} {storages[spec]}"
+        mode, idrv, spec, save = (int(x) for x in cur.groups())
+        key = (f"{names[mode]} idrv{idrv} {storages[spec]}"
+               + (" save" if save else ""))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             out.setdefault(key, {})["spill_bytes"] = int(m.group(1))
@@ -620,17 +656,44 @@ def k1_build_info(log_path):
         if m:
             out.setdefault(key, {})["registers"] = int(m.group(1))
     for key, r in out.items():
-        mode, idrv, spec = key.split()
-        info = k1_info(mode, int(idrv[-1]), SPEC_DTYPES.get(spec,
-                                                            torch.float32))
+        mode, idrv, spec, *save = key.split()
+        info = k1_info(mode, int(idrv[-1]),
+                       SPEC_DTYPES.get(spec, torch.float32), bool(save))
         need(info["registers"] == r.get("registers"),
              f"K1 {key}: {info['registers']} registers at run time, ptxas "
              f"said {r.get('registers')}")
         r.update(smem_bytes=info["static_smem"] + info["dynamic_smem"],
                  blocks_per_sm=info["blocks_per_sm"],
                  ring_levels=info["ring_levels"])
-    need(len(out) == 48 and all(len(r) == 5 for r in out.values()),
-         f"K1: {len(out)} instantiations in the build log, expected 48")
+    need(len(out) == 52 and all(len(r) == 5 for r in out.values()),
+         f"K1: {len(out)} instantiations in the build log, expected 52")
+    need(all(out[k]["spill_bytes"] == 0 for k in out if k.endswith("save")),
+         "K1: an instantiation that keeps the radiances spills")
+    return out
+
+
+def k6_build_info(log_path):
+    """K6's registers and spill stores per instantiation (ptxas -v in the
+    build log): {"clear" | "compact": {...}}."""
+    import re
+    out, cur = {}, None
+    for line in log_path.read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([^' ]+)", line)
+        if m:
+            cur = re.search(r"rt_bwd_kernelILb([01])E", m.group(1))
+            continue
+        if cur is None:
+            continue
+        key = ("clear", "compact")[int(cur.group(1))]
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out.setdefault(key, {})["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    need(len(out) == 2 and all(len(r) == 2 for r in out.values()),
+         f"K6: {len(out)} instantiations in the build log, expected 2")
     return out
 
 
@@ -738,7 +801,8 @@ K1_LINES = {"rt_sweep": "compact idrv0 f32", "rt_sweep_clear":
             "rt_sweep_maxrand_idrv": "maxrand idrv1 f32",
             "rt_sweep_fused_idrv": "fused idrv1 f32",
             "rt_sweep_cldf_od_idrv": "cldf_od idrv1 f32",
-            "rt_sweep_spec": "compact idrv0 logu16"}
+            "rt_sweep_spec": "compact idrv0 logu16",
+            "rt_sweep_save": "compact idrv0 f32 save"}
 # the K2 instantiation behind each K2 line of the JSON summary
 K2_LINES = {"taumol": "f32", "taumol_spec": "logu16"}
 
@@ -959,9 +1023,12 @@ def phase_grad_kernels(device):
     from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_blocked
     from rrtmg_lw_torch.ops.inatm import inatm
     from rrtmg_lw_torch.ops.planck_cuda import planck_interp_vjp
-    from rrtmg_lw_torch.ops.rtrn_cuda import rt_sweep_vjp
+    from rrtmg_lw_torch.ops.rtrn_cuda import (rt_fluxes_blocked,
+                                              rt_sweep_radiances,
+                                              rt_sweep_vjp)
     from rrtmg_lw_torch.ops.setcoef import (interp_planck_blocked,
                                             interp_planck_vjp, setcoef)
+    from rrtmg_lw_torch.utils.snapshot import k1_edge_args
     from rrtmg_lw_torch.ops.taumol_cuda import (_pack_inputs,
                                                 taumol_packed,
                                                 taumol_packed_vjp,
@@ -1034,7 +1101,11 @@ def phase_grad_kernels(device):
         **bound((fld, ifld, tabs, desc, ct_t, ct_f), (fld,),
                 OPS["taumol_bwd"] * ct_t.numel()))
 
-    # K6, clear and compact McICA, on the forward's own tensors
+    # K1 keeping its radiances (the gradient step's launch) and K6 fed
+    # them, clear and compact McICA, on the forward's own tensors and on
+    # K1's edge cases: K1's fluxes bitwise those of its launch without
+    # them, its radiances within TOL_RADS of the plain ones, K6 within
+    # TOL_BWD_RT of the plain vjp; K6 without the radiances raises
     taug, fracs = taumol_packed(eng, fld, ifld)
     taut = taug + prof.taua.permute(1, 2, 0)[:, model.ngb0.long(), :]
     play, plev = (interp_planck_blocked(t, tot) for t in temps)
@@ -1044,23 +1115,104 @@ def phase_grad_kernels(device):
                                       static)
     cw = torch.stack([clouds.ciwp.t(), clouds.clwp.t()], 1).contiguous()
     ct = randn(4, L_MAIN + 1, B_MAIN)
-    out, ref, again = [], [], []
-    for cf in ((None,) * 4, (cw, abi, abl, clouds.cldfmc)):
-        args = (taut, fracs, play, plev, surf, *cf, model.ngb0, model.wg,
-                ct)
-        out += list(rt_sweep_vjp(*args))
-        ref += list(rtrn.rt_sweep_vjp(*args))
-        again += list(rt_sweep_vjp(*args))
-    res["rt_adjoint"] = check("rt_adjoint", out, ref, TOL_BWD_RT, again)
-    res["rt_adjoint"].update(
-        ms=cuda_ms(lambda: rt_sweep_vjp(*args), 5),
-        plain_ms=cuda_ms(lambda: rtrn.rt_sweep_vjp(*args), 1),
-        **bound(args, out[-8:], OPS["rt_adjoint"] * taut.numel()))
+    fl_args = (sc.plankbnd, prof.semiss, prof.pwvcm, model.ngb0, model.wg)
+    # times, on the main path's compact McICA inputs (device ms: taken
+    # early in the run, grad_device_times); the errors come from the
+    # checks after them
+    cf = (cw, abi, abl, clouds.cldfmc)
+    args = (taut, fracs, play, plev, surf, *cf, model.ngb0, model.wg)
+    fk, rads = rt_sweep_radiances(*args)
+    grads = rt_sweep_vjp(*args, ct, rads=rads)
+    mask = clouds.cldfmc
+    ncld = int((mask[:, :140] != 0).any(1).sum())     # cloudy (layer, col)
+    res["rt_adjoint"] = dict(
+        ms=cuda_ms(lambda: rt_sweep_vjp(*args, ct, rads=rads), 5),
+        plain_ms=cuda_ms(lambda: rtrn.rt_sweep_vjp(*args, ct), 1),
+        **bound((*args, ct, rads), grads, OPS["rt_adjoint"] * taut.numel()))
+    res["rt_sweep_save"] = dict(
+        ms=cuda_ms(lambda: rt_sweep_radiances(*args), 5),
+        plain_ms=cuda_ms(lambda: rtrn.rt_sweep_blocked(
+            *args[:5], model.ngb0, model.wg, (mask, *cf[:3]),
+            radiances=True), 1),
+        **bound(args, (fk, rads),
+                140 * (OPS["rt_clear"] * L_MAIN * B_MAIN
+                       + OPS["rt_cloud"] * ncld)))
+    del fk, rads, grads
+    eargs, emodes, _ = k1_edge_args(device, static, (taut, fracs, play,
+                                                     plev, *fl_args))
+    emask, ecw, eabi, eabl = emodes["compact"][1][0]
+    out, ref, again, save_errs = [], [], [], []
+    for tag, tt, cf in (("clear", taut, (None,) * 4),
+                        ("compact", taut, (cw, abi, abl, clouds.cldfmc)),
+                        ("edge clear", eargs[0], (None,) * 4),
+                        ("edge compact", eargs[0], (ecw, eabi, eabl,
+                                                    emask))):
+        fields = None if cf[3] is None else (cf[3], *cf[:3])
+        args = (tt, fracs, play, plev, surf, *cf, model.ngb0, model.wg)
+        fk, rads = rt_sweep_radiances(*args)
+        need(torch.equal(fk, rt_fluxes_blocked(tt, fracs, play, plev,
+                                               *fl_args, fields)),
+             f"rt_sweep_save ({tag}): fluxes differ from K1's without the "
+             "radiances")
+        _, rads_p = rtrn.rt_sweep_blocked(tt, fracs, play, plev, surf,
+                                          model.ngb0, model.wg, fields,
+                                          radiances=True)
+        e = rel_err(rads, rads_p)
+        need(bool(torch.isfinite(rads).all()) and e <= TOL_RADS,
+             f"rt_sweep_save ({tag}): radiances off by {e:.3g} of max "
+             f"|plain| > {TOL_RADS}")
+        save_errs.append((float((rads - rads_p).abs().max()), e))
+        del rads_p
+        try:
+            rt_sweep_vjp(*args, ct)
+        except ValueError:
+            pass
+        else:
+            need(False, "rt_adjoint: K6 ran without the radiances")
+        out += list(rt_sweep_vjp(*args, ct, rads=rads))
+        ref += list(rtrn.rt_sweep_vjp(*args, ct))
+        again += list(rt_sweep_vjp(*args, ct, rads=rads))
+        print(f"rt_sweep_save ({tag}): fluxes bitwise K1's, radiances "
+              f"within {e:.3g} of max |plain|")
+    res["rt_adjoint"].update(check("rt_adjoint", out, ref, TOL_BWD_RT,
+                                   again))
+    res["rt_sweep_save"].update(
+        max_abs_err=max(a for a, _ in save_errs),
+        max_rel_err=max(r for _, r in save_errs))
+    del out, ref, again
     for name, r in res.items():
         print(f"{name}: max_abs_err {r['max_abs_err']:.3g} "
               f"max_rel_err {r['max_rel_err']:.3g} kernel {r['ms']:.3f} ms "
               f"plain {r['plain_ms']:.3f} ms")
     return res
+
+
+def grad_device_times(device):
+    """Device ms of K1 keeping the radiances and of K6 fed them, compact
+    McICA on phase 3's inputs (``utils.snapshot.sweep_inputs``), taken
+    early in the run: late in a full run the profiler's traces of these
+    launches held one of five, or none (``device_ms``; phase 6 holds
+    their results and their wrapper ms).  -> {summary name: device
+    ms}."""
+    from rrtmg_lw_torch.ops import rtrn
+    from rrtmg_lw_torch.ops.rtrn_cuda import (rt_sweep_radiances,
+                                              rt_sweep_vjp)
+    from rrtmg_lw_torch.utils.snapshot import compact_args, sweep_inputs
+    x = sweep_inputs(device)
+    args, sc, prof = x["args"], x["sc"], x["prof"]
+    surf = rtrn.surf_rows(sc.plankbnd, prof.semiss, prof.pwvcm,
+                          torch.float32)
+    mask, cw, abi, abl = compact_args(x["static"], x["mc"])
+    a = (*args[:4], surf, cw, abi, abl, mask, *args[7:])
+    gen = torch.Generator(device=device).manual_seed(5)
+    ct = torch.randn((4, L_MAIN + 1, B_MAIN), generator=gen, device=device)
+    rads = rt_sweep_radiances(*a)[1]
+    out = {"rt_sweep_save": device_ms(lambda: rt_sweep_radiances(*a)),
+           "rt_adjoint": device_ms(lambda: rt_sweep_vjp(*a, ct, rads=rads),
+                                   symbol="rt_bwd_kernel")}
+    print(f"device ms, K1 keeping the radiances {out['rt_sweep_save']:.3f},"
+          f" K6 {out['rt_adjoint']:.3f}")
+    return out
 
 
 def grad_errs(tag, gk, ge):
@@ -1122,6 +1274,10 @@ def phase_grad_step(device, counters):
         need(all(n > 0 for k, n in counts.items()
                  if icld or k != "cldcoef"),
              f"{tag}: a kernel of the path never launched: {counts}")
+        need(counts["rt_sweep"] == counts["rt_sweep_save"] == steps,
+             f"{tag}: K1 keeping the radiances launched "
+             f"{counts['rt_sweep_save']} times in {steps} step(s), K1 "
+             f"{counts['rt_sweep']}, expected one each a step")
         if icld:
             launches = counts
         else:
@@ -1591,6 +1747,10 @@ def main() -> int:
               f"spill stores, {r['smem_bytes']} B shared memory, "
               f"{r['blocks_per_sm']} blocks per SM, ring of "
               f"{r['ring_levels']} levels")
+    k6_build = k6_build_info(path.parent / "build.log")
+    for key, r in k6_build.items():
+        print(f"K6 {key}: {r['registers']} registers, {r['spill_bytes']} B "
+              f"spill stores")
     k2_build = k2_build_info(path.parent / "build.log")
     for key, r in k2_build.items():
         print(f"K2 {key}: {r['registers']} registers, {r['spill_bytes']} B "
@@ -1600,6 +1760,8 @@ def main() -> int:
     # 3. kernels vs plain versions; then K2 and K1 in reduced storage
     res = phase_kernels(device)
     torch.cuda.empty_cache()
+    grad_dev = grad_device_times(device)
+    torch.cuda.empty_cache()
     res.update(phase_storage_kernels(device))
     torch.cuda.empty_cache()
 
@@ -1608,7 +1770,8 @@ def main() -> int:
     counters = {"taumol": taumol_blocked, "planck": planck_interp_blocked,
                 "cldcoef": ice_liq_coeffs_blocked,
                 "rt_sweep": rt_fluxes_blocked}
-    fwd_counters = dict(counters, rt_sweep_banded=rt_fluxes_banded,
+    fwd_counters = dict(counters, rt_sweep_save=rt_fluxes_blocked.save,
+                        rt_sweep_banded=rt_fluxes_banded,
                         rt_sweep_maxrand=rt_fluxes_maxrand,
                         overlap_rows=overlap_rows,
                         rt_sweep_fused=rt_fluxes_fused,
@@ -1646,16 +1809,19 @@ def main() -> int:
 
     # 6. grad: backward kernels vs plain vjps, then the gradient step
     res.update(phase_grad_kernels(device))
+    for name, ms in grad_dev.items():
+        res[name]["device_ms"] = ms
     torch.cuda.empty_cache()
     counters.update(taumol_bwd=taumol_vjp, planck_bwd=planck_interp_vjp,
-                    rt_adjoint=rt_sweep_vjp)
+                    rt_adjoint=rt_sweep_vjp,
+                    rt_sweep_save=rt_fluxes_blocked.save)
     grad_launches, grad_rows = phase_grad_step(device, counters)
     rows += grad_rows
     phase_grad_idrv(device)
     storage_grad_raises(device)
     torch.cuda.empty_cache()
-    launches.update({k: grad_launches[k]
-                     for k in ("taumol_bwd", "planck_bwd", "rt_adjoint")})
+    launches.update({k: grad_launches[k] for k in (
+        "taumol_bwd", "planck_bwd", "rt_adjoint", "rt_sweep_save")})
 
     # 7. the archived probes' counterparts
     probe_res, probe_launches = phase_probes(device)
@@ -1673,6 +1839,12 @@ def main() -> int:
               f"{r['gbps']:.0f} GB/s of its bytes read once, bound "
               f"{r['bound_ms']:.3f} ms")
     res["rt_sweep"]["k1_instantiations"] = k1_build
+    r = res["rt_adjoint"]
+    r.update(k6_build["compact"], instantiation="compact",
+             gbps=r["bytes_once"] / (r["device_ms"] * 1e-3) / 1e9)
+    print(f"rt_adjoint (compact): device {r['device_ms']:.3f} ms, "
+          f"{r['gbps']:.0f} GB/s of its bytes read once, bound "
+          f"{r['bound_ms']:.3f} ms")
     for name, key in K2_LINES.items():
         r = res[name]
         r.update(k2_build[key], instantiation=key,

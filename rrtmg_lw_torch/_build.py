@@ -48,8 +48,8 @@ SIGNATURES = {
     "rrtm_taumol_info": (I, P),
     "rrtm_taumol_shape": (P,),
     "rrtm_taumol_bwd": (P, P, P, P, P, P, P, I, I, P),
-    "rrtm_rt": (P,) * 19 + (I,) * 5 + (P,),
-    "rrtm_rt_info": (I, I, I, P),
+    "rrtm_rt": (P,) * 19 + (I,) * 5 + (P, P),
+    "rrtm_rt_info": (I, I, I, I, P),
     "rrtm_overlap": (P, P, I, I, P),
     "rrtm_rt_bwd": (P,) * 21 + (I, I, I, P),
     "rrtm_taumol_ndesc": (),

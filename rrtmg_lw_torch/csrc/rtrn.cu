@@ -1,5 +1,6 @@
 // K1, the RT sweep kernel (rtrn_kernel.cuh): its float32 instantiations
-// (6 modes x idrv 0/1) and the entry points, which dispatch the reduced
+// (6 modes x idrv 0/1, and clear and compact x idrv 0/1 that keep the
+// radiances for K6) and the entry points, which dispatch the reduced
 // storages to rtrn_bf16.cu, rtrn_f16.cu and rtrn_logu16.cu.
 #include "rtrn_kernel.cuh"
 
@@ -16,7 +17,11 @@
 //   CLDF_OD: cldf, tauc = cldprmc's cloud od (L, 144, B);
 // the other cloud pointers may be null.
 // -> out (4, L+1, B) = up, down, clear up, clear down; idrv = 1:
-// (6, L+1, B), + d up / dT_sfc, d clear up / dT_sfc.
+// (6, L+1, B), + d up / dT_sfc, d clear up / dT_sfc.  rads null: K1 as
+// the forward step runs it; else (clear or compact in float32, the
+// gradient step) it also writes the per-g radiances to rads (2 | 4, L,
+// 140, B): the down radiance at level l, the up radiance entering layer
+// l and, compact, their clear twins (rtrn_kernel.cuh, SAVE).
 RRTM_API int rrtm_rt(const void* taut, const void* fracs, const float* play,
                      const float* plev, const float* surf, const int* ngb,
                      const float* wg, const int8_t* mask, const float* cw,
@@ -24,8 +29,9 @@ RRTM_API int rrtm_rt(const void* taut, const void* fracs, const float* play,
                      const float* taucb, const float* cldf, const float* ciwp,
                      const float* clwp, const float* tauc, const float* taua,
                      float* out, int L, int B, int mode, int idrv, int spec,
-                     void* stream) {
+                     float* rads, void* stream) {
     if (L <= 0 || B <= 0) return (int)cudaGetLastError();
+    if (rads && spec != rrtm::SPEC_F32) return (int)cudaErrorInvalidValue;
     Inputs in{static_cast<const float*>(taut),
               static_cast<const float*>(fracs), play, plev, surf, mask, cw,
               abi, abl, L, B};
@@ -39,7 +45,7 @@ RRTM_API int rrtm_rt(const void* taut, const void* fracs, const float* play,
     switch (spec) {
     case rrtm::SPEC_F32:
         return (int)launch_storage<rrtm::SPEC_F32>(in, taua, ngb, wg, out,
-                                                   mode, idrv, s);
+                                                   mode, idrv, s, rads);
     case rrtm::SPEC_BF16:
         return (int)launch_bf16(in, taua, ngb, wg, out, mode, idrv, s);
     case rrtm::SPEC_F16:
@@ -51,11 +57,25 @@ RRTM_API int rrtm_rt(const void* taut, const void* fracs, const float* play,
     }
 }
 
-// The launch configuration of K1 in `mode` at idrv in storage `spec`:
-// out[0..7] = registers per thread, local memory bytes per thread, static
-// and dynamic shared memory per block, blocks per SM, the ring's levels,
-// threads and columns per block (rtrn_kernel.cuh info).
-RRTM_API int rrtm_rt_info(int mode, int idrv, int spec, int* out) {
+// The launch configuration of K1 in `mode` at idrv in storage `spec`
+// (save: the instantiation that keeps the radiances): out[0..7] =
+// registers per thread, local memory bytes per thread, static and dynamic
+// shared memory per block, blocks per SM, the ring's levels, threads and
+// columns per block (rtrn_kernel.cuh info).
+RRTM_API int rrtm_rt_info(int mode, int idrv, int spec, int save, int* out) {
+    if (save) {
+        if (spec != rrtm::SPEC_F32) return (int)cudaErrorInvalidValue;
+        switch (mode) {
+        case CLEAR:
+            return (int)(idrv ? info<CLEAR, true, rrtm::SPEC_F32, true>(out)
+                              : info<CLEAR, false, rrtm::SPEC_F32, true>(out));
+        case COMPACT:
+            return (int)(idrv
+                ? info<COMPACT, true, rrtm::SPEC_F32, true>(out)
+                : info<COMPACT, false, rrtm::SPEC_F32, true>(out));
+        default: return (int)cudaErrorInvalidValue;
+        }
+    }
     switch (spec) {
     case rrtm::SPEC_F32:
         return (int)info_storage<rrtm::SPEC_F32>(mode, idrv, out);

@@ -1,6 +1,7 @@
-// Shared by K1 (rtrn.cu) and its adjoint K6 (rtrn_bwd.cu): the block
-// layout, the inputs, and one step of the sweep recurrences of
-// ops/rtrn.py (use_lut=False, the two-division Planck transition).
+// Shared by K1 (rtrn_kernel.cuh) and its adjoint K6 (rtrn_bwd.cu): the
+// inputs, the factor functions and one step of the sweep recurrences of
+// ops/rtrn.py (use_lut=False, the two-division Planck transition), and
+// K6's block layout.
 #pragma once
 
 #include <stdint.h>
@@ -110,108 +111,12 @@ template <int SPEC>
 using KernelInputs =
     std::conditional_t<SPEC == SPEC_F32, Inputs, SpecInputs>;
 
-// The per-g cloud fraction of g at layer l: the compact mask or the
-// cldfmc array.
-template <int MODE>
-__device__ __forceinline__ float g_cloud_fraction(const Inputs& in, int l,
-                                                  int g, int b) {
-    const size_t i = ((size_t)l * rrtm::NGPT_PAD + g) * (size_t)in.B + b;
-    if (MODE == COMPACT) return (float)in.mask[i];
-    return in.cldf[i];
-}
-
-// Per (layer, g) factors of one sweep step.  `lev` is the level whose
-// Planck source bounds the step (l for the down sweep, l+1 for up).
+// Per (layer, g) factors of one sweep step (rtrn_kernel.cuh staged_step;
+// the Planck source is that of the level bounding the step, l for the
+// down sweep, l+1 for up).
 struct Step {
     float at, atot, ef, cf, src, srctot;
 };
-
-// `cf` is the cloud fraction of this g (COMPACT: the mask value; FUSED,
-// CLDF_OD: cldfmc) or the layer's cloud fraction (BANDED, MAXRAND).
-// SPEC: the storage of taut and fracs (spec.cuh); in reduced storage
-// the aerosol od of the band is added to the decoded taug.
-template <int MODE, int SPEC = SPEC_F32, typename In = Inputs>
-__device__ __forceinline__ Step layer_step(const In& in, int l, int lev,
-                                           int g, int bd, float secd,
-                                           float cf, float cw0, float cw1,
-                                           int b) {
-    const size_t B = in.B;
-    const size_t gi = ((size_t)l * rrtm::NGPT + g) * B + b;
-    const float fr = spec_load<SPEC, false>(in.fracs, gi);
-    const float bl = in.play[((size_t)l * rrtm::NBAND + bd) * B + b];
-    const float dp = in.plev[((size_t)lev * rrtm::NBAND + bd) * B + b] - bl;
-    float tau = spec_load<SPEC, true>(in.taut, gi);
-    if constexpr (SPEC != SPEC_F32)
-        tau = tau + in.taua[((size_t)l * rrtm::NBAND + bd) * B + b];
-    const float od = fmaxf(secd * tau, 0.0f);
-    float tfg;
-    Step s;
-    gas_factors(od, s.at, tfg);
-    s.src = fr * (bl + tfg * dp);
-    s.atot = s.at;
-    s.ef = s.cf = 0.0f;
-    s.srctot = s.src;
-    if (MODE == COMPACT) {
-        // cldprmc on the compact products (mask x per-layer water path)
-        const bool gate = cf >= 0.5f;
-        const float ciwp = cw0 * cf;
-        const float clwp = cw1 * cf;
-        const size_t bi = ((size_t)l * rrtm::NBAND + bd) * B + b;
-        const float ai = ciwp == 0.0f ? 0.0f : in.abi[bi];
-        const float al = clwp == 0.0f ? 0.0f : in.abl[bi];
-        const float cwp = ciwp + clwp;
-        const bool active = cf >= CLDMIN && cwp >= CLDMIN;
-        const float odcld = active ? ciwp * ai + clwp * al : 0.0f;
-        const float odce = gate ? secd * odcld : 0.0f;
-        const float abscld = 1.0f - expf(-odce);
-        s.ef = gate ? abscld * cf : 0.0f;
-        s.cf = cf;
-        float tft;
-        tot_factors(od + odce, s.atot, tft);
-        s.srctot = fr * (bl + tft * dp);
-    } else if (MODE == FUSED || MODE == CLDF_OD) {
-        // the per-g arrays are read only where the g-point is cloudy:
-        // elsewhere the cloud od does not enter
-        const bool gate = cf >= 0.5f;
-        float odce = 0.0f;
-        if (gate) {
-            const size_t pi = ((size_t)l * rrtm::NGPT_PAD + g) * B + b;
-            float odcld;
-            if (MODE == CLDF_OD) {
-                odcld = in.tauc[pi];
-            } else {
-                // cldprmc (rrtmg_lw_cldprmc.f90:128-142) inline
-                const float ciwp = in.ciwp[pi];
-                const float clwp = in.clwp[pi];
-                const float tauc = in.tauc[pi];
-                const size_t bi = ((size_t)l * rrtm::NBAND + bd) * B + b;
-                const float ai = ciwp == 0.0f ? 0.0f : in.abi[bi];
-                const float al = clwp == 0.0f ? 0.0f : in.abl[bi];
-                const float cwp = ciwp + clwp;
-                const bool active =
-                    cf >= CLDMIN && (cwp >= CLDMIN || tauc >= CLDMIN);
-                odcld = active ? ciwp * ai + clwp * al : tauc;
-            }
-            odce = secd * odcld;
-            s.ef = (1.0f - expf(-odce)) * cf;
-        }
-        s.cf = cf;
-        float tft;
-        tot_factors(od + odce, s.atot, tft);
-        s.srctot = fr * (bl + tft * dp);
-    } else if ((MODE == BANDED || MODE == MAXRAND) && cf >= CLOUD_GATE) {
-        // per-band cloud od of this g's band, on the spectral band's
-        // diffusivity; the cloud factors are read only in a cloudy layer
-        const float odce =
-            secd * in.taucb[((size_t)l * rrtm::NBAND + bd) * B + b];
-        if (MODE == BANDED) s.ef = (1.0f - expf(-odce)) * cf;
-        s.cf = cf;
-        float tft;
-        tot_factors(od + odce, s.atot, tft);
-        s.srctot = fr * (bl + tft * dp);
-    }
-    return s;
-}
 
 // One level of the total-sky stream and its clear twin (rtrn.py
 // down_step / up_step).  In a cloudy layer (cly) the cloudy recurrence

@@ -16,29 +16,33 @@
 // then the down sweep in reverse (surface up), carrying the radiance
 // cotangents; the flux cotangents enter at each level times wg[g].
 // The reverse steps need the forward radiances entering each layer, in
-// the opposite order to the one they were made in, so the kernel first
-// runs both forward sweeps and writes them to a scratch buffer
-// (2 x (L, 140, B) floats, 4 when cloudy: 2.2 GB at B=16384, L=60;
-// recomputing them instead would cost a sweep per level).  The factors
-// of each step (gas and cloud absorptivities, Planck transitions) are
-// recomputed from taut as K1's up sweep does.  The discrete gates carry
-// no gradient and are recomputed as K1 forms them: cloudy_lay (a warp
-// ballot per layer, kept as a bitmask), the clear twin's iclddn (from
-// the highest cloudy layer) and anyc, cldf >= 0.5, cwp >= CLDMIN, the
-// od branches.  At od = secd * taut = 0 the maximum of the plain
-// version passes half the gradient, as torch.maximum (and jnp.maximum)
-// does at a tie.
+// the opposite order to the one they were made in: K1 keeps them in the
+// gradient step (rtrn_kernel.cuh, SAVE) and K6 reads them, `rads` (2 x
+// (L, 140, B) floats, 4 when cloudy: the down radiance at level l, the
+// up radiance entering layer l, their clear twins), so it runs no
+// forward sweep of its own.  The factors of each step (gas and cloud
+// absorptivities, Planck transitions) are recomputed from taut as K1's
+// sweeps form them.  The discrete gates carry no gradient and are
+// recomputed as K1 forms them: cloudy_lay (one pass over the int8 mask
+// at the start of the block, a warp ballot per layer kept as a bitmask
+// in shared memory: 141 MB read in all, against a second copy of the
+// flags from K1), the clear twin's iclddn (from the highest cloudy
+// layer) and anyc, cldf >= 0.5, cwp >= CLDMIN, the od branches.  At od =
+// secd * taut = 0 the maximum of the plain version passes half the
+// gradient, as torch.maximum (and jnp.maximum) does at a tie.
 //
 // Bound on the H100: bytes.  Per (layer, g, column) the kernel reads
-// taut, fracs and the mask three times and the scratch once, writes the
-// scratch once and ct_taut, ct_fracs twice (read-add in the second
-// reverse sweep): ~12.5 GB at B=16384, L=60 cloudy, against a few tens
-// of flops and 2-3 expf per read.  Design: K1's block of 32 columns x 16
-// g-lanes, 9 g-points per thread.  The per-band sums (planklay,
-// planklev, abi, abl) and the sum over all g (cw) are formed per layer
-// from per-g values in shared memory, in a fixed order; the running
-// per-g cotangents of the secant are summed at the end.  No atomics on
-// floats: two runs are bitwise equal.
+// taut and fracs twice (once per reverse sweep), the mask three times
+// and each of the 2 or 4 radiances once, and writes ct_taut, ct_fracs
+// twice (read-add in the second reverse sweep): ~8 GB at B=16384, L=60
+// cloudy.  Each input read once and each output written once, the bytes
+// are ~5.1 GB (1.5 ms at 3.35 TB/s), 2.2 GB of them the radiances;
+// against that a few tens of flops and 2-3 expf per element and sweep.
+// Design: 32 columns x 16 g-lanes, 9 g-points per thread.  The per-band
+// sums (planklay, planklev, abi, abl) and the sum over all g (cw) are
+// formed per layer from per-g values in shared memory, in a fixed order;
+// the running per-g cotangents of the secant are summed at the end.  No
+// atomics on floats: two runs are bitwise equal.
 #include "rtrn.cuh"
 
 namespace {
@@ -209,11 +213,10 @@ template <bool CLOUDY>
 __global__ void __launch_bounds__(NX * NY)
 rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
               const float* __restrict__ wg, const float* __restrict__ ct,
-              Grads gr, float* __restrict__ scratch) {
+              const float* __restrict__ rads, Grads gr) {
     // gp[NQ or 2][140][NX] per-g values, then cly_bits[L]
     extern __shared__ float dyn[];
     constexpr int NQS = CLOUDY ? NQ : 2;
-    constexpr int FWD = CLOUDY ? COMPACT : CLEAR;   // K1's mode
     float* gp_s = dyn;
     unsigned int* cly_bits = (unsigned int*)(dyn + NQS * rrtm::NGPT * NX);
     __shared__ float bpart[2][rrtm::NBAND][NX];
@@ -236,14 +239,14 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
 
     const int b0 = blockIdx.x * NX + tx;
     const bool valid = b0 < B;
-    // ragged edge: compute on column B-1, never write (the scratch
-    // included: its clear twin may differ, since cly excludes the lane)
+    // ragged edge: compute on column B-1 (its stored radiances), never
+    // write; its cloudy-layer bits exclude the lane, as K1's do
     const int b = valid ? b0 : B - 1;
     const size_t LGB = (size_t)L * rrtm::NGPT * B;
-    float* sD = scratch;                   // down radiance at level l
-    float* sU = scratch + LGB;             // up radiance entering layer l
-    float* sDc = scratch + 2 * LGB;        // their clear twins (cloudy)
-    float* sUc = scratch + 3 * LGB;
+    const float* sD = rads;                // down radiance at level l
+    const float* sU = rads + LGB;          // up radiance entering layer l
+    const float* sDc = rads + 2 * LGB;     // their clear twins (cloudy)
+    const float* sUc = rads + 3 * LGB;
     auto at_lg = [&](int l, int g) {
         return ((size_t)l * rrtm::NGPT + g) * B + b;
     };
@@ -269,73 +272,29 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
         cw1 = in.cw[((size_t)l * 2 + 1) * B + b];
     };
 
-    // ---- 1. forward down sweep (K1's), radiances to the scratch ----
+    // ---- 1. cloudy layers (a g-point with cloud fraction >= 0.5) and
+    // the highest one, as K1's ballots form them ----
     int hi = -1;                           // highest cloudy layer
-    for (int l = L - 1; l >= 0; --l) {
-        bool cly = false;
-        float cw0 = 0.0f, cw1 = 0.0f;
-        if (CLOUDY) {
-            load_layer(l, cw0, cw1);
+    if (CLOUDY) {
+        for (int l = 0; l < L; ++l) {
             bool mine = false;
 #pragma unroll
-            for (int k = 0; k < GPT; ++k)
-                if (ty + k * NY < rrtm::NGPT) mine |= m[k] >= 0.5f;
+            for (int k = 0; k < GPT; ++k) {
+                const int g = ty + k * NY;
+                if (g < rrtm::NGPT)
+                    mine |= (float)in.mask[((size_t)l * rrtm::NGPT_PAD + g)
+                                           * B + b] >= 0.5f;
+            }
             const unsigned bal = __ballot_sync(0xffffffffu, mine && valid);
             if (tx == 0 && bal) atomicOr(&cly_bits[l], bal);
-            __syncthreads();
-            cly = (cly_bits[l] >> tx) & 1u;
-            if (cly && hi < 0) hi = l;
         }
-        const bool icl = hi >= 0;
-#pragma unroll
-        for (int k = 0; k < GPT; ++k) {
-            const int g = ty + k * NY;
-            if (g >= rrtm::NGPT) continue;
-            const Step f = layer_step<FWD>(in, l, l, g, bnd[k], secd[k],
-                                           m[k], cw0, cw1, b);
-            advance(rad[k], radc[k], f, cly, icl);
-            if (valid) {
-                sD[at_lg(l, g)] = rad[k];
-                if (CLOUDY) sDc[at_lg(l, g)] = radc[k];
-            }
-        }
+        __syncthreads();
+        for (int l = L - 1; l >= 0 && hi < 0; --l)
+            if ((cly_bits[l] >> tx) & 1u) hi = l;
     }
     const bool anyc = hi >= 0;
 
-    // ---- 2. surface reflection and forward up sweep ----
-#pragma unroll
-    for (int k = 0; k < GPT; ++k) {
-        const int g = ty + k * NY;
-        if (g >= rrtm::NGPT) continue;
-        const float rad0 = in.fracs[(size_t)g * B + b]
-            * in.surf[((size_t)2 * rrtm::NBAND + bnd[k]) * B + b];
-        const float reflect =
-            1.0f - in.surf[((size_t)rrtm::NBAND + bnd[k]) * B + b];
-        rad[k] = rad0 + reflect * rad[k];
-        radc[k] = rad0 + reflect * radc[k];
-    }
-    for (int l = 0; l < L; ++l) {
-        bool cly = false;
-        float cw0 = 0.0f, cw1 = 0.0f;
-        if (CLOUDY) {
-            cly = (cly_bits[l] >> tx) & 1u;
-            load_layer(l, cw0, cw1);
-        }
-#pragma unroll
-        for (int k = 0; k < GPT; ++k) {
-            const int g = ty + k * NY;
-            if (g >= rrtm::NGPT) continue;
-            if (valid) {
-                sU[at_lg(l, g)] = rad[k];
-                if (CLOUDY) sUc[at_lg(l, g)] = radc[k];
-            }
-            const Step f = layer_step<FWD>(in, l, l + 1, g, bnd[k],
-                                           secd[k], m[k], cw0, cw1, b);
-            advance(rad[k], radc[k], f, cly, anyc);
-        }
-    }
-
-    // ---- 3. up sweep in reverse: layer L-1 .. 0 ----
+    // ---- 2. up sweep in reverse: layer L-1 .. 0 ----
     auto ct_at = [&](int row, int lev) {
         return ct[((size_t)row * (L + 1) + lev) * B + b];
     };
@@ -396,7 +355,7 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
         reduce_layer(l, l + 1, false);
     }
 
-    // ---- 4. surface reflection in reverse ----
+    // ---- 3. surface reflection in reverse ----
     float ct_fr0[GPT];
     {
         const float cu = ct_at(UP, 0), ccu = ct_at(CLR_UP, 0);
@@ -429,7 +388,7 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
         }
     }
 
-    // ---- 5. down sweep in reverse: layer 0 .. L-1 ----
+    // ---- 4. down sweep in reverse: layer 0 .. L-1 ----
     for (int l = 0; l < L; ++l) {
         const float cd = ct_at(DOWN, l), ccd = ct_at(CLR_DOWN, l);
         bool cly = false;
@@ -461,7 +420,7 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
         reduce_layer(l, l, true);
     }
 
-    // ---- 6. the secant, summed over both sweeps ----
+    // ---- 5. the secant, summed over both sweeps ----
 #pragma unroll
     for (int k = 0; k < GPT; ++k) {
         const int g = ty + k * NY;
@@ -474,22 +433,23 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
 
 }  // namespace
 
-// Inputs as rrtm_rt; ct (4, L+1, B) flux cotangents; outputs ct_taut,
-// ct_fracs (L, 140, B), ct_play (L, 16, B), ct_plev (L+1, 16, B),
-// ct_surf (3, 16, B), and (cloudy) ct_cw (L, 2, B), ct_abi, ct_abl
-// (L, 16, B); scratch (4 or 2, L, 140, B) floats.
+// Inputs as rrtm_rt; ct (4, L+1, B) flux cotangents; rads (4 or 2, L,
+// 140, B) the radiances K1 kept in the same step (rrtm_rt with rads);
+// outputs ct_taut, ct_fracs (L, 140, B), ct_play (L, 16, B), ct_plev
+// (L+1, 16, B), ct_surf (3, 16, B), and (cloudy) ct_cw (L, 2, B), ct_abi,
+// ct_abl (L, 16, B).
 RRTM_API int rrtm_rt_bwd(const float* taut, const float* fracs,
                          const float* play, const float* plev,
                          const float* surf, const int* ngb, const float* wg,
                          const int8_t* mask, const float* cw,
                          const float* abi, const float* abl, const float* ct,
-                         float* ct_taut, float* ct_fracs, float* ct_play,
-                         float* ct_plev, float* ct_surf, float* ct_cw,
-                         float* ct_abi, float* ct_abl, float* scratch, int L,
+                         const float* rads, float* ct_taut, float* ct_fracs,
+                         float* ct_play, float* ct_plev, float* ct_surf,
+                         float* ct_cw, float* ct_abi, float* ct_abl, int L,
                          int B, int cloudy, void* stream) {
     if (L <= 0 || B <= 0) return (int)cudaGetLastError();
-    if (cloudy && (!mask || !cw || !abi || !abl || !ct_cw || !ct_abi
-                   || !ct_abl))
+    if (!rads || (cloudy && (!mask || !cw || !abi || !abl || !ct_cw
+                             || !ct_abi || !ct_abl)))
         return (int)cudaErrorInvalidValue;
     const Inputs in{taut, fracs, play, plev, surf, mask, cw, abi, abl, L, B};
     const Grads gr{ct_taut, ct_fracs, ct_play, ct_plev, ct_surf, ct_cw,
@@ -506,10 +466,10 @@ RRTM_API int rrtm_rt_bwd(const float* taut, const float* fracs,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     if (cloudy)
-        rt_bwd_kernel<true><<<grid, block, smem, s>>>(in, ngb, wg, ct, gr,
-                                                       scratch);
+        rt_bwd_kernel<true><<<grid, block, smem, s>>>(in, ngb, wg, ct, rads,
+                                                       gr);
     else
-        rt_bwd_kernel<false><<<grid, block, smem, s>>>(in, ngb, wg, ct, gr,
-                                                        scratch);
+        rt_bwd_kernel<false><<<grid, block, smem, s>>>(in, ngb, wg, ct,
+                                                        rads, gr);
     return (int)cudaGetLastError();
 }

@@ -86,9 +86,18 @@
 // inside the kernel (:263-275).  rtrn.cu instantiates the float32 kernels
 // and holds the entry points; rtrn_bf16.cu, rtrn_f16.cu and
 // rtrn_logu16.cu the reduced ones, one translation unit each so that nvcc
-// builds them in parallel.  K6 (rtrn_bwd.cu) keeps rtrn.cuh's layer_step
-// and block layout; nothing here is shared with it but the recurrences
-// (advance, advance_ddt, advance_mr) and the factor functions.
+// builds them in parallel.
+//
+// The gradient step (SAVE, a fourth template parameter: clear and compact
+// in float32, idrv 0 and 1): the kernel also stores every per-g radiance
+// that it sums into the flux rows DOWN, UP (and CLR_DOWN, CLR_UP) at
+// levels 0..L-1, from the same registers, in the order K6 (rtrn_bwd.cu)
+// reads them back: (2 | 4, L, 140, B) floats, 1.1 GB clear and 2.2 GB
+// compact at B=16384, L=60.  The stores sit beside the flux sums and
+// change nothing in them: the fluxes are bitwise those of the kernel
+// without SAVE.  A warp's store is 16 columns x 2 g-points, two 64-byte
+// segments.  K6 shares with this file only the recurrences (advance,
+// advance_ddt, advance_mr) and the factor functions of rtrn.cuh.
 #pragma once
 
 #include <stdint.h>
@@ -321,7 +330,8 @@ __device__ __forceinline__ float staged_cf(const unsigned char* s, int g,
 }
 
 // The factors of one sweep step of (layer l, g, column c) from the staged
-// level s (rtrn.cuh layer_step's arithmetic, operation for operation),
+// level s (rtrn.py precompute's arithmetic, operation for operation, as
+// K6's step_bwd recomputes it),
 // with the cloud terms only where the g-point is cloudy.  `cf` is the
 // cloud fraction of this g (COMPACT: the mask value; FUSED, CLDF_OD:
 // cldfmc) or the layer's (BANDED, MAXRAND); b the global column.
@@ -413,10 +423,17 @@ __device__ __forceinline__ Step staged_step(const unsigned char* s,
     return f;
 }
 
-template <int MODE, bool IDRV, int SPEC>
+// SAVE (clear and compact, float32; the gradient step): the kernel also
+// writes the per-g radiances it sums into the flux rows to rads (2 | 4,
+// L, 140, B), row D the down radiance at level l after layer l, row U the
+// up radiance entering layer l (l = 0: just after the surface
+// reflection), compact rows 2-3 their clear twins; K6 reads them back.
+// Elsewhere rads is not read.
+template <int MODE, bool IDRV, int SPEC, bool SAVE>
 __global__ void __launch_bounds__(KT, BLOCKS_PER_SM)
 rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
-          const float* __restrict__ wg, float* __restrict__ out) {
+          const float* __restrict__ wg, float* __restrict__ out,
+          float* __restrict__ rads) {
     using Sl = Slot<MODE, SPEC>;
     using Lo = Layout<MODE, IDRV, SPEC>;
     constexpr bool MR = MODE == MAXRAND;
@@ -425,6 +442,9 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
     constexpr int NUP = Lo::NUP;            // flux rows of the up sweep
     constexpr int RING = Lo::RING;
     constexpr int ES = Sl::ES;
+    static_assert(!SAVE || ((MODE == CLEAR || MODE == COMPACT)
+                            && SPEC == rrtm::SPEC_F32),
+                  "radiances are kept for K6: clear and compact, float32");
     extern __shared__ __align__(16) unsigned char smem[];
     uint64_t* bar = reinterpret_cast<uint64_t*>(smem + Lo::BAR);
     float* part = reinterpret_cast<float*>(smem + Lo::PART);
@@ -599,6 +619,17 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
     float rad[KGPT], radc[KGPT], dl[ND], dc[ND];
 #pragma unroll
     for (int k = 0; k < KGPT; ++k) rad[k] = radc[k] = 0.0f;
+    // SAVE: radiance row `row` (D or U) of g-point k of this thread at
+    // layer l, and in compact its clear twin at row + 2; valid columns only
+    auto save = [&](int row, int l, int k) {
+        if (valid) {
+            const size_t lgb = (size_t)L * KG * Bz;
+            float* p = rads + row * lgb
+                       + ((size_t)l * KG + ty + k * KY) * Bz + b;
+            *p = rad[k];
+            if constexpr (MODE == COMPACT) p[2 * lgb] = radc[k];
+        }
+    };
     // maxrand's sub-streams of g-point k: cr, kr, rr
     auto subs = [&](int q, int k) -> float& {
         return sub[(q * KGPT + k) * KT + tid];
@@ -675,11 +706,13 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
                     const Step f = staged_step<MODE, SPEC, CL>(
                         s, in, l, g, bd, secd_s[bd * KX + c], cfg, cw0, cw1,
                         c, b);
+                    if constexpr (SAVE && UPW) save(1, l, k);  // entering l
                     if constexpr (MR)
                         advance_mr(rad[k], radc[k], subs(0, k), subs(1, k),
                                    subs(2, k), f, CL && cly, twin, ist, fac);
                     else
                         advance(rad[k], radc[k], f, CL && cly, twin);
+                    if constexpr (SAVE && !UPW) save(0, l, k);  // level l
                     sacc[0] += wg_s[g] * rad[k];
                     sacc[1] += wg_s[g] * radc[k];
                     if constexpr (UPW && IDRV) {
@@ -746,57 +779,70 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
 }
 
 // the shared memory attributes of an instantiation, set once per process
-template <int MODE, bool IDRV, int SPEC>
+template <int MODE, bool IDRV, int SPEC, bool SAVE>
 cudaError_t prepare() {
     static cudaError_t e = [] {
         using Lo = Layout<MODE, IDRV, SPEC>;
         cudaError_t r = cudaFuncSetAttribute(
-            rt_kernel<MODE, IDRV, SPEC>,
+            rt_kernel<MODE, IDRV, SPEC, SAVE>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, Lo::BYTES);
         if (r != cudaSuccess) return r;
         return cudaFuncSetAttribute(
-            rt_kernel<MODE, IDRV, SPEC>,
+            rt_kernel<MODE, IDRV, SPEC, SAVE>,
             cudaFuncAttributePreferredSharedMemoryCarveout,
             (int)cudaSharedmemCarveoutMaxShared);
     }();
     return e;
 }
 
-template <int MODE, bool IDRV, int SPEC>
+template <int MODE, bool IDRV, int SPEC, bool SAVE>
 cudaError_t launch(const KernelInputs<SPEC>& in, const int* ngb,
-                   const float* wg, float* out, cudaStream_t s) {
-    cudaError_t e = prepare<MODE, IDRV, SPEC>();
+                   const float* wg, float* out, float* rads,
+                   cudaStream_t s) {
+    cudaError_t e = prepare<MODE, IDRV, SPEC, SAVE>();
     if (e != cudaSuccess) return e;
     const dim3 block(KX, KY);
     const dim3 grid((in.B + KX - 1) / KX);
-    rt_kernel<MODE, IDRV, SPEC>
+    rt_kernel<MODE, IDRV, SPEC, SAVE>
         <<<grid, block, Layout<MODE, IDRV, SPEC>::BYTES, s>>>(in, ngb, wg,
-                                                              out);
+                                                              out, rads);
     return cudaGetLastError();
 }
 
+// K1 at idrv; with rads (clear and compact in float32 only) the
+// instantiation that also keeps the radiances
 template <int MODE, int SPEC>
 cudaError_t launch(const KernelInputs<SPEC>& in, const int* ngb,
-                   const float* wg, float* out, int idrv, cudaStream_t s) {
-    return idrv ? launch<MODE, true, SPEC>(in, ngb, wg, out, s)
-                : launch<MODE, false, SPEC>(in, ngb, wg, out, s);
+                   const float* wg, float* out, int idrv, float* rads,
+                   cudaStream_t s) {
+    if constexpr ((MODE == CLEAR || MODE == COMPACT)
+                  && SPEC == rrtm::SPEC_F32) {
+        if (rads)
+            return idrv
+                ? launch<MODE, true, SPEC, true>(in, ngb, wg, out, rads, s)
+                : launch<MODE, false, SPEC, true>(in, ngb, wg, out, rads, s);
+    }
+    if (rads) return cudaErrorInvalidValue;
+    return idrv ? launch<MODE, true, SPEC, false>(in, ngb, wg, out, rads, s)
+                : launch<MODE, false, SPEC, false>(in, ngb, wg, out, rads,
+                                                   s);
 }
 
 // out[0..7] = registers per thread, local memory bytes per thread (spill
 // stack), static and dynamic shared memory bytes per block, blocks per
 // SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the ring's levels,
 // threads per block, columns per block
-template <int MODE, bool IDRV, int SPEC>
+template <int MODE, bool IDRV, int SPEC, bool SAVE>
 cudaError_t info(int* out) {
     using Lo = Layout<MODE, IDRV, SPEC>;
-    cudaError_t e = prepare<MODE, IDRV, SPEC>();
+    cudaError_t e = prepare<MODE, IDRV, SPEC, SAVE>();
     if (e != cudaSuccess) return e;
     cudaFuncAttributes a;
-    e = cudaFuncGetAttributes(&a, rt_kernel<MODE, IDRV, SPEC>);
+    e = cudaFuncGetAttributes(&a, rt_kernel<MODE, IDRV, SPEC, SAVE>);
     if (e != cudaSuccess) return e;
     int blocks = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, rt_kernel<MODE, IDRV, SPEC>, KT, Lo::BYTES);
+        &blocks, rt_kernel<MODE, IDRV, SPEC, SAVE>, KT, Lo::BYTES);
     if (e != cudaSuccess) return e;
     out[0] = a.numRegs;
     out[1] = (int)a.localSizeBytes;
@@ -811,7 +857,8 @@ cudaError_t info(int* out) {
 
 template <int MODE, int SPEC>
 cudaError_t info(int idrv, int* out) {
-    return idrv ? info<MODE, true, SPEC>(out) : info<MODE, false, SPEC>(out);
+    return idrv ? info<MODE, true, SPEC, false>(out)
+                : info<MODE, false, SPEC, false>(out);
 }
 
 template <int SPEC>
@@ -828,38 +875,43 @@ cudaError_t info_storage(int mode, int idrv, int* out) {
 }
 
 // K1 in `mode` (enum Mode) with taut / fracs in storage SPEC; checks
-// that the mode's cloud inputs (and, in reduced storage, taua) are given
+// that the mode's cloud inputs (and, in reduced storage, taua) are given;
+// rads non-null: the instantiation that keeps the radiances (clear and
+// compact in float32; cudaErrorInvalidValue elsewhere)
 template <int SPEC>
 cudaError_t launch_storage(const Inputs& inputs, const float* taua,
                            const int* ngb, const float* wg, float* out,
-                           int mode, int idrv, cudaStream_t s) {
+                           int mode, int idrv, cudaStream_t s,
+                           float* rads = nullptr) {
     KernelInputs<SPEC> in;
     static_cast<Inputs&>(in) = inputs;
     if constexpr (SPEC != rrtm::SPEC_F32) {
         if (!taua) return cudaErrorInvalidValue;
         in.taua = taua;
     }
+    if (rads && mode != CLEAR && mode != COMPACT)
+        return cudaErrorInvalidValue;
     switch (mode) {
     case CLEAR:
-        return launch<CLEAR, SPEC>(in, ngb, wg, out, idrv, s);
+        return launch<CLEAR, SPEC>(in, ngb, wg, out, idrv, rads, s);
     case COMPACT:
         if (!in.mask || !in.cw || !in.abi || !in.abl)
             return cudaErrorInvalidValue;
-        return launch<COMPACT, SPEC>(in, ngb, wg, out, idrv, s);
+        return launch<COMPACT, SPEC>(in, ngb, wg, out, idrv, rads, s);
     case BANDED:
         if (!in.cld || !in.taucb) return cudaErrorInvalidValue;
-        return launch<BANDED, SPEC>(in, ngb, wg, out, idrv, s);
+        return launch<BANDED, SPEC>(in, ngb, wg, out, idrv, nullptr, s);
     case MAXRAND:
         if (!in.cld || !in.taucb) return cudaErrorInvalidValue;
-        return launch<MAXRAND, SPEC>(in, ngb, wg, out, idrv, s);
+        return launch<MAXRAND, SPEC>(in, ngb, wg, out, idrv, nullptr, s);
     case FUSED:
         if (!in.cldf || !in.ciwp || !in.clwp || !in.tauc || !in.abi
             || !in.abl)
             return cudaErrorInvalidValue;
-        return launch<FUSED, SPEC>(in, ngb, wg, out, idrv, s);
+        return launch<FUSED, SPEC>(in, ngb, wg, out, idrv, nullptr, s);
     case CLDF_OD:
         if (!in.cldf || !in.tauc) return cudaErrorInvalidValue;
-        return launch<CLDF_OD, SPEC>(in, ngb, wg, out, idrv, s);
+        return launch<CLDF_OD, SPEC>(in, ngb, wg, out, idrv, nullptr, s);
     default:
         return cudaErrorInvalidValue;
     }

@@ -65,6 +65,9 @@ from ..types import (Atmosphere, BandClouds, Fluxes, McicaClouds,
                      McicaCloudsBlocked, McicaCloudsCompact, Profile, pad_g)
 
 MCICA = (McicaCloudsCompact, McicaCloudsBlocked, McicaClouds)
+# the ROADMAP.md items that port what is still missing, by title
+CLOUD_OPTICS = "Queue 1, the remaining cloud-optics configurations"
+LUT_BANDS = "Queue 1, use_lut=True, the default config, and band subsets"
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -80,20 +83,20 @@ def check_supported(cfg: LWConfig) -> None:
     if cfg.icld != 0 and cfg.imca != 1:
         if cfg.icld > 3:
             raise _unported(f"icld={cfg.icld} without McICA (imca=0)",
-                            "Queue 1 item 10")
+                            CLOUD_OPTICS)
         if not cldprop.cloud_bands_static(cfg.inflag, cfg.iceflag,
                                           cfg.liqflag):
             raise _unported(
                 f"per-band clouds with inflag={cfg.inflag}, iceflag="
                 f"{cfg.iceflag}, liqflag={cfg.liqflag} (cldprop_ncbands)",
-                "Queue 1 item 10")
+                CLOUD_OPTICS)
     if cfg.idrv not in (0, 1):
         raise ValueError(f"idrv must be 0 or 1, got {cfg.idrv}")
     if cfg.use_lut:
         raise _unported("use_lut=True (exp/tfn lookup tables)",
-                        "Queue 1 item 10")
+                        LUT_BANDS)
     if (cfg.istart, cfg.iend) != (1, 16):
-        raise _unported("a band subset (istart/iend)", "Queue 1 item 10")
+        raise _unported("a band subset (istart/iend)", LUT_BANDS)
     if cfg.icld != 0 and cfg.imca == 1 and cfg.inflag not in (0, 2):
         # as the JAX package's cldprmc (rrtmg_lw_cldprmc.f90:191)
         raise ValueError(f"INFLAG={cfg.inflag} not available with McICA "

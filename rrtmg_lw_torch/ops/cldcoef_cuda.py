@@ -30,7 +30,8 @@ def ice_liq_coeffs_blocked(reic, relq, iceflag, liqflag, tables):
         raise NotImplementedError(
             "gradients with respect to the effective radii (reic, relq) "
             "through the cloud-coefficient kernel are not ported yet; see "
-            "ROADMAP.md Queue 1 item 9")
+            "ROADMAP.md Queue 1, gradients through the other forward "
+            "paths on the card")
     name, _, nmax = cldprop._ice_params(iceflag)
     cldprop._check_liqflag(liqflag)
     B, L = reic.shape

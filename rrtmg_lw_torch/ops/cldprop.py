@@ -48,14 +48,16 @@ def _ice_params(iceflag):
         return "absice3", 140.0, 46
     raise NotImplementedError(
         f"iceflag {iceflag} is not ported yet (iceflag 2/3 only); "
-        "see ROADMAP.md Queue 1 item 10")
+        "see ROADMAP.md Queue 1, the remaining cloud-optics "
+        "configurations")
 
 
 def _check_liqflag(liqflag):
     if liqflag != 1:
         raise NotImplementedError(
             f"liqflag {liqflag} is not ported yet (liqflag 1 only); "
-            "see ROADMAP.md Queue 1 item 10")
+            "see ROADMAP.md Queue 1, the remaining cloud-optics "
+        "configurations")
 
 
 def bounds_ok(reic, relq, iceflag):
@@ -114,7 +116,7 @@ def _check_static(inflag, iceflag, liqflag):
             f"per-band clouds with inflag={inflag}, iceflag={iceflag}, "
             f"liqflag={liqflag} (the running ncbands of cldprop_ncbands / "
             "expand_cloud_bands) are not ported yet; see ROADMAP.md "
-            "Queue 1 item 10")
+            "Queue 1, the remaining cloud-optics configurations")
 
 
 def _active(clouds):

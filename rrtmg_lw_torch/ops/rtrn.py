@@ -67,7 +67,8 @@ class RTOut(NamedTuple):
 def _lut_unported():
     return NotImplementedError(
         "use_lut=True (exp/tfn lookup tables) is not ported yet; "
-        "see ROADMAP.md Queue 1 item 10")
+        "see ROADMAP.md Queue 1, use_lut=True, the default config, and "
+        "band subsets")
 
 
 def secdiff(pwvcm, dtype):
@@ -201,10 +202,13 @@ def flux(rads, wg):
 
 def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
            cldf_g, odcld_g, cloudy_lay, cld_gate, ngb0, wg, use_lut,
-           dplankbnd_dt=None):
+           dplankbnd_dt=None, radiances=False):
     """Down and up sweeps -> (up, down, clear up, clear down) (B, L+1),
     and (d up/dT, d clear up/dT) when ``dplankbnd_dt`` (B, 16) is given
-    (idrv=1)."""
+    (idrv=1).  ``radiances``: (that tuple, the per-g radiances (4, L, G,
+    B)): the down radiance at level l, the up radiance entering layer l
+    (l = 0: after the surface reflection), and their clear twins, for
+    l = 0..L-1, the ones summed into the flux rows there."""
     dtype = taut.dtype
     B, L, G = taut.shape
     ngb0 = ngb0.long()
@@ -265,7 +269,12 @@ def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
 
     out = (flux(urad, wg), flux(drad, wg), flux(curad, wg),
            flux(cdrad, wg))
-    return out + ((flux(durad, wg), flux(dcurad, wg)) if idrv else ())
+    out += (flux(durad, wg), flux(dcurad, wg)) if idrv else ()
+    if not radiances:
+        return out
+    rads = torch.stack([torch.stack(r[:L]) for r in (drad, urad, cdrad,
+                                                     curad)])
+    return out, rads.permute(0, 1, 3, 2)
 
 
 def _sweep_maxrand(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
@@ -418,7 +427,7 @@ def _g_clouds(cloud_fields, taut, ngb0):
 
 
 def rt_sweep_blocked(taut_t, fracs_t, planklay_t, planklev_t, surf, ngb0,
-                     wg, cloud_fields=None):
+                     wg, cloud_fields=None, radiances=False):
     """Band-integrated fluxes (4, L+1, B) = [up, down, clear up, clear
     down] from the kernel layouts, and rows 4-5 = [d up/dT, d clear
     up/dT] when surf has the fourth row (idrv=1): the plain version of
@@ -434,16 +443,26 @@ def rt_sweep_blocked(taut_t, fracs_t, planklay_t, planklev_t, surf, ngb0,
       cldf-odcld: cldf_t, odcld_t (L, 144, B), the per-g cloud fraction
         and in-cloud od (``cldprop.cldprmc_blocked``);
       fused: cldf_t, ciwp_t, clwp_t, tauc_t (L, 144, B), abi, abl
-        (L, 16, B), cldprmc (inflag=2) on them."""
+        (L, 16, B), cldprmc (inflag=2) on them.
+
+    ``radiances``: (the fluxes, rads (2|4, L, 140, B)), the per-g
+    radiances the sweep sums into flux rows at levels 0..L-1: the down
+    radiance at level l, the up radiance entering layer l (l = 0: after
+    the surface reflection) and, with clouds, their clear twins; the
+    plain version of ``rtrn_cuda.rt_sweep_radiances``, what K6 reads."""
     ngb0l = ngb0.long()
     taut = _tb(taut_t)
     cldf_g, odcld_g, gate = _g_clouds(cloud_fields, taut, ngb0l)
     secd, semiss, plankbnd, dpl = _surf(surf)
-    fluxes = _sweep(taut, _tb(fracs_t), _tb(planklay_t), _tb(planklev_t),
-                    plankbnd, semiss, secd, cldf_g, odcld_g,
-                    gate.any(dim=-1), gate, ngb0, wg, use_lut=False,
-                    dplankbnd_dt=dpl)
-    return torch.stack(fluxes).permute(0, 2, 1).contiguous()
+    res = _sweep(taut, _tb(fracs_t), _tb(planklay_t), _tb(planklev_t),
+                 plankbnd, semiss, secd, cldf_g, odcld_g, gate.any(dim=-1),
+                 gate, ngb0, wg, use_lut=False, dplankbnd_dt=dpl,
+                 radiances=radiances)
+    if not radiances:
+        return torch.stack(res).permute(0, 2, 1).contiguous()
+    fluxes, rads = res
+    return (torch.stack(fluxes).permute(0, 2, 1).contiguous(),
+            rads[:2 if cloud_fields is None else 4].contiguous())
 
 
 def _band_layouts(taut_t, fracs_t, planklay_t, planklev_t, surf, taucb_t,

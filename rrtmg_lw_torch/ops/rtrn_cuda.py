@@ -7,8 +7,11 @@ in all its modes: clear, compact-cloud, banded (icld=1), maxrand (icld
 per-g cloud fraction and cloud od), each at idrv=0 or 1; K6 replaces
 the JAX package's unrolled XLA backward of it (``ops/rtrn_bwd.py:259``
 ``rt_bwd_fluxes``) in the clear and compact modes.  ``RTFn`` pairs them
-for autograd; ``RTSweepFn`` holds the other four modes, whose adjoint is
-not ported: on the card their backward raises.  With idrv=1 (a fourth
+for autograd: in a forward that autograd records, K1 (float32) also
+keeps its per-g radiances (``rt_sweep_radiances``), and K6 reads them
+back in the backward instead of sweeping forward again.  ``RTSweepFn``
+holds the other four modes, whose adjoint is not ported: on the card
+their backward raises.  With idrv=1 (a fourth
 surface row, ``dplankbnd_dt``) each returns the fluxes and their
 derivatives with respect to the surface temperature (2, L+1, B); on the
 card a cotangent of the latter raises too.  On a CUDA tensor each
@@ -24,7 +27,9 @@ plain sweep).  In float32 taut_t already holds taug + taua and taua_t is
 None.  A backward through reduced storage raises NotImplementedError.
 
 Each wrapper counts its launches in ``.launches``, those at idrv=1 in
-``.idrv.launches`` and those in reduced storage in ``.spec.launches``.
+``.idrv.launches`` and those in reduced storage in ``.spec.launches``;
+``rt_fluxes_blocked.save.launches`` counts K1's launches that keep the
+radiances.
 """
 
 from __future__ import annotations
@@ -52,7 +57,8 @@ CLOUD_INPUTS = {
               ("abl_t", 16)),
     "cldf_od": (("cldf_t", NGPT_PAD), ("odcld_t", NGPT_PAD)),
 }
-_UNPORTED_ADJOINT = "see ROADMAP.md Queue 1 item 9"
+_UNPORTED_ADJOINT = ("see ROADMAP.md Queue 1, gradients through the other "
+                     "forward paths on the card")
 
 
 def _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t,
@@ -91,8 +97,9 @@ def _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t,
 def _launch(mode, wrapper, taut_t, fracs_t, planklay_t, planklev_t, surf,
             ngb0, wg, mask=None, cw=None, abi=None, abl=None, cld=None,
             taucb=None, cldf=None, ciwp=None, clwp=None, tauc=None,
-            taua=None):
-    """K1 in ``mode``, in the storage of taut_t; counted on ``wrapper``.
+            taua=None, rads=None):
+    """K1 in ``mode``, in the storage of taut_t; counted on ``wrapper``
+    (and on ``wrapper.save`` when it writes the radiances to ``rads``).
     -> (4|6, L+1, B)."""
     L, _, B = taut_t.shape
     idrv = surf.shape[0] == 4
@@ -101,13 +108,44 @@ def _launch(mode, wrapper, taut_t, fracs_t, planklay_t, planklev_t, surf,
     spec = SPEC_CODES[taut_t.dtype]
     _build.launch("rrtm_rt", taut_t, fracs_t, planklay_t, planklev_t, surf,
                   ngb0, wg, mask, cw, abi, abl, cld, taucb, cldf, ciwp, clwp,
-                  tauc, taua, out, L, B, MODES[mode], int(idrv), spec)
+                  tauc, taua, out, L, B, MODES[mode], int(idrv), spec, rads)
     wrapper.launches += 1
     if idrv:
         wrapper.idrv.launches += 1
     if spec:
         wrapper.spec.launches += 1
+    if rads is not None:
+        wrapper.save.launches += 1
     return out
+
+
+def rt_sweep_radiances(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
+                       abi_t, abl_t, mask, ngb0, wg):
+    """K1 clear (mask None) or compact in float32, keeping its per-g
+    radiances: -> (fluxes (4|6, L+1, B), rads (2|4, L, 140, B)), rads
+    the down radiance at level l, the up radiance entering layer l (l = 0:
+    after the surface reflection) and, compact, their clear twins, for
+    l = 0..L-1: what K6 (``rt_sweep_vjp``) reads.  The fluxes are bitwise
+    those of the launch without them.  Arguments as ``RTFn``; on a CPU
+    tensor the plain version, ``rtrn.rt_sweep_blocked(...,
+    radiances=True)``.  Counted on ``rt_fluxes_blocked`` and its
+    ``.save``."""
+    if taut_t.device.type == "cpu":
+        cf = None if mask is None else (mask, cw_t, abi_t, abl_t)
+        return rtrn.rt_sweep_blocked(taut_t, fracs_t, planklay_t,
+                                     planklev_t, surf, ngb0, wg, cf,
+                                     radiances=True)
+    if taut_t.dtype != torch.float32:
+        raise TypeError(f"taut_t: dtype {taut_t.dtype}, K1 keeps the "
+                        "radiances in float32 storage only")
+    L, B = _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
+                  abi_t, abl_t, mask, ngb0, wg)
+    rads = torch.empty((2 if mask is None else 4, L, NGPT, B),
+                       dtype=torch.float32, device=taut_t.device)
+    out = _launch("clear" if mask is None else "compact", rt_fluxes_blocked,
+                  taut_t, fracs_t, planklay_t, planklev_t, surf, ngb0, wg,
+                  mask, cw_t, abi_t, abl_t, rads=rads)
+    return out, rads
 
 
 def _full_ct(ct, ct_ddt, shape, like):
@@ -121,28 +159,36 @@ def _full_ct(ct, ct_ddt, shape, like):
 
 class RTFn(torch.autograd.Function):
     """(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
-    abl_t, mask, ngb0, wg, taua_t) -> fluxes (4, L+1, B); the four cloud
-    inputs are None for clear sky, taua_t None in float32 storage.  With
-    a (4, 16, B) surf (idrv=1): (fluxes, d/dT (2, L+1, B)).  Backward K6
-    on the fluxes' cotangent (the d/dT row of surf gets zero); mask, ngb0
-    and wg get None.  On the card a cotangent of d/dT raises; in reduced
-    storage any backward raises."""
+    abl_t, mask, ngb0, wg, taua_t, grad_enabled) -> fluxes (4, L+1, B);
+    the four cloud inputs are None for clear sky, taua_t None in float32
+    storage.  With a (4, 16, B) surf (idrv=1): (fluxes, d/dT (2, L+1,
+    B)).  Backward K6 on the fluxes' cotangent (the d/dT row of surf gets
+    zero); mask, ngb0 and wg get None.  On the card, where an input needs
+    a gradient and ``grad_enabled`` (``torch.is_grad_enabled()`` at the
+    call: forward runs with grad mode off) holds, K1 keeps its radiances
+    for K6 (``rt_sweep_radiances``).  On the card a cotangent of d/dT
+    raises; in reduced storage any backward raises."""
 
     @staticmethod
     def forward(ctx, taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
-                abi_t, abl_t, mask, ngb0, wg, taua_t=None):
+                abi_t, abl_t, mask, ngb0, wg, taua_t=None,
+                grad_enabled=True):
         args = (taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
                 abl_t, mask, ngb0, wg)
         ctx.set_materialize_grads(False)
         ctx.device_type = taut_t.device.type
         ctx.reduced = taut_t.dtype in REDUCED
-        if any(ctx.needs_input_grad[:8]) and not ctx.reduced:
-            ctx.save_for_backward(*args)
+        keep = any(ctx.needs_input_grad[:8]) and not ctx.reduced
         if taut_t.device.type == "cpu":
+            if keep:
+                ctx.save_for_backward(*args)
             cf = None if mask is None else (mask, cw_t, abi_t, abl_t)
             out = rtrn.rt_sweep_blocked(
                 *spec_inputs(taut_t, fracs_t, taua_t, ngb0), planklay_t,
                 planklev_t, surf, ngb0, wg, cf)
+        elif keep and grad_enabled:
+            out, rads = rt_sweep_radiances(*args)
+            ctx.save_for_backward(*args, rads)
         else:
             _check(*args, taua_t=taua_t)
             out = _launch("clear" if mask is None else "compact",
@@ -156,10 +202,11 @@ class RTFn(torch.autograd.Function):
         if ctx.reduced:
             raise NotImplementedError(GRAD_MESSAGE)
         x = list(ctx.saved_tensors)
+        rads = x.pop() if ctx.device_type != "cpu" else None
         nsurf = x[4].shape[0]
         if ct_ddt is None:
             if ct is None:
-                return (None,) * 12
+                return (None,) * 13
             x[4] = x[4][:3]             # the fluxes do not read row 3
         elif ctx.device_type != "cpu":
             raise NotImplementedError(
@@ -170,10 +217,10 @@ class RTFn(torch.autograd.Function):
             ct = _full_ct(ct, ct_ddt, (6,) + tuple(ct_ddt.shape[1:]),
                           ct_ddt)
         grads = list(rt_sweep_vjp(*x, ct.contiguous(),
-                                  needs=ctx.needs_input_grad[:8]))
+                                  needs=ctx.needs_input_grad[:8], rads=rads))
         if grads[4] is not None and grads[4].shape[0] < nsurf:
             grads[4] = torch.nn.functional.pad(grads[4], (0, 0, 0, 0, 0, 1))
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
@@ -196,7 +243,8 @@ def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
                              "or rt_fluxes_cldf_od")
         mask, cw_t, abi_t, abl_t = cloud_fields
     return RTFn.apply(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
-                      abi_t, abl_t, mask, ngb0, wg, taua_t)
+                      abi_t, abl_t, mask, ngb0, wg, taua_t,
+                      torch.is_grad_enabled())
 
 
 class RTSweepFn(torch.autograd.Function):
@@ -310,10 +358,13 @@ WRAPPERS = {"blocked": rt_fluxes_blocked, "fused": rt_fluxes_fused,
 
 
 def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
-                 abl_t, mask, ngb0, wg, ct, needs=(True,) * 8):
+                 abl_t, mask, ngb0, wg, ct, needs=(True,) * 8, rads=None):
     """K6: flux cotangents ct (4, L+1, B) -> cotangents of (taut_t,
     fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t), None
-    where ``needs`` is False or the input is None (clear sky)."""
+    where ``needs`` is False or the input is None (clear sky).  On the
+    card K6 reads ``rads``, the radiances K1 kept on the same inputs
+    (``rt_sweep_radiances``), and raises without them; the plain vjp (CPU
+    tensors) does not read them."""
     if taut_t.device.type == "cpu":
         return rtrn.rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t,
                                  surf, cw_t, abi_t, abl_t, mask, ngb0, wg,
@@ -323,17 +374,19 @@ def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
     dev = taut_t.device
     _build.check(ct, "ct", torch.float32, (4, L + 1, B), dev)
     cloudy = mask is not None
+    if rads is None:
+        raise ValueError("rt_sweep_vjp on the card reads the radiances K1 "
+                         "kept on the same inputs (rads, from "
+                         "rt_sweep_radiances): K6 runs no forward sweep")
+    _build.check(rads, "rads", torch.float32,
+                 (4 if cloudy else 2, L, NGPT, B), dev)
     grads = [torch.empty_like(x) for x in (taut_t, fracs_t, planklay_t,
                                            planklev_t, surf)]
     grads += [torch.empty_like(x) if cloudy else None
               for x in (cw_t, abi_t, abl_t)]
-    # the forward sweeps' radiances, re-read in reverse level order:
-    # down and up (and their clear twins when cloudy), (L, 140, B) each
-    scratch = torch.empty((4 if cloudy else 2, L, NGPT, B),
-                          dtype=torch.float32, device=dev)
     _build.launch("rrtm_rt_bwd", taut_t, fracs_t, planklay_t, planklev_t,
-                  surf, ngb0, wg, mask, cw_t, abi_t, abl_t, ct, *grads,
-                  scratch, L, B, int(cloudy))
+                  surf, ngb0, wg, mask, cw_t, abi_t, abl_t, ct, rads, *grads,
+                  L, B, int(cloudy))
     rt_sweep_vjp.launches += 1
     return tuple(g if n else None for g, n in zip(grads, needs))
 
@@ -342,15 +395,16 @@ K1_INFO = ("registers", "local_bytes", "static_smem", "dynamic_smem",
            "blocks_per_sm", "ring_levels", "threads", "columns")
 
 
-def k1_info(mode, idrv, spec_dtype=torch.float32):
+def k1_info(mode, idrv, spec_dtype=torch.float32, save=False):
     """K1's launch configuration in ``mode`` (a ``MODES`` key) at idrv
-    0/1 with taut in ``spec_dtype``: ``K1_INFO`` -> int, from the CUDA
-    runtime (``cudaFuncGetAttributes``,
+    0/1 with taut in ``spec_dtype`` (``save``: the instantiation that
+    keeps the radiances, clear and compact in float32): ``K1_INFO`` ->
+    int, from the CUDA runtime (``cudaFuncGetAttributes``,
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the card."""
     buf = (ctypes.c_int * len(K1_INFO))()
     lib = _build.library()
     err = lib.rrtm_rt_info(MODES[mode], int(idrv), SPEC_CODES[spec_dtype],
-                           ctypes.cast(buf, ctypes.c_void_p))
+                           int(save), ctypes.cast(buf, ctypes.c_void_p))
     if err != 0:
         raise RuntimeError("rrtm_rt_info: "
                            + lib.rrtm_error_string(err).decode())
@@ -361,4 +415,5 @@ for _w in WRAPPERS.values():
     _w.launches = 0
     _w.idrv = _build.Launches()
     _w.spec = _build.Launches()
+rt_fluxes_blocked.save = _build.Launches()
 rt_sweep_vjp.launches = 0

@@ -46,7 +46,8 @@ class OverlapFn(torch.autograd.Function):
             raise NotImplementedError(
                 "gradients with respect to the cloud fraction through the "
                 "overlap-rows kernel are not ported yet; see ROADMAP.md "
-                "Queue 1 item 9")
+                "Queue 1, gradients through the other forward paths on the "
+                "card")
         return plain_vjp(rtrnmr.overlap_rows, (cldfrac,), (True,), (ct,))
 
 

@@ -68,7 +68,8 @@ def setcoef(prof: Profile, static: dict, *, istart: int = 1, idrv: int = 0,
     if istart != 1:
         raise NotImplementedError(
             "setcoef istart=16 (band-16-only Planck) is not ported yet; "
-            "see ROADMAP.md Queue 1 item 10")
+            "see ROADMAP.md Queue 1, use_lut=True, the default config, "
+            "and band subsets")
     dtype = prof.pavel.dtype
     totplnk = static["totplnk"].to(dtype)
     totplnkd = static["totplnkderiv"].to(dtype)

@@ -3,7 +3,8 @@
 One-device counterpart of ``rrtmg_lw_tpu.parallel.api.
 make_sharded_grad_step`` (rrtmg_lw_tpu/parallel/api.py:77-99), with the
 same default loss.  The mesh, the column sharding and
-``make_sharded_step`` are not ported yet (ROADMAP.md Queue 1 item 12).
+``make_sharded_step`` are not ported yet (ROADMAP.md Queue 1, the
+parallel layer).
 The JAX package bounded the memory of its XLA backward with a
 column-chunked vjp (``ops/_vjp_chunk.py``); the port's backward kernels
 keep their residuals at the size of taut/fracs, so it has no

@@ -99,15 +99,19 @@ CELLS = {"clear": Cell(0, 1, None, 60),
          "mcica_cloudy_deep": Cell(2, 1, "mcica", 140),
          "mcica_cloudy_grad": Cell(2, 1, "mcica", 60, True),
          "clear_grad": Cell(0, 1, None, 60, True)}
-# fragment of the demangled symbol -> kernel (csrc/*.cu); the last
-# template argument of K1 and K2 is the storage (csrc/spec.cuh)
+# fragment of the demangled symbol -> kernel (csrc/*.cu); K1's third
+# template argument and K2's only one are the storage (csrc/spec.cuh),
+# K1's fourth whether it keeps the radiances for K6 ("save")
 SPEC_NAMES = ("", " bf16", " f16", " logu16")
 KERNEL_SYMBOLS = tuple(
-    (f"rt_kernel<{m}, {b}, {s}>",
-     f"K1 {name}{' idrv' if b == 'true' else ''}{SPEC_NAMES[s]}")
+    (f"rt_kernel<{m}, {b}, {s}, {save}>",
+     f"K1 {name}{' idrv' if b == 'true' else ''}{SPEC_NAMES[s]}"
+     f"{' save' if save == 'true' else ''}")
     for m, name in enumerate(("clear", "compact", "banded", "maxrand",
                               "fused", "cldf_od"))
-    for b in ("false", "true") for s in range(4)) + tuple(
+    for b in ("false", "true") for s in range(4)
+    for save in ("false", "true") if save == "false" or (m < 2 and s == 0)
+) + tuple(
     (f"taumol_kernel<{s}>", "K2" + SPEC_NAMES[s]) for s in range(4)) + (
     ("planck_kernel", "K3"),
     ("cldcoef_kernel", "K4"), ("overlap_kernel", "overlap"),

@@ -4,24 +4,26 @@
     python rrtmg_lw_torch/utils/snapshot.py --compare A.pt B.pt
 
     PYTHONPATH=<checkout> python rrtmg_lw_torch/utils/snapshot.py \\
-        --k1-times T1.json --k2-times T2.json
+        --k1-times T1.json --k2-times T2.json --k6-times T6.json
 
 ``--out`` runs, on the card, K2 in all four storages with its bins, K3
 at layer and level temperatures, K4, K5 and K6 (clear and compact; both
 on seeded cotangents), and K1 in all six modes at idrv 0 and 1, on the
 inputs of ``chip_smoke.py``'s phase 3 (``utils/profiling.py``'s
 ``mcica_cloudy``, ``band_cloudy``, ``mcica_blocked`` and ``mcica_tauc``
-cells at B=16384, L=60), K1 also on its edge cases (``k1_edge_args``)
-and K2 on its own (``k2_edge_args``, ``K2_EDGE_SHAPES``), and saves
-their outputs.  Run it from each checkout (its own ``rrtmg_lw_torch``
-first on the path), then ``--compare`` prints, per output, whether the
+cells at B=16384, L=60), K1 and K6 also on K1's edge cases
+(``k1_edge_args``) and K2 on its own (``k2_edge_args``,
+``K2_EDGE_SHAPES``), and saves their outputs.  Run it from each
+checkout (its own ``rrtmg_lw_torch`` first on the path), then ``--compare`` prints, per output, whether the
 two are bitwise equal, and exits non-zero unless all are.
 ``--k1-times`` writes the profiler's device ms of K1 in every mode,
 idrv and storage on the same inputs, and of compact at L=140;
-``--k2-times`` those of K2 in every storage at L=60 and L=140.  The
-imports are absolute, so ``PYTHONPATH`` picks the checkout whose kernels
-run; only entry points that every checkout since the fifth slice
-(reduced storage) has are used.
+``--k2-times`` those of K2 in every storage at L=60 and L=140;
+``--k6-times`` those of K6 and of the K1 launch that keeps the
+radiances K6 reads, clear and compact at L=60.  The imports are
+absolute, so ``PYTHONPATH`` picks the checkout whose kernels run; only
+entry points that every checkout since reduced storage came in has are
+used, and K6 through whichever API the checkout has (``k6_vjp``).
 """
 
 from __future__ import annotations
@@ -306,13 +308,26 @@ def sweep_inputs(device, cell="mcica_cloudy") -> dict:
                 args=args, taug=tg, taua=taua)
 
 
+def k6_vjp(args, ct):
+    """K6 on ``args`` (taut_t, fracs_t, planklay_t, planklev_t, surf,
+    cw_t, abi_t, abl_t, mask, ngb0, wg) and the flux cotangents ``ct``,
+    through the checkout's API: fed the radiances of K1 on the same
+    inputs (``rtrn_cuda.rt_sweep_radiances``) where K1 keeps them, else
+    K6 alone (a checkout whose K6 sweeps forward itself)."""
+    from rrtmg_lw_torch.ops import rtrn_cuda
+    keep = getattr(rtrn_cuda, "rt_sweep_radiances", None)
+    if keep is None:
+        return rtrn_cuda.rt_sweep_vjp(*args, ct)
+    return rtrn_cuda.rt_sweep_vjp(*args, ct, rads=keep(*args)[1])
+
+
 def outputs(device) -> dict:
     """K2-K6 on phase 3's inputs, and K1 in every mode at idrv 0 and 1
     on them and on ``k1_edge_args``' edge cases."""
     from rrtmg_lw_torch.ops import rtrn
     from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_blocked
     from rrtmg_lw_torch.ops.planck_cuda import planck_interp_blocked
-    from rrtmg_lw_torch.ops.rtrn_cuda import WRAPPERS, rt_sweep_vjp
+    from rrtmg_lw_torch.ops.rtrn_cuda import WRAPPERS
     from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES
     from rrtmg_lw_torch.ops.taumol_cuda import (NBIN, TaumolFn, _pack_inputs,
                                                 taumol_vjp)
@@ -357,13 +372,13 @@ def outputs(device) -> dict:
                           torch.float32)
     gen = torch.Generator(device=device).manual_seed(5)
     ct = torch.randn(out["k1_clear"].shape, generator=gen, device=device)
-    cw, abi, abl = modes["compact"][1][0][1:]
-    for name, cf in (("k6_clear", (None,) * 4),
-                     ("k6_compact", (cw, abi, abl, mc.cldfmc))):
-        grads = rt_sweep_vjp(taut, fr, play, plev, surf, *cf, model.ngb0,
-                             model.wg, ct)
-        out.update({f"{name}_{i}": g for i, g in enumerate(grads)
-                    if g is not None})
+    for tag, a, ms in (("k6", args, modes), ("k6_edge", eargs, emodes)):
+        mask, cw, abi, abl = ms["compact"][1][0]
+        for name, cf in (("clear", (None,) * 4),
+                         ("compact", (cw, abi, abl, mask))):
+            grads = k6_vjp((*a[:4], surf, *cf, model.ngb0, model.wg), ct)
+            out.update({f"{tag}_{name}_{i}": g for i, g in enumerate(grads)
+                        if g is not None})
     return {k: v.cpu() for k, v in out.items()}
 
 
@@ -431,6 +446,44 @@ def kernel_ms(fn, symbol, reps=5) -> float:
                if symbol in e.name) / 1e3 / reps
 
 
+def k6_times(device, reps=5) -> list:
+    """Device ms per launch (``torch.profiler``, the mean of ``reps``
+    launches after one warm-up) of K1 without and with the radiances kept
+    (the forward step's and the gradient step's launch) and of K6 fed
+    them, clear and compact, on phase 3's inputs (B=16384, L=60).  In a
+    checkout whose K6 sweeps forward itself, K6 alone (k1_save_ms None).
+    -> [{mode, nlay, k1_ms, k1_save_ms, k6_ms}]."""
+    from rrtmg_lw_torch.ops import rtrn, rtrn_cuda
+    x = sweep_inputs(device)
+    args, model, sc, prof = x["args"], x["model"], x["sc"], x["prof"]
+    surf = rtrn.surf_rows(sc.plankbnd, prof.semiss, prof.pwvcm,
+                          torch.float32)
+    gen = torch.Generator(device=device).manual_seed(5)
+    ct = torch.randn((4, args[0].shape[0] + 1, args[0].shape[2]),
+                     generator=gen, device=device)
+    mask, cw, abi, abl = compact_args(x["static"], x["mc"])
+    keep = getattr(rtrn_cuda, "rt_sweep_radiances", None)
+    rows = []
+    for name, fields, cf in (("clear", None, (None,) * 4),
+                             ("compact", (mask, cw, abi, abl),
+                              (cw, abi, abl, mask))):
+        a = (*args[:4], surf, *cf, model.ngb0, model.wg)
+        row = dict(mode=name, nlay=args[0].shape[0], k1_ms=kernel_ms(
+            lambda: rtrn_cuda.rt_fluxes_blocked(*args, fields), "rt_kernel",
+            reps), k1_save_ms=None)
+        kw = {}
+        if keep is not None:
+            row["k1_save_ms"] = kernel_ms(lambda: keep(*a), "rt_kernel",
+                                          reps)
+            kw = dict(rads=keep(*a)[1])
+        row["k6_ms"] = kernel_ms(lambda: rtrn_cuda.rt_sweep_vjp(*a, ct, **kw),
+                                 "rt_bwd_kernel", reps)
+        rows.append(row)
+        print(row, flush=True)
+        del kw
+    return rows
+
+
 def k2_times(device, reps=5) -> list:
     """Device ms per launch of K2 in every storage on phase 3's inputs
     (L=60) and the mcica_cloudy_deep cell's (L=140), B=16384.  -> [{nlay,
@@ -475,8 +528,12 @@ def main(argv=None) -> int:
     ap.add_argument("--k2-times", metavar="OUT",
                     help="time K2 in every storage at L=60 and 140 into OUT "
                          "(JSON)")
+    ap.add_argument("--k6-times", metavar="OUT",
+                    help="time K6 and K1 keeping the radiances, clear and "
+                         "compact, into OUT (JSON)")
     args = ap.parse_args(argv)
-    for opt, times in ((args.k1_times, k1_times), (args.k2_times, k2_times)):
+    for opt, times in ((args.k1_times, k1_times), (args.k2_times, k2_times),
+                       (args.k6_times, k6_times)):
         if not opt:
             continue
         if not torch.cuda.is_available():

@@ -4,7 +4,10 @@ the main-path shapes), plus the wrappers' input checks and launch
 counters: the four forward kernels (K1 in its clear, compact, banded,
 maxrand, fused and cldf-odcld modes, each at idrv 0 and 1), the
 overlap-rows kernel, and the three backward kernels (K3b Planck slope,
-K5 taumol, K6 RT adjoint) against the plain vjps.
+K5 taumol, K6 RT adjoint) against the plain vjps; K6 is fed the
+radiances of K1's gradient-step launch (``rt_sweep_radiances``), whose
+fluxes are bitwise those of K1's launch without them and whose
+radiances are within 1e-5 of max |plain radiance|.
 
 Marked ``cuda``: every test skips without a CUDA device.  This file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
@@ -49,7 +52,7 @@ from rrtmg_lw_torch.ops.planck_cuda import (planck_interp_blocked,
                                             planck_interp_vjp)
 from rrtmg_lw_torch.ops.rtrn_cuda import (WRAPPERS, rt_fluxes_banded,
                                           rt_fluxes_blocked, rt_fluxes_maxrand,
-                                          rt_sweep_vjp)
+                                          rt_sweep_radiances, rt_sweep_vjp)
 from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows
 from rrtmg_lw_torch.ops.setcoef import (interp_planck_blocked,
                                         interp_planck_vjp, setcoef)
@@ -288,6 +291,40 @@ def test_taumol_bwd_kernel_matches_plain_vjp(dev, B, L, boost):
     assert torch.equal(got, taumol_vjp(*args))
 
 
+def _k6_case(dev, args, fields, seed=3):
+    """K1 keeping the radiances and K6 fed them, on the sweep inputs
+    ``args`` (taut_t, fracs_t, planklay_t, planklev_t, plankbnd, semiss,
+    pwvcm, ngb0, wg) with compact ``fields`` (mask, cw, abi, abl) or
+    None: K1's fluxes bitwise those of its launch without the radiances,
+    the radiances within 1e-5 of max |plain|; K6 within 1e-3 of max
+    |plain vjp| per output and bitwise over two runs; K6 without the
+    radiances raises."""
+    taut, fr, play, plev, plankbnd, semiss, pwvcm, ngb0, wg = args
+    L, _, B = taut.shape
+    surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, torch.float32)
+    cf = (None,) * 4 if fields is None else (*fields[1:], fields[0])
+    a = (taut, fr, play, plev, surf, *cf, ngb0, wg)
+    fl, rads = rt_sweep_radiances(*a)
+    assert rads.shape == (2 if fields is None else 4, L, 140, B)
+    assert torch.equal(fl, rt_fluxes_blocked(*args, fields))
+    _, rads_p = rtrn.rt_sweep_blocked(*a[:5], ngb0, wg, fields,
+                                      radiances=True)
+    assert rel_err(rads, rads_p) <= 1e-5
+    ct = _randn((4, L + 1, B), dev, seed)
+    with pytest.raises(ValueError, match="radiances"):
+        rt_sweep_vjp(*a, ct)
+    got = rt_sweep_vjp(*a, ct, rads=rads)
+    ref = rtrn.rt_sweep_vjp(*a, ct)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if r is None:
+            assert g is None and fields is None
+            continue
+        assert g.shape == r.shape and torch.isfinite(g).all(), i
+        assert rel_err(g, r) <= 1e-3, i
+    again = rt_sweep_vjp(*a, ct, rads=rads)
+    assert all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+
+
 @pytest.mark.parametrize("B,L,cloudy", [(37, 7, True), (5, 1, True),
                                         (45, 7, False), (1, 7, True)])
 def test_rt_bwd_kernel_matches_plain_vjp(dev, B, L, cloudy):
@@ -301,21 +338,51 @@ def test_rt_bwd_kernel_matches_plain_vjp(dev, B, L, cloudy):
     abi, abl = cldprop.ice_liq_coeffs_blocked(clouds.reicmc, clouds.relqmc,
                                               3, 1, static)
     cw = torch.stack([clouds.ciwp.t(), clouds.clwp.t()], 1).contiguous()
-    surf = rtrn.surf_rows(sc.plankbnd, prof.semiss, prof.pwvcm,
-                          torch.float32)
-    cf = (cw, abi, abl, clouds.cldfmc) if cloudy else (None,) * 4
-    ct = _randn((4, L + 1, B), dev, 3)
-    args = (tg, fr, play, plev, surf, *cf, model.ngb0, model.wg, ct)
-    got = rt_sweep_vjp(*args)
-    ref = rtrn.rt_sweep_vjp(*args)
-    for i, (g, r) in enumerate(zip(got, ref)):
-        if r is None:
-            assert g is None and not cloudy
-            continue
-        assert g.shape == r.shape and torch.isfinite(g).all(), i
-        assert rel_err(g, r) <= 1e-3, i
-    again = rt_sweep_vjp(*args)
-    assert all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+    _k6_case(dev, (tg, fr, play, plev, sc.plankbnd, prof.semiss, prof.pwvcm,
+                   model.ngb0, model.wg),
+             (clouds.cldfmc, cw, abi, abl) if cloudy else None)
+
+
+@pytest.mark.parametrize("B,L", [(15, 5), (33, 9), (100, 140)])
+def test_rt_bwd_kernel_on_k1_edge_cases(dev, B, L):
+    """K1 keeping the radiances and K6 on ``utils.snapshot.k1_edge_args``
+    (clear, overcast and top-and-bottom columns across the tiles, od
+    exactly 0.06 and 0), clear and compact, with ``_k6_case``'s checks."""
+    from rrtmg_lw_torch.utils.snapshot import k1_edge_args
+    args, _, _ = _sweep_inputs(dev, B, L)
+    args, modes, _ = k1_edge_args(dev, _model(dev).static_tensors(), args)
+    for fields in (None, modes["compact"][1][0]):
+        _k6_case(dev, args, fields, seed=B + L)
+
+
+def test_rt_save_launches_once_per_grad_step(dev):
+    """K1 keeps the radiances once in a gradient step (clear, McICA, and
+    at idrv=1) and never in a forward step, nor under torch.no_grad."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import k1_info
+    atm, clouds, _ = _case(dev, 40, 10)
+    save = rt_fluxes_blocked.save
+    for icld, idrv in ((0, 0), (2, 0), (2, 1)):
+        model = make_model(LWConfig(icld=icld, imca=1, idrv=idrv,
+                                    dtype="float32", use_lut=False),
+                           device=dev)
+        cl = clouds if icld else None
+        before = (save.launches, rt_fluxes_blocked.launches)
+        model(atm, cl)
+        tlay = atm.tlay.clone().requires_grad_()
+        with torch.no_grad():
+            model(atm._replace(tlay=tlay), cl)
+        assert (save.launches, rt_fluxes_blocked.launches) == \
+            (before[0], before[1] + 2)
+        make_grad_step(model)(atm, cl)
+        assert (save.launches, rt_fluxes_blocked.launches) == \
+            (before[0] + 1, before[1] + 3)
+    for mode in ("clear", "compact"):
+        for idrv in (0, 1):
+            info = k1_info(mode, idrv, save=True)
+            assert info["local_bytes"] == 0, (mode, idrv, info)
+            assert info["blocks_per_sm"] >= 2, (mode, idrv, info)
+    with pytest.raises(RuntimeError):
+        k1_info("banded", 0, save=True)
 
 
 def test_cldcoef_guard_raises_when_radii_require_grad(dev):

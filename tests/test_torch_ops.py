@@ -313,6 +313,69 @@ def test_rt_sweep_plain_compact_matches_jax(pair):
         assert_rel(out[i].t(), getattr(ref, name), name=name)
 
 
+@pytest.mark.parametrize("cloudy", [False, True])
+def test_rt_sweep_plain_radiances_are_the_summed_ones(pair, cloudy):
+    """The plain per-g radiances of ``rt_sweep_blocked(...,
+    radiances=True)``, what K1 keeps for K6: weighted by wg and summed
+    over g they are the flux rows at levels 0..L-1 (row D the down flux,
+    U the up flux, rows 2-3 the clear ones), whose fluxes equal the JAX
+    package's rt_random_overlap (the composition of
+    test_rt_sweep_plain_compact_matches_jax; clear: no clouds); row U at
+    level 0 is the surface source plus the reflected row D there."""
+    jm, jsc, jprof = pair["jm"], pair["jsc"], pair["jprof"]
+    tm, tsc, tprof = pair["tm"], pair["tsc"], pair["tprof"]
+    jt, jf = jm.engine(jsc, jprof)
+    jtaut = jt + jprof.taua[..., jm.ngb0]
+    fields = None
+    cldf = odcld = jnp.zeros(jtaut.shape)
+    if cloudy:
+        jcl = jsyn.make_mcica_clouds(B, L, layout="compact",
+                                     mask_dtype=np.int8)
+        batch = jcl.to_blocked().to_batch()
+        cldf = batch.cldfmc
+        odcld, _ = jcldprop.cldprmc(batch, jm.static_np, inflag=2,
+                                    iceflag=3, liqflag=1)
+        tcl = McicaCloudsCompact.from_numpy(
+            tsyn.make_mcica_clouds(B, L, mask_dtype=np.int8), "cpu")
+        abi, abl, _ = cldprop.cloud_optics_bands_blocked(
+            tcl, tm.static_tensors(), iceflag=3, liqflag=1)
+        cw = torch.stack([tcl.ciwp.t(), tcl.clwp.t()], 1).contiguous()
+        fields = (tcl.cldfmc, cw, abi, abl)
+    gate = cldf >= 0.5
+    ref = jrtrn.rt_random_overlap(
+        jtaut, jf, jsc.planklay, jsc.planklev, jsc.plankbnd,
+        jsc.dplankbnd_dt, jprof.semiss, jprof.pwvcm, jprof.pz, cldf, odcld,
+        cloudy_lay=gate.any(-1), cld_gate=gate, static=jm.static_np,
+        luts=None, use_lut=False, heatfac_val=jm.heatfac)
+
+    def blocked(x):
+        return torch.as_tensor(np.array(x)).permute(1, 2, 0).contiguous()
+
+    fracs_t = blocked(jf)
+    surf = rtrn.surf_rows(tsc.plankbnd, tprof.semiss, tprof.pwvcm,
+                          torch.float64)
+    fl, rads = rtrn.rt_sweep_blocked(
+        blocked(jtaut), fracs_t, blocked(jsc.planklay),
+        blocked(jsc.planklev), surf, tm.ngb0, tm.wg, fields, radiances=True)
+    assert rads.shape == (4 if cloudy else 2, L, 140, B)
+    assert torch.equal(fl, rtrn.rt_sweep_blocked(
+        blocked(jtaut), fracs_t, blocked(jsc.planklay),
+        blocked(jsc.planklev), surf, tm.ngb0, tm.wg, fields))
+    for i, name in enumerate(("totuflux", "totdflux", "totuclfl",
+                              "totdclfl")):
+        assert_rel(fl[i].t(), getattr(ref, name), name=name)
+    summed = torch.einsum("rlgb,g->rlb", rads, tm.wg)
+    for r, row in enumerate((1, 0, 3, 2)[:rads.shape[0]]):
+        assert_rel(summed[r], fl[row, :L], name=f"row {r}")
+    ngb = tm.ngb0.long()
+    rad0 = fracs_t[0] * surf[2][ngb]
+    reflect = 1.0 - surf[1][ngb]
+    for d, u in ((0, 1), (2, 3))[:rads.shape[0] // 2]:
+        assert_rel(rads[u, 0], rad0 + reflect * rads[d, 0], name=f"U {u}")
+    if cloudy:                      # the clear twins leave the cloudy stream
+        assert not torch.allclose(rads[0], rads[2])
+
+
 def test_rt_lut_unported(pair):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rtrn._gas_factors(torch.ones(3), use_lut=True)

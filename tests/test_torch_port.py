@@ -430,7 +430,8 @@ def test_cuda_wrappers_send_cpu_tensors_to_plain_versions(monkeypatch):
                 cldcoef_cuda.ice_liq_coeffs_blocked,
                 taumol_cuda.taumol_blocked, rtrnmr_cuda.overlap_rows,
                 *rtrn_cuda.WRAPPERS.values(),
-                *(w.idrv for w in rtrn_cuda.WRAPPERS.values()))
+                *(w.idrv for w in rtrn_cuda.WRAPPERS.values()),
+                rtrn_cuda.rt_fluxes_blocked.save, rtrn_cuda.rt_sweep_vjp)
     before = [w.launches for w in wrappers]
 
     B, L = 5, 9
@@ -479,6 +480,18 @@ def test_cuda_wrappers_send_cpu_tensors_to_plain_versions(monkeypatch):
             want = rtrn.FLUXES[mode](*args, fields, dplankbnd_dt=dpl)
             assert isinstance(got, tuple) == (dpl is not None)
             assert same(got, want), (mode, dpl is None)
+    # K1 keeping the radiances, and K6 (which reads them on the card only)
+    surf = rtrn.surf_rows(sc.plankbnd, prof.semiss, prof.pwvcm, tg.dtype)
+    for cf in ((None,) * 4, (cw, *ref, cl.cldfmc)):
+        a = (tg, fr, play, plev, surf, *cf, model.ngb0, model.wg)
+        fields = None if cf[3] is None else (cf[3], *cf[:3])
+        assert same(rtrn_cuda.rt_sweep_radiances(*a),
+                    rtrn.rt_sweep_blocked(*a[:5], model.ngb0, model.wg,
+                                          fields, radiances=True))
+        ct = torch.ones((4, L + 1, B), dtype=tg.dtype)
+        got = rtrn_cuda.rt_sweep_vjp(*a, ct)
+        assert all(g is None and r is None or torch.equal(g, r)
+                   for g, r in zip(got, rtrn.rt_sweep_vjp(*a, ct)))
     bc = BandClouds.from_numpy(tsyn.make_band_clouds(B, L), "cpu")
     rows = rtrnmr_cuda.overlap_rows(bc.cldfrac)
     assert torch.equal(rows, rtrnmr.overlap_rows(bc.cldfrac))
