@@ -99,13 +99,16 @@ CUDA events around the wrapper, holds its host gaps too), their
 instantiation's registers, spill bytes, shared memory, blocks per SM
 (K1: and ring levels) and achieved GB/s (bytes_once over device_ms),
 "rt_sweep" the table of all 52 K1 instantiations; K6's entry
-(rt_adjoint) its registers, spill bytes, device_ms and GB/s.  Without
-CUDA it exits non-zero and prints no result.
+(rt_adjoint) its registers, spill bytes, device_ms and GB/s.  K6's and
+K1 SAVE's device_ms come from ``utils/snapshot.py --k6-times`` in a
+process of its own, started after phase 3.  Without CUDA it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -221,29 +224,10 @@ def cuda_ms(fn, reps):
 def device_ms(fn, reps=5, symbol="rt_kernel"):
     """Mean device ms of one launch of the kernel whose symbol holds
     ``symbol`` (torch.profiler, kernel time alone; default K1) over
-    ``reps`` calls after one warm-up, each call launching it once: the
-    wrapper's CUDA events also hold the host gaps between its launches.
-    In a process that has traced many times before, a trace has held
-    only some of the launches (3 of 5 K6 launches; late in a full run one
-    or none): the mean is over the launches the trace holds, their count
-    is printed when short, and a trace with none is taken again."""
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if symbol in e.name]
-        if us:
-            break
-    need(us, f"the profiler saw no launch of {symbol}")
-    if len(us) != reps:
-        print(f"device_ms {symbol}: the trace held {len(us)} of {reps} "
-              "launches")
-    return sum(us) / len(us) / 1e3
+    ``reps`` calls after one warm-up (``utils.snapshot.kernel_ms``): the
+    wrapper's CUDA events also hold the host gaps between its launches."""
+    from rrtmg_lw_torch.utils.snapshot import kernel_ms
+    return kernel_ms(fn, symbol, reps)
 
 
 def bound(inputs, outputs, ops, nbytes=0, ops_rate=F32_OPS_PER_S,
@@ -626,35 +610,46 @@ def k1_edge_cases(device, model, args, dpl):
           "at od 0.06 with a cloud fraction in (0, 0.5)")
 
 
-def k1_build_info(log_path):
-    """Each K1 instantiation's registers and spill stores (ptxas -v in
-    the build log) and launch configuration (``rtrn_cuda.k1_info``):
-    {"<mode> idrv<0|1> <storage>[ save]": {...}}, " save" the four that
-    keep the radiances for K6 (clear and compact, float32)."""
+def ptxas_info(log_path, symbol_re, key_fn):
+    """Registers and spill stores of each instantiation of a kernel
+    (ptxas -v in the build log) whose mangled name matches ``symbol_re``:
+    {key_fn(the match): {"registers": n, "spill_bytes": n}}."""
     import re
-    from rrtmg_lw_torch.ops.rtrn_cuda import MODES, k1_info
-    from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES
-    names = {v: k for k, v in MODES.items()}
-    storages = ("f32",) + SPECS
-    out, cur = {}, None
+    out, key = {}, None
     for line in log_path.read_text().splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?([^' ]+)", line)
         if m:
-            cur = re.search(r"rt_kernelILi(\d)ELb([01])ELi(\d)ELb([01])E",
-                            m.group(1))
+            cur = re.search(symbol_re, m.group(1))
+            key = key_fn(cur) if cur else None
             continue
-        if cur is None:
+        if key is None:
             continue
-        mode, idrv, spec, save = (int(x) for x in cur.groups())
-        key = (f"{names[mode]} idrv{idrv} {storages[spec]}"
-               + (" save" if save else ""))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             out.setdefault(key, {})["spill_bytes"] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
+
+
+def k1_build_info(log_path):
+    """Each K1 instantiation's registers and spill stores (``ptxas_info``)
+    and launch configuration (``rtrn_cuda.k1_info``): {"<mode>
+    idrv<0|1> <storage>[ save]": {...}}, " save" the four that keep the
+    radiances for K6 (clear and compact, float32)."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import MODES, k1_info
+    from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES
+    names = {v: k for k, v in MODES.items()}
+    storages = ("f32",) + SPECS
+
+    def key(m):
+        mode, idrv, spec, save = (int(x) for x in m.groups())
+        return (f"{names[mode]} idrv{idrv} {storages[spec]}"
+                + (" save" if save else ""))
+    out = ptxas_info(log_path, r"rt_kernelILi(\d)ELb([01])ELi(\d)ELb([01])E",
+                     key)
     for key, r in out.items():
         mode, idrv, spec, *save = key.split()
         info = k1_info(mode, int(idrv[-1]),
@@ -673,25 +668,10 @@ def k1_build_info(log_path):
 
 
 def k6_build_info(log_path):
-    """K6's registers and spill stores per instantiation (ptxas -v in the
-    build log): {"clear" | "compact": {...}}."""
-    import re
-    out, cur = {}, None
-    for line in log_path.read_text().splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties "
-                      r"for) '?([^' ]+)", line)
-        if m:
-            cur = re.search(r"rt_bwd_kernelILb([01])E", m.group(1))
-            continue
-        if cur is None:
-            continue
-        key = ("clear", "compact")[int(cur.group(1))]
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m:
-            out.setdefault(key, {})["spill_bytes"] = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out.setdefault(key, {})["registers"] = int(m.group(1))
+    """K6's registers and spill stores per instantiation (``ptxas_info``):
+    {"clear" | "compact": {...}}."""
+    out = ptxas_info(log_path, r"rt_bwd_kernelILb([01])E",
+                     lambda m: ("clear", "compact")[int(m.group(1))])
     need(len(out) == 2 and all(len(r) == 2 for r in out.values()),
          f"K6: {len(out)} instantiations in the build log, expected 2")
     return out
@@ -755,29 +735,14 @@ def k2_edge_cases(device, model):
 
 
 def k2_build_info(log_path):
-    """Each K2 instantiation's registers and spill stores (ptxas -v in
-    the build log) and launch configuration (``taumol_cuda.k2_info``):
-    {storage: {...}}."""
-    import re
+    """Each K2 instantiation's registers and spill stores (``ptxas_info``)
+    and launch configuration (``taumol_cuda.k2_info``): {storage:
+    {...}}."""
     from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES
     from rrtmg_lw_torch.ops.taumol_cuda import k2_info
     storages = ("f32",) + SPECS
-    out, cur = {}, None
-    for line in log_path.read_text().splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties "
-                      r"for) '?([^' ]+)", line)
-        if m:
-            cur = re.search(r"taumol_kernelILi(\d)E", m.group(1))
-            continue
-        if cur is None:
-            continue
-        key = storages[int(cur.group(1))]
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m:
-            out.setdefault(key, {})["spill_bytes"] = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out.setdefault(key, {})["registers"] = int(m.group(1))
+    out = ptxas_info(log_path, r"taumol_kernelILi(\d)E",
+                     lambda m: storages[int(m.group(1))])
     for key, r in out.items():
         info = k2_info(SPEC_DTYPES[key])
         need(info["registers"] == r.get("registers"),
@@ -1116,8 +1081,8 @@ def phase_grad_kernels(device):
     cw = torch.stack([clouds.ciwp.t(), clouds.clwp.t()], 1).contiguous()
     ct = randn(4, L_MAIN + 1, B_MAIN)
     fl_args = (sc.plankbnd, prof.semiss, prof.pwvcm, model.ngb0, model.wg)
-    # times, on the main path's compact McICA inputs (device ms: taken
-    # early in the run, grad_device_times); the errors come from the
+    # times, on the main path's compact McICA inputs (device ms: in a
+    # process of its own, grad_device_times); the errors come from the
     # checks after them
     cf = (cw, abi, abl, clouds.cldfmc)
     args = (taut, fracs, play, plev, surf, *cf, model.ngb0, model.wg)
@@ -1187,32 +1152,28 @@ def phase_grad_kernels(device):
     return res
 
 
-def grad_device_times(device):
+def grad_device_times():
     """Device ms of K1 keeping the radiances and of K6 fed them, compact
-    McICA on phase 3's inputs (``utils.snapshot.sweep_inputs``), taken
-    early in the run: late in a full run the profiler's traces of these
-    launches held one of five, or none (``device_ms``; phase 6 holds
-    their results and their wrapper ms).  -> {summary name: device
-    ms}."""
-    from rrtmg_lw_torch.ops import rtrn
-    from rrtmg_lw_torch.ops.rtrn_cuda import (rt_sweep_radiances,
-                                              rt_sweep_vjp)
-    from rrtmg_lw_torch.utils.snapshot import compact_args, sweep_inputs
-    x = sweep_inputs(device)
-    args, sc, prof = x["args"], x["sc"], x["prof"]
-    surf = rtrn.surf_rows(sc.plankbnd, prof.semiss, prof.pwvcm,
-                          torch.float32)
-    mask, cw, abi, abl = compact_args(x["static"], x["mc"])
-    a = (*args[:4], surf, cw, abi, abl, mask, *args[7:])
-    gen = torch.Generator(device=device).manual_seed(5)
-    ct = torch.randn((4, L_MAIN + 1, B_MAIN), generator=gen, device=device)
-    rads = rt_sweep_radiances(*a)[1]
-    out = {"rt_sweep_save": device_ms(lambda: rt_sweep_radiances(*a)),
-           "rt_adjoint": device_ms(lambda: rt_sweep_vjp(*a, ct, rads=rads),
-                                   symbol="rt_bwd_kernel")}
-    print(f"device ms, K1 keeping the radiances {out['rt_sweep_save']:.3f},"
-          f" K6 {out['rt_adjoint']:.3f}")
-    return out
+    McICA on phase 3's inputs, from ``utils/snapshot.py --k6-times`` in a
+    process of its own: in this script's long process the profiler's
+    traces of these launches held 3 of 5 early and one or none late
+    (phase 6 holds their results and their wrapper ms).  -> {summary
+    name: device ms}."""
+    from rrtmg_lw_torch import _build
+    out = _build.BUILD_ROOT / "k6_times.json"
+    out.unlink(missing_ok=True)
+    res = subprocess.run(
+        [sys.executable, "-m", "rrtmg_lw_torch.utils.snapshot",
+         "--k6-times", str(out)], capture_output=True, text=True,
+        cwd=pathlib.Path(__file__).resolve().parent, timeout=600)
+    print(res.stdout, end="")
+    need(res.returncode == 0 and out.exists(),
+         f"snapshot.py --k6-times failed:\n{res.stderr[-3000:]}")
+    rows = {r["mode"]: r for r in json.loads(out.read_text())}
+    c = rows["compact"]
+    print(f"device ms, K1 keeping the radiances {c['k1_save_ms']:.3f} "
+          f"(without {c['k1_ms']:.3f}), K6 {c['k6_ms']:.3f}")
+    return {"rt_sweep_save": c["k1_save_ms"], "rt_adjoint": c["k6_ms"]}
 
 
 def grad_errs(tag, gk, ge):
@@ -1760,7 +1721,7 @@ def main() -> int:
     # 3. kernels vs plain versions; then K2 and K1 in reduced storage
     res = phase_kernels(device)
     torch.cuda.empty_cache()
-    grad_dev = grad_device_times(device)
+    grad_dev = grad_device_times()
     torch.cuda.empty_cache()
     res.update(phase_storage_kernels(device))
     torch.cuda.empty_cache()

@@ -432,18 +432,32 @@ def k1_times(device, reps=5) -> list:
     return rows
 
 
-def kernel_ms(fn, symbol, reps=5) -> float:
-    """Device ms per call of the kernels whose symbol holds ``symbol``
-    (``torch.profiler``), the mean of ``reps`` calls after one warm-up."""
+def kernel_ms(fn, symbol, reps=5, tries=3) -> float:
+    """Device ms of one launch of the kernel whose symbol holds
+    ``symbol`` (``torch.profiler``, kernel time alone), ``fn`` launching
+    it once a call: the mean over ``reps`` calls after one warm-up.  A
+    trace can hold fewer launches than were made (on the H100, 3 of 5 in
+    a long process), so the mean is over the launches it holds, their count is printed when short, and a
+    trace that holds none is taken again, up to ``tries`` times."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if symbol in e.name) / 1e3 / reps
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if symbol in e.name]
+        if us:
+            break
+    if not us or len(us) > reps:
+        raise RuntimeError(f"kernel_ms: {len(us)} launches of {symbol} in "
+                           f"a trace of {reps} calls ({tries} traces)")
+    if len(us) < reps:
+        print(f"kernel_ms {symbol}: the trace held {len(us)} of {reps} "
+              "launches", flush=True)
+    return sum(us) / len(us) / 1e3
 
 
 def k6_times(device, reps=5) -> list:

@@ -403,6 +403,84 @@ def test_k1_edge_cases_cover_what_they_promise():
         assert torch.equal(out, WRAPPERS[w](*eargs, *cl)), name
 
 
+@pytest.mark.parametrize("held, want", [
+    ([[1000, 2000, 3000, 4000, 5000]], 3.0),   # every launch
+    ([[2000, 4000, 6000]], 4.0),               # 3 of 5: their mean
+    ([[], [], [500]], 0.5),                    # none twice, then one
+    ([[], [], []], None),                      # none three times: raises
+    ([[1000] * 6], None),                      # more than one a call
+])
+def test_kernel_ms_averages_the_launches_a_trace_holds(monkeypatch, held,
+                                                      want):
+    """snapshot.kernel_ms (chip_smoke.py's device ms) on stand-in traces:
+    the mean over the launches of ``symbol`` the trace holds, other
+    kernels ignored, a trace with none taken again up to three times."""
+    from rrtmg_lw_torch.utils import snapshot
+
+    class Event:
+        def __init__(self, name, us):
+            self.name = name
+            self.time_range = type("R", (), {"elapsed_us": lambda s: us})()
+
+    traces = iter(held)
+
+    class Profile:
+        def __init__(self, activities):
+            self.held = next(traces)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [Event("other_kernel", 7)] + [
+                Event("_Z9rt_kernelILi1E", us) for us in self.held]
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    if want is None:
+        with pytest.raises(RuntimeError, match="launches of rt_kernel"):
+            snapshot.kernel_ms(lambda: calls.append(1), "rt_kernel")
+    else:
+        assert snapshot.kernel_ms(lambda: calls.append(1),
+                                  "rt_kernel") == want
+    assert len(calls) == 1 + 5 * min(len(held), 3)
+
+
+def test_ptxas_info_reads_each_instantiation(tmp_path):
+    """chip_smoke.ptxas_info on ptxas -v lines: registers and spill
+    stores per instantiation matched by its mangled name, other kernels'
+    lines skipped."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    log = """\
+ptxas info    : Compiling entry function '_Z13rt_bwd_kernelILb1EEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z13rt_bwd_kernelILb1EEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 127 registers, used 1 barriers, 560 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z12planck_kernelPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z12planck_kernelPKf
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 32 registers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z13rt_bwd_kernelILb0EEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z13rt_bwd_kernelILb0EEvPKf
+    288 bytes stack frame, 288 bytes spill stores, 288 bytes spill loads
+ptxas info    : Used 128 registers, 560 bytes cmem[0]
+"""
+    path = tmp_path / "build.log"
+    path.write_text(log)
+    got = smoke.ptxas_info(path, r"rt_bwd_kernelILb([01])E",
+                           lambda m: ("clear", "compact")[int(m.group(1))])
+    assert got == {"compact": {"spill_bytes": 0, "registers": 127},
+                   "clear": {"spill_bytes": 288, "registers": 128}}
+
+
 def test_build_hash_covers_sources():
     names = {p.name for p in _build.sources()}
     assert {"planck.cu", "cldcoef.cu", "taumol.cu", "rtrn.cu",
