@@ -668,12 +668,26 @@ def k1_build_info(log_path):
 
 
 def k6_build_info(log_path):
-    """K6's registers and spill stores per instantiation (``ptxas_info``):
-    {"clear" | "compact": {...}}."""
+    """K6's registers and spill stores per instantiation (``ptxas_info``)
+    and launch configuration (``rtrn_cuda.k6_info``): {"clear" |
+    "compact": {...}}; fails where one spills or fits fewer than two
+    blocks per SM."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import k6_info
     out = ptxas_info(log_path, r"rt_bwd_kernelILb([01])E",
                      lambda m: ("clear", "compact")[int(m.group(1))])
     need(len(out) == 2 and all(len(r) == 2 for r in out.values()),
          f"K6: {len(out)} instantiations in the build log, expected 2")
+    for key, r in out.items():
+        info = k6_info(key == "compact")
+        need(info["registers"] == r["registers"],
+             f"K6 {key}: {info['registers']} registers at run time, ptxas "
+             f"said {r['registers']}")
+        r.update(smem_bytes=info["static_smem"] + info["dynamic_smem"],
+                 blocks_per_sm=info["blocks_per_sm"],
+                 ring_levels=info["ring_levels"])
+        need(r["spill_bytes"] == 0 and r["blocks_per_sm"] >= 2,
+             f"K6 {key}: {r['spill_bytes']} B spill stores, "
+             f"{r['blocks_per_sm']} blocks per SM")
     return out
 
 
@@ -1134,11 +1148,24 @@ def phase_grad_kernels(device):
             pass
         else:
             need(False, "rt_adjoint: K6 ran without the radiances")
-        out += list(rt_sweep_vjp(*args, ct, rads=rads))
+        grads = rt_sweep_vjp(*args, ct, rads=rads)
+        out += list(grads)
         ref += list(rtrn.rt_sweep_vjp(*args, ct))
         again += list(rt_sweep_vjp(*args, ct, rads=rads))
         print(f"rt_sweep_save ({tag}): fluxes bitwise K1's, radiances "
               f"within {e:.3g} of max |plain|")
+        if tag == "clear":
+            # the clear launches' bounds, counted as the compact ones
+            res["rt_adjoint"]["bound_ms_clear"] = bound(
+                (*args, ct, rads), grads,
+                OPS["rt_adjoint"] * tt.numel())["bound_ms"]
+            res["rt_sweep_save"]["bound_ms_clear"] = bound(
+                args, (fk, rads),
+                140 * OPS["rt_clear"] * L_MAIN * B_MAIN)["bound_ms"]
+            print(f"clear bounds: rt_adjoint "
+                  f"{res['rt_adjoint']['bound_ms_clear']:.3f} ms, "
+                  f"rt_sweep_save "
+                  f"{res['rt_sweep_save']['bound_ms_clear']:.3f} ms")
     res["rt_adjoint"].update(check("rt_adjoint", out, ref, TOL_BWD_RT,
                                    again))
     res["rt_sweep_save"].update(
@@ -1711,7 +1738,9 @@ def main() -> int:
     k6_build = k6_build_info(path.parent / "build.log")
     for key, r in k6_build.items():
         print(f"K6 {key}: {r['registers']} registers, {r['spill_bytes']} B "
-              f"spill stores")
+              f"spill stores, {r['smem_bytes']} B shared memory, "
+              f"{r['blocks_per_sm']} blocks per SM, ring of "
+              f"{r['ring_levels']} levels")
     k2_build = k2_build_info(path.parent / "build.log")
     for key, r in k2_build.items():
         print(f"K2 {key}: {r['registers']} registers, {r['spill_bytes']} B "

@@ -52,6 +52,7 @@ SIGNATURES = {
     "rrtm_rt_info": (I, I, I, I, P),
     "rrtm_overlap": (P, P, I, I, P),
     "rrtm_rt_bwd": (P,) * 21 + (I, I, I, P),
+    "rrtm_rt_bwd_info": (I, P),
     "rrtm_taumol_ndesc": (),
     "rrtm_probe_onehot": (P, P, P, I, I, I, I, I, P),
     "rrtm_probe_gather": (P, P, P, I, I, I, P),

@@ -1,7 +1,9 @@
 // Shared by K1 (rtrn_kernel.cuh) and its adjoint K6 (rtrn_bwd.cu): the
 // inputs, the factor functions and one step of the sweep recurrences of
-// ops/rtrn.py (use_lut=False, the two-division Planck transition), and
-// K6's block layout.
+// ops/rtrn.py (use_lut=False, the two-division Planck transition), the
+// block tile both use (16 columns x 16 g-lanes, two blocks per SM) and
+// the staging of a level's rows into a ring in shared memory (cp.async,
+// one mbarrier per slot).
 #pragma once
 
 #include <stdint.h>
@@ -14,9 +16,21 @@
 namespace rrtm {
 namespace rt {
 
-constexpr int NX = 32;                                  // columns per block
-constexpr int NY = 16;                                  // g-lanes per column
-constexpr int GPT = (rrtm::NGPT + NY - 1) / NY;         // g-points per thread
+constexpr int KX = 16;                       // columns per block
+constexpr int KY = 16;                       // g-lanes per column
+constexpr int KT = KX * KY;                  // threads per block
+constexpr int KW = KT / 32;                  // warps per block
+constexpr int KG = rrtm::NGPT;               // g-points
+constexpr int KGPT = (KG + KY - 1) / KY;     // g-points per thread
+constexpr int KNB = rrtm::NBAND;
+constexpr int BLOCKS_PER_SM = 2;
+// shared memory of an SM on the H100 (228 KB) and the 1 KB the system
+// reserves per block
+constexpr int SMEM_SM = 233472;
+constexpr int SMEM_RESERVED = 1024;
+
+constexpr int align16(int x) { return (x + 15) & ~15; }
+
 constexpr float CLDMIN = 1.0e-20f;
 constexpr float REC_6 = 0.166667f;
 // a layer holds a per-band cloud where cldfrac >= CLOUD_GATE (banded and
@@ -185,6 +199,151 @@ __device__ __forceinline__ void advance_mr(float& rad, float& radc,
     }
     radc = twin ? radc + (f.src - radc) * f.at : rn;
     rad = rn;
+}
+
+
+// A copy of x the compiler cannot see through.  The staging's and the
+// reduction's per-thread offsets are the same at every level; computed
+// from an opaque thread index they are recomputed at each level instead
+// of being hoisted into registers held through the sweep.
+__device__ __forceinline__ int opaque(int x) {
+    int y;
+    asm volatile("mov.b32 %0, %1;\n" : "=r"(y) : "r"(x));
+    return y;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared.b64 [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// the mbarrier's arrival of this thread, once its cp.async copies issued
+// so far have landed
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n"
+                 :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+    const uint32_t a = smem_addr(bar);
+    unsigned done = 0;
+    while (!done) {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n"
+            "}\n"
+            : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    }
+}
+
+// Copy `rows` rows of `nvalid` elements of ES bytes, row r at
+// src + r * stride bytes, into the (rows, KX) tile at dst.  vec: the rows
+// are 16-byte aligned and the tile full, 16-byte copies; else element by
+// element, by cp.async for 4-byte elements and through registers for
+// narrower ones (made visible by the block barrier that precedes their
+// first read).  Columns from nvalid on are left unwritten: the sweep
+// reads column nvalid - 1 there.
+template <int ES>
+__device__ __forceinline__ void stage(unsigned char* dst,
+                                      const unsigned char* src, int rows,
+                                      size_t stride, int nvalid, bool vec,
+                                      int tid) {
+    constexpr int RB = KX * ES;
+    if (vec) {
+        constexpr int CPR = RB / 16;
+        for (int i = tid; i < rows * CPR; i += KT) {
+            const int r = i / CPR, j = i - r * CPR;
+            cp16(dst + r * RB + j * 16, src + r * stride + j * 16);
+        }
+    } else if constexpr (ES == 4) {
+        for (int i = tid; i < rows * nvalid; i += KT) {
+            const int r = i / nvalid, c = i - r * nvalid;
+            cp4(dst + r * RB + c * 4, src + r * stride + c * 4);
+        }
+    } else {
+        using E = std::conditional_t<ES == 2, uint16_t, uint8_t>;
+        constexpr int BATCH = 8;
+        const int n = rows * nvalid;
+        for (int i0 = tid; i0 < n; i0 += KT * BATCH) {
+            E v[BATCH];
+#pragma unroll
+            for (int j = 0; j < BATCH; ++j) {
+                const int i = i0 + j * KT;
+                if (i < n) {
+                    const int r = i / nvalid, c = i - r * nvalid;
+                    v[j] = *reinterpret_cast<const E*>(src + r * stride
+                                                       + c * ES);
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < BATCH; ++j) {
+                const int i = i0 + j * KT;
+                if (i < n) {
+                    const int r = i / nvalid, c = i - r * nvalid;
+                    *reinterpret_cast<E*>(dst + r * RB + c * ES) = v[j];
+                }
+            }
+        }
+    }
+}
+
+// can rows of ES-byte elements at `p`, `B` elements apart, go by 16 bytes
+template <int ES>
+__device__ __forceinline__ bool rows16(const void* p, int B) {
+    return ((uintptr_t)p & 15u) == 0 && ((size_t)B * ES) % 16 == 0;
+}
+
+// let a kernel of this tile take `smem` bytes of dynamic shared memory,
+// with the largest shared-memory carveout
+template <typename Kernel>
+cudaError_t tile_smem(Kernel* kernel, int smem) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// out[0..7] = registers per thread, local memory bytes per thread (spill
+// stack), static and dynamic shared memory bytes per block, blocks per
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the ring's levels,
+// threads per block, columns per block of a KT-thread kernel launched
+// with `smem` bytes of dynamic shared memory (its attributes set)
+template <typename Kernel>
+cudaError_t tile_info(Kernel* kernel, int smem, int ring, int* out) {
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+    if (e != cudaSuccess) return e;
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, KT,
+                                                      smem);
+    if (e != cudaSuccess) return e;
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)a.sharedSizeBytes;
+    out[3] = smem;
+    out[4] = blocks;
+    out[5] = ring;
+    out[6] = KT;
+    out[7] = KX;
+    return cudaSuccess;
 }
 
 }  // namespace rt

@@ -23,26 +23,65 @@
 // forward sweep of its own.  The factors of each step (gas and cloud
 // absorptivities, Planck transitions) are recomputed from taut as K1's
 // sweeps form them.  The discrete gates carry no gradient and are
-// recomputed as K1 forms them: cloudy_lay (one pass over the int8 mask
-// at the start of the block, a warp ballot per layer kept as a bitmask
-// in shared memory: 141 MB read in all, against a second copy of the
-// flags from K1), the clear twin's iclddn (from the highest cloudy
-// layer) and anyc, cldf >= 0.5, cwp >= CLDMIN, the od branches.  At od =
+// recomputed as K1 forms them: cloudy_lay (a warp ballot over the
+// staged mask of the next step, as K1's), the clear twin's iclddn (from
+// the highest cloudy layer) and anyc, cldf >= 0.5, cwp >= CLDMIN, the od
+// branches.  The highest cloudy layer of each column comes from one pass
+// over the int8 mask at the start of the block, in 16-byte rows (141 MB
+// read in all, against a second copy of the flags from K1).  At od =
 // secd * taut = 0 the maximum of the plain version passes half the
 // gradient, as torch.maximum (and jnp.maximum) does at a tie.
 //
 // Bound on the H100: bytes.  Per (layer, g, column) the kernel reads
-// taut and fracs twice (once per reverse sweep), the mask three times
-// and each of the 2 or 4 radiances once, and writes ct_taut, ct_fracs
-// twice (read-add in the second reverse sweep): ~8 GB at B=16384, L=60
+// taut and fracs twice (once per reverse sweep), the mask twice and each
+// of the 2 or 4 radiances once, and writes ct_taut, ct_fracs twice
+// (read-add in the second reverse sweep): ~8.6 GB at B=16384, L=60
 // cloudy.  Each input read once and each output written once, the bytes
 // are ~5.1 GB (1.5 ms at 3.35 TB/s), 2.2 GB of them the radiances;
 // against that a few tens of flops and 2-3 expf per element and sweep.
-// Design: 32 columns x 16 g-lanes, 9 g-points per thread.  The per-band
-// sums (planklay, planklev, abi, abl) and the sum over all g (cw) are
-// formed per layer from per-g values in shared memory, in a fixed order;
-// the running per-g cotangents of the secant are summed at the end.  No
-// atomics on floats: two runs are bitwise equal.
+//
+// Design.  A block holds 16 columns x 16 g-lanes (256 threads, K1's
+// tile, rtrn.cuh), two blocks per SM at <= 128 registers; each thread
+// carries the radiance cotangents of 9 of the 140 g-points of its column
+// in registers.  The band, diffusivity secant and flux weight of every g
+// live in shared memory, as K1's do, and so does the running secant
+// cotangent of every (g, column).
+// - Staged levels: each reverse step's rows (taut, fracs, the radiance
+//   it reads and, compact, its clear twin, the Planck rows of the 16
+//   bands, the two flux cotangents; compact: the int8 mask and cw) are
+//   copied into a ring of RING levels by cp.async one step ahead, 16
+//   bytes a copy where the rows are 16-byte aligned and the tile full,
+//   element by element otherwise; a thread waits on the mbarrier of the
+//   slot it reads.  The up sweep's cotangents of taut and fracs, which
+//   the down sweep adds to, come from device memory: clear loads a
+//   step's at its top, compact each g's before its arithmetic (at 128
+//   registers it cannot hold 18 more); the band-summed ones are loaded
+//   before the step's first barrier, which hides their latency.
+// - Registers: the per-g offsets are recomputed at every step from an
+//   opaque g-lane (rtrn.cuh opaque), not held through the sweep; that
+//   keeps compact at 128 registers without a spill.
+// - Band sums: the per-g values to be summed over g (planklay and
+//   planklev; compact also abi, abl and the two of cw) are summed per
+//   band in ascending g by thread (column, band), and those of cw then
+//   over the bands in band order.  Clear keeps them in gp_s, two
+//   buffers: one block barrier per level, as the next step's barrier
+//   frees the buffer of two steps back.  Compact writes the first four
+//   over the rows of the step's slot that they were computed from (the
+//   ring could not hold the radiances beside a gp_s of all six) and the
+//   two of cw in gp_s: two barriers per level, the second freeing the
+//   slot and gp_s, publishing the cw band sums, which lanes 0-1 sum
+//   after it, and the next step's cloudy-layer ballots.
+// No atomics on floats: two runs are bitwise equal.
+//
+// Shared memory a block (bytes):        clear    compact
+//   ring slot                          29,056     40,384
+//   ring of RING = 2 slots             58,112     80,768
+//   gp_s (buffers x 2 x 8,960)         35,840     17,920
+//   secant cotangents (KG x KX)         8,960      8,960
+//   the rest (BwdLayout)                2,304      4,384
+//   total (SMEM_BWD)                  105,216    112,032
+// Two blocks per SM: 2 x (112,032 + 1,024 reserved) <= 233,472.  Block
+// barriers per level: clear 1, compact 2.
 #include "rtrn.cuh"
 
 namespace {
@@ -62,6 +101,66 @@ struct Grads {
 
 // Per-g cotangents of one step's inputs that are reduced over g.
 enum GQ { Q_PLAY, Q_PLEV, Q_ABI, Q_ABL, Q_CW0, Q_CW1, NQ };
+static_assert(Q_ABL == 3, "compact: four quantities over the slot's rows");
+
+constexpr int RING = 2;                     // levels in the ring
+
+// Byte layout of one reverse step in the ring: the (g or band or row,
+// column) tiles of its inputs, KX columns each.  Compact's step writes
+// its per-g values of planklay, planklev, abi and abl over its own
+// TAU, FR and RAD rows (in that order, one quantity a row), each thread
+// over the elements it has read.
+template <bool CLOUDY>
+struct BwdSlot {
+    static constexpr int ROW = KG * KX * 4;          // a per-g row
+    static constexpr int BAND_ROW = KX * 4;
+    // the radiances the step reads: the total-sky one and, compact, its
+    // clear twin
+    static constexpr int NRAD = CLOUDY ? 2 : 1;
+    static constexpr int TAU = 0;
+    static constexpr int FR = TAU + ROW;
+    static constexpr int RAD = FR + ROW;
+    static constexpr int PLAY = RAD + NRAD * ROW;
+    static constexpr int PLEV = PLAY + KNB * BAND_ROW;
+    static constexpr int CT = PLEV + KNB * BAND_ROW;   // flux cotangents
+    static constexpr int CW = CT + 2 * BAND_ROW;       // compact: cw (2, KX)
+    static constexpr int MASK = CW + 2 * BAND_ROW;     // compact: (KG, KX)
+    static constexpr int BYTES = align16(CLOUDY ? MASK + KG * KX : CW);
+};
+
+// The block's dynamic shared memory: the ring, gp_s (clear: the per-g
+// values of planklay and planklev, two buffers; compact: those of the
+// two water paths), one mbarrier per slot, compact's cw band sums and
+// warp ballots, the band and weight of every g, the columns' secants
+// per band, the first g of every band, compact's highest cloudy layer
+// per column, and the running secant cotangent of every (g, column),
+// summed over both sweeps.
+template <bool CLOUDY>
+struct BwdLayout {
+    using S = BwdSlot<CLOUDY>;
+    static constexpr int NGP = CLOUDY ? 1 : 2;      // gp_s buffers
+    static constexpr int GP = RING * S::BYTES;      // (NGP, 2, KG, KX)
+    static constexpr int BAR = GP + NGP * 2 * S::ROW;
+    static constexpr int BPART = BAR + 8 * RING;    // (2, KNB, KX)
+    static constexpr int CLYW = BPART + (CLOUDY ? 2 * KNB * KX * 4 : 0);
+    static constexpr int NGB = CLYW + (CLOUDY ? KW * 4 : 0);
+    static constexpr int WG = NGB + KG * 4;
+    static constexpr int SECD = WG + KG * 4;          // (KNB, KX)
+    static constexpr int GOFF = SECD + KNB * KX * 4;  // (KNB + 1)
+    static constexpr int HI = GOFF + (KNB + 1) * 4;   // (KX)
+    static constexpr int CTSEC = align16(HI + KX * 4);  // (KG, KX)
+    static constexpr int BYTES = CTSEC + S::ROW;
+};
+
+// the budget of the header
+constexpr int SMEM_BWD[2] = {105216, 112032};
+static_assert(BwdLayout<false>::BYTES == SMEM_BWD[0]
+              && BwdLayout<true>::BYTES == SMEM_BWD[1],
+              "K6's shared memory is the header's budget");
+static_assert(BLOCKS_PER_SM * (SMEM_BWD[1] + SMEM_RESERVED) <= SMEM_SM
+              && BLOCKS_PER_SM * (SMEM_BWD[0] + SMEM_RESERVED) <= SMEM_SM,
+              "two K6 blocks fit an SM");
+static_assert(KNB * KX == KT, "one secant a thread");
 
 // The absorptivity, Planck transition and their derivatives in od.
 __device__ __forceinline__ void factors_d(float od, bool small, float& a,
@@ -80,26 +179,27 @@ __device__ __forceinline__ void factors_d(float od, bool small, float& a,
     }
 }
 
-// Reverse of one advance() of layer l (Planck level `lev`) for one
-// (column, g): lam, mu are the cotangents of the outgoing total-sky and
-// clear radiances on entry and of the incoming ones (rad, radc) on
-// exit.  Writes the per-g values to be reduced into gp and returns the
-// cotangents of taut and fracs; adds the secant's to ct_secd.
+// Reverse of one advance() of a layer for one (column, g) with inputs
+// tau, fr, the Planck rows of its band at the layer (bl) and at the
+// level bounding the step (pl), the secant, mask value m and the
+// layer's water paths: lam, mu are the cotangents of the outgoing
+// total-sky and clear radiances on entry and of the incoming ones (rad,
+// radc) on exit.  Writes the per-g values to be reduced into gp
+// (planklay, planklev, abi, abl) and gw (cw), KG * KX floats a quantity,
+// and returns the cotangents of taut and fracs; adds the secant's to
+// ct_secd.  abi, abl point at the band's coefficients, read only where a
+// water path is nonzero.
 template <bool CLOUDY>
-__device__ __forceinline__ void step_bwd(const Inputs& in, int l, int lev,
-                                         int g, int bd, float secd, float m,
+__device__ __forceinline__ void step_bwd(float tau, float fr, float bl,
+                                         float pl, float secd, float m,
                                          float cw0, float cw1, bool cly,
                                          bool twin, float rad, float radc,
-                                         float& lam, float& mu, float& ct_tau,
-                                         float& ct_fr, float& ct_secd,
-                                         float* gp, int b) {
-    const size_t B = in.B;
-    const size_t gi = ((size_t)l * rrtm::NGPT + g) * B + b;
-    const size_t bi = ((size_t)l * rrtm::NBAND + bd) * B + b;
-    const float tau = in.taut[gi];
-    const float fr = in.fracs[gi];
-    const float bl = in.play[bi];
-    const float dp = in.plev[((size_t)lev * rrtm::NBAND + bd) * B + b] - bl;
+                                         const float* abi, const float* abl,
+                                         float& lam, float& mu,
+                                         float& ct_tau, float& ct_fr,
+                                         float& ct_secd, float* gp,
+                                         float* gw) {
+    const float dp = pl - bl;
     const float x = secd * tau;
     const float od = fmaxf(x, 0.0f);
     float at, tfg, dat, dtfg;
@@ -116,8 +216,8 @@ __device__ __forceinline__ void step_bwd(const Inputs& in, int l, int lev,
         gate = cf >= 0.5f;
         ciwp = cw0 * cf;
         clwp = cw1 * cf;
-        ai = ciwp == 0.0f ? 0.0f : in.abi[bi];
-        al = clwp == 0.0f ? 0.0f : in.abl[bi];
+        ai = ciwp == 0.0f ? 0.0f : *abi;
+        al = clwp == 0.0f ? 0.0f : *abl;
         const float cwp = ciwp + clwp;
         active = cf >= CLDMIN && cwp >= CLDMIN;
         odcld = active ? ciwp * ai + clwp * al : 0.0f;
@@ -159,8 +259,8 @@ __device__ __forceinline__ void step_bwd(const Inputs& in, int l, int lev,
     // factors -> inputs
     ct_fr = ct_src * (bl + tfg * dp) + ct_srctot * (bl + tft * dp);
     const float ct_dp = fr * (ct_src * tfg + ct_srctot * tft);
-    gp[Q_PLAY * rrtm::NGPT * NX] = fr * (ct_src + ct_srctot) - ct_dp;
-    gp[Q_PLEV * rrtm::NGPT * NX] = ct_dp;
+    gp[Q_PLAY * KG * KX] = fr * (ct_src + ct_srctot) - ct_dp;
+    gp[Q_PLEV * KG * KX] = ct_dp;
     float ct_od = ct_at * dat + ct_src * fr * dp * dtfg;
     if (CLOUDY) {
         const float ct_xt = ct_atot * datot + ct_srctot * fr * dp * dtft;
@@ -177,258 +277,416 @@ __device__ __forceinline__ void step_bwd(const Inputs& in, int l, int lev,
                 ct_al = ct_odcld * clwp;
             }
         }
-        gp[Q_ABI * rrtm::NGPT * NX] = ciwp == 0.0f ? 0.0f : ct_ai;
-        gp[Q_ABL * rrtm::NGPT * NX] = clwp == 0.0f ? 0.0f : ct_al;
-        gp[Q_CW0 * rrtm::NGPT * NX] = ct_ciwp * cf;
-        gp[Q_CW1 * rrtm::NGPT * NX] = ct_clwp * cf;
+        gp[Q_ABI * KG * KX] = ciwp == 0.0f ? 0.0f : ct_ai;
+        gp[Q_ABL * KG * KX] = clwp == 0.0f ? 0.0f : ct_al;
+        gw[0] = ct_ciwp * cf;
+        gw[KG * KX] = ct_clwp * cf;
     }
     const float ct_x = x > 0.0f ? ct_od : (x == 0.0f ? 0.5f * ct_od : 0.0f);
     ct_tau = ct_x * secd;
     ct_secd += ct_x * tau;
 }
 
-// Thread (tx, ty) gets the sums over the g-points of band ty of the nq
+// Thread (tx, ty) gets the sums over the g-points of band ty of the NQS
 // per-g quantities in gp[q][g][tx], in g order.
 template <int NQS>
 __device__ __forceinline__ void band_sums(const float* gp, const int* goff,
                                           float* s) {
     const int tx = threadIdx.x, ty = threadIdx.y;
-    __syncthreads();
 #pragma unroll
     for (int q = 0; q < NQS; ++q) {
         float a = 0.0f;
         for (int g = goff[ty]; g < goff[ty + 1]; ++g)
-            a += gp[(q * rrtm::NGPT + g) * NX + tx];
+            a += gp[(q * KG + g) * KX + tx];
         s[q] = a;
     }
-    __syncthreads();
-}
-
-// out[row] (= or += when `add`) v, for a valid column.
-__device__ __forceinline__ void put(float* p, float v, bool add) {
-    *p = add ? *p + v : v;
 }
 
 template <bool CLOUDY>
-__global__ void __launch_bounds__(NX * NY)
+__global__ void __launch_bounds__(KT, BLOCKS_PER_SM)
 rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
               const float* __restrict__ wg, const float* __restrict__ ct,
               const float* __restrict__ rads, Grads gr) {
-    // gp[NQ or 2][140][NX] per-g values, then cly_bits[L]
-    extern __shared__ float dyn[];
-    constexpr int NQS = CLOUDY ? NQ : 2;
-    float* gp_s = dyn;
-    unsigned int* cly_bits = (unsigned int*)(dyn + NQS * rrtm::NGPT * NX);
-    __shared__ float bpart[2][rrtm::NBAND][NX];
-    __shared__ int ngb_s[rrtm::NGPT];
-    __shared__ float wg_s[rrtm::NGPT];
-    __shared__ int goff[rrtm::NBAND + 1];
+    using Sl = BwdSlot<CLOUDY>;
+    using Lo = BwdLayout<CLOUDY>;
+    constexpr int NQS = CLOUDY ? 4 : 2;     // quantities in gp (step_bwd)
+    extern __shared__ __align__(16) unsigned char smem[];
+    float* gp_s = reinterpret_cast<float*>(smem + Lo::GP);
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smem + Lo::BAR);
+    float* bpart = reinterpret_cast<float*>(smem + Lo::BPART);
+    unsigned* clyw = reinterpret_cast<unsigned*>(smem + Lo::CLYW);
+    int* ngb_s = reinterpret_cast<int*>(smem + Lo::NGB);
+    float* wg_s = reinterpret_cast<float*>(smem + Lo::WG);
+    float* secd_s = reinterpret_cast<float*>(smem + Lo::SECD);
+    int* goff = reinterpret_cast<int*>(smem + Lo::GOFF);
+    int* hi_s = reinterpret_cast<int*>(smem + Lo::HI);
+    float* ctsec_s = reinterpret_cast<float*>(smem + Lo::CTSEC);
+
     const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * NX + tx;
+    const int tid = ty * KX + tx;
+    const int warp = tid >> 5, lane = tid & 31;
     const int L = in.L, B = in.B;
-    for (int i = tid; i < rrtm::NGPT; i += NX * NY) {
+    const size_t Bz = B;
+    const int bt = blockIdx.x * KX;
+    const int nvalid = min(KX, B - bt);
+    // lanes past the ragged edge compute nothing and write nothing; they
+    // take part in the staging, the ballots and the barriers
+    const bool valid = tx < nvalid;
+    const int b = bt + tx;
+    for (int i = tid; i < KG; i += KT) {
         ngb_s[i] = ngb[i];
         wg_s[i] = wg[i];
+        if (i == 0 || ngb[i] != ngb[i - 1]) goff[ngb[i]] = i;
     }
-    for (int i = tid; i < L; i += NX * NY) cly_bits[i] = 0u;
-    __syncthreads();
-    for (int g = tid; g < rrtm::NGPT; g += NX * NY)
-        if (g == 0 || ngb_s[g] != ngb_s[g - 1]) goff[ngb_s[g]] = g;
-    if (tid == 0) goff[rrtm::NBAND] = rrtm::NGPT;
+    if (tid == 0) goff[KNB] = KG;
+    secd_s[tid] = in.surf[(size_t)(tid / KX) * Bz + bt
+                          + min(tid % KX, nvalid - 1)];
+    if (tid < KX) hi_s[tid] = -1;
+    if (tid == 0)
+        for (int r = 0; r < RING; ++r) mbar_init(&bar[r], KT);
     __syncthreads();
 
-    const int b0 = blockIdx.x * NX + tx;
-    const bool valid = b0 < B;
-    // ragged edge: compute on column B-1 (its stored radiances), never
-    // write; its cloudy-layer bits exclude the lane, as K1's do
-    const int b = valid ? b0 : B - 1;
-    const size_t LGB = (size_t)L * rrtm::NGPT * B;
-    const float* sD = rads;                // down radiance at level l
-    const float* sU = rads + LGB;          // up radiance entering layer l
-    const float* sDc = rads + 2 * LGB;     // their clear twins (cloudy)
-    const float* sUc = rads + 3 * LGB;
-    auto at_lg = [&](int l, int g) {
-        return ((size_t)l * rrtm::NGPT + g) * B + b;
-    };
+    // 16-byte copies of a full tile where the rows allow them
+    const bool full = nvalid == KX;
+    const bool v4 = full && rows16<4>(in.taut, B) && rows16<4>(in.fracs, B)
+                    && rows16<4>(in.play, B) && rows16<4>(in.plev, B)
+                    && rows16<4>(ct, B) && rows16<4>(rads, B)
+                    && (!CLOUDY || rows16<4>(in.cw, B));
+    const bool v1 = CLOUDY && full && rows16<1>(in.mask, B);
+    const size_t LGB = (size_t)L * KG * Bz;
 
-    int bnd[GPT];
-    float secd[GPT], rad[GPT], radc[GPT], m[GPT], ctsec[GPT];
-#pragma unroll
-    for (int k = 0; k < GPT; ++k) {
-        const int g = ty + k * NY;
-        bnd[k] = g < rrtm::NGPT ? ngb_s[g] : 0;
-        secd[k] = in.surf[(size_t)bnd[k] * B + b];
-        rad[k] = radc[k] = m[k] = ctsec[k] = 0.0f;
-    }
-    auto load_layer = [&](int l, float& cw0, float& cw1) {
-#pragma unroll
-        for (int k = 0; k < GPT; ++k) {
-            const int g = ty + k * NY;
-            if (g < rrtm::NGPT)
-                m[k] = (float)in.mask[((size_t)l * rrtm::NGPT_PAD + g) * B
-                                      + b];
+    // Reverse step j: up sweep j < L, layer L-1-j, Planck level l+1, flux
+    // rows UP, CLR_UP at level l+1, the up radiance entering l; down
+    // sweep j >= L, layer j-L, Planck level l, rows DOWN, CLR_DOWN at
+    // level l, the down radiance at level l+1.  Copy its rows into its
+    // slot and arm the slot's mbarrier with this thread's copies.
+    auto stage_step = [&](int j) {
+        const bool up = j < L;
+        const int l = up ? L - 1 - j : j - L;
+        const int lev = up ? l + 1 : l;
+        unsigned char* s = smem + (j % RING) * Sl::BYTES;
+        const int t = opaque(threadIdx.y * KX + threadIdx.x);
+        auto rows = [&](int off, const float* p, int n, size_t stride) {
+            stage<4>(s + off, reinterpret_cast<const unsigned char*>(p), n,
+                     stride * 4, nvalid, v4, t);
+        };
+        const size_t gl = (size_t)l * KG * Bz + bt;
+        rows(Sl::TAU, in.taut + gl, KG, Bz);
+        rows(Sl::FR, in.fracs + gl, KG, Bz);
+        // up: U (and Uc) entering l; down: D (and Dc) at level l+1
+        if (up || l + 1 < L) {
+            const float* r = rads + (up ? LGB + gl : gl + KG * Bz);
+            rows(Sl::RAD, r, KG, Bz);
+            if constexpr (CLOUDY)
+                rows(Sl::RAD + Sl::ROW, r + 2 * LGB, KG, Bz);
         }
-        cw0 = in.cw[((size_t)l * 2) * B + b];
-        cw1 = in.cw[((size_t)l * 2 + 1) * B + b];
+        rows(Sl::PLAY, in.play + (size_t)l * KNB * Bz + bt, KNB, Bz);
+        rows(Sl::PLEV, in.plev + (size_t)lev * KNB * Bz + bt, KNB, Bz);
+        // the flux rows UP and CLR_UP (DOWN and CLR_DOWN) at level lev
+        rows(Sl::CT,
+             ct + ((size_t)(up ? UP : DOWN) * (L + 1) + lev) * Bz + bt, 2,
+             (size_t)(CLR_UP - UP) * (L + 1) * Bz);
+        if constexpr (CLOUDY) {
+            rows(Sl::CW, in.cw + (size_t)l * 2 * Bz + bt, 2, Bz);
+            stage<1>(s + Sl::MASK,
+                     reinterpret_cast<const unsigned char*>(
+                         in.mask + (size_t)l * rrtm::NGPT_PAD * Bz + bt),
+                     KG, Bz, nvalid, v1, t);
+        }
+        mbar_arrive_copies(&bar[j % RING]);
     };
-
-    // ---- 1. cloudy layers (a g-point with cloud fraction >= 0.5) and
-    // the highest one, as K1's ballots form them ----
-    int hi = -1;                           // highest cloudy layer
-    if (CLOUDY) {
-        for (int l = 0; l < L; ++l) {
-            bool mine = false;
+    auto slot = [&](int j) -> const unsigned char* {
+        return smem + (j % RING) * Sl::BYTES;
+    };
+    auto wait_step = [&](int j) {
+        mbar_wait(&bar[j % RING], (unsigned)(j / RING) & 1u);
+    };
+    // compact: this warp's ballot of the columns with a cloudy g-point at
+    // step j, into clyw
+    auto ballot_step = [&](int j) {
+        const int8_t* m = reinterpret_cast<const int8_t*>(slot(j) + Sl::MASK);
+        bool mine = false;
+        if (valid) {
 #pragma unroll
-            for (int k = 0; k < GPT; ++k) {
-                const int g = ty + k * NY;
-                if (g < rrtm::NGPT)
-                    mine |= (float)in.mask[((size_t)l * rrtm::NGPT_PAD + g)
-                                           * B + b] >= 0.5f;
+            for (int k = 0; k < KGPT; ++k) {
+                const int g = ty + k * KY;
+                if (g < KG) mine |= (float)m[g * KX + tx] >= 0.5f;
             }
-            const unsigned bal = __ballot_sync(0xffffffffu, mine && valid);
-            if (tx == 0 && bal) atomicOr(&cly_bits[l], bal);
         }
-        __syncthreads();
-        for (int l = L - 1; l >= 0 && hi < 0; --l)
-            if ((cly_bits[l] >> tx) & 1u) hi = l;
+        const unsigned bal = __ballot_sync(0xffffffffu, mine);
+        if (lane == 0) clyw[warp] = bal;
+    };
+
+    for (int j = 0; j < RING - 1 && j < 2 * L; ++j) stage_step(j);
+
+    // ---- 1. compact: the highest cloudy layer of each column; warp w
+    // takes layers w, w + KW, ..., its lanes the 140 rows of a layer in
+    // 16-byte pieces (16 columns) ----
+    if constexpr (CLOUDY) {
+        int top = -1;
+        for (int l = warp; l < L; l += KW) {
+            unsigned bits = 0u;
+            for (int g = lane; g < KG; g += 32) {
+                const int8_t* row =
+                    in.mask + ((size_t)l * rrtm::NGPT_PAD + g) * Bz + bt;
+                if (v1) {
+                    const uint4 v = *reinterpret_cast<const uint4*>(row);
+                    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+                    for (int c = 0; c < KX; ++c)
+                        bits |= (unsigned)((float)(int8_t)(w[c / 4]
+                                                           >> (8 * (c % 4)))
+                                           >= 0.5f) << c;
+                } else {
+                    for (int c = 0; c < nvalid; ++c)
+                        bits |= (unsigned)((float)row[c] >= 0.5f) << c;
+                }
+            }
+            bits = __reduce_or_sync(0xffffffffu, bits);
+            if ((bits >> lane) & 1u) top = l;       // lane = column
+        }
+        if (lane < KX && top >= 0) atomicMax(&hi_s[lane], top);
+        wait_step(0);
+        ballot_step(0);
     }
+    __syncthreads();
+    const int hi = CLOUDY && valid ? hi_s[tx] : -1;  // highest cloudy layer
     const bool anyc = hi >= 0;
 
-    // ---- 2. up sweep in reverse: layer L-1 .. 0 ----
-    auto ct_at = [&](int row, int lev) {
-        return ct[((size_t)row * (L + 1) + lev) * B + b];
-    };
-    // per-band sums of one reverse step of layer l, Planck level lev
-    auto reduce_layer = [&](int l, int lev, bool add) {
-        float s[NQ];
-        band_sums<NQS>(gp_s, goff, s);
-        const size_t bi = ((size_t)l * rrtm::NBAND + ty) * B + b0;
-        if (valid) {
-            put(gr.play + bi, s[Q_PLAY], add);
-            put(gr.plev + ((size_t)lev * rrtm::NBAND + ty) * B + b0,
-                s[Q_PLEV], add && lev > 0);
-            if (CLOUDY) {
-                put(gr.abi + bi, s[Q_ABI], add);
-                put(gr.abl + bi, s[Q_ABL], add);
-            }
-        }
-        if (CLOUDY) {                      // cw: sum of the band sums
-            bpart[0][ty][tx] = s[Q_CW0];
-            bpart[1][ty][tx] = s[Q_CW1];
-            __syncthreads();
-            if (ty < 2 && valid) {
-                float a = 0.0f;
+    float lam[KGPT], mu[KGPT], ct_fr0[KGPT];
 #pragma unroll
-                for (int y = 0; y < rrtm::NBAND; ++y) a += bpart[ty][y][tx];
-                put(gr.cw + ((size_t)l * 2 + ty) * B + b0, a, add);
-            }
-            __syncthreads();
-        }
-    };
-#pragma unroll
-    for (int k = 0; k < GPT; ++k) rad[k] = radc[k] = 0.0f;   // lam, mu
-    for (int l = L - 1; l >= 0; --l) {
-        const float cu = ct_at(UP, l + 1), ccu = ct_at(CLR_UP, l + 1);
-        bool cly = false;
-        float cw0 = 0.0f, cw1 = 0.0f;
-        if (CLOUDY) {
-            cly = (cly_bits[l] >> tx) & 1u;
-            load_layer(l, cw0, cw1);
-        }
-#pragma unroll
-        for (int k = 0; k < GPT; ++k) {
-            const int g = ty + k * NY;
-            if (g >= rrtm::NGPT) continue;
-            rad[k] += wg_s[g] * cu;
-            radc[k] += wg_s[g] * ccu;
-            const float u = sU[at_lg(l, g)];
-            const float uc = CLOUDY ? sUc[at_lg(l, g)] : u;
-            float ct_tau, ct_fr;
-            step_bwd<CLOUDY>(in, l, l + 1, g, bnd[k], secd[k], m[k], cw0,
-                             cw1, cly, anyc, u, uc, rad[k], radc[k], ct_tau,
-                             ct_fr, ctsec[k], gp_s + g * NX + tx, b);
-            if (valid) {
-                gr.taut[at_lg(l, g)] = ct_tau;
-                gr.fracs[at_lg(l, g)] = ct_fr;
-            }
-        }
-        reduce_layer(l, l + 1, false);
+    for (int k = 0; k < KGPT; ++k) {
+        lam[k] = mu[k] = ct_fr0[k] = 0.0f;
+        if (ty + k * KY < KG) ctsec_s[(ty + k * KY) * KX + tx] = 0.0f;
     }
+    auto gp_buf = [&](int j) {
+        return gp_s + (Lo::NGP == 2 ? (j & 1) * 2 * KG * KX : 0);
+    };
 
-    // ---- 3. surface reflection in reverse ----
-    float ct_fr0[GPT];
+    // ---- 2. one reverse step (j: stage_step); FIRST: the first of the
+    // down sweep (layer 0), which adds the surface's fracs cotangent ----
+    auto step = [&](auto upward, auto first, int j) {
+        constexpr bool UPW = decltype(upward)::value;
+        constexpr bool FIRST = decltype(first)::value;
+        const int l = UPW ? L - 1 - j : j - L;
+        const int lev = UPW ? l + 1 : l;
+        if (j + RING - 1 < 2 * L) stage_step(j + RING - 1);
+        wait_step(j);
+        unsigned char* s = smem + (j % RING) * Sl::BYTES;
+        // planklay, planklev (abi, abl): clear gp_s, compact over the
+        // slot's TAU, FR and RAD rows; compact's cw in gp_s
+        float* gp = CLOUDY ? reinterpret_cast<float*>(s) : gp_buf(j);
+        float* gw = gp_s;
+        if (valid) {
+            const float* ct_s = reinterpret_cast<const float*>(s + Sl::CT);
+            const float cu = ct_s[tx], ccu = ct_s[KX + tx];
+            bool cly = false;
+            float cw0 = 0.0f, cw1 = 0.0f;
+            if constexpr (CLOUDY) {
+                unsigned w = 0u;
+#pragma unroll
+                for (int i = 0; i < KW; ++i) w |= clyw[i];
+                w |= w >> 16;                 // lanes 16-31: odd g-lanes
+                cly = (w >> tx) & 1u;
+                const float* cw_s =
+                    reinterpret_cast<const float*>(s + Sl::CW);
+                cw0 = cw_s[tx];
+                cw1 = cw_s[KX + tx];
+            }
+            const bool twin = UPW ? anyc : l <= hi;
+            // clear: the up sweep's cotangents of taut and fracs, which
+            // the down sweep adds to, loaded before any store of the step
+            float pt[KGPT], pf[KGPT];
+            if constexpr (!UPW && !CLOUDY) {
+#pragma unroll
+                for (int k = 0; k < KGPT; ++k) {
+                    const int g = ty + k * KY;
+                    if (g >= KG) continue;
+                    const size_t gi = ((size_t)l * KG + g) * Bz + b;
+                    pt[k] = gr.taut[gi];
+                    pf[k] = gr.fracs[gi];
+                }
+            }
+            auto row = [&](int off) {
+                return reinterpret_cast<const float*>(s + off);
+            };
+            const float *tau_s = row(Sl::TAU), *fr_s = row(Sl::FR),
+                        *rad_s = row(Sl::RAD), *play_s = row(Sl::PLAY),
+                        *plev_s = row(Sl::PLEV);
+            const int8_t* m_s = reinterpret_cast<const int8_t*>(s + Sl::MASK);
+            // the per-g offsets are recomputed at each step from an opaque
+            // g-lane (rtrn.cuh opaque), not held through the sweep
+            const int gy = opaque(ty);
+#pragma unroll
+            for (int k = 0; k < KGPT; ++k) {
+                const int g = gy + k * KY;
+                if (g >= KG) continue;
+                const int bd = ngb_s[g];
+                lam[k] += wg_s[g] * cu;
+                mu[k] += wg_s[g] * ccu;
+                const size_t gi = ((size_t)l * KG + g) * Bz + b;
+                const int gs = g * KX + tx, bs = bd * KX + tx;
+                // compact: the up sweep's cotangents of taut and fracs
+                if constexpr (!UPW && CLOUDY) {
+                    pt[k] = gr.taut[gi];
+                    pf[k] = gr.fracs[gi];
+                }
+                float rad = 0.0f, radc = 0.0f;
+                if (UPW || l + 1 < L) {
+                    rad = rad_s[gs];
+                    radc = CLOUDY ? rad_s[KG * KX + gs] : rad;
+                }
+                const size_t bi = ((size_t)l * KNB + bd) * Bz + b;
+                float ct_tau, ct_fr;
+                step_bwd<CLOUDY>(tau_s[gs], fr_s[gs], play_s[bs],
+                                 plev_s[bs], secd_s[bs],
+                                 CLOUDY ? (float)m_s[gs] : 0.0f, cw0, cw1,
+                                 cly, twin, rad, radc, in.abi + bi,
+                                 in.abl + bi, lam[k], mu[k], ct_tau, ct_fr,
+                                 ctsec_s[gs], gp + gs, gw + gs);
+                if constexpr (UPW) {
+                    gr.taut[gi] = ct_tau;
+                    gr.fracs[gi] = ct_fr;
+                } else {
+                    gr.taut[gi] = pt[k] + ct_tau;
+                    gr.fracs[gi] =
+                        pf[k] + (FIRST ? ct_fr + ct_fr0[k] : ct_fr);
+                }
+            }
+        }
+        // the band-summed outputs of (layer l, band ty, column tx) and, in
+        // lanes 0-1, of cw: the down sweep adds to the up sweep's, read
+        // here so that the barriers below hide the loads
+        const size_t bi = ((size_t)l * KNB + ty) * Bz + b;
+        const size_t vi = ((size_t)lev * KNB + ty) * Bz + b;
+        [[maybe_unused]] const size_t wi =
+            ((size_t)l * 2 + (ty & 1)) * Bz + b;
+        float part[NQS + 1] = {};   // + cw's
+        if (!UPW && valid) {
+            part[Q_PLAY] = gr.play[bi];
+            if (lev > 0) part[Q_PLEV] = gr.plev[vi];
+            if constexpr (CLOUDY) {
+                part[Q_ABI] = gr.abi[bi];
+                part[Q_ABL] = gr.abl[bi];
+                if (ty < 2) part[NQS] = gr.cw[wi];
+            }
+        }
+        // out = the sum, or (down sweep) the up sweep's plus the sum
+        auto out = [&](float* p, float pv, float v, bool add) {
+            *p = add ? pv + v : v;
+        };
+        __syncthreads();          // gp published; the slot of step j read
+        float sq[NQ];
+        band_sums<NQS>(gp, goff, sq);
+        if constexpr (CLOUDY) {
+            band_sums<2>(gw, goff, sq + Q_CW0);
+            // cw: the band sums, then their sum in band order after the
+            // barrier that frees the slot and gp_s
+            bpart[ty * KX + tx] = sq[Q_CW0];
+            bpart[(KNB + ty) * KX + tx] = sq[Q_CW1];
+            if (j + 1 < 2 * L) {
+                wait_step(j + 1);
+                ballot_step(j + 1);
+            }
+            __syncthreads();
+        }
+        if (valid) {
+            out(gr.play + bi, part[Q_PLAY], sq[Q_PLAY], !UPW);
+            out(gr.plev + vi, part[Q_PLEV], sq[Q_PLEV], !UPW && lev > 0);
+            if constexpr (CLOUDY) {
+                out(gr.abi + bi, part[Q_ABI], sq[Q_ABI], !UPW);
+                out(gr.abl + bi, part[Q_ABL], sq[Q_ABL], !UPW);
+                if (ty < 2) {
+                    float a = 0.0f;
+#pragma unroll
+                    for (int y = 0; y < KNB; ++y)
+                        a += bpart[(ty * KNB + y) * KX + tx];
+                    out(gr.cw + wi, part[NQS], a, !UPW);
+                }
+            }
+        }
+    };
+
+    // ---- 3. up sweep in reverse: layer L-1 .. 0 ----
+    for (int j = 0; j < L; ++j) step(std::true_type{}, std::false_type{}, j);
+
+    // ---- 4. surface reflection in reverse ----
     {
-        const float cu = ct_at(UP, 0), ccu = ct_at(CLR_UP, 0);
-#pragma unroll
-        for (int k = 0; k < GPT; ++k) {
-            const int g = ty + k * NY;
-            ct_fr0[k] = 0.0f;
-            if (g >= rrtm::NGPT) continue;
-            const float lam = rad[k] + wg_s[g] * cu;
-            const float mu = radc[k] + wg_s[g] * ccu;
-            const float fr0 = in.fracs[(size_t)g * B + b];
-            const float pbnd =
-                in.surf[((size_t)2 * rrtm::NBAND + bnd[k]) * B + b];
-            const float reflect =
-                1.0f - in.surf[((size_t)rrtm::NBAND + bnd[k]) * B + b];
-            const float d0 = sD[at_lg(0, g)];
-            const float dc0 = CLOUDY ? sDc[at_lg(0, g)] : d0;
-            const float ct_rad0 = lam + mu;
-            ct_fr0[k] = ct_rad0 * pbnd;
-            gp_s[(0 * rrtm::NGPT + g) * NX + tx] = -(lam * d0 + mu * dc0);
-            gp_s[(1 * rrtm::NGPT + g) * NX + tx] = ct_rad0 * fr0;
-            rad[k] = lam * reflect;
-            radc[k] = mu * reflect;
-        }
-        float s[2];
-        band_sums<2>(gp_s, goff, s);
+        float* gp = gp_buf(L);
         if (valid) {
-            gr.surf[((size_t)rrtm::NBAND + ty) * B + b0] = s[0];
-            gr.surf[((size_t)2 * rrtm::NBAND + ty) * B + b0] = s[1];
-        }
-    }
-
-    // ---- 4. down sweep in reverse: layer 0 .. L-1 ----
-    for (int l = 0; l < L; ++l) {
-        const float cd = ct_at(DOWN, l), ccd = ct_at(CLR_DOWN, l);
-        bool cly = false;
-        float cw0 = 0.0f, cw1 = 0.0f;
-        if (CLOUDY) {
-            cly = (cly_bits[l] >> tx) & 1u;
-            load_layer(l, cw0, cw1);
-        }
-        const bool icl = l <= hi;          // cloud at or above layer l
+            const float cu = ct[(size_t)UP * (L + 1) * Bz + b];
+            const float ccu = ct[(size_t)CLR_UP * (L + 1) * Bz + b];
 #pragma unroll
-        for (int k = 0; k < GPT; ++k) {
-            const int g = ty + k * NY;
-            if (g >= rrtm::NGPT) continue;
-            rad[k] += wg_s[g] * cd;
-            radc[k] += wg_s[g] * ccd;
-            const float d = l + 1 < L ? sD[at_lg(l + 1, g)] : 0.0f;
-            const float dc = CLOUDY ? (l + 1 < L ? sDc[at_lg(l + 1, g)]
-                                                 : 0.0f)
-                                    : d;
-            float ct_tau, ct_fr;
-            step_bwd<CLOUDY>(in, l, l, g, bnd[k], secd[k], m[k], cw0, cw1,
-                             cly, icl, d, dc, rad[k], radc[k], ct_tau, ct_fr,
-                             ctsec[k], gp_s + g * NX + tx, b);
-            if (valid) {
-                gr.taut[at_lg(l, g)] += ct_tau;
-                gr.fracs[at_lg(l, g)] += l == 0 ? ct_fr + ct_fr0[k] : ct_fr;
+            for (int k = 0; k < KGPT; ++k) {
+                const int g = ty + k * KY;
+                if (g >= KG) continue;
+                const int bd = ngb_s[g];
+                const float lam0 = lam[k] + wg_s[g] * cu;
+                const float mu0 = mu[k] + wg_s[g] * ccu;
+                const float fr0 = in.fracs[(size_t)g * Bz + b];
+                const float pbnd = in.surf[((size_t)2 * KNB + bd) * Bz + b];
+                const float reflect =
+                    1.0f - in.surf[((size_t)KNB + bd) * Bz + b];
+                const float d0 = rads[(size_t)g * Bz + b];
+                const float dc0 = CLOUDY ? rads[2 * LGB + (size_t)g * Bz + b]
+                                         : d0;
+                const float ct_rad0 = lam0 + mu0;
+                ct_fr0[k] = ct_rad0 * pbnd;
+                gp[g * KX + tx] = -(lam0 * d0 + mu0 * dc0);
+                gp[(KG + g) * KX + tx] = ct_rad0 * fr0;
+                lam[k] = lam0 * reflect;
+                mu[k] = mu0 * reflect;
             }
         }
-        reduce_layer(l, l, true);
+        __syncthreads();
+        float sq[2];
+        band_sums<2>(gp, goff, sq);
+        if (valid) {
+            gr.surf[((size_t)KNB + ty) * Bz + b] = sq[0];
+            gr.surf[((size_t)2 * KNB + ty) * Bz + b] = sq[1];
+        }
+        __syncthreads();
     }
 
-    // ---- 5. the secant, summed over both sweeps ----
-#pragma unroll
-    for (int k = 0; k < GPT; ++k) {
-        const int g = ty + k * NY;
-        if (g < rrtm::NGPT) gp_s[g * NX + tx] = ctsec[k];
-    }
-    float s[1];
-    band_sums<1>(gp_s, goff, s);
-    if (valid) gr.surf[(size_t)ty * B + b0] = s[0];
+    // ---- 5. down sweep in reverse: layer 0 .. L-1 ----
+    step(std::false_type{}, std::true_type{}, L);
+    for (int j = L + 1; j < 2 * L; ++j)
+        step(std::false_type{}, std::false_type{}, j);
+
+    // ---- 6. the secant, summed over both sweeps (ctsec_s is final at
+    // the last step's first barrier) ----
+    float sq[1];
+    band_sums<1>(ctsec_s, goff, sq);
+    if (valid) gr.surf[(size_t)ty * Bz + b] = sq[0];
+}
+
+// the shared memory attributes of K6, set once per process
+template <bool CLOUDY>
+cudaError_t prepare_bwd() {
+    static const cudaError_t e =
+        tile_smem(rt_bwd_kernel<CLOUDY>, BwdLayout<CLOUDY>::BYTES);
+    return e;
+}
+
+template <bool CLOUDY>
+cudaError_t launch_bwd(const Inputs& in, const int* ngb, const float* wg,
+                       const float* ct, const float* rads, const Grads& gr,
+                       cudaStream_t s) {
+    cudaError_t e = prepare_bwd<CLOUDY>();
+    if (e != cudaSuccess) return e;
+    const dim3 block(KX, KY);
+    const dim3 grid((in.B + KX - 1) / KX);
+    rt_bwd_kernel<CLOUDY><<<grid, block, BwdLayout<CLOUDY>::BYTES, s>>>(
+        in, ngb, wg, ct, rads, gr);
+    return cudaGetLastError();
+}
+
+template <bool CLOUDY>
+cudaError_t info_bwd(int* out) {
+    cudaError_t e = prepare_bwd<CLOUDY>();
+    if (e != cudaSuccess) return e;
+    return tile_info(rt_bwd_kernel<CLOUDY>, BwdLayout<CLOUDY>::BYTES, RING,
+                     out);
 }
 
 }  // namespace
@@ -454,22 +712,13 @@ RRTM_API int rrtm_rt_bwd(const float* taut, const float* fracs,
     const Inputs in{taut, fracs, play, plev, surf, mask, cw, abi, abl, L, B};
     const Grads gr{ct_taut, ct_fracs, ct_play, ct_plev, ct_surf, ct_cw,
                    ct_abi, ct_abl};
-    const dim3 block(NX, NY);
-    const dim3 grid((B + NX - 1) / NX);
     cudaStream_t s = (cudaStream_t)stream;
-    const int nq = cloudy ? NQ : 2;
-    const size_t smem = (size_t)nq * rrtm::NGPT * NX * sizeof(float)
-                        + (size_t)L * sizeof(unsigned int);
-    cudaError_t e = cudaFuncSetAttribute(
-        cloudy ? (const void*)rt_bwd_kernel<true>
-               : (const void*)rt_bwd_kernel<false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    if (cloudy)
-        rt_bwd_kernel<true><<<grid, block, smem, s>>>(in, ngb, wg, ct, rads,
-                                                       gr);
-    else
-        rt_bwd_kernel<false><<<grid, block, smem, s>>>(in, ngb, wg, ct,
-                                                        rads, gr);
-    return (int)cudaGetLastError();
+    return (int)(cloudy ? launch_bwd<true>(in, ngb, wg, ct, rads, gr, s)
+                        : launch_bwd<false>(in, ngb, wg, ct, rads, gr, s));
+}
+
+// The launch configuration of K6, clear or compact (cloudy): out[0..7]
+// as rrtm_rt_info's (rtrn.cuh tile_info).
+RRTM_API int rrtm_rt_bwd_info(int cloudy, int* out) {
+    return (int)(cloudy ? info_bwd<true>(out) : info_bwd<false>(out));
 }

@@ -395,20 +395,31 @@ K1_INFO = ("registers", "local_bytes", "static_smem", "dynamic_smem",
            "blocks_per_sm", "ring_levels", "threads", "columns")
 
 
+def _launch_info(entry, *args):
+    """``K1_INFO`` -> int of the instantiation that entry point ``entry``
+    selects by ``args``, from the CUDA runtime."""
+    buf = (ctypes.c_int * len(K1_INFO))()
+    lib = _build.library()
+    err = getattr(lib, entry)(*args, ctypes.cast(buf, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"{entry}: " + lib.rrtm_error_string(err).decode())
+    return dict(zip(K1_INFO, buf))
+
+
 def k1_info(mode, idrv, spec_dtype=torch.float32, save=False):
     """K1's launch configuration in ``mode`` (a ``MODES`` key) at idrv
     0/1 with taut in ``spec_dtype`` (``save``: the instantiation that
     keeps the radiances, clear and compact in float32): ``K1_INFO`` ->
     int, from the CUDA runtime (``cudaFuncGetAttributes``,
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the card."""
-    buf = (ctypes.c_int * len(K1_INFO))()
-    lib = _build.library()
-    err = lib.rrtm_rt_info(MODES[mode], int(idrv), SPEC_CODES[spec_dtype],
-                           int(save), ctypes.cast(buf, ctypes.c_void_p))
-    if err != 0:
-        raise RuntimeError("rrtm_rt_info: "
-                           + lib.rrtm_error_string(err).decode())
-    return dict(zip(K1_INFO, buf))
+    return _launch_info("rrtm_rt_info", MODES[mode], int(idrv),
+                        SPEC_CODES[spec_dtype], int(save))
+
+
+def k6_info(cloudy):
+    """K6's launch configuration, clear or compact (``cloudy``):
+    ``K1_INFO`` -> int, as ``k1_info``; needs the card."""
+    return _launch_info("rrtm_rt_bwd_info", int(cloudy))
 
 
 for _w in WRAPPERS.values():

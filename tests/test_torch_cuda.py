@@ -32,8 +32,9 @@ apart (logf against torch.log); K1 in every mode x idrv x storage within
 a seeded aerosol od that a dropped or misread add would fail.  K1's 48
 instantiations on its edge cases (utils/snapshot.py k1_edge_args) at B
 of K1's 16-column tile +-1 and off 16, L = 1, past the ring and 140, and
-its launch configuration (at least two blocks per SM).
-The probes (utils/probes.py) bitwise equal to tbl[idx].
+its launch configuration (at least two blocks per SM), and K6's (256
+threads, at least two blocks per SM, no spill).  The probes
+(utils/probes.py) bitwise equal to tbl[idx].
 """
 
 import functools
@@ -343,11 +344,14 @@ def test_rt_bwd_kernel_matches_plain_vjp(dev, B, L, cloudy):
              (clouds.cldfmc, cw, abi, abl) if cloudy else None)
 
 
-@pytest.mark.parametrize("B,L", [(15, 5), (33, 9), (100, 140)])
+@pytest.mark.parametrize("B,L", [(15, 5), (33, 9), (100, 140), (16, 7),
+                                 (17, 7), (32, 60)])
 def test_rt_bwd_kernel_on_k1_edge_cases(dev, B, L):
     """K1 keeping the radiances and K6 on ``utils.snapshot.k1_edge_args``
     (clear, overcast and top-and-bottom columns across the tiles, od
-    exactly 0.06 and 0), clear and compact, with ``_k6_case``'s checks."""
+    exactly 0.06 and 0), clear and compact, with ``_k6_case``'s checks:
+    B off K6's 16-column tile, one full tile, one column past it and two
+    full tiles at the cells' depth; L = 140 is past the ring."""
     from rrtmg_lw_torch.utils.snapshot import k1_edge_args
     args, _, _ = _sweep_inputs(dev, B, L)
     args, modes, _ = k1_edge_args(dev, _model(dev).static_tensors(), args)
@@ -609,6 +613,20 @@ def test_rt_kernel_launch_configuration(dev):
                 assert info["threads"] == 256 and info["columns"] == 16
                 assert info["blocks_per_sm"] >= 2, (mode, idrv, spec, info)
                 assert info["ring_levels"] in (3, 4)
+
+
+def test_rt_adjoint_launch_configuration(dev):
+    """K6, clear and compact: 256-thread blocks of 16 columns, at least
+    two of them on an SM with their ring and buffers, at most 128
+    registers and no local memory (spills)."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import k6_info
+    for cloudy in (False, True):
+        info = k6_info(cloudy)
+        assert info["threads"] == 256 and info["columns"] == 16, info
+        assert info["blocks_per_sm"] >= 2, (cloudy, info)
+        assert info["registers"] <= 128, (cloudy, info)
+        assert info["local_bytes"] == 0, (cloudy, info)
+        assert info["ring_levels"] >= 2, (cloudy, info)
 
 
 def test_rt_idrv_launch_counters(dev):

@@ -250,6 +250,42 @@ def test_taumol_kernel_launch_fits_the_card():
     assert 65536 // (tb * min_blocks) >= 32
 
 
+def test_rt_adjoint_launch_fits_the_card():
+    """K6's tile, ring and shared memory, read from csrc/rtrn_bwd.cu and
+    csrc/rtrn.cuh: blocks of 16 columns x 16 g-lanes launched two to an
+    SM (``__launch_bounds__(256, 2)``), which leaves 65536 / 512 = 128
+    registers a thread; each instantiation's stated shared memory (the
+    header's budget, which the source's static_assert holds to its
+    layout) fits a block's 227 KB, and two blocks of it, with the 1 KB
+    reserved each, an SM's 228 KB; a ring of at least two levels."""
+    csrc = os.path.join(REPO, "rrtmg_lw_torch", "csrc")
+    tile = open(os.path.join(csrc, "rtrn.cuh")).read()
+    src = open(os.path.join(csrc, "rtrn_bwd.cu")).read()
+
+    def const(text, name):
+        return re.search(r"\nconstexpr int %s = (.+?);" % name,
+                         text).group(1)
+
+    kx, ky = int(const(tile, "KX")), int(const(tile, "KY"))
+    assert const(tile, "KT") == "KX * KY"
+    threads, blocks = kx * ky, int(const(tile, "BLOCKS_PER_SM"))
+    assert (kx, threads, blocks) == (16, 256, 2)
+    assert "__launch_bounds__(KT, BLOCKS_PER_SM)\nrt_bwd_kernel(" in src
+    assert "const dim3 block(KX, KY);" in src
+    assert int(const(src, "RING")) >= 2
+    assert 65536 // (threads * blocks) >= 128
+    sm, reserved = int(const(tile, "SMEM_SM")), int(const(tile,
+                                                            "SMEM_RESERVED"))
+    assert (sm, reserved) == (228 * 1024, 1024)
+    smem = [int(x) for x in re.search(
+        r"constexpr int SMEM_BWD\[2\] = \{(\d+), (\d+)\};", src).groups()]
+    table = re.search(r"total \(SMEM_BWD\) +([\d,]+) +([\d,]+)\n", src)
+    assert [int(x.replace(",", "")) for x in table.groups()] == smem
+    for bytes_ in smem:
+        assert bytes_ <= 227 * 1024
+        assert blocks * (bytes_ + reserved) <= sm
+
+
 def test_taumol_shape_header_matches_pack_tables():
     """csrc/taumol.cu's Shape tables, the descriptor words K2 compiles
     in, are what ``python -m rrtmg_lw_torch.ops.taumol_cuda`` writes from
