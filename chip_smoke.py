@@ -14,7 +14,9 @@ Phases, each raising on failure (any failure exits non-zero):
      that keep the radiances for K6, which must not spill) its registers
      and spill stores, its shared memory per block, blocks per SM (the
      CUDA occupancy API) and levels in its ring, the same (but the ring)
-     for K2's 4, and K6's registers and spill stores;
+     for K2's 4, K6's registers and spill stores, and K5's registers,
+     spill stores, local memory, shared memory and blocks per SM (it must
+     not spill and must fit its MIN_BLOCKS launch bound);
   3. each kernel against its plain PyTorch version on the card at the
      main-path shapes (B=16384 columns, L=60 layers, float32), with the
      max error and CUDA-event times of both and the bound of each (the
@@ -99,10 +101,13 @@ CUDA events around the wrapper, holds its host gaps too), their
 instantiation's registers, spill bytes, shared memory, blocks per SM
 (K1: and ring levels) and achieved GB/s (bytes_once over device_ms),
 "rt_sweep" the table of all 52 K1 instantiations; K6's entry
-(rt_adjoint) its registers, spill bytes, device_ms and GB/s.  K6's and
-K1 SAVE's device_ms come from ``utils/snapshot.py --k6-times`` in a
-process of its own, started after phase 3.  Without CUDA it exits
-non-zero and prints no result.
+(rt_adjoint) its registers, spill bytes, device_ms and GB/s, and K5's
+(taumol_bwd) the same with its shared memory and blocks per SM; K5's
+bound counts its operations and cotangent bytes per (band, region)
+(``taumol_bwd_work``).
+K5's, K6's and K1 SAVE's device_ms come from ``utils/snapshot.py
+--k5-times --k6-times`` in a process of its own, started after phase
+3.  Without CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -154,8 +159,21 @@ BF16_TC_OPS_PER_S = 989e12      # dense bf16 on the tensor cores
 # the overlap rows; spec_codec per logu16 encode or decode (log or exp,
 # clip, round)
 OPS = dict(taumol=60, planck=8, cldcoef=10, rt_clear=60, rt_cloud=40,
-           rt_maxrand=60, overlap=100, taumol_bwd=200, planck_bwd=8,
-           rt_adjoint=270, rt_ddt=10, spec_codec=10)
+           rt_maxrand=60, overlap=100, planck_bwd=8, rt_adjoint=270,
+           rt_ddt=10, spec_codec=10)
+# K5's operations, counted from csrc/taumol_bwd.cu per term of each
+# (band, region)'s structure (add, subtract, multiply one each; a product
+# two sums share once).  Per g-point: the cotangent's rescale and its
+# correction; per key tap, both pressure rows; tau and the speccomb sums
+# of a key species; a continuum (self or foreign); an eta / plain minor
+# gas; a CFC; the correction's sum; the fraction's eta row.  Per (cell,
+# band), outside the g-loop: the rest of setup and chain-back; an eta
+# interpolation and its backward; the 4-tap weights and their
+# derivatives; one key tap's clamped rows; an over-abundance adjustment
+# (its three powf ~10 each).
+K5_G_OPS = dict(post=1, corr=3, tap=24, key=7, cont=9, minor_eta=22,
+                minor=10, cfc=4, frac=3)
+K5_BAND_OPS = dict(base=30, eta=20, weights=48, tap=12, adj=45)
 
 K1_SRC = "rrtmg_lw_torch/csrc/rtrn_kernel.cuh"
 KERNELS = (  # name, source, replaced TPU kernel
@@ -243,6 +261,44 @@ def bound(inputs, outputs, ops, nbytes=0, ops_rate=F32_OPS_PER_S,
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=library_ms, bytes_once=nbytes)
+
+
+def taumol_bwd_work(desc, ifld):
+    """K5's operations (``K5_G_OPS``, ``K5_BAND_OPS``) and the bytes of
+    the float32 cotangents it needs, on packed int fields ``ifld`` (NI,
+    L, B) with descriptors ``desc`` (16, 2, NDESC): each (band, region)'s
+    count times the cells in that region.  A region's ct_taug rows are
+    needed unless its taug is zero, its ct_fracs rows only where its
+    fractions depend on the cell (FRAC_ETA): -> (ops, bytes)."""
+    from rrtmg_lw_torch.ops.taumol_cuda import _D
+    desc = desc.cpu().numpy()
+    n_lower = int(ifld[0].sum())
+    cells = (n_lower, ifld[0].numel() - n_lower)
+    g, s = K5_G_OPS, K5_BAND_OPS
+    total = nbytes = 0
+    for band in desc:
+        for d, n in zip(band, cells):
+            w = {k: int(d[i]) for k, i in _D.items()}
+            if w["ZERO"]:
+                continue
+            nbytes += 4 * n * w["NGB"] * (1 + w["FRAC_ETA"])
+            key = w["KEY1"] >= 0
+            ntap = 4 if w["ETA4"] else 2
+            kinds = [w[f"M{i}_KIND"] for i in range(w["NMINOR"])]
+            per_g = (g["post"] * (w["POST_OFF"] >= 0)
+                     + g["corr"] * (w["CORR"] != 0)
+                     + key * (ntap * g["tap"] + g["key"])
+                     + g["cont"] * ((w["SELF_OFF"] >= 0)
+                                    + (w["FOR_OFF"] >= 0))
+                     + sum(g["minor_eta"] if k else g["minor"]
+                           for k in kinds)
+                     + g["cfc"] * w["NCFC"] + g["frac"] * w["FRAC_ETA"])
+            etas = 2 * (w["KEY2"] >= 0) + sum(kinds) + w["FRAC_ETA"]
+            adj = sum(w[f"M{i}_ADJ_GAS"] >= 0 for i in range(len(kinds)))
+            setup = (s["base"] + s["eta"] * etas + s["weights"] * w["ETA4"]
+                     + s["tap"] * key * ntap + s["adj"] * adj)
+            total += n * (w["NGB"] * per_g + setup)
+    return total, nbytes
 
 
 def flux_err(a, b):
@@ -610,35 +666,12 @@ def k1_edge_cases(device, model, args, dpl):
           "at od 0.06 with a cloud fraction in (0, 0.5)")
 
 
-def ptxas_info(log_path, symbol_re, key_fn):
-    """Registers and spill stores of each instantiation of a kernel
-    (ptxas -v in the build log) whose mangled name matches ``symbol_re``:
-    {key_fn(the match): {"registers": n, "spill_bytes": n}}."""
-    import re
-    out, key = {}, None
-    for line in log_path.read_text().splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties "
-                      r"for) '?([^' ]+)", line)
-        if m:
-            cur = re.search(symbol_re, m.group(1))
-            key = key_fn(cur) if cur else None
-            continue
-        if key is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m:
-            out.setdefault(key, {})["spill_bytes"] = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out.setdefault(key, {})["registers"] = int(m.group(1))
-    return out
-
-
 def k1_build_info(log_path):
-    """Each K1 instantiation's registers and spill stores (``ptxas_info``)
+    """Each K1 instantiation's registers and spill stores (``_build.ptxas_info``)
     and launch configuration (``rtrn_cuda.k1_info``): {"<mode>
     idrv<0|1> <storage>[ save]": {...}}, " save" the four that keep the
     radiances for K6 (clear and compact, float32)."""
+    from rrtmg_lw_torch._build import ptxas_info
     from rrtmg_lw_torch.ops.rtrn_cuda import MODES, k1_info
     from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES
     names = {v: k for k, v in MODES.items()}
@@ -668,11 +701,12 @@ def k1_build_info(log_path):
 
 
 def k6_build_info(log_path):
-    """K6's registers and spill stores per instantiation (``ptxas_info``)
+    """K6's registers and spill stores per instantiation (``_build.ptxas_info``)
     and launch configuration (``rtrn_cuda.k6_info``): {"clear" |
     "compact": {...}}; fails where one spills or fits fewer than two
     blocks per SM."""
     from rrtmg_lw_torch.ops.rtrn_cuda import k6_info
+    from rrtmg_lw_torch._build import ptxas_info
     out = ptxas_info(log_path, r"rt_bwd_kernelILb([01])E",
                      lambda m: ("clear", "compact")[int(m.group(1))])
     need(len(out) == 2 and all(len(r) == 2 for r in out.values()),
@@ -748,12 +782,43 @@ def k2_edge_cases(device, model):
           f"the encode of K2's float32 output (logu16 +-1); {total}")
 
 
+def k5_build_info(log_path):
+    """K5's registers and spill stores (``_build.ptxas_info``) and launch
+    configuration (``taumol_cuda.k5_info``); fails where it spills or
+    fits fewer than its MIN_BLOCKS blocks per SM."""
+    import re
+    from rrtmg_lw_torch._build import ptxas_info
+    from rrtmg_lw_torch.ops.taumol_cuda import k5_info
+    src = (pathlib.Path(__file__).resolve().parent
+           / "rrtmg_lw_torch" / "csrc" / "taumol_bwd.cu").read_text()
+    min_blocks = int(re.search(r"\nconstexpr int MIN_BLOCKS = (\d+);",
+                               src).group(1))
+    out = ptxas_info(log_path, r"taumol_bwd_kernel", lambda m: "k5")
+    need(len(out) == 1 and len(out["k5"]) == 2,
+         f"K5: {len(out)} kernels in the build log, expected 1")
+    r = out["k5"]
+    info = k5_info()
+    need(info["registers"] == r["registers"],
+         f"K5: {info['registers']} registers at run time, ptxas said "
+         f"{r['registers']}")
+    r.update(smem_bytes=info["static_smem"] + info["dynamic_smem"],
+             blocks_per_sm=info["blocks_per_sm"],
+             local_bytes=info["local_bytes"], min_blocks=min_blocks)
+    need(r["spill_bytes"] == 0 and info["local_bytes"] == 0
+         and r["blocks_per_sm"] >= min_blocks,
+         f"K5: {r['spill_bytes']} B spill stores, {info['local_bytes']} B "
+         f"local memory, {r['blocks_per_sm']} blocks per SM (launch bounds "
+         f"{min_blocks})")
+    return r
+
+
 def k2_build_info(log_path):
-    """Each K2 instantiation's registers and spill stores (``ptxas_info``)
+    """Each K2 instantiation's registers and spill stores (``_build.ptxas_info``)
     and launch configuration (``taumol_cuda.k2_info``): {storage:
     {...}}."""
     from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES
     from rrtmg_lw_torch.ops.taumol_cuda import k2_info
+    from rrtmg_lw_torch._build import ptxas_info
     storages = ("f32",) + SPECS
     out = ptxas_info(log_path, r"taumol_kernelILi(\d)E",
                      lambda m: storages[int(m.group(1))])
@@ -1007,7 +1072,8 @@ def phase_grad_kernels(device):
                                               rt_sweep_vjp)
     from rrtmg_lw_torch.ops.setcoef import (interp_planck_blocked,
                                             interp_planck_vjp, setcoef)
-    from rrtmg_lw_torch.utils.snapshot import k1_edge_args
+    from rrtmg_lw_torch.utils.snapshot import (K5_BOOST, k1_edge_args,
+                                               k5_inputs)
     from rrtmg_lw_torch.ops.taumol_cuda import (_pack_inputs,
                                                 taumol_packed,
                                                 taumol_packed_vjp,
@@ -1064,21 +1130,18 @@ def phase_grad_kernels(device):
     ct_t, ct_f = randn(L_MAIN, 140, B_MAIN), randn(L_MAIN, 140, B_MAIN)
     eng, tabs, desc = model.engine, model.kernel_tabs, model.kernel_desc
     out, ref, again = [], [], []
-    for boost in (None, (1.0, 8.0, 1.0, 50.0, 1.0, 20.0, 1.0)):
-        p = prof if boost is None else prof._replace(
-            wkl=prof.wkl * torch.tensor(boost, device=device))
-        f, i = _pack_inputs(setcoef(p, static, planck=False), p)
+    for f, i in ((fld, ifld), k5_inputs(device, model, boost=K5_BOOST)):
         out += list(taumol_vjp(f, i, eng, tabs, desc, ct_t, ct_f))
         ref += list(taumol_packed_vjp(eng, f, i, ct_t, ct_f))
         again += list(taumol_vjp(f, i, eng, tabs, desc, ct_t, ct_f))
     res["taumol_bwd"] = check("taumol_bwd", out, ref, TOL_BWD, again)
+    ops, ct_bytes = taumol_bwd_work(desc, ifld)
     res["taumol_bwd"].update(
         ms=cuda_ms(lambda: taumol_vjp(fld, ifld, eng, tabs, desc, ct_t,
                                       ct_f), 5),
         plain_ms=cuda_ms(lambda: taumol_packed_vjp(eng, fld, ifld, ct_t,
                                                    ct_f), 2),
-        **bound((fld, ifld, tabs, desc, ct_t, ct_f), (fld,),
-                OPS["taumol_bwd"] * ct_t.numel()))
+        **bound((fld, ifld, tabs, desc), (fld,), ops, nbytes=ct_bytes))
 
     # K1 keeping its radiances (the gradient step's launch) and K6 fed
     # them, clear and compact McICA, on the forward's own tensors and on
@@ -1181,26 +1244,32 @@ def phase_grad_kernels(device):
 
 def grad_device_times():
     """Device ms of K1 keeping the radiances and of K6 fed them, compact
-    McICA on phase 3's inputs, from ``utils/snapshot.py --k6-times`` in a
-    process of its own: in this script's long process the profiler's
-    traces of these launches held 3 of 5 early and one or none late
-    (phase 6 holds their results and their wrapper ms).  -> {summary
-    name: device ms}."""
+    McICA on phase 3's inputs, and of K5 (L=60; L=140 printed), from
+    ``utils/snapshot.py --k5-times --k6-times`` in a process of its own:
+    in this script's long process the profiler's traces of these launches
+    held 3 of 5 early and one or none late (phase 6 holds their results
+    and their wrapper ms).  -> {summary name: device ms}."""
     from rrtmg_lw_torch import _build
-    out = _build.BUILD_ROOT / "k6_times.json"
-    out.unlink(missing_ok=True)
+    out6 = _build.BUILD_ROOT / "k6_times.json"
+    out5 = _build.BUILD_ROOT / "k5_times.json"
+    for out in (out5, out6):
+        out.unlink(missing_ok=True)
     res = subprocess.run(
         [sys.executable, "-m", "rrtmg_lw_torch.utils.snapshot",
-         "--k6-times", str(out)], capture_output=True, text=True,
+         "--k5-times", str(out5), "--k6-times", str(out6)],
+        capture_output=True, text=True,
         cwd=pathlib.Path(__file__).resolve().parent, timeout=600)
     print(res.stdout, end="")
-    need(res.returncode == 0 and out.exists(),
-         f"snapshot.py --k6-times failed:\n{res.stderr[-3000:]}")
-    rows = {r["mode"]: r for r in json.loads(out.read_text())}
+    need(res.returncode == 0 and out5.exists() and out6.exists(),
+         f"snapshot.py --k5-times --k6-times failed:\n{res.stderr[-3000:]}")
+    rows = {r["mode"]: r for r in json.loads(out6.read_text())}
     c = rows["compact"]
+    k5 = {r["nlay"]: r["device_ms"] for r in json.loads(out5.read_text())}
     print(f"device ms, K1 keeping the radiances {c['k1_save_ms']:.3f} "
-          f"(without {c['k1_ms']:.3f}), K6 {c['k6_ms']:.3f}")
-    return {"rt_sweep_save": c["k1_save_ms"], "rt_adjoint": c["k6_ms"]}
+          f"(without {c['k1_ms']:.3f}), K6 {c['k6_ms']:.3f}, K5 "
+          f"{k5[L_MAIN]:.3f} (L={L_DEEP}: {k5[L_DEEP]:.3f})")
+    return {"rt_sweep_save": c["k1_save_ms"], "rt_adjoint": c["k6_ms"],
+            "taumol_bwd": k5[L_MAIN]}
 
 
 def grad_errs(tag, gk, ge):
@@ -1746,6 +1815,13 @@ def main() -> int:
         print(f"K2 {key}: {r['registers']} registers, {r['spill_bytes']} B "
               f"spill stores, {r['smem_bytes']} B shared memory, "
               f"{r['blocks_per_sm']} blocks per SM")
+    k5_build = k5_build_info(path.parent / "build.log")
+    print(f"K5: {k5_build['registers']} registers, "
+          f"{k5_build['spill_bytes']} B spill stores, "
+          f"{k5_build['local_bytes']} B local memory, "
+          f"{k5_build['smem_bytes']} B shared memory, "
+          f"{k5_build['blocks_per_sm']} blocks per SM (launch bounds "
+          f"{k5_build['min_blocks']})")
 
     # 3. kernels vs plain versions; then K2 and K1 in reduced storage
     res = phase_kernels(device)
@@ -1835,6 +1911,11 @@ def main() -> int:
     print(f"rt_adjoint (compact): device {r['device_ms']:.3f} ms, "
           f"{r['gbps']:.0f} GB/s of its bytes read once, bound "
           f"{r['bound_ms']:.3f} ms")
+    r = res["taumol_bwd"]
+    r.update(k5_build, gbps=r["bytes_once"] / (r["device_ms"] * 1e-3) / 1e9)
+    print(f"taumol_bwd: device {r['device_ms']:.3f} ms, {r['gbps']:.0f} GB/s "
+          f"of its bytes read once, bound {r['bound_ms']:.3f} ms "
+          f"({r['bound_by']})")
     for name, key in K2_LINES.items():
         r = res[name]
         r.update(k2_build[key], instantiation=key,

@@ -20,6 +20,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -48,6 +49,7 @@ SIGNATURES = {
     "rrtm_taumol_info": (I, P),
     "rrtm_taumol_shape": (P,),
     "rrtm_taumol_bwd": (P, P, P, P, P, P, P, I, I, P),
+    "rrtm_taumol_bwd_info": (P,),
     "rrtm_rt": (P,) * 19 + (I,) * 5 + (P, P),
     "rrtm_rt_info": (I, I, I, I, P),
     "rrtm_overlap": (P, P, I, I, P),
@@ -124,6 +126,29 @@ def build() -> tuple[pathlib.Path, float]:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)                # atomic against a parallel build
     return lib, secs
+
+
+def ptxas_info(log_path, symbol_re, key_fn):
+    """Registers and spill stores of each instantiation of a kernel
+    (ptxas -v in the build log) whose mangled name matches ``symbol_re``:
+    {key_fn(the match): {"registers": n, "spill_bytes": n}}."""
+    out, key = {}, None
+    for line in pathlib.Path(log_path).read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([^' ]+)", line)
+        if m:
+            cur = re.search(symbol_re, m.group(1))
+            key = key_fn(cur) if cur else None
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out.setdefault(key, {})["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,10 +22,10 @@
 //     times);
 //   * each thread walks the 16 bands of its column; the structure of each
 //     (band, region) (flags, counts, field indices, ng: the Shape tables
-//     below, generated from pack_tables) is compiled in, so the setup
-//     (rows, eta weights, minor columns and bins, corr, the fraction row)
-//     has no descriptor branch or field-index load left, and each g-loop
-//     is built for its band's ng; table offsets, shapes and the float
+//     of taumol.cuh, generated from pack_tables) is compiled in, so the
+//     setup (rows, eta weights, minor columns and bins, corr, the fraction
+//     row) has no descriptor branch or field-index load left, and each
+//     g-loop is built for its band's ng; table offsets, shapes and the float
 //     constants still come from the descriptor given, and the wrapper
 //     holds its structure words to the compiled ones (rrtm_taumol_shape);
 //   * a table row (ng contiguous floats, ng even) is read 8 bytes a load
@@ -50,8 +50,6 @@
 // contracted FMA moves a bin.  Every clip of taumol.py:357-417 is kept.
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "spec.cuh"
 #include "taumol.cuh"
 
@@ -66,287 +64,6 @@ constexpr int MIN_BLOCKS = 6;   // per SM, for __launch_bounds__
 constexpr int TAB_ALIGN = 2;    // floats: pack_tables' table alignment
 constexpr int VW = 2;           // floats a row load
 constexpr int NDESC_ALL = rrtm::NBAND * 2 * NDESC;
-
-template <int I>
-using Int = std::integral_constant<int, I>;
-
-// BEGIN SHAPES
-// Generated by python -m rrtmg_lw_torch.ops.taumol_cuda from
-// pack_tables' descriptors (ops/taumol_cuda.py::shape_words): the
-// words that BAND_SPECS alone fixes, per (band, region); the other
-// words are 0, and table presence words -1 (absent) or 0.  Do not
-// edit: tests/test_torch_port.py holds it equal to the generator.
-template <int BAND, int REGION> struct Shape;
-template <> struct Shape<0, 0> {
-    static constexpr int w[NDESC] = {
-        0, 0, 10, 0, -1, -1, -1, 1, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 7, 30, -1,
-        -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, -1, 0,
-        0, 0, 0, 0, 0,
-    };
-};
-template <> struct Shape<0, 1> {
-    static constexpr int w[NDESC] = {
-        0, 0, 10, 0, -1, -1, -1, 1, 0, 0, 0, 0, -1, 0, 1, 0, 0, 0, 7, 30,
-        -1, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, -1,
-        0, 0, 0, 0, 0, 0,
-    };
-};
-template <> struct Shape<1, 0> {
-    static constexpr int w[NDESC] = {
-        0, 10, 12, 0, -1, -1, -1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3, -1, 0, 0,
-        0, 0, 0, 0,
-    };
-};
-template <> struct Shape<1, 1> {
-    static constexpr int w[NDESC] = {
-        0, 10, 12, 0, -1, -1, -1, 1, 0, 0, 0, 0, -1, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 0,
-        0, 0, 0, 0,
-    };
-};
-template <> struct Shape<2, 0> {
-    static constexpr int w[NDESC] = {
-        0, 22, 16, 0, 1, 12, 13, 9, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0, -1, -1, 3,
-        0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 1,
-        0, 0, 1, 0,
-    };
-};
-template <> struct Shape<2, 1> {
-    static constexpr int w[NDESC] = {
-        0, 22, 16, 0, 1, 12, 13, 5, 0, 0, 0, 0, -1, 0, 1, 1, 0, 0, -1, -1,
-        3, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0,
-        1, 0, 0, 1, 0,
-    };
-};
-template <> struct Shape<3, 0> {
-    static constexpr int w[NDESC] = {
-        0, 38, 14, 0, 1, 12, 13, 9, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 1,
-        0, 0, 1, 0,
-    };
-};
-template <> struct Shape<3, 1> {
-    static constexpr int w[NDESC] = {
-        0, 38, 14, 2, 1, 22, 23, 5, 0, 0, 0, 0, -1, -1, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0,
-        2, 1, 0,
-    };
-};
-template <> struct Shape<4, 0> {
-    static constexpr int w[NDESC] = {
-        0, 52, 16, 0, 1, 12, 13, 9, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0, 2, -1, -1,
-        -1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 32, 0, 0, 0, 0, -1, 0,
-        1, 0, 0, 1, 0,
-    };
-};
-template <> struct Shape<4, 1> {
-    static constexpr int w[NDESC] = {
-        0, 52, 16, 2, 1, 22, 23, 5, 0, 0, 0, 0, -1, -1, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 32, 0, 0, 0, 0, -1, 0, 1,
-        0, 2, 1, 0,
-    };
-};
-template <> struct Shape<5, 0> {
-    static constexpr int w[NDESC] = {
-        0, 68, 8, 0, -1, -1, -1, 1, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, -1, -1, 1,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 33, 0, 34, 0, 0, -1, 0, 0,
-        0, 0, 0, 0,
-    };
-};
-template <> struct Shape<5, 1> {
-    static constexpr int w[NDESC] = {
-        0, 68, 8, -1, -1, -1, -1, 0, 0, 0, 0, 0, -1, -1, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 33, 0, 34, 0, 0, -1, 0,
-        0, 0, 0, 0, 0,
-    };
-};
-template <> struct Shape<6, 0> {
-    static constexpr int w[NDESC] = {
-        0, 76, 12, 0, 2, 14, 15, 9, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0, -1, -1, 1,
-        0, 0, 0, 0, 0, 0, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 1,
-        0, 0, 2, 0,
-    };
-};
-template <> struct Shape<6, 1> {
-    static constexpr int w[NDESC] = {
-        0, 76, 12, 2, -1, -1, -1, 1, 0, 0, 0, 0, -1, -1, 1, 0, 0, 0, -1, -1,
-        1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0,
-    };
-};
-template <> struct Shape<7, 0> {
-    static constexpr int w[NDESC] = {
-        0, 88, 8, 0, -1, -1, -1, 1, 0, 0, 0, 0, 0, 0, 3, 0, 0, 0, -1, -1, 1,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, -1, -1, -1, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 3, -1, -1, -1, 0, 0, 0, 0, 0, 0, 0, 2, 34, 0, 35, 0, 0, -1,
-        0, 0, 0, 0, 0, 0,
-    };
-};
-template <> struct Shape<7, 1> {
-    static constexpr int w[NDESC] = {
-        0, 88, 8, 2, -1, -1, -1, 1, 0, 0, 0, 0, -1, -1, 2, 0, 0, 0, -1, -1,
-        1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3, -1, -1, -1, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 34, 0, 35, 0, 0, -1,
-        0, 0, 0, 0, 0, 0,
-    };
-};
-template <> struct Shape<8, 0> {
-    static constexpr int w[NDESC] = {
-        0, 96, 12, 0, 5, 18, 19, 9, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0, -1, -1, 3,
-        0, 0, 0, 0, 0, 0, 5, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 1,
-        0, 0, 5, 0,
-    };
-};
-template <> struct Shape<8, 1> {
-    static constexpr int w[NDESC] = {
-        0, 96, 12, 5, -1, -1, -1, 1, 0, 0, 0, 0, -1, -1, 1, 0, 0, 0, -1, -1,
-        3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0,
-        0, 0, 0, 0, 0,
-    };
-};
-template <> struct Shape<9, 0> {
-    static constexpr int w[NDESC] = {
-        0, 108, 6, 0, -1, -1, -1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 0,
-        0, 0, 0, 0,
-    };
-};
-template <> struct Shape<9, 1> {
-    static constexpr int w[NDESC] = {
-        0, 108, 6, 0, -1, -1, -1, 1, 0, 0, 0, 0, -1, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 0,
-        0, 0, 0, 0,
-    };
-};
-template <> struct Shape<10, 0> {
-    static constexpr int w[NDESC] = {
-        0, 114, 8, 0, -1, -1, -1, 1, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 6, 29,
-        -1, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1,
-        0, 0, 0, 0, 0, 0,
-    };
-};
-template <> struct Shape<10, 1> {
-    static constexpr int w[NDESC] = {
-        0, 114, 8, 0, -1, -1, -1, 1, 0, 0, 0, 0, -1, 0, 1, 0, 0, 0, 6, 29,
-        -1, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1,
-        0, 0, 0, 0, 0, 0,
-    };
-};
-template <> struct Shape<11, 0> {
-    static constexpr int w[NDESC] = {
-        0, 122, 8, 0, 1, 12, 13, 9, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 1,
-        0, 0, 1, 0,
-    };
-};
-template <> struct Shape<11, 1> {
-    static constexpr int w[NDESC] = {
-        1, 122, 8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0,
-    };
-};
-template <> struct Shape<12, 0> {
-    static constexpr int w[NDESC] = {
-        0, 130, 4, 0, 3, 16, 17, 9, 1, 0, 0, 0, 0, 0, 2, 1, 0, 0, -1, -1, 1,
-        -1, 0, 0, 0, 0, 0, 3, 0, 1, 0, 0, 4, -1, -1, -1, 0, 0, 0, 0, 0, 3,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1,
-        0, 1, 0, 0, 3, 0,
-    };
-};
-template <> struct Shape<12, 1> {
-    static constexpr int w[NDESC] = {
-        0, 130, 4, -1, -1, -1, -1, 0, 0, 0, 0, 0, -1, -1, 1, 0, 0, 0, 2, -1,
-        -1, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1,
-        0, 0, 0, 0, 0, 0,
-    };
-};
-template <> struct Shape<13, 0> {
-    static constexpr int w[NDESC] = {
-        0, 134, 2, 1, -1, -1, -1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 0,
-        0, 0, 0, 0,
-    };
-};
-template <> struct Shape<13, 1> {
-    static constexpr int w[NDESC] = {
-        0, 134, 2, 1, -1, -1, -1, 1, 0, 0, 0, 0, -1, -1, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0,
-        0, 0, 0, 0, 0,
-    };
-};
-template <> struct Shape<14, 0> {
-    static constexpr int w[NDESC] = {
-        0, 136, 2, 3, 1, 20, 21, 9, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0, 7, 29, -1,
-        -1, 0, 0, 0, 0, 3, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0,
-        1, 0, 3, 1, 0,
-    };
-};
-template <> struct Shape<14, 1> {
-    static constexpr int w[NDESC] = {
-        1, 136, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0,
-    };
-};
-template <> struct Shape<15, 0> {
-    static constexpr int w[NDESC] = {
-        0, 138, 2, 0, 5, 18, 19, 9, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 1,
-        0, 0, 5, 0,
-    };
-};
-template <> struct Shape<15, 1> {
-    static constexpr int w[NDESC] = {
-        0, 138, 2, 5, -1, -1, -1, 0, 0, 0, 0, 0, -1, -1, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0,
-        0, 0, 0, 0, 0,
-    };
-};
-// END SHAPES
-
-// a compiled-in descriptor word of (band, region) (Shape above)
-template <int BAND, int REGION>
-__host__ __device__ constexpr int sw(int word) {
-    return Shape<BAND, REGION>::w[word];
-}
-
-// two consecutive floats from p (8-byte aligned)
-__device__ __forceinline__ void load_row(const float* p, float* v) {
-    const float2 x = __ldg(reinterpret_cast<const float2*>(p));
-    v[0] = x.x;
-    v[1] = x.y;
-}
 
 // One cell of band BAND in region REGION (0 lower, 1 upper), the
 // region's run-time descriptor D (shared memory); the cell's fields at

@@ -1,8 +1,12 @@
 // Shared by K2 (taumol.cu) and K5 (taumol_bwd.cu): the layout of the
 // packed per-cell inputs and of the (band, region) descriptor that
-// ops/taumol_cuda.py::pack_tables writes, and the eta interpolation of
-// ops/taumol.py (_eta_params, _spec_weights).
+// ops/taumol_cuda.py::pack_tables writes, the eta interpolation of
+// ops/taumol.py (_eta_params, _spec_weights), each (band, region)'s
+// structure that both kernels compile in (the Shape tables), and the
+// 8-byte row load.
 #pragma once
+
+#include <type_traits>
 
 #include "rrtm.cuh"
 
@@ -81,6 +85,287 @@ __device__ __forceinline__ void spec_weights(float specparm, float fs,
     w[1] = low ? fk0 : (high ? fk1 : 1.0f - fs);
     w[2] = low ? fk1 : (high ? fk0 : fs);
     w[3] = low ? fk2 : 0.0f;
+}
+
+template <int I>
+using Int = std::integral_constant<int, I>;
+
+// BEGIN SHAPES
+// Generated by python -m rrtmg_lw_torch.ops.taumol_cuda from
+// pack_tables' descriptors (ops/taumol_cuda.py::shape_words): the
+// words that BAND_SPECS alone fixes, per (band, region); the other
+// words are 0, and table presence words -1 (absent) or 0.  Do not
+// edit: tests/test_torch_port.py holds it equal to the generator.
+template <int BAND, int REGION> struct Shape;
+template <> struct Shape<0, 0> {
+    static constexpr int w[NDESC] = {
+        0, 0, 10, 0, -1, -1, -1, 1, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 7, 30, -1,
+        -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, -1, 0,
+        0, 0, 0, 0, 0,
+    };
+};
+template <> struct Shape<0, 1> {
+    static constexpr int w[NDESC] = {
+        0, 0, 10, 0, -1, -1, -1, 1, 0, 0, 0, 0, -1, 0, 1, 0, 0, 0, 7, 30,
+        -1, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, -1,
+        0, 0, 0, 0, 0, 0,
+    };
+};
+template <> struct Shape<1, 0> {
+    static constexpr int w[NDESC] = {
+        0, 10, 12, 0, -1, -1, -1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3, -1, 0, 0,
+        0, 0, 0, 0,
+    };
+};
+template <> struct Shape<1, 1> {
+    static constexpr int w[NDESC] = {
+        0, 10, 12, 0, -1, -1, -1, 1, 0, 0, 0, 0, -1, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 0,
+        0, 0, 0, 0,
+    };
+};
+template <> struct Shape<2, 0> {
+    static constexpr int w[NDESC] = {
+        0, 22, 16, 0, 1, 12, 13, 9, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0, -1, -1, 3,
+        0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 1,
+        0, 0, 1, 0,
+    };
+};
+template <> struct Shape<2, 1> {
+    static constexpr int w[NDESC] = {
+        0, 22, 16, 0, 1, 12, 13, 5, 0, 0, 0, 0, -1, 0, 1, 1, 0, 0, -1, -1,
+        3, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0,
+        1, 0, 0, 1, 0,
+    };
+};
+template <> struct Shape<3, 0> {
+    static constexpr int w[NDESC] = {
+        0, 38, 14, 0, 1, 12, 13, 9, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 1,
+        0, 0, 1, 0,
+    };
+};
+template <> struct Shape<3, 1> {
+    static constexpr int w[NDESC] = {
+        0, 38, 14, 2, 1, 22, 23, 5, 0, 0, 0, 0, -1, -1, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0,
+        2, 1, 0,
+    };
+};
+template <> struct Shape<4, 0> {
+    static constexpr int w[NDESC] = {
+        0, 52, 16, 0, 1, 12, 13, 9, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0, 2, -1, -1,
+        -1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 32, 0, 0, 0, 0, -1, 0,
+        1, 0, 0, 1, 0,
+    };
+};
+template <> struct Shape<4, 1> {
+    static constexpr int w[NDESC] = {
+        0, 52, 16, 2, 1, 22, 23, 5, 0, 0, 0, 0, -1, -1, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 32, 0, 0, 0, 0, -1, 0, 1,
+        0, 2, 1, 0,
+    };
+};
+template <> struct Shape<5, 0> {
+    static constexpr int w[NDESC] = {
+        0, 68, 8, 0, -1, -1, -1, 1, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, -1, -1, 1,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 33, 0, 34, 0, 0, -1, 0, 0,
+        0, 0, 0, 0,
+    };
+};
+template <> struct Shape<5, 1> {
+    static constexpr int w[NDESC] = {
+        0, 68, 8, -1, -1, -1, -1, 0, 0, 0, 0, 0, -1, -1, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 33, 0, 34, 0, 0, -1, 0,
+        0, 0, 0, 0, 0,
+    };
+};
+template <> struct Shape<6, 0> {
+    static constexpr int w[NDESC] = {
+        0, 76, 12, 0, 2, 14, 15, 9, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0, -1, -1, 1,
+        0, 0, 0, 0, 0, 0, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 1,
+        0, 0, 2, 0,
+    };
+};
+template <> struct Shape<6, 1> {
+    static constexpr int w[NDESC] = {
+        0, 76, 12, 2, -1, -1, -1, 1, 0, 0, 0, 0, -1, -1, 1, 0, 0, 0, -1, -1,
+        1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0,
+    };
+};
+template <> struct Shape<7, 0> {
+    static constexpr int w[NDESC] = {
+        0, 88, 8, 0, -1, -1, -1, 1, 0, 0, 0, 0, 0, 0, 3, 0, 0, 0, -1, -1, 1,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, -1, -1, -1, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 3, -1, -1, -1, 0, 0, 0, 0, 0, 0, 0, 2, 34, 0, 35, 0, 0, -1,
+        0, 0, 0, 0, 0, 0,
+    };
+};
+template <> struct Shape<7, 1> {
+    static constexpr int w[NDESC] = {
+        0, 88, 8, 2, -1, -1, -1, 1, 0, 0, 0, 0, -1, -1, 2, 0, 0, 0, -1, -1,
+        1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3, -1, -1, -1, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 34, 0, 35, 0, 0, -1,
+        0, 0, 0, 0, 0, 0,
+    };
+};
+template <> struct Shape<8, 0> {
+    static constexpr int w[NDESC] = {
+        0, 96, 12, 0, 5, 18, 19, 9, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0, -1, -1, 3,
+        0, 0, 0, 0, 0, 0, 5, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 1,
+        0, 0, 5, 0,
+    };
+};
+template <> struct Shape<8, 1> {
+    static constexpr int w[NDESC] = {
+        0, 96, 12, 5, -1, -1, -1, 1, 0, 0, 0, 0, -1, -1, 1, 0, 0, 0, -1, -1,
+        3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0,
+        0, 0, 0, 0, 0,
+    };
+};
+template <> struct Shape<9, 0> {
+    static constexpr int w[NDESC] = {
+        0, 108, 6, 0, -1, -1, -1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 0,
+        0, 0, 0, 0,
+    };
+};
+template <> struct Shape<9, 1> {
+    static constexpr int w[NDESC] = {
+        0, 108, 6, 0, -1, -1, -1, 1, 0, 0, 0, 0, -1, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 0,
+        0, 0, 0, 0,
+    };
+};
+template <> struct Shape<10, 0> {
+    static constexpr int w[NDESC] = {
+        0, 114, 8, 0, -1, -1, -1, 1, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 6, 29,
+        -1, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1,
+        0, 0, 0, 0, 0, 0,
+    };
+};
+template <> struct Shape<10, 1> {
+    static constexpr int w[NDESC] = {
+        0, 114, 8, 0, -1, -1, -1, 1, 0, 0, 0, 0, -1, 0, 1, 0, 0, 0, 6, 29,
+        -1, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1,
+        0, 0, 0, 0, 0, 0,
+    };
+};
+template <> struct Shape<11, 0> {
+    static constexpr int w[NDESC] = {
+        0, 122, 8, 0, 1, 12, 13, 9, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 1,
+        0, 0, 1, 0,
+    };
+};
+template <> struct Shape<11, 1> {
+    static constexpr int w[NDESC] = {
+        1, 122, 8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0,
+    };
+};
+template <> struct Shape<12, 0> {
+    static constexpr int w[NDESC] = {
+        0, 130, 4, 0, 3, 16, 17, 9, 1, 0, 0, 0, 0, 0, 2, 1, 0, 0, -1, -1, 1,
+        -1, 0, 0, 0, 0, 0, 3, 0, 1, 0, 0, 4, -1, -1, -1, 0, 0, 0, 0, 0, 3,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1,
+        0, 1, 0, 0, 3, 0,
+    };
+};
+template <> struct Shape<12, 1> {
+    static constexpr int w[NDESC] = {
+        0, 130, 4, -1, -1, -1, -1, 0, 0, 0, 0, 0, -1, -1, 1, 0, 0, 0, 2, -1,
+        -1, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1,
+        0, 0, 0, 0, 0, 0,
+    };
+};
+template <> struct Shape<13, 0> {
+    static constexpr int w[NDESC] = {
+        0, 134, 2, 1, -1, -1, -1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 0,
+        0, 0, 0, 0,
+    };
+};
+template <> struct Shape<13, 1> {
+    static constexpr int w[NDESC] = {
+        0, 134, 2, 1, -1, -1, -1, 1, 0, 0, 0, 0, -1, -1, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0,
+        0, 0, 0, 0, 0,
+    };
+};
+template <> struct Shape<14, 0> {
+    static constexpr int w[NDESC] = {
+        0, 136, 2, 3, 1, 20, 21, 9, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0, 7, 29, -1,
+        -1, 0, 0, 0, 0, 3, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0,
+        1, 0, 3, 1, 0,
+    };
+};
+template <> struct Shape<14, 1> {
+    static constexpr int w[NDESC] = {
+        1, 136, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0,
+    };
+};
+template <> struct Shape<15, 0> {
+    static constexpr int w[NDESC] = {
+        0, 138, 2, 0, 5, 18, 19, 9, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0, 1,
+        0, 0, 5, 0,
+    };
+};
+template <> struct Shape<15, 1> {
+    static constexpr int w[NDESC] = {
+        0, 138, 2, 5, -1, -1, -1, 0, 0, 0, 0, 0, -1, -1, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 0,
+        0, 0, 0, 0, 0,
+    };
+};
+// END SHAPES
+
+// a compiled-in descriptor word of (band, region) (Shape above)
+template <int BAND, int REGION>
+__host__ __device__ constexpr int sw(int word) {
+    return Shape<BAND, REGION>::w[word];
+}
+
+// two consecutive floats from p (8-byte aligned)
+__device__ __forceinline__ void load_row(const float* p, float* v) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
 }
 
 }  // namespace taumol

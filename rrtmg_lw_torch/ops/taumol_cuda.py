@@ -13,11 +13,12 @@ float32.
     plus chi_mls and the per-g rescale vectors,
   * an int32 descriptor of ``len(DESC_FIELDS)`` words per (band,
     region); float constants are stored bit-cast.
-K2 runs one thread per (column, layer), walking the 16 bands with each
-(band, region)'s structure compiled in (``shape_words``, written into
-csrc/taumol.cu by ``python -m rrtmg_lw_torch.ops.taumol_cuda``) and
-reading table rows 8 bytes at a time; K5 one thread per (column, layer) reading
-the descriptor of the band and region.
+K2 and K5 run one thread per (column, layer) in blocks of 128 columns,
+walking the 16 bands with each (band, region)'s structure compiled in
+(``shape_words``, written into csrc/taumol.cuh by ``python -m
+rrtmg_lw_torch.ops.taumol_cuda``) and reading table rows 8 bytes at a
+time; both wrappers hold the descriptor they are given to that
+structure (``_check_shape``).
 ``DESC_FIELDS``, ``FLOAT_FIELDS`` and ``INT_FIELDS`` must match the
 enums in csrc/taumol.cuh (a CPU test compares them).
 
@@ -82,7 +83,7 @@ _CORR = {None: 0, "b1l": 1, "b1u": 2, "b2": 3}
 # BIN_SLOTS of TaumolEngine.bins, written when the kernel gets a bins buffer
 NBIN = 4
 # every table of pack_tables starts on this many floats (8 bytes): K2
-# reads a row of ng floats (ng even) 8 bytes at a time
+# and K5 read a row of ng floats (ng even) 8 bytes at a time
 TAB_ALIGN = 2
 
 
@@ -206,8 +207,8 @@ def pack_tables(ktables: dict, static: dict):
 
 
 # The words of a (band, region) descriptor that BAND_SPECS alone fixes
-# (flags, counts, g offsets, field indices): K2 compiles them in (the
-# Shape tables between SHAPE_BEGIN and SHAPE_END in csrc/taumol.cu) and
+# (flags, counts, g offsets, field indices): K2 and K5 compile them in (the
+# Shape tables between SHAPE_BEGIN and SHAPE_END in csrc/taumol.cuh) and
 # reads the rest (table offsets and shapes, float constants) from the
 # descriptor it is given.  The words of SHAPE_SIGNS only say, by their
 # sign, whether a table is there.
@@ -219,7 +220,7 @@ SHAPE_WORDS = frozenset(
     + tuple(f"C{i}_WX" for i in range(MAX_CFCS)))
 SHAPE_SIGNS = frozenset(("SELF_OFF", "FOR_OFF", "POST_OFF")
                         + tuple(f"M{i}_ADJ_CHI" for i in range(MAX_MINORS)))
-SHAPE_SOURCE = _build.CSRC / "taumol.cu"
+SHAPE_SOURCE = _build.CSRC / "taumol.cuh"
 SHAPE_BEGIN, SHAPE_END = "// BEGIN SHAPES\n", "// END SHAPES\n"
 
 
@@ -236,7 +237,7 @@ def shape_words(desc) -> np.ndarray:
 
 
 def shape_section(desc) -> str:
-    """csrc/taumol.cu's Shape tables, SHAPE_BEGIN to SHAPE_END, for
+    """csrc/taumol.cuh's Shape tables, SHAPE_BEGIN to SHAPE_END, for
     pack_tables' ``desc``."""
     lines = [
         SHAPE_BEGIN.rstrip(),
@@ -265,7 +266,8 @@ def shape_section(desc) -> str:
 
 
 def source_shape_section(text: str) -> str:
-    """The SHAPE_BEGIN ... SHAPE_END section of csrc/taumol.cu's ``text``."""
+    """The SHAPE_BEGIN ... SHAPE_END section of csrc/taumol.cuh's
+    ``text``."""
     a = text.index(SHAPE_BEGIN)
     return text[a:text.index(SHAPE_END, a) + len(SHAPE_END)]
 
@@ -327,9 +329,9 @@ def _check_packed(fld, ifld, kernel_tabs, kernel_desc):
 
 
 def _check_shape(kernel_desc):
-    """Raise unless ``kernel_desc``'s BAND_SPECS words are those K2 was
-    built with (``rrtm_taumol_shape``); once per descriptor tensor, and
-    again after an in-place change to it."""
+    """Raise unless ``kernel_desc``'s BAND_SPECS words are those K2 and
+    K5 were built with (``rrtm_taumol_shape``); once per descriptor
+    tensor, and again after an in-place change to it."""
     if getattr(kernel_desc, "_k2_shape_version", None) == \
             kernel_desc._version:
         return
@@ -341,9 +343,9 @@ def _check_shape(kernel_desc):
         raise RuntimeError(
             f"kernel_desc's {DESC_FIELDS[word]} of band {band + 1} "
             f"({('lower', 'upper')[region]}) is {want[band, region, word]}, "
-            f"K2 was built with {built[band, region, word]}: regenerate "
-            "csrc/taumol.cu's shapes (python -m rrtmg_lw_torch.ops."
-            "taumol_cuda)")
+            f"K2 and K5 were built with {built[band, region, word]}: "
+            "regenerate csrc/taumol.cuh's shapes (python -m "
+            "rrtmg_lw_torch.ops.taumol_cuda)")
     kernel_desc._k2_shape_version = kernel_desc._version
 
 
@@ -413,27 +415,38 @@ K2_INFO = ("registers", "local_bytes", "static_smem", "dynamic_smem",
            "blocks_per_sm", "threads", "columns")
 
 
-def k2_info(spec_dtype=torch.float32):
-    """K2's launch configuration with taug / fracs in ``spec_dtype``:
-    ``K2_INFO`` -> int, from the CUDA runtime (``cudaFuncGetAttributes``,
+def _launch_info(entry, *args):
+    """``K2_INFO`` -> int from the entry point ``entry`` of the kernel
+    library (``cudaFuncGetAttributes``,
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the card."""
     buf = (ctypes.c_int * len(K2_INFO))()
     lib = _build.library()
-    err = lib.rrtm_taumol_info(SPEC_CODES[spec_dtype],
-                               ctypes.cast(buf, ctypes.c_void_p))
+    err = getattr(lib, entry)(*args, ctypes.cast(buf, ctypes.c_void_p))
     if err != 0:
-        raise RuntimeError("rrtm_taumol_info: "
-                           + lib.rrtm_error_string(err).decode())
+        raise RuntimeError(f"{entry}: " + lib.rrtm_error_string(err).decode())
     return dict(zip(K2_INFO, buf))
+
+
+def k2_info(spec_dtype=torch.float32):
+    """K2's launch configuration with taug / fracs in ``spec_dtype``:
+    ``K2_INFO`` -> int."""
+    return _launch_info("rrtm_taumol_info", SPEC_CODES[spec_dtype])
+
+
+def k5_info():
+    """K5's launch configuration: ``K2_INFO`` -> int."""
+    return _launch_info("rrtm_taumol_bwd_info")
 
 
 def taumol_vjp(fld, ifld, engine, kernel_tabs, kernel_desc, ct_taug,
                ct_fracs):
     """K5: ct_taug, ct_fracs (L, 140, B) -> the cotangent of fld
-    (NF, L, B)."""
+    (NF, L, B).  On the card ``kernel_desc``'s BAND_SPECS words must be
+    the compiled ones (``_check_shape``)."""
     if fld.device.type == "cpu":
         return taumol_packed_vjp(engine, fld, ifld, ct_taug, ct_fracs)
     L, B = _check_packed(fld, ifld, kernel_tabs, kernel_desc)
+    _check_shape(kernel_desc)
     for name, ct in (("ct_taug", ct_taug), ("ct_fracs", ct_fracs)):
         _build.check(ct, name, torch.float32, (L, NGPT, B), fld.device)
     ct_fld = torch.empty_like(fld)

@@ -1,45 +1,36 @@
 """K6 (csrc/rtrn_bwd.cu) and variant copies of it against a parent
-checkout's K6, on the card: bitwise equality and device times in turns.
+checkout's K6, on the card: bitwise equality and device times in turns
+(``utils/variants.py``, which says how).
 
     python -m rrtmg_lw_torch.utils.k6_variants --parent build/base \\
         [--variants NAME ...] [--out times.json]
 
-Each source (the parent's ``csrc/rtrn_bwd.cu``, this checkout's, and
-each named variant of ``VARIANTS``, written under ``build/``) is built
-alone into a small library (K6 has no external symbol; one nvcc each,
-all started together, beside the package's own build, which supplies
-K1's radiances), so a variant costs seconds.  On
-phase 3's inputs (``snapshot.sweep_inputs``, B=16384, L=60) and on K1's
-edge cases (``snapshot.k1_edge_args``), clear and compact, every
-library's outputs are held bitwise against the parent's, and against a
-second run of its own; then each is timed with CUDA events (mean of 5
-launches after one) in turns, parent, this, variants, variants, this,
-parent.  The ``prof`` variant's per-phase clock sums (``rrtm_k6_dbg``,
-clear then compact) are printed as shares.  Exits non-zero unless this
-checkout's K6 is bitwise the parent's.
+The cases: phase 3's inputs (``snapshot.sweep_inputs``, B=16384, L=60)
+and K1's edge cases (``snapshot.k1_edge_args``), clear and compact, with
+K1's radiances from the package and seeded cotangents; the first two
+(phase 3's, clear then compact) are timed.  The ``prof`` variant's
+per-phase clock sums (``rrtm_k6_dbg``, clear then compact) are printed
+as shares.
 """
 
 from __future__ import annotations
 
-import argparse
-import ctypes
-import json
-import pathlib
-import subprocess
 import sys
-import threading
 
 import torch
+
+from rrtmg_lw_torch.utils import variants
 
 PHASES = ("stage", "wait", "compute", "barrier A", "band", "barrier B",
           "unused", "other")
 
-# Variants of this commit's K6, (old, new) replacements in
-# csrc/rtrn_bwd.cu; a replacement that no longer applies raises.
+# Variants of this commit's K6: (old, new) replacements in
+# csrc/rtrn_bwd.cu, with the package's nvcc flags; a replacement that no
+# longer applies raises.
 VARIANTS = {
     # the cloud factors only where the g-point's gate holds (or at
     # od == 0.06, where the two branches differ): bitwise the same
-    "gated": [
+    "gated": ([
         ("""        const float xt = od + odce;
         factors_d(xt, xt < 0.06f, atot, tft, datot, dtft);""",
          """        const float xt = od + odce;
@@ -50,10 +41,10 @@ VARIANTS = {
         }"""),
         ("""        ecl = expf(-odce);""",
          """        ecl = gate ? expf(-odce) : 1.0f;"""),
-    ],
+    ], None),
     # the down sweep does not read the up sweep's per-g cotangents of
     # taut and fracs (wrong outputs: what those reads cost)
-    "nopart": [
+    "nopart": ([
         ("""                    pt[k] = gr.taut[gi];
                     pf[k] = gr.fracs[gi];
                 }
@@ -70,10 +61,10 @@ VARIANTS = {
                     pt[k] = 0.0f;
                     pf[k] = 0.0f;
                 }"""),
-    ],
+    ], None),
     # the next step's rows staged in four parts over the first four
     # g-points instead of all at the top of the step
-    "spread": [
+    "spread": ([
         ("""    auto stage_step = [&](int j) {
         const bool up = j < L;""",
          """    auto stage_step = [&](int j, int part = -1) {
@@ -102,10 +93,10 @@ VARIANTS = {
                 if (next && k < 4) stage_step(j + 1, k);
                 const int g = gy + k * KY;
                 if (g >= KG) continue;"""),
-    ],
+    ], None),
     # per-phase clock sums of every warp's lane 0, read back by
     # rrtm_k6_dbg (instrumented: its times are not the kernel's)
-    "prof": [
+    "prof": ([
         ("""constexpr int RING = 2;""",
          """__device__ unsigned long long k6_dbg[2][8];
 constexpr int RING = 2;"""),
@@ -163,48 +154,14 @@ constexpr int RING = 2;"""),
 }
 
 RRTM_API int rrtm_rt_bwd_info(int cloudy, int* out) {"""),
-    ],
+    ], None),
 }
 
 
-def build_all(srcs, out_dir):
-    """{name: ctypes library} of each (source, include dir), built alone
-    with the package's flags, all at once, beside the package's build."""
-    from rrtmg_lw_torch import _build
-    out_dir.mkdir(parents=True, exist_ok=True)
-    pkg = {}
-    th = threading.Thread(target=lambda: pkg.update(r=_build.build()))
-    th.start()
-    jobs = {}
-    for name, (src, inc) in srcs.items():
-        lib = out_dir / f"{name}.so"
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(inc),
-               "-o", str(lib), str(src)]
-        jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True))
-    libs = {}
-    for name, (lib, proc) in jobs.items():
-        out, _ = proc.communicate()
-        print(f"--- {name}: nvcc rc {proc.returncode}")
-        for line in out.splitlines():
-            if "Used" in line or "spill" in line or "error" in line:
-                print("  " + line.strip())
-        if proc.returncode:
-            continue
-        L = ctypes.CDLL(str(lib))
-        L.rrtm_rt_bwd.argtypes = list(_build.SIGNATURES["rrtm_rt_bwd"])
-        L.rrtm_rt_bwd.restype = ctypes.c_int
-        if hasattr(L, "rrtm_k6_dbg"):
-            L.rrtm_k6_dbg.argtypes = [ctypes.c_void_p, ctypes.c_int]
-        libs[name] = L
-    th.join()
-    return libs
-
-
-def run(lib, a, ct, rads):
-    """K6 of ``lib`` on a (rt_sweep_vjp's first 11 arguments): its
-    outputs, None-free, in rt_sweep_vjp's order."""
+def run(lib, case):
+    """K6 of ``lib`` on a case (a: rt_sweep_vjp's first 11 arguments,
+    ct, rads): its outputs, None-free, in rt_sweep_vjp's order."""
+    a, ct, rads = case
     taut_t, fracs_t, play, plev, surf, cw, abi, abl, mask, ngb0, wg = a
     cloudy = mask is not None
     grads = [torch.empty_like(t) for t in (taut_t, fracs_t, play, plev,
@@ -222,8 +179,25 @@ def run(lib, a, ct, rads):
     return grads
 
 
+def package(case):
+    """The package's K6 (``rt_sweep_vjp``) on a case, as ``run``."""
+    from rrtmg_lw_torch.ops import rtrn_cuda
+    a, ct, rads = case
+    return [g for g in rtrn_cuda.rt_sweep_vjp(*a, ct, rads=rads)
+            if g is not None]
+
+
+def info(lib):
+    """K6's launch configuration in ``lib``, clear and compact
+    (``rtrn_cuda.K1_INFO``)."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import K1_INFO
+    return {name: variants.lib_info(lib, "rrtm_rt_bwd_info", K1_INFO,
+                                    cloudy)
+            for cloudy, name in enumerate(("clear", "compact"))}
+
+
 def cases(device):
-    """[(tag, args, ct, rads)]: phase 3's inputs and K1's edge cases,
+    """[(tag, (args, ct, rads))]: phase 3's inputs and K1's edge cases,
     clear and compact, with K1's radiances and seeded cotangents."""
     from rrtmg_lw_torch.ops import rtrn, rtrn_cuda
     from rrtmg_lw_torch.utils import snapshot
@@ -243,97 +217,18 @@ def cases(device):
                          ("compact", (cw, abi, abl, mask))):
             a6 = (*a[:4], surf, *cf, model.ngb0, model.wg)
             rads = rtrn_cuda.rt_sweep_radiances(*a6)[1]
-            out.append((f"{tag} {name}", a6, ct, rads))
+            out.append((f"{tag} {name}", (a6, ct, rads)))
     return out
 
 
-def event_ms(fn, n=5):
-    fn()
-    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    e0.record()
-    for _ in range(n):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / n
-
-
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", required=True,
-                    help="a checkout holding the parent's rrtmg_lw_torch/")
-    ap.add_argument("--variants", nargs="*", default=[],
-                    choices=sorted(VARIANTS), help="variants to build too")
-    ap.add_argument("--out", help="write the times here (JSON)")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("k6_variants needs a CUDA device")
-    root = pathlib.Path(__file__).resolve().parents[2]
-    csrc = root / "rrtmg_lw_torch" / "csrc"
-    pcsrc = pathlib.Path(args.parent).resolve() / "rrtmg_lw_torch" / "csrc"
-    srcs = {"parent": (pcsrc / "rtrn_bwd.cu", pcsrc),
-            "this": (csrc / "rtrn_bwd.cu", csrc)}
-    out_dir = root / "build" / "k6_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for name in args.variants:
-        text = (csrc / "rtrn_bwd.cu").read_text()
-        for old, new in VARIANTS[name]:
-            if text.count(old) != 1:
-                raise SystemExit(f"variant {name} no longer applies")
-            text = text.replace(old, new)
-        (out_dir / f"{name}.cu").write_text(text)
-        srcs[name] = (out_dir / f"{name}.cu", csrc)
-    libs = build_all(srcs, out_dir)
-    from rrtmg_lw_torch.ops import rtrn_cuda
-    dev = torch.device("cuda", 0)
-    for cloudy in (False, True):
-        print("k6_info", "compact" if cloudy else "clear",
-              rtrn_cuda.k6_info(cloudy))
-    cs = cases(dev)
-    ok = True
-    for tag, a6, ct, rads in cs:
-        ref = run(libs["parent"], a6, ct, rads)
-        pk = [g for g in rtrn_cuda.rt_sweep_vjp(*a6, ct, rads=rads)
-              if g is not None]
-        res = {"package": all(torch.equal(p, r) for p, r in zip(pk, ref))}
-        for name, lib in libs.items():
-            got, again = (run(lib, a6, ct, rads) for _ in range(2))
-            res[name] = all(torch.equal(g, r) for g, r in zip(got, ref))
-            res[name + " rerun"] = all(torch.equal(g, h)
-                                       for g, h in zip(got, again))
-        ok &= res["package"] and res["this"]
-        print(tag, json.dumps(res), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(smi)
-    names = list(libs)
-    times = {}
-    for tag, a6, ct, rads in cs[:2]:
-        for name in names + names[::-1]:
-            t = event_ms(lambda: run(libs[name], a6, ct, rads))
-            times.setdefault(tag, {}).setdefault(name, []).append(t)
-        print(tag, "ms", json.dumps(times[tag]), flush=True)
-    for name, lib in libs.items():
-        if not hasattr(lib, "rrtm_k6_dbg"):
-            continue
-        buf = (ctypes.c_ulonglong * 16)()
-        for tag, a6, ct, rads in cs[:2]:
-            lib.rrtm_k6_dbg(buf, 1)
-            run(lib, a6, ct, rads)
-            torch.cuda.synchronize()
-            lib.rrtm_k6_dbg(buf, 0)
-            row = list(buf)[8:] if "compact" in tag else list(buf)[:8]
-            print(name, tag, "clock shares", {
-                p: round(x / sum(row), 4) for p, x in zip(PHASES, row)})
-    if args.out:
-        pathlib.Path(args.out).write_text(json.dumps(
-            dict(device=smi, times=times), indent=1))
-    print("k6_variants:", "this K6 bitwise the parent's" if ok
-          else "this K6 DIFFERS from the parent's")
-    return 0 if ok else 1
+KERNEL = variants.Kernel(
+    module="k6_variants", source="rtrn_bwd.cu", variants=VARIANTS,
+    cases=cases, run=run, package=package, info=info,
+    dbg="rrtm_k6_dbg", phases=PHASES,
+    dbg_row=lambda tag: int("compact" in tag))
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(variants.main(KERNEL, doc=__doc__))
+
+

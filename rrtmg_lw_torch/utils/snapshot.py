@@ -4,7 +4,8 @@
     python rrtmg_lw_torch/utils/snapshot.py --compare A.pt B.pt
 
     PYTHONPATH=<checkout> python rrtmg_lw_torch/utils/snapshot.py \\
-        --k1-times T1.json --k2-times T2.json --k6-times T6.json
+        --k1-times T1.json --k2-times T2.json --k5-times T5.json \\
+        --k6-times T6.json
 
 ``--out`` runs, on the card, K2 in all four storages with its bins, K3
 at layer and level temperatures, K4, K5 and K6 (clear and compact; both
@@ -12,13 +13,15 @@ on seeded cotangents), and K1 in all six modes at idrv 0 and 1, on the
 inputs of ``chip_smoke.py``'s phase 3 (``utils/profiling.py``'s
 ``mcica_cloudy``, ``band_cloudy``, ``mcica_blocked`` and ``mcica_tauc``
 cells at B=16384, L=60), K1 and K6 also on K1's edge cases
-(``k1_edge_args``) and K2 on its own (``k2_edge_args``,
-``K2_EDGE_SHAPES``), and saves their outputs.  Run it from each
+(``k1_edge_args``), K2 and K5 on K2's (``k2_edge_args``,
+``K2_EDGE_SHAPES``) and K5 on the boosted profile (``K5_BOOST``), and
+saves their outputs.  Run it from each
 checkout (its own ``rrtmg_lw_torch`` first on the path), then ``--compare`` prints, per output, whether the
 two are bitwise equal, and exits non-zero unless all are.
 ``--k1-times`` writes the profiler's device ms of K1 in every mode,
 idrv and storage on the same inputs, and of compact at L=140;
 ``--k2-times`` those of K2 in every storage at L=60 and L=140;
+``--k5-times`` those of K5 at L=60 and L=140;
 ``--k6-times`` those of K6 and of the K1 launch that keeps the
 radiances K6 reads, clear and compact at L=60.  The imports are
 absolute, so ``PYTHONPATH`` picks the checkout whose kernels run; only
@@ -281,6 +284,37 @@ def k2_edge_args(device, model, ncol, nlay, seed=11) -> tuple:
     return fld, ifld, facts
 
 
+# gas factors (h2o, co2, o3, n2o, co, ch4, o2) of K5's boosted profile:
+# co2, n2o and ch4 over-abundant, so minor adjustments cross their
+# thresholds
+K5_BOOST = (1.0, 8.0, 1.0, 50.0, 1.0, 20.0, 1.0)
+
+
+def k5_inputs(device, model, cell="mcica_cloudy", boost=None) -> tuple:
+    """K5's packed fields (fld, ifld) on ``utils/profiling.py``'s
+    ``cell`` (B=16384; mcica_cloudy: L=60, mcica_cloudy_deep: L=140),
+    the profile's gases scaled by ``boost`` (or not)."""
+    from rrtmg_lw_torch.ops.inatm import inatm
+    from rrtmg_lw_torch.ops.setcoef import setcoef
+    from rrtmg_lw_torch.ops.taumol_cuda import _pack_inputs
+    from rrtmg_lw_torch.utils.profiling import cell_inputs
+    prof = inatm(cell_inputs(cell, device)[0], torch.float32)
+    if boost is not None:
+        prof = prof._replace(wkl=prof.wkl * torch.tensor(boost,
+                                                         device=device))
+    return _pack_inputs(setcoef(prof, model.static_tensors(), planck=False),
+                        prof)
+
+
+def k5_cotangents(fld, seed=6) -> tuple:
+    """Seeded cotangents of taug and fracs (L, 140, B) for fields
+    ``fld`` (NF, L, B)."""
+    gen = torch.Generator(device=fld.device).manual_seed(seed)
+    shape = (fld.shape[1], 140, fld.shape[2])
+    return tuple(torch.randn(shape, generator=gen, device=fld.device)
+                 for _ in range(2))
+
+
 def sweep_inputs(device, cell="mcica_cloudy") -> dict:
     """Phase 3's K1 inputs (``cell``, B=16384; mcica_cloudy: L=60): the
     model, profile, setcoef output, static tensors, compact clouds, the
@@ -361,6 +395,13 @@ def outputs(device) -> dict:
                   for _ in range(2))
     out["k5"] = taumol_vjp(fld, ifld, model.engine, model.kernel_tabs,
                            model.kernel_desc, ct_t, ct_f)
+    k5_in = [("k5_boost", *k5_inputs(device, model, boost=K5_BOOST))] + [
+        (f"k5_edge_{B}x{L}", *k2_edge_args(device, model, B, L)[:2])
+        for B, L in K2_EDGE_SHAPES]
+    for tag, f, i in k5_in:
+        out[tag] = taumol_vjp(f, i, model.engine, model.kernel_tabs,
+                              model.kernel_desc, *k5_cotangents(f))
+    del k5_in
     modes = k1_cloud_args(device, static, mc)
     eargs, emodes, _ = k1_edge_args(device, static, args)
     for tag, a, ms in (("k1", args, modes), ("k1_edge", eargs, emodes)):
@@ -524,6 +565,27 @@ def k2_times(device, reps=5) -> list:
     return rows
 
 
+def k5_times(device, reps=5) -> list:
+    """Device ms per launch of K5 on phase 3's inputs (L=60) and the
+    mcica_cloudy_deep cell's (L=140), B=16384, on seeded cotangents.
+    -> [{nlay, device_ms}]."""
+    from rrtmg_lw_torch import LWConfig, make_model
+    from rrtmg_lw_torch.ops.taumol_cuda import taumol_vjp
+    model = make_model(LWConfig(icld=2, imca=1, dtype="float32",
+                                use_lut=False), device=device)
+    rows = []
+    for cell in ("mcica_cloudy", "mcica_cloudy_deep"):
+        fld, ifld = k5_inputs(device, model, cell)
+        cts = k5_cotangents(fld)
+        ms = kernel_ms(lambda: taumol_vjp(
+            fld, ifld, model.engine, model.kernel_tabs, model.kernel_desc,
+            *cts), "taumol_bwd_kernel", reps)
+        rows.append(dict(nlay=fld.shape[1], device_ms=ms))
+        print(rows[-1], flush=True)
+        del fld, ifld, cts
+    return rows
+
+
 def raw(x: torch.Tensor) -> torch.Tensor:
     """``x``'s bits: a floating tensor viewed as integers of its width."""
     if not x.is_floating_point():
@@ -542,12 +604,14 @@ def main(argv=None) -> int:
     ap.add_argument("--k2-times", metavar="OUT",
                     help="time K2 in every storage at L=60 and 140 into OUT "
                          "(JSON)")
+    ap.add_argument("--k5-times", metavar="OUT",
+                    help="time K5 at L=60 and 140 into OUT (JSON)")
     ap.add_argument("--k6-times", metavar="OUT",
                     help="time K6 and K1 keeping the radiances, clear and "
                          "compact, into OUT (JSON)")
     args = ap.parse_args(argv)
     for opt, times in ((args.k1_times, k1_times), (args.k2_times, k2_times),
-                       (args.k6_times, k6_times)):
+                       (args.k5_times, k5_times), (args.k6_times, k6_times)):
         if not opt:
             continue
         if not torch.cuda.is_available():

@@ -32,8 +32,11 @@ apart (logf against torch.log); K1 in every mode x idrv x storage within
 a seeded aerosol od that a dropped or misread add would fail.  K1's 48
 instantiations on its edge cases (utils/snapshot.py k1_edge_args) at B
 of K1's 16-column tile +-1 and off 16, L = 1, past the ring and 140, and
-its launch configuration (at least two blocks per SM), and K6's (256
-threads, at least two blocks per SM, no spill).  The probes
+its launch configuration (at least two blocks per SM), K6's (256
+threads, at least two blocks per SM, no spill) and K5's (128 threads,
+at least MIN_BLOCKS blocks per SM, no spill); K5 also at B off, on and
+past its 128-column tile, and refusing a descriptor of another band
+structure, as K2 does.  The probes
 (utils/probes.py) bitwise equal to tbl[idx].
 """
 
@@ -62,7 +65,8 @@ from rrtmg_lw_torch.ops.taumol_cuda import (DESC_FIELDS, NBIN, TaumolFn,
                                             taumol_blocked, taumol_packed,
                                             taumol_packed_vjp, taumol_vjp)
 from rrtmg_lw_torch.parallel import make_grad_step
-from rrtmg_lw_torch.utils.snapshot import K2_EDGE_SHAPES, k2_edge_args
+from rrtmg_lw_torch.utils.snapshot import (K2_EDGE_SHAPES, K5_BOOST,
+                                           k2_edge_args)
 from rrtmg_lw_torch.utils.synthetic import (make_atmosphere,
                                             make_band_clouds,
                                             make_mcica_clouds)
@@ -130,7 +134,7 @@ def test_cldcoef_kernel_matches_plain(dev, iceflag):
 
 @pytest.mark.parametrize("spec", ["f32", "bf16", "f16", "logu16"])
 @pytest.mark.parametrize("B,L,boost", [
-    (37, 23, None), (1, 60, None), (64, 40, (1, 8, 1, 50, 1, 20, 1)),
+    (37, 23, None), (1, 60, None), (64, 40, K5_BOOST),
     *((B, L, "edge") for B, L in K2_EDGE_SHAPES)])
 def test_taumol_kernel_matches_plain(dev, B, L, boost, spec):
     """K2 against the plain engine (bins equal), on setcoef's output or
@@ -273,9 +277,12 @@ def test_planck_bwd_kernel_matches_plain_vjp(dev, N, B):
     assert torch.equal(got, planck_interp_vjp(temp, model.totplnk, ct))
 
 
-@pytest.mark.parametrize("B,L,boost", [(37, 7, None), (5, 1, None),
-                                       (70, 7, (1, 8, 1, 50, 1, 20, 1))])
+@pytest.mark.parametrize("B,L,boost", [
+    (37, 7, None), (5, 1, None), (70, 7, K5_BOOST),
+    *((B, L, None) for B in (1, 127, 128, 129, 300) for L in (1, 60))])
 def test_taumol_bwd_kernel_matches_plain_vjp(dev, B, L, boost):
+    """K5 against the plain vjp, per field, and bitwise over two runs;
+    B off, on and past K5's 128-column tile, one layer and 60."""
     model = _model(dev)
     _, _, prof = _case(dev, B, L, boost=boost)
     sc = setcoef(prof, model.static_tensors(), planck=False)
@@ -290,6 +297,46 @@ def test_taumol_bwd_kernel_matches_plain_vjp(dev, B, L, boost):
     for f in range(fld.shape[0]):
         assert rel_err(got[f], ref[f]) <= 1e-4, f
     assert torch.equal(got, taumol_vjp(*args))
+
+
+def test_taumol_bwd_launch_configuration(dev):
+    """K5 runs at its launch bounds: 128 threads for 128 columns, at
+    least MIN_BLOCKS blocks per SM (csrc/taumol_bwd.cu), no local
+    memory (no spill)."""
+    import pathlib
+    import re
+    from rrtmg_lw_torch.ops.taumol_cuda import k5_info
+    src = (pathlib.Path(__file__).resolve().parents[1] / "rrtmg_lw_torch"
+           / "csrc" / "taumol_bwd.cu").read_text()
+    min_blocks = int(re.search(r"\nconstexpr int MIN_BLOCKS = (\d+);",
+                               src).group(1))
+    info = k5_info()
+    assert info["threads"] == 128 and info["columns"] == 128, info
+    assert info["blocks_per_sm"] >= min_blocks, info
+    assert info["registers"] <= 65536 // (128 * min_blocks), info
+    assert info["local_bytes"] == 0, info
+    assert info["static_smem"] <= 48 * 1024, info
+
+
+def test_taumol_vjp_refuses_other_band_structure(dev):
+    """K5 compiles in the descriptor words that BAND_SPECS fixes: its
+    wrapper raises on a descriptor whose such word differs (band 1
+    lower's ng here), also after an in-place change to one it took."""
+    model = _model(dev)
+    _, _, prof = _case(dev, 5, 3)
+    fld, ifld = _pack_inputs(
+        setcoef(prof, model.static_tensors(), planck=False), prof)
+    cts = (_randn((3, 140, 5), dev, 1), _randn((3, 140, 5), dev, 2))
+    desc = model.kernel_desc.clone()
+
+    def run():
+        return taumol_vjp(fld, ifld, model.engine, model.kernel_tabs, desc,
+                          *cts)
+
+    run()
+    desc[0, 0, DESC_FIELDS.index("NGB")] += 2
+    with pytest.raises(RuntimeError, match="NGB of band 1"):
+        run()
 
 
 def _k6_case(dev, args, fields, seed=3):

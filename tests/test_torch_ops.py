@@ -40,6 +40,7 @@ from rrtmg_lw_torch.data.ktables import tables_from_numpy
 from rrtmg_lw_torch.ops import cldprop, rtrn, rtrnmr, setcoef
 from rrtmg_lw_torch.ops.inatm import inatm
 from rrtmg_lw_torch.utils import synthetic as tsyn
+from rrtmg_lw_torch.utils.snapshot import K5_BOOST
 
 torch.set_num_threads(1)
 
@@ -178,8 +179,7 @@ def test_taumol_plain_matches_jax(pair, case):
     jprof, tprof = pair["jprof"], pair["tprof"]
     jm, tm = pair["jm"], pair["tm"]
     if case == "chi_slot":
-        boost = np.ones(7)
-        boost[1], boost[3], boost[5] = 8.0, 50.0, 20.0
+        boost = np.asarray(K5_BOOST)
         jprof = jprof._replace(wkl=jprof.wkl * boost)
         tprof = tprof._replace(wkl=tprof.wkl * torch.as_tensor(boost))
         jsc = jsetcoef.setcoef(jprof, jm.static)

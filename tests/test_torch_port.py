@@ -250,6 +250,68 @@ def test_taumol_kernel_launch_fits_the_card():
     assert 65536 // (tb * min_blocks) >= 32
 
 
+def test_taumol_bwd_launch_fits_the_card():
+    """K5's tile and thread constants, read from csrc/taumol_bwd.cu: its
+    shared memory (the tile's NF float input rows, its NF rows of field
+    sums and its NI int input rows as 16-bit, static) fits the 48 KB of
+    static shared memory a block may hold, and MIN_BLOCKS blocks fit an
+    SM's 228 KB, 2048 threads and 65536 registers (at least 32 a
+    thread); its table alignment is pack_tables', a row load (VW floats)
+    divides every band's ng, and setcoef's bins fit the 16 bits the int
+    inputs are staged in."""
+    src = open(os.path.join(REPO, "rrtmg_lw_torch", "csrc",
+                            "taumol_bwd.cu")).read()
+
+    def const(name):
+        return int(re.search(r"\nconstexpr int %s = (\d+);" % name,
+                             src).group(1))
+
+    tb, min_blocks, vw = const("TB"), const("MIN_BLOCKS"), const("VW")
+    assert "constexpr int THREADS = TB;" in src
+    assert "__launch_bounds__(THREADS, MIN_BLOCKS)" in src
+    assert const("TAB_ALIGN") == taumol_cuda.TAB_ALIGN
+    assert all(ng % vw == 0 for ng in ttaumol.NG)
+    assert taumol_cuda.TAB_ALIGN % vw == 0
+    shared = re.findall(r"__shared__ (float|short|int) (\w+)\[(.*?)\];", src)
+    assert [(ty, size) for ty, _, size in shared] == [
+        ("float", "NF * TB"), ("float", "NF * TB"), ("short", "NI * TB")]
+    nf, ni = len(taumol_cuda.FLOAT_FIELDS), len(taumol_cuda.INT_FIELDS)
+    smem = 4 * 2 * nf * tb + 2 * ni * tb
+    assert "taumol_bwd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>" \
+        in src
+    assert smem <= 48 * 1024
+    assert min_blocks * (smem + 1024) <= 228 * 1024
+    assert tb % 32 == 0 and tb * min_blocks <= 2048
+    assert 65536 // (tb * min_blocks) >= 32
+    # the int inputs are setcoef's bins, clamped far below 2**15
+    setcoef_src = open(os.path.join(REPO, "rrtmg_lw_torch", "ops",
+                                    "setcoef.py")).read()
+    highs = [int(x) for x in re.findall(r"torch\.clamp\(_trunc_int\(.*?\), "
+                                        r"\d+, (\d+)\)", setcoef_src)]
+    assert highs and max(highs) < 2 ** 15
+
+
+def test_taumol_bwd_bound_counts_only_the_cotangents_it_needs():
+    """chip_smoke.taumol_bwd_work's bytes: a lower cell needs the
+    cotangents of its 140 taug rows and of the 86 fraction rows that
+    depend on its eta (FRAC_ETA), an upper cell those of the 130 taug
+    rows that are not zero (bands 12 and 15) and of 46 fraction rows."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    kt, static = jkt.load_ktables()[0], jkt.load_static()
+    desc = torch.as_tensor(taumol_cuda.pack_tables(kt, static)[1])
+    ifld = torch.zeros((len(taumol_cuda.INT_FIELDS), 3, 5), dtype=torch.int32)
+    ifld[taumol_cuda.INT_FIELDS.index("laytrop"), :2] = 1   # 10 lower cells
+    ops, nbytes = smoke.taumol_bwd_work(desc, ifld)
+    assert nbytes == 4 * (10 * (140 + 86) + 5 * (130 + 46))
+    ops_lower = smoke.taumol_bwd_work(desc, torch.ones_like(ifld))[0]
+    ops_upper = smoke.taumol_bwd_work(desc, torch.zeros_like(ifld))[0]
+    assert ops * 15 == 10 * ops_lower + 5 * ops_upper
+
+
 def test_rt_adjoint_launch_fits_the_card():
     """K6's tile, ring and shared memory, read from csrc/rtrn_bwd.cu and
     csrc/rtrn.cuh: blocks of 16 columns x 16 g-lanes launched two to an
@@ -287,15 +349,25 @@ def test_rt_adjoint_launch_fits_the_card():
 
 
 def test_taumol_shape_header_matches_pack_tables():
-    """csrc/taumol.cu's Shape tables, the descriptor words K2 compiles
-    in, are what ``python -m rrtmg_lw_torch.ops.taumol_cuda`` writes from
-    pack_tables' descriptors: the BAND_SPECS words equal, the presence
-    words' signs equal, every other word zero."""
+    """csrc/taumol.cuh's Shape tables, the descriptor words K2 and K5
+    compile in, are what ``python -m rrtmg_lw_torch.ops.taumol_cuda``
+    writes from pack_tables' descriptors: the BAND_SPECS words equal, the
+    presence words' signs equal, every other word zero.  Both kernels
+    include the header, and neither holds a Shape section of its own."""
     kt, static = jkt.load_ktables()[0], jkt.load_static()
     desc = taumol_cuda.pack_tables(kt, static)[1]
+    csrc = os.path.join(REPO, "rrtmg_lw_torch", "csrc")
+    assert taumol_cuda.SHAPE_SOURCE.name == "taumol.cuh"
+    assert str(taumol_cuda.SHAPE_SOURCE.parent) == csrc
     with open(taumol_cuda.SHAPE_SOURCE) as f:
         assert taumol_cuda.source_shape_section(f.read()) == \
             taumol_cuda.shape_section(desc)
+    for name in ("taumol.cu", "taumol_bwd.cu"):
+        with open(os.path.join(csrc, name)) as f:
+            text = f.read()
+        assert '#include "taumol.cuh"' in text, name
+        assert taumol_cuda.SHAPE_BEGIN not in text, name
+        assert "struct Shape" not in text, name
     words = taumol_cuda.shape_words(desc)
     for name, i in zip(taumol_cuda.DESC_FIELDS, range(desc.shape[-1])):
         if name in taumol_cuda.SHAPE_WORDS:
@@ -487,14 +559,9 @@ def test_kernel_ms_averages_the_launches_a_trace_holds(monkeypatch, held,
 
 
 def test_ptxas_info_reads_each_instantiation(tmp_path):
-    """chip_smoke.ptxas_info on ptxas -v lines: registers and spill
-    stores per instantiation matched by its mangled name, other kernels'
-    lines skipped."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    """_build.ptxas_info on ptxas -v lines: registers and spill stores
+    per instantiation matched by its mangled name, other kernels' lines
+    skipped."""
     log = """\
 ptxas info    : Compiling entry function '_Z13rt_bwd_kernelILb1EEvPKf' for 'sm_90a'
 ptxas info    : Function properties for _Z13rt_bwd_kernelILb1EEvPKf
@@ -511,8 +578,8 @@ ptxas info    : Used 128 registers, 560 bytes cmem[0]
 """
     path = tmp_path / "build.log"
     path.write_text(log)
-    got = smoke.ptxas_info(path, r"rt_bwd_kernelILb([01])E",
-                           lambda m: ("clear", "compact")[int(m.group(1))])
+    got = _build.ptxas_info(path, r"rt_bwd_kernelILb([01])E",
+                            lambda m: ("clear", "compact")[int(m.group(1))])
     assert got == {"compact": {"spill_bytes": 0, "registers": 127},
                    "clear": {"spill_bytes": 288, "registers": 128}}
 
