@@ -10,13 +10,16 @@ Phases, each raising on failure (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the CUDA kernels from csrc/ (one nvcc per source, in
      parallel), timed, with the registers and spills ptxas reports; for
-     each of K1's 52 instantiations (48, and the 4 of the gradient step
-     that keep the radiances for K6, which must not spill) its registers
+     each of K1's 54 instantiations (48, and the 6 of the gradient step
+     that keep the radiances for K6, clear, compact and maxrand, which
+     must not spill) its registers
      and spill stores, its shared memory per block, blocks per SM (the
      CUDA occupancy API) and levels in its ring, the same (but the ring)
      for K2's 4, K6's registers and spill stores, and K5's registers,
      spill stores, local memory, shared memory and blocks per SM (it must
-     not spill and must fit its MIN_BLOCKS launch bound);
+     not spill and must fit its MIN_BLOCKS launch bound); the overlap
+     rows', their adjoint's and K6 maxrand's registers and spill stores
+     (none may spill; K6 maxrand fits two blocks per SM);
   3. each kernel against its plain PyTorch version on the card at the
      main-path shapes (B=16384 columns, L=60 layers, float32), with the
      max error and CUDA-event times of both and the bound of each (the
@@ -29,8 +32,9 @@ Phases, each raising on failure (any failure exits non-zero):
      bins equal, the 16-bit storages equal to the encode of its float32
      output (logu16 codes +-1); the RT sweep in all six modes (clear/compact, banded,
      maxrand, fused on McicaCloudsBlocked, cldf-odcld on the same clouds
-     with an input cloud od) and each at idrv=1, and the overlap rows,
-     each also bitwise equal over two runs, the idrv=1 flux rows bitwise
+     with an input cloud od) and each at idrv=1, and the overlap rows
+     (bitwise equal to the plain version's, with their device ms), each
+     also bitwise equal over two runs, the idrv=1 flux rows bitwise
      equal to idrv=0's; the deterministic-cloud modes on make_band_clouds
      and on a cloud field whose fractions vary inside cloudy blocks; K1's
      48 instantiations (6 modes x idrv x 4 storages) on its edge cases
@@ -77,7 +81,15 @@ Phases, each raising on failure (any failure exits non-zero):
      radiances of K1's gradient-step launch on the same tensors, whose
      fluxes must be bitwise those of K1's launch without them and whose
      radiances within TOL_RADS of the plain sweep's; K6 without them
-     must raise;
+     must raise; the maxrand gradient's kernels on the band_cloudy
+     cell's clouds and on mixed_clouds' (K1 and K6 also on K1's edge
+     cases): the overlap adjoint within TOL_BWD of the plain vjp of
+     rtrnmr.overlap_rows, K1 keeping the maxrand state (its fluxes
+     bitwise K1's, the state within TOL_RADS of the plain sweep's, the
+     sub-streams where K1 keeps them), K6 maxrand fed it within
+     TOL_BWD_RT of the plain vjp on B_SUB columns (zeros in the flag
+     rows; without the state it raises; unchanged with NaN in the
+     sub-streams K1 does not keep), each bitwise over two runs;
      then the gradient step (make_grad_step, the default loss, w.r.t.
      every Atmosphere field) at B=16384, L=60 through the kernels: McICA,
      3 timed steps with the launch counters reset just before and read
@@ -85,9 +97,18 @@ Phases, each raising on failure (any failure exits non-zero):
      forward cell), peak memory; its gradients of a column-sum loss, linear
      in the four flux arrays with seeded cotangents, held on all 16384
      columns against the eager step's (run in column chunks); clear sky,
-     1 step, the same check; the McICA step at idrv=1 bitwise equal to
-     idrv=0's, and a cotangent of duflx_dt or a backward through the
-     fused mode raising NotImplementedError; a logu16 grad step raising
+     1 step, the same check; then this slice's main path, the maxrand
+     gradient step (maxrand_cloudy_grad, BandClouds, icld=2) w.r.t. every
+     Atmosphere field and the cloud fraction and water paths: 3 timed
+     steps counted the same way (K2, K3, K4, the overlap rows, K1 keeping
+     the maxrand state, K6 maxrand, K5, K3b and the overlap adjoint, once
+     each a step but K3 and K3b twice; K1's state launch never in a
+     forward cell), peak memory, the linear-loss gradients on all 16384
+     columns within TOL_STEP of the eager step's; the McICA and the
+     maxrand steps at idrv=1 bitwise equal to idrv=0's, and a cotangent
+     of duflx_dt, a backward through the fused, cldf-odcld or banded
+     mode and a gradient w.r.t. the effective radii raising
+     NotImplementedError; a logu16 grad step raising
      NotImplementedError on both impls;
   7. probes (utils/probes.py, the archived Pallas probes' counterparts):
      the one-hot selection product (bf16 and exact, dout 128 and 1656)
@@ -100,14 +121,20 @@ bytes_once (the bytes behind bound_ms); K1's and K2's entries
 CUDA events around the wrapper, holds its host gaps too), their
 instantiation's registers, spill bytes, shared memory, blocks per SM
 (K1: and ring levels) and achieved GB/s (bytes_once over device_ms),
-"rt_sweep" the table of all 52 K1 instantiations; K6's entry
+"rt_sweep" the table of all 54 K1 instantiations; K6's entry
 (rt_adjoint) its registers, spill bytes, device_ms and GB/s, and K5's
 (taumol_bwd) the same with its shared memory and blocks per SM; K5's
 bound counts its operations and cotangent bytes per (band, region)
-(``taumol_bwd_work``).
-K5's, K6's and K1 SAVE's device_ms come from ``utils/snapshot.py
---k5-times --k6-times`` in a process of its own, started after phase
-3.  Without CUDA it exits non-zero and prints no result.
+(``taumol_bwd_work``); the overlap rows', their adjoint's and K6
+maxrand's entries their registers, spill bytes and GB/s; the bounds of
+K1 SAVE maxrand and K6 maxrand count the sub-streams only where K1
+keeps them and K6 reads them (cloudy layers without a restart), and K6
+maxrand's plain_ms is the plain vjp's on plain_ncol columns; the
+overlap kernels are timed on rotating copies of their inputs (L2 cold,
+``utils.snapshot.rotating``).
+K5's, K6's and K1 SAVE's device_ms (both modes) come from
+``utils/snapshot.py --k5-times --k6-times`` in a process of its own,
+started after phase 3.  Without CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -139,10 +166,10 @@ TOL_RADS = 1e-5
 # for a loss linear in the fluxes: f32 against f64 on the CPU reads
 # <= 1.1e-5 (tests/test_torch_grad.py::test_f32_gradient_conditioning)
 TOL_STEP = 1e-4
-# overlap rows against their plain version: the discrete rows (0-3) equal,
-# the factor rows within this share of max |plain| (the same elementwise
-# f32 arithmetic; expected bitwise)
-TOL_ROWS = 1e-6
+# columns of the plain vjp of the maxrand sweep that K6 maxrand is held
+# to (autograd through the plain sweep at full width would hold ~10x the
+# saved state), and of its plain time
+B_SUB = 2048
 
 # the bound of a kernel: the larger of its bytes (each input read once,
 # each output written once) over the H100 SXM's HBM rate and its
@@ -160,7 +187,7 @@ BF16_TC_OPS_PER_S = 989e12      # dense bf16 on the tensor cores
 # clip, round)
 OPS = dict(taumol=60, planck=8, cldcoef=10, rt_clear=60, rt_cloud=40,
            rt_maxrand=60, overlap=100, planck_bwd=8, rt_adjoint=270,
-           rt_ddt=10, spec_codec=10)
+           rt_ddt=10, spec_codec=10, overlap_bwd=150, rt_adjoint_mr=160)
 # K5's operations, counted from csrc/taumol_bwd.cu per term of each
 # (band, region)'s structure (add, subtract, multiply one each; a product
 # two sums share once).  Per g-point: the cotangent's rescale and its
@@ -197,6 +224,13 @@ KERNELS = (  # name, source, replaced TPU kernel
     ("rt_sweep_maxrand", K1_SRC, "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
     ("overlap_rows", "rrtmg_lw_torch/csrc/overlap.cu",
      "rrtmg_lw_tpu/ops/rtrn_pallas.py:1155"),
+    # the maxrand gradient: the overlap rows' adjoint, K1 keeping the
+    # maxrand state, K6 maxrand (XLA's vjp in the JAX package)
+    ("overlap_bwd", "rrtmg_lw_torch/csrc/overlap.cu",
+     "rrtmg_lw_tpu/ops/rtrn_pallas.py:1208"),
+    ("rt_sweep_save_maxrand", K1_SRC, "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
+    ("rt_adjoint_maxrand", "rrtmg_lw_torch/csrc/rtrn_bwd_mr.cu",
+     "rrtmg_lw_tpu/ops/rtrn_pallas.py:1208"),
 ) + tuple((name, K1_SRC, "rrtmg_lw_tpu/ops/rtrn_pallas.py:140") for name in (
     "rt_sweep_fused", "rt_sweep_cldf_od", "rt_sweep_idrv",
     "rt_sweep_banded_idrv", "rt_sweep_maxrand_idrv", "rt_sweep_fused_idrv",
@@ -346,6 +380,7 @@ def phase_kernels(device):
     from rrtmg_lw_torch.ops.setcoef import interp_planck_blocked, setcoef
     from rrtmg_lw_torch.ops.taumol_cuda import (NBIN, _pack_inputs,
                                                 taumol_blocked)
+    from rrtmg_lw_torch.utils.snapshot import rotating
 
     model = make_model(LWConfig(icld=2, imca=1, dtype="float32",
                                 use_lut=False, impl="cuda"), device=device)
@@ -461,28 +496,29 @@ def phase_kernels(device):
     # the deterministic-cloud modes, on make_band_clouds (the main path's
     # clouds: one fraction per deck) and on a field whose fractions rise
     # and fall inside cloudy blocks, the regimes the maxrand factors carry:
-    # the overlap rows first (bitwise expected), then K1 banded and
-    # maxrand on them; times on the main path's clouds
+    # the overlap rows first (bitwise equal to the plain version's), then
+    # K1 banded and maxrand on them; times on the main path's clouds
     _, bc = inputs("band_cloudy", device)
     errs = {k: [] for k in ("overlap_rows", "rt_sweep_banded",
                             "rt_sweep_maxrand")}
     for tag, b in (("decks", bc), ("mixed", mixed_clouds(bc, device))):
         cldf = b.cldfrac
         rows_k, rows_p = overlap_rows(cldf), rtrnmr.overlap_rows(cldf)
-        nbad = int((rows_k[:, :4] != rows_p[:, :4]).sum())
-        e = rel_err(rows_k[:, 4:], rows_p[:, 4:])
-        need(nbad == 0 and e <= TOL_ROWS, f"overlap_rows ({tag}): {nbad} "
-             f"discrete rows differ, factor err {e:.3g}")
+        nbad = int((rows_k != rows_p).sum())
+        need(nbad == 0, f"overlap_rows ({tag}): {nbad} of {rows_k.numel()} "
+             f"rows' elements differ from plain, by up to "
+             f"{float((rows_k - rows_p).abs().max()):.3g}")
         need(torch.equal(rows_k, overlap_rows(cldf)),
              f"overlap_rows ({tag}): two runs differ")
-        errs["overlap_rows"].append(
-            (float((rows_k - rows_p).abs().max()), e))
-        print(f"overlap_rows ({tag}): discrete rows equal, factor err "
-              f"{e:.3g}, nonzero factors "
-              f"{float((rows_p[:, 4:] != 0).double().mean()):.1%}")
+        errs["overlap_rows"].append((0.0, 0.0))
+        print(f"overlap_rows ({tag}): bitwise equal to plain, nonzero "
+              f"factors {float((rows_p[:, 4:] != 0).double().mean()):.1%}")
         if tag == "decks":
+            # the fractions (3.9 MB) would stay in L2 across repeats
+            cold = rotating(overlap_rows, cldf)
             res["overlap_rows"] = dict(
-                ms=cuda_ms(lambda: overlap_rows(cldf), 20),
+                ms=cuda_ms(cold, 20),
+                device_ms=device_ms(cold, reps=20, symbol="overlap_kernel"),
                 plain_ms=cuda_ms(lambda: rtrnmr.overlap_rows(cldf), 2),
                 **bound((cldf,), (rows_k,), OPS["overlap"] * cldf.numel()))
         taucb, _ = cldprop.cldprop_banded_blocked(
@@ -669,8 +705,8 @@ def k1_edge_cases(device, model, args, dpl):
 def k1_build_info(log_path):
     """Each K1 instantiation's registers and spill stores (``_build.ptxas_info``)
     and launch configuration (``rtrn_cuda.k1_info``): {"<mode>
-    idrv<0|1> <storage>[ save]": {...}}, " save" the four that keep the
-    radiances for K6 (clear and compact, float32)."""
+    idrv<0|1> <storage>[ save]": {...}}, " save" the six that keep the
+    radiances for K6 (clear, compact and maxrand, float32)."""
     from rrtmg_lw_torch._build import ptxas_info
     from rrtmg_lw_torch.ops.rtrn_cuda import MODES, k1_info
     from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES
@@ -693,8 +729,8 @@ def k1_build_info(log_path):
         r.update(smem_bytes=info["static_smem"] + info["dynamic_smem"],
                  blocks_per_sm=info["blocks_per_sm"],
                  ring_levels=info["ring_levels"])
-    need(len(out) == 52 and all(len(r) == 5 for r in out.values()),
-         f"K1: {len(out)} instantiations in the build log, expected 52")
+    need(len(out) == 54 and all(len(r) == 5 for r in out.values()),
+         f"K1: {len(out)} instantiations in the build log, expected 54")
     need(all(out[k]["spill_bytes"] == 0 for k in out if k.endswith("save")),
          "K1: an instantiation that keeps the radiances spills")
     return out
@@ -722,6 +758,34 @@ def k6_build_info(log_path):
         need(r["spill_bytes"] == 0 and r["blocks_per_sm"] >= 2,
              f"K6 {key}: {r['spill_bytes']} B spill stores, "
              f"{r['blocks_per_sm']} blocks per SM")
+    return out
+
+
+def new_build_info(log_path):
+    """Registers and spill stores of this slice's new kernels
+    (``_build.ptxas_info``): the overlap rows and their adjoint, K6
+    maxrand (with its launch configuration, ``rtrn_cuda.k6_mr_info``);
+    fails where one spills, or K6 maxrand fits fewer than two blocks per
+    SM.  -> {name: {...}}."""
+    from rrtmg_lw_torch._build import ptxas_info
+    from rrtmg_lw_torch.ops.rtrn_cuda import k6_mr_info
+    names = {"14overlap_kernelE": "overlap_rows",
+             "18overlap_bwd_kernelE": "overlap_bwd",
+             "16rt_bwd_mr_kernelE": "rt_adjoint_maxrand"}
+    out = ptxas_info(log_path, "|".join(names),
+                     lambda m: names[m.group(0)])
+    need(sorted(out) == sorted(names.values())
+         and all(len(r) == 2 for r in out.values()),
+         f"new kernels: {sorted(out)} in the build log")
+    info = k6_mr_info()
+    need(info["registers"] == out["rt_adjoint_maxrand"]["registers"],
+         "K6 maxrand: registers at run time differ from ptxas'")
+    out["rt_adjoint_maxrand"].update(
+        smem_bytes=info["static_smem"] + info["dynamic_smem"],
+        blocks_per_sm=info["blocks_per_sm"])
+    need(all(r["spill_bytes"] == 0 for r in out.values())
+         and info["blocks_per_sm"] >= 2,
+         f"new kernels: spill stores or K6 maxrand blocks per SM: {out}")
     return out
 
 
@@ -846,7 +910,8 @@ K1_LINES = {"rt_sweep": "compact idrv0 f32", "rt_sweep_clear":
             "rt_sweep_fused_idrv": "fused idrv1 f32",
             "rt_sweep_cldf_od_idrv": "cldf_od idrv1 f32",
             "rt_sweep_spec": "compact idrv0 logu16",
-            "rt_sweep_save": "compact idrv0 f32 save"}
+            "rt_sweep_save": "compact idrv0 f32 save",
+            "rt_sweep_save_maxrand": "maxrand idrv0 f32 save"}
 # the K2 instantiation behind each K2 line of the JSON summary
 K2_LINES = {"taumol": "f32", "taumol_spec": "logu16"}
 
@@ -1235,10 +1300,169 @@ def phase_grad_kernels(device):
         max_abs_err=max(a for a, _ in save_errs),
         max_rel_err=max(r for _, r in save_errs))
     del out, ref, again
+    torch.cuda.empty_cache()
+    res.update(maxrand_grad_kernels(
+        device, model, (taut, fracs, play, plev, *fl_args), surf, randn))
     for name, r in res.items():
         print(f"{name}: max_abs_err {r['max_abs_err']:.3g} "
               f"max_rel_err {r['max_rel_err']:.3g} kernel {r['ms']:.3f} ms "
               f"plain {r['plain_ms']:.3f} ms")
+    return res
+
+
+def maxrand_grad_kernels(device, model, args, surf, randn):
+    """The maxrand gradient's kernels on phase 3's sweep inputs ``args``
+    (taut_t, fracs_t, planklay_t, planklev_t, plankbnd, semiss, pwvcm,
+    ngb0, wg) and the band_cloudy cell's clouds (make_band_clouds, and
+    mixed_clouds' fractions varying inside the decks): the overlap
+    adjoint within TOL_BWD of the plain vjp of rtrnmr.overlap_rows; K1
+    keeping the maxrand state, its fluxes bitwise K1's and the state
+    within TOL_RADS of the plain sweep's (the sub-streams where K1 keeps
+    them, ``rtrn.kept_state``), there and on K1's edge cases; K6 maxrand
+    fed that state within TOL_BWD_RT of the plain vjp of
+    rtrn.rt_sweep_maxrand on the first B_SUB columns, zeros in the flag
+    rows, and raising without the state; each kernel bitwise over two
+    runs (K6's second with NaN in the sub-streams K1 does not keep).  -> the three kernels' summary entries (K1's and K6's
+    device ms come from grad_device_times)."""
+    from rrtmg_lw_torch.ops import cldprop, rtrn, rtrnmr
+    from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_blocked
+    from rrtmg_lw_torch.ops.rtrn_cuda import (rt_fluxes_maxrand,
+                                              rt_sweep_maxrand_radiances,
+                                              rt_sweep_maxrand_vjp)
+    from rrtmg_lw_torch.ops.rtrnmr_cuda import (overlap_rows,
+                                                overlap_rows_vjp)
+    from rrtmg_lw_torch.utils.snapshot import k1_edge_args, rotating
+    static = model.static_tensors()
+    ngb0, wg = args[7:]
+    _, bc = inputs("band_cloudy", device)
+    fields = (("decks", bc), ("mixed", mixed_clouds(bc, device)))
+    res = {}
+
+    # the overlap adjoint
+    errs = []
+    for tag, b in fields:
+        cf = b.cldfrac
+        ct = randn(L_MAIN, 16, B_MAIN)
+        got = overlap_rows_vjp(cf, ct)
+
+        def plain(cf=cf, ct=ct):
+            x = cf.clone().requires_grad_()
+            return torch.autograd.grad(rtrnmr.overlap_rows(x), x, ct)[0]
+        ref = plain()
+        e = rel_err(got, ref)
+        need(bool(torch.isfinite(got).all()) and e <= TOL_BWD,
+             f"overlap_bwd ({tag}): rel err {e:.3g} > {TOL_BWD}")
+        need(torch.equal(got, overlap_rows_vjp(cf, ct)),
+             f"overlap_bwd ({tag}): two runs differ")
+        errs.append((float((got - ref).abs().max()), e))
+        print(f"overlap_bwd ({tag}): within {e:.3g} of max |plain vjp|, "
+              "bitwise over two runs")
+        if tag == "decks":
+            # the inputs (67 MB) would stay mostly in L2 across repeats
+            cold = rotating(overlap_rows_vjp, cf, ct)
+            res["overlap_bwd"] = dict(
+                ms=cuda_ms(cold, 20),
+                device_ms=device_ms(cold, reps=20,
+                                    symbol="overlap_bwd_kernel"),
+                plain_ms=cuda_ms(plain, 2),
+                # the 13 rows that carry a gradient are read
+                **bound((cf,), (got,), OPS["overlap_bwd"] * cf.numel(),
+                        nbytes=13 * L_MAIN * B_MAIN * 4))
+    res["overlap_bwd"].update(max_abs_err=max(a for a, _ in errs),
+                              max_rel_err=max(r for _, r in errs))
+
+    # K1 keeping the maxrand state and K6 maxrand
+    cases = []
+    for tag, b in fields:
+        taucb, _ = cldprop.cldprop_banded_blocked(
+            b, static, inflag=2, iceflag=3, liqflag=1,
+            coeffs=ice_liq_coeffs_blocked)
+        cases.append((tag, args, overlap_rows(b.cldfrac), taucb))
+    eargs, emodes, _ = k1_edge_args(device, static, args)
+    cases.append(("edge", eargs, *emodes["maxrand"][1]))
+    ct = randn(4, L_MAIN + 1, B_MAIN)
+    sub = slice(0, B_SUB)
+    save_errs, out, ref = [], [], []
+    for tag, a9, rows, taucb in cases:
+        a = (*a9[:4], surf, rows, taucb, ngb0, wg)
+        fk, rads = rt_sweep_maxrand_radiances(*a)
+        need(torch.equal(fk, rt_fluxes_maxrand(*a9, rows, taucb)),
+             f"rt_sweep_save_maxrand ({tag}): fluxes differ from K1's "
+             "without the state")
+        # K1 writes the sub-streams only where K6 reads them: the rest of
+        # the state is compared zeroed
+        need(torch.equal(rtrn.kept_state(rads, rows), rtrn.kept_state(
+            rt_sweep_maxrand_radiances(*a)[1], rows)),
+             f"rt_sweep_save_maxrand ({tag}): two runs differ")
+        _, rads_p = rtrn.rt_sweep_maxrand(*a, radiances=True)
+        e = rel_err(rads, rads_p)
+        need(bool(torch.isfinite(rads).all()) and e <= TOL_RADS,
+             f"rt_sweep_save_maxrand ({tag}): state off by {e:.3g} of max "
+             f"|plain| > {TOL_RADS}")
+        save_errs.append((float((rads - rads_p).abs().max()), e))
+        del rads_p
+        try:
+            rt_sweep_maxrand_vjp(*a, ct)
+        except ValueError:
+            pass
+        else:
+            need(False, "rt_adjoint_maxrand: K6 ran without the state")
+        got = rt_sweep_maxrand_vjp(*a, ct, rads=rads)
+        # NaN where the sub-streams are not kept: K6 must not read them
+        rtrn.kept_state(rads, rows, fill=float("nan"))
+        need(all(torch.equal(g, h) for g, h in zip(
+            got, rt_sweep_maxrand_vjp(*a, ct, rads=rads))),
+             f"rt_adjoint_maxrand ({tag}): two runs differ, or K6 read a "
+             "sub-stream K1 does not keep")
+        need(not bool(got[5][:, 1:4].any()),
+             f"rt_adjoint_maxrand ({tag}): cotangents in the flag rows")
+        xs = tuple(x[..., sub].contiguous() for x in a[:7])
+        r = rtrn.rt_sweep_maxrand_vjp(*xs, ngb0, wg,
+                                      ct[..., sub].contiguous())
+        out += [g[..., sub].contiguous() for g in got]
+        ref += list(r)
+        e6 = max(rel_err(g[..., sub], x) for g, x in zip(got, r))
+        print(f"rt_sweep_save_maxrand ({tag}): fluxes bitwise K1's, state "
+              f"within {e:.3g} of max |plain|; rt_adjoint_maxrand within "
+              f"{e6:.3g} of max |plain vjp| on {B_SUB} columns")
+        if tag == "decks":
+            ncld = int((rows[:, 0] >= rtrn.CLOUD_GATE).sum())
+            # the sub-streams K6 reads: cloudy layers without a restart
+            nsub = int(rtrn.substreams_kept(rows).sum())
+            base = OPS["rt_clear"] * L_MAIN * B_MAIN * 140
+            # the radiances and clear twins, and the sub-streams where
+            # they are kept, are written
+            res["rt_sweep_save_maxrand"] = dict(
+                ms=cuda_ms(lambda: rt_sweep_maxrand_radiances(*a), 5),
+                plain_ms=cuda_ms(lambda: rtrn.rt_sweep_maxrand(
+                    *a, radiances=True), 1),
+                **bound((*a9, rows, taucb), (fk, rads[:4]),
+                        base + OPS["rt_maxrand"] * 140 * ncld,
+                        nbytes=3 * 140 * 4 * nsub))
+            res["rt_adjoint_maxrand"] = dict(
+                ms=cuda_ms(lambda: rt_sweep_maxrand_vjp(*a, ct, rads=rads),
+                           3),
+                plain_ms=cuda_ms(lambda: rtrn.rt_sweep_maxrand_vjp(
+                    *xs, ngb0, wg, ct[..., sub].contiguous()), 1),
+                plain_ncol=B_SUB,
+                **bound((*a[:7], ct, rads[:4]), got,
+                        OPS["rt_adjoint"] * a9[0].numel()
+                        + OPS["rt_adjoint_mr"] * 140 * ncld,
+                        nbytes=3 * 140 * 4 * nsub))
+            print(f"rt_adjoint_maxrand: reads the sub-streams of {nsub} "
+                  f"cloudy (layer, column, sweep) without a restart of "
+                  f"{2 * ncld} cloudy ones")
+        del rads, got
+    res["rt_sweep_save_maxrand"].update(
+        max_abs_err=max(a for a, _ in save_errs),
+        max_rel_err=max(r for _, r in save_errs))
+    e = [rel_err(g, r) for g, r in zip(out, ref)]
+    need(max(e) <= TOL_BWD_RT, f"rt_adjoint_maxrand: rel err {max(e):.3g} "
+         f"> {TOL_BWD_RT} (per output: {[f'{x:.2g}' for x in e]})")
+    res["rt_adjoint_maxrand"].update(
+        max_abs_err=max(float((g - r).abs().max()) for g, r in zip(out,
+                                                                    ref)),
+        max_rel_err=max(e))
     return res
 
 
@@ -1263,13 +1487,16 @@ def grad_device_times():
     need(res.returncode == 0 and out5.exists() and out6.exists(),
          f"snapshot.py --k5-times --k6-times failed:\n{res.stderr[-3000:]}")
     rows = {r["mode"]: r for r in json.loads(out6.read_text())}
-    c = rows["compact"]
+    c, m = rows["compact"], rows["maxrand"]
     k5 = {r["nlay"]: r["device_ms"] for r in json.loads(out5.read_text())}
     print(f"device ms, K1 keeping the radiances {c['k1_save_ms']:.3f} "
-          f"(without {c['k1_ms']:.3f}), K6 {c['k6_ms']:.3f}, K5 "
-          f"{k5[L_MAIN]:.3f} (L={L_DEEP}: {k5[L_DEEP]:.3f})")
+          f"(without {c['k1_ms']:.3f}), K6 {c['k6_ms']:.3f}; maxrand: K1 "
+          f"keeping the state {m['k1_save_ms']:.3f} (without "
+          f"{m['k1_ms']:.3f}), K6 {m['k6_ms']:.3f}; K5 {k5[L_MAIN]:.3f} "
+          f"(L={L_DEEP}: {k5[L_DEEP]:.3f})")
     return {"rt_sweep_save": c["k1_save_ms"], "rt_adjoint": c["k6_ms"],
-            "taumol_bwd": k5[L_MAIN]}
+            "rt_sweep_save_maxrand": m["k1_save_ms"],
+            "rt_adjoint_maxrand": m["k6_ms"], "taumol_bwd": k5[L_MAIN]}
 
 
 def grad_errs(tag, gk, ge):
@@ -1361,14 +1588,100 @@ def phase_grad_step(device, counters):
     return launches, rows
 
 
+# the maxrand gradient step's launches per step (gradients w.r.t. the
+# Atmosphere fields and the cloud fraction and water paths); K1's launch
+# that keeps the state also counts on rt_sweep_maxrand
+MR_GRAD = dict(FWD, rt_sweep_maxrand=1, rt_sweep_save_maxrand=1,
+               overlap_rows=1, overlap_bwd=1, taumol_bwd=1, planck_bwd=2,
+               rt_adjoint_maxrand=1)
+
+
+def phase_maxrand_grad(device, counters):
+    """This slice's main path: the maximum-random overlap gradient step
+    (``maxrand_cloudy_grad``: icld=2, imca=0, inflag 2, B=16384, L=60)
+    through the kernels, w.r.t. every Atmosphere field and the cloud
+    fraction and water paths; 3 timed steps with every launch counter set
+    to 0 just before and read just after (MR_GRAD a step, 0 for the
+    others), peak memory; its gradients of the linear loss on all 16384
+    columns against the eager step's, run in B_CHUNK-column chunks,
+    within TOL_STEP of max |eager| per field.  -> (launches per step,
+    e2e rows)."""
+    from rrtmg_lw_torch import BandClouds, make_model
+    from rrtmg_lw_torch.parallel import CLOUD_GRADS, make_grad_step
+    from rrtmg_lw_torch.utils.profiling import CELLS
+    tag = "maxrand_cloudy_grad"
+    atm, bc = inputs(tag, device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    cts = [torch.randn(B_MAIN, L_MAIN + 1, generator=gen, device=device)
+           for _ in range(4)]
+
+    def linear(cts):
+        return lambda f: sum((c * x).sum() for c, x in zip(
+            cts, (f.uflx, f.dflx, f.uflxc, f.dflxc)))
+
+    model = make_model(CELLS[tag].config(impl="cuda"), device=device)
+    step = make_grad_step(model, cloud_fields=CLOUD_GRADS)
+    step(atm, bc)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        loss, ga, gc = step(atm, bc)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    counts = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: MR_GRAD.get(k, 0) * STEPS for k in counters}
+    need(counts == want, f"{tag}: launches {counts}, expected {want}")
+    need(bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in (*ga, *gc)),
+         f"{tag}: non-finite loss or gradient")
+    print(f"{tag}: launches in its {STEPS} steps: {counts}; peak "
+          f"{peak:.3f} GiB")
+    del step, ga, gc
+    _, gk, ck = make_grad_step(model, linear(cts), CLOUD_GRADS)(atm, bc)
+    eager = make_model(CELLS[tag].config(impl="eager"), device=device)
+    chunks = []
+    for i in range(0, B_MAIN, B_CHUNK):
+        s = slice(i, i + B_CHUNK)
+        _, ga, gc = make_grad_step(eager, linear([c[s] for c in cts]),
+                                   CLOUD_GRADS)(
+            type(atm)(*(x[s] for x in atm)),
+            BandClouds(*(x[s] for x in bc)))
+        chunks.append((*ga, *gc))
+    ge = [torch.cat(g) for g in zip(*chunks)]
+    worst, err = grad_errs(tag, gk, type(gk)(*ge[:len(gk)]))
+    cerr = {n: rel_err(g, r) for n, g, r in zip(CLOUD_GRADS, ck,
+                                                 ge[len(gk):])}
+    need(all(bool(torch.isfinite(g).all()) for g in ck),
+         f"{tag}: non-finite cloud gradient")
+    print(f"{tag}: cloud gradients, kernels vs eager, max rel err "
+          + ", ".join(f"{k} {v:.2g}" for k, v in cerr.items()))
+    need(err <= TOL_STEP and max(cerr.values()) <= TOL_STEP,
+         f"{tag}: gradient of {worst} off by {err:.3g}, cloud "
+         f"gradients by {max(cerr.values()):.3g} of max |eager|")
+    need(bool((ck[0] != 0).any()), f"{tag}: zero cloud-fraction gradient")
+    row = dict(cell=tag, impl="cuda", ncol=B_MAIN, nlay=L_MAIN,
+               ms_per_step=ms, cols_per_sec=B_MAIN / (ms * 1e-3),
+               peak_gib=peak, grad_rel_err_vs_eager=max(err, *cerr.values()))
+    del model, eager, gk, ck, ge, chunks
+    torch.cuda.empty_cache()
+    return counts, [row]
+
+
 def phase_grad_idrv(device):
     """The McICA gradient step (default loss) at idrv=1 runs through K6
     and gives the idrv=0 step's loss and gradients bitwise (the loss reads
     no d/dT; both with deterministic algorithms, under which two idrv=0
-    steps are bitwise equal too); a loss that reads duflx_dt, and a backward through the
-    fused mode, raise NotImplementedError on the card."""
+    steps are bitwise equal too), and so does the maxrand step (K6
+    maxrand, w.r.t. the Atmosphere and the clouds); a loss that reads
+    duflx_dt (McICA and maxrand), a backward through the fused,
+    cldf-odcld or banded mode, and a gradient w.r.t. the effective radii
+    (K4), raise NotImplementedError on the card."""
     from rrtmg_lw_torch import Atmosphere, make_model
-    from rrtmg_lw_torch.parallel import make_grad_step
+    from rrtmg_lw_torch.parallel import CLOUD_GRADS, make_grad_step
     from rrtmg_lw_torch.utils.profiling import CELLS
     atm, clouds = inputs("mcica_cloudy", device)
     steps = [make_grad_step(make_model(CELLS[c].config(impl="cuda"),
@@ -1391,15 +1704,55 @@ def phase_grad_idrv(device):
          f"mcica_cloudy_idrv_grad: gradients differ from idrv=0's: "
          f"{diffs(g0, g1)}")
     del steps, g0, gr, g1
+    # the maxrand step at idrv 0 (twice) and 1
+    _, bc = inputs("maxrand_cloudy", device)
+    cfg = CELLS["maxrand_cloudy_grad"].config
+    steps = [make_grad_step(make_model(cfg(impl="cuda", idrv=i),
+                                       device=device),
+                            cloud_fields=CLOUD_GRADS) for i in (0, 0, 1)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out = [step(atm, bc) for step in steps]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (l0, g0, c0), (lr, gr, cr), (l1, g1, c1) = out
+    need(torch.equal(l0, lr) and not diffs(g0, gr)
+         and all(torch.equal(a, b) for a, b in zip(c0, cr)),
+         f"maxrand_cloudy_grad: two deterministic steps differ: "
+         f"{diffs(g0, gr)}")
+    need(torch.equal(l0, l1) and not diffs(g0, g1)
+         and all(torch.equal(a, b) for a, b in zip(c0, c1)),
+         f"maxrand_cloudy_idrv_grad: gradients differ from idrv=0's: "
+         f"{diffs(g0, g1)}")
+    print("maxrand_cloudy_idrv_grad: loss and gradients (Atmosphere and "
+          "clouds) bitwise equal to idrv=0's (deterministic algorithms)")
+    del steps, out
     idrv = make_model(CELLS["mcica_cloudy_idrv"].config(impl="cuda"),
                       device=device)
+    mr_idrv = make_model(cfg(impl="cuda", idrv=1), device=device)
     atm_b, blk = inputs("mcica_blocked", device)
-    fused = make_model(CELLS["mcica_blocked"].config(impl="cuda"),
-                       device=device)
+    atm_t, tauc = inputs("mcica_tauc", device)
+    atm_d, bnd = inputs("band_cloudy", device)
+    models = {c: make_model(CELLS[c].config(impl="cuda"), device=device)
+              for c in ("mcica_blocked", "mcica_tauc", "band_cloudy",
+                        "maxrand_cloudy")}
+    radii = bc._replace(reic=bc.reic.clone().requires_grad_())
+
+    def radii_step(a, c):
+        fl = models["maxrand_cloudy"](a, c)
+        return torch.autograd.grad(fl.uflx.sum(), c.reic)
     for tag, step, a, c in (
             ("d/dT cotangent", make_grad_step(idrv, lambda f: (
                 f.duflx_dt ** 2).mean()), atm, clouds),
-            ("fused backward", make_grad_step(fused), atm_b, blk)):
+            ("maxrand d/dT cotangent", make_grad_step(mr_idrv, lambda f: (
+                f.duflx_dt ** 2).mean()), atm, bc),
+            ("fused backward", make_grad_step(models["mcica_blocked"]),
+             atm_b, blk),
+            ("cldf-odcld backward", make_grad_step(models["mcica_tauc"]),
+             atm_t, tauc),
+            ("banded backward", make_grad_step(models["band_cloudy"]),
+             atm_d, bnd),
+            ("effective radii (K4)", radii_step, atm, radii)):
         try:
             step(a, c)
         except NotImplementedError as e:
@@ -1767,8 +2120,9 @@ def main() -> int:
                                               rt_fluxes_cldf_od,
                                               rt_fluxes_fused,
                                               rt_fluxes_maxrand,
+                                              rt_sweep_maxrand_vjp,
                                               rt_sweep_vjp)
-    from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows
+    from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows, overlap_rows_vjp
     from rrtmg_lw_torch.ops.taumol_cuda import taumol_blocked, taumol_vjp
     from rrtmg_lw_torch.utils import profiling
 
@@ -1815,6 +2169,12 @@ def main() -> int:
         print(f"K2 {key}: {r['registers']} registers, {r['spill_bytes']} B "
               f"spill stores, {r['smem_bytes']} B shared memory, "
               f"{r['blocks_per_sm']} blocks per SM")
+    new_build = new_build_info(path.parent / "build.log")
+    for key, r in new_build.items():
+        print(f"{key}: {r['registers']} registers, {r['spill_bytes']} B "
+              "spill stores" + (f", {r['smem_bytes']} B shared memory, "
+                                f"{r['blocks_per_sm']} blocks per SM"
+                                if "smem_bytes" in r else ""))
     k5_build = k5_build_info(path.parent / "build.log")
     print(f"K5: {k5_build['registers']} registers, "
           f"{k5_build['spill_bytes']} B spill stores, "
@@ -1837,6 +2197,9 @@ def main() -> int:
                 "cldcoef": ice_liq_coeffs_blocked,
                 "rt_sweep": rt_fluxes_blocked}
     fwd_counters = dict(counters, rt_sweep_save=rt_fluxes_blocked.save,
+                        rt_sweep_save_maxrand=rt_fluxes_maxrand.save,
+                        overlap_bwd=overlap_rows_vjp,
+                        rt_adjoint_maxrand=rt_sweep_maxrand_vjp,
                         rt_sweep_banded=rt_fluxes_banded,
                         rt_sweep_maxrand=rt_fluxes_maxrand,
                         overlap_rows=overlap_rows,
@@ -1883,11 +2246,21 @@ def main() -> int:
                     rt_sweep_save=rt_fluxes_blocked.save)
     grad_launches, grad_rows = phase_grad_step(device, counters)
     rows += grad_rows
+    # this slice's main path: the maxrand gradient step, counted alone
+    mr_counters = dict(counters, rt_sweep_maxrand=rt_fluxes_maxrand,
+                       rt_sweep_save_maxrand=rt_fluxes_maxrand.save,
+                       overlap_rows=overlap_rows,
+                       overlap_bwd=overlap_rows_vjp,
+                       rt_adjoint_maxrand=rt_sweep_maxrand_vjp)
+    mr_launches, mr_rows = phase_maxrand_grad(device, mr_counters)
+    rows += mr_rows
     phase_grad_idrv(device)
     storage_grad_raises(device)
     torch.cuda.empty_cache()
     launches.update({k: grad_launches[k] for k in (
         "taumol_bwd", "planck_bwd", "rt_adjoint", "rt_sweep_save")})
+    launches.update({k: mr_launches[k] for k in (
+        "overlap_bwd", "rt_sweep_save_maxrand", "rt_adjoint_maxrand")})
 
     # 7. the archived probes' counterparts
     probe_res, probe_launches = phase_probes(device)
@@ -1911,6 +2284,13 @@ def main() -> int:
     print(f"rt_adjoint (compact): device {r['device_ms']:.3f} ms, "
           f"{r['gbps']:.0f} GB/s of its bytes read once, bound "
           f"{r['bound_ms']:.3f} ms")
+    for name in ("overlap_rows", "overlap_bwd", "rt_adjoint_maxrand"):
+        r = res[name]
+        r.update(new_build[name],
+                 gbps=r["bytes_once"] / (r["device_ms"] * 1e-3) / 1e9)
+        print(f"{name}: device {r['device_ms']:.4f} ms, {r['gbps']:.0f} GB/s "
+              f"of its bytes read once, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
     r = res["taumol_bwd"]
     r.update(k5_build, gbps=r["bytes_once"] / (r["device_ms"] * 1e-3) / 1e9)
     print(f"taumol_bwd: device {r['device_ms']:.3f} ms, {r['gbps']:.0f} GB/s "

@@ -53,6 +53,9 @@ SIGNATURES = {
     "rrtm_rt": (P,) * 19 + (I,) * 5 + (P, P),
     "rrtm_rt_info": (I, I, I, I, P),
     "rrtm_overlap": (P, P, I, I, P),
+    "rrtm_overlap_bwd": (P, P, P, I, I, P),
+    "rrtm_rt_bwd_mr": (P,) * 18 + (I, I, P),
+    "rrtm_rt_bwd_mr_info": (P,),
     "rrtm_rt_bwd": (P,) * 21 + (I, I, I, P),
     "rrtm_rt_bwd_info": (I, P),
     "rrtm_taumol_ndesc": (),

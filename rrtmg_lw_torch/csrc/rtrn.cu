@@ -1,6 +1,6 @@
 // K1, the RT sweep kernel (rtrn_kernel.cuh): its float32 instantiations
-// (6 modes x idrv 0/1, and clear and compact x idrv 0/1 that keep the
-// radiances for K6) and the entry points, which dispatch the reduced
+// (6 modes x idrv 0/1, and clear, compact and maxrand x idrv 0/1 that
+// keep the radiances for K6) and the entry points, which dispatch the reduced
 // storages to rtrn_bf16.cu, rtrn_f16.cu and rtrn_logu16.cu.
 #include "rtrn_kernel.cuh"
 
@@ -18,10 +18,11 @@
 // the other cloud pointers may be null.
 // -> out (4, L+1, B) = up, down, clear up, clear down; idrv = 1:
 // (6, L+1, B), + d up / dT_sfc, d clear up / dT_sfc.  rads null: K1 as
-// the forward step runs it; else (clear or compact in float32, the
-// gradient step) it also writes the per-g radiances to rads (2 | 4, L,
-// 140, B): the down radiance at level l, the up radiance entering layer
-// l and, compact, their clear twins (rtrn_kernel.cuh, SAVE).
+// the forward step runs it; else (clear, compact or maxrand in float32,
+// the gradient step) it also writes the per-g radiances to rads (2 | 4 |
+// 10, L, 140, B): the down radiance at level l, the up radiance entering
+// layer l and, compact and maxrand, their clear twins; maxrand also the
+// sub-streams entering each layer in each sweep (rtrn_kernel.cuh, SAVE).
 RRTM_API int rrtm_rt(const void* taut, const void* fracs, const float* play,
                      const float* plev, const float* surf, const int* ngb,
                      const float* wg, const int8_t* mask, const float* cw,
@@ -73,6 +74,10 @@ RRTM_API int rrtm_rt_info(int mode, int idrv, int spec, int save, int* out) {
             return (int)(idrv
                 ? info<COMPACT, true, rrtm::SPEC_F32, true>(out)
                 : info<COMPACT, false, rrtm::SPEC_F32, true>(out));
+        case MAXRAND:
+            return (int)(idrv
+                ? info<MAXRAND, true, rrtm::SPEC_F32, true>(out)
+                : info<MAXRAND, false, rrtm::SPEC_F32, true>(out));
         default: return (int)cudaErrorInvalidValue;
         }
     }

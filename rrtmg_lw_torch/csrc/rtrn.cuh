@@ -87,6 +87,24 @@ __device__ __forceinline__ void tot_factors(float od, float& a, float& tf) {
     }
 }
 
+// The same factors and their derivatives in od, for the adjoints K6
+// (rtrn_bwd.cu, rtrn_bwd_mr.cu): `small` selects the branch.
+__device__ __forceinline__ void factors_d(float od, bool small, float& a,
+                                          float& tf, float& da, float& dtf) {
+    if (small) {
+        a = od - 0.5f * od * od;
+        tf = REC_6 * od;
+        da = 1.0f - od;
+        dtf = REC_6;
+    } else {
+        const float e = expf(-od);
+        a = 1.0f - e;
+        tf = 1.0f - 2.0f * (1.0f / od - e / (1.0f - e));
+        da = e;
+        dtf = 2.0f / (od * od) - 2.0f * e / ((1.0f - e) * (1.0f - e));
+    }
+}
+
 struct Inputs {
     const float* taut;     // (L, 140, B)
     const float* fracs;    // (L, 140, B)

@@ -162,23 +162,6 @@ static_assert(BLOCKS_PER_SM * (SMEM_BWD[1] + SMEM_RESERVED) <= SMEM_SM
               "two K6 blocks fit an SM");
 static_assert(KNB * KX == KT, "one secant a thread");
 
-// The absorptivity, Planck transition and their derivatives in od.
-__device__ __forceinline__ void factors_d(float od, bool small, float& a,
-                                          float& tf, float& da, float& dtf) {
-    if (small) {
-        a = od - 0.5f * od * od;
-        tf = REC_6 * od;
-        da = 1.0f - od;
-        dtf = REC_6;
-    } else {
-        const float e = expf(-od);
-        a = 1.0f - e;
-        tf = 1.0f - 2.0f * (1.0f / od - e / (1.0f - e));
-        da = e;
-        dtf = 2.0f / (od * od) - 2.0f * e / ((1.0f - e) * (1.0f - e));
-    }
-}
-
 // Reverse of one advance() of a layer for one (column, g) with inputs
 // tau, fr, the Planck rows of its band at the layer (bl) and at the
 // level bounding the step (pl), the secant, mask value m and the

@@ -88,13 +88,16 @@
 // rtrn_logu16.cu the reduced ones, one translation unit each so that nvcc
 // builds them in parallel.
 //
-// The gradient step (SAVE, a fourth template parameter: clear and compact
-// in float32, idrv 0 and 1): the kernel also stores every per-g radiance
-// that it sums into the flux rows DOWN, UP (and CLR_DOWN, CLR_UP) at
-// levels 0..L-1, from the same registers, in the order K6 (rtrn_bwd.cu)
-// reads them back: (2 | 4, L, 140, B) floats, 1.1 GB clear and 2.2 GB
-// compact at B=16384, L=60.  The stores sit beside the flux sums and
-// change nothing in them: the fluxes are bitwise those of the kernel
+// The gradient step (SAVE, a fourth template parameter: clear, compact
+// and maxrand in float32, idrv 0 and 1): the kernel also stores every
+// per-g radiance that it sums into the flux rows DOWN, UP (and CLR_DOWN,
+// CLR_UP) at levels 0..L-1, from the same registers, in the order K6
+// (rtrn_bwd.cu; maxrand: rtrn_bwd_mr.cu) reads them back: (2 | 4, L, 140,
+// B) floats, 1.1 GB clear and 2.2 GB compact at B=16384, L=60; maxrand
+// also the three sub-streams entering a layer in a sweep, (10, L, 140, B)
+// allocated (5.5 GB), written only where K6 reads them: in a cloudy
+// layer that does not restart them.  The stores sit beside the flux sums
+// and change nothing in them: the fluxes are bitwise those of the kernel
 // without SAVE.  A warp's store is 16 columns x 2 g-points, two 64-byte
 // segments.  K6 shares with this file only the recurrences (advance,
 // advance_ddt, advance_mr) and the factor functions of rtrn.cuh.
@@ -301,11 +304,15 @@ __device__ __forceinline__ Step staged_step(const unsigned char* s,
     return f;
 }
 
-// SAVE (clear and compact, float32; the gradient step): the kernel also
-// writes the per-g radiances it sums into the flux rows to rads (2 | 4,
-// L, 140, B), row D the down radiance at level l after layer l, row U the
-// up radiance entering layer l (l = 0: just after the surface
-// reflection), compact rows 2-3 their clear twins; K6 reads them back.
+// SAVE (clear, compact and maxrand, float32; the gradient step): the
+// kernel also writes the per-g radiances it sums into the flux rows to
+// rads (2 | 4 | 10, L, 140, B), row D the down radiance at level l after
+// layer l, row U the up radiance entering layer l (l = 0: just after the
+// surface reflection), compact and maxrand rows 2-3 their clear twins,
+// maxrand rows 4-6 (7-9) the cloudy, clear and correction sub-streams
+// (cr, kr, rr) entering layer l in the down (up) sweep, written only
+// where layer l is cloudy and does not restart them in that sweep (the
+// rest of those rows is left as it was); K6 reads them back there.
 // Elsewhere rads is not read.
 template <int MODE, bool IDRV, int SPEC, bool SAVE>
 __global__ void __launch_bounds__(KT, BLOCKS_PER_SM)
@@ -320,9 +327,10 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
     constexpr int NUP = Lo::NUP;            // flux rows of the up sweep
     constexpr int RING = Lo::RING;
     constexpr int ES = Sl::ES;
-    static_assert(!SAVE || ((MODE == CLEAR || MODE == COMPACT)
+    static_assert(!SAVE || ((MODE == CLEAR || MODE == COMPACT || MR)
                             && SPEC == rrtm::SPEC_F32),
-                  "radiances are kept for K6: clear and compact, float32");
+                  "radiances are kept for K6: clear, compact and maxrand, "
+                  "float32");
     extern __shared__ __align__(16) unsigned char smem[];
     uint64_t* bar = reinterpret_cast<uint64_t*>(smem + Lo::BAR);
     float* part = reinterpret_cast<float*>(smem + Lo::PART);
@@ -497,20 +505,32 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
     float rad[KGPT], radc[KGPT], dl[ND], dc[ND];
 #pragma unroll
     for (int k = 0; k < KGPT; ++k) rad[k] = radc[k] = 0.0f;
+    // maxrand's sub-streams of g-point k: cr, kr, rr
+    auto subs = [&](int q, int k) -> float& {
+        return sub[(q * KGPT + k) * KT + tid];
+    };
     // SAVE: radiance row `row` (D or U) of g-point k of this thread at
-    // layer l, and in compact its clear twin at row + 2; valid columns only
+    // layer l, and in compact and maxrand its clear twin at row + 2;
+    // valid columns only
     auto save = [&](int row, int l, int k) {
         if (valid) {
             const size_t lgb = (size_t)L * KG * Bz;
             float* p = rads + row * lgb
                        + ((size_t)l * KG + ty + k * KY) * Bz + b;
             *p = rad[k];
-            if constexpr (MODE == COMPACT) p[2 * lgb] = radc[k];
+            if constexpr (MODE == COMPACT || MR) p[2 * lgb] = radc[k];
         }
     };
-    // maxrand's sub-streams of g-point k: cr, kr, rr
-    auto subs = [&](int q, int k) -> float& {
-        return sub[(q * KGPT + k) * KT + tid];
+    // SAVE, maxrand: the sub-streams of g-point k entering layer l, rows
+    // 4-6 (down sweep) or 7-9 (up)
+    auto save_subs = [&](bool upw, int l, int k) {
+        if (valid) {
+            const size_t lgb = (size_t)L * KG * Bz;
+            float* p = rads + (upw ? 7 : 4) * lgb
+                       + ((size_t)l * KG + ty + k * KY) * Bz + b;
+#pragma unroll
+            for (int q = 0; q < 3; ++q) p[q * lgb] = subs(q, k);
+        }
     };
     auto zero_subs = [&] {
         if constexpr (MR)
@@ -585,6 +605,8 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
                         s, in, l, g, bd, secd_s[bd * KX + c], cfg, cw0, cw1,
                         c, b);
                     if constexpr (SAVE && UPW) save(1, l, k);  // entering l
+                    if constexpr (SAVE && MR)
+                        if (cly && !ist) save_subs(UPW, l, k);
                     if constexpr (MR)
                         advance_mr(rad[k], radc[k], subs(0, k), subs(1, k),
                                    subs(2, k), f, CL && cly, twin, ist, fac);
@@ -678,13 +700,13 @@ cudaError_t launch(const KernelInputs<SPEC>& in, const int* ngb,
     return cudaGetLastError();
 }
 
-// K1 at idrv; with rads (clear and compact in float32 only) the
+// K1 at idrv; with rads (clear, compact and maxrand in float32 only) the
 // instantiation that also keeps the radiances
 template <int MODE, int SPEC>
 cudaError_t launch(const KernelInputs<SPEC>& in, const int* ngb,
                    const float* wg, float* out, int idrv, float* rads,
                    cudaStream_t s) {
-    if constexpr ((MODE == CLEAR || MODE == COMPACT)
+    if constexpr ((MODE == CLEAR || MODE == COMPACT || MODE == MAXRAND)
                   && SPEC == rrtm::SPEC_F32) {
         if (rads)
             return idrv
@@ -728,8 +750,8 @@ cudaError_t info_storage(int mode, int idrv, int* out) {
 
 // K1 in `mode` (enum Mode) with taut / fracs in storage SPEC; checks
 // that the mode's cloud inputs (and, in reduced storage, taua) are given;
-// rads non-null: the instantiation that keeps the radiances (clear and
-// compact in float32; cudaErrorInvalidValue elsewhere)
+// rads non-null: the instantiation that keeps the radiances (clear,
+// compact and maxrand in float32; cudaErrorInvalidValue elsewhere)
 template <int SPEC>
 cudaError_t launch_storage(const Inputs& inputs, const float* taua,
                            const int* ngb, const float* wg, float* out,
@@ -741,7 +763,7 @@ cudaError_t launch_storage(const Inputs& inputs, const float* taua,
         if (!taua) return cudaErrorInvalidValue;
         in.taua = taua;
     }
-    if (rads && mode != CLEAR && mode != COMPACT)
+    if (rads && mode != CLEAR && mode != COMPACT && mode != MAXRAND)
         return cudaErrorInvalidValue;
     switch (mode) {
     case CLEAR:
@@ -755,7 +777,7 @@ cudaError_t launch_storage(const Inputs& inputs, const float* taua,
         return launch<BANDED, SPEC>(in, ngb, wg, out, idrv, nullptr, s);
     case MAXRAND:
         if (!in.cld || !in.taucb) return cudaErrorInvalidValue;
-        return launch<MAXRAND, SPEC>(in, ngb, wg, out, idrv, nullptr, s);
+        return launch<MAXRAND, SPEC>(in, ngb, wg, out, idrv, rads, s);
     case FUSED:
         if (!in.cldf || !in.ciwp || !in.clwp || !in.tauc || !in.abi
             || !in.abl)

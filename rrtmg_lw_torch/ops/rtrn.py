@@ -21,7 +21,9 @@ compact McICA, per-g cldf-odcld and fused (cldprmc inline) modes;
 the kernel's two deterministic-cloud modes: random overlap of per-band
 clouds (icld=1, rtrn.f90) and maximum-random overlap (icld 2/3,
 rtrnmr.f90, the sub-stream recursion ``_sweep_maxrand`` fed by the
-overlap rows of ``ops.rtrnmr``).
+overlap rows of ``ops.rtrnmr``); ``rt_sweep_maxrand(..., radiances=True)``
+and ``rt_sweep_maxrand_vjp`` are those of the maxrand gradient's kernels
+(K1 keeping its state, K6 maxrand).
 
 The ``rt_fluxes_*`` functions take ``taua_t`` (L, 16, B) with taut_t and
 fracs_t in reduced spectral storage (``spec_codec``): they decode them
@@ -278,12 +280,16 @@ def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
 
 
 def _sweep_maxrand(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
-                   rows, odcld_g, ngb0, wg, dplankbnd_dt=None):
+                   rows, odcld_g, ngb0, wg, dplankbnd_dt=None,
+                   radiances=False):
     """Maximum-random overlap sweeps (rtrnmr.f90:591-615 down, 678-703
     up) -> (up, down, clear up, clear down) (B, L+1), and the d/dT pair
     when ``dplankbnd_dt`` is given, as ``_sweep``.  rows (B, L, 16) are
     ``rtrnmr.overlap_rows`` per column; odcld_g (B, L, G) the cloud od
-    of each g's band."""
+    of each g's band.  ``radiances``: (that tuple, the state (10, L, G,
+    B)): as ``_sweep``'s four radiances, then the cloudy, clear and
+    correction sub-streams (cr, kr, rr) entering layer l in the down
+    sweep, then in the up sweep."""
     dtype = taut.dtype
     B, L, G = taut.shape
     ngb0 = ngb0.long()
@@ -325,7 +331,9 @@ def _sweep_maxrand(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
     sub = (zero, zero, zero)
     drad = [zero] * (L + 1)
     cdrad = [zero] * (L + 1)
+    subs_dn = [None] * L
     for lev in range(L - 1, -1, -1):
+        subs_dn[lev] = sub
         rad, radc, sub = step(rad, radc, sub, lev, pre["bbd"][:, lev],
                               pre["bbdtot"][:, lev], pre["gassrc_dn"][:, lev],
                               ist_dn, ROWS_DN, icl[:, lev, None])
@@ -343,8 +351,10 @@ def _sweep_maxrand(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
     if idrv:
         dlu = dclru = fracs[:, 0, :] * dplankbnd_dt[:, ngb0]
         durad, dcurad = [dlu], [dclru]
+    subs_up = [None] * L
     for lev in range(L):
         bbu = pre["bbugas"][:, lev]
+        subs_up[lev] = sub
         rad, radc, sub = step(rad, radc, sub, lev, bbu, pre["bbutot"][:, lev],
                               bbu * at[:, lev], ist_up, ROWS_UP, anyc)
         urad.append(rad)
@@ -358,7 +368,13 @@ def _sweep_maxrand(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
 
     out = (flux(urad, wg), flux(drad, wg), flux(curad, wg),
            flux(cdrad, wg))
-    return out + ((flux(durad, wg), flux(dcurad, wg)) if idrv else ())
+    out += (flux(durad, wg), flux(dcurad, wg)) if idrv else ()
+    if not radiances:
+        return out
+    rads = [torch.stack(r[:L]) for r in (drad, urad, cdrad, curad)]
+    rads += [torch.stack([s[q] for s in subs]) for subs in (subs_dn, subs_up)
+             for q in range(3)]
+    return out, torch.stack(rads).permute(0, 1, 3, 2)
 
 
 def _tb(x):
@@ -494,19 +510,58 @@ def rt_sweep_banded(taut_t, fracs_t, planklay_t, planklev_t, surf, cldf_t,
     return torch.stack(fluxes).permute(0, 2, 1).contiguous()
 
 
+def substreams_kept(rows_t):
+    """(2, L, B) bool: where the maxrand state keeps the sub-streams
+    entering layer l, in the down sweep then the up sweep: in a cloudy
+    layer that does not restart them, the only places the adjoint reads
+    them.  rows_t (L, 16, B) the overlap rows."""
+    cloudy = rows_t[:, ROW_CLDF] >= CLOUD_GATE
+    return torch.stack([cloudy & ~(rows_t[:, r] > 0.0)
+                        for r in (ROW_IST_DN, ROW_IST_UP)])
+
+
+def kept_state(rads, rows_t, fill=0.0):
+    """The maxrand state ``rads`` (10, L, 140, B) with its sub-stream
+    rows set to ``fill`` wherever ``substreams_kept(rows_t)`` is false,
+    in place; -> rads.  K1 leaves those entries unwritten: this makes
+    two states comparable."""
+    subs = rads[4:].view(2, 3, *rads.shape[1:])
+    subs.masked_fill_(~substreams_kept(rows_t)[:, None, :, None], fill)
+    return rads
+
+
 def rt_sweep_maxrand(taut_t, fracs_t, planklay_t, planklev_t, surf, rows_t,
-                     taucb_t, ngb0, wg):
+                     taucb_t, ngb0, wg, radiances=False):
     """Fluxes (4|6, L+1, B) under maximum-random overlap (icld 2/3):
     the plain version of the RT kernel's maxrand mode.  rows_t
     (L, 16, B) from ``rtrnmr.overlap_rows``, taucb_t and surf as
-    ``rt_sweep_banded``."""
+    ``rt_sweep_banded``.  ``radiances``: (the fluxes, the state (10, L,
+    140, B) K6 reads): the down radiance at level l, the up radiance
+    entering layer l, their clear twins, then the sub-streams (cr, kr,
+    rr) entering layer l in the down sweep and in the up sweep, zero
+    where they are not kept (``kept_state``); the plain version of
+    ``rtrn_cuda.rt_sweep_maxrand_radiances``."""
     taut, fracs, play, plev, odcld_g, secd, semiss, plankbnd, dpl = \
         _band_layouts(taut_t, fracs_t, planklay_t, planklev_t, surf,
                       taucb_t, ngb0)
-    fluxes = _sweep_maxrand(taut, fracs, play, plev, plankbnd, semiss, secd,
-                            _tb(rows_t), odcld_g, ngb0, wg,
-                            dplankbnd_dt=dpl)
-    return torch.stack(fluxes).permute(0, 2, 1).contiguous()
+    res = _sweep_maxrand(taut, fracs, play, plev, plankbnd, semiss, secd,
+                         _tb(rows_t), odcld_g, ngb0, wg, dplankbnd_dt=dpl,
+                         radiances=radiances)
+    fluxes, rads = res if radiances else (res, None)
+    fluxes = torch.stack(fluxes).permute(0, 2, 1).contiguous()
+    if not radiances:
+        return fluxes
+    return fluxes, kept_state(rads.contiguous(), rows_t)
+
+
+def rt_sweep_maxrand_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
+                         rows_t, taucb_t, ngb0, wg, ct, needs=(True,) * 7):
+    """ct (4|6, L+1, B) -> cotangents of (taut_t, fracs_t, planklay_t,
+    planklev_t, surf, rows_t, taucb_t), None where ``needs`` is False:
+    the plain version of ``rtrn_cuda.rt_sweep_maxrand_vjp``."""
+    return plain_vjp(lambda *x: rt_sweep_maxrand(*x, ngb0, wg),
+                     (taut_t, fracs_t, planklay_t, planklev_t, surf, rows_t,
+                      taucb_t), needs, (ct,))
 
 
 def _sweep_g(taut_t, fracs_t, planklay_t, planklev_t, surf, *rest):

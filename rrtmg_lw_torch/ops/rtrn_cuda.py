@@ -6,12 +6,16 @@ in all its modes: clear, compact-cloud, banded (icld=1), maxrand (icld
 2/3), fused (McICA per-g arrays, cldprmc inline) and cldf-odcld (McICA
 per-g cloud fraction and cloud od), each at idrv=0 or 1; K6 replaces
 the JAX package's unrolled XLA backward of it (``ops/rtrn_bwd.py:259``
-``rt_bwd_fluxes``) in the clear and compact modes.  ``RTFn`` pairs them
-for autograd: in a forward that autograd records, K1 (float32) also
-keeps its per-g radiances (``rt_sweep_radiances``), and K6 reads them
-back in the backward instead of sweeping forward again.  ``RTSweepFn``
-holds the other four modes, whose adjoint is not ported: on the card
-their backward raises.  With idrv=1 (a fourth
+``rt_bwd_fluxes``) in the clear and compact modes, and its XLA vjp of
+the maxrand sweep (``rtrn_pallas.py:1208``) in the maxrand mode
+(csrc/rtrn_bwd_mr.cu).  ``RTFn`` pairs them for autograd: in a forward
+that autograd records, K1 (float32) also keeps its per-g radiances
+(``rt_sweep_radiances``), and K6 reads them back in the backward
+instead of sweeping forward again.  ``RTSweepFn`` holds the other four
+modes; in maxrand it does the same (``rt_sweep_maxrand_radiances``, the
+sub-streams kept too, and ``rt_sweep_maxrand_vjp``); the adjoints of
+banded, fused and cldf-odcld are not ported: on the card their backward
+raises.  With idrv=1 (a fourth
 surface row, ``dplankbnd_dt``) each returns the fluxes and their
 derivatives with respect to the surface temperature (2, L+1, B); on the
 card a cotangent of the latter raises too.  On a CUDA tensor each
@@ -28,8 +32,8 @@ None.  A backward through reduced storage raises NotImplementedError.
 
 Each wrapper counts its launches in ``.launches``, those at idrv=1 in
 ``.idrv.launches`` and those in reduced storage in ``.spec.launches``;
-``rt_fluxes_blocked.save.launches`` counts K1's launches that keep the
-radiances.
+``rt_fluxes_blocked.save.launches`` and ``rt_fluxes_maxrand.save.launches``
+count K1's launches that keep the radiances.
 """
 
 from __future__ import annotations
@@ -148,6 +152,41 @@ def rt_sweep_radiances(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
     return out, rads
 
 
+def rt_sweep_maxrand_radiances(taut_t, fracs_t, planklay_t, planklev_t,
+                               surf, rows_t, taucb_t, ngb0, wg):
+    """K1 maxrand in float32 keeping the state K6 reads: -> (fluxes (4|6,
+    L+1, B), rads (10, L, 140, B)), rads the down radiance at level l,
+    the up radiance entering layer l, their clear twins, and the
+    sub-streams (cr, kr, rr) entering layer l in the down sweep and in
+    the up sweep, for l = 0..L-1, written only where K6 reads them
+    (``rtrn.substreams_kept``; elsewhere rads is left unwritten, and
+    ``rtrn.kept_state`` zeroes it).  The fluxes are bitwise those of the
+    launch without them.  Arguments as ``RTSweepFn``'s maxrand inputs; on
+    a CPU tensor the plain version, ``rtrn.rt_sweep_maxrand(...,
+    radiances=True)``.  Counted on ``rt_fluxes_maxrand`` and its
+    ``.save``."""
+    x = (taut_t, fracs_t, planklay_t, planklev_t, surf)
+    if taut_t.device.type == "cpu":
+        return rtrn.rt_sweep_maxrand(*x, rows_t, taucb_t, ngb0, wg,
+                                     radiances=True)
+    if taut_t.dtype != torch.float32:
+        raise TypeError(f"taut_t: dtype {taut_t.dtype}, K1 keeps the "
+                        "radiances in float32 storage only")
+    L, B = _check(*x, None, None, None, None, ngb0, wg)
+    _check_clouds("maxrand", (rows_t, taucb_t), L, B, taut_t.device)
+    rads = torch.empty((10, L, NGPT, B), dtype=torch.float32,
+                       device=taut_t.device)
+    out = _launch("maxrand", rt_fluxes_maxrand, *x, ngb0, wg, cld=rows_t,
+                  taucb=taucb_t, rads=rads)
+    return out, rads
+
+
+def _check_clouds(mode, clouds, L, B, device):
+    for t, (name, n) in zip(clouds, CLOUD_INPUTS[mode], strict=True):
+        _build.check(t, name, torch.float32, (L, B) if n is None
+                     else (L, n, B), device)
+
+
 def _full_ct(ct, ct_ddt, shape, like):
     """The (6, L+1, B) cotangent of an idrv=1 sweep, zeros where None."""
     def z(n):
@@ -248,30 +287,36 @@ def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
 
 
 class RTSweepFn(torch.autograd.Function):
-    """(mode, ngb0, wg, taua_t, taut_t, fracs_t, planklay_t, planklev_t,
-    surf, *clouds) -> fluxes (4, L+1, B), or with a (4, 16, B) surf
-    (fluxes, d/dT (2, L+1, B)): K1 in the banded, maxrand, fused or
-    cldf-odcld mode, ``clouds`` as ``CLOUD_INPUTS[mode]``, taua_t None in
-    float32 storage.  Backward: the plain vjp on the CPU; on the card,
-    and in reduced storage, it raises."""
+    """(mode, ngb0, wg, taua_t, grad_enabled, taut_t, fracs_t,
+    planklay_t, planklev_t, surf, *clouds) -> fluxes (4, L+1, B), or with
+    a (4, 16, B) surf (fluxes, d/dT (2, L+1, B)): K1 in the banded,
+    maxrand, fused or cldf-odcld mode, ``clouds`` as
+    ``CLOUD_INPUTS[mode]``, taua_t None in float32 storage.  Backward:
+    the plain vjp on the CPU; on the card K6 in the maxrand mode (fed the
+    state K1 kept where an input needs a gradient and ``grad_enabled``,
+    ``torch.is_grad_enabled()`` at the call, holds; a cotangent of d/dT
+    raises), in the other modes it raises; in reduced storage it
+    raises."""
 
     @staticmethod
-    def forward(ctx, mode, ngb0, wg, taua_t, *x):
+    def forward(ctx, mode, ngb0, wg, taua_t, grad_enabled, *x):
         ctx.mode, ctx.device_type = mode, x[0].device.type
         ctx.reduced = x[0].dtype in REDUCED
         ctx.set_materialize_grads(False)
+        keep = any(ctx.needs_input_grad[5:]) and not ctx.reduced
         if x[0].device.type == "cpu":
-            # the plain vjp reads them; on the card backward only raises
-            if any(ctx.needs_input_grad[4:]) and not ctx.reduced:
+            if keep:
                 ctx.save_for_backward(ngb0, wg, *x)
             return rtrn.split_ddt(rtrn.SWEEPS[mode](
                 *spec_inputs(x[0], x[1], taua_t, ngb0), *x[2:], ngb0, wg))
+        if mode == "maxrand" and keep and grad_enabled:
+            out, rads = rt_sweep_maxrand_radiances(*x, ngb0, wg)
+            ctx.save_for_backward(ngb0, wg, *x, rads)
+            return rtrn.split_ddt(out)
         L, B = _check(*x[:5], None, None, None, None, ngb0, wg,
                       taua_t=taua_t)
         clouds = x[5:]
-        for t, (name, n) in zip(clouds, CLOUD_INPUTS[mode], strict=True):
-            _build.check(t, name, torch.float32,
-                         (L, B) if n is None else (L, n, B), x[0].device)
+        _check_clouds(mode, clouds, L, B, x[0].device)
         kw = (dict(cld=clouds[0], taucb=clouds[1])
               if mode in ("banded", "maxrand") else
               dict(cldf=clouds[0], tauc=clouds[1]) if mode == "cldf_od" else
@@ -284,25 +329,45 @@ class RTSweepFn(torch.autograd.Function):
     def backward(ctx, ct, ct_ddt=None):
         if ctx.reduced:
             raise NotImplementedError(GRAD_MESSAGE)
+        needs = ctx.needs_input_grad[5:]
         if ctx.device_type != "cpu":
-            raise NotImplementedError(
-                f"gradients through the {ctx.mode} RT sweep on the card: "
-                "its adjoint kernel is not ported yet; " + _UNPORTED_ADJOINT)
+            if ctx.mode != "maxrand":
+                raise NotImplementedError(
+                    f"gradients through the {ctx.mode} RT sweep on the "
+                    "card: its adjoint kernel is not ported yet; "
+                    + _UNPORTED_ADJOINT)
+            if ct_ddt is not None:
+                raise NotImplementedError(
+                    "gradients of duflx_dt / duflxc_dt (idrv=1) on the "
+                    "card: the adjoint of the d/dT sweep is not ported "
+                    "yet; " + _UNPORTED_ADJOINT)
+            if ct is None:
+                return (None,) * (5 + len(needs))
+            ngb0, wg, *x, rads = ctx.saved_tensors
+            nsurf = x[4].shape[0]
+            x[4] = x[4][:3]             # the fluxes do not read row 3
+            grads = list(rt_sweep_maxrand_vjp(*x, ngb0, wg, ct.contiguous(),
+                                              needs=needs, rads=rads))
+            if grads[4] is not None and nsurf == 4:
+                grads[4] = torch.nn.functional.pad(grads[4],
+                                                   (0, 0, 0, 0, 0, 1))
+            return (None,) * 5 + tuple(grads)
         ngb0, wg, *x = ctx.saved_tensors
         if x[4].shape[0] == 4:
             like = ct if ct is not None else ct_ddt
             ct = _full_ct(ct, ct_ddt, (6,) + tuple(like.shape[1:]), like)
         grads = plain_vjp(lambda *a: rtrn.SWEEPS[ctx.mode](*a, ngb0, wg),
-                          x, ctx.needs_input_grad[4:], (ct,))
-        return (None, None, None, None, *grads)
+                          x, needs, (ct,))
+        return (None,) * 5 + tuple(grads)
 
 
 def _sweep(mode, taut_t, fracs_t, planklay_t, planklev_t, plankbnd, semiss,
            pwvcm, ngb0, wg, clouds, dplankbnd_dt, taua_t):
     surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, planklay_t.dtype,
                           dplankbnd_dt)
-    return RTSweepFn.apply(mode, ngb0, wg, taua_t, taut_t, fracs_t,
-                           planklay_t, planklev_t, surf, *clouds)
+    return RTSweepFn.apply(mode, ngb0, wg, taua_t, torch.is_grad_enabled(),
+                           taut_t, fracs_t, planklay_t, planklev_t, surf,
+                           *clouds)
 
 
 def rt_fluxes_banded(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
@@ -391,6 +456,36 @@ def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
     return tuple(g if n else None for g, n in zip(grads, needs))
 
 
+def rt_sweep_maxrand_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
+                         rows_t, taucb_t, ngb0, wg, ct, needs=(True,) * 7,
+                         rads=None):
+    """K6 in the maxrand mode (csrc/rtrn_bwd_mr.cu): flux cotangents ct
+    (4, L+1, B) -> cotangents of (taut_t, fracs_t, planklay_t,
+    planklev_t, surf (3, 16, B), rows_t (the overlap rows: R_CLDF and the
+    12 factor rows; zeros in the four flag rows), taucb_t), None where
+    ``needs`` is False.  On the card it reads ``rads``, the state K1 kept
+    on the same inputs (``rt_sweep_maxrand_radiances``), and raises
+    without them; the plain vjp (CPU tensors,
+    ``rtrn.rt_sweep_maxrand_vjp``) does not read them."""
+    x = (taut_t, fracs_t, planklay_t, planklev_t, surf, rows_t, taucb_t)
+    if taut_t.device.type == "cpu":
+        return rtrn.rt_sweep_maxrand_vjp(*x, ngb0, wg, ct, needs)
+    L, B = _check(*x[:5], None, None, None, None, ngb0, wg, surf_rows=(3,))
+    dev = taut_t.device
+    _check_clouds("maxrand", (rows_t, taucb_t), L, B, dev)
+    _build.check(ct, "ct", torch.float32, (4, L + 1, B), dev)
+    if rads is None:
+        raise ValueError("rt_sweep_maxrand_vjp on the card reads the state "
+                         "K1 kept on the same inputs (rads, from "
+                         "rt_sweep_maxrand_radiances): K6 runs no forward "
+                         "sweep")
+    _build.check(rads, "rads", torch.float32, (10, L, NGPT, B), dev)
+    grads = [torch.empty_like(t) for t in x]
+    _build.launch("rrtm_rt_bwd_mr", *x, ngb0, wg, ct, rads, *grads, L, B)
+    rt_sweep_maxrand_vjp.launches += 1
+    return tuple(g if n else None for g, n in zip(grads, needs))
+
+
 K1_INFO = ("registers", "local_bytes", "static_smem", "dynamic_smem",
            "blocks_per_sm", "ring_levels", "threads", "columns")
 
@@ -409,8 +504,8 @@ def _launch_info(entry, *args):
 def k1_info(mode, idrv, spec_dtype=torch.float32, save=False):
     """K1's launch configuration in ``mode`` (a ``MODES`` key) at idrv
     0/1 with taut in ``spec_dtype`` (``save``: the instantiation that
-    keeps the radiances, clear and compact in float32): ``K1_INFO`` ->
-    int, from the CUDA runtime (``cudaFuncGetAttributes``,
+    keeps the radiances, clear, compact and maxrand in float32):
+    ``K1_INFO`` -> int, from the CUDA runtime (``cudaFuncGetAttributes``,
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the card."""
     return _launch_info("rrtm_rt_info", MODES[mode], int(idrv),
                         SPEC_CODES[spec_dtype], int(save))
@@ -422,9 +517,17 @@ def k6_info(cloudy):
     return _launch_info("rrtm_rt_bwd_info", int(cloudy))
 
 
+def k6_mr_info():
+    """K6's launch configuration in the maxrand mode: ``K1_INFO`` -> int
+    (no ring: 0 levels), as ``k1_info``; needs the card."""
+    return _launch_info("rrtm_rt_bwd_mr_info")
+
+
 for _w in WRAPPERS.values():
     _w.launches = 0
     _w.idrv = _build.Launches()
     _w.spec = _build.Launches()
 rt_fluxes_blocked.save = _build.Launches()
+rt_fluxes_maxrand.save = _build.Launches()
 rt_sweep_vjp.launches = 0
+rt_sweep_maxrand_vjp.launches = 0

@@ -14,7 +14,8 @@ through ``_safe_div`` so that unselected lanes cannot produce NaN.
 
 ``overlap_rows`` is the plain version of the overlap kernel
 (``ops.rtrnmr_cuda.overlap_rows``): a Python loop over layers on (B,)
-tensors, whose elementwise order the kernel repeats.
+tensors, whose elementwise order the kernel repeats; its autograd vjp is
+the plain version of the adjoint kernel (``rtrnmr_cuda.overlap_rows_vjp``).
 """
 
 from __future__ import annotations
@@ -56,10 +57,12 @@ def _overlap_step(c, nxt, prv, ist, live, rat1, rat2):
     faccld1 = torch.where(inc, zero, faccld1)
     faccld2 = torch.where(inc, zero, faccld2)
 
-    faccmb1 = torch.where(ist, zero, torch.clamp_min(
-        torch.minimum(nxt - c, prv - c), 0.0))
-    faccmb2 = torch.where(ist, zero, torch.clamp_min(
-        torch.minimum(c - nxt, c - prv), 0.0))
+    # maximum, not clamp_min: at a tie (0 against 0) it passes half the
+    # gradient, as jnp.maximum does in the JAX package
+    faccmb1 = torch.where(ist, zero, torch.maximum(
+        torch.minimum(nxt - c, prv - c), zero))
+    faccmb2 = torch.where(ist, zero, torch.maximum(
+        torch.minimum(c - nxt, c - prv), zero))
 
     facs = tuple(torch.where(live, v, zero) for v in
                  (facclr1, facclr2, faccld1, faccld2, faccmb1, faccmb2))

@@ -1,14 +1,17 @@
 """Overlap-rows kernel, csrc/overlap.cu: the per-column pre-pass of K1's
-maxrand mode.
+maxrand mode, and its adjoint.
 
 The JAX package computes these rows in XLA (``rtrnmr._overlap_factors_up``
 / ``_overlap_factors_down``, two ``lax.scan`` over layers, stacked in
-``rrtmg_lw_tpu/ops/rtrn_pallas.py::rt_maxrandom_pallas.rows16``).  In
-PyTorch the same scans are a Python loop of ~45 small launches per layer
-and pass, so the pre-pass runs as one kernel: one thread per column,
-sequential over layers both ways.  On a CUDA tensor ``overlap_rows``
-launches it (or raises); on a CPU tensor it runs the plain version,
-``rtrnmr.overlap_rows``, and its backward the plain vjp.
+``rrtmg_lw_tpu/ops/rtrn_pallas.py::rt_maxrandom_pallas.rows16``), and
+their gradient by XLA autodiff.  In PyTorch the same scans are a Python
+loop of ~45 small launches per layer and pass, so the pre-pass runs as
+one kernel (a block of 32 columns: the carries of each column and pass
+walked in shared memory, then every row written by whole warps), and its
+vjp as another (local to each layer: the carries carry no gradient).
+On a CUDA tensor ``overlap_rows`` launches the kernel (or raises) and
+its backward the adjoint (``overlap_rows_vjp``); on a CPU tensor they
+run the plain version, ``rtrnmr.overlap_rows``, and its plain vjp.
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ from ._autograd import plain_vjp
 
 
 class OverlapFn(torch.autograd.Function):
-    """cldfrac (B, L) -> overlap rows (L, 16, B).  Backward: the plain
-    vjp on the CPU; on the card it raises."""
+    """cldfrac (B, L) -> overlap rows (L, 16, B).  Backward: the adjoint
+    kernel on the card, the plain vjp on the CPU."""
 
     @staticmethod
     def forward(ctx, cldfrac):
@@ -42,13 +45,7 @@ class OverlapFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         (cldfrac,) = ctx.saved_tensors
-        if cldfrac.device.type != "cpu":
-            raise NotImplementedError(
-                "gradients with respect to the cloud fraction through the "
-                "overlap-rows kernel are not ported yet; see ROADMAP.md "
-                "Queue 1, gradients through the other forward paths on the "
-                "card")
-        return plain_vjp(rtrnmr.overlap_rows, (cldfrac,), (True,), (ct,))
+        return overlap_rows_vjp(cldfrac, ct.contiguous())
 
 
 def overlap_rows(cldfrac):
@@ -57,4 +54,21 @@ def overlap_rows(cldfrac):
     return OverlapFn.apply(cldfrac)
 
 
+def overlap_rows_vjp(cldfrac, ct):
+    """The cotangent ct (L, 16, B) of the overlap rows -> that of the
+    cloud fraction (B, L): the adjoint kernel on a CUDA tensor (the flag
+    rows 1-3 are not read: they carry no gradient), the plain vjp of
+    ``rtrnmr.overlap_rows`` on a CPU tensor."""
+    if cldfrac.device.type == "cpu":
+        return plain_vjp(rtrnmr.overlap_rows, (cldfrac,), (True,), (ct,))[0]
+    B, L = cldfrac.shape
+    _build.check(cldfrac, "cldfrac", torch.float32, (B, L), cldfrac.device)
+    _build.check(ct, "ct", torch.float32, (L, rtrn.NROWS, B), cldfrac.device)
+    out = torch.empty_like(cldfrac)
+    _build.launch("rrtm_overlap_bwd", cldfrac, ct, out, L, B)
+    overlap_rows_vjp.launches += 1
+    return out
+
+
 overlap_rows.launches = 0
+overlap_rows_vjp.launches = 0

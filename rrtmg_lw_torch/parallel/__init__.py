@@ -1,3 +1,3 @@
-from .api import make_grad_step
+from .api import CLOUD_GRADS, make_grad_step
 
-__all__ = ["make_grad_step"]
+__all__ = ["CLOUD_GRADS", "make_grad_step"]

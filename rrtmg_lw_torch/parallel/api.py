@@ -24,23 +24,38 @@ def default_loss(fl):
     return (fl.hr ** 2).mean() + (fl.uflx[:, -1] ** 2).mean()
 
 
-def make_grad_step(model, loss_fn=None):
+# the BandClouds fields a gradient step can differentiate besides the
+# Atmosphere (the effective radii cannot: K4 has no backward)
+CLOUD_GRADS = ("cldfrac", "ciwp", "clwp")
+
+
+def make_grad_step(model, loss_fn=None, cloud_fields=()):
     """``step(atm, clouds=None) -> (loss, grads)``: the value of
     ``loss_fn(model(atm, clouds))`` and its gradient with respect to
     every field of ``atm``, as an ``Atmosphere`` of tensors shaped like
     the fields (zeros where the loss does not depend on a field).
+    ``cloud_fields`` (names of ``clouds`` fields, e.g. ``CLOUD_GRADS`` of
+    BandClouds): the step returns ``(loss, grads, cloud_grads)``, the
+    gradients with respect to those fields in their order as well.
     With ``impl="cuda"`` the backward runs the kernels' backward
     kernels; with ``impl="eager"`` plain autograd."""
     loss_fn = default_loss if loss_fn is None else loss_fn
+    cloud_fields = tuple(cloud_fields)
 
     def step(atm: Atmosphere, clouds=None):
         leaves = {k: v.detach().requires_grad_()
                   for k, v in atm._asdict().items()}
+        cl = {k: getattr(clouds, k).detach().requires_grad_()
+              for k in cloud_fields}
+        if cl:
+            clouds = clouds._replace(**cl)
+        xs = [*leaves.values(), *cl.values()]
         loss = loss_fn(model(Atmosphere(**leaves), clouds))
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
-        return loss.detach(), Atmosphere(*(
-            torch.zeros_like(x) if g is None else g
-            for x, g in zip(leaves.values(), grads)))
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+            xs, torch.autograd.grad(loss, xs, allow_unused=True))]
+        atm_grads = Atmosphere(*grads[:len(leaves)])
+        if not cloud_fields:
+            return loss.detach(), atm_grads
+        return loss.detach(), atm_grads, tuple(grads[len(leaves):])
 
     return step

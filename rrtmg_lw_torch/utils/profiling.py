@@ -1,10 +1,12 @@
 """Where the time of a step goes on the card.
 
     python -m rrtmg_lw_torch.utils.profiling [--out profile.json]
+        [--cells CELL ...]
 
 For each cell (``CELLS``, at ``NCOL`` columns: the forward step, or the
 gradient step of
-``parallel.make_grad_step`` for the ``*_grad`` cells): the median and
+``parallel.make_grad_step`` for the ``*_grad`` cells, with BandClouds
+also with respect to the clouds' ``CLOUD_GRADS``): the median and
 quartiles of 20 host-timed steps (host clock around work that ends in ``torch.cuda.synchronize``),
 then ``torch.profiler`` over 5 steps: device busy ms per step (the union
 of the CUDA kernel and memcpy/memset intervals), the idle share
@@ -98,10 +100,12 @@ CELLS = {"clear": Cell(0, 1, None, 60),
                                      aod=AOD_SPEC),
          "mcica_cloudy_deep": Cell(2, 1, "mcica", 140),
          "mcica_cloudy_grad": Cell(2, 1, "mcica", 60, True),
-         "clear_grad": Cell(0, 1, None, 60, True)}
+         "clear_grad": Cell(0, 1, None, 60, True),
+         "maxrand_cloudy_grad": Cell(2, 0, "band", 60, True)}
 # fragment of the demangled symbol -> kernel (csrc/*.cu); K1's third
 # template argument and K2's only one are the storage (csrc/spec.cuh),
-# K1's fourth whether it keeps the radiances for K6 ("save")
+# K1's fourth whether it keeps the radiances for K6 ("save": clear,
+# compact and maxrand in float32)
 SPEC_NAMES = ("", " bf16", " f16", " logu16")
 KERNEL_SYMBOLS = tuple(
     (f"rt_kernel<{m}, {b}, {s}, {save}>",
@@ -110,12 +114,14 @@ KERNEL_SYMBOLS = tuple(
     for m, name in enumerate(("clear", "compact", "banded", "maxrand",
                               "fused", "cldf_od"))
     for b in ("false", "true") for s in range(4)
-    for save in ("false", "true") if save == "false" or (m < 2 and s == 0)
+    for save in ("false", "true")
+    if save == "false" or (m in (0, 1, 3) and s == 0)
 ) + tuple(
     (f"taumol_kernel<{s}>", "K2" + SPEC_NAMES[s]) for s in range(4)) + (
     ("planck_kernel", "K3"),
     ("cldcoef_kernel", "K4"), ("overlap_kernel", "overlap"),
-    ("rt_bwd_kernel", "K6"), ("taumol_bwd_kernel", "K5"),
+    ("overlap_bwd_kernel", "overlap bwd"), ("rt_bwd_kernel", "K6"),
+    ("rt_bwd_mr_kernel", "K6 maxrand"), ("taumol_bwd_kernel", "K5"),
     ("planck_bwd_kernel", "K3b"))
 
 
@@ -164,10 +170,13 @@ def _union_ms(intervals):
 
 
 def profile_cell(cell, device, steps=20, traced=5):
-    from ..parallel import make_grad_step
+    from ..parallel import CLOUD_GRADS, make_grad_step
     c = CELLS[cell]
     model = c.make_model(device)
-    step = make_grad_step(model) if c.grad else model
+    step = model
+    if c.grad:
+        step = make_grad_step(model, cloud_fields=CLOUD_GRADS
+                              if c.clouds == "band" else ())
     atm, clouds = cell_inputs(cell, device)
     for _ in range(2):                                   # warm-up
         step(atm, clouds)
@@ -210,12 +219,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the JSON lines to this file")
+    ap.add_argument("--cells", nargs="+", choices=tuple(CELLS),
+                    default=tuple(CELLS), help="profile only these cells")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
     device = torch.device("cuda", 0)
     lines = []
-    for cell in CELLS:
+    for cell in args.cells:
         lines.append(json.dumps(profile_cell(cell, device)))
         print(lines[-1], flush=True)
         torch.cuda.empty_cache()

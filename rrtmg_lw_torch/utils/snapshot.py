@@ -9,7 +9,8 @@
 
 ``--out`` runs, on the card, K2 in all four storages with its bins, K3
 at layer and level temperatures, K4, K5 and K6 (clear and compact; both
-on seeded cotangents), and K1 in all six modes at idrv 0 and 1, on the
+on seeded cotangents), the overlap rows, and K1 in all six modes at idrv
+0 and 1, on the
 inputs of ``chip_smoke.py``'s phase 3 (``utils/profiling.py``'s
 ``mcica_cloudy``, ``band_cloudy``, ``mcica_blocked`` and ``mcica_tauc``
 cells at B=16384, L=60), K1 and K6 also on K1's edge cases
@@ -23,7 +24,9 @@ idrv and storage on the same inputs, and of compact at L=140;
 ``--k2-times`` those of K2 in every storage at L=60 and L=140;
 ``--k5-times`` those of K5 at L=60 and L=140;
 ``--k6-times`` those of K6 and of the K1 launch that keeps the
-radiances K6 reads, clear and compact at L=60.  The imports are
+radiances K6 reads, clear, compact and (where the checkout has it)
+maxrand at L=60; ``--overlap-times`` those of the overlap-rows kernel
+and (where the checkout has it) its adjoint.  The imports are
 absolute, so ``PYTHONPATH`` picks the checkout whose kernels run; only
 entry points that every checkout since reduced storage came in has are
 used, and K6 through whichever API the checkout has (``k6_vjp``).
@@ -32,6 +35,7 @@ used, and K6 through whichever API the checkout has (``k6_vjp``).
 from __future__ import annotations
 
 import argparse
+import itertools
 import sys
 
 import numpy as np
@@ -409,6 +413,11 @@ def outputs(device) -> dict:
             out[f"{tag}_{name}"] = WRAPPERS[w](*a, *clouds)
             out[f"{tag}_{name}_idrv"] = torch.cat(
                 WRAPPERS[w](*a, *clouds, dplankbnd_dt=sc.dplankbnd_dt))
+    # the overlap-rows kernel on the band_cloudy cell's decks and on
+    # K1's edge clouds
+    from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows
+    for tag, ms in (("overlap", modes), ("overlap_edge", emodes)):
+        out[tag] = overlap_rows(ms["banded"][1][0].t().contiguous())
     surf = rtrn.surf_rows(sc.plankbnd, prof.semiss, prof.pwvcm,
                           torch.float32)
     gen = torch.Generator(device=device).manual_seed(5)
@@ -473,6 +482,22 @@ def k1_times(device, reps=5) -> list:
     return rows
 
 
+# the H100's L2
+L2_BYTES = 50 * 2**20
+
+
+def rotating(fn, *tensors, spread=4 * L2_BYTES):
+    """A call with no arguments that runs ``fn`` on the next of enough
+    copies of ``tensors`` that the other copies hold ``spread`` bytes: a
+    kernel timed on repeats reads its inputs from device memory, not from
+    the L2 its previous launch left them in."""
+    size = sum(t.numel() * t.element_size() for t in tensors)
+    copies = [tuple(t.clone() for t in tensors)
+              for _ in range(1 + -(-spread // size))]
+    it = itertools.cycle(copies)
+    return lambda: fn(*next(it))
+
+
 def kernel_ms(fn, symbol, reps=5, tries=3) -> float:
     """Device ms of one launch of the kernel whose symbol holds
     ``symbol`` (``torch.profiler``, kernel time alone), ``fn`` launching
@@ -505,9 +530,10 @@ def k6_times(device, reps=5) -> list:
     """Device ms per launch (``torch.profiler``, the mean of ``reps``
     launches after one warm-up) of K1 without and with the radiances kept
     (the forward step's and the gradient step's launch) and of K6 fed
-    them, clear and compact, on phase 3's inputs (B=16384, L=60).  In a
-    checkout whose K6 sweeps forward itself, K6 alone (k1_save_ms None).
-    -> [{mode, nlay, k1_ms, k1_save_ms, k6_ms}]."""
+    them, clear and compact, on phase 3's inputs (B=16384, L=60), and
+    maxrand on the band_cloudy cell's clouds where the checkout has it.
+    In a checkout whose K6 sweeps forward itself, K6 alone (k1_save_ms
+    None).  -> [{mode, nlay, k1_ms, k1_save_ms, k6_ms}]."""
     from rrtmg_lw_torch.ops import rtrn, rtrn_cuda
     x = sweep_inputs(device)
     args, model, sc, prof = x["args"], x["model"], x["sc"], x["prof"]
@@ -536,6 +562,48 @@ def k6_times(device, reps=5) -> list:
         rows.append(row)
         print(row, flush=True)
         del kw
+    keep_mr = getattr(rtrn_cuda, "rt_sweep_maxrand_radiances", None)
+    if keep_mr is not None:
+        # maxrand on the band_cloudy cell's clouds
+        cl = k1_cloud_args(device, x["static"], x["mc"])["maxrand"][1]
+        a = (*args[:4], surf, *cl, model.ngb0, model.wg)
+        row = dict(mode="maxrand", nlay=args[0].shape[0], k1_ms=kernel_ms(
+            lambda: rtrn_cuda.rt_fluxes_maxrand(*args, *cl), "rt_kernel",
+            reps), k1_save_ms=kernel_ms(lambda: keep_mr(*a), "rt_kernel",
+                                        reps))
+        rads = keep_mr(*a)[1]
+        row["k6_ms"] = kernel_ms(lambda: rtrn_cuda.rt_sweep_maxrand_vjp(
+            *a, ct, rads=rads), "rt_bwd_mr_kernel", reps)
+        rows.append(row)
+        print(row, flush=True)
+    return rows
+
+
+def overlap_times(device, reps=20) -> list:
+    """Device ms per launch of the overlap-rows kernel and (where the
+    checkout has it) its adjoint, on the band_cloudy cell's cloud
+    fraction (B=16384, L=60) and on the same with fractions varying
+    inside the decks.  -> [{clouds, overlap_ms, overlap_bwd_ms}]."""
+    from rrtmg_lw_torch.ops import rtrnmr_cuda
+    from rrtmg_lw_torch.utils.profiling import cell_inputs
+    _, bc = cell_inputs("band_cloudy", device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    cf = bc.cldfrac
+    varied = cf * (0.6 + 0.4 * torch.rand(cf.shape, generator=gen,
+                                          device=device))
+    bwd = getattr(rtrnmr_cuda, "overlap_rows_vjp", None)
+    rows = []
+    for name, c in (("decks", cf), ("varied", varied.contiguous())):
+        row = dict(clouds=name, overlap_ms=kernel_ms(
+            rotating(rtrnmr_cuda.overlap_rows, c), "overlap_kernel", reps),
+            overlap_bwd_ms=None)
+        if bwd is not None:
+            ct = torch.randn((c.shape[1], 16, c.shape[0]), generator=gen,
+                             device=device)
+            row["overlap_bwd_ms"] = kernel_ms(rotating(bwd, c, ct),
+                                              "overlap_bwd_kernel", reps)
+        rows.append(row)
+        print(row, flush=True)
     return rows
 
 
@@ -607,11 +675,15 @@ def main(argv=None) -> int:
     ap.add_argument("--k5-times", metavar="OUT",
                     help="time K5 at L=60 and 140 into OUT (JSON)")
     ap.add_argument("--k6-times", metavar="OUT",
-                    help="time K6 and K1 keeping the radiances, clear and "
-                         "compact, into OUT (JSON)")
+                    help="time K6 and K1 keeping the radiances, clear, "
+                         "compact and maxrand, into OUT (JSON)")
+    ap.add_argument("--overlap-times", metavar="OUT",
+                    help="time the overlap rows and their adjoint into OUT "
+                         "(JSON)")
     args = ap.parse_args(argv)
     for opt, times in ((args.k1_times, k1_times), (args.k2_times, k2_times),
-                       (args.k5_times, k5_times), (args.k6_times, k6_times)):
+                       (args.k5_times, k5_times), (args.k6_times, k6_times),
+                       (args.overlap_times, overlap_times)):
         if not opt:
             continue
         if not torch.cuda.is_available():

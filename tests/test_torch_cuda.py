@@ -3,11 +3,14 @@ versions on the card, at small and ragged shapes (chip_smoke.py covers
 the main-path shapes), plus the wrappers' input checks and launch
 counters: the four forward kernels (K1 in its clear, compact, banded,
 maxrand, fused and cldf-odcld modes, each at idrv 0 and 1), the
-overlap-rows kernel, and the three backward kernels (K3b Planck slope,
-K5 taumol, K6 RT adjoint) against the plain vjps; K6 is fed the
-radiances of K1's gradient-step launch (``rt_sweep_radiances``), whose
-fluxes are bitwise those of K1's launch without them and whose
-radiances are within 1e-5 of max |plain radiance|.
+overlap-rows kernel, and the backward kernels (K3b Planck slope, K5
+taumol, K6 RT adjoint in the clear, compact and maxrand modes, the
+overlap rows' adjoint) against the plain vjps; K6 is fed the radiances
+(maxrand: and sub-streams) of K1's gradient-step launch
+(``rt_sweep_radiances``, ``rt_sweep_maxrand_radiances``), whose fluxes
+are bitwise those of K1's launch without them and whose state is within
+1e-5 of max |plain|; the maxrand gradient step (clouds included)
+against eager.
 
 Marked ``cuda``: every test skips without a CUDA device.  This file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
@@ -17,13 +20,13 @@ imports no JAX, so it also runs on a machine with a GPU and no JAX:
 Tolerances are chip_smoke.py's: 1e-6 relative (Planck, cloud
 coefficients), 3.05e-5 (taug relative with |ref| floored at 1e-2,
 fracs absolute) with every interpolation bin equal, 2e-5 of each
-column's max |flux| (RT sweep, model); the overlap rows: the discrete
-rows equal and the factors within 1e-6 of max |plain| (the same
-elementwise f32 arithmetic).  Backward kernels (the same f32
+column's max |flux| (RT sweep, model); the overlap rows bitwise equal
+(the same elementwise f32 arithmetic).  Backward kernels (the same f32
 math summed in another order): 1e-4 of max |plain| per output (K3b,
-K5), 1e-3 (K6, a recurrence over the levels); the model's gradients
-2e-2 of max |eager| per Atmosphere field (the gate the JAX package
-holds its kernel backward to, tests/test_taumol_bwd.py:101).
+K5, the overlap adjoint), 1e-3 (K6, a recurrence over the levels); the
+model's gradients 2e-2 of max |eager| per Atmosphere field (the gate the
+JAX package holds its kernel backward to, tests/test_taumol_bwd.py:101),
+the maxrand step's 1e-4 (a loss linear in the fluxes, as chip_smoke.py).
 
 Reduced spectral storage (RRTMG_SPEC_DTYPE, K7): K2 in bf16 / f16 equal
 to the plain encode of its own float32 output, logu16 codes at most one
@@ -492,8 +495,7 @@ def test_overlap_kernel_matches_plain(dev, B, L, pattern):
     cf = _band_clouds(dev, B, L, pattern).cldfrac
     got, ref = overlap_rows(cf), rtrnmr.overlap_rows(cf)
     assert got.shape == (L, 16, B)
-    assert torch.equal(got[:, :4], ref[:, :4])
-    assert rel_err(got[:, 4:], ref[:, 4:]) <= 1e-6
+    assert torch.equal(got, ref)
     assert torch.equal(got, overlap_rows(cf))
 
 
@@ -545,16 +547,156 @@ def test_model_band_clouds_cuda_matches_eager(dev, icld):
     assert not torch.allclose(fk.uflx, fk.uflxc)
 
 
-@pytest.mark.parametrize("icld", [1, 2])
+@pytest.mark.parametrize("icld", [1])
 def test_band_clouds_backward_raises_on_card(dev, icld):
-    """The banded and maxrand adjoints are not ported: on the card their
-    backward raises instead of dropping the gradient."""
+    """The banded adjoint is not ported: on the card its backward raises
+    instead of dropping the gradient (maxrand, icld 2/3, runs:
+    test_maxrand_grad_step_runs_on_card)."""
     atm, _, _ = _case(dev, 40, 10)
     bc = _band_clouds(dev, 40, 10, "decks")
     model = make_model(LWConfig(icld=icld, imca=0, dtype="float32",
                                 use_lut=False), device=dev)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_grad_step(model)(atm, bc)
+
+
+@pytest.mark.parametrize("icld,pattern", [(2, "decks"), (2, "mixed"),
+                                           (3, "mixed")])
+def test_maxrand_grad_step_runs_on_card(dev, icld, pattern):
+    """The maxrand gradient step on the card (K1 keeping its state and K6
+    maxrand once a step; the overlap adjoint where the cloud fraction
+    needs a gradient): the gradients of a loss
+    linear in the fluxes w.r.t. every Atmosphere field and the cloud
+    fraction and water paths within 1e-4 of max |eager| (f32 against
+    f32 through another order of sums)."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import rt_sweep_maxrand_vjp
+    from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows_vjp
+    from rrtmg_lw_torch.parallel import CLOUD_GRADS
+    B, L = 40, 10
+    atm, _, _ = _case(dev, B, L)
+    bc = _band_clouds(dev, B, L, pattern)
+    cts = [_randn((B, L + 1), dev, i) for i in range(4)]
+
+    def loss(fl):
+        return sum((c * x).sum() for c, x in zip(
+            cts, (fl.uflx, fl.dflx, fl.uflxc, fl.dflxc)))
+
+    out = {}
+    for impl in ("cuda", "eager"):
+        model = make_model(LWConfig(icld=icld, imca=0, dtype="float32",
+                                    use_lut=False, impl=impl), device=dev)
+        counters = (rt_fluxes_maxrand.save, rt_sweep_maxrand_vjp,
+                    overlap_rows_vjp)
+        before = [w.launches for w in counters]
+        _, g = make_grad_step(model, loss)(atm, bc)
+        _, _, gc = make_grad_step(model, loss, CLOUD_GRADS)(atm, bc)
+        launched = [w.launches - b for w, b in zip(counters, before)]
+        # the Atmosphere step reads no cloud cotangent: no overlap adjoint
+        assert launched == ([2, 2, 1] if impl == "cuda" else [0, 0, 0])
+        out[impl] = (g, gc)
+    (gk, ck), (ge, ce) = out["cuda"], out["eager"]
+    for name in Atmosphere._fields:
+        assert rel_err(getattr(gk, name), getattr(ge, name)) <= 1e-4, name
+    for name, a, b in zip(("cldfrac", "ciwp", "clwp"), ck, ce):
+        assert torch.isfinite(a).all() and rel_err(a, b) <= 1e-4, name
+    assert bool((ck[0] != 0).any())
+
+
+@pytest.mark.parametrize("B,L,pattern", [(37, 13, "decks"), (5, 1, "mixed"),
+                                         (3, 2, "overcast"), (33, 7, "clear"),
+                                         (96, 30, "mixed"), (40, 140,
+                                                             "mixed")])
+def test_overlap_bwd_kernel_matches_plain_vjp(dev, B, L, pattern):
+    """The overlap adjoint against the plain vjp of rtrnmr.overlap_rows
+    within 1e-4 of max |plain|, bitwise over two runs; the flag rows'
+    cotangent is not read."""
+    from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows_vjp
+    cf = _band_clouds(dev, B, L, pattern).cldfrac
+    ct = _randn((L, 16, B), dev, B + L)
+    got = overlap_rows_vjp(cf, ct)
+    x = cf.clone().requires_grad_()
+    ref, = torch.autograd.grad(rtrnmr.overlap_rows(x), x, ct)
+    assert got.shape == (B, L) and torch.isfinite(got).all()
+    assert rel_err(got, ref) <= 1e-4
+    flags = ct.clone()
+    flags[:, 1:4] = 1e3
+    assert torch.equal(got, overlap_rows_vjp(cf, flags))
+    assert torch.equal(got, overlap_rows_vjp(cf, ct))
+
+
+def _mr_case(dev, args, rows, taucb, seed=3):
+    """K1 maxrand keeping its state and K6 maxrand fed it, on the sweep
+    inputs ``args`` and the clouds (rows, taucb): K1's fluxes bitwise
+    those of its launch without the state, the state within 1e-5 of max
+    |plain| (its sub-streams where K1 keeps them, ``rtrn.kept_state``);
+    K6 within 1e-3 of max |plain vjp| per output, zeros in the flag rows,
+    bitwise over two runs, the second with NaN in the sub-streams K1 does
+    not keep; K6 without the state raises."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import (rt_sweep_maxrand_radiances,
+                                              rt_sweep_maxrand_vjp)
+    taut, fr, play, plev, plankbnd, semiss, pwvcm, ngb0, wg = args
+    L, _, B = taut.shape
+    surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, torch.float32)
+    a = (taut, fr, play, plev, surf, rows, taucb, ngb0, wg)
+    fl, rads = rt_sweep_maxrand_radiances(*a)
+    assert rads.shape == (10, L, 140, B)
+    assert torch.equal(fl, rt_fluxes_maxrand(*args, rows, taucb))
+    _, rads_p = rtrn.rt_sweep_maxrand(*a, radiances=True)
+    assert rel_err(rtrn.kept_state(rads, rows), rads_p) <= 1e-5
+    ct = _randn((4, L + 1, B), dev, seed)
+    with pytest.raises(ValueError, match="state"):
+        rt_sweep_maxrand_vjp(*a, ct)
+    got = rt_sweep_maxrand_vjp(*a, ct, rads=rads)
+    ref = rtrn.rt_sweep_maxrand_vjp(*a, ct)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == r.shape and torch.isfinite(g).all(), i
+        assert rel_err(g, r) <= 1e-3, i
+    assert torch.equal(got[5][:, 1:4], torch.zeros_like(got[5][:, 1:4]))
+    rtrn.kept_state(rads, rows, fill=float("nan"))
+    again = rt_sweep_maxrand_vjp(*a, ct, rads=rads)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.parametrize("B,L,pattern", [(37, 13, "decks"), (5, 1, "mixed"),
+                                         (33, 7, "overcast"), (96, 30,
+                                                               "mixed")])
+def test_rt_maxrand_adjoint_matches_plain_vjp(dev, B, L, pattern):
+    model = _model(dev)
+    _, _, prof = _case(dev, B, L)
+    bc = _band_clouds(dev, B, L, pattern)
+    static = model.static_tensors()
+    sc = setcoef(prof, static, planck=False)
+    tg, fr = model.engine.blocked(sc, prof)
+    play = interp_planck_blocked(prof.tavel.t().contiguous(), model.totplnk)
+    plev = interp_planck_blocked(prof.tz.t().contiguous(), model.totplnk)
+    taucb, _ = cldprop.cldprop_banded_blocked(bc, static, inflag=2,
+                                              iceflag=3, liqflag=1)
+    _mr_case(dev, (tg, fr, play, plev, sc.plankbnd, prof.semiss, prof.pwvcm,
+                   model.ngb0, model.wg), overlap_rows(bc.cldfrac), taucb,
+             seed=B + L)
+
+
+@pytest.mark.parametrize("B,L", [(15, 5), (33, 9), (100, 140), (32, 60)])
+def test_rt_maxrand_adjoint_on_k1_edge_cases(dev, B, L):
+    """``_mr_case`` on ``utils.snapshot.k1_edge_args`` (clear, overcast
+    and top-and-bottom columns across the tiles, od exactly 0.06 and 0)."""
+    from rrtmg_lw_torch.utils.snapshot import k1_edge_args
+    args, _, _ = _sweep_inputs(dev, B, L)
+    args, modes, _ = k1_edge_args(dev, _model(dev).static_tensors(), args)
+    _mr_case(dev, args, *modes["maxrand"][1], seed=B + L)
+
+
+def test_rt_maxrand_adjoint_launch_configuration(dev):
+    """K1 keeping the maxrand state fits two blocks per SM with no local
+    memory; K6 maxrand: 256-thread blocks of 32 columns, two a SM, no
+    local memory."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import k1_info, k6_mr_info
+    for idrv in (0, 1):
+        info = k1_info("maxrand", idrv, save=True)
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2, info
+    info = k6_mr_info()
+    assert info["threads"] == 256 and info["columns"] == 32, info
+    assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, info
 
 
 def _sweep_inputs(dev, B, L):

@@ -15,12 +15,20 @@
 (d) Finite differences of OLR with respect to tlay.
 (e) Finite gradients at the minor-gas over-abundance thresholds.
 (f) The f32 conditioning of the heating-rate loss, against float64.
+(g) idrv=1: the gradient step equals idrv=0's; a d/dT loss matches JAX.
+(h) The maximum-random overlap entry (BandClouds, icld 2 and 3):
+    ``make_grad_step`` against ``jax.value_and_grad`` of the JAX model
+    (XLA engines), and the gradients with respect to the cloud
+    fraction and the water paths against ``jax.grad`` with respect to the
+    JAX BandClouds, through the plain versions and through the Functions
+    (the overlap rows' and the maxrand sweep's plain vjps).
 
 Tolerances: (a) exact, or 1e-13 relative where the two sides
 accumulate one field's contributions in another order; (b) 1e-10 of
 max |ref| per Atmosphere field and 1e-12 relative on the loss (measured
 here: ~3e-12 and ~2e-16); (c) 1e-11 per field; (d) rel 2e-3, as
-tests/test_autodiff.py.
+tests/test_autodiff.py; (h) 1e-12 relative on the loss, 1e-10 of max
+|ref| per Atmosphere field and per cloud field.
 
 The synthetic profiles hold CO2 and N2O at the reference atmosphere's
 ratio, which puts band 15's eta parameter exactly on a table bin at the
@@ -28,6 +36,8 @@ surface (specparm = 0.5, specmult = 4): there the derivative jumps, and
 the two packages take different sides by one ulp.  (b) and (c) scale the
 trace gases by a seeded 5% noise so that every cell is differentiable.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -38,17 +48,19 @@ import jax.numpy as jnp
 
 from rrtmg_lw_tpu import LWConfig as JConfig, make_model as jmake_model
 from rrtmg_lw_tpu.ops import setcoef as jsetcoef
+from rrtmg_lw_tpu.types import BandClouds as JBandClouds
 from rrtmg_lw_tpu.ops.inatm import inatm as jinatm
 from rrtmg_lw_tpu.utils import synthetic as jsyn
 
-from rrtmg_lw_torch import (Atmosphere, LWConfig, McicaCloudsCompact,
-                            make_model)
+from rrtmg_lw_torch import (Atmosphere, BandClouds, LWConfig,
+                            McicaCloudsCompact, make_model)
 from rrtmg_lw_torch.data.ktables import tables_from_numpy
 from rrtmg_lw_torch.ops import cldprop, planck_cuda, rtrn, rtrn_cuda, setcoef
 from rrtmg_lw_torch.ops import taumol_cuda
 from rrtmg_lw_torch.ops.inatm import inatm
-from rrtmg_lw_torch.parallel import make_grad_step
+from rrtmg_lw_torch.parallel import CLOUD_GRADS, make_grad_step
 from rrtmg_lw_torch.utils import synthetic as tsyn
+from test_torch_model import band_clouds
 
 torch.set_num_threads(1)
 
@@ -435,3 +447,75 @@ def test_ddt_loss_grad_matches_jax_value_and_grad():
                 (impl, name)
         # the d/dT terms reach the surface temperature and emissivity
         assert bool((g.tsfc != 0).all()) and bool((g.emis != 0).any())
+
+
+# --------------------------------------------------------------- (h)
+
+MAXRAND_SHAPE = (4, 12)
+
+
+@functools.lru_cache(maxsize=None)
+def _maxrand_jax(icld):
+    """The JAX model's default loss on noisy_atmosphere and band_clouds,
+    its gradient with respect to every Atmosphere field, and with
+    respect to the BandClouds' cloud fraction and water paths."""
+    B, L = MAXRAND_SHAPE
+    jm = jmake_model(JConfig(icld=icld, imca=0, inflag=2, iceflag=3,
+                             liqflag=1, use_lut=False, taumol_impl="xla",
+                             rt_impl="xla"))
+    natm, nbc = noisy_atmosphere(B, L), band_clouds(B, L)
+
+    def jloss(a, cw):
+        fl = jm(a, JBandClouds(*nbc)._replace(**cw))
+        return (fl.hr ** 2).mean() + (fl.uflx[:, -1] ** 2).mean()
+
+    cw = {k: jnp.asarray(getattr(nbc, k)) for k in CLOUD_GRADS}
+    jl, (ja, jc) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1)))(
+        jax.tree_util.tree_map(jnp.asarray, natm), cw)
+    return jm, natm, nbc, float(jl), ja, jc
+
+
+def _maxrand_models(icld, jm):
+    """The port's maxrand model on the JAX model's tables, impl "eager"
+    and "cuda" (the Functions on the CPU)."""
+    tables = tables_from_numpy(jm.ktables, jm.static_np, device="cpu")
+    for impl in ("eager", "cuda"):
+        model = make_model(LWConfig(icld=icld, imca=0, inflag=2, iceflag=3,
+                                    liqflag=1, use_lut=False),
+                           device="cpu", tables=tables)
+        model.impl = impl
+        yield impl, model
+
+
+@pytest.mark.parametrize("icld", [2, 3])
+def test_maxrand_grad_step_matches_jax_value_and_grad(icld):
+    """The maxrand gradient step (make_grad_step, default loss, w.r.t.
+    every Atmosphere field) against jax.value_and_grad of the JAX
+    model."""
+    jm, natm, nbc, jl, ja, _ = _maxrand_jax(icld)
+    atm = Atmosphere.from_numpy(natm, "cpu")
+    for impl, model in _maxrand_models(icld, jm):
+        loss, g = make_grad_step(model)(atm, BandClouds.from_numpy(nbc,
+                                                                   "cpu"))
+        assert abs(float(loss) - jl) <= 1e-12 * abs(jl), impl
+        for name in Atmosphere._fields:
+            assert rel_err(getattr(g, name), getattr(ja, name)) <= 1e-10, \
+                (impl, name)
+
+
+@pytest.mark.parametrize("icld", [2, 3])
+def test_maxrand_cloud_grads_match_jax(icld):
+    """The default loss's gradients with respect to the BandClouds'
+    cldfrac, ciwp and clwp (``make_grad_step`` with ``cloud_fields``)
+    against jax.grad with respect to the JAX BandClouds.  band_clouds holds
+    adjacent layers of equal fraction, where the overlap factors'
+    max(0, .) must pass half the gradient to each side, as jnp.maximum
+    does (torch.clamp_min passes it all: 7.2e-3 of max |JAX| off)."""
+    jm, natm, nbc, _, _, jc = _maxrand_jax(icld)
+    atm = Atmosphere.from_numpy(natm, "cpu")
+    for impl, model in _maxrand_models(icld, jm):
+        _, _, got = make_grad_step(model, cloud_fields=CLOUD_GRADS)(
+            atm, BandClouds.from_numpy(nbc, "cpu"))
+        for name, gc in zip(CLOUD_GRADS, got):
+            assert bool((gc != 0).any()), (impl, name)
+            assert rel_err(gc, jc[name]) <= 1e-10, (impl, name)

@@ -432,6 +432,44 @@ def test_overlap_rows_match_jax_rows16():
     assert np.abs(got.numpy() - ref).max() <= 1e-14
 
 
+def _jax_rows16(cf):
+    """The (L, 16, B) stack of rt_maxrandom_pallas.rows16
+    (rtrn_pallas.py:1155-1166) from the JAX pre-passes."""
+    cloudy = cf >= 1e-6
+    up, istcld = jrtrnmr._overlap_factors_up(cf, cloudy)
+    dn, istcldd = jrtrnmr._overlap_factors_down(cf, cloudy)
+    iclddn = jnp.flip(jnp.cumsum(jnp.flip(cloudy.astype(jnp.int32), 1), 1),
+                      1) > 0
+    rows = [cf, istcld.astype(cf.dtype), istcldd.astype(cf.dtype),
+            iclddn.astype(cf.dtype), *dn, *up]
+    return jnp.stack([r.T for r in rows], axis=1)
+
+
+def test_overlap_rows_vjp_matches_jax():
+    """The plain vjp of rtrnmr.overlap_rows against jax.vjp of the rows16
+    stack, on overlap_patterns() and on decks with equal adjacent
+    fractions (the ties where maximum passes half the gradient, clamp_min
+    all of it), on seeded cotangents, the four flag rows' zero.  Within
+    1e-12 of max |JAX|."""
+    import jax
+    cf = overlap_patterns()
+    ties = np.zeros((3, 12))
+    ties[0, 2:8] = [0.3, 0.3, 0.7, 0.7, 0.2, 0.2]
+    ties[1, 1:5] = [1.0, 1.0, 0.4, 0.4]
+    ties[2, 4:10] = [0.6, 0.6, 0.6, 0.9, 0.9, 0.1]
+    cf = np.concatenate([cf, ties])
+    ct = np.random.default_rng(12).standard_normal((12, 16, cf.shape[0]))
+    ct[:, 1:4] = 0.0
+    _, vjp = jax.vjp(_jax_rows16, jnp.asarray(cf))
+    ref, = vjp(jnp.asarray(ct))
+    x = torch.as_tensor(cf).requires_grad_()
+    got, = torch.autograd.grad(rtrnmr.overlap_rows(x), x,
+                               torch.as_tensor(ct))
+    ref = np.asarray(ref)
+    assert np.abs(ref).max() > 0
+    assert np.abs(got.numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
 def band_clouds_np(B, Lc, seed=4):
     """make_band_clouds with the fractions varied inside the decks (so
     both overlap regimes occur), an overcast deck, in-cloud od for

@@ -809,3 +809,95 @@ def test_cuda_wrappers_plain_route_in_storage(monkeypatch, spec):
                                   *rest)
     assert torch.equal(got, want)
     assert [c.launches for c in counters] == before
+
+
+def test_maxrand_adjoint_band_pairs_cover_every_band():
+    """K6 maxrand's g-lanes (csrc/rtrn_bwd_mr.cu PAIR, two bands each,
+    so that a band's sums stay in one thread) cover the 16 bands once,
+    each lane 16-20 g-points of the 140."""
+    mr = open(os.path.join(REPO, "rrtmg_lw_torch", "csrc",
+                           "rtrn_bwd_mr.cu")).read()
+    my = int(re.search(r"\nconstexpr int MY = (\d+);", mr).group(1))
+    pairs = [tuple(int(x) for x in p) for p in re.findall(
+        r"\{(\d+), +(\d+)\}", re.search(r"PAIR\[MY\]\[2\] = \{(.*?)\};",
+                                        mr, re.S).group(1))]
+    knb = 16
+    assert len(pairs) == my
+    assert sorted(b for p in pairs for b in p) == list(range(knb))
+    ng = np.bincount(np.asarray(tkt.load_static()["ngb"]) - 1,
+                     minlength=knb)
+    assert ng.sum() == 140
+    assert all(16 <= ng[a] + ng[b] <= 20 for a, b in pairs)
+
+
+def test_maxrand_grad_wrappers_send_cpu_tensors_to_plain_versions(
+        monkeypatch):
+    """On CPU tensors K1 keeping the maxrand state, K6 maxrand and the
+    overlap adjoint run their plain versions (the plain sweep with
+    radiances=True, the plain vjps), never the kernel library, and count
+    no launch; the state's radiance rows sum to the fluxes at levels
+    0..L-1 (D and Dc: down, U and Uc: up), and its sub-streams are zero
+    in a clear column."""
+    from rrtmg_lw_torch import Atmosphere, BandClouds
+    from rrtmg_lw_torch.ops import cldprop, rtrn, rtrn_cuda, rtrnmr
+    from rrtmg_lw_torch.ops import rtrnmr_cuda, setcoef
+    from rrtmg_lw_torch.ops._autograd import plain_vjp
+    from rrtmg_lw_torch.ops.inatm import inatm
+
+    def no_kernels(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA kernel library")
+    monkeypatch.setattr(_build, "library", no_kernels)
+    monkeypatch.setattr(_build, "launch", no_kernels)
+    counters = (rtrn_cuda.rt_fluxes_maxrand, rtrn_cuda.rt_fluxes_maxrand.save,
+                rtrn_cuda.rt_sweep_maxrand_vjp, rtrnmr_cuda.overlap_rows_vjp)
+    before = [w.launches for w in counters]
+
+    B, L = 5, 9
+    model = make_model(LWConfig(icld=2, imca=0, use_lut=False), device="cpu")
+    static = model.static_tensors()
+    prof = inatm(Atmosphere.from_numpy(tsyn.make_atmosphere(B, L), "cpu"))
+    sc = setcoef.setcoef(prof, static, planck=False)
+    tg, fr = model.engine.blocked(sc, prof)
+    play, plev = (setcoef.interp_planck_blocked(t.t().contiguous(),
+                                                model.totplnk)
+                  for t in (prof.tavel, prof.tz))
+    nbc = tsyn.make_band_clouds(B, L)
+    nbc = nbc._replace(cldfrac=np.where(np.arange(B)[:, None] == 0, 0.0,
+                                        nbc.cldfrac))
+    bc = BandClouds.from_numpy(nbc, "cpu")
+    assert bool((bc.cldfrac[1:] > 0).any())
+    taucb, _ = cldprop.cldprop_banded_blocked(bc, static, inflag=2,
+                                              iceflag=3, liqflag=1)
+    rows = rtrnmr.overlap_rows(bc.cldfrac)
+    surf = rtrn.surf_rows(sc.plankbnd, prof.semiss, prof.pwvcm, tg.dtype)
+    a = (tg, fr, play, plev, surf, rows, taucb, model.ngb0, model.wg)
+    fl, rads = rtrn_cuda.rt_sweep_maxrand_radiances(*a)
+    fl_p, rads_p = rtrn.rt_sweep_maxrand(*a, radiances=True)
+    assert torch.equal(fl, fl_p) and torch.equal(rads, rads_p)
+    assert torch.equal(fl, rtrn.rt_sweep_maxrand(*a))
+    assert rads.shape == (10, L, 140, B)
+    flux = torch.einsum("rlgb,g->rlb", rads[:4], model.wg)
+    for r, f in ((0, 1), (1, 0), (2, 3), (3, 2)):
+        np.testing.assert_allclose(flux[r].numpy(), fl[f, :L].numpy(),
+                                   rtol=1e-13, atol=1e-9)
+    assert not bool(rads[4:, ..., 0].any())
+    assert bool(rads[4:].any())
+    # the sub-streams are kept (nonzero at most) where K6 reads them only
+    keep = rtrn.substreams_kept(rows)
+    assert bool(keep.any()) and not bool(keep.all())
+    assert torch.equal(rtrn.kept_state(rads.clone(), rows), rads)
+    ct = torch.randn((4, L + 1, B), generator=torch.Generator().manual_seed(4),
+                     dtype=tg.dtype)
+    got = rtrn_cuda.rt_sweep_maxrand_vjp(*a, ct)
+    ref = plain_vjp(lambda *x: rtrn.rt_sweep_maxrand(*x, model.ngb0,
+                                                     model.wg), a[:7],
+                    (True,) * 7, (ct,))
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert not bool(got[5][:, 1:4].any())
+    ctr = torch.randn(rows.shape, generator=torch.Generator().manual_seed(5),
+                      dtype=tg.dtype)
+    got = rtrnmr_cuda.overlap_rows_vjp(bc.cldfrac, ctr)
+    x = bc.cldfrac.clone().requires_grad_()
+    ref, = torch.autograd.grad(rtrnmr.overlap_rows(x), x, ctr)
+    assert torch.equal(got, ref)
+    assert [w.launches for w in counters] == before
