@@ -10,16 +10,17 @@ Phases, each raising on failure (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the CUDA kernels from csrc/ (one nvcc per source, in
      parallel), timed, with the registers and spills ptxas reports; for
-     each of K1's 54 instantiations (48, and the 6 of the gradient step
-     that keep the radiances for K6, clear, compact and maxrand, which
-     must not spill) its registers
+     each of K1's 60 instantiations (48, and the 12 of the gradient step
+     that keep the radiances for K6, every mode at idrv 0 and 1 in
+     float32, which must not spill) its registers
      and spill stores, its shared memory per block, blocks per SM (the
      CUDA occupancy API) and levels in its ring, the same (but the ring)
      for K2's 4, K6's registers and spill stores, and K5's registers,
      spill stores, local memory, shared memory and blocks per SM (it must
      not spill and must fit its MIN_BLOCKS launch bound); the overlap
-     rows', their adjoint's and K6 maxrand's registers and spill stores
-     (none may spill; K6 maxrand fits two blocks per SM);
+     rows', their adjoint's, K6 maxrand's, K6's in the banded, fused and
+     cldf-odcld modes and K4b's registers and spill stores (none may
+     spill; each K6 fits two blocks per SM);
   3. each kernel against its plain PyTorch version on the card at the
      main-path shapes (B=16384 columns, L=60 layers, float32), with the
      max error and CUDA-event times of both and the bound of each (the
@@ -89,27 +90,39 @@ Phases, each raising on failure (any failure exits non-zero):
      sub-streams where K1 keeps them), K6 maxrand fed it within
      TOL_BWD_RT of the plain vjp on B_SUB columns (zeros in the flag
      rows; without the state it raises; unchanged with NaN in the
-     sub-streams K1 does not keep), each bitwise over two runs;
-     then the gradient step (make_grad_step, the default loss, w.r.t.
-     every Atmosphere field) at B=16384, L=60 through the kernels: McICA,
+     sub-streams K1 does not keep), each bitwise over two runs; the
+     banded, fused and cldf-odcld gradients' kernels on the band_cloudy
+     (and mixed_clouds'), mcica_blocked and mcica_tauc cells' clouds and
+     on K1's edge cases: K1 keeping the radiances in the mode (fluxes
+     bitwise K1's, radiances within TOL_RADS of the plain sweep's), K6 in
+     the mode fed them within TOL_BWD_RT of the plain vjp on B_SUB
+     columns (the pad rows of its per-g cotangents zero; without the
+     radiances it raises), and K4b within TOL_BWD of the plain vjp on
+     the mcica_blocked cell's radii and on radii off and on the tables'
+     grid, each bitwise over two runs; then the gradient step
+     (make_grad_step, the default loss, w.r.t. every Atmosphere field) at B=16384, L=60 through the kernels: McICA,
      3 timed steps with the launch counters reset just before and read
      just after (K1 keeping the radiances once a step, and never in a
      forward cell), peak memory; its gradients of a column-sum loss, linear
      in the four flux arrays with seeded cotangents, held on all 16384
      columns against the eager step's (run in column chunks); clear sky,
-     1 step, the same check; then this slice's main path, the maxrand
-     gradient step (maxrand_cloudy_grad, BandClouds, icld=2) w.r.t. every
+     1 step, the same check; then the maxrand gradient step
+     (maxrand_cloudy_grad, BandClouds, icld=2) w.r.t. every
      Atmosphere field and the cloud fraction and water paths: 3 timed
      steps counted the same way (K2, K3, K4, the overlap rows, K1 keeping
      the maxrand state, K6 maxrand, K5, K3b and the overlap adjoint, once
      each a step but K3 and K3b twice; K1's state launch never in a
      forward cell), peak memory, the linear-loss gradients on all 16384
-     columns within TOL_STEP of the eager step's; the McICA and the
-     maxrand steps at idrv=1 bitwise equal to idrv=0's, and a cotangent
-     of duflx_dt, a backward through the fused, cldf-odcld or banded
-     mode and a gradient w.r.t. the effective radii raising
-     NotImplementedError; a logu16 grad step raising
-     NotImplementedError on both impls;
+     columns within TOL_STEP of the eager step's; this slice's main path
+     and its siblings the same way: band_cloudy_grad (icld=1, K1 banded,
+     w.r.t. the Atmosphere, the cloud fraction, water paths and
+     effective radii: K1 keeping the radiances, K6 banded and K4b once
+     a step), mcica_blocked_grad (K1 fused, w.r.t. every
+     McicaCloudsBlocked field) and mcica_tauc_grad (K1 cldf-odcld, w.r.t.
+     cldfmc and taucmc); the McICA and the maxrand steps at idrv=1
+     bitwise equal to idrv=0's, and a cotangent of duflx_dt (McICA,
+     maxrand, banded) raising NotImplementedError; a logu16 grad step
+     raising NotImplementedError on both impls;
   7. probes (utils/probes.py, the archived Pallas probes' counterparts):
      the one-hot selection product (bf16 and exact, dout 128 and 1656)
      and the row gather bitwise equal to tbl[idx], their rates, the
@@ -121,18 +134,21 @@ bytes_once (the bytes behind bound_ms); K1's and K2's entries
 CUDA events around the wrapper, holds its host gaps too), their
 instantiation's registers, spill bytes, shared memory, blocks per SM
 (K1: and ring levels) and achieved GB/s (bytes_once over device_ms),
-"rt_sweep" the table of all 54 K1 instantiations; K6's entry
+"rt_sweep" the table of all 60 K1 instantiations; K6's entry
 (rt_adjoint) its registers, spill bytes, device_ms and GB/s, and K5's
 (taumol_bwd) the same with its shared memory and blocks per SM; K5's
 bound counts its operations and cotangent bytes per (band, region)
-(``taumol_bwd_work``); the overlap rows', their adjoint's and K6
-maxrand's entries their registers, spill bytes and GB/s; the bounds of
-K1 SAVE maxrand and K6 maxrand count the sub-streams only where K1
-keeps them and K6 reads them (cloudy layers without a restart), and K6
-maxrand's plain_ms is the plain vjp's on plain_ncol columns; the
+(``taumol_bwd_work``); the overlap rows', their adjoint's, every other
+K6's and K4b's entries their registers, spill bytes and GB/s; the bounds
+of K1 SAVE maxrand and K6 maxrand count the sub-streams only where K1
+keeps them and K6 reads them (cloudy layers without a restart), those
+of K1 SAVE and K6 fused and cldf-odcld the per-g water paths and cloud
+od only where the g-point's gate holds (the only places they are read),
+and the plain_ms of K6 in those four modes is the plain vjp's on
+plain_ncol columns; the
 overlap kernels are timed on rotating copies of their inputs (L2 cold,
 ``utils.snapshot.rotating``).
-K5's, K6's and K1 SAVE's device_ms (both modes) come from
+K5's, K6's and K1 SAVE's device_ms (every mode) come from
 ``utils/snapshot.py --k5-times --k6-times`` in a process of its own,
 started after phase 3.  Without CUDA it exits non-zero and prints no result.
 """
@@ -187,7 +203,8 @@ BF16_TC_OPS_PER_S = 989e12      # dense bf16 on the tensor cores
 # clip, round)
 OPS = dict(taumol=60, planck=8, cldcoef=10, rt_clear=60, rt_cloud=40,
            rt_maxrand=60, overlap=100, planck_bwd=8, rt_adjoint=270,
-           rt_ddt=10, spec_codec=10, overlap_bwd=150, rt_adjoint_mr=160)
+           rt_ddt=10, spec_codec=10, overlap_bwd=150, rt_adjoint_mr=160,
+           cldcoef_bwd=6)
 # K5's operations, counted from csrc/taumol_bwd.cu per term of each
 # (band, region)'s structure (add, subtract, multiply one each; a product
 # two sums share once).  Per g-point: the cotangent's rescale and its
@@ -231,6 +248,17 @@ KERNELS = (  # name, source, replaced TPU kernel
     ("rt_sweep_save_maxrand", K1_SRC, "rrtmg_lw_tpu/ops/rtrn_pallas.py:140"),
     ("rt_adjoint_maxrand", "rrtmg_lw_torch/csrc/rtrn_bwd_mr.cu",
      "rrtmg_lw_tpu/ops/rtrn_pallas.py:1208"),
+) + tuple(
+    # the banded, fused and cldf-odcld gradients: K1 keeping the radiances
+    # in the mode, K6 in the mode (XLA's vjp of the random-overlap sweep
+    # in the JAX package), and K4b (XLA's vjp of _ice_liq_coeffs)
+    (f"rt_sweep_save_{m}", K1_SRC, "rrtmg_lw_tpu/ops/rtrn_pallas.py:140")
+    for m in ("banded", "fused", "cldf_od")) + tuple(
+    (f"rt_adjoint_{m}", "rrtmg_lw_torch/csrc/rtrn_bwd_g.cu",
+     "rrtmg_lw_tpu/ops/rtrn_pallas.py:1040")
+    for m in ("banded", "fused", "cldf_od")) + (
+    ("cldcoef_bwd", "rrtmg_lw_torch/csrc/cldcoef.cu",
+     "rrtmg_lw_tpu/ops/cldprop.py:43"),
 ) + tuple((name, K1_SRC, "rrtmg_lw_tpu/ops/rtrn_pallas.py:140") for name in (
     "rt_sweep_fused", "rt_sweep_cldf_od", "rt_sweep_idrv",
     "rt_sweep_banded_idrv", "rt_sweep_maxrand_idrv", "rt_sweep_fused_idrv",
@@ -706,7 +734,7 @@ def k1_build_info(log_path):
     """Each K1 instantiation's registers and spill stores (``_build.ptxas_info``)
     and launch configuration (``rtrn_cuda.k1_info``): {"<mode>
     idrv<0|1> <storage>[ save]": {...}}, " save" the six that keep the
-    radiances for K6 (clear, compact and maxrand, float32)."""
+    radiances for K6 (every mode, float32)."""
     from rrtmg_lw_torch._build import ptxas_info
     from rrtmg_lw_torch.ops.rtrn_cuda import MODES, k1_info
     from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES
@@ -729,8 +757,8 @@ def k1_build_info(log_path):
         r.update(smem_bytes=info["static_smem"] + info["dynamic_smem"],
                  blocks_per_sm=info["blocks_per_sm"],
                  ring_levels=info["ring_levels"])
-    need(len(out) == 54 and all(len(r) == 5 for r in out.values()),
-         f"K1: {len(out)} instantiations in the build log, expected 54")
+    need(len(out) == 60 and all(len(r) == 5 for r in out.values()),
+         f"K1: {len(out)} instantiations in the build log, expected 60")
     need(all(out[k]["spill_bytes"] == 0 for k in out if k.endswith("save")),
          "K1: an instantiation that keeps the radiances spills")
     return out
@@ -762,30 +790,39 @@ def k6_build_info(log_path):
 
 
 def new_build_info(log_path):
-    """Registers and spill stores of this slice's new kernels
+    """Registers and spill stores of the kernels of the last two slices
     (``_build.ptxas_info``): the overlap rows and their adjoint, K6
-    maxrand (with its launch configuration, ``rtrn_cuda.k6_mr_info``);
-    fails where one spills, or K6 maxrand fits fewer than two blocks per
-    SM.  -> {name: {...}}."""
+    maxrand, K6 in the banded, fused and cldf-odcld modes (with their
+    launch configurations at L_MAIN, ``rtrn_cuda.k6_mr_info``,
+    ``k6_g_info``) and K4b; fails where one spills, or a K6 fits fewer
+    than two blocks per SM.  -> {name: {...}}."""
     from rrtmg_lw_torch._build import ptxas_info
-    from rrtmg_lw_torch.ops.rtrn_cuda import k6_mr_info
+    from rrtmg_lw_torch.ops.rtrn_cuda import MODES, k6_g_info, k6_mr_info
     names = {"14overlap_kernelE": "overlap_rows",
              "18overlap_bwd_kernelE": "overlap_bwd",
-             "16rt_bwd_mr_kernelE": "rt_adjoint_maxrand"}
+             "16rt_bwd_mr_kernelE": "rt_adjoint_maxrand",
+             "18cldcoef_bwd_kernelE": "cldcoef_bwd"}
+    names.update({f"15rt_bwd_g_kernelILi{MODES[m]}EE": f"rt_adjoint_{m}"
+                  for m in ("banded", "fused", "cldf_od")})
     out = ptxas_info(log_path, "|".join(names),
                      lambda m: names[m.group(0)])
     need(sorted(out) == sorted(names.values())
          and all(len(r) == 2 for r in out.values()),
          f"new kernels: {sorted(out)} in the build log")
-    info = k6_mr_info()
-    need(info["registers"] == out["rt_adjoint_maxrand"]["registers"],
-         "K6 maxrand: registers at run time differ from ptxas'")
-    out["rt_adjoint_maxrand"].update(
-        smem_bytes=info["static_smem"] + info["dynamic_smem"],
-        blocks_per_sm=info["blocks_per_sm"])
+    infos = {"rt_adjoint_maxrand": k6_mr_info()}
+    infos.update({f"rt_adjoint_{m}": k6_g_info(m, L_MAIN)
+                  for m in ("banded", "fused", "cldf_od")})
+    for name, info in infos.items():
+        need(info["registers"] == out[name]["registers"],
+             f"{name}: registers at run time differ from ptxas'")
+        out[name].update(smem_bytes=info["static_smem"]
+                         + info["dynamic_smem"],
+                         blocks_per_sm=info["blocks_per_sm"])
     need(all(r["spill_bytes"] == 0 for r in out.values())
-         and info["blocks_per_sm"] >= 2,
-         f"new kernels: spill stores or K6 maxrand blocks per SM: {out}")
+         and all(i["blocks_per_sm"] >= 2 and i["local_bytes"] == 0
+                 for i in infos.values()),
+         f"new kernels: spill stores, local memory or a K6 of fewer than "
+         f"two blocks per SM: {out}")
     return out
 
 
@@ -911,7 +948,10 @@ K1_LINES = {"rt_sweep": "compact idrv0 f32", "rt_sweep_clear":
             "rt_sweep_cldf_od_idrv": "cldf_od idrv1 f32",
             "rt_sweep_spec": "compact idrv0 logu16",
             "rt_sweep_save": "compact idrv0 f32 save",
-            "rt_sweep_save_maxrand": "maxrand idrv0 f32 save"}
+            "rt_sweep_save_maxrand": "maxrand idrv0 f32 save",
+            "rt_sweep_save_banded": "banded idrv0 f32 save",
+            "rt_sweep_save_fused": "fused idrv0 f32 save",
+            "rt_sweep_save_cldf_od": "cldf_od idrv0 f32 save"}
 # the K2 instantiation behind each K2 line of the JSON summary
 K2_LINES = {"taumol": "f32", "taumol_spec": "logu16"}
 
@@ -1303,6 +1343,9 @@ def phase_grad_kernels(device):
     torch.cuda.empty_cache()
     res.update(maxrand_grad_kernels(
         device, model, (taut, fracs, play, plev, *fl_args), surf, randn))
+    torch.cuda.empty_cache()
+    res.update(g_grad_kernels(
+        device, model, (taut, fracs, play, plev, *fl_args), surf, randn))
     for name, r in res.items():
         print(f"{name}: max_abs_err {r['max_abs_err']:.3g} "
               f"max_rel_err {r['max_rel_err']:.3g} kernel {r['ms']:.3f} ms "
@@ -1466,9 +1509,201 @@ def maxrand_grad_kernels(device, model, args, surf, randn):
     return res
 
 
+# the random-overlap gradients' modes and the cells whose clouds each
+# runs on
+G_MODES = {"banded": "band_cloudy", "fused": "mcica_blocked",
+           "cldf_od": "mcica_tauc"}
+# the per-g cloud inputs K1 and K6 read only at a g-point whose gate
+# (cldf >= 0.5) holds: their index in CLOUD_INPUTS[mode]
+GATED = {"banded": (), "fused": (1, 2, 3), "cldf_od": (1,)}
+
+
+def g_grad_kernels(device, model, args, surf, randn):
+    """The banded, fused and cldf-odcld gradients' kernels on phase 3's
+    sweep inputs ``args`` (as ``maxrand_grad_kernels``') with each mode's
+    clouds (``utils.snapshot.k1_cloud_args``: the cells of ``G_MODES``;
+    banded also on mixed_clouds' fractions) and on K1's edge cases: K1
+    keeping the radiances in the mode (``rt_sweep_g_radiances``), its
+    fluxes bitwise K1's without them and the radiances within TOL_RADS of
+    the plain sweep's; K6 in the mode fed them within TOL_BWD_RT of the
+    plain vjp on the first B_SUB columns, raising without them, the pad
+    rows of its (L, 144, B) cotangents zero; K4b
+    (``ice_liq_coeffs_vjp``) within TOL_BWD of the plain vjp on the
+    mcica_blocked cell's radii and on radii below, on and above the
+    tables' grid, iceflag 2 and 3; each kernel bitwise over two runs.
+    -> the summary entries of K1 SAVE and K6 in the three modes and of
+    K4b (K1's and K6's device ms come from grad_device_times)."""
+    from rrtmg_lw_torch.ops import cldprop, rtrn
+    from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_vjp
+    from rrtmg_lw_torch.ops.rtrn_cuda import (WRAPPERS, rt_sweep_banded_vjp,
+                                              rt_sweep_g_radiances,
+                                              rt_sweep_g_vjp)
+    from rrtmg_lw_torch.utils.snapshot import k1_cloud_args, k1_edge_args
+    static = model.static_tensors()
+    ngb0, wg = args[7:]
+    _, mc = inputs("mcica_cloudy", device)
+    cell_clouds = k1_cloud_args(device, static, mc)
+    eargs, emodes, _ = k1_edge_args(device, static, args)
+
+    def clouds_of(mode, cl):
+        return tuple(cl) if mode == "banded" else tuple(cl[0])
+    cases = [(m, "cell", args, clouds_of(m, cell_clouds[m][1]))
+             for m in G_MODES]
+    _, bc = inputs("band_cloudy", device)
+    mb = mixed_clouds(bc, device)
+    taucb, _ = cldprop.cldprop_banded_blocked(mb, static, inflag=2,
+                                              iceflag=3, liqflag=1)
+    cases.append(("banded", "mixed", args,
+                  (mb.cldfrac.t().contiguous(), taucb)))
+    cases += [(m, "edge", eargs, clouds_of(m, emodes[m][1]))
+              for m in G_MODES]
+    ct = randn(4, L_MAIN + 1, B_MAIN)
+    sub = slice(0, B_SUB)
+    res, save_errs, k6_errs = {}, [], []
+    for mode, tag, a9, cl in cases:
+        x = (*a9[:4], surf)
+        fk, rads = rt_sweep_g_radiances(mode, *x, cl, ngb0, wg)
+        fields = cl if mode == "banded" else (cl,)
+        need(torch.equal(fk, WRAPPERS[mode](*a9, *fields)),
+             f"rt_sweep_save_{mode} ({tag}): fluxes differ from K1's "
+             "without the radiances")
+        need(torch.equal(rads, rt_sweep_g_radiances(mode, *x, cl, ngb0,
+                                                    wg)[1]),
+             f"rt_sweep_save_{mode} ({tag}): two runs differ")
+        if mode == "banded":
+            _, rads_p = rtrn.rt_sweep_banded(*x, *cl, ngb0, wg,
+                                             radiances=True)
+        else:
+            _, rads_p = rtrn.rt_sweep_blocked(*x, ngb0, wg, cl,
+                                              radiances=True)
+        e = rel_err(rads, rads_p)
+        need(bool(torch.isfinite(rads).all()) and e <= TOL_RADS,
+             f"rt_sweep_save_{mode} ({tag}): radiances off by {e:.3g} of "
+             f"max |plain| > {TOL_RADS}")
+        save_errs.append((mode, float((rads - rads_p).abs().max()), e))
+        del rads_p
+
+        def k6(**kw):
+            if mode == "banded":
+                return rt_sweep_banded_vjp(*x, *cl, ngb0, wg, ct, **kw)
+            return rt_sweep_g_vjp(*x, cl, ngb0, wg, ct, **kw)
+        try:
+            k6()
+        except ValueError:
+            pass
+        else:
+            need(False, f"rt_adjoint_{mode}: K6 ran without the radiances")
+        got = k6(rads=rads)
+        need(all(torch.equal(g, h) for g, h in zip(got, k6(rads=rads))),
+             f"rt_adjoint_{mode} ({tag}): two runs differ")
+        need(not any(bool(g[:, 140:].any()) for g in got[5:]
+                     if g.dim() == 3 and g.shape[1] == 144),
+             f"rt_adjoint_{mode} ({tag}): cotangents in the pad rows")
+        xs = tuple(t[..., sub].contiguous() for t in (*x, *cl))
+        cs = ct[..., sub].contiguous()
+        ref = (rtrn.rt_sweep_banded_vjp(*xs, ngb0, wg, cs) if mode == "banded"
+               else rtrn.rt_sweep_g_vjp(*xs[:5], xs[5:], ngb0, wg, cs))
+        e6 = [rel_err(g[..., sub], r) for g, r in zip(got, ref)]
+        need(all(bool(torch.isfinite(g).all()) for g in got)
+             and max(e6) <= TOL_BWD_RT,
+             f"rt_adjoint_{mode} ({tag}): rel err {max(e6):.3g} > "
+             f"{TOL_BWD_RT} (per output: {[f'{v:.2g}' for v in e6]})")
+        k6_errs.append((mode, max(float((g[..., sub] - r).abs().max())
+                                  for g, r in zip(got, ref)), max(e6)))
+        print(f"rt_sweep_save_{mode} ({tag}): fluxes bitwise K1's, "
+              f"radiances within {e:.3g} of max |plain|; rt_adjoint_{mode} "
+              f"within {max(e6):.3g} of max |plain vjp| on {B_SUB} columns, "
+              "bitwise over two runs")
+        if tag == "cell":
+            cf = cl[0]
+            cloudy = (cf >= rtrn.CLOUD_GATE if mode == "banded"
+                      else (cf[:, :140] >= 0.5).any(1))
+            ncld = int(cloudy.sum())
+            # the per-g inputs read only where the g-point's gate holds
+            ngate = int((cf[:, :140] >= 0.5).sum()) if GATED[mode] else 0
+            read = [c for i, c in enumerate(cl) if i not in GATED[mode]]
+            gated = 4 * ngate * len(GATED[mode])
+            res[f"rt_sweep_save_{mode}"] = dict(
+                ms=cuda_ms(lambda: rt_sweep_g_radiances(mode, *x, cl, ngb0,
+                                                        wg), 3),
+                plain_ms=cuda_ms(lambda: rtrn.rt_sweep_banded(
+                    *x, *cl, ngb0, wg, radiances=True) if mode == "banded"
+                    else rtrn.rt_sweep_blocked(*x, ngb0, wg, cl,
+                                               radiances=True), 1),
+                **bound((*x, *read, ngb0, wg), (fk, rads),
+                        140 * (OPS["rt_clear"] * L_MAIN * B_MAIN
+                               + OPS["rt_cloud"] * ncld), nbytes=gated))
+            res[f"rt_adjoint_{mode}"] = dict(
+                ms=cuda_ms(lambda: k6(rads=rads), 3),
+                plain_ms=cuda_ms(lambda: rtrn.rt_sweep_banded_vjp(
+                    *xs, ngb0, wg, cs) if mode == "banded"
+                    else rtrn.rt_sweep_g_vjp(*xs[:5], xs[5:], ngb0, wg, cs),
+                    1),
+                plain_ncol=B_SUB,
+                **bound((*x, *read, ngb0, wg, ct, rads), got,
+                        OPS["rt_adjoint"] * x[0].numel(), nbytes=gated))
+            print(f"rt_adjoint_{mode}: {ncld} cloudy (layer, column), "
+                  f"{ngate} gated (layer, g, column)")
+        del rads, got, ref, xs
+    for name, errs in (("rt_sweep_save", save_errs), ("rt_adjoint", k6_errs)):
+        for mode in G_MODES:
+            r = res[f"{name}_{mode}"]
+            r.update(max_abs_err=max(a for m, a, _ in errs if m == mode),
+                     max_rel_err=max(e for m, _, e in errs if m == mode))
+
+    # K4b on the mcica_blocked cell's radii and on radii off and on the
+    # tables' grid (reic = 2 + 3k, relq = 1.5 + k exactly)
+    _, cb = inputs("mcica_blocked", device)
+    gen = torch.Generator(device=device).manual_seed(13)
+    u = torch.rand((B_MAIN, L_MAIN), generator=gen, device=device)
+    k = torch.randint(0, 60, (B_MAIN, L_MAIN), generator=gen, device=device)
+    edge = (torch.where(u < 0.5, 160.0 * u, 2.0 + 3.0 * k),
+            torch.where(u < 0.5, 140.0 * u, 1.5 + k))
+    errs, res_k4 = [], None
+    for iceflag in (3, 2):
+        for tag, (reic, relq) in (("cell", (cb.reicmc, cb.relqmc)),
+                                  ("edge", edge)):
+            cts = (randn(L_MAIN, 16, B_MAIN), randn(L_MAIN, 16, B_MAIN))
+            got = ice_liq_coeffs_vjp(reic, relq, iceflag, 1, static, *cts)
+            ref = cldprop.ice_liq_coeffs_vjp(reic, relq, iceflag, 1,
+                                             static, *cts)
+            e = max(rel_err(g, r) for g, r in zip(got, ref))
+            need(all(bool(torch.isfinite(g).all()) for g in got)
+                 and e <= TOL_BWD, f"cldcoef_bwd ({tag}, iceflag "
+                 f"{iceflag}): rel err {e:.3g} > {TOL_BWD}")
+            need(all(torch.equal(g, h) for g, h in zip(
+                got, ice_liq_coeffs_vjp(reic, relq, iceflag, 1, static,
+                                        *cts))),
+                 f"cldcoef_bwd ({tag}): two runs differ")
+            errs.append((max(float((g - r).abs().max())
+                             for g, r in zip(got, ref)), e))
+            print(f"cldcoef_bwd ({tag}, iceflag {iceflag}): within {e:.3g} "
+                  "of max |plain vjp|, bitwise over two runs")
+            if res_k4 is None:
+                def k4b(reic=reic, relq=relq, cts=cts):
+                    return ice_liq_coeffs_vjp(reic, relq, 3, 1, static,
+                                              *cts)
+
+                def plain(reic=reic, relq=relq, cts=cts):
+                    return cldprop.ice_liq_coeffs_vjp(reic, relq, 3, 1,
+                                                      static, *cts)
+                res_k4 = dict(
+                    ms=cuda_ms(k4b, 20),
+                    device_ms=device_ms(k4b, reps=20,
+                                        symbol="cldcoef_bwd_kernel"),
+                    plain_ms=cuda_ms(plain, 5),
+                    **bound((reic, relq, static["absice3"],
+                             static["absliq1"], *cts), got,
+                            OPS["cldcoef_bwd"] * cts[0].numel()))
+    res["cldcoef_bwd"] = dict(res_k4, max_abs_err=max(a for a, _ in errs),
+                              max_rel_err=max(e for _, e in errs))
+    return res
+
+
 def grad_device_times():
     """Device ms of K1 keeping the radiances and of K6 fed them, compact
-    McICA on phase 3's inputs, and of K5 (L=60; L=140 printed), from
+    McICA on phase 3's inputs, maxrand and the ``G_MODES`` on their cells'
+    clouds, and of K5 (L=60; L=140 printed), from
     ``utils/snapshot.py --k5-times --k6-times`` in a process of its own:
     in this script's long process the profiler's traces of these launches
     held 3 of 5 early and one or none late (phase 6 holds their results
@@ -1487,16 +1722,17 @@ def grad_device_times():
     need(res.returncode == 0 and out5.exists() and out6.exists(),
          f"snapshot.py --k5-times --k6-times failed:\n{res.stderr[-3000:]}")
     rows = {r["mode"]: r for r in json.loads(out6.read_text())}
-    c, m = rows["compact"], rows["maxrand"]
     k5 = {r["nlay"]: r["device_ms"] for r in json.loads(out5.read_text())}
-    print(f"device ms, K1 keeping the radiances {c['k1_save_ms']:.3f} "
-          f"(without {c['k1_ms']:.3f}), K6 {c['k6_ms']:.3f}; maxrand: K1 "
-          f"keeping the state {m['k1_save_ms']:.3f} (without "
-          f"{m['k1_ms']:.3f}), K6 {m['k6_ms']:.3f}; K5 {k5[L_MAIN]:.3f} "
-          f"(L={L_DEEP}: {k5[L_DEEP]:.3f})")
-    return {"rt_sweep_save": c["k1_save_ms"], "rt_adjoint": c["k6_ms"],
-            "rt_sweep_save_maxrand": m["k1_save_ms"],
-            "rt_adjoint_maxrand": m["k6_ms"], "taumol_bwd": k5[L_MAIN]}
+    print("device ms, K1 keeping the radiances (without), K6: " + "; ".join(
+        f"{m} {r['k1_save_ms']:.3f} ({r['k1_ms']:.3f}), {r['k6_ms']:.3f}"
+        for m, r in rows.items() if m != "clear")
+          + f"; K5 {k5[L_MAIN]:.3f} (L={L_DEEP}: {k5[L_DEEP]:.3f})")
+    out = {"rt_sweep_save": rows["compact"]["k1_save_ms"],
+           "rt_adjoint": rows["compact"]["k6_ms"], "taumol_bwd": k5[L_MAIN]}
+    for m in ("maxrand", *G_MODES):
+        out[f"rt_sweep_save_{m}"] = rows[m]["k1_save_ms"]
+        out[f"rt_adjoint_{m}"] = rows[m]["k6_ms"]
+    return out
 
 
 def grad_errs(tag, gk, ge):
@@ -1588,29 +1824,50 @@ def phase_grad_step(device, counters):
     return launches, rows
 
 
-# the maxrand gradient step's launches per step (gradients w.r.t. the
-# Atmosphere fields and the cloud fraction and water paths); K1's launch
-# that keeps the state also counts on rt_sweep_maxrand
-MR_GRAD = dict(FWD, rt_sweep_maxrand=1, rt_sweep_save_maxrand=1,
-               overlap_rows=1, overlap_bwd=1, taumol_bwd=1, planck_bwd=2,
-               rt_adjoint_maxrand=1)
+# the gradient cells' launches per step, w.r.t. the Atmosphere and the
+# cell's cloud fields (utils/profiling.py Cell.cloud_grads): K1's launch
+# that keeps the radiances also counts on its mode's wrapper
+GRAD_BWD = dict(taumol_bwd=1, planck_bwd=2)
+GRAD_CELLS = {
+    "maxrand_cloudy_grad": dict(
+        FWD, **GRAD_BWD, rt_sweep_maxrand=1, rt_sweep_save_maxrand=1,
+        overlap_rows=1, overlap_bwd=1, rt_adjoint_maxrand=1),
+    "band_cloudy_grad": dict(
+        FWD, **GRAD_BWD, rt_sweep_banded=1, rt_sweep_save_banded=1,
+        rt_adjoint_banded=1, cldcoef_bwd=1),
+    "mcica_blocked_grad": dict(
+        FWD, **GRAD_BWD, rt_sweep_fused=1, rt_sweep_save_fused=1,
+        rt_adjoint_fused=1, cldcoef_bwd=1),
+    "mcica_tauc_grad": dict(
+        NO_K4, **GRAD_BWD, rt_sweep_cldf_od=1, rt_sweep_save_cldf_od=1,
+        rt_adjoint_cldf_od=1)}
 
 
-def phase_maxrand_grad(device, counters):
-    """This slice's main path: the maximum-random overlap gradient step
-    (``maxrand_cloudy_grad``: icld=2, imca=0, inflag 2, B=16384, L=60)
-    through the kernels, w.r.t. every Atmosphere field and the cloud
-    fraction and water paths; 3 timed steps with every launch counter set
-    to 0 just before and read just after (MR_GRAD a step, 0 for the
-    others), peak memory; its gradients of the linear loss on all 16384
-    columns against the eager step's, run in B_CHUNK-column chunks,
-    within TOL_STEP of max |eager| per field.  -> (launches per step,
-    e2e rows)."""
-    from rrtmg_lw_torch import BandClouds, make_model
-    from rrtmg_lw_torch.parallel import CLOUD_GRADS, make_grad_step
+def cloud_columns(clouds, cols):
+    """The columns ``cols`` (a slice) of BandClouds or McicaCloudsBlocked
+    (whose per-g arrays have the columns last)."""
+    from rrtmg_lw_torch import McicaCloudsBlocked
+    if isinstance(clouds, McicaCloudsBlocked):
+        return McicaCloudsBlocked(*(x[..., cols].contiguous()
+                                    for x in clouds[:4]),
+                                  *(x[cols] for x in clouds[4:]))
+    return type(clouds)(*(x[cols] for x in clouds))
+
+
+def grad_cell(device, counters, tag):
+    """The gradient step of cell ``tag`` (utils/profiling.py, B=16384,
+    L=60) through the kernels, w.r.t. every Atmosphere field and the
+    cell's cloud fields: 3 timed steps with every launch counter set to 0
+    just before and read just after (GRAD_CELLS[tag] a step, 0 for the
+    others), peak memory; its gradients of a loss linear in the four flux
+    arrays (seeded cotangents) on all 16384 columns against the eager
+    step's, run in B_CHUNK-column chunks, within TOL_STEP of max |eager|
+    per field.  -> (launches in the timed steps, e2e row)."""
+    from rrtmg_lw_torch import McicaCloudsBlocked
+    from rrtmg_lw_torch.parallel import make_grad_step
     from rrtmg_lw_torch.utils.profiling import CELLS
-    tag = "maxrand_cloudy_grad"
-    atm, bc = inputs(tag, device)
+    atm, cl = inputs(tag, device)
+    fields = CELLS[tag].cloud_grads
     gen = torch.Generator(device=device).manual_seed(7)
     cts = [torch.randn(B_MAIN, L_MAIN + 1, generator=gen, device=device)
            for _ in range(4)]
@@ -1619,21 +1876,21 @@ def phase_maxrand_grad(device, counters):
         return lambda f: sum((c * x).sum() for c, x in zip(
             cts, (f.uflx, f.dflx, f.uflxc, f.dflxc)))
 
-    model = make_model(CELLS[tag].config(impl="cuda"), device=device)
-    step = make_grad_step(model, cloud_fields=CLOUD_GRADS)
-    step(atm, bc)                                   # warm-up
+    model = CELLS[tag].make_model(device, impl="cuda")
+    step = make_grad_step(model, cloud_fields=fields)
+    step(atm, cl)                                   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
     for _ in range(STEPS):
-        loss, ga, gc = step(atm, bc)
+        loss, ga, gc = step(atm, cl)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / STEPS
     counts = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {k: MR_GRAD.get(k, 0) * STEPS for k in counters}
+    want = {k: GRAD_CELLS[tag].get(k, 0) * STEPS for k in counters}
     need(counts == want, f"{tag}: launches {counts}, expected {want}")
     need(bool(torch.isfinite(loss)) and all(
         bool(torch.isfinite(g).all()) for g in (*ga, *gc)),
@@ -1641,20 +1898,21 @@ def phase_maxrand_grad(device, counters):
     print(f"{tag}: launches in its {STEPS} steps: {counts}; peak "
           f"{peak:.3f} GiB")
     del step, ga, gc
-    _, gk, ck = make_grad_step(model, linear(cts), CLOUD_GRADS)(atm, bc)
-    eager = make_model(CELLS[tag].config(impl="eager"), device=device)
+    _, gk, ck = make_grad_step(model, linear(cts), fields)(atm, cl)
+    eager = CELLS[tag].make_model(device, impl="eager")
     chunks = []
     for i in range(0, B_MAIN, B_CHUNK):
         s = slice(i, i + B_CHUNK)
         _, ga, gc = make_grad_step(eager, linear([c[s] for c in cts]),
-                                   CLOUD_GRADS)(
-            type(atm)(*(x[s] for x in atm)),
-            BandClouds(*(x[s] for x in bc)))
+                                   fields)(
+            type(atm)(*(x[s] for x in atm)), cloud_columns(cl, s))
         chunks.append((*ga, *gc))
-    ge = [torch.cat(g) for g in zip(*chunks)]
+    # McicaCloudsBlocked's per-g arrays have the columns last
+    last = len(gk) + 4 if isinstance(cl, McicaCloudsBlocked) else 0
+    ge = [torch.cat(g, dim=-1 if i < last and i >= len(gk) else 0)
+          for i, g in enumerate(zip(*chunks))]
     worst, err = grad_errs(tag, gk, type(gk)(*ge[:len(gk)]))
-    cerr = {n: rel_err(g, r) for n, g, r in zip(CLOUD_GRADS, ck,
-                                                 ge[len(gk):])}
+    cerr = {n: rel_err(g, r) for n, g, r in zip(fields, ck, ge[len(gk):])}
     need(all(bool(torch.isfinite(g).all()) for g in ck),
          f"{tag}: non-finite cloud gradient")
     print(f"{tag}: cloud gradients, kernels vs eager, max rel err "
@@ -1662,13 +1920,18 @@ def phase_maxrand_grad(device, counters):
     need(err <= TOL_STEP and max(cerr.values()) <= TOL_STEP,
          f"{tag}: gradient of {worst} off by {err:.3g}, cloud "
          f"gradients by {max(cerr.values()):.3g} of max |eager|")
-    need(bool((ck[0] != 0).any()), f"{tag}: zero cloud-fraction gradient")
+    # zero only where eager's is (mcica_blocked's taucmc: every cloudy
+    # g-point there has water, and cldprmc reads taucmc only where none)
+    zero = [n for n, g, r in zip(fields, ck, ge[len(gk):])
+            if bool(g.any()) != bool(r.any())]
+    need(not zero and bool(ck[0].any()),
+         f"{tag}: zero cloud gradients where eager's are not: {zero}")
     row = dict(cell=tag, impl="cuda", ncol=B_MAIN, nlay=L_MAIN,
                ms_per_step=ms, cols_per_sec=B_MAIN / (ms * 1e-3),
                peak_gib=peak, grad_rel_err_vs_eager=max(err, *cerr.values()))
     del model, eager, gk, ck, ge, chunks
     torch.cuda.empty_cache()
-    return counts, [row]
+    return counts, row
 
 
 def phase_grad_idrv(device):
@@ -1677,11 +1940,10 @@ def phase_grad_idrv(device):
     no d/dT; both with deterministic algorithms, under which two idrv=0
     steps are bitwise equal too), and so does the maxrand step (K6
     maxrand, w.r.t. the Atmosphere and the clouds); a loss that reads
-    duflx_dt (McICA and maxrand), a backward through the fused,
-    cldf-odcld or banded mode, and a gradient w.r.t. the effective radii
-    (K4), raise NotImplementedError on the card."""
+    duflx_dt (McICA, maxrand and banded) raises NotImplementedError on
+    the card."""
     from rrtmg_lw_torch import Atmosphere, make_model
-    from rrtmg_lw_torch.parallel import CLOUD_GRADS, make_grad_step
+    from rrtmg_lw_torch.parallel import make_grad_step
     from rrtmg_lw_torch.utils.profiling import CELLS
     atm, clouds = inputs("mcica_cloudy", device)
     steps = [make_grad_step(make_model(CELLS[c].config(impl="cuda"),
@@ -1709,7 +1971,8 @@ def phase_grad_idrv(device):
     cfg = CELLS["maxrand_cloudy_grad"].config
     steps = [make_grad_step(make_model(cfg(impl="cuda", idrv=i),
                                        device=device),
-                            cloud_fields=CLOUD_GRADS) for i in (0, 0, 1)]
+                            cloud_fields=CELLS["maxrand_cloudy_grad"]
+                            .cloud_grads) for i in (0, 0, 1)]
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         out = [step(atm, bc) for step in steps]
@@ -1727,34 +1990,18 @@ def phase_grad_idrv(device):
     print("maxrand_cloudy_idrv_grad: loss and gradients (Atmosphere and "
           "clouds) bitwise equal to idrv=0's (deterministic algorithms)")
     del steps, out
-    idrv = make_model(CELLS["mcica_cloudy_idrv"].config(impl="cuda"),
-                      device=device)
-    mr_idrv = make_model(cfg(impl="cuda", idrv=1), device=device)
-    atm_b, blk = inputs("mcica_blocked", device)
-    atm_t, tauc = inputs("mcica_tauc", device)
-    atm_d, bnd = inputs("band_cloudy", device)
-    models = {c: make_model(CELLS[c].config(impl="cuda"), device=device)
-              for c in ("mcica_blocked", "mcica_tauc", "band_cloudy",
-                        "maxrand_cloudy")}
-    radii = bc._replace(reic=bc.reic.clone().requires_grad_())
 
-    def radii_step(a, c):
-        fl = models["maxrand_cloudy"](a, c)
-        return torch.autograd.grad(fl.uflx.sum(), c.reic)
-    for tag, step, a, c in (
-            ("d/dT cotangent", make_grad_step(idrv, lambda f: (
-                f.duflx_dt ** 2).mean()), atm, clouds),
-            ("maxrand d/dT cotangent", make_grad_step(mr_idrv, lambda f: (
-                f.duflx_dt ** 2).mean()), atm, bc),
-            ("fused backward", make_grad_step(models["mcica_blocked"]),
-             atm_b, blk),
-            ("cldf-odcld backward", make_grad_step(models["mcica_tauc"]),
-             atm_t, tauc),
-            ("banded backward", make_grad_step(models["band_cloudy"]),
-             atm_d, bnd),
-            ("effective radii (K4)", radii_step, atm, radii)):
+    def ddt(cell, **kw):
+        return make_grad_step(make_model(CELLS[cell].config(
+            impl="cuda", **kw), device=device), lambda f: (
+                f.duflx_dt ** 2).mean())
+    for tag, step, c in (
+            ("d/dT cotangent", ddt("mcica_cloudy_idrv"), clouds),
+            ("maxrand d/dT cotangent", ddt("maxrand_cloudy_grad", idrv=1),
+             bc),
+            ("banded d/dT cotangent", ddt("band_cloudy_idrv"), bc)):
         try:
-            step(a, c)
+            step(atm, c)
         except NotImplementedError as e:
             need("ROADMAP" in str(e), f"{tag}: {e}")
         else:
@@ -2112,7 +2359,8 @@ def main() -> int:
     # importing the port first: from a directory without it this fails
     # before anything is printed
     from rrtmg_lw_torch import _build
-    from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_blocked
+    from rrtmg_lw_torch.ops.cldcoef_cuda import (ice_liq_coeffs_blocked,
+                                                 ice_liq_coeffs_vjp)
     from rrtmg_lw_torch.ops.planck_cuda import (planck_interp_blocked,
                                                 planck_interp_vjp)
     from rrtmg_lw_torch.ops.rtrn_cuda import (rt_fluxes_banded,
@@ -2120,6 +2368,8 @@ def main() -> int:
                                               rt_fluxes_cldf_od,
                                               rt_fluxes_fused,
                                               rt_fluxes_maxrand,
+                                              rt_sweep_banded_vjp,
+                                              rt_sweep_g_vjp,
                                               rt_sweep_maxrand_vjp,
                                               rt_sweep_vjp)
     from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows, overlap_rows_vjp
@@ -2196,10 +2446,22 @@ def main() -> int:
     counters = {"taumol": taumol_blocked, "planck": planck_interp_blocked,
                 "cldcoef": ice_liq_coeffs_blocked,
                 "rt_sweep": rt_fluxes_blocked}
-    fwd_counters = dict(counters, rt_sweep_save=rt_fluxes_blocked.save,
+    # the backward kernels and K1's launches that keep the radiances: 0 in
+    # every forward cell
+    bwd_counters = dict(rt_sweep_save=rt_fluxes_blocked.save,
                         rt_sweep_save_maxrand=rt_fluxes_maxrand.save,
+                        rt_sweep_save_banded=rt_fluxes_banded.save,
+                        rt_sweep_save_fused=rt_fluxes_fused.save,
+                        rt_sweep_save_cldf_od=rt_fluxes_cldf_od.save,
                         overlap_bwd=overlap_rows_vjp,
                         rt_adjoint_maxrand=rt_sweep_maxrand_vjp,
+                        rt_adjoint_banded=rt_sweep_banded_vjp,
+                        rt_adjoint_fused=rt_sweep_g_vjp.fused,
+                        rt_adjoint_cldf_od=rt_sweep_g_vjp.cldf_od,
+                        cldcoef_bwd=ice_liq_coeffs_vjp,
+                        taumol_bwd=taumol_vjp, planck_bwd=planck_interp_vjp,
+                        rt_adjoint=rt_sweep_vjp)
+    fwd_counters = dict(counters, **bwd_counters,
                         rt_sweep_banded=rt_fluxes_banded,
                         rt_sweep_maxrand=rt_fluxes_maxrand,
                         overlap_rows=overlap_rows,
@@ -2246,21 +2508,28 @@ def main() -> int:
                     rt_sweep_save=rt_fluxes_blocked.save)
     grad_launches, grad_rows = phase_grad_step(device, counters)
     rows += grad_rows
-    # this slice's main path: the maxrand gradient step, counted alone
-    mr_counters = dict(counters, rt_sweep_maxrand=rt_fluxes_maxrand,
-                       rt_sweep_save_maxrand=rt_fluxes_maxrand.save,
-                       overlap_rows=overlap_rows,
-                       overlap_bwd=overlap_rows_vjp,
-                       rt_adjoint_maxrand=rt_sweep_maxrand_vjp)
-    mr_launches, mr_rows = phase_maxrand_grad(device, mr_counters)
-    rows += mr_rows
+    # the maxrand gradient step, then this slice's main path, the banded
+    # gradient step (band_cloudy_grad), and the fused and cldf-odcld ones,
+    # each counted alone on every counter
+    cell_grad = {}
+    for tag in GRAD_CELLS:
+        cell_grad[tag], row = grad_cell(device, fwd_counters, tag)
+        rows.append(row)
     phase_grad_idrv(device)
     storage_grad_raises(device)
     torch.cuda.empty_cache()
     launches.update({k: grad_launches[k] for k in (
         "taumol_bwd", "planck_bwd", "rt_adjoint", "rt_sweep_save")})
-    launches.update({k: mr_launches[k] for k in (
-        "overlap_bwd", "rt_sweep_save_maxrand", "rt_adjoint_maxrand")})
+    for tag, names in (
+            ("maxrand_cloudy_grad", ("overlap_bwd", "rt_sweep_save_maxrand",
+                                     "rt_adjoint_maxrand")),
+            ("band_cloudy_grad", ("rt_sweep_save_banded",
+                                  "rt_adjoint_banded", "cldcoef_bwd")),
+            ("mcica_blocked_grad", ("rt_sweep_save_fused",
+                                    "rt_adjoint_fused")),
+            ("mcica_tauc_grad", ("rt_sweep_save_cldf_od",
+                                 "rt_adjoint_cldf_od"))):
+        launches.update({k: cell_grad[tag][k] for k in names})
 
     # 7. the archived probes' counterparts
     probe_res, probe_launches = phase_probes(device)
@@ -2284,7 +2553,8 @@ def main() -> int:
     print(f"rt_adjoint (compact): device {r['device_ms']:.3f} ms, "
           f"{r['gbps']:.0f} GB/s of its bytes read once, bound "
           f"{r['bound_ms']:.3f} ms")
-    for name in ("overlap_rows", "overlap_bwd", "rt_adjoint_maxrand"):
+    for name in ("overlap_rows", "overlap_bwd", "rt_adjoint_maxrand",
+                 *(f"rt_adjoint_{m}" for m in G_MODES), "cldcoef_bwd"):
         r = res[name]
         r.update(new_build[name],
                  gbps=r["bytes_once"] / (r["device_ms"] * 1e-3) / 1e9)

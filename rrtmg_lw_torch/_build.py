@@ -45,6 +45,7 @@ SIGNATURES = {
     "rrtm_planck": (P, P, P, I, I, P),
     "rrtm_planck_bwd": (P, P, P, P, I, I, P),
     "rrtm_cldcoef": (P, P, P, P, P, P, I, I, I, P),
+    "rrtm_cldcoef_bwd": (P,) * 8 + (I, I, I, P),
     "rrtm_taumol": (P, P, P, P, P, P, P, I, I, I, P),
     "rrtm_taumol_info": (I, P),
     "rrtm_taumol_shape": (P,),
@@ -56,6 +57,8 @@ SIGNATURES = {
     "rrtm_overlap_bwd": (P, P, P, I, I, P),
     "rrtm_rt_bwd_mr": (P,) * 18 + (I, I, P),
     "rrtm_rt_bwd_mr_info": (P,),
+    "rrtm_rt_bwd_g": (P,) * 26 + (I, I, I, P),
+    "rrtm_rt_bwd_g_info": (I, I, P),
     "rrtm_rt_bwd": (P,) * 21 + (I, I, I, P),
     "rrtm_rt_bwd_info": (I, P),
     "rrtm_taumol_ndesc": (),

@@ -1,7 +1,7 @@
 // K1, the RT sweep kernel (rtrn_kernel.cuh): its float32 instantiations
-// (6 modes x idrv 0/1, and clear, compact and maxrand x idrv 0/1 that
-// keep the radiances for K6) and the entry points, which dispatch the reduced
-// storages to rtrn_bf16.cu, rtrn_f16.cu and rtrn_logu16.cu.
+// (6 modes x idrv 0/1, and the same 12 that keep the radiances for K6)
+// and the entry points, which dispatch the reduced storages to
+// rtrn_bf16.cu, rtrn_f16.cu and rtrn_logu16.cu.
 #include "rtrn_kernel.cuh"
 
 // taut, fracs (L, 140, B) in storage `spec` (spec.cuh; float32: taut =
@@ -18,11 +18,11 @@
 // the other cloud pointers may be null.
 // -> out (4, L+1, B) = up, down, clear up, clear down; idrv = 1:
 // (6, L+1, B), + d up / dT_sfc, d clear up / dT_sfc.  rads null: K1 as
-// the forward step runs it; else (clear, compact or maxrand in float32,
-// the gradient step) it also writes the per-g radiances to rads (2 | 4 |
-// 10, L, 140, B): the down radiance at level l, the up radiance entering
-// layer l and, compact and maxrand, their clear twins; maxrand also the
-// sub-streams entering each layer in each sweep (rtrn_kernel.cuh, SAVE).
+// the forward step runs it; else (float32, the gradient step) it also
+// writes the per-g radiances to rads (2 | 4 | 10, L, 140, B): the down
+// radiance at level l, the up radiance entering layer l and, in a cloudy
+// mode, their clear twins; maxrand also the sub-streams entering each
+// layer in each sweep (rtrn_kernel.cuh, SAVE).
 RRTM_API int rrtm_rt(const void* taut, const void* fracs, const float* play,
                      const float* plev, const float* surf, const int* ngb,
                      const float* wg, const int8_t* mask, const float* cw,
@@ -58,6 +58,14 @@ RRTM_API int rrtm_rt(const void* taut, const void* fracs, const float* play,
     }
 }
 
+// the launch configuration of the float32 instantiation of MODE at idrv
+// that keeps the radiances
+template <int MODE>
+cudaError_t info_save(int idrv, int* out) {
+    return idrv ? info<MODE, true, rrtm::SPEC_F32, true>(out)
+                : info<MODE, false, rrtm::SPEC_F32, true>(out);
+}
+
 // The launch configuration of K1 in `mode` at idrv in storage `spec`
 // (save: the instantiation that keeps the radiances): out[0..7] =
 // registers per thread, local memory bytes per thread, static and dynamic
@@ -67,17 +75,12 @@ RRTM_API int rrtm_rt_info(int mode, int idrv, int spec, int save, int* out) {
     if (save) {
         if (spec != rrtm::SPEC_F32) return (int)cudaErrorInvalidValue;
         switch (mode) {
-        case CLEAR:
-            return (int)(idrv ? info<CLEAR, true, rrtm::SPEC_F32, true>(out)
-                              : info<CLEAR, false, rrtm::SPEC_F32, true>(out));
-        case COMPACT:
-            return (int)(idrv
-                ? info<COMPACT, true, rrtm::SPEC_F32, true>(out)
-                : info<COMPACT, false, rrtm::SPEC_F32, true>(out));
-        case MAXRAND:
-            return (int)(idrv
-                ? info<MAXRAND, true, rrtm::SPEC_F32, true>(out)
-                : info<MAXRAND, false, rrtm::SPEC_F32, true>(out));
+        case CLEAR: return (int)info_save<CLEAR>(idrv, out);
+        case COMPACT: return (int)info_save<COMPACT>(idrv, out);
+        case BANDED: return (int)info_save<BANDED>(idrv, out);
+        case MAXRAND: return (int)info_save<MAXRAND>(idrv, out);
+        case FUSED: return (int)info_save<FUSED>(idrv, out);
+        case CLDF_OD: return (int)info_save<CLDF_OD>(idrv, out);
         default: return (int)cudaErrorInvalidValue;
         }
     }

@@ -28,9 +28,9 @@
 // gradient, as torch.maximum does at a tie.
 //
 // Design: a simple kernel.  A block holds 32 columns x 8 g-lanes (256
-// threads); lane y takes two whole bands (PAIR, 16-20 g-points), so each
-// band's sums (planklay, planklev, taucb, the surface rows, the secant)
-// stay in one thread, in ascending g.  The five carries of every (g,
+// threads); lane y takes two whole bands (PAIR, band_lanes.cuh, 16-20
+// g-points), so each band's sums (planklay, planklev, taucb, the surface
+// rows, the secant) stay in one thread, in ascending g.  The five carries of every (g,
 // column) live in shared memory (89.6 KB).  The 7 per-layer sums over g
 // of the overlap rows' cotangents (R_CLDF and the sweep's six factors)
 // go through shared memory: each lane's partial over its g in order,
@@ -40,20 +40,15 @@
 // layer that does not restart the sub-streams, the three sub-streams,
 // and writes ct_taut and ct_fracs twice (read-add in the down sweep).
 // No atomics on floats: two runs are bitwise equal.
+#include "band_lanes.cuh"
 #include "rtrn.cuh"
 
 namespace {
 
 using namespace rrtm::rt;
 
-constexpr int MX = 32;                  // columns per block
-constexpr int MY = 8;                   // g-lanes per column
-constexpr int MT = MX * MY;             // threads per block
 constexpr int NCAR = 5;                 // lam, mu, cr, kr, rr cotangents
 constexpr int NPART = 7;                // R_CLDF and the six factors
-// the two bands of each g-lane: 140 g-points in lanes of 16-20
-__constant__ int PAIR[MY][2] = {{2, 13}, {4, 14}, {3, 15}, {1, 12},
-                                {6, 9},  {8, 5},  {0, 7},  {10, 11}};
 
 // rows of the saved state (rtrn_kernel.cuh SAVE, maxrand)
 enum Saved { S_D = 0, S_U = 1, S_DC = 2, S_UC = 3, S_SUB_DN = 4,

@@ -88,12 +88,13 @@
 // rtrn_logu16.cu the reduced ones, one translation unit each so that nvcc
 // builds them in parallel.
 //
-// The gradient step (SAVE, a fourth template parameter: clear, compact
-// and maxrand in float32, idrv 0 and 1): the kernel also stores every
+// The gradient step (SAVE, a fourth template parameter: every mode in
+// float32, idrv 0 and 1): the kernel also stores every
 // per-g radiance that it sums into the flux rows DOWN, UP (and CLR_DOWN,
 // CLR_UP) at levels 0..L-1, from the same registers, in the order K6
-// (rtrn_bwd.cu; maxrand: rtrn_bwd_mr.cu) reads them back: (2 | 4, L, 140,
-// B) floats, 1.1 GB clear and 2.2 GB compact at B=16384, L=60; maxrand
+// (rtrn_bwd.cu; maxrand: rtrn_bwd_mr.cu; banded, fused and cldf-odcld:
+// rtrn_bwd_g.cu) reads them back: (2 | 4, L, 140, B) floats, 1.1 GB clear
+// and 2.2 GB in a cloudy mode at B=16384, L=60; maxrand
 // also the three sub-streams entering a layer in a sweep, (10, L, 140, B)
 // allocated (5.5 GB), written only where K6 reads them: in a cloudy
 // layer that does not restart them.  The stores sit beside the flux sums
@@ -304,11 +305,11 @@ __device__ __forceinline__ Step staged_step(const unsigned char* s,
     return f;
 }
 
-// SAVE (clear, compact and maxrand, float32; the gradient step): the
+// SAVE (float32; the gradient step): the
 // kernel also writes the per-g radiances it sums into the flux rows to
 // rads (2 | 4 | 10, L, 140, B), row D the down radiance at level l after
 // layer l, row U the up radiance entering layer l (l = 0: just after the
-// surface reflection), compact and maxrand rows 2-3 their clear twins,
+// surface reflection), the cloudy modes rows 2-3 their clear twins,
 // maxrand rows 4-6 (7-9) the cloudy, clear and correction sub-streams
 // (cr, kr, rr) entering layer l in the down (up) sweep, written only
 // where layer l is cloudy and does not restart them in that sweep (the
@@ -327,10 +328,8 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
     constexpr int NUP = Lo::NUP;            // flux rows of the up sweep
     constexpr int RING = Lo::RING;
     constexpr int ES = Sl::ES;
-    static_assert(!SAVE || ((MODE == CLEAR || MODE == COMPACT || MR)
-                            && SPEC == rrtm::SPEC_F32),
-                  "radiances are kept for K6: clear, compact and maxrand, "
-                  "float32");
+    static_assert(!SAVE || SPEC == rrtm::SPEC_F32,
+                  "radiances are kept for K6 in float32 only");
     extern __shared__ __align__(16) unsigned char smem[];
     uint64_t* bar = reinterpret_cast<uint64_t*>(smem + Lo::BAR);
     float* part = reinterpret_cast<float*>(smem + Lo::PART);
@@ -510,15 +509,15 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
         return sub[(q * KGPT + k) * KT + tid];
     };
     // SAVE: radiance row `row` (D or U) of g-point k of this thread at
-    // layer l, and in compact and maxrand its clear twin at row + 2;
-    // valid columns only
+    // layer l, and in a cloudy mode its clear twin at row + 2; valid
+    // columns only
     auto save = [&](int row, int l, int k) {
         if (valid) {
             const size_t lgb = (size_t)L * KG * Bz;
             float* p = rads + row * lgb
                        + ((size_t)l * KG + ty + k * KY) * Bz + b;
             *p = rad[k];
-            if constexpr (MODE == COMPACT || MR) p[2 * lgb] = radc[k];
+            if constexpr (MODE != CLEAR) p[2 * lgb] = radc[k];
         }
     };
     // SAVE, maxrand: the sub-streams of g-point k entering layer l, rows
@@ -700,14 +699,13 @@ cudaError_t launch(const KernelInputs<SPEC>& in, const int* ngb,
     return cudaGetLastError();
 }
 
-// K1 at idrv; with rads (clear, compact and maxrand in float32 only) the
-// instantiation that also keeps the radiances
+// K1 at idrv; with rads (float32 only) the instantiation that also keeps
+// the radiances
 template <int MODE, int SPEC>
 cudaError_t launch(const KernelInputs<SPEC>& in, const int* ngb,
                    const float* wg, float* out, int idrv, float* rads,
                    cudaStream_t s) {
-    if constexpr ((MODE == CLEAR || MODE == COMPACT || MODE == MAXRAND)
-                  && SPEC == rrtm::SPEC_F32) {
+    if constexpr (SPEC == rrtm::SPEC_F32) {
         if (rads)
             return idrv
                 ? launch<MODE, true, SPEC, true>(in, ngb, wg, out, rads, s)
@@ -750,8 +748,8 @@ cudaError_t info_storage(int mode, int idrv, int* out) {
 
 // K1 in `mode` (enum Mode) with taut / fracs in storage SPEC; checks
 // that the mode's cloud inputs (and, in reduced storage, taua) are given;
-// rads non-null: the instantiation that keeps the radiances (clear,
-// compact and maxrand in float32; cudaErrorInvalidValue elsewhere)
+// rads non-null: the instantiation that keeps the radiances (float32;
+// cudaErrorInvalidValue in reduced storage)
 template <int SPEC>
 cudaError_t launch_storage(const Inputs& inputs, const float* taua,
                            const int* ngb, const float* wg, float* out,
@@ -763,8 +761,6 @@ cudaError_t launch_storage(const Inputs& inputs, const float* taua,
         if (!taua) return cudaErrorInvalidValue;
         in.taua = taua;
     }
-    if (rads && mode != CLEAR && mode != COMPACT && mode != MAXRAND)
-        return cudaErrorInvalidValue;
     switch (mode) {
     case CLEAR:
         return launch<CLEAR, SPEC>(in, ngb, wg, out, idrv, rads, s);
@@ -774,7 +770,7 @@ cudaError_t launch_storage(const Inputs& inputs, const float* taua,
         return launch<COMPACT, SPEC>(in, ngb, wg, out, idrv, rads, s);
     case BANDED:
         if (!in.cld || !in.taucb) return cudaErrorInvalidValue;
-        return launch<BANDED, SPEC>(in, ngb, wg, out, idrv, nullptr, s);
+        return launch<BANDED, SPEC>(in, ngb, wg, out, idrv, rads, s);
     case MAXRAND:
         if (!in.cld || !in.taucb) return cudaErrorInvalidValue;
         return launch<MAXRAND, SPEC>(in, ngb, wg, out, idrv, rads, s);
@@ -782,10 +778,10 @@ cudaError_t launch_storage(const Inputs& inputs, const float* taua,
         if (!in.cldf || !in.ciwp || !in.clwp || !in.tauc || !in.abi
             || !in.abl)
             return cudaErrorInvalidValue;
-        return launch<FUSED, SPEC>(in, ngb, wg, out, idrv, nullptr, s);
+        return launch<FUSED, SPEC>(in, ngb, wg, out, idrv, rads, s);
     case CLDF_OD:
         if (!in.cldf || !in.tauc) return cudaErrorInvalidValue;
-        return launch<CLDF_OD, SPEC>(in, ngb, wg, out, idrv, nullptr, s);
+        return launch<CLDF_OD, SPEC>(in, ngb, wg, out, idrv, rads, s);
     default:
         return cudaErrorInvalidValue;
     }

@@ -23,13 +23,11 @@ adjustment, rrtmg_lw.1col.f90:587-610).
 
 With ``impl="cuda"`` the stages marked K (and the overlap rows) run the
 hand-written CUDA kernels, each inside a ``torch.autograd.Function``
-whose backward is a kernel too for clear sky, McICA compact and
-maximum-random overlap (K5 taumol, K3b Planck, K6 RT, and for maxrand
-K6 maxrand and the overlap rows' adjoint; K4's inputs are not
-differentiated; the other sweep modes' backward, and that of the d/dT
-outputs, raise on the card); with ``impl="eager"`` their plain PyTorch
-versions, on the same
-layouts, under plain autograd.  Configurations outside the port raise
+whose backward is a kernel too (K5 taumol, K3b Planck, K4b the effective
+radii, K6 RT in every sweep mode, and for maxrand the overlap rows'
+adjoint; the backward of the d/dT outputs raises on the card); with
+``impl="eager"`` their plain PyTorch versions, on the same layouts, under
+plain autograd.  Configurations outside the port raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Reduced spectral storage: ``RRTMG_SPEC_DTYPE`` (read once, at

@@ -1,13 +1,14 @@
-"""Cloud particle-size coefficient kernel (K4), csrc/cldcoef.cu.
+"""Cloud particle-size coefficient kernel (K4) and its backward (K4b),
+csrc/cldcoef.cu.
 
-Replaces ``rrtmg_lw_tpu/ops/cldcoef_pallas.py::_build.kernel``.  On a
-CUDA tensor the wrapper launches the kernel (or raises); on a CPU
-tensor it runs the plain version, ``cldprop.ice_liq_coeffs_blocked``.
-
-The kernel has no backward: the effective radii are not differentiated
-on the port's gradient path (the JAX package differentiates only the
-Atmosphere, and cldcoef_pallas.py has no custom_vjp), so a CUDA call
-whose radii require grad raises instead of handing back a constant.
+K4 replaces ``rrtmg_lw_tpu/ops/cldcoef_pallas.py::_build.kernel``; K4b
+the XLA autodiff of the JAX package's ``_ice_liq_coeffs``
+(rrtmg_lw_tpu/ops/cldprop.py:43), through which the JAX model
+differentiates the effective radii (cldcoef_pallas.py has no vjp).
+``CldCoefFn`` pairs them for autograd; the tables get no gradient.  On a
+CUDA tensor each wrapper launches its kernel (or raises); on a CPU tensor
+it runs the plain versions, ``cldprop.ice_liq_coeffs_blocked`` and
+``cldprop.ice_liq_coeffs_vjp``.
 """
 
 from __future__ import annotations
@@ -18,20 +19,8 @@ from .. import _build
 from . import cldprop
 
 
-def ice_liq_coeffs_blocked(reic, relq, iceflag, liqflag, tables):
-    """(B, L) effective radii -> per-band ice and liquid absorption
-    coefficients abi, abl (L, 16, B); tables hold absice2/absice3 and
-    absliq1 tensors.  iceflag 2/3 with liqflag 1 only."""
-    if reic.device.type == "cpu":
-        return cldprop.ice_liq_coeffs_blocked(reic, relq, iceflag, liqflag,
-                                              tables)
-    if torch.is_grad_enabled() and (reic.requires_grad
-                                    or relq.requires_grad):
-        raise NotImplementedError(
-            "gradients with respect to the effective radii (reic, relq) "
-            "through the cloud-coefficient kernel are not ported yet; see "
-            "ROADMAP.md Queue 1, gradients through the other forward "
-            "paths on the card")
+def _check(reic, relq, iceflag, liqflag, tables):
+    """-> (L, B, nmax, ice table, liquid table) of a kernel call."""
     name, _, nmax = cldprop._ice_params(iceflag)
     cldprop._check_liqflag(liqflag)
     B, L = reic.shape
@@ -41,12 +30,67 @@ def ice_liq_coeffs_blocked(reic, relq, iceflag, liqflag, tables):
     ice, liq = tables[name], tables["absliq1"]
     _build.check(ice, name, torch.float32, (nmax, 16), dev)
     _build.check(liq, "absliq1", torch.float32, (58, 16), dev)
-    abi = torch.empty((L, 16, B), dtype=torch.float32, device=dev)
-    abl = torch.empty_like(abi)
-    _build.launch("rrtm_cldcoef", reic.t().contiguous(),
-                  relq.t().contiguous(), ice, liq, abi, abl, nmax, L, B)
-    ice_liq_coeffs_blocked.launches += 1
-    return abi, abl
+    return L, B, nmax, ice, liq
+
+
+class CldCoefFn(torch.autograd.Function):
+    """(reic, relq (B, L), iceflag, liqflag, tables) -> abi, abl
+    (L, 16, B); backward K4b to reic and relq."""
+
+    @staticmethod
+    def forward(ctx, reic, relq, iceflag, liqflag, tables):
+        ctx.args = (iceflag, liqflag, tables)
+        if any(ctx.needs_input_grad[:2]):
+            ctx.save_for_backward(reic, relq)
+        if reic.device.type == "cpu":
+            return cldprop.ice_liq_coeffs_blocked(reic, relq, iceflag,
+                                                  liqflag, tables)
+        L, B, nmax, ice, liq = _check(reic, relq, iceflag, liqflag, tables)
+        abi = torch.empty((L, 16, B), dtype=torch.float32,
+                          device=reic.device)
+        abl = torch.empty_like(abi)
+        _build.launch("rrtm_cldcoef", reic.t().contiguous(),
+                      relq.t().contiguous(), ice, liq, abi, abl, nmax, L, B)
+        ice_liq_coeffs_blocked.launches += 1
+        return abi, abl
+
+    @staticmethod
+    def backward(ctx, ct_abi, ct_abl):
+        reic, relq = ctx.saved_tensors
+        zero = torch.zeros((reic.shape[1], 16, reic.shape[0]),
+                           dtype=reic.dtype, device=reic.device)
+        g = ice_liq_coeffs_vjp(reic, relq, *ctx.args,
+                               zero if ct_abi is None else ct_abi.contiguous(),
+                               zero if ct_abl is None else ct_abl.contiguous())
+        return (*(x if n else None for x, n in zip(g, ctx.needs_input_grad)),
+                None, None, None)
+
+
+def ice_liq_coeffs_blocked(reic, relq, iceflag, liqflag, tables):
+    """(B, L) effective radii -> per-band ice and liquid absorption
+    coefficients abi, abl (L, 16, B); tables hold absice2/absice3 and
+    absliq1 tensors.  iceflag 2/3 with liqflag 1 only."""
+    return CldCoefFn.apply(reic, relq, iceflag, liqflag, tables)
+
+
+def ice_liq_coeffs_vjp(reic, relq, iceflag, liqflag, tables, ct_abi,
+                       ct_abl):
+    """K4b: ct_abi, ct_abl (L, 16, B) -> the cotangents of reic and relq
+    (B, L); on a CPU tensor the plain version,
+    ``cldprop.ice_liq_coeffs_vjp``."""
+    if reic.device.type == "cpu":
+        return cldprop.ice_liq_coeffs_vjp(reic, relq, iceflag, liqflag,
+                                          tables, ct_abi, ct_abl)
+    L, B, nmax, ice, liq = _check(reic, relq, iceflag, liqflag, tables)
+    for t, name in ((ct_abi, "ct_abi"), (ct_abl, "ct_abl")):
+        _build.check(t, name, torch.float32, (L, 16, B), reic.device)
+    ct_r = torch.empty((2, L, B), dtype=torch.float32, device=reic.device)
+    _build.launch("rrtm_cldcoef_bwd", reic.t().contiguous(),
+                  relq.t().contiguous(), ice, liq, ct_abi, ct_abl, ct_r[0],
+                  ct_r[1], nmax, L, B)
+    ice_liq_coeffs_vjp.launches += 1
+    return ct_r[0].t(), ct_r[1].t()
 
 
 ice_liq_coeffs_blocked.launches = 0
+ice_liq_coeffs_vjp.launches = 0

@@ -4,7 +4,8 @@ Port of the tabulated branches of ``rrtmg_lw_tpu.ops.cldprop``
 (rrtmg_lw_cldprmc.f90:210-268): Key/Streamer (iceflag 2, absice2
 43x16) and Fu (iceflag 3, absice3 46x16) ice, Hu & Stamnes (liqflag 1,
 absliq1 58x16) liquid.  ``_ice_liq_coeffs`` is the plain version of the
-cloud-coefficient kernel (``ops.cldcoef_cuda``).  Other flags raise
+cloud-coefficient kernel (``ops.cldcoef_cuda``), ``ice_liq_coeffs_vjp``
+that of its backward.  Other flags raise
 ``NotImplementedError``.
 
 For McICA clouds with per-g arrays (``McicaClouds``,
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from ..types import McicaCloudsBlocked, _to_blocked, pad_g
+from ._autograd import plain_vjp
 from .taumol import NG
 
 CLDMIN = 1.0e-20
@@ -99,6 +101,16 @@ def ice_liq_coeffs_blocked(reic, relq, iceflag, liqflag, tables):
     abi, abl, _ = _ice_liq_coeffs(reic, relq, iceflag, liqflag, tables)
     return (abi.permute(1, 2, 0).contiguous(),
             abl.permute(1, 2, 0).contiguous())
+
+
+def ice_liq_coeffs_vjp(reic, relq, iceflag, liqflag, tables, ct_abi,
+                       ct_abl):
+    """ct_abi, ct_abl (L, 16, B) -> the cotangents of reic and relq
+    (B, L) through ``ice_liq_coeffs_blocked``: the plain version of
+    ``cldcoef_cuda.ice_liq_coeffs_vjp`` (K4b)."""
+    return plain_vjp(lambda r, q: ice_liq_coeffs_blocked(
+        r, q, iceflag, liqflag, tables), (reic, relq), (True, True),
+        (ct_abi, ct_abl))
 
 
 def cloud_bands_static(inflag: int, iceflag: int, liqflag: int) -> bool:

@@ -23,7 +23,11 @@ clouds (icld=1, rtrn.f90) and maximum-random overlap (icld 2/3,
 rtrnmr.f90, the sub-stream recursion ``_sweep_maxrand`` fed by the
 overlap rows of ``ops.rtrnmr``); ``rt_sweep_maxrand(..., radiances=True)``
 and ``rt_sweep_maxrand_vjp`` are those of the maxrand gradient's kernels
-(K1 keeping its state, K6 maxrand).
+(K1 keeping its state, K6 maxrand), and ``rt_sweep_banded(...,
+radiances=True)``, ``rt_sweep_blocked(..., radiances=True)`` with per-g
+fields, ``rt_sweep_banded_vjp`` and ``rt_sweep_g_vjp`` those of the
+banded, fused and cldf-odcld gradient's (K1 keeping its radiances, K6 in
+those modes).
 
 The ``rt_fluxes_*`` functions take ``taua_t`` (L, 16, B) with taut_t and
 fracs_t in reduced spectral storage (``spec_codec``): they decode them
@@ -490,24 +494,38 @@ def _band_layouts(taut_t, fracs_t, planklay_t, planklev_t, surf, taucb_t,
 
 
 def rt_sweep_banded(taut_t, fracs_t, planklay_t, planklev_t, surf, cldf_t,
-                    taucb_t, ngb0, wg):
+                    taucb_t, ngb0, wg, radiances=False):
     """Fluxes (4|6, L+1, B) under random overlap of per-band clouds
     (icld=1): the plain version of the RT kernel's banded mode.
     cldf_t (L, B) the cloud fraction, taucb_t (L, 16, B) the cloud od
     per band (``cldprop.cldprop_banded_blocked``); a layer is cloudy
     where cldf >= CLOUD_GATE, for every g.  surf as
-    ``rt_sweep_blocked``."""
+    ``rt_sweep_blocked``.  ``radiances``: (the fluxes, rads (4, L, 140,
+    B)), as ``rt_sweep_blocked``'s with clouds: the plain version of
+    ``rtrn_cuda.rt_sweep_g_radiances`` in the banded mode."""
     taut, fracs, play, plev, odcld_g, secd, semiss, plankbnd, dpl = \
         _band_layouts(taut_t, fracs_t, planklay_t, planklev_t, surf,
                       taucb_t, ngb0)
     B, L, G = taut.shape
     cf = cldf_t.t()
     cloudy = cf >= CLOUD_GATE
-    fluxes = _sweep(taut, fracs, play, plev, plankbnd, semiss, secd,
-                    cf[..., None].expand(B, L, G), odcld_g, cloudy,
-                    cloudy[..., None].expand(B, L, G), ngb0, wg,
-                    use_lut=False, dplankbnd_dt=dpl)
-    return torch.stack(fluxes).permute(0, 2, 1).contiguous()
+    res = _sweep(taut, fracs, play, plev, plankbnd, semiss, secd,
+                 cf[..., None].expand(B, L, G), odcld_g, cloudy,
+                 cloudy[..., None].expand(B, L, G), ngb0, wg,
+                 use_lut=False, dplankbnd_dt=dpl, radiances=radiances)
+    fluxes, rads = res if radiances else (res, None)
+    fluxes = torch.stack(fluxes).permute(0, 2, 1).contiguous()
+    return (fluxes, rads.contiguous()) if radiances else fluxes
+
+
+def rt_sweep_banded_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
+                        cldf_t, taucb_t, ngb0, wg, ct, needs=(True,) * 7):
+    """ct (4|6, L+1, B) -> cotangents of (taut_t, fracs_t, planklay_t,
+    planklev_t, surf, cldf_t, taucb_t), None where ``needs`` is False:
+    the plain version of ``rtrn_cuda.rt_sweep_banded_vjp``."""
+    return plain_vjp(lambda *x: rt_sweep_banded(*x, ngb0, wg),
+                     (taut_t, fracs_t, planklay_t, planklev_t, surf, cldf_t,
+                      taucb_t), needs, (ct,))
 
 
 def substreams_kept(rows_t):
@@ -570,6 +588,18 @@ def _sweep_g(taut_t, fracs_t, planklay_t, planklev_t, surf, *rest):
     *fields, ngb0, wg = rest
     return rt_sweep_blocked(taut_t, fracs_t, planklay_t, planklev_t, surf,
                             ngb0, wg, tuple(fields))
+
+
+def rt_sweep_g_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, fields,
+                   ngb0, wg, ct, needs=None):
+    """ct (4|6, L+1, B) -> cotangents of (taut_t, fracs_t, planklay_t,
+    planklev_t, surf, *fields), None where ``needs`` (default all) is
+    False; ``fields`` the per-g cloud fields of ``rt_sweep_blocked``'s
+    fused (6) or cldf-odcld (2) mode, whose pad rows 140-143 get zero:
+    the plain version of ``rtrn_cuda.rt_sweep_g_vjp``."""
+    xs = (taut_t, fracs_t, planklay_t, planklev_t, surf, *fields)
+    return plain_vjp(lambda *x: _sweep_g(*x, ngb0, wg), xs,
+                     (True,) * len(xs) if needs is None else needs, (ct,))
 
 
 # the plain versions of K1's modes behind ``rtrn_cuda.RTSweepFn``:

@@ -7,18 +7,20 @@ in all its modes: clear, compact-cloud, banded (icld=1), maxrand (icld
 per-g cloud fraction and cloud od), each at idrv=0 or 1; K6 replaces
 the JAX package's unrolled XLA backward of it (``ops/rtrn_bwd.py:259``
 ``rt_bwd_fluxes``) in the clear and compact modes, and its XLA vjp of
-the maxrand sweep (``rtrn_pallas.py:1208``) in the maxrand mode
-(csrc/rtrn_bwd_mr.cu).  ``RTFn`` pairs them for autograd: in a forward
-that autograd records, K1 (float32) also keeps its per-g radiances
-(``rt_sweep_radiances``), and K6 reads them back in the backward
-instead of sweeping forward again.  ``RTSweepFn`` holds the other four
-modes; in maxrand it does the same (``rt_sweep_maxrand_radiances``, the
-sub-streams kept too, and ``rt_sweep_maxrand_vjp``); the adjoints of
-banded, fused and cldf-odcld are not ported: on the card their backward
-raises.  With idrv=1 (a fourth
+the sweep (``rtrn_pallas.py:1208`` maxrand, ``:1040`` the random-overlap
+modes) in the maxrand mode (csrc/rtrn_bwd_mr.cu) and in the banded,
+fused and cldf-odcld modes (csrc/rtrn_bwd_g.cu).  ``RTFn`` pairs them
+for autograd: in a forward that autograd records, K1 (float32) also
+keeps its per-g radiances (``rt_sweep_radiances``), and K6 reads them
+back in the backward instead of sweeping forward again.  ``RTSweepFn``
+holds the other four modes and does the same (maxrand:
+``rt_sweep_maxrand_radiances``, the sub-streams kept too, and
+``rt_sweep_maxrand_vjp``; banded, fused, cldf-odcld:
+``rt_sweep_g_radiances``, ``rt_sweep_banded_vjp`` and
+``rt_sweep_g_vjp``).  With idrv=1 (a fourth
 surface row, ``dplankbnd_dt``) each returns the fluxes and their
 derivatives with respect to the surface temperature (2, L+1, B); on the
-card a cotangent of the latter raises too.  On a CUDA tensor each
+card a cotangent of the latter raises.  On a CUDA tensor each
 wrapper launches its kernel (or raises); on a CPU tensor it runs the
 plain version (``rtrn.rt_sweep_blocked``, ``rtrn.rt_sweep_vjp``,
 ``rtrn.SWEEPS``) and, backward, its plain vjp.
@@ -32,8 +34,8 @@ None.  A backward through reduced storage raises NotImplementedError.
 
 Each wrapper counts its launches in ``.launches``, those at idrv=1 in
 ``.idrv.launches`` and those in reduced storage in ``.spec.launches``;
-``rt_fluxes_blocked.save.launches`` and ``rt_fluxes_maxrand.save.launches``
-count K1's launches that keep the radiances.
+``.save.launches`` of each ``rt_fluxes_*`` counts K1's launches in its
+mode that keep the radiances.
 """
 
 from __future__ import annotations
@@ -61,8 +63,8 @@ CLOUD_INPUTS = {
               ("abl_t", 16)),
     "cldf_od": (("cldf_t", NGPT_PAD), ("odcld_t", NGPT_PAD)),
 }
-_UNPORTED_ADJOINT = ("see ROADMAP.md Queue 1, gradients through the other "
-                     "forward paths on the card")
+_UNPORTED_ADJOINT = ("see ROADMAP.md Queue 1, the adjoint of the d/dT "
+                     "outputs on the card")
 
 
 def _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t,
@@ -181,6 +183,45 @@ def rt_sweep_maxrand_radiances(taut_t, fracs_t, planklay_t, planklev_t,
     return out, rads
 
 
+def rt_sweep_g_radiances(mode, taut_t, fracs_t, planklay_t, planklev_t,
+                         surf, clouds, ngb0, wg):
+    """K1 in the banded, fused or cldf-odcld ``mode`` in float32, keeping
+    its per-g radiances: -> (fluxes (4|6, L+1, B), rads (4, L, 140, B)),
+    rads as ``rt_sweep_radiances``' compact ones (D, U and their clear
+    twins): what K6 in that mode (``rt_sweep_banded_vjp``,
+    ``rt_sweep_g_vjp``) reads.  The fluxes are bitwise those of the launch
+    without them.  ``clouds`` as ``CLOUD_INPUTS[mode]``; on a CPU tensor
+    the plain version (``rtrn.rt_sweep_banded`` or
+    ``rtrn.rt_sweep_blocked`` with ``radiances=True``).  Counted on
+    ``WRAPPERS[mode]`` and its ``.save``."""
+    x = (taut_t, fracs_t, planklay_t, planklev_t, surf)
+    if taut_t.device.type == "cpu":
+        if mode == "banded":
+            return rtrn.rt_sweep_banded(*x, *clouds, ngb0, wg,
+                                        radiances=True)
+        return rtrn.rt_sweep_blocked(*x, ngb0, wg, tuple(clouds),
+                                     radiances=True)
+    if taut_t.dtype != torch.float32:
+        raise TypeError(f"taut_t: dtype {taut_t.dtype}, K1 keeps the "
+                        "radiances in float32 storage only")
+    L, B = _check(*x, None, None, None, None, ngb0, wg)
+    _check_clouds(mode, clouds, L, B, taut_t.device)
+    rads = torch.empty((4, L, NGPT, B), dtype=torch.float32,
+                       device=taut_t.device)
+    out = _launch(mode, WRAPPERS[mode], *x, ngb0, wg, rads=rads,
+                  **_cloud_kw(mode, clouds))
+    return out, rads
+
+
+def _cloud_kw(mode, clouds):
+    """``_launch``'s keywords of the cloud inputs of ``mode``."""
+    if mode in ("banded", "maxrand"):
+        return dict(cld=clouds[0], taucb=clouds[1])
+    if mode == "cldf_od":
+        return dict(cldf=clouds[0], tauc=clouds[1])
+    return dict(zip(("cldf", "ciwp", "clwp", "tauc", "abi", "abl"), clouds))
+
+
 def _check_clouds(mode, clouds, L, B, device):
     for t, (name, n) in zip(clouds, CLOUD_INPUTS[mode], strict=True):
         _build.check(t, name, torch.float32, (L, B) if n is None
@@ -292,10 +333,10 @@ class RTSweepFn(torch.autograd.Function):
     a (4, 16, B) surf (fluxes, d/dT (2, L+1, B)): K1 in the banded,
     maxrand, fused or cldf-odcld mode, ``clouds`` as
     ``CLOUD_INPUTS[mode]``, taua_t None in float32 storage.  Backward:
-    the plain vjp on the CPU; on the card K6 in the maxrand mode (fed the
-    state K1 kept where an input needs a gradient and ``grad_enabled``,
-    ``torch.is_grad_enabled()`` at the call, holds; a cotangent of d/dT
-    raises), in the other modes it raises; in reduced storage it
+    the plain vjp on the CPU; on the card K6 in the mode, fed
+    the radiances (maxrand: the state) K1 kept where an input needs a
+    gradient and ``grad_enabled``, ``torch.is_grad_enabled()`` at the
+    call, holds; a cotangent of d/dT raises; in reduced storage it
     raises."""
 
     @staticmethod
@@ -309,21 +350,21 @@ class RTSweepFn(torch.autograd.Function):
                 ctx.save_for_backward(ngb0, wg, *x)
             return rtrn.split_ddt(rtrn.SWEEPS[mode](
                 *spec_inputs(x[0], x[1], taua_t, ngb0), *x[2:], ngb0, wg))
-        if mode == "maxrand" and keep and grad_enabled:
-            out, rads = rt_sweep_maxrand_radiances(*x, ngb0, wg)
+        if keep and grad_enabled:
+            if mode == "maxrand":
+                out, rads = rt_sweep_maxrand_radiances(*x, ngb0, wg)
+            else:
+                out, rads = rt_sweep_g_radiances(mode, *x[:5], x[5:], ngb0,
+                                                 wg)
             ctx.save_for_backward(ngb0, wg, *x, rads)
             return rtrn.split_ddt(out)
         L, B = _check(*x[:5], None, None, None, None, ngb0, wg,
                       taua_t=taua_t)
         clouds = x[5:]
         _check_clouds(mode, clouds, L, B, x[0].device)
-        kw = (dict(cld=clouds[0], taucb=clouds[1])
-              if mode in ("banded", "maxrand") else
-              dict(cldf=clouds[0], tauc=clouds[1]) if mode == "cldf_od" else
-              dict(cldf=clouds[0], ciwp=clouds[1], clwp=clouds[2],
-                   tauc=clouds[3], abi=clouds[4], abl=clouds[5]))
         return rtrn.split_ddt(_launch(mode, WRAPPERS[mode], *x[:5], ngb0, wg,
-                                      taua=taua_t, **kw))
+                                      taua=taua_t,
+                                      **_cloud_kw(mode, clouds)))
 
     @staticmethod
     def backward(ctx, ct, ct_ddt=None):
@@ -331,11 +372,6 @@ class RTSweepFn(torch.autograd.Function):
             raise NotImplementedError(GRAD_MESSAGE)
         needs = ctx.needs_input_grad[5:]
         if ctx.device_type != "cpu":
-            if ctx.mode != "maxrand":
-                raise NotImplementedError(
-                    f"gradients through the {ctx.mode} RT sweep on the "
-                    "card: its adjoint kernel is not ported yet; "
-                    + _UNPORTED_ADJOINT)
             if ct_ddt is not None:
                 raise NotImplementedError(
                     "gradients of duflx_dt / duflxc_dt (idrv=1) on the "
@@ -346,8 +382,15 @@ class RTSweepFn(torch.autograd.Function):
             ngb0, wg, *x, rads = ctx.saved_tensors
             nsurf = x[4].shape[0]
             x[4] = x[4][:3]             # the fluxes do not read row 3
-            grads = list(rt_sweep_maxrand_vjp(*x, ngb0, wg, ct.contiguous(),
-                                              needs=needs, rads=rads))
+            ct = ct.contiguous()
+            if ctx.mode == "maxrand":
+                grads = rt_sweep_maxrand_vjp(*x, ngb0, wg, ct, needs, rads)
+            elif ctx.mode == "banded":
+                grads = rt_sweep_banded_vjp(*x, ngb0, wg, ct, needs, rads)
+            else:
+                grads = rt_sweep_g_vjp(*x[:5], x[5:], ngb0, wg, ct, needs,
+                                       rads)
+            grads = list(grads)
             if grads[4] is not None and nsurf == 4:
                 grads[4] = torch.nn.functional.pad(grads[4],
                                                    (0, 0, 0, 0, 0, 1))
@@ -486,6 +529,70 @@ def rt_sweep_maxrand_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
     return tuple(g if n else None for g, n in zip(grads, needs))
 
 
+def _launch_bwd_g(mode, counters, x, clouds, ngb0, wg, ct, needs, rads):
+    """K6 in the banded, fused or cldf-odcld ``mode`` on the card
+    (csrc/rtrn_bwd_g.cu), counted on each of ``counters``: -> the
+    cotangents of (*x, *clouds), None where ``needs`` is False."""
+    L, B = _check(*x, None, None, None, None, ngb0, wg, surf_rows=(3,))
+    dev = x[0].device
+    _check_clouds(mode, clouds, L, B, dev)
+    _build.check(ct, "ct", torch.float32, (4, L + 1, B), dev)
+    if rads is None:
+        raise ValueError(f"K6 ({mode}) on the card reads the radiances K1 "
+                         "kept on the same inputs (rads, from "
+                         "rt_sweep_g_radiances): K6 runs no forward sweep")
+    _build.check(rads, "rads", torch.float32, (4, L, NGPT, B), dev)
+    grads = [torch.empty_like(t) for t in (*x, *clouds)]
+    pad = (None,) * (6 - len(clouds))
+    _build.launch("rrtm_rt_bwd_g", *x, ngb0, wg, *clouds, *pad, ct, rads,
+                  *grads, *pad, L, B, MODES[mode])
+    for c in counters:
+        c.launches += 1
+    return tuple(g if n else None for g, n in zip(grads, needs))
+
+
+def rt_sweep_banded_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
+                        cldf_t, taucb_t, ngb0, wg, ct, needs=(True,) * 7,
+                        rads=None):
+    """K6 in the banded mode (csrc/rtrn_bwd_g.cu): flux cotangents ct
+    (4, L+1, B) -> cotangents of (taut_t, fracs_t, planklay_t,
+    planklev_t, surf (3, 16, B), cldf_t (L, B), taucb_t (L, 16, B)),
+    None where ``needs`` is False.  On the card it reads ``rads``, the
+    radiances K1 kept on the same inputs (``rt_sweep_g_radiances``), and
+    raises without them; the plain vjp (CPU tensors,
+    ``rtrn.rt_sweep_banded_vjp``) does not read them."""
+    x = (taut_t, fracs_t, planklay_t, planklev_t, surf)
+    if taut_t.device.type == "cpu":
+        return rtrn.rt_sweep_banded_vjp(*x, cldf_t, taucb_t, ngb0, wg, ct,
+                                        needs)
+    return _launch_bwd_g("banded", (rt_sweep_banded_vjp,), x,
+                         (cldf_t, taucb_t), ngb0, wg, ct, needs, rads)
+
+
+def rt_sweep_g_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, fields,
+                   ngb0, wg, ct, needs=None, rads=None):
+    """K6 in the fused or cldf-odcld mode (csrc/rtrn_bwd_g.cu; the mode
+    by the number of per-g ``fields``, as ``rtrn.rt_sweep_blocked``'s):
+    flux cotangents ct (4, L+1, B) -> cotangents of (taut_t, fracs_t,
+    planklay_t, planklev_t, surf (3, 16, B), *fields), the pad rows
+    140-143 of the (L, 144, B) ones zero, None where ``needs`` (default
+    all) is False.  On the card it reads ``rads``, the radiances K1 kept
+    on the same inputs (``rt_sweep_g_radiances``), and raises without
+    them; the plain vjp (CPU tensors, ``rtrn.rt_sweep_g_vjp``) does not
+    read them.  Counted in ``.launches`` and in ``.fused.launches`` or
+    ``.cldf_od.launches``."""
+    x = (taut_t, fracs_t, planklay_t, planklev_t, surf)
+    fields = tuple(fields)
+    if needs is None:
+        needs = (True,) * (5 + len(fields))
+    if taut_t.device.type == "cpu":
+        return rtrn.rt_sweep_g_vjp(*x, fields, ngb0, wg, ct, needs)
+    mode = {6: "fused", 2: "cldf_od"}[len(fields)]
+    return _launch_bwd_g(mode, (rt_sweep_g_vjp, getattr(rt_sweep_g_vjp,
+                                                        mode)),
+                         x, fields, ngb0, wg, ct, needs, rads)
+
+
 K1_INFO = ("registers", "local_bytes", "static_smem", "dynamic_smem",
            "blocks_per_sm", "ring_levels", "threads", "columns")
 
@@ -504,7 +611,7 @@ def _launch_info(entry, *args):
 def k1_info(mode, idrv, spec_dtype=torch.float32, save=False):
     """K1's launch configuration in ``mode`` (a ``MODES`` key) at idrv
     0/1 with taut in ``spec_dtype`` (``save``: the instantiation that
-    keeps the radiances, clear, compact and maxrand in float32):
+    keeps the radiances, float32 only):
     ``K1_INFO`` -> int, from the CUDA runtime (``cudaFuncGetAttributes``,
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the card."""
     return _launch_info("rrtm_rt_info", MODES[mode], int(idrv),
@@ -523,11 +630,22 @@ def k6_mr_info():
     return _launch_info("rrtm_rt_bwd_mr_info")
 
 
+def k6_g_info(mode, nlay=60):
+    """K6's launch configuration in the banded, fused or cldf-odcld
+    ``mode`` at ``nlay`` layers (its shared memory grows with them):
+    ``K1_INFO`` -> int (no ring: 0 levels), as ``k1_info``; needs the
+    card."""
+    return _launch_info("rrtm_rt_bwd_g_info", MODES[mode], int(nlay))
+
+
 for _w in WRAPPERS.values():
     _w.launches = 0
     _w.idrv = _build.Launches()
     _w.spec = _build.Launches()
-rt_fluxes_blocked.save = _build.Launches()
-rt_fluxes_maxrand.save = _build.Launches()
+    _w.save = _build.Launches()
 rt_sweep_vjp.launches = 0
 rt_sweep_maxrand_vjp.launches = 0
+rt_sweep_banded_vjp.launches = 0
+rt_sweep_g_vjp.launches = 0
+rt_sweep_g_vjp.fused = _build.Launches()
+rt_sweep_g_vjp.cldf_od = _build.Launches()

@@ -24,9 +24,14 @@ def default_loss(fl):
     return (fl.hr ** 2).mean() + (fl.uflx[:, -1] ** 2).mean()
 
 
-# the BandClouds fields a gradient step can differentiate besides the
-# Atmosphere (the effective radii cannot: K4 has no backward)
+# BandClouds fields a gradient step differentiates besides the Atmosphere:
+# the cloud fraction and water paths, and the effective radii (through
+# K4's backward, K4b; with inflag=2)
 CLOUD_GRADS = ("cldfrac", "ciwp", "clwp")
+RADII_GRADS = ("reic", "relq")
+# the fields of McicaCloudsBlocked / McicaClouds (inflag=2 reads them all,
+# inflag=0 cldfmc and taucmc)
+MCICA_GRADS = ("cldfmc", "ciwpmc", "clwpmc", "taucmc", "reicmc", "relqmc")
 
 
 def make_grad_step(model, loss_fn=None, cloud_fields=()):
@@ -34,9 +39,11 @@ def make_grad_step(model, loss_fn=None, cloud_fields=()):
     ``loss_fn(model(atm, clouds))`` and its gradient with respect to
     every field of ``atm``, as an ``Atmosphere`` of tensors shaped like
     the fields (zeros where the loss does not depend on a field).
-    ``cloud_fields`` (names of ``clouds`` fields, e.g. ``CLOUD_GRADS`` of
-    BandClouds): the step returns ``(loss, grads, cloud_grads)``, the
-    gradients with respect to those fields in their order as well.
+    ``cloud_fields`` (names of ``clouds`` fields, e.g. ``CLOUD_GRADS`` +
+    ``RADII_GRADS`` of BandClouds, ``MCICA_GRADS`` of McicaCloudsBlocked):
+    the step returns ``(loss, grads, cloud_grads)``, the gradients with
+    respect to those fields in their order as well (zeros where the loss
+    does not depend on one).
     With ``impl="cuda"`` the backward runs the kernels' backward
     kernels; with ``impl="eager"`` plain autograd."""
     loss_fn = default_loss if loss_fn is None else loss_fn

@@ -5,8 +5,8 @@
 
 For each cell (``CELLS``, at ``NCOL`` columns: the forward step, or the
 gradient step of
-``parallel.make_grad_step`` for the ``*_grad`` cells, with BandClouds
-also with respect to the clouds' ``CLOUD_GRADS``): the median and
+``parallel.make_grad_step`` for the ``*_grad`` cells, also with respect
+to the clouds' fields ``Cell.cloud_grads``): the median and
 quartiles of 20 host-timed steps (host clock around work that ends in ``torch.cuda.synchronize``),
 then ``torch.profiler`` over 5 steps: device busy ms per step (the union
 of the CUDA kernel and memcpy/memset intervals), the idle share
@@ -34,6 +34,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..parallel.api import CLOUD_GRADS, MCICA_GRADS, RADII_GRADS
+
 NCOL = 16384            # columns of every cell
 # the aerosol of the reduced-storage cells: K1 adds it inside the kernel
 # there, after the decode (make_atmosphere's column od per band)
@@ -50,6 +52,7 @@ class Cell(NamedTuple):
     idrv: int = 0
     spec: str = ""             # RRTMG_SPEC_DTYPE of its model
     aod: float = 0.0           # aerosol od of its atmosphere
+    cloud_grads: tuple = ()    # grad cells: the cloud fields differentiated
 
     def config(self, **kw):
         """The cell's LWConfig (float32, no lookup tables)."""
@@ -101,12 +104,19 @@ CELLS = {"clear": Cell(0, 1, None, 60),
          "mcica_cloudy_deep": Cell(2, 1, "mcica", 140),
          "mcica_cloudy_grad": Cell(2, 1, "mcica", 60, True),
          "clear_grad": Cell(0, 1, None, 60, True),
-         "maxrand_cloudy_grad": Cell(2, 0, "band", 60, True)}
+         "maxrand_cloudy_grad": Cell(2, 0, "band", 60, True,
+                                     cloud_grads=CLOUD_GRADS),
+         "band_cloudy_grad": Cell(1, 0, "band", 60, True,
+                                  cloud_grads=CLOUD_GRADS + RADII_GRADS),
+         "mcica_blocked_grad": Cell(2, 1, "mcica_blocked", 60, True,
+                                    cloud_grads=MCICA_GRADS),
+         "mcica_tauc_grad": Cell(2, 1, "mcica_tauc", 60, True, inflag=0,
+                                 cloud_grads=("cldfmc", "taucmc"))}
 # fragment of the demangled symbol -> kernel (csrc/*.cu); K1's third
 # template argument and K2's only one are the storage (csrc/spec.cuh),
-# K1's fourth whether it keeps the radiances for K6 ("save": clear,
-# compact and maxrand in float32)
+# K1's fourth whether it keeps the radiances for K6 ("save", float32)
 SPEC_NAMES = ("", " bf16", " f16", " logu16")
+K6_G_MODES = {2: "banded", 4: "fused", 5: "cldf_od"}
 KERNEL_SYMBOLS = tuple(
     (f"rt_kernel<{m}, {b}, {s}, {save}>",
      f"K1 {name}{' idrv' if b == 'true' else ''}{SPEC_NAMES[s]}"
@@ -115,14 +125,17 @@ KERNEL_SYMBOLS = tuple(
                               "fused", "cldf_od"))
     for b in ("false", "true") for s in range(4)
     for save in ("false", "true")
-    if save == "false" or (m in (0, 1, 3) and s == 0)
+    if save == "false" or s == 0
 ) + tuple(
     (f"taumol_kernel<{s}>", "K2" + SPEC_NAMES[s]) for s in range(4)) + (
     ("planck_kernel", "K3"),
-    ("cldcoef_kernel", "K4"), ("overlap_kernel", "overlap"),
+    ("cldcoef_kernel", "K4"), ("cldcoef_bwd_kernel", "K4b"),
+    ("overlap_kernel", "overlap"),
     ("overlap_bwd_kernel", "overlap bwd"), ("rt_bwd_kernel", "K6"),
-    ("rt_bwd_mr_kernel", "K6 maxrand"), ("taumol_bwd_kernel", "K5"),
-    ("planck_bwd_kernel", "K3b"))
+    ("rt_bwd_mr_kernel", "K6 maxrand")) + tuple(
+    (f"rt_bwd_g_kernel<{m}>", f"K6 {name}")
+    for m, name in K6_G_MODES.items()) + (
+    ("taumol_bwd_kernel", "K5"), ("planck_bwd_kernel", "K3b"))
 
 
 def cell_inputs(cell, device, aod=None):
@@ -170,13 +183,12 @@ def _union_ms(intervals):
 
 
 def profile_cell(cell, device, steps=20, traced=5):
-    from ..parallel import CLOUD_GRADS, make_grad_step
+    from ..parallel import make_grad_step
     c = CELLS[cell]
     model = c.make_model(device)
     step = model
     if c.grad:
-        step = make_grad_step(model, cloud_fields=CLOUD_GRADS
-                              if c.clouds == "band" else ())
+        step = make_grad_step(model, cloud_fields=c.cloud_grads)
     atm, clouds = cell_inputs(cell, device)
     for _ in range(2):                                   # warm-up
         step(atm, clouds)

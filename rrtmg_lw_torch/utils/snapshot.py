@@ -24,8 +24,8 @@ idrv and storage on the same inputs, and of compact at L=140;
 ``--k2-times`` those of K2 in every storage at L=60 and L=140;
 ``--k5-times`` those of K5 at L=60 and L=140;
 ``--k6-times`` those of K6 and of the K1 launch that keeps the
-radiances K6 reads, clear, compact and (where the checkout has it)
-maxrand at L=60; ``--overlap-times`` those of the overlap-rows kernel
+radiances K6 reads, clear, compact and (where the checkout has them)
+maxrand, banded, fused and cldf-odcld at L=60; ``--overlap-times`` those of the overlap-rows kernel
 and (where the checkout has it) its adjoint.  The imports are
 absolute, so ``PYTHONPATH`` picks the checkout whose kernels run; only
 entry points that every checkout since reduced storage came in has are
@@ -531,7 +531,8 @@ def k6_times(device, reps=5) -> list:
     launches after one warm-up) of K1 without and with the radiances kept
     (the forward step's and the gradient step's launch) and of K6 fed
     them, clear and compact, on phase 3's inputs (B=16384, L=60), and
-    maxrand on the band_cloudy cell's clouds where the checkout has it.
+    where the checkout has them maxrand and banded on the band_cloudy
+    cell's clouds, fused on mcica_blocked's, cldf-odcld on mcica_tauc's.
     In a checkout whose K6 sweeps forward itself, K6 alone (k1_save_ms
     None).  -> [{mode, nlay, k1_ms, k1_save_ms, k6_ms}]."""
     from rrtmg_lw_torch.ops import rtrn, rtrn_cuda
@@ -576,6 +577,35 @@ def k6_times(device, reps=5) -> list:
             *a, ct, rads=rads), "rt_bwd_mr_kernel", reps)
         rows.append(row)
         print(row, flush=True)
+    keep_g = getattr(rtrn_cuda, "rt_sweep_g_radiances", None)
+    if keep_g is not None:
+        # banded on the band_cloudy cell's clouds, fused on
+        # mcica_blocked's, cldf-odcld on mcica_tauc's
+        for mode, (w, cl) in k1_cloud_args(device, x["static"],
+                                           x["mc"]).items():
+            if mode not in ("banded", "fused", "cldf_od"):
+                continue
+            cl = tuple(cl) if mode == "banded" else tuple(cl[0])
+            a = (*args[:4], surf)
+            row = dict(mode=mode, nlay=args[0].shape[0], k1_ms=kernel_ms(
+                lambda: rtrn_cuda.WRAPPERS[w](*args, *(
+                    cl if mode == "banded" else (cl,))), "rt_kernel", reps),
+                k1_save_ms=kernel_ms(lambda: keep_g(mode, *a, cl,
+                                                    model.ngb0, model.wg),
+                                     "rt_kernel", reps))
+            rads = keep_g(mode, *a, cl, model.ngb0, model.wg)[1]
+            if mode == "banded":
+                def run():
+                    rtrn_cuda.rt_sweep_banded_vjp(*a, *cl, model.ngb0,
+                                                  model.wg, ct, rads=rads)
+            else:
+                def run():
+                    rtrn_cuda.rt_sweep_g_vjp(*a, cl, model.ngb0, model.wg,
+                                             ct, rads=rads)
+            row["k6_ms"] = kernel_ms(run, "rt_bwd_g_kernel", reps)
+            rows.append(row)
+            print(row, flush=True)
+            del rads
     return rows
 
 

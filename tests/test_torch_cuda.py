@@ -4,13 +4,15 @@ the main-path shapes), plus the wrappers' input checks and launch
 counters: the four forward kernels (K1 in its clear, compact, banded,
 maxrand, fused and cldf-odcld modes, each at idrv 0 and 1), the
 overlap-rows kernel, and the backward kernels (K3b Planck slope, K5
-taumol, K6 RT adjoint in the clear, compact and maxrand modes, the
-overlap rows' adjoint) against the plain vjps; K6 is fed the radiances
-(maxrand: and sub-streams) of K1's gradient-step launch
-(``rt_sweep_radiances``, ``rt_sweep_maxrand_radiances``), whose fluxes
+taumol, K4b the effective radii, K6 RT adjoint in the clear, compact,
+maxrand, banded, fused and cldf-odcld modes, the overlap rows' adjoint)
+against the plain vjps; K6 is fed the radiances (maxrand: and
+sub-streams) of K1's gradient-step launch (``rt_sweep_radiances``,
+``rt_sweep_maxrand_radiances``, ``rt_sweep_g_radiances``), whose fluxes
 are bitwise those of K1's launch without them and whose state is within
-1e-5 of max |plain|; the maxrand gradient step (clouds included)
-against eager.
+1e-5 of max |plain|; the maxrand, banded, fused and cldf-odcld gradient
+steps (clouds and radii included) against eager; a d/dT cotangent
+raising.
 
 Marked ``cuda``: every test skips without a CUDA device.  This file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
@@ -26,7 +28,8 @@ math summed in another order): 1e-4 of max |plain| per output (K3b,
 K5, the overlap adjoint), 1e-3 (K6, a recurrence over the levels); the
 model's gradients 2e-2 of max |eager| per Atmosphere field (the gate the
 JAX package holds its kernel backward to, tests/test_taumol_bwd.py:101),
-the maxrand step's 1e-4 (a loss linear in the fluxes, as chip_smoke.py).
+the steps with clouds 1e-4 (a loss linear in the fluxes, as
+chip_smoke.py).
 
 Reduced spectral storage (RRTMG_SPEC_DTYPE, K7): K2 in bf16 / f16 equal
 to the plain encode of its own float32 output, logu16 codes at most one
@@ -436,17 +439,64 @@ def test_rt_save_launches_once_per_grad_step(dev):
             assert info["local_bytes"] == 0, (mode, idrv, info)
             assert info["blocks_per_sm"] >= 2, (mode, idrv, info)
     with pytest.raises(RuntimeError):
-        k1_info("banded", 0, save=True)
+        k1_info("banded", 0, torch.bfloat16, save=True)
 
 
-def test_cldcoef_guard_raises_when_radii_require_grad(dev):
-    model = _model(dev)
-    reic = torch.full((4, 3), 30.0, device=dev, requires_grad=True)
-    relq = torch.full((4, 3), 10.0, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ice_liq_coeffs_blocked(reic, relq, 3, 1, model.static_tensors())
+def _radii(dev, B, L, seed):
+    """Effective radii (B, L) below, inside, exactly on the grid points of
+    and above the ice (reic = 2 + 3k) and liquid (relq = 1.5 + k)
+    tables."""
+    rng = np.random.default_rng(seed)
+    u = rng.random((B, L))
+    k = rng.integers(0, 60, (B, L))
+    reic = np.where(u < 0.5, 160.0 * u, 2.0 + 3.0 * k)
+    relq = np.where(u < 0.5, 140.0 * u, 1.5 + k)
+    return (torch.as_tensor(reic, dtype=torch.float32, device=dev),
+            torch.as_tensor(relq, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("B,L,iceflag", [(37, 5, 3), (300, 3, 2),
+                                         (1, 1, 3)])
+def test_cldcoef_bwd_kernel_matches_plain_vjp(dev, B, L, iceflag):
+    """K4b against the plain vjp of cldprop.ice_liq_coeffs_blocked within
+    1e-4 of max |plain| (a 16-term sum in another order), on radii off,
+    on and past the tables' grid; bitwise over two runs; counted."""
+    from rrtmg_lw_torch.ops._autograd import plain_vjp
+    from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_vjp
+    static = _model(dev).static_tensors()
+    reic, relq = _radii(dev, B, L, B + L)
+    cts = (_randn((L, 16, B), dev, 1), _randn((L, 16, B), dev, 2))
+    before = ice_liq_coeffs_vjp.launches
+    got = ice_liq_coeffs_vjp(reic, relq, iceflag, 1, static, *cts)
+    assert ice_liq_coeffs_vjp.launches == before + 1
+    ref = plain_vjp(lambda r, q: cldprop.ice_liq_coeffs_blocked(
+        r, q, iceflag, 1, static), (reic, relq), (True, True), cts)
+    for g, r in zip(got, ref):
+        assert g.shape == (B, L) and torch.isfinite(g).all()
+        assert rel_err(g, r) <= 1e-4
+    again = ice_liq_coeffs_vjp(reic, relq, iceflag, 1, static, *cts)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_cldcoef_backward_runs_when_radii_require_grad(dev):
+    """The radii's gradient through K4 runs K4b (no raise), and equals the
+    plain vjp's; under torch.no_grad K4 alone runs."""
+    from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_vjp
+    static = _model(dev).static_tensors()
+    reic, relq = _radii(dev, 4, 3, 0)
+    reic.requires_grad_()
+    relq.requires_grad_()
+    abi, abl = ice_liq_coeffs_blocked(reic, relq, 3, 1, static)
+    ct = (_randn(abi.shape, dev, 3), _randn(abl.shape, dev, 4))
+    before = ice_liq_coeffs_vjp.launches
+    got = torch.autograd.grad((abi, abl), (reic, relq), ct)
+    assert ice_liq_coeffs_vjp.launches == before + 1
+    ref = torch.autograd.grad(cldprop.ice_liq_coeffs_blocked(
+        reic, relq, 3, 1, static), (reic, relq), ct)
+    assert all(rel_err(g, r) <= 1e-4 for g, r in zip(got, ref))
     with torch.no_grad():
-        ice_liq_coeffs_blocked(reic, relq, 3, 1, model.static_tensors())
+        ice_liq_coeffs_blocked(reic, relq, 3, 1, static)
+    assert ice_liq_coeffs_vjp.launches == before + 1
 
 
 @pytest.mark.parametrize("icld", [0, 2])
@@ -547,17 +597,199 @@ def test_model_band_clouds_cuda_matches_eager(dev, icld):
     assert not torch.allclose(fk.uflx, fk.uflxc)
 
 
-@pytest.mark.parametrize("icld", [1])
-def test_band_clouds_backward_raises_on_card(dev, icld):
-    """The banded adjoint is not ported: on the card its backward raises
-    instead of dropping the gradient (maxrand, icld 2/3, runs:
-    test_maxrand_grad_step_runs_on_card)."""
-    atm, _, _ = _case(dev, 40, 10)
-    bc = _band_clouds(dev, 40, 10, "decks")
-    model = make_model(LWConfig(icld=icld, imca=0, dtype="float32",
-                                use_lut=False), device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_grad_step(model)(atm, bc)
+G_MODES = ("banded", "fused", "cldf_od")
+
+
+def _g_clouds(dev, B, L, pattern, static):
+    """Each random-overlap mode's cloud inputs (``CLOUD_INPUTS`` order)
+    on ``pattern``: banded on _band_clouds'; fused and cldf-odcld on
+    make_mcica_clouds' per-g arrays with the cloud fraction "decks" (the
+    generator's), "clear", "overcast" (1 everywhere) or "mixed" (a third
+    each 0, in (0, 0.5) and in [0.5, 1)); water where cloudy, some
+    cloudy g-points with no ice, and some with no water and an input
+    cloud od (fused: where cldprmc takes taucmc)."""
+    bc = _band_clouds(dev, B, L, pattern)
+    taucb, _ = cldprop.cldprop_banded_blocked(bc, static, inflag=2,
+                                              iceflag=3, liqflag=1)
+    n = make_mcica_clouds(B, L, seed=L, layout="blocked")
+    rng = np.random.default_rng(B + L + 1)
+    cf = n.cldfmc
+    if pattern == "clear":
+        cf = np.zeros_like(cf)
+    elif pattern == "overcast":
+        cf = np.ones_like(cf)
+    elif pattern == "mixed":
+        u = rng.random(cf.shape)
+        cf = np.where(u < 1 / 3, 0.0, np.where(
+            u < 2 / 3, 0.01 + 0.48 * rng.random(cf.shape),
+            0.5 + 0.5 * rng.random(cf.shape)))
+    cf[:, 140:] = 0.0
+    u = rng.random(cf.shape)
+    ci = np.where((cf > 0) & (u > 0.2), 5.0 * rng.random(cf.shape), 0.0)
+    cl = np.where((cf > 0) & (u > 0.1), 20.0 + 20.0 * rng.random(cf.shape),
+                  0.0)
+    tc = np.where(u > 0.1, cf * (0.05 * ci + 0.1 * cl), 0.3 * cf)
+    radii = _radii("cpu", B, L, L)
+    blk = McicaCloudsBlocked.from_numpy(n._replace(
+        cldfmc=cf, ciwpmc=ci, clwpmc=cl, taucmc=tc, reicmc=radii[0].numpy(),
+        relqmc=radii[1].numpy()), dev, torch.float32)
+    abi, abl = cldprop.ice_liq_coeffs_blocked(blk.reicmc, blk.relqmc, 3, 1,
+                                              static)
+    return {"banded": (bc.cldfrac.t().contiguous(), taucb),
+            "fused": (*blk[:4], abi, abl),
+            "cldf_od": (blk.cldfmc, blk.taucmc)}, blk
+
+
+def _g_case(dev, args, mode, clouds, seed=3):
+    """K1 keeping the radiances in ``mode`` and K6 in that mode fed them,
+    on the sweep inputs ``args`` and the mode's ``clouds``: K1's fluxes
+    bitwise those of its launch without the radiances, the radiances
+    within 1e-5 of max |plain|; K6 within 1e-3 of max |plain vjp| per
+    output, its pad rows zero, bitwise over two runs; K6 without the
+    radiances raises."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import (rt_sweep_banded_vjp,
+                                              rt_sweep_g_radiances,
+                                              rt_sweep_g_vjp)
+    taut, fr, play, plev, plankbnd, semiss, pwvcm, ngb0, wg = args
+    L, _, B = taut.shape
+    x = (taut, fr, play, plev, rtrn.surf_rows(plankbnd, semiss, pwvcm,
+                                               torch.float32))
+    fl, rads = rt_sweep_g_radiances(mode, *x, clouds, ngb0, wg)
+    assert rads.shape == (4, L, 140, B)
+    fields = clouds if mode == "banded" else (clouds,)
+    assert torch.equal(fl, WRAPPERS[mode](*args, *fields))
+    if mode == "banded":
+        _, rads_p = rtrn.rt_sweep_banded(*x, *clouds, ngb0, wg,
+                                         radiances=True)
+    else:
+        _, rads_p = rtrn.rt_sweep_blocked(*x, ngb0, wg, clouds,
+                                          radiances=True)
+    assert rel_err(rads, rads_p) <= 1e-5
+    ct = _randn((4, L + 1, B), dev, seed)
+
+    def k6(**kw):
+        if mode == "banded":
+            return rt_sweep_banded_vjp(*x, *clouds, ngb0, wg, ct, **kw)
+        return rt_sweep_g_vjp(*x, clouds, ngb0, wg, ct, **kw)
+    with pytest.raises(ValueError, match="radiances"):
+        k6()
+    got = k6(rads=rads)
+    ref = (rtrn.rt_sweep_banded_vjp(*x, *clouds, ngb0, wg, ct)
+           if mode == "banded" else
+           rtrn.rt_sweep_g_vjp(*x, clouds, ngb0, wg, ct))
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == r.shape and torch.isfinite(g).all(), (mode, i)
+        assert rel_err(g, r) <= 1e-3, (mode, i)
+        if g.dim() == 3 and g.shape[1] == 144:
+            assert not bool(g[:, 140:].any()), (mode, i)
+    assert all(torch.equal(g, h) for g, h in zip(got, k6(rads=rads)))
+
+
+@pytest.mark.parametrize("B,L,pattern", [(37, 13, "decks"), (5, 1, "mixed"),
+                                         (33, 7, "clear"), (40, 140, "mixed"),
+                                         (16, 9, "overcast")])
+def test_rt_g_adjoint_matches_plain_vjp(dev, B, L, pattern):
+    """``_g_case`` in the banded, fused and cldf-odcld modes: B off and on
+    K6's 32-column tile, one layer, all clear, past K1's ring."""
+    args, _, _ = _sweep_inputs(dev, B, L)
+    clouds, _ = _g_clouds(dev, B, L, pattern, _model(dev).static_tensors())
+    for mode in G_MODES:
+        _g_case(dev, args, mode, clouds[mode], seed=B + L)
+
+
+@pytest.mark.parametrize("B,L", [(15, 5), (33, 9), (100, 140), (32, 60)])
+def test_rt_g_adjoint_on_k1_edge_cases(dev, B, L):
+    """``_g_case`` on ``utils.snapshot.k1_edge_args`` (clear, overcast
+    and top-and-bottom columns across the tiles, per-g cloud fractions in
+    (0, 0.5), od exactly 0.06 and 0)."""
+    from rrtmg_lw_torch.utils.snapshot import k1_edge_args
+    args, _, _ = _sweep_inputs(dev, B, L)
+    args, modes, _ = k1_edge_args(dev, _model(dev).static_tensors(), args)
+    for mode in G_MODES:
+        cl = modes[mode][1]
+        _g_case(dev, args, mode, tuple(cl) if mode == "banded"
+                else tuple(cl[0]), seed=B + L)
+
+
+def test_rt_g_adjoint_launch_configuration(dev):
+    """K1 keeping the radiances in every mode fits two blocks per SM with
+    no local memory; K6 banded, fused and cldf-odcld: 256-thread blocks
+    of 32 columns, two a SM at L = 60 and 140, no local memory."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import MODES, k1_info, k6_g_info
+    for mode in MODES:
+        for idrv in (0, 1):
+            info = k1_info(mode, idrv, save=True)
+            assert info["local_bytes"] == 0, (mode, idrv, info)
+            assert info["blocks_per_sm"] >= 2, (mode, idrv, info)
+    for mode in G_MODES:
+        for nlay in (60, 140):
+            info = k6_g_info(mode, nlay)
+            assert info["threads"] == 256 and info["columns"] == 32, info
+            assert info["blocks_per_sm"] >= 2, (mode, nlay, info)
+            assert info["local_bytes"] == 0, (mode, info)
+
+
+G_STEPS = {"banded": (dict(icld=1, imca=0), "band"),
+           "fused": (dict(icld=2, imca=1, inflag=2), "blk"),
+           "cldf_od": (dict(icld=2, imca=1, inflag=0), "blk")}
+
+
+@pytest.mark.parametrize("mode,pattern", [("banded", "decks"),
+                                          ("banded", "mixed"),
+                                          ("fused", "mixed"),
+                                          ("cldf_od", "decks")])
+def test_random_overlap_grad_steps_run_on_card(dev, mode, pattern):
+    """The banded (icld=1), fused (McICA per-g, inflag=2) and cldf-odcld
+    (inflag=0) gradient steps on the card, w.r.t. every Atmosphere field
+    and the clouds (banded: cldfrac, water paths and the effective radii
+    through K4b; fused: every McicaCloudsBlocked field; cldf-odcld:
+    cldfmc and taucmc): K1 keeping the radiances and K6 in the mode once
+    a step (K4b where K4 runs), and a loss linear in the fluxes whose
+    gradients are within 1e-4 of max |eager| (f32 against f32 through
+    another order of sums), the cloud fraction's nonzero."""
+    from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_vjp
+    from rrtmg_lw_torch.ops.rtrn_cuda import (rt_sweep_banded_vjp,
+                                              rt_sweep_g_vjp)
+    from rrtmg_lw_torch.parallel import (CLOUD_GRADS, MCICA_GRADS,
+                                         RADII_GRADS)
+    B, L = 40, 10
+    atm, _, _ = _case(dev, B, L)
+    cfg, kind = G_STEPS[mode]
+    static = _model(dev).static_tensors()
+    _, blk = _g_clouds(dev, B, L, pattern, static)
+    if kind == "band":
+        bc = _band_clouds(dev, B, L, pattern)
+        radii = _radii(dev, B, L, 5)
+        cl = bc._replace(reic=10.0 + radii[0] / 2, relq=3.0 + radii[1] / 4)
+        fields = CLOUD_GRADS + RADII_GRADS
+    else:
+        cl = blk
+        fields = MCICA_GRADS if mode == "fused" else ("cldfmc", "taucmc")
+    cts = [_randn((B, L + 1), dev, i) for i in range(4)]
+
+    def loss(fl):
+        return sum((c * x).sum() for c, x in zip(
+            cts, (fl.uflx, fl.dflx, fl.uflxc, fl.dflxc)))
+
+    k6 = rt_sweep_banded_vjp if mode == "banded" else getattr(
+        rt_sweep_g_vjp, mode)
+    counters = (WRAPPERS[mode].save, k6, ice_liq_coeffs_vjp)
+    out = {}
+    for impl in ("cuda", "eager"):
+        model = make_model(LWConfig(dtype="float32", use_lut=False,
+                                    impl=impl, **cfg), device=dev)
+        before = [w.launches for w in counters]
+        out[impl] = make_grad_step(model, loss, fields)(atm, cl)
+        launched = [w.launches - b for w, b in zip(counters, before)]
+        want = [1, 1, int(mode != "cldf_od")] if impl == "cuda" else [0] * 3
+        assert launched == want, (impl, launched)
+    (_, gk, ck), (_, ge, ce) = out["cuda"], out["eager"]
+    for name in Atmosphere._fields:
+        assert rel_err(getattr(gk, name), getattr(ge, name)) <= 1e-4, name
+    for name, a, b in zip(fields, ck, ce):
+        assert torch.isfinite(a).all() and rel_err(a, b) <= 1e-4, name
+        assert bool(a.any()) == bool(b.any()), name
+    assert bool(ck[0].any())
 
 
 @pytest.mark.parametrize("icld,pattern", [(2, "decks"), (2, "mixed"),
@@ -867,9 +1099,9 @@ def test_model_per_g_and_idrv_cuda_matches_eager(dev, icld, inflag, layout):
 
 
 def test_unported_adjoints_raise_on_card(dev):
-    """No gradient is dropped: a cotangent of duflx_dt, and a backward
-    through the fused or cldf-odcld mode, raise; the default loss at
-    idrv=1 runs and equals idrv=0's step."""
+    """No gradient is dropped: a cotangent of duflx_dt raises (McICA
+    compact, fused and cldf-odcld); the default loss at idrv=1 runs and
+    equals idrv=0's step."""
     atm, clouds, _ = _case(dev, 40, 10)
     cfg = dict(icld=2, imca=1, dtype="float32", use_lut=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -889,9 +1121,10 @@ def test_unported_adjoints_raise_on_card(dev):
     blk = McicaCloudsBlocked.from_numpy(
         make_mcica_clouds(40, 10, layout="blocked"), dev, torch.float32)
     for inflag in (0, 2):
-        model = make_model(LWConfig(inflag=inflag, **cfg), device=dev)
+        model = make_model(LWConfig(inflag=inflag, idrv=1, **cfg),
+                           device=dev)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_grad_step(model)(atm, blk)
+            make_grad_step(model, lambda f: f.duflx_dt.sum())(atm, blk)
 
 
 # ---- reduced spectral storage (K7) and the probes ----

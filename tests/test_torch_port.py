@@ -812,11 +812,16 @@ def test_cuda_wrappers_plain_route_in_storage(monkeypatch, spec):
 
 
 def test_maxrand_adjoint_band_pairs_cover_every_band():
-    """K6 maxrand's g-lanes (csrc/rtrn_bwd_mr.cu PAIR, two bands each,
-    so that a band's sums stay in one thread) cover the 16 bands once,
-    each lane 16-20 g-points of the 140."""
-    mr = open(os.path.join(REPO, "rrtmg_lw_torch", "csrc",
-                           "rtrn_bwd_mr.cu")).read()
+    """The g-lanes of K6 maxrand and of K6 in the banded, fused and
+    cldf-odcld modes (csrc/band_lanes.cuh PAIR, which rtrn_bwd_mr.cu and
+    rtrn_bwd_g.cu include; two bands each, so that a band's sums stay in
+    one thread) cover the 16 bands once, each lane 16-20 g-points of the
+    140."""
+    csrc = os.path.join(REPO, "rrtmg_lw_torch", "csrc")
+    for name in ("rtrn_bwd_mr.cu", "rtrn_bwd_g.cu"):
+        assert '#include "band_lanes.cuh"' in open(
+            os.path.join(csrc, name)).read(), name
+    mr = open(os.path.join(csrc, "band_lanes.cuh")).read()
     my = int(re.search(r"\nconstexpr int MY = (\d+);", mr).group(1))
     pairs = [tuple(int(x) for x in p) for p in re.findall(
         r"\{(\d+), +(\d+)\}", re.search(r"PAIR\[MY\]\[2\] = \{(.*?)\};",
@@ -901,3 +906,106 @@ def test_maxrand_grad_wrappers_send_cpu_tensors_to_plain_versions(
     ref, = torch.autograd.grad(rtrnmr.overlap_rows(x), x, ctr)
     assert torch.equal(got, ref)
     assert [w.launches for w in counters] == before
+
+
+def test_random_overlap_grad_wrappers_send_cpu_tensors_to_plain_versions(
+        monkeypatch):
+    """On CPU tensors K1 keeping the radiances in the banded, fused and
+    cldf-odcld modes, K6 in those modes and K4b run their plain versions
+    (the plain sweeps with radiances=True, the plain vjps), never the
+    kernel library, and count no launch; the per-g cotangents' pad rows
+    are zero."""
+    from rrtmg_lw_torch import BandClouds, McicaCloudsBlocked
+    from rrtmg_lw_torch.ops import cldcoef_cuda, cldprop, rtrn, rtrn_cuda
+    from rrtmg_lw_torch.ops import setcoef
+    from rrtmg_lw_torch.ops._autograd import plain_vjp
+    from rrtmg_lw_torch.ops.inatm import inatm
+    from rrtmg_lw_torch import Atmosphere
+
+    def no_kernels(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA kernel library")
+    monkeypatch.setattr(_build, "library", no_kernels)
+    monkeypatch.setattr(_build, "launch", no_kernels)
+    counters = (*(rtrn_cuda.WRAPPERS[m].save
+                  for m in ("banded", "fused", "cldf_od")),
+                rtrn_cuda.rt_sweep_banded_vjp, rtrn_cuda.rt_sweep_g_vjp,
+                rtrn_cuda.rt_sweep_g_vjp.fused,
+                rtrn_cuda.rt_sweep_g_vjp.cldf_od,
+                cldcoef_cuda.ice_liq_coeffs_vjp)
+    before = [w.launches for w in counters]
+
+    B, L = 5, 9
+    model = make_model(LWConfig(icld=1, imca=0, use_lut=False), device="cpu")
+    static = model.static_tensors()
+    prof = inatm(Atmosphere.from_numpy(tsyn.make_atmosphere(B, L), "cpu"))
+    sc = setcoef.setcoef(prof, static, planck=False)
+    tg, fr = model.engine.blocked(sc, prof)
+    play, plev = (setcoef.interp_planck_blocked(t.t().contiguous(),
+                                                model.totplnk)
+                  for t in (prof.tavel, prof.tz))
+    surf = rtrn.surf_rows(sc.plankbnd, prof.semiss, prof.pwvcm, tg.dtype)
+    x = (tg, fr, play, plev, surf)
+    bc = BandClouds.from_numpy(tsyn.make_band_clouds(B, L), "cpu")
+    taucb, _ = cldprop.cldprop_banded_blocked(bc, static, inflag=2,
+                                              iceflag=3, liqflag=1)
+    blk = McicaCloudsBlocked.from_numpy(
+        tsyn.make_mcica_clouds(B, L, layout="blocked"), "cpu")
+    abi, abl = cldprop.ice_liq_coeffs_blocked(blk.reicmc, blk.relqmc, 3, 1,
+                                              static)
+    tauc, cldf, _ = cldprop.cldprmc_blocked(blk, static, inflag=2,
+                                            iceflag=3, liqflag=1)
+    clouds = {"banded": (bc.cldfrac.t().contiguous(), taucb),
+              "fused": (*blk[:4], abi, abl), "cldf_od": (cldf, tauc)}
+    ngb0, wg = model.ngb0, model.wg
+    ct = torch.randn((4, L + 1, B), generator=torch.Generator().manual_seed(4),
+                     dtype=tg.dtype)
+    for mode, cl in clouds.items():
+        fl, rads = rtrn_cuda.rt_sweep_g_radiances(mode, *x, cl, ngb0, wg)
+        if mode == "banded":
+            ref = rtrn.rt_sweep_banded(*x, *cl, ngb0, wg, radiances=True)
+            got = rtrn_cuda.rt_sweep_banded_vjp(*x, *cl, ngb0, wg, ct)
+            want = plain_vjp(lambda *a: rtrn.rt_sweep_banded(*a, ngb0, wg),
+                             (*x, *cl), (True,) * 7, (ct,))
+        else:
+            ref = rtrn.rt_sweep_blocked(*x, ngb0, wg, cl, radiances=True)
+            got = rtrn_cuda.rt_sweep_g_vjp(*x, cl, ngb0, wg, ct)
+            want = plain_vjp(lambda *a: rtrn.rt_sweep_blocked(
+                *a[:5], ngb0, wg, a[5:]), (*x, *cl), (True,) * (5 + len(cl)),
+                (ct,))
+            assert not any(bool(g[:, 140:].any()) for g in got[5:]
+                           if g.shape[1] == 144)
+        assert torch.equal(fl, ref[0]) and torch.equal(rads, ref[1])
+        assert rads.shape == (4, L, 140, B)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), mode
+        assert bool(got[5].any()), mode
+    cts = [torch.randn((L, 16, B), generator=torch.Generator().manual_seed(i),
+                       dtype=tg.dtype) for i in (5, 6)]
+    got = cldcoef_cuda.ice_liq_coeffs_vjp(blk.reicmc, blk.relqmc, 3, 1,
+                                          static, *cts)
+    want = plain_vjp(lambda r, q: cldprop.ice_liq_coeffs_blocked(
+        r, q, 3, 1, static), (blk.reicmc, blk.relqmc), (True, True), cts)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(
+        got, cldprop.ice_liq_coeffs_vjp(blk.reicmc, blk.relqmc, 3, 1,
+                                        static, *cts)))
+    assert [w.launches for w in counters] == before
+
+
+def test_random_overlap_adjoint_fits_the_card():
+    """K6 banded / fused / cldf-odcld (csrc/rtrn_bwd_g.cu): its shared
+    memory, the two carries of every (g, column), the lanes' partials,
+    the g tables and the cloudy-layer flags (L bytes a column), fits two
+    blocks per SM up to L = 140 and more."""
+    src = open(os.path.join(REPO, "rrtmg_lw_torch", "csrc",
+                            "rtrn_bwd_g.cu")).read()
+    assert "__launch_bounds__(MT, G_BLOCKS_PER_SM)" in src
+    assert re.search(r"constexpr int G_BLOCKS_PER_SM = 2;", src)
+    kg, mx, my, knb = 140, 32, 8, 16
+
+    def align16(v):
+        return (v + 15) & ~15
+    fixed = align16(2 * kg * mx * 4 + 2 * my * mx * 4 + 2 * kg * 4
+                    + (knb + 1) * 4)
+    smem_sm, reserved = 233472, 1024
+    for nlay in (60, 140, 1000):
+        assert 2 * (fixed + align16(nlay * mx) + reserved) <= smem_sm, nlay
