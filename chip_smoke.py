@@ -20,7 +20,9 @@ Phases, each raising on failure (any failure exits non-zero):
      not spill and must fit its MIN_BLOCKS launch bound); the overlap
      rows', their adjoint's, K6 maxrand's, K6's in the banded, fused and
      cldf-odcld modes and K4b's registers and spill stores (none may
-     spill; each K6 fits two blocks per SM);
+     spill; each K6 fits two blocks per SM; K6 banded, fused and
+     cldf-odcld at L=60 and L=140, with no local memory, their tile,
+     ring and staging printed);
   3. each kernel against its plain PyTorch version on the card at the
      main-path shapes (B=16384 columns, L=60 layers, float32), with the
      max error and CUDA-event times of both and the bound of each (the
@@ -145,7 +147,9 @@ keeps them and K6 reads them (cloudy layers without a restart), those
 of K1 SAVE and K6 fused and cldf-odcld the per-g water paths and cloud
 od only where the g-point's gate holds (the only places they are read),
 and the plain_ms of K6 in those four modes is the plain vjp's on
-plain_ncol columns; the
+plain_ncol columns; K6 banded, fused and cldf-odcld's entries also carry
+bytes_moved and gbps_moved (every access the kernel makes,
+``k6g_traffic``), their tile, ring slots and staging; the
 overlap kernels are timed on rotating copies of their inputs (L2 cold,
 ``utils.snapshot.rotating``).
 K5's, K6's and K1 SAVE's device_ms (every mode) come from
@@ -812,17 +816,26 @@ def new_build_info(log_path):
     infos = {"rt_adjoint_maxrand": k6_mr_info()}
     infos.update({f"rt_adjoint_{m}": k6_g_info(m, L_MAIN)
                   for m in ("banded", "fused", "cldf_od")})
+    deep = {f"rt_adjoint_{m}": k6_g_info(m, L_DEEP)
+            for m in ("banded", "fused", "cldf_od")}
     for name, info in infos.items():
         need(info["registers"] == out[name]["registers"],
              f"{name}: registers at run time differ from ptxas'")
         out[name].update(smem_bytes=info["static_smem"]
                          + info["dynamic_smem"],
                          blocks_per_sm=info["blocks_per_sm"])
+    for name, info in deep.items():
+        # K6-g: its tile and ring at L_DEEP
+        out[name].update(threads=info["threads"], columns=info["columns"],
+                         ring_slots=info["ring_levels"],
+                         smem_bytes_deep=info["static_smem"]
+                         + info["dynamic_smem"],
+                         blocks_per_sm_deep=info["blocks_per_sm"])
     need(all(r["spill_bytes"] == 0 for r in out.values())
          and all(i["blocks_per_sm"] >= 2 and i["local_bytes"] == 0
-                 for i in infos.values()),
+                 for i in (*infos.values(), *deep.values())),
          f"new kernels: spill stores, local memory or a K6 of fewer than "
-         f"two blocks per SM: {out}")
+         f"two blocks per SM (at L={L_MAIN} or {L_DEEP}): {out}")
     return out
 
 
@@ -1509,6 +1522,67 @@ def maxrand_grad_kernels(device, model, args, surf, randn):
     return res
 
 
+def k6g_staging(mode):
+    """How K6 in ``mode`` staged its rows at its last launch, as the
+    library reports it (``rtrn_cuda.k6_g_info``): the bulk tensor copies
+    where every row is 16-byte aligned, element by element elsewhere."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import k6_g_info
+    info = k6_g_info(mode, L_MAIN)
+    return {"tma": "bulk tensor copies (TMA: 2D tensor maps, boxes of "
+                   f"{info['columns']} columns x {info['box_rows']} rows)",
+            "elements": "element by element (cp.async)"}.get(
+                info["staging"], "no launch")
+
+
+def k6g_traffic(mode, x, cl, cloudy):
+    """The bytes K6 in ``mode`` moves on the sweep inputs ``x`` (taut_t,
+    fracs_t, planklay_t, planklev_t, surf) and clouds ``cl``, each access
+    counted as the kernel makes it: taut and fracs read in both sweeps;
+    the radiance entering each layer and its clear twin; ct_taut and
+    ct_fracs written, read back and written again (the per-g reads in
+    8-row boxes: 144 rows a layer for the groups' 140); the Planck rows
+    and their cotangents' partials in 8-band boxes a group, the
+    cotangents written twice; the flux rows, read by each group; the
+    cloud rows where a column of the 32-column tile is cloudy (``cloudy``
+    (L, B) bool), in both sweeps; banded: cldfrac read by each group for
+    the flags, its cotangent written by group 0 and read and written by
+    the others, each adding its share; the
+    per-g modes: cldf read once for the flags, their cloud cotangents
+    written in the up sweep (the zeros too) and read and written again in
+    the down sweep's cloudy columns."""
+    from rrtmg_lw_torch.data.ktables import load_static
+    from rrtmg_lw_torch.ops.rtrn_cuda import k6_g_info
+    L, _, B = x[0].shape
+    info = k6_g_info(mode, L)   # the tile, band groups and box of the build
+    first, hbox, cols = info["groups"], info["box_rows"], info["columns"]
+    f4, ngrp = 4, len(first) - 1
+    ng = np.bincount(np.asarray(load_static()["ngb"]) - 1, minlength=16)
+    rows = sum(-(-int(ng[a:b].sum()) // hbox) * hbox
+               for a, b in zip(first, first[1:]))
+    box = ngrp * hbox                     # band rows a group reads
+    a = L * 140 * B * f4                  # a per-g array
+    ar = a * rows / 140                   # the same, read in boxes
+    band = L * 16 * B * f4
+    bandr = band * box / 16
+    n = 4 * ar + (4 * L - 2) * rows * B * f4 + 2 * ar + 4 * a
+    n += 2 * bandr + bandr * 2 + 4 * band + 2 * 2 * L * ngrp * B * f4
+    pad = (-B) % cols
+    tiles = torch.nn.functional.pad(cloudy, (0, pad)).reshape(
+        L, -1, cols).any(-1)
+    tc = int(tiles.sum()) * cols          # columns of cloudy tiles
+    ncly = int(cloudy.sum())
+    if mode == "banded":
+        n += ngrp * L * B * f4 + 2 * tc * (1 + box) * f4
+        n += band + 2 * tc * box * f4 + (2 * ngrp - 1) * L * B * f4
+    else:
+        ncg = 4 if mode == "fused" else 2
+        n += L * 144 * B * f4 + 2 * tc * ncg * rows * f4
+        n += ncg * L * 144 * B * f4 + 2 * ncly * ncg * 140 * f4
+        if mode == "fused":
+            n += 2 * 2 * tc * box * f4 + 2 * band + 2 * 2 * tc * box * f4
+    return n
+
+
 # the random-overlap gradients' modes and the cells whose clouds each
 # runs on
 G_MODES = {"banded": "band_cloudy", "fused": "mcica_blocked",
@@ -1642,6 +1716,8 @@ def g_grad_kernels(device, model, args, surf, randn):
                 plain_ncol=B_SUB,
                 **bound((*x, *read, ngb0, wg, ct, rads), got,
                         OPS["rt_adjoint"] * x[0].numel(), nbytes=gated))
+            res[f"rt_adjoint_{mode}"]["bytes_moved"] = k6g_traffic(
+                mode, x, cl, cloudy)
             print(f"rt_adjoint_{mode}: {ncld} cloudy (layer, column), "
                   f"{ngate} gated (layer, g, column)")
         del rads, got, ref, xs
@@ -1721,12 +1797,18 @@ def grad_device_times():
     print(res.stdout, end="")
     need(res.returncode == 0 and out5.exists() and out6.exists(),
          f"snapshot.py --k5-times --k6-times failed:\n{res.stderr[-3000:]}")
-    rows = {r["mode"]: r for r in json.loads(out6.read_text())}
+    all_rows = json.loads(out6.read_text())
+    rows = {r["mode"]: r for r in all_rows if r["nlay"] == L_MAIN}
+    deep = {r["mode"]: r for r in all_rows if r["nlay"] == L_DEEP}
     k5 = {r["nlay"]: r["device_ms"] for r in json.loads(out5.read_text())}
     print("device ms, K1 keeping the radiances (without), K6: " + "; ".join(
         f"{m} {r['k1_save_ms']:.3f} ({r['k1_ms']:.3f}), {r['k6_ms']:.3f}"
         for m, r in rows.items() if m != "clear")
           + f"; K5 {k5[L_MAIN]:.3f} (L={L_DEEP}: {k5[L_DEEP]:.3f})")
+    print(f"device ms at L={L_DEEP}, K1 keeping the radiances (without), "
+          "K6: " + "; ".join(
+              f"{m} {r['k1_save_ms']:.3f} ({r['k1_ms']:.3f}), "
+              f"{r['k6_ms']:.3f}" for m, r in deep.items()))
     out = {"rt_sweep_save": rows["compact"]["k1_save_ms"],
            "rt_adjoint": rows["compact"]["k6_ms"], "taumol_bwd": k5[L_MAIN]}
     for m in ("maxrand", *G_MODES):
@@ -2561,6 +2643,19 @@ def main() -> int:
         print(f"{name}: device {r['device_ms']:.4f} ms, {r['gbps']:.0f} GB/s "
               f"of its bytes read once, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
+        if "bytes_moved" in r:
+            r["gbps_moved"] = r["bytes_moved"] / (r["device_ms"] * 1e-3) / 1e9
+            r["staging"] = k6g_staging(name.removeprefix("rt_adjoint_"))
+            print(f"{name}: {r['gbps_moved']:.0f} GB/s of the "
+                  f"{r['bytes_moved'] / 1e9:.2f} GB it moves; tile "
+                  f"{r['columns']} columns x {r['threads'] // r['columns']} "
+                  f"g-lanes ({r['threads']} threads), ring of "
+                  f"{r['ring_slots']} slots, {r['smem_bytes']} B shared "
+                  f"memory at L={L_MAIN} ({r['smem_bytes_deep']} B at "
+                  f"L={L_DEEP}), {r['blocks_per_sm']} blocks per SM "
+                  f"({r['blocks_per_sm_deep']} at L={L_DEEP}), "
+                  f"{r['registers']} registers, {r['spill_bytes']} B "
+                  f"spill stores; staging: {r['staging']}")
     r = res["taumol_bwd"]
     r.update(k5_build, gbps=r["bytes_once"] / (r["device_ms"] * 1e-3) / 1e9)
     print(f"taumol_bwd: device {r['device_ms']:.3f} ms, {r['gbps']:.0f} GB/s "

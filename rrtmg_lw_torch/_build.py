@@ -57,7 +57,9 @@ SIGNATURES = {
     "rrtm_overlap_bwd": (P, P, P, I, I, P),
     "rrtm_rt_bwd_mr": (P,) * 18 + (I, I, P),
     "rrtm_rt_bwd_mr_info": (P,),
-    "rrtm_rt_bwd_g": (P,) * 26 + (I, I, I, P),
+    "rrtm_rt_bwd_g": (P,) * 29 + (I, I, I, P),
+    "rrtm_rt_bwd_g_scratch": (I, I, I, P),
+    "rrtm_rt_bwd_g_layout": (I, I, P),
     "rrtm_rt_bwd_g_info": (I, I, P),
     "rrtm_rt_bwd": (P,) * 21 + (I, I, I, P),
     "rrtm_rt_bwd_info": (I, P),

@@ -1,11 +1,13 @@
 // Shared by K1 (rtrn_kernel.cuh) and its adjoint K6 (rtrn_bwd.cu): the
 // inputs, the factor functions and one step of the sweep recurrences of
 // ops/rtrn.py (use_lut=False, the two-division Planck transition), the
-// block tile both use (16 columns x 16 g-lanes, two blocks per SM) and
-// the staging of a level's rows into a ring in shared memory (cp.async,
-// one mbarrier per slot).
+// block tile both use (16 columns x 16 g-lanes, two blocks per SM), the
+// staging of a level's rows into a ring in shared memory (cp.async, one
+// mbarrier per slot) and Hopper's bulk tensor copies (TMA) with their
+// tensor maps.
 #pragma once
 
+#include <cuda.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -270,6 +272,51 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
     }
 }
 
+// Hopper's bulk tensor copies (TMA), for K6 in the banded, fused and
+// cldf-odcld modes (rtrn_bwd_g.cu): one thread arms a slot's mbarrier
+// with the bytes it expects and issues 2D tile copies from a tensor map
+// (cuTensorMapEncodeTiled, below) into shared memory; the copies
+// complete the barrier's transaction count as they land.
+
+// the barriers' initialisation made visible to the copy engine
+__device__ __forceinline__ void fence_mbarrier_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// order this thread's generic accesses of shared (global) memory before
+// later bulk copies into (out of) it
+__device__ __forceinline__ void fence_proxy_async_smem() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_proxy_async_global() {
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// a plain arrival of this thread on the mbarrier
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(smem_addr(bar)) : "memory");
+}
+
+// this thread's arrival, and `bytes` more expected by the current phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// the (x, y) box of tensor map `map` (in kernel parameter space) into
+// shared memory at dst (128-byte aligned), completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
+                                            int x, int y, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+        :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(x), "r"(y), "r"(smem_addr(bar))
+        : "memory");
+}
+
 // Copy `rows` rows of `nvalid` elements of ES bytes, row r at
 // src + r * stride bytes, into the (rows, KX) tile at dst.  vec: the rows
 // are 16-byte aligned and the tile full, 16-byte copies; else element by
@@ -325,6 +372,51 @@ __device__ __forceinline__ void stage(unsigned char* dst,
 template <int ES>
 __device__ __forceinline__ bool rows16(const void* p, int B) {
     return ((uintptr_t)p & 15u) == 0 && ((size_t)B * ES) % 16 == 0;
+}
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime so that
+// the library does not link libcuda; null where it is missing.
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+    static const EncodeTiled fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+        const cudaError_t e = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+        const cudaError_t e = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+        return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+                   ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+    }();
+    return fn;
+}
+
+// A tensor map over `rows` rows of B floats (row r at base + r * B) whose
+// boxes are box_cols x box_rows, out-of-range elements read as zero; the
+// L2 fetches `l2` (promotion) around what a box row reads.  False where
+// it cannot be encoded (base or B * 4 not a multiple of 16, no entry
+// point).
+inline bool tensor_map_rows(CUtensorMap* map, const float* base,
+                            uint64_t rows, int B, int box_cols, int box_rows,
+                            CUtensorMapL2promotion l2) {
+    const EncodeTiled enc = encode_tiled();
+    if (!enc) return false;
+    const cuuint64_t dims[2] = {(cuuint64_t)B, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)B * sizeof(float)};
+    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+    const cuuint32_t step[2] = {1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+               const_cast<float*>(base), dims, strides, box, step,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               l2, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // let a kernel of this tile take `smem` bytes of dynamic shared memory,

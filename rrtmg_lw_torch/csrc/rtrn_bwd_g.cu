@@ -41,25 +41,86 @@
 // the per-g cloud inputs twice (fused, cldf-odcld: cldf where the layer
 // is cloudy, the others where the g-point is), and writes ct_taut,
 // ct_fracs twice (read-add in the down sweep) and the cloud inputs'
-// cotangents once, twice in a cloudy layer (outside one they are zero:
-// the down sweep leaves them).  Each input read once and each output written once, the bytes
-// are ~5.1 GB at B=16384, L=60 banded (1.5 ms at 3.35 TB/s), ~1.1 GB more
-// in cldf-odcld and ~2.3 GB more in fused; against that a few tens of
-// flops and 1-3 expf per element and sweep.
+// cotangents once, twice in a cloudy layer (outside one they are zero).
+// Each input read once and each output written once, the bytes are ~5.1
+// GB at B=16384, L=60 banded (1.5 ms at 3.35 TB/s), ~1.1 GB more in
+// cldf-odcld and ~2.3 GB more in fused; against that a few tens of flops
+// and 1-3 expf per element and sweep.  The two sweeps move about 7.7-8.1
+// GB in banded (taut and fracs read twice, the four radiances once,
+// ct_taut and ct_fracs written, read back and written again), ~1.8 GB
+// more in cldf-odcld and ~3.2 GB more in fused.  They are rows of the
+// (L, 140, B) arrays cut into column tiles; a tile of 32 columns reads
+// and writes whole 128-byte L2 lines of them.
 //
-// Design: a simple kernel, on K6 maxrand's tile (band_lanes.cuh): 32
-// columns x 8 g-lanes, lane y takes the two bands PAIR[y], so each band's
-// sums (planklay, planklev, taucb or abi and abl, the surface rows, the
-// secant) stay in one thread in ascending g.  The two carries of every
-// (g, column) live in shared memory (35.8 KB).  A first pass marks the
-// cloudy layers of each column in shared memory (L bytes a column; the
-// per-g modes read cldf once more for it).  Banded's cloud-fraction
-// cotangent is a sum over the 140 g-points: each lane's partial in its g
-// order, then the 8 lanes in lane order through shared memory,
-// double-buffered (one block barrier a step); the per-g modes need no
-// barrier in the sweeps.  No atomics on floats: two runs are bitwise
-// equal.
-#include "band_lanes.cuh"
+// Design.  A block holds 32 columns (a lane each) and one of NGRP = 5
+// groups of whole bands (g-points 0-21, 22-51, 52-75, 76-107, 108-139),
+// so a tile's rows are 128 contiguous bytes while its rows of a step still
+// fit a ring of two slots at two blocks per SM.  A block takes its group
+// and tile from a ticket, drawn from a counter of the launch as it
+// starts: so a block that waits on another block of its tile (below)
+// waits on one that started before it, whatever order the blocks are
+// dispatched in.  Tickets run group-major: the blocks running together
+// take one group of neighbouring tiles, whose pieces of the same rows
+// share DRAM pages (tile-major, a tile's five blocks together, measured
+// ~1.5x slower: k6g_variants ``tilemajor``).  Warp y takes the group's
+// g-points y, y + 8, ... (at most 4) and carries their cotangents in
+// registers.
+// - Staged rows: every reverse step's rows arrive in a ring of G_RING
+//   slots in shared memory, one step ahead, by Hopper's bulk tensor
+//   copies in boxes of 32 columns x 8 rows (tensor maps over (rows, B)):
+//   taut, fracs, the radiance entering the layer and its clear twin, in
+//   the down sweep the up sweep's ct_taut and ct_fracs of the layer and
+//   its band-summed outputs, planklay and planklev of the group's bands,
+//   the two flux cotangents, and where a column of the tile is cloudy at
+//   the layer the mode's cloud rows (banded: cldfrac and taucb;
+//   cldf-odcld: cldf, odcld; fused: cldf, ciwp, clwp, tauc, abi, abl).
+//   Warp 0 arms the slot's mbarrier with the bytes and issues the
+//   copies, a box a lane.  The consumers read only shared memory in the
+//   g-loop.  A slot is reused once every thread has arrived on its
+//   "empty" mbarrier after the step.  Where a row is not 16-byte aligned
+//   (B not a multiple of 4, or an operand's start), every thread copies
+//   its share of the elements by cp.async instead, completing the same
+//   barriers.  The down sweep's first step is issued after the up sweep
+//   (it reads the up sweep's last stores back), its second after the
+//   surface step, which uses that slot's rows.
+// - Band sums: the per-g values summed over a band's g-points (planklay,
+//   planklev, the secant; banded: taucb; fused: abi, abl) are written
+//   over the slot's rows they were computed from; after the step's one
+//   block barrier, warp k sums band k of the group for its 32 columns in
+//   ascending g (the first design's order: the same bits), the secant
+//   into a running sum over both sweeps.
+// - Banded's cloud fraction sums over all 140 g-points, across the
+//   tile's groups: each group's last warp sums its g-points in ascending
+//   order into a share of the layer (the up sweep's, then plus the down
+//   sweep's), kept in shared memory while two blocks still fit an SM
+//   (L <= 381), else in the launch's scratch; at the end the tile's five
+//   blocks add their shares to the output in group order, each after the
+//   one before it (the count of the tile; a lower group's ticket is
+//   drawn first).  The first design summed K6 maxrand's lanes of two
+//   bands each: this order is another, and the output differs from that
+//   design's in the last bits (PERF.md).
+// - The cloudy layers (a bit per column, a word per layer): banded each
+//   block from cldfrac; the per-g modes from cldf, which the tile's group
+//   0 reads (by bulk copies of 144 rows a layer into the ring) and
+//   publishes to a scratch row and a flag; its other groups, whose
+//   tickets come after every group 0 block's, wait for the flag.
+// - The per-g cloud cotangents outside a cloudy layer and in the pad
+//   rows are zero: the up sweep writes the zeros (no arithmetic), the
+//   down sweep adds only in a cloudy layer, to the up sweep's values
+//   loaded in one batch after the g-loop.  (A zeroed allocation and no
+//   zero stores measured slower on the H100, the fill included: the
+//   k6g_variants ``fill`` variant, PERF.md.)
+// No atomics on floats: two runs are bitwise equal.  Block barriers: one
+// per step, three more around the surface step.
+//
+// Shared memory a block (bytes):       banded   cldf-odcld      fused
+//   ring slot                          31,104       37,120     49,408
+//   ring of G_RING = 2 slots           62,208       74,240     98,816
+//   the rest (GLayout) at L = 140      21,600        3,680      3,680
+//   total at L = 140 (SMEM_BWD_G)      83,808       77,920    102,496
+// Two blocks per SM: 2 x (102,496 + 1,024 reserved) <= 233,472, and so
+// up to L = 3,444 in fused (the cloudy-layer words take 4 bytes a layer);
+// banded's shares, 128 bytes a layer, stay in shared memory up to L = 381.
 #include "rtrn.cuh"
 
 namespace {
@@ -67,21 +128,133 @@ namespace {
 using namespace rrtm::rt;
 
 constexpr int NCLD = 6;                 // cloud inputs of a mode, at most
+constexpr int GX = 32;                  // columns per block
+constexpr int GY = 8;                   // g-lanes (warps) per block
+constexpr int GT = GX * GY;             // threads per block
+constexpr int NGRP = 5;                 // band groups: a column tile's blocks
+constexpr int GR = 32;                  // g-points of the largest group
+constexpr int GPT = (GR + GY - 1) / GY;  // g-points per thread, at most
+constexpr int GH = 8;                   // rows of a copy's box
+constexpr int GBOX = (GR + GH - 1) / GH;  // boxes of a group's g-points
+constexpr int GNB = GH;                 // bands of a group, at most
 constexpr int G_BLOCKS_PER_SM = 2;
+constexpr int G_RING = 2;               // slots in the ring
+constexpr int RB = GX * 4;              // bytes of a tile row
+static_assert(GX == 32 && GT % 32 == 0, "a lane per column");
+static_assert(GY > GNB - 1, "a warp per band of a group, and one more");
+// a copy's box row is 128 bytes, an L2 line
+constexpr CUtensorMapL2promotion G_L2 = CU_TENSOR_MAP_L2_PROMOTION_L2_128B;
+
+// the first band of each group: g-points 0-21, 22-51, 52-75, 76-107,
+// 108-139 (22, 30, 24, 32, 32; whole bands, contiguous)
+__constant__ int GFIRST[NGRP + 1] = {0, 2, 4, 6, 9, KNB};
 
 // rows of the saved radiances (rtrn_kernel.cuh SAVE)
 enum Saved { S_D = 0, S_U = 1, S_DC = 2, S_UC = 3 };
 
-struct GLayout {
-    static constexpr int CAR = 0;                          // (2, KG, MX)
-    static constexpr int PART = CAR + 2 * KG * MX * 4;     // (2, MY, MX)
-    static constexpr int NGB = PART + 2 * MY * MX * 4;
-    static constexpr int WG = NGB + KG * 4;
-    static constexpr int GOFF = WG + KG * 4;               // (KNB + 1)
-    static constexpr int CLY = align16(GOFF + (KNB + 1) * 4);  // (L, MX)
-    static int bytes(int L) { return CLY + align16(L * MX); }
+// the tensor maps of a launch: the per-g inputs, the radiances, the up
+// sweep's ct_taut and ct_fracs, the band rows, the flux cotangents (one
+// row a box), the up sweep's band-summed outputs (planklay, planklev;
+// banded: taucb; fused: abi, abl) and the mode's cloud inputs (Clouds
+// order; banded's cldfrac one row a box); GH rows a box but where said
+enum MapId { M_TAUT, M_FRACS, M_RADS, M_GTAUT, M_GFRACS, M_PLAY, M_PLEV,
+             M_CT, M_GPLAY, M_GPLEV, M_GBC, M_GBC1, M_C0,
+             NMAP = M_C0 + NCLD };
+struct GMaps {
+    CUtensorMap m[NMAP];
 };
 
+// Byte layout of one reverse step in the ring: (row, column) tiles of GX
+// columns, a row RB bytes.  The per-g slabs hold the group's g-points
+// (GBOX boxes of GH rows: up to GR rows, the last box reaching into the
+// next group's); the band blocks GH rows from the group's first band.
+// The step writes its per-g values to be summed over the bands over its
+// TAU, FR, RAD (planklay, planklev, secant), RADC and PT rows (banded:
+// taucb, cloud fraction; fused: abi, abl), and the down sweep's per-g
+// cloud cotangents over its CLD rows, each thread over the elements it
+// has read.
+template <int MODE>
+struct GSlot {
+    // per-g cloud input rows: cldf-odcld cldf, odcld; fused cldf, ciwp,
+    // clwp, tauc; the band cloud rows: banded taucb; fused abi, abl
+    static constexpr int NCG = MODE == FUSED ? 4 : MODE == CLDF_OD ? 2 : 0;
+    static constexpr int NBC = MODE == FUSED ? 2 : MODE == BANDED ? 1 : 0;
+    static constexpr int SLAB = GBOX * GH * RB;
+    static constexpr int BAND = GH * RB;
+    static constexpr int TAU = 0;
+    static constexpr int FR = TAU + SLAB;
+    static constexpr int RAD = FR + SLAB;
+    static constexpr int RADC = RAD + SLAB;
+    static constexpr int PT = RADC + SLAB;           // up sweep's ct_taut
+    static constexpr int PF = PT + SLAB;             // and ct_fracs
+    static constexpr int CLD = PF + SLAB;            // NCG slabs
+    static constexpr int PLAY = CLD + NCG * SLAB;    // (GH, GX)
+    static constexpr int PLEV = PLAY + BAND;
+    static constexpr int BC = PLEV + BAND;           // NBC band blocks
+    // the down sweep's partials of the band-summed outputs
+    static constexpr int PPLAY = BC + NBC * BAND;
+    static constexpr int PPLEV = PPLAY + BAND;
+    static constexpr int PBC = PPLEV + BAND;         // NBC band blocks
+    static constexpr int CT0 = PBC + NBC * BAND;     // UP or DOWN
+    static constexpr int CT1 = CT0 + RB;             // CLR_UP or CLR_DOWN
+    static constexpr int CF = CT1 + RB;              // banded: cldfrac
+    static constexpr int BYTES = CF + (MODE == BANDED ? RB : 0);
+    static_assert(RB % 128 == 0 && BYTES % 128 == 0, "128-byte rows");
+};
+
+// The block's dynamic shared memory: the ring, the full and empty
+// mbarriers of each slot and that of the flag pass's copies, the block's
+// ticket, the flux weight of every g, the first g of every band, the band
+// (0-7 of the group) of each of the group's g-points, the bands' secants
+// per column and the secant's cotangents, the highest cloudy layer of
+// each column (these two held here, not in registers across the sweeps:
+// K6 banded has none to spare), the cloudy-layer words (a bit per
+// column, L), banded's
+// shares of the cloud fraction's cotangent where they fit, and 128 bytes
+// to align the ring.
+template <int MODE>
+struct GLayout {
+    using S = GSlot<MODE>;
+    static constexpr int BAR = G_RING * S::BYTES;
+    static constexpr int TICKET = BAR + (2 * G_RING + 1) * 8;
+    static constexpr int WG = TICKET + 8;                    // (KG)
+    static constexpr int GOFF = WG + KG * 4;                 // (KNB + 1)
+    static constexpr int RK = GOFF + (KNB + 1) * 4;          // (GR)
+    static constexpr int SECD = align16(RK + GR * 4);        // (GNB, GX)
+    static constexpr int CSEC = SECD + GNB * GX * 4;         // (GNB, GX)
+    static constexpr int HI = CSEC + GNB * GX * 4;           // (GX)
+    static constexpr int FLAGS = HI + GX * 4;                // (L)
+    // banded: the group's shares of the cloud fraction's cotangent,
+    // (L, GX), here while two blocks still fit an SM with them
+    __host__ __device__ static constexpr int part(int L) {
+        return FLAGS + (L * 4 + 15) / 16 * 16;
+    }
+    __host__ __device__ static constexpr bool shares_here(int L) {
+        return MODE == BANDED
+               && G_BLOCKS_PER_SM * (part(L) + L * GX * 4 + 128
+                                     + SMEM_RESERVED) <= SMEM_SM;
+    }
+    __host__ __device__ static constexpr int bytes(int L) {
+        return part(L) + (shares_here(L) ? L * GX * 4 : 0) + 128;
+    }
+};
+
+// the budget of the header, at L = 140
+constexpr int SMEM_BWD_G[3] = {83808, 77920, 102496};
+static_assert(GLayout<BANDED>::bytes(140) == SMEM_BWD_G[0]
+              && GLayout<CLDF_OD>::bytes(140) == SMEM_BWD_G[1]
+              && GLayout<FUSED>::bytes(140) == SMEM_BWD_G[2],
+              "K6-g's shared memory is the header's budget");
+static_assert(G_BLOCKS_PER_SM * (SMEM_BWD_G[0] + SMEM_RESERVED) <= SMEM_SM
+              && G_BLOCKS_PER_SM * (SMEM_BWD_G[2] + SMEM_RESERVED)
+                     <= SMEM_SM,
+              "two K6-g blocks fit an SM");
+static_assert(GLayout<BANDED>::shares_here(381)
+              && !GLayout<BANDED>::shares_here(382)
+              && G_BLOCKS_PER_SM * (GLayout<FUSED>::bytes(3444)
+                                    + SMEM_RESERVED) <= SMEM_SM,
+              "banded's shares in shared memory up to L = 381; two fused "
+              "blocks per SM up to L = 3,444");
 // The cloud inputs of each mode, in the order of rtrn_cuda.CLOUD_INPUTS:
 // banded: c[0] cldfrac (L, B), c[1] taucb (L, 16, B); cldf-odcld: c[0]
 // cldf, c[1] odcld (L, 144, B); fused: c[0..3] cldf, ciwp, clwp, tauc
@@ -97,6 +270,7 @@ struct GGrads {
     float* surf;     // (3, 16, B)
     float* c[NCLD];  // the cloud inputs' cotangents
 };
+
 
 // What a reverse step gives besides the carries: the cotangents of the
 // g's taut and fracs, of its band's Planck rows at the layer (bl) and at
@@ -213,234 +387,590 @@ __device__ __forceinline__ StepGrads g_step_bwd(
     return o;
 }
 
+// The scratch of a launch (the wrapper's allocations): the counter the
+// tickets are drawn from, then one a column tile (zeroed: the per-g
+// modes' flag that group 0 has published the tile's cloudy-layer words;
+// banded: the groups' turn to add their shares of the cloud fraction's
+// cotangent); those words (the per-g modes: (tiles, L)); banded's shares
+// where they do not fit shared memory ((blocks, L, GX), else null).
+struct GScratch {
+    unsigned* flags;
+    int* count;
+    float* part;
+};
+
 template <int MODE>
-__global__ void __launch_bounds__(MT, G_BLOCKS_PER_SM)
-rt_bwd_g_kernel(Inputs in, Clouds cl, const int* __restrict__ ngb,
-                const float* __restrict__ wg, const float* __restrict__ ct,
-                const float* __restrict__ rads, GGrads gr) {
-    using Lo = GLayout;
+__global__ void __launch_bounds__(GT, G_BLOCKS_PER_SM)
+rt_bwd_g_kernel(__grid_constant__ const GMaps maps, Inputs in, Clouds cl,
+                const int* __restrict__ ngb, const float* __restrict__ wg,
+                const float* __restrict__ ct, const float* __restrict__ rads,
+                GGrads gr, GScratch sc, int vec) {
+    using Sl = GSlot<MODE>;
+    using Lo = GLayout<MODE>;
     constexpr bool BND = MODE == BANDED;
     constexpr bool FSD = MODE == FUSED;
-    extern __shared__ __align__(16) unsigned char smem[];
-    float* car_s = reinterpret_cast<float*>(smem + Lo::CAR);
-    float* part_s = reinterpret_cast<float*>(smem + Lo::PART);
-    int* ngb_s = reinterpret_cast<int*>(smem + Lo::NGB);
+    constexpr int NCG = Sl::NCG;
+    constexpr int NBC = Sl::NBC;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    // the ring at a 128-byte boundary
+    unsigned char* smem =
+        smem_raw + ((128u - (smem_addr(smem_raw) & 127u)) & 127u);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + Lo::BAR);
+    uint64_t* empty = full + G_RING;
+    uint64_t* flagbar = empty + G_RING;
     float* wg_s = reinterpret_cast<float*>(smem + Lo::WG);
     int* goff = reinterpret_cast<int*>(smem + Lo::GOFF);
-    unsigned char* cly_s = smem + Lo::CLY;
-
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * MX + tx;
+    int* rk = reinterpret_cast<int*>(smem + Lo::RK);
+    float* secd_s = reinterpret_cast<float*>(smem + Lo::SECD);
+    float* csec_s = reinterpret_cast<float*>(smem + Lo::CSEC);
+    int* hi_s = reinterpret_cast<int*>(smem + Lo::HI);
+    unsigned* flags = reinterpret_cast<unsigned*>(smem + Lo::FLAGS);
+    int* ticket = reinterpret_cast<int*>(smem + Lo::TICKET);
+    int* tcount = sc.count + 1;             // the tiles' counters
+    const int tid = threadIdx.x;
+    const int tx = tid % GX, ty = tid / GX;
     const int L = in.L, B = in.B;
     const size_t Bz = B;
-    const int bt = blockIdx.x * MX;
-    const int nvalid = min(MX, B - bt);
-    const bool valid = tx < nvalid;
-    const int b = bt + tx;
-    for (int i = tid; i < KG; i += MT) {
-        ngb_s[i] = ngb[i];
+
+    // ---- 0. the block's ticket, then its group: bands b0 .. b0 + nb - 1,
+    // g-points g0 .. g0+nr-1
+    for (int i = tid; i < KG; i += GT) {
         wg_s[i] = wg[i];
         if (i == 0 || ngb[i] != ngb[i - 1]) goff[ngb[i]] = i;
     }
-    if (tid == 0) goff[KNB] = KG;
-    for (int i = tid; i < 2 * KG * MX; i += MT) car_s[i] = 0.0f;
-    for (int i = tid; i < L * MX; i += MT) cly_s[i] = 0;
+    if (tid == 0) {
+        *ticket = atomicAdd(sc.count, 1);
+        goff[KNB] = KG;
+        for (int i = 0; i < G_RING; ++i) {
+            mbar_init(&full[i], vec ? 1u : (unsigned)GT);
+            mbar_init(&empty[i], (unsigned)GT);
+        }
+        mbar_init(flagbar, 1u);
+        fence_mbarrier_init();
+    }
     __syncthreads();
+    // group-major: the blocks running together take one group of
+    // neighbouring tiles, so that they read the same rows' neighbouring
+    // pieces (DRAM pages)
+    const int tk = *ticket;
+    const int ntiles = gridDim.x / NGRP;
+    const int grp = tk / ntiles, tile = tk % ntiles;
+    const int bt = tile * GX;
+    const int nvalid = min(GX, B - bt);
+    // lanes past the ragged edge compute on what their slot holds and
+    // write nothing; they take part in the staging and the barriers
+    const bool valid = tx < nvalid;
+    const int b = bt + tx;
+    // banded: the block's share of the cloud fraction's cotangent of
+    // layer l, column tx (the block's (L, GX) in shared memory or in the
+    // scratch, formed where it is used)
+    auto share = [&](int l) {
+        float* p = sc.part ? sc.part + (size_t)tk * L * GX
+                           : reinterpret_cast<float*>(smem + Lo::part(L));
+        return p + l * GX + tx;
+    };
+    const int b0 = GFIRST[grp], nb = GFIRST[grp + 1] - b0;
+    const int g0 = goff[b0], nr = goff[b0 + nb] - g0;
+    for (int k = 0; k < nb; ++k)
+        for (int r = goff[b0 + k] - g0 + tid; r < goff[b0 + k + 1] - g0;
+             r += GT)
+            rk[r] = k;
+    if (ty < nb) {
+        secd_s[tid] = in.surf[(size_t)(b0 + ty) * Bz + bt
+                              + min(tx, nvalid - 1)];
+        csec_s[tid] = 0.0f;     // warp ty's band, column tx
+    }
 
-    // ---- 1. the cloudy layers of each column (every lane that finds a
-    // cloudy g-point writes the same 1) ----
-    if (valid) {
-        if constexpr (BND) {
-            for (int l = ty; l < L; l += MY)
-                if (cl.c[0][(size_t)l * Bz + b] >= CLOUD_GATE)
-                    cly_s[l * MX + tx] = 1;
-        } else {
+    // ---- 1. the cloudy layers: a bit per column, a word per layer.
+    // Banded: from cldfrac.  The per-g modes: group 0 forms them from
+    // the tile's cldf rows and publishes them; the tile's other groups,
+    // whose tickets come after its, wait for them ----
+    if constexpr (BND) {
+        for (int l = ty; l < L; l += GY) {
+            const bool c = valid && cl.c[0][(size_t)l * Bz + b] >= CLOUD_GATE;
+            const unsigned w = __ballot_sync(0xffffffffu, c);
+            if (tx == 0) flags[l] = w;
+        }
+    } else if (grp == 0) {
+        for (int i = tid; i < L; i += GT) flags[i] = 0u;
+        __syncthreads();
+        if (vec) {
+            // the rows of NL layers at a time, copied into the ring (the
+            // zeros past the ragged edge and the pad rows are no cloud)
+            constexpr int LROWS = rrtm::NGPT_PAD;
+            static_assert(LROWS % GH == 0, "a layer's rows in whole boxes");
+            constexpr int NL = G_RING * Sl::BYTES / (LROWS * RB);
+            const float* f = reinterpret_cast<const float*>(smem);
+            for (int l0 = 0; l0 < L; l0 += NL) {
+                const int n = min(NL, L - l0);
+                if (ty == 0) {
+                    if (tx == 0)
+                        mbar_arrive_expect_tx(flagbar,
+                                              (uint32_t)(n * LROWS * RB));
+                    __syncwarp();
+                    for (int i = tx; i < n * LROWS / GH; i += GX)
+                        tma_load_2d(smem + i * GH * RB, &maps.m[M_C0], bt,
+                                    l0 * rrtm::NGPT_PAD + i * GH, flagbar);
+                }
+                mbar_wait(flagbar, (unsigned)(l0 / NL) & 1u);
+                for (int i = 0; i < n; ++i) {
+                    bool c = false;
+                    for (int g = ty; g < KG; g += GY)
+                        c |= f[(i * LROWS + g) * GX + tx] >= 0.5f;
+                    const unsigned w = __ballot_sync(0xffffffffu, c);
+                    if (tx == 0 && w) atomicOr(&flags[l0 + i], w);
+                }
+                // the rows read before the next copies over them
+                fence_proxy_async_smem();
+                __syncthreads();
+            }
+        } else if (valid) {
             for (int l = 0; l < L; ++l) {
-                const float* f = cl.c[0] + (size_t)l * rrtm::NGPT_PAD * Bz + b;
-                bool any = false;
-                for (int g = ty; g < KG; g += MY) any |= f[g * Bz] >= 0.5f;
-                if (any) cly_s[l * MX + tx] = 1;
+                bool c = false;
+                for (int g = ty; g < KG; g += GY)
+                    c |= cl.c[0][((size_t)l * rrtm::NGPT_PAD + g) * Bz + b]
+                         >= 0.5f;
+                if (c) atomicOr(&flags[l], 1u << tx);
             }
         }
+        __syncthreads();
+        for (int i = tid; i < L; i += GT) sc.flags[(size_t)tile * L + i] =
+            flags[i];
+        __threadfence();
+        __syncthreads();
+        if (tid == 0) atomicExch(&tcount[tile], 1);
+    } else {
+        if (tid == 0) {
+            while (atomicAdd(&tcount[tile], 0) == 0) __nanosleep(256);
+            __threadfence();
+        }
+        __syncthreads();
+        for (int i = tid; i < L; i += GT)
+            flags[i] = __ldcg(&sc.flags[(size_t)tile * L + i]);
     }
     __syncthreads();
     int hi = -1;                            // the highest cloudy layer
     for (int l = L - 1; l >= 0 && hi < 0; --l)
-        if (cly_s[l * MX + tx]) hi = l;
-    const bool anyc = hi >= 0;
+        if ((flags[l] >> tx) & 1u) hi = l;
+    if (ty == 0) hi_s[tx] = hi;
+    __syncthreads();
+    auto slot = [&](int j) { return smem + (j % G_RING) * Sl::BYTES; };
 
+    // ---- the staging of reverse step j: up sweep j < L, layer L-1-j,
+    // Planck level l+1, flux rows UP, CLR_UP at level l+1, the up
+    // radiance entering l; down sweep j >= L, layer j-L, Planck level l,
+    // rows DOWN, CLR_DOWN at level l, the down radiance at level l+1 and
+    // the up sweep's outputs of layer l.  The producer first waits until
+    // every thread has left the slot's previous step. ----
     const size_t LGB = (size_t)L * KG * Bz;
-    const int bands[2] = {PAIR[ty][0], PAIR[ty][1]};
-    float sec[2], ct_sec[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-        sec[h] = valid ? in.surf[(size_t)bands[h] * Bz + b] : 0.0f;
-    auto car = [&](int q, int g) -> float& {
-        return car_s[(q * KG + g) * MX + tx];
+    const int nbox = (nr + GH - 1) / GH;
+    auto issue = [&](int j) {
+        const bool up = j < L;
+        const int l = up ? L - 1 - j : j - L;
+        const int lev = up ? l + 1 : l;
+        const bool has_in = up || l + 1 < L;
+        const bool tc = flags[l] != 0u;
+        unsigned char* d = slot(j);
+        uint64_t* bar = &full[j % G_RING];
+        const int rin = up ? l : l + 1;     // the radiances' layer
+        const int ct0 = (up ? UP : DOWN) * (L + 1) + lev;
+        const int ct1 = (up ? CLR_UP : CLR_DOWN) * (L + 1) + lev;
+        const int nslab = 2 + (has_in ? 2 : 0) + (up ? 0 : 2)
+                          + (tc ? NCG : 0);
+        const int nband = 2 + (tc ? NBC : 0)
+                          + (up ? 0 : 1 + (lev > 0) + (tc ? NBC : 0));
+        const int none = tc && BND ? 3 : 2;
+        if (vec) {
+            // warp 0: a box a lane
+            if (ty != 0) return;
+            if (j >= G_RING)
+                mbar_wait(&empty[j % G_RING], (unsigned)(j / G_RING - 1) & 1u);
+            if (tx == 0)
+                mbar_arrive_expect_tx(
+                    bar, (uint32_t)(((nslab * nbox + nband) * GH + none)
+                                    * RB));
+            __syncwarp();
+        } else if (j >= G_RING) {
+            // every thread copies its share of the valid columns' elements
+            mbar_wait(&empty[j % G_RING], (unsigned)(j / G_RING - 1) & 1u);
+        }
+        // n rows of src from row0 at offset off: boxes of h rows (the
+        // bulk copies), or the n rows element by element
+        auto copy = [&](int off, int map, const float* src, int row0, int n,
+                        int h) {
+            if (vec) {
+                for (int i = tx; i * h < n; i += GX)
+                    tma_load_2d(d + off + i * h * RB, &maps.m[map], bt,
+                                row0 + i * h, bar);
+            } else {
+                for (int i = tid; i < n * nvalid; i += GT) {
+                    const int r = i / nvalid, c = i - r * nvalid;
+                    cp4(d + off + r * RB + c * 4,
+                        src + (size_t)(row0 + r) * Bz + bt + c);
+                }
+            }
+        };
+        // the group's g-points of a layer (row0 its g = 0), its bands (row0
+        // its band 0), one row
+        auto slab = [&](int off, int map, const float* src, int row0) {
+            copy(off, map, src, row0 + g0, nr, GH);
+        };
+        auto bands = [&](int off, int map, const float* src, int row0) {
+            copy(off, map, src, row0 + b0, vec ? GH : nb, GH);
+        };
+        auto one = [&](int off, int map, const float* src, int row) {
+            copy(off, map, src, row, 1, 1);
+        };
+        slab(Sl::TAU, M_TAUT, in.taut, l * KG);
+        slab(Sl::FR, M_FRACS, in.fracs, l * KG);
+        if (has_in) {
+            slab(Sl::RAD, M_RADS, rads, ((up ? S_U : S_D) * L + rin) * KG);
+            slab(Sl::RADC, M_RADS, rads,
+                 ((up ? S_UC : S_DC) * L + rin) * KG);
+        }
+        if (!up) {
+            slab(Sl::PT, M_GTAUT, gr.taut, l * KG);
+            slab(Sl::PF, M_GFRACS, gr.fracs, l * KG);
+        }
+        if (tc)
+            for (int q = 0; q < NCG; ++q)
+                slab(Sl::CLD + q * Sl::SLAB, M_C0 + q, cl.c[q],
+                     l * rrtm::NGPT_PAD);
+        bands(Sl::PLAY, M_PLAY, in.play, l * KNB);
+        bands(Sl::PLEV, M_PLEV, in.plev, lev * KNB);
+        if (tc && BND) bands(Sl::BC, M_C0 + 1, cl.c[1], l * KNB);
+        if (tc && FSD) {
+            bands(Sl::BC, M_C0 + 4, cl.c[4], l * KNB);
+            bands(Sl::BC + Sl::BAND, M_C0 + 5, cl.c[5], l * KNB);
+        }
+        if (!up) {
+            bands(Sl::PPLAY, M_GPLAY, gr.play, l * KNB);
+            if (lev > 0) bands(Sl::PPLEV, M_GPLEV, gr.plev, lev * KNB);
+            if (tc && BND) bands(Sl::PBC, M_GBC, gr.c[1], l * KNB);
+            if (tc && FSD) {
+                bands(Sl::PBC, M_GBC, gr.c[4], l * KNB);
+                bands(Sl::PBC + Sl::BAND, M_GBC1, gr.c[5], l * KNB);
+            }
+        }
+        one(Sl::CT0, M_CT, ct, ct0);
+        one(Sl::CT1, M_CT, ct, ct1);
+        if (tc && BND) one(Sl::CF, M_C0, cl.c[0], l);
+        if (!vec) mbar_arrive_copies(bar);
     };
-    // out = v (up sweep) or out + v (down sweep)
-    auto put = [](float* p, float v, bool add) { *p = add ? *p + v : v; };
 
-    // one reverse step: layer l of the up (UPW) or down sweep; j counts
-    // the steps (banded's partials' buffer)
-    auto step = [&](auto upward, int l, int j) {
-        constexpr bool UPW = decltype(upward)::value;
-        const int lev = UPW ? l + 1 : l;
-        float p = 0.0f;                     // banded: the lane's ct_cldfrac
-        if (valid) {
-            const bool cly = cly_s[l * MX + tx] != 0;
-            const bool twin = UPW ? anyc : l <= hi;
-            const float cu =
-                ct[((size_t)(UPW ? UP : DOWN) * (L + 1) + lev) * Bz + b];
-            const float ccu =
-                ct[((size_t)(UPW ? CLR_UP : CLR_DOWN) * (L + 1) + lev) * Bz
-                   + b];
-            // the radiances entering the layer: up, U and Uc at l; down, D
-            // and Dc at level l + 1 (none above the top)
-            const bool has_in = UPW || l + 1 < L;
-            const size_t in_off = UPW ? (size_t)l * KG * Bz
-                                      : (size_t)(l + 1) * KG * Bz;
-            const float* r_in = rads + (UPW ? S_U : S_D) * LGB + in_off;
-            const float* rc_in = rads + (UPW ? S_UC : S_DC) * LGB + in_off;
-            const float cfl = BND && cly ? cl.c[0][(size_t)l * Bz + b] : 0.0f;
+    float lam[GPT], mu[GPT], ct_fr0[GPT];
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int bd = bands[h];
-                const size_t bi = ((size_t)l * KNB + bd) * Bz + b;
-                const size_t vi = ((size_t)lev * KNB + bd) * Bz + b;
-                const float bl = in.play[bi];
-                const float pl = in.plev[vi];
-                float tcb = 0.0f, ai_b = 0.0f, al_b = 0.0f;
-                if (BND && cly) tcb = cl.c[1][bi];
-                if (FSD && cly) {
-                    ai_b = cl.c[4][bi];
-                    al_b = cl.c[5][bi];
-                }
-                float s_bl = 0.0f, s_pl = 0.0f, s_c0 = 0.0f, s_c1 = 0.0f;
-                for (int g = goff[bd]; g < goff[bd + 1]; ++g) {
-                    const size_t gi = (size_t)g * Bz + b;
-                    const size_t li = (size_t)l * KG * Bz + gi;
-                    const size_t pi = ((size_t)l * rrtm::NGPT_PAD + g) * Bz + b;
-                    float lam = car(0, g) + wg_s[g] * cu;
-                    float mu = car(1, g) + wg_s[g] * ccu;
-                    const float rad = has_in ? r_in[gi] : 0.0f;
-                    const float radc = has_in ? rc_in[gi] : 0.0f;
-                    // the g's cloud inputs, read where the step uses them
-                    float cf = cfl, tauc = tcb, ciwp = 0.0f, clwp = 0.0f;
-                    if (!BND && cly) {
-                        cf = cl.c[0][pi];
-                        if (cf >= 0.5f) {
-                            if constexpr (FSD) {
-                                ciwp = cl.c[1][pi];
-                                clwp = cl.c[2][pi];
-                                tauc = cl.c[3][pi];
-                            } else {
-                                tauc = cl.c[1][pi];
-                            }
-                        }
-                    }
-                    const StepGrads o = g_step_bwd<MODE>(
-                        in.taut[li], in.fracs[li], bl, pl, sec[h], cf, tauc,
-                        ciwp, clwp, ai_b, al_b, cly, twin, rad, radc, lam,
-                        mu);
-                    car(0, g) = lam;
-                    car(1, g) = mu;
-                    put(gr.taut + li, o.tau, !UPW);
-                    put(gr.fracs + li, o.fr, !UPW);
-                    s_bl += o.bl;
-                    s_pl += o.pl;
-                    ct_sec[h] += o.secd;
-                    if constexpr (BND) {
-                        p += o.cf;
-                        s_c0 += o.tauc;
-                    } else if (UPW || cly) {
-                        put(gr.c[0] + pi, o.cf, !UPW);
+    for (int k = 0; k < GPT; ++k) lam[k] = mu[k] = ct_fr0[k] = 0.0f;
+
+    // out = v (up sweep) or pv + v (down sweep)
+    auto out = [](float* p, float pv, float v, bool add) {
+        *p = add ? pv + v : v;
+    };
+
+    // ---- 2. one reverse step j; FIRST: the first of the down sweep
+    // (layer 0), which adds the surface's fracs cotangent ----
+    auto step = [&](auto upward, auto first, int j) {
+        constexpr bool UPW = decltype(upward)::value;
+        constexpr bool FIRST = decltype(first)::value;
+        const int l = UPW ? L - 1 - j : j - L;
+        const int lev = UPW ? l + 1 : l;
+        unsigned char* s = slot(j);
+        auto row = [&](int off) { return reinterpret_cast<float*>(s + off); };
+        float *tau_s = row(Sl::TAU), *fr_s = row(Sl::FR),
+              *rad_s = row(Sl::RAD), *radc_s = row(Sl::RADC),
+              *pt_s = row(Sl::PT), *pf_s = row(Sl::PF),
+              *cld_s = row(Sl::CLD);
+        const float *play_s = row(Sl::PLAY), *plev_s = row(Sl::PLEV),
+                    *bc_s = row(Sl::BC);
+        mbar_wait(&full[j % G_RING], (unsigned)(j / G_RING) & 1u);
+        const bool cly = (flags[l] >> tx) & 1u;
+        const bool twin = UPW ? hi_s[tx] >= 0 : l <= hi_s[tx];
+        const bool has_in = UPW || l + 1 < L;
+        const float cu = row(Sl::CT0)[tx], ccu = row(Sl::CT1)[tx];
+        const float cfl = BND && cly ? row(Sl::CF)[tx] : 0.0f;
+#pragma unroll
+        for (int k = 0; k < GPT; ++k) {
+            const int r = ty + GY * k;
+            if (r >= nr) continue;
+            const int g = g0 + r;
+            const int e = r * GX + tx, be = rk[r] * GX + tx;
+            float lk = lam[k] + wg_s[g] * cu;
+            float mk = mu[k] + wg_s[g] * ccu;
+            const float rad = has_in ? rad_s[e] : 0.0f;
+            const float radc = has_in ? radc_s[e] : 0.0f;
+            float pt = 0.0f, pf = 0.0f;
+            if constexpr (!UPW) {
+                pt = pt_s[e];
+                pf = pf_s[e];
+            }
+            // the cloud inputs, read where the step uses them
+            float cf = cfl, tauc = 0.0f, ciwp = 0.0f, clwp = 0.0f,
+                  ai_b = 0.0f, al_b = 0.0f;
+            if (cly) {
+                if constexpr (BND) {
+                    tauc = bc_s[be];
+                } else {
+                    cf = cld_s[e];
+                    if (cf >= 0.5f) {
                         if constexpr (FSD) {
-                            put(gr.c[1] + pi, o.ciwp, !UPW);
-                            put(gr.c[2] + pi, o.clwp, !UPW);
-                            put(gr.c[3] + pi, o.tauc, !UPW);
-                            s_c0 += o.abi;
-                            s_c1 += o.abl;
+                            ciwp = cld_s[Sl::SLAB / 4 + e];
+                            clwp = cld_s[2 * Sl::SLAB / 4 + e];
+                            tauc = cld_s[3 * Sl::SLAB / 4 + e];
                         } else {
-                            put(gr.c[1] + pi, o.tauc, !UPW);
+                            tauc = cld_s[Sl::SLAB / 4 + e];
                         }
                     }
                 }
-                put(gr.play + bi, s_bl, !UPW);
-                put(gr.plev + vi, s_pl, !UPW && lev > 0);
-                // the cloud inputs' cotangents are zero outside a cloudy
-                // layer: the up sweep wrote them, the down sweep adds
-                // only in a cloudy one
-                if (UPW || cly) {
-                    if constexpr (BND) put(gr.c[1] + bi, s_c0, !UPW);
+                if constexpr (FSD) {
+                    ai_b = bc_s[be];
+                    al_b = bc_s[Sl::BAND / 4 + be];
+                }
+            }
+            const StepGrads o = g_step_bwd<MODE>(
+                tau_s[e], fr_s[e], play_s[be], plev_s[be], secd_s[be], cf,
+                tauc, ciwp, clwp, ai_b, al_b, cly, twin, rad, radc, lk, mk);
+            lam[k] = lk;
+            mu[k] = mk;
+            if (valid) {
+                const size_t gi = ((size_t)l * KG + g) * Bz + b;
+                if constexpr (UPW) {
+                    gr.taut[gi] = o.tau;
+                    gr.fracs[gi] = o.fr;
+                } else {
+                    gr.taut[gi] = pt + o.tau;
+                    gr.fracs[gi] = (FIRST ? pf + ct_fr0[k] : pf) + o.fr;
+                }
+            }
+            // the per-g values summed over the bands, over the rows read
+            tau_s[e] = o.bl;
+            fr_s[e] = o.pl;
+            rad_s[e] = o.secd;
+            if constexpr (BND) {
+                radc_s[e] = o.tauc;
+                pt_s[e] = o.cf;
+            }
+            if constexpr (FSD) {
+                radc_s[e] = o.abi;
+                pt_s[e] = o.abl;
+            }
+            // the per-g cloud cotangents, nonzero only in a cloudy layer:
+            // the up sweep stores them, the down sweep keeps them for the
+            // add below
+            if constexpr (!BND) {
+                if (cly) {
+                    float v[NCG > 0 ? NCG : 1];
+                    v[0] = o.cf;
                     if constexpr (FSD) {
-                        put(gr.c[4] + bi, s_c0, !UPW);
-                        put(gr.c[5] + bi, s_c1, !UPW);
+                        v[1] = o.ciwp;
+                        v[2] = o.clwp;
+                        v[3] = o.tauc;
+                    } else {
+                        v[1] = o.tauc;
+                    }
+                    const size_t pi =
+                        ((size_t)l * rrtm::NGPT_PAD + g) * Bz + b;
+#pragma unroll
+                    for (int q = 0; q < NCG; ++q) {
+                        if constexpr (UPW) {
+                            if (valid) gr.c[q][pi] = v[q];
+                        } else {
+                            cld_s[q * Sl::SLAB / 4 + e] = v[q];
+                        }
                     }
                 }
             }
-            // the pad rows 140-143 of the per-g cotangents
-            if (!BND && UPW && ty < rrtm::NGPT_PAD - KG) {
-                const size_t pi =
-                    ((size_t)l * rrtm::NGPT_PAD + KG + ty) * Bz + b;
+        }
+        // the per-g cloud cotangents' zeros outside the cloudy columns
+        // and in the pad rows, written by the up sweep (a warp store a
+        // 128-byte row)
+        if constexpr (UPW && !BND) {
+            for (int r = ty; r < nr; r += GY)
+                if (valid && !cly)
 #pragma unroll
-                for (int q = 0; q < (FSD ? 4 : 2); ++q) gr.c[q][pi] = 0.0f;
+                    for (int q = 0; q < NCG; ++q)
+                        gr.c[q][((size_t)l * rrtm::NGPT_PAD + g0 + r) * Bz
+                                + b] = 0.0f;
+            if (grp == NGRP - 1 && ty < rrtm::NGPT_PAD - KG && valid)
+#pragma unroll
+                for (int q = 0; q < NCG; ++q)
+                    gr.c[q][((size_t)l * rrtm::NGPT_PAD + KG + ty) * Bz
+                            + b] = 0.0f;
+        }
+        __syncthreads();          // the per-g values published
+
+        // ---- the band sums: warp k, band b0 + k, in ascending g; the
+        // down sweep adds them to the up sweep's, staged in the slot ----
+        if (ty < nb) {
+            float s_bl = 0.0f, s_pl = 0.0f, ct_sec = csec_s[tid];
+            [[maybe_unused]] float s_c0 = 0.0f, s_c1 = 0.0f;
+#pragma unroll 4
+            for (int r = goff[b0 + ty] - g0; r < goff[b0 + ty + 1] - g0;
+                 ++r) {
+                const int e = r * GX + tx;
+                s_bl += tau_s[e];
+                s_pl += fr_s[e];
+                ct_sec += rad_s[e];
+                if constexpr (BND || FSD) s_c0 += radc_s[e];
+                if constexpr (FSD) s_c1 += pt_s[e];
+            }
+            csec_s[tid] = ct_sec;
+            const int be = ty * GX + tx;
+            const size_t bi = ((size_t)l * KNB + b0 + ty) * Bz + b;
+            const size_t vi = ((size_t)lev * KNB + b0 + ty) * Bz + b;
+            if (valid) {
+                out(gr.play + bi, UPW ? 0.0f : row(Sl::PPLAY)[be], s_bl,
+                    !UPW);
+                out(gr.plev + vi, UPW || lev == 0 ? 0.0f
+                                                  : row(Sl::PPLEV)[be],
+                    s_pl, !UPW && lev > 0);
+                // the cloud inputs' cotangents are zero outside a cloudy
+                // layer: the up sweep writes them, the down sweep adds
+                // only in a cloudy one
+                if (UPW || cly) {
+                    if constexpr (BND || FSD)
+                        out(gr.c[BND ? 1 : 4] + bi,
+                            UPW ? 0.0f : row(Sl::PBC)[be], s_c0, !UPW);
+                    if constexpr (FSD)
+                        out(gr.c[5] + bi,
+                            UPW ? 0.0f : row(Sl::PBC + Sl::BAND)[be], s_c1,
+                            !UPW);
+                }
             }
         }
         if constexpr (BND) {
-            // the cloud fraction's cotangent of layer l: the lanes'
-            // partials summed in lane order
-            float* part = part_s + (j & 1) * MY * MX;
-            part[ty * MX + tx] = p;
-            __syncthreads();
-            if (tid < nvalid) {
-                float a = 0.0f;
-#pragma unroll
-                for (int y = 0; y < MY; ++y) a += part[y * MX + tid];
-                put(gr.c[0] + (size_t)l * Bz + bt + tid, a, !UPW);
+            // the group's share of the cloud fraction's cotangent of
+            // layer l, its g-points in ascending order (the last warp):
+            // the up sweep's, then plus the down sweep's
+            if (ty == GY - 1 && valid) {
+                float p = 0.0f;
+#pragma unroll 4
+                for (int r = 0; r < nr; ++r) p += pt_s[r * GX + tx];
+                float* q = share(l);
+                *q = UPW ? p : *q + p;
             }
         }
+        // the down sweep adds the up sweep's per-g cloud cotangents of a
+        // cloudy layer, loaded in one batch
+        if constexpr (!UPW && !BND) {
+            if (cly && valid) {
+                float cpart[NCG][GPT];
+#pragma unroll
+                for (int q = 0; q < NCG; ++q)
+#pragma unroll
+                    for (int k = 0; k < GPT; ++k) {
+                        const int r = ty + GY * k;
+                        if (r < nr)
+                            cpart[q][k] = gr.c[q][((size_t)l * rrtm::NGPT_PAD
+                                                   + g0 + r) * Bz + b];
+                    }
+#pragma unroll
+                for (int q = 0; q < NCG; ++q)
+#pragma unroll
+                    for (int k = 0; k < GPT; ++k) {
+                        const int r = ty + GY * k;
+                        if (r < nr)
+                            gr.c[q][((size_t)l * rrtm::NGPT_PAD + g0 + r)
+                                    * Bz + b] =
+                                cpart[q][k]
+                                + cld_s[q * Sl::SLAB / 4 + r * GX + tx];
+                    }
+            }
+        }
+        // the slot is free once every thread has arrived
+        fence_proxy_async_smem();
+        mbar_arrive(&empty[j % G_RING]);
     };
 
-    // ---- 2. up sweep in reverse: layer L-1 .. 0 ----
-    for (int j = 0; j < L; ++j) step(std::true_type{}, L - 1 - j, j);
+    issue(0);
+    if (1 < L) issue(1);
 
-    // ---- 3. surface reflection in reverse ----
-    if (valid) {
-        const float cu = ct[(size_t)UP * (L + 1) * Bz + b];
-        const float ccu = ct[(size_t)CLR_UP * (L + 1) * Bz + b];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int bd = bands[h];
-            const float pbnd = in.surf[((size_t)2 * KNB + bd) * Bz + b];
-            const float reflect = 1.0f - in.surf[((size_t)KNB + bd) * Bz + b];
-            float s_em = 0.0f, s_pb = 0.0f;
-            for (int g = goff[bd]; g < goff[bd + 1]; ++g) {
-                const size_t gi = (size_t)g * Bz + b;
-                const float lam0 = car(0, g) + wg_s[g] * cu;
-                const float mu0 = car(1, g) + wg_s[g] * ccu;
-                const float d0 = rads[S_D * LGB + gi];
-                const float dc0 = rads[S_DC * LGB + gi];
-                const float ct_rad0 = lam0 + mu0;
-                gr.fracs[gi] = gr.fracs[gi] + ct_rad0 * pbnd;
-                s_em += -(lam0 * d0 + mu0 * dc0);
-                s_pb += ct_rad0 * in.fracs[gi];
-                car(0, g) = lam0 * reflect;
-                car(1, g) = mu0 * reflect;
-            }
-            gr.surf[((size_t)KNB + bd) * Bz + b] = s_em;
-            gr.surf[((size_t)2 * KNB + bd) * Bz + b] = s_pb;
-        }
+    // ---- 3. up sweep in reverse: layer L-1 .. 0 ----
+    for (int j = 0; j < L; ++j) {
+        step(std::true_type{}, std::false_type{}, j);
+        if (j + 2 < L) issue(j + 2);
     }
 
-    // ---- 4. down sweep in reverse: layer 0 .. L-1 ----
-    for (int j = L; j < 2 * L; ++j) step(std::false_type{}, j - L, j);
-
-    // ---- 5. the secants, summed over both sweeps ----
-    if (valid) {
+    // ---- 4. surface reflection in reverse; the down sweep's first step
+    // reads the up sweep's last stores back, so it is issued after them,
+    // and its second into the slot whose rows the surface step uses ----
+    fence_proxy_async_global();
+    __syncthreads();
+    issue(L);
+    {
+        float* em = reinterpret_cast<float*>(slot(L + 1) + Sl::TAU);
+        float* pb = reinterpret_cast<float*>(slot(L + 1) + Sl::FR);
+        const float cu = valid ? ct[(size_t)UP * (L + 1) * Bz + b] : 0.0f;
+        const float ccu =
+            valid ? ct[(size_t)CLR_UP * (L + 1) * Bz + b] : 0.0f;
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-            gr.surf[(size_t)bands[h] * Bz + b] = ct_sec[h];
+        for (int k = 0; k < GPT; ++k) {
+            const int r = ty + GY * k;
+            if (r >= nr) continue;
+            const int g = g0 + r, bd = b0 + rk[r];
+            const size_t gi = (size_t)g * Bz + b;
+            const float lam0 = lam[k] + wg_s[g] * cu;
+            const float mu0 = mu[k] + wg_s[g] * ccu;
+            float pbnd = 0.0f, reflect = 0.0f, d0 = 0.0f, dc0 = 0.0f,
+                  fr0 = 0.0f;
+            if (valid) {
+                pbnd = in.surf[((size_t)2 * KNB + bd) * Bz + b];
+                reflect = 1.0f - in.surf[((size_t)KNB + bd) * Bz + b];
+                d0 = rads[S_D * LGB + gi];
+                dc0 = rads[S_DC * LGB + gi];
+                fr0 = in.fracs[gi];
+            }
+            const float ct_rad0 = lam0 + mu0;
+            ct_fr0[k] = ct_rad0 * pbnd;
+            em[r * GX + tx] = -(lam0 * d0 + mu0 * dc0);
+            pb[r * GX + tx] = ct_rad0 * fr0;
+            lam[k] = lam0 * reflect;
+            mu[k] = mu0 * reflect;
+        }
+        fence_proxy_async_smem();
+        __syncthreads();
+        if (ty < nb && valid) {
+            float s_em = 0.0f, s_pb = 0.0f;
+            for (int r = goff[b0 + ty] - g0; r < goff[b0 + ty + 1] - g0;
+                 ++r) {
+                s_em += em[r * GX + tx];
+                s_pb += pb[r * GX + tx];
+            }
+            gr.surf[((size_t)KNB + b0 + ty) * Bz + b] = s_em;
+            gr.surf[((size_t)2 * KNB + b0 + ty) * Bz + b] = s_pb;
+        }
+        __syncthreads();
+    }
+    if (L + 1 < 2 * L) issue(L + 1);
+
+    // ---- 5. down sweep in reverse: layer 0 .. L-1 ----
+    step(std::false_type{}, std::true_type{}, L);
+    if (L + 2 < 2 * L) issue(L + 2);
+    for (int j = L + 1; j < 2 * L; ++j) {
+        step(std::false_type{}, std::false_type{}, j);
+        if (j + 2 < 2 * L) issue(j + 2);
+    }
+
+    // ---- 6. the secants, summed over both sweeps ----
+    if (ty < nb && valid) gr.surf[(size_t)(b0 + ty) * Bz + b] = csec_s[tid];
+
+    // ---- 7. banded: the tile's groups add their shares of the cloud
+    // fraction's cotangent in group order, each after the one before it
+    // (whose ticket was drawn first) ----
+    if constexpr (BND) {
+        if (tid == 0) {
+            while (atomicAdd(&tcount[tile], 0) != grp) __nanosleep(256);
+            __threadfence();
+        }
+        __syncthreads();
+        for (int l = ty; l < L; l += GY) {
+            if (!valid) continue;
+            float* p = gr.c[0] + (size_t)l * Bz + b;
+            const float v = *share(l);
+            *p = grp == 0 ? v : __ldcg(p) + v;
+        }
+        __threadfence();
+        __syncthreads();
+        if (tid == 0) atomicExch(&tcount[tile], grp + 1);
     }
 }
 
@@ -453,22 +983,81 @@ cudaError_t prepare_bwd_g() {
     return e;
 }
 
+// can `p` start a tensor map's rows of B floats
+bool map_rows_ok(const void* p, int B) {
+    return ((uintptr_t)p & 15u) == 0 && B % 4 == 0;
+}
+
+// the staging each mode's last launch took (1 bulk tensor copies, 0
+// element copies, -1 none yet), for rrtm_rt_bwd_g_layout
+int g_staged[3] = {-1, -1, -1};
+int mode_row(int mode) { return mode == BANDED ? 0 : mode == FUSED ? 1 : 2; }
+
 template <int MODE>
 cudaError_t launch_bwd_g(const Inputs& in, const Clouds& cl, const int* ngb,
                          const float* wg, const float* ct, const float* rads,
-                         const GGrads& gr, cudaStream_t s) {
+                         const GGrads& gr, const GScratch& sc,
+                         cudaStream_t s) {
     cudaError_t e = prepare_bwd_g<MODE>();
     if (e != cudaSuccess) return e;
-    const dim3 block(MX, MY);
-    const dim3 grid((in.B + MX - 1) / MX);
-    rt_bwd_g_kernel<MODE><<<grid, block, GLayout::bytes(in.L), s>>>(
-        in, cl, ngb, wg, ct, rads, gr);
+    const int L = in.L, B = in.B;
+    const int ncld = MODE == FUSED ? 6 : 2;
+    // the bulk copies where every operand's rows are 16-byte aligned
+    bool vec = map_rows_ok(in.taut, B) && map_rows_ok(in.fracs, B)
+               && map_rows_ok(in.play, B) && map_rows_ok(in.plev, B)
+               && map_rows_ok(ct, B) && map_rows_ok(rads, B)
+               && map_rows_ok(gr.taut, B) && map_rows_ok(gr.fracs, B)
+               && map_rows_ok(gr.play, B) && map_rows_ok(gr.plev, B);
+    for (int i = 0; i < ncld; ++i)
+        vec = vec && map_rows_ok(cl.c[i], B) && map_rows_ok(gr.c[i], B);
+    GMaps maps{};
+    if (vec) {
+        const uint64_t lg = (uint64_t)L * KG;
+        const uint64_t lp = (uint64_t)L * rrtm::NGPT_PAD;
+        const uint64_t lb = (uint64_t)L * KNB;
+        auto map = [&](int id, const float* p, uint64_t rows, int box) {
+            return tensor_map_rows(&maps.m[id], p, rows, B, GX, box, G_L2);
+        };
+        bool ok = map(M_TAUT, in.taut, lg, GH)
+                  && map(M_FRACS, in.fracs, lg, GH)
+                  && map(M_RADS, rads, 4 * lg, GH)
+                  && map(M_GTAUT, gr.taut, lg, GH)
+                  && map(M_GFRACS, gr.fracs, lg, GH)
+                  && map(M_PLAY, in.play, lb, GH)
+                  && map(M_PLEV, in.plev, lb + KNB, GH)
+                  && map(M_CT, ct, 4 * (uint64_t)(L + 1), 1)
+                  && map(M_GPLAY, gr.play, lb, GH)
+                  && map(M_GPLEV, gr.plev, lb + KNB, GH);
+        if (MODE == BANDED) {
+            ok = ok && map(M_C0, cl.c[0], L, 1)
+                 && map(M_C0 + 1, cl.c[1], lb, GH)
+                 && map(M_GBC, gr.c[1], lb, GH);
+        } else {
+            for (int q = 0; q < (MODE == FUSED ? 4 : 2); ++q)
+                ok = ok && map(M_C0 + q, cl.c[q], lp, GH);
+            if (MODE == FUSED)
+                ok = ok && map(M_C0 + 4, cl.c[4], lb, GH)
+                     && map(M_C0 + 5, cl.c[5], lb, GH)
+                     && map(M_GBC, gr.c[4], lb, GH)
+                     && map(M_GBC1, gr.c[5], lb, GH);
+        }
+        // a map that does not encode raises (no fallback)
+        if (!ok) return cudaErrorInvalidValue;
+    }
+    // banded's shares in shared memory where they fit, else the scratch
+    GScratch sk = sc;
+    if (MODE != BANDED || GLayout<MODE>::shares_here(L)) sk.part = nullptr;
+    else if (!sk.part) return cudaErrorInvalidValue;
+    g_staged[mode_row(MODE)] = (int)vec;
+    const dim3 grid(NGRP * ((B + GX - 1) / GX));
+    rt_bwd_g_kernel<MODE><<<grid, GT, GLayout<MODE>::bytes(L), s>>>(
+        maps, in, cl, ngb, wg, ct, rads, gr, sk, (int)vec);
     return cudaGetLastError();
 }
 
 // out[0..7] = registers per thread, local memory bytes per thread, static
-// and dynamic shared memory per block (at L layers), blocks per SM, 0 (no
-// ring), threads and columns per block
+// and dynamic shared memory per block (at L layers), blocks per SM, the
+// ring's slots, threads and columns per block
 template <int MODE>
 cudaError_t info_bwd_g(int L, int* out) {
     cudaError_t e = prepare_bwd_g<MODE>();
@@ -476,19 +1065,19 @@ cudaError_t info_bwd_g(int L, int* out) {
     cudaFuncAttributes a;
     e = cudaFuncGetAttributes(&a, rt_bwd_g_kernel<MODE>);
     if (e != cudaSuccess) return e;
-    const int smem = GLayout::bytes(L);
+    const int smem = GLayout<MODE>::bytes(L);
     int blocks = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, rt_bwd_g_kernel<MODE>, MT, smem);
+        &blocks, rt_bwd_g_kernel<MODE>, GT, smem);
     if (e != cudaSuccess) return e;
     out[0] = a.numRegs;
     out[1] = (int)a.localSizeBytes;
     out[2] = (int)a.sharedSizeBytes;
     out[3] = smem;
     out[4] = blocks;
-    out[5] = 0;
-    out[6] = MT;
-    out[7] = MX;
+    out[5] = G_RING;
+    out[6] = GT;
+    out[7] = GX;
     return cudaSuccess;
 }
 
@@ -499,8 +1088,9 @@ cudaError_t info_bwd_g(int L, int* out) {
 // 140, B) the radiances K1 kept in the same step (rrtm_rt with rads, in
 // the same mode) -> ct_taut, ct_fracs (L, 140, B), ct_play (L, 16, B),
 // ct_plev (L+1, 16, B), ct_surf (3, 16, B) and g0..g5 the cloud inputs'
-// cotangents, shaped like them.  mode: BANDED, FUSED or CLDF_OD (enum
-// Mode).
+// cotangents, shaped like them.  count, tflags, tpart: the scratch
+// rrtm_rt_bwd_g_scratch sizes, count zeroed (tflags, tpart may be null
+// where it asks for none).  mode: BANDED, FUSED or CLDF_OD (enum Mode).
 RRTM_API int rrtm_rt_bwd_g(const float* taut, const float* fracs,
                            const float* play, const float* plev,
                            const float* surf, const int* ngb, const float* wg,
@@ -509,13 +1099,15 @@ RRTM_API int rrtm_rt_bwd_g(const float* taut, const float* fracs,
                            const float* ct, const float* rads, float* ct_taut,
                            float* ct_fracs, float* ct_play, float* ct_plev,
                            float* ct_surf, float* g0, float* g1, float* g2,
-                           float* g3, float* g4, float* g5, int L, int B,
+                           float* g3, float* g4, float* g5, int* count,
+                           unsigned* tflags, float* tpart, int L, int B,
                            int mode, void* stream) {
     if (L <= 0 || B <= 0) return (int)cudaGetLastError();
     const int ncld = mode == FUSED ? 6 : 2;
     const float* c[NCLD] = {c0, c1, c2, c3, c4, c5};
     float* g[NCLD] = {g0, g1, g2, g3, g4, g5};
-    if (!rads || (mode != BANDED && mode != FUSED && mode != CLDF_OD))
+    if (!rads || !count || (mode != BANDED && mode != FUSED && mode != CLDF_OD)
+        || (mode != BANDED && !tflags))
         return (int)cudaErrorInvalidValue;
     for (int i = 0; i < ncld; ++i)
         if (!c[i] || !g[i]) return (int)cudaErrorInvalidValue;
@@ -527,15 +1119,53 @@ RRTM_API int rrtm_rt_bwd_g(const float* taut, const float* fracs,
         cl.c[i] = c[i];
         gr.c[i] = g[i];
     }
+    const GScratch sc{tflags, count, tpart};
     cudaStream_t s = (cudaStream_t)stream;
     switch (mode) {
     case BANDED:
-        return (int)launch_bwd_g<BANDED>(in, cl, ngb, wg, ct, rads, gr, s);
+        return (int)launch_bwd_g<BANDED>(in, cl, ngb, wg, ct, rads, gr, sc, s);
     case FUSED:
-        return (int)launch_bwd_g<FUSED>(in, cl, ngb, wg, ct, rads, gr, s);
+        return (int)launch_bwd_g<FUSED>(in, cl, ngb, wg, ct, rads, gr, sc, s);
     default:
-        return (int)launch_bwd_g<CLDF_OD>(in, cl, ngb, wg, ct, rads, gr, s);
+        return (int)launch_bwd_g<CLDF_OD>(in, cl, ngb, wg, ct, rads, gr, sc,
+                                          s);
     }
+}
+
+// The scratch rrtm_rt_bwd_g takes in `mode` at L layers and B columns:
+// out[0] ints of count (the tickets' counter, then one a column tile),
+// out[1] words of tflags (the per-g modes: L a tile), out[2] x out[3]
+// floats of tpart (banded past L = 381: its blocks x L x GX; else 0).
+RRTM_API int rrtm_rt_bwd_g_scratch(int mode, int L, int B, int* out) {
+    const int tiles = (B + GX - 1) / GX;
+    const bool part = mode == BANDED && !GLayout<BANDED>::shares_here(L);
+    out[0] = 1 + tiles;
+    out[1] = mode == BANDED ? 0 : tiles * L;
+    out[2] = part ? NGRP * tiles : 0;
+    out[3] = part ? L * GX : 0;
+    return 0;
+}
+
+// Its tile, band groups and staging in `mode` at L layers: out[0]
+// columns a block, out[1] rows of a copy's box, out[2] NGRP, out[3 ..
+// 3 + NGRP] the first band of each group, then KNB; out[4 + NGRP] the
+// staging of this mode's last launch in the process (1 bulk tensor
+// copies, 0 element copies, -1 none yet); out[5 + NGRP] banded's
+// cloud-fraction shares at L: 1 in shared memory, 0 in the scratch (-1
+// in the other modes).
+RRTM_API int rrtm_rt_bwd_g_layout(int mode, int L, int* out) {
+    if (mode != BANDED && mode != FUSED && mode != CLDF_OD)
+        return (int)cudaErrorInvalidValue;
+    out[0] = GX;
+    out[1] = GH;
+    out[2] = NGRP;
+    const cudaError_t e =
+        cudaMemcpyFromSymbol(out + 3, GFIRST, sizeof(int) * (NGRP + 1));
+    if (e != cudaSuccess) return (int)e;
+    out[4 + NGRP] = g_staged[mode_row(mode)];
+    out[5 + NGRP] = mode != BANDED ? -1
+                    : (int)GLayout<BANDED>::shares_here(L);
+    return 0;
 }
 
 // Its launch configuration in `mode` at L layers: out[0..7] as

@@ -545,10 +545,30 @@ def _launch_bwd_g(mode, counters, x, clouds, ngb0, wg, ct, needs, rads):
     grads = [torch.empty_like(t) for t in (*x, *clouds)]
     pad = (None,) * (6 - len(clouds))
     _build.launch("rrtm_rt_bwd_g", *x, ngb0, wg, *clouds, *pad, ct, rads,
-                  *grads, *pad, L, B, MODES[mode])
+                  *grads, *pad, *k6_g_scratch(mode, L, B, dev), L, B,
+                  MODES[mode])
     for c in counters:
         c.launches += 1
     return tuple(g if n else None for g, n in zip(grads, needs))
+
+
+def k6_g_scratch(mode, L, B, device, lib=None):
+    """The scratch of K6 in the banded, fused or cldf-odcld ``mode`` at L
+    layers and B columns, as ``rrtm_rt_bwd_g_scratch`` of ``lib`` (default
+    the package's library) sizes it: (zeroed int32 counters, the tickets'
+    then one per column tile; the per-g modes' cloudy-layer words (int32)
+    or None; banded's cloud-fraction shares (float32) where they do not
+    fit shared memory, or None)."""
+    n = (ctypes.c_int * 4)()
+    lib = lib or _build.library()
+    lib.rrtm_rt_bwd_g_scratch(MODES[mode], int(L), int(B),
+                              ctypes.cast(n, ctypes.c_void_p))
+    part = n[2] * n[3]
+    return (torch.zeros(n[0], dtype=torch.int32, device=device),
+            torch.empty(n[1], dtype=torch.int32, device=device)
+            if n[1] else None,
+            torch.empty(part, dtype=torch.float32, device=device)
+            if part else None)
 
 
 def rt_sweep_banded_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
@@ -633,9 +653,27 @@ def k6_mr_info():
 def k6_g_info(mode, nlay=60):
     """K6's launch configuration in the banded, fused or cldf-odcld
     ``mode`` at ``nlay`` layers (its shared memory grows with them):
-    ``K1_INFO`` -> int (no ring: 0 levels), as ``k1_info``; needs the
-    card."""
-    return _launch_info("rrtm_rt_bwd_g_info", MODES[mode], int(nlay))
+    ``K1_INFO`` -> int (``ring_levels``: the slots of its ring), as
+    ``k1_info``, and from ``rrtm_rt_bwd_g_layout``: ``box_rows`` (of a
+    bulk copy's box), ``groups`` (the first band of each band group, then
+    16), ``staging`` (of the mode's last launch in this process: "tma",
+    "elements" or None) and ``shares_in_smem`` (banded: its cloud-fraction
+    shares in shared memory at ``nlay``, else in a scratch; None in the
+    other modes); needs the card."""
+    info = _launch_info("rrtm_rt_bwd_g_info", MODES[mode], int(nlay))
+    buf = (ctypes.c_int * 16)()
+    lib = _build.library()
+    err = lib.rrtm_rt_bwd_g_layout(MODES[mode], int(nlay),
+                                   ctypes.cast(buf, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError("rrtm_rt_bwd_g_layout: "
+                           + lib.rrtm_error_string(err).decode())
+    ngrp = buf[2]
+    staged, shares = buf[4 + ngrp], buf[5 + ngrp]
+    info.update(box_rows=buf[1], groups=tuple(buf[3:4 + ngrp]),
+                staging={1: "tma", 0: "elements"}.get(staged),
+                shares_in_smem=None if shares < 0 else bool(shares))
+    return info
 
 
 for _w in WRAPPERS.values():

@@ -9,8 +9,9 @@
 
 ``--out`` runs, on the card, K2 in all four storages with its bins, K3
 at layer and level temperatures, K4, K5 and K6 (clear and compact; both
-on seeded cotangents), the overlap rows, and K1 in all six modes at idrv
-0 and 1, on the
+on seeded cotangents; and, where the checkout has them, banded, fused
+and cldf-odcld, kept as SHA-256 digests of their outputs), the overlap
+rows, and K1 in all six modes at idrv 0 and 1, on the
 inputs of ``chip_smoke.py``'s phase 3 (``utils/profiling.py``'s
 ``mcica_cloudy``, ``band_cloudy``, ``mcica_blocked`` and ``mcica_tauc``
 cells at B=16384, L=60), K1 and K6 also on K1's edge cases
@@ -25,7 +26,8 @@ idrv and storage on the same inputs, and of compact at L=140;
 ``--k5-times`` those of K5 at L=60 and L=140;
 ``--k6-times`` those of K6 and of the K1 launch that keeps the
 radiances K6 reads, clear, compact and (where the checkout has them)
-maxrand, banded, fused and cldf-odcld at L=60; ``--overlap-times`` those of the overlap-rows kernel
+maxrand, banded, fused and cldf-odcld at L=60, the last three also at
+L=140; ``--overlap-times`` those of the overlap-rows kernel
 and (where the checkout has it) its adjoint.  The imports are
 absolute, so ``PYTHONPATH`` picks the checkout whose kernels run; only
 entry points that every checkout since reduced storage came in has are
@@ -429,7 +431,45 @@ def outputs(device) -> dict:
             grads = k6_vjp((*a[:4], surf, *cf, model.ngb0, model.wg), ct)
             out.update({f"{tag}_{name}_{i}": g for i, g in enumerate(grads)
                         if g is not None})
-    return {k: v.cpu() for k, v in out.items()}
+    out = {k: v.cpu() for k, v in out.items()}
+    for tag, a, ms in (("k6g", args, modes), ("k6g_edge", eargs, emodes)):
+        out.update(k6g_digests(tag, (*a[:4], surf), ms, model, ct))
+    return out
+
+
+def k6g_digests(tag, x, modes, model, ct) -> dict:
+    """K6 in the banded, fused and cldf-odcld modes, where the checkout
+    has them, on the sweep inputs ``x`` (taut_t, fracs_t, planklay_t,
+    planklev_t, surf) with ``modes``' clouds (``k1_cloud_args`` or
+    ``k1_edge_args``) and K1's radiances in the mode: each output of up
+    to 128 MB, and the SHA-256 of the bytes (uint8 (32,)) of each larger
+    one (the per-g cotangents), which holds two checkouts bitwise equal
+    without keeping 1-2 GB of them a case."""
+    import hashlib
+    from rrtmg_lw_torch.ops import rtrn_cuda
+    keep = getattr(rtrn_cuda, "rt_sweep_g_radiances", None)
+    if keep is None:
+        return {}
+    out = {}
+    for mode in ("banded", "fused", "cldf_od"):
+        cl = modes[mode][1]
+        cl = tuple(cl) if mode == "banded" else tuple(cl[0])
+        rads = keep(mode, *x, cl, model.ngb0, model.wg)[1]
+        if mode == "banded":
+            grads = rtrn_cuda.rt_sweep_banded_vjp(*x, *cl, model.ngb0,
+                                                  model.wg, ct, rads=rads)
+        else:
+            grads = rtrn_cuda.rt_sweep_g_vjp(*x, cl, model.ngb0, model.wg,
+                                             ct, rads=rads)
+        for i, g in enumerate(grads):
+            if g.numel() * g.element_size() <= 128 << 20:
+                out[f"{tag}_{mode}_{i}"] = g.cpu()
+                continue
+            h = hashlib.sha256(raw(g).cpu().numpy().tobytes()).digest()
+            out[f"{tag}_{mode}_{i}_sha256"] = torch.tensor(list(h),
+                                                           dtype=torch.uint8)
+        del rads, grads
+    return out
 
 
 def k1_times(device, reps=5) -> list:
@@ -532,7 +572,9 @@ def k6_times(device, reps=5) -> list:
     (the forward step's and the gradient step's launch) and of K6 fed
     them, clear and compact, on phase 3's inputs (B=16384, L=60), and
     where the checkout has them maxrand and banded on the band_cloudy
-    cell's clouds, fused on mcica_blocked's, cldf-odcld on mcica_tauc's.
+    cell's clouds, fused on mcica_blocked's, cldf-odcld on mcica_tauc's,
+    the last three also at L=140 (``g_cloud_args`` on the
+    mcica_cloudy_deep cell's atmosphere).
     In a checkout whose K6 sweeps forward itself, K6 alone (k1_save_ms
     None).  -> [{mode, nlay, k1_ms, k1_save_ms, k6_ms}]."""
     from rrtmg_lw_torch.ops import rtrn, rtrn_cuda
@@ -580,32 +622,82 @@ def k6_times(device, reps=5) -> list:
     keep_g = getattr(rtrn_cuda, "rt_sweep_g_radiances", None)
     if keep_g is not None:
         # banded on the band_cloudy cell's clouds, fused on
-        # mcica_blocked's, cldf-odcld on mcica_tauc's
-        for mode, (w, cl) in k1_cloud_args(device, x["static"],
-                                           x["mc"]).items():
-            if mode not in ("banded", "fused", "cldf_od"):
-                continue
-            cl = tuple(cl) if mode == "banded" else tuple(cl[0])
-            a = (*args[:4], surf)
-            row = dict(mode=mode, nlay=args[0].shape[0], k1_ms=kernel_ms(
-                lambda: rtrn_cuda.WRAPPERS[w](*args, *(
-                    cl if mode == "banded" else (cl,))), "rt_kernel", reps),
-                k1_save_ms=kernel_ms(lambda: keep_g(mode, *a, cl,
-                                                    model.ngb0, model.wg),
-                                     "rt_kernel", reps))
-            rads = keep_g(mode, *a, cl, model.ngb0, model.wg)[1]
-            if mode == "banded":
-                def run():
-                    rtrn_cuda.rt_sweep_banded_vjp(*a, *cl, model.ngb0,
-                                                  model.wg, ct, rads=rads)
-            else:
-                def run():
-                    rtrn_cuda.rt_sweep_g_vjp(*a, cl, model.ngb0, model.wg,
-                                             ct, rads=rads)
-            row["k6_ms"] = kernel_ms(run, "rt_bwd_g_kernel", reps)
-            rows.append(row)
-            print(row, flush=True)
-            del rads
+        # mcica_blocked's, cldf-odcld on mcica_tauc's; then the same
+        # clouds at L=140 on the mcica_cloudy_deep cell's atmosphere
+        cells = {m: tuple(cl) if m == "banded" else tuple(cl[0])
+                 for m, (_, cl) in k1_cloud_args(device, x["static"],
+                                                 x["mc"]).items()
+                 if m in G_MODES}
+        rows += g_times(device, args, surf, model, ct, cells, keep_g, reps)
+        del cells
+        xd = sweep_inputs(device, "mcica_cloudy_deep")
+        sd = rtrn.surf_rows(xd["sc"].plankbnd, xd["prof"].semiss,
+                            xd["prof"].pwvcm, torch.float32)
+        Ld, _, Bd = xd["args"][0].shape
+        cd = torch.randn((4, Ld + 1, Bd), generator=gen, device=device)
+        rows += g_times(device, xd["args"], sd, model, cd,
+                        g_cloud_args(device, x["static"], Ld), keep_g, reps)
+    return rows
+
+
+G_MODES = ("banded", "fused", "cldf_od")
+
+
+def g_cloud_args(device, static, nlay) -> dict:
+    """The clouds of ``k1_cloud_args``' banded, fused and cldf-odcld modes
+    at ``nlay`` layers (the band_cloudy, mcica_blocked and mcica_tauc
+    cells' generators and seeds): {mode: cloud tensors}."""
+    import numpy as np
+
+    from rrtmg_lw_torch.ops import cldprop
+    from rrtmg_lw_torch.types import BandClouds, McicaCloudsBlocked
+    from rrtmg_lw_torch.utils.profiling import NCOL
+    from rrtmg_lw_torch.utils.synthetic import (make_band_clouds,
+                                                make_mcica_clouds)
+    bc = BandClouds.from_numpy(make_band_clouds(NCOL, nlay, seed=1), device,
+                               torch.float32)
+    taucb, _ = cldprop.cldprop_banded_blocked(bc, static, inflag=2,
+                                              iceflag=3, liqflag=1)
+    cb = McicaCloudsBlocked.from_numpy(
+        make_mcica_clouds(NCOL, nlay, seed=2, dtype=np.float32,
+                          layout="blocked"), device, torch.float32)
+    abi, abl = cldprop.ice_liq_coeffs_blocked(cb.reicmc, cb.relqmc, 3, 1,
+                                              static)
+    tc = cb._replace(taucmc=cb.cldfmc * (0.05 * cb.ciwpmc
+                                         + 0.1 * cb.clwpmc))
+    odc, cfc, _ = cldprop.cldprmc_blocked(tc, static, inflag=0, iceflag=3,
+                                          liqflag=1)
+    return {"banded": (bc.cldfrac.t().contiguous(), taucb),
+            "fused": (*cb[:4], abi, abl), "cldf_od": (cfc, odc)}
+
+
+def g_times(device, args, surf, model, ct, clouds, keep_g, reps) -> list:
+    """``k6_times``' rows of the banded, fused and cldf-odcld modes on the
+    sweep arguments ``args`` with ``clouds`` ({mode: cloud tensors}): K1
+    without and with the radiances kept, and K6 fed them."""
+    from rrtmg_lw_torch.ops import rtrn_cuda
+    rows = []
+    for mode, cl in clouds.items():
+        a = (*args[:4], surf)
+        fields = cl if mode == "banded" else (cl,)
+        row = dict(mode=mode, nlay=args[0].shape[0], k1_ms=kernel_ms(
+            lambda: rtrn_cuda.WRAPPERS[mode](*args, *fields), "rt_kernel",
+            reps), k1_save_ms=kernel_ms(lambda: keep_g(mode, *a, cl,
+                                                       model.ngb0, model.wg),
+                                        "rt_kernel", reps))
+        rads = keep_g(mode, *a, cl, model.ngb0, model.wg)[1]
+        if mode == "banded":
+            def run():
+                rtrn_cuda.rt_sweep_banded_vjp(*a, *cl, model.ngb0, model.wg,
+                                              ct, rads=rads)
+        else:
+            def run():
+                rtrn_cuda.rt_sweep_g_vjp(*a, cl, model.ngb0, model.wg, ct,
+                                         rads=rads)
+        row["k6_ms"] = kernel_ms(run, "rt_bwd_g_kernel", reps)
+        rows.append(row)
+        print(row, flush=True)
+        del rads
     return rows
 
 
@@ -733,7 +825,14 @@ def main(argv=None) -> int:
             eq = (k in b and a[k].dtype == b[k].dtype
                   and torch.equal(raw(a[k]), raw(b[k])))
             same &= eq
-            print(f"{k}: {'bitwise equal' if eq else 'DIFFERS'}")
+            diff = ""
+            if (not eq and k in b and a[k].is_floating_point()
+                    and a[k].shape == b[k].shape):
+                d = float((a[k].double() - b[k].double()).abs().max())
+                diff = (f" (max |diff| {d:.3g}, "
+                        f"{d / max(float(a[k].abs().max()), 1e-300):.3g} of"
+                        " max |first|)")
+            print(f"{k}: {'bitwise equal' if eq else 'DIFFERS'}{diff}")
         print("all bitwise equal" if same else "outputs differ")
         return 0 if same else 1
     return 0

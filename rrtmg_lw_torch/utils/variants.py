@@ -10,13 +10,14 @@ nvcc each, all started together beside the builds of both checkouts'
 packages, so a variant costs seconds.  Every entry function's ptxas line
 (registers, spill stores) of the two package builds is compared.  On the
 kernel's cases, every library's outputs, and the package wrapper's, are
-held bitwise against the parent's and against a second run of their
-own; then each library is timed with CUDA events (mean of 5 launches
-after one) on the first two cases in turns, parent, this,
-variants, variants, this, parent.  A library that exports the kernel's
-debug symbol (a ``prof`` variant: per-phase clock sums) has its sums
-printed as shares.  Exits non-zero unless this checkout's kernel is
-bitwise the parent's.
+held bitwise against the parent's (but the outputs the kernel names
+loose, whose largest difference is printed) and against a second run of
+their own; then each library is timed with CUDA events (mean of 5 launches
+after one) on the kernel's first ``ntimed`` cases (two unless it says)
+in turns, parent, this, variants, variants, this, parent.  A library
+that exports the kernel's debug symbol (a ``prof`` variant: per-phase
+clock sums) has its sums printed as shares.  Exits non-zero unless this
+checkout's kernel is bitwise the parent's.
 """
 
 from __future__ import annotations
@@ -51,6 +52,11 @@ class Kernel:
     dbg: str = ""      # debug symbol (out, reset), in a prof variant
     phases: tuple = ()  # the debug symbol's clock sums, one row
     dbg_row: Callable = lambda tag: 0   # case tag -> row of the sums
+    ntimed: int = 2    # the first cases, timed
+    # (case tag, output index) -> may this output differ from the
+    # parent's (a sum the design takes in another order): its largest
+    # difference is printed instead
+    loose: Callable = lambda tag, i: False
 
 
 def event_ms(fn, n=5):
@@ -172,19 +178,27 @@ def main(kernel, argv=None, doc=None) -> int:
     dev = torch.device("cuda", 0)
     cs = kernel.cases(dev)
     ok = True
+    def same(tag, got, ref):
+        return all(torch.equal(g, r) for i, (g, r) in enumerate(zip(got, ref))
+                   if not kernel.loose(tag, i))
+
+    def max_rel(got, ref, idx):
+        return max((float((got[i] - ref[i]).abs().max()
+                          / ref[i].abs().max()) for i in idx), default=0.0)
+
     for tag, case in cs:
         ref = kernel.run(libs["parent"], case)
-        res = {"package": all(torch.equal(p, r) for p, r in
-                              zip(kernel.package(case), ref))}
+        loose = [i for i in range(len(ref)) if kernel.loose(tag, i)]
+        res = {"package": same(tag, kernel.package(case), ref)}
         for name, lib in libs.items():
             got, again = (kernel.run(lib, case) for _ in range(2))
-            res[name] = all(torch.equal(g, r) for g, r in zip(got, ref))
+            res[name] = same(tag, got, ref)
             res[name + " rerun"] = all(torch.equal(g, h)
                                        for g, h in zip(got, again))
             if not res[name]:
-                res[name + " max rel"] = max(
-                    float((g - r).abs().max() / r.abs().max())
-                    for g, r in zip(got, ref))
+                res[name + " max rel"] = max_rel(got, ref, range(len(ref)))
+            if loose:
+                res[name + " loose max rel"] = max_rel(got, ref, loose)
         ok &= res["package"] and res["this"]
         print(tag, json.dumps(res), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -193,7 +207,7 @@ def main(kernel, argv=None, doc=None) -> int:
     print(smi)
     names = list(libs)
     times = {}
-    for tag, case in cs[:2]:
+    for tag, case in cs[:kernel.ntimed]:
         for name in names + names[::-1]:
             t = event_ms(lambda: kernel.run(libs[name], case))
             times.setdefault(tag, {}).setdefault(name, []).append(t)
@@ -203,8 +217,8 @@ def main(kernel, argv=None, doc=None) -> int:
         if not (kernel.dbg and hasattr(lib, kernel.dbg)):
             continue
         dbg = getattr(lib, kernel.dbg)
-        buf = (ctypes.c_ulonglong * 16)()
-        for tag, case in cs[:2]:
+        buf = (ctypes.c_ulonglong * 64)()
+        for tag, case in cs[:kernel.ntimed]:
             dbg(buf, 1)
             kernel.run(lib, case)
             torch.cuda.synchronize()

@@ -645,9 +645,11 @@ def _g_case(dev, args, mode, clouds, seed=3):
     on the sweep inputs ``args`` and the mode's ``clouds``: K1's fluxes
     bitwise those of its launch without the radiances, the radiances
     within 1e-5 of max |plain|; K6 within 1e-3 of max |plain vjp| per
-    output, its pad rows zero, bitwise over two runs; K6 without the
-    radiances raises."""
-    from rrtmg_lw_torch.ops.rtrn_cuda import (rt_sweep_banded_vjp,
+    output, its pad rows zero, bitwise over two runs, staged as
+    ``k6_g_info`` says its launch was (bulk tensor copies where B is a
+    multiple of 4); K6 without the radiances raises."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import (k6_g_info,
+                                              rt_sweep_banded_vjp,
                                               rt_sweep_g_radiances,
                                               rt_sweep_g_vjp)
     taut, fr, play, plev, plankbnd, semiss, pwvcm, ngb0, wg = args
@@ -683,14 +685,24 @@ def _g_case(dev, args, mode, clouds, seed=3):
         if g.dim() == 3 and g.shape[1] == 144:
             assert not bool(g[:, 140:].any()), (mode, i)
     assert all(torch.equal(g, h) for g, h in zip(got, k6(rads=rads)))
+    assert k6_g_info(mode, L)["staging"] == ("tma" if B % 4 == 0
+                                             else "elements")
 
 
 @pytest.mark.parametrize("B,L,pattern", [(37, 13, "decks"), (5, 1, "mixed"),
                                          (33, 7, "clear"), (40, 140, "mixed"),
-                                         (16, 9, "overcast")])
+                                         (16, 9, "overcast"), (31, 5, "decks"),
+                                         (32, 6, "mixed"),
+                                         (64, 4, "overcast"),
+                                         (36, 60, "decks"), (20, 2, "mixed"),
+                                         (36, 400, "decks")])
 def test_rt_g_adjoint_matches_plain_vjp(dev, B, L, pattern):
     """``_g_case`` in the banded, fused and cldf-odcld modes: B off and on
-    K6's 32-column tile, one layer, all clear, past K1's ring."""
+    K6's 32-column tile (31, 32, 33, 64), one layer, all clear, past K1's
+    ring; rows staged by the bulk tensor copies (B a multiple of 4: 16,
+    20, 32, 36, 40, 64; a ragged last tile at 16, 20, 36, 40) and element
+    by element (5, 31, 33, 37), as ``k6_g_info`` reports; at L = 400
+    banded keeps its cloud-fraction shares in the launch's scratch."""
     args, _, _ = _sweep_inputs(dev, B, L)
     clouds, _ = _g_clouds(dev, B, L, pattern, _model(dev).static_tensors())
     for mode in G_MODES:
@@ -714,7 +726,11 @@ def test_rt_g_adjoint_on_k1_edge_cases(dev, B, L):
 def test_rt_g_adjoint_launch_configuration(dev):
     """K1 keeping the radiances in every mode fits two blocks per SM with
     no local memory; K6 banded, fused and cldf-odcld: 256-thread blocks
-    of 32 columns, two a SM at L = 60 and 140, no local memory."""
+    of 32 columns, a group of whole bands each (groups covering the 16
+    bands), copies in boxes of 8 rows, a ring of two slots or more, two
+    blocks a SM at L = 60, 140 and 400, no local memory; banded's
+    cloud-fraction shares in shared memory at L = 60 and 140, in the
+    scratch at 400."""
     from rrtmg_lw_torch.ops.rtrn_cuda import MODES, k1_info, k6_g_info
     for mode in MODES:
         for idrv in (0, 1):
@@ -722,11 +738,16 @@ def test_rt_g_adjoint_launch_configuration(dev):
             assert info["local_bytes"] == 0, (mode, idrv, info)
             assert info["blocks_per_sm"] >= 2, (mode, idrv, info)
     for mode in G_MODES:
-        for nlay in (60, 140):
+        for nlay in (60, 140, 400):
             info = k6_g_info(mode, nlay)
             assert info["threads"] == 256 and info["columns"] == 32, info
+            assert info["box_rows"] == 8 and info["groups"][0] == 0, info
+            assert info["groups"][-1] == 16, info
+            assert info["ring_levels"] >= 2, info
             assert info["blocks_per_sm"] >= 2, (mode, nlay, info)
             assert info["local_bytes"] == 0, (mode, info)
+            assert info["shares_in_smem"] == (
+                (nlay < 400) if mode == "banded" else None), (mode, info)
 
 
 G_STEPS = {"banded": (dict(icld=1, imca=0), "band"),

@@ -734,6 +734,59 @@ def test_rt_sweep_plain_per_g_modes_match_jax(pair, inflag):
                            np.asarray(ref.totuclfl))
 
 
+@pytest.mark.parametrize("inflag", [0, 2])
+def test_rt_sweep_g_vjp_cloud_cotangents_zero_outside_cloudy_layers(
+        pair, inflag):
+    """The plain per-g vjp (``rtrn.rt_sweep_g_vjp``, the reference of K6
+    in the fused (inflag=2) and cldf-odcld (inflag=0) modes): the
+    cotangents of the per-g cloud fields are exactly zero in every layer
+    of a column where no g-point has cldf >= 0.5 (layers with fractions
+    in (0, 0.5) included) and in the pad rows 140-143; the cloud
+    fraction's is not all zero in the cloudy layers (fused's tauc has
+    none where the water paths set the od, here everywhere).  K6 writes
+    only the cloudy layers of a zeroed allocation, which rests on
+    this."""
+    from rrtmg_lw_torch import McicaCloudsBlocked
+    tm, tsc, tprof = pair["tm"], pair["tsc"], pair["tprof"]
+    jargs, _ = _rt_case(pair)
+
+    def blocked(x):
+        return torch.as_tensor(np.array(x)).permute(1, 2, 0).contiguous()
+
+    tblk = McicaCloudsBlocked.from_numpy(
+        mcica_per_g_np(B, L, layout="blocked"), "cpu")
+    static = tm.static_tensors()
+    if inflag == 2:
+        abi, abl, _ = cldprop.cloud_optics_bands_blocked(
+            tblk, static, iceflag=3, liqflag=1)
+        fields = [*tblk[:4], abi, abl]
+    else:
+        tauc, cldf, _ = cldprop.cldprmc_blocked(tblk, static, inflag=0,
+                                                iceflag=3, liqflag=1)
+        fields = [cldf, tauc]
+    # cloud fractions below the gate in the two lowest layers, cloud-free
+    # in the generator's decks
+    rng = np.random.default_rng(8)
+    cf = fields[0].clone()
+    assert not bool((cf[:2] > 0).any())
+    cf[:2, :140] = torch.as_tensor(
+        np.where(rng.random((2, 140, B)) < 0.3, 0.3, 0.0))
+    fields[0] = cf
+    x = tuple(blocked(a) for a in jargs[:4]) + (
+        rtrn.surf_rows(tsc.plankbnd, tprof.semiss, tprof.pwvcm,
+                       torch.float64),)
+    ct = torch.as_tensor(rng.standard_normal((4, L + 1, B)))
+    grads = rtrn.rt_sweep_g_vjp(*x, tuple(fields), tm.ngb0, tm.wg, ct)
+    cloudy = (cf[:, :140] >= 0.5).any(1)                      # (L, B)
+    assert bool(cloudy.any()) and not bool(cloudy.all())
+    per_g = [g for g in grads[5:] if g.shape[1] == 144]
+    assert len(per_g) == (4 if inflag == 2 else 2)
+    for g in per_g:
+        assert not bool(g[:, 140:].any())
+        assert not bool(g.permute(0, 2, 1)[~cloudy].any())   # (L, B, 144)
+    assert bool(per_g[0].permute(0, 2, 1)[cloudy].any())
+
+
 @pytest.mark.parametrize("Be", [37, 64])
 def test_rt_sweep_plain_edge_cases_match_jax(pair, Be):
     """The plain cldf-odcld sweep (K1's per-g layout) at idrv 0 and 1 on

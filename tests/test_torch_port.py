@@ -812,15 +812,13 @@ def test_cuda_wrappers_plain_route_in_storage(monkeypatch, spec):
 
 
 def test_maxrand_adjoint_band_pairs_cover_every_band():
-    """The g-lanes of K6 maxrand and of K6 in the banded, fused and
-    cldf-odcld modes (csrc/band_lanes.cuh PAIR, which rtrn_bwd_mr.cu and
-    rtrn_bwd_g.cu include; two bands each, so that a band's sums stay in
-    one thread) cover the 16 bands once, each lane 16-20 g-points of the
-    140."""
+    """The g-lanes of K6 maxrand (csrc/band_lanes.cuh PAIR, which
+    rtrn_bwd_mr.cu includes; two bands each, so that a band's sums stay
+    in one thread) cover the 16 bands once, each lane 16-20 g-points of
+    the 140."""
     csrc = os.path.join(REPO, "rrtmg_lw_torch", "csrc")
-    for name in ("rtrn_bwd_mr.cu", "rtrn_bwd_g.cu"):
-        assert '#include "band_lanes.cuh"' in open(
-            os.path.join(csrc, name)).read(), name
+    assert '#include "band_lanes.cuh"' in open(
+        os.path.join(csrc, "rtrn_bwd_mr.cu")).read()
     mr = open(os.path.join(csrc, "band_lanes.cuh")).read()
     my = int(re.search(r"\nconstexpr int MY = (\d+);", mr).group(1))
     pairs = [tuple(int(x) for x in p) for p in re.findall(
@@ -992,20 +990,83 @@ def test_random_overlap_grad_wrappers_send_cpu_tensors_to_plain_versions(
 
 
 def test_random_overlap_adjoint_fits_the_card():
-    """K6 banded / fused / cldf-odcld (csrc/rtrn_bwd_g.cu): its shared
-    memory, the two carries of every (g, column), the lanes' partials,
-    the g tables and the cloudy-layer flags (L bytes a column), fits two
-    blocks per SM up to L = 140 and more."""
-    src = open(os.path.join(REPO, "rrtmg_lw_torch", "csrc",
-                            "rtrn_bwd_g.cu")).read()
-    assert "__launch_bounds__(MT, G_BLOCKS_PER_SM)" in src
-    assert re.search(r"constexpr int G_BLOCKS_PER_SM = 2;", src)
-    kg, mx, my, knb = 140, 32, 8, 16
+    """K6 banded / fused / cldf-odcld (csrc/rtrn_bwd_g.cu): blocks of 32
+    columns x 8 warps (256 threads) launched two to an SM
+    (``__launch_bounds__(GT, G_BLOCKS_PER_SM)``), each taking one of the
+    groups of whole bands GFIRST cuts (contiguous, together the 16 bands
+    once, each at most GR g-points and GNB bands); a ring of two slots or
+    more; the shared memory of each mode, recomputed here from the slot
+    layout (the group's per-g rows in boxes of GH, the band blocks of GH
+    rows, the down sweep's partials, the flux rows, all at 128-byte
+    boundaries, and the rest: barriers, the block's ticket, g tables,
+    the bands' secants and their cotangents, each column's highest
+    cloudy layer, the cloudy layers' words, banded's cloud-fraction shares (L x
+    32 floats) while two blocks still fit an SM with them, else none (they
+    go to the launch's scratch), 128 bytes of alignment), equals the
+    header's budget at L = 140 (which the source's static_assert holds to
+    its layout) and fits two blocks per SM, with the 1 KB reserved each,
+    at L = 60, 140 and 1,000; banded keeps its shares in shared memory at
+    L = 60 and 140."""
+    csrc = os.path.join(REPO, "rrtmg_lw_torch", "csrc")
+    src = open(os.path.join(csrc, "rtrn_bwd_g.cu")).read()
+    tile = open(os.path.join(csrc, "rtrn.cuh")).read()
+
+    def const(text, name):
+        return re.search(r"\nconstexpr int %s = (.+?);" % name,
+                         text).group(1)
+
+    assert "__launch_bounds__(GT, G_BLOCKS_PER_SM)" in src
+    gx, gy = int(const(src, "GX")), int(const(src, "GY"))
+    assert const(src, "GT") == "GX * GY"
+    ngrp, gr, gh = (int(const(src, n)) for n in ("NGRP", "GR", "GH"))
+    assert const(src, "GNB") == "GH"
+    blocks = int(const(src, "G_BLOCKS_PER_SM"))
+    ring = int(const(src, "G_RING"))
+    kg, knb = 140, 16
+    assert (gx, gy, blocks) == (32, 8, 2) and ring >= 2
+    first = [int(x) if x != "KNB" else knb for x in re.search(
+        r"GFIRST\[NGRP \+ 1\] = \{(.*?)\};", src).group(1).split(", ")]
+    assert len(first) == ngrp + 1 and first[0] == 0 and first[-1] == knb
+    ng = np.bincount(np.asarray(tkt.load_static()["ngb"]) - 1,
+                     minlength=knb)
+    for a, b in zip(first, first[1:]):
+        assert 0 < b - a <= gh and ng[a:b].sum() <= gr, (a, b)
+    assert gy > gh - 1          # a warp per band of a group, one more
+    sm = int(const(tile, "SMEM_SM"))
+    reserved = int(const(tile, "SMEM_RESERVED"))
 
     def align16(v):
         return (v + 15) & ~15
-    fixed = align16(2 * kg * mx * 4 + 2 * my * mx * 4 + 2 * kg * 4
-                    + (knb + 1) * 4)
-    smem_sm, reserved = 233472, 1024
-    for nlay in (60, 140, 1000):
-        assert 2 * (fixed + align16(nlay * mx) + reserved) <= smem_sm, nlay
+
+    def smem(mode, nlay):
+        ncg = {"banded": 0, "cldf_od": 2, "fused": 4}[mode]
+        nbc = {"banded": 1, "cldf_od": 0, "fused": 2}[mode]
+        row = gx * 4
+        slab = -(-gr // gh) * gh * row
+        band = gh * row
+        slot = ((6 + ncg) * slab + 2 * (2 + nbc) * band + 2 * row
+                + (row if mode == "banded" else 0))
+        assert row % 128 == 0 and slot % 128 == 0
+        rest = align16((2 * ring + 1) * 8 + 8 + kg * 4 + (knb + 1) * 4
+                       + gr * 4)
+        rest += 2 * gh * gx * 4 + gx * 4 + align16(nlay * 4)
+        shares = nlay * gx * 4
+        here = (mode == "banded"
+                and blocks * (ring * slot + rest + shares + 128 + reserved)
+                <= sm)
+        return ring * slot + rest + (shares if here else 0) + 128, here
+
+    budget = [int(x) for x in re.search(
+        r"constexpr int SMEM_BWD_G\[3\] = \{(\d+), (\d+), (\d+)\};",
+        src).groups()]
+    table = re.search(r"total at L = 140 \(SMEM_BWD_G\) +([\d,]+) +"
+                      r"([\d,]+) +([\d,]+)\n", src)
+    assert [int(x.replace(",", "")) for x in table.groups()] == budget
+    modes = ("banded", "cldf_od", "fused")
+    assert [smem(m, 140)[0] for m in modes] == budget
+    assert smem("banded", 60)[1] and smem("banded", 140)[1]
+    for mode in modes:
+        for nlay in (60, 140, 1000):
+            assert smem(mode, nlay)[0] <= 227 * 1024
+            assert blocks * (smem(mode, nlay)[0] + reserved) <= sm, (mode,
+                                                                     nlay)
