@@ -813,11 +813,12 @@ def new_build_info(log_path):
     need(sorted(out) == sorted(names.values())
          and all(len(r) == 2 for r in out.values()),
          f"new kernels: {sorted(out)} in the build log")
-    infos = {"rt_adjoint_maxrand": k6_mr_info()}
+    infos = {"rt_adjoint_maxrand": k6_mr_info(L_MAIN)}
     infos.update({f"rt_adjoint_{m}": k6_g_info(m, L_MAIN)
                   for m in ("banded", "fused", "cldf_od")})
-    deep = {f"rt_adjoint_{m}": k6_g_info(m, L_DEEP)
-            for m in ("banded", "fused", "cldf_od")}
+    deep = {"rt_adjoint_maxrand": k6_mr_info(L_DEEP)}
+    deep.update({f"rt_adjoint_{m}": k6_g_info(m, L_DEEP)
+                 for m in ("banded", "fused", "cldf_od")})
     for name, info in infos.items():
         need(info["registers"] == out[name]["registers"],
              f"{name}: registers at run time differ from ptxas'")
@@ -825,7 +826,7 @@ def new_build_info(log_path):
                          + info["dynamic_smem"],
                          blocks_per_sm=info["blocks_per_sm"])
     for name, info in deep.items():
-        # K6-g: its tile and ring at L_DEEP
+        # K6 maxrand and K6-g: the tile and ring at L_DEEP
         out[name].update(threads=info["threads"], columns=info["columns"],
                          ring_slots=info["ring_levels"],
                          smem_bytes_deep=info["static_smem"]
@@ -1372,22 +1373,25 @@ def maxrand_grad_kernels(device, model, args, surf, randn):
     ngb0, wg) and the band_cloudy cell's clouds (make_band_clouds, and
     mixed_clouds' fractions varying inside the decks): the overlap
     adjoint within TOL_BWD of the plain vjp of rtrnmr.overlap_rows; K1
-    keeping the maxrand state, its fluxes bitwise K1's and the state
-    within TOL_RADS of the plain sweep's (the sub-streams where K1 keeps
-    them, ``rtrn.kept_state``), there and on K1's edge cases; K6 maxrand
-    fed that state within TOL_BWD_RT of the plain vjp of
-    rtrn.rt_sweep_maxrand on the first B_SUB columns, zeros in the flag
-    rows, and raising without the state; each kernel bitwise over two
-    runs (K6's second with NaN in the sub-streams K1 does not keep).  -> the three kernels' summary entries (K1's and K6's
+    keeping the maxrand state (the radiances and the packed sub-streams),
+    its fluxes bitwise K1's and the state within TOL_RADS of the plain
+    sweep's, compared unpacked (``rtrn.unpack_state``), there and on K1's
+    edge cases; K6 maxrand fed that state within TOL_BWD_RT of the plain
+    vjp of rtrn.rt_sweep_maxrand on the first B_SUB columns, zeros in the
+    flag rows, and raising without the state; each kernel bitwise over
+    two runs (K6's second with NaN in the slots past each column's
+    count); K1 keeping the state and K6 also at B = 37 (element copies)
+    and at L_DEEP.  -> the three kernels' summary entries (K1's and K6's
     device ms come from grad_device_times)."""
     from rrtmg_lw_torch.ops import cldprop, rtrn, rtrnmr
     from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_blocked
-    from rrtmg_lw_torch.ops.rtrn_cuda import (rt_fluxes_maxrand,
+    from rrtmg_lw_torch.ops.rtrn_cuda import (k6_mr_info, rt_fluxes_maxrand,
                                               rt_sweep_maxrand_radiances,
                                               rt_sweep_maxrand_vjp)
     from rrtmg_lw_torch.ops.rtrnmr_cuda import (overlap_rows,
                                                 overlap_rows_vjp)
-    from rrtmg_lw_torch.utils.snapshot import k1_edge_args, rotating
+    from rrtmg_lw_torch.utils.snapshot import (g_cloud_args, k1_edge_args,
+                                               rotating, sweep_inputs)
     static = model.static_tensors()
     ngb0, wg = args[7:]
     _, bc = inputs("band_cloudy", device)
@@ -1427,7 +1431,9 @@ def maxrand_grad_kernels(device, model, args, surf, randn):
     res["overlap_bwd"].update(max_abs_err=max(a for a, _ in errs),
                               max_rel_err=max(r for _, r in errs))
 
-    # K1 keeping the maxrand state and K6 maxrand
+    # K1 keeping the maxrand state and K6 maxrand: phase 3's inputs with
+    # both clouds, K1's edge cases, a ragged edge (B = 37: element
+    # copies) and L_DEEP
     cases = []
     for tag, b in fields:
         taucb, _ = cldprop.cldprop_banded_blocked(
@@ -1436,55 +1442,93 @@ def maxrand_grad_kernels(device, model, args, surf, randn):
         cases.append((tag, args, overlap_rows(b.cldfrac), taucb))
     eargs, emodes, _ = k1_edge_args(device, static, args)
     cases.append(("edge", eargs, *emodes["maxrand"][1]))
-    ct = randn(4, L_MAIN + 1, B_MAIN)
+
+    def cut(t, n=37):
+        """the first n columns of an (L, *, B) or (B, *) input"""
+        if t.dim() == 3:
+            return t[..., :n].contiguous()
+        return t[:n].contiguous() if t.shape[0] == B_MAIN else t
+    cases.append(("B=37", tuple(cut(t) for t in args),
+                  *(cut(t) for t in cases[0][2:])))
+    xd = sweep_inputs(device, "mcica_cloudy_deep")
+    cfd, taucbd = g_cloud_args(device, static, L_DEEP)["banded"]
+    cases.append((f"L={L_DEEP}", xd["args"],
+                  overlap_rows(cfd.t().contiguous()), taucbd))
     sub = slice(0, B_SUB)
     save_errs, out, ref = [], [], []
     for tag, a9, rows, taucb in cases:
-        a = (*a9[:4], surf, rows, taucb, ngb0, wg)
-        fk, rads = rt_sweep_maxrand_radiances(*a)
+        L, _, B = a9[0].shape
+        sf = surf if a9 is args or a9 is eargs else rtrn.surf_rows(
+            *a9[4:7], torch.float32)
+        a = (*a9[:4], sf, rows, taucb, ngb0, wg)
+        ct = randn(4, L + 1, B)
+        fk, rads, subs = rt_sweep_maxrand_radiances(*a)
         need(torch.equal(fk, rt_fluxes_maxrand(*a9, rows, taucb)),
              f"rt_sweep_save_maxrand ({tag}): fluxes differ from K1's "
              "without the state")
-        # K1 writes the sub-streams only where K6 reads them: the rest of
-        # the state is compared zeroed
-        need(torch.equal(rtrn.kept_state(rads, rows), rtrn.kept_state(
-            rt_sweep_maxrand_radiances(*a)[1], rows)),
+        _, counts = rtrn.substream_slots(rows)
+        K = rtrn.kept_depth(counts)
+        need(subs.shape == (2, 3, K, 140, B),
+             f"rt_sweep_save_maxrand ({tag}): packed sub-streams "
+             f"{tuple(subs.shape)}, expected K = {K} slots")
+        # K1 writes a column's slots up to its count: two runs compared
+        # there, the state against the plain one unpacked, in chunks of
+        # B_CHUNK columns (at L_DEEP the first B_SUB)
+        past = (torch.arange(K, device=device)[None, :, None]
+                >= counts[:, None, :])[:, None, :, None, :]
+        _, rads2, subs2 = rt_sweep_maxrand_radiances(*a)
+        need(torch.equal(rads, rads2) and torch.equal(
+            subs.masked_fill(past, 0.0), subs2.masked_fill(past, 0.0)),
              f"rt_sweep_save_maxrand ({tag}): two runs differ")
-        _, rads_p = rtrn.rt_sweep_maxrand(*a, radiances=True)
-        e = rel_err(rads, rads_p)
-        need(bool(torch.isfinite(rads).all()) and e <= TOL_RADS,
+        del rads2, subs2
+        d_max = r_max = 0.0
+        finite = True
+        ncmp = B if L == L_MAIN else min(B, B_SUB)
+        for c0 in range(0, ncmp, B_CHUNK):
+            c = slice(c0, min(c0 + B_CHUNK, ncmp))
+            state = rtrn.unpack_state(rads[..., c], subs[..., c],
+                                      rows[..., c])
+            state_p = rtrn.unpack_state(*rtrn.rt_sweep_maxrand(
+                *(t[..., c].contiguous() for t in a[:7]), ngb0, wg,
+                radiances=True)[1:], rows[..., c].contiguous())
+            finite &= bool(torch.isfinite(state).all())
+            d_max = max(d_max, float((state - state_p).abs().max()))
+            r_max = max(r_max, float(state_p.abs().max()))
+            del state, state_p
+        e = d_max / max(r_max, 1e-30)
+        need(finite and e <= TOL_RADS,
              f"rt_sweep_save_maxrand ({tag}): state off by {e:.3g} of max "
              f"|plain| > {TOL_RADS}")
-        save_errs.append((float((rads - rads_p).abs().max()), e))
-        del rads_p
+        save_errs.append((d_max, e))
         try:
             rt_sweep_maxrand_vjp(*a, ct)
         except ValueError:
             pass
         else:
             need(False, "rt_adjoint_maxrand: K6 ran without the state")
-        got = rt_sweep_maxrand_vjp(*a, ct, rads=rads)
-        # NaN where the sub-streams are not kept: K6 must not read them
-        rtrn.kept_state(rads, rows, fill=float("nan"))
+        got = rt_sweep_maxrand_vjp(*a, ct, state=(rads, subs))
+        # NaN in the slots past each column's count: K6 must not read them
+        subs.masked_fill_(past, float("nan"))
         need(all(torch.equal(g, h) for g, h in zip(
-            got, rt_sweep_maxrand_vjp(*a, ct, rads=rads))),
+            got, rt_sweep_maxrand_vjp(*a, ct, state=(rads, subs)))),
              f"rt_adjoint_maxrand ({tag}): two runs differ, or K6 read a "
-             "sub-stream K1 does not keep")
+             "slot past a column's count")
         need(not bool(got[5][:, 1:4].any()),
              f"rt_adjoint_maxrand ({tag}): cotangents in the flag rows")
         xs = tuple(x[..., sub].contiguous() for x in a[:7])
-        r = rtrn.rt_sweep_maxrand_vjp(*xs, ngb0, wg,
-                                      ct[..., sub].contiguous())
+        cs = ct[..., sub].contiguous()
+        r = rtrn.rt_sweep_maxrand_vjp(*xs, ngb0, wg, cs)
         out += [g[..., sub].contiguous() for g in got]
         ref += list(r)
         e6 = max(rel_err(g[..., sub], x) for g, x in zip(got, r))
         print(f"rt_sweep_save_maxrand ({tag}): fluxes bitwise K1's, state "
-              f"within {e:.3g} of max |plain|; rt_adjoint_maxrand within "
-              f"{e6:.3g} of max |plain vjp| on {B_SUB} columns")
+              f"(K = {K}) within {e:.3g} of max |plain|; "
+              f"rt_adjoint_maxrand within {e6:.3g} of max |plain vjp| on "
+              f"{min(B, B_SUB)} columns")
         if tag == "decks":
             ncld = int((rows[:, 0] >= rtrn.CLOUD_GATE).sum())
             # the sub-streams K6 reads: cloudy layers without a restart
-            nsub = int(rtrn.substreams_kept(rows).sum())
+            nsub = int(counts.sum())
             base = OPS["rt_clear"] * L_MAIN * B_MAIN * 140
             # the radiances and clear twins, and the sub-streams where
             # they are kept, are written
@@ -1492,23 +1536,29 @@ def maxrand_grad_kernels(device, model, args, surf, randn):
                 ms=cuda_ms(lambda: rt_sweep_maxrand_radiances(*a), 5),
                 plain_ms=cuda_ms(lambda: rtrn.rt_sweep_maxrand(
                     *a, radiances=True), 1),
-                **bound((*a9, rows, taucb), (fk, rads[:4]),
+                state_gb_allocated=(rads.numel() + subs.numel()) * 4 / 1e9,
+                state_gb_written=(rads.numel() + 3 * 140 * nsub) * 4 / 1e9,
+                **bound((*a9, rows, taucb), (fk, rads),
                         base + OPS["rt_maxrand"] * 140 * ncld,
                         nbytes=3 * 140 * 4 * nsub))
             res["rt_adjoint_maxrand"] = dict(
-                ms=cuda_ms(lambda: rt_sweep_maxrand_vjp(*a, ct, rads=rads),
-                           3),
+                ms=cuda_ms(lambda: rt_sweep_maxrand_vjp(
+                    *a, ct, state=(rads, subs)), 3),
                 plain_ms=cuda_ms(lambda: rtrn.rt_sweep_maxrand_vjp(
-                    *xs, ngb0, wg, ct[..., sub].contiguous()), 1),
+                    *xs, ngb0, wg, cs), 1),
                 plain_ncol=B_SUB,
-                **bound((*a[:7], ct, rads[:4]), got,
+                bytes_moved=mr_traffic(a, nsub),
+                **bound((*a[:7], ct, rads), got,
                         OPS["rt_adjoint"] * a9[0].numel()
                         + OPS["rt_adjoint_mr"] * 140 * ncld,
                         nbytes=3 * 140 * 4 * nsub))
             print(f"rt_adjoint_maxrand: reads the sub-streams of {nsub} "
                   f"cloudy (layer, column, sweep) without a restart of "
-                  f"{2 * ncld} cloudy ones")
-        del rads, got
+                  f"{2 * ncld} cloudy ones, packed in K = {K} slots a "
+                  f"sweep: the state {rads.numel() * 4 / 1e9:.2f} + "
+                  f"{subs.numel() * 4 / 1e9:.3f} GB allocated")
+        del rads, subs, got
+    del xd
     res["rt_sweep_save_maxrand"].update(
         max_abs_err=max(a for a, _ in save_errs),
         max_rel_err=max(r for _, r in save_errs))
@@ -1519,15 +1569,69 @@ def maxrand_grad_kernels(device, model, args, surf, randn):
         max_abs_err=max(float((g - r).abs().max()) for g, r in zip(out,
                                                                     ref)),
         max_rel_err=max(e))
+    info = k6_mr_info(L_MAIN)
+    print(f"rt_adjoint_maxrand: tile {info['columns']} columns x band "
+          f"groups {info['groups']}, ring of {info['ring_levels']} slots, "
+          f"boxes of {info['columns']} x {info['box_rows']}, shares of "
+          f"{info['share_floats']} floats a (layer, column) in the "
+          "scratch")
     return res
 
 
+def mr_traffic(a, nsub):
+    """The bytes K6 maxrand moves on its inputs ``a`` (taut_t, fracs_t,
+    planklay_t, planklev_t, surf, rows_t, taucb_t, ...), each access
+    counted as the kernel makes it (``k6g_traffic``'s conventions, the
+    tile and groups from the library): taut and fracs read in both
+    sweeps, the radiance entering each layer and its clear twin, ct_taut
+    and ct_fracs written, read back and written again (8-row boxes); the
+    Planck rows and their cotangents' partials in 8-band boxes a group,
+    the cotangents written twice; the flux rows, read by each group; the
+    overlap rows' prelude (4 rows a group); where a column of the tile is
+    cloudy the layer's 16 overlap rows and taucb (and its cotangent's
+    partial in the down sweep), in both sweeps, and the groups' shares
+    (written, and read by the last group); the sub-streams of ``nsub``
+    kept (layer, column, sweep); ct_rows written once; taucb's cotangent
+    written by the up sweep and read and written at cloudy columns by the
+    down sweep."""
+    from rrtmg_lw_torch.data.ktables import load_static
+    from rrtmg_lw_torch.ops.rtrn_cuda import k6_mr_info
+    rows_t = a[5]
+    L, _, B = a[0].shape
+    info = k6_mr_info(L)
+    first, hbox, cols = info["groups"], info["box_rows"], info["columns"]
+    f4, ngrp = 4, len(first) - 1
+    ng = np.bincount(np.asarray(load_static()["ngb"]) - 1, minlength=16)
+    nrows = sum(-(-int(ng[a:b].sum()) // hbox) * hbox
+                for a, b in zip(first, first[1:]))
+    box = ngrp * hbox
+    per_g = L * 140 * B * f4
+    per_g_r = per_g * nrows / 140
+    band = L * 16 * B * f4
+    band_r = band * box / 16
+    n = 4 * per_g_r + (4 * L - 2) * nrows * B * f4 + 2 * per_g_r + 4 * per_g
+    n += 2 * band_r + band_r * 2 + 4 * band + 2 * 2 * L * ngrp * B * f4
+    cloudy = rows_t[:, 0] >= 1e-6
+    pad = (-B) % cols
+    tiles = torch.nn.functional.pad(cloudy, (0, pad)).reshape(
+        L, -1, cols).any(-1)
+    tc = int(tiles.sum()) * cols
+    ncly = int(cloudy.sum())
+    n += 4 * ngrp * L * B * f4 + 2 * tc * ngrp * (16 + hbox) * f4
+    n += tc * box * f4 + band + 2 * ncly * 16 * f4
+    n += tc * ngrp * (14 + 1) * f4 + tc * ngrp * 13 * f4
+    n += 3 * 140 * nsub * f4 + L * 16 * B * f4
+    return n
+
+
 def k6g_staging(mode):
-    """How K6 in ``mode`` staged its rows at its last launch, as the
-    library reports it (``rtrn_cuda.k6_g_info``): the bulk tensor copies
+    """How K6 in ``mode`` (maxrand, or a ``G_MODES`` one) staged its rows
+    at its last launch, as the library reports it
+    (``rtrn_cuda.k6_mr_info``, ``k6_g_info``): the bulk tensor copies
     where every row is 16-byte aligned, element by element elsewhere."""
-    from rrtmg_lw_torch.ops.rtrn_cuda import k6_g_info
-    info = k6_g_info(mode, L_MAIN)
+    from rrtmg_lw_torch.ops.rtrn_cuda import k6_g_info, k6_mr_info
+    info = (k6_mr_info(L_MAIN) if mode == "maxrand"
+            else k6_g_info(mode, L_MAIN))
     return {"tma": "bulk tensor copies (TMA: 2D tensor maps, boxes of "
                    f"{info['columns']} columns x {info['box_rows']} rows)",
             "elements": "element by element (cp.async)"}.get(

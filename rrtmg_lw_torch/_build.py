@@ -51,12 +51,14 @@ SIGNATURES = {
     "rrtm_taumol_shape": (P,),
     "rrtm_taumol_bwd": (P, P, P, P, P, P, P, I, I, P),
     "rrtm_taumol_bwd_info": (P,),
-    "rrtm_rt": (P,) * 19 + (I,) * 5 + (P, P),
+    "rrtm_rt": (P,) * 19 + (I,) * 5 + (P, P, I, P),
     "rrtm_rt_info": (I, I, I, I, P),
     "rrtm_overlap": (P, P, I, I, P),
     "rrtm_overlap_bwd": (P, P, P, I, I, P),
-    "rrtm_rt_bwd_mr": (P,) * 18 + (I, I, P),
-    "rrtm_rt_bwd_mr_info": (P,),
+    "rrtm_rt_bwd_mr": (P,) * 21 + (I, I, I, P),
+    "rrtm_rt_bwd_mr_scratch": (I, I, P),
+    "rrtm_rt_bwd_mr_layout": (P,),
+    "rrtm_rt_bwd_mr_info": (I, P),
     "rrtm_rt_bwd_g": (P,) * 29 + (I, I, I, P),
     "rrtm_rt_bwd_g_scratch": (I, I, I, P),
     "rrtm_rt_bwd_g_layout": (I, I, P),

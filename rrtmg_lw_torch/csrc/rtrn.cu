@@ -19,10 +19,11 @@
 // -> out (4, L+1, B) = up, down, clear up, clear down; idrv = 1:
 // (6, L+1, B), + d up / dT_sfc, d clear up / dT_sfc.  rads null: K1 as
 // the forward step runs it; else (float32, the gradient step) it also
-// writes the per-g radiances to rads (2 | 4 | 10, L, 140, B): the down
+// writes the per-g radiances to rads (2 | 4, L, 140, B): the down
 // radiance at level l, the up radiance entering layer l and, in a cloudy
 // mode, their clear twins; maxrand also the sub-streams entering each
-// layer in each sweep (rtrn_kernel.cuh, SAVE).
+// layer where K6 reads them, packed into npk slots a sweep, packed (2,
+// 3, npk, 140, B) (rtrn_kernel.cuh, SAVE; null elsewhere).
 RRTM_API int rrtm_rt(const void* taut, const void* fracs, const float* play,
                      const float* plev, const float* surf, const int* ngb,
                      const float* wg, const int8_t* mask, const float* cw,
@@ -30,7 +31,7 @@ RRTM_API int rrtm_rt(const void* taut, const void* fracs, const float* play,
                      const float* taucb, const float* cldf, const float* ciwp,
                      const float* clwp, const float* tauc, const float* taua,
                      float* out, int L, int B, int mode, int idrv, int spec,
-                     float* rads, void* stream) {
+                     float* rads, float* packed, int npk, void* stream) {
     if (L <= 0 || B <= 0) return (int)cudaGetLastError();
     if (rads && spec != rrtm::SPEC_F32) return (int)cudaErrorInvalidValue;
     Inputs in{static_cast<const float*>(taut),
@@ -46,7 +47,8 @@ RRTM_API int rrtm_rt(const void* taut, const void* fracs, const float* play,
     switch (spec) {
     case rrtm::SPEC_F32:
         return (int)launch_storage<rrtm::SPEC_F32>(in, taua, ngb, wg, out,
-                                                   mode, idrv, s, rads);
+                                                   mode, idrv, s,
+                                                   Kept{rads, packed, npk});
     case rrtm::SPEC_BF16:
         return (int)launch_bf16(in, taua, ngb, wg, out, mode, idrv, s);
     case rrtm::SPEC_F16:

@@ -121,33 +121,11 @@
 // Two blocks per SM: 2 x (102,496 + 1,024 reserved) <= 233,472, and so
 // up to L = 3,444 in fused (the cloudy-layer words take 4 bytes a layer);
 // banded's shares, 128 bytes a layer, stay in shared memory up to L = 381.
-#include "rtrn.cuh"
+#include "bwd_groups.cuh"
 
 namespace {
 
-using namespace rrtm::rt;
-
 constexpr int NCLD = 6;                 // cloud inputs of a mode, at most
-constexpr int GX = 32;                  // columns per block
-constexpr int GY = 8;                   // g-lanes (warps) per block
-constexpr int GT = GX * GY;             // threads per block
-constexpr int NGRP = 5;                 // band groups: a column tile's blocks
-constexpr int GR = 32;                  // g-points of the largest group
-constexpr int GPT = (GR + GY - 1) / GY;  // g-points per thread, at most
-constexpr int GH = 8;                   // rows of a copy's box
-constexpr int GBOX = (GR + GH - 1) / GH;  // boxes of a group's g-points
-constexpr int GNB = GH;                 // bands of a group, at most
-constexpr int G_BLOCKS_PER_SM = 2;
-constexpr int G_RING = 2;               // slots in the ring
-constexpr int RB = GX * 4;              // bytes of a tile row
-static_assert(GX == 32 && GT % 32 == 0, "a lane per column");
-static_assert(GY > GNB - 1, "a warp per band of a group, and one more");
-// a copy's box row is 128 bytes, an L2 line
-constexpr CUtensorMapL2promotion G_L2 = CU_TENSOR_MAP_L2_PROMOTION_L2_128B;
-
-// the first band of each group: g-points 0-21, 22-51, 52-75, 76-107,
-// 108-139 (22, 30, 24, 32, 32; whole bands, contiguous)
-__constant__ int GFIRST[NGRP + 1] = {0, 2, 4, 6, 9, KNB};
 
 // rows of the saved radiances (rtrn_kernel.cuh SAVE)
 enum Saved { S_D = 0, S_U = 1, S_DC = 2, S_UC = 3 };
@@ -387,17 +365,12 @@ __device__ __forceinline__ StepGrads g_step_bwd(
     return o;
 }
 
-// The scratch of a launch (the wrapper's allocations): the counter the
+// The scratch of a launch (GScratch, bwd_groups.cuh): the counter the
 // tickets are drawn from, then one a column tile (zeroed: the per-g
 // modes' flag that group 0 has published the tile's cloudy-layer words;
 // banded: the groups' turn to add their shares of the cloud fraction's
 // cotangent); those words (the per-g modes: (tiles, L)); banded's shares
 // where they do not fit shared memory ((blocks, L, GX), else null).
-struct GScratch {
-    unsigned* flags;
-    int* count;
-    float* part;
-};
 
 template <int MODE>
 __global__ void __launch_bounds__(GT, G_BLOCKS_PER_SM)
@@ -981,11 +954,6 @@ cudaError_t prepare_bwd_g() {
     static const cudaError_t e =
         tile_smem(rt_bwd_g_kernel<MODE>, SMEM_SM - SMEM_RESERVED);
     return e;
-}
-
-// can `p` start a tensor map's rows of B floats
-bool map_rows_ok(const void* p, int B) {
-    return ((uintptr_t)p & 15u) == 0 && B % 4 == 0;
 }
 
 // the staging each mode's last launch took (1 bulk tensor copies, 0

@@ -18,54 +18,158 @@
 // reflection, then the down sweep in reverse (surface up), carrying per
 // (column, g) the cotangents of the total-sky radiance, its clear twin
 // and the cloudy, clear and correction sub-streams (cr, kr, rr).  The
-// forward values each reverse step needs, the radiances and sub-streams
-// entering its layer, come from K1's gradient-step launch (SAVE,
-// rtrn_kernel.cuh: rads (10, L, 140, B), the sub-streams written only
-// where this kernel reads them); the factors of each step are
-// recomputed from taut as K1 forms them.  The discrete gates (cloudy
-// layer, restart flags, iclddn, the od branches) carry no gradient; at
-// od = secd * taut = 0 the maximum of the plain version passes half the
+// forward values each reverse step needs come from K1's gradient-step
+// launch (SAVE, rtrn_kernel.cuh): the radiance and its clear twin
+// entering the layer, rads (4, L, 140, B), and the three sub-streams
+// entering it where the layer is cloudy and does not restart them,
+// packed, subs (2 sweeps, 3, K, 140, B): a column's k-th such layer in a
+// sweep's order at slot k.  The factors of each step are recomputed from
+// taut as K1 forms them.  The discrete gates carry no gradient and are
+// recomputed as K1 forms them from the overlap rows: the cloudy layer
+// (R_CLDF >= CLOUD_GATE), the restart flags, the clear twin's iclddn
+// (R_ICLDDN; the up sweep's anyc from layer 0), the od branches; at od =
+// secd * taut = 0 the maximum of the plain version passes half the
 // gradient, as torch.maximum does at a tie.
 //
-// Design: a simple kernel.  A block holds 32 columns x 8 g-lanes (256
-// threads); lane y takes two whole bands (PAIR, band_lanes.cuh, 16-20
-// g-points), so each band's sums (planklay, planklev, taucb, the surface
-// rows, the secant) stay in one thread, in ascending g.  The five carries of every (g,
-// column) live in shared memory (89.6 KB).  The 7 per-layer sums over g
-// of the overlap rows' cotangents (R_CLDF and the sweep's six factors)
-// go through shared memory: each lane's partial over its g in order,
-// then the 8 lanes in lane order, double-buffered (one block barrier a
-// step).  Per (layer, g, column) the kernel reads taut and fracs twice,
-// the radiance and its clear twin entering the layer and, in a cloudy
-// layer that does not restart the sub-streams, the three sub-streams,
-// and writes ct_taut and ct_fracs twice (read-add in the down sweep).
+// Bound on the H100: bytes.  Per (layer, g, column) the kernel reads
+// taut and fracs twice, the radiance entering the layer and its clear
+// twin, and writes ct_taut and ct_fracs twice (read-add in the down
+// sweep): ~8.5 GB at B=16384, L=60; against that a few tens of flops and
+// 1-2 expf per element and sweep (K6-g banded's arithmetic, and in a
+// cloudy layer the sub-streams' exchange).
+//
+// Design: K6-g's tile (bwd_groups.cuh, rtrn_bwd_g.cu).  A block holds 32
+// columns (a lane each) and one of the NGRP groups of whole bands, taken
+// from a ticket, group-major; warp y takes the group's g-points y, y + 8,
+// ... and carries their five cotangents.
+// - A step where no column of the tile is cloudy (most of them) runs the
+//   clear recurrence alone, its g-points unrolled, lam and mu in
+//   registers: the sub-streams' cotangents pass through it.  A cloudy
+//   step runs the g-points one at a time with all five carries in shared
+//   memory, so that it needs no more registers than a clear one: 128
+//   with no spill at two blocks per SM (all five in registers through
+//   every step spilled 44 bytes, and ran 8.2 ms against 6.3 in shared
+//   memory, on the H100).
+// - A prelude over the overlap rows forms, a bit per column and a word
+//   per layer, the cloudy layers and iclddn, and counts each column's
+//   kept layers in each sweep; the reverse sweeps count them down, so
+//   that a kept layer's slot in subs is known where it is reached.
+// - Staged rows: every reverse step's rows arrive in a ring of G_RING
+//   slots one step ahead, by bulk tensor copies of 32 x 8 boxes: taut,
+//   fracs, the radiance entering the layer and its clear twin, in the
+//   down sweep the up sweep's ct_taut, ct_fracs and band-summed outputs,
+//   planklay, planklev, the two flux cotangents, and where a column of
+//   the tile is cloudy at the layer taucb and the layer's 16 overlap
+//   rows.  Element by element (cp.async) where a row is not 16-byte
+//   aligned.  The sub-streams are read from device memory where a column
+//   reads them (a tile's columns may sit at different slots).
+// - Band sums (planklay, planklev, taucb, the secant) as K6-g's: written
+//   over the slot's rows they were computed from, then warp k sums band
+//   k in ascending g: each band's sums are those of the first design,
+//   bit for bit.
+// - The overlap rows' cotangents (R_CLDF and the sweep's six factors)
+//   sum over all 140 g-points, across the tile's groups.  At a layer
+//   where a column of the tile is cloudy (elsewhere they are zero) each
+//   thread sums its g-points, copies the seven partials over slot rows of
+//   its own g-points, and the group's spare warp sums the eight warps into
+//   the group's share, 13 floats a (layer, column) in the launch's scratch
+//   (R_CLDF's the up sweep's plus the down sweep's).  At the end the
+//   tile's last group, whose ticket comes after the others', waits for
+//   them and adds the shares in group order into ct_rows, zeros at the
+//   clear layers and in the flag rows.  The first design summed g-lanes
+//   of two bands each: these sums differ from its in the last bits.
 // No atomics on floats: two runs are bitwise equal.
-#include "band_lanes.cuh"
-#include "rtrn.cuh"
+//
+// Shared memory a block: a ring slot 33,024 bytes, the ring of two
+// 66,048, the rest 31,904 + 8 a layer (128 of them to align the ring);
+// 99,072 at L = 140 (SMEM_BWD_MR), 105,952 at L = 1,000: two blocks per
+// SM, 2 x (105,952 + 1,024 reserved) <= 233,472, up to L = 2,220.
+#include "bwd_groups.cuh"
 
 namespace {
 
-using namespace rrtm::rt;
-
 constexpr int NCAR = 5;                 // lam, mu, cr, kr, rr cotangents
-constexpr int NPART = 7;                // R_CLDF and the six factors
+constexpr int NPART = 7;                // R_CLDF and the sweep's factors
+constexpr int NSHARE = 1 + 12;          // a group's share of a layer
 
-// rows of the saved state (rtrn_kernel.cuh SAVE, maxrand)
-enum Saved { S_D = 0, S_U = 1, S_DC = 2, S_UC = 3, S_SUB_DN = 4,
-             S_SUB_UP = 7 };
+// rows of the saved radiances (rtrn_kernel.cuh SAVE)
+enum Saved { S_D = 0, S_U = 1, S_DC = 2, S_UC = 3 };
 
-struct MrLayout {
-    static constexpr int CAR = 0;                          // (5, KG, MX)
-    static constexpr int PART = CAR + NCAR * KG * MX * 4;  // (2, 7, MY, MX)
-    static constexpr int NGB = PART + 2 * NPART * MY * MX * 4;
-    static constexpr int WG = NGB + KG * 4;
-    static constexpr int GOFF = WG + KG * 4;                   // (KNB + 1)
-    static constexpr int BYTES = align16(GOFF + (KNB + 1) * 4);
+// the tensor maps of a launch
+enum MrMap { N_TAUT, N_FRACS, N_RADS, N_GTAUT, N_GFRACS, N_PLAY, N_PLEV,
+             N_TCB, N_CT, N_GPLAY, N_GPLEV, N_GTCB, N_ROWS, NMAP_MR };
+struct MrMaps {
+    CUtensorMap m[NMAP_MR];
 };
-constexpr int MR_BLOCKS_PER_SM = 2;
-static_assert(MR_BLOCKS_PER_SM * (MrLayout::BYTES + SMEM_RESERVED)
-                  <= SMEM_SM,
-              "two maxrand K6 blocks fit an SM");
+
+// Byte layout of one reverse step in the ring: (row, column) tiles of GX
+// columns, a row RB bytes.  The per-g slabs hold the group's g-points
+// (GBOX boxes of GH rows); the band blocks GH rows from the group's first
+// band; ROWS the layer's 16 overlap rows.  The step writes its per-g
+// values to be summed over the bands over TAU (planklay), FR (planklev),
+// RAD (secant) and RADC (taucb), and each thread its partials of the
+// overlap rows' cotangents over the PT and PF elements of its own
+// g-points' rows (read, or read by no thread).
+struct MrSlot {
+    static constexpr int SLAB = GBOX * GH * RB;
+    static constexpr int BAND = GH * RB;
+    static constexpr int TAU = 0;
+    static constexpr int FR = TAU + SLAB;
+    static constexpr int RAD = FR + SLAB;
+    static constexpr int RADC = RAD + SLAB;
+    static constexpr int PT = RADC + SLAB;          // up sweep's ct_taut
+    static constexpr int PF = PT + SLAB;            // and ct_fracs
+    static constexpr int PLAY = PF + SLAB;          // (GH, GX)
+    static constexpr int PLEV = PLAY + BAND;
+    static constexpr int TCB = PLEV + BAND;
+    // the down sweep's partials of the band-summed outputs
+    static constexpr int PPLAY = TCB + BAND;
+    static constexpr int PPLEV = PPLAY + BAND;
+    static constexpr int PTCB = PPLEV + BAND;
+    static constexpr int CT0 = PTCB + BAND;         // UP or DOWN
+    static constexpr int CT1 = CT0 + RB;            // CLR_UP or CLR_DOWN
+    static constexpr int ROWS = CT1 + RB;           // (NROW, GX)
+    static constexpr int BYTES = ROWS + NROW * RB;
+    static_assert(RB % 128 == 0 && BYTES % 128 == 0, "128-byte rows");
+    static_assert(NPART <= 2 * GPT, "a thread's partials over its rows");
+};
+
+// The block's dynamic shared memory: the ring, the full and empty
+// mbarriers of each slot, the block's ticket, the flux weight of every g,
+// the first g of every band, the band (0-7 of the group) of each of the
+// group's g-points, the bands' secants per column and the secant's
+// cotangents, each column's count of kept layers per sweep, each
+// thread's count of its column's kept layers not yet reached, the
+// carries in shared memory, each thread's partials of the overlap rows'
+// cotangents, the cloudy-layer and iclddn words (a bit per column, (2,
+// L)), and 128 bytes to align the ring.
+struct MrLayout {
+    static constexpr int BAR = G_RING * MrSlot::BYTES;
+    static constexpr int TICKET = BAR + 2 * G_RING * 8;
+    static constexpr int WG = TICKET + 8;                    // (KG)
+    static constexpr int GOFF = WG + KG * 4;                 // (KNB + 1)
+    static constexpr int RK = GOFF + (KNB + 1) * 4;          // (GR)
+    static constexpr int SECD = align16(RK + GR * 4);        // (GNB, GX)
+    static constexpr int CSEC = SECD + GNB * GX * 4;         // (GNB, GX)
+    static constexpr int NKEPT = CSEC + GNB * GX * 4;        // (2, GX)
+    static constexpr int NK = NKEPT + 2 * GX * 4;            // (GT)
+    static constexpr int CAR = NK + GT * 4;              // (NCAR, GPT, GT)
+    static constexpr int PART = CAR + NCAR * GPT * GT * 4;  // (NPART, GT)
+    static constexpr int FLAGS = PART + NPART * GT * 4;
+    __host__ __device__ static constexpr int bytes(int L) {
+        return FLAGS + (2 * L * 4 + 15) / 16 * 16 + 128;
+    }
+};
+
+// the budget at L = 140, and two blocks per SM up to L = 2,220
+constexpr int SMEM_BWD_MR = 99072;
+static_assert(MrLayout::bytes(140) == SMEM_BWD_MR,
+              "K6 maxrand's shared memory is the budget");
+static_assert(G_BLOCKS_PER_SM * (MrLayout::bytes(2220) + SMEM_RESERVED)
+                  <= SMEM_SM
+              && G_BLOCKS_PER_SM * (MrLayout::bytes(2221) + SMEM_RESERVED)
+                     > SMEM_SM,
+              "two maxrand K6 blocks fit an SM up to L = 2,220");
 
 struct MrGrads {
     float* taut;     // (L, 140, B)
@@ -212,235 +316,563 @@ __device__ __forceinline__ StepGrads mr_step_bwd(
     return o;
 }
 
-__global__ void __launch_bounds__(MT, MR_BLOCKS_PER_SM)
-rt_bwd_mr_kernel(Inputs in, const int* __restrict__ ngb,
-                 const float* __restrict__ wg, const float* __restrict__ ct,
-                 const float* __restrict__ rads, MrGrads gr) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    float* car_s = reinterpret_cast<float*>(smem + MrLayout::CAR);
-    float* part_s = reinterpret_cast<float*>(smem + MrLayout::PART);
-    int* ngb_s = reinterpret_cast<int*>(smem + MrLayout::NGB);
-    float* wg_s = reinterpret_cast<float*>(smem + MrLayout::WG);
-    int* goff = reinterpret_cast<int*>(smem + MrLayout::GOFF);
 
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * MX + tx;
+// The scratch of a launch (GScratch, bwd_groups.cuh): count, the counter
+// the tickets are drawn from, then one a column tile (zeroed: the tile's
+// groups that have written their shares); part, the groups' shares,
+// (blocks, L, NSHARE, GX): R_CLDF, the 6 up factors, the 6 down factors.
+__global__ void __launch_bounds__(GT, G_BLOCKS_PER_SM)
+rt_bwd_mr_kernel(__grid_constant__ const MrMaps maps, Inputs in,
+                 const int* __restrict__ ngb, const float* __restrict__ wg,
+                 const float* __restrict__ ct, const float* __restrict__ rads,
+                 const float* __restrict__ subs, MrGrads gr, GScratch sc,
+                 int K, int vec) {
+    using Sl = MrSlot;
+    using Lo = MrLayout;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    // the ring at a 128-byte boundary
+    unsigned char* smem =
+        smem_raw + ((128u - (smem_addr(smem_raw) & 127u)) & 127u);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + Lo::BAR);
+    uint64_t* empty = full + G_RING;
+    float* wg_s = reinterpret_cast<float*>(smem + Lo::WG);
+    int* goff = reinterpret_cast<int*>(smem + Lo::GOFF);
+    int* rk = reinterpret_cast<int*>(smem + Lo::RK);
+    float* secd_s = reinterpret_cast<float*>(smem + Lo::SECD);
+    float* csec_s = reinterpret_cast<float*>(smem + Lo::CSEC);
+    int* nkept = reinterpret_cast<int*>(smem + Lo::NKEPT);
+    float* car_s = reinterpret_cast<float*>(smem + Lo::CAR);
+    float* part_s = reinterpret_cast<float*>(smem + Lo::PART);
+    int* ticket = reinterpret_cast<int*>(smem + Lo::TICKET);
+    const int tid = threadIdx.x;
+    const int tx = tid % GX, ty = tid / GX;
+    int* nk = reinterpret_cast<int*>(smem + Lo::NK) + tid;
     const int L = in.L, B = in.B;
     const size_t Bz = B;
-    const int bt = blockIdx.x * MX;
-    const int nvalid = min(MX, B - bt);
-    const bool valid = tx < nvalid;
-    const int b = bt + tx;
-    for (int i = tid; i < KG; i += MT) {
-        ngb_s[i] = ngb[i];
+    unsigned* clyw = reinterpret_cast<unsigned*>(smem + Lo::FLAGS);
+    unsigned* icdw = clyw + L;
+    int* tcount = sc.count + 1;             // the tiles' counters
+
+    // ---- 0. the block's ticket, then its group: bands b0 .. b0 + nb - 1,
+    // g-points g0 .. g0 + nr - 1 ----
+    for (int i = tid; i < KG; i += GT) {
         wg_s[i] = wg[i];
         if (i == 0 || ngb[i] != ngb[i - 1]) goff[ngb[i]] = i;
     }
-    if (tid == 0) goff[KNB] = KG;
-    for (int i = tid; i < NCAR * KG * MX; i += MT) car_s[i] = 0.0f;
+    if (tid < 2 * GX) nkept[tid] = 0;
+    if (tid == 0) {
+        *ticket = atomicAdd(sc.count, 1);
+        goff[KNB] = KG;
+        for (int i = 0; i < G_RING; ++i) {
+            mbar_init(&full[i], vec ? 1u : (unsigned)GT);
+            mbar_init(&empty[i], (unsigned)GT);
+        }
+        fence_mbarrier_init();
+    }
     __syncthreads();
-
-    const size_t LGB = (size_t)L * KG * Bz;
-    const int bands[2] = {PAIR[ty][0], PAIR[ty][1]};
-    float sec[2], ct_sec[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-        sec[h] = valid ? in.surf[(size_t)bands[h] * Bz + b] : 0.0f;
-    // the anyc twin flag of the up sweep: cloud anywhere in the column
-    const bool anyc = valid && in.cld[(size_t)R_ICLDDN * Bz + b] > 0.0f;
-    auto car = [&](int q, int g) -> float& {
-        return car_s[(q * KG + g) * MX + tx];
-    };
-
-    // one reverse step: layer l of the up (UPW) or down sweep; j counts
-    // the steps (the partials' buffer)
-    auto step = [&](auto upward, int l, int j) {
-        constexpr bool UPW = decltype(upward)::value;
-        const int lev = UPW ? l + 1 : l;
-        float* part = part_s + (j & 1) * NPART * MY * MX;
-        float p[NPART] = {};
-        if (valid) {
-            const float* rw = in.cld + (size_t)l * NROW * Bz + b;
-            const float cf = rw[R_CLDF * Bz];
-            const bool cly = cf >= CLOUD_GATE;
-            const bool ist = rw[(UPW ? R_IST_UP : R_IST_DN) * Bz] > 0.0f;
-            const bool twin = UPW ? anyc : rw[R_ICLDDN * Bz] > 0.0f;
-            float fac[6];
-#pragma unroll
-            for (int i = 0; i < 6; ++i)
-                fac[i] = rw[((UPW ? R_UP : R_DN) + i) * Bz];
-            const float cu =
-                ct[((size_t)(UPW ? UP : DOWN) * (L + 1) + lev) * Bz + b];
-            const float ccu =
-                ct[((size_t)(UPW ? CLR_UP : CLR_DOWN) * (L + 1) + lev) * Bz
-                   + b];
-            // the state entering the layer: up, U and Uc at l; down, D
-            // and Dc at level l + 1 (none above the top)
-            const bool has_in = UPW || l + 1 < L;
-            const size_t in_off = UPW ? (size_t)l * KG * Bz
-                                      : (size_t)(l + 1) * KG * Bz;
-            const float* r_in = rads + (UPW ? S_U : S_D) * LGB + in_off;
-            const float* rc_in = rads + (UPW ? S_UC : S_DC) * LGB + in_off;
-            const float* sub =
-                rads + (UPW ? S_SUB_UP : S_SUB_DN) * LGB + (size_t)l * KG * Bz;
-            const bool read_sub = cly && !ist;
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int bd = bands[h];
-                const size_t bi = ((size_t)l * KNB + bd) * Bz + b;
-                const size_t vi = ((size_t)lev * KNB + bd) * Bz + b;
-                const float bl = in.play[bi];
-                const float pl = in.plev[vi];
-                const float tcb = in.taucb[bi];
-                float s_bl = 0.0f, s_pl = 0.0f, s_tcb = 0.0f;
-                for (int g = goff[bd]; g < goff[bd + 1]; ++g) {
-                    const size_t gi = (size_t)g * Bz + b;
-                    const size_t li = (size_t)l * KG * Bz + gi;
-                    Car k{car(0, g) + wg_s[g] * cu, car(1, g) + wg_s[g] * ccu,
-                          car(2, g), car(3, g), car(4, g)};
-                    const float rad = has_in ? r_in[gi] : 0.0f;
-                    const float radc = has_in ? rc_in[gi] : 0.0f;
-                    float cr = 0.0f, kr = 0.0f, rr = 0.0f;
-                    if (read_sub) {
-                        cr = sub[gi];
-                        kr = sub[LGB + gi];
-                        rr = sub[2 * LGB + gi];
-                    }
-                    const StepGrads o = mr_step_bwd(
-                        in.taut[li], in.fracs[li], bl, pl, sec[h], tcb, cf,
-                        cly, twin, ist, fac, rad, radc, cr, kr, rr, k);
-                    car(0, g) = k.lam;
-                    car(1, g) = k.mu;
-                    car(2, g) = k.cr;
-                    car(3, g) = k.kr;
-                    car(4, g) = k.rr;
-                    if (UPW) {
-                        gr.taut[li] = o.tau;
-                        gr.fracs[li] = o.fr;
-                    } else {
-                        gr.taut[li] = gr.taut[li] + o.tau;
-                        gr.fracs[li] = gr.fracs[li] + o.fr;
-                    }
-                    s_bl += o.bl;
-                    s_pl += o.pl;
-                    s_tcb += o.tcb;
-                    ct_sec[h] += o.secd;
-                    p[0] += o.c;
-#pragma unroll
-                    for (int i = 0; i < 6; ++i) p[1 + i] += o.fac[i];
-                }
-                if (UPW) {
-                    gr.play[bi] = s_bl;
-                    gr.plev[vi] = s_pl;
-                    gr.taucb[bi] = s_tcb;
-                } else {
-                    gr.play[bi] = gr.play[bi] + s_bl;
-                    gr.plev[vi] = lev > 0 ? gr.plev[vi] + s_pl : s_pl;
-                    gr.taucb[bi] = gr.taucb[bi] + s_tcb;
-                }
-            }
-        }
-#pragma unroll
-        for (int r = 0; r < NPART; ++r) part[(r * MY + ty) * MX + tx] = p[r];
-        __syncthreads();
-        // the overlap rows of layer l: the lanes' partials summed in lane
-        // order; R_CLDF adds the down sweep's to the up sweep's; the up
-        // sweep also zeroes the four flag rows
-        for (int i = tid; i < (UPW ? NPART + 3 : NPART) * MX; i += MT) {
-            const int r = i / MX, col = i - r * MX;
-            if (col >= nvalid) continue;
-            float* o = gr.rows + (size_t)l * NROW * Bz + bt + col;
-            if (r >= NPART) {
-                o[(size_t)(R_IST_UP + r - NPART) * Bz] = 0.0f;
-                continue;
-            }
-            float a = 0.0f;
-#pragma unroll
-            for (int y = 0; y < MY; ++y) a += part[(r * MY + y) * MX + col];
-            if (r == 0)
-                o[R_CLDF * Bz] = UPW ? a : o[R_CLDF * Bz] + a;
-            else
-                o[(size_t)((UPW ? R_UP : R_DN) + r - 1) * Bz] = a;
-        }
-    };
-
-    // ---- up sweep in reverse: layer L-1 .. 0 ----
-    for (int j = 0; j < L; ++j) step(std::true_type{}, L - 1 - j, j);
-
-    // ---- surface reflection in reverse; the sub-streams' cotangents end
-    // here (the up sweep starts them at zero) ----
-    if (valid) {
-        const float cu = ct[(size_t)UP * (L + 1) * Bz + b];
-        const float ccu = ct[(size_t)CLR_UP * (L + 1) * Bz + b];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int bd = bands[h];
-            const float pbnd = in.surf[((size_t)2 * KNB + bd) * Bz + b];
-            const float reflect = 1.0f - in.surf[((size_t)KNB + bd) * Bz + b];
-            float s_em = 0.0f, s_pb = 0.0f;
-            for (int g = goff[bd]; g < goff[bd + 1]; ++g) {
-                const size_t gi = (size_t)g * Bz + b;
-                const float lam0 = car(0, g) + wg_s[g] * cu;
-                const float mu0 = car(1, g) + wg_s[g] * ccu;
-                const float d0 = rads[S_D * LGB + gi];
-                const float dc0 = rads[S_DC * LGB + gi];
-                const float ct_rad0 = lam0 + mu0;
-                gr.fracs[gi] = gr.fracs[gi] + ct_rad0 * pbnd;
-                s_em += -(lam0 * d0 + mu0 * dc0);
-                s_pb += ct_rad0 * in.fracs[gi];
-                car(0, g) = lam0 * reflect;
-                car(1, g) = mu0 * reflect;
-                car(2, g) = car(3, g) = car(4, g) = 0.0f;
-            }
-            gr.surf[((size_t)KNB + bd) * Bz + b] = s_em;
-            gr.surf[((size_t)2 * KNB + bd) * Bz + b] = s_pb;
-        }
+    const int tk = *ticket;
+    const int ntiles = gridDim.x / NGRP;
+    const int grp = tk / ntiles, tile = tk % ntiles;
+    const int bt = tile * GX;
+    const int nvalid = min(GX, B - bt);
+    // lanes past the ragged edge compute on what their slot holds and
+    // write nothing; they take part in the staging and the barriers
+    const bool valid = tx < nvalid;
+    const int b = bt + tx;
+    const int b0 = GFIRST[grp], nb = GFIRST[grp + 1] - b0;
+    const int g0 = goff[b0], nr = goff[b0 + nb] - g0;
+    for (int k = 0; k < nb; ++k)
+        for (int r = goff[b0 + k] - g0 + tid; r < goff[b0 + k + 1] - g0;
+             r += GT)
+            rk[r] = k;
+    if (ty < nb) {
+        secd_s[tid] = in.surf[(size_t)(b0 + ty) * Bz + bt
+                              + min(tx, nvalid - 1)];
+        csec_s[tid] = 0.0f;     // warp ty's band, column tx
     }
 
-    // ---- down sweep in reverse: layer 0 .. L-1 ----
-    for (int j = L; j < 2 * L; ++j) step(std::false_type{}, j - L, j);
+    // ---- 1. the prelude: the cloudy-layer and iclddn words, and each
+    // column's kept layers in the down and the up sweep ----
+    {
+        int kd = 0, ku = 0;
+        for (int l = ty; l < L; l += GY) {
+            const float* rw = in.cld + (size_t)l * NROW * Bz + b;
+            bool c = false, ic = false;
+            if (valid) {
+                c = rw[R_CLDF * Bz] >= CLOUD_GATE;
+                ic = rw[R_ICLDDN * Bz] > 0.0f;
+                kd += c && !(rw[R_IST_DN * Bz] > 0.0f);
+                ku += c && !(rw[R_IST_UP * Bz] > 0.0f);
+            }
+            const unsigned wc = __ballot_sync(0xffffffffu, c);
+            const unsigned wi = __ballot_sync(0xffffffffu, ic);
+            if (tx == 0) {
+                clyw[l] = wc;
+                icdw[l] = wi;
+            }
+        }
+        atomicAdd(&nkept[tx], kd);
+        atomicAdd(&nkept[GX + tx], ku);
+    }
+    __syncthreads();
+    // a column that keeps more layers in a sweep than the state has slots
+    // (a state kept on other rows) stops the launch, as an index out of
+    // range does, where it would read slots K1 never wrote
+    if (ty == 0 && valid && max(nkept[tx], nkept[GX + tx]) > K) __trap();
+    auto slot = [&](int j) { return smem + (j % G_RING) * Sl::BYTES; };
 
-    // ---- the secants, summed over both sweeps ----
-    if (valid) {
+    // ---- the staging of reverse step j: up sweep j < L, layer L-1-j,
+    // Planck level l+1, flux rows UP, CLR_UP at level l+1, the up
+    // radiance entering l; down sweep j >= L, layer j-L, Planck level l,
+    // rows DOWN, CLR_DOWN at level l, the down radiance at level l+1 and
+    // the up sweep's outputs of layer l; taucb (and its partial) and the
+    // overlap rows where a column of the tile is cloudy.  The producer
+    // first waits until every thread has left the slot's previous step.
+    const int nbox = (nr + GH - 1) / GH;
+    auto issue = [&](int j) {
+        const bool up = j < L;
+        const int l = up ? L - 1 - j : j - L;
+        const int lev = up ? l + 1 : l;
+        const bool has_in = up || l + 1 < L;
+        const bool tc = clyw[l] != 0u;
+        unsigned char* d = slot(j);
+        uint64_t* bar = &full[j % G_RING];
+        const int rin = up ? l : l + 1;     // the radiances' layer
+        const int ct0 = (up ? UP : DOWN) * (L + 1) + lev;
+        const int ct1 = (up ? CLR_UP : CLR_DOWN) * (L + 1) + lev;
+        const int nslab = 2 + (has_in ? 2 : 0) + (up ? 0 : 2);
+        const int nband = 2 + (tc ? 1 : 0)
+                          + (up ? 0 : 1 + (lev > 0) + (tc ? 1 : 0));
+        const int none = 2 + (tc ? NROW : 0);
+        if (vec) {
+            // warp 0: a box a lane
+            if (ty != 0) return;
+            if (j >= G_RING)
+                mbar_wait(&empty[j % G_RING], (unsigned)(j / G_RING - 1) & 1u);
+            if (tx == 0)
+                mbar_arrive_expect_tx(
+                    bar, (uint32_t)(((nslab * nbox + nband) * GH + none)
+                                    * RB));
+            __syncwarp();
+        } else if (j >= G_RING) {
+            // every thread copies its share of the valid columns' elements
+            mbar_wait(&empty[j % G_RING], (unsigned)(j / G_RING - 1) & 1u);
+        }
+        // n rows of src from row0 at offset off: boxes of h rows (the
+        // bulk copies), or the n rows element by element
+        auto copy = [&](int off, int map, const float* src, int row0, int n,
+                        int h) {
+            if (vec) {
+                for (int i = tx; i * h < n; i += GX)
+                    tma_load_2d(d + off + i * h * RB, &maps.m[map], bt,
+                                row0 + i * h, bar);
+            } else {
+                for (int i = tid; i < n * nvalid; i += GT) {
+                    const int r = i / nvalid, c = i - r * nvalid;
+                    cp4(d + off + r * RB + c * 4,
+                        src + (size_t)(row0 + r) * Bz + bt + c);
+                }
+            }
+        };
+        // the group's g-points of a layer (row0 its g = 0), its bands (row0
+        // its band 0)
+        auto slab = [&](int off, int map, const float* src, int row0) {
+            copy(off, map, src, row0 + g0, nr, GH);
+        };
+        auto bands = [&](int off, int map, const float* src, int row0) {
+            copy(off, map, src, row0 + b0, vec ? GH : nb, GH);
+        };
+        slab(Sl::TAU, N_TAUT, in.taut, l * KG);
+        slab(Sl::FR, N_FRACS, in.fracs, l * KG);
+        if (has_in) {
+            slab(Sl::RAD, N_RADS, rads, ((up ? S_U : S_D) * L + rin) * KG);
+            slab(Sl::RADC, N_RADS, rads,
+                 ((up ? S_UC : S_DC) * L + rin) * KG);
+        }
+        if (!up) {
+            slab(Sl::PT, N_GTAUT, gr.taut, l * KG);
+            slab(Sl::PF, N_GFRACS, gr.fracs, l * KG);
+        }
+        bands(Sl::PLAY, N_PLAY, in.play, l * KNB);
+        bands(Sl::PLEV, N_PLEV, in.plev, lev * KNB);
+        if (tc) bands(Sl::TCB, N_TCB, in.taucb, l * KNB);
+        if (!up) {
+            bands(Sl::PPLAY, N_GPLAY, gr.play, l * KNB);
+            if (lev > 0) bands(Sl::PPLEV, N_GPLEV, gr.plev, lev * KNB);
+            if (tc) bands(Sl::PTCB, N_GTCB, gr.taucb, l * KNB);
+        }
+        copy(Sl::CT0, N_CT, ct, ct0, 1, 1);
+        copy(Sl::CT1, N_CT, ct, ct1, 1, 1);
+        if (tc) copy(Sl::ROWS, N_ROWS, in.cld, l * NROW, NROW, GH);
+        if (!vec) mbar_arrive_copies(bar);
+    };
+
+    // the carries of the thread's g-point k: lam and mu in registers
+    // (while a cloudy step runs, in shared memory: q = 3, 4), the
+    // sub-streams' (q = 0, 1, 2: cr, kr, rr) in shared memory
+    float lm[2][GPT];
+    auto car = [&](int q, int k) -> float& {
+        return car_s[(q * GPT + k) * GT + tid];
+    };
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-            gr.surf[(size_t)bands[h] * Bz + b] = ct_sec[h];
+    for (int k = 0; k < GPT; ++k) {
+        lm[0][k] = lm[1][k] = 0.0f;
+        car(0, k) = car(1, k) = car(2, k) = 0.0f;
+    }
+    // the column's kept layers of the sweep not yet reached: the slot of
+    // the next kept one is *nk - 1
+    *nk = nkept[GX + tx];
+    const size_t LGB = (size_t)L * KG * Bz;
+    const size_t KGB = (size_t)K * KG * Bz;
+
+    // out = v (up sweep) or pv + v (down sweep)
+    auto out = [](float* p, float pv, float v, bool add) {
+        *p = add ? pv + v : v;
+    };
+
+    // ---- 2. one reverse step j ----
+    auto step = [&](auto upward, int j) {
+        constexpr bool UPW = decltype(upward)::value;
+        const int l = UPW ? L - 1 - j : j - L;
+        const int lev = UPW ? l + 1 : l;
+        unsigned char* s = slot(j);
+        auto row = [&](int off) { return reinterpret_cast<float*>(s + off); };
+        float *tau_s = row(Sl::TAU), *fr_s = row(Sl::FR),
+              *rad_s = row(Sl::RAD), *radc_s = row(Sl::RADC),
+              *pt_s = row(Sl::PT), *pf_s = row(Sl::PF);
+        const float *play_s = row(Sl::PLAY), *plev_s = row(Sl::PLEV),
+                    *tcb_s = row(Sl::TCB), *rows_s = row(Sl::ROWS);
+        mbar_wait(&full[j % G_RING], (unsigned)(j / G_RING) & 1u);
+        const bool tc = clyw[l] != 0u;
+        // the clear twin's flag: up, anyc (cloud anywhere in the column,
+        // iclddn at layer 0); down, iclddn at the layer
+        const bool twin = (icdw[UPW ? 0 : l] >> tx) & 1u;
+        const bool has_in = UPW || l + 1 < L;
+        const float cu = row(Sl::CT0)[tx], ccu = row(Sl::CT1)[tx];
+        // One pass over the thread's g-points.  CL: a column of the tile
+        // is cloudy at the layer (tc): the cloudy recurrence where the
+        // column is, the sub-streams' carries, the overlap rows' factors
+        // (read from the slot at each g-point) and the partials of their
+        // cotangents, the g-points one at a time with every carry in
+        // shared memory (what such a rare step holds in registers stays
+        // under the clear step's); else the clear recurrence alone, the
+        // g-points unrolled with lam and mu in registers.
+        auto pass = [&](auto cloudy) {
+            constexpr bool CL = decltype(cloudy)::value;
+            const bool cly = CL && ((clyw[l] >> tx) & 1u);
+            float cf = 0.0f;
+            bool ist = false;
+            int slot_k = 0;
+            if (cly) {
+                cf = rows_s[R_CLDF * GX + tx];
+                ist = rows_s[(UPW ? R_IST_UP : R_IST_DN) * GX + tx] > 0.0f;
+                // the sub-streams entering a layer that does not restart
+                // them: the column's slot in the sweep's packed rows
+                if (!ist) slot_k = min(max(--*nk, 0), K - 1);
+            }
+            const bool read_sub = cly && !ist && valid;
+            const float* sub =
+                subs + ((size_t)(UPW ? 3 : 0) * K + slot_k) * KG * Bz + b;
+            // g-point k of the thread, its carries lam and mu
+            auto gstep = [&](int k, float& lam, float& mu) {
+                const int r = ty + GY * k;
+                if (r >= nr) return;
+                const int g = g0 + r;
+                const int e = r * GX + tx, be = rk[r] * GX + tx;
+                // the sub-streams' carries pass through a clear layer
+                Car c{lam + wg_s[g] * cu, mu + wg_s[g] * ccu, 0.0f, 0.0f,
+                      0.0f};
+                float fac[6] = {}, tcb = 0.0f, cr = 0.0f, kr = 0.0f,
+                      rr = 0.0f;
+                if (cly) {
+                    c.cr = car(0, k);
+                    c.kr = car(1, k);
+                    c.rr = car(2, k);
+#pragma unroll
+                    for (int i = 0; i < 6; ++i)
+                        fac[i] = rows_s[((UPW ? R_UP : R_DN) + i) * GX + tx];
+                    tcb = tcb_s[be];
+                }
+                if (read_sub) {
+                    const size_t gi = (size_t)g * Bz;
+                    cr = sub[gi];
+                    kr = sub[KGB + gi];
+                    rr = sub[2 * KGB + gi];
+                }
+                const float rad = has_in ? rad_s[e] : 0.0f;
+                const float radc = has_in ? radc_s[e] : 0.0f;
+                const StepGrads o = mr_step_bwd(
+                    tau_s[e], fr_s[e], play_s[be], plev_s[be], secd_s[be],
+                    tcb, cf, cly, twin, ist, fac, rad, radc, cr, kr, rr, c);
+                lam = c.lam;
+                mu = c.mu;
+                if (cly) {
+                    car(0, k) = c.cr;
+                    car(1, k) = c.kr;
+                    car(2, k) = c.rr;
+                }
+                if (valid) {
+                    const size_t gi = ((size_t)l * KG + g) * Bz + b;
+                    if constexpr (UPW) {
+                        gr.taut[gi] = o.tau;
+                        gr.fracs[gi] = o.fr;
+                    } else {
+                        gr.taut[gi] = pt_s[e] + o.tau;
+                        gr.fracs[gi] = pf_s[e] + o.fr;
+                    }
+                }
+                // the per-g values summed over the bands, over the rows
+                // read
+                tau_s[e] = o.bl;
+                fr_s[e] = o.pl;
+                rad_s[e] = o.secd;
+                radc_s[e] = o.tcb;
+                if constexpr (CL) {
+                    part_s[tid] += o.c;
+#pragma unroll
+                    for (int i = 0; i < 6; ++i)
+                        part_s[(1 + i) * GT + tid] += o.fac[i];
+                }
+            };
+            if constexpr (CL) {
+#pragma unroll
+                for (int q = 0; q < NPART; ++q) part_s[q * GT + tid] = 0.0f;
+#pragma unroll
+                for (int k = 0; k < GPT; ++k) {
+                    car(3, k) = lm[0][k];
+                    car(4, k) = lm[1][k];
+                }
+#pragma unroll 1
+                for (int k = 0; k < GPT; ++k) gstep(k, car(3, k), car(4, k));
+#pragma unroll
+                for (int k = 0; k < GPT; ++k) {
+                    lm[0][k] = car(3, k);
+                    lm[1][k] = car(4, k);
+                }
+                // the thread's partials of the overlap rows' cotangents,
+                // over the elements of its own rows of PT and PF
+#pragma unroll
+                for (int q = 0; q < NPART; ++q)
+                    row(q < GPT ? Sl::PT : Sl::PF)[(ty + GY * (q % GPT)) * GX
+                                                   + tx] =
+                        part_s[q * GT + tid];
+            } else {
+#pragma unroll
+                for (int k = 0; k < GPT; ++k) gstep(k, lm[0][k], lm[1][k]);
+            }
+        };
+        if (tc)
+            pass(std::true_type{});
+        else
+            pass(std::false_type{});
+        __syncthreads();          // the per-g values published
+
+        // ---- the band sums: warp k, band b0 + k, in ascending g; the
+        // down sweep adds them to the up sweep's, staged in the slot ----
+        if (ty < nb) {
+            float s_bl = 0.0f, s_pl = 0.0f, s_tcb = 0.0f,
+                  ct_sec = csec_s[tid];
+#pragma unroll 4
+            for (int r = goff[b0 + ty] - g0; r < goff[b0 + ty + 1] - g0;
+                 ++r) {
+                const int e = r * GX + tx;
+                s_bl += tau_s[e];
+                s_pl += fr_s[e];
+                ct_sec += rad_s[e];
+                s_tcb += radc_s[e];
+            }
+            csec_s[tid] = ct_sec;
+            const int be = ty * GX + tx;
+            const size_t bi = ((size_t)l * KNB + b0 + ty) * Bz + b;
+            const size_t vi = ((size_t)lev * KNB + b0 + ty) * Bz + b;
+            if (valid) {
+                out(gr.play + bi, UPW ? 0.0f : row(Sl::PPLAY)[be], s_bl,
+                    !UPW);
+                out(gr.plev + vi, UPW || lev == 0 ? 0.0f
+                                                  : row(Sl::PPLEV)[be],
+                    s_pl, !UPW && lev > 0);
+                // taucb's cotangent is zero outside a cloudy layer: the
+                // up sweep writes it, the down sweep adds only in a
+                // cloudy one
+                if (UPW || ((clyw[l] >> tx) & 1u))
+                    out(gr.taucb + bi, UPW ? 0.0f : row(Sl::PTCB)[be], s_tcb,
+                        !UPW);
+            }
+        }
+        // ---- the group's share of the overlap rows' cotangents of layer
+        // l (the spare warp): the eight warps' partials in warp order;
+        // R_CLDF's the up sweep's, then plus the down sweep's ----
+        if (ty == GY - 1 && tc && valid) {
+            float* sh = sc.part + (((size_t)tk * L + l) * NSHARE) * GX + tx;
+#pragma unroll
+            for (int q = 0; q < NPART; ++q) {
+                const float* pp = row(q < GPT ? Sl::PT : Sl::PF);
+                float a = 0.0f;
+#pragma unroll
+                for (int y = 0; y < GY; ++y)
+                    a += pp[(y + GY * (q % GPT)) * GX + tx];
+                if (q == 0)
+                    sh[0] = UPW ? a : sh[0] + a;
+                else
+                    sh[(UPW ? q : 6 + q) * GX] = a;
+            }
+        }
+        // the slot is free once every thread has arrived
+        fence_proxy_async_smem();
+        mbar_arrive(&empty[j % G_RING]);
+    };
+
+    issue(0);
+    if (1 < L) issue(1);
+
+    // ---- 3. up sweep in reverse: layer L-1 .. 0 ----
+    for (int j = 0; j < L; ++j) {
+        step(std::true_type{}, j);
+        if (j + 2 < L) issue(j + 2);
+    }
+
+    // ---- 4. surface reflection in reverse; the sub-streams' cotangents
+    // end here (the up sweep starts them at zero).  It adds the surface's
+    // cotangent of fracs at layer 0 to the up sweep's; the down sweep's
+    // first step reads that back, so it is issued after, as is its second
+    // into the slot whose rows the surface step uses.  Layer 0's band
+    // sums read TAU and FR of that slot, which em and pb overwrite: every
+    // warp is past them first ----
+    __syncthreads();
+    *nk = nkept[tx];
+    {
+        float* em = reinterpret_cast<float*>(slot(L + 1) + Sl::TAU);
+        float* pb = reinterpret_cast<float*>(slot(L + 1) + Sl::FR);
+        const float cu = valid ? ct[(size_t)UP * (L + 1) * Bz + b] : 0.0f;
+        const float ccu =
+            valid ? ct[(size_t)CLR_UP * (L + 1) * Bz + b] : 0.0f;
+#pragma unroll
+        for (int k = 0; k < GPT; ++k) {
+            const int r = ty + GY * k;
+            if (r >= nr) continue;
+            const int g = g0 + r, bd = b0 + rk[r];
+            const size_t gi = (size_t)g * Bz + b;
+            const float lam0 = lm[0][k] + wg_s[g] * cu;
+            const float mu0 = lm[1][k] + wg_s[g] * ccu;
+            float pbnd = 0.0f, reflect = 0.0f, d0 = 0.0f, dc0 = 0.0f,
+                  fr0 = 0.0f;
+            if (valid) {
+                pbnd = in.surf[((size_t)2 * KNB + bd) * Bz + b];
+                reflect = 1.0f - in.surf[((size_t)KNB + bd) * Bz + b];
+                d0 = rads[S_D * LGB + gi];
+                dc0 = rads[S_DC * LGB + gi];
+                fr0 = in.fracs[gi];
+            }
+            const float ct_rad0 = lam0 + mu0;
+            if (valid) gr.fracs[gi] = gr.fracs[gi] + ct_rad0 * pbnd;
+            em[r * GX + tx] = -(lam0 * d0 + mu0 * dc0);
+            pb[r * GX + tx] = ct_rad0 * fr0;
+            lm[0][k] = lam0 * reflect;
+            lm[1][k] = mu0 * reflect;
+            car(0, k) = car(1, k) = car(2, k) = 0.0f;
+        }
+        fence_proxy_async_smem();
+        fence_proxy_async_global();
+        __syncthreads();
+        issue(L);
+        if (ty < nb && valid) {
+            float s_em = 0.0f, s_pb = 0.0f;
+            for (int r = goff[b0 + ty] - g0; r < goff[b0 + ty + 1] - g0;
+                 ++r) {
+                s_em += em[r * GX + tx];
+                s_pb += pb[r * GX + tx];
+            }
+            gr.surf[((size_t)KNB + b0 + ty) * Bz + b] = s_em;
+            gr.surf[((size_t)2 * KNB + b0 + ty) * Bz + b] = s_pb;
+        }
+        fence_proxy_async_smem();
+        __syncthreads();
+    }
+    if (L + 1 < 2 * L) issue(L + 1);
+
+    // ---- 5. down sweep in reverse: layer 0 .. L-1 ----
+    for (int j = L; j < 2 * L; ++j) {
+        step(std::false_type{}, j);
+        if (j + 2 < 2 * L) issue(j + 2);
+    }
+
+    // ---- 6. the secants, summed over both sweeps ----
+    if (ty < nb && valid) gr.surf[(size_t)(b0 + ty) * Bz + b] = csec_s[tid];
+
+    // ---- 7. the overlap rows' cotangents: the tile's last group adds
+    // the groups' shares in group order once the others have written
+    // theirs (their tickets come first); zeros at the clear layers and in
+    // the flag rows ----
+    __threadfence();
+    __syncthreads();
+    if (grp < NGRP - 1) {
+        if (tid == 0) atomicAdd(&tcount[tile], 1);
+        return;
+    }
+    if (tid == 0) {
+        while (atomicAdd(&tcount[tile], 0) != NGRP - 1) __nanosleep(256);
+        __threadfence();
+    }
+    __syncthreads();
+    if (!valid) return;
+    for (int l = ty; l < L; l += GY) {
+        float v[NSHARE] = {};
+        if (clyw[l] != 0u) {
+            for (int gp = 0; gp < NGRP; ++gp) {
+                const float* sh = sc.part
+                    + (((size_t)(gp * ntiles + tile) * L + l) * NSHARE) * GX
+                    + tx;
+#pragma unroll
+                for (int q = 0; q < NSHARE; ++q) v[q] += __ldcg(sh + q * GX);
+            }
+        }
+        float* o = gr.rows + (size_t)l * NROW * Bz + b;
+        o[R_CLDF * Bz] = v[0];
+        o[R_IST_UP * Bz] = 0.0f;
+        o[R_IST_DN * Bz] = 0.0f;
+        o[R_ICLDDN * Bz] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+            o[(size_t)(R_UP + i) * Bz] = v[1 + i];
+            o[(size_t)(R_DN + i) * Bz] = v[7 + i];
+        }
     }
 }
 
-// the shared memory attributes of the kernel, set once per process
+// the shared memory attributes of the kernel, set once per process (at
+// the largest dynamic shared memory a block can take: it grows with L)
 cudaError_t prepare_bwd_mr() {
-    static const cudaError_t e = [] {
-        cudaError_t e = cudaFuncSetAttribute(
-            rt_bwd_mr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            MrLayout::BYTES);
-        if (e != cudaSuccess) return e;
-        return cudaFuncSetAttribute(
-            rt_bwd_mr_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-            (int)cudaSharedmemCarveoutMaxShared);
-    }();
+    static const cudaError_t e =
+        tile_smem(rt_bwd_mr_kernel, SMEM_SM - SMEM_RESERVED);
     return e;
 }
+
+// the staging of the last launch in the process (1 bulk tensor copies, 0
+// element copies, -1 none yet), for rrtm_rt_bwd_mr_layout
+int mr_staged = -1;
 
 }  // namespace
 
 // Inputs as rrtm_rt's in the maxrand mode (surf (3, 16, B); rows the
 // overlap rows (L, 16, B), taucb (L, 16, B)); ct (4, L+1, B) flux
-// cotangents; rads (10, L, 140, B) the state K1 kept in the same step
-// (rrtm_rt with rads, maxrand) -> ct_taut, ct_fracs (L, 140, B), ct_play
-// (L, 16, B), ct_plev (L+1, 16, B), ct_surf (3, 16, B), ct_rows (L, 16,
-// B), ct_taucb (L, 16, B).
+// cotangents; rads (4, L, 140, B) and subs (2, 3, K, 140, B) the state K1
+// kept in the same step (rrtm_rt with rads and subs, maxrand) ->
+// ct_taut, ct_fracs (L, 140, B), ct_play (L, 16, B), ct_plev (L+1, 16,
+// B), ct_surf (3, 16, B), ct_rows (L, 16, B), ct_taucb (L, 16, B).
+// count, part: the scratch rrtm_rt_bwd_mr_scratch sizes, count zeroed.
 RRTM_API int rrtm_rt_bwd_mr(const float* taut, const float* fracs,
                             const float* play, const float* plev,
                             const float* surf, const float* rows,
                             const float* taucb, const int* ngb,
                             const float* wg, const float* ct,
-                            const float* rads, float* ct_taut,
-                            float* ct_fracs, float* ct_play, float* ct_plev,
-                            float* ct_surf, float* ct_rows, float* ct_taucb,
-                            int L, int B, void* stream) {
+                            const float* rads, const float* subs,
+                            float* ct_taut, float* ct_fracs, float* ct_play,
+                            float* ct_plev, float* ct_surf, float* ct_rows,
+                            float* ct_taucb, int* count, float* part, int L,
+                            int K, int B, void* stream) {
     if (L <= 0 || B <= 0) return (int)cudaGetLastError();
-    if (!rads || !rows || !taucb) return (int)cudaErrorInvalidValue;
+    if (!rads || !subs || !rows || !taucb || !count || !part || K < 1)
+        return (int)cudaErrorInvalidValue;
     cudaError_t e = prepare_bwd_mr();
     if (e != cudaSuccess) return (int)e;
     Inputs in{taut, fracs, play, plev, surf, nullptr, nullptr, nullptr,
@@ -449,33 +881,96 @@ RRTM_API int rrtm_rt_bwd_mr(const float* taut, const float* fracs,
     in.taucb = taucb;
     const MrGrads gr{ct_taut, ct_fracs, ct_play, ct_plev, ct_surf, ct_rows,
                      ct_taucb};
-    const dim3 block(MX, MY);
-    const dim3 grid((B + MX - 1) / MX);
-    rt_bwd_mr_kernel<<<grid, block, MrLayout::BYTES, (cudaStream_t)stream>>>(
-        in, ngb, wg, ct, rads, gr);
+    // the bulk copies where every staged operand's rows are 16-byte
+    // aligned
+    const bool vec = map_rows_ok(taut, B) && map_rows_ok(fracs, B)
+                     && map_rows_ok(play, B) && map_rows_ok(plev, B)
+                     && map_rows_ok(taucb, B) && map_rows_ok(rows, B)
+                     && map_rows_ok(ct, B) && map_rows_ok(rads, B)
+                     && map_rows_ok(ct_taut, B) && map_rows_ok(ct_fracs, B)
+                     && map_rows_ok(ct_play, B) && map_rows_ok(ct_plev, B)
+                     && map_rows_ok(ct_taucb, B);
+    MrMaps maps{};
+    if (vec) {
+        const uint64_t lg = (uint64_t)L * KG;
+        const uint64_t lb = (uint64_t)L * KNB;
+        auto map = [&](int id, const float* p, uint64_t nrows, int box) {
+            return tensor_map_rows(&maps.m[id], p, nrows, B, GX, box, G_L2);
+        };
+        const bool ok = map(N_TAUT, taut, lg, GH)
+                        && map(N_FRACS, fracs, lg, GH)
+                        && map(N_RADS, rads, 4 * lg, GH)
+                        && map(N_GTAUT, ct_taut, lg, GH)
+                        && map(N_GFRACS, ct_fracs, lg, GH)
+                        && map(N_PLAY, play, lb, GH)
+                        && map(N_PLEV, plev, lb + KNB, GH)
+                        && map(N_TCB, taucb, lb, GH)
+                        && map(N_CT, ct, 4 * (uint64_t)(L + 1), 1)
+                        && map(N_GPLAY, ct_play, lb, GH)
+                        && map(N_GPLEV, ct_plev, lb + KNB, GH)
+                        && map(N_GTCB, ct_taucb, lb, GH)
+                        && map(N_ROWS, rows, (uint64_t)L * NROW, GH);
+        // a map that does not encode raises (no fallback)
+        if (!ok) return (int)cudaErrorInvalidValue;
+    }
+    mr_staged = (int)vec;
+    const GScratch sc{nullptr, count, part};
+    const dim3 grid(NGRP * ((B + GX - 1) / GX));
+    rt_bwd_mr_kernel<<<grid, GT, MrLayout::bytes(L), (cudaStream_t)stream>>>(
+        maps, in, ngb, wg, ct, rads, subs, gr, sc, K, (int)vec);
     return (int)cudaGetLastError();
 }
 
-// Its launch configuration: out[0..7] = registers per thread, local
-// memory bytes per thread, static and dynamic shared memory per block,
-// blocks per SM, 0 (no ring), threads and columns per block.
-RRTM_API int rrtm_rt_bwd_mr_info(int* out) {
+// The scratch rrtm_rt_bwd_mr takes at L layers and B columns: out[0]
+// ints of count (the tickets' counter, then one a column tile), out[1]
+// floats of part (the groups' shares: blocks x L x NSHARE x GX).
+RRTM_API int rrtm_rt_bwd_mr_scratch(int L, int B, int* out) {
+    const int tiles = (B + GX - 1) / GX;
+    out[0] = 1 + tiles;
+    out[1] = NGRP * tiles * L * NSHARE * GX;
+    return 0;
+}
+
+// Its tile, band groups and staging: out[0] columns a block, out[1] rows
+// of a copy's box, out[2] NGRP, out[3 .. 3 + NGRP] the first band of each
+// group, then KNB; out[4 + NGRP] the staging of the last launch in the
+// process (1 bulk tensor copies, 0 element copies, -1 none yet); out[5 +
+// NGRP] the floats of a group's share of a (layer, column).
+RRTM_API int rrtm_rt_bwd_mr_layout(int* out) {
+    out[0] = GX;
+    out[1] = GH;
+    out[2] = NGRP;
+    const cudaError_t e =
+        cudaMemcpyFromSymbol(out + 3, GFIRST, sizeof(int) * (NGRP + 1));
+    if (e != cudaSuccess) return (int)e;
+    out[4 + NGRP] = mr_staged;
+    out[5 + NGRP] = NSHARE;
+    return 0;
+}
+
+// Its launch configuration at L layers: out[0..7] = registers per thread,
+// local memory bytes per thread, static and dynamic shared memory per
+// block (at L), blocks per SM, the ring's slots, threads and columns per
+// block.
+RRTM_API int rrtm_rt_bwd_mr_info(int L, int* out) {
     cudaError_t e = prepare_bwd_mr();
     if (e != cudaSuccess) return (int)e;
     cudaFuncAttributes a;
     e = cudaFuncGetAttributes(&a, rt_bwd_mr_kernel);
     if (e != cudaSuccess) return (int)e;
+    const int smem = MrLayout::bytes(L);
     int blocks = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, rt_bwd_mr_kernel, MT, MrLayout::BYTES);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks,
+                                                      rt_bwd_mr_kernel, GT,
+                                                      smem);
     if (e != cudaSuccess) return (int)e;
     out[0] = a.numRegs;
     out[1] = (int)a.localSizeBytes;
     out[2] = (int)a.sharedSizeBytes;
-    out[3] = MrLayout::BYTES;
+    out[3] = smem;
     out[4] = blocks;
-    out[5] = 0;
-    out[6] = MT;
-    out[7] = MX;
+    out[5] = G_RING;
+    out[6] = GT;
+    out[7] = GX;
     return (int)cudaSuccess;
 }

@@ -95,13 +95,15 @@
 // (rtrn_bwd.cu; maxrand: rtrn_bwd_mr.cu; banded, fused and cldf-odcld:
 // rtrn_bwd_g.cu) reads them back: (2 | 4, L, 140, B) floats, 1.1 GB clear
 // and 2.2 GB in a cloudy mode at B=16384, L=60; maxrand
-// also the three sub-streams entering a layer in a sweep, (10, L, 140, B)
-// allocated (5.5 GB), written only where K6 reads them: in a cloudy
-// layer that does not restart them.  The stores sit beside the flux sums
-// and change nothing in them: the fluxes are bitwise those of the kernel
-// without SAVE.  A warp's store is 16 columns x 2 g-points, two 64-byte
-// segments.  K6 shares with this file only the recurrences (advance,
-// advance_ddt, advance_mr) and the factor functions of rtrn.cuh.
+// also the three sub-streams entering a layer in a sweep where K6 reads
+// them, in a cloudy layer that does not restart them, packed: (2, 3, K,
+// 140, B), a column's k-th such layer of a sweep at slot k, K the most
+// of any column (3 at the cells' clouds, 0.2 GB).  The stores sit beside
+// the flux sums and change nothing in them: the fluxes are bitwise those
+// of the kernel without SAVE.  A warp's store is 16 columns x 2
+// g-points, two 64-byte segments.  K6 shares with this file only the
+// recurrences (advance, advance_ddt, advance_mr) and the factor functions
+// of rtrn.cuh.
 #pragma once
 
 #include <stdint.h>
@@ -181,10 +183,13 @@ template <int MODE, bool IDRV, int SPEC>
 struct Layout {
     using S = Slot<MODE, SPEC>;
     static constexpr int NUP = IDRV ? 4 : 2;
-    // maxrand: the cloudy, clear and correction sub-streams of every g
+    // maxrand: the cloudy, clear and correction sub-streams of every g,
+    // and (SAVE) each thread's count of its column's kept layers
     static constexpr int SUB_BYTES = MODE == MAXRAND ? 3 * KGPT * KT * 4 : 0;
+    static constexpr int CNT_BYTES = MODE == MAXRAND ? KT * 4 : 0;
     static constexpr int FIXED = 8 * 4 + 2 * NUP * KY * KX * 4 + 2 * KW * 4
-                                 + 2 * KG * 4 + KNB * KX * 4 + SUB_BYTES;
+                                 + 2 * KG * 4 + KNB * KX * 4 + SUB_BYTES
+                                 + CNT_BYTES;
     static constexpr int bytes(int ring) { return ring * S::BYTES + FIXED; }
     // four levels where two blocks of them fit on an SM, else three
     static constexpr int RING =
@@ -197,6 +202,7 @@ struct Layout {
     static constexpr int WG = NGB + KG * 4;
     static constexpr int SECD = WG + KG * 4;             // (16, KX)
     static constexpr int SUB = SECD + KNB * KX * 4;      // (3, KGPT, KT)
+    static constexpr int CNT = SUB + SUB_BYTES;          // (KT)
 };
 
 // The per-g cloud fraction of g at column c of a staged level: the
@@ -307,19 +313,20 @@ __device__ __forceinline__ Step staged_step(const unsigned char* s,
 
 // SAVE (float32; the gradient step): the
 // kernel also writes the per-g radiances it sums into the flux rows to
-// rads (2 | 4 | 10, L, 140, B), row D the down radiance at level l after
+// rads (2 | 4, L, 140, B), row D the down radiance at level l after
 // layer l, row U the up radiance entering layer l (l = 0: just after the
-// surface reflection), the cloudy modes rows 2-3 their clear twins,
-// maxrand rows 4-6 (7-9) the cloudy, clear and correction sub-streams
-// (cr, kr, rr) entering layer l in the down (up) sweep, written only
-// where layer l is cloudy and does not restart them in that sweep (the
-// rest of those rows is left as it was); K6 reads them back there.
-// Elsewhere rads is not read.
+// surface reflection), the cloudy modes rows 2-3 their clear twins; and
+// maxrand the cloudy, clear and correction sub-streams (cr, kr, rr)
+// entering layer l in the down (up) sweep where layer l is cloudy and
+// does not restart them in that sweep, to packed (2, 3, npk, 140, B): a
+// column's k-th such layer in the sweep's order (down: from the top) at
+// slot k (slots past its count are left as they were); K6 reads them
+// back there.  Elsewhere rads and packed are not read.
 template <int MODE, bool IDRV, int SPEC, bool SAVE>
 __global__ void __launch_bounds__(KT, BLOCKS_PER_SM)
 rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
           const float* __restrict__ wg, float* __restrict__ out,
-          float* __restrict__ rads) {
+          float* __restrict__ rads, float* __restrict__ packed, int npk) {
     using Sl = Slot<MODE, SPEC>;
     using Lo = Layout<MODE, IDRV, SPEC>;
     constexpr bool MR = MODE == MAXRAND;
@@ -338,6 +345,7 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
     float* wg_s = reinterpret_cast<float*>(smem + Lo::WG);
     float* secd_s = reinterpret_cast<float*>(smem + Lo::SECD);
     float* sub = reinterpret_cast<float*>(smem + Lo::SUB);
+    int* cnt = reinterpret_cast<int*>(smem + Lo::CNT);
 
     const int tx = threadIdx.x, ty = threadIdx.y;
     const int tid = ty * KX + tx;
@@ -520,22 +528,26 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
             if constexpr (MODE != CLEAR) p[2 * lgb] = radc[k];
         }
     };
-    // SAVE, maxrand: the sub-streams of g-point k entering layer l, rows
-    // 4-6 (down sweep) or 7-9 (up)
-    auto save_subs = [&](bool upw, int l, int k) {
-        if (valid) {
-            const size_t lgb = (size_t)L * KG * Bz;
-            float* p = rads + (upw ? 7 : 4) * lgb
-                       + ((size_t)l * KG + ty + k * KY) * Bz + b;
+    // SAVE, maxrand: the sub-streams of g-point k entering the layer, at
+    // the column's slot of the sweep (its kept layers before this one,
+    // counted in cnt) of the packed rows, down sweep 0, up 1
+    auto save_subs = [&](bool upw, int k) {
+        const int slot = cnt[tid];
+        if (valid && slot < npk) {
+            const size_t kgb = (size_t)npk * KG * Bz;
+            float* p = packed + (upw ? 3 : 0) * kgb
+                       + ((size_t)slot * KG + ty + k * KY) * Bz + b;
 #pragma unroll
-            for (int q = 0; q < 3; ++q) p[q * lgb] = subs(q, k);
+            for (int q = 0; q < 3; ++q) p[q * kgb] = subs(q, k);
         }
     };
     auto zero_subs = [&] {
-        if constexpr (MR)
+        if constexpr (MR) {
 #pragma unroll
             for (int k = 0; k < KGPT; ++k)
                 subs(0, k) = subs(1, k) = subs(2, k) = 0.0f;
+            if constexpr (SAVE) cnt[tid] = 0;
+        }
     };
     zero_subs();
 
@@ -605,7 +617,7 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
                         c, b);
                     if constexpr (SAVE && UPW) save(1, l, k);  // entering l
                     if constexpr (SAVE && MR)
-                        if (cly && !ist) save_subs(UPW, l, k);
+                        if (cly && !ist) save_subs(UPW, k);
                     if constexpr (MR)
                         advance_mr(rad[k], radc[k], subs(0, k), subs(1, k),
                                    subs(2, k), f, CL && cly, twin, ist, fac);
@@ -626,6 +638,8 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
                 steps(std::true_type{});
             else
                 steps(std::false_type{});
+            if constexpr (SAVE && MR)
+                if (cly && !ist) ++cnt[tid];
             put_part(j, sacc);
             if (j + 1 < j0 + L) {
                 wait_step(j + 1);
@@ -685,36 +699,46 @@ cudaError_t prepare() {
     return e;
 }
 
+// the state K1 keeps in the gradient step (SAVE): the radiances and,
+// maxrand, the packed sub-streams and their slots a sweep
+struct Kept {
+    float* rads = nullptr;
+    float* packed = nullptr;
+    int npk = 0;
+};
+
 template <int MODE, bool IDRV, int SPEC, bool SAVE>
 cudaError_t launch(const KernelInputs<SPEC>& in, const int* ngb,
-                   const float* wg, float* out, float* rads,
+                   const float* wg, float* out, const Kept& kp,
                    cudaStream_t s) {
     cudaError_t e = prepare<MODE, IDRV, SPEC, SAVE>();
     if (e != cudaSuccess) return e;
     const dim3 block(KX, KY);
     const dim3 grid((in.B + KX - 1) / KX);
     rt_kernel<MODE, IDRV, SPEC, SAVE>
-        <<<grid, block, Layout<MODE, IDRV, SPEC>::BYTES, s>>>(in, ngb, wg,
-                                                              out, rads);
+        <<<grid, block, Layout<MODE, IDRV, SPEC>::BYTES, s>>>(
+            in, ngb, wg, out, kp.rads, kp.packed, kp.npk);
     return cudaGetLastError();
 }
 
-// K1 at idrv; with rads (float32 only) the instantiation that also keeps
-// the radiances
+// K1 at idrv; with kp.rads (float32 only) the instantiation that also
+// keeps the state (maxrand: with kp.packed, at least one slot)
 template <int MODE, int SPEC>
 cudaError_t launch(const KernelInputs<SPEC>& in, const int* ngb,
-                   const float* wg, float* out, int idrv, float* rads,
+                   const float* wg, float* out, int idrv, const Kept& kp,
                    cudaStream_t s) {
     if constexpr (SPEC == rrtm::SPEC_F32) {
-        if (rads)
+        if (kp.rads) {
+            if (MODE == MAXRAND && (!kp.packed || kp.npk < 1))
+                return cudaErrorInvalidValue;
             return idrv
-                ? launch<MODE, true, SPEC, true>(in, ngb, wg, out, rads, s)
-                : launch<MODE, false, SPEC, true>(in, ngb, wg, out, rads, s);
+                ? launch<MODE, true, SPEC, true>(in, ngb, wg, out, kp, s)
+                : launch<MODE, false, SPEC, true>(in, ngb, wg, out, kp, s);
+        }
     }
-    if (rads) return cudaErrorInvalidValue;
-    return idrv ? launch<MODE, true, SPEC, false>(in, ngb, wg, out, rads, s)
-                : launch<MODE, false, SPEC, false>(in, ngb, wg, out, rads,
-                                                   s);
+    if (kp.rads) return cudaErrorInvalidValue;
+    return idrv ? launch<MODE, true, SPEC, false>(in, ngb, wg, out, kp, s)
+                : launch<MODE, false, SPEC, false>(in, ngb, wg, out, kp, s);
 }
 
 // the launch configuration of an instantiation (tile_info)
@@ -748,13 +772,13 @@ cudaError_t info_storage(int mode, int idrv, int* out) {
 
 // K1 in `mode` (enum Mode) with taut / fracs in storage SPEC; checks
 // that the mode's cloud inputs (and, in reduced storage, taua) are given;
-// rads non-null: the instantiation that keeps the radiances (float32;
+// kp.rads non-null: the instantiation that keeps the state (float32;
 // cudaErrorInvalidValue in reduced storage)
 template <int SPEC>
 cudaError_t launch_storage(const Inputs& inputs, const float* taua,
                            const int* ngb, const float* wg, float* out,
                            int mode, int idrv, cudaStream_t s,
-                           float* rads = nullptr) {
+                           const Kept& kp = Kept{}) {
     KernelInputs<SPEC> in;
     static_cast<Inputs&>(in) = inputs;
     if constexpr (SPEC != rrtm::SPEC_F32) {
@@ -763,25 +787,25 @@ cudaError_t launch_storage(const Inputs& inputs, const float* taua,
     }
     switch (mode) {
     case CLEAR:
-        return launch<CLEAR, SPEC>(in, ngb, wg, out, idrv, rads, s);
+        return launch<CLEAR, SPEC>(in, ngb, wg, out, idrv, kp, s);
     case COMPACT:
         if (!in.mask || !in.cw || !in.abi || !in.abl)
             return cudaErrorInvalidValue;
-        return launch<COMPACT, SPEC>(in, ngb, wg, out, idrv, rads, s);
+        return launch<COMPACT, SPEC>(in, ngb, wg, out, idrv, kp, s);
     case BANDED:
         if (!in.cld || !in.taucb) return cudaErrorInvalidValue;
-        return launch<BANDED, SPEC>(in, ngb, wg, out, idrv, rads, s);
+        return launch<BANDED, SPEC>(in, ngb, wg, out, idrv, kp, s);
     case MAXRAND:
         if (!in.cld || !in.taucb) return cudaErrorInvalidValue;
-        return launch<MAXRAND, SPEC>(in, ngb, wg, out, idrv, rads, s);
+        return launch<MAXRAND, SPEC>(in, ngb, wg, out, idrv, kp, s);
     case FUSED:
         if (!in.cldf || !in.ciwp || !in.clwp || !in.tauc || !in.abi
             || !in.abl)
             return cudaErrorInvalidValue;
-        return launch<FUSED, SPEC>(in, ngb, wg, out, idrv, rads, s);
+        return launch<FUSED, SPEC>(in, ngb, wg, out, idrv, kp, s);
     case CLDF_OD:
         if (!in.cldf || !in.tauc) return cudaErrorInvalidValue;
-        return launch<CLDF_OD, SPEC>(in, ngb, wg, out, idrv, rads, s);
+        return launch<CLDF_OD, SPEC>(in, ngb, wg, out, idrv, kp, s);
     default:
         return cudaErrorInvalidValue;
     }

@@ -56,7 +56,7 @@ from ..ops import cldprop, rtrn, rtrnmr, spec_codec
 from ..ops.cldcoef_cuda import ice_liq_coeffs_blocked
 from ..ops.inatm import inatm
 from ..ops.planck_cuda import planck_interp_blocked
-from ..ops.rtrn_cuda import WRAPPERS
+from ..ops.rtrn_cuda import WRAPPERS, KeptCount
 from ..ops.rtrnmr_cuda import overlap_rows
 from ..ops.setcoef import interp_planck_blocked, setcoef
 from ..ops.taumol import TaumolEngine
@@ -101,6 +101,24 @@ def check_supported(cfg: LWConfig) -> None:
         # as the JAX package's cldprmc (rrtmg_lw_cldprmc.f90:191)
         raise ValueError(f"INFLAG={cfg.inflag} not available with McICA "
                          "(inflag 0 or 2)")
+
+
+def cloud_kind(cfg: LWConfig, clouds) -> str:
+    """The sweep a step of ``cfg`` takes with ``clouds``: "clear",
+    "mcica" (imca=1), "banded" (icld=1) or "maxrand" (icld 2 or 3);
+    raises TypeError where the clouds' type does not fit it."""
+    if cfg.icld == 0 or clouds is None:
+        return "clear"
+    if cfg.imca == 1:
+        if not isinstance(clouds, MCICA):
+            raise TypeError(f"McICA (imca=1) takes McicaCloudsCompact, "
+                            f"McicaCloudsBlocked or McicaClouds, got "
+                            f"{type(clouds).__name__}")
+        return "mcica"
+    if not isinstance(clouds, BandClouds):
+        raise TypeError(f"imca=0 takes BandClouds, got "
+                        f"{type(clouds).__name__}")
+    return "banded" if cfg.icld == 1 else "maxrand"
 
 
 class RRTMGLW(torch.nn.Module):
@@ -163,6 +181,18 @@ class RRTMGLW(torch.nn.Module):
         sc = setcoef(prof, static, planck=False)
         reduced = self.reduced_storage
         sdt = self.spec_dtype if reduced else torch.float32
+        kind = cloud_kind(cfg, clouds)
+        # maximum-random overlap in a step that records a gradient on the
+        # card: the overlap rows first, and with them the count of the
+        # state's slots the sweep reads on the host where it allocates the
+        # state it keeps, which has long reached the host by then
+        rows = kept = None
+        if (cuda and kind == "maxrand" and torch.is_grad_enabled()
+                and any(isinstance(t, torch.Tensor) and t.requires_grad
+                        for t in (*prof, *clouds))):
+            rows = overlap_rows(
+                clouds.cldfrac.to(cfg.torch_dtype).contiguous())
+            kept = KeptCount(rows)
 
         if cuda:
             taug_t, fracs_t = taumol_blocked(sc, prof, self.engine,
@@ -200,28 +230,24 @@ class RRTMGLW(torch.nn.Module):
         coeffs = (ice_liq_coeffs_blocked if cuda
                   else cldprop.ice_liq_coeffs_blocked)
         bounds_ok = None
-        if cfg.icld == 0 or clouds is None:
+        if kind == "clear":
             fl = sweeps["blocked"](*rt_args, **sweep_kw)
-        elif cfg.imca == 1:
-            if not isinstance(clouds, MCICA):
-                raise TypeError(f"McICA (imca=1) takes McicaCloudsCompact, "
-                                f"McicaCloudsBlocked or McicaClouds, got "
-                                f"{type(clouds).__name__}")
+        elif kind == "mcica":
             fl, bounds_ok = self._mcica(clouds, rt_args, sweeps, coeffs,
                                         sweep_kw)
         else:
-            if not isinstance(clouds, BandClouds):
-                raise TypeError(f"imca=0 takes BandClouds, got "
-                                f"{type(clouds).__name__}")
             # per-band cloud od stays at band resolution into the kernel,
             # which expands it to g by ngb
             taucb_t, bounds_ok = cldprop.cldprop_banded_blocked(
                 clouds, static, inflag=cfg.inflag,
                 iceflag=cfg.iceflag, liqflag=cfg.liqflag, coeffs=coeffs)
             cldfrac = clouds.cldfrac.to(cfg.torch_dtype)
-            if cfg.icld == 1:
+            if kind == "banded":
                 fl = sweeps["banded"](*rt_args, cldfrac.t().contiguous(),
                                       taucb_t, **sweep_kw)
+            elif kept is not None:
+                fl = sweeps["maxrand"](*rt_args, rows, taucb_t, kept=kept,
+                                       **sweep_kw)
             else:
                 rows = (overlap_rows if cuda
                         else rtrnmr.overlap_rows)(cldfrac.contiguous())

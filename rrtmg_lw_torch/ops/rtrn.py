@@ -534,18 +534,66 @@ def substreams_kept(rows_t):
     layer that does not restart them, the only places the adjoint reads
     them.  rows_t (L, 16, B) the overlap rows."""
     cloudy = rows_t[:, ROW_CLDF] >= CLOUD_GATE
-    return torch.stack([cloudy & ~(rows_t[:, r] > 0.0)
-                        for r in (ROW_IST_DN, ROW_IST_UP)])
+    restart = rows_t[:, [ROW_IST_DN, ROW_IST_UP]] > 0.0
+    return (cloudy[:, None] & ~restart).transpose(0, 1)
 
 
-def kept_state(rads, rows_t, fill=0.0):
-    """The maxrand state ``rads`` (10, L, 140, B) with its sub-stream
-    rows set to ``fill`` wherever ``substreams_kept(rows_t)`` is false,
-    in place; -> rads.  K1 leaves those entries unwritten: this makes
-    two states comparable."""
-    subs = rads[4:].view(2, 3, *rads.shape[1:])
-    subs.masked_fill_(~substreams_kept(rows_t)[:, None, :, None], fill)
-    return rads
+def substream_slots(rows_t):
+    """-> (slots (2, L, B), counts (2, B)), int64: the packed maxrand
+    state's slot of the sub-streams entering layer l in the down sweep
+    then the up sweep, the count of the column's kept layers
+    (``substreams_kept``) before l in that sweep's order (down: from the
+    top layer; up: from the surface), and each column's count of kept
+    layers in each sweep."""
+    kept = substreams_kept(rows_t).long()
+    down = kept[0].flip(0).cumsum(0).flip(0) - kept[0]
+    up = kept[1].cumsum(0) - kept[1]
+    return torch.stack([down, up]), kept.sum(dim=1)
+
+
+def kept_depth(counts):
+    """K, the slots a sweep of the packed maxrand state: the most kept
+    layers of any column in either sweep (``substream_slots``' counts),
+    at least 1."""
+    return max(1, int(counts.max()))
+
+
+def _kept_index(rows_t):
+    """[(sweep, layers, columns, slots)] of every kept (layer, column)."""
+    slots, _ = substream_slots(rows_t)
+    out = []
+    for s, keep in enumerate(substreams_kept(rows_t)):
+        l, b = keep.nonzero(as_tuple=True)
+        out.append((s, l, b, slots[s, l, b]))
+    return out
+
+
+def pack_state(state, rows_t):
+    """The (10, L, 140, B) maxrand state (radiances, then the sub-streams
+    of each sweep at every layer) -> (rads (4, L, 140, B), subs (2, 3, K,
+    140, B)): the sub-streams of the kept layers only, at their slots
+    (``substream_slots``; K from ``kept_depth``), zeros past a column's
+    count."""
+    _, L, G, B = state.shape
+    full = state[4:].view(2, 3, L, G, B)
+    subs = state.new_zeros((2, 3, kept_depth(substream_slots(rows_t)[1]), G,
+                            B))
+    for s, l, b, k in _kept_index(rows_t):
+        subs[s][:, k, :, b] = full[s][:, l, :, b]
+    return state[:4].contiguous(), subs
+
+
+def unpack_state(rads, subs, rows_t):
+    """The maxrand state as K1 keeps it, rads (4, L, 140, B) and the packed
+    sub-streams subs (2, 3, K, 140, B), -> (10, L, 140, B): the radiances,
+    then the sub-streams entering each layer in the down sweep and in the
+    up sweep, zero where they are not kept (``substreams_kept``).  What
+    compares two states: the slots past a column's count hold nothing."""
+    _, L, G, B = rads.shape
+    full = subs.new_zeros((2, 3, L, G, B))
+    for s, l, b, k in _kept_index(rows_t):
+        full[s][:, l, :, b] = subs[s][:, k, :, b]
+    return torch.cat([rads, full.view(6, L, G, B)])
 
 
 def rt_sweep_maxrand(taut_t, fracs_t, planklay_t, planklev_t, surf, rows_t,
@@ -553,11 +601,12 @@ def rt_sweep_maxrand(taut_t, fracs_t, planklay_t, planklev_t, surf, rows_t,
     """Fluxes (4|6, L+1, B) under maximum-random overlap (icld 2/3):
     the plain version of the RT kernel's maxrand mode.  rows_t
     (L, 16, B) from ``rtrnmr.overlap_rows``, taucb_t and surf as
-    ``rt_sweep_banded``.  ``radiances``: (the fluxes, the state (10, L,
-    140, B) K6 reads): the down radiance at level l, the up radiance
-    entering layer l, their clear twins, then the sub-streams (cr, kr,
-    rr) entering layer l in the down sweep and in the up sweep, zero
-    where they are not kept (``kept_state``); the plain version of
+    ``rt_sweep_banded``.  ``radiances``: (the fluxes, rads, subs), the
+    state K6 reads: rads (4, L, 140, B) the down radiance at level l, the
+    up radiance entering layer l and their clear twins; subs (2, 3, K,
+    140, B) the sub-streams (cr, kr, rr) entering a layer in the down
+    sweep and in the up sweep where they are kept, packed
+    (``pack_state``); the plain version of
     ``rtrn_cuda.rt_sweep_maxrand_radiances``."""
     taut, fracs, play, plev, odcld_g, secd, semiss, plankbnd, dpl = \
         _band_layouts(taut_t, fracs_t, planklay_t, planklev_t, surf,
@@ -569,7 +618,7 @@ def rt_sweep_maxrand(taut_t, fracs_t, planklay_t, planklev_t, surf, rows_t,
     fluxes = torch.stack(fluxes).permute(0, 2, 1).contiguous()
     if not radiances:
         return fluxes
-    return fluxes, kept_state(rads.contiguous(), rows_t)
+    return (fluxes, *pack_state(rads.contiguous(), rows_t))
 
 
 def rt_sweep_maxrand_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,

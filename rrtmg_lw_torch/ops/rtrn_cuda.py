@@ -14,7 +14,7 @@ for autograd: in a forward that autograd records, K1 (float32) also
 keeps its per-g radiances (``rt_sweep_radiances``), and K6 reads them
 back in the backward instead of sweeping forward again.  ``RTSweepFn``
 holds the other four modes and does the same (maxrand:
-``rt_sweep_maxrand_radiances``, the sub-streams kept too, and
+``rt_sweep_maxrand_radiances``, the sub-streams kept too, packed, and
 ``rt_sweep_maxrand_vjp``; banded, fused, cldf-odcld:
 ``rt_sweep_g_radiances``, ``rt_sweep_banded_vjp`` and
 ``rt_sweep_g_vjp``).  With idrv=1 (a fourth
@@ -103,10 +103,10 @@ def _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t,
 def _launch(mode, wrapper, taut_t, fracs_t, planklay_t, planklev_t, surf,
             ngb0, wg, mask=None, cw=None, abi=None, abl=None, cld=None,
             taucb=None, cldf=None, ciwp=None, clwp=None, tauc=None,
-            taua=None, rads=None):
+            taua=None, rads=None, subs=None):
     """K1 in ``mode``, in the storage of taut_t; counted on ``wrapper``
-    (and on ``wrapper.save`` when it writes the radiances to ``rads``).
-    -> (4|6, L+1, B)."""
+    (and on ``wrapper.save`` when it writes the radiances to ``rads``;
+    maxrand: the packed sub-streams to ``subs``).  -> (4|6, L+1, B)."""
     L, _, B = taut_t.shape
     idrv = surf.shape[0] == 4
     out = torch.empty((6 if idrv else 4, L + 1, B), dtype=torch.float32,
@@ -114,7 +114,8 @@ def _launch(mode, wrapper, taut_t, fracs_t, planklay_t, planklev_t, surf,
     spec = SPEC_CODES[taut_t.dtype]
     _build.launch("rrtm_rt", taut_t, fracs_t, planklay_t, planklev_t, surf,
                   ngb0, wg, mask, cw, abi, abl, cld, taucb, cldf, ciwp, clwp,
-                  tauc, taua, out, L, B, MODES[mode], int(idrv), spec, rads)
+                  tauc, taua, out, L, B, MODES[mode], int(idrv), spec, rads,
+                  subs, 0 if subs is None else subs.shape[2])
     wrapper.launches += 1
     if idrv:
         wrapper.idrv.launches += 1
@@ -154,19 +155,50 @@ def rt_sweep_radiances(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
     return out, rads
 
 
+class KeptCount:
+    """K of the packed maxrand state (``rtrn.kept_depth``) for the
+    overlap rows ``rows_t``: on the card counted there and copied to
+    pinned host memory without a wait; ``value()`` waits on the copy's
+    event.  The model starts one where it forms the rows of a step that
+    records a gradient, before taumol, and hands it to the sweep
+    (``rt_fluxes_maxrand(..., kept=)``), which allocates the state long
+    after: the wait then finds the copy done.  On CPU rows, counted
+    directly."""
+
+    def __init__(self, rows_t):
+        counts = rtrn.substreams_kept(rows_t).sum(dim=1).amax()
+        self.event = None
+        if rows_t.device.type == "cpu":
+            self.host = counts
+            return
+        self.host = torch.empty((), dtype=counts.dtype, pin_memory=True)
+        self.host.copy_(counts, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def value(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return max(1, int(self.host))
+
+
 def rt_sweep_maxrand_radiances(taut_t, fracs_t, planklay_t, planklev_t,
-                               surf, rows_t, taucb_t, ngb0, wg):
+                               surf, rows_t, taucb_t, ngb0, wg, kept=None):
     """K1 maxrand in float32 keeping the state K6 reads: -> (fluxes (4|6,
-    L+1, B), rads (10, L, 140, B)), rads the down radiance at level l,
-    the up radiance entering layer l, their clear twins, and the
-    sub-streams (cr, kr, rr) entering layer l in the down sweep and in
-    the up sweep, for l = 0..L-1, written only where K6 reads them
-    (``rtrn.substreams_kept``; elsewhere rads is left unwritten, and
-    ``rtrn.kept_state`` zeroes it).  The fluxes are bitwise those of the
-    launch without them.  Arguments as ``RTSweepFn``'s maxrand inputs; on
-    a CPU tensor the plain version, ``rtrn.rt_sweep_maxrand(...,
-    radiances=True)``.  Counted on ``rt_fluxes_maxrand`` and its
-    ``.save``."""
+    L+1, B), rads (4, L, 140, B), subs (2, 3, K, 140, B)), rads the down
+    radiance at level l, the up radiance entering layer l and their clear
+    twins, for l = 0..L-1; subs the sub-streams (cr, kr, rr) entering a
+    layer in the down sweep and in the up sweep where K6 reads them
+    (``rtrn.substreams_kept``), a column's k-th such layer of a sweep at
+    slot k (``rtrn.substream_slots``), K the most of any column
+    (``rtrn.kept_depth``): ``kept.value()``, a ``KeptCount`` of
+    ``rows_t``, else counted here, a wait on the card; the slots past a
+    column's count are left
+    unwritten (``rtrn.unpack_state`` makes two states comparable).  The
+    fluxes are bitwise those of the launch without them.  Arguments as
+    ``RTSweepFn``'s maxrand inputs; on a CPU tensor the plain version,
+    ``rtrn.rt_sweep_maxrand(..., radiances=True)``.  Counted on
+    ``rt_fluxes_maxrand`` and its ``.save``."""
     x = (taut_t, fracs_t, planklay_t, planklev_t, surf)
     if taut_t.device.type == "cpu":
         return rtrn.rt_sweep_maxrand(*x, rows_t, taucb_t, ngb0, wg,
@@ -176,11 +208,14 @@ def rt_sweep_maxrand_radiances(taut_t, fracs_t, planklay_t, planklev_t,
                         "radiances in float32 storage only")
     L, B = _check(*x, None, None, None, None, ngb0, wg)
     _check_clouds("maxrand", (rows_t, taucb_t), L, B, taut_t.device)
-    rads = torch.empty((10, L, NGPT, B), dtype=torch.float32,
+    K = (KeptCount(rows_t) if kept is None else kept).value()
+    rads = torch.empty((4, L, NGPT, B), dtype=torch.float32,
+                       device=taut_t.device)
+    subs = torch.empty((2, 3, K, NGPT, B), dtype=torch.float32,
                        device=taut_t.device)
     out = _launch("maxrand", rt_fluxes_maxrand, *x, ngb0, wg, cld=rows_t,
-                  taucb=taucb_t, rads=rads)
-    return out, rads
+                  taucb=taucb_t, rads=rads, subs=subs)
+    return out, rads, subs
 
 
 def rt_sweep_g_radiances(mode, taut_t, fracs_t, planklay_t, planklev_t,
@@ -328,7 +363,7 @@ def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
 
 
 class RTSweepFn(torch.autograd.Function):
-    """(mode, ngb0, wg, taua_t, grad_enabled, taut_t, fracs_t,
+    """(mode, ngb0, wg, taua_t, grad_enabled, kept, taut_t, fracs_t,
     planklay_t, planklev_t, surf, *clouds) -> fluxes (4, L+1, B), or with
     a (4, 16, B) surf (fluxes, d/dT (2, L+1, B)): K1 in the banded,
     maxrand, fused or cldf-odcld mode, ``clouds`` as
@@ -336,15 +371,16 @@ class RTSweepFn(torch.autograd.Function):
     the plain vjp on the CPU; on the card K6 in the mode, fed
     the radiances (maxrand: the state) K1 kept where an input needs a
     gradient and ``grad_enabled``, ``torch.is_grad_enabled()`` at the
-    call, holds; a cotangent of d/dT raises; in reduced storage it
-    raises."""
+    call, holds (maxrand: K from ``kept``, a ``KeptCount`` or None, as
+    ``rt_sweep_maxrand_radiances``); a cotangent of d/dT raises; in
+    reduced storage it raises."""
 
     @staticmethod
-    def forward(ctx, mode, ngb0, wg, taua_t, grad_enabled, *x):
+    def forward(ctx, mode, ngb0, wg, taua_t, grad_enabled, kept, *x):
         ctx.mode, ctx.device_type = mode, x[0].device.type
         ctx.reduced = x[0].dtype in REDUCED
         ctx.set_materialize_grads(False)
-        keep = any(ctx.needs_input_grad[5:]) and not ctx.reduced
+        keep = any(ctx.needs_input_grad[6:]) and not ctx.reduced
         if x[0].device.type == "cpu":
             if keep:
                 ctx.save_for_backward(ngb0, wg, *x)
@@ -352,11 +388,13 @@ class RTSweepFn(torch.autograd.Function):
                 *spec_inputs(x[0], x[1], taua_t, ngb0), *x[2:], ngb0, wg))
         if keep and grad_enabled:
             if mode == "maxrand":
-                out, rads = rt_sweep_maxrand_radiances(*x, ngb0, wg)
+                out, *state = rt_sweep_maxrand_radiances(*x, ngb0, wg,
+                                                         kept)
             else:
-                out, rads = rt_sweep_g_radiances(mode, *x[:5], x[5:], ngb0,
-                                                 wg)
-            ctx.save_for_backward(ngb0, wg, *x, rads)
+                out, *state = rt_sweep_g_radiances(mode, *x[:5], x[5:],
+                                                   ngb0, wg)
+            ctx.nstate = len(state)
+            ctx.save_for_backward(ngb0, wg, *x, *state)
             return rtrn.split_ddt(out)
         L, B = _check(*x[:5], None, None, None, None, ngb0, wg,
                       taua_t=taua_t)
@@ -370,7 +408,7 @@ class RTSweepFn(torch.autograd.Function):
     def backward(ctx, ct, ct_ddt=None):
         if ctx.reduced:
             raise NotImplementedError(GRAD_MESSAGE)
-        needs = ctx.needs_input_grad[5:]
+        needs = ctx.needs_input_grad[6:]
         if ctx.device_type != "cpu":
             if ct_ddt is not None:
                 raise NotImplementedError(
@@ -378,39 +416,41 @@ class RTSweepFn(torch.autograd.Function):
                     "card: the adjoint of the d/dT sweep is not ported "
                     "yet; " + _UNPORTED_ADJOINT)
             if ct is None:
-                return (None,) * (5 + len(needs))
-            ngb0, wg, *x, rads = ctx.saved_tensors
+                return (None,) * (6 + len(needs))
+            ngb0, wg, *x = ctx.saved_tensors
+            x, state = x[:-ctx.nstate], x[-ctx.nstate:]
             nsurf = x[4].shape[0]
             x[4] = x[4][:3]             # the fluxes do not read row 3
             ct = ct.contiguous()
             if ctx.mode == "maxrand":
-                grads = rt_sweep_maxrand_vjp(*x, ngb0, wg, ct, needs, rads)
+                grads = rt_sweep_maxrand_vjp(*x, ngb0, wg, ct, needs, state)
             elif ctx.mode == "banded":
-                grads = rt_sweep_banded_vjp(*x, ngb0, wg, ct, needs, rads)
+                grads = rt_sweep_banded_vjp(*x, ngb0, wg, ct, needs,
+                                            *state)
             else:
                 grads = rt_sweep_g_vjp(*x[:5], x[5:], ngb0, wg, ct, needs,
-                                       rads)
+                                       *state)
             grads = list(grads)
             if grads[4] is not None and nsurf == 4:
                 grads[4] = torch.nn.functional.pad(grads[4],
                                                    (0, 0, 0, 0, 0, 1))
-            return (None,) * 5 + tuple(grads)
+            return (None,) * 6 + tuple(grads)
         ngb0, wg, *x = ctx.saved_tensors
         if x[4].shape[0] == 4:
             like = ct if ct is not None else ct_ddt
             ct = _full_ct(ct, ct_ddt, (6,) + tuple(like.shape[1:]), like)
         grads = plain_vjp(lambda *a: rtrn.SWEEPS[ctx.mode](*a, ngb0, wg),
                           x, needs, (ct,))
-        return (None,) * 5 + tuple(grads)
+        return (None,) * 6 + tuple(grads)
 
 
 def _sweep(mode, taut_t, fracs_t, planklay_t, planklev_t, plankbnd, semiss,
-           pwvcm, ngb0, wg, clouds, dplankbnd_dt, taua_t):
+           pwvcm, ngb0, wg, clouds, dplankbnd_dt, taua_t, kept=None):
     surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, planklay_t.dtype,
                           dplankbnd_dt)
     return RTSweepFn.apply(mode, ngb0, wg, taua_t, torch.is_grad_enabled(),
-                           taut_t, fracs_t, planklay_t, planklev_t, surf,
-                           *clouds)
+                           kept, taut_t, fracs_t, planklay_t, planklev_t,
+                           surf, *clouds)
 
 
 def rt_fluxes_banded(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
@@ -426,13 +466,15 @@ def rt_fluxes_banded(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
 
 def rt_fluxes_maxrand(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
                       semiss, pwvcm, ngb0, wg, rows_t, taucb_t,
-                      dplankbnd_dt=None, taua_t=None):
+                      dplankbnd_dt=None, taua_t=None, kept=None):
     """K1 maxrand mode: fluxes (4, L+1, B) under maximum-random overlap
     (and d/dT with ``dplankbnd_dt``); arguments as
-    ``rtrn.rt_fluxes_maxrand``."""
+    ``rtrn.rt_fluxes_maxrand``.  ``kept``: a ``KeptCount`` of ``rows_t``
+    started earlier, where the sweep keeps the state for a gradient
+    (else the count waits on the card there)."""
     return _sweep("maxrand", taut_t, fracs_t, planklay_t, planklev_t,
                   plankbnd, semiss, pwvcm, ngb0, wg, (rows_t, taucb_t),
-                  dplankbnd_dt, taua_t)
+                  dplankbnd_dt, taua_t, kept)
 
 
 def rt_fluxes_fused(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
@@ -501,32 +543,58 @@ def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
 
 def rt_sweep_maxrand_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
                          rows_t, taucb_t, ngb0, wg, ct, needs=(True,) * 7,
-                         rads=None):
+                         state=None):
     """K6 in the maxrand mode (csrc/rtrn_bwd_mr.cu): flux cotangents ct
     (4, L+1, B) -> cotangents of (taut_t, fracs_t, planklay_t,
     planklev_t, surf (3, 16, B), rows_t (the overlap rows: R_CLDF and the
     12 factor rows; zeros in the four flag rows), taucb_t), None where
-    ``needs`` is False.  On the card it reads ``rads``, the state K1 kept
-    on the same inputs (``rt_sweep_maxrand_radiances``), and raises
-    without them; the plain vjp (CPU tensors,
-    ``rtrn.rt_sweep_maxrand_vjp``) does not read them."""
+    ``needs`` is False.  On the card it reads ``state``, the pair (rads,
+    subs) K1 kept on the same inputs (``rt_sweep_maxrand_radiances``),
+    and raises without it; the plain vjp (CPU tensors,
+    ``rtrn.rt_sweep_maxrand_vjp``) does not read it, but raises where a
+    given state has fewer slots than a column of ``rows_t`` keeps (K6
+    stops the launch there, as an index out of range does)."""
     x = (taut_t, fracs_t, planklay_t, planklev_t, surf, rows_t, taucb_t)
     if taut_t.device.type == "cpu":
+        if state is not None:
+            K = rtrn.kept_depth(rtrn.substream_slots(rows_t)[1])
+            if state[1].shape[2] < K:
+                raise ValueError(f"subs: {state[1].shape[2]} slots a sweep, "
+                                 f"the rows keep {K}: a state kept on "
+                                 "other rows")
         return rtrn.rt_sweep_maxrand_vjp(*x, ngb0, wg, ct, needs)
     L, B = _check(*x[:5], None, None, None, None, ngb0, wg, surf_rows=(3,))
     dev = taut_t.device
     _check_clouds("maxrand", (rows_t, taucb_t), L, B, dev)
     _build.check(ct, "ct", torch.float32, (4, L + 1, B), dev)
-    if rads is None:
+    if state is None:
         raise ValueError("rt_sweep_maxrand_vjp on the card reads the state "
-                         "K1 kept on the same inputs (rads, from "
+                         "K1 kept on the same inputs (rads, subs, from "
                          "rt_sweep_maxrand_radiances): K6 runs no forward "
                          "sweep")
-    _build.check(rads, "rads", torch.float32, (10, L, NGPT, B), dev)
+    rads, subs = state
+    _build.check(rads, "rads", torch.float32, (4, L, NGPT, B), dev)
+    K = subs.shape[2]
+    _build.check(subs, "subs", torch.float32, (2, 3, K, NGPT, B), dev)
     grads = [torch.empty_like(t) for t in x]
-    _build.launch("rrtm_rt_bwd_mr", *x, ngb0, wg, ct, rads, *grads, L, B)
+    _build.launch("rrtm_rt_bwd_mr", *x, ngb0, wg, ct, rads, subs, *grads,
+                  *k6_mr_scratch(L, B, dev), L, K, B)
     rt_sweep_maxrand_vjp.launches += 1
     return tuple(g if n else None for g, n in zip(grads, needs))
+
+
+def k6_mr_scratch(L, B, device, lib=None):
+    """The scratch of K6 maxrand at L layers and B columns, as
+    ``rrtm_rt_bwd_mr_scratch`` of ``lib`` (default the package's library)
+    sizes it: (zeroed int32 counters, the tickets' then one per column
+    tile; the band groups' shares of the overlap rows' cotangents,
+    float32)."""
+    n = (ctypes.c_int * 2)()
+    lib = lib or _build.library()
+    lib.rrtm_rt_bwd_mr_scratch(int(L), int(B),
+                               ctypes.cast(n, ctypes.c_void_p))
+    return (torch.zeros(n[0], dtype=torch.int32, device=device),
+            torch.empty(n[1], dtype=torch.float32, device=device))
 
 
 def _launch_bwd_g(mode, counters, x, clouds, ngb0, wg, ct, needs, rads):
@@ -644,10 +712,32 @@ def k6_info(cloudy):
     return _launch_info("rrtm_rt_bwd_info", int(cloudy))
 
 
-def k6_mr_info():
-    """K6's launch configuration in the maxrand mode: ``K1_INFO`` -> int
-    (no ring: 0 levels), as ``k1_info``; needs the card."""
-    return _launch_info("rrtm_rt_bwd_mr_info")
+def _layout(entry, *args):
+    """The tile and band groups an adjoint of them reports
+    (``rrtm_rt_bwd_g_layout``, ``rrtm_rt_bwd_mr_layout``): -> the raw
+    ints and the number of groups."""
+    buf = (ctypes.c_int * 16)()
+    lib = _build.library()
+    err = getattr(lib, entry)(*args, ctypes.cast(buf, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"{entry}: " + lib.rrtm_error_string(err).decode())
+    return list(buf), buf[2]
+
+
+def k6_mr_info(nlay=60):
+    """K6's launch configuration in the maxrand mode at ``nlay`` layers
+    (its shared memory grows with them): ``K1_INFO`` -> int
+    (``ring_levels``: the slots of its ring), as ``k1_info``, and from
+    ``rrtm_rt_bwd_mr_layout``: ``box_rows``, ``groups``, ``staging`` as
+    ``k6_g_info``'s and ``share_floats`` (of a band group's share of a
+    (layer, column) of the overlap rows' cotangents, in the launch's
+    scratch, ``k6_mr_scratch``); needs the card."""
+    info = _launch_info("rrtm_rt_bwd_mr_info", int(nlay))
+    buf, ngrp = _layout("rrtm_rt_bwd_mr_layout")
+    info.update(box_rows=buf[1], groups=tuple(buf[3:4 + ngrp]),
+                staging={1: "tma", 0: "elements"}.get(buf[4 + ngrp]),
+                share_floats=buf[5 + ngrp])
+    return info
 
 
 def k6_g_info(mode, nlay=60):
@@ -661,14 +751,7 @@ def k6_g_info(mode, nlay=60):
     shares in shared memory at ``nlay``, else in a scratch; None in the
     other modes); needs the card."""
     info = _launch_info("rrtm_rt_bwd_g_info", MODES[mode], int(nlay))
-    buf = (ctypes.c_int * 16)()
-    lib = _build.library()
-    err = lib.rrtm_rt_bwd_g_layout(MODES[mode], int(nlay),
-                                   ctypes.cast(buf, ctypes.c_void_p))
-    if err != 0:
-        raise RuntimeError("rrtm_rt_bwd_g_layout: "
-                           + lib.rrtm_error_string(err).decode())
-    ngrp = buf[2]
+    buf, ngrp = _layout("rrtm_rt_bwd_g_layout", MODES[mode], int(nlay))
     staged, shares = buf[4 + ngrp], buf[5 + ngrp]
     info.update(box_rows=buf[1], groups=tuple(buf[3:4 + ngrp]),
                 staging={1: "tma", 0: "elements"}.get(staged),

@@ -26,12 +26,17 @@ idrv and storage on the same inputs, and of compact at L=140;
 ``--k5-times`` those of K5 at L=60 and L=140;
 ``--k6-times`` those of K6 and of the K1 launch that keeps the
 radiances K6 reads, clear, compact and (where the checkout has them)
-maxrand, banded, fused and cldf-odcld at L=60, the last three also at
+maxrand, banded, fused and cldf-odcld at L=60, the last four also at
 L=140; ``--overlap-times`` those of the overlap-rows kernel
 and (where the checkout has it) its adjoint.  The imports are
 absolute, so ``PYTHONPATH`` picks the checkout whose kernels run; only
 entry points that every checkout since reduced storage came in has are
-used, and K6 through whichever API the checkout has (``k6_vjp``).
+used, and K6 through whichever API the checkout has (``k6_vjp``; the
+maxrand state and K6 maxrand: ``mr_state``, ``mr_vjp``).  ``--out``
+keeps the maxrand state unpacked (``rtrn.unpack_state``, zeros where
+nothing is kept, whatever layout the checkout's K1 writes) and the
+cotangent of the cloud fraction that K6 maxrand's overlap-row
+cotangents give through the overlap adjoint.
 """
 
 from __future__ import annotations
@@ -361,6 +366,64 @@ def k6_vjp(args, ct):
     return rtrn_cuda.rt_sweep_vjp(*args, ct, rads=keep(*args)[1])
 
 
+def mr_state(a):
+    """K1 maxrand keeping its state on ``a`` (taut_t, fracs_t,
+    planklay_t, planklev_t, surf, rows_t, taucb_t, ngb0, wg), through the
+    checkout's API: -> (the state as K6 takes it, the state (10, L, 140,
+    B) with zeros where the sub-streams are not kept)."""
+    from rrtmg_lw_torch.ops import rtrn, rtrn_cuda
+    _, *state = rtrn_cuda.rt_sweep_maxrand_radiances(*a)
+    if len(state) == 2:                 # (rads, subs): packed
+        return state, rtrn.unpack_state(*state, a[5])
+    return state[0], rtrn.kept_state(state[0].clone(), a[5])
+
+
+def mr_vjp(a, ct, state):
+    """K6 maxrand on ``a`` (as ``mr_state``'s) and ``ct``, fed
+    ``state`` (``mr_state``'s first), through the checkout's API."""
+    from rrtmg_lw_torch.ops import rtrn_cuda
+    if isinstance(state, torch.Tensor):
+        return rtrn_cuda.rt_sweep_maxrand_vjp(*a, ct, rads=state)
+    return rtrn_cuda.rt_sweep_maxrand_vjp(*a, ct, state=state)
+
+
+def digests(tag, outs) -> dict:
+    """{tag_i: output i} of up to 128 MB, else {tag_i_sha256: the SHA-256
+    of its bytes (uint8 (32,))}: holds two checkouts bitwise equal
+    without keeping 1-2 GB of outputs a case."""
+    import hashlib
+    out = {}
+    for i, g in enumerate(outs):
+        if g.numel() * g.element_size() <= 128 << 20:
+            out[f"{tag}_{i}"] = g.cpu()
+            continue
+        h = hashlib.sha256(raw(g).cpu().numpy().tobytes()).digest()
+        out[f"{tag}_{i}_sha256"] = torch.tensor(list(h), dtype=torch.uint8)
+    return out
+
+
+def k6mr_digests(tag, x, modes, model, ct) -> dict:
+    """The maxrand state (unpacked) and K6 maxrand, where the checkout
+    has them, on the sweep inputs ``x`` (taut_t, fracs_t, planklay_t,
+    planklev_t, surf) with ``modes``' maxrand clouds, as ``digests``; and
+    the cloud fraction's cotangent from K6's overlap-row cotangents
+    through the overlap adjoint."""
+    from rrtmg_lw_torch.ops import rtrn_cuda
+    from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows_vjp
+    if not hasattr(rtrn_cuda, "rt_sweep_maxrand_radiances"):
+        return {}
+    a = (*x, *modes["maxrand"][1], model.ngb0, model.wg)
+    state, full = mr_state(a)
+    out = digests(f"{tag}_state", (full,))
+    del full
+    grads = mr_vjp(a, ct, state)
+    del state
+    out.update(digests(tag, grads))
+    cf = modes["banded"][1][0].t().contiguous()
+    out[f"{tag}_cldfrac"] = overlap_rows_vjp(cf, grads[5]).cpu()
+    return out
+
+
 def outputs(device) -> dict:
     """K2-K6 on phase 3's inputs, and K1 in every mode at idrv 0 and 1
     on them and on ``k1_edge_args``' edge cases."""
@@ -434,6 +497,8 @@ def outputs(device) -> dict:
     out = {k: v.cpu() for k, v in out.items()}
     for tag, a, ms in (("k6g", args, modes), ("k6g_edge", eargs, emodes)):
         out.update(k6g_digests(tag, (*a[:4], surf), ms, model, ct))
+    for tag, a, ms in (("k6mr", args, modes), ("k6mr_edge", eargs, emodes)):
+        out.update(k6mr_digests(tag, (*a[:4], surf), ms, model, ct))
     return out
 
 
@@ -445,7 +510,6 @@ def k6g_digests(tag, x, modes, model, ct) -> dict:
     to 128 MB, and the SHA-256 of the bytes (uint8 (32,)) of each larger
     one (the per-g cotangents), which holds two checkouts bitwise equal
     without keeping 1-2 GB of them a case."""
-    import hashlib
     from rrtmg_lw_torch.ops import rtrn_cuda
     keep = getattr(rtrn_cuda, "rt_sweep_g_radiances", None)
     if keep is None:
@@ -461,13 +525,7 @@ def k6g_digests(tag, x, modes, model, ct) -> dict:
         else:
             grads = rtrn_cuda.rt_sweep_g_vjp(*x, cl, model.ngb0, model.wg,
                                              ct, rads=rads)
-        for i, g in enumerate(grads):
-            if g.numel() * g.element_size() <= 128 << 20:
-                out[f"{tag}_{mode}_{i}"] = g.cpu()
-                continue
-            h = hashlib.sha256(raw(g).cpu().numpy().tobytes()).digest()
-            out[f"{tag}_{mode}_{i}_sha256"] = torch.tensor(list(h),
-                                                           dtype=torch.uint8)
+        out.update(digests(f"{tag}_{mode}", grads))
         del rads, grads
     return out
 
@@ -573,11 +631,11 @@ def k6_times(device, reps=5) -> list:
     them, clear and compact, on phase 3's inputs (B=16384, L=60), and
     where the checkout has them maxrand and banded on the band_cloudy
     cell's clouds, fused on mcica_blocked's, cldf-odcld on mcica_tauc's,
-    the last three also at L=140 (``g_cloud_args`` on the
+    the last four also at L=140 (``g_cloud_args`` on the
     mcica_cloudy_deep cell's atmosphere).
     In a checkout whose K6 sweeps forward itself, K6 alone (k1_save_ms
     None).  -> [{mode, nlay, k1_ms, k1_save_ms, k6_ms}]."""
-    from rrtmg_lw_torch.ops import rtrn, rtrn_cuda
+    from rrtmg_lw_torch.ops import rtrn, rtrn_cuda, rtrnmr
     x = sweep_inputs(device)
     args, model, sc, prof = x["args"], x["model"], x["sc"], x["prof"]
     surf = rtrn.surf_rows(sc.plankbnd, prof.semiss, prof.pwvcm,
@@ -605,20 +663,20 @@ def k6_times(device, reps=5) -> list:
         rows.append(row)
         print(row, flush=True)
         del kw
-    keep_mr = getattr(rtrn_cuda, "rt_sweep_maxrand_radiances", None)
-    if keep_mr is not None:
-        # maxrand on the band_cloudy cell's clouds
+    if hasattr(rtrn_cuda, "rt_sweep_maxrand_radiances"):
+        # maxrand on the band_cloudy cell's clouds; then the same clouds
+        # at L=140 on the mcica_cloudy_deep cell's atmosphere
         cl = k1_cloud_args(device, x["static"], x["mc"])["maxrand"][1]
-        a = (*args[:4], surf, *cl, model.ngb0, model.wg)
-        row = dict(mode="maxrand", nlay=args[0].shape[0], k1_ms=kernel_ms(
-            lambda: rtrn_cuda.rt_fluxes_maxrand(*args, *cl), "rt_kernel",
-            reps), k1_save_ms=kernel_ms(lambda: keep_mr(*a), "rt_kernel",
-                                        reps))
-        rads = keep_mr(*a)[1]
-        row["k6_ms"] = kernel_ms(lambda: rtrn_cuda.rt_sweep_maxrand_vjp(
-            *a, ct, rads=rads), "rt_bwd_mr_kernel", reps)
-        rows.append(row)
-        print(row, flush=True)
+        rows += mr_times(args, surf, model, ct, cl, reps)
+        xd = sweep_inputs(device, "mcica_cloudy_deep")
+        sd = rtrn.surf_rows(xd["sc"].plankbnd, xd["prof"].semiss,
+                            xd["prof"].pwvcm, torch.float32)
+        Ld, _, Bd = xd["args"][0].shape
+        cd = torch.randn((4, Ld + 1, Bd), generator=gen, device=device)
+        cf, taucb = g_cloud_args(device, x["static"], Ld)["banded"]
+        rows += mr_times(xd["args"], sd, model, cd,
+                         (rtrnmr.overlap_rows(cf.t()), taucb), reps)
+        del xd
     keep_g = getattr(rtrn_cuda, "rt_sweep_g_radiances", None)
     if keep_g is not None:
         # banded on the band_cloudy cell's clouds, fused on
@@ -669,6 +727,24 @@ def g_cloud_args(device, static, nlay) -> dict:
                                           liqflag=1)
     return {"banded": (bc.cldfrac.t().contiguous(), taucb),
             "fused": (*cb[:4], abi, abl), "cldf_od": (cfc, odc)}
+
+
+def mr_times(args, surf, model, ct, clouds, reps) -> list:
+    """``k6_times``' rows of the maxrand mode on the sweep arguments
+    ``args`` with ``clouds`` (rows_t, taucb_t): K1 without and with the
+    state kept, and K6 fed it."""
+    from rrtmg_lw_torch.ops import rtrn_cuda
+    a = (*args[:4], surf, *clouds, model.ngb0, model.wg)
+    row = dict(mode="maxrand", nlay=args[0].shape[0], k1_ms=kernel_ms(
+        lambda: rtrn_cuda.rt_fluxes_maxrand(*args, *clouds), "rt_kernel",
+        reps), k1_save_ms=kernel_ms(
+            lambda: rtrn_cuda.rt_sweep_maxrand_radiances(*a), "rt_kernel",
+            reps))
+    state, _ = mr_state(a)
+    row["k6_ms"] = kernel_ms(lambda: mr_vjp(a, ct, state),
+                             "rt_bwd_mr_kernel", reps)
+    print(row, flush=True)
+    return [row]
 
 
 def g_times(device, args, surf, model, ct, clouds, keep_g, reps) -> list:

@@ -880,39 +880,46 @@ def test_overlap_bwd_kernel_matches_plain_vjp(dev, B, L, pattern):
 def _mr_case(dev, args, rows, taucb, seed=3):
     """K1 maxrand keeping its state and K6 maxrand fed it, on the sweep
     inputs ``args`` and the clouds (rows, taucb): K1's fluxes bitwise
-    those of its launch without the state, the state within 1e-5 of max
-    |plain| (its sub-streams where K1 keeps them, ``rtrn.kept_state``);
+    those of its launch without the state, the state, the radiances and
+    the packed sub-streams (K slots a sweep, ``rtrn.kept_depth``),
+    within 1e-5 of max |plain| compared unpacked (``rtrn.unpack_state``);
     K6 within 1e-3 of max |plain vjp| per output, zeros in the flag rows,
-    bitwise over two runs, the second with NaN in the sub-streams K1 does
-    not keep; K6 without the state raises."""
+    bitwise over two runs, the second with NaN in the slots past each
+    column's count; K6 without the state raises."""
     from rrtmg_lw_torch.ops.rtrn_cuda import (rt_sweep_maxrand_radiances,
                                               rt_sweep_maxrand_vjp)
     taut, fr, play, plev, plankbnd, semiss, pwvcm, ngb0, wg = args
     L, _, B = taut.shape
     surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, torch.float32)
     a = (taut, fr, play, plev, surf, rows, taucb, ngb0, wg)
-    fl, rads = rt_sweep_maxrand_radiances(*a)
-    assert rads.shape == (10, L, 140, B)
+    fl, rads, subs = rt_sweep_maxrand_radiances(*a)
+    _, counts = rtrn.substream_slots(rows)
+    K = rtrn.kept_depth(counts)
+    assert rads.shape == (4, L, 140, B) and subs.shape == (2, 3, K, 140, B)
     assert torch.equal(fl, rt_fluxes_maxrand(*args, rows, taucb))
-    _, rads_p = rtrn.rt_sweep_maxrand(*a, radiances=True)
-    assert rel_err(rtrn.kept_state(rads, rows), rads_p) <= 1e-5
+    _, *state_p = rtrn.rt_sweep_maxrand(*a, radiances=True)
+    assert rel_err(rtrn.unpack_state(rads, subs, rows),
+                   rtrn.unpack_state(*state_p, rows)) <= 1e-5
     ct = _randn((4, L + 1, B), dev, seed)
     with pytest.raises(ValueError, match="state"):
         rt_sweep_maxrand_vjp(*a, ct)
-    got = rt_sweep_maxrand_vjp(*a, ct, rads=rads)
+    got = rt_sweep_maxrand_vjp(*a, ct, state=(rads, subs))
     ref = rtrn.rt_sweep_maxrand_vjp(*a, ct)
     for i, (g, r) in enumerate(zip(got, ref)):
         assert g.shape == r.shape and torch.isfinite(g).all(), i
         assert rel_err(g, r) <= 1e-3, i
     assert torch.equal(got[5][:, 1:4], torch.zeros_like(got[5][:, 1:4]))
-    rtrn.kept_state(rads, rows, fill=float("nan"))
-    again = rt_sweep_maxrand_vjp(*a, ct, rads=rads)
+    past = torch.arange(K, device=dev)[None, :, None] >= counts[:, None, :]
+    subs.masked_fill_(past[:, None, :, None, :], float("nan"))
+    again = rt_sweep_maxrand_vjp(*a, ct, state=(rads, subs))
     assert all(torch.equal(g, h) for g, h in zip(got, again))
 
 
 @pytest.mark.parametrize("B,L,pattern", [(37, 13, "decks"), (5, 1, "mixed"),
                                          (33, 7, "overcast"), (96, 30,
-                                                               "mixed")])
+                                                               "mixed"),
+                                         (31, 400, "mixed"),
+                                         (64, 140, "decks")])
 def test_rt_maxrand_adjoint_matches_plain_vjp(dev, B, L, pattern):
     model = _model(dev)
     _, _, prof = _case(dev, B, L)
@@ -941,15 +948,18 @@ def test_rt_maxrand_adjoint_on_k1_edge_cases(dev, B, L):
 
 def test_rt_maxrand_adjoint_launch_configuration(dev):
     """K1 keeping the maxrand state fits two blocks per SM with no local
-    memory; K6 maxrand: 256-thread blocks of 32 columns, two a SM, no
-    local memory."""
+    memory; K6 maxrand: 256-thread blocks of 32 columns and one of five
+    band groups, a ring of two slots or more, two blocks a SM at L = 60,
+    140 and 1,000, no local memory."""
     from rrtmg_lw_torch.ops.rtrn_cuda import k1_info, k6_mr_info
     for idrv in (0, 1):
         info = k1_info("maxrand", idrv, save=True)
         assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2, info
-    info = k6_mr_info()
-    assert info["threads"] == 256 and info["columns"] == 32, info
-    assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, info
+    for nlay in (60, 140, 1000):
+        info = k6_mr_info(nlay)
+        assert info["threads"] == 256 and info["columns"] == 32, info
+        assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0, info
+        assert info["ring_levels"] >= 2 and len(info["groups"]) == 6, info
 
 
 def _sweep_inputs(dev, B, L):

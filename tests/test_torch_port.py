@@ -811,26 +811,137 @@ def test_cuda_wrappers_plain_route_in_storage(monkeypatch, spec):
     assert [c.launches for c in counters] == before
 
 
-def test_maxrand_adjoint_band_pairs_cover_every_band():
-    """The g-lanes of K6 maxrand (csrc/band_lanes.cuh PAIR, which
-    rtrn_bwd_mr.cu includes; two bands each, so that a band's sums stay
-    in one thread) cover the 16 bands once, each lane 16-20 g-points of
-    the 140."""
+def _group_tile():
+    """The band-group tile of the per-band adjoints (csrc/bwd_groups.cuh,
+    which rtrn_bwd_g.cu and rtrn_bwd_mr.cu include): its constants, the
+    first band of each group (GFIRST, checked to cover the 16 bands once
+    in contiguous groups of at most GR g-points and GNB bands), and the
+    card's shared memory and the 1 KB reserved a block (rtrn.cuh)."""
     csrc = os.path.join(REPO, "rrtmg_lw_torch", "csrc")
-    assert '#include "band_lanes.cuh"' in open(
-        os.path.join(csrc, "rtrn_bwd_mr.cu")).read()
-    mr = open(os.path.join(csrc, "band_lanes.cuh")).read()
-    my = int(re.search(r"\nconstexpr int MY = (\d+);", mr).group(1))
-    pairs = [tuple(int(x) for x in p) for p in re.findall(
-        r"\{(\d+), +(\d+)\}", re.search(r"PAIR\[MY\]\[2\] = \{(.*?)\};",
-                                        mr, re.S).group(1))]
+    hdr = open(os.path.join(csrc, "bwd_groups.cuh")).read()
+    tile = open(os.path.join(csrc, "rtrn.cuh")).read()
+
+    def const(text, name):
+        return re.search(r"\nconstexpr int %s = (.+?);" % name,
+                         text).group(1)
+
+    c = {n: int(const(hdr, n)) for n in ("GX", "GY", "NGRP", "GR", "GH",
+                                         "G_BLOCKS_PER_SM", "G_RING")}
+    assert const(hdr, "GT") == "GX * GY" and const(hdr, "GNB") == "GH"
+    assert (c["GX"], c["GY"], c["G_BLOCKS_PER_SM"]) == (32, 8, 2)
+    assert c["G_RING"] >= 2
     knb = 16
-    assert len(pairs) == my
-    assert sorted(b for p in pairs for b in p) == list(range(knb))
+    first = [int(x) if x != "KNB" else knb for x in re.search(
+        r"GFIRST\[NGRP \+ 1\] = \{(.*?)\};", hdr).group(1).split(", ")]
+    assert len(first) == c["NGRP"] + 1 and first[0] == 0
+    assert first[-1] == knb
     ng = np.bincount(np.asarray(tkt.load_static()["ngb"]) - 1,
                      minlength=knb)
-    assert ng.sum() == 140
-    assert all(16 <= ng[a] + ng[b] <= 20 for a, b in pairs)
+    for a, b in zip(first, first[1:]):
+        assert 0 < b - a <= c["GH"] and ng[a:b].sum() <= c["GR"], (a, b)
+    assert c["GY"] > c["GH"] - 1     # a warp per band of a group, one more
+    return (c, first, int(const(tile, "SMEM_SM")),
+            int(const(tile, "SMEM_RESERVED")))
+
+
+def _align16(v):
+    return (v + 15) & ~15
+
+
+def test_maxrand_adjoint_fits_the_card():
+    """K6 maxrand (csrc/rtrn_bwd_mr.cu) on the band-group tile
+    (``_group_tile``): blocks of 32 columns x 8 warps launched two to an
+    SM (``__launch_bounds__(GT, G_BLOCKS_PER_SM)``), each taking one
+    group of whole bands; the groups cover the 16 bands once; a ring of
+    two slots or more; its shared memory, recomputed here from the slot
+    layout (the group's per-g rows in boxes of GH: taut, fracs, the two
+    radiances, the up sweep's ct_taut and ct_fracs; the band blocks of GH
+    rows: planklay, planklev, taucb and the down sweep's partials of the
+    three; the two flux rows; the layer's 16 overlap rows; all at
+    128-byte boundaries; then barriers, the block's ticket, the g tables,
+    the bands' secants and their cotangents, the columns' kept-layer
+    counts and each thread's, the five carries of each of the thread's
+    g-points, the thread's seven partials of the overlap rows'
+    cotangents, two words a layer, 128 bytes of alignment) equals the source's budget at L = 140
+    and fits two blocks per SM, with the 1 KB reserved each, at L = 60,
+    140 and 1,000."""
+    c, _, sm, reserved = _group_tile()
+    csrc = os.path.join(REPO, "rrtmg_lw_torch", "csrc")
+    src = open(os.path.join(csrc, "rtrn_bwd_mr.cu")).read()
+    assert '#include "bwd_groups.cuh"' in src
+    assert not os.path.exists(os.path.join(csrc, "band_lanes.cuh"))
+    assert "__launch_bounds__(GT, G_BLOCKS_PER_SM)" in src
+    assert "rt_bwd_mr_kernel<<<grid, GT, MrLayout::bytes(L)" in src
+    kg, knb, gx, gh = 140, 16, c["GX"], c["GH"]
+    gpt = -(-c["GR"] // c["GY"])
+    row = gx * 4
+    slab = -(-c["GR"] // gh) * gh * row
+    band = gh * row
+    slot = 6 * slab + 6 * band + 2 * row + 16 * row
+    assert row % 128 == 0 and slot % 128 == 0
+    ring = c["G_RING"]
+
+    def smem(nlay):
+        rest = _align16(2 * ring * 8 + 8 + kg * 4 + (knb + 1) * 4
+                        + c["GR"] * 4)
+        gt = gx * c["GY"]
+        rest += 2 * gh * gx * 4 + 2 * gx * 4 + gt * 4
+        rest += 5 * gpt * gt * 4 + 7 * gt * 4
+        return ring * slot + rest + _align16(2 * nlay * 4) + 128
+
+    budget = int(re.search(r"constexpr int SMEM_BWD_MR = (\d+);",
+                           src).group(1))
+    assert smem(140) == budget
+    for nlay in (60, 140, 1000):
+        assert c["G_BLOCKS_PER_SM"] * (smem(nlay) + reserved) <= sm, nlay
+
+
+def test_maxrand_state_slots_count_the_kept_layers():
+    """The packed maxrand state's slots (``rtrn.substream_slots``) count,
+    for every layer, the column's kept layers (``rtrn.substreams_kept``:
+    cloudy, not restarting the sub-streams) before it in each sweep's
+    order (down from the top layer, up from the surface), and its counts
+    and K (``rtrn.kept_depth``, at least 1) those of the columns; on
+    clouds with a fully clear column, a column cloudy at every layer, a
+    deck at the top layer, single-layer and several-layer decks and the
+    synthetic decks.  ``pack_state`` then ``unpack_state`` give back the
+    state with zeros where nothing is kept."""
+    from rrtmg_lw_torch.ops import rtrn, rtrnmr
+    L = 11
+    cf = np.zeros((8, L))
+    cf[1] = 0.6                               # cloudy at every layer
+    cf[2, L - 1] = 0.3                        # a deck at the top layer
+    cf[3, 4] = 0.5                            # one layer
+    cf[4, 2:5] = (0.2, 0.7, 0.4)              # a deck of three
+    cf[4, 7:10] = 0.9                         # and one of three at 7-9
+    cf[5, [0, 3, 6, 9]] = 0.8                 # four single layers
+    cf[6, 1:9] = np.linspace(0.1, 0.9, 8)     # one deep deck, rising
+    cf[7] = tsyn.make_band_clouds(1, L).cldfrac[0]
+    rows = rtrnmr.overlap_rows(torch.as_tensor(cf))
+    keep = rtrn.substreams_kept(rows).numpy()
+    slots, counts = (t.numpy() for t in rtrn.substream_slots(rows))
+    assert keep.shape == slots.shape == (2, L, 8)
+    assert not keep[:, :, 0].any() and keep[:, :, 1].sum(axis=1).min() > 1
+    assert keep[0, L - 1, 2] == 0 and keep[1, L - 1, 2] == 0
+    for s, order in ((0, range(L - 1, -1, -1)), (1, range(L))):
+        for b in range(8):
+            n = 0
+            for l in order:
+                assert slots[s, l, b] == n, (s, l, b)
+                n += int(keep[s, l, b])
+            assert counts[s, b] == n == keep[s, :, b].sum()
+    assert counts[:, 0].tolist() == [0, 0]
+    assert rtrn.kept_depth(torch.as_tensor(counts)) == counts.max() > 1
+    assert rtrn.kept_depth(torch.zeros((2, 3), dtype=torch.long)) == 1
+    gen = torch.Generator().manual_seed(3)
+    state = torch.randn((10, L, 140, 8), generator=gen, dtype=torch.float64)
+    rads, subs = rtrn.pack_state(state, rows)
+    assert subs.shape == (2, 3, counts.max(), 140, 8)
+    back = rtrn.unpack_state(rads, subs, rows)
+    mask = torch.as_tensor(keep)[:, None, :, None, :]
+    want = torch.cat([state[:4], state[4:].view(2, 3, L, 140, 8).where(
+        mask, torch.zeros(())).view(6, L, 140, 8)])
+    assert torch.equal(back, want)
 
 
 def test_maxrand_grad_wrappers_send_cpu_tensors_to_plain_versions(
@@ -874,21 +985,27 @@ def test_maxrand_grad_wrappers_send_cpu_tensors_to_plain_versions(
     rows = rtrnmr.overlap_rows(bc.cldfrac)
     surf = rtrn.surf_rows(sc.plankbnd, prof.semiss, prof.pwvcm, tg.dtype)
     a = (tg, fr, play, plev, surf, rows, taucb, model.ngb0, model.wg)
-    fl, rads = rtrn_cuda.rt_sweep_maxrand_radiances(*a)
-    fl_p, rads_p = rtrn.rt_sweep_maxrand(*a, radiances=True)
-    assert torch.equal(fl, fl_p) and torch.equal(rads, rads_p)
+    fl, rads, subs = rtrn_cuda.rt_sweep_maxrand_radiances(*a)
+    fl_p, *state_p = rtrn.rt_sweep_maxrand(*a, radiances=True)
+    assert torch.equal(fl, fl_p) and torch.equal(rads, state_p[0])
+    assert torch.equal(subs, state_p[1])
     assert torch.equal(fl, rtrn.rt_sweep_maxrand(*a))
-    assert rads.shape == (10, L, 140, B)
-    flux = torch.einsum("rlgb,g->rlb", rads[:4], model.wg)
+    _, counts = rtrn.substream_slots(rows)
+    assert rads.shape == (4, L, 140, B)
+    assert subs.shape == (2, 3, rtrn.kept_depth(counts), 140, B)
+    flux = torch.einsum("rlgb,g->rlb", rads, model.wg)
     for r, f in ((0, 1), (1, 0), (2, 3), (3, 2)):
         np.testing.assert_allclose(flux[r].numpy(), fl[f, :L].numpy(),
                                    rtol=1e-13, atol=1e-9)
-    assert not bool(rads[4:, ..., 0].any())
-    assert bool(rads[4:].any())
+    state = rtrn.unpack_state(rads, subs, rows)
+    assert state.shape == (10, L, 140, B)
+    assert not bool(state[4:, ..., 0].any())
+    assert bool(state[4:].any())
     # the sub-streams are kept (nonzero at most) where K6 reads them only
     keep = rtrn.substreams_kept(rows)
     assert bool(keep.any()) and not bool(keep.all())
-    assert torch.equal(rtrn.kept_state(rads.clone(), rows), rads)
+    assert not bool(state[4:].view(2, 3, L, 140, B).abs().sum(dim=(1, 3))
+                    .masked_select(~keep).any())
     ct = torch.randn((4, L + 1, B), generator=torch.Generator().manual_seed(4),
                      dtype=tg.dtype)
     got = rtrn_cuda.rt_sweep_maxrand_vjp(*a, ct)
@@ -896,6 +1013,15 @@ def test_maxrand_grad_wrappers_send_cpu_tensors_to_plain_versions(
                                                      model.wg), a[:7],
                     (True,) * 7, (ct,))
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    kept = rtrn_cuda.KeptCount(rows)
+    assert kept.value() == rtrn.kept_depth(counts)
+    _, rads_k, subs_k = rtrn_cuda.rt_sweep_maxrand_radiances(*a, kept=kept)
+    assert torch.equal(rads_k, rads) and torch.equal(subs_k, subs)
+    again = rtrn_cuda.rt_sweep_maxrand_vjp(*a, ct, state=(rads, subs))
+    assert all(torch.equal(g, r) for g, r in zip(again, ref))
+    # a state with fewer slots than the rows keep is one kept on other rows
+    with pytest.raises(ValueError, match="slots"):
+        rtrn_cuda.rt_sweep_maxrand_vjp(*a, ct, state=(rads, subs[:, :, :0]))
     assert not bool(got[5][:, 1:4].any())
     ctr = torch.randn(rows.shape, generator=torch.Generator().manual_seed(5),
                       dtype=tg.dtype)
@@ -904,6 +1030,74 @@ def test_maxrand_grad_wrappers_send_cpu_tensors_to_plain_versions(
     ref, = torch.autograd.grad(rtrnmr.overlap_rows(x), x, ctr)
     assert torch.equal(got, ref)
     assert [w.launches for w in counters] == before
+
+
+def test_maxrand_grad_step_hands_the_sweep_its_count(monkeypatch):
+    """A maximum-random step on the kernels' route that records a
+    gradient forms the overlap rows before taumol and hands the sweep a
+    ``KeptCount`` of them (K of the state it keeps, ``rtrn.kept_depth``);
+    a step that records none (no input needs a gradient, or grad mode
+    off) hands it none, and forms the rows at the sweep."""
+    from rrtmg_lw_torch import Atmosphere, BandClouds
+    from rrtmg_lw_torch.ops import rtrn, rtrn_cuda, rtrnmr
+    from rrtmg_lw_torch.parallel import CLOUD_GRADS, make_grad_step
+
+    B, L = 6, 9
+    model = make_model(LWConfig(icld=2, imca=0, use_lut=False), device="cpu")
+    model.impl = "cuda"
+    seen = []
+    sweep = rtrn_cuda.WRAPPERS["maxrand"]
+
+    def spy(*a, **k):
+        seen.append(k.get("kept"))
+        return sweep(*a, **k)
+    monkeypatch.setitem(rtrn_cuda.WRAPPERS, "maxrand", spy)
+    atm = Atmosphere.from_numpy(tsyn.make_atmosphere(B, L), "cpu")
+    bc = BandClouds.from_numpy(tsyn.make_band_clouds(B, L), "cpu")
+    make_grad_step(model, cloud_fields=CLOUD_GRADS)(atm, bc)
+    kept = seen[-1]
+    assert isinstance(kept, rtrn_cuda.KeptCount)
+    _, counts = rtrn.substream_slots(rtrnmr.overlap_rows(
+        bc.cldfrac.to(model.config.torch_dtype)))
+    assert kept.value() == rtrn.kept_depth(counts) > 1
+    model(atm, bc)
+    with torch.no_grad():
+        model(atm._replace(tlay=atm.tlay.clone().requires_grad_()), bc)
+    assert seen[1:] == [None, None]
+
+
+def test_host_trace_splits_a_step_by_phase():
+    """``utils/host_trace.step_trace`` on a made-up trace of two equal
+    steps (µs): the device's busy and idle ms in the step, the idle split
+    before K1, to the end of the largest kernel and after it, the
+    launches, the synchronizing calls and the idle they leave; the step's
+    range on the device timeline and launches on the host are not device
+    work."""
+    from types import SimpleNamespace
+
+    from rrtmg_lw_torch.utils import host_trace
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    def ev(name, dev, a, b):
+        return SimpleNamespace(name=name, device_type=dev, time_range=(
+            SimpleNamespace(start=a, end=b, elapsed_us=lambda: b - a)))
+    step = [(host_trace.STEP, cpu, 0, 100), (host_trace.STEP, cuda, 0, 150),
+            ("cudaLaunchKernel", cpu, 5, 9), ("glue", cuda, 10, 20),
+            ("cudaEventSynchronize", cpu, 25, 28),
+            ("rt_kernel<3, false, 0, true>", cuda, 30, 40),
+            ("rt_bwd_mr_kernel", cuda, 45, 90), ("glue", cuda, 100, 110)]
+    events = [ev(n, d, a + t, b + t) for t in (0, 200) for n, d, a, b in step]
+    got = host_trace.step_trace(SimpleNamespace(events=lambda: events), 2)
+    want = dict(host_traced_ms=0.1, wall_traced_ms=0.11, busy_ms=0.075,
+                idle_ms=0.035, idle_fwd_ms=0.02, idle_mid_ms=0.005,
+                idle_tail_ms=0.01, launches=4, sync_calls=1, sync_ms=0.003,
+                idle_after_sync_ms=0.005)
+    assert got.pop("largest_kernel") == "rt_bwd_mr_kernel"
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v), k
+    with pytest.raises(RuntimeError, match="host ranges"):
+        host_trace.step_trace(SimpleNamespace(events=lambda: events), 3)
 
 
 def test_random_overlap_grad_wrappers_send_cpu_tensors_to_plain_versions(
@@ -1007,33 +1201,14 @@ def test_random_overlap_adjoint_fits_the_card():
     its layout) and fits two blocks per SM, with the 1 KB reserved each,
     at L = 60, 140 and 1,000; banded keeps its shares in shared memory at
     L = 60 and 140."""
+    c, _, sm, reserved = _group_tile()
     csrc = os.path.join(REPO, "rrtmg_lw_torch", "csrc")
     src = open(os.path.join(csrc, "rtrn_bwd_g.cu")).read()
-    tile = open(os.path.join(csrc, "rtrn.cuh")).read()
-
-    def const(text, name):
-        return re.search(r"\nconstexpr int %s = (.+?);" % name,
-                         text).group(1)
-
+    assert '#include "bwd_groups.cuh"' in src
     assert "__launch_bounds__(GT, G_BLOCKS_PER_SM)" in src
-    gx, gy = int(const(src, "GX")), int(const(src, "GY"))
-    assert const(src, "GT") == "GX * GY"
-    ngrp, gr, gh = (int(const(src, n)) for n in ("NGRP", "GR", "GH"))
-    assert const(src, "GNB") == "GH"
-    blocks = int(const(src, "G_BLOCKS_PER_SM"))
-    ring = int(const(src, "G_RING"))
+    gx, blocks = c["GX"], c["G_BLOCKS_PER_SM"]
+    gr, gh, ring = c["GR"], c["GH"], c["G_RING"]
     kg, knb = 140, 16
-    assert (gx, gy, blocks) == (32, 8, 2) and ring >= 2
-    first = [int(x) if x != "KNB" else knb for x in re.search(
-        r"GFIRST\[NGRP \+ 1\] = \{(.*?)\};", src).group(1).split(", ")]
-    assert len(first) == ngrp + 1 and first[0] == 0 and first[-1] == knb
-    ng = np.bincount(np.asarray(tkt.load_static()["ngb"]) - 1,
-                     minlength=knb)
-    for a, b in zip(first, first[1:]):
-        assert 0 < b - a <= gh and ng[a:b].sum() <= gr, (a, b)
-    assert gy > gh - 1          # a warp per band of a group, one more
-    sm = int(const(tile, "SMEM_SM"))
-    reserved = int(const(tile, "SMEM_RESERVED"))
 
     def align16(v):
         return (v + 15) & ~15
