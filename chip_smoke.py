@@ -10,9 +10,10 @@ Phases, each raising on failure (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the CUDA kernels from csrc/ (one nvcc per source, in
      parallel), timed, with the registers and spills ptxas reports; for
-     each of K1's 60 instantiations (48, and the 12 of the gradient step
+     each of K1's 72 instantiations (48, and the 24 of the gradient step
      that keep the radiances for K6, every mode at idrv 0 and 1 in
-     float32, which must not spill) its registers
+     float32 by either store path, bulk tensor stores or scalar stores,
+     which must not spill) its registers
      and spill stores, its shared memory per block, blocks per SM (the
      CUDA occupancy API) and levels in its ring, the same (but the ring)
      for K2's 4, K6's registers and spill stores, and K5's registers,
@@ -99,9 +100,18 @@ Phases, each raising on failure (any failure exits non-zero):
      bitwise K1's, radiances within TOL_RADS of the plain sweep's), K6 in
      the mode fed them within TOL_BWD_RT of the plain vjp on B_SUB
      columns (the pad rows of its per-g cotangents zero; without the
-     radiances it raises), and K4b within TOL_BWD of the plain vjp on
-     the mcica_blocked cell's radii and on radii off and on the tables'
-     grid, each bitwise over two runs; then the gradient step
+     radiances it raises; fused and cldf-odcld fed the cloudy-layer
+     words K1 kept, equal to the plain ones), and K4b within TOL_BWD of
+     the plain vjp on the mcica_blocked cell's radii and on radii off and
+     on the tables' grid, each bitwise over two runs; K1 keeping the
+     state by both store paths (``k1_save_cases``): every mode at idrv 0
+     and 1 on the cell, K1's edge cases, L_DEEP, B=4100 (bulk tensor
+     stores, a last tile of 4 columns) and B=37 (scalar stores), the path
+     each case took printed and held to B % 4, fluxes bitwise K1's,
+     radiances (maxrand: the state) within TOL_RADS of plain, bitwise
+     over two runs, in fused and cldf-odcld the words equal to the plain
+     ones and K6 fed them within TOL_BWD_RT of the plain vjp; then the
+     gradient step
      (make_grad_step, the default loss, w.r.t. every Atmosphere field) at B=16384, L=60 through the kernels: McICA,
      3 timed steps with the launch counters reset just before and read
      just after (K1 keeping the radiances once a step, and never in a
@@ -136,7 +146,9 @@ bytes_once (the bytes behind bound_ms); K1's and K2's entries
 CUDA events around the wrapper, holds its host gaps too), their
 instantiation's registers, spill bytes, shared memory, blocks per SM
 (K1: and ring levels) and achieved GB/s (bytes_once over device_ms),
-"rt_sweep" the table of all 60 K1 instantiations; K6's entry
+"rt_sweep" the table of all 72 K1 instantiations; the K1 SAVE
+entries (rt_sweep_save*) the store path of each of their mode's
+``k1_save_cases``; K6's entry
 (rt_adjoint) its registers, spill bytes, device_ms and GB/s, and K5's
 (taumol_bwd) the same with its shared memory and blocks per SM; K5's
 bound counts its operations and cotangent bytes per (band, region)
@@ -737,33 +749,36 @@ def k1_edge_cases(device, model, args, dpl):
 def k1_build_info(log_path):
     """Each K1 instantiation's registers and spill stores (``_build.ptxas_info``)
     and launch configuration (``rtrn_cuda.k1_info``): {"<mode>
-    idrv<0|1> <storage>[ save]": {...}}, " save" the six that keep the
-    radiances for K6 (every mode, float32)."""
+    idrv<0|1> <storage>[ save <path>]": {...}}, " save bulk" and " save
+    scalar" the 24 that keep the radiances for K6 (every mode, float32,
+    by either store path)."""
     from rrtmg_lw_torch._build import ptxas_info
-    from rrtmg_lw_torch.ops.rtrn_cuda import MODES, k1_info
+    from rrtmg_lw_torch.ops.rtrn_cuda import MODES, SAVE_PATHS, k1_info
     from rrtmg_lw_torch.ops.spec_codec import SPEC_DTYPES
     names = {v: k for k, v in MODES.items()}
+    paths = {v: k for k, v in SAVE_PATHS.items()}
     storages = ("f32",) + SPECS
 
     def key(m):
         mode, idrv, spec, save = (int(x) for x in m.groups())
         return (f"{names[mode]} idrv{idrv} {storages[spec]}"
-                + (" save" if save else ""))
-    out = ptxas_info(log_path, r"rt_kernelILi(\d)ELb([01])ELi(\d)ELb([01])E",
+                + (f" save {paths[save]}" if save else ""))
+    out = ptxas_info(log_path, r"rt_kernelILi(\d)ELb([01])ELi(\d)ELi(\d)E",
                      key)
     for key, r in out.items():
         mode, idrv, spec, *save = key.split()
         info = k1_info(mode, int(idrv[-1]),
-                       SPEC_DTYPES.get(spec, torch.float32), bool(save))
+                       SPEC_DTYPES.get(spec, torch.float32),
+                       save[1] if save else None)
         need(info["registers"] == r.get("registers"),
              f"K1 {key}: {info['registers']} registers at run time, ptxas "
              f"said {r.get('registers')}")
         r.update(smem_bytes=info["static_smem"] + info["dynamic_smem"],
                  blocks_per_sm=info["blocks_per_sm"],
                  ring_levels=info["ring_levels"])
-    need(len(out) == 60 and all(len(r) == 5 for r in out.values()),
-         f"K1: {len(out)} instantiations in the build log, expected 60")
-    need(all(out[k]["spill_bytes"] == 0 for k in out if k.endswith("save")),
+    need(len(out) == 72 and all(len(r) == 5 for r in out.values()),
+         f"K1: {len(out)} instantiations in the build log, expected 72")
+    need(all(out[k]["spill_bytes"] == 0 for k in out if " save " in k),
          "K1: an instantiation that keeps the radiances spills")
     return out
 
@@ -961,11 +976,11 @@ K1_LINES = {"rt_sweep": "compact idrv0 f32", "rt_sweep_clear":
             "rt_sweep_fused_idrv": "fused idrv1 f32",
             "rt_sweep_cldf_od_idrv": "cldf_od idrv1 f32",
             "rt_sweep_spec": "compact idrv0 logu16",
-            "rt_sweep_save": "compact idrv0 f32 save",
-            "rt_sweep_save_maxrand": "maxrand idrv0 f32 save",
-            "rt_sweep_save_banded": "banded idrv0 f32 save",
-            "rt_sweep_save_fused": "fused idrv0 f32 save",
-            "rt_sweep_save_cldf_od": "cldf_od idrv0 f32 save"}
+            "rt_sweep_save": "compact idrv0 f32 save bulk",
+            "rt_sweep_save_maxrand": "maxrand idrv0 f32 save bulk",
+            "rt_sweep_save_banded": "banded idrv0 f32 save bulk",
+            "rt_sweep_save_fused": "fused idrv0 f32 save bulk",
+            "rt_sweep_save_cldf_od": "cldf_od idrv0 f32 save bulk"}
 # the K2 instantiation behind each K2 line of the JSON summary
 K2_LINES = {"taumol": "f32", "taumol_spec": "logu16"}
 
@@ -1651,7 +1666,8 @@ def k6g_traffic(mode, x, cl, cloudy):
     (L, B) bool), in both sweeps; banded: cldfrac read by each group for
     the flags, its cotangent written by group 0 and read and written by
     the others, each adding its share; the
-    per-g modes: cldf read once for the flags, their cloud cotangents
+    per-g modes: the cloudy-layer words K1 kept, read by each group (a
+    word per 32-column tile and layer), their cloud cotangents
     written in the up sweep (the zeros too) and read and written again in
     the down sweep's cloudy columns."""
     from rrtmg_lw_torch.data.ktables import load_static
@@ -1680,7 +1696,7 @@ def k6g_traffic(mode, x, cl, cloudy):
         n += band + 2 * tc * box * f4 + (2 * ngrp - 1) * L * B * f4
     else:
         ncg = 4 if mode == "fused" else 2
-        n += L * 144 * B * f4 + 2 * tc * ncg * rows * f4
+        n += ngrp * L * -(-B // 32) * 4 + 2 * tc * ncg * rows * f4
         n += ncg * L * 144 * B * f4 + 2 * ncly * ncg * 140 * f4
         if mode == "fused":
             n += 2 * 2 * tc * box * f4 + 2 * band + 2 * 2 * tc * box * f4
@@ -1740,7 +1756,7 @@ def g_grad_kernels(device, model, args, surf, randn):
     res, save_errs, k6_errs = {}, [], []
     for mode, tag, a9, cl in cases:
         x = (*a9[:4], surf)
-        fk, rads = rt_sweep_g_radiances(mode, *x, cl, ngb0, wg)
+        fk, rads, words = rt_sweep_g_radiances(mode, *x, cl, ngb0, wg)
         fields = cl if mode == "banded" else (cl,)
         need(torch.equal(fk, WRAPPERS[mode](*a9, *fields)),
              f"rt_sweep_save_{mode} ({tag}): fluxes differ from K1's "
@@ -1748,12 +1764,17 @@ def g_grad_kernels(device, model, args, surf, randn):
         need(torch.equal(rads, rt_sweep_g_radiances(mode, *x, cl, ngb0,
                                                     wg)[1]),
              f"rt_sweep_save_{mode} ({tag}): two runs differ")
+        kw = {}
         if mode == "banded":
             _, rads_p = rtrn.rt_sweep_banded(*x, *cl, ngb0, wg,
                                              radiances=True)
         else:
-            _, rads_p = rtrn.rt_sweep_blocked(*x, ngb0, wg, cl,
-                                              radiances=True)
+            _, rads_p, words_p = rtrn.rt_sweep_blocked(*x, ngb0, wg, cl,
+                                                       radiances=True)
+            need(torch.equal(words, words_p),
+                 f"rt_sweep_save_{mode} ({tag}): cloudy-layer words differ "
+                 "from the plain ones")
+            kw = dict(words=words)
         e = rel_err(rads, rads_p)
         need(bool(torch.isfinite(rads).all()) and e <= TOL_RADS,
              f"rt_sweep_save_{mode} ({tag}): radiances off by {e:.3g} of "
@@ -1771,8 +1792,9 @@ def g_grad_kernels(device, model, args, surf, randn):
             pass
         else:
             need(False, f"rt_adjoint_{mode}: K6 ran without the radiances")
-        got = k6(rads=rads)
-        need(all(torch.equal(g, h) for g, h in zip(got, k6(rads=rads))),
+        got = k6(rads=rads, **kw)
+        need(all(torch.equal(g, h) for g, h in zip(got, k6(rads=rads,
+                                                          **kw))),
              f"rt_adjoint_{mode} ({tag}): two runs differ")
         need(not any(bool(g[:, 140:].any()) for g in got[5:]
                      if g.dim() == 3 and g.shape[1] == 144),
@@ -1812,7 +1834,7 @@ def g_grad_kernels(device, model, args, surf, randn):
                         140 * (OPS["rt_clear"] * L_MAIN * B_MAIN
                                + OPS["rt_cloud"] * ncld), nbytes=gated))
             res[f"rt_adjoint_{mode}"] = dict(
-                ms=cuda_ms(lambda: k6(rads=rads), 3),
+                ms=cuda_ms(lambda: k6(rads=rads, **kw), 3),
                 plain_ms=cuda_ms(lambda: rtrn.rt_sweep_banded_vjp(
                     *xs, ngb0, wg, cs) if mode == "banded"
                     else rtrn.rt_sweep_g_vjp(*xs[:5], xs[5:], ngb0, wg, cs),
@@ -1824,7 +1846,7 @@ def g_grad_kernels(device, model, args, surf, randn):
                 mode, x, cl, cloudy)
             print(f"rt_adjoint_{mode}: {ncld} cloudy (layer, column), "
                   f"{ngate} gated (layer, g, column)")
-        del rads, got, ref, xs
+        del rads, words, got, ref, xs
     for name, errs in (("rt_sweep_save", save_errs), ("rt_adjoint", k6_errs)):
         for mode in G_MODES:
             r = res[f"{name}_{mode}"]
@@ -1878,6 +1900,179 @@ def g_grad_kernels(device, model, args, surf, randn):
     res["cldcoef_bwd"] = dict(res_k4, max_abs_err=max(a for a, _ in errs),
                               max_rel_err=max(e for _, e in errs))
     return res
+
+
+def maxrand_state_err(got, x5, clouds, ngb0, wg):
+    """K1 maxrand's kept state ``got`` (fluxes, rads, subs) on the sweep
+    inputs ``x5`` and ``clouds`` (rows_t, taucb_t) against the plain
+    sweep's, both unpacked (``rtrn.unpack_state``), in chunks of B_CHUNK
+    columns (at L_DEEP the first B_SUB): max |diff| / max |plain|; raises
+    on a non-finite state."""
+    from rrtmg_lw_torch.ops import rtrn
+    L, _, B = x5[0].shape
+    rows = clouds[0]
+    ncmp = B if L == L_MAIN else min(B, B_SUB)
+    d_max = r_max = 0.0
+    for c0 in range(0, ncmp, B_CHUNK):
+        c = slice(c0, min(c0 + B_CHUNK, ncmp))
+        part = tuple(t[..., c].contiguous() for t in (*x5, *clouds))
+        state = rtrn.unpack_state(got[1][..., c], got[2][..., c],
+                                  rows[..., c])
+        state_p = rtrn.unpack_state(*rtrn.rt_sweep_maxrand(
+            *part, ngb0, wg, radiances=True)[1:], part[5])
+        need(bool(torch.isfinite(state).all()),
+             "K1 SAVE maxrand: non-finite state")
+        d_max = max(d_max, float((state - state_p).abs().max()))
+        r_max = max(r_max, float(state_p.abs().max()))
+        del state, state_p
+    return d_max / max(r_max, 1e-30)
+
+
+def k1_save_cases(device):
+    """K1 keeping the state K6 reads, in every mode at idrv 0 and 1, by
+    both store paths: on phase 3's inputs with each mode's cell clouds
+    (``utils.snapshot.k1_cloud_args``), on K1's edge cases
+    (``k1_edge_args``), at L_DEEP (the mcica_cloudy_deep cell's
+    atmosphere, ``g_cloud_args``' clouds), and on the first 4100 columns
+    (a last 16-column tile of 4) and 37 of phase 3's inputs
+    (``snapshot.SAVE_COLUMNS``).  Each case: the store path the
+    launch took (``rtrn_cuda.k1_save_path``: bulk where B % 4 == 0, else
+    scalar), its fluxes bitwise those of K1 without the state, the
+    radiances (maxrand: the state unpacked, ``rtrn.unpack_state``) within
+    TOL_RADS of max |plain| and bitwise over two runs; fused and
+    cldf-odcld: the cloudy-layer words equal to the plain ones and K6 fed
+    them within TOL_BWD_RT of the plain vjp on the first B_SUB columns.
+    -> {"<mode> idrv<i> <case>": store path}, printed."""
+    from rrtmg_lw_torch.ops import rtrn, rtrnmr
+    from rrtmg_lw_torch.ops.rtrn_cuda import (WRAPPERS, k1_save_path,
+                                              rt_sweep_g_radiances,
+                                              rt_sweep_g_vjp,
+                                              rt_sweep_maxrand_radiances,
+                                              rt_sweep_radiances)
+    from rrtmg_lw_torch.utils.snapshot import (SAVE_COLUMNS, compact_args,
+                                               cut_columns, g_cloud_args,
+                                               k1_cloud_args, k1_edge_args,
+                                               sweep_inputs)
+    x = sweep_inputs(device)
+    static, args, dpl = x["static"], x["args"], x["sc"].dplankbnd_dt
+    cell = {m: (w, tuple(c)) for m, (w, c) in k1_cloud_args(
+        device, static, x["mc"]).items()}
+    eargs, emodes, _ = k1_edge_args(device, static, args)
+    xd = sweep_inputs(device, "mcica_cloudy_deep")
+    gd = g_cloud_args(device, static, L_DEEP)
+    deep = {"clear": ("blocked", ()),
+            "compact": ("blocked", (compact_args(static, xd["mc"]),)),
+            "banded": ("banded", gd["banded"]),
+            "maxrand": ("maxrand", (rtrnmr.overlap_rows(
+                gd["banded"][0].t().contiguous()), gd["banded"][1])),
+            "fused": ("fused", (gd["fused"],)),
+            "cldf_od": ("cldf_od", (gd["cldf_od"],))}
+    sizes = [("cell", args, dpl, cell), ("edge", eargs, dpl, emodes),
+             (f"L={L_DEEP}", xd["args"], xd["sc"].dplankbnd_dt, deep)]
+    for n in SAVE_COLUMNS:
+        sizes.append((f"B={n}", cut_columns(args, n, B_MAIN),
+                      cut_columns(dpl, n, B_MAIN),
+                      {m: (w, cut_columns(c, n, B_MAIN)) for m, (w, c)
+                       in cell.items()}))
+    gen = torch.Generator(device=device).manual_seed(17)
+    paths = {}
+    for tag, a9, dp, modes in sizes:
+        L, _, B = a9[0].shape
+        ngb0, wg = a9[7:]
+        ct = torch.randn((4, L + 1, B), generator=gen, device=device)
+        for mode, (w, clouds) in modes.items():
+            for idrv in (0, 1):
+                surf = rtrn.surf_rows(*a9[4:7], torch.float32,
+                                      dp if idrv else None)
+                x5 = (*a9[:4], surf)
+                name = f"{mode} idrv{idrv} {tag}"
+                if mode in ("clear", "compact"):
+                    fields = clouds[0] if clouds else None
+                    cf = ((None,) * 4 if fields is None
+                          else (*fields[1:], fields[0]))
+
+                    def keep():
+                        return rt_sweep_radiances(*x5, *cf, ngb0, wg)
+                    plain = rtrn.rt_sweep_blocked(*x5, ngb0, wg, fields,
+                                                  radiances=True)
+                elif mode == "maxrand":
+                    def keep():
+                        return rt_sweep_maxrand_radiances(*x5, *clouds,
+                                                          ngb0, wg)
+                    plain = None        # compared in chunks below
+                else:
+                    cl = clouds if mode == "banded" else clouds[0]
+
+                    def keep():
+                        return rt_sweep_g_radiances(mode, *x5, cl, ngb0, wg)
+                    plain = (rtrn.rt_sweep_banded(*x5, *cl, ngb0, wg,
+                                                  radiances=True)
+                             if mode == "banded" else
+                             rtrn.rt_sweep_blocked(*x5, ngb0, wg, cl,
+                                                   radiances=True))
+                got = keep()
+                paths[name] = k1_save_path(mode)
+                need(paths[name] == ("bulk" if B % 4 == 0 else "scalar"),
+                     f"K1 SAVE {name}: store path {paths[name]} at B={B}")
+                fl = WRAPPERS[w](*a9, *clouds,
+                                 **(dict(dplankbnd_dt=dp) if idrv else {}))
+                need(torch.equal(got[0], torch.cat(fl) if idrv else fl),
+                     f"K1 SAVE {name}: fluxes differ from K1's without the "
+                     "state")
+                again = list(keep())
+                if mode == "maxrand":
+                    # the slots past a column's count are not written
+                    _, counts = rtrn.substream_slots(clouds[0])
+                    past = (torch.arange(got[2].shape[2], device=device)
+                            [None, :, None] >= counts[:, None, :]
+                            )[:, None, :, None, :]
+                    again[2] = again[2].masked_fill(past, 0.0)
+                    got = (*got[:2], got[2].masked_fill(past, 0.0))
+                need(all(a is None and b is None or torch.equal(a, b)
+                         for a, b in zip(got[1:], again[1:])),
+                     f"K1 SAVE {name}: two runs differ")
+                del again
+                if mode == "maxrand":
+                    e = maxrand_state_err(got, x5, clouds, ngb0, wg)
+                else:
+                    e = rel_err(got[1], plain[1])
+                need(bool(torch.isfinite(got[1]).all()) and e <= TOL_RADS,
+                     f"K1 SAVE {name}: radiances off by {e:.3g} of max "
+                     f"|plain| > {TOL_RADS}")
+                msg = (f"K1 SAVE {name} (B={B}, L={L}): {paths[name]} "
+                       f"stores, fluxes bitwise K1's, radiances within "
+                       f"{e:.3g} of max |plain|, bitwise over two runs")
+                if mode in ("fused", "cldf_od"):
+                    words = got[2]
+                    need(torch.equal(words, plain[2]),
+                         f"K1 SAVE {name}: cloudy-layer words differ from "
+                         "the plain ones")
+                    s3 = surf[:3].contiguous()
+                    g6 = rt_sweep_g_vjp(*x5[:4], s3, cl, ngb0, wg, ct,
+                                        rads=got[1], words=words)
+                    sub = slice(0, min(B, B_SUB))
+                    xs = tuple(t[..., sub].contiguous()
+                               for t in (*x5[:4], s3, *cl))
+                    ref = rtrn.rt_sweep_g_vjp(*xs[:5], xs[5:], ngb0, wg,
+                                              ct[..., sub].contiguous())
+                    e6 = max(rel_err(g[..., sub], r)
+                             for g, r in zip(g6, ref))
+                    need(all(bool(torch.isfinite(g).all()) for g in g6)
+                         and e6 <= TOL_BWD_RT,
+                         f"K6 {mode} fed K1 SAVE {name}: rel err {e6:.3g} "
+                         f"> {TOL_BWD_RT}")
+                    msg += (f"; words equal plain, K6 fed them within "
+                            f"{e6:.3g} of max |plain vjp| on {sub.stop} "
+                            "columns")
+                    del g6, ref, xs
+                print(msg)
+                del got, plain
+        torch.cuda.empty_cache()
+    for p in ("bulk", "scalar"):
+        print(f"K1 SAVE store paths: {p} in "
+              f"{sum(v == p for v in paths.values())} cases: "
+              + ", ".join(k for k, v in paths.items() if v == p))
+    return paths
 
 
 def grad_device_times():
@@ -2688,6 +2883,14 @@ def main() -> int:
     res.update(phase_grad_kernels(device))
     for name, ms in grad_dev.items():
         res[name]["device_ms"] = ms
+    torch.cuda.empty_cache()
+    save_paths = k1_save_cases(device)
+    for name in ("rt_sweep_save", *(f"rt_sweep_save_{m}"
+                                    for m in ("maxrand", *G_MODES))):
+        mode = name.removeprefix("rt_sweep_save").lstrip("_") or "compact"
+        res[name]["store_paths"] = {k.split(" ", 1)[1]: v for k, v
+                                    in save_paths.items()
+                                    if k.split()[0] == mode}
     torch.cuda.empty_cache()
     counters.update(taumol_bwd=taumol_vjp, planck_bwd=planck_interp_vjp,
                     rt_adjoint=rt_sweep_vjp,

@@ -51,8 +51,9 @@ SIGNATURES = {
     "rrtm_taumol_shape": (P,),
     "rrtm_taumol_bwd": (P, P, P, P, P, P, P, I, I, P),
     "rrtm_taumol_bwd_info": (P,),
-    "rrtm_rt": (P,) * 19 + (I,) * 5 + (P, P, I, P),
+    "rrtm_rt": (P,) * 19 + (I,) * 5 + (P, P, I, P, P),
     "rrtm_rt_info": (I, I, I, I, P),
+    "rrtm_rt_save_path": (I,),
     "rrtm_overlap": (P, P, I, I, P),
     "rrtm_overlap_bwd": (P, P, P, I, I, P),
     "rrtm_rt_bwd_mr": (P,) * 21 + (I, I, I, P),

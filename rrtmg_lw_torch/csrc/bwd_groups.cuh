@@ -36,20 +36,15 @@ constexpr CUtensorMapL2promotion G_L2 = CU_TENSOR_MAP_L2_PROMOTION_L2_128B;
 __constant__ int GFIRST[NGRP + 1] = {0, 2, 4, 6, 9, KNB};
 
 // The scratch of a launch (the wrapper's allocations): the counter the
-// tickets are drawn from, then one a column tile (zeroed); the per-g
-// modes' cloudy-layer words; the groups' shares of the sums over all
-// 140 g-points (K6 banded past L = 381: the cloud fraction's; K6
-// maxrand: the overlap rows'), where the kernel keeps them in device
-// memory, else null.
+// tickets are drawn from, then one a column tile (zeroed); the groups'
+// shares of the sums over all 140 g-points (K6 banded past L = 381: the
+// cloud fraction's; K6 maxrand: the overlap rows'), where the kernel
+// keeps them in device memory, else null; and K6-g's per-g modes' input
+// of the cloudy-layer words K1 wrote ((tiles, L), else null).
 struct GScratch {
-    unsigned* flags;
+    const unsigned* words;
     int* count;
     float* part;
 };
-
-// can `p` start a tensor map's rows of B floats
-inline bool map_rows_ok(const void* p, int B) {
-    return ((uintptr_t)p & 15u) == 0 && B % 4 == 0;
-}
 
 }  // namespace

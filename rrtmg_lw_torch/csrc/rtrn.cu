@@ -1,7 +1,8 @@
 // K1, the RT sweep kernel (rtrn_kernel.cuh): its float32 instantiations
-// (6 modes x idrv 0/1, and the same 12 that keep the radiances for K6)
-// and the entry points, which dispatch the reduced storages to
-// rtrn_bf16.cu, rtrn_f16.cu and rtrn_logu16.cu.
+// of the forward step (6 modes x idrv 0/1) and the entry points, which
+// dispatch the reduced storages to rtrn_bf16.cu, rtrn_f16.cu and
+// rtrn_logu16.cu and the gradient step's launches, which keep the
+// radiances for K6, to rtrn_save.cu.
 #include "rtrn_kernel.cuh"
 
 // taut, fracs (L, 140, B) in storage `spec` (spec.cuh; float32: taut =
@@ -23,7 +24,9 @@
 // radiance at level l, the up radiance entering layer l and, in a cloudy
 // mode, their clear twins; maxrand also the sub-streams entering each
 // layer where K6 reads them, packed into npk slots a sweep, packed (2,
-// 3, npk, 140, B) (rtrn_kernel.cuh, SAVE; null elsewhere).
+// 3, npk, 140, B); fused and cldf-odcld also the cloudy-layer words,
+// words ((B + 31) / 32, L) uint32 (rtrn_kernel.cuh, SAVE; null
+// elsewhere).
 RRTM_API int rrtm_rt(const void* taut, const void* fracs, const float* play,
                      const float* plev, const float* surf, const int* ngb,
                      const float* wg, const int8_t* mask, const float* cw,
@@ -31,7 +34,8 @@ RRTM_API int rrtm_rt(const void* taut, const void* fracs, const float* play,
                      const float* taucb, const float* cldf, const float* ciwp,
                      const float* clwp, const float* tauc, const float* taua,
                      float* out, int L, int B, int mode, int idrv, int spec,
-                     float* rads, float* packed, int npk, void* stream) {
+                     float* rads, float* packed, int npk, unsigned* words,
+                     void* stream) {
     if (L <= 0 || B <= 0) return (int)cudaGetLastError();
     if (rads && spec != rrtm::SPEC_F32) return (int)cudaErrorInvalidValue;
     Inputs in{static_cast<const float*>(taut),
@@ -44,11 +48,14 @@ RRTM_API int rrtm_rt(const void* taut, const void* fracs, const float* play,
     in.clwp = clwp;
     in.tauc = tauc;
     cudaStream_t s = (cudaStream_t)stream;
+    if (rads)
+        return (int)launch_save(
+            in, ngb, wg, out, mode, idrv,
+            Kept{rads, packed, npk, reinterpret_cast<uint16_t*>(words)}, s);
     switch (spec) {
     case rrtm::SPEC_F32:
         return (int)launch_storage<rrtm::SPEC_F32>(in, taua, ngb, wg, out,
-                                                   mode, idrv, s,
-                                                   Kept{rads, packed, npk});
+                                                   mode, idrv, s);
     case rrtm::SPEC_BF16:
         return (int)launch_bf16(in, taua, ngb, wg, out, mode, idrv, s);
     case rrtm::SPEC_F16:
@@ -60,31 +67,16 @@ RRTM_API int rrtm_rt(const void* taut, const void* fracs, const float* play,
     }
 }
 
-// the launch configuration of the float32 instantiation of MODE at idrv
-// that keeps the radiances
-template <int MODE>
-cudaError_t info_save(int idrv, int* out) {
-    return idrv ? info<MODE, true, rrtm::SPEC_F32, true>(out)
-                : info<MODE, false, rrtm::SPEC_F32, true>(out);
-}
-
 // The launch configuration of K1 in `mode` at idrv in storage `spec`
-// (save: the instantiation that keeps the radiances): out[0..7] =
-// registers per thread, local memory bytes per thread, static and dynamic
-// shared memory per block, blocks per SM, the ring's levels, threads and
-// columns per block (rtrn_kernel.cuh info).
+// (save: the instantiation that keeps the radiances, SAVE_SCALAR or
+// SAVE_BULK, float32; NO_SAVE the forward step's): out[0..7] = registers
+// per thread, local memory bytes per thread, static and dynamic shared
+// memory per block, blocks per SM, the ring's levels, threads and columns
+// per block (rtrn_kernel.cuh info).
 RRTM_API int rrtm_rt_info(int mode, int idrv, int spec, int save, int* out) {
-    if (save) {
+    if (save != NO_SAVE) {
         if (spec != rrtm::SPEC_F32) return (int)cudaErrorInvalidValue;
-        switch (mode) {
-        case CLEAR: return (int)info_save<CLEAR>(idrv, out);
-        case COMPACT: return (int)info_save<COMPACT>(idrv, out);
-        case BANDED: return (int)info_save<BANDED>(idrv, out);
-        case MAXRAND: return (int)info_save<MAXRAND>(idrv, out);
-        case FUSED: return (int)info_save<FUSED>(idrv, out);
-        case CLDF_OD: return (int)info_save<CLDF_OD>(idrv, out);
-        default: return (int)cudaErrorInvalidValue;
-        }
+        return (int)info_save(mode, idrv, save, out);
     }
     switch (spec) {
     case rrtm::SPEC_F32:
@@ -95,3 +87,7 @@ RRTM_API int rrtm_rt_info(int mode, int idrv, int spec, int save, int* out) {
     default: return (int)cudaErrorInvalidValue;
     }
 }
+
+// The store path of `mode`'s last launch that kept the radiances in this
+// process: SAVE_BULK, SAVE_SCALAR, or NO_SAVE where there was none.
+RRTM_API int rrtm_rt_save_path(int mode) { return save_path(mode); }

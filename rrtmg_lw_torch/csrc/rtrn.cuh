@@ -272,11 +272,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
     }
 }
 
-// Hopper's bulk tensor copies (TMA), for K6 in the banded, fused and
-// cldf-odcld modes (rtrn_bwd_g.cu): one thread arms a slot's mbarrier
-// with the bytes it expects and issues 2D tile copies from a tensor map
-// (cuTensorMapEncodeTiled, below) into shared memory; the copies
-// complete the barrier's transaction count as they land.
+// Hopper's bulk tensor copies (TMA), for K6 in the banded, fused,
+// cldf-odcld and maxrand modes (rtrn_bwd_g.cu, rtrn_bwd_mr.cu) and K1's
+// gradient-step launch (rtrn_kernel.cuh, SAVE_BULK): one thread arms a
+// slot's mbarrier with the bytes it expects and issues 2D tile copies
+// from a tensor map (cuTensorMapEncodeTiled, below) into shared memory;
+// the copies complete the barrier's transaction count as they land.  K1
+// also stores tiles from shared memory to device memory so.
 
 // the barriers' initialisation made visible to the copy engine
 __device__ __forceinline__ void fence_mbarrier_init() {
@@ -315,6 +317,50 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
         :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
            "r"(x), "r"(y), "r"(smem_addr(bar))
         : "memory");
+}
+
+// The bulk tensor stores of K1's gradient-step launch (rtrn_kernel.cuh,
+// SAVE_BULK): the (x, y) box of tensor map `map` from shared memory at
+// src (128-byte aligned), in this thread's current bulk group, with the
+// L2 eviction priority `policy` (l2_policy); the box's elements outside
+// the tensor are not written.
+__device__ __forceinline__ void tma_store_2d(const void* map,
+                                             const void* src, int x, int y,
+                                             uint64_t policy) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::"
+        "cache_hint [%0, {%2, %3}], [%1], %4;\n"
+        :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)),
+           "r"(x), "r"(y), "l"(policy)
+        : "memory");
+}
+
+// an L2 cache policy: evict first (the lines a store writes leave L2
+// before others) or normal
+__device__ __forceinline__ uint64_t l2_policy(bool evict_first) {
+    uint64_t p;
+    if (evict_first)
+        asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+                     : "=l"(p));
+    else
+        asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n"
+                     : "=l"(p));
+    return p;
+}
+
+// close this thread's current bulk group
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until this thread's bulk groups have read their shared memory
+// (READ) or completed
+template <bool READ>
+__device__ __forceinline__ void bulk_wait_all() {
+    if constexpr (READ)
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    else
+        asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // Copy `rows` rows of `nvalid` elements of ES bytes, row r at
@@ -372,6 +418,11 @@ __device__ __forceinline__ void stage(unsigned char* dst,
 template <int ES>
 __device__ __forceinline__ bool rows16(const void* p, int B) {
     return ((uintptr_t)p & 15u) == 0 && ((size_t)B * ES) % 16 == 0;
+}
+
+// can `p` start a tensor map's rows of B floats
+inline bool map_rows_ok(const void* p, int B) {
+    return ((uintptr_t)p & 15u) == 0 && B % 4 == 0;
 }
 
 // libcuda's cuTensorMapEncodeTiled, found through the runtime so that

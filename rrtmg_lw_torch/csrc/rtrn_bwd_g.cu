@@ -100,10 +100,9 @@
 //   bands each: this order is another, and the output differs from that
 //   design's in the last bits (PERF.md).
 // - The cloudy layers (a bit per column, a word per layer): banded each
-//   block from cldfrac; the per-g modes from cldf, which the tile's group
-//   0 reads (by bulk copies of 144 rows a layer into the ring) and
-//   publishes to a scratch row and a flag; its other groups, whose
-//   tickets come after every group 0 block's, wait for the flag.
+//   block from cldfrac; the per-g modes read the words K1's gradient-step
+//   launch wrote beside the radiances (rtrn_kernel.cuh, SAVE), so no
+//   block forms them or waits for another's.
 // - The per-g cloud cotangents outside a cloudy layer and in the pad
 //   rows are zero: the up sweep writes the zeros (no arithmetic), the
 //   down sweep adds only in a cloudy layer, to the up sweep's values
@@ -116,8 +115,8 @@
 // Shared memory a block (bytes):       banded   cldf-odcld      fused
 //   ring slot                          31,104       37,120     49,408
 //   ring of G_RING = 2 slots           62,208       74,240     98,816
-//   the rest (GLayout) at L = 140      21,600        3,680      3,680
-//   total at L = 140 (SMEM_BWD_G)      83,808       77,920    102,496
+//   the rest (GLayout) at L = 140      21,584        3,664      3,664
+//   total at L = 140 (SMEM_BWD_G)      83,792       77,904    102,480
 // Two blocks per SM: 2 x (102,496 + 1,024 reserved) <= 233,472, and so
 // up to L = 3,444 in fused (the cloudy-layer words take 4 bytes a layer);
 // banded's shares, 128 bytes a layer, stay in shared memory up to L = 381.
@@ -181,8 +180,7 @@ struct GSlot {
 };
 
 // The block's dynamic shared memory: the ring, the full and empty
-// mbarriers of each slot and that of the flag pass's copies, the block's
-// ticket, the flux weight of every g, the first g of every band, the band
+// mbarriers of each slot, the block's ticket, the flux weight of every g, the first g of every band, the band
 // (0-7 of the group) of each of the group's g-points, the bands' secants
 // per column and the secant's cotangents, the highest cloudy layer of
 // each column (these two held here, not in registers across the sweeps:
@@ -194,7 +192,7 @@ template <int MODE>
 struct GLayout {
     using S = GSlot<MODE>;
     static constexpr int BAR = G_RING * S::BYTES;
-    static constexpr int TICKET = BAR + (2 * G_RING + 1) * 8;
+    static constexpr int TICKET = BAR + 2 * G_RING * 8;
     static constexpr int WG = TICKET + 8;                    // (KG)
     static constexpr int GOFF = WG + KG * 4;                 // (KNB + 1)
     static constexpr int RK = GOFF + (KNB + 1) * 4;          // (GR)
@@ -218,7 +216,7 @@ struct GLayout {
 };
 
 // the budget of the header, at L = 140
-constexpr int SMEM_BWD_G[3] = {83808, 77920, 102496};
+constexpr int SMEM_BWD_G[3] = {83792, 77904, 102480};
 static_assert(GLayout<BANDED>::bytes(140) == SMEM_BWD_G[0]
               && GLayout<CLDF_OD>::bytes(140) == SMEM_BWD_G[1]
               && GLayout<FUSED>::bytes(140) == SMEM_BWD_G[2],
@@ -366,11 +364,11 @@ __device__ __forceinline__ StepGrads g_step_bwd(
 }
 
 // The scratch of a launch (GScratch, bwd_groups.cuh): the counter the
-// tickets are drawn from, then one a column tile (zeroed: the per-g
-// modes' flag that group 0 has published the tile's cloudy-layer words;
-// banded: the groups' turn to add their shares of the cloud fraction's
-// cotangent); those words (the per-g modes: (tiles, L)); banded's shares
-// where they do not fit shared memory ((blocks, L, GX), else null).
+// tickets are drawn from, then (banded) one a column tile (zeroed: the
+// groups' turn to add their shares of the cloud fraction's cotangent);
+// banded's shares where they do not fit shared memory ((blocks, L, GX),
+// else null).  The per-g modes' cloudy-layer words ((tiles, L), K1's) in
+// its words.
 
 template <int MODE>
 __global__ void __launch_bounds__(GT, G_BLOCKS_PER_SM)
@@ -390,7 +388,6 @@ rt_bwd_g_kernel(__grid_constant__ const GMaps maps, Inputs in, Clouds cl,
         smem_raw + ((128u - (smem_addr(smem_raw) & 127u)) & 127u);
     uint64_t* full = reinterpret_cast<uint64_t*>(smem + Lo::BAR);
     uint64_t* empty = full + G_RING;
-    uint64_t* flagbar = empty + G_RING;
     float* wg_s = reinterpret_cast<float*>(smem + Lo::WG);
     int* goff = reinterpret_cast<int*>(smem + Lo::GOFF);
     int* rk = reinterpret_cast<int*>(smem + Lo::RK);
@@ -418,7 +415,6 @@ rt_bwd_g_kernel(__grid_constant__ const GMaps maps, Inputs in, Clouds cl,
             mbar_init(&full[i], vec ? 1u : (unsigned)GT);
             mbar_init(&empty[i], (unsigned)GT);
         }
-        mbar_init(flagbar, 1u);
         fence_mbarrier_init();
     }
     __syncthreads();
@@ -455,71 +451,17 @@ rt_bwd_g_kernel(__grid_constant__ const GMaps maps, Inputs in, Clouds cl,
     }
 
     // ---- 1. the cloudy layers: a bit per column, a word per layer.
-    // Banded: from cldfrac.  The per-g modes: group 0 forms them from
-    // the tile's cldf rows and publishes them; the tile's other groups,
-    // whose tickets come after its, wait for them ----
+    // Banded: from cldfrac.  The per-g modes: the tile's words, which
+    // K1 wrote ----
     if constexpr (BND) {
         for (int l = ty; l < L; l += GY) {
             const bool c = valid && cl.c[0][(size_t)l * Bz + b] >= CLOUD_GATE;
             const unsigned w = __ballot_sync(0xffffffffu, c);
             if (tx == 0) flags[l] = w;
         }
-    } else if (grp == 0) {
-        for (int i = tid; i < L; i += GT) flags[i] = 0u;
-        __syncthreads();
-        if (vec) {
-            // the rows of NL layers at a time, copied into the ring (the
-            // zeros past the ragged edge and the pad rows are no cloud)
-            constexpr int LROWS = rrtm::NGPT_PAD;
-            static_assert(LROWS % GH == 0, "a layer's rows in whole boxes");
-            constexpr int NL = G_RING * Sl::BYTES / (LROWS * RB);
-            const float* f = reinterpret_cast<const float*>(smem);
-            for (int l0 = 0; l0 < L; l0 += NL) {
-                const int n = min(NL, L - l0);
-                if (ty == 0) {
-                    if (tx == 0)
-                        mbar_arrive_expect_tx(flagbar,
-                                              (uint32_t)(n * LROWS * RB));
-                    __syncwarp();
-                    for (int i = tx; i < n * LROWS / GH; i += GX)
-                        tma_load_2d(smem + i * GH * RB, &maps.m[M_C0], bt,
-                                    l0 * rrtm::NGPT_PAD + i * GH, flagbar);
-                }
-                mbar_wait(flagbar, (unsigned)(l0 / NL) & 1u);
-                for (int i = 0; i < n; ++i) {
-                    bool c = false;
-                    for (int g = ty; g < KG; g += GY)
-                        c |= f[(i * LROWS + g) * GX + tx] >= 0.5f;
-                    const unsigned w = __ballot_sync(0xffffffffu, c);
-                    if (tx == 0 && w) atomicOr(&flags[l0 + i], w);
-                }
-                // the rows read before the next copies over them
-                fence_proxy_async_smem();
-                __syncthreads();
-            }
-        } else if (valid) {
-            for (int l = 0; l < L; ++l) {
-                bool c = false;
-                for (int g = ty; g < KG; g += GY)
-                    c |= cl.c[0][((size_t)l * rrtm::NGPT_PAD + g) * Bz + b]
-                         >= 0.5f;
-                if (c) atomicOr(&flags[l], 1u << tx);
-            }
-        }
-        __syncthreads();
-        for (int i = tid; i < L; i += GT) sc.flags[(size_t)tile * L + i] =
-            flags[i];
-        __threadfence();
-        __syncthreads();
-        if (tid == 0) atomicExch(&tcount[tile], 1);
     } else {
-        if (tid == 0) {
-            while (atomicAdd(&tcount[tile], 0) == 0) __nanosleep(256);
-            __threadfence();
-        }
-        __syncthreads();
         for (int i = tid; i < L; i += GT)
-            flags[i] = __ldcg(&sc.flags[(size_t)tile * L + i]);
+            flags[i] = sc.words[(size_t)tile * L + i];
     }
     __syncthreads();
     int hi = -1;                            // the highest cloudy layer
@@ -1054,10 +996,11 @@ cudaError_t info_bwd_g(int L, int* out) {
 // Inputs as rrtm_rt's (surf (3, 16, B)); c0..c5 the mode's cloud inputs
 // (Clouds; unused ones null); ct (4, L+1, B) flux cotangents; rads (4, L,
 // 140, B) the radiances K1 kept in the same step (rrtm_rt with rads, in
-// the same mode) -> ct_taut, ct_fracs (L, 140, B), ct_play (L, 16, B),
-// ct_plev (L+1, 16, B), ct_surf (3, 16, B) and g0..g5 the cloud inputs'
-// cotangents, shaped like them.  count, tflags, tpart: the scratch
-// rrtm_rt_bwd_g_scratch sizes, count zeroed (tflags, tpart may be null
+// the same mode) and, fused and cldf-odcld, words ((B + 31) / 32, L) its
+// cloudy-layer words (null in banded) -> ct_taut, ct_fracs (L, 140, B),
+// ct_play (L, 16, B), ct_plev (L+1, 16, B), ct_surf (3, 16, B) and g0..g5
+// the cloud inputs' cotangents, shaped like them.  count, tpart: the
+// scratch rrtm_rt_bwd_g_scratch sizes, count zeroed (tpart may be null
 // where it asks for none).  mode: BANDED, FUSED or CLDF_OD (enum Mode).
 RRTM_API int rrtm_rt_bwd_g(const float* taut, const float* fracs,
                            const float* play, const float* plev,
@@ -1067,15 +1010,15 @@ RRTM_API int rrtm_rt_bwd_g(const float* taut, const float* fracs,
                            const float* ct, const float* rads, float* ct_taut,
                            float* ct_fracs, float* ct_play, float* ct_plev,
                            float* ct_surf, float* g0, float* g1, float* g2,
-                           float* g3, float* g4, float* g5, int* count,
-                           unsigned* tflags, float* tpart, int L, int B,
-                           int mode, void* stream) {
+                           float* g3, float* g4, float* g5,
+                           const unsigned* words, int* count, float* tpart,
+                           int L, int B, int mode, void* stream) {
     if (L <= 0 || B <= 0) return (int)cudaGetLastError();
     const int ncld = mode == FUSED ? 6 : 2;
     const float* c[NCLD] = {c0, c1, c2, c3, c4, c5};
     float* g[NCLD] = {g0, g1, g2, g3, g4, g5};
     if (!rads || !count || (mode != BANDED && mode != FUSED && mode != CLDF_OD)
-        || (mode != BANDED && !tflags))
+        || (mode != BANDED && !words))
         return (int)cudaErrorInvalidValue;
     for (int i = 0; i < ncld; ++i)
         if (!c[i] || !g[i]) return (int)cudaErrorInvalidValue;
@@ -1087,7 +1030,7 @@ RRTM_API int rrtm_rt_bwd_g(const float* taut, const float* fracs,
         cl.c[i] = c[i];
         gr.c[i] = g[i];
     }
-    const GScratch sc{tflags, count, tpart};
+    const GScratch sc{words, count, tpart};
     cudaStream_t s = (cudaStream_t)stream;
     switch (mode) {
     case BANDED:
@@ -1101,16 +1044,15 @@ RRTM_API int rrtm_rt_bwd_g(const float* taut, const float* fracs,
 }
 
 // The scratch rrtm_rt_bwd_g takes in `mode` at L layers and B columns:
-// out[0] ints of count (the tickets' counter, then one a column tile),
-// out[1] words of tflags (the per-g modes: L a tile), out[2] x out[3]
-// floats of tpart (banded past L = 381: its blocks x L x GX; else 0).
+// out[0] ints of count (the tickets' counter, then in banded one a column
+// tile), out[1] x out[2] floats of tpart (banded past L = 381: its blocks
+// x L x GX; else 0).
 RRTM_API int rrtm_rt_bwd_g_scratch(int mode, int L, int B, int* out) {
     const int tiles = (B + GX - 1) / GX;
     const bool part = mode == BANDED && !GLayout<BANDED>::shares_here(L);
-    out[0] = 1 + tiles;
-    out[1] = mode == BANDED ? 0 : tiles * L;
-    out[2] = part ? NGRP * tiles : 0;
-    out[3] = part ? L * GX : 0;
+    out[0] = 1 + (mode == BANDED ? tiles : 0);
+    out[1] = part ? NGRP * tiles : 0;
+    out[2] = part ? L * GX : 0;
     return 0;
 }
 

@@ -91,19 +91,37 @@
 // The gradient step (SAVE, a fourth template parameter: every mode in
 // float32, idrv 0 and 1): the kernel also stores every
 // per-g radiance that it sums into the flux rows DOWN, UP (and CLR_DOWN,
-// CLR_UP) at levels 0..L-1, from the same registers, in the order K6
+// CLR_UP) at levels 0..L-1, in the order K6
 // (rtrn_bwd.cu; maxrand: rtrn_bwd_mr.cu; banded, fused and cldf-odcld:
 // rtrn_bwd_g.cu) reads them back: (2 | 4, L, 140, B) floats, 1.1 GB clear
 // and 2.2 GB in a cloudy mode at B=16384, L=60; maxrand
 // also the three sub-streams entering a layer in a sweep where K6 reads
 // them, in a cloudy layer that does not restart them, packed: (2, 3, K,
 // 140, B), a column's k-th such layer of a sweep at slot k, K the most
-// of any column (3 at the cells' clouds, 0.2 GB).  The stores sit beside
-// the flux sums and change nothing in them: the fluxes are bitwise those
-// of the kernel without SAVE.  A warp's store is 16 columns x 2
-// g-points, two 64-byte segments.  K6 shares with this file only the
-// recurrences (advance, advance_ddt, advance_mr) and the factor functions
-// of rtrn.cuh.
+// of any column (3 at the cells' clouds, 0.2 GB); fused and cldf-odcld
+// also the cloudy-layer words K6 reads in those modes (a bit per column,
+// one uint32 per 32-column tile and layer: the block of columns 16u ..
+// 16u + 15 writes half u % 2 of its tile's word, the last block of an
+// odd count the whole word).  The stores change nothing in the flux
+// sums: the fluxes are bitwise those of the kernel without SAVE.
+// - SAVE_BULK, where tensor maps can address rads, taut and fracs (B a
+//   multiple of 4, the bases 16-byte aligned): a step's radiances leave
+//   the registers through its own ring slot.  A thread writes each of
+//   its g-points' radiance over the slot's TAU cell and the clear twin
+//   over its FR cell, which it alone has read, in the step; after the
+//   step's block barrier one elected thread writes the two tiles out by
+//   bulk tensor stores (a box of 16 columns x 140 rows each; the TMA
+//   clips the ragged last tile), which run behind the next steps.  The
+//   same thread stages the slot's taut and fracs rows by bulk tensor
+//   loads once its stores have read the tiles (the other rows keep their
+//   cp.async copies; the slot's mbarrier counts both), so the ring's
+//   lead stays RING - 1 levels.  No shared memory is added but 128 bytes
+//   to align the ring (a slot's stride rounded to 128 bytes).
+// - SAVE_SCALAR elsewhere: scalar stores from the registers inside the
+//   g-loop, a warp's store 16 columns x 2 g-points (two 64-byte pieces).
+// The host chooses the path from the shapes before the launch.  K6
+// shares with this file only the recurrences (advance, advance_ddt,
+// advance_mr) and the factor functions of rtrn.cuh.
 #pragma once
 
 #include <stdint.h>
@@ -130,6 +148,30 @@ cudaError_t launch_logu16(const Inputs& in, const float* taua,
 cudaError_t info_bf16(int mode, int idrv, int* out);
 cudaError_t info_f16(int mode, int idrv, int* out);
 cudaError_t info_logu16(int mode, int idrv, int* out);
+
+// K1's launch in the gradient step (the fourth template parameter): none
+// (the forward step), scalar stores from the registers, or bulk tensor
+// stores from the ring slot
+enum Save { NO_SAVE = 0, SAVE_SCALAR = 1, SAVE_BULK = 2 };
+
+// the state K1 keeps in the gradient step: the radiances, maxrand's
+// packed sub-streams and their slots a sweep, the per-g modes'
+// cloudy-layer words (uint16 halves of the uint32 words)
+struct Kept {
+    float* rads = nullptr;
+    float* packed = nullptr;
+    int npk = 0;
+    uint16_t* words = nullptr;
+};
+
+// K1 in float32 keeping the state (rtrn_save.cu): the store path chosen
+// from the shapes; its launch configuration (path SAVE_SCALAR or
+// SAVE_BULK); the path of `mode`'s last launch (NO_SAVE: none yet)
+cudaError_t launch_save(const Inputs& in, const int* ngb, const float* wg,
+                        float* out, int mode, int idrv, const Kept& kp,
+                        cudaStream_t s);
+cudaError_t info_save(int mode, int idrv, int path, int* out);
+int save_path(int mode);
 
 }  // namespace rt
 }  // namespace rrtm
@@ -179,9 +221,16 @@ struct Slot {
 // (bands, secants, sub-streams) lives here: at 128 registers a thread
 // (two blocks per SM) the radiances and the step's temporaries fill
 // them.
-template <int MODE, bool IDRV, int SPEC>
+// BULK (SAVE_BULK): the ring starts at a 128-byte boundary (128 bytes
+// more to align it) and a slot's stride is rounded to 128 bytes, so that
+// its TAU and FR tiles can be bulk copies' boxes.
+template <int MODE, bool IDRV, int SPEC, bool BULK = false>
 struct Layout {
     using S = Slot<MODE, SPEC>;
+    static constexpr int SLOT = BULK ? (S::BYTES + 127) / 128 * 128
+                                     : S::BYTES;
+    static_assert(!BULK || (S::TAU % 128 == 0 && S::FR % 128 == 0),
+                  "the TAU and FR tiles at 128-byte boundaries");
     static constexpr int NUP = IDRV ? 4 : 2;
     // maxrand: the cloudy, clear and correction sub-streams of every g,
     // and (SAVE) each thread's count of its column's kept layers
@@ -190,12 +239,14 @@ struct Layout {
     static constexpr int FIXED = 8 * 4 + 2 * NUP * KY * KX * 4 + 2 * KW * 4
                                  + 2 * KG * 4 + KNB * KX * 4 + SUB_BYTES
                                  + CNT_BYTES;
-    static constexpr int bytes(int ring) { return ring * S::BYTES + FIXED; }
+    static constexpr int bytes(int ring) {
+        return ring * SLOT + FIXED + (BULK ? 128 : 0);
+    }
     // four levels where two blocks of them fit on an SM, else three
     static constexpr int RING =
         BLOCKS_PER_SM * (bytes(4) + SMEM_RESERVED) <= SMEM_SM ? 4 : 3;
     static constexpr int BYTES = bytes(RING);
-    static constexpr int BAR = RING * S::BYTES;       // mbarriers (8 B each)
+    static constexpr int BAR = RING * SLOT;           // mbarriers (8 B each)
     static constexpr int PART = BAR + 8 * 4;
     static constexpr int CLYW = PART + 2 * NUP * KY * KX * 4;
     static constexpr int NGB = CLYW + 2 * KW * 4;
@@ -311,6 +362,22 @@ __device__ __forceinline__ Step staged_step(const unsigned char* s,
     return f;
 }
 
+// What K1 keeps in the gradient step besides rads and packed: the
+// per-g modes' cloudy-layer words and, SAVE_BULK, the tensor maps of
+// taut and fracs (L x 140 rows) and of rads (2 | 4 x L x 140 rows), boxes
+// of 16 columns x 140 rows
+struct KeptArgs {
+    CUtensorMap taut, fracs, rads;
+    uint16_t* words;
+};
+struct NoKept {};
+template <int SAVE>
+using KeptOf = std::conditional_t<SAVE == NO_SAVE, NoKept, KeptArgs>;
+
+// the thread that issues SAVE_BULK's bulk copies and writes the words:
+// lane 0 of the last warp (warps 0-1 reduce the flux partials)
+constexpr int ELECT = KT - 32;
+
 // SAVE (float32; the gradient step): the
 // kernel also writes the per-g radiances it sums into the flux rows to
 // rads (2 | 4, L, 140, B), row D the down radiance at level l after
@@ -321,23 +388,31 @@ __device__ __forceinline__ Step staged_step(const unsigned char* s,
 // does not restart them in that sweep, to packed (2, 3, npk, 140, B): a
 // column's k-th such layer in the sweep's order (down: from the top) at
 // slot k (slots past its count are left as they were); K6 reads them
-// back there.  Elsewhere rads and packed are not read.
-template <int MODE, bool IDRV, int SPEC, bool SAVE>
+// back there; fused and cldf-odcld the cloudy-layer words to kept.words
+// ((tiles of 32 columns, L) uint32).  Elsewhere rads and packed are not
+// read.
+template <int MODE, bool IDRV, int SPEC, int SAVE>
 __global__ void __launch_bounds__(KT, BLOCKS_PER_SM)
 rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
           const float* __restrict__ wg, float* __restrict__ out,
-          float* __restrict__ rads, float* __restrict__ packed, int npk) {
+          float* __restrict__ rads, float* __restrict__ packed, int npk,
+          __grid_constant__ const KeptOf<SAVE> kept) {
+    constexpr bool KEEP = SAVE != NO_SAVE;
+    constexpr bool BULK = SAVE == SAVE_BULK;
     using Sl = Slot<MODE, SPEC>;
-    using Lo = Layout<MODE, IDRV, SPEC>;
+    using Lo = Layout<MODE, IDRV, SPEC, BULK>;
     constexpr bool MR = MODE == MAXRAND;
     constexpr bool PERG = per_g_clouds(MODE);
     constexpr int ND = IDRV ? KGPT : 1;     // d/dT carries (idrv)
     constexpr int NUP = Lo::NUP;            // flux rows of the up sweep
     constexpr int RING = Lo::RING;
     constexpr int ES = Sl::ES;
-    static_assert(!SAVE || SPEC == rrtm::SPEC_F32,
+    static_assert(!KEEP || SPEC == rrtm::SPEC_F32,
                   "radiances are kept for K6 in float32 only");
-    extern __shared__ __align__(16) unsigned char smem[];
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned char* smem = smem_raw;
+    if constexpr (BULK)                     // the ring at a 128-byte boundary
+        smem += (128u - (smem_addr(smem_raw) & 127u)) & 127u;
     uint64_t* bar = reinterpret_cast<uint64_t*>(smem + Lo::BAR);
     float* part = reinterpret_cast<float*>(smem + Lo::PART);
     unsigned* clyw = reinterpret_cast<unsigned*>(smem + Lo::CLYW);
@@ -362,8 +437,11 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
     static_assert(KNB * KX == KT, "one secant a thread");
     secd_s[tid] = in.surf[(size_t)(tid / KX) * B + bt
                           + min(tid % KX, nvalid - 1)];
-    if (tid == 0)
-        for (int r = 0; r < RING; ++r) mbar_init(&bar[r], KT);
+    if (tid == 0) {
+        // SAVE_BULK: and the elected thread's bulk loads' arrival
+        for (int r = 0; r < RING; ++r) mbar_init(&bar[r], KT + BULK);
+        if constexpr (BULK) fence_mbarrier_init();
+    }
 
     // 16-byte copies of a full tile where each array's rows allow them
     const bool full = nvalid == KX;
@@ -392,13 +470,28 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
         const bool up = j >= L;
         const int l = up ? j - L : L - 1 - j;
         const int lev = up ? l + 1 : l;
-        unsigned char* s = smem + (j % RING) * Sl::BYTES;
-        const auto* taut = reinterpret_cast<const unsigned char*>(in.taut);
-        const auto* fracs = reinterpret_cast<const unsigned char*>(in.fracs);
-        const size_t gr = ((size_t)l * KG * Bz + bt) * ES;
+        unsigned char* s = smem + (j % RING) * Lo::SLOT;
         const int tid = opaque(threadIdx.y * KX + threadIdx.x);
-        stage<ES>(s + Sl::TAU, taut + gr, KG, Bz * ES, nvalid, v_spec, tid);
-        stage<ES>(s + Sl::FR, fracs + gr, KG, Bz * ES, nvalid, v_spec, tid);
+        if constexpr (BULK) {
+            // taut and fracs by bulk tensor loads, once the stores from
+            // the slot's tiles have read them
+            if (tid == ELECT) {
+                uint64_t* mb = &bar[j % RING];
+                mbar_arrive_expect_tx(mb, 2 * KG * KX * 4);
+                bulk_wait_all<true>();
+                tma_load_2d(s + Sl::TAU, &kept.taut, bt, l * KG, mb);
+                tma_load_2d(s + Sl::FR, &kept.fracs, bt, l * KG, mb);
+            }
+        } else {
+            const auto* taut = reinterpret_cast<const unsigned char*>(in.taut);
+            const auto* fracs =
+                reinterpret_cast<const unsigned char*>(in.fracs);
+            const size_t gr = ((size_t)l * KG * Bz + bt) * ES;
+            stage<ES>(s + Sl::TAU, taut + gr, KG, Bz * ES, nvalid, v_spec,
+                      tid);
+            stage<ES>(s + Sl::FR, fracs + gr, KG, Bz * ES, nvalid, v_spec,
+                      tid);
+        }
         auto band_rows = [&](int off, const float* p, int row0, int rows) {
             stage<4>(s + off,
                      reinterpret_cast<const unsigned char*>(
@@ -442,8 +535,8 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
         }
         mbar_arrive_copies(&bar[j % RING]);
     };
-    auto slot = [&](int j) -> const unsigned char* {
-        return smem + (j % RING) * Sl::BYTES;
+    auto slot = [&](int j) -> unsigned char* {
+        return smem + (j % RING) * Lo::SLOT;
     };
     auto wait_step = [&](int j) {
         mbar_wait(&bar[j % RING], (unsigned)(j / RING) & 1u);
@@ -466,12 +559,28 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
     };
     // the column's flag at step j: the OR of the warps' ballots, whose
     // lanes 16-31 hold the odd g-lanes of the same 16 columns
-    auto cloudy_step = [&](int j) {
+    auto cloudy_word = [&](int j) {
         unsigned w = 0u;
 #pragma unroll
         for (int i = 0; i < KW; ++i) w |= clyw[(j & 1) * KW + i];
-        w |= w >> 16;
-        return ((w >> tx) & 1u) != 0u;
+        return w | (w >> 16);
+    };
+    auto cloudy_step = [&](int j) {
+        return ((cloudy_word(j) >> tx) & 1u) != 0u;
+    };
+    // SAVE, fused and cldf-odcld: the block's half of its tile's word at
+    // down step j's layer (the last block of an odd count: the whole
+    // word, its high half zero)
+    auto put_word = [&](int j) {
+        if constexpr (KEEP) {
+            const unsigned w = cloudy_word(j) & 0xffffu;
+            const int u = blockIdx.x;
+            const size_t wi = (size_t)(u >> 1) * L + (L - 1 - j);
+            if ((u & 1) == 0 && u + 1 == (int)gridDim.x)
+                reinterpret_cast<unsigned*>(kept.words)[wi] = w;
+            else
+                kept.words[2 * wi + (u & 1)] = (uint16_t)w;
+        }
     };
     // sum the g-lanes' partials p (nrow rows) of each column in a fixed
     // order into flux rows r[0..nrow) at level lev
@@ -517,15 +626,41 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
         return sub[(q * KGPT + k) * KT + tid];
     };
     // SAVE: radiance row `row` (D or U) of g-point k of this thread at
-    // layer l, and in a cloudy mode its clear twin at row + 2; valid
-    // columns only
-    auto save = [&](int row, int l, int k) {
-        if (valid) {
+    // layer l, and in a cloudy mode its clear twin at row + 2.
+    // SAVE_SCALAR: to rads, valid columns only; SAVE_BULK: over this
+    // thread's own cells of the step's TAU and FR tiles in slot s (lanes
+    // past the ragged edge write cells no one reads, and the store clips)
+    auto save = [&](int row, int l, int k, unsigned char* s) {
+        if constexpr (BULK) {
+            const int i = (ty + k * KY) * KX + tx;
+            reinterpret_cast<float*>(s + Sl::TAU)[i] = rad[k];
+            if constexpr (MODE != CLEAR)
+                reinterpret_cast<float*>(s + Sl::FR)[i] = radc[k];
+        } else if (valid) {
             const size_t lgb = (size_t)L * KG * Bz;
             float* p = rads + row * lgb
                        + ((size_t)l * KG + ty + k * KY) * Bz + b;
             *p = rad[k];
             if constexpr (MODE != CLEAR) p[2 * lgb] = radc[k];
+        }
+    };
+    // SAVE_BULK, the elected thread: step j's tiles to rads by bulk tensor
+    // stores, one bulk group (row D of the down sweep's layer, U of the
+    // up sweep's, and their clear twins two planes on)
+    auto store_step = [&](int j) {
+        if constexpr (BULK) {
+            if (tid != ELECT) return;
+            const bool up = j >= L;
+            const int l = up ? j - L : L - 1 - j;
+            const unsigned char* s = slot(j);
+            // the L2's normal policy (evict first measured no faster,
+            // k1save_variants "evict")
+            const uint64_t pol = l2_policy(false);
+            const int y = ((up ? 1 : 0) * L + l) * KG;
+            tma_store_2d(&kept.rads, s + Sl::TAU, bt, y, pol);
+            if constexpr (MODE != CLEAR)
+                tma_store_2d(&kept.rads, s + Sl::FR, bt, y + 2 * L * KG, pol);
+            bulk_commit();
         }
     };
     // SAVE, maxrand: the sub-streams of g-point k entering the layer, at
@@ -546,7 +681,7 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
 #pragma unroll
             for (int k = 0; k < KGPT; ++k)
                 subs(0, k) = subs(1, k) = subs(2, k) = 0.0f;
-            if constexpr (SAVE) cnt[tid] = 0;
+            if constexpr (KEEP) cnt[tid] = 0;
         }
     };
     zero_subs();
@@ -573,15 +708,18 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
         };
         prologue(j0, L);
         for (int j = j0; j < j0 + L; ++j) {
+            if (j > j0) store_step(j - 1);
             if (UPW || j > j0) flush(j - 1);
             if (j + RING - 1 < j0 + L) stage_step(j + RING - 1);
             const int l = UPW ? j - L : L - 1 - j;
-            const unsigned char* s = slot(j);
+            unsigned char* s = slot(j);
             bool cly = false, ist = false;
             float cw0 = 0.0f, cw1 = 0.0f, cf = 0.0f, fac[6];
             const float* cld = reinterpret_cast<const float*>(s + Sl::CLD);
             if constexpr (PERG) {
                 cly = cloudy_step(j);
+                if constexpr (KEEP && MODE != COMPACT && !UPW)
+                    if (tid == ELECT) put_word(j);
                 if constexpr (MODE == COMPACT) {
                     const float* cw =
                         reinterpret_cast<const float*>(s + Sl::CW);
@@ -615,15 +753,20 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
                     const Step f = staged_step<MODE, SPEC, CL>(
                         s, in, l, g, bd, secd_s[bd * KX + c], cfg, cw0, cw1,
                         c, b);
-                    if constexpr (SAVE && UPW) save(1, l, k);  // entering l
-                    if constexpr (SAVE && MR)
+                    // SAVE_BULK, the ragged tile: the lanes past its edge
+                    // read column nvalid - 1's cells of this g before that
+                    // column's lane writes over them
+                    if constexpr (BULK)
+                        if (!full) __syncwarp();
+                    if constexpr (KEEP && UPW) save(1, l, k, s);  // entering l
+                    if constexpr (KEEP && MR)
                         if (cly && !ist) save_subs(UPW, k);
                     if constexpr (MR)
                         advance_mr(rad[k], radc[k], subs(0, k), subs(1, k),
                                    subs(2, k), f, CL && cly, twin, ist, fac);
                     else
                         advance(rad[k], radc[k], f, CL && cly, twin);
-                    if constexpr (SAVE && !UPW) save(0, l, k);  // level l
+                    if constexpr (KEEP && !UPW) save(0, l, k, s);  // level l
                     sacc[0] += wg_s[g] * rad[k];
                     sacc[1] += wg_s[g] * radc[k];
                     if constexpr (UPW && IDRV) {
@@ -638,15 +781,18 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
                 steps(std::true_type{});
             else
                 steps(std::false_type{});
-            if constexpr (SAVE && MR)
+            if constexpr (KEEP && MR)
                 if (cly && !ist) ++cnt[tid];
             put_part(j, sacc);
             if (j + 1 < j0 + L) {
                 wait_step(j + 1);
                 ballot_step(j + 1);
             }
+            // SAVE_BULK: the tiles written before the stores read them
+            if constexpr (BULK) fence_proxy_async_smem();
             __syncthreads();
         }
+        store_step(j0 + L - 1);
         flush(j0 + L - 1);
     };
 
@@ -689,72 +835,64 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
     // any cloudy layer in the column: maxrand reads iclddn of layer 0
     sweep(std::true_type{},
           MR ? in.cld[(size_t)R_ICLDDN * Bz + b] > 0.0f : icl);
+    // SAVE_BULK: the stores done before the block's shared memory goes
+    if constexpr (BULK)
+        if (tid == ELECT) bulk_wait_all<false>();
+}
+
+// the dynamic shared memory of an instantiation
+template <int MODE, bool IDRV, int SPEC, int SAVE>
+constexpr int kernel_smem() {
+    return Layout<MODE, IDRV, SPEC, SAVE == SAVE_BULK>::BYTES;
 }
 
 // the shared memory attributes of an instantiation, set once per process
-template <int MODE, bool IDRV, int SPEC, bool SAVE>
+template <int MODE, bool IDRV, int SPEC, int SAVE>
 cudaError_t prepare() {
-    static const cudaError_t e = tile_smem(
-        rt_kernel<MODE, IDRV, SPEC, SAVE>, Layout<MODE, IDRV, SPEC>::BYTES);
+    static const cudaError_t e =
+        tile_smem(rt_kernel<MODE, IDRV, SPEC, SAVE>,
+                  kernel_smem<MODE, IDRV, SPEC, SAVE>());
     return e;
 }
 
-// the state K1 keeps in the gradient step (SAVE): the radiances and,
-// maxrand, the packed sub-streams and their slots a sweep
-struct Kept {
-    float* rads = nullptr;
-    float* packed = nullptr;
-    int npk = 0;
-};
-
-template <int MODE, bool IDRV, int SPEC, bool SAVE>
+template <int MODE, bool IDRV, int SPEC, int SAVE>
 cudaError_t launch(const KernelInputs<SPEC>& in, const int* ngb,
                    const float* wg, float* out, const Kept& kp,
-                   cudaStream_t s) {
+                   const KeptOf<SAVE>& ka, cudaStream_t s) {
     cudaError_t e = prepare<MODE, IDRV, SPEC, SAVE>();
     if (e != cudaSuccess) return e;
     const dim3 block(KX, KY);
     const dim3 grid((in.B + KX - 1) / KX);
     rt_kernel<MODE, IDRV, SPEC, SAVE>
-        <<<grid, block, Layout<MODE, IDRV, SPEC>::BYTES, s>>>(
-            in, ngb, wg, out, kp.rads, kp.packed, kp.npk);
+        <<<grid, block, kernel_smem<MODE, IDRV, SPEC, SAVE>(), s>>>(
+            in, ngb, wg, out, kp.rads, kp.packed, kp.npk, ka);
     return cudaGetLastError();
 }
 
-// K1 at idrv; with kp.rads (float32 only) the instantiation that also
-// keeps the state (maxrand: with kp.packed, at least one slot)
+// K1 at idrv as the forward step runs it
 template <int MODE, int SPEC>
 cudaError_t launch(const KernelInputs<SPEC>& in, const int* ngb,
-                   const float* wg, float* out, int idrv, const Kept& kp,
-                   cudaStream_t s) {
-    if constexpr (SPEC == rrtm::SPEC_F32) {
-        if (kp.rads) {
-            if (MODE == MAXRAND && (!kp.packed || kp.npk < 1))
-                return cudaErrorInvalidValue;
-            return idrv
-                ? launch<MODE, true, SPEC, true>(in, ngb, wg, out, kp, s)
-                : launch<MODE, false, SPEC, true>(in, ngb, wg, out, kp, s);
-        }
-    }
-    if (kp.rads) return cudaErrorInvalidValue;
-    return idrv ? launch<MODE, true, SPEC, false>(in, ngb, wg, out, kp, s)
-                : launch<MODE, false, SPEC, false>(in, ngb, wg, out, kp, s);
+                   const float* wg, float* out, int idrv, cudaStream_t s) {
+    return idrv ? launch<MODE, true, SPEC, NO_SAVE>(in, ngb, wg, out, Kept{},
+                                                    NoKept{}, s)
+                : launch<MODE, false, SPEC, NO_SAVE>(in, ngb, wg, out,
+                                                     Kept{}, NoKept{}, s);
 }
 
 // the launch configuration of an instantiation (tile_info)
-template <int MODE, bool IDRV, int SPEC, bool SAVE>
+template <int MODE, bool IDRV, int SPEC, int SAVE>
 cudaError_t info(int* out) {
-    using Lo = Layout<MODE, IDRV, SPEC>;
     cudaError_t e = prepare<MODE, IDRV, SPEC, SAVE>();
     if (e != cudaSuccess) return e;
-    return tile_info(rt_kernel<MODE, IDRV, SPEC, SAVE>, Lo::BYTES, Lo::RING,
-                     out);
+    return tile_info(rt_kernel<MODE, IDRV, SPEC, SAVE>,
+                     kernel_smem<MODE, IDRV, SPEC, SAVE>(),
+                     Layout<MODE, IDRV, SPEC, SAVE == SAVE_BULK>::RING, out);
 }
 
 template <int MODE, int SPEC>
 cudaError_t info(int idrv, int* out) {
-    return idrv ? info<MODE, true, SPEC, false>(out)
-                : info<MODE, false, SPEC, false>(out);
+    return idrv ? info<MODE, true, SPEC, NO_SAVE>(out)
+                : info<MODE, false, SPEC, NO_SAVE>(out);
 }
 
 template <int SPEC>
@@ -770,44 +908,42 @@ cudaError_t info_storage(int mode, int idrv, int* out) {
     }
 }
 
-// K1 in `mode` (enum Mode) with taut / fracs in storage SPEC; checks
-// that the mode's cloud inputs (and, in reduced storage, taua) are given;
-// kp.rads non-null: the instantiation that keeps the state (float32;
-// cudaErrorInvalidValue in reduced storage)
+// are the cloud inputs of `mode` given
+inline bool clouds_given(const Inputs& in, int mode) {
+    switch (mode) {
+    case CLEAR: return true;
+    case COMPACT: return in.mask && in.cw && in.abi && in.abl;
+    case BANDED:
+    case MAXRAND: return in.cld && in.taucb;
+    case FUSED:
+        return in.cldf && in.ciwp && in.clwp && in.tauc && in.abi && in.abl;
+    case CLDF_OD: return in.cldf && in.tauc;
+    default: return false;
+    }
+}
+
+// K1 in `mode` (enum Mode) with taut / fracs in storage SPEC, as the
+// forward step runs it; checks that the mode's cloud inputs (and, in
+// reduced storage, taua) are given
 template <int SPEC>
 cudaError_t launch_storage(const Inputs& inputs, const float* taua,
                            const int* ngb, const float* wg, float* out,
-                           int mode, int idrv, cudaStream_t s,
-                           const Kept& kp = Kept{}) {
+                           int mode, int idrv, cudaStream_t s) {
     KernelInputs<SPEC> in;
     static_cast<Inputs&>(in) = inputs;
     if constexpr (SPEC != rrtm::SPEC_F32) {
         if (!taua) return cudaErrorInvalidValue;
         in.taua = taua;
     }
+    if (!clouds_given(in, mode)) return cudaErrorInvalidValue;
     switch (mode) {
-    case CLEAR:
-        return launch<CLEAR, SPEC>(in, ngb, wg, out, idrv, kp, s);
-    case COMPACT:
-        if (!in.mask || !in.cw || !in.abi || !in.abl)
-            return cudaErrorInvalidValue;
-        return launch<COMPACT, SPEC>(in, ngb, wg, out, idrv, kp, s);
-    case BANDED:
-        if (!in.cld || !in.taucb) return cudaErrorInvalidValue;
-        return launch<BANDED, SPEC>(in, ngb, wg, out, idrv, kp, s);
-    case MAXRAND:
-        if (!in.cld || !in.taucb) return cudaErrorInvalidValue;
-        return launch<MAXRAND, SPEC>(in, ngb, wg, out, idrv, kp, s);
-    case FUSED:
-        if (!in.cldf || !in.ciwp || !in.clwp || !in.tauc || !in.abi
-            || !in.abl)
-            return cudaErrorInvalidValue;
-        return launch<FUSED, SPEC>(in, ngb, wg, out, idrv, kp, s);
-    case CLDF_OD:
-        if (!in.cldf || !in.tauc) return cudaErrorInvalidValue;
-        return launch<CLDF_OD, SPEC>(in, ngb, wg, out, idrv, kp, s);
-    default:
-        return cudaErrorInvalidValue;
+    case CLEAR: return launch<CLEAR, SPEC>(in, ngb, wg, out, idrv, s);
+    case COMPACT: return launch<COMPACT, SPEC>(in, ngb, wg, out, idrv, s);
+    case BANDED: return launch<BANDED, SPEC>(in, ngb, wg, out, idrv, s);
+    case MAXRAND: return launch<MAXRAND, SPEC>(in, ngb, wg, out, idrv, s);
+    case FUSED: return launch<FUSED, SPEC>(in, ngb, wg, out, idrv, s);
+    case CLDF_OD: return launch<CLDF_OD, SPEC>(in, ngb, wg, out, idrv, s);
+    default: return cudaErrorInvalidValue;
     }
 }
 

@@ -26,8 +26,9 @@ and ``rt_sweep_maxrand_vjp`` are those of the maxrand gradient's kernels
 (K1 keeping its state, K6 maxrand), and ``rt_sweep_banded(...,
 radiances=True)``, ``rt_sweep_blocked(..., radiances=True)`` with per-g
 fields, ``rt_sweep_banded_vjp`` and ``rt_sweep_g_vjp`` those of the
-banded, fused and cldf-odcld gradient's (K1 keeping its radiances, K6 in
-those modes).
+banded, fused and cldf-odcld gradient's (K1 keeping its radiances and,
+fused and cldf-odcld, the cloudy-layer words ``cloudy_words`` packs; K6
+in those modes).
 
 The ``rt_fluxes_*`` functions take ``taua_t`` (L, 16, B) with taut_t and
 fracs_t in reduced spectral storage (``spec_codec``): they decode them
@@ -44,6 +45,7 @@ import torch
 
 from ..constants import (FLUXFAC, REC_6, SECDIFF_A0, SECDIFF_A1, SECDIFF_A2,
                          SECDIFF_FIXED, WTDIFF)
+from ..types import NGPT
 from ._autograd import plain_vjp
 from .cldprop import CLDMIN, cldprmc_od
 from .spec_codec import spec_inputs
@@ -469,7 +471,10 @@ def rt_sweep_blocked(taut_t, fracs_t, planklay_t, planklev_t, surf, ngb0,
     radiances the sweep sums into flux rows at levels 0..L-1: the down
     radiance at level l, the up radiance entering layer l (l = 0: after
     the surface reflection) and, with clouds, their clear twins; the
-    plain version of ``rtrn_cuda.rt_sweep_radiances``, what K6 reads."""
+    plain version of ``rtrn_cuda.rt_sweep_radiances``, what K6 reads.
+    In the per-g modes (cldf-odcld, fused) also the cloudy-layer words
+    of the cloud fraction (``cloudy_words``): (the fluxes, rads, words),
+    the plain version of ``rtrn_cuda.rt_sweep_g_radiances``."""
     ngb0l = ngb0.long()
     taut = _tb(taut_t)
     cldf_g, odcld_g, gate = _g_clouds(cloud_fields, taut, ngb0l)
@@ -481,8 +486,28 @@ def rt_sweep_blocked(taut_t, fracs_t, planklay_t, planklev_t, surf, ngb0,
     if not radiances:
         return torch.stack(res).permute(0, 2, 1).contiguous()
     fluxes, rads = res
-    return (torch.stack(fluxes).permute(0, 2, 1).contiguous(),
-            rads[:2 if cloud_fields is None else 4].contiguous())
+    out = (torch.stack(fluxes).permute(0, 2, 1).contiguous(),
+           rads[:2 if cloud_fields is None else 4].contiguous())
+    if cloud_fields is not None and len(cloud_fields) in (2, 6):
+        return (*out, cloudy_words(cloud_fields[0]))
+    return out
+
+
+def cloudy_words(cldf_t):
+    """The cloudy layers of per-g cloud fractions cldf_t (L, 144, B), a
+    layer cloudy for a column where any of its 140 g-points has cldf >=
+    0.5 (the gate of K1 and K6 in the fused and cldf-odcld modes), packed
+    as K1 keeps them for K6: int32 ((B + 31) // 32, L), bit c of word (t,
+    l) column 32 t + c at layer l, zero past column B - 1."""
+    L, _, B = cldf_t.shape
+    n = (B + 31) // 32
+    cloudy = (cldf_t[:, :NGPT] >= 0.5).any(dim=1)            # (L, B)
+    bits = torch.zeros((L, n * 32), dtype=torch.int64, device=cldf_t.device)
+    bits[:, :B] = cloudy
+    shift = torch.arange(32, dtype=torch.int64, device=cldf_t.device)
+    words = (bits.view(L, n, 32) << shift).sum(dim=-1)        # < 2**32
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return words.to(torch.int32).t().contiguous()
 
 
 def _band_layouts(taut_t, fracs_t, planklay_t, planklev_t, surf, taucb_t,

@@ -16,8 +16,12 @@ back in the backward instead of sweeping forward again.  ``RTSweepFn``
 holds the other four modes and does the same (maxrand:
 ``rt_sweep_maxrand_radiances``, the sub-streams kept too, packed, and
 ``rt_sweep_maxrand_vjp``; banded, fused, cldf-odcld:
-``rt_sweep_g_radiances``, ``rt_sweep_banded_vjp`` and
-``rt_sweep_g_vjp``).  With idrv=1 (a fourth
+``rt_sweep_g_radiances``, in fused and cldf-odcld with the cloudy-layer
+words K6 reads there, ``rt_sweep_banded_vjp`` and
+``rt_sweep_g_vjp``).  K1's gradient-step launch writes the radiances by
+bulk tensor stores where B is a multiple of 4 (its rows 16-byte
+aligned), by scalar stores otherwise (``k1_save_path``).  With idrv=1 (a
+fourth
 surface row, ``dplankbnd_dt``) each returns the fluxes and their
 derivatives with respect to the surface temperature (2, L+1, B); on the
 card a cotangent of the latter raises.  On a CUDA tensor each
@@ -103,10 +107,11 @@ def _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t,
 def _launch(mode, wrapper, taut_t, fracs_t, planklay_t, planklev_t, surf,
             ngb0, wg, mask=None, cw=None, abi=None, abl=None, cld=None,
             taucb=None, cldf=None, ciwp=None, clwp=None, tauc=None,
-            taua=None, rads=None, subs=None):
+            taua=None, rads=None, subs=None, words=None):
     """K1 in ``mode``, in the storage of taut_t; counted on ``wrapper``
     (and on ``wrapper.save`` when it writes the radiances to ``rads``;
-    maxrand: the packed sub-streams to ``subs``).  -> (4|6, L+1, B)."""
+    maxrand: the packed sub-streams to ``subs``; fused, cldf-odcld: the
+    cloudy-layer words to ``words``).  -> (4|6, L+1, B)."""
     L, _, B = taut_t.shape
     idrv = surf.shape[0] == 4
     out = torch.empty((6 if idrv else 4, L + 1, B), dtype=torch.float32,
@@ -115,7 +120,7 @@ def _launch(mode, wrapper, taut_t, fracs_t, planklay_t, planklev_t, surf,
     _build.launch("rrtm_rt", taut_t, fracs_t, planklay_t, planklev_t, surf,
                   ngb0, wg, mask, cw, abi, abl, cld, taucb, cldf, ciwp, clwp,
                   tauc, taua, out, L, B, MODES[mode], int(idrv), spec, rads,
-                  subs, 0 if subs is None else subs.shape[2])
+                  subs, 0 if subs is None else subs.shape[2], words)
     wrapper.launches += 1
     if idrv:
         wrapper.idrv.launches += 1
@@ -221,19 +226,22 @@ def rt_sweep_maxrand_radiances(taut_t, fracs_t, planklay_t, planklev_t,
 def rt_sweep_g_radiances(mode, taut_t, fracs_t, planklay_t, planklev_t,
                          surf, clouds, ngb0, wg):
     """K1 in the banded, fused or cldf-odcld ``mode`` in float32, keeping
-    its per-g radiances: -> (fluxes (4|6, L+1, B), rads (4, L, 140, B)),
-    rads as ``rt_sweep_radiances``' compact ones (D, U and their clear
-    twins): what K6 in that mode (``rt_sweep_banded_vjp``,
-    ``rt_sweep_g_vjp``) reads.  The fluxes are bitwise those of the launch
-    without them.  ``clouds`` as ``CLOUD_INPUTS[mode]``; on a CPU tensor
-    the plain version (``rtrn.rt_sweep_banded`` or
-    ``rtrn.rt_sweep_blocked`` with ``radiances=True``).  Counted on
-    ``WRAPPERS[mode]`` and its ``.save``."""
+    its per-g radiances: -> (fluxes (4|6, L+1, B), rads (4, L, 140, B),
+    words), rads as ``rt_sweep_radiances``' compact ones (D, U and their
+    clear twins), words (fused, cldf-odcld) the cloudy-layer words of
+    the per-g cloud fraction, int32 ((B + 31) // 32, L)
+    (``rtrn.cloudy_words``; None in banded): what K6 in that mode
+    (``rt_sweep_banded_vjp``, ``rt_sweep_g_vjp``) reads.  The fluxes are
+    bitwise those of the launch without them.  ``clouds`` as
+    ``CLOUD_INPUTS[mode]``; on a CPU tensor the plain version
+    (``rtrn.rt_sweep_banded`` or ``rtrn.rt_sweep_blocked`` with
+    ``radiances=True``).  Counted on ``WRAPPERS[mode]`` and its
+    ``.save``."""
     x = (taut_t, fracs_t, planklay_t, planklev_t, surf)
     if taut_t.device.type == "cpu":
         if mode == "banded":
-            return rtrn.rt_sweep_banded(*x, *clouds, ngb0, wg,
-                                        radiances=True)
+            return (*rtrn.rt_sweep_banded(*x, *clouds, ngb0, wg,
+                                          radiances=True), None)
         return rtrn.rt_sweep_blocked(*x, ngb0, wg, tuple(clouds),
                                      radiances=True)
     if taut_t.dtype != torch.float32:
@@ -243,9 +251,11 @@ def rt_sweep_g_radiances(mode, taut_t, fracs_t, planklay_t, planklev_t,
     _check_clouds(mode, clouds, L, B, taut_t.device)
     rads = torch.empty((4, L, NGPT, B), dtype=torch.float32,
                        device=taut_t.device)
+    words = None if mode == "banded" else torch.empty(
+        ((B + 31) // 32, L), dtype=torch.int32, device=taut_t.device)
     out = _launch(mode, WRAPPERS[mode], *x, ngb0, wg, rads=rads,
-                  **_cloud_kw(mode, clouds))
-    return out, rads
+                  words=words, **_cloud_kw(mode, clouds))
+    return out, rads, words
 
 
 def _cloud_kw(mode, clouds):
@@ -369,7 +379,8 @@ class RTSweepFn(torch.autograd.Function):
     maxrand, fused or cldf-odcld mode, ``clouds`` as
     ``CLOUD_INPUTS[mode]``, taua_t None in float32 storage.  Backward:
     the plain vjp on the CPU; on the card K6 in the mode, fed
-    the radiances (maxrand: the state) K1 kept where an input needs a
+    the radiances (maxrand: the state; fused, cldf-odcld: and the
+    cloudy-layer words) K1 kept where an input needs a
     gradient and ``grad_enabled``, ``torch.is_grad_enabled()`` at the
     call, holds (maxrand: K from ``kept``, a ``KeptCount`` or None, as
     ``rt_sweep_maxrand_radiances``); a cotangent of d/dT raises; in
@@ -393,6 +404,8 @@ class RTSweepFn(torch.autograd.Function):
             else:
                 out, *state = rt_sweep_g_radiances(mode, *x[:5], x[5:],
                                                    ngb0, wg)
+                if state[1] is None:        # banded: no words
+                    state = state[:1]
             ctx.nstate = len(state)
             ctx.save_for_backward(ngb0, wg, *x, *state)
             return rtrn.split_ddt(out)
@@ -597,9 +610,11 @@ def k6_mr_scratch(L, B, device, lib=None):
             torch.empty(n[1], dtype=torch.float32, device=device))
 
 
-def _launch_bwd_g(mode, counters, x, clouds, ngb0, wg, ct, needs, rads):
+def _launch_bwd_g(mode, counters, x, clouds, ngb0, wg, ct, needs, rads,
+                  words=None):
     """K6 in the banded, fused or cldf-odcld ``mode`` on the card
-    (csrc/rtrn_bwd_g.cu), counted on each of ``counters``: -> the
+    (csrc/rtrn_bwd_g.cu), fed K1's radiances and (fused, cldf-odcld)
+    cloudy-layer words, counted on each of ``counters``: -> the
     cotangents of (*x, *clouds), None where ``needs`` is False."""
     L, B = _check(*x, None, None, None, None, ngb0, wg, surf_rows=(3,))
     dev = x[0].device
@@ -610,10 +625,16 @@ def _launch_bwd_g(mode, counters, x, clouds, ngb0, wg, ct, needs, rads):
                          "kept on the same inputs (rads, from "
                          "rt_sweep_g_radiances): K6 runs no forward sweep")
     _build.check(rads, "rads", torch.float32, (4, L, NGPT, B), dev)
+    if mode != "banded":
+        if words is None:
+            raise ValueError(f"K6 ({mode}) on the card reads the cloudy-layer "
+                             "words K1 kept with the radiances (words, from "
+                             "rt_sweep_g_radiances)")
+        _build.check(words, "words", torch.int32, ((B + 31) // 32, L), dev)
     grads = [torch.empty_like(t) for t in (*x, *clouds)]
     pad = (None,) * (6 - len(clouds))
     _build.launch("rrtm_rt_bwd_g", *x, ngb0, wg, *clouds, *pad, ct, rads,
-                  *grads, *pad, *k6_g_scratch(mode, L, B, dev), L, B,
+                  *grads, *pad, words, *k6_g_scratch(mode, L, B, dev), L, B,
                   MODES[mode])
     for c in counters:
         c.launches += 1
@@ -624,17 +645,14 @@ def k6_g_scratch(mode, L, B, device, lib=None):
     """The scratch of K6 in the banded, fused or cldf-odcld ``mode`` at L
     layers and B columns, as ``rrtm_rt_bwd_g_scratch`` of ``lib`` (default
     the package's library) sizes it: (zeroed int32 counters, the tickets'
-    then one per column tile; the per-g modes' cloudy-layer words (int32)
-    or None; banded's cloud-fraction shares (float32) where they do not
-    fit shared memory, or None)."""
-    n = (ctypes.c_int * 4)()
+    then, banded, one per column tile; banded's cloud-fraction shares
+    (float32) where they do not fit shared memory, or None)."""
+    n = (ctypes.c_int * 3)()
     lib = lib or _build.library()
     lib.rrtm_rt_bwd_g_scratch(MODES[mode], int(L), int(B),
                               ctypes.cast(n, ctypes.c_void_p))
-    part = n[2] * n[3]
+    part = n[1] * n[2]
     return (torch.zeros(n[0], dtype=torch.int32, device=device),
-            torch.empty(n[1], dtype=torch.int32, device=device)
-            if n[1] else None,
             torch.empty(part, dtype=torch.float32, device=device)
             if part else None)
 
@@ -658,17 +676,17 @@ def rt_sweep_banded_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
 
 
 def rt_sweep_g_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, fields,
-                   ngb0, wg, ct, needs=None, rads=None):
+                   ngb0, wg, ct, needs=None, rads=None, words=None):
     """K6 in the fused or cldf-odcld mode (csrc/rtrn_bwd_g.cu; the mode
     by the number of per-g ``fields``, as ``rtrn.rt_sweep_blocked``'s):
     flux cotangents ct (4, L+1, B) -> cotangents of (taut_t, fracs_t,
     planklay_t, planklev_t, surf (3, 16, B), *fields), the pad rows
     140-143 of the (L, 144, B) ones zero, None where ``needs`` (default
-    all) is False.  On the card it reads ``rads``, the radiances K1 kept
-    on the same inputs (``rt_sweep_g_radiances``), and raises without
-    them; the plain vjp (CPU tensors, ``rtrn.rt_sweep_g_vjp``) does not
-    read them.  Counted in ``.launches`` and in ``.fused.launches`` or
-    ``.cldf_od.launches``."""
+    all) is False.  On the card it reads ``rads`` and ``words``, the
+    radiances and cloudy-layer words K1 kept on the same inputs
+    (``rt_sweep_g_radiances``), and raises without them; the plain vjp
+    (CPU tensors, ``rtrn.rt_sweep_g_vjp``) does not read them.  Counted in
+    ``.launches`` and in ``.fused.launches`` or ``.cldf_od.launches``."""
     x = (taut_t, fracs_t, planklay_t, planklev_t, surf)
     fields = tuple(fields)
     if needs is None:
@@ -678,7 +696,7 @@ def rt_sweep_g_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, fields,
     mode = {6: "fused", 2: "cldf_od"}[len(fields)]
     return _launch_bwd_g(mode, (rt_sweep_g_vjp, getattr(rt_sweep_g_vjp,
                                                         mode)),
-                         x, fields, ngb0, wg, ct, needs, rads)
+                         x, fields, ngb0, wg, ct, needs, rads, words)
 
 
 K1_INFO = ("registers", "local_bytes", "static_smem", "dynamic_smem",
@@ -696,14 +714,29 @@ def _launch_info(entry, *args):
     return dict(zip(K1_INFO, buf))
 
 
-def k1_info(mode, idrv, spec_dtype=torch.float32, save=False):
+# the store paths of K1's gradient-step launch (csrc/rtrn_kernel.cuh enum
+# Save): bulk tensor stores from shared memory, scalar stores
+SAVE_PATHS = {"scalar": 1, "bulk": 2}
+
+
+def k1_info(mode, idrv, spec_dtype=torch.float32, save=None):
     """K1's launch configuration in ``mode`` (a ``MODES`` key) at idrv
-    0/1 with taut in ``spec_dtype`` (``save``: the instantiation that
-    keeps the radiances, float32 only):
-    ``K1_INFO`` -> int, from the CUDA runtime (``cudaFuncGetAttributes``,
+    0/1 with taut in ``spec_dtype`` (``save``: a ``SAVE_PATHS`` key, the
+    instantiation that keeps the radiances by that store path, float32
+    only): ``K1_INFO`` -> int, from the CUDA runtime
+    (``cudaFuncGetAttributes``,
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the card."""
     return _launch_info("rrtm_rt_info", MODES[mode], int(idrv),
-                        SPEC_CODES[spec_dtype], int(save))
+                        SPEC_CODES[spec_dtype],
+                        SAVE_PATHS[save] if save else 0)
+
+
+def k1_save_path(mode):
+    """The store path (a ``SAVE_PATHS`` key) of the last launch of K1
+    keeping the radiances in ``mode`` in this process, or None; needs the
+    card."""
+    code = _build.library().rrtm_rt_save_path(MODES[mode])
+    return {v: k for k, v in SAVE_PATHS.items()}.get(code)
 
 
 def k6_info(cloudy):

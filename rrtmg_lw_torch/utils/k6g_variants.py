@@ -141,13 +141,34 @@ VARIANTS = {
 }
 
 
+def _scratch(lib, mode, L, B, words, device):
+    """The pointers of ``lib``'s scratch arguments: a library that reads
+    K1's cloudy-layer words (its scratch sizes three ints: count, tpart's
+    blocks and floats) takes (words, count, tpart); one that forms them
+    itself (four: count, tflags, tpart's) takes (count, tflags, tpart)."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import MODES as K1_MODES
+    n = (ctypes.c_int * 4)(-1, -1, -1, -1)
+    lib.rrtm_rt_bwd_g_scratch(K1_MODES[mode], L, B,
+                              ctypes.cast(n, ctypes.c_void_p))
+    count = torch.zeros(n[0], dtype=torch.int32, device=device)
+    words_here = n[3] < 0
+    npart = n[1] * n[2] if words_here else n[2] * n[3]
+    part = torch.empty(npart, dtype=torch.float32, device=device)
+    keep = [count, part]                # alive until the launch
+    ptrs = [count.data_ptr(), part.data_ptr() if npart else None]
+    if words_here:
+        return [None if words is None else words.data_ptr()] + ptrs, keep
+    flags = torch.empty(n[1], dtype=torch.int32, device=device)
+    keep.append(flags)
+    return [ptrs[0], flags.data_ptr() if n[1] else None, ptrs[1]], keep
+
+
 def run(lib, case):
     """K6-g of ``lib`` on a case (mode, x (taut_t, fracs_t, planklay_t,
-    planklev_t, surf), the mode's clouds, ngb0, wg, ct, rads): its
+    planklev_t, surf), the mode's clouds, ngb0, wg, ct, rads, words): its
     outputs in ``rt_sweep_banded_vjp`` / ``rt_sweep_g_vjp``'s order."""
     from rrtmg_lw_torch.ops.rtrn_cuda import MODES as K1_MODES
-    from rrtmg_lw_torch.ops.rtrn_cuda import k6_g_scratch
-    mode, x, clouds, ngb0, wg, ct, rads = case
+    mode, x, clouds, ngb0, wg, ct, rads, words = case
     zero = hasattr(lib, "rrtm_rt_bwd_g_needs_zeros")
     grads = [torch.zeros_like(t) if zero and t.dim() == 3
              and t.shape[1] == 144 else torch.empty_like(t)
@@ -158,8 +179,8 @@ def run(lib, case):
     ptrs += [g.data_ptr() for g in grads] + pad
     L, _, B = x[0].shape
     if hasattr(lib, "rrtm_rt_bwd_g_scratch"):
-        scratch = k6_g_scratch(mode, L, B, x[0].device, lib=lib)
-        ptrs += [None if t is None else t.data_ptr() for t in scratch]
+        sptrs, scratch = _scratch(lib, mode, L, B, words, x[0].device)
+        ptrs += sptrs
     else:
         # a first-design library: no scratch (its entry's own signature)
         lib.rrtm_rt_bwd_g.argtypes = [ctypes.c_void_p] * 26 + [
@@ -174,12 +195,12 @@ def run(lib, case):
 def package(case):
     """The package's K6-g on a case, as ``run``."""
     from rrtmg_lw_torch.ops import rtrn_cuda
-    mode, x, clouds, ngb0, wg, ct, rads = case
+    mode, x, clouds, ngb0, wg, ct, rads, words = case
     if mode == "banded":
         return list(rtrn_cuda.rt_sweep_banded_vjp(*x, *clouds, ngb0, wg, ct,
                                                   rads=rads))
     return list(rtrn_cuda.rt_sweep_g_vjp(*x, clouds, ngb0, wg, ct,
-                                         rads=rads))
+                                         rads=rads, words=words))
 
 
 def info(lib):
@@ -194,7 +215,8 @@ def info(lib):
 def cases(device):
     """[(tag, case)]: the three modes on phase 3's inputs with their
     cells' clouds, then on K1's edge cases, with K1's radiances in the
-    mode (``rtrn_cuda.rt_sweep_g_radiances``) and seeded cotangents."""
+    mode and its cloudy-layer words (``rtrn_cuda.rt_sweep_g_radiances``)
+    and seeded cotangents."""
     from rrtmg_lw_torch.ops import rtrn, rtrn_cuda
     from rrtmg_lw_torch.utils import snapshot
     x = snapshot.sweep_inputs(device)
@@ -212,10 +234,10 @@ def cases(device):
         for mode in MODES:
             cl = ms[mode][1]
             cl = tuple(cl) if mode == "banded" else tuple(cl[0])
-            rads = rtrn_cuda.rt_sweep_g_radiances(mode, *xs, cl, model.ngb0,
-                                                  model.wg)[1]
+            _, rads, words = rtrn_cuda.rt_sweep_g_radiances(
+                mode, *xs, cl, model.ngb0, model.wg)
             out.append((f"{tag} {mode}", (mode, xs, cl, model.ngb0,
-                                          model.wg, ct, rads)))
+                                          model.wg, ct, rads, words)))
     return out
 
 

@@ -114,18 +114,20 @@ CELLS = {"clear": Cell(0, 1, None, 60),
                                  cloud_grads=("cldfmc", "taucmc"))}
 # fragment of the demangled symbol -> kernel (csrc/*.cu); K1's third
 # template argument and K2's only one are the storage (csrc/spec.cuh),
-# K1's fourth whether it keeps the radiances for K6 ("save", float32)
+# K1's fourth whether it keeps the radiances for K6 ("save", float32):
+# 1 by scalar stores, 2 by bulk tensor stores, 0 not (a checkout from
+# before the two store paths: true or false)
 SPEC_NAMES = ("", " bf16", " f16", " logu16")
 K6_G_MODES = {2: "banded", 4: "fused", 5: "cldf_od"}
+SAVE_ARGS = {"0": "", "1": " save", "2": " save", "false": "", "true": " save"}
 KERNEL_SYMBOLS = tuple(
-    (f"rt_kernel<{m}, {b}, {s}, {save}>",
-     f"K1 {name}{' idrv' if b == 'true' else ''}{SPEC_NAMES[s]}"
-     f"{' save' if save == 'true' else ''}")
+    (f"rt_kernel<{m}, {b}, {s}, {arg}>",
+     f"K1 {name}{' idrv' if b == 'true' else ''}{SPEC_NAMES[s]}{save}")
     for m, name in enumerate(("clear", "compact", "banded", "maxrand",
                               "fused", "cldf_od"))
     for b in ("false", "true") for s in range(4)
-    for save in ("false", "true")
-    if save == "false" or s == 0
+    for arg, save in SAVE_ARGS.items()
+    if not save or s == 0
 ) + tuple(
     (f"taumol_kernel<{s}>", "K2" + SPEC_NAMES[s]) for s in range(4)) + (
     ("planck_kernel", "K3"),

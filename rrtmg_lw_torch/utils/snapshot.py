@@ -32,11 +32,16 @@ and (where the checkout has it) its adjoint.  The imports are
 absolute, so ``PYTHONPATH`` picks the checkout whose kernels run; only
 entry points that every checkout since reduced storage came in has are
 used, and K6 through whichever API the checkout has (``k6_vjp``; the
-maxrand state and K6 maxrand: ``mr_state``, ``mr_vjp``).  ``--out``
+maxrand state and K6 maxrand: ``mr_state``, ``mr_vjp``; K6-g's
+cloudy-layer words where K1 returns them: ``g_state``).  ``--out``
 keeps the maxrand state unpacked (``rtrn.unpack_state``, zeros where
 nothing is kept, whatever layout the checkout's K1 writes) and the
 cotangent of the cloud fraction that K6 maxrand's overlap-row
-cotangents give through the overlap adjoint.
+cotangents give through the overlap adjoint; and the fluxes and
+radiances (maxrand: the state unpacked) of K1 keeping the state in
+every mode at idrv 0 and 1 on phase 3's inputs, on K1's edge cases and
+on the first ``SAVE_COLUMNS`` columns of phase 3's inputs (the bulk and
+the scalar store paths, ``k1_save_digests``).
 """
 
 from __future__ import annotations
@@ -426,7 +431,8 @@ def k6mr_digests(tag, x, modes, model, ct) -> dict:
 
 def outputs(device) -> dict:
     """K2-K6 on phase 3's inputs, and K1 in every mode at idrv 0 and 1
-    on them and on ``k1_edge_args``' edge cases."""
+    on them and on ``k1_edge_args``' edge cases, without and with the
+    state kept (``k1_save_digests``, also at ``SAVE_COLUMNS``)."""
     from rrtmg_lw_torch.ops import rtrn
     from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_blocked
     from rrtmg_lw_torch.ops.planck_cuda import planck_interp_blocked
@@ -499,6 +505,17 @@ def outputs(device) -> dict:
         out.update(k6g_digests(tag, (*a[:4], surf), ms, model, ct))
     for tag, a, ms in (("k6mr", args, modes), ("k6mr_edge", eargs, emodes)):
         out.update(k6mr_digests(tag, (*a[:4], surf), ms, model, ct))
+    # K1 keeping the state, on both store paths where the checkout has
+    # two (phase 3's inputs are B=16384; SAVE_COLUMNS cut them)
+    dpl = sc.dplankbnd_dt
+    B = args[0].shape[2]
+    saves = [("k1save", args, modes, dpl), ("k1save_edge", eargs, emodes,
+                                            dpl)]
+    saves += [(f"k1save_{n}", cut_columns(args, n, B),
+               {m: (w, cut_columns(c, n, B)) for m, (w, c) in modes.items()},
+               cut_columns(dpl, n, B)) for n in SAVE_COLUMNS]
+    for tag, a, ms, d in saves:
+        out.update(k1_save_digests(tag, a, ms, d))
     return out
 
 
@@ -518,15 +535,72 @@ def k6g_digests(tag, x, modes, model, ct) -> dict:
     for mode in ("banded", "fused", "cldf_od"):
         cl = modes[mode][1]
         cl = tuple(cl) if mode == "banded" else tuple(cl[0])
-        rads = keep(mode, *x, cl, model.ngb0, model.wg)[1]
+        kw = g_state(keep(mode, *x, cl, model.ngb0, model.wg))
         if mode == "banded":
             grads = rtrn_cuda.rt_sweep_banded_vjp(*x, *cl, model.ngb0,
-                                                  model.wg, ct, rads=rads)
+                                                  model.wg, ct, **kw)
         else:
             grads = rtrn_cuda.rt_sweep_g_vjp(*x, cl, model.ngb0, model.wg,
-                                             ct, rads=rads)
+                                             ct, **kw)
         out.update(digests(f"{tag}_{mode}", grads))
-        del rads, grads
+        del kw, grads
+    return out
+
+
+def g_state(kept) -> dict:
+    """The keywords of K6 in the banded, fused or cldf-odcld mode for
+    what ``rt_sweep_g_radiances`` returned, through the checkout's API:
+    the radiances, and the cloudy-layer words where it returns them."""
+    kw = dict(rads=kept[1])
+    if len(kept) > 2 and kept[2] is not None:
+        kw["words"] = kept[2]
+    return kw
+
+
+def cut_columns(t, n, B):
+    """The first n columns of a sweep or cloud input at B columns ((L,
+    *, B), (L, B), (B, *) or (B,); nested tuples element by element);
+    others as they are."""
+    if not isinstance(t, torch.Tensor):
+        return tuple(cut_columns(u, n, B) for u in t)
+    if t.dim() >= 2 and t.shape[-1] == B:
+        return t[..., :n].contiguous()
+    return t[:n].contiguous() if t.shape[0] == B else t
+
+
+# columns of K1 SAVE's narrow cases: a last 16-column tile of 4 columns
+# with rows 16-byte aligned (B % 4 == 0), and rows that are not
+SAVE_COLUMNS = (4100, 37)
+
+
+def k1_save_digests(tag, args, modes, dpl) -> dict:
+    """K1 keeping the state K6 reads, in every mode at idrv 0 and 1, on
+    the sweep arguments ``args`` (as ``sweep_inputs``') with ``modes``'
+    clouds (``k1_cloud_args`` or ``k1_edge_args``), through the
+    checkout's API: its fluxes and radiances (maxrand: the fluxes and the
+    state unpacked), as ``digests``."""
+    from rrtmg_lw_torch.ops import rtrn, rtrn_cuda
+    out = {}
+    ngb0, wg = args[7:]
+    for mode, (_, clouds) in modes.items():
+        for idrv in (0, 1):
+            surf = rtrn.surf_rows(*args[4:7], torch.float32,
+                                  dpl if idrv else None)
+            x = (*args[:4], surf)
+            if mode in ("clear", "compact"):
+                cf = ((None,) * 4 if not clouds
+                      else (*clouds[0][1:], clouds[0][0]))
+                kept = rtrn_cuda.rt_sweep_radiances(*x, *cf, ngb0, wg)[:2]
+            elif mode == "maxrand":
+                fl = rtrn_cuda.rt_sweep_maxrand_radiances(
+                    *x, *clouds, ngb0, wg)[0]
+                kept = (fl, mr_state((*x, *clouds, ngb0, wg))[1])
+            else:
+                cl = tuple(clouds) if mode == "banded" else tuple(clouds[0])
+                kept = rtrn_cuda.rt_sweep_g_radiances(mode, *x, cl, ngb0,
+                                                      wg)[:2]
+            out.update(digests(f"{tag}_{mode}_idrv{idrv}", kept))
+            del kept
     return out
 
 
@@ -761,19 +835,19 @@ def g_times(device, args, surf, model, ct, clouds, keep_g, reps) -> list:
             reps), k1_save_ms=kernel_ms(lambda: keep_g(mode, *a, cl,
                                                        model.ngb0, model.wg),
                                         "rt_kernel", reps))
-        rads = keep_g(mode, *a, cl, model.ngb0, model.wg)[1]
+        kw = g_state(keep_g(mode, *a, cl, model.ngb0, model.wg))
         if mode == "banded":
             def run():
                 rtrn_cuda.rt_sweep_banded_vjp(*a, *cl, model.ngb0, model.wg,
-                                              ct, rads=rads)
+                                              ct, **kw)
         else:
             def run():
                 rtrn_cuda.rt_sweep_g_vjp(*a, cl, model.ngb0, model.wg, ct,
-                                         rads=rads)
+                                         **kw)
         row["k6_ms"] = kernel_ms(run, "rt_bwd_g_kernel", reps)
         rows.append(row)
         print(row, flush=True)
-        del rads
+        del kw
     return rows
 
 

@@ -435,11 +435,12 @@ def test_rt_save_launches_once_per_grad_step(dev):
             (before[0] + 1, before[1] + 3)
     for mode in ("clear", "compact"):
         for idrv in (0, 1):
-            info = k1_info(mode, idrv, save=True)
-            assert info["local_bytes"] == 0, (mode, idrv, info)
-            assert info["blocks_per_sm"] >= 2, (mode, idrv, info)
+            for path in ("bulk", "scalar"):
+                info = k1_info(mode, idrv, save=path)
+                assert info["local_bytes"] == 0, (mode, idrv, path, info)
+                assert info["blocks_per_sm"] >= 2, (mode, idrv, path, info)
     with pytest.raises(RuntimeError):
-        k1_info("banded", 0, torch.bfloat16, save=True)
+        k1_info("banded", 0, torch.bfloat16, save="bulk")
 
 
 def _radii(dev, B, L, seed):
@@ -644,11 +645,14 @@ def _g_case(dev, args, mode, clouds, seed=3):
     """K1 keeping the radiances in ``mode`` and K6 in that mode fed them,
     on the sweep inputs ``args`` and the mode's ``clouds``: K1's fluxes
     bitwise those of its launch without the radiances, the radiances
-    within 1e-5 of max |plain|; K6 within 1e-3 of max |plain vjp| per
-    output, its pad rows zero, bitwise over two runs, staged as
-    ``k6_g_info`` says its launch was (bulk tensor copies where B is a
-    multiple of 4); K6 without the radiances raises."""
-    from rrtmg_lw_torch.ops.rtrn_cuda import (k6_g_info,
+    within 1e-5 of max |plain|, its store path bulk where B is a multiple
+    of 4 and scalar elsewhere (``k1_save_path``), its cloudy-layer words
+    (fused, cldf-odcld) the plain ones; K6 fed them within 1e-3 of max
+    |plain vjp| per output, its pad rows zero, bitwise over two runs,
+    staged as ``k6_g_info`` says its launch was (bulk tensor copies where
+    B is a multiple of 4); K6 without the radiances (or the words)
+    raises."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import (k1_save_path, k6_g_info,
                                               rt_sweep_banded_vjp,
                                               rt_sweep_g_radiances,
                                               rt_sweep_g_vjp)
@@ -656,16 +660,19 @@ def _g_case(dev, args, mode, clouds, seed=3):
     L, _, B = taut.shape
     x = (taut, fr, play, plev, rtrn.surf_rows(plankbnd, semiss, pwvcm,
                                                torch.float32))
-    fl, rads = rt_sweep_g_radiances(mode, *x, clouds, ngb0, wg)
+    fl, rads, words = rt_sweep_g_radiances(mode, *x, clouds, ngb0, wg)
     assert rads.shape == (4, L, 140, B)
+    assert k1_save_path(mode) == ("bulk" if B % 4 == 0 else "scalar")
     fields = clouds if mode == "banded" else (clouds,)
     assert torch.equal(fl, WRAPPERS[mode](*args, *fields))
     if mode == "banded":
         _, rads_p = rtrn.rt_sweep_banded(*x, *clouds, ngb0, wg,
                                          radiances=True)
+        assert words is None
     else:
-        _, rads_p = rtrn.rt_sweep_blocked(*x, ngb0, wg, clouds,
-                                          radiances=True)
+        _, rads_p, words_p = rtrn.rt_sweep_blocked(*x, ngb0, wg, clouds,
+                                                   radiances=True)
+        assert torch.equal(words, words_p)
     assert rel_err(rads, rads_p) <= 1e-5
     ct = _randn((4, L + 1, B), dev, seed)
 
@@ -675,7 +682,11 @@ def _g_case(dev, args, mode, clouds, seed=3):
         return rt_sweep_g_vjp(*x, clouds, ngb0, wg, ct, **kw)
     with pytest.raises(ValueError, match="radiances"):
         k6()
-    got = k6(rads=rads)
+    kw = {} if mode == "banded" else dict(words=words)
+    if kw:
+        with pytest.raises(ValueError, match="words"):
+            k6(rads=rads)
+    got = k6(rads=rads, **kw)
     ref = (rtrn.rt_sweep_banded_vjp(*x, *clouds, ngb0, wg, ct)
            if mode == "banded" else
            rtrn.rt_sweep_g_vjp(*x, clouds, ngb0, wg, ct))
@@ -684,7 +695,7 @@ def _g_case(dev, args, mode, clouds, seed=3):
         assert rel_err(g, r) <= 1e-3, (mode, i)
         if g.dim() == 3 and g.shape[1] == 144:
             assert not bool(g[:, 140:].any()), (mode, i)
-    assert all(torch.equal(g, h) for g, h in zip(got, k6(rads=rads)))
+    assert all(torch.equal(g, h) for g, h in zip(got, k6(rads=rads, **kw)))
     assert k6_g_info(mode, L)["staging"] == ("tma" if B % 4 == 0
                                              else "elements")
 
@@ -734,9 +745,10 @@ def test_rt_g_adjoint_launch_configuration(dev):
     from rrtmg_lw_torch.ops.rtrn_cuda import MODES, k1_info, k6_g_info
     for mode in MODES:
         for idrv in (0, 1):
-            info = k1_info(mode, idrv, save=True)
-            assert info["local_bytes"] == 0, (mode, idrv, info)
-            assert info["blocks_per_sm"] >= 2, (mode, idrv, info)
+            for path in ("bulk", "scalar"):
+                info = k1_info(mode, idrv, save=path)
+                assert info["local_bytes"] == 0, (mode, idrv, path, info)
+                assert info["blocks_per_sm"] >= 2, (mode, idrv, path, info)
     for mode in G_MODES:
         for nlay in (60, 140, 400):
             info = k6_g_info(mode, nlay)
@@ -953,8 +965,10 @@ def test_rt_maxrand_adjoint_launch_configuration(dev):
     140 and 1,000, no local memory."""
     from rrtmg_lw_torch.ops.rtrn_cuda import k1_info, k6_mr_info
     for idrv in (0, 1):
-        info = k1_info("maxrand", idrv, save=True)
-        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2, info
+        for path in ("bulk", "scalar"):
+            info = k1_info("maxrand", idrv, save=path)
+            assert (info["local_bytes"] == 0
+                    and info["blocks_per_sm"] >= 2), (path, info)
     for nlay in (60, 140, 1000):
         info = k6_mr_info(nlay)
         assert info["threads"] == 256 and info["columns"] == 32, info

@@ -1152,8 +1152,10 @@ def test_random_overlap_grad_wrappers_send_cpu_tensors_to_plain_versions(
     ct = torch.randn((4, L + 1, B), generator=torch.Generator().manual_seed(4),
                      dtype=tg.dtype)
     for mode, cl in clouds.items():
-        fl, rads = rtrn_cuda.rt_sweep_g_radiances(mode, *x, cl, ngb0, wg)
+        fl, rads, words = rtrn_cuda.rt_sweep_g_radiances(mode, *x, cl, ngb0,
+                                                         wg)
         if mode == "banded":
+            assert words is None
             ref = rtrn.rt_sweep_banded(*x, *cl, ngb0, wg, radiances=True)
             got = rtrn_cuda.rt_sweep_banded_vjp(*x, *cl, ngb0, wg, ct)
             want = plain_vjp(lambda *a: rtrn.rt_sweep_banded(*a, ngb0, wg),
@@ -1166,6 +1168,7 @@ def test_random_overlap_grad_wrappers_send_cpu_tensors_to_plain_versions(
                 (ct,))
             assert not any(bool(g[:, 140:].any()) for g in got[5:]
                            if g.shape[1] == 144)
+            assert torch.equal(words, ref[2])
         assert torch.equal(fl, ref[0]) and torch.equal(rads, ref[1])
         assert rads.shape == (4, L, 140, B)
         assert all(torch.equal(g, w) for g, w in zip(got, want)), mode
@@ -1222,7 +1225,7 @@ def test_random_overlap_adjoint_fits_the_card():
         slot = ((6 + ncg) * slab + 2 * (2 + nbc) * band + 2 * row
                 + (row if mode == "banded" else 0))
         assert row % 128 == 0 and slot % 128 == 0
-        rest = align16((2 * ring + 1) * 8 + 8 + kg * 4 + (knb + 1) * 4
+        rest = align16(2 * ring * 8 + 8 + kg * 4 + (knb + 1) * 4
                        + gr * 4)
         rest += 2 * gh * gx * 4 + gx * 4 + align16(nlay * 4)
         shares = nlay * gx * 4
