@@ -23,7 +23,9 @@ Phases, each raising on failure (any failure exits non-zero):
      cldf-odcld modes and K4b's registers and spill stores (none may
      spill; each K6 fits two blocks per SM; K6 banded, fused and
      cldf-odcld at L=60 and L=140, with no local memory, their tile,
-     ring and staging printed);
+     ring and staging printed); K6's six instantiations with the d/dT
+     sweep's adjoint (one a mode: registers, spill stores, local memory,
+     shared memory and blocks per SM at L=60 and L=140; none may spill);
   3. each kernel against its plain PyTorch version on the card at the
      main-path shapes (B=16384 columns, L=60 layers, float32), with the
      max error and CUDA-event times of both and the bound of each (the
@@ -103,7 +105,13 @@ Phases, each raising on failure (any failure exits non-zero):
      radiances it raises; fused and cldf-odcld fed the cloudy-layer
      words K1 kept, equal to the plain ones), and K4b within TOL_BWD of
      the plain vjp on the mcica_blocked cell's radii and on radii off and
-     on the tables' grid, each bitwise over two runs; K1 keeping the
+     on the tables' grid, each bitwise over two runs; K6 with the d/dT
+     sweep's adjoint in the six modes (``ddt_grad_kernels``: at L=60 on
+     phase 3's inputs with each mode's cell clouds, on their first 37
+     columns and at L=140, fed the state K1 kept, within TOL_BWD_RT of
+     the plain vjp of the sweep on seeded flux and d/dT cotangents on
+     B_SUB columns, at L=60 also without the flux cotangent, bitwise over
+     two runs, the cotangent of dplankbnd_dt nonzero); K1 keeping the
      state by both store paths (``k1_save_cases``): every mode at idrv 0
      and 1 on the cell, K1's edge cases, L_DEEP, B=4100 (bulk tensor
      stores, a last tile of 4 columns) and B=37 (scalar stores), the path
@@ -125,15 +133,22 @@ Phases, each raising on failure (any failure exits non-zero):
      the maxrand state, K6 maxrand, K5, K3b and the overlap adjoint, once
      each a step but K3 and K3b twice; K1's state launch never in a
      forward cell), peak memory, the linear-loss gradients on all 16384
-     columns within TOL_STEP of the eager step's; this slice's main path
-     and its siblings the same way: band_cloudy_grad (icld=1, K1 banded,
+     columns within TOL_STEP of the eager step's; the banded, fused and
+     cldf-odcld gradient steps the same way: band_cloudy_grad (icld=1, K1 banded,
      w.r.t. the Atmosphere, the cloud fraction, water paths and
      effective radii: K1 keeping the radiances, K6 banded and K4b once
      a step), mcica_blocked_grad (K1 fused, w.r.t. every
      McicaCloudsBlocked field) and mcica_tauc_grad (K1 cldf-odcld, w.r.t.
-     cldfmc and taucmc); the McICA and the maxrand steps at idrv=1
-     bitwise equal to idrv=0's, and a cotangent of duflx_dt (McICA,
-     maxrand, banded) raising NotImplementedError; a logu16 grad step
+     cldfmc and taucmc); then the d/dT
+     adjoint's main path, the gradient step at idrv=1 of a loss linear in uflx,
+     duflx_dt and duflxc_dt in each mode (utils/profiling.py's
+     ``*_ddt_grad`` cells: clear, McICA, banded, maxrand, also at icld=3,
+     fused, cldf-odcld; w.r.t. the Atmosphere and the cell's cloud
+     fields), counted (K6
+     with the d/dT adjoint once a step, the idrv=0 K6 never), its ms a
+     step and peak memory, held to the eager step within TOL_STEP per
+     field the same way; the McICA and the maxrand steps at idrv=1 with
+     the default loss bitwise equal to idrv=0's; a logu16 grad step
      raising NotImplementedError on both impls;
   7. probes (utils/probes.py, the archived Pallas probes' counterparts):
      the one-hot selection product (bf16 and exact, dout 128 and 1656)
@@ -165,8 +180,11 @@ bytes_moved and gbps_moved (every access the kernel makes,
 overlap kernels are timed on rotating copies of their inputs (L2 cold,
 ``utils.snapshot.rotating``).
 K5's, K6's and K1 SAVE's device_ms (every mode) come from
-``utils/snapshot.py --k5-times --k6-times`` in a process of its own,
-started after phase 3.  Without CUDA it exits non-zero and prints no result.
+``utils/snapshot.py --k5-times --k6-times --k6-ddt-times`` in a process
+of its own, started after phase 3; the entries of K6 with the d/dT
+adjoint (rt_adjoint_ddt_<mode>) also carry device_ms_deep (L=140), their
+registers, spill, shared memory and blocks per SM, and scratch_gb, the
+bytes of their scratch (written and read once) beside the bound.  Without CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -288,6 +306,23 @@ KERNELS = (  # name, source, replaced TPU kernel
      "tools/archive/calib.py:31"),
     ("probe_gather", "rrtmg_lw_torch/csrc/probes.cu",
      "tools/archive/test_pallas_gather.py:17"))
+# K1's modes, and K6's instantiation in each that also runs the d/dT
+# sweep's adjoint (idrv=1 with a cotangent of duflx_dt / duflxc_dt): XLA's
+# vjp of the Pallas sweep in the JAX package, its unrolled backward taking
+# no idrv
+DDT_MODES = ("clear", "compact", "banded", "maxrand", "fused", "cldf_od")
+# K6-g fused and maxrand at two blocks per SM spill a few bytes (24 and 8),
+# 1.4-1.6x faster than spill-free at one block (PERF.md section 6): a gate
+# against heavier spilling (compact at two blocks: 386 B)
+DDT_SPILL_MAX = 64
+DDT_SOURCES = {"clear": "rtrn_bwd.cu", "compact": "rtrn_bwd.cu",
+               "maxrand": "rtrn_bwd_mr.cu", "banded": "rtrn_bwd_g.cu",
+               "fused": "rtrn_bwd_g.cu", "cldf_od": "rtrn_bwd_g.cu"}
+KERNELS += tuple(
+    (f"rt_adjoint_ddt_{m}", "rrtmg_lw_torch/csrc/" + DDT_SOURCES[m],
+     "rrtmg_lw_tpu/ops/rtrn_pallas.py:" + ("1208" if m == "maxrand"
+                                           else "1040"))
+    for m in DDT_MODES)
 
 
 def need(cond, msg):
@@ -855,6 +890,53 @@ def new_build_info(log_path):
     return out
 
 
+def ddt_build_info(log_path):
+    """Registers and spill stores (``_build.ptxas_info``) and launch
+    configuration (``rtrn_cuda.k6_info``, ``k6_mr_info``, ``k6_g_info``
+    with ``ddt=True``, at L_MAIN and L_DEEP) of K6's instantiations with
+    the d/dT sweep's adjoint, one a mode; fails where one fits no block
+    on an SM or spills more than DDT_SPILL_MAX bytes.  -> {summary name:
+    {...}}."""
+    from rrtmg_lw_torch._build import ptxas_info
+    from rrtmg_lw_torch.ops.rtrn_cuda import (MODES, k6_g_info, k6_info,
+                                              k6_mr_info)
+    names = {"17rt_bwd_ddt_kernelILb0EE": "rt_adjoint_ddt_clear",
+             "17rt_bwd_ddt_kernelILb1EE": "rt_adjoint_ddt_compact",
+             "20rt_bwd_mr_ddt_kernelE": "rt_adjoint_ddt_maxrand"}
+    names.update({f"19rt_bwd_g_ddt_kernelILi{MODES[m]}EE":
+                  f"rt_adjoint_ddt_{m}" for m in G_MODES})
+    out = ptxas_info(log_path, "|".join(names), lambda m: names[m.group(0)])
+    need(sorted(out) == sorted(names.values())
+         and all(len(r) == 2 for r in out.values()),
+         f"d/dT adjoint: {sorted(out)} in the build log")
+
+    def info(mode, nlay):
+        if mode in ("clear", "compact"):
+            return k6_info(mode == "compact", ddt=True)
+        if mode == "maxrand":
+            return k6_mr_info(nlay, ddt=True)
+        return k6_g_info(mode, nlay, ddt=True)
+    for mode in DDT_MODES:
+        r = out[f"rt_adjoint_ddt_{mode}"]
+        i, d = info(mode, L_MAIN), info(mode, L_DEEP)
+        need(i["registers"] == r["registers"],
+             f"rt_adjoint_ddt_{mode}: registers at run time differ from "
+             "ptxas'")
+        r.update(smem_bytes=i["static_smem"] + i["dynamic_smem"],
+                 blocks_per_sm=i["blocks_per_sm"],
+                 local_bytes=max(i["local_bytes"], d["local_bytes"]),
+                 threads=i["threads"], columns=i["columns"],
+                 smem_bytes_deep=d["static_smem"] + d["dynamic_smem"],
+                 blocks_per_sm_deep=d["blocks_per_sm"])
+    need(all(r["spill_bytes"] <= DDT_SPILL_MAX
+             and r["local_bytes"] <= DDT_SPILL_MAX
+             and min(r["blocks_per_sm"], r["blocks_per_sm_deep"]) >= 1
+             for r in out.values()),
+         f"d/dT adjoint: spill stores or local memory over {DDT_SPILL_MAX} "
+         f"B, or no block per SM: {out}")
+    return out
+
+
 def k2_edge_cases(device, model):
     """K2 in all four storages on ``utils.snapshot.k2_edge_args`` at each
     of ``K2_EDGE_SHAPES`` (one column, a warp's 32 columns +-1, a width
@@ -1183,14 +1265,10 @@ def rel_err(got, ref):
 
 
 def columns(atm, clouds, cols):
-    """The columns ``cols`` (a slice) of an Atmosphere and compact clouds
-    (or None)."""
-    from rrtmg_lw_torch import Atmosphere, McicaCloudsCompact
-    atm = Atmosphere(*(x[cols] for x in atm))
-    if clouds is None:
-        return atm, None
-    return atm, McicaCloudsCompact(clouds.cldfmc[..., cols].contiguous(),
-                                   *(x[cols] for x in clouds[1:]))
+    """The columns ``cols`` (a slice) of an Atmosphere and its clouds
+    (``cloud_columns``)."""
+    from rrtmg_lw_torch import Atmosphere
+    return Atmosphere(*(x[cols] for x in atm)), cloud_columns(clouds, cols)
 
 
 def phase_grad_kernels(device):
@@ -1902,6 +1980,109 @@ def g_grad_kernels(device, model, args, surf, randn):
     return res
 
 
+def ddt_grad_kernels(device):
+    """K6's instantiations with the d/dT sweep's adjoint (idrv=1), one a
+    mode, on ``utils.snapshot.ddt_cases`` (phase 3's sweep inputs with
+    surf (4, 16, B) and each mode's cell clouds) at L_MAIN, on their first
+    37 columns (element copies) and at L_DEEP, each fed the state K1 kept
+    on the same inputs: within TOL_BWD_RT of the plain vjp of the mode's
+    sweep on the cotangent (ct, ct_ddt), seeded, per output on the first
+    B_SUB columns (all 37), at L_MAIN also with ct None (a loss that reads
+    d/dT alone), bitwise over two runs, the cotangent of dplankbnd_dt
+    (surf's row 3) nonzero.  -> the summary entries, their bounds those of
+    K6 in the mode (its inputs read once, its outputs written once) with
+    ct_ddt and surf's row 3 and its cotangent; the scratch's bytes
+    (written once, read once) beside them (device ms: grad_device_times)."""
+    from rrtmg_lw_torch.utils.snapshot import (cut_columns, ddt_cases,
+                                               ddt_plain_vjp, ddt_state,
+                                               ddt_vjp)
+    gen = torch.Generator(device=device).manual_seed(11)
+    main = ddt_cases(device, L_MAIN)
+    B = main[0][0].shape[2]
+    cases = [(f"L={L_MAIN}", lambda: main),
+             ("B=37", lambda: (cut_columns(main[0], 37, B), *main[1:3],
+                               {m: cut_columns(c, 37, B)
+                                for m, c in main[3].items()})),
+             (f"L={L_DEEP}", lambda: ddt_cases(device, L_DEEP))]
+    res, errs = {}, {m: [] for m in DDT_MODES}
+    for tag, case in cases:
+        x, ngb0, wg, clouds = case()
+        L, _, Bc = x[0].shape
+        ct = torch.randn((4, L + 1, Bc), generator=gen, device=device)
+        ct_ddt = torch.randn((2, L + 1, Bc), generator=gen, device=device)
+        n = min(Bc, B_SUB)
+        xs = cut_columns(x, n, Bc)
+        cs, ds = ct[..., :n].contiguous(), ct_ddt[..., :n].contiguous()
+        for mode in DDT_MODES:
+            name = f"rt_adjoint_ddt_{mode}"
+            cl = clouds[mode]
+            cln = cut_columns(cl, n, Bc)
+            kw = ddt_state(mode, x, cl, ngb0, wg)
+
+            def k6(c=ct):
+                return ddt_vjp(mode, x, cl, ngb0, wg, c, ct_ddt, kw)
+
+            def plain(c=cs):
+                return ddt_plain_vjp(mode, xs, cln, ngb0, wg, c, ds)
+            runs = [(k6(), plain(), "")]
+            need(all(g is None or torch.equal(g, h)
+                     for g, h in zip(runs[0][0], k6())),
+                 f"{name} ({tag}): two runs differ")
+            if tag == f"L={L_MAIN}":
+                runs.append((k6(None), plain(None), ", ct None"))
+            for got, ref, what in runs:
+                e = [rel_err(g[..., :n], r) for g, r in zip(got, ref)
+                     if r is not None]
+                need(all(bool(torch.isfinite(g).all()) for g in got
+                         if g is not None) and max(e) <= TOL_BWD_RT,
+                     f"{name} ({tag}{what}): rel err {max(e):.3g} > "
+                     f"{TOL_BWD_RT} (per output: {[f'{v:.2g}' for v in e]})")
+                need(bool(got[4][3].any()),
+                     f"{name} ({tag}{what}): no cotangent of dplankbnd_dt")
+                errs[mode].append((max(float((g[..., :n] - r).abs().max())
+                                       for g, r in zip(got, ref)
+                                       if r is not None), max(e)))
+                print(f"{name} ({tag}{what}): within {max(e):.3g} of max "
+                      f"|plain vjp| on {n} columns, bitwise over two runs")
+            if tag == f"L={L_MAIN}":
+                res[name] = dict(
+                    ms=cuda_ms(k6, 3), plain_ms=cuda_ms(plain, 1),
+                    plain_ncol=n, **ddt_bound(mode, x, cl, ct, ct_ddt, kw,
+                                              runs[0][0]))
+            del kw, runs
+        del x, clouds
+    for mode in DDT_MODES:
+        res[f"rt_adjoint_ddt_{mode}"].update(
+            max_abs_err=max(a for a, _ in errs[mode]),
+            max_rel_err=max(e for _, e in errs[mode]))
+    return res
+
+
+def ddt_bound(mode, x, cl, ct, ct_ddt, kw, got):
+    """``bound`` of K6 with the d/dT sweep's adjoint in ``mode`` on one
+    case: K6's inputs in the mode read once (as its idrv=0 entry counts
+    them: maxrand's sub-streams where K6 reads them, the gated per-g
+    cloud inputs where the gate holds), ct_ddt and surf's fourth row, the
+    outputs written once; and ``scratch_gb``, the bytes of its scratch,
+    written once and read once, beside the bound."""
+    from rrtmg_lw_torch.ops import rtrn
+    L, _, B = x[0].shape
+    state = kw.get("state") or (kw["rads"],)
+    ops = (OPS["rt_adjoint"] + 2 * OPS["rt_ddt"]) * x[0].numel()
+    nbytes, read = 0, cl
+    if mode == "maxrand":
+        nsub = int(rtrn.substream_slots(cl[0])[1].sum())
+        nbytes, state = 3 * 140 * 4 * nsub, state[:1]
+    elif mode in GATED:
+        ngate = int((cl[0][:, :140] >= 0.5).sum()) if GATED[mode] else 0
+        nbytes = 4 * ngate * len(GATED[mode])
+        read = [c for i, c in enumerate(cl) if i not in GATED[mode]]
+    nlam = 1 if mode == "clear" else 2
+    return dict(scratch_gb=2 * nlam * L * 140 * B * 4 / 1e9,
+                **bound((*x, *read, ct, ct_ddt, *state), got, ops,
+                        nbytes=nbytes))
+
+
 def maxrand_state_err(got, x5, clouds, ngb0, wg):
     """K1 maxrand's kept state ``got`` (fluxes, rads, subs) on the sweep
     inputs ``x5`` and ``clouds`` (rows_t, taucb_t) against the plain
@@ -2086,16 +2267,19 @@ def grad_device_times():
     from rrtmg_lw_torch import _build
     out6 = _build.BUILD_ROOT / "k6_times.json"
     out5 = _build.BUILD_ROOT / "k5_times.json"
-    for out in (out5, out6):
+    outd = _build.BUILD_ROOT / "k6_ddt_times.json"
+    for out in (out5, out6, outd):
         out.unlink(missing_ok=True)
     res = subprocess.run(
         [sys.executable, "-m", "rrtmg_lw_torch.utils.snapshot",
-         "--k5-times", str(out5), "--k6-times", str(out6)],
+         "--k5-times", str(out5), "--k6-times", str(out6),
+         "--k6-ddt-times", str(outd)],
         capture_output=True, text=True,
         cwd=pathlib.Path(__file__).resolve().parent, timeout=600)
     print(res.stdout, end="")
-    need(res.returncode == 0 and out5.exists() and out6.exists(),
-         f"snapshot.py --k5-times --k6-times failed:\n{res.stderr[-3000:]}")
+    need(res.returncode == 0 and all(o.exists() for o in (out5, out6, outd)),
+         f"snapshot.py --k5-times --k6-times --k6-ddt-times failed:\n"
+         f"{res.stderr[-3000:]}")
     all_rows = json.loads(out6.read_text())
     rows = {r["mode"]: r for r in all_rows if r["nlay"] == L_MAIN}
     deep = {r["mode"]: r for r in all_rows if r["nlay"] == L_DEEP}
@@ -2113,6 +2297,16 @@ def grad_device_times():
     for m in ("maxrand", *G_MODES):
         out[f"rt_sweep_save_{m}"] = rows[m]["k1_save_ms"]
         out[f"rt_adjoint_{m}"] = rows[m]["k6_ms"]
+    # K6 with the d/dT sweep's adjoint: at L_MAIN, and at L_DEEP beside it
+    ddt = json.loads(outd.read_text())
+    for m in DDT_MODES:
+        ms = {r["nlay"]: r["k6_ddt_ms"] for r in ddt if r["mode"] == m}
+        out[f"rt_adjoint_ddt_{m}"] = dict(device_ms=ms[L_MAIN],
+                                          device_ms_deep=ms[L_DEEP])
+    print(f"device ms, K6 with the d/dT adjoint (at L={L_DEEP}): "
+          + "; ".join(f"{m} {out[f'rt_adjoint_ddt_{m}']['device_ms']:.3f} "
+                      f"({out[f'rt_adjoint_ddt_{m}']['device_ms_deep']:.3f})"
+                      for m in DDT_MODES))
     return out
 
 
@@ -2222,71 +2416,117 @@ GRAD_CELLS = {
     "mcica_tauc_grad": dict(
         NO_K4, **GRAD_BWD, rt_sweep_cldf_od=1, rt_sweep_save_cldf_od=1,
         rt_adjoint_cldf_od=1)}
+# the d/dT adjoint's main path: the ``*_ddt_grad`` cells of
+# utils/profiling.py, the gradient step at idrv=1 of a loss linear in
+# uflx, duflx_dt and duflxc_dt (``ddt``), one a mode, and maxrand's once
+# at icld=3: (its cell, steps, config overrides).  Their launches a step:
+# those of the mode's gradient cell with K6's d/dT instantiation in place
+# of K6, K1 counted on its wrapper's idrv counter too
+GRAD_OVERRIDES = {"maxrand_cloudy_icld3_ddt_grad": (
+    "maxrand_cloudy_ddt_grad", 1, dict(icld=3))}
+GRAD_CELLS.update({
+    "clear_ddt_grad": dict(NO_K4, **GRAD_BWD, rt_sweep=1, rt_sweep_idrv=1,
+                           rt_sweep_save=1, rt_adjoint_ddt_clear=1),
+    "mcica_cloudy_ddt_grad": dict(FWD, **GRAD_BWD, rt_sweep=1,
+                                  rt_sweep_idrv=1, rt_sweep_save=1,
+                                  rt_adjoint_ddt_compact=1),
+    "band_cloudy_ddt_grad": dict(
+        FWD, **GRAD_BWD, rt_sweep_banded=1, rt_sweep_banded_idrv=1,
+        rt_sweep_save_banded=1, rt_adjoint_ddt_banded=1, cldcoef_bwd=1),
+    "mcica_blocked_ddt_grad": dict(
+        FWD, **GRAD_BWD, rt_sweep_fused=1, rt_sweep_fused_idrv=1,
+        rt_sweep_save_fused=1, rt_adjoint_ddt_fused=1, cldcoef_bwd=1),
+    "mcica_tauc_ddt_grad": dict(
+        NO_K4, **GRAD_BWD, rt_sweep_cldf_od=1, rt_sweep_cldf_od_idrv=1,
+        rt_sweep_save_cldf_od=1, rt_adjoint_ddt_cldf_od=1)})
+GRAD_CELLS["maxrand_cloudy_ddt_grad"] = GRAD_CELLS[
+    "maxrand_cloudy_icld3_ddt_grad"] = dict(
+        FWD, **GRAD_BWD, rt_sweep_maxrand=1, rt_sweep_maxrand_idrv=1,
+        rt_sweep_save_maxrand=1, overlap_rows=1, overlap_bwd=1,
+        rt_adjoint_ddt_maxrand=1)
 
 
 def cloud_columns(clouds, cols):
-    """The columns ``cols`` (a slice) of BandClouds or McicaCloudsBlocked
-    (whose per-g arrays have the columns last)."""
-    from rrtmg_lw_torch import McicaCloudsBlocked
+    """The columns ``cols`` (a slice) of BandClouds, McicaCloudsBlocked
+    (whose per-g arrays have the columns last), McicaCloudsCompact (its
+    mask too) or None."""
+    from rrtmg_lw_torch import McicaCloudsBlocked, McicaCloudsCompact
+    if clouds is None:
+        return None
     if isinstance(clouds, McicaCloudsBlocked):
         return McicaCloudsBlocked(*(x[..., cols].contiguous()
                                     for x in clouds[:4]),
                                   *(x[cols] for x in clouds[4:]))
+    if isinstance(clouds, McicaCloudsCompact):
+        return McicaCloudsCompact(clouds.cldfmc[..., cols].contiguous(),
+                                  *(x[cols] for x in clouds[1:]))
     return type(clouds)(*(x[cols] for x in clouds))
 
 
 def grad_cell(device, counters, tag):
     """The gradient step of cell ``tag`` (utils/profiling.py, B=16384,
-    L=60) through the kernels, w.r.t. every Atmosphere field and the
-    cell's cloud fields: 3 timed steps with every launch counter set to 0
-    just before and read just after (GRAD_CELLS[tag] a step, 0 for the
+    L=60; a ``GRAD_OVERRIDES`` tag: its cell, steps and config overrides)
+    through the kernels, w.r.t. every Atmosphere field and the cell's
+    cloud fields: 3 timed steps with every launch counter set to 0 just
+    before and read just after (GRAD_CELLS[tag] a step, 0 for the
     others), peak memory; its gradients of a loss linear in the four flux
-    arrays (seeded cotangents) on all 16384 columns against the eager
-    step's, run in B_CHUNK-column chunks, within TOL_STEP of max |eager|
-    per field.  -> (launches in the timed steps, e2e row)."""
+    arrays (a ``ddt`` cell: in ``profiling.DDT_LOSS``, the timed steps'
+    loss too) with seeded cotangents on all 16384 columns against the
+    eager step's, run in B_CHUNK-column chunks, within TOL_STEP of max
+    |eager| per field.  -> (launches in the timed steps, e2e row)."""
     from rrtmg_lw_torch import McicaCloudsBlocked
     from rrtmg_lw_torch.parallel import make_grad_step
-    from rrtmg_lw_torch.utils.profiling import CELLS
-    atm, cl = inputs(tag, device)
-    fields = CELLS[tag].cloud_grads
+    from rrtmg_lw_torch.utils.profiling import CELLS, DDT_LOSS
+    cell, steps, kw = GRAD_OVERRIDES.get(tag, (tag, STEPS, {}))
+    ddt = CELLS[cell].ddt
+    names = DDT_LOSS if ddt else ("uflx", "dflx", "uflxc", "dflxc")
+    atm, cl = inputs(cell, device)
+    fields = CELLS[cell].cloud_grads
     gen = torch.Generator(device=device).manual_seed(7)
     cts = [torch.randn(B_MAIN, L_MAIN + 1, generator=gen, device=device)
-           for _ in range(4)]
+           for _ in names]
 
     def linear(cts):
-        return lambda f: sum((c * x).sum() for c, x in zip(
-            cts, (f.uflx, f.dflx, f.uflxc, f.dflxc)))
+        return lambda f: sum((c * getattr(f, n)).sum()
+                             for c, n in zip(cts, names))
 
-    model = CELLS[tag].make_model(device, impl="cuda")
-    step = make_grad_step(model, cloud_fields=fields)
-    step(atm, cl)                                   # warm-up
+    def run(step, atm, cl):
+        """(loss, Atmosphere grads, cloud grads) of a step"""
+        out = step(atm, cl)
+        return out if fields else (*out, ())
+
+    model = CELLS[cell].make_model(device, impl="cuda", **kw)
+    step = make_grad_step(model, linear(cts) if ddt else None, fields)
+    run(step, atm, cl)                              # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    for _ in range(STEPS):
-        loss, ga, gc = step(atm, cl)
+    for _ in range(steps):
+        loss, ga, gc = run(step, atm, cl)
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    ms = (time.perf_counter() - t0) * 1e3 / steps
     counts = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {k: GRAD_CELLS[tag].get(k, 0) * STEPS for k in counters}
+    want = {k: GRAD_CELLS[tag].get(k, 0) * steps for k in counters}
     need(counts == want, f"{tag}: launches {counts}, expected {want}")
     need(bool(torch.isfinite(loss)) and all(
         bool(torch.isfinite(g).all()) for g in (*ga, *gc)),
          f"{tag}: non-finite loss or gradient")
-    print(f"{tag}: launches in its {STEPS} steps: {counts}; peak "
+    print(f"{tag}: launches in its {steps} steps: {counts}; "
+          f"{ms:.2f} ms a step (host clock, synchronized); peak "
           f"{peak:.3f} GiB")
     del step, ga, gc
-    _, gk, ck = make_grad_step(model, linear(cts), fields)(atm, cl)
-    eager = CELLS[tag].make_model(device, impl="eager")
+    _, gk, ck = run(make_grad_step(model, linear(cts), fields), atm, cl)
+    eager = CELLS[cell].make_model(device, impl="eager", **kw)
     chunks = []
     for i in range(0, B_MAIN, B_CHUNK):
         s = slice(i, i + B_CHUNK)
-        _, ga, gc = make_grad_step(eager, linear([c[s] for c in cts]),
-                                   fields)(
-            type(atm)(*(x[s] for x in atm)), cloud_columns(cl, s))
+        _, ga, gc = run(make_grad_step(eager, linear([c[s] for c in cts]),
+                                       fields),
+                        type(atm)(*(x[s] for x in atm)),
+                        cloud_columns(cl, s))
         chunks.append((*ga, *gc))
     # McicaCloudsBlocked's per-g arrays have the columns last
     last = len(gk) + 4 if isinstance(cl, McicaCloudsBlocked) else 0
@@ -2294,22 +2534,24 @@ def grad_cell(device, counters, tag):
           for i, g in enumerate(zip(*chunks))]
     worst, err = grad_errs(tag, gk, type(gk)(*ge[:len(gk)]))
     cerr = {n: rel_err(g, r) for n, g, r in zip(fields, ck, ge[len(gk):])}
+    cmax = max(cerr.values(), default=0.0)
     need(all(bool(torch.isfinite(g).all()) for g in ck),
          f"{tag}: non-finite cloud gradient")
-    print(f"{tag}: cloud gradients, kernels vs eager, max rel err "
-          + ", ".join(f"{k} {v:.2g}" for k, v in cerr.items()))
-    need(err <= TOL_STEP and max(cerr.values()) <= TOL_STEP,
+    if fields:
+        print(f"{tag}: cloud gradients, kernels vs eager, max rel err "
+              + ", ".join(f"{k} {v:.2g}" for k, v in cerr.items()))
+    need(err <= TOL_STEP and cmax <= TOL_STEP,
          f"{tag}: gradient of {worst} off by {err:.3g}, cloud "
-         f"gradients by {max(cerr.values()):.3g} of max |eager|")
+         f"gradients by {cmax:.3g} of max |eager|")
     # zero only where eager's is (mcica_blocked's taucmc: every cloudy
     # g-point there has water, and cldprmc reads taucmc only where none)
     zero = [n for n, g, r in zip(fields, ck, ge[len(gk):])
             if bool(g.any()) != bool(r.any())]
-    need(not zero and bool(ck[0].any()),
+    need(not zero and (not fields or bool(ck[0].any())),
          f"{tag}: zero cloud gradients where eager's are not: {zero}")
     row = dict(cell=tag, impl="cuda", ncol=B_MAIN, nlay=L_MAIN,
                ms_per_step=ms, cols_per_sec=B_MAIN / (ms * 1e-3),
-               peak_gib=peak, grad_rel_err_vs_eager=max(err, *cerr.values()))
+               peak_gib=peak, grad_rel_err_vs_eager=max(err, cmax))
     del model, eager, gk, ck, ge, chunks
     torch.cuda.empty_cache()
     return counts, row
@@ -2320,9 +2562,9 @@ def phase_grad_idrv(device):
     and gives the idrv=0 step's loss and gradients bitwise (the loss reads
     no d/dT; both with deterministic algorithms, under which two idrv=0
     steps are bitwise equal too), and so does the maxrand step (K6
-    maxrand, w.r.t. the Atmosphere and the clouds); a loss that reads
-    duflx_dt (McICA, maxrand and banded) raises NotImplementedError on
-    the card."""
+    maxrand, w.r.t. the Atmosphere and the clouds): with no d/dT
+    cotangent the idrv=0 instantiations of K6 run (a loss that reads d/dT:
+    the ``*_ddt_grad`` cells)."""
     from rrtmg_lw_torch import Atmosphere, make_model
     from rrtmg_lw_torch.parallel import make_grad_step
     from rrtmg_lw_torch.utils.profiling import CELLS
@@ -2371,23 +2613,6 @@ def phase_grad_idrv(device):
     print("maxrand_cloudy_idrv_grad: loss and gradients (Atmosphere and "
           "clouds) bitwise equal to idrv=0's (deterministic algorithms)")
     del steps, out
-
-    def ddt(cell, **kw):
-        return make_grad_step(make_model(CELLS[cell].config(
-            impl="cuda", **kw), device=device), lambda f: (
-                f.duflx_dt ** 2).mean())
-    for tag, step, c in (
-            ("d/dT cotangent", ddt("mcica_cloudy_idrv"), clouds),
-            ("maxrand d/dT cotangent", ddt("maxrand_cloudy_grad", idrv=1),
-             bc),
-            ("banded d/dT cotangent", ddt("band_cloudy_idrv"), bc)):
-        try:
-            step(atm, c)
-        except NotImplementedError as e:
-            need("ROADMAP" in str(e), f"{tag}: {e}")
-        else:
-            need(False, f"{tag}: the backward did not raise on the card")
-        print(f"grad: {tag} raises NotImplementedError on the card")
     print("mcica_cloudy_idrv_grad: loss and gradients bitwise equal to "
           "idrv=0's (deterministic algorithms)")
 
@@ -2744,7 +2969,8 @@ def main() -> int:
                                                  ice_liq_coeffs_vjp)
     from rrtmg_lw_torch.ops.planck_cuda import (planck_interp_blocked,
                                                 planck_interp_vjp)
-    from rrtmg_lw_torch.ops.rtrn_cuda import (rt_fluxes_banded,
+    from rrtmg_lw_torch.ops.rtrn_cuda import (DDT_LAUNCHES,
+                                              rt_fluxes_banded,
                                               rt_fluxes_blocked,
                                               rt_fluxes_cldf_od,
                                               rt_fluxes_fused,
@@ -2806,6 +3032,15 @@ def main() -> int:
               "spill stores" + (f", {r['smem_bytes']} B shared memory, "
                                 f"{r['blocks_per_sm']} blocks per SM"
                                 if "smem_bytes" in r else ""))
+    ddt_build = ddt_build_info(path.parent / "build.log")
+    for key, r in ddt_build.items():
+        print(f"{key}: {r['registers']} registers, {r['spill_bytes']} B "
+              f"spill stores, {r['local_bytes']} B local memory, "
+              f"{r['smem_bytes']} B shared memory at L={L_MAIN} "
+              f"({r['smem_bytes_deep']} B at L={L_DEEP}), "
+              f"{r['blocks_per_sm']} blocks per SM ({r['blocks_per_sm_deep']} "
+              f"at L={L_DEEP}), {r['threads']} threads of {r['columns']} "
+              "columns")
     k5_build = k5_build_info(path.parent / "build.log")
     print(f"K5: {k5_build['registers']} registers, "
           f"{k5_build['spill_bytes']} B spill stores, "
@@ -2841,7 +3076,9 @@ def main() -> int:
                         rt_adjoint_cldf_od=rt_sweep_g_vjp.cldf_od,
                         cldcoef_bwd=ice_liq_coeffs_vjp,
                         taumol_bwd=taumol_vjp, planck_bwd=planck_interp_vjp,
-                        rt_adjoint=rt_sweep_vjp)
+                        rt_adjoint=rt_sweep_vjp,
+                        **{f"rt_adjoint_ddt_{m}": DDT_LAUNCHES[m]
+                           for m in DDT_MODES})
     fwd_counters = dict(counters, **bwd_counters,
                         rt_sweep_banded=rt_fluxes_banded,
                         rt_sweep_maxrand=rt_fluxes_maxrand,
@@ -2881,8 +3118,10 @@ def main() -> int:
 
     # 6. grad: backward kernels vs plain vjps, then the gradient step
     res.update(phase_grad_kernels(device))
+    torch.cuda.empty_cache()
+    res.update(ddt_grad_kernels(device))
     for name, ms in grad_dev.items():
-        res[name]["device_ms"] = ms
+        res[name].update(ms if isinstance(ms, dict) else dict(device_ms=ms))
     torch.cuda.empty_cache()
     save_paths = k1_save_cases(device)
     for name in ("rt_sweep_save", *(f"rt_sweep_save_{m}"
@@ -2897,13 +3136,15 @@ def main() -> int:
                     rt_sweep_save=rt_fluxes_blocked.save)
     grad_launches, grad_rows = phase_grad_step(device, counters)
     rows += grad_rows
-    # the maxrand gradient step, then this slice's main path, the banded
-    # gradient step (band_cloudy_grad), and the fused and cldf-odcld ones,
-    # each counted alone on every counter
+    # the maxrand gradient step, the banded gradient step
+    # (band_cloudy_grad), the fused and cldf-odcld ones, then the d/dT
+    # gradient steps (``*_ddt_grad``), each counted alone
+    # on every counter
     cell_grad = {}
     for tag in GRAD_CELLS:
         cell_grad[tag], row = grad_cell(device, fwd_counters, tag)
         rows.append(row)
+        torch.cuda.empty_cache()
     phase_grad_idrv(device)
     storage_grad_raises(device)
     torch.cuda.empty_cache()
@@ -2919,6 +3160,10 @@ def main() -> int:
             ("mcica_tauc_grad", ("rt_sweep_save_cldf_od",
                                  "rt_adjoint_cldf_od"))):
         launches.update({k: cell_grad[tag][k] for k in names})
+    for counts in cell_grad.values():
+        for k, n in counts.items():
+            if k.startswith("rt_adjoint_ddt_") and n:
+                launches.setdefault(k, n)
 
     # 7. the archived probes' counterparts
     probe_res, probe_launches = phase_probes(device)
@@ -2963,6 +3208,17 @@ def main() -> int:
                   f"({r['blocks_per_sm_deep']} at L={L_DEEP}), "
                   f"{r['registers']} registers, {r['spill_bytes']} B "
                   f"spill stores; staging: {r['staging']}")
+    for mode in DDT_MODES:
+        name = f"rt_adjoint_ddt_{mode}"
+        r = res[name]
+        r.update(ddt_build[name],
+                 gbps=r["bytes_once"] / (r["device_ms"] * 1e-3) / 1e9)
+        print(f"{name}: device {r['device_ms']:.3f} ms "
+              f"({r['device_ms_deep']:.3f} at L={L_DEEP}), {r['gbps']:.0f} "
+              f"GB/s of its bytes read once, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}; its scratch {r['scratch_gb']:.2f} GB "
+              f"besides), {r['registers']} registers, {r['blocks_per_sm']} "
+              "blocks per SM")
     r = res["taumol_bwd"]
     r.update(k5_build, gbps=r["bytes_once"] / (r["device_ms"] * 1e-3) / 1e9)
     print(f"taumol_bwd: device {r['device_ms']:.3f} ms, {r['gbps']:.0f} GB/s "

@@ -60,12 +60,18 @@ SIGNATURES = {
     "rrtm_rt_bwd_mr_scratch": (I, I, P),
     "rrtm_rt_bwd_mr_layout": (P,),
     "rrtm_rt_bwd_mr_info": (I, P),
+    "rrtm_rt_bwd_mr_ddt": (P,) * 23 + (I, I, I, P),
+    "rrtm_rt_bwd_mr_ddt_info": (I, P),
     "rrtm_rt_bwd_g": (P,) * 29 + (I, I, I, P),
     "rrtm_rt_bwd_g_scratch": (I, I, I, P),
     "rrtm_rt_bwd_g_layout": (I, I, P),
     "rrtm_rt_bwd_g_info": (I, I, P),
+    "rrtm_rt_bwd_g_ddt": (P,) * 31 + (I, I, I, P),
+    "rrtm_rt_bwd_g_ddt_info": (I, I, P),
     "rrtm_rt_bwd": (P,) * 21 + (I, I, I, P),
     "rrtm_rt_bwd_info": (I, P),
+    "rrtm_rt_bwd_ddt": (P,) * 23 + (I, I, I, P),
+    "rrtm_rt_bwd_ddt_info": (I, P),
     "rrtm_taumol_ndesc": (),
     "rrtm_probe_onehot": (P, P, P, I, I, I, I, I, P),
     "rrtm_probe_gather": (P, P, P, I, I, I, P),

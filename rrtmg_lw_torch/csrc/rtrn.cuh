@@ -184,6 +184,44 @@ __device__ __forceinline__ void advance_ddt(float& dl, float& dc,
     dl = dn;
 }
 
+// The adjoint of advance_ddt at one (column, g) of a layer, for K6 at
+// idrv=1 (rtrn_bwd.cu, rtrn_bwd_g.cu, rtrn_bwd_mr.cu; rtrn.ddt_adjoint):
+// ct_t and ct_tc are the cotangents of the layer's d/dT transmittance t
+// (cly ? cf (1 - atot) + (1 - cf) (1 - at) : 1 - at) and of its clear
+// twin's tc = 1 - at, each the cotangent of the outgoing derivative
+// times the incoming one; t and tc come back.
+struct DdtStep {
+    float ct_t, ct_tc, t, tc;
+};
+
+// t and tc of the layer into d, and the cotangents d.ct_t and d.ct_tc
+// added to those of the layer's gas and total absorptivities and of its
+// cloud fraction (the last two only in a cloudy layer).
+__device__ __forceinline__ void ddt_step_bwd(DdtStep& d, float at,
+                                             float atot, float cf, bool cly,
+                                             float& ct_at, float& ct_atot,
+                                             float& ct_cf) {
+    const float tg = 1.0f - at;
+    d.t = cly ? cf * (1.0f - atot) + (1.0f - cf) * tg : tg;
+    d.tc = tg;
+    ct_at -= (cly ? d.ct_t * (1.0f - cf) : d.ct_t) + d.ct_tc;
+    if (cly) {
+        ct_atot -= d.ct_t * cf;
+        ct_cf += d.ct_t * (at - atot);
+    }
+}
+
+// The d/dT operands of K6 at idrv=1: ct (2, L+1, B) the cotangents of
+// duflx_dt and duflxc_dt; lam (1 | 2, L, 140, B) a scratch the reverse up
+// sweep writes and the reverse down sweep reads, at (l, g, b) the
+// cotangent of the derivative leaving layer l upward (plane 0: of the
+// total-sky one, the clear twin's added where the column has no cloud;
+// plane 1, cloudy modes: of the clear twin's, where it has one).
+struct Ddt {
+    const float* ct;
+    float* lam;
+};
+
 // One level of the maximum-random overlap recursion (rtrn._sweep_maxrand,
 // rtrnmr.f90:591-615 down, 678-703 up).  In a cloudy layer (cly) the
 // total-sky stream is the sum of a cloudy (cr) and a clear (kr)

@@ -1,8 +1,10 @@
 // K6: the adjoint of the RT sweep kernel (K1), clear sky and compact
-// McICA clouds (idrv = 0): flux cotangents (4, L+1, B) -> cotangents of
-// taut, fracs (L, 140, B), planklay (L, 16, B), planklev (L+1, 16, B),
-// the surface rows (3, 16, B), and, cloudy, cw (L, 2, B), abi, abl
-// (L, 16, B).
+// McICA clouds: flux cotangents (4, L+1, B) -> cotangents of taut, fracs
+// (L, 140, B), planklay (L, 16, B), planklev (L+1, 16, B), the surface
+// rows (3, 16, B), and, cloudy, cw (L, 2, B), abi, abl (L, 16, B).  At
+// idrv=1 with a cotangent of the d/dT outputs (2, L+1, B) its
+// instantiation rt_bwd_ddt_kernel also runs their adjoint, and the
+// surface rows are (4, 16, B), the fourth dplankbnd_dt (below).
 //
 // Replaces the JAX package's backward of the TPU sweep, which was
 // unrolled XLA (rrtmg_lw_tpu/ops/rtrn_bwd.py:259 rt_bwd_fluxes, under
@@ -73,6 +75,27 @@
 //   after it, and the next step's cloudy-layer ballots.
 // No atomics on floats: two runs are bitwise equal.
 //
+// The d/dT outputs (idrv=1; rtrn.cuh advance_ddt) sweep up linearly from
+// the surface seed fracs[0] x dplankbnd_dt through each layer's
+// transmittance t (cly ? cf (1 - atot) + (1 - cf) (1 - at) : 1 - at; the
+// clear twin's 1 - at where the column has a cloud); no source and no
+// reflection enter.  Their adjoint (the plain twin: rtrn.ddt_adjoint)
+// needs at each layer the cotangent lam of the derivative leaving it,
+// made top down, and the derivative P entering it, made surface up; K6's
+// reverse up sweep visits the layers top down and its reverse down sweep
+// surface up, each recomputing the layer's factors.  So the up sweep
+// carries lam (and the clear twin's) beside the radiance cotangents and
+// writes it to a scratch (rtrn.cuh Ddt: 1 or 2 (L, 140, B) planes), the
+// surface step turns it into the seed's cotangents (fracs at layer 0;
+// surf's row 3, summed per band in g order as row 2), and the down sweep
+// carries P, reads lam back and adds lam P dt/d(at, atot) to the layer's
+// factors' cotangents (ddt_step_bwd), whose chain to taut, the secant and
+// cw, abi, abl is the step's own.  The body is shared: the idrv=0 kernel
+// is it without these terms, its code as before.  The d/dT carries take
+// registers: rt_bwd_ddt_kernel is launched at one block per SM (compact
+// 192 registers; clear's 120 still fit two), the scratch moves 2.2 GB
+// (clear 1.1) besides its bound's bytes at B=16384, L=60.
+//
 // Shared memory a block (bytes):        clear    compact
 //   ring slot                          29,056     40,384
 //   ring of RING = 2 slots             58,112     80,768
@@ -93,7 +116,9 @@ struct Grads {
     float* fracs;    // (L, 140, B)
     float* play;     // (L, 16, B)
     float* plev;     // (L+1, 16, B)
-    float* surf;     // (3, 16, B): secdiff, semiss, plankbnd
+    // (3, 16, B): secdiff, semiss, plankbnd; idrv with the d/dT adjoint
+    // (4, 16, B), + dplankbnd_dt
+    float* surf;
     float* cw;       // (L, 2, B)
     float* abi;      // (L, 16, B)
     float* abl;      // (L, 16, B)
@@ -172,7 +197,9 @@ static_assert(KNB * KX == KT, "one secant a thread");
 // and returns the cotangents of taut and fracs; adds the secant's to
 // ct_secd.  abi, abl point at the band's coefficients, read only where a
 // water path is nonzero.
-template <bool CLOUDY>
+// IDRV: dd carries the step of the d/dT sweep's adjoint (rtrn.cuh
+// ddt_step_bwd), whose cotangents join the factors' here.
+template <bool CLOUDY, bool IDRV>
 __device__ __forceinline__ void step_bwd(float tau, float fr, float bl,
                                          float pl, float secd, float m,
                                          float cw0, float cw1, bool cly,
@@ -181,7 +208,7 @@ __device__ __forceinline__ void step_bwd(float tau, float fr, float bl,
                                          float& lam, float& mu,
                                          float& ct_tau, float& ct_fr,
                                          float& ct_secd, float* gp,
-                                         float* gw) {
+                                         float* gw, DdtStep& dd) {
     const float dp = pl - bl;
     const float x = secd * tau;
     const float od = fmaxf(x, 0.0f);
@@ -238,6 +265,10 @@ __device__ __forceinline__ void step_bwd(float tau, float fr, float bl,
     }
     lam = ct_rad;
     mu = ct_radc;
+    if constexpr (IDRV) {
+        float ct_cf = 0.0f;     // compact's cf is the mask: no gradient
+        ddt_step_bwd(dd, at, atot, cf, cly, ct_at, ct_atot, ct_cf);
+    }
 
     // factors -> inputs
     ct_fr = ct_src * (bl + tfg * dp) + ct_srctot * (bl + tft * dp);
@@ -285,11 +316,14 @@ __device__ __forceinline__ void band_sums(const float* gp, const int* goff,
     }
 }
 
-template <bool CLOUDY>
-__global__ void __launch_bounds__(KT, BLOCKS_PER_SM)
-rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
-              const float* __restrict__ wg, const float* __restrict__ ct,
-              const float* __restrict__ rads, Grads gr) {
+// The kernel's body; IDRV: with the d/dT sweep's adjoint (dt), its
+// cotangents of each layer's factors added to the down sweep's reverse
+// step of the layer.
+template <bool CLOUDY, bool IDRV>
+__device__ __forceinline__ void rt_bwd_body(
+        const Inputs& in, const int* __restrict__ ngb,
+        const float* __restrict__ wg, const float* __restrict__ ct,
+        const float* __restrict__ rads, const Grads& gr, const Ddt& dt) {
     using Sl = BwdSlot<CLOUDY>;
     using Lo = BwdLayout<CLOUDY>;
     constexpr int NQS = CLOUDY ? 4 : 2;     // quantities in gp (step_bwd)
@@ -437,9 +471,15 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
     const bool anyc = hi >= 0;
 
     float lam[KGPT], mu[KGPT], ct_fr0[KGPT];
+    // IDRV: the d/dT sweep's carries of each g-point, the cotangents of
+    // the derivative and its clear twin in the reverse up sweep, from the
+    // surface step on the derivatives themselves (rtrn.ddt_adjoint)
+    constexpr int ND = IDRV ? KGPT : 1;
+    [[maybe_unused]] float dd[ND], ddc[ND];
 #pragma unroll
     for (int k = 0; k < KGPT; ++k) {
         lam[k] = mu[k] = ct_fr0[k] = 0.0f;
+        if constexpr (IDRV) dd[k] = ddc[k] = 0.0f;
         if (ty + k * KY < KG) ctsec_s[(ty + k * KY) * KX + tx] = 0.0f;
     }
     auto gp_buf = [&](int j) {
@@ -477,6 +517,24 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
                 cw1 = cw_s[KX + tx];
             }
             const bool twin = UPW ? anyc : l <= hi;
+            // idrv: the up sweep's d/dT cotangents at level lev; the down
+            // sweep's scratch rows of layer l
+            [[maybe_unused]] float cd = 0.0f, ccd = 0.0f;
+            [[maybe_unused]] float lin[ND], linc[ND];
+            if constexpr (IDRV && UPW) {
+                cd = dt.ct[(size_t)lev * Bz + b];
+                ccd = dt.ct[((size_t)(L + 1) + lev) * Bz + b];
+            }
+            if constexpr (IDRV && !UPW) {
+#pragma unroll
+                for (int k = 0; k < KGPT; ++k) {
+                    const int g = ty + k * KY;
+                    if (g >= KG) continue;
+                    const size_t gi = ((size_t)l * KG + g) * Bz + b;
+                    lin[k] = dt.lam[gi];
+                    linc[k] = anyc ? dt.lam[LGB + gi] : 0.0f;
+                }
+            }
             // clear: the up sweep's cotangents of taut and fracs, which
             // the down sweep adds to, loaded before any store of the step
             float pt[KGPT], pf[KGPT];
@@ -520,13 +578,39 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
                     radc = CLOUDY ? rad_s[KG * KX + gs] : rad;
                 }
                 const size_t bi = ((size_t)l * KNB + bd) * Bz + b;
+                // idrv, up: the cotangent of the derivative leaving layer
+                // l (the clear twin's folded in where it is the same) to
+                // the scratch; down: the layer's transmittances' cotangents
+                [[maybe_unused]] DdtStep ds{};
+                [[maybe_unused]] float lt = 0.0f;
+                if constexpr (IDRV && UPW) {
+                    dd[k] += wg_s[g] * cd;
+                    ddc[k] += wg_s[g] * ccd;
+                    lt = anyc ? dd[k] : dd[k] + ddc[k];
+                    dt.lam[gi] = lt;
+                    if (anyc) dt.lam[LGB + gi] = ddc[k];
+                }
+                if constexpr (IDRV && !UPW) {
+                    ds.ct_t = lin[k] * dd[k];
+                    ds.ct_tc = anyc ? linc[k] * ddc[k] : 0.0f;
+                }
                 float ct_tau, ct_fr;
-                step_bwd<CLOUDY>(tau_s[gs], fr_s[gs], play_s[bs],
-                                 plev_s[bs], secd_s[bs],
-                                 CLOUDY ? (float)m_s[gs] : 0.0f, cw0, cw1,
-                                 cly, twin, rad, radc, in.abi + bi,
-                                 in.abl + bi, lam[k], mu[k], ct_tau, ct_fr,
-                                 ctsec_s[gs], gp + gs, gw + gs);
+                step_bwd<CLOUDY, IDRV>(tau_s[gs], fr_s[gs], play_s[bs],
+                                       plev_s[bs], secd_s[bs],
+                                       CLOUDY ? (float)m_s[gs] : 0.0f, cw0,
+                                       cw1, cly, twin, rad, radc, in.abi + bi,
+                                       in.abl + bi, lam[k], mu[k], ct_tau,
+                                       ct_fr, ctsec_s[gs], gp + gs, gw + gs,
+                                       ds);
+                if constexpr (IDRV && UPW) {
+                    dd[k] = lt * ds.t;
+                    ddc[k] = anyc ? ddc[k] * ds.tc : 0.0f;
+                }
+                if constexpr (IDRV && !UPW) {
+                    const float pn = dd[k] * ds.t;
+                    ddc[k] = anyc ? ddc[k] * ds.tc : pn;
+                    dd[k] = pn;
+                }
                 if constexpr (UPW) {
                     gr.taut[gi] = ct_tau;
                     gr.fracs[gi] = ct_fr;
@@ -594,11 +678,19 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
     for (int j = 0; j < L; ++j) step(std::true_type{}, std::false_type{}, j);
 
     // ---- 4. surface reflection in reverse ----
+    // idrv: the d/dT seed fracs[0] x dplankbnd_dt takes the cotangent of
+    // both derivatives at the surface; sd its per-g share of row 3's
+    [[maybe_unused]] float sd[ND];
     {
         float* gp = gp_buf(L);
         if (valid) {
             const float cu = ct[(size_t)UP * (L + 1) * Bz + b];
             const float ccu = ct[(size_t)CLR_UP * (L + 1) * Bz + b];
+            [[maybe_unused]] float cd0 = 0.0f, ccd0 = 0.0f;
+            if constexpr (IDRV) {
+                cd0 = dt.ct[b];
+                ccd0 = dt.ct[(size_t)(L + 1) * Bz + b];
+            }
 #pragma unroll
             for (int k = 0; k < KGPT; ++k) {
                 const int g = ty + k * KY;
@@ -619,6 +711,15 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
                 gp[(KG + g) * KX + tx] = ct_rad0 * fr0;
                 lam[k] = lam0 * reflect;
                 mu[k] = mu0 * reflect;
+                if constexpr (IDRV) {
+                    const float dpl =
+                        in.surf[((size_t)3 * KNB + bd) * Bz + b];
+                    const float ctd0 = dd[k] + wg_s[g] * cd0
+                                       + (ddc[k] + wg_s[g] * ccd0);
+                    ct_fr0[k] += ctd0 * dpl;
+                    sd[k] = ctd0 * fr0;
+                    dd[k] = ddc[k] = fr0 * dpl;
+                }
             }
         }
         __syncthreads();
@@ -629,6 +730,20 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
             gr.surf[((size_t)2 * KNB + ty) * Bz + b] = sq[1];
         }
         __syncthreads();
+        // idrv: row 3's cotangent, summed as row 2's
+        if constexpr (IDRV) {
+            if (valid) {
+#pragma unroll
+                for (int k = 0; k < KGPT; ++k) {
+                    const int g = ty + k * KY;
+                    if (g < KG) gp[g * KX + tx] = sd[k];
+                }
+            }
+            __syncthreads();
+            band_sums<1>(gp, goff, sq);
+            if (valid) gr.surf[((size_t)3 * KNB + ty) * Bz + b] = sq[0];
+            __syncthreads();
+        }
     }
 
     // ---- 5. down sweep in reverse: layer 0 .. L-1 ----
@@ -643,33 +758,81 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
     if (valid) gr.surf[(size_t)ty * Bz + b] = sq[0];
 }
 
-// the shared memory attributes of K6, set once per process
 template <bool CLOUDY>
+__global__ void __launch_bounds__(KT, BLOCKS_PER_SM)
+rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
+              const float* __restrict__ wg, const float* __restrict__ ct,
+              const float* __restrict__ rads, Grads gr) {
+    rt_bwd_body<CLOUDY, false>(in, ngb, wg, ct, rads, gr, Ddt{});
+}
+
+// K6 with the d/dT sweep's adjoint (idrv=1 and a cotangent of duflx_dt
+// or duflxc_dt): one block per SM, whose registers hold the d/dT carries
+// beside the others (two blocks would leave it 128 registers a thread).
+template <bool CLOUDY>
+__global__ void __launch_bounds__(KT, 1)
+rt_bwd_ddt_kernel(Inputs in, const int* __restrict__ ngb,
+                  const float* __restrict__ wg, const float* __restrict__ ct,
+                  const float* __restrict__ rads, Grads gr, Ddt dt) {
+    rt_bwd_body<CLOUDY, true>(in, ngb, wg, ct, rads, gr, dt);
+}
+
+template <bool CLOUDY, bool IDRV>
+auto bwd_kernel() {
+    if constexpr (IDRV)
+        return rt_bwd_ddt_kernel<CLOUDY>;
+    else
+        return rt_bwd_kernel<CLOUDY>;
+}
+
+// the shared memory attributes of K6, set once per process
+template <bool CLOUDY, bool IDRV>
 cudaError_t prepare_bwd() {
     static const cudaError_t e =
-        tile_smem(rt_bwd_kernel<CLOUDY>, BwdLayout<CLOUDY>::BYTES);
+        tile_smem(bwd_kernel<CLOUDY, IDRV>(), BwdLayout<CLOUDY>::BYTES);
     return e;
 }
 
+// K6, with the d/dT sweep's adjoint where dt.ct is given
 template <bool CLOUDY>
 cudaError_t launch_bwd(const Inputs& in, const int* ngb, const float* wg,
                        const float* ct, const float* rads, const Grads& gr,
-                       cudaStream_t s) {
-    cudaError_t e = prepare_bwd<CLOUDY>();
+                       const Ddt& dt, cudaStream_t s) {
+    cudaError_t e = dt.ct ? prepare_bwd<CLOUDY, true>()
+                          : prepare_bwd<CLOUDY, false>();
     if (e != cudaSuccess) return e;
     const dim3 block(KX, KY);
     const dim3 grid((in.B + KX - 1) / KX);
-    rt_bwd_kernel<CLOUDY><<<grid, block, BwdLayout<CLOUDY>::BYTES, s>>>(
-        in, ngb, wg, ct, rads, gr);
+    if (dt.ct)
+        rt_bwd_ddt_kernel<CLOUDY>
+            <<<grid, block, BwdLayout<CLOUDY>::BYTES, s>>>(in, ngb, wg, ct,
+                                                           rads, gr, dt);
+    else
+        rt_bwd_kernel<CLOUDY><<<grid, block, BwdLayout<CLOUDY>::BYTES, s>>>(
+            in, ngb, wg, ct, rads, gr);
     return cudaGetLastError();
 }
 
-template <bool CLOUDY>
+template <bool CLOUDY, bool IDRV>
 cudaError_t info_bwd(int* out) {
-    cudaError_t e = prepare_bwd<CLOUDY>();
+    cudaError_t e = prepare_bwd<CLOUDY, IDRV>();
     if (e != cudaSuccess) return e;
-    return tile_info(rt_bwd_kernel<CLOUDY>, BwdLayout<CLOUDY>::BYTES, RING,
-                     out);
+    return tile_info(bwd_kernel<CLOUDY, IDRV>(), BwdLayout<CLOUDY>::BYTES,
+                     RING, out);
+}
+
+int bwd_entry(const Inputs& in, const int* ngb, const float* wg,
+              const float* ct, const float* rads, const Grads& gr,
+              const Ddt& dt, int cloudy, void* stream) {
+    if (in.L <= 0 || in.B <= 0) return (int)cudaGetLastError();
+    if (!rads || !ct || (dt.ct && !dt.lam)
+        || (cloudy && (!in.mask || !in.cw || !in.abi || !in.abl || !gr.cw
+                       || !gr.abi || !gr.abl)))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    return (int)(cloudy ? launch_bwd<true>(in, ngb, wg, ct, rads, gr, dt, s)
+                        : launch_bwd<false>(in, ngb, wg, ct, rads, gr, dt,
+                                            s));
 }
 
 }  // namespace
@@ -688,20 +851,44 @@ RRTM_API int rrtm_rt_bwd(const float* taut, const float* fracs,
                          float* ct_play, float* ct_plev, float* ct_surf,
                          float* ct_cw, float* ct_abi, float* ct_abl, int L,
                          int B, int cloudy, void* stream) {
-    if (L <= 0 || B <= 0) return (int)cudaGetLastError();
-    if (!rads || (cloudy && (!mask || !cw || !abi || !abl || !ct_cw
-                             || !ct_abi || !ct_abl)))
-        return (int)cudaErrorInvalidValue;
     const Inputs in{taut, fracs, play, plev, surf, mask, cw, abi, abl, L, B};
     const Grads gr{ct_taut, ct_fracs, ct_play, ct_plev, ct_surf, ct_cw,
                    ct_abi, ct_abl};
-    cudaStream_t s = (cudaStream_t)stream;
-    return (int)(cloudy ? launch_bwd<true>(in, ngb, wg, ct, rads, gr, s)
-                        : launch_bwd<false>(in, ngb, wg, ct, rads, gr, s));
+    return bwd_entry(in, ngb, wg, ct, rads, gr, Ddt{}, cloudy, stream);
+}
+
+// rrtm_rt_bwd at idrv=1 with the d/dT sweep's adjoint: surf and ct_surf
+// (4, 16, B), the fourth row dplankbnd_dt and its cotangent; ct_ddt (2,
+// L+1, B) the cotangents of duflx_dt and duflxc_dt; lam the scratch of
+// (cloudy ? 2 : 1) x (L, 140, B) floats (rtrn.cuh Ddt).
+RRTM_API int rrtm_rt_bwd_ddt(const float* taut, const float* fracs,
+                             const float* play, const float* plev,
+                             const float* surf, const int* ngb,
+                             const float* wg, const int8_t* mask,
+                             const float* cw, const float* abi,
+                             const float* abl, const float* ct,
+                             const float* rads, float* ct_taut,
+                             float* ct_fracs, float* ct_play, float* ct_plev,
+                             float* ct_surf, float* ct_cw, float* ct_abi,
+                             float* ct_abl, const float* ct_ddt, float* lam,
+                             int L, int B, int cloudy, void* stream) {
+    if (!ct_ddt) return (int)cudaErrorInvalidValue;
+    const Inputs in{taut, fracs, play, plev, surf, mask, cw, abi, abl, L, B};
+    const Grads gr{ct_taut, ct_fracs, ct_play, ct_plev, ct_surf, ct_cw,
+                   ct_abi, ct_abl};
+    return bwd_entry(in, ngb, wg, ct, rads, gr, Ddt{ct_ddt, lam}, cloudy,
+                     stream);
 }
 
 // The launch configuration of K6, clear or compact (cloudy): out[0..7]
 // as rrtm_rt_info's (rtrn.cuh tile_info).
 RRTM_API int rrtm_rt_bwd_info(int cloudy, int* out) {
-    return (int)(cloudy ? info_bwd<true>(out) : info_bwd<false>(out));
+    return (int)(cloudy ? info_bwd<true, false>(out)
+                        : info_bwd<false, false>(out));
+}
+
+// The same of rrtm_rt_bwd_ddt's instantiation.
+RRTM_API int rrtm_rt_bwd_ddt_info(int cloudy, int* out) {
+    return (int)(cloudy ? info_bwd<true, true>(out)
+                        : info_bwd<false, true>(out));
 }

@@ -1,8 +1,10 @@
 // K6 in the banded, fused and cldf-odcld modes: the adjoint of K1's
 // random-overlap sweep of per-band clouds (banded, icld=1) and of McICA
 // per-g clouds (fused: cldprmc inline, inflag=2; cldf-odcld: the per-g
-// cloud od given, inflag=0), at idrv = 0 or at idrv = 1 without a
-// cotangent of the d/dT outputs: flux cotangents (4, L+1, B) ->
+// cloud od given, inflag=0), at idrv = 0 or 1: flux cotangents (4, L+1, B)
+// (at idrv=1 with a cotangent of the d/dT outputs, (2, L+1, B), the
+// instantiation rt_bwd_g_ddt_kernel, which also runs their adjoint, as
+// K6's in rtrn_bwd.cu does, and takes and gives the fourth surface row) ->
 // cotangents of taut, fracs (L, 140, B), planklay (L, 16, B), planklev
 // (L+1, 16, B), the surface rows (3, 16, B) and the mode's cloud inputs:
 //   banded:     cldfrac (L, B), the per-band cloud od taucb (L, 16, B);
@@ -111,6 +113,14 @@
 //   k6g_variants ``fill`` variant, PERF.md.)
 // No atomics on floats: two runs are bitwise equal.  Block barriers: one
 // per step, three more around the surface step.
+// - The d/dT adjoint (rt_bwd_g_ddt_kernel; the design: rtrn_bwd.cu):
+//   each thread carries the d/dT cotangents (then derivatives) of its
+//   g-points in registers, and reads and writes its scratch rows of lam
+//   directly, a warp a 128-byte row (the down sweep's in one batch before
+//   the g-loop); the surface step sums the seed's cotangents per band
+//   beside em and pb, over the slot's RAD rows.  Two blocks per SM, as
+//   the idrv=0 kernel: 128 registers, fused 24 B of spill stores (at one
+//   block per SM, 150-168 registers, no spill, it took 1.4-1.6x as long).
 //
 // Shared memory a block (bytes):       banded   cldf-odcld      fused
 //   ring slot                          31,104       37,120     49,408
@@ -266,12 +276,14 @@ struct StepGrads {
 // ai_b, al_b the band's coefficients (fused); cly the layer's flag, twin
 // the clear twin's; rad, radc the radiance and clear twin entering the
 // layer.  lam, mu hold the cotangents of the step's outputs on entry and
-// of its inputs on exit.
-template <int MODE>
+// of its inputs on exit.  IDRV: dd carries the step of the d/dT sweep's
+// adjoint (rtrn.cuh ddt_step_bwd), whose cotangents join the factors'.
+template <int MODE, bool IDRV>
 __device__ __forceinline__ StepGrads g_step_bwd(
         float tau, float fr, float bl, float pl, float secd, float cf,
         float tauc, float ciwp, float clwp, float ai_b, float al_b,
-        bool cly, bool twin, float rad, float radc, float& lam, float& mu) {
+        bool cly, bool twin, float rad, float radc, float& lam, float& mu,
+        DdtStep& dd) {
     StepGrads o{};
     const float dp = pl - bl;
     const float x = secd * tau;
@@ -333,6 +345,8 @@ __device__ __forceinline__ StepGrads g_step_bwd(
     }
     lam = ct_rad;
     mu = ct_radc;
+    if constexpr (IDRV)
+        ddt_step_bwd(dd, at, atot, cf, cly, ct_at, ct_atot, o.cf);
 
     // factors -> inputs
     o.fr = ct_src * (bl + tfg * dp) + ct_srctot * (bl + tft * dp);
@@ -370,12 +384,15 @@ __device__ __forceinline__ StepGrads g_step_bwd(
 // else null).  The per-g modes' cloudy-layer words ((tiles, L), K1's) in
 // its words.
 
-template <int MODE>
-__global__ void __launch_bounds__(GT, G_BLOCKS_PER_SM)
-rt_bwd_g_kernel(__grid_constant__ const GMaps maps, Inputs in, Clouds cl,
-                const int* __restrict__ ngb, const float* __restrict__ wg,
-                const float* __restrict__ ct, const float* __restrict__ rads,
-                GGrads gr, GScratch sc, int vec) {
+// The kernel's body; IDRV: with the d/dT sweep's adjoint (dt), its
+// cotangents of each layer's factors added to the down sweep's reverse
+// step of the layer.  maps: the kernel's __grid_constant__ parameter.
+template <int MODE, bool IDRV>
+__device__ __forceinline__ void rt_bwd_g_body(
+        const GMaps& maps, const Inputs& in, const Clouds& cl,
+        const int* __restrict__ ngb, const float* __restrict__ wg,
+        const float* __restrict__ ct, const float* __restrict__ rads,
+        const GGrads& gr, const GScratch& sc, int vec, const Ddt& dt) {
     using Sl = GSlot<MODE>;
     using Lo = GLayout<MODE>;
     constexpr bool BND = MODE == BANDED;
@@ -574,8 +591,16 @@ rt_bwd_g_kernel(__grid_constant__ const GMaps maps, Inputs in, Clouds cl,
     };
 
     float lam[GPT], mu[GPT], ct_fr0[GPT];
+    // IDRV: the d/dT sweep's carries of each g-point, the cotangents of
+    // the derivative and its clear twin in the reverse up sweep, from the
+    // surface step on the derivatives themselves (rtrn.ddt_adjoint)
+    constexpr int ND = IDRV ? GPT : 1;
+    [[maybe_unused]] float dd[ND], ddc[ND];
 #pragma unroll
-    for (int k = 0; k < GPT; ++k) lam[k] = mu[k] = ct_fr0[k] = 0.0f;
+    for (int k = 0; k < GPT; ++k) {
+        lam[k] = mu[k] = ct_fr0[k] = 0.0f;
+        if constexpr (IDRV) dd[k] = ddc[k] = 0.0f;
+    }
 
     // out = v (up sweep) or pv + v (down sweep)
     auto out = [](float* p, float pv, float v, bool add) {
@@ -603,6 +628,26 @@ rt_bwd_g_kernel(__grid_constant__ const GMaps maps, Inputs in, Clouds cl,
         const bool has_in = UPW || l + 1 < L;
         const float cu = row(Sl::CT0)[tx], ccu = row(Sl::CT1)[tx];
         const float cfl = BND && cly ? row(Sl::CF)[tx] : 0.0f;
+        // idrv: the up sweep's d/dT cotangents at level lev; the down
+        // sweep's scratch rows of layer l, loaded in one batch
+        [[maybe_unused]] const bool anyc = hi_s[tx] >= 0;
+        [[maybe_unused]] float cd = 0.0f, ccd = 0.0f;
+        [[maybe_unused]] float lin[ND], linc[ND];
+        if constexpr (IDRV && UPW) {
+            if (valid) {
+                cd = dt.ct[(size_t)lev * Bz + b];
+                ccd = dt.ct[((size_t)(L + 1) + lev) * Bz + b];
+            }
+        }
+        if constexpr (IDRV && !UPW) {
+#pragma unroll
+            for (int k = 0; k < GPT; ++k) {
+                const int r = ty + GY * k;
+                const size_t gi = ((size_t)l * KG + g0 + r) * Bz + b;
+                lin[k] = valid && r < nr ? dt.lam[gi] : 0.0f;
+                linc[k] = valid && r < nr && anyc ? dt.lam[LGB + gi] : 0.0f;
+            }
+        }
 #pragma unroll
         for (int k = 0; k < GPT; ++k) {
             const int r = ty + GY * k;
@@ -641,11 +686,40 @@ rt_bwd_g_kernel(__grid_constant__ const GMaps maps, Inputs in, Clouds cl,
                     al_b = bc_s[Sl::BAND / 4 + be];
                 }
             }
-            const StepGrads o = g_step_bwd<MODE>(
+            // idrv, up: the cotangent of the derivative leaving layer l
+            // (the clear twin's folded in where it is the same) to the
+            // scratch; down: the layer's transmittances' cotangents
+            [[maybe_unused]] DdtStep ds{};
+            [[maybe_unused]] float lt = 0.0f;
+            if constexpr (IDRV && UPW) {
+                dd[k] += wg_s[g] * cd;
+                ddc[k] += wg_s[g] * ccd;
+                lt = anyc ? dd[k] : dd[k] + ddc[k];
+                if (valid) {
+                    const size_t gi = ((size_t)l * KG + g) * Bz + b;
+                    dt.lam[gi] = lt;
+                    if (anyc) dt.lam[LGB + gi] = ddc[k];
+                }
+            }
+            if constexpr (IDRV && !UPW) {
+                ds.ct_t = lin[k] * dd[k];
+                ds.ct_tc = anyc ? linc[k] * ddc[k] : 0.0f;
+            }
+            const StepGrads o = g_step_bwd<MODE, IDRV>(
                 tau_s[e], fr_s[e], play_s[be], plev_s[be], secd_s[be], cf,
-                tauc, ciwp, clwp, ai_b, al_b, cly, twin, rad, radc, lk, mk);
+                tauc, ciwp, clwp, ai_b, al_b, cly, twin, rad, radc, lk, mk,
+                ds);
             lam[k] = lk;
             mu[k] = mk;
+            if constexpr (IDRV && UPW) {
+                dd[k] = lt * ds.t;
+                ddc[k] = anyc ? ddc[k] * ds.tc : 0.0f;
+            }
+            if constexpr (IDRV && !UPW) {
+                const float pn = dd[k] * ds.t;
+                ddc[k] = anyc ? ddc[k] * ds.tc : pn;
+                dd[k] = pn;
+            }
             if (valid) {
                 const size_t gi = ((size_t)l * KG + g) * Bz + b;
                 if constexpr (UPW) {
@@ -814,9 +888,19 @@ rt_bwd_g_kernel(__grid_constant__ const GMaps maps, Inputs in, Clouds cl,
     {
         float* em = reinterpret_cast<float*>(slot(L + 1) + Sl::TAU);
         float* pb = reinterpret_cast<float*>(slot(L + 1) + Sl::FR);
+        // idrv: the per-g shares of the cotangent of dplankbnd_dt
+        [[maybe_unused]] float* dz =
+            reinterpret_cast<float*>(slot(L + 1) + Sl::RAD);
         const float cu = valid ? ct[(size_t)UP * (L + 1) * Bz + b] : 0.0f;
         const float ccu =
             valid ? ct[(size_t)CLR_UP * (L + 1) * Bz + b] : 0.0f;
+        [[maybe_unused]] float cd0 = 0.0f, ccd0 = 0.0f;
+        if constexpr (IDRV) {
+            if (valid) {
+                cd0 = dt.ct[b];
+                ccd0 = dt.ct[(size_t)(L + 1) * Bz + b];
+            }
+        }
 #pragma unroll
         for (int k = 0; k < GPT; ++k) {
             const int r = ty + GY * k;
@@ -840,18 +924,33 @@ rt_bwd_g_kernel(__grid_constant__ const GMaps maps, Inputs in, Clouds cl,
             pb[r * GX + tx] = ct_rad0 * fr0;
             lam[k] = lam0 * reflect;
             mu[k] = mu0 * reflect;
+            if constexpr (IDRV) {
+                // the d/dT seed fracs[0] x dplankbnd_dt takes the
+                // cotangent of both derivatives at the surface
+                const float dpl =
+                    valid ? in.surf[((size_t)3 * KNB + bd) * Bz + b] : 0.0f;
+                const float ctd0 = dd[k] + wg_s[g] * cd0
+                                   + (ddc[k] + wg_s[g] * ccd0);
+                ct_fr0[k] += ctd0 * dpl;
+                dz[r * GX + tx] = ctd0 * fr0;
+                dd[k] = ddc[k] = fr0 * dpl;
+            }
         }
         fence_proxy_async_smem();
         __syncthreads();
         if (ty < nb && valid) {
             float s_em = 0.0f, s_pb = 0.0f;
+            [[maybe_unused]] float s_dz = 0.0f;
             for (int r = goff[b0 + ty] - g0; r < goff[b0 + ty + 1] - g0;
                  ++r) {
                 s_em += em[r * GX + tx];
                 s_pb += pb[r * GX + tx];
+                if constexpr (IDRV) s_dz += dz[r * GX + tx];
             }
             gr.surf[((size_t)KNB + b0 + ty) * Bz + b] = s_em;
             gr.surf[((size_t)2 * KNB + b0 + ty) * Bz + b] = s_pb;
+            if constexpr (IDRV)
+                gr.surf[((size_t)3 * KNB + b0 + ty) * Bz + b] = s_dz;
         }
         __syncthreads();
     }
@@ -889,12 +988,44 @@ rt_bwd_g_kernel(__grid_constant__ const GMaps maps, Inputs in, Clouds cl,
     }
 }
 
+template <int MODE>
+__global__ void __launch_bounds__(GT, G_BLOCKS_PER_SM)
+rt_bwd_g_kernel(__grid_constant__ const GMaps maps, Inputs in, Clouds cl,
+                const int* __restrict__ ngb, const float* __restrict__ wg,
+                const float* __restrict__ ct, const float* __restrict__ rads,
+                GGrads gr, GScratch sc, int vec) {
+    rt_bwd_g_body<MODE, false>(maps, in, cl, ngb, wg, ct, rads, gr, sc, vec,
+                               Ddt{});
+}
+
+// K6-g with the d/dT sweep's adjoint (idrv=1 and a cotangent of duflx_dt
+// or duflxc_dt), two blocks per SM as the idrv=0 kernel.
+template <int MODE>
+__global__ void __launch_bounds__(GT, G_BLOCKS_PER_SM)
+rt_bwd_g_ddt_kernel(__grid_constant__ const GMaps maps, Inputs in,
+                    Clouds cl, const int* __restrict__ ngb,
+                    const float* __restrict__ wg,
+                    const float* __restrict__ ct,
+                    const float* __restrict__ rads, GGrads gr, GScratch sc,
+                    int vec, Ddt dt) {
+    rt_bwd_g_body<MODE, true>(maps, in, cl, ngb, wg, ct, rads, gr, sc, vec,
+                              dt);
+}
+
+template <int MODE, bool IDRV>
+auto bwd_g_kernel() {
+    if constexpr (IDRV)
+        return rt_bwd_g_ddt_kernel<MODE>;
+    else
+        return rt_bwd_g_kernel<MODE>;
+}
+
 // the shared memory attributes of an instantiation, set once per process
 // (at the largest dynamic shared memory a block can take: it grows with L)
-template <int MODE>
+template <int MODE, bool IDRV = false>
 cudaError_t prepare_bwd_g() {
     static const cudaError_t e =
-        tile_smem(rt_bwd_g_kernel<MODE>, SMEM_SM - SMEM_RESERVED);
+        tile_smem(bwd_g_kernel<MODE, IDRV>(), SMEM_SM - SMEM_RESERVED);
     return e;
 }
 
@@ -906,9 +1037,10 @@ int mode_row(int mode) { return mode == BANDED ? 0 : mode == FUSED ? 1 : 2; }
 template <int MODE>
 cudaError_t launch_bwd_g(const Inputs& in, const Clouds& cl, const int* ngb,
                          const float* wg, const float* ct, const float* rads,
-                         const GGrads& gr, const GScratch& sc,
+                         const GGrads& gr, const GScratch& sc, const Ddt& dt,
                          cudaStream_t s) {
-    cudaError_t e = prepare_bwd_g<MODE>();
+    cudaError_t e =
+        dt.ct ? prepare_bwd_g<MODE, true>() : prepare_bwd_g<MODE>();
     if (e != cudaSuccess) return e;
     const int L = in.L, B = in.B;
     const int ncld = MODE == FUSED ? 6 : 2;
@@ -960,25 +1092,29 @@ cudaError_t launch_bwd_g(const Inputs& in, const Clouds& cl, const int* ngb,
     else if (!sk.part) return cudaErrorInvalidValue;
     g_staged[mode_row(MODE)] = (int)vec;
     const dim3 grid(NGRP * ((B + GX - 1) / GX));
-    rt_bwd_g_kernel<MODE><<<grid, GT, GLayout<MODE>::bytes(L), s>>>(
-        maps, in, cl, ngb, wg, ct, rads, gr, sk, (int)vec);
+    if (dt.ct)
+        rt_bwd_g_ddt_kernel<MODE><<<grid, GT, GLayout<MODE>::bytes(L), s>>>(
+            maps, in, cl, ngb, wg, ct, rads, gr, sk, (int)vec, dt);
+    else
+        rt_bwd_g_kernel<MODE><<<grid, GT, GLayout<MODE>::bytes(L), s>>>(
+            maps, in, cl, ngb, wg, ct, rads, gr, sk, (int)vec);
     return cudaGetLastError();
 }
 
 // out[0..7] = registers per thread, local memory bytes per thread, static
 // and dynamic shared memory per block (at L layers), blocks per SM, the
 // ring's slots, threads and columns per block
-template <int MODE>
+template <int MODE, bool IDRV = false>
 cudaError_t info_bwd_g(int L, int* out) {
-    cudaError_t e = prepare_bwd_g<MODE>();
+    cudaError_t e = prepare_bwd_g<MODE, IDRV>();
     if (e != cudaSuccess) return e;
     cudaFuncAttributes a;
-    e = cudaFuncGetAttributes(&a, rt_bwd_g_kernel<MODE>);
+    e = cudaFuncGetAttributes(&a, bwd_g_kernel<MODE, IDRV>());
     if (e != cudaSuccess) return e;
     const int smem = GLayout<MODE>::bytes(L);
     int blocks = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, rt_bwd_g_kernel<MODE>, GT, smem);
+        &blocks, bwd_g_kernel<MODE, IDRV>(), GT, smem);
     if (e != cudaSuccess) return e;
     out[0] = a.numRegs;
     out[1] = (int)a.localSizeBytes;
@@ -989,6 +1125,49 @@ cudaError_t info_bwd_g(int L, int* out) {
     out[6] = GT;
     out[7] = GX;
     return cudaSuccess;
+}
+
+}  // namespace
+
+namespace {
+
+int bwd_g_entry(const float* taut, const float* fracs, const float* play,
+                const float* plev, const float* surf, const int* ngb,
+                const float* wg, const float* const* c, const float* ct,
+                const float* rads, float* ct_taut, float* ct_fracs,
+                float* ct_play, float* ct_plev, float* ct_surf,
+                float* const* g, const unsigned* words, int* count,
+                float* tpart, const Ddt& dt, int L, int B, int mode,
+                void* stream) {
+    if (L <= 0 || B <= 0) return (int)cudaGetLastError();
+    if (dt.ct && !dt.lam) return (int)cudaErrorInvalidValue;
+    const int ncld = mode == FUSED ? 6 : 2;
+    if (!rads || !count || (mode != BANDED && mode != FUSED && mode != CLDF_OD)
+        || (mode != BANDED && !words))
+        return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < ncld; ++i)
+        if (!c[i] || !g[i]) return (int)cudaErrorInvalidValue;
+    Inputs in{taut, fracs, play, plev, surf, nullptr, nullptr, nullptr,
+              nullptr, L, B};
+    Clouds cl{};
+    GGrads gr{ct_taut, ct_fracs, ct_play, ct_plev, ct_surf, {}};
+    for (int i = 0; i < NCLD; ++i) {
+        cl.c[i] = c[i];
+        gr.c[i] = g[i];
+    }
+    const GScratch sc{words, count, tpart};
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (mode) {
+    case BANDED:
+        return (int)launch_bwd_g<BANDED>(in, cl, ngb, wg, ct, rads, gr, sc,
+                                         dt, s);
+    case FUSED:
+        return (int)launch_bwd_g<FUSED>(in, cl, ngb, wg, ct, rads, gr, sc, dt,
+                                        s);
+    default:
+        return (int)launch_bwd_g<CLDF_OD>(in, cl, ngb, wg, ct, rads, gr, sc,
+                                          dt, s);
+    }
 }
 
 }  // namespace
@@ -1013,34 +1192,37 @@ RRTM_API int rrtm_rt_bwd_g(const float* taut, const float* fracs,
                            float* g3, float* g4, float* g5,
                            const unsigned* words, int* count, float* tpart,
                            int L, int B, int mode, void* stream) {
-    if (L <= 0 || B <= 0) return (int)cudaGetLastError();
-    const int ncld = mode == FUSED ? 6 : 2;
     const float* c[NCLD] = {c0, c1, c2, c3, c4, c5};
     float* g[NCLD] = {g0, g1, g2, g3, g4, g5};
-    if (!rads || !count || (mode != BANDED && mode != FUSED && mode != CLDF_OD)
-        || (mode != BANDED && !words))
-        return (int)cudaErrorInvalidValue;
-    for (int i = 0; i < ncld; ++i)
-        if (!c[i] || !g[i]) return (int)cudaErrorInvalidValue;
-    Inputs in{taut, fracs, play, plev, surf, nullptr, nullptr, nullptr,
-              nullptr, L, B};
-    Clouds cl{};
-    GGrads gr{ct_taut, ct_fracs, ct_play, ct_plev, ct_surf, {}};
-    for (int i = 0; i < NCLD; ++i) {
-        cl.c[i] = c[i];
-        gr.c[i] = g[i];
-    }
-    const GScratch sc{words, count, tpart};
-    cudaStream_t s = (cudaStream_t)stream;
-    switch (mode) {
-    case BANDED:
-        return (int)launch_bwd_g<BANDED>(in, cl, ngb, wg, ct, rads, gr, sc, s);
-    case FUSED:
-        return (int)launch_bwd_g<FUSED>(in, cl, ngb, wg, ct, rads, gr, sc, s);
-    default:
-        return (int)launch_bwd_g<CLDF_OD>(in, cl, ngb, wg, ct, rads, gr, sc,
-                                          s);
-    }
+    return bwd_g_entry(taut, fracs, play, plev, surf, ngb, wg, c, ct, rads,
+                       ct_taut, ct_fracs, ct_play, ct_plev, ct_surf, g, words,
+                       count, tpart, Ddt{}, L, B, mode, stream);
+}
+
+// rrtm_rt_bwd_g at idrv=1 with the d/dT sweep's adjoint: surf and ct_surf
+// (4, 16, B), the fourth row dplankbnd_dt and its cotangent; ct_ddt (2,
+// L+1, B) the cotangents of duflx_dt and duflxc_dt; lam the scratch of 2 x
+// (L, 140, B) floats (rtrn.cuh Ddt).
+RRTM_API int rrtm_rt_bwd_g_ddt(const float* taut, const float* fracs,
+                               const float* play, const float* plev,
+                               const float* surf, const int* ngb,
+                               const float* wg, const float* c0,
+                               const float* c1, const float* c2,
+                               const float* c3, const float* c4,
+                               const float* c5, const float* ct,
+                               const float* rads, float* ct_taut,
+                               float* ct_fracs, float* ct_play,
+                               float* ct_plev, float* ct_surf, float* g0,
+                               float* g1, float* g2, float* g3, float* g4,
+                               float* g5, const unsigned* words, int* count,
+                               float* tpart, const float* ct_ddt, float* lam,
+                               int L, int B, int mode, void* stream) {
+    if (!ct_ddt) return (int)cudaErrorInvalidValue;
+    const float* c[NCLD] = {c0, c1, c2, c3, c4, c5};
+    float* g[NCLD] = {g0, g1, g2, g3, g4, g5};
+    return bwd_g_entry(taut, fracs, play, plev, surf, ngb, wg, c, ct, rads,
+                       ct_taut, ct_fracs, ct_play, ct_plev, ct_surf, g, words,
+                       count, tpart, Ddt{ct_ddt, lam}, L, B, mode, stream);
 }
 
 // The scratch rrtm_rt_bwd_g takes in `mode` at L layers and B columns:
@@ -1085,6 +1267,16 @@ RRTM_API int rrtm_rt_bwd_g_info(int mode, int L, int* out) {
     case BANDED: return (int)info_bwd_g<BANDED>(L, out);
     case FUSED: return (int)info_bwd_g<FUSED>(L, out);
     case CLDF_OD: return (int)info_bwd_g<CLDF_OD>(L, out);
+    default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// The same of rrtm_rt_bwd_g_ddt's instantiation in `mode`.
+RRTM_API int rrtm_rt_bwd_g_ddt_info(int mode, int L, int* out) {
+    switch (mode) {
+    case BANDED: return (int)info_bwd_g<BANDED, true>(L, out);
+    case FUSED: return (int)info_bwd_g<FUSED, true>(L, out);
+    case CLDF_OD: return (int)info_bwd_g<CLDF_OD, true>(L, out);
     default: return (int)cudaErrorInvalidValue;
     }
 }

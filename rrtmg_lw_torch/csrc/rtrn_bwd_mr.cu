@@ -1,10 +1,12 @@
 // K6 in the maxrand mode: the adjoint of K1's maximum-random overlap
-// sweep (icld 2/3; idrv = 0, or idrv = 1 without a cotangent of the
-// d/dT outputs): flux cotangents (4, L+1, B) -> cotangents of taut,
-// fracs (L, 140, B), planklay (L, 16, B), planklev (L+1, 16, B), the
-// surface rows (3, 16, B), the per-band cloud od taucb (L, 16, B) and
-// the overlap rows (L, 16, B): R_CLDF and the 12 factor rows, zeros in
-// the four flag rows.
+// sweep (icld 2/3; idrv = 0 or 1: at idrv=1 with a cotangent of the d/dT
+// outputs, (2, L+1, B), the instantiation rt_bwd_mr_ddt_kernel, which
+// also runs their adjoint, as K6's in rtrn_bwd.cu does, and takes and
+// gives the fourth surface row): flux cotangents (4, L+1, B) ->
+// cotangents of taut, fracs (L, 140, B), planklay (L, 16, B), planklev
+// (L+1, 16, B), the surface rows (3, 16, B), the per-band cloud od taucb
+// (L, 16, B) and the overlap rows (L, 16, B): R_CLDF and the 12 factor
+// rows, zeros in the four flag rows.
 //
 // Replaces the JAX package's backward of the maxrand sweep, which is
 // the XLA vjp of rtrnmr.rt_maxrandom (rrtmg_lw_tpu/ops/rtrn_pallas.py:
@@ -79,6 +81,15 @@
 //   clear layers and in the flag rows.  The first design summed g-lanes
 //   of two bands each: these sums differ from its in the last bits.
 // No atomics on floats: two runs are bitwise equal.
+// - The d/dT adjoint (rt_bwd_mr_ddt_kernel; the design: rtrn_bwd.cu):
+//   the d/dT recursion is advance_ddt's in this mode too, so the overlap
+//   factors and the sub-streams take no part in it.  Its two carries a
+//   g-point ride in registers through a clear step and in shared memory
+//   through a cloudy one (carries 5 and 6, MrLayoutDdt: 8 KB more); lam
+//   goes to the scratch as in K6-g.  Two blocks per SM, as the idrv=0
+//   kernel: 128 registers, 8 B of spill stores (at one block per SM, 167
+//   registers, no spill, it took 1.6x as long; with the carries in shared
+//   memory throughout, 4% longer and 16 B of spill).
 //
 // Shared memory a block: a ring slot 33,024 bytes, the ring of two
 // 66,048, the rest 31,904 + 8 a layer (128 of them to align the ring);
@@ -143,7 +154,8 @@ struct MrSlot {
 // carries in shared memory, each thread's partials of the overlap rows'
 // cotangents, the cloudy-layer and iclddn words (a bit per column, (2,
 // L)), and 128 bytes to align the ring.
-struct MrLayout {
+template <int NC>
+struct MrLayoutN {
     static constexpr int BAR = G_RING * MrSlot::BYTES;
     static constexpr int TICKET = BAR + 2 * G_RING * 8;
     static constexpr int WG = TICKET + 8;                    // (KG)
@@ -153,13 +165,17 @@ struct MrLayout {
     static constexpr int CSEC = SECD + GNB * GX * 4;         // (GNB, GX)
     static constexpr int NKEPT = CSEC + GNB * GX * 4;        // (2, GX)
     static constexpr int NK = NKEPT + 2 * GX * 4;            // (GT)
-    static constexpr int CAR = NK + GT * 4;              // (NCAR, GPT, GT)
-    static constexpr int PART = CAR + NCAR * GPT * GT * 4;  // (NPART, GT)
+    static constexpr int CAR = NK + GT * 4;              // (NC, GPT, GT)
+    static constexpr int PART = CAR + NC * GPT * GT * 4;    // (NPART, GT)
     static constexpr int FLAGS = PART + NPART * GT * 4;
     __host__ __device__ static constexpr int bytes(int L) {
         return FLAGS + (2 * L * 4 + 15) / 16 * 16 + 128;
     }
 };
+using MrLayout = MrLayoutN<NCAR>;
+// idrv with a d/dT cotangent: a cloudy step's carries also those of the
+// d/dT sweep's adjoint (q = 5, 6)
+using MrLayoutDdt = MrLayoutN<NCAR + 2>;
 
 // the budget at L = 140, and two blocks per SM up to L = 2,220
 constexpr int SMEM_BWD_MR = 99072;
@@ -199,11 +215,15 @@ struct StepGrads {
 // its six factors of this sweep; rad, radc the radiance and clear twin
 // entering the layer, (cr, kr, rr) the sub-streams entering it (read
 // only in a cloudy layer without a restart).  k holds the cotangents of
-// the step's outputs on entry and of its inputs on exit.
+// the step's outputs on entry and of its inputs on exit.  IDRV: dd carries
+// the step of the d/dT sweep's adjoint (rtrn.cuh ddt_step_bwd), whose
+// cotangents join the factors'.
+template <bool IDRV>
 __device__ __forceinline__ StepGrads mr_step_bwd(
         float tau, float fr, float bl, float pl, float secd, float tcb,
         float cf, bool cly, bool twin, bool ist, const float* fac,
-        float rad, float radc, float cr, float kr, float rr, Car& k) {
+        float rad, float radc, float cr, float kr, float rr, Car& k,
+        DdtStep& dd) {
     StepGrads o;
     const float dp = pl - bl;
     const float x = secd * tau;
@@ -295,6 +315,8 @@ __device__ __forceinline__ StepGrads mr_step_bwd(
     ct_src += ct_gs * at;
     k.lam = ct_rad;
     k.mu = ct_radc;
+    if constexpr (IDRV)
+        ddt_step_bwd(dd, at, atot, cf, cly, ct_at, ct_atot, o.c);
 
     // factors -> inputs
     o.fr = ct_src * (bl + tfg * dp) + ct_srctot * (bl + tft * dp);
@@ -321,14 +343,18 @@ __device__ __forceinline__ StepGrads mr_step_bwd(
 // the tickets are drawn from, then one a column tile (zeroed: the tile's
 // groups that have written their shares); part, the groups' shares,
 // (blocks, L, NSHARE, GX): R_CLDF, the 6 up factors, the 6 down factors.
-__global__ void __launch_bounds__(GT, G_BLOCKS_PER_SM)
-rt_bwd_mr_kernel(__grid_constant__ const MrMaps maps, Inputs in,
-                 const int* __restrict__ ngb, const float* __restrict__ wg,
-                 const float* __restrict__ ct, const float* __restrict__ rads,
-                 const float* __restrict__ subs, MrGrads gr, GScratch sc,
-                 int K, int vec) {
+// The kernel's body; IDRV: with the d/dT sweep's adjoint (dt), its
+// cotangents of each layer's factors added to the down sweep's reverse
+// step of the layer.  maps: the kernel's __grid_constant__ parameter.
+template <bool IDRV>
+__device__ __forceinline__ void rt_bwd_mr_body(
+        const MrMaps& maps, const Inputs& in, const int* __restrict__ ngb,
+        const float* __restrict__ wg, const float* __restrict__ ct,
+        const float* __restrict__ rads, const float* __restrict__ subs,
+        const MrGrads& gr, const GScratch& sc, int K, int vec,
+        const Ddt& dt) {
     using Sl = MrSlot;
-    using Lo = MrLayout;
+    using Lo = std::conditional_t<IDRV, MrLayoutDdt, MrLayout>;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     // the ring at a 128-byte boundary
     unsigned char* smem =
@@ -514,10 +540,17 @@ rt_bwd_mr_kernel(__grid_constant__ const MrMaps maps, Inputs in,
     auto car = [&](int q, int k) -> float& {
         return car_s[(q * GPT + k) * GT + tid];
     };
+    // IDRV: the d/dT sweep's carries of each g-point, the cotangents of
+    // the derivative and its clear twin in the reverse up sweep, from the
+    // surface step on the derivatives themselves (rtrn.ddt_adjoint); in
+    // registers, while a cloudy step runs in shared memory (q = 5, 6)
+    constexpr int ND = IDRV ? GPT : 1;
+    [[maybe_unused]] float dd[ND], ddc[ND];
 #pragma unroll
     for (int k = 0; k < GPT; ++k) {
         lm[0][k] = lm[1][k] = 0.0f;
         car(0, k) = car(1, k) = car(2, k) = 0.0f;
+        if constexpr (IDRV) dd[k] = ddc[k] = 0.0f;
     }
     // the column's kept layers of the sweep not yet reached: the slot of
     // the next kept one is *nk - 1
@@ -549,6 +582,15 @@ rt_bwd_mr_kernel(__grid_constant__ const MrMaps maps, Inputs in,
         const bool twin = (icdw[UPW ? 0 : l] >> tx) & 1u;
         const bool has_in = UPW || l + 1 < L;
         const float cu = row(Sl::CT0)[tx], ccu = row(Sl::CT1)[tx];
+        // idrv: anyc, and the up sweep's d/dT cotangents at level lev
+        [[maybe_unused]] const bool anyc = (icdw[0] >> tx) & 1u;
+        [[maybe_unused]] float cd = 0.0f, ccd = 0.0f;
+        if constexpr (IDRV && UPW) {
+            if (valid) {
+                cd = dt.ct[(size_t)lev * Bz + b];
+                ccd = dt.ct[((size_t)(L + 1) + lev) * Bz + b];
+            }
+        }
         // One pass over the thread's g-points.  CL: a column of the tile
         // is cloudy at the layer (tc): the cloudy recurrence where the
         // column is, the sub-streams' carries, the overlap rows' factors
@@ -573,8 +615,10 @@ rt_bwd_mr_kernel(__grid_constant__ const MrMaps maps, Inputs in,
             const bool read_sub = cly && !ist && valid;
             const float* sub =
                 subs + ((size_t)(UPW ? 3 : 0) * K + slot_k) * KG * Bz + b;
-            // g-point k of the thread, its carries lam and mu
-            auto gstep = [&](int k, float& lam, float& mu) {
+            // g-point k of the thread, its carries lam and mu (and, idrv,
+            // the d/dT sweep's dl and dlc)
+            auto gstep = [&](int k, float& lam, float& mu, float& dl,
+                             float& dlc) {
                 const int r = ty + GY * k;
                 if (r >= nr) return;
                 const int g = g0 + r;
@@ -601,11 +645,42 @@ rt_bwd_mr_kernel(__grid_constant__ const MrMaps maps, Inputs in,
                 }
                 const float rad = has_in ? rad_s[e] : 0.0f;
                 const float radc = has_in ? radc_s[e] : 0.0f;
-                const StepGrads o = mr_step_bwd(
+                // idrv, up: the cotangent of the derivative leaving layer
+                // l (the clear twin's folded in where it is the same) to
+                // the scratch; down: the layer's transmittances'
+                // cotangents, from the scratch
+                [[maybe_unused]] DdtStep ds{};
+                [[maybe_unused]] float lt = 0.0f;
+                [[maybe_unused]] const size_t li =
+                    ((size_t)l * KG + g) * Bz + b;
+                if constexpr (IDRV && UPW) {
+                    dl += wg_s[g] * cd;
+                    dlc += wg_s[g] * ccd;
+                    lt = anyc ? dl : dl + dlc;
+                    if (valid) {
+                        dt.lam[li] = lt;
+                        if (anyc) dt.lam[LGB + li] = dlc;
+                    }
+                }
+                if constexpr (IDRV && !UPW) {
+                    ds.ct_t = valid ? dt.lam[li] * dl : 0.0f;
+                    ds.ct_tc = valid && anyc ? dt.lam[LGB + li] * dlc : 0.0f;
+                }
+                const StepGrads o = mr_step_bwd<IDRV>(
                     tau_s[e], fr_s[e], play_s[be], plev_s[be], secd_s[be],
-                    tcb, cf, cly, twin, ist, fac, rad, radc, cr, kr, rr, c);
+                    tcb, cf, cly, twin, ist, fac, rad, radc, cr, kr, rr, c,
+                    ds);
                 lam = c.lam;
                 mu = c.mu;
+                if constexpr (IDRV && UPW) {
+                    dl = lt * ds.t;
+                    dlc = anyc ? dlc * ds.tc : 0.0f;
+                }
+                if constexpr (IDRV && !UPW) {
+                    const float pn = dl * ds.t;
+                    dlc = anyc ? dlc * ds.tc : pn;
+                    dl = pn;
+                }
                 if (cly) {
                     car(0, k) = c.cr;
                     car(1, k) = c.kr;
@@ -641,13 +716,29 @@ rt_bwd_mr_kernel(__grid_constant__ const MrMaps maps, Inputs in,
                 for (int k = 0; k < GPT; ++k) {
                     car(3, k) = lm[0][k];
                     car(4, k) = lm[1][k];
+                    if constexpr (IDRV) {
+                        car(5, k) = dd[k];
+                        car(6, k) = ddc[k];
+                    }
                 }
+                if constexpr (IDRV) {
 #pragma unroll 1
-                for (int k = 0; k < GPT; ++k) gstep(k, car(3, k), car(4, k));
+                    for (int k = 0; k < GPT; ++k)
+                        gstep(k, car(3, k), car(4, k), car(5, k), car(6, k));
+                } else {
+                    float none = 0.0f;
+#pragma unroll 1
+                    for (int k = 0; k < GPT; ++k)
+                        gstep(k, car(3, k), car(4, k), none, none);
+                }
 #pragma unroll
                 for (int k = 0; k < GPT; ++k) {
                     lm[0][k] = car(3, k);
                     lm[1][k] = car(4, k);
+                    if constexpr (IDRV) {
+                        dd[k] = car(5, k);
+                        ddc[k] = car(6, k);
+                    }
                 }
                 // the thread's partials of the overlap rows' cotangents,
                 // over the elements of its own rows of PT and PF
@@ -658,7 +749,14 @@ rt_bwd_mr_kernel(__grid_constant__ const MrMaps maps, Inputs in,
                         part_s[q * GT + tid];
             } else {
 #pragma unroll
-                for (int k = 0; k < GPT; ++k) gstep(k, lm[0][k], lm[1][k]);
+                for (int k = 0; k < GPT; ++k) {
+                    if constexpr (IDRV) {
+                        gstep(k, lm[0][k], lm[1][k], dd[k], ddc[k]);
+                    } else {
+                        float none = 0.0f;
+                        gstep(k, lm[0][k], lm[1][k], none, none);
+                    }
+                }
             }
         };
         if (tc)
@@ -743,9 +841,19 @@ rt_bwd_mr_kernel(__grid_constant__ const MrMaps maps, Inputs in,
     {
         float* em = reinterpret_cast<float*>(slot(L + 1) + Sl::TAU);
         float* pb = reinterpret_cast<float*>(slot(L + 1) + Sl::FR);
+        // idrv: the per-g shares of the cotangent of dplankbnd_dt
+        [[maybe_unused]] float* dz =
+            reinterpret_cast<float*>(slot(L + 1) + Sl::RAD);
         const float cu = valid ? ct[(size_t)UP * (L + 1) * Bz + b] : 0.0f;
         const float ccu =
             valid ? ct[(size_t)CLR_UP * (L + 1) * Bz + b] : 0.0f;
+        [[maybe_unused]] float cd0 = 0.0f, ccd0 = 0.0f;
+        if constexpr (IDRV) {
+            if (valid) {
+                cd0 = dt.ct[b];
+                ccd0 = dt.ct[(size_t)(L + 1) * Bz + b];
+            }
+        }
 #pragma unroll
         for (int k = 0; k < GPT; ++k) {
             const int r = ty + GY * k;
@@ -764,7 +872,21 @@ rt_bwd_mr_kernel(__grid_constant__ const MrMaps maps, Inputs in,
                 fr0 = in.fracs[gi];
             }
             const float ct_rad0 = lam0 + mu0;
-            if (valid) gr.fracs[gi] = gr.fracs[gi] + ct_rad0 * pbnd;
+            if constexpr (IDRV) {
+                // the d/dT seed fracs[0] x dplankbnd_dt takes the
+                // cotangent of both derivatives at the surface
+                const float dpl =
+                    valid ? in.surf[((size_t)3 * KNB + bd) * Bz + b] : 0.0f;
+                const float ctd0 = dd[k] + wg_s[g] * cd0
+                                   + (ddc[k] + wg_s[g] * ccd0);
+                if (valid)
+                    gr.fracs[gi] =
+                        gr.fracs[gi] + (ct_rad0 * pbnd + ctd0 * dpl);
+                dz[r * GX + tx] = ctd0 * fr0;
+                dd[k] = ddc[k] = fr0 * dpl;
+            } else {
+                if (valid) gr.fracs[gi] = gr.fracs[gi] + ct_rad0 * pbnd;
+            }
             em[r * GX + tx] = -(lam0 * d0 + mu0 * dc0);
             pb[r * GX + tx] = ct_rad0 * fr0;
             lm[0][k] = lam0 * reflect;
@@ -777,13 +899,17 @@ rt_bwd_mr_kernel(__grid_constant__ const MrMaps maps, Inputs in,
         issue(L);
         if (ty < nb && valid) {
             float s_em = 0.0f, s_pb = 0.0f;
+            [[maybe_unused]] float s_dz = 0.0f;
             for (int r = goff[b0 + ty] - g0; r < goff[b0 + ty + 1] - g0;
                  ++r) {
                 s_em += em[r * GX + tx];
                 s_pb += pb[r * GX + tx];
+                if constexpr (IDRV) s_dz += dz[r * GX + tx];
             }
             gr.surf[((size_t)KNB + b0 + ty) * Bz + b] = s_em;
             gr.surf[((size_t)2 * KNB + b0 + ty) * Bz + b] = s_pb;
+            if constexpr (IDRV)
+                gr.surf[((size_t)3 * KNB + b0 + ty) * Bz + b] = s_dz;
         }
         fence_proxy_async_smem();
         __syncthreads();
@@ -839,6 +965,30 @@ rt_bwd_mr_kernel(__grid_constant__ const MrMaps maps, Inputs in,
     }
 }
 
+__global__ void __launch_bounds__(GT, G_BLOCKS_PER_SM)
+rt_bwd_mr_kernel(__grid_constant__ const MrMaps maps, Inputs in,
+                 const int* __restrict__ ngb, const float* __restrict__ wg,
+                 const float* __restrict__ ct, const float* __restrict__ rads,
+                 const float* __restrict__ subs, MrGrads gr, GScratch sc,
+                 int K, int vec) {
+    rt_bwd_mr_body<false>(maps, in, ngb, wg, ct, rads, subs, gr, sc, K, vec,
+                          Ddt{});
+}
+
+// K6 maxrand with the d/dT sweep's adjoint (idrv=1 and a cotangent of
+// duflx_dt or duflxc_dt), two blocks per SM as the idrv=0 kernel.
+__global__ void __launch_bounds__(GT, G_BLOCKS_PER_SM)
+rt_bwd_mr_ddt_kernel(__grid_constant__ const MrMaps maps, Inputs in,
+                     const int* __restrict__ ngb,
+                     const float* __restrict__ wg,
+                     const float* __restrict__ ct,
+                     const float* __restrict__ rads,
+                     const float* __restrict__ subs, MrGrads gr, GScratch sc,
+                     int K, int vec, Ddt dt) {
+    rt_bwd_mr_body<true>(maps, in, ngb, wg, ct, rads, subs, gr, sc, K, vec,
+                         dt);
+}
+
 // the shared memory attributes of the kernel, set once per process (at
 // the largest dynamic shared memory a block can take: it grows with L)
 cudaError_t prepare_bwd_mr() {
@@ -847,33 +997,51 @@ cudaError_t prepare_bwd_mr() {
     return e;
 }
 
+cudaError_t prepare_bwd_mr_ddt() {
+    static const cudaError_t e =
+        tile_smem(rt_bwd_mr_ddt_kernel, SMEM_SM - SMEM_RESERVED);
+    return e;
+}
+
 // the staging of the last launch in the process (1 bulk tensor copies, 0
 // element copies, -1 none yet), for rrtm_rt_bwd_mr_layout
 int mr_staged = -1;
 
-}  // namespace
+// out[0..7] of rrtm_rt_bwd_mr_info for `kernel` at `smem` bytes of
+// dynamic shared memory
+template <typename Kernel>
+int mr_info(Kernel* kernel, int smem, int* out) {
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+    if (e != cudaSuccess) return (int)e;
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, GT,
+                                                      smem);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)a.sharedSizeBytes;
+    out[3] = smem;
+    out[4] = blocks;
+    out[5] = G_RING;
+    out[6] = GT;
+    out[7] = GX;
+    return (int)cudaSuccess;
+}
 
-// Inputs as rrtm_rt's in the maxrand mode (surf (3, 16, B); rows the
-// overlap rows (L, 16, B), taucb (L, 16, B)); ct (4, L+1, B) flux
-// cotangents; rads (4, L, 140, B) and subs (2, 3, K, 140, B) the state K1
-// kept in the same step (rrtm_rt with rads and subs, maxrand) ->
-// ct_taut, ct_fracs (L, 140, B), ct_play (L, 16, B), ct_plev (L+1, 16,
-// B), ct_surf (3, 16, B), ct_rows (L, 16, B), ct_taucb (L, 16, B).
-// count, part: the scratch rrtm_rt_bwd_mr_scratch sizes, count zeroed.
-RRTM_API int rrtm_rt_bwd_mr(const float* taut, const float* fracs,
-                            const float* play, const float* plev,
-                            const float* surf, const float* rows,
-                            const float* taucb, const int* ngb,
-                            const float* wg, const float* ct,
-                            const float* rads, const float* subs,
-                            float* ct_taut, float* ct_fracs, float* ct_play,
-                            float* ct_plev, float* ct_surf, float* ct_rows,
-                            float* ct_taucb, int* count, float* part, int L,
-                            int K, int B, void* stream) {
+int bwd_mr_entry(const float* taut, const float* fracs, const float* play,
+                 const float* plev, const float* surf, const float* rows,
+                 const float* taucb, const int* ngb, const float* wg,
+                 const float* ct, const float* rads, const float* subs,
+                 float* ct_taut, float* ct_fracs, float* ct_play,
+                 float* ct_plev, float* ct_surf, float* ct_rows,
+                 float* ct_taucb, int* count, float* part, const Ddt& dt,
+                 int L, int K, int B, void* stream) {
     if (L <= 0 || B <= 0) return (int)cudaGetLastError();
-    if (!rads || !subs || !rows || !taucb || !count || !part || K < 1)
+    if (!rads || !subs || !rows || !taucb || !count || !part || K < 1
+        || (dt.ct && !dt.lam))
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = prepare_bwd_mr();
+    cudaError_t e = dt.ct ? prepare_bwd_mr_ddt() : prepare_bwd_mr();
     if (e != cudaSuccess) return (int)e;
     Inputs in{taut, fracs, play, plev, surf, nullptr, nullptr, nullptr,
               nullptr, L, B};
@@ -916,9 +1084,63 @@ RRTM_API int rrtm_rt_bwd_mr(const float* taut, const float* fracs,
     mr_staged = (int)vec;
     const GScratch sc{nullptr, count, part};
     const dim3 grid(NGRP * ((B + GX - 1) / GX));
-    rt_bwd_mr_kernel<<<grid, GT, MrLayout::bytes(L), (cudaStream_t)stream>>>(
-        maps, in, ngb, wg, ct, rads, subs, gr, sc, K, (int)vec);
+    if (dt.ct)
+        rt_bwd_mr_ddt_kernel<<<grid, GT, MrLayoutDdt::bytes(L),
+                               (cudaStream_t)stream>>>(
+            maps, in, ngb, wg, ct, rads, subs, gr, sc, K, (int)vec, dt);
+    else
+        rt_bwd_mr_kernel<<<grid, GT, MrLayout::bytes(L),
+                           (cudaStream_t)stream>>>(
+            maps, in, ngb, wg, ct, rads, subs, gr, sc, K, (int)vec);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Inputs as rrtm_rt's in the maxrand mode (surf (3, 16, B); rows the
+// overlap rows (L, 16, B), taucb (L, 16, B)); ct (4, L+1, B) flux
+// cotangents; rads (4, L, 140, B) and subs (2, 3, K, 140, B) the state K1
+// kept in the same step (rrtm_rt with rads and subs, maxrand) ->
+// ct_taut, ct_fracs (L, 140, B), ct_play (L, 16, B), ct_plev (L+1, 16,
+// B), ct_surf (3, 16, B), ct_rows (L, 16, B), ct_taucb (L, 16, B).
+// count, part: the scratch rrtm_rt_bwd_mr_scratch sizes, count zeroed.
+RRTM_API int rrtm_rt_bwd_mr(const float* taut, const float* fracs,
+                            const float* play, const float* plev,
+                            const float* surf, const float* rows,
+                            const float* taucb, const int* ngb,
+                            const float* wg, const float* ct,
+                            const float* rads, const float* subs,
+                            float* ct_taut, float* ct_fracs, float* ct_play,
+                            float* ct_plev, float* ct_surf, float* ct_rows,
+                            float* ct_taucb, int* count, float* part, int L,
+                            int K, int B, void* stream) {
+    return bwd_mr_entry(taut, fracs, play, plev, surf, rows, taucb, ngb, wg,
+                        ct, rads, subs, ct_taut, ct_fracs, ct_play, ct_plev,
+                        ct_surf, ct_rows, ct_taucb, count, part, Ddt{}, L, K,
+                        B, stream);
+}
+
+// rrtm_rt_bwd_mr at idrv=1 with the d/dT sweep's adjoint: surf and
+// ct_surf (4, 16, B), the fourth row dplankbnd_dt and its cotangent;
+// ct_ddt (2, L+1, B) the cotangents of duflx_dt and duflxc_dt; lam the
+// scratch of 2 x (L, 140, B) floats (rtrn.cuh Ddt).
+RRTM_API int rrtm_rt_bwd_mr_ddt(const float* taut, const float* fracs,
+                                const float* play, const float* plev,
+                                const float* surf, const float* rows,
+                                const float* taucb, const int* ngb,
+                                const float* wg, const float* ct,
+                                const float* rads, const float* subs,
+                                float* ct_taut, float* ct_fracs,
+                                float* ct_play, float* ct_plev,
+                                float* ct_surf, float* ct_rows,
+                                float* ct_taucb, int* count, float* part,
+                                const float* ct_ddt, float* lam, int L, int K,
+                                int B, void* stream) {
+    if (!ct_ddt) return (int)cudaErrorInvalidValue;
+    return bwd_mr_entry(taut, fracs, play, plev, surf, rows, taucb, ngb, wg,
+                        ct, rads, subs, ct_taut, ct_fracs, ct_play, ct_plev,
+                        ct_surf, ct_rows, ct_taucb, count, part,
+                        Ddt{ct_ddt, lam}, L, K, B, stream);
 }
 
 // The scratch rrtm_rt_bwd_mr takes at L layers and B columns: out[0]
@@ -955,22 +1177,12 @@ RRTM_API int rrtm_rt_bwd_mr_layout(int* out) {
 RRTM_API int rrtm_rt_bwd_mr_info(int L, int* out) {
     cudaError_t e = prepare_bwd_mr();
     if (e != cudaSuccess) return (int)e;
-    cudaFuncAttributes a;
-    e = cudaFuncGetAttributes(&a, rt_bwd_mr_kernel);
+    return mr_info(rt_bwd_mr_kernel, MrLayout::bytes(L), out);
+}
+
+// The same of rrtm_rt_bwd_mr_ddt's instantiation.
+RRTM_API int rrtm_rt_bwd_mr_ddt_info(int L, int* out) {
+    cudaError_t e = prepare_bwd_mr_ddt();
     if (e != cudaSuccess) return (int)e;
-    const int smem = MrLayout::bytes(L);
-    int blocks = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks,
-                                                      rt_bwd_mr_kernel, GT,
-                                                      smem);
-    if (e != cudaSuccess) return (int)e;
-    out[0] = a.numRegs;
-    out[1] = (int)a.localSizeBytes;
-    out[2] = (int)a.sharedSizeBytes;
-    out[3] = smem;
-    out[4] = blocks;
-    out[5] = G_RING;
-    out[6] = GT;
-    out[7] = GX;
-    return (int)cudaSuccess;
+    return mr_info(rt_bwd_mr_ddt_kernel, MrLayoutDdt::bytes(L), out);
 }

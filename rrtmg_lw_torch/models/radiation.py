@@ -24,8 +24,9 @@ adjustment, rrtmg_lw.1col.f90:587-610).
 With ``impl="cuda"`` the stages marked K (and the overlap rows) run the
 hand-written CUDA kernels, each inside a ``torch.autograd.Function``
 whose backward is a kernel too (K5 taumol, K3b Planck, K4b the effective
-radii, K6 RT in every sweep mode, and for maxrand the overlap rows'
-adjoint; the backward of the d/dT outputs raises on the card); with
+radii, K6 RT in every sweep mode, with a cotangent of the d/dT outputs
+its instantiation that also runs their adjoint, and for maxrand the
+overlap rows' adjoint); with
 ``impl="eager"`` their plain PyTorch versions, on the same layouts, under
 plain autograd.  Configurations outside the port raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.

@@ -28,7 +28,9 @@ radiances=True)``, ``rt_sweep_blocked(..., radiances=True)`` with per-g
 fields, ``rt_sweep_banded_vjp`` and ``rt_sweep_g_vjp`` those of the
 banded, fused and cldf-odcld gradient's (K1 keeping its radiances and,
 fused and cldf-odcld, the cloudy-layer words ``cloudy_words`` packs; K6
-in those modes).
+in those modes).  ``ddt_adjoint`` and ``rt_sweep_ddt_vjp`` are the plain
+twin of K6's d/dT part at idrv=1, the adjoint of the d/dT up sweep in
+every mode, written as the kernels run it.
 
 The ``rt_fluxes_*`` functions take ``taua_t`` (L, 16, B) with taut_t and
 fracs_t in reduced spectral storage (``spec_codec``): they decode them
@@ -201,6 +203,47 @@ def _ddt_step(dlu, dclru, a, ato, cf, cly, twin):
     dn = torch.where(cly, dlu * cf * (1.0 - ato) + dlu * (1.0 - cf) * (1.0 - a),
                      dlu * (1.0 - a))
     return dn, torch.where(twin, dclru * (1.0 - a), dn)
+
+
+def ddt_adjoint(at, atot, cf, cly, anyc, d0, wg, ct_ddt):
+    """The adjoint of the d/dT up sweep (``_ddt_step`` from d0 at the
+    surface) as K6 runs it at idrv=1, the plain twin of its d/dT part.
+    at, atot, cf (B, L, G) each layer's gas and total absorptivity and
+    cloud fraction, cly (B, L, 1|G) its cloudy gate, anyc (B, 1) the clear
+    twin's, d0 (B, G) the surface seed fracs[0] x dplankbnd_dt, wg (G,),
+    ct_ddt (2, L+1, B) the cotangents of duflx_dt and duflxc_dt ->
+    cotangents of (at, atot, cf, d0).  The recursion is linear: lam, the
+    cotangent of the derivative leaving each layer upward, runs from the
+    top level down (the clear twin's folded into it where the column has
+    no cloud, the twin then being the same), P, the derivative entering
+    each layer, from the surface up, and layer l's transmittance t gets
+    lam P (rtrn.cuh ddt_step_bwd)."""
+    B, L, G = at.shape
+    cu = ct_ddt[0].t()[..., None] * wg                   # (B, L+1, G)
+    ccu = ct_ddt[1].t()[..., None] * wg
+    tg = 1.0 - at
+    t = torch.where(cly, cf * (1.0 - atot) + (1.0 - cf) * tg, tg)
+    zero = torch.zeros_like(d0)
+    lam, lamc = cu[:, L], ccu[:, L]
+    lams, lamcs = [None] * L, [None] * L
+    for lev in range(L - 1, -1, -1):
+        lams[lev] = torch.where(anyc, lam, lam + lamc)
+        lamcs[lev] = torch.where(anyc, lamc, zero)
+        lam = cu[:, lev] + lams[lev] * t[:, lev]
+        lamc = ccu[:, lev] + lamcs[lev] * tg[:, lev]
+    ct_d0 = lam + lamc
+    p = pc = d0
+    ct_t, ct_tc = [], []
+    for lev in range(L):
+        ct_t.append(lams[lev] * p)
+        ct_tc.append(lamcs[lev] * pc)
+        p, pc = _ddt_step(p, pc, at[:, lev], atot[:, lev], cf[:, lev],
+                          cly[:, lev], anyc)
+    ct_t, ct_tc = torch.stack(ct_t, 1), torch.stack(ct_tc, 1)
+    ct_at = -torch.where(cly, ct_t * (1.0 - cf), ct_t) - ct_tc
+    ct_atot = torch.where(cly, -ct_t * cf, 0.0)
+    ct_cf = torch.where(cly, ct_t * (at - atot), 0.0)
+    return ct_at, ct_atot, ct_cf, ct_d0
 
 
 def flux(rads, wg):
@@ -694,6 +737,70 @@ def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
     xs = (taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t)
     return plain_vjp(fn, xs, [n and x is not None for n, x in zip(needs, xs)],
                      (ct,))
+
+
+def _ddt_factors(mode, taut_t, fracs_t, planklay_t, planklev_t, surf,
+                 clouds, ngb0):
+    """``ddt_adjoint``'s at, atot, cf, cly, anyc and d0 as the sweep of K1
+    ``mode`` (a ``rtrn_cuda.MODES`` key) forms them from its inputs;
+    clouds as ``rt_sweep_ddt_vjp``'s."""
+    ngb0 = ngb0.long()
+    taut, fracs, play, plev = (_tb(x) for x in (taut_t, fracs_t, planklay_t,
+                                                planklev_t))
+    B, L, G = taut.shape
+    secd, _, _, dpl = _surf(surf)
+    if mode in ("banded", "maxrand"):
+        odcld_g = _tb(clouds[1])[..., ngb0]
+        rows = _tb(clouds[0]) if mode == "maxrand" else None
+        cf = clouds[0].t() if rows is None else rows[..., ROW_CLDF]
+        cloudy = cf >= CLOUD_GATE
+        cf_g, gate = (x[..., None].expand(B, L, G) for x in (cf, cloudy))
+        cly = cloudy[..., None]
+        anyc = (cloudy.any(1, keepdim=True) if rows is None
+                else rows[:, :1, ROW_ICLDDN] > 0.0)
+    else:
+        cf_g, odcld_g, gate = _g_clouds(tuple(clouds) or None, taut, ngb0)
+        cly = gate.any(-1, keepdim=True)
+        anyc = cly[..., 0].any(1, keepdim=True)
+    pre = precompute(taut, cf_g, odcld_g, gate, fracs, play, plev, secd,
+                     ngb0)
+    return (pre["atrans"], pre["atot"], cf_g, cly, anyc,
+            fracs[:, 0, :] * dpl[:, ngb0])
+
+
+def rt_sweep_ddt_vjp(mode, taut_t, fracs_t, planklay_t, planklev_t, surf,
+                     clouds, ngb0, wg, ct_ddt):
+    """The plain twin of K6's d/dT part at idrv=1: ct_ddt (2, L+1, B), the
+    cotangents of duflx_dt and duflxc_dt -> cotangents of (taut_t,
+    fracs_t, planklay_t, planklev_t, surf (4, 16, B), *clouds), zeros
+    where the d/dT outputs do not read an input (None for the compact
+    mask), for the sweep of K1 ``mode`` (a ``rtrn_cuda.MODES`` key),
+    clouds: clear (), compact ``rt_sweep_blocked``'s (mask, cw, abi,
+    abl), the others ``rtrn_cuda.CLOUD_INPUTS[mode]``.  ``ddt_adjoint``
+    gives the cotangents of each layer's factors and of the surface seed,
+    and autograd of the factors as the sweep forms them
+    (``_ddt_factors``) carries them to the inputs, as K6's reverse steps
+    do; equal to the plain vjp of the sweep on the cotangent (0, 0, 0, 0,
+    *ct_ddt) up to the order of the sums."""
+    xs = [x.detach().requires_grad_(x.is_floating_point())
+          for x in (taut_t, fracs_t, planklay_t, planklev_t, surf, *clouds)]
+    with torch.enable_grad():
+        at, atot, cf, cly, anyc, d0 = _ddt_factors(mode, *xs[:5], xs[5:],
+                                                   ngb0)
+        cts = ddt_adjoint(at.detach(), atot.detach(), cf.detach(), cly, anyc,
+                          d0.detach(), wg, ct_ddt)
+        outs = [(o, c) for o, c in zip((at, atot, cf, d0), cts)
+                if o.requires_grad]
+        grads = torch.autograd.grad([o for o, _ in outs],
+                                    [x for x in xs if x.requires_grad],
+                                    [c for _, c in outs], allow_unused=True)
+    grads = iter(grads)
+    out = []
+    for x in xs:
+        g = next(grads) if x.requires_grad else None
+        out.append(torch.zeros_like(x) if g is None and x.requires_grad
+                   else g)
+    return tuple(out)
 
 
 def split_ddt(out):

@@ -21,13 +21,14 @@ words K6 reads there, ``rt_sweep_banded_vjp`` and
 ``rt_sweep_g_vjp``).  K1's gradient-step launch writes the radiances by
 bulk tensor stores where B is a multiple of 4 (its rows 16-byte
 aligned), by scalar stores otherwise (``k1_save_path``).  With idrv=1 (a
-fourth
-surface row, ``dplankbnd_dt``) each returns the fluxes and their
-derivatives with respect to the surface temperature (2, L+1, B); on the
-card a cotangent of the latter raises.  On a CUDA tensor each
-wrapper launches its kernel (or raises); on a CPU tensor it runs the
-plain version (``rtrn.rt_sweep_blocked``, ``rtrn.rt_sweep_vjp``,
-``rtrn.SWEEPS``) and, backward, its plain vjp.
+fourth surface row, ``dplankbnd_dt``) each returns the fluxes and their
+derivatives with respect to the surface temperature (2, L+1, B); a
+cotangent of the latter reaches K6's instantiation in the mode that also
+runs the d/dT sweep's adjoint (``ct_ddt`` of each vjp wrapper;
+``rtrn.ddt_adjoint`` is its plain twin), counted in ``DDT_LAUNCHES``.
+On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
+tensor it runs the plain version (``rtrn.rt_sweep_blocked``,
+``rtrn.rt_sweep_vjp``, ``rtrn.SWEEPS``) and, backward, its plain vjp.
 
 Reduced spectral storage (``spec_codec``): taut_t and fracs_t may hold
 taug and fracs in bfloat16, float16 or logu16 codes (uint16), with the
@@ -67,8 +68,8 @@ CLOUD_INPUTS = {
               ("abl_t", 16)),
     "cldf_od": (("cldf_t", NGPT_PAD), ("odcld_t", NGPT_PAD)),
 }
-_UNPORTED_ADJOINT = ("see ROADMAP.md Queue 1, the adjoint of the d/dT "
-                     "outputs on the card")
+# launches of K6's instantiations with the d/dT sweep's adjoint, per mode
+DDT_LAUNCHES = {mode: _build.Launches() for mode in MODES}
 
 
 def _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t,
@@ -273,13 +274,27 @@ def _check_clouds(mode, clouds, L, B, device):
                      else (L, n, B), device)
 
 
-def _full_ct(ct, ct_ddt, shape, like):
-    """The (6, L+1, B) cotangent of an idrv=1 sweep, zeros where None."""
+def _full_ct(ct, ct_ddt):
+    """The (6, L+1, B) cotangent of an idrv=1 sweep, zeros where None (the
+    plain vjps' form)."""
+    like = ct if ct is not None else ct_ddt
+    shape = tuple(like.shape[1:])
+
     def z(n):
-        return torch.zeros((n,) + tuple(shape[1:]), dtype=like.dtype,
-                           device=like.device)
+        return torch.zeros((n,) + shape, dtype=like.dtype, device=like.device)
     return torch.cat([z(4) if ct is None else ct,
                       z(2) if ct_ddt is None else ct_ddt])
+
+
+def _ddt_operands(ct, ct_ddt, L, B, nlam, device):
+    """The flux cotangents K6 at idrv=1 stages (zeros where the loss reads
+    no flux, ``ct`` None), the checked d/dT cotangents and K6's scratch of
+    ``nlam`` (L, 140, B) planes (``rtrn.cuh`` Ddt)."""
+    _build.check(ct_ddt, "ct_ddt", torch.float32, (2, L + 1, B), device)
+    if ct is None:
+        ct = torch.zeros((4, L + 1, B), dtype=torch.float32, device=device)
+    lam = torch.empty((nlam, L, NGPT, B), dtype=torch.float32, device=device)
+    return ct, ct_ddt, lam
 
 
 class RTFn(torch.autograd.Function):
@@ -288,11 +303,12 @@ class RTFn(torch.autograd.Function):
     the four cloud inputs are None for clear sky, taua_t None in float32
     storage.  With a (4, 16, B) surf (idrv=1): (fluxes, d/dT (2, L+1,
     B)).  Backward K6 on the fluxes' cotangent (the d/dT row of surf gets
-    zero); mask, ngb0 and wg get None.  On the card, where an input needs
-    a gradient and ``grad_enabled`` (``torch.is_grad_enabled()`` at the
-    call: forward runs with grad mode off) holds, K1 keeps its radiances
-    for K6 (``rt_sweep_radiances``).  On the card a cotangent of d/dT
-    raises; in reduced storage any backward raises."""
+    zero), and with a cotangent of d/dT its instantiation that runs the
+    d/dT sweep's adjoint too; mask, ngb0 and wg get None.  On the card,
+    where an input needs a gradient and ``grad_enabled``
+    (``torch.is_grad_enabled()`` at the call: forward runs with grad mode
+    off) holds, K1 keeps its radiances for K6 (``rt_sweep_radiances``).
+    In reduced storage any backward raises."""
 
     @staticmethod
     def forward(ctx, taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
@@ -326,26 +342,16 @@ class RTFn(torch.autograd.Function):
     def backward(ctx, ct, ct_ddt=None):
         if ctx.reduced:
             raise NotImplementedError(GRAD_MESSAGE)
+        if ct is None and ct_ddt is None:
+            return (None,) * 13
         x = list(ctx.saved_tensors)
         rads = x.pop() if ctx.device_type != "cpu" else None
         nsurf = x[4].shape[0]
         if ct_ddt is None:
-            if ct is None:
-                return (None,) * 13
             x[4] = x[4][:3]             # the fluxes do not read row 3
-        elif ctx.device_type != "cpu":
-            raise NotImplementedError(
-                "gradients of duflx_dt / duflxc_dt (idrv=1) on the card: "
-                "the adjoint of the d/dT sweep is not ported yet; "
-                + _UNPORTED_ADJOINT)
-        else:
-            ct = _full_ct(ct, ct_ddt, (6,) + tuple(ct_ddt.shape[1:]),
-                          ct_ddt)
-        grads = list(rt_sweep_vjp(*x, ct.contiguous(),
-                                  needs=ctx.needs_input_grad[:8], rads=rads))
-        if grads[4] is not None and grads[4].shape[0] < nsurf:
-            grads[4] = torch.nn.functional.pad(grads[4], (0, 0, 0, 0, 0, 1))
-        return (*grads, None, None, None, None, None)
+        grads = list(rt_sweep_vjp(*x, ct, needs=ctx.needs_input_grad[:8],
+                                  rads=rads, ct_ddt=ct_ddt))
+        return (*_pad_surf(grads, nsurf), None, None, None, None, None)
 
 
 def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
@@ -383,7 +389,8 @@ class RTSweepFn(torch.autograd.Function):
     cloudy-layer words) K1 kept where an input needs a
     gradient and ``grad_enabled``, ``torch.is_grad_enabled()`` at the
     call, holds (maxrand: K from ``kept``, a ``KeptCount`` or None, as
-    ``rt_sweep_maxrand_radiances``); a cotangent of d/dT raises; in
+    ``rt_sweep_maxrand_radiances``), and with a cotangent of d/dT K6's
+    instantiation in the mode that runs the d/dT sweep's adjoint too; in
     reduced storage it raises."""
 
     @staticmethod
@@ -422,39 +429,37 @@ class RTSweepFn(torch.autograd.Function):
         if ctx.reduced:
             raise NotImplementedError(GRAD_MESSAGE)
         needs = ctx.needs_input_grad[6:]
-        if ctx.device_type != "cpu":
-            if ct_ddt is not None:
-                raise NotImplementedError(
-                    "gradients of duflx_dt / duflxc_dt (idrv=1) on the "
-                    "card: the adjoint of the d/dT sweep is not ported "
-                    "yet; " + _UNPORTED_ADJOINT)
-            if ct is None:
-                return (None,) * (6 + len(needs))
-            ngb0, wg, *x = ctx.saved_tensors
-            x, state = x[:-ctx.nstate], x[-ctx.nstate:]
-            nsurf = x[4].shape[0]
-            x[4] = x[4][:3]             # the fluxes do not read row 3
-            ct = ct.contiguous()
-            if ctx.mode == "maxrand":
-                grads = rt_sweep_maxrand_vjp(*x, ngb0, wg, ct, needs, state)
-            elif ctx.mode == "banded":
-                grads = rt_sweep_banded_vjp(*x, ngb0, wg, ct, needs,
-                                            *state)
-            else:
-                grads = rt_sweep_g_vjp(*x[:5], x[5:], ngb0, wg, ct, needs,
-                                       *state)
-            grads = list(grads)
-            if grads[4] is not None and nsurf == 4:
-                grads[4] = torch.nn.functional.pad(grads[4],
-                                                   (0, 0, 0, 0, 0, 1))
-            return (None,) * 6 + tuple(grads)
+        if ct is None and ct_ddt is None:
+            return (None,) * (6 + len(needs))
         ngb0, wg, *x = ctx.saved_tensors
-        if x[4].shape[0] == 4:
-            like = ct if ct is not None else ct_ddt
-            ct = _full_ct(ct, ct_ddt, (6,) + tuple(like.shape[1:]), like)
-        grads = plain_vjp(lambda *a: rtrn.SWEEPS[ctx.mode](*a, ngb0, wg),
-                          x, needs, (ct,))
-        return (None,) * 6 + tuple(grads)
+        if ctx.device_type == "cpu":
+            if x[4].shape[0] == 4:
+                ct = _full_ct(ct, ct_ddt)
+            grads = plain_vjp(lambda *a: rtrn.SWEEPS[ctx.mode](*a, ngb0, wg),
+                              x, needs, (ct,))
+            return (None,) * 6 + tuple(grads)
+        x, state = x[:-ctx.nstate], x[-ctx.nstate:]
+        nsurf = x[4].shape[0]
+        if ct_ddt is None:
+            x[4] = x[4][:3]             # the fluxes do not read row 3
+        if ctx.mode == "maxrand":
+            grads = rt_sweep_maxrand_vjp(*x, ngb0, wg, ct, needs, state,
+                                         ct_ddt=ct_ddt)
+        elif ctx.mode == "banded":
+            grads = rt_sweep_banded_vjp(*x, ngb0, wg, ct, needs, *state,
+                                        ct_ddt=ct_ddt)
+        else:
+            grads = rt_sweep_g_vjp(*x[:5], x[5:], ngb0, wg, ct, needs,
+                                   *state, ct_ddt=ct_ddt)
+        return (None,) * 6 + tuple(_pad_surf(list(grads), nsurf))
+
+
+def _pad_surf(grads, nsurf):
+    """The vjps' cotangents with surf's padded to its ``nsurf`` rows (the
+    d/dT row's zero where the loss reads no d/dT)."""
+    if grads[4] is not None and grads[4].shape[0] < nsurf:
+        grads[4] = torch.nn.functional.pad(grads[4], (0, 0, 0, 0, 0, 1))
+    return grads
 
 
 def _sweep(mode, taut_t, fracs_t, planklay_t, planklev_t, plankbnd, semiss,
@@ -521,22 +526,33 @@ WRAPPERS = {"blocked": rt_fluxes_blocked, "fused": rt_fluxes_fused,
 
 
 def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
-                 abl_t, mask, ngb0, wg, ct, needs=(True,) * 8, rads=None):
+                 abl_t, mask, ngb0, wg, ct, needs=(True,) * 8, rads=None,
+                 ct_ddt=None):
     """K6: flux cotangents ct (4, L+1, B) -> cotangents of (taut_t,
     fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t), None
-    where ``needs`` is False or the input is None (clear sky).  On the
+    where ``needs`` is False or the input is None (clear sky).  With
+    ``ct_ddt`` (2, L+1, B), the cotangents of duflx_dt and duflxc_dt
+    (idrv=1: surf (4, 16, B), ``ct`` may be None), its instantiation that
+    also runs the d/dT sweep's adjoint (counted in
+    ``DDT_LAUNCHES["clear" | "compact"]``, not in ``.launches``).  On the
     card K6 reads ``rads``, the radiances K1 kept on the same inputs
     (``rt_sweep_radiances``), and raises without them; the plain vjp (CPU
     tensors) does not read them."""
     if taut_t.device.type == "cpu":
         return rtrn.rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t,
                                  surf, cw_t, abi_t, abl_t, mask, ngb0, wg,
-                                 ct, needs)
+                                 ct if ct_ddt is None
+                                 else _full_ct(ct, ct_ddt), needs)
+    ddt = ct_ddt is not None
     L, B = _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
-                  abl_t, mask, ngb0, wg, surf_rows=(3,))
+                  abl_t, mask, ngb0, wg, surf_rows=(4,) if ddt else (3,))
     dev = taut_t.device
-    _build.check(ct, "ct", torch.float32, (4, L + 1, B), dev)
     cloudy = mask is not None
+    if ddt:
+        ct, ct_ddt, lam = _ddt_operands(ct, ct_ddt.contiguous(), L, B,
+                                        2 if cloudy else 1, dev)
+    ct = ct.contiguous()
+    _build.check(ct, "ct", torch.float32, (4, L + 1, B), dev)
     if rads is None:
         raise ValueError("rt_sweep_vjp on the card reads the radiances K1 "
                          "kept on the same inputs (rads, from "
@@ -547,26 +563,32 @@ def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
                                            planklev_t, surf)]
     grads += [torch.empty_like(x) if cloudy else None
               for x in (cw_t, abi_t, abl_t)]
-    _build.launch("rrtm_rt_bwd", taut_t, fracs_t, planklay_t, planklev_t,
-                  surf, ngb0, wg, mask, cw_t, abi_t, abl_t, ct, rads, *grads,
-                  L, B, int(cloudy))
-    rt_sweep_vjp.launches += 1
+    x = (taut_t, fracs_t, planklay_t, planklev_t, surf, ngb0, wg, mask, cw_t,
+         abi_t, abl_t, ct, rads, *grads)
+    if ddt:
+        _build.launch("rrtm_rt_bwd_ddt", *x, ct_ddt, lam, L, B, int(cloudy))
+        DDT_LAUNCHES["compact" if cloudy else "clear"].launches += 1
+    else:
+        _build.launch("rrtm_rt_bwd", *x, L, B, int(cloudy))
+        rt_sweep_vjp.launches += 1
     return tuple(g if n else None for g, n in zip(grads, needs))
 
 
 def rt_sweep_maxrand_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
                          rows_t, taucb_t, ngb0, wg, ct, needs=(True,) * 7,
-                         state=None):
+                         state=None, ct_ddt=None):
     """K6 in the maxrand mode (csrc/rtrn_bwd_mr.cu): flux cotangents ct
     (4, L+1, B) -> cotangents of (taut_t, fracs_t, planklay_t,
     planklev_t, surf (3, 16, B), rows_t (the overlap rows: R_CLDF and the
     12 factor rows; zeros in the four flag rows), taucb_t), None where
-    ``needs`` is False.  On the card it reads ``state``, the pair (rads,
-    subs) K1 kept on the same inputs (``rt_sweep_maxrand_radiances``),
-    and raises without it; the plain vjp (CPU tensors,
-    ``rtrn.rt_sweep_maxrand_vjp``) does not read it, but raises where a
-    given state has fewer slots than a column of ``rows_t`` keeps (K6
-    stops the launch there, as an index out of range does)."""
+    ``needs`` is False.  ``ct_ddt``: as ``rt_sweep_vjp``'s (surf (4, 16,
+    B); counted in ``DDT_LAUNCHES["maxrand"]``).  On the card it reads
+    ``state``, the pair (rads, subs) K1 kept on the same inputs
+    (``rt_sweep_maxrand_radiances``), and raises without it; the plain
+    vjp (CPU tensors, ``rtrn.rt_sweep_maxrand_vjp``) does not read it,
+    but raises where a given state has fewer slots than a column of
+    ``rows_t`` keeps (K6 stops the launch there, as an index out of range
+    does)."""
     x = (taut_t, fracs_t, planklay_t, planklev_t, surf, rows_t, taucb_t)
     if taut_t.device.type == "cpu":
         if state is not None:
@@ -575,10 +597,18 @@ def rt_sweep_maxrand_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
                 raise ValueError(f"subs: {state[1].shape[2]} slots a sweep, "
                                  f"the rows keep {K}: a state kept on "
                                  "other rows")
-        return rtrn.rt_sweep_maxrand_vjp(*x, ngb0, wg, ct, needs)
-    L, B = _check(*x[:5], None, None, None, None, ngb0, wg, surf_rows=(3,))
+        return rtrn.rt_sweep_maxrand_vjp(
+            *x, ngb0, wg, ct if ct_ddt is None else _full_ct(ct, ct_ddt),
+            needs)
+    ddt = ct_ddt is not None
+    L, B = _check(*x[:5], None, None, None, None, ngb0, wg,
+                  surf_rows=(4,) if ddt else (3,))
     dev = taut_t.device
     _check_clouds("maxrand", (rows_t, taucb_t), L, B, dev)
+    if ddt:
+        ct, ct_ddt, lam = _ddt_operands(ct, ct_ddt.contiguous(), L, B, 2,
+                                        dev)
+    ct = ct.contiguous()
     _build.check(ct, "ct", torch.float32, (4, L + 1, B), dev)
     if state is None:
         raise ValueError("rt_sweep_maxrand_vjp on the card reads the state "
@@ -590,9 +620,13 @@ def rt_sweep_maxrand_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
     K = subs.shape[2]
     _build.check(subs, "subs", torch.float32, (2, 3, K, NGPT, B), dev)
     grads = [torch.empty_like(t) for t in x]
-    _build.launch("rrtm_rt_bwd_mr", *x, ngb0, wg, ct, rads, subs, *grads,
-                  *k6_mr_scratch(L, B, dev), L, K, B)
-    rt_sweep_maxrand_vjp.launches += 1
+    a = (*x, ngb0, wg, ct, rads, subs, *grads, *k6_mr_scratch(L, B, dev))
+    if ddt:
+        _build.launch("rrtm_rt_bwd_mr_ddt", *a, ct_ddt, lam, L, K, B)
+        DDT_LAUNCHES["maxrand"].launches += 1
+    else:
+        _build.launch("rrtm_rt_bwd_mr", *a, L, K, B)
+        rt_sweep_maxrand_vjp.launches += 1
     return tuple(g if n else None for g, n in zip(grads, needs))
 
 
@@ -611,14 +645,22 @@ def k6_mr_scratch(L, B, device, lib=None):
 
 
 def _launch_bwd_g(mode, counters, x, clouds, ngb0, wg, ct, needs, rads,
-                  words=None):
+                  words=None, ct_ddt=None):
     """K6 in the banded, fused or cldf-odcld ``mode`` on the card
     (csrc/rtrn_bwd_g.cu), fed K1's radiances and (fused, cldf-odcld)
-    cloudy-layer words, counted on each of ``counters``: -> the
-    cotangents of (*x, *clouds), None where ``needs`` is False."""
-    L, B = _check(*x, None, None, None, None, ngb0, wg, surf_rows=(3,))
+    cloudy-layer words, counted on each of ``counters`` (with ``ct_ddt``:
+    its instantiation that runs the d/dT sweep's adjoint too, counted in
+    ``DDT_LAUNCHES[mode]``): -> the cotangents of (*x, *clouds), None
+    where ``needs`` is False."""
+    ddt = ct_ddt is not None
+    L, B = _check(*x, None, None, None, None, ngb0, wg,
+                  surf_rows=(4,) if ddt else (3,))
     dev = x[0].device
     _check_clouds(mode, clouds, L, B, dev)
+    if ddt:
+        ct, ct_ddt, lam = _ddt_operands(ct, ct_ddt.contiguous(), L, B, 2,
+                                        dev)
+    ct = ct.contiguous()
     _build.check(ct, "ct", torch.float32, (4, L + 1, B), dev)
     if rads is None:
         raise ValueError(f"K6 ({mode}) on the card reads the radiances K1 "
@@ -633,11 +675,16 @@ def _launch_bwd_g(mode, counters, x, clouds, ngb0, wg, ct, needs, rads,
         _build.check(words, "words", torch.int32, ((B + 31) // 32, L), dev)
     grads = [torch.empty_like(t) for t in (*x, *clouds)]
     pad = (None,) * (6 - len(clouds))
-    _build.launch("rrtm_rt_bwd_g", *x, ngb0, wg, *clouds, *pad, ct, rads,
-                  *grads, *pad, words, *k6_g_scratch(mode, L, B, dev), L, B,
-                  MODES[mode])
-    for c in counters:
-        c.launches += 1
+    a = (*x, ngb0, wg, *clouds, *pad, ct, rads, *grads, *pad, words,
+         *k6_g_scratch(mode, L, B, dev))
+    if ddt:
+        _build.launch("rrtm_rt_bwd_g_ddt", *a, ct_ddt, lam, L, B,
+                      MODES[mode])
+        DDT_LAUNCHES[mode].launches += 1
+    else:
+        _build.launch("rrtm_rt_bwd_g", *a, L, B, MODES[mode])
+        for c in counters:
+            c.launches += 1
     return tuple(g if n else None for g, n in zip(grads, needs))
 
 
@@ -659,24 +706,28 @@ def k6_g_scratch(mode, L, B, device, lib=None):
 
 def rt_sweep_banded_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
                         cldf_t, taucb_t, ngb0, wg, ct, needs=(True,) * 7,
-                        rads=None):
+                        rads=None, ct_ddt=None):
     """K6 in the banded mode (csrc/rtrn_bwd_g.cu): flux cotangents ct
     (4, L+1, B) -> cotangents of (taut_t, fracs_t, planklay_t,
     planklev_t, surf (3, 16, B), cldf_t (L, B), taucb_t (L, 16, B)),
-    None where ``needs`` is False.  On the card it reads ``rads``, the
-    radiances K1 kept on the same inputs (``rt_sweep_g_radiances``), and
-    raises without them; the plain vjp (CPU tensors,
-    ``rtrn.rt_sweep_banded_vjp``) does not read them."""
+    None where ``needs`` is False.  ``ct_ddt``: as ``rt_sweep_vjp``'s
+    (counted in ``DDT_LAUNCHES["banded"]``).  On the card it reads
+    ``rads``, the radiances K1 kept on the same inputs
+    (``rt_sweep_g_radiances``), and raises without them; the plain vjp
+    (CPU tensors, ``rtrn.rt_sweep_banded_vjp``) does not read them."""
     x = (taut_t, fracs_t, planklay_t, planklev_t, surf)
     if taut_t.device.type == "cpu":
-        return rtrn.rt_sweep_banded_vjp(*x, cldf_t, taucb_t, ngb0, wg, ct,
-                                        needs)
+        return rtrn.rt_sweep_banded_vjp(
+            *x, cldf_t, taucb_t, ngb0, wg,
+            ct if ct_ddt is None else _full_ct(ct, ct_ddt), needs)
     return _launch_bwd_g("banded", (rt_sweep_banded_vjp,), x,
-                         (cldf_t, taucb_t), ngb0, wg, ct, needs, rads)
+                         (cldf_t, taucb_t), ngb0, wg, ct, needs, rads,
+                         ct_ddt=ct_ddt)
 
 
 def rt_sweep_g_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, fields,
-                   ngb0, wg, ct, needs=None, rads=None, words=None):
+                   ngb0, wg, ct, needs=None, rads=None, words=None,
+                   ct_ddt=None):
     """K6 in the fused or cldf-odcld mode (csrc/rtrn_bwd_g.cu; the mode
     by the number of per-g ``fields``, as ``rtrn.rt_sweep_blocked``'s):
     flux cotangents ct (4, L+1, B) -> cotangents of (taut_t, fracs_t,
@@ -686,17 +737,21 @@ def rt_sweep_g_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, fields,
     radiances and cloudy-layer words K1 kept on the same inputs
     (``rt_sweep_g_radiances``), and raises without them; the plain vjp
     (CPU tensors, ``rtrn.rt_sweep_g_vjp``) does not read them.  Counted in
-    ``.launches`` and in ``.fused.launches`` or ``.cldf_od.launches``."""
+    ``.launches`` and in ``.fused.launches`` or ``.cldf_od.launches``;
+    with ``ct_ddt`` (as ``rt_sweep_vjp``'s) in ``DDT_LAUNCHES[mode]``."""
     x = (taut_t, fracs_t, planklay_t, planklev_t, surf)
     fields = tuple(fields)
     if needs is None:
         needs = (True,) * (5 + len(fields))
     if taut_t.device.type == "cpu":
-        return rtrn.rt_sweep_g_vjp(*x, fields, ngb0, wg, ct, needs)
+        return rtrn.rt_sweep_g_vjp(
+            *x, fields, ngb0, wg,
+            ct if ct_ddt is None else _full_ct(ct, ct_ddt), needs)
     mode = {6: "fused", 2: "cldf_od"}[len(fields)]
     return _launch_bwd_g(mode, (rt_sweep_g_vjp, getattr(rt_sweep_g_vjp,
                                                         mode)),
-                         x, fields, ngb0, wg, ct, needs, rads, words)
+                         x, fields, ngb0, wg, ct, needs, rads, words,
+                         ct_ddt)
 
 
 K1_INFO = ("registers", "local_bytes", "static_smem", "dynamic_smem",
@@ -739,10 +794,12 @@ def k1_save_path(mode):
     return {v: k for k, v in SAVE_PATHS.items()}.get(code)
 
 
-def k6_info(cloudy):
-    """K6's launch configuration, clear or compact (``cloudy``):
-    ``K1_INFO`` -> int, as ``k1_info``; needs the card."""
-    return _launch_info("rrtm_rt_bwd_info", int(cloudy))
+def k6_info(cloudy, ddt=False):
+    """K6's launch configuration, clear or compact (``cloudy``; ``ddt``:
+    its instantiation with the d/dT sweep's adjoint): ``K1_INFO`` -> int,
+    as ``k1_info``; needs the card."""
+    return _launch_info("rrtm_rt_bwd_ddt_info" if ddt else "rrtm_rt_bwd_info",
+                        int(cloudy))
 
 
 def _layout(entry, *args):
@@ -757,15 +814,17 @@ def _layout(entry, *args):
     return list(buf), buf[2]
 
 
-def k6_mr_info(nlay=60):
+def k6_mr_info(nlay=60, ddt=False):
     """K6's launch configuration in the maxrand mode at ``nlay`` layers
-    (its shared memory grows with them): ``K1_INFO`` -> int
+    (its shared memory grows with them; ``ddt``: its instantiation with
+    the d/dT sweep's adjoint): ``K1_INFO`` -> int
     (``ring_levels``: the slots of its ring), as ``k1_info``, and from
     ``rrtm_rt_bwd_mr_layout``: ``box_rows``, ``groups``, ``staging`` as
     ``k6_g_info``'s and ``share_floats`` (of a band group's share of a
     (layer, column) of the overlap rows' cotangents, in the launch's
     scratch, ``k6_mr_scratch``); needs the card."""
-    info = _launch_info("rrtm_rt_bwd_mr_info", int(nlay))
+    info = _launch_info("rrtm_rt_bwd_mr_ddt_info" if ddt
+                        else "rrtm_rt_bwd_mr_info", int(nlay))
     buf, ngrp = _layout("rrtm_rt_bwd_mr_layout")
     info.update(box_rows=buf[1], groups=tuple(buf[3:4 + ngrp]),
                 staging={1: "tma", 0: "elements"}.get(buf[4 + ngrp]),
@@ -773,9 +832,10 @@ def k6_mr_info(nlay=60):
     return info
 
 
-def k6_g_info(mode, nlay=60):
+def k6_g_info(mode, nlay=60, ddt=False):
     """K6's launch configuration in the banded, fused or cldf-odcld
-    ``mode`` at ``nlay`` layers (its shared memory grows with them):
+    ``mode`` at ``nlay`` layers (its shared memory grows with them;
+    ``ddt``: its instantiation with the d/dT sweep's adjoint):
     ``K1_INFO`` -> int (``ring_levels``: the slots of its ring), as
     ``k1_info``, and from ``rrtm_rt_bwd_g_layout``: ``box_rows`` (of a
     bulk copy's box), ``groups`` (the first band of each band group, then
@@ -783,7 +843,8 @@ def k6_g_info(mode, nlay=60):
     "elements" or None) and ``shares_in_smem`` (banded: its cloud-fraction
     shares in shared memory at ``nlay``, else in a scratch; None in the
     other modes); needs the card."""
-    info = _launch_info("rrtm_rt_bwd_g_info", MODES[mode], int(nlay))
+    info = _launch_info("rrtm_rt_bwd_g_ddt_info" if ddt
+                        else "rrtm_rt_bwd_g_info", MODES[mode], int(nlay))
     buf, ngrp = _layout("rrtm_rt_bwd_g_layout", MODES[mode], int(nlay))
     staged, shares = buf[4 + ngrp], buf[5 + ngrp]
     info.update(box_rows=buf[1], groups=tuple(buf[3:4 + ngrp]),

@@ -39,7 +39,7 @@ import time
 import torch
 
 from rrtmg_lw_torch.parallel import make_grad_step
-from rrtmg_lw_torch.utils.profiling import CELLS, cell_inputs
+from rrtmg_lw_torch.utils.profiling import CELLS, NCOL, cell_inputs, ddt_loss
 
 K1_SYMBOL = "rt_kernel<"
 STEP = "host_step"          # the record_function range of a traced step
@@ -142,7 +142,8 @@ def main(argv=None):
         defer_count()
     device = torch.device("cuda", 0)
     c = CELLS[args.cell]
-    step = make_grad_step(c.make_model(device), cloud_fields=c.cloud_grads)
+    step = make_grad_step(c.make_model(device), ddt_loss(NCOL, c.nlay, device)
+                          if c.ddt else None, c.cloud_grads)
     atm, clouds = cell_inputs(args.cell, device)
     for _ in range(3):
         step(atm, clouds)

@@ -53,9 +53,9 @@ def _prof():
     """The prof variant's replacements: clock() at each phase's end,
     summed per warp (lane 0) into k6g_dbg[mode][phase]."""
     reps = [
-        ("constexpr int G_RING = 2; ",
+        ("constexpr int NCLD = 6; ",
          "__device__ unsigned long long k6g_dbg[3][9];\n"
-         "constexpr int G_RING = 2; "),
+         "constexpr int NCLD = 6; "),
         ("    const int tid = threadIdx.x;\n",
          "    unsigned tacc[9] = {};\n"
          "    unsigned tlast = (unsigned)clock();\n"
@@ -83,9 +83,9 @@ def _prof():
         ("        if (j + 2 < 2 * L) issue(j + 2);\n",
          "        if (j + 2 < 2 * L) issue(j + 2);\n        tick(6);\n"),
         ("    if (ty < nb && valid) gr.surf[(size_t)(b0 + ty) * Bz + b] = "
-         "ct_sec;\n",
+         "csec_s[tid];\n",
          "    if (ty < nb && valid) gr.surf[(size_t)(b0 + ty) * Bz + b] = "
-         "ct_sec;\n"
+         "csec_s[tid];\n"
          "    tick(7);\n"
          "    if ((tid & 31) == 0)\n"
          "        for (int i = 0; i < 9; ++i)\n"

@@ -6,7 +6,9 @@
 For each cell (``CELLS``, at ``NCOL`` columns: the forward step, or the
 gradient step of
 ``parallel.make_grad_step`` for the ``*_grad`` cells, also with respect
-to the clouds' fields ``Cell.cloud_grads``): the median and
+to the clouds' fields ``Cell.cloud_grads``, of the default loss or, the
+``*_ddt_grad`` cells, of ``ddt_loss``, which reads the d/dT outputs):
+the median and
 quartiles of 20 host-timed steps (host clock around work that ends in ``torch.cuda.synchronize``),
 then ``torch.profiler`` over 5 steps: device busy ms per step (the union
 of the CUDA kernel and memcpy/memset intervals), the idle share
@@ -53,6 +55,7 @@ class Cell(NamedTuple):
     spec: str = ""             # RRTMG_SPEC_DTYPE of its model
     aod: float = 0.0           # aerosol od of its atmosphere
     cloud_grads: tuple = ()    # grad cells: the cloud fields differentiated
+    ddt: bool = False          # grad cells: the loss is ddt_loss
 
     def config(self, **kw):
         """The cell's LWConfig (float32, no lookup tables)."""
@@ -111,7 +114,25 @@ CELLS = {"clear": Cell(0, 1, None, 60),
          "mcica_blocked_grad": Cell(2, 1, "mcica_blocked", 60, True,
                                     cloud_grads=MCICA_GRADS),
          "mcica_tauc_grad": Cell(2, 1, "mcica_tauc", 60, True, inflag=0,
-                                 cloud_grads=("cldfmc", "taucmc"))}
+                                 cloud_grads=("cldfmc", "taucmc")),
+         # at idrv=1 with a loss that reads duflx_dt and duflxc_dt: K6's
+         # instantiation with the d/dT adjoint in each mode
+         "clear_ddt_grad": Cell(0, 1, None, 60, True, idrv=1, ddt=True),
+         "mcica_cloudy_ddt_grad": Cell(2, 1, "mcica", 60, True, idrv=1,
+                                       ddt=True),
+         "band_cloudy_ddt_grad": Cell(1, 0, "band", 60, True, idrv=1,
+                                      ddt=True,
+                                      cloud_grads=CLOUD_GRADS + RADII_GRADS),
+         "maxrand_cloudy_ddt_grad": Cell(2, 0, "band", 60, True, idrv=1,
+                                         ddt=True, cloud_grads=CLOUD_GRADS),
+         "mcica_blocked_ddt_grad": Cell(2, 1, "mcica_blocked", 60, True,
+                                        idrv=1, ddt=True,
+                                        cloud_grads=MCICA_GRADS),
+         "mcica_tauc_ddt_grad": Cell(2, 1, "mcica_tauc", 60, True, inflag=0,
+                                     idrv=1, ddt=True,
+                                     cloud_grads=("cldfmc", "taucmc"))}
+# the outputs ddt_loss reads
+DDT_LOSS = ("uflx", "duflx_dt", "duflxc_dt")
 # fragment of the demangled symbol -> kernel (csrc/*.cu); K1's third
 # template argument and K2's only one are the storage (csrc/spec.cuh),
 # K1's fourth whether it keeps the radiances for K6 ("save", float32):
@@ -134,9 +155,10 @@ KERNEL_SYMBOLS = tuple(
     ("cldcoef_kernel", "K4"), ("cldcoef_bwd_kernel", "K4b"),
     ("overlap_kernel", "overlap"),
     ("overlap_bwd_kernel", "overlap bwd"), ("rt_bwd_kernel", "K6"),
-    ("rt_bwd_mr_kernel", "K6 maxrand")) + tuple(
-    (f"rt_bwd_g_kernel<{m}>", f"K6 {name}")
-    for m, name in K6_G_MODES.items()) + (
+    ("rt_bwd_mr_kernel", "K6 maxrand"), ("rt_bwd_ddt_kernel", "K6 ddt"),
+    ("rt_bwd_mr_ddt_kernel", "K6 maxrand ddt")) + tuple(
+    (f"rt_bwd_g{d}_kernel<{m}>", f"K6 {name}{d.replace('_', ' ')}")
+    for m, name in K6_G_MODES.items() for d in ("", "_ddt")) + (
     ("taumol_bwd_kernel", "K5"), ("planck_bwd_kernel", "K3b"))
 
 
@@ -184,13 +206,26 @@ def _union_ms(intervals):
     return total / 1e3
 
 
+def ddt_loss(ncol, nlay, device, seed=7):
+    """A loss linear in ``DDT_LOSS``, uflx and the d/dT outputs duflx_dt,
+    duflxc_dt (idrv=1), with seeded weights (ncol, nlay + 1) each: the
+    ``*_ddt_grad`` cells' (a sensitivity of the fluxes to the surface
+    temperature, or a learned-physics term on it)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = [torch.randn(ncol, nlay + 1, generator=gen, device=device)
+         for _ in DDT_LOSS]
+    return lambda f: sum((c * getattr(f, n)).sum() for c, n in zip(w,
+                                                                   DDT_LOSS))
+
+
 def profile_cell(cell, device, steps=20, traced=5):
     from ..parallel import make_grad_step
     c = CELLS[cell]
     model = c.make_model(device)
     step = model
     if c.grad:
-        step = make_grad_step(model, cloud_fields=c.cloud_grads)
+        step = make_grad_step(model, ddt_loss(NCOL, c.nlay, device)
+                              if c.ddt else None, c.cloud_grads)
     atm, clouds = cell_inputs(cell, device)
     for _ in range(2):                                   # warm-up
         step(atm, clouds)

@@ -5,7 +5,7 @@
 
     PYTHONPATH=<checkout> python rrtmg_lw_torch/utils/snapshot.py \\
         --k1-times T1.json --k2-times T2.json --k5-times T5.json \\
-        --k6-times T6.json
+        --k6-times T6.json --k6-ddt-times TD.json
 
 ``--out`` runs, on the card, K2 in all four storages with its bins, K3
 at layer and level temperatures, K4, K5 and K6 (clear and compact; both
@@ -27,7 +27,11 @@ idrv and storage on the same inputs, and of compact at L=140;
 ``--k6-times`` those of K6 and of the K1 launch that keeps the
 radiances K6 reads, clear, compact and (where the checkout has them)
 maxrand, banded, fused and cldf-odcld at L=60, the last four also at
-L=140; ``--overlap-times`` those of the overlap-rows kernel
+L=140; ``--k6-ddt-times`` those of K6's instantiation with the d/dT
+sweep's adjoint (idrv=1) in every mode at L=60 and L=140 (``ddt_times``;
+its cases ``ddt_cases``, the calls ``ddt_state`` / ``ddt_vjp`` and their
+plain version ``ddt_plain_vjp``, which ``chip_smoke.py`` and the tests
+share); ``--overlap-times`` those of the overlap-rows kernel
 and (where the checkout has it) its adjoint.  The imports are
 absolute, so ``PYTHONPATH`` picks the checkout whose kernels run; only
 entry points that every checkout since reduced storage came in has are
@@ -547,6 +551,125 @@ def k6g_digests(tag, x, modes, model, ct) -> dict:
     return out
 
 
+# K1's modes, each with K6's instantiation that runs the d/dT sweep's
+# adjoint (idrv=1)
+DDT_MODES = ("clear", "compact", "banded", "maxrand", "fused", "cldf_od")
+# the symbol of that instantiation in each mode (csrc/rtrn_bwd*.cu)
+DDT_SYMBOLS = {"clear": "rt_bwd_ddt_kernel", "compact": "rt_bwd_ddt_kernel",
+               "maxrand": "rt_bwd_mr_ddt_kernel",
+               "banded": "rt_bwd_g_ddt_kernel",
+               "fused": "rt_bwd_g_ddt_kernel",
+               "cldf_od": "rt_bwd_g_ddt_kernel"}
+
+
+def flat_clouds(mode, cl) -> tuple:
+    """``k1_cloud_args``' cloud arguments of ``mode`` -> its clouds as
+    ``rtrn.rt_sweep_ddt_vjp`` takes them: clear (), compact (mask, cw,
+    abi, abl), the others ``rtrn_cuda.CLOUD_INPUTS[mode]``."""
+    if mode in ("banded", "maxrand"):
+        return tuple(cl)
+    return tuple(cl[0]) if cl else ()
+
+
+def _rt_fields(mode, cl):
+    """RTFn's four cloud inputs (cw, abi, abl, mask) of flat clouds
+    ``cl``, None in clear sky."""
+    return (None,) * 4 if mode == "clear" else (*cl[1:], cl[0])
+
+
+def ddt_state(mode, x, cl, ngb0, wg) -> dict:
+    """K1 keeping the state K6 reads in ``mode``, on x (taut_t, fracs_t,
+    planklay_t, planklev_t, surf) and flat clouds ``cl``
+    (``flat_clouds``): -> the state keywords of ``ddt_vjp``."""
+    from rrtmg_lw_torch.ops import rtrn_cuda
+    if mode in ("clear", "compact"):
+        return dict(rads=rtrn_cuda.rt_sweep_radiances(
+            *x, *_rt_fields(mode, cl), ngb0, wg)[1])
+    if mode == "maxrand":
+        _, *state = rtrn_cuda.rt_sweep_maxrand_radiances(*x, *cl, ngb0, wg)
+        return dict(state=tuple(state))
+    return g_state(rtrn_cuda.rt_sweep_g_radiances(mode, *x, cl, ngb0, wg))
+
+
+def ddt_vjp(mode, x, cl, ngb0, wg, ct, ct_ddt, kw):
+    """K6 in ``mode`` with the d/dT sweep's adjoint: x as ``ddt_state``'s
+    with surf (4, 16, B), flux cotangents ``ct`` (4, L+1, B) or None, the
+    d/dT ones ``ct_ddt`` (2, L+1, B), fed ``kw`` (``ddt_state``'s)."""
+    from rrtmg_lw_torch.ops import rtrn_cuda as rc
+    if mode in ("clear", "compact"):
+        return rc.rt_sweep_vjp(*x, *_rt_fields(mode, cl), ngb0, wg, ct,
+                               ct_ddt=ct_ddt, **kw)
+    if mode == "maxrand":
+        return rc.rt_sweep_maxrand_vjp(*x, *cl, ngb0, wg, ct, ct_ddt=ct_ddt,
+                                       **kw)
+    if mode == "banded":
+        return rc.rt_sweep_banded_vjp(*x, *cl, ngb0, wg, ct, ct_ddt=ct_ddt,
+                                      **kw)
+    return rc.rt_sweep_g_vjp(*x, cl, ngb0, wg, ct, ct_ddt=ct_ddt, **kw)
+
+
+def ddt_plain_vjp(mode, x, cl, ngb0, wg, ct, ct_ddt):
+    """``ddt_vjp``'s plain version: the plain vjp of the mode's sweep on
+    the cotangent (ct, or zeros where None, then ct_ddt)."""
+    from rrtmg_lw_torch.ops import rtrn, rtrn_cuda
+    ct6 = rtrn_cuda._full_ct(ct, ct_ddt)
+    if mode in ("clear", "compact"):
+        return rtrn.rt_sweep_vjp(*x, *_rt_fields(mode, cl), ngb0, wg, ct6)
+    if mode == "maxrand":
+        return rtrn.rt_sweep_maxrand_vjp(*x, *cl, ngb0, wg, ct6)
+    if mode == "banded":
+        return rtrn.rt_sweep_banded_vjp(*x, *cl, ngb0, wg, ct6)
+    return rtrn.rt_sweep_g_vjp(*x, cl, ngb0, wg, ct6)
+
+
+def ddt_cases(device, nlay) -> tuple:
+    """The inputs of K6's d/dT cases at B=16384: phase 3's (nlay=60) or the
+    mcica_cloudy_deep cell's (nlay=140) sweep inputs with surf (4, 16,
+    B), and each mode's flat clouds (``flat_clouds``) on the cells of
+    ``k1_cloud_args`` (nlay=60) or ``g_cloud_args`` (140): -> (x (taut_t,
+    fracs_t, planklay_t, planklev_t, surf), ngb0, wg, {mode: clouds})."""
+    from rrtmg_lw_torch.ops import rtrn, rtrnmr
+    xs = sweep_inputs(device, "mcica_cloudy" if nlay == 60
+                      else "mcica_cloudy_deep")
+    args, sc, prof, static = xs["args"], xs["sc"], xs["prof"], xs["static"]
+    surf = rtrn.surf_rows(sc.plankbnd, prof.semiss, prof.pwvcm,
+                          torch.float32, sc.dplankbnd_dt)
+    if nlay == 60:
+        clouds = {m: flat_clouds(m, cl) for m, (_, cl) in
+                  k1_cloud_args(device, static, xs["mc"]).items()}
+    else:
+        clouds = dict(g_cloud_args(device, static, nlay), clear=(),
+                      compact=compact_args(static, xs["mc"]))
+        cf, taucb = clouds["banded"]
+        clouds["maxrand"] = (rtrnmr.overlap_rows(cf.t()), taucb)
+    return (*args[:4], surf), args[7], args[8], clouds
+
+
+def ddt_times(device, reps=5) -> list:
+    """Device ms per launch (``torch.profiler``, as ``k6_times``) of K6's
+    instantiation with the d/dT sweep's adjoint in every mode, on
+    ``ddt_cases`` at L=60 and L=140, fed the state K1 kept on the same
+    inputs, on seeded flux and d/dT cotangents.  -> [{mode, nlay,
+    k6_ddt_ms}]."""
+    rows = []
+    gen = torch.Generator(device=device).manual_seed(5)
+    for nlay in (60, 140):
+        x, ngb0, wg, clouds = ddt_cases(device, nlay)
+        L, _, B = x[0].shape
+        ct = torch.randn((4, L + 1, B), generator=gen, device=device)
+        ct_ddt = torch.randn((2, L + 1, B), generator=gen, device=device)
+        for mode in DDT_MODES:
+            cl = clouds[mode]
+            kw = ddt_state(mode, x, cl, ngb0, wg)
+            rows.append(dict(mode=mode, nlay=L, k6_ddt_ms=kernel_ms(
+                lambda: ddt_vjp(mode, x, cl, ngb0, wg, ct, ct_ddt, kw),
+                DDT_SYMBOLS[mode], reps)))
+            print(rows[-1], flush=True)
+            del kw
+        del x, clouds
+    return rows
+
+
 def g_state(kept) -> dict:
     """The keywords of K6 in the banded, fused or cldf-odcld mode for
     what ``rt_sweep_g_radiances`` returned, through the checkout's API:
@@ -949,12 +1072,16 @@ def main(argv=None) -> int:
     ap.add_argument("--k6-times", metavar="OUT",
                     help="time K6 and K1 keeping the radiances, clear, "
                          "compact and maxrand, into OUT (JSON)")
+    ap.add_argument("--k6-ddt-times", metavar="OUT",
+                    help="time K6 with the d/dT sweep's adjoint in every "
+                         "mode at L=60 and 140 into OUT (JSON)")
     ap.add_argument("--overlap-times", metavar="OUT",
                     help="time the overlap rows and their adjoint into OUT "
                          "(JSON)")
     args = ap.parse_args(argv)
     for opt, times in ((args.k1_times, k1_times), (args.k2_times, k2_times),
                        (args.k5_times, k5_times), (args.k6_times, k6_times),
+                       (args.k6_ddt_times, ddt_times),
                        (args.overlap_times, overlap_times)):
         if not opt:
             continue

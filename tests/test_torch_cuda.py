@@ -11,8 +11,9 @@ sub-streams) of K1's gradient-step launch (``rt_sweep_radiances``,
 ``rt_sweep_maxrand_radiances``, ``rt_sweep_g_radiances``), whose fluxes
 are bitwise those of K1's launch without them and whose state is within
 1e-5 of max |plain|; the maxrand, banded, fused and cldf-odcld gradient
-steps (clouds and radii included) against eager; a d/dT cotangent
-raising.
+steps (clouds and radii included) against eager; K6's instantiations
+with the d/dT sweep's adjoint (idrv=1) in every mode against the plain
+vjp of the 6-row cotangent, and the d/dT gradient step against eager.
 
 Marked ``cuda``: every test skips without a CUDA device.  This file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
@@ -1144,14 +1145,37 @@ def test_model_per_g_and_idrv_cuda_matches_eager(dev, icld, inflag, layout):
 
 
 def test_unported_adjoints_raise_on_card(dev):
-    """No gradient is dropped: a cotangent of duflx_dt raises (McICA
-    compact, fused and cldf-odcld); the default loss at idrv=1 runs and
-    equals idrv=0's step."""
+    """No gradient is dropped: a loss reading duflx_dt and duflxc_dt (and
+    one reading duflx_dt alone) runs on the card through K6 with the
+    d/dT sweep's adjoint (McICA compact, fused and cldf-odcld) and matches
+    eager within 1e-4 of max |eager| per Atmosphere field (linear in the
+    outputs); the default loss at idrv=1 equals idrv=0's step."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import DDT_LAUNCHES
     atm, clouds, _ = _case(dev, 40, 10)
     cfg = dict(icld=2, imca=1, dtype="float32", use_lut=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_grad_step(make_model(LWConfig(idrv=1, **cfg), device=dev),
-                       lambda f: f.duflx_dt.sum())(atm, clouds)
+    w = [_randn((40, 11), dev, s) for s in (1, 2, 3)]
+
+    def linear(f):
+        return sum((c * x).sum() for c, x in zip(
+            w, (f.uflx, f.duflx_dt, f.duflxc_dt)))
+
+    def ddt_only(f):
+        return (w[1] * f.duflx_dt).sum()
+    blk = McicaCloudsBlocked.from_numpy(
+        make_mcica_clouds(40, 10, layout="blocked"), dev, torch.float32)
+    for inflag, mode, cl in ((2, "compact", clouds), (2, "fused", blk),
+                             (0, "cldf_od", blk)):
+        for loss in (linear, ddt_only):
+            before = DDT_LAUNCHES[mode].launches
+            _, gk = make_grad_step(make_model(LWConfig(
+                inflag=inflag, idrv=1, **cfg), device=dev), loss)(atm, cl)
+            assert DDT_LAUNCHES[mode].launches == before + 1, mode
+            _, ge = make_grad_step(make_model(LWConfig(
+                inflag=inflag, idrv=1, impl="eager", **cfg), device=dev),
+                loss)(atm, cl)
+            for name, g, r in zip(Atmosphere._fields, gk, ge):
+                assert torch.isfinite(g).all(), (mode, name)
+                assert rel_err(g, r) <= 1e-4, (mode, loss.__name__, name)
     # autograd's scatter-adds use float atomics unless deterministic
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -1163,13 +1187,91 @@ def test_unported_adjoints_raise_on_card(dev):
         torch.use_deterministic_algorithms(False)
     assert torch.equal(l0, l1)
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
-    blk = McicaCloudsBlocked.from_numpy(
-        make_mcica_clouds(40, 10, layout="blocked"), dev, torch.float32)
-    for inflag in (0, 2):
-        model = make_model(LWConfig(inflag=inflag, idrv=1, **cfg),
-                           device=dev)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_grad_step(model, lambda f: f.duflx_dt.sum())(atm, blk)
+
+
+def _ddt_case(dev, args, dpl, modes, seed):
+    """K6 with the d/dT sweep's adjoint in every mode, on the sweep inputs
+    ``args`` (as ``_sweep_inputs``') at idrv=1 (``dpl``) with ``modes``'
+    clouds, fed the state K1 kept on the same inputs: within 1e-3 of max
+    |plain vjp| of the 6-row cotangent per output, with the flux
+    cotangent and without (None), bitwise over two runs, counted once a
+    launch in ``DDT_LAUNCHES``, the cotangent of dplankbnd_dt nonzero."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import DDT_LAUNCHES
+    from rrtmg_lw_torch.utils.snapshot import (DDT_MODES, ddt_plain_vjp,
+                                               ddt_state, ddt_vjp,
+                                               flat_clouds)
+    taut, fr, play, plev, plankbnd, semiss, pwvcm, ngb0, wg = args
+    L, _, B = taut.shape
+    x = (taut, fr, play, plev,
+         rtrn.surf_rows(plankbnd, semiss, pwvcm, torch.float32, dpl))
+    ct = _randn((4, L + 1, B), dev, seed)
+    ct_ddt = _randn((2, L + 1, B), dev, seed + 1)
+    for mode in DDT_MODES:
+        cl = flat_clouds(mode, modes[mode][1])
+        kw = ddt_state(mode, x, cl, ngb0, wg)
+        for c in (ct, None):
+            before = DDT_LAUNCHES[mode].launches
+            got = ddt_vjp(mode, x, cl, ngb0, wg, c, ct_ddt, kw)
+            assert DDT_LAUNCHES[mode].launches == before + 1, mode
+            ref = ddt_plain_vjp(mode, x, cl, ngb0, wg, c, ct_ddt)
+            for i, (g, r) in enumerate(zip(got, ref)):
+                if r is None:
+                    assert g is None, (mode, i)
+                    continue
+                assert g.shape == r.shape and torch.isfinite(g).all(), \
+                    (mode, i)
+                assert rel_err(g, r) <= 1e-3, (mode, i, c is None)
+            assert bool(got[4][3].any()), mode
+        again = ddt_vjp(mode, x, cl, ngb0, wg, None, ct_ddt, kw)
+        assert all(g is None or torch.equal(g, h)
+                   for g, h in zip(got, again)), mode
+
+
+@pytest.mark.parametrize("B,L", [(37, 13), (5, 1), (33, 9), (64, 140),
+                                 (32, 60)])
+def test_rt_ddt_adjoint_matches_plain_vjp(dev, B, L):
+    """``_ddt_case``: B off and on the tiles (16 columns clear / compact,
+    32 the others; 37, 5, 33 element copies in the per-band modes), one
+    layer, past K1's ring and at the cells' depth."""
+    args, dpl, modes = _sweep_inputs(dev, B, L)
+    _ddt_case(dev, args, dpl, modes, seed=B + L)
+
+
+@pytest.mark.parametrize("B,L", [(15, 5), (33, 9), (100, 140)])
+def test_rt_ddt_adjoint_on_k1_edge_cases(dev, B, L):
+    """``_ddt_case`` on ``utils.snapshot.k1_edge_args`` (clear, overcast
+    and top-and-bottom columns across the tiles, per-g cloud fractions in
+    (0, 0.5), od exactly 0.06 and 0)."""
+    from rrtmg_lw_torch.utils.snapshot import k1_edge_args
+    args, dpl, _ = _sweep_inputs(dev, B, L)
+    args, modes, _ = k1_edge_args(dev, _model(dev).static_tensors(), args)
+    _ddt_case(dev, args, dpl, modes, seed=B + L)
+
+
+def test_rt_adjoint_launch_configurations_at_idrv(dev):
+    """K6's idrv=0 instantiations keep the launch configuration PERF.md
+    records from before the d/dT ones came in (registers: clear 96, the
+    other modes 128; no local memory; two blocks per SM at L = 60); the
+    d/dT ones: 256 threads, at most 64 B of local memory (fused and
+    maxrand spill a few bytes at two blocks per SM), two blocks per SM at
+    L = 60 and 140 but compact (one)."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import k6_g_info, k6_info, k6_mr_info
+    old = {"clear": k6_info(False), "compact": k6_info(True),
+           "maxrand": k6_mr_info(60),
+           **{m: k6_g_info(m, 60) for m in G_MODES}}
+    for mode, info in old.items():
+        assert info["registers"] == (96 if mode == "clear" else 128), mode
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] == 2, mode
+    for nlay in (60, 140):
+        new = {"clear": k6_info(False, ddt=True),
+               "compact": k6_info(True, ddt=True),
+               "maxrand": k6_mr_info(nlay, ddt=True),
+               **{m: k6_g_info(m, nlay, ddt=True) for m in G_MODES}}
+        for mode, info in new.items():
+            assert info["threads"] == 256, (mode, info)
+            assert info["local_bytes"] <= 64, (mode, info)
+            assert info["blocks_per_sm"] == (1 if mode == "compact" else 2), \
+                (mode, nlay, info)
 
 
 # ---- reduced spectral storage (K7) and the probes ----
