@@ -108,7 +108,9 @@ Phases, each raising on failure (any failure exits non-zero):
      on the tables' grid, each bitwise over two runs; K6 with the d/dT
      sweep's adjoint in the six modes (``ddt_grad_kernels``: at L=60 on
      phase 3's inputs with each mode's cell clouds, on their first 37
-     columns and at L=140, fed the state K1 kept, within TOL_BWD_RT of
+     and B_ODD columns and at L=140, fed the state K1 kept (compact's on
+     K6-g's tile, fed K1 SAVE compact's cloudy-layer words, staged by
+     bulk copies where B % 16 == 0), within TOL_BWD_RT of
      the plain vjp of the sweep on seeded flux and d/dT cotangents on
      B_SUB columns, at L=60 also without the flux cotangent, bitwise over
      two runs, the cotangent of dplankbnd_dt nonzero); K1 keeping the
@@ -117,8 +119,9 @@ Phases, each raising on failure (any failure exits non-zero):
      stores, a last tile of 4 columns) and B=37 (scalar stores), the path
      each case took printed and held to B % 4, fluxes bitwise K1's,
      radiances (maxrand: the state) within TOL_RADS of plain, bitwise
-     over two runs, in fused and cldf-odcld the words equal to the plain
-     ones and K6 fed them within TOL_BWD_RT of the plain vjp; then the
+     over two runs, in fused, cldf-odcld and compact at idrv=1 the words
+     equal to the plain ones and K6 (compact: its d/dT) fed them within
+     TOL_BWD_RT of the plain vjp; then the
      gradient step
      (make_grad_step, the default loss, w.r.t. every Atmosphere field) at B=16384, L=60 through the kernels: McICA,
      3 timed steps with the launch counters reset just before and read
@@ -220,6 +223,10 @@ TOL_STEP = 1e-4
 # to (autograd through the plain sweep at full width would hold ~10x the
 # saved state), and of its plain time
 B_SUB = 2048
+# columns whose rows of floats are 16-byte aligned but the compact mask's
+# int8 rows are not (B % 16 == 4): K6-g's compact d/dT stages every row
+# element by element there
+B_ODD = 2052
 
 # the bound of a kernel: the larger of its bytes (each input read once,
 # each output written once) over the H100 SXM's HBM rate and its
@@ -313,9 +320,10 @@ KERNELS = (  # name, source, replaced TPU kernel
 DDT_MODES = ("clear", "compact", "banded", "maxrand", "fused", "cldf_od")
 # K6-g fused and maxrand at two blocks per SM spill a few bytes (24 and 8),
 # 1.4-1.6x faster than spill-free at one block (PERF.md section 6): a gate
-# against heavier spilling (compact at two blocks: 386 B)
+# against heavier spilling (compact on K1's 16 x 16 tile at two blocks:
+# 386 B; on K6-g's tile it is held to two blocks)
 DDT_SPILL_MAX = 64
-DDT_SOURCES = {"clear": "rtrn_bwd.cu", "compact": "rtrn_bwd.cu",
+DDT_SOURCES = {"clear": "rtrn_bwd.cu", "compact": "rtrn_bwd_g.cu",
                "maxrand": "rtrn_bwd_mr.cu", "banded": "rtrn_bwd_g.cu",
                "fused": "rtrn_bwd_g.cu", "cldf_od": "rtrn_bwd_g.cu"}
 KERNELS += tuple(
@@ -894,25 +902,25 @@ def ddt_build_info(log_path):
     """Registers and spill stores (``_build.ptxas_info``) and launch
     configuration (``rtrn_cuda.k6_info``, ``k6_mr_info``, ``k6_g_info``
     with ``ddt=True``, at L_MAIN and L_DEEP) of K6's instantiations with
-    the d/dT sweep's adjoint, one a mode; fails where one fits no block
-    on an SM or spills more than DDT_SPILL_MAX bytes.  -> {summary name:
-    {...}}."""
+    the d/dT sweep's adjoint, one a mode (compact's on K6-g's tile);
+    fails where one fits no block on an SM or spills more than
+    DDT_SPILL_MAX bytes, or compact's takes more than 128 registers or
+    fits fewer than two blocks per SM.  -> {summary name: {...}}."""
     from rrtmg_lw_torch._build import ptxas_info
     from rrtmg_lw_torch.ops.rtrn_cuda import (MODES, k6_g_info, k6_info,
                                               k6_mr_info)
     names = {"17rt_bwd_ddt_kernelILb0EE": "rt_adjoint_ddt_clear",
-             "17rt_bwd_ddt_kernelILb1EE": "rt_adjoint_ddt_compact",
              "20rt_bwd_mr_ddt_kernelE": "rt_adjoint_ddt_maxrand"}
     names.update({f"19rt_bwd_g_ddt_kernelILi{MODES[m]}EE":
-                  f"rt_adjoint_ddt_{m}" for m in G_MODES})
+                  f"rt_adjoint_ddt_{m}" for m in ("compact", *G_MODES)})
     out = ptxas_info(log_path, "|".join(names), lambda m: names[m.group(0)])
     need(sorted(out) == sorted(names.values())
          and all(len(r) == 2 for r in out.values()),
          f"d/dT adjoint: {sorted(out)} in the build log")
 
     def info(mode, nlay):
-        if mode in ("clear", "compact"):
-            return k6_info(mode == "compact", ddt=True)
+        if mode == "clear":
+            return k6_info(False, ddt=True)
         if mode == "maxrand":
             return k6_mr_info(nlay, ddt=True)
         return k6_g_info(mode, nlay, ddt=True)
@@ -934,6 +942,11 @@ def ddt_build_info(log_path):
              for r in out.values()),
          f"d/dT adjoint: spill stores or local memory over {DDT_SPILL_MAX} "
          f"B, or no block per SM: {out}")
+    r = out["rt_adjoint_ddt_compact"]
+    need(r["registers"] <= 128
+         and min(r["blocks_per_sm"], r["blocks_per_sm_deep"]) >= 2,
+         f"rt_adjoint_ddt_compact: over 128 registers or fewer than two "
+         f"blocks per SM: {r}")
     return out
 
 
@@ -1375,7 +1388,7 @@ def phase_grad_kernels(device):
     # checks after them
     cf = (cw, abi, abl, clouds.cldfmc)
     args = (taut, fracs, play, plev, surf, *cf, model.ngb0, model.wg)
-    fk, rads = rt_sweep_radiances(*args)
+    fk, rads, _ = rt_sweep_radiances(*args)
     grads = rt_sweep_vjp(*args, ct, rads=rads)
     mask = clouds.cldfmc
     ncld = int((mask[:, :140] != 0).any(1).sum())     # cloudy (layer, col)
@@ -1403,7 +1416,7 @@ def phase_grad_kernels(device):
                                                     emask))):
         fields = None if cf[3] is None else (cf[3], *cf[:3])
         args = (tt, fracs, play, plev, surf, *cf, model.ngb0, model.wg)
-        fk, rads = rt_sweep_radiances(*args)
+        fk, rads, _ = rt_sweep_radiances(*args)
         need(torch.equal(fk, rt_fluxes_blocked(tt, fracs, play, plev,
                                                *fl_args, fields)),
              f"rt_sweep_save ({tag}): fluxes differ from K1's without the "
@@ -1984,7 +1997,9 @@ def ddt_grad_kernels(device):
     """K6's instantiations with the d/dT sweep's adjoint (idrv=1), one a
     mode, on ``utils.snapshot.ddt_cases`` (phase 3's sweep inputs with
     surf (4, 16, B) and each mode's cell clouds) at L_MAIN, on their first
-    37 columns (element copies) and at L_DEEP, each fed the state K1 kept
+    37 columns (element copies), on their first B_ODD (rows 16-byte
+    aligned but not the int8 mask's: compact's element copies beside the
+    other modes' bulk ones) and at L_DEEP, each fed the state K1 kept
     on the same inputs: within TOL_BWD_RT of the plain vjp of the mode's
     sweep on the cotangent (ct, ct_ddt), seeded, per output on the first
     B_SUB columns (all 37), at L_MAIN also with ct None (a loss that reads
@@ -1993,6 +2008,7 @@ def ddt_grad_kernels(device):
     K6 in the mode (its inputs read once, its outputs written once) with
     ct_ddt and surf's row 3 and its cotangent; the scratch's bytes
     (written once, read once) beside them (device ms: grad_device_times)."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import k6_g_info
     from rrtmg_lw_torch.utils.snapshot import (cut_columns, ddt_cases,
                                                ddt_plain_vjp, ddt_state,
                                                ddt_vjp)
@@ -2003,6 +2019,9 @@ def ddt_grad_kernels(device):
              ("B=37", lambda: (cut_columns(main[0], 37, B), *main[1:3],
                                {m: cut_columns(c, 37, B)
                                 for m, c in main[3].items()})),
+             (f"B={B_ODD}", lambda: (
+                 cut_columns(main[0], B_ODD, B), *main[1:3],
+                 {m: cut_columns(c, B_ODD, B) for m, c in main[3].items()})),
              (f"L={L_DEEP}", lambda: ddt_cases(device, L_DEEP))]
     res, errs = {}, {m: [] for m in DDT_MODES}
     for tag, case in cases:
@@ -2028,6 +2047,10 @@ def ddt_grad_kernels(device):
             need(all(g is None or torch.equal(g, h)
                      for g, h in zip(runs[0][0], k6())),
                  f"{name} ({tag}): two runs differ")
+            if mode == "compact":
+                st = k6_g_info("compact", L, ddt=True)["staging"]
+                need(st == ("tma" if Bc % 16 == 0 else "elements"),
+                     f"{name} ({tag}): staged by {st} at B={Bc}")
             if tag == f"L={L_MAIN}":
                 runs.append((k6(None), plain(None), ", ct None"))
             for got, ref, what in runs:
@@ -2122,14 +2145,17 @@ def k1_save_cases(device):
     radiances (maxrand: the state unpacked, ``rtrn.unpack_state``) within
     TOL_RADS of max |plain| and bitwise over two runs; fused and
     cldf-odcld: the cloudy-layer words equal to the plain ones and K6 fed
-    them within TOL_BWD_RT of the plain vjp on the first B_SUB columns.
+    them within TOL_BWD_RT of the plain vjp on the first B_SUB columns;
+    compact at idrv=1 likewise (its d/dT K6 on a seeded d/dT cotangent),
+    at idrv=0 no words.
     -> {"<mode> idrv<i> <case>": store path}, printed."""
     from rrtmg_lw_torch.ops import rtrn, rtrnmr
     from rrtmg_lw_torch.ops.rtrn_cuda import (WRAPPERS, k1_save_path,
                                               rt_sweep_g_radiances,
                                               rt_sweep_g_vjp,
                                               rt_sweep_maxrand_radiances,
-                                              rt_sweep_radiances)
+                                              rt_sweep_radiances,
+                                              rt_sweep_vjp)
     from rrtmg_lw_torch.utils.snapshot import (SAVE_COLUMNS, compact_args,
                                                cut_columns, g_cloud_args,
                                                k1_cloud_args, k1_edge_args,
@@ -2246,6 +2272,32 @@ def k1_save_cases(device):
                             f"{e6:.3g} of max |plain vjp| on {sub.stop} "
                             "columns")
                     del g6, ref, xs
+                if mode == "compact" and not idrv:
+                    need(got[2] is None,
+                         f"K1 SAVE {name}: words kept at idrv=0")
+                if mode == "compact" and idrv:
+                    words = got[2]
+                    need(torch.equal(words, rtrn.cloudy_words(fields[0])),
+                         f"K1 SAVE {name}: cloudy-layer words differ from "
+                         "the plain ones (rtrn.cloudy_words of the mask)")
+                    cd = torch.randn((2, L + 1, B), generator=gen,
+                                     device=device)
+                    g8 = rt_sweep_vjp(*x5, *cf, ngb0, wg, ct, rads=got[1],
+                                      ct_ddt=cd, words=words)
+                    sub = slice(0, min(B, B_SUB))
+                    xs = tuple(t[..., sub].contiguous() for t in (*x5, *cf))
+                    ref = rtrn.rt_sweep_vjp(
+                        *xs, ngb0, wg, torch.cat([ct, cd])[..., sub]
+                        .contiguous())
+                    e8 = max(rel_err(g[..., sub], r) for g, r in zip(g8, ref))
+                    need(all(bool(torch.isfinite(g).all()) for g in g8)
+                         and e8 <= TOL_BWD_RT,
+                         f"K6 compact d/dT fed K1 SAVE {name}: rel err "
+                         f"{e8:.3g} > {TOL_BWD_RT}")
+                    msg += (f"; words equal plain, K6's d/dT fed them within "
+                            f"{e8:.3g} of max |plain vjp| on {sub.stop} "
+                            "columns")
+                    del g8, ref, xs
                 print(msg)
                 del got, plain
         torch.cuda.empty_cache()
@@ -3217,8 +3269,10 @@ def main() -> int:
               f"({r['device_ms_deep']:.3f} at L={L_DEEP}), {r['gbps']:.0f} "
               f"GB/s of its bytes read once, bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']}; its scratch {r['scratch_gb']:.2f} GB "
-              f"besides), {r['registers']} registers, {r['blocks_per_sm']} "
-              "blocks per SM")
+              f"besides), {r['registers']} registers, {r['spill_bytes']} B "
+              f"spill stores, {r['smem_bytes']} B shared memory "
+              f"({r['smem_bytes_deep']} at L={L_DEEP}), "
+              f"{r['blocks_per_sm']} blocks per SM")
     r = res["taumol_bwd"]
     r.update(k5_build, gbps=r["bytes_once"] / (r["device_ms"] * 1e-3) / 1e9)
     print(f"taumol_bwd: device {r['device_ms']:.3f} ms, {r['gbps']:.0f} GB/s "

@@ -1,5 +1,6 @@
 // The tile of the per-band adjoints, K6 in the banded, fused and
-// cldf-odcld modes (rtrn_bwd_g.cu) and K6 maxrand (rtrn_bwd_mr.cu): a
+// cldf-odcld modes and compact's d/dT (rtrn_bwd_g.cu) and K6 maxrand
+// (rtrn_bwd_mr.cu): a
 // block holds 32 columns (a lane each) and one of NGRP = 5 groups of whole
 // bands (g-points 0-21, 22-51, 52-75, 76-107, 108-139), taken from a
 // ticket drawn as the block starts; warp y takes the group's g-points y,
@@ -38,9 +39,10 @@ __constant__ int GFIRST[NGRP + 1] = {0, 2, 4, 6, 9, KNB};
 // The scratch of a launch (the wrapper's allocations): the counter the
 // tickets are drawn from, then one a column tile (zeroed); the groups'
 // shares of the sums over all 140 g-points (K6 banded past L = 381: the
-// cloud fraction's; K6 maxrand: the overlap rows'), where the kernel
-// keeps them in device memory, else null; and K6-g's per-g modes' input
-// of the cloudy-layer words K1 wrote ((tiles, L), else null).
+// cloud fraction's; compact's d/dT past L = 153: cw's; K6 maxrand: the
+// overlap rows'), where the kernel keeps them in device memory, else
+// null; and K6-g's per-g modes' input of the cloudy-layer words K1 wrote
+// ((tiles, L), else null).
 struct GScratch {
     const unsigned* words;
     int* count;

@@ -2,9 +2,10 @@
 // McICA clouds: flux cotangents (4, L+1, B) -> cotangents of taut, fracs
 // (L, 140, B), planklay (L, 16, B), planklev (L+1, 16, B), the surface
 // rows (3, 16, B), and, cloudy, cw (L, 2, B), abi, abl (L, 16, B).  At
-// idrv=1 with a cotangent of the d/dT outputs (2, L+1, B) its
+// idrv=1 with a cotangent of the d/dT outputs (2, L+1, B) clear's
 // instantiation rt_bwd_ddt_kernel also runs their adjoint, and the
-// surface rows are (4, 16, B), the fourth dplankbnd_dt (below).
+// surface rows are (4, 16, B), the fourth dplankbnd_dt (below); compact's
+// runs on K6-g's tile (rtrn_bwd_g.cu, rt_bwd_g_ddt_kernel<COMPACT>).
 //
 // Replaces the JAX package's backward of the TPU sweep, which was
 // unrolled XLA (rrtmg_lw_tpu/ops/rtrn_bwd.py:259 rt_bwd_fluxes, under
@@ -92,9 +93,10 @@
 // factors' cotangents (ddt_step_bwd), whose chain to taut, the secant and
 // cw, abi, abl is the step's own.  The body is shared: the idrv=0 kernel
 // is it without these terms, its code as before.  The d/dT carries take
-// registers: rt_bwd_ddt_kernel is launched at one block per SM (compact
-// 192 registers; clear's 120 still fit two), the scratch moves 2.2 GB
-// (clear 1.1) besides its bound's bytes at B=16384, L=60.
+// registers: clear's 120 still fit two blocks per SM, its scratch moves
+// 1.1 GB besides its bound's bytes at B=16384, L=60.  Compact's took 192
+// at one block per SM (7.6x its bound): it runs on K6-g's tile
+// (rtrn_bwd_g.cu), and rt_bwd_ddt_kernel is clear's alone.
 //
 // Shared memory a block (bytes):        clear    compact
 //   ring slot                          29,056     40,384
@@ -767,8 +769,8 @@ rt_bwd_kernel(Inputs in, const int* __restrict__ ngb,
 }
 
 // K6 with the d/dT sweep's adjoint (idrv=1 and a cotangent of duflx_dt
-// or duflxc_dt): one block per SM, whose registers hold the d/dT carries
-// beside the others (two blocks would leave it 128 registers a thread).
+// or duflxc_dt), clear sky alone: one block per SM in the launch bounds,
+// two fit (120 registers).
 template <bool CLOUDY>
 __global__ void __launch_bounds__(KT, 1)
 rt_bwd_ddt_kernel(Inputs in, const int* __restrict__ ngb,
@@ -793,23 +795,28 @@ cudaError_t prepare_bwd() {
     return e;
 }
 
-// K6, with the d/dT sweep's adjoint where dt.ct is given
+// K6, with the d/dT sweep's adjoint where dt.ct is given (clear sky;
+// compact's: rtrn_bwd_g.cu)
 template <bool CLOUDY>
 cudaError_t launch_bwd(const Inputs& in, const int* ngb, const float* wg,
                        const float* ct, const float* rads, const Grads& gr,
                        const Ddt& dt, cudaStream_t s) {
-    cudaError_t e = dt.ct ? prepare_bwd<CLOUDY, true>()
-                          : prepare_bwd<CLOUDY, false>();
-    if (e != cudaSuccess) return e;
     const dim3 block(KX, KY);
     const dim3 grid((in.B + KX - 1) / KX);
-    if (dt.ct)
+    if constexpr (CLOUDY) {
+        if (dt.ct) return cudaErrorInvalidValue;
+    } else if (dt.ct) {
+        const cudaError_t e = prepare_bwd<CLOUDY, true>();
+        if (e != cudaSuccess) return e;
         rt_bwd_ddt_kernel<CLOUDY>
             <<<grid, block, BwdLayout<CLOUDY>::BYTES, s>>>(in, ngb, wg, ct,
                                                            rads, gr, dt);
-    else
-        rt_bwd_kernel<CLOUDY><<<grid, block, BwdLayout<CLOUDY>::BYTES, s>>>(
-            in, ngb, wg, ct, rads, gr);
+        return cudaGetLastError();
+    }
+    const cudaError_t e = prepare_bwd<CLOUDY, false>();
+    if (e != cudaSuccess) return e;
+    rt_bwd_kernel<CLOUDY><<<grid, block, BwdLayout<CLOUDY>::BYTES, s>>>(
+        in, ngb, wg, ct, rads, gr);
     return cudaGetLastError();
 }
 
@@ -857,10 +864,11 @@ RRTM_API int rrtm_rt_bwd(const float* taut, const float* fracs,
     return bwd_entry(in, ngb, wg, ct, rads, gr, Ddt{}, cloudy, stream);
 }
 
-// rrtm_rt_bwd at idrv=1 with the d/dT sweep's adjoint: surf and ct_surf
-// (4, 16, B), the fourth row dplankbnd_dt and its cotangent; ct_ddt (2,
-// L+1, B) the cotangents of duflx_dt and duflxc_dt; lam the scratch of
-// (cloudy ? 2 : 1) x (L, 140, B) floats (rtrn.cuh Ddt).
+// rrtm_rt_bwd at idrv=1 with the d/dT sweep's adjoint, clear sky (cloudy
+// 0; compact: rrtm_rt_bwd_g_ddt): surf and ct_surf (4, 16, B), the fourth
+// row dplankbnd_dt and its cotangent; ct_ddt (2, L+1, B) the cotangents
+// of duflx_dt and duflxc_dt; lam the scratch of (L, 140, B) floats
+// (rtrn.cuh Ddt).
 RRTM_API int rrtm_rt_bwd_ddt(const float* taut, const float* fracs,
                              const float* play, const float* plev,
                              const float* surf, const int* ngb,
@@ -887,8 +895,7 @@ RRTM_API int rrtm_rt_bwd_info(int cloudy, int* out) {
                         : info_bwd<false, false>(out));
 }
 
-// The same of rrtm_rt_bwd_ddt's instantiation.
+// The same of rrtm_rt_bwd_ddt's instantiation (clear sky: cloudy 0).
 RRTM_API int rrtm_rt_bwd_ddt_info(int cloudy, int* out) {
-    return (int)(cloudy ? info_bwd<true, true>(out)
-                        : info_bwd<false, true>(out));
+    return (int)(cloudy ? cudaErrorInvalidValue : info_bwd<false, true>(out));
 }

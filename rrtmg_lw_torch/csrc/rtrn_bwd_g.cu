@@ -10,7 +10,11 @@
 //   banded:     cldfrac (L, B), the per-band cloud od taucb (L, 16, B);
 //   cldf-odcld: cldf, odcld (L, 144, B);
 //   fused:      cldf, ciwp, clwp, tauc (L, 144, B), abi, abl (L, 16, B);
-// the pad rows 140-143 of every (L, 144, B) cotangent zero.
+// the pad rows 140-143 of every (L, 144, B) cotangent zero.  And K6 in
+// the compact mode (McICA's int8 mask x the layer's water paths) in its
+// d/dT instantiation alone (rt_bwd_g_ddt_kernel<COMPACT>; its idrv=0
+// kernel is rtrn_bwd.cu's): cotangents of cw (L, 2, B), abi, abl (L, 16,
+// B); the mask carries none.
 //
 // Replaces the JAX package's backward of these sweeps, which is XLA's
 // autodiff of rtrn.rt_random_overlap (rrtmg_lw_tpu/ops/rtrn_pallas.py:1040,
@@ -121,6 +125,28 @@
 //   beside em and pb, over the slot's RAD rows.  Two blocks per SM, as
 //   the idrv=0 kernel: 128 registers, fused 24 B of spill stores (at one
 //   block per SM, 150-168 registers, no spill, it took 1.4-1.6x as long).
+// - Compact's d/dT (on K1's 16 x 16 tile, where a thread carried 9
+//   g-points, its d/dT carries took it to 192 registers and one block
+//   per SM, 7.6x its bound): the step is
+//   compact's (rtrn_bwd.cu step_bwd) through the fused branch, cf the
+//   mask value, the water paths cw x cf, the cloud od only of cldprmc's
+//   water (no input od).  A slot also holds, where a column of the tile
+//   is cloudy at the layer, the group's int8 mask rows (boxes of 32 x 8
+//   bytes: the bulk copies need B % 16 == 0, else every row goes element
+//   by element, the mask's through registers, published by the block
+//   barrier before their first read), the layer's two cw rows and abi,
+//   abl as band blocks (fused's).  Its per-g cotangents of cw (a sum over
+//   all 140 g-points) go over the slot's PF and RAD rows; the last warp
+//   sums the group's, per band in ascending g, then over its bands in
+//   band order, into the group's share of the layer (the up sweep's, then
+//   plus the down sweep's), two floats a (layer, column), kept in shared
+//   memory up to L = 153, else in the scratch; at the end the tile's five
+//   blocks add their shares in group order, as banded's.  The up and down
+//   sweeps' totals were summed apart before: the output differs in the
+//   last bits.  The secant's cotangent is summed per (g, column) over
+//   both sweeps in shared memory, then per band in ascending g, the order
+//   of the 16 x 16 design.  The cloudy layers come from K1 SAVE compact's
+//   words at idrv=1 (no pass over the mask).
 //
 // Shared memory a block (bytes):       banded   cldf-odcld      fused
 //   ring slot                          31,104       37,120     49,408
@@ -130,6 +156,10 @@
 // Two blocks per SM: 2 x (102,496 + 1,024 reserved) <= 233,472, and so
 // up to L = 3,444 in fused (the cloudy-layer words take 4 bytes a layer);
 // banded's shares, 128 bytes a layer, stay in shared memory up to L = 381.
+// Compact's d/dT: a slot 34,304 (its six slabs, the mask, cw and band
+// rows), the ring 68,608, the rest 7,200 + 4 a layer with the per-g
+// secants (4,096), its cw shares 256 a layer up to L = 153: at L = 140
+// 112,208 (SMEM_BWD_G_COMPACT), two blocks per SM up to L = 9,976.
 #include "bwd_groups.cuh"
 
 namespace {
@@ -142,8 +172,9 @@ enum Saved { S_D = 0, S_U = 1, S_DC = 2, S_UC = 3 };
 // the tensor maps of a launch: the per-g inputs, the radiances, the up
 // sweep's ct_taut and ct_fracs, the band rows, the flux cotangents (one
 // row a box), the up sweep's band-summed outputs (planklay, planklev;
-// banded: taucb; fused: abi, abl) and the mode's cloud inputs (Clouds
-// order; banded's cldfrac one row a box); GH rows a box but where said
+// banded: taucb; fused, compact: abi, abl) and the mode's cloud inputs
+// (Clouds order; banded's cldfrac one row a box; compact's mask bytes,
+// its cw two rows a box); GH rows a box but where said
 enum MapId { M_TAUT, M_FRACS, M_RADS, M_GTAUT, M_GFRACS, M_PLAY, M_PLEV,
              M_CT, M_GPLAY, M_GPLEV, M_GBC, M_GBC1, M_C0,
              NMAP = M_C0 + NCLD };
@@ -159,13 +190,16 @@ struct GMaps {
 // TAU, FR, RAD (planklay, planklev, secant), RADC and PT rows (banded:
 // taucb, cloud fraction; fused: abi, abl), and the down sweep's per-g
 // cloud cotangents over its CLD rows, each thread over the elements it
-// has read.
+// has read.  Compact: planklay, planklev, abi, abl, cw's two over TAU,
+// FR, RADC, PT, PF and RAD.
 template <int MODE>
 struct GSlot {
     // per-g cloud input rows: cldf-odcld cldf, odcld; fused cldf, ciwp,
-    // clwp, tauc; the band cloud rows: banded taucb; fused abi, abl
+    // clwp, tauc; the band cloud rows: banded taucb; fused, compact abi,
+    // abl
     static constexpr int NCG = MODE == FUSED ? 4 : MODE == CLDF_OD ? 2 : 0;
-    static constexpr int NBC = MODE == FUSED ? 2 : MODE == BANDED ? 1 : 0;
+    static constexpr int NBC =
+        MODE == FUSED || MODE == COMPACT ? 2 : MODE == BANDED ? 1 : 0;
     static constexpr int SLAB = GBOX * GH * RB;
     static constexpr int BAND = GH * RB;
     static constexpr int TAU = 0;
@@ -185,7 +219,10 @@ struct GSlot {
     static constexpr int CT0 = PBC + NBC * BAND;     // UP or DOWN
     static constexpr int CT1 = CT0 + RB;             // CLR_UP or CLR_DOWN
     static constexpr int CF = CT1 + RB;              // banded: cldfrac
-    static constexpr int BYTES = CF + (MODE == BANDED ? RB : 0);
+    static constexpr int CW = CF + (MODE == BANDED ? RB : 0);  // compact:
+    static constexpr int MSK = CW + (MODE == COMPACT ? 2 * RB : 0);  // cw,
+    // and the group's mask rows, a byte a column (GBOX boxes of GH rows)
+    static constexpr int BYTES = MSK + (MODE == COMPACT ? GBOX * GH * GX : 0);
     static_assert(RB % 128 == 0 && BYTES % 128 == 0, "128-byte rows");
 };
 
@@ -194,10 +231,10 @@ struct GSlot {
 // (0-7 of the group) of each of the group's g-points, the bands' secants
 // per column and the secant's cotangents, the highest cloudy layer of
 // each column (these two held here, not in registers across the sweeps:
-// K6 banded has none to spare), the cloudy-layer words (a bit per
-// column, L), banded's
-// shares of the cloud fraction's cotangent where they fit, and 128 bytes
-// to align the ring.
+// K6 banded has none to spare), compact's secant cotangent of each of
+// the group's (g, column), the cloudy-layer words (a bit per column, L),
+// banded's shares of the cloud fraction's cotangent (compact: of cw's
+// two) where they fit, and 128 bytes to align the ring.
 template <int MODE>
 struct GLayout {
     using S = GSlot<MODE>;
@@ -209,19 +246,23 @@ struct GLayout {
     static constexpr int SECD = align16(RK + GR * 4);        // (GNB, GX)
     static constexpr int CSEC = SECD + GNB * GX * 4;         // (GNB, GX)
     static constexpr int HI = CSEC + GNB * GX * 4;           // (GX)
-    static constexpr int FLAGS = HI + GX * 4;                // (L)
-    // banded: the group's shares of the cloud fraction's cotangent,
-    // (L, GX), here while two blocks still fit an SM with them
+    static constexpr int CSG = HI + GX * 4;                  // (GR, GX)
+    static constexpr int FLAGS = CSG + (MODE == COMPACT ? GR * GX * 4 : 0);
+    // the shares of a (layer, column): banded the cloud fraction's,
+    // compact cw's two
+    static constexpr int NSH = MODE == BANDED ? 1 : MODE == COMPACT ? 2 : 0;
+    // the group's shares, (L, NSH, GX), here while two blocks still fit
+    // an SM with them
     __host__ __device__ static constexpr int part(int L) {
         return FLAGS + (L * 4 + 15) / 16 * 16;
     }
     __host__ __device__ static constexpr bool shares_here(int L) {
-        return MODE == BANDED
-               && G_BLOCKS_PER_SM * (part(L) + L * GX * 4 + 128
+        return NSH > 0
+               && G_BLOCKS_PER_SM * (part(L) + L * NSH * GX * 4 + 128
                                      + SMEM_RESERVED) <= SMEM_SM;
     }
     __host__ __device__ static constexpr int bytes(int L) {
-        return part(L) + (shares_here(L) ? L * GX * 4 : 0) + 128;
+        return part(L) + (shares_here(L) ? L * NSH * GX * 4 : 0) + 128;
     }
 };
 
@@ -241,10 +282,23 @@ static_assert(GLayout<BANDED>::shares_here(381)
                                     + SMEM_RESERVED) <= SMEM_SM,
               "banded's shares in shared memory up to L = 381; two fused "
               "blocks per SM up to L = 3,444");
+// compact's d/dT at L = 140; its cw shares in shared memory up to L = 153
+constexpr int SMEM_BWD_G_COMPACT = 112208;
+static_assert(GLayout<COMPACT>::bytes(140) == SMEM_BWD_G_COMPACT
+              && G_BLOCKS_PER_SM * (SMEM_BWD_G_COMPACT + SMEM_RESERVED)
+                     <= SMEM_SM
+              && GLayout<COMPACT>::shares_here(153)
+              && !GLayout<COMPACT>::shares_here(154)
+              && G_BLOCKS_PER_SM * (GLayout<COMPACT>::bytes(9976)
+                                    + SMEM_RESERVED) <= SMEM_SM,
+              "compact's cw shares in shared memory up to L = 153; two "
+              "blocks per SM up to L = 9,976");
 // The cloud inputs of each mode, in the order of rtrn_cuda.CLOUD_INPUTS:
 // banded: c[0] cldfrac (L, B), c[1] taucb (L, 16, B); cldf-odcld: c[0]
 // cldf, c[1] odcld (L, 144, B); fused: c[0..3] cldf, ciwp, clwp, tauc
-// (L, 144, B), c[4], c[5] abi, abl (L, 16, B).  The cotangents likewise.
+// (L, 144, B), c[4], c[5] abi, abl (L, 16, B); compact: c[0] the mask
+// (L, 144, B) int8, c[1] cw (L, 2, B), c[4], c[5] abi, abl as fused's
+// (c[2], c[3] null).  The cotangents likewise (compact's mask: none).
 struct Clouds {
     const float* c[NCLD];
 };
@@ -262,18 +316,21 @@ struct GGrads {
 // g's taut and fracs, of its band's Planck rows at the layer (bl) and at
 // the level bounding the step (pl), of the secant, of the cloud fraction
 // (banded: this g's share of the layer's), of the cloud od (banded: the
-// band's taucb; cldf-odcld: odcld; fused: tauc) and, fused, of the water
-// paths and the band's coefficients.
+// band's taucb; cldf-odcld: odcld; fused: tauc) and, fused and compact,
+// of the water paths and the band's coefficients; compact: secc, the
+// cloud's part of the secant's (secd the gas's), added in that order as
+// rtrn_bwd.cu's step_bwd adds them.
 struct StepGrads {
-    float tau, fr, bl, pl, secd, cf, tauc, ciwp, clwp, abi, abl;
+    float tau, fr, bl, pl, secd, cf, tauc, ciwp, clwp, abi, abl, secc;
 };
 
 // Reverse of one advance() of a layer for one (column, g), with K1's
 // staged_step in MODE: tau, fr the g's taut and fracs, bl, pl the band's
 // Planck rows, secd its secant; cf the cloud fraction (banded: the
 // layer's; else the g's), tauc the cloud od (banded: the band's taucb;
-// cldf-odcld: odcld; fused: tauc), ciwp, clwp the g's water paths and
-// ai_b, al_b the band's coefficients (fused); cly the layer's flag, twin
+// cldf-odcld: odcld; fused: tauc; compact: 0), ciwp, clwp the g's water
+// paths (compact: cw x cf where the g's gate holds) and ai_b, al_b the
+// band's coefficients (fused, compact); cly the layer's flag, twin
 // the clear twin's; rad, radc the radiance and clear twin entering the
 // layer.  lam, mu hold the cotangents of the step's outputs on entry and
 // of its inputs on exit.  IDRV: dd carries the step of the d/dT sweep's
@@ -284,6 +341,8 @@ __device__ __forceinline__ StepGrads g_step_bwd(
         float tauc, float ciwp, float clwp, float ai_b, float al_b,
         bool cly, bool twin, float rad, float radc, float& lam, float& mu,
         DdtStep& dd) {
+    // cldprmc's water paths (compact: its own, rtrn_bwd.cu step_bwd)
+    constexpr bool CWP = MODE == FUSED || MODE == COMPACT;
     StepGrads o{};
     const float dp = pl - bl;
     const float x = secd * tau;
@@ -301,7 +360,7 @@ __device__ __forceinline__ StepGrads g_step_bwd(
         gate = MODE == BANDED || cf >= 0.5f;
         if (gate) {
             odcld = tauc;
-            if constexpr (MODE == FUSED) {
+            if constexpr (CWP) {
                 // cldprmc (rrtmg_lw_cldprmc.f90:128-142)
                 ai = ciwp == 0.0f ? 0.0f : ai_b;
                 al = clwp == 0.0f ? 0.0f : al_b;
@@ -359,9 +418,12 @@ __device__ __forceinline__ StepGrads g_step_bwd(
         ct_od += ct_xt;
         if (gate) {
             const float ct_odce = ct_xt + ct_ef * cf * ecl;
-            o.secd += ct_odce * odcld;
+            if constexpr (MODE == COMPACT)
+                o.secc = ct_odce * odcld;
+            else
+                o.secd += ct_odce * odcld;
             const float ct_odcld = ct_odce * secd;
-            if (MODE == FUSED && active) {
+            if (CWP && active) {
                 o.ciwp = ct_odcld * ai;
                 o.clwp = ct_odcld * al;
                 o.abi = ciwp == 0.0f ? 0.0f : ct_odcld * ciwp;
@@ -380,9 +442,9 @@ __device__ __forceinline__ StepGrads g_step_bwd(
 // The scratch of a launch (GScratch, bwd_groups.cuh): the counter the
 // tickets are drawn from, then (banded) one a column tile (zeroed: the
 // groups' turn to add their shares of the cloud fraction's cotangent);
-// banded's shares where they do not fit shared memory ((blocks, L, GX),
-// else null).  The per-g modes' cloudy-layer words ((tiles, L), K1's) in
-// its words.
+// banded's (compact's) shares where they do not fit shared memory
+// ((blocks, L, NSH, GX), else null).  The per-g modes' cloudy-layer
+// words ((tiles, L), K1's) in its words.
 
 // The kernel's body; IDRV: with the d/dT sweep's adjoint (dt), its
 // cotangents of each layer's factors added to the down sweep's reverse
@@ -397,6 +459,8 @@ __device__ __forceinline__ void rt_bwd_g_body(
     using Lo = GLayout<MODE>;
     constexpr bool BND = MODE == BANDED;
     constexpr bool FSD = MODE == FUSED;
+    constexpr bool CMP = MODE == COMPACT;
+    constexpr bool ABL = FSD || CMP;        // band rows abi, abl
     constexpr int NCG = Sl::NCG;
     constexpr int NBC = Sl::NBC;
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -411,6 +475,7 @@ __device__ __forceinline__ void rt_bwd_g_body(
     float* secd_s = reinterpret_cast<float*>(smem + Lo::SECD);
     float* csec_s = reinterpret_cast<float*>(smem + Lo::CSEC);
     int* hi_s = reinterpret_cast<int*>(smem + Lo::HI);
+    float* csg = reinterpret_cast<float*>(smem + Lo::CSG);
     unsigned* flags = reinterpret_cast<unsigned*>(smem + Lo::FLAGS);
     int* ticket = reinterpret_cast<int*>(smem + Lo::TICKET);
     int* tcount = sc.count + 1;             // the tiles' counters
@@ -448,12 +513,14 @@ __device__ __forceinline__ void rt_bwd_g_body(
     const bool valid = tx < nvalid;
     const int b = bt + tx;
     // banded: the block's share of the cloud fraction's cotangent of
-    // layer l, column tx (the block's (L, GX) in shared memory or in the
-    // scratch, formed where it is used)
+    // layer l, column tx (compact: of cw's first, its second GX floats
+    // on; the block's (L, NSH, GX) in shared memory or in the scratch,
+    // formed where it is used)
+    constexpr int NSH = Lo::NSH;
     auto share = [&](int l) {
-        float* p = sc.part ? sc.part + (size_t)tk * L * GX
+        float* p = sc.part ? sc.part + (size_t)tk * L * NSH * GX
                            : reinterpret_cast<float*>(smem + Lo::part(L));
-        return p + l * GX + tx;
+        return p + l * NSH * GX + tx;
     };
     const int b0 = GFIRST[grp], nb = GFIRST[grp + 1] - b0;
     const int g0 = goff[b0], nr = goff[b0 + nb] - g0;
@@ -512,6 +579,8 @@ __device__ __forceinline__ void rt_bwd_g_body(
         const int nband = 2 + (tc ? NBC : 0)
                           + (up ? 0 : 1 + (lev > 0) + (tc ? NBC : 0));
         const int none = tc && BND ? 3 : 2;
+        // compact, a cloudy tile: the mask rows' bytes and cw's two rows
+        const int extra = CMP && tc ? nbox * GH * GX + 2 * RB : 0;
         if (vec) {
             // warp 0: a box a lane
             if (ty != 0) return;
@@ -520,7 +589,7 @@ __device__ __forceinline__ void rt_bwd_g_body(
             if (tx == 0)
                 mbar_arrive_expect_tx(
                     bar, (uint32_t)(((nslab * nbox + nband) * GH + none)
-                                    * RB));
+                                    * RB + extra));
             __syncwarp();
         } else if (j >= G_RING) {
             // every thread copies its share of the valid columns' elements
@@ -571,7 +640,7 @@ __device__ __forceinline__ void rt_bwd_g_body(
         bands(Sl::PLAY, M_PLAY, in.play, l * KNB);
         bands(Sl::PLEV, M_PLEV, in.plev, lev * KNB);
         if (tc && BND) bands(Sl::BC, M_C0 + 1, cl.c[1], l * KNB);
-        if (tc && FSD) {
+        if (tc && (FSD || CMP)) {
             bands(Sl::BC, M_C0 + 4, cl.c[4], l * KNB);
             bands(Sl::BC + Sl::BAND, M_C0 + 5, cl.c[5], l * KNB);
         }
@@ -579,7 +648,7 @@ __device__ __forceinline__ void rt_bwd_g_body(
             bands(Sl::PPLAY, M_GPLAY, gr.play, l * KNB);
             if (lev > 0) bands(Sl::PPLEV, M_GPLEV, gr.plev, lev * KNB);
             if (tc && BND) bands(Sl::PBC, M_GBC, gr.c[1], l * KNB);
-            if (tc && FSD) {
+            if (tc && (FSD || CMP)) {
                 bands(Sl::PBC, M_GBC, gr.c[4], l * KNB);
                 bands(Sl::PBC + Sl::BAND, M_GBC1, gr.c[5], l * KNB);
             }
@@ -587,6 +656,26 @@ __device__ __forceinline__ void rt_bwd_g_body(
         one(Sl::CT0, M_CT, ct, ct0);
         one(Sl::CT1, M_CT, ct, ct1);
         if (tc && BND) one(Sl::CF, M_C0, cl.c[0], l);
+        if (CMP && tc) {
+            copy(Sl::CW, M_C0 + 1, cl.c[1], 2 * l, 2, 2);
+            // the group's mask rows: boxes of GX x GH bytes, or byte by
+            // byte through registers (no cp.async takes one byte; the
+            // block barrier before the step's first read publishes them)
+            const int row0 = l * rrtm::NGPT_PAD + g0;
+            if (vec) {
+                for (int i = tx; i * GH < nr; i += GX)
+                    tma_load_2d(d + Sl::MSK + i * GH * GX, &maps.m[M_C0], bt,
+                                row0 + i * GH, bar);
+            } else {
+                const auto* m =
+                    reinterpret_cast<const unsigned char*>(cl.c[0]);
+                for (int i = tid; i < nr * nvalid; i += GT) {
+                    const int r = i / nvalid, c = i - r * nvalid;
+                    d[Sl::MSK + r * GX + c] =
+                        m[(size_t)(row0 + r) * Bz + bt + c];
+                }
+            }
+        }
         if (!vec) mbar_arrive_copies(bar);
     };
 
@@ -600,6 +689,8 @@ __device__ __forceinline__ void rt_bwd_g_body(
     for (int k = 0; k < GPT; ++k) {
         lam[k] = mu[k] = ct_fr0[k] = 0.0f;
         if constexpr (IDRV) dd[k] = ddc[k] = 0.0f;
+        if constexpr (CMP)
+            if (ty + GY * k < nr) csg[(ty + GY * k) * GX + tx] = 0.0f;
     }
 
     // out = v (up sweep) or pv + v (down sweep)
@@ -628,6 +719,10 @@ __device__ __forceinline__ void rt_bwd_g_body(
         const bool has_in = UPW || l + 1 < L;
         const float cu = row(Sl::CT0)[tx], ccu = row(Sl::CT1)[tx];
         const float cfl = BND && cly ? row(Sl::CF)[tx] : 0.0f;
+        // compact: the layer's water paths, and the mask rows
+        const float cw0 = CMP && cly ? row(Sl::CW)[tx] : 0.0f;
+        const float cw1 = CMP && cly ? row(Sl::CW)[GX + tx] : 0.0f;
+        const auto* msk_s = reinterpret_cast<const int8_t*>(s + Sl::MSK);
         // idrv: the up sweep's d/dT cotangents at level lev; the down
         // sweep's scratch rows of layer l, loaded in one batch
         [[maybe_unused]] const bool anyc = hi_s[tx] >= 0;
@@ -669,6 +764,12 @@ __device__ __forceinline__ void rt_bwd_g_body(
             if (cly) {
                 if constexpr (BND) {
                     tauc = bc_s[be];
+                } else if constexpr (CMP) {
+                    cf = (float)msk_s[e];
+                    if (cf >= 0.5f) {
+                        ciwp = cw0 * cf;
+                        clwp = cw1 * cf;
+                    }
                 } else {
                     cf = cld_s[e];
                     if (cf >= 0.5f) {
@@ -681,7 +782,7 @@ __device__ __forceinline__ void rt_bwd_g_body(
                         }
                     }
                 }
-                if constexpr (FSD) {
+                if constexpr (ABL) {
                     ai_b = bc_s[be];
                     al_b = bc_s[Sl::BAND / 4 + be];
                 }
@@ -733,7 +834,16 @@ __device__ __forceinline__ void rt_bwd_g_body(
             // the per-g values summed over the bands, over the rows read
             tau_s[e] = o.bl;
             fr_s[e] = o.pl;
-            rad_s[e] = o.secd;
+            if constexpr (CMP) {
+                // the secant's over both sweeps, per (g, column); cw's
+                csg[e] = (csg[e] + o.secc) + o.secd;
+                radc_s[e] = o.abi;
+                pt_s[e] = o.abl;
+                pf_s[e] = o.ciwp * cf;
+                rad_s[e] = o.clwp * cf;
+            } else {
+                rad_s[e] = o.secd;
+            }
             if constexpr (BND) {
                 radc_s[e] = o.tauc;
                 pt_s[e] = o.cf;
@@ -745,7 +855,7 @@ __device__ __forceinline__ void rt_bwd_g_body(
             // the per-g cloud cotangents, nonzero only in a cloudy layer:
             // the up sweep stores them, the down sweep keeps them for the
             // add below
-            if constexpr (!BND) {
+            if constexpr (NCG > 0) {
                 if (cly) {
                     float v[NCG > 0 ? NCG : 1];
                     v[0] = o.cf;
@@ -772,7 +882,7 @@ __device__ __forceinline__ void rt_bwd_g_body(
         // the per-g cloud cotangents' zeros outside the cloudy columns
         // and in the pad rows, written by the up sweep (a warp store a
         // 128-byte row)
-        if constexpr (UPW && !BND) {
+        if constexpr (UPW && NCG > 0) {
             for (int r = ty; r < nr; r += GY)
                 if (valid && !cly)
 #pragma unroll
@@ -798,11 +908,11 @@ __device__ __forceinline__ void rt_bwd_g_body(
                 const int e = r * GX + tx;
                 s_bl += tau_s[e];
                 s_pl += fr_s[e];
-                ct_sec += rad_s[e];
-                if constexpr (BND || FSD) s_c0 += radc_s[e];
-                if constexpr (FSD) s_c1 += pt_s[e];
+                if constexpr (!CMP) ct_sec += rad_s[e];
+                if constexpr (BND || ABL) s_c0 += radc_s[e];
+                if constexpr (ABL) s_c1 += pt_s[e];
             }
-            csec_s[tid] = ct_sec;
+            if constexpr (!CMP) csec_s[tid] = ct_sec;
             const int be = ty * GX + tx;
             const size_t bi = ((size_t)l * KNB + b0 + ty) * Bz + b;
             const size_t vi = ((size_t)lev * KNB + b0 + ty) * Bz + b;
@@ -816,10 +926,10 @@ __device__ __forceinline__ void rt_bwd_g_body(
                 // layer: the up sweep writes them, the down sweep adds
                 // only in a cloudy one
                 if (UPW || cly) {
-                    if constexpr (BND || FSD)
+                    if constexpr (BND || ABL)
                         out(gr.c[BND ? 1 : 4] + bi,
                             UPW ? 0.0f : row(Sl::PBC)[be], s_c0, !UPW);
-                    if constexpr (FSD)
+                    if constexpr (ABL)
                         out(gr.c[5] + bi,
                             UPW ? 0.0f : row(Sl::PBC + Sl::BAND)[be], s_c1,
                             !UPW);
@@ -838,9 +948,38 @@ __device__ __forceinline__ void rt_bwd_g_body(
                 *q = UPW ? p : *q + p;
             }
         }
+        if constexpr (CMP) {
+            // the group's share of cw's two cotangents of layer l (the
+            // last warp): per band in ascending g, then over its bands in
+            // band order; the up sweep's, then plus the down sweep's; zero
+            // outside a cloudy layer
+            if (ty == GY - 1 && valid) {
+                float a0 = 0.0f, a1 = 0.0f;
+                if (cly) {
+                    for (int k = 0; k < nb; ++k) {
+                        float s0 = 0.0f, s1 = 0.0f;
+                        for (int r = goff[b0 + k] - g0;
+                             r < goff[b0 + k + 1] - g0; ++r) {
+                            s0 += pf_s[r * GX + tx];
+                            s1 += rad_s[r * GX + tx];
+                        }
+                        a0 += s0;
+                        a1 += s1;
+                    }
+                }
+                float* q = share(l);
+                if (UPW) {
+                    q[0] = a0;
+                    q[GX] = a1;
+                } else if (cly) {
+                    q[0] += a0;
+                    q[GX] += a1;
+                }
+            }
+        }
         // the down sweep adds the up sweep's per-g cloud cotangents of a
         // cloudy layer, loaded in one batch
-        if constexpr (!UPW && !BND) {
+        if constexpr (!UPW && NCG > 0) {
             if (cly && valid) {
                 float cpart[NCG][GPT];
 #pragma unroll
@@ -872,6 +1011,8 @@ __device__ __forceinline__ void rt_bwd_g_body(
 
     issue(0);
     if (1 < L) issue(1);
+    // compact: the mask rows its element copies stored through registers
+    if constexpr (CMP) __syncthreads();
 
     // ---- 3. up sweep in reverse: layer L-1 .. 0 ----
     for (int j = 0; j < L; ++j) {
@@ -964,13 +1105,22 @@ __device__ __forceinline__ void rt_bwd_g_body(
         if (j + 2 < 2 * L) issue(j + 2);
     }
 
-    // ---- 6. the secants, summed over both sweeps ----
-    if (ty < nb && valid) gr.surf[(size_t)(b0 + ty) * Bz + b] = csec_s[tid];
+    // ---- 6. the secants, summed over both sweeps (compact: each g's,
+    // then per band in ascending g) ----
+    if (ty < nb && valid) {
+        float cs = csec_s[tid];
+        if constexpr (CMP) {
+            cs = 0.0f;
+            for (int r = goff[b0 + ty] - g0; r < goff[b0 + ty + 1] - g0; ++r)
+                cs += csg[r * GX + tx];
+        }
+        gr.surf[(size_t)(b0 + ty) * Bz + b] = cs;
+    }
 
-    // ---- 7. banded: the tile's groups add their shares of the cloud
-    // fraction's cotangent in group order, each after the one before it
-    // (whose ticket was drawn first) ----
-    if constexpr (BND) {
+    // ---- 7. banded (compact): the tile's groups add their shares of the
+    // cloud fraction's (cw's) cotangent in group order, each after the one
+    // before it (whose ticket was drawn first) ----
+    if constexpr (BND || CMP) {
         if (tid == 0) {
             while (atomicAdd(&tcount[tile], 0) != grp) __nanosleep(256);
             __threadfence();
@@ -978,9 +1128,12 @@ __device__ __forceinline__ void rt_bwd_g_body(
         __syncthreads();
         for (int l = ty; l < L; l += GY) {
             if (!valid) continue;
-            float* p = gr.c[0] + (size_t)l * Bz + b;
-            const float v = *share(l);
-            *p = grp == 0 ? v : __ldcg(p) + v;
+#pragma unroll
+            for (int q = 0; q < NSH; ++q) {
+                float* p = gr.c[BND ? 0 : 1] + ((size_t)l * NSH + q) * Bz + b;
+                const float v = share(l)[q * GX];
+                *p = grp == 0 ? v : __ldcg(p) + v;
+            }
         }
         __threadfence();
         __syncthreads();
@@ -1031,27 +1184,58 @@ cudaError_t prepare_bwd_g() {
 
 // the staging each mode's last launch took (1 bulk tensor copies, 0
 // element copies, -1 none yet), for rrtm_rt_bwd_g_layout
-int g_staged[3] = {-1, -1, -1};
-int mode_row(int mode) { return mode == BANDED ? 0 : mode == FUSED ? 1 : 2; }
+int g_staged[4] = {-1, -1, -1, -1};
+int mode_row(int mode) {
+    return mode == BANDED ? 0 : mode == FUSED ? 1 : mode == CLDF_OD ? 2 : 3;
+}
+
+// A tensor map over `rows` rows of B bytes (compact's int8 mask), boxes
+// of box_cols x box_rows bytes; false where it cannot be encoded (base or
+// B not a multiple of 16, no entry point).
+bool tensor_map_bytes(CUtensorMap* map, const void* base, uint64_t rows,
+                      int B, int box_cols, int box_rows) {
+    const EncodeTiled enc = encode_tiled();
+    if (!enc || ((uintptr_t)base & 15u) || B % 16) return false;
+    const cuuint64_t dims[2] = {(cuuint64_t)B, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)B};
+    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+    const cuuint32_t step[2] = {1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+               dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_NONE, G_L2,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 template <int MODE>
 cudaError_t launch_bwd_g(const Inputs& in, const Clouds& cl, const int* ngb,
                          const float* wg, const float* ct, const float* rads,
                          const GGrads& gr, const GScratch& sc, const Ddt& dt,
                          cudaStream_t s) {
-    cudaError_t e =
-        dt.ct ? prepare_bwd_g<MODE, true>() : prepare_bwd_g<MODE>();
+    // compact: the d/dT instantiation alone (its idrv=0 K6: rtrn_bwd.cu)
+    constexpr bool CMP = MODE == COMPACT;
+    cudaError_t e;
+    if constexpr (CMP)
+        e = dt.ct ? prepare_bwd_g<MODE, true>() : cudaErrorInvalidValue;
+    else
+        e = dt.ct ? prepare_bwd_g<MODE, true>() : prepare_bwd_g<MODE>();
     if (e != cudaSuccess) return e;
     const int L = in.L, B = in.B;
     const int ncld = MODE == FUSED ? 6 : 2;
     // the bulk copies where every operand's rows are 16-byte aligned
+    // (compact: the mask's rows too, B % 16 == 0)
     bool vec = map_rows_ok(in.taut, B) && map_rows_ok(in.fracs, B)
                && map_rows_ok(in.play, B) && map_rows_ok(in.plev, B)
                && map_rows_ok(ct, B) && map_rows_ok(rads, B)
                && map_rows_ok(gr.taut, B) && map_rows_ok(gr.fracs, B)
                && map_rows_ok(gr.play, B) && map_rows_ok(gr.plev, B);
-    for (int i = 0; i < ncld; ++i)
-        vec = vec && map_rows_ok(cl.c[i], B) && map_rows_ok(gr.c[i], B);
+    if constexpr (CMP) {
+        vec = vec && B % 16 == 0 && ((uintptr_t)cl.c[0] & 15u) == 0;
+        for (int i : {1, 4, 5})
+            vec = vec && map_rows_ok(cl.c[i], B) && map_rows_ok(gr.c[i], B);
+    } else {
+        for (int i = 0; i < ncld; ++i)
+            vec = vec && map_rows_ok(cl.c[i], B) && map_rows_ok(gr.c[i], B);
+    }
     GMaps maps{};
     if (vec) {
         const uint64_t lg = (uint64_t)L * KG;
@@ -1074,6 +1258,13 @@ cudaError_t launch_bwd_g(const Inputs& in, const Clouds& cl, const int* ngb,
             ok = ok && map(M_C0, cl.c[0], L, 1)
                  && map(M_C0 + 1, cl.c[1], lb, GH)
                  && map(M_GBC, gr.c[1], lb, GH);
+        } else if (CMP) {
+            ok = ok && tensor_map_bytes(&maps.m[M_C0], cl.c[0], lp, B, GX, GH)
+                 && map(M_C0 + 1, cl.c[1], 2 * (uint64_t)L, 2)
+                 && map(M_C0 + 4, cl.c[4], lb, GH)
+                 && map(M_C0 + 5, cl.c[5], lb, GH)
+                 && map(M_GBC, gr.c[4], lb, GH)
+                 && map(M_GBC1, gr.c[5], lb, GH);
         } else {
             for (int q = 0; q < (MODE == FUSED ? 4 : 2); ++q)
                 ok = ok && map(M_C0 + q, cl.c[q], lp, GH);
@@ -1086,18 +1277,27 @@ cudaError_t launch_bwd_g(const Inputs& in, const Clouds& cl, const int* ngb,
         // a map that does not encode raises (no fallback)
         if (!ok) return cudaErrorInvalidValue;
     }
-    // banded's shares in shared memory where they fit, else the scratch
+    // banded's (compact's) shares in shared memory where they fit, else
+    // the scratch
     GScratch sk = sc;
-    if (MODE != BANDED || GLayout<MODE>::shares_here(L)) sk.part = nullptr;
-    else if (!sk.part) return cudaErrorInvalidValue;
+    if (GLayout<MODE>::NSH == 0 || GLayout<MODE>::shares_here(L))
+        sk.part = nullptr;
+    else if (!sk.part)
+        return cudaErrorInvalidValue;
     g_staged[mode_row(MODE)] = (int)vec;
     const dim3 grid(NGRP * ((B + GX - 1) / GX));
-    if (dt.ct)
+    if constexpr (CMP) {
         rt_bwd_g_ddt_kernel<MODE><<<grid, GT, GLayout<MODE>::bytes(L), s>>>(
             maps, in, cl, ngb, wg, ct, rads, gr, sk, (int)vec, dt);
-    else
-        rt_bwd_g_kernel<MODE><<<grid, GT, GLayout<MODE>::bytes(L), s>>>(
-            maps, in, cl, ngb, wg, ct, rads, gr, sk, (int)vec);
+    } else {
+        if (dt.ct)
+            rt_bwd_g_ddt_kernel<MODE>
+                <<<grid, GT, GLayout<MODE>::bytes(L), s>>>(
+                    maps, in, cl, ngb, wg, ct, rads, gr, sk, (int)vec, dt);
+        else
+            rt_bwd_g_kernel<MODE><<<grid, GT, GLayout<MODE>::bytes(L), s>>>(
+                maps, in, cl, ngb, wg, ct, rads, gr, sk, (int)vec);
+    }
     return cudaGetLastError();
 }
 
@@ -1142,11 +1342,20 @@ int bwd_g_entry(const float* taut, const float* fracs, const float* play,
     if (L <= 0 || B <= 0) return (int)cudaGetLastError();
     if (dt.ct && !dt.lam) return (int)cudaErrorInvalidValue;
     const int ncld = mode == FUSED ? 6 : 2;
-    if (!rads || !count || (mode != BANDED && mode != FUSED && mode != CLDF_OD)
-        || (mode != BANDED && !words))
+    // compact: its d/dT instantiation alone, no cotangent of the mask
+    const bool cmp = mode == COMPACT;
+    if (!rads || !count
+        || (mode != BANDED && mode != FUSED && mode != CLDF_OD && !cmp)
+        || (mode != BANDED && !words) || (cmp && !dt.ct))
         return (int)cudaErrorInvalidValue;
-    for (int i = 0; i < ncld; ++i)
-        if (!c[i] || !g[i]) return (int)cudaErrorInvalidValue;
+    if (cmp) {
+        for (int i : {1, 4, 5})
+            if (!c[i] || !g[i]) return (int)cudaErrorInvalidValue;
+        if (!c[0]) return (int)cudaErrorInvalidValue;
+    } else {
+        for (int i = 0; i < ncld; ++i)
+            if (!c[i] || !g[i]) return (int)cudaErrorInvalidValue;
+    }
     Inputs in{taut, fracs, play, plev, surf, nullptr, nullptr, nullptr,
               nullptr, L, B};
     Clouds cl{};
@@ -1164,6 +1373,9 @@ int bwd_g_entry(const float* taut, const float* fracs, const float* play,
     case FUSED:
         return (int)launch_bwd_g<FUSED>(in, cl, ngb, wg, ct, rads, gr, sc, dt,
                                         s);
+    case COMPACT:
+        return (int)launch_bwd_g<COMPACT>(in, cl, ngb, wg, ct, rads, gr, sc,
+                                          dt, s);
     default:
         return (int)launch_bwd_g<CLDF_OD>(in, cl, ngb, wg, ct, rads, gr, sc,
                                           dt, s);
@@ -1202,7 +1414,10 @@ RRTM_API int rrtm_rt_bwd_g(const float* taut, const float* fracs,
 // rrtm_rt_bwd_g at idrv=1 with the d/dT sweep's adjoint: surf and ct_surf
 // (4, 16, B), the fourth row dplankbnd_dt and its cotangent; ct_ddt (2,
 // L+1, B) the cotangents of duflx_dt and duflxc_dt; lam the scratch of 2 x
-// (L, 140, B) floats (rtrn.cuh Ddt).
+// (L, 140, B) floats (rtrn.cuh Ddt).  Also mode COMPACT: c0 the mask (L,
+// 144, B) int8, c1 cw (L, 2, B), c4, c5 abi, abl (L, 16, B) (c2, c3 null)
+// and words K1 kept in compact at idrv=1 -> g1, g4, g5 their cotangents
+// (g0, g2, g3 null).
 RRTM_API int rrtm_rt_bwd_g_ddt(const float* taut, const float* fracs,
                                const float* play, const float* plev,
                                const float* surf, const int* ngb,
@@ -1226,15 +1441,18 @@ RRTM_API int rrtm_rt_bwd_g_ddt(const float* taut, const float* fracs,
 }
 
 // The scratch rrtm_rt_bwd_g takes in `mode` at L layers and B columns:
-// out[0] ints of count (the tickets' counter, then in banded one a column
-// tile), out[1] x out[2] floats of tpart (banded past L = 381: its blocks
-// x L x GX; else 0).
+// out[0] ints of count (the tickets' counter, then in banded and compact
+// one a column tile), out[1] x out[2] floats of tpart (banded past L =
+// 381: its blocks x L x GX; compact past L = 153: its blocks x L x 2 x
+// GX; else 0).
 RRTM_API int rrtm_rt_bwd_g_scratch(int mode, int L, int B, int* out) {
     const int tiles = (B + GX - 1) / GX;
-    const bool part = mode == BANDED && !GLayout<BANDED>::shares_here(L);
-    out[0] = 1 + (mode == BANDED ? tiles : 0);
+    const bool cmp = mode == COMPACT;
+    const bool part = (mode == BANDED && !GLayout<BANDED>::shares_here(L))
+                      || (cmp && !GLayout<COMPACT>::shares_here(L));
+    out[0] = 1 + (mode == BANDED || cmp ? tiles : 0);
     out[1] = part ? NGRP * tiles : 0;
-    out[2] = part ? L * GX : 0;
+    out[2] = part ? L * (cmp ? 2 : 1) * GX : 0;
     return 0;
 }
 
@@ -1243,10 +1461,11 @@ RRTM_API int rrtm_rt_bwd_g_scratch(int mode, int L, int B, int* out) {
 // 3 + NGRP] the first band of each group, then KNB; out[4 + NGRP] the
 // staging of this mode's last launch in the process (1 bulk tensor
 // copies, 0 element copies, -1 none yet); out[5 + NGRP] banded's
-// cloud-fraction shares at L: 1 in shared memory, 0 in the scratch (-1
-// in the other modes).
+// cloud-fraction (compact's cw) shares at L: 1 in shared memory, 0 in the
+// scratch (-1 in the other modes).
 RRTM_API int rrtm_rt_bwd_g_layout(int mode, int L, int* out) {
-    if (mode != BANDED && mode != FUSED && mode != CLDF_OD)
+    if (mode != BANDED && mode != FUSED && mode != CLDF_OD
+        && mode != COMPACT)
         return (int)cudaErrorInvalidValue;
     out[0] = GX;
     out[1] = GH;
@@ -1255,8 +1474,9 @@ RRTM_API int rrtm_rt_bwd_g_layout(int mode, int L, int* out) {
         cudaMemcpyFromSymbol(out + 3, GFIRST, sizeof(int) * (NGRP + 1));
     if (e != cudaSuccess) return (int)e;
     out[4 + NGRP] = g_staged[mode_row(mode)];
-    out[5 + NGRP] = mode != BANDED ? -1
-                    : (int)GLayout<BANDED>::shares_here(L);
+    out[5 + NGRP] = mode == BANDED    ? (int)GLayout<BANDED>::shares_here(L)
+                    : mode == COMPACT ? (int)GLayout<COMPACT>::shares_here(L)
+                                      : -1;
     return 0;
 }
 
@@ -1271,9 +1491,11 @@ RRTM_API int rrtm_rt_bwd_g_info(int mode, int L, int* out) {
     }
 }
 
-// The same of rrtm_rt_bwd_g_ddt's instantiation in `mode`.
+// The same of rrtm_rt_bwd_g_ddt's instantiation in `mode` (also
+// COMPACT).
 RRTM_API int rrtm_rt_bwd_g_ddt_info(int mode, int L, int* out) {
     switch (mode) {
+    case COMPACT: return (int)info_bwd_g<COMPACT, true>(L, out);
     case BANDED: return (int)info_bwd_g<BANDED, true>(L, out);
     case FUSED: return (int)info_bwd_g<FUSED, true>(L, out);
     case CLDF_OD: return (int)info_bwd_g<CLDF_OD, true>(L, out);

@@ -99,7 +99,8 @@
 // them, in a cloudy layer that does not restart them, packed: (2, 3, K,
 // 140, B), a column's k-th such layer of a sweep at slot k, K the most
 // of any column (3 at the cells' clouds, 0.2 GB); fused and cldf-odcld
-// also the cloudy-layer words K6 reads in those modes (a bit per column,
+// (and compact at idrv=1, whose d/dT adjoint runs on K6-g's tile) also
+// the cloudy-layer words K6 reads in those modes (a bit per column,
 // one uint32 per 32-column tile and layer: the block of columns 16u ..
 // 16u + 15 writes half u % 2 of its tile's word, the last block of an
 // odd count the whole word).  The stores change nothing in the flux
@@ -388,9 +389,9 @@ constexpr int ELECT = KT - 32;
 // does not restart them in that sweep, to packed (2, 3, npk, 140, B): a
 // column's k-th such layer in the sweep's order (down: from the top) at
 // slot k (slots past its count are left as they were); K6 reads them
-// back there; fused and cldf-odcld the cloudy-layer words to kept.words
-// ((tiles of 32 columns, L) uint32).  Elsewhere rads and packed are not
-// read.
+// back there; fused, cldf-odcld and compact at idrv=1 the cloudy-layer
+// words to kept.words ((tiles of 32 columns, L) uint32).  Elsewhere rads
+// and packed are not read.
 template <int MODE, bool IDRV, int SPEC, int SAVE>
 __global__ void __launch_bounds__(KT, BLOCKS_PER_SM)
 rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
@@ -568,9 +569,9 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
     auto cloudy_step = [&](int j) {
         return ((cloudy_word(j) >> tx) & 1u) != 0u;
     };
-    // SAVE, fused and cldf-odcld: the block's half of its tile's word at
-    // down step j's layer (the last block of an odd count: the whole
-    // word, its high half zero)
+    // SAVE, fused, cldf-odcld and compact at idrv=1: the block's half of
+    // its tile's word at down step j's layer (the last block of an odd
+    // count: the whole word, its high half zero)
     auto put_word = [&](int j) {
         if constexpr (KEEP) {
             const unsigned w = cloudy_word(j) & 0xffffu;
@@ -718,7 +719,7 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
             const float* cld = reinterpret_cast<const float*>(s + Sl::CLD);
             if constexpr (PERG) {
                 cly = cloudy_step(j);
-                if constexpr (KEEP && MODE != COMPACT && !UPW)
+                if constexpr (KEEP && (MODE != COMPACT || IDRV) && !UPW)
                     if (tid == ELECT) put_word(j);
                 if constexpr (MODE == COMPACT) {
                     const float* cw =

@@ -61,13 +61,14 @@ cudaError_t info_kept(int idrv, int path, int* out) {
 }  // namespace
 
 // the mode's cloud inputs, and (maxrand) a packed state of at least one
-// slot, (fused, cldf-odcld) the words, must be given
+// slot, (fused, cldf-odcld, compact at idrv=1) the words, must be given
 cudaError_t rrtm::rt::launch_save(const Inputs& in, const int* ngb,
                                   const float* wg, float* out, int mode,
                                   int idrv, const Kept& kp, cudaStream_t s) {
     if (!kp.rads || !clouds_given(in, mode)
         || (mode == MAXRAND && (!kp.packed || kp.npk < 1))
-        || ((mode == FUSED || mode == CLDF_OD) && !kp.words))
+        || ((mode == FUSED || mode == CLDF_OD || (mode == COMPACT && idrv))
+            && !kp.words))
         return cudaErrorInvalidValue;
     switch (mode) {
     case CLEAR: return launch_kept<CLEAR>(in, ngb, wg, out, idrv, kp, s);

@@ -18,8 +18,10 @@ holds the other four modes and does the same (maxrand:
 ``rt_sweep_maxrand_vjp``; banded, fused, cldf-odcld:
 ``rt_sweep_g_radiances``, in fused and cldf-odcld with the cloudy-layer
 words K6 reads there, ``rt_sweep_banded_vjp`` and
-``rt_sweep_g_vjp``).  K1's gradient-step launch writes the radiances by
-bulk tensor stores where B is a multiple of 4 (its rows 16-byte
+``rt_sweep_g_vjp``); compact at idrv=1 also keeps the cloudy-layer
+words its d/dT adjoint reads, which runs on K6-g's tile
+(csrc/rtrn_bwd_g.cu).  K1's gradient-step launch writes the radiances
+by bulk tensor stores where B is a multiple of 4 (its rows 16-byte
 aligned), by scalar stores otherwise (``k1_save_path``).  With idrv=1 (a
 fourth surface row, ``dplankbnd_dt``) each returns the fluxes and their
 derivatives with respect to the surface temperature (2, L+1, B); a
@@ -135,19 +137,23 @@ def _launch(mode, wrapper, taut_t, fracs_t, planklay_t, planklev_t, surf,
 def rt_sweep_radiances(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
                        abi_t, abl_t, mask, ngb0, wg):
     """K1 clear (mask None) or compact in float32, keeping its per-g
-    radiances: -> (fluxes (4|6, L+1, B), rads (2|4, L, 140, B)), rads
-    the down radiance at level l, the up radiance entering layer l (l = 0:
-    after the surface reflection) and, compact, their clear twins, for
-    l = 0..L-1: what K6 (``rt_sweep_vjp``) reads.  The fluxes are bitwise
-    those of the launch without them.  Arguments as ``RTFn``; on a CPU
-    tensor the plain version, ``rtrn.rt_sweep_blocked(...,
-    radiances=True)``.  Counted on ``rt_fluxes_blocked`` and its
-    ``.save``."""
+    radiances: -> (fluxes (4|6, L+1, B), rads (2|4, L, 140, B), words),
+    rads the down radiance at level l, the up radiance entering layer l
+    (l = 0: after the surface reflection) and, compact, their clear
+    twins, for l = 0..L-1: what K6 (``rt_sweep_vjp``) reads; words the
+    cloudy-layer words of the mask, int32 ((B + 31) // 32, L)
+    (``rtrn.cloudy_words``), which compact's d/dT adjoint reads: on the
+    card compact at idrv=1 (surf (4, 16, B)) alone, on a CPU tensor every
+    compact call; None elsewhere.  The fluxes are bitwise those of the
+    launch without them.  Arguments as ``RTFn``; on a CPU tensor the
+    plain version, ``rtrn.rt_sweep_blocked(..., radiances=True)``.
+    Counted on ``rt_fluxes_blocked`` and its ``.save``."""
     if taut_t.device.type == "cpu":
         cf = None if mask is None else (mask, cw_t, abi_t, abl_t)
-        return rtrn.rt_sweep_blocked(taut_t, fracs_t, planklay_t,
-                                     planklev_t, surf, ngb0, wg, cf,
-                                     radiances=True)
+        return (*rtrn.rt_sweep_blocked(taut_t, fracs_t, planklay_t,
+                                       planklev_t, surf, ngb0, wg, cf,
+                                       radiances=True),
+                None if mask is None else rtrn.cloudy_words(mask))
     if taut_t.dtype != torch.float32:
         raise TypeError(f"taut_t: dtype {taut_t.dtype}, K1 keeps the "
                         "radiances in float32 storage only")
@@ -155,10 +161,12 @@ def rt_sweep_radiances(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
                   abi_t, abl_t, mask, ngb0, wg)
     rads = torch.empty((2 if mask is None else 4, L, NGPT, B),
                        dtype=torch.float32, device=taut_t.device)
+    words = None if mask is None or surf.shape[0] != 4 else torch.empty(
+        ((B + 31) // 32, L), dtype=torch.int32, device=taut_t.device)
     out = _launch("clear" if mask is None else "compact", rt_fluxes_blocked,
                   taut_t, fracs_t, planklay_t, planklev_t, surf, ngb0, wg,
-                  mask, cw_t, abi_t, abl_t, rads=rads)
-    return out, rads
+                  mask, cw_t, abi_t, abl_t, rads=rads, words=words)
+    return out, rads, words
 
 
 class KeptCount:
@@ -307,7 +315,8 @@ class RTFn(torch.autograd.Function):
     d/dT sweep's adjoint too; mask, ngb0 and wg get None.  On the card,
     where an input needs a gradient and ``grad_enabled``
     (``torch.is_grad_enabled()`` at the call: forward runs with grad mode
-    off) holds, K1 keeps its radiances for K6 (``rt_sweep_radiances``).
+    off) holds, K1 keeps its radiances for K6 (``rt_sweep_radiances``;
+    compact at idrv=1 also the cloudy-layer words its d/dT adjoint reads).
     In reduced storage any backward raises."""
 
     @staticmethod
@@ -328,8 +337,8 @@ class RTFn(torch.autograd.Function):
                 *spec_inputs(taut_t, fracs_t, taua_t, ngb0), planklay_t,
                 planklev_t, surf, ngb0, wg, cf)
         elif keep and grad_enabled:
-            out, rads = rt_sweep_radiances(*args)
-            ctx.save_for_backward(*args, rads)
+            out, rads, words = rt_sweep_radiances(*args)
+            ctx.save_for_backward(*args, rads, words)
         else:
             _check(*args, taua_t=taua_t)
             out = _launch("clear" if mask is None else "compact",
@@ -345,12 +354,15 @@ class RTFn(torch.autograd.Function):
         if ct is None and ct_ddt is None:
             return (None,) * 13
         x = list(ctx.saved_tensors)
-        rads = x.pop() if ctx.device_type != "cpu" else None
+        rads = words = None
+        if ctx.device_type != "cpu":
+            rads, words = x[-2:]
+            del x[-2:]
         nsurf = x[4].shape[0]
         if ct_ddt is None:
             x[4] = x[4][:3]             # the fluxes do not read row 3
         grads = list(rt_sweep_vjp(*x, ct, needs=ctx.needs_input_grad[:8],
-                                  rads=rads, ct_ddt=ct_ddt))
+                                  rads=rads, ct_ddt=ct_ddt, words=words))
         return (*_pad_surf(grads, nsurf), None, None, None, None, None)
 
 
@@ -527,17 +539,21 @@ WRAPPERS = {"blocked": rt_fluxes_blocked, "fused": rt_fluxes_fused,
 
 def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
                  abl_t, mask, ngb0, wg, ct, needs=(True,) * 8, rads=None,
-                 ct_ddt=None):
+                 ct_ddt=None, words=None):
     """K6: flux cotangents ct (4, L+1, B) -> cotangents of (taut_t,
     fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t), None
     where ``needs`` is False or the input is None (clear sky).  With
     ``ct_ddt`` (2, L+1, B), the cotangents of duflx_dt and duflxc_dt
     (idrv=1: surf (4, 16, B), ``ct`` may be None), its instantiation that
     also runs the d/dT sweep's adjoint (counted in
-    ``DDT_LAUNCHES["clear" | "compact"]``, not in ``.launches``).  On the
-    card K6 reads ``rads``, the radiances K1 kept on the same inputs
-    (``rt_sweep_radiances``), and raises without them; the plain vjp (CPU
-    tensors) does not read them."""
+    ``DDT_LAUNCHES["clear" | "compact"]``, not in ``.launches``): clear's
+    in csrc/rtrn_bwd.cu, compact's on K6-g's tile (csrc/rtrn_bwd_g.cu,
+    ``rt_bwd_g_ddt_kernel`` in the compact mode), which also reads
+    ``words``, the cloudy-layer words K1 kept (``rt_sweep_radiances`` at
+    idrv=1).  On the card K6 reads ``rads``, the radiances K1 kept on the
+    same inputs (``rt_sweep_radiances``), and raises without them (or
+    without the words there); the plain vjp (CPU tensors) reads
+    neither."""
     if taut_t.device.type == "cpu":
         return rtrn.rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t,
                                  surf, cw_t, abi_t, abl_t, mask, ngb0, wg,
@@ -565,9 +581,26 @@ def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
               for x in (cw_t, abi_t, abl_t)]
     x = (taut_t, fracs_t, planklay_t, planklev_t, surf, ngb0, wg, mask, cw_t,
          abi_t, abl_t, ct, rads, *grads)
-    if ddt:
-        _build.launch("rrtm_rt_bwd_ddt", *x, ct_ddt, lam, L, B, int(cloudy))
-        DDT_LAUNCHES["compact" if cloudy else "clear"].launches += 1
+    if ddt and cloudy:
+        if words is None:
+            raise ValueError("rt_sweep_vjp on the card reads the cloudy-"
+                             "layer words K1 kept with the radiances at "
+                             "idrv=1 (words, from rt_sweep_radiances) for "
+                             "compact's d/dT adjoint")
+        _build.check(words, "words", torch.int32, ((B + 31) // 32, L), dev)
+        # K6-g's clouds and cotangents of compact (rrtm_rt_bwd_g_ddt):
+        # the mask, cw, -, -, abi, abl
+        gcw, gabi, gabl = grads[5:]
+        _build.launch("rrtm_rt_bwd_g_ddt", taut_t, fracs_t, planklay_t,
+                      planklev_t, surf, ngb0, wg, mask, cw_t, None, None,
+                      abi_t, abl_t, ct, rads, *grads[:5], None, gcw, None,
+                      None, gabi, gabl, words,
+                      *k6_g_scratch("compact", L, B, dev), ct_ddt, lam, L,
+                      B, MODES["compact"])
+        DDT_LAUNCHES["compact"].launches += 1
+    elif ddt:
+        _build.launch("rrtm_rt_bwd_ddt", *x, ct_ddt, lam, L, B, 0)
+        DDT_LAUNCHES["clear"].launches += 1
     else:
         _build.launch("rrtm_rt_bwd", *x, L, B, int(cloudy))
         rt_sweep_vjp.launches += 1
@@ -689,11 +722,12 @@ def _launch_bwd_g(mode, counters, x, clouds, ngb0, wg, ct, needs, rads,
 
 
 def k6_g_scratch(mode, L, B, device, lib=None):
-    """The scratch of K6 in the banded, fused or cldf-odcld ``mode`` at L
-    layers and B columns, as ``rrtm_rt_bwd_g_scratch`` of ``lib`` (default
-    the package's library) sizes it: (zeroed int32 counters, the tickets'
-    then, banded, one per column tile; banded's cloud-fraction shares
-    (float32) where they do not fit shared memory, or None)."""
+    """The scratch of K6 in the banded, fused, cldf-odcld or (its d/dT
+    instantiation) compact ``mode`` at L layers and B columns, as
+    ``rrtm_rt_bwd_g_scratch`` of ``lib`` (default the package's library)
+    sizes it: (zeroed int32 counters, the tickets' then, banded and
+    compact, one per column tile; banded's cloud-fraction (compact's cw)
+    shares (float32) where they do not fit shared memory, or None)."""
     n = (ctypes.c_int * 3)()
     lib = lib or _build.library()
     lib.rrtm_rt_bwd_g_scratch(MODES[mode], int(L), int(B),
@@ -796,8 +830,9 @@ def k1_save_path(mode):
 
 def k6_info(cloudy, ddt=False):
     """K6's launch configuration, clear or compact (``cloudy``; ``ddt``:
-    its instantiation with the d/dT sweep's adjoint): ``K1_INFO`` -> int,
-    as ``k1_info``; needs the card."""
+    its instantiation with the d/dT sweep's adjoint, clear's alone:
+    compact's is ``k6_g_info("compact", nlay, ddt=True)``): ``K1_INFO``
+    -> int, as ``k1_info``; needs the card."""
     return _launch_info("rrtm_rt_bwd_ddt_info" if ddt else "rrtm_rt_bwd_info",
                         int(cloudy))
 
@@ -835,14 +870,15 @@ def k6_mr_info(nlay=60, ddt=False):
 def k6_g_info(mode, nlay=60, ddt=False):
     """K6's launch configuration in the banded, fused or cldf-odcld
     ``mode`` at ``nlay`` layers (its shared memory grows with them;
-    ``ddt``: its instantiation with the d/dT sweep's adjoint):
+    ``ddt``: its instantiation with the d/dT sweep's adjoint, also in the
+    compact mode, which has no other on this tile):
     ``K1_INFO`` -> int (``ring_levels``: the slots of its ring), as
     ``k1_info``, and from ``rrtm_rt_bwd_g_layout``: ``box_rows`` (of a
     bulk copy's box), ``groups`` (the first band of each band group, then
     16), ``staging`` (of the mode's last launch in this process: "tma",
     "elements" or None) and ``shares_in_smem`` (banded: its cloud-fraction
-    shares in shared memory at ``nlay``, else in a scratch; None in the
-    other modes); needs the card."""
+    shares in shared memory at ``nlay``, else in a scratch; compact: cw's;
+    None in the other modes); needs the card."""
     info = _launch_info("rrtm_rt_bwd_g_ddt_info" if ddt
                         else "rrtm_rt_bwd_g_info", MODES[mode], int(nlay))
     buf, ngrp = _layout("rrtm_rt_bwd_g_layout", MODES[mode], int(nlay))

@@ -156,6 +156,8 @@ KERNEL_SYMBOLS = tuple(
     ("overlap_kernel", "overlap"),
     ("overlap_bwd_kernel", "overlap bwd"), ("rt_bwd_kernel", "K6"),
     ("rt_bwd_mr_kernel", "K6 maxrand"), ("rt_bwd_ddt_kernel", "K6 ddt"),
+    # compact's d/dT, on K6-g's tile
+    ("rt_bwd_g_ddt_kernel<1>", "K6 ddt"),
     ("rt_bwd_mr_ddt_kernel", "K6 maxrand ddt")) + tuple(
     (f"rt_bwd_g{d}_kernel<{m}>", f"K6 {name}{d.replace('_', ' ')}")
     for m, name in K6_G_MODES.items() for d in ("", "_ddt")) + (

@@ -31,8 +31,13 @@ L=140; ``--k6-ddt-times`` those of K6's instantiation with the d/dT
 sweep's adjoint (idrv=1) in every mode at L=60 and L=140 (``ddt_times``;
 its cases ``ddt_cases``, the calls ``ddt_state`` / ``ddt_vjp`` and their
 plain version ``ddt_plain_vjp``, which ``chip_smoke.py`` and the tests
-share); ``--overlap-times`` those of the overlap-rows kernel
-and (where the checkout has it) its adjoint.  The imports are
+share; also of K1 SAVE at idrv=1 in the mode); ``--overlap-times``
+those of the overlap-rows kernel and (where the checkout has it) its
+adjoint.  ``--ddt-out`` saves the d/dT instantiations' outputs in every
+mode on ``ddt_cases`` at L=60 (``ddt_outputs``, their first 512
+columns), which ``--compare`` holds against another checkout's,
+counting the elements bitwise equal where an output differs.  The
+imports are
 absolute, so ``PYTHONPATH`` picks the checkout whose kernels run; only
 entry points that every checkout since reduced storage came in has are
 used, and K6 through whichever API the checkout has (``k6_vjp``; the
@@ -554,8 +559,10 @@ def k6g_digests(tag, x, modes, model, ct) -> dict:
 # K1's modes, each with K6's instantiation that runs the d/dT sweep's
 # adjoint (idrv=1)
 DDT_MODES = ("clear", "compact", "banded", "maxrand", "fused", "cldf_od")
-# the symbol of that instantiation in each mode (csrc/rtrn_bwd*.cu)
-DDT_SYMBOLS = {"clear": "rt_bwd_ddt_kernel", "compact": "rt_bwd_ddt_kernel",
+# the symbol of that instantiation in each mode (csrc/rtrn_bwd*.cu;
+# compact's whichever tile the checkout runs it on: rt_bwd_g_ddt_kernel<1>
+# on K6-g's, rt_bwd_ddt_kernel<true> on K1's 16 x 16)
+DDT_SYMBOLS = {"clear": "rt_bwd_ddt_kernel", "compact": "_ddt_kernel",
                "maxrand": "rt_bwd_mr_ddt_kernel",
                "banded": "rt_bwd_g_ddt_kernel",
                "fused": "rt_bwd_g_ddt_kernel",
@@ -583,8 +590,8 @@ def ddt_state(mode, x, cl, ngb0, wg) -> dict:
     (``flat_clouds``): -> the state keywords of ``ddt_vjp``."""
     from rrtmg_lw_torch.ops import rtrn_cuda
     if mode in ("clear", "compact"):
-        return dict(rads=rtrn_cuda.rt_sweep_radiances(
-            *x, *_rt_fields(mode, cl), ngb0, wg)[1])
+        return g_state(rtrn_cuda.rt_sweep_radiances(
+            *x, *_rt_fields(mode, cl), ngb0, wg))
     if mode == "maxrand":
         _, *state = rtrn_cuda.rt_sweep_maxrand_radiances(*x, *cl, ngb0, wg)
         return dict(state=tuple(state))
@@ -649,8 +656,10 @@ def ddt_times(device, reps=5) -> list:
     """Device ms per launch (``torch.profiler``, as ``k6_times``) of K6's
     instantiation with the d/dT sweep's adjoint in every mode, on
     ``ddt_cases`` at L=60 and L=140, fed the state K1 kept on the same
-    inputs, on seeded flux and d/dT cotangents.  -> [{mode, nlay,
-    k6_ddt_ms}]."""
+    inputs, on seeded flux and d/dT cotangents, and of that K1 launch
+    (K1 SAVE at idrv=1, whatever state the checkout keeps: compact's
+    cloudy-layer words too where it keeps them).  -> [{mode, nlay,
+    k6_ddt_ms, k1_save_ms}]."""
     rows = []
     gen = torch.Generator(device=device).manual_seed(5)
     for nlay in (60, 140):
@@ -663,17 +672,46 @@ def ddt_times(device, reps=5) -> list:
             kw = ddt_state(mode, x, cl, ngb0, wg)
             rows.append(dict(mode=mode, nlay=L, k6_ddt_ms=kernel_ms(
                 lambda: ddt_vjp(mode, x, cl, ngb0, wg, ct, ct_ddt, kw),
-                DDT_SYMBOLS[mode], reps)))
+                DDT_SYMBOLS[mode], reps), k1_save_ms=kernel_ms(
+                lambda: ddt_state(mode, x, cl, ngb0, wg), "rt_kernel<",
+                reps)))
             print(rows[-1], flush=True)
             del kw
         del x, clouds
     return rows
 
 
+# columns of ``ddt_outputs``' cases kept in the file
+DDT_OUT_COLUMNS = 512
+
+
+def ddt_outputs(device) -> dict:
+    """K6's outputs with the d/dT sweep's adjoint in every mode, fed the
+    state K1 kept, on ``ddt_cases`` at L=60 with seeded flux and d/dT
+    cotangents (``ddt_times``'), each output's first DDT_OUT_COLUMNS
+    columns (a column's outputs do not depend on the others'):
+    {"ddt_<mode>_<i>": output i}."""
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(5)
+    x, ngb0, wg, clouds = ddt_cases(device, 60)
+    L, _, B = x[0].shape
+    ct = torch.randn((4, L + 1, B), generator=gen, device=device)
+    ct_ddt = torch.randn((2, L + 1, B), generator=gen, device=device)
+    for mode in DDT_MODES:
+        cl = clouds[mode]
+        kw = ddt_state(mode, x, cl, ngb0, wg)
+        got = ddt_vjp(mode, x, cl, ngb0, wg, ct, ct_ddt, kw)
+        out.update({f"ddt_{mode}_{i}": g[..., :DDT_OUT_COLUMNS].cpu()
+                    for i, g in enumerate(got) if g is not None})
+        del kw, got
+    return out
+
+
 def g_state(kept) -> dict:
     """The keywords of K6 in the banded, fused or cldf-odcld mode for
-    what ``rt_sweep_g_radiances`` returned, through the checkout's API:
-    the radiances, and the cloudy-layer words where it returns them."""
+    what ``rt_sweep_g_radiances`` returned (and of K6 clear or compact for
+    ``rt_sweep_radiances``'), through the checkout's API: the radiances,
+    and the cloudy-layer words where it returns them."""
     kw = dict(rads=kept[1])
     if len(kept) > 2 and kept[2] is not None:
         kw["words"] = kept[2]
@@ -1078,6 +1116,9 @@ def main(argv=None) -> int:
     ap.add_argument("--overlap-times", metavar="OUT",
                     help="time the overlap rows and their adjoint into OUT "
                          "(JSON)")
+    ap.add_argument("--ddt-out", metavar="OUT",
+                    help="save K6's d/dT outputs in every mode (ddt_outputs) "
+                         "to OUT, for --compare")
     args = ap.parse_args(argv)
     for opt, times in ((args.k1_times, k1_times), (args.k2_times, k2_times),
                        (args.k5_times, k5_times), (args.k6_times, k6_times),
@@ -1091,10 +1132,12 @@ def main(argv=None) -> int:
         import pathlib
         rows = times(torch.device("cuda", 0))
         pathlib.Path(opt).write_text(json.dumps(rows, indent=1))
-    if args.out:
+    for opt, outs in ((args.out, outputs), (args.ddt_out, ddt_outputs)):
+        if not opt:
+            continue
         if not torch.cuda.is_available():
             raise SystemExit("snapshot needs a CUDA device")
-        torch.save(outputs(torch.device("cuda", 0)), args.out)
+        torch.save(outs(torch.device("cuda", 0)), opt)
     if args.compare:
         a, b = (torch.load(p) for p in args.compare)
         same = a.keys() == b.keys()
@@ -1106,9 +1149,11 @@ def main(argv=None) -> int:
             if (not eq and k in b and a[k].is_floating_point()
                     and a[k].shape == b[k].shape):
                 d = float((a[k].double() - b[k].double()).abs().max())
+                n = int((raw(a[k]) == raw(b[k])).sum())
                 diff = (f" (max |diff| {d:.3g}, "
                         f"{d / max(float(a[k].abs().max()), 1e-300):.3g} of"
-                        " max |first|)")
+                        f" max |first|; {n} of {a[k].numel()} elements "
+                        "bitwise equal)")
             print(f"{k}: {'bitwise equal' if eq else 'DIFFERS'}{diff}")
         print("all bitwise equal" if same else "outputs differ")
         return 0 if same else 1

@@ -359,8 +359,9 @@ def _k6_case(dev, args, fields, seed=3):
     surf = rtrn.surf_rows(plankbnd, semiss, pwvcm, torch.float32)
     cf = (None,) * 4 if fields is None else (*fields[1:], fields[0])
     a = (taut, fr, play, plev, surf, *cf, ngb0, wg)
-    fl, rads = rt_sweep_radiances(*a)
+    fl, rads, words = rt_sweep_radiances(*a)
     assert rads.shape == (2 if fields is None else 4, L, 140, B)
+    assert words is None            # idrv=0: K6 reads no words
     assert torch.equal(fl, rt_fluxes_blocked(*args, fields))
     _, rads_p = rtrn.rt_sweep_blocked(*a[:5], ngb0, wg, fields,
                                       radiances=True)
@@ -1254,7 +1255,7 @@ def test_rt_adjoint_launch_configurations_at_idrv(dev):
     other modes 128; no local memory; two blocks per SM at L = 60); the
     d/dT ones: 256 threads, at most 64 B of local memory (fused and
     maxrand spill a few bytes at two blocks per SM), two blocks per SM at
-    L = 60 and 140 but compact (one)."""
+    L = 60 and 140 (compact's on K6-g's tile)."""
     from rrtmg_lw_torch.ops.rtrn_cuda import k6_g_info, k6_info, k6_mr_info
     old = {"clear": k6_info(False), "compact": k6_info(True),
            "maxrand": k6_mr_info(60),
@@ -1264,14 +1265,86 @@ def test_rt_adjoint_launch_configurations_at_idrv(dev):
         assert info["local_bytes"] == 0 and info["blocks_per_sm"] == 2, mode
     for nlay in (60, 140):
         new = {"clear": k6_info(False, ddt=True),
-               "compact": k6_info(True, ddt=True),
+               "compact": k6_g_info("compact", nlay, ddt=True),
                "maxrand": k6_mr_info(nlay, ddt=True),
                **{m: k6_g_info(m, nlay, ddt=True) for m in G_MODES}}
         for mode, info in new.items():
             assert info["threads"] == 256, (mode, info)
             assert info["local_bytes"] <= 64, (mode, info)
-            assert info["blocks_per_sm"] == (1 if mode == "compact" else 2), \
-                (mode, nlay, info)
+            assert info["blocks_per_sm"] == 2, (mode, nlay, info)
+
+
+# compact's d/dT adjoint on K6-g's tile: its cw shares in shared memory up
+# to this depth (csrc/rtrn_bwd_g.cu, SMEM_BWD_G_COMPACT's static_assert)
+COMPACT_SHARES_MAX_L = 153
+
+
+@pytest.mark.parametrize("B,L", [(2048, 60), (2048, 140), (37, 13),
+                                 (36, 30), (2052, 9), (40, 200)])
+def test_rt_compact_ddt_adjoint_matches_plain_vjp(dev, B, L):
+    """Compact's d/dT adjoint (``rt_bwd_g_ddt_kernel`` in the compact mode)
+    fed K1 SAVE compact's radiances and cloudy-layer words at idrv=1: the
+    words equal ``rtrn.cloudy_words`` of the mask; within 1e-3 of max
+    |plain vjp| of the 6-row cotangent per output, with the flux cotangent
+    and without; bitwise over two runs; one launch counted in
+    ``DDT_LAUNCHES["compact"]``; raising without the words; staged by
+    bulk tensor copies where B % 16 == 0 (2048), element by element
+    elsewhere (37 ragged; 36 and 2052 with float rows 16-byte aligned
+    but not the mask's); its cw shares in shared memory up to L = 153
+    and in the launch's scratch at L = 200."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import DDT_LAUNCHES, k6_g_info
+    from rrtmg_lw_torch.utils.snapshot import (ddt_plain_vjp, ddt_state,
+                                               ddt_vjp, flat_clouds)
+    args, dpl, modes = _sweep_inputs(dev, B, L)
+    taut, fr, play, plev, plankbnd, semiss, pwvcm, ngb0, wg = args
+    x = (taut, fr, play, plev,
+         rtrn.surf_rows(plankbnd, semiss, pwvcm, torch.float32, dpl))
+    cl = flat_clouds("compact", modes["compact"][1])
+    kw = ddt_state("compact", x, cl, ngb0, wg)
+    assert torch.equal(kw["words"], rtrn.cloudy_words(cl[0]))
+    ct = _randn((4, L + 1, B), dev, B + L)
+    ct_ddt = _randn((2, L + 1, B), dev, B + L + 1)
+    with pytest.raises(ValueError, match="words"):
+        ddt_vjp("compact", x, cl, ngb0, wg, ct, ct_ddt, dict(rads=kw["rads"]))
+    for c in (ct, None):
+        before = DDT_LAUNCHES["compact"].launches
+        got = ddt_vjp("compact", x, cl, ngb0, wg, c, ct_ddt, kw)
+        assert DDT_LAUNCHES["compact"].launches == before + 1
+        ref = ddt_plain_vjp("compact", x, cl, ngb0, wg, c, ct_ddt)
+        for i, (g, r) in enumerate(zip(got, ref)):
+            assert g.shape == r.shape and torch.isfinite(g).all(), i
+            assert rel_err(g, r) <= 1e-3, (i, c is None)
+        assert bool(got[5].any()) and bool(got[4][3].any())
+    again = ddt_vjp("compact", x, cl, ngb0, wg, None, ct_ddt, kw)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+    info = k6_g_info("compact", L, ddt=True)
+    assert info["staging"] == ("tma" if B % 16 == 0 else "elements"), info
+    assert info["shares_in_smem"] == (L <= COMPACT_SHARES_MAX_L), info
+
+
+def test_rt_compact_ddt_adjoint_launch_configuration(dev):
+    """Compact's d/dT adjoint on K6-g's tile: 256-thread blocks of 32
+    columns, a group of whole bands each, boxes of 8 rows, a ring of two
+    slots, at most 128 registers, at most 64 B of local memory (the d/dT
+    instantiations' spill gate), two blocks per SM at
+    L = 60, 140 and past the depth where its cw shares leave shared
+    memory (which they do there); no idrv=0 instantiation (compact's
+    idrv=0 K6 is rtrn_bwd.cu's), nor an instantiation of that file's
+    with the d/dT adjoint in compact."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import k6_g_info, k6_info
+    for nlay in (60, 140, COMPACT_SHARES_MAX_L + 1):
+        info = k6_g_info("compact", nlay, ddt=True)
+        assert info["threads"] == 256 and info["columns"] == 32, info
+        assert info["box_rows"] == 8 and info["groups"][0] == 0, info
+        assert info["groups"][-1] == 16 and info["ring_levels"] == 2, info
+        assert info["registers"] <= 128, (nlay, info)
+        assert info["local_bytes"] <= 64, (nlay, info)
+        assert info["blocks_per_sm"] == 2, (nlay, info)
+        assert info["shares_in_smem"] == (nlay <= COMPACT_SHARES_MAX_L)
+    with pytest.raises(RuntimeError):
+        k6_g_info("compact", 60)
+    with pytest.raises(RuntimeError):
+        k6_info(True, ddt=True)
 
 
 # ---- reduced spectral storage (K7) and the probes ----

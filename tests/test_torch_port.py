@@ -1248,3 +1248,61 @@ def test_random_overlap_adjoint_fits_the_card():
             assert smem(mode, nlay)[0] <= 227 * 1024
             assert blocks * (smem(mode, nlay)[0] + reserved) <= sm, (mode,
                                                                      nlay)
+
+
+def test_compact_ddt_adjoint_fits_the_card():
+    """Compact's d/dT adjoint on the band-group tile (csrc/rtrn_bwd_g.cu,
+    ``rt_bwd_g_ddt_kernel`` in the compact mode; ``_group_tile``): its
+    shared memory, recomputed here from the slot layout (the group's six
+    per-g slabs in boxes of GH: taut, fracs, the two radiances, the up
+    sweep's ct_taut and ct_fracs; the band blocks of GH rows: planklay,
+    planklev, abi, abl and the down sweep's partials of the four; the two
+    flux rows, cw's two rows, the group's int8 mask rows, a byte a column;
+    all at 128-byte boundaries; then the rest as the other modes', the
+    secant's cotangent of each of the group's (g, column), the cloudy-layer
+    words, cw's shares, two floats a (layer, column), while two blocks
+    still fit an SM with them, 128 bytes of alignment), equals the
+    source's budget at L = 140 (SMEM_BWD_G_COMPACT, which a static_assert
+    holds to the layout) and fits two blocks per SM, with the 1 KB
+    reserved each, at L = 60, 140, 153 and 1,000; the shares stay in
+    shared memory up to L = 153 (the static_assert's bound) and leave it
+    at 154; the wrapper sends a compact d/dT cotangent there, counted in
+    ``DDT_LAUNCHES["compact"]``, and rtrn_bwd.cu instantiates no compact
+    d/dT kernel."""
+    c, _, sm, reserved = _group_tile()
+    csrc = os.path.join(REPO, "rrtmg_lw_torch", "csrc")
+    src = open(os.path.join(csrc, "rtrn_bwd_g.cu")).read()
+    gx, blocks = c["GX"], c["G_BLOCKS_PER_SM"]
+    gr, gh, ring = c["GR"], c["GH"], c["G_RING"]
+    kg, knb = 140, 16
+    row = gx * 4
+    slab = -(-gr // gh) * gh * row
+    band = gh * row
+    boxes = -(-gr // gh) * gh * gx             # the mask rows' bytes
+    slot = 6 * slab + 2 * (2 + 2) * band + 2 * row + 2 * row + boxes
+    assert slot % 128 == 0 and boxes % 128 == 0
+
+    def smem(nlay):
+        rest = _align16(2 * ring * 8 + 8 + kg * 4 + (knb + 1) * 4 + gr * 4)
+        rest += 2 * gh * gx * 4 + gx * 4 + gr * gx * 4 + _align16(nlay * 4)
+        shares = nlay * 2 * gx * 4
+        here = blocks * (ring * slot + rest + shares + 128 + reserved) <= sm
+        return ring * slot + rest + (shares if here else 0) + 128, here
+
+    budget = int(re.search(r"constexpr int SMEM_BWD_G_COMPACT = (\d+);",
+                           src).group(1))
+    assert smem(140) == (budget, True)
+    limit = int(re.search(r"GLayout<COMPACT>::shares_here\((\d+)\)\n",
+                          src).group(1))
+    assert limit == 153 and smem(limit)[1] and not smem(limit + 1)[1]
+    for nlay in (60, 140, limit, 1000):
+        assert blocks * (smem(nlay)[0] + reserved) <= sm, nlay
+    assert "rt_bwd_g_ddt_kernel<MODE><<<grid, GT, GLayout<MODE>::bytes(L)" \
+        in src
+    bwd = open(os.path.join(csrc, "rtrn_bwd.cu")).read()
+    assert "if constexpr (CLOUDY) {\n        if (dt.ct) return " \
+        "cudaErrorInvalidValue;" in bwd
+    wrapper = open(os.path.join(REPO, "rrtmg_lw_torch", "ops",
+                                "rtrn_cuda.py")).read()
+    assert '_build.launch("rrtm_rt_bwd_g_ddt"' in wrapper
+    assert 'DDT_LAUNCHES["compact"].launches += 1' in wrapper
