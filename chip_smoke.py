@@ -113,7 +113,10 @@ Phases, each raising on failure (any failure exits non-zero):
      bulk copies where B % 16 == 0), within TOL_BWD_RT of
      the plain vjp of the sweep on seeded flux and d/dT cotangents on
      B_SUB columns, at L=60 also without the flux cotangent, bitwise over
-     two runs, the cotangent of dplankbnd_dt nonzero); K1 keeping the
+     two runs, the cotangent of dplankbnd_dt nonzero; in the modes whose
+     d/dT K6 reads the derivatives K1 SAVE keeps at idrv=1 and takes no
+     scratch, ``rtrn_cuda.KEEPS_DDT``, those planes within TOL_DDT_PLANES
+     of the plain sweep's in float64); K1 keeping the
      state by both store paths (``k1_save_cases``): every mode at idrv 0
      and 1 on the cell, K1's edge cases, L_DEEP, B=4100 (bulk tensor
      stores, a last tile of 4 columns) and B=37 (scalar stores), the path
@@ -186,8 +189,11 @@ K5's, K6's and K1 SAVE's device_ms (every mode) come from
 ``utils/snapshot.py --k5-times --k6-times --k6-ddt-times`` in a process
 of its own, started after phase 3; the entries of K6 with the d/dT
 adjoint (rt_adjoint_ddt_<mode>) also carry device_ms_deep (L=140), their
-registers, spill, shared memory and blocks per SM, and scratch_gb, the
-bytes of their scratch (written and read once) beside the bound.  Without CUDA it exits non-zero and prints no result.
+registers, spill, shared memory and blocks per SM, scratch_gb, the
+bytes of clear's and maxrand's scratch (written and read once) beside
+the bound, and the device ms of K1 SAVE at idrv=1 in the mode and the
+pair's sum (k1_save_idrv_ms, ddt_pair_ms; at L=140 *_deep), printed on
+a ``ddt pair`` line a mode.  Without CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -215,6 +221,9 @@ TOL_BWD, TOL_BWD_RT = 1e-4, 1e-3
 # K1's kept radiances against the plain sweep's, / max |plain| (the
 # recurrence that TOL_FLUX holds summed over g, per g-point)
 TOL_RADS = 1e-5
+# K1 SAVE's d/dT derivatives (rads planes 4-5, idrv=1 in KEEPS_DDT) against
+# the plain sweep's in float64 on the same inputs, of max |plain|
+TOL_DDT_PLANES = 1e-6
 # the grad step against the eager one, per Atmosphere field / max |eager|,
 # for a loss linear in the fluxes: f32 against f64 on the CPU reads
 # <= 1.1e-5 (tests/test_torch_grad.py::test_f32_gradient_conditioning)
@@ -1270,10 +1279,16 @@ def phase_deep(device, counters):
             for impl in ("cuda", "eager")]
 
 
-def rel_err(got, ref):
-    """max |got - ref| / max |ref| (the absolute error where ref is 0)."""
-    scale = float(ref.double().abs().max())
-    diff = float((got.double() - ref.double()).abs().max())
+def rel_err(got, ref, chunk=1 << 27):
+    """max |got - ref| / max |ref| (the absolute error where ref is 0), in
+    float64 ``chunk`` elements at a time (K1 SAVE's radiances at L_DEEP
+    are 7.7 GB in float32)."""
+    got, ref = got.reshape(-1), ref.reshape(-1)
+    spans = [slice(i, i + chunk) for i in range(0, max(ref.numel(), 1),
+                                                chunk)]
+    scale = max(float(ref[c].double().abs().max()) for c in spans)
+    diff = max(float((got[c].double() - ref[c].double()).abs().max())
+               for c in spans)
     return diff / scale if scale > 0 else diff
 
 
@@ -2004,11 +2019,14 @@ def ddt_grad_kernels(device):
     sweep on the cotangent (ct, ct_ddt), seeded, per output on the first
     B_SUB columns (all 37), at L_MAIN also with ct None (a loss that reads
     d/dT alone), bitwise over two runs, the cotangent of dplankbnd_dt
-    (surf's row 3) nonzero.  -> the summary entries, their bounds those of
+    (surf's row 3) nonzero.  In KEEPS_DDT K1 SAVE's d/dT derivatives
+    (rads planes 4-5) within TOL_DDT_PLANES of the plain sweep's in float64
+    on those columns.  -> the summary entries, their bounds those of
     K6 in the mode (its inputs read once, its outputs written once) with
-    ct_ddt and surf's row 3 and its cotangent; the scratch's bytes
-    (written once, read once) beside them (device ms: grad_device_times)."""
-    from rrtmg_lw_torch.ops.rtrn_cuda import k6_g_info
+    ct_ddt and surf's row 3 and its cotangent; clear's and maxrand's
+    scratch bytes (written once, read once) beside them (device ms:
+    grad_device_times)."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import KEEPS_DDT, k6_g_info
     from rrtmg_lw_torch.utils.snapshot import (cut_columns, ddt_cases,
                                                ddt_plain_vjp, ddt_state,
                                                ddt_vjp)
@@ -2037,6 +2055,14 @@ def ddt_grad_kernels(device):
             cl = clouds[mode]
             cln = cut_columns(cl, n, Bc)
             kw = ddt_state(mode, x, cl, ngb0, wg)
+            if mode in KEEPS_DDT:
+                e = ddt_planes_err(mode, kw["rads"], xs, cln, ngb0, wg)
+                need(e <= TOL_DDT_PLANES,
+                     f"K1 SAVE {mode} idrv=1 ({tag}): the d/dT derivatives "
+                     f"off by {e:.3g} of max |plain| > {TOL_DDT_PLANES}")
+                print(f"K1 SAVE {mode} idrv=1 ({tag}): d/dT derivatives "
+                      f"(planes 4-5) within {e:.3g} of max |plain, f64| on "
+                      f"{n} columns")
 
             def k6(c=ct):
                 return ddt_vjp(mode, x, cl, ngb0, wg, c, ct_ddt, kw)
@@ -2081,14 +2107,37 @@ def ddt_grad_kernels(device):
     return res
 
 
+def ddt_planes_err(mode, rads, xs, cln, ngb0, wg):
+    """K1 SAVE's d/dT derivatives, planes 4-5 of ``rads`` on their first
+    columns, against the plain sweep's in float64 on those columns' inputs
+    ``xs``, ``cln`` (``utils.snapshot.ddt_plain_planes``): max |diff| /
+    max |plain| over the two planes."""
+    from rrtmg_lw_torch.utils.snapshot import ddt_plain_planes
+    n = xs[0].shape[2]
+    return rel_err(rads[4:6, ..., :n],
+                   ddt_plain_planes(mode, xs, cln, ngb0, wg))
+
+
+def ddt_cloudy_columns(mode, cl):
+    """(B,) bool: the columns with a cloudy layer in ``mode``'s flat clouds
+    ``cl``, where K6 reads PC (K1 SAVE's plane 5)."""
+    from rrtmg_lw_torch.ops import rtrn
+    if mode == "banded":
+        return (cl[0] >= rtrn.CLOUD_GATE).any(0)
+    return (cl[0][:, :140] >= 0.5).any(1).any(0)
+
+
 def ddt_bound(mode, x, cl, ct, ct_ddt, kw, got):
     """``bound`` of K6 with the d/dT sweep's adjoint in ``mode`` on one
     case: K6's inputs in the mode read once (as its idrv=0 entry counts
     them: maxrand's sub-streams where K6 reads them, the gated per-g
-    cloud inputs where the gate holds), ct_ddt and surf's fourth row, the
-    outputs written once; and ``scratch_gb``, the bytes of its scratch,
-    written once and read once, beside the bound."""
+    cloud inputs where the gate holds; in KEEPS_DDT K1 SAVE's derivative
+    P, and its clear twin PC in the columns with a cloud), ct_ddt and
+    surf's fourth row, the outputs written once; and ``scratch_gb``, the
+    bytes of clear's and maxrand's scratch, written once and read once,
+    beside the bound (0 in KEEPS_DDT)."""
     from rrtmg_lw_torch.ops import rtrn
+    from rrtmg_lw_torch.ops.rtrn_cuda import KEEPS_DDT
     L, _, B = x[0].shape
     state = kw.get("state") or (kw["rads"],)
     ops = (OPS["rt_adjoint"] + 2 * OPS["rt_ddt"]) * x[0].numel()
@@ -2100,7 +2149,11 @@ def ddt_bound(mode, x, cl, ct, ct_ddt, kw, got):
         ngate = int((cl[0][:, :140] >= 0.5).sum()) if GATED[mode] else 0
         nbytes = 4 * ngate * len(GATED[mode])
         read = [c for i, c in enumerate(cl) if i not in GATED[mode]]
-    nlam = 1 if mode == "clear" else 2
+    if mode in KEEPS_DDT:
+        ncloudy = int(ddt_cloudy_columns(mode, cl).sum())
+        nbytes += L * 140 * ncloudy * 4
+        state = (kw["rads"][:5],)
+    nlam = {"clear": 1, "maxrand": 2}.get(mode, 0)
     return dict(scratch_gb=2 * nlam * L * 140 * B * 4 / 1e9,
                 **bound((*x, *read, ct, ct_ddt, *state), got, ops,
                         nbytes=nbytes))
@@ -2353,8 +2406,10 @@ def grad_device_times():
     ddt = json.loads(outd.read_text())
     for m in DDT_MODES:
         ms = {r["nlay"]: r["k6_ddt_ms"] for r in ddt if r["mode"] == m}
-        out[f"rt_adjoint_ddt_{m}"] = dict(device_ms=ms[L_MAIN],
-                                          device_ms_deep=ms[L_DEEP])
+        k1 = {r["nlay"]: r["k1_save_ms"] for r in ddt if r["mode"] == m}
+        out[f"rt_adjoint_ddt_{m}"] = dict(
+            device_ms=ms[L_MAIN], device_ms_deep=ms[L_DEEP],
+            k1_save_idrv_ms=k1[L_MAIN], k1_save_idrv_ms_deep=k1[L_DEEP])
     print(f"device ms, K6 with the d/dT adjoint (at L={L_DEEP}): "
           + "; ".join(f"{m} {out[f'rt_adjoint_ddt_{m}']['device_ms']:.3f} "
                       f"({out[f'rt_adjoint_ddt_{m}']['device_ms_deep']:.3f})"
@@ -3021,7 +3076,7 @@ def main() -> int:
                                                  ice_liq_coeffs_vjp)
     from rrtmg_lw_torch.ops.planck_cuda import (planck_interp_blocked,
                                                 planck_interp_vjp)
-    from rrtmg_lw_torch.ops.rtrn_cuda import (DDT_LAUNCHES,
+    from rrtmg_lw_torch.ops.rtrn_cuda import (DDT_LAUNCHES, k1_info,
                                               rt_fluxes_banded,
                                               rt_fluxes_blocked,
                                               rt_fluxes_cldf_od,
@@ -3273,6 +3328,23 @@ def main() -> int:
               f"spill stores, {r['smem_bytes']} B shared memory "
               f"({r['smem_bytes_deep']} at L={L_DEEP}), "
               f"{r['blocks_per_sm']} blocks per SM")
+        # the d/dT step's pair: K1 SAVE at idrv=1 (in KEEPS_DDT keeping the
+        # derivatives K6 reads) and K6 with the d/dT adjoint
+        r.update(ddt_pair_ms=r["k1_save_idrv_ms"] + r["device_ms"],
+                 ddt_pair_ms_deep=r["k1_save_idrv_ms_deep"]
+                 + r["device_ms_deep"])
+        k1 = k1_info(mode, 1, save="bulk")
+        r.update(k1_save_idrv_registers=k1["registers"],
+                 k1_save_idrv_blocks_per_sm=k1["blocks_per_sm"])
+        print(f"ddt pair {mode}: K1 SAVE idrv=1 {r['k1_save_idrv_ms']:.3f} "
+              f"ms ({k1['registers']} registers, {k1['local_bytes']} B "
+              f"local memory, {k1['blocks_per_sm']} blocks per SM) + K6 "
+              f"d/dT {r['device_ms']:.3f} ms = "
+              f"{r['ddt_pair_ms']:.3f} ms (L={L_DEEP}: "
+              f"{r['k1_save_idrv_ms_deep']:.3f} + "
+              f"{r['device_ms_deep']:.3f} = {r['ddt_pair_ms_deep']:.3f}); "
+              f"K6 {r['registers']} registers, {r['blocks_per_sm']} blocks "
+              f"per SM ({r['blocks_per_sm_deep']} at L={L_DEEP})")
     r = res["taumol_bwd"]
     r.update(k5_build, gbps=r["bytes_once"] / (r["device_ms"] * 1e-3) / 1e9)
     print(f"taumol_bwd: device {r['device_ms']:.3f} ms, {r['gbps']:.0f} GB/s "

@@ -66,7 +66,7 @@ SIGNATURES = {
     "rrtm_rt_bwd_g_scratch": (I, I, I, P),
     "rrtm_rt_bwd_g_layout": (I, I, P),
     "rrtm_rt_bwd_g_info": (I, I, P),
-    "rrtm_rt_bwd_g_ddt": (P,) * 31 + (I, I, I, P),
+    "rrtm_rt_bwd_g_ddt": (P,) * 30 + (I, I, I, P),
     "rrtm_rt_bwd_g_ddt_info": (I, I, P),
     "rrtm_rt_bwd": (P,) * 21 + (I, I, I, P),
     "rrtm_rt_bwd_info": (I, P),

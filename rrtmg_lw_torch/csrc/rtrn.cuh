@@ -53,6 +53,18 @@ __host__ __device__ constexpr bool per_g_clouds(int mode) {
     return mode == COMPACT || mode == FUSED || mode == CLDF_OD;
 }
 
+// modes whose gradient-step launch of K1 at idrv=1 also keeps the d/dT
+// derivatives entering each layer (planes P_DDT, P_DDT + 1 of its
+// radiances), so that their K6 (rtrn_bwd_g.cu) takes no lam scratch
+__host__ __device__ constexpr bool keeps_ddt(int mode) {
+    return mode == COMPACT || mode == BANDED || mode == FUSED
+           || mode == CLDF_OD;
+}
+// the plane of the d/dT derivative entering layer l, then its clear twin's,
+// in K1 SAVE's radiances of those modes at idrv=1 ((6, L, 140, B): D, U,
+// their clear twins, P, PC)
+constexpr int P_DDT = 4;
+
 // rows of the (L, 16, B) overlap rows of the maxrand mode
 // (rtrnmr.overlap_rows): cldfrac, restart flags of the up and down
 // sub-streams, cloud at or above, 6 down factors, 6 up factors
@@ -216,7 +228,9 @@ __device__ __forceinline__ void ddt_step_bwd(DdtStep& d, float at,
 // sweep writes and the reverse down sweep reads, at (l, g, b) the
 // cotangent of the derivative leaving layer l upward (plane 0: of the
 // total-sky one, the clear twin's added where the column has no cloud;
-// plane 1, cloudy modes: of the clear twin's, where it has one).
+// plane 1, maxrand: of the clear twin's, where it has one); clear's and
+// maxrand's alone (the keeps_ddt modes read the derivatives K1 kept, and
+// lam is null there).
 struct Ddt {
     const float* ct;
     float* lam;

@@ -30,7 +30,8 @@
 // cotangents of the total-sky radiance (lam) and of its clear twin (mu).
 // The radiances each reverse step needs, those entering its layer, come
 // from K1's gradient-step launch (SAVE, rtrn_kernel.cuh: rads (4, L, 140,
-// B), D, U and their clear twins); the factors of each step are
+// B), D, U and their clear twins; at idrv=1 (6, L, 140, B), the d/dT
+// derivatives P, PC too); the factors of each step are
 // recomputed from taut as K1 forms them.  The gates carry no gradient and
 // are recomputed as K1 forms them: the cloudy layer (banded: cldfrac >=
 // CLOUD_GATE, for every g; fused and cldf-odcld: any g-point with cldf >=
@@ -117,14 +118,23 @@
 //   k6g_variants ``fill`` variant, PERF.md.)
 // No atomics on floats: two runs are bitwise equal.  Block barriers: one
 // per step, three more around the surface step.
-// - The d/dT adjoint (rt_bwd_g_ddt_kernel; the design: rtrn_bwd.cu):
-//   each thread carries the d/dT cotangents (then derivatives) of its
-//   g-points in registers, and reads and writes its scratch rows of lam
-//   directly, a warp a 128-byte row (the down sweep's in one batch before
-//   the g-loop); the surface step sums the seed's cotangents per band
-//   beside em and pb, over the slot's RAD rows.  Two blocks per SM, as
-//   the idrv=0 kernel: 128 registers, fused 24 B of spill stores (at one
-//   block per SM, 150-168 registers, no spill, it took 1.4-1.6x as long).
+// - The d/dT adjoint (rt_bwd_g_ddt_kernel): the d/dT up sweep is linear
+//   in the derivative P (rtrn.ddt_adjoint), so layer l's transmittances
+//   get lam x P, lam the cotangent of the derivative leaving the layer
+//   (top down) and P the derivative entering it (surface up).  K1's
+//   gradient-step launch keeps P and its clear twin PC (rads planes
+//   P_DDT, P_DDT + 1; rtrn_kernel.cuh, SAVE), so the whole d/dT adjoint
+//   runs in the reverse up sweep: each thread carries lam and its clear
+//   twin's of its g-points in registers, the step stages the group's P
+//   and PC rows of the layer into the slot's PT and PF slabs (which the
+//   up sweep does not read otherwise; PC's only where a column of the
+//   tile has a cloud), and each thread reads its two cells before the
+//   step writes over them.  The surface step sums the seed's cotangents
+//   per band beside em and pb, over the slot's RAD rows; the down sweep
+//   is the idrv=0 kernel's.  No scratch: carrying P in the down sweep
+//   instead needs lam kept from the up sweep, 2 (L, 140, B) planes
+//   written and read back, 2.2 GB at B=16384, L=60 beside the bound.
+//   Two blocks per SM, as the idrv=0 kernel.
 // - Compact's d/dT (on K1's 16 x 16 tile, where a thread carried 9
 //   g-points, its d/dT carries took it to 192 registers and one block
 //   per SM, 7.6x its bound): the step is
@@ -167,7 +177,9 @@ namespace {
 constexpr int NCLD = 6;                 // cloud inputs of a mode, at most
 
 // rows of the saved radiances (rtrn_kernel.cuh SAVE)
-enum Saved { S_D = 0, S_U = 1, S_DC = 2, S_UC = 3 };
+// (and at idrv=1 the d/dT derivatives entering each layer, P_DDT on)
+enum Saved { S_D = 0, S_U = 1, S_DC = 2, S_UC = 3, S_P = P_DDT,
+             S_PC = P_DDT + 1 };
 
 // the tensor maps of a launch: the per-g inputs, the radiances, the up
 // sweep's ct_taut and ct_fracs, the band rows, the flux cotangents (one
@@ -191,7 +203,8 @@ struct GMaps {
 // taucb, cloud fraction; fused: abi, abl), and the down sweep's per-g
 // cloud cotangents over its CLD rows, each thread over the elements it
 // has read.  Compact: planklay, planklev, abi, abl, cw's two over TAU,
-// FR, RADC, PT, PF and RAD.
+// FR, RADC, PT, PF and RAD.  At idrv=1 the up sweep stages the d/dT
+// derivatives P and PC entering the layer in its PT and PF slabs.
 template <int MODE>
 struct GSlot {
     // per-g cloud input rows: cldf-odcld cldf, odcld; fused cldf, ciwp,
@@ -334,7 +347,8 @@ struct StepGrads {
 // the clear twin's; rad, radc the radiance and clear twin entering the
 // layer.  lam, mu hold the cotangents of the step's outputs on entry and
 // of its inputs on exit.  IDRV: dd carries the step of the d/dT sweep's
-// adjoint (rtrn.cuh ddt_step_bwd), whose cotangents join the factors'.
+// adjoint (rtrn.cuh ddt_step_bwd), whose cotangents join the factors'
+// (the reverse up sweep's steps).
 template <int MODE, bool IDRV>
 __device__ __forceinline__ StepGrads g_step_bwd(
         float tau, float fr, float bl, float pl, float secd, float cf,
@@ -447,8 +461,9 @@ __device__ __forceinline__ StepGrads g_step_bwd(
 // words ((tiles, L), K1's) in its words.
 
 // The kernel's body; IDRV: with the d/dT sweep's adjoint (dt), its
-// cotangents of each layer's factors added to the down sweep's reverse
-// step of the layer.  maps: the kernel's __grid_constant__ parameter.
+// cotangents of each layer's factors added to the up sweep's reverse
+// step of the layer, from the derivatives K1 kept (rads planes S_P,
+// S_PC).  maps: the kernel's __grid_constant__ parameter.
 template <int MODE, bool IDRV>
 __device__ __forceinline__ void rt_bwd_g_body(
         const GMaps& maps, const Inputs& in, const Clouds& cl,
@@ -552,12 +567,19 @@ __device__ __forceinline__ void rt_bwd_g_body(
     for (int l = L - 1; l >= 0 && hi < 0; --l)
         if ((flags[l] >> tx) & 1u) hi = l;
     if (ty == 0) hi_s[tx] = hi;
-    __syncthreads();
+    // IDRV: a column of the tile has a cloud (PC is staged only then)
+    [[maybe_unused]] bool tcloud = false;
+    if constexpr (IDRV)
+        tcloud = __syncthreads_or(hi >= 0);
+    else
+        __syncthreads();
     auto slot = [&](int j) { return smem + (j % G_RING) * Sl::BYTES; };
 
     // ---- the staging of reverse step j: up sweep j < L, layer L-1-j,
     // Planck level l+1, flux rows UP, CLR_UP at level l+1, the up
-    // radiance entering l; down sweep j >= L, layer j-L, Planck level l,
+    // radiance entering l (IDRV: and the d/dT derivatives entering l, P
+    // and, where a column of the tile has a cloud, PC); down sweep j >= L,
+    // layer j-L, Planck level l,
     // rows DOWN, CLR_DOWN at level l, the down radiance at level l+1 and
     // the up sweep's outputs of layer l.  The producer first waits until
     // every thread has left the slot's previous step. ----
@@ -575,7 +597,8 @@ __device__ __forceinline__ void rt_bwd_g_body(
         const int ct0 = (up ? UP : DOWN) * (L + 1) + lev;
         const int ct1 = (up ? CLR_UP : CLR_DOWN) * (L + 1) + lev;
         const int nslab = 2 + (has_in ? 2 : 0) + (up ? 0 : 2)
-                          + (tc ? NCG : 0);
+                          + (tc ? NCG : 0)
+                          + (IDRV && up ? (tcloud ? 2 : 1) : 0);
         const int nband = 2 + (tc ? NBC : 0)
                           + (up ? 0 : 1 + (lev > 0) + (tc ? NBC : 0));
         const int none = tc && BND ? 3 : 2;
@@ -633,6 +656,12 @@ __device__ __forceinline__ void rt_bwd_g_body(
             slab(Sl::PT, M_GTAUT, gr.taut, l * KG);
             slab(Sl::PF, M_GFRACS, gr.fracs, l * KG);
         }
+        if constexpr (IDRV) {
+            if (up) {
+                slab(Sl::PT, M_RADS, rads, (S_P * L + l) * KG);
+                if (tcloud) slab(Sl::PF, M_RADS, rads, (S_PC * L + l) * KG);
+            }
+        }
         if (tc)
             for (int q = 0; q < NCG; ++q)
                 slab(Sl::CLD + q * Sl::SLAB, M_C0 + q, cl.c[q],
@@ -681,8 +710,8 @@ __device__ __forceinline__ void rt_bwd_g_body(
 
     float lam[GPT], mu[GPT], ct_fr0[GPT];
     // IDRV: the d/dT sweep's carries of each g-point, the cotangents of
-    // the derivative and its clear twin in the reverse up sweep, from the
-    // surface step on the derivatives themselves (rtrn.ddt_adjoint)
+    // the derivative and its clear twin in the reverse up sweep
+    // (rtrn.ddt_adjoint's lam, lamc)
     constexpr int ND = IDRV ? GPT : 1;
     [[maybe_unused]] float dd[ND], ddc[ND];
 #pragma unroll
@@ -723,24 +752,14 @@ __device__ __forceinline__ void rt_bwd_g_body(
         const float cw0 = CMP && cly ? row(Sl::CW)[tx] : 0.0f;
         const float cw1 = CMP && cly ? row(Sl::CW)[GX + tx] : 0.0f;
         const auto* msk_s = reinterpret_cast<const int8_t*>(s + Sl::MSK);
-        // idrv: the up sweep's d/dT cotangents at level lev; the down
-        // sweep's scratch rows of layer l, loaded in one batch
+        // idrv: the up sweep's d/dT cotangents at level lev
+        constexpr bool DDT = IDRV && UPW;
         [[maybe_unused]] const bool anyc = hi_s[tx] >= 0;
         [[maybe_unused]] float cd = 0.0f, ccd = 0.0f;
-        [[maybe_unused]] float lin[ND], linc[ND];
-        if constexpr (IDRV && UPW) {
+        if constexpr (DDT) {
             if (valid) {
                 cd = dt.ct[(size_t)lev * Bz + b];
                 ccd = dt.ct[((size_t)(L + 1) + lev) * Bz + b];
-            }
-        }
-        if constexpr (IDRV && !UPW) {
-#pragma unroll
-            for (int k = 0; k < GPT; ++k) {
-                const int r = ty + GY * k;
-                const size_t gi = ((size_t)l * KG + g0 + r) * Bz + b;
-                lin[k] = valid && r < nr ? dt.lam[gi] : 0.0f;
-                linc[k] = valid && r < nr && anyc ? dt.lam[LGB + gi] : 0.0f;
             }
         }
 #pragma unroll
@@ -788,38 +807,30 @@ __device__ __forceinline__ void rt_bwd_g_body(
                 }
             }
             // idrv, up: the cotangent of the derivative leaving layer l
-            // (the clear twin's folded in where it is the same) to the
-            // scratch; down: the layer's transmittances' cotangents
+            // (the clear twin's folded in where it is the same) times the
+            // derivatives entering it, K1's P and PC staged in this thread's
+            // PT and PF cells (read before the step writes over them; PC
+            // selected, not multiplied, where the column has no cloud: the
+            // cell is then not staged), the cotangents of the layer's
+            // transmittances
             [[maybe_unused]] DdtStep ds{};
             [[maybe_unused]] float lt = 0.0f;
-            if constexpr (IDRV && UPW) {
+            if constexpr (DDT) {
                 dd[k] += wg_s[g] * cd;
                 ddc[k] += wg_s[g] * ccd;
                 lt = anyc ? dd[k] : dd[k] + ddc[k];
-                if (valid) {
-                    const size_t gi = ((size_t)l * KG + g) * Bz + b;
-                    dt.lam[gi] = lt;
-                    if (anyc) dt.lam[LGB + gi] = ddc[k];
-                }
+                ds.ct_t = lt * pt_s[e];
+                ds.ct_tc = anyc ? ddc[k] * pf_s[e] : 0.0f;
             }
-            if constexpr (IDRV && !UPW) {
-                ds.ct_t = lin[k] * dd[k];
-                ds.ct_tc = anyc ? linc[k] * ddc[k] : 0.0f;
-            }
-            const StepGrads o = g_step_bwd<MODE, IDRV>(
+            const StepGrads o = g_step_bwd<MODE, DDT>(
                 tau_s[e], fr_s[e], play_s[be], plev_s[be], secd_s[be], cf,
                 tauc, ciwp, clwp, ai_b, al_b, cly, twin, rad, radc, lk, mk,
                 ds);
             lam[k] = lk;
             mu[k] = mk;
-            if constexpr (IDRV && UPW) {
+            if constexpr (DDT) {
                 dd[k] = lt * ds.t;
                 ddc[k] = anyc ? ddc[k] * ds.tc : 0.0f;
-            }
-            if constexpr (IDRV && !UPW) {
-                const float pn = dd[k] * ds.t;
-                ddc[k] = anyc ? ddc[k] * ds.tc : pn;
-                dd[k] = pn;
             }
             if (valid) {
                 const size_t gi = ((size_t)l * KG + g) * Bz + b;
@@ -1074,7 +1085,6 @@ __device__ __forceinline__ void rt_bwd_g_body(
                                    + (ddc[k] + wg_s[g] * ccd0);
                 ct_fr0[k] += ctd0 * dpl;
                 dz[r * GX + tx] = ctd0 * fr0;
-                dd[k] = ddc[k] = fr0 * dpl;
             }
         }
         fence_proxy_async_smem();
@@ -1246,7 +1256,7 @@ cudaError_t launch_bwd_g(const Inputs& in, const Clouds& cl, const int* ngb,
         };
         bool ok = map(M_TAUT, in.taut, lg, GH)
                   && map(M_FRACS, in.fracs, lg, GH)
-                  && map(M_RADS, rads, 4 * lg, GH)
+                  && map(M_RADS, rads, (dt.ct ? 6 : 4) * lg, GH)
                   && map(M_GTAUT, gr.taut, lg, GH)
                   && map(M_GFRACS, gr.fracs, lg, GH)
                   && map(M_PLAY, in.play, lb, GH)
@@ -1340,7 +1350,6 @@ int bwd_g_entry(const float* taut, const float* fracs, const float* play,
                 float* tpart, const Ddt& dt, int L, int B, int mode,
                 void* stream) {
     if (L <= 0 || B <= 0) return (int)cudaGetLastError();
-    if (dt.ct && !dt.lam) return (int)cudaErrorInvalidValue;
     const int ncld = mode == FUSED ? 6 : 2;
     // compact: its d/dT instantiation alone, no cotangent of the mask
     const bool cmp = mode == COMPACT;
@@ -1413,11 +1422,11 @@ RRTM_API int rrtm_rt_bwd_g(const float* taut, const float* fracs,
 
 // rrtm_rt_bwd_g at idrv=1 with the d/dT sweep's adjoint: surf and ct_surf
 // (4, 16, B), the fourth row dplankbnd_dt and its cotangent; ct_ddt (2,
-// L+1, B) the cotangents of duflx_dt and duflxc_dt; lam the scratch of 2 x
-// (L, 140, B) floats (rtrn.cuh Ddt).  Also mode COMPACT: c0 the mask (L,
-// 144, B) int8, c1 cw (L, 2, B), c4, c5 abi, abl (L, 16, B) (c2, c3 null)
-// and words K1 kept in compact at idrv=1 -> g1, g4, g5 their cotangents
-// (g0, g2, g3 null).
+// L+1, B) the cotangents of duflx_dt and duflxc_dt; rads (6, L, 140, B),
+// what K1 kept in the same mode at idrv=1 (the derivatives P and PC
+// too).  Also mode COMPACT: c0 the mask (L, 144, B) int8, c1 cw (L, 2,
+// B), c4, c5 abi, abl (L, 16, B) (c2, c3 null) and words K1 kept in
+// compact at idrv=1 -> g1, g4, g5 their cotangents (g0, g2, g3 null).
 RRTM_API int rrtm_rt_bwd_g_ddt(const float* taut, const float* fracs,
                                const float* play, const float* plev,
                                const float* surf, const int* ngb,
@@ -1430,14 +1439,15 @@ RRTM_API int rrtm_rt_bwd_g_ddt(const float* taut, const float* fracs,
                                float* ct_plev, float* ct_surf, float* g0,
                                float* g1, float* g2, float* g3, float* g4,
                                float* g5, const unsigned* words, int* count,
-                               float* tpart, const float* ct_ddt, float* lam,
-                               int L, int B, int mode, void* stream) {
+                               float* tpart, const float* ct_ddt, int L,
+                               int B, int mode, void* stream) {
     if (!ct_ddt) return (int)cudaErrorInvalidValue;
     const float* c[NCLD] = {c0, c1, c2, c3, c4, c5};
     float* g[NCLD] = {g0, g1, g2, g3, g4, g5};
     return bwd_g_entry(taut, fracs, play, plev, surf, ngb, wg, c, ct, rads,
                        ct_taut, ct_fracs, ct_play, ct_plev, ct_surf, g, words,
-                       count, tpart, Ddt{ct_ddt, lam}, L, B, mode, stream);
+                       count, tpart, Ddt{ct_ddt, nullptr}, L, B, mode,
+                       stream);
 }
 
 // The scratch rrtm_rt_bwd_g takes in `mode` at L layers and B columns:

@@ -103,7 +103,19 @@
 // the cloudy-layer words K6 reads in those modes (a bit per column,
 // one uint32 per 32-column tile and layer: the block of columns 16u ..
 // 16u + 15 writes half u % 2 of its tile's word, the last block of an
-// odd count the whole word).  The stores change nothing in the flux
+// odd count the whole word); at idrv=1 in the banded, fused, cldf-odcld
+// and compact modes (keeps_ddt) also the d/dT derivative entering each
+// layer and its clear twin, P and PC (rads (6, L, 140, B), planes 4-5;
+// level l, the seed fracs[0] x dplankbnd_dt at l = 0), which their d/dT
+// K6 reads in its reverse up sweep in place of a scratch of its own
+// (rtrn_bwd_g.cu), 1.1 GB more at B=16384, L=60: by scalar stores from
+// the registers in both store paths, a warp's store 16 columns x 2
+// g-points (the slot has no spare per-g tiles for them); in SAVE_BULK
+// where two blocks per SM still fit two more tiles (banded, cldf-odcld),
+// staged in shared memory and written by bulk tensor stores with the
+// step's radiances (one buffer: each thread waits for the previous step's
+// tiles to be read before it writes its cells), cheaper there than the
+// scalar stores on the H100.  The stores change nothing in the flux
 // sums: the fluxes are bitwise those of the kernel without SAVE.
 // - SAVE_BULK, where tensor maps can address rads, taut and fracs (B a
 //   multiple of 4, the bases 16-byte aligned): a step's radiances leave
@@ -246,8 +258,20 @@ struct Layout {
     // four levels where two blocks of them fit on an SM, else three
     static constexpr int RING =
         BLOCKS_PER_SM * (bytes(4) + SMEM_RESERVED) <= SMEM_SM ? 4 : 3;
-    static constexpr int BYTES = bytes(RING);
-    static constexpr int BAR = RING * SLOT;           // mbarriers (8 B each)
+    // SAVE_BULK at idrv=1 in the keeps_ddt modes: a step's d/dT
+    // derivatives staged for bulk tensor stores, two (KG, KX) tiles after
+    // the ring, and the mbarrier that frees them, where two blocks still
+    // fit an SM with them at the ring's depth (banded, cldf-odcld; fused
+    // and compact store them from the registers)
+    static constexpr int PTILES = 2 * KG * KX * 4;
+    static constexpr bool PBULK =
+        BULK && IDRV && keeps_ddt(MODE)
+        && BLOCKS_PER_SM * (bytes(RING) + PTILES + 16 + SMEM_RESERVED)
+               <= SMEM_SM;
+    static constexpr int PST = RING * SLOT;           // PBULK: the tiles,
+    static constexpr int PFREE = PST + (PBULK ? PTILES : 0);  // mbarrier
+    static constexpr int BYTES = bytes(RING) + (PBULK ? PTILES + 16 : 0);
+    static constexpr int BAR = PFREE + (PBULK ? 16 : 0);  // 8 B each
     static constexpr int PART = BAR + 8 * 4;
     static constexpr int CLYW = PART + 2 * NUP * KY * KX * 4;
     static constexpr int NGB = CLYW + 2 * KW * 4;
@@ -390,8 +414,10 @@ constexpr int ELECT = KT - 32;
 // column's k-th such layer in the sweep's order (down: from the top) at
 // slot k (slots past its count are left as they were); K6 reads them
 // back there; fused, cldf-odcld and compact at idrv=1 the cloudy-layer
-// words to kept.words ((tiles of 32 columns, L) uint32).  Elsewhere rads
-// and packed are not read.
+// words to kept.words ((tiles of 32 columns, L) uint32); banded, fused,
+// cldf-odcld and compact at idrv=1 (keeps_ddt) the d/dT derivative
+// entering layer l and its clear twin to rads' planes P_DDT, P_DDT + 1
+// (rads then (6, L, 140, B)).  Elsewhere rads and packed are not read.
 template <int MODE, bool IDRV, int SPEC, int SAVE>
 __global__ void __launch_bounds__(KT, BLOCKS_PER_SM)
 rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
@@ -400,6 +426,8 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
           __grid_constant__ const KeptOf<SAVE> kept) {
     constexpr bool KEEP = SAVE != NO_SAVE;
     constexpr bool BULK = SAVE == SAVE_BULK;
+    // the d/dT derivatives kept too
+    constexpr bool KEEP_P = KEEP && IDRV && keeps_ddt(MODE);
     using Sl = Slot<MODE, SPEC>;
     using Lo = Layout<MODE, IDRV, SPEC, BULK>;
     constexpr bool MR = MODE == MAXRAND;
@@ -415,6 +443,10 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
     if constexpr (BULK)                     // the ring at a 128-byte boundary
         smem += (128u - (smem_addr(smem_raw) & 127u)) & 127u;
     uint64_t* bar = reinterpret_cast<uint64_t*>(smem + Lo::BAR);
+    // PBULK: the staged d/dT derivatives, P then PC, and their mbarrier
+    [[maybe_unused]] float* pst = reinterpret_cast<float*>(smem + Lo::PST);
+    [[maybe_unused]] uint64_t* pfree =
+        reinterpret_cast<uint64_t*>(smem + Lo::PFREE);
     float* part = reinterpret_cast<float*>(smem + Lo::PART);
     unsigned* clyw = reinterpret_cast<unsigned*>(smem + Lo::CLYW);
     int* ngb_s = reinterpret_cast<int*>(smem + Lo::NGB);
@@ -441,6 +473,7 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
     if (tid == 0) {
         // SAVE_BULK: and the elected thread's bulk loads' arrival
         for (int r = 0; r < RING; ++r) mbar_init(&bar[r], KT + BULK);
+        if constexpr (Lo::PBULK) mbar_init(pfree, 1);
         if constexpr (BULK) fence_mbarrier_init();
     }
 
@@ -645,6 +678,28 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
             if constexpr (MODE != CLEAR) p[2 * lgb] = radc[k];
         }
     };
+    // KEEP_P: the d/dT derivative of g-point k entering layer l and its
+    // clear twin to rads' planes P_DDT, P_DDT + 1: PBULK over this
+    // thread's cells of the staged tiles (lanes past the ragged edge
+    // write cells the store clips), else by scalar stores, valid columns
+    // only
+    auto save_ddt = [&](int l, int k) {
+        if constexpr (Lo::PBULK) {
+            const int i = (ty + k * KY) * KX + tx;
+            pst[i] = dl[k];
+            pst[KG * KX + i] = dc[k];
+        } else if constexpr (KEEP_P) {
+            if (valid) {
+                const size_t lgb = (size_t)L * KG * Bz;
+                // one product for the address (other forms of it spilled
+                // in fused and cldf-odcld's bulk path at 128 registers)
+                float* p = rads + ((size_t)(P_DDT * L + l) * KG + ty + k * KY)
+                                  * Bz + b;
+                *p = dl[k];
+                p[lgb] = dc[k];
+            }
+        }
+    };
     // SAVE_BULK, the elected thread: step j's tiles to rads by bulk tensor
     // stores, one bulk group (row D of the down sweep's layer, U of the
     // up sweep's, and their clear twins two planes on)
@@ -661,6 +716,14 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
             tma_store_2d(&kept.rads, s + Sl::TAU, bt, y, pol);
             if constexpr (MODE != CLEAR)
                 tma_store_2d(&kept.rads, s + Sl::FR, bt, y + 2 * L * KG, pol);
+            if constexpr (Lo::PBULK) {
+                if (up) {
+                    const int yp = (P_DDT * L + l) * KG;
+                    tma_store_2d(&kept.rads, pst, bt, yp, pol);
+                    tma_store_2d(&kept.rads, pst + KG * KX, bt, yp + L * KG,
+                                 pol);
+                }
+            }
             bulk_commit();
         }
     };
@@ -712,6 +775,14 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
             if (j > j0) store_step(j - 1);
             if (UPW || j > j0) flush(j - 1);
             if (j + RING - 1 < j0 + L) stage_step(j + RING - 1);
+            // PBULK: the staged derivatives free once the previous step's
+            // bulk stores have read them
+            if constexpr (Lo::PBULK && UPW) {
+                if (tid == ELECT) {
+                    bulk_wait_all<true>();
+                    mbar_arrive(pfree);
+                }
+            }
             const int l = UPW ? j - L : L - 1 - j;
             unsigned char* s = slot(j);
             bool cly = false, ist = false;
@@ -760,6 +831,12 @@ rt_kernel(KernelInputs<SPEC> in, const int* __restrict__ ngb,
                     if constexpr (BULK)
                         if (!full) __syncwarp();
                     if constexpr (KEEP && UPW) save(1, l, k, s);  // entering l
+                    if constexpr (KEEP_P && UPW) {
+                        if constexpr (Lo::PBULK)
+                            if (k == 0)
+                                mbar_wait(pfree, (unsigned)(j - L) & 1u);
+                        save_ddt(l, k);
+                    }
                     if constexpr (KEEP && MR)
                         if (cly && !ist) save_subs(UPW, k);
                     if constexpr (MR)

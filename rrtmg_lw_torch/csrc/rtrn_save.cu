@@ -23,7 +23,9 @@ cudaError_t launch_kept(const Inputs& in, const int* ngb, const float* wg,
                       && map_rows_ok(kp.rads, B);
     if (bulk) {
         const uint64_t lg = (uint64_t)in.L * KG;
-        const uint64_t planes = MODE == CLEAR ? 2 : 4;
+        // and the d/dT derivatives where they are kept (staged: PBULK)
+        const uint64_t planes =
+            MODE == CLEAR ? 2 : idrv && keeps_ddt(MODE) ? 6 : 4;
         // a box row is 64 bytes: the L2 fetches the whole 128-byte line,
         // whose other half the neighbouring block reads
         if (!tensor_map_rows(&ka.taut, in.taut, lg, B, KX, KG,

@@ -205,7 +205,7 @@ def _ddt_step(dlu, dclru, a, ato, cf, cly, twin):
     return dn, torch.where(twin, dclru * (1.0 - a), dn)
 
 
-def ddt_adjoint(at, atot, cf, cly, anyc, d0, wg, ct_ddt):
+def ddt_adjoint(at, atot, cf, cly, anyc, d0, wg, ct_ddt, saved=None):
     """The adjoint of the d/dT up sweep (``_ddt_step`` from d0 at the
     surface) as K6 runs it at idrv=1, the plain twin of its d/dT part.
     at, atot, cf (B, L, G) each layer's gas and total absorptivity and
@@ -217,7 +217,13 @@ def ddt_adjoint(at, atot, cf, cly, anyc, d0, wg, ct_ddt):
     top level down (the clear twin's folded into it where the column has
     no cloud, the twin then being the same), P, the derivative entering
     each layer, from the surface up, and layer l's transmittance t gets
-    lam P (rtrn.cuh ddt_step_bwd)."""
+    lam P (rtrn.cuh ddt_step_bwd).  ``saved``: (P, PC) (B, L, G), the
+    derivatives entering each layer as the forward sweep kept them (K1
+    SAVE's planes 4-5 in the banded, fused, cldf-odcld and compact modes,
+    ``_sweep(..., radiances=True)``'s), read in place of running P from
+    d0, as K6 reads them in those modes: lam P at each layer as lam
+    reaches it, the clear twin's selected where the column has a cloud
+    (PC need not be finite elsewhere)."""
     B, L, G = at.shape
     cu = ct_ddt[0].t()[..., None] * wg                   # (B, L+1, G)
     ccu = ct_ddt[1].t()[..., None] * wg
@@ -232,14 +238,20 @@ def ddt_adjoint(at, atot, cf, cly, anyc, d0, wg, ct_ddt):
         lam = cu[:, lev] + lams[lev] * t[:, lev]
         lamc = ccu[:, lev] + lamcs[lev] * tg[:, lev]
     ct_d0 = lam + lamc
-    p = pc = d0
-    ct_t, ct_tc = [], []
-    for lev in range(L):
-        ct_t.append(lams[lev] * p)
-        ct_tc.append(lamcs[lev] * pc)
-        p, pc = _ddt_step(p, pc, at[:, lev], atot[:, lev], cf[:, lev],
-                          cly[:, lev], anyc)
-    ct_t, ct_tc = torch.stack(ct_t, 1), torch.stack(ct_tc, 1)
+    if saved is not None:
+        p, pc = saved
+        ct_t = torch.stack(lams, 1) * p
+        ct_tc = torch.where(anyc[..., None], torch.stack(lamcs, 1) * pc,
+                            zero[:, None])
+    else:
+        p = pc = d0
+        ct_t, ct_tc = [], []
+        for lev in range(L):
+            ct_t.append(lams[lev] * p)
+            ct_tc.append(lamcs[lev] * pc)
+            p, pc = _ddt_step(p, pc, at[:, lev], atot[:, lev], cf[:, lev],
+                              cly[:, lev], anyc)
+        ct_t, ct_tc = torch.stack(ct_t, 1), torch.stack(ct_tc, 1)
     ct_at = -torch.where(cly, ct_t * (1.0 - cf), ct_t) - ct_tc
     ct_atot = torch.where(cly, -ct_t * cf, 0.0)
     ct_cf = torch.where(cly, ct_t * (at - atot), 0.0)
@@ -259,7 +271,11 @@ def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
     (idrv=1).  ``radiances``: (that tuple, the per-g radiances (4, L, G,
     B)): the down radiance at level l, the up radiance entering layer l
     (l = 0: after the surface reflection), and their clear twins, for
-    l = 0..L-1, the ones summed into the flux rows there."""
+    l = 0..L-1, the ones summed into the flux rows there; at idrv=1 (6,
+    L, G, B), then the d/dT derivative entering layer l and its clear
+    twin (l = 0: the seed fracs[0] x dplankbnd_dt), what K1 SAVE keeps
+    for the d/dT adjoint in the banded, fused, cldf-odcld and compact
+    modes (``ddt_adjoint``'s ``saved``)."""
     dtype = taut.dtype
     B, L, G = taut.shape
     ngb0 = ngb0.long()
@@ -323,8 +339,8 @@ def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
     out += (flux(durad, wg), flux(dcurad, wg)) if idrv else ()
     if not radiances:
         return out
-    rads = torch.stack([torch.stack(r[:L]) for r in (drad, urad, cdrad,
-                                                     curad)])
+    kept = (drad, urad, cdrad, curad) + ((durad, dcurad) if idrv else ())
+    rads = torch.stack([torch.stack(r[:L]) for r in kept])
     return out, rads.permute(0, 1, 3, 2)
 
 
@@ -513,8 +529,10 @@ def rt_sweep_blocked(taut_t, fracs_t, planklay_t, planklev_t, surf, ngb0,
     ``radiances``: (the fluxes, rads (2|4, L, 140, B)), the per-g
     radiances the sweep sums into flux rows at levels 0..L-1: the down
     radiance at level l, the up radiance entering layer l (l = 0: after
-    the surface reflection) and, with clouds, their clear twins; the
-    plain version of ``rtrn_cuda.rt_sweep_radiances``, what K6 reads.
+    the surface reflection) and, with clouds, their clear twins, then
+    with clouds at idrv=1 (rads (6, L, 140, B)) the d/dT derivative
+    entering layer l and its clear twin; the plain version of
+    ``rtrn_cuda.rt_sweep_radiances``, what K6 reads.
     In the per-g modes (cldf-odcld, fused) also the cloudy-layer words
     of the cloud fraction (``cloudy_words``): (the fluxes, rads, words),
     the plain version of ``rtrn_cuda.rt_sweep_g_radiances``."""
@@ -530,7 +548,7 @@ def rt_sweep_blocked(taut_t, fracs_t, planklay_t, planklev_t, surf, ngb0,
         return torch.stack(res).permute(0, 2, 1).contiguous()
     fluxes, rads = res
     out = (torch.stack(fluxes).permute(0, 2, 1).contiguous(),
-           rads[:2 if cloud_fields is None else 4].contiguous())
+           (rads[:2] if cloud_fields is None else rads).contiguous())
     if cloud_fields is not None and len(cloud_fields) in (2, 6):
         return (*out, cloudy_words(cloud_fields[0]))
     return out
@@ -568,7 +586,7 @@ def rt_sweep_banded(taut_t, fracs_t, planklay_t, planklev_t, surf, cldf_t,
     cldf_t (L, B) the cloud fraction, taucb_t (L, 16, B) the cloud od
     per band (``cldprop.cldprop_banded_blocked``); a layer is cloudy
     where cldf >= CLOUD_GATE, for every g.  surf as
-    ``rt_sweep_blocked``.  ``radiances``: (the fluxes, rads (4, L, 140,
+    ``rt_sweep_blocked``.  ``radiances``: (the fluxes, rads (4|6, L, 140,
     B)), as ``rt_sweep_blocked``'s with clouds: the plain version of
     ``rtrn_cuda.rt_sweep_g_radiances`` in the banded mode."""
     taut, fracs, play, plev, odcld_g, secd, semiss, plankbnd, dpl = \
@@ -769,7 +787,7 @@ def _ddt_factors(mode, taut_t, fracs_t, planklay_t, planklev_t, surf,
 
 
 def rt_sweep_ddt_vjp(mode, taut_t, fracs_t, planklay_t, planklev_t, surf,
-                     clouds, ngb0, wg, ct_ddt):
+                     clouds, ngb0, wg, ct_ddt, rads=None):
     """The plain twin of K6's d/dT part at idrv=1: ct_ddt (2, L+1, B), the
     cotangents of duflx_dt and duflxc_dt -> cotangents of (taut_t,
     fracs_t, planklay_t, planklev_t, surf (4, 16, B), *clouds), zeros
@@ -781,14 +799,19 @@ def rt_sweep_ddt_vjp(mode, taut_t, fracs_t, planklay_t, planklev_t, surf,
     and autograd of the factors as the sweep forms them
     (``_ddt_factors``) carries them to the inputs, as K6's reverse steps
     do; equal to the plain vjp of the sweep on the cotangent (0, 0, 0, 0,
-    *ct_ddt) up to the order of the sums."""
+    *ct_ddt) up to the order of the sums.  ``rads``: the (6, L, 140, B)
+    state the sweep kept at idrv=1 (``rt_sweep_blocked`` or
+    ``rt_sweep_banded`` with ``radiances=True``), whose planes 4-5, the
+    derivatives entering each layer, ``ddt_adjoint`` reads (``saved``) as
+    K6 does in the banded, fused, cldf-odcld and compact modes."""
+    saved = None if rads is None else tuple(_tb(r) for r in rads[4:6])
     xs = [x.detach().requires_grad_(x.is_floating_point())
           for x in (taut_t, fracs_t, planklay_t, planklev_t, surf, *clouds)]
     with torch.enable_grad():
         at, atot, cf, cly, anyc, d0 = _ddt_factors(mode, *xs[:5], xs[5:],
                                                    ngb0)
         cts = ddt_adjoint(at.detach(), atot.detach(), cf.detach(), cly, anyc,
-                          d0.detach(), wg, ct_ddt)
+                          d0.detach(), wg, ct_ddt, saved)
         outs = [(o, c) for o, c in zip((at, atot, cf, d0), cts)
                 if o.requires_grad]
         grads = torch.autograd.grad([o for o, _ in outs],

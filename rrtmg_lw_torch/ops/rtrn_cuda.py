@@ -27,7 +27,11 @@ fourth surface row, ``dplankbnd_dt``) each returns the fluxes and their
 derivatives with respect to the surface temperature (2, L+1, B); a
 cotangent of the latter reaches K6's instantiation in the mode that also
 runs the d/dT sweep's adjoint (``ct_ddt`` of each vjp wrapper;
-``rtrn.ddt_adjoint`` is its plain twin), counted in ``DDT_LAUNCHES``.
+``rtrn.ddt_adjoint`` is its plain twin), counted in ``DDT_LAUNCHES``; in
+the banded, fused, cldf-odcld and compact modes (``KEEPS_DDT``) K1's
+gradient-step launch at idrv=1 also keeps the d/dT derivatives entering
+each layer (rads (6, L, 140, B)), which that K6 reads in place of a
+scratch of its own.
 On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version (``rtrn.rt_sweep_blocked``,
 ``rtrn.rt_sweep_vjp``, ``rtrn.SWEEPS``) and, backward, its plain vjp.
@@ -72,6 +76,20 @@ CLOUD_INPUTS = {
 }
 # launches of K6's instantiations with the d/dT sweep's adjoint, per mode
 DDT_LAUNCHES = {mode: _build.Launches() for mode in MODES}
+# the modes whose K1 SAVE at idrv=1 keeps the d/dT derivatives P, PC
+# (planes 4-5 of its radiances; csrc/rtrn.cuh keeps_ddt): their d/dT K6
+# reads them and takes no scratch
+KEEPS_DDT = ("compact", "banded", "fused", "cldf_od")
+
+
+def rads_planes(mode, idrv):
+    """The planes of the radiances K1 keeps in ``mode`` (a ``MODES`` key
+    but maxrand, whose state is ``rt_sweep_maxrand_radiances``') at
+    ``idrv``: D and U (clear), their clear twins (cloudy modes), and at
+    idrv=1 in ``KEEPS_DDT`` the d/dT derivatives P and PC."""
+    if mode == "clear":
+        return 2
+    return 6 if idrv and mode in KEEPS_DDT else 4
 
 
 def _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t, abl_t,
@@ -137,10 +155,12 @@ def _launch(mode, wrapper, taut_t, fracs_t, planklay_t, planklev_t, surf,
 def rt_sweep_radiances(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
                        abi_t, abl_t, mask, ngb0, wg):
     """K1 clear (mask None) or compact in float32, keeping its per-g
-    radiances: -> (fluxes (4|6, L+1, B), rads (2|4, L, 140, B), words),
+    radiances: -> (fluxes (4|6, L+1, B), rads (2|4|6, L, 140, B), words),
     rads the down radiance at level l, the up radiance entering layer l
     (l = 0: after the surface reflection) and, compact, their clear
-    twins, for l = 0..L-1: what K6 (``rt_sweep_vjp``) reads; words the
+    twins, for l = 0..L-1, and compact at idrv=1 the d/dT derivative
+    entering layer l and its clear twin (``rads_planes``): what K6
+    (``rt_sweep_vjp``) reads; words the
     cloudy-layer words of the mask, int32 ((B + 31) // 32, L)
     (``rtrn.cloudy_words``), which compact's d/dT adjoint reads: on the
     card compact at idrv=1 (surf (4, 16, B)) alone, on a CPU tensor every
@@ -159,9 +179,11 @@ def rt_sweep_radiances(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
                         "radiances in float32 storage only")
     L, B = _check(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t,
                   abi_t, abl_t, mask, ngb0, wg)
-    rads = torch.empty((2 if mask is None else 4, L, NGPT, B),
+    idrv = surf.shape[0] == 4
+    rads = torch.empty((rads_planes("clear" if mask is None else "compact",
+                                    idrv), L, NGPT, B),
                        dtype=torch.float32, device=taut_t.device)
-    words = None if mask is None or surf.shape[0] != 4 else torch.empty(
+    words = None if mask is None or not idrv else torch.empty(
         ((B + 31) // 32, L), dtype=torch.int32, device=taut_t.device)
     out = _launch("clear" if mask is None else "compact", rt_fluxes_blocked,
                   taut_t, fracs_t, planklay_t, planklev_t, surf, ngb0, wg,
@@ -235,9 +257,10 @@ def rt_sweep_maxrand_radiances(taut_t, fracs_t, planklay_t, planklev_t,
 def rt_sweep_g_radiances(mode, taut_t, fracs_t, planklay_t, planklev_t,
                          surf, clouds, ngb0, wg):
     """K1 in the banded, fused or cldf-odcld ``mode`` in float32, keeping
-    its per-g radiances: -> (fluxes (4|6, L+1, B), rads (4, L, 140, B),
+    its per-g radiances: -> (fluxes (4|6, L+1, B), rads (4|6, L, 140, B),
     words), rads as ``rt_sweep_radiances``' compact ones (D, U and their
-    clear twins), words (fused, cldf-odcld) the cloudy-layer words of
+    clear twins, at idrv=1 the d/dT derivatives P and PC too), words
+    (fused, cldf-odcld) the cloudy-layer words of
     the per-g cloud fraction, int32 ((B + 31) // 32, L)
     (``rtrn.cloudy_words``; None in banded): what K6 in that mode
     (``rt_sweep_banded_vjp``, ``rt_sweep_g_vjp``) reads.  The fluxes are
@@ -258,8 +281,8 @@ def rt_sweep_g_radiances(mode, taut_t, fracs_t, planklay_t, planklev_t,
                         "radiances in float32 storage only")
     L, B = _check(*x, None, None, None, None, ngb0, wg)
     _check_clouds(mode, clouds, L, B, taut_t.device)
-    rads = torch.empty((4, L, NGPT, B), dtype=torch.float32,
-                       device=taut_t.device)
+    rads = torch.empty((rads_planes(mode, surf.shape[0] == 4), L, NGPT, B),
+                       dtype=torch.float32, device=taut_t.device)
     words = None if mode == "banded" else torch.empty(
         ((B + 31) // 32, L), dtype=torch.int32, device=taut_t.device)
     out = _launch(mode, WRAPPERS[mode], *x, ngb0, wg, rads=rads,
@@ -294,14 +317,17 @@ def _full_ct(ct, ct_ddt):
                       z(2) if ct_ddt is None else ct_ddt])
 
 
-def _ddt_operands(ct, ct_ddt, L, B, nlam, device):
+def _ddt_operands(ct, ct_ddt, L, B, device, nlam=0):
     """The flux cotangents K6 at idrv=1 stages (zeros where the loss reads
-    no flux, ``ct`` None), the checked d/dT cotangents and K6's scratch of
-    ``nlam`` (L, 140, B) planes (``rtrn.cuh`` Ddt)."""
+    no flux, ``ct`` None), the checked d/dT cotangents and, clear and
+    maxrand, K6's scratch of ``nlam`` (L, 140, B) planes (``rtrn.cuh``
+    Ddt; None where nlam is 0: the ``KEEPS_DDT`` modes read K1's
+    derivatives instead)."""
     _build.check(ct_ddt, "ct_ddt", torch.float32, (2, L + 1, B), device)
     if ct is None:
         ct = torch.zeros((4, L + 1, B), dtype=torch.float32, device=device)
-    lam = torch.empty((nlam, L, NGPT, B), dtype=torch.float32, device=device)
+    lam = None if nlam == 0 else torch.empty(
+        (nlam, L, NGPT, B), dtype=torch.float32, device=device)
     return ct, ct_ddt, lam
 
 
@@ -550,10 +576,11 @@ def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
     in csrc/rtrn_bwd.cu, compact's on K6-g's tile (csrc/rtrn_bwd_g.cu,
     ``rt_bwd_g_ddt_kernel`` in the compact mode), which also reads
     ``words``, the cloudy-layer words K1 kept (``rt_sweep_radiances`` at
-    idrv=1).  On the card K6 reads ``rads``, the radiances K1 kept on the
-    same inputs (``rt_sweep_radiances``), and raises without them (or
-    without the words there); the plain vjp (CPU tensors) reads
-    neither."""
+    idrv=1), and the d/dT derivatives in rads' planes 4-5, and takes no
+    scratch.  On the card K6 reads ``rads``, the radiances K1 kept on the
+    same inputs (``rt_sweep_radiances``; compact: at idrv=1 if ct_ddt is
+    given), and raises without them (or without the words there); the
+    plain vjp (CPU tensors) reads neither."""
     if taut_t.device.type == "cpu":
         return rtrn.rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t,
                                  surf, cw_t, abi_t, abl_t, mask, ngb0, wg,
@@ -565,16 +592,16 @@ def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
     dev = taut_t.device
     cloudy = mask is not None
     if ddt:
-        ct, ct_ddt, lam = _ddt_operands(ct, ct_ddt.contiguous(), L, B,
-                                        2 if cloudy else 1, dev)
+        ct, ct_ddt, lam = _ddt_operands(ct, ct_ddt.contiguous(), L, B, dev,
+                                        0 if cloudy else 1)
     ct = ct.contiguous()
     _build.check(ct, "ct", torch.float32, (4, L + 1, B), dev)
     if rads is None:
         raise ValueError("rt_sweep_vjp on the card reads the radiances K1 "
                          "kept on the same inputs (rads, from "
                          "rt_sweep_radiances): K6 runs no forward sweep")
-    _build.check(rads, "rads", torch.float32,
-                 (4 if cloudy else 2, L, NGPT, B), dev)
+    _check_rads(rads, "clear" if mask is None else "compact", ddt, L, B,
+                dev)
     grads = [torch.empty_like(x) for x in (taut_t, fracs_t, planklay_t,
                                            planklev_t, surf)]
     grads += [torch.empty_like(x) if cloudy else None
@@ -595,8 +622,8 @@ def rt_sweep_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf, cw_t, abi_t,
                       planklev_t, surf, ngb0, wg, mask, cw_t, None, None,
                       abi_t, abl_t, ct, rads, *grads[:5], None, gcw, None,
                       None, gabi, gabl, words,
-                      *k6_g_scratch("compact", L, B, dev), ct_ddt, lam, L,
-                      B, MODES["compact"])
+                      *k6_g_scratch("compact", L, B, dev), ct_ddt, L, B,
+                      MODES["compact"])
         DDT_LAUNCHES["compact"].launches += 1
     elif ddt:
         _build.launch("rrtm_rt_bwd_ddt", *x, ct_ddt, lam, L, B, 0)
@@ -639,8 +666,8 @@ def rt_sweep_maxrand_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
     dev = taut_t.device
     _check_clouds("maxrand", (rows_t, taucb_t), L, B, dev)
     if ddt:
-        ct, ct_ddt, lam = _ddt_operands(ct, ct_ddt.contiguous(), L, B, 2,
-                                        dev)
+        ct, ct_ddt, lam = _ddt_operands(ct, ct_ddt.contiguous(), L, B, dev,
+                                        2)
     ct = ct.contiguous()
     _build.check(ct, "ct", torch.float32, (4, L + 1, B), dev)
     if state is None:
@@ -661,6 +688,16 @@ def rt_sweep_maxrand_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
         _build.launch("rrtm_rt_bwd_mr", *a, L, K, B)
         rt_sweep_maxrand_vjp.launches += 1
     return tuple(g if n else None for g, n in zip(grads, needs))
+
+
+def _check_rads(rads, mode, ddt, L, B, device):
+    """Checks the radiances K1 kept in ``mode`` for K6: at idrv=1 with a
+    d/dT cotangent (``ddt``) the planes ``rads_planes(mode, 1)``, else
+    those of either idrv (K6 at idrv=0 reads the first four of six where
+    the step ran K1 at idrv=1 but its loss reads no d/dT)."""
+    planes = [rads_planes(mode, i) for i in ((1,) if ddt else (0, 1))]
+    n = rads.shape[0] if rads.shape[0] in planes else planes[0]
+    _build.check(rads, "rads", torch.float32, (n, L, NGPT, B), device)
 
 
 def k6_mr_scratch(L, B, device, lib=None):
@@ -691,15 +728,14 @@ def _launch_bwd_g(mode, counters, x, clouds, ngb0, wg, ct, needs, rads,
     dev = x[0].device
     _check_clouds(mode, clouds, L, B, dev)
     if ddt:
-        ct, ct_ddt, lam = _ddt_operands(ct, ct_ddt.contiguous(), L, B, 2,
-                                        dev)
+        ct, ct_ddt, _ = _ddt_operands(ct, ct_ddt.contiguous(), L, B, dev)
     ct = ct.contiguous()
     _build.check(ct, "ct", torch.float32, (4, L + 1, B), dev)
     if rads is None:
         raise ValueError(f"K6 ({mode}) on the card reads the radiances K1 "
                          "kept on the same inputs (rads, from "
                          "rt_sweep_g_radiances): K6 runs no forward sweep")
-    _build.check(rads, "rads", torch.float32, (4, L, NGPT, B), dev)
+    _check_rads(rads, mode, ddt, L, B, dev)
     if mode != "banded":
         if words is None:
             raise ValueError(f"K6 ({mode}) on the card reads the cloudy-layer "
@@ -711,8 +747,7 @@ def _launch_bwd_g(mode, counters, x, clouds, ngb0, wg, ct, needs, rads,
     a = (*x, ngb0, wg, *clouds, *pad, ct, rads, *grads, *pad, words,
          *k6_g_scratch(mode, L, B, dev))
     if ddt:
-        _build.launch("rrtm_rt_bwd_g_ddt", *a, ct_ddt, lam, L, B,
-                      MODES[mode])
+        _build.launch("rrtm_rt_bwd_g_ddt", *a, ct_ddt, L, B, MODES[mode])
         DDT_LAUNCHES[mode].launches += 1
     else:
         _build.launch("rrtm_rt_bwd_g", *a, L, B, MODES[mode])

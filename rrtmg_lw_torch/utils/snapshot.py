@@ -19,7 +19,9 @@ cells at B=16384, L=60), K1 and K6 also on K1's edge cases
 ``K2_EDGE_SHAPES``) and K5 on the boosted profile (``K5_BOOST``), and
 saves their outputs.  Run it from each
 checkout (its own ``rrtmg_lw_torch`` first on the path), then ``--compare`` prints, per output, whether the
-two are bitwise equal, and exits non-zero unless all are.
+two are bitwise equal, and exits non-zero unless every output of the
+first is (outputs only the second has are listed: K1 SAVE's d/dT
+derivatives where a newer checkout keeps them).
 ``--k1-times`` writes the profiler's device ms of K1 in every mode,
 idrv and storage on the same inputs, and of compact at L=140;
 ``--k2-times`` those of K2 in every storage at L=60 and L=140;
@@ -31,7 +33,8 @@ L=140; ``--k6-ddt-times`` those of K6's instantiation with the d/dT
 sweep's adjoint (idrv=1) in every mode at L=60 and L=140 (``ddt_times``;
 its cases ``ddt_cases``, the calls ``ddt_state`` / ``ddt_vjp`` and their
 plain version ``ddt_plain_vjp``, which ``chip_smoke.py`` and the tests
-share; also of K1 SAVE at idrv=1 in the mode); ``--overlap-times``
+share; also of K1 SAVE at idrv=1 in the mode, and their sum);
+``--overlap-times``
 those of the overlap-rows kernel and (where the checkout has it) its
 adjoint.  ``--ddt-out`` saves the d/dT instantiations' outputs in every
 mode on ``ddt_cases`` at L=60 (``ddt_outputs``, their first 512
@@ -629,6 +632,23 @@ def ddt_plain_vjp(mode, x, cl, ngb0, wg, ct, ct_ddt):
     return rtrn.rt_sweep_g_vjp(*x, cl, ngb0, wg, ct6)
 
 
+def ddt_plain_planes(mode, x, cl, ngb0, wg):
+    """The d/dT derivatives entering each layer and their clear twins that
+    K1 SAVE keeps at idrv=1 in ``mode`` (``rtrn_cuda.KEEPS_DDT``), from the
+    plain sweep in float64 on x (taut_t, fracs_t, planklay_t, planklev_t,
+    surf (4, 16, B)) and flat clouds ``cl``: (2, L, 140, B)."""
+    from rrtmg_lw_torch.ops import rtrn
+    xd = tuple(t.double() for t in x)
+    cd = tuple(t if t.dtype == torch.int8 else t.double() for t in cl)
+    if mode == "banded":
+        _, rads = rtrn.rt_sweep_banded(*xd, *cd, ngb0, wg.double(),
+                                       radiances=True)
+    else:
+        rads = rtrn.rt_sweep_blocked(*xd, ngb0, wg.double(), cd,
+                                     radiances=True)[1]
+    return rads[4:6]
+
+
 def ddt_cases(device, nlay) -> tuple:
     """The inputs of K6's d/dT cases at B=16384: phase 3's (nlay=60) or the
     mcica_cloudy_deep cell's (nlay=140) sweep inputs with surf (4, 16,
@@ -659,7 +679,7 @@ def ddt_times(device, reps=5) -> list:
     inputs, on seeded flux and d/dT cotangents, and of that K1 launch
     (K1 SAVE at idrv=1, whatever state the checkout keeps: compact's
     cloudy-layer words too where it keeps them).  -> [{mode, nlay,
-    k6_ddt_ms, k1_save_ms}]."""
+    k6_ddt_ms, k1_save_ms, sum_ms}]."""
     rows = []
     gen = torch.Generator(device=device).manual_seed(5)
     for nlay in (60, 140):
@@ -675,6 +695,7 @@ def ddt_times(device, reps=5) -> list:
                 DDT_SYMBOLS[mode], reps), k1_save_ms=kernel_ms(
                 lambda: ddt_state(mode, x, cl, ngb0, wg), "rt_kernel<",
                 reps)))
+            rows[-1]["sum_ms"] = rows[-1]["k6_ddt_ms"] + rows[-1]["k1_save_ms"]
             print(rows[-1], flush=True)
             del kw
         del x, clouds
@@ -739,7 +760,9 @@ def k1_save_digests(tag, args, modes, dpl) -> dict:
     the sweep arguments ``args`` (as ``sweep_inputs``') with ``modes``'
     clouds (``k1_cloud_args`` or ``k1_edge_args``), through the
     checkout's API: its fluxes and radiances (maxrand: the fluxes and the
-    state unpacked), as ``digests``."""
+    state unpacked), as ``digests``; where it keeps the d/dT derivatives
+    too (idrv=1, rads (6, L, 140, B)), those two planes as a third output,
+    so that the first two compare with a checkout that keeps four."""
     from rrtmg_lw_torch.ops import rtrn, rtrn_cuda
     out = {}
     ngb0, wg = args[7:]
@@ -760,6 +783,8 @@ def k1_save_digests(tag, args, modes, dpl) -> dict:
                 cl = tuple(clouds) if mode == "banded" else tuple(clouds[0])
                 kept = rtrn_cuda.rt_sweep_g_radiances(mode, *x, cl, ngb0,
                                                       wg)[:2]
+            if mode != "maxrand" and kept[1].shape[0] > 4:
+                kept = (kept[0], kept[1][:4], kept[1][4:])
             out.update(digests(f"{tag}_{mode}_idrv{idrv}", kept))
             del kept
     return out
@@ -1139,8 +1164,12 @@ def main(argv=None) -> int:
             raise SystemExit("snapshot needs a CUDA device")
         torch.save(outs(torch.device("cuda", 0)), opt)
     if args.compare:
+        # every output of the first bitwise in the second; outputs only the
+        # second has (a newer checkout's) are listed, not compared
         a, b = (torch.load(p) for p in args.compare)
-        same = a.keys() == b.keys()
+        same = True
+        for k in b.keys() - a.keys():
+            print(f"{k}: only in {args.compare[1]}")
         for k in a:
             eq = (k in b and a[k].dtype == b[k].dtype
                   and torch.equal(raw(a[k]), raw(b[k])))
@@ -1155,7 +1184,7 @@ def main(argv=None) -> int:
                         f" max |first|; {n} of {a[k].numel()} elements "
                         "bitwise equal)")
             print(f"{k}: {'bitwise equal' if eq else 'DIFFERS'}{diff}")
-        print("all bitwise equal" if same else "outputs differ")
+        print(f"all {len(a)} bitwise equal" if same else "outputs differ")
         return 0 if same else 1
     return 0
 

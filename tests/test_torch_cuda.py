@@ -61,7 +61,8 @@ from rrtmg_lw_torch.ops.cldcoef_cuda import ice_liq_coeffs_blocked
 from rrtmg_lw_torch.ops.inatm import inatm
 from rrtmg_lw_torch.ops.planck_cuda import (planck_interp_blocked,
                                             planck_interp_vjp)
-from rrtmg_lw_torch.ops.rtrn_cuda import (WRAPPERS, rt_fluxes_banded,
+from rrtmg_lw_torch.ops.rtrn_cuda import (KEEPS_DDT, WRAPPERS,
+                                          rt_fluxes_banded,
                                           rt_fluxes_blocked, rt_fluxes_maxrand,
                                           rt_sweep_radiances, rt_sweep_vjp)
 from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows
@@ -743,7 +744,8 @@ def test_rt_g_adjoint_launch_configuration(dev):
     bands), copies in boxes of 8 rows, a ring of two slots or more, two
     blocks a SM at L = 60, 140 and 400, no local memory; banded's
     cloud-fraction shares in shared memory at L = 60 and 140, in the
-    scratch at 400."""
+    scratch at 400; their d/dT instantiations at most 128 registers, at
+    most 64 B of local memory, two blocks per SM at those depths."""
     from rrtmg_lw_torch.ops.rtrn_cuda import MODES, k1_info, k6_g_info
     for mode in MODES:
         for idrv in (0, 1):
@@ -762,6 +764,11 @@ def test_rt_g_adjoint_launch_configuration(dev):
             assert info["local_bytes"] == 0, (mode, info)
             assert info["shares_in_smem"] == (
                 (nlay < 400) if mode == "banded" else None), (mode, info)
+            # the d/dT instantiation (no scratch: K1 SAVE's derivatives)
+            info = k6_g_info(mode, nlay, ddt=True)
+            assert info["registers"] <= 128, (mode, nlay, info)
+            assert info["local_bytes"] <= 64, (mode, nlay, info)
+            assert info["blocks_per_sm"] == 2, (mode, nlay, info)
 
 
 G_STEPS = {"banded": (dict(icld=1, imca=0), "band"),
@@ -1323,28 +1330,117 @@ def test_rt_compact_ddt_adjoint_matches_plain_vjp(dev, B, L):
 
 
 def test_rt_compact_ddt_adjoint_launch_configuration(dev):
-    """Compact's d/dT adjoint on K6-g's tile: 256-thread blocks of 32
+    """Compact's d/dT adjoint on K6-g's tile, and the d/dT instantiations
+    of banded, fused and cldf-odcld on it: 256-thread blocks of 32
     columns, a group of whole bands each, boxes of 8 rows, a ring of two
     slots, at most 128 registers, at most 64 B of local memory (the d/dT
     instantiations' spill gate), two blocks per SM at
-    L = 60, 140 and past the depth where its cw shares leave shared
-    memory (which they do there); no idrv=0 instantiation (compact's
-    idrv=0 K6 is rtrn_bwd.cu's), nor an instantiation of that file's
-    with the d/dT adjoint in compact."""
+    L = 60, 140 and past the depth where compact's cw shares leave shared
+    memory (which they do there; banded's stay to L = 381); no idrv=0
+    instantiation of compact (compact's idrv=0 K6 is rtrn_bwd.cu's), nor
+    an instantiation of that file's with the d/dT adjoint in compact."""
     from rrtmg_lw_torch.ops.rtrn_cuda import k6_g_info, k6_info
-    for nlay in (60, 140, COMPACT_SHARES_MAX_L + 1):
-        info = k6_g_info("compact", nlay, ddt=True)
-        assert info["threads"] == 256 and info["columns"] == 32, info
-        assert info["box_rows"] == 8 and info["groups"][0] == 0, info
-        assert info["groups"][-1] == 16 and info["ring_levels"] == 2, info
-        assert info["registers"] <= 128, (nlay, info)
-        assert info["local_bytes"] <= 64, (nlay, info)
-        assert info["blocks_per_sm"] == 2, (nlay, info)
-        assert info["shares_in_smem"] == (nlay <= COMPACT_SHARES_MAX_L)
+    for mode in ("compact", *G_MODES):
+        for nlay in (60, 140, COMPACT_SHARES_MAX_L + 1):
+            info = k6_g_info(mode, nlay, ddt=True)
+            assert info["threads"] == 256 and info["columns"] == 32, info
+            assert info["box_rows"] == 8 and info["groups"][0] == 0, info
+            assert info["groups"][-1] == 16, info
+            assert info["ring_levels"] == 2, info
+            assert info["registers"] <= 128, (mode, nlay, info)
+            assert info["local_bytes"] <= 64, (mode, nlay, info)
+            assert info["blocks_per_sm"] == 2, (mode, nlay, info)
+            assert info["shares_in_smem"] == (
+                nlay <= COMPACT_SHARES_MAX_L if mode == "compact"
+                else True if mode == "banded" else None), (mode, info)
     with pytest.raises(RuntimeError):
         k6_g_info("compact", 60)
     with pytest.raises(RuntimeError):
         k6_info(True, ddt=True)
+
+
+# banded's cloud-fraction shares leave shared memory past L = 381
+BANDED_SHARES_MAX_L = 381
+
+
+@pytest.mark.parametrize("mode,B,L", [
+    *((m, B, L) for m in KEEPS_DDT
+      for B, L in ((2048, 60), (2048, 140), (37, 13), (36, 13),
+                   (2054, 9))),
+    ("banded", 64, 400)])
+def test_rt_ddt_adjoint_reads_k1_derivatives(dev, monkeypatch, mode, B,
+                                              L):
+    """The d/dT adjoint of banded, fused, cldf-odcld and compact reads the
+    derivatives K1 SAVE keeps at idrv=1.  K1 SAVE: rads (6, L, 140, B),
+    planes 4-5 (P, PC entering each layer) within 1e-6 of max |plain| (the
+    plain sweep in float64 on the same inputs), planes 0-3 bitwise those
+    of K1 SAVE at idrv=0, the fluxes bitwise those of K1 at idrv=1 without
+    SAVE.  K6: within 1e-3 of max |plain vjp| of the 6-row cotangent per
+    output, with the flux cotangent and without; no scratch allocated;
+    one launch counted in ``DDT_LAUNCHES[mode]`` each; bitwise over two
+    runs; staged by bulk tensor copies where the rows allow them (B % 4,
+    compact's mask B % 16), element by element elsewhere (37 ragged,
+    2054 unaligned); banded's shares in its scratch at L = 400.  K1 SAVE
+    takes its bulk stores at 2048 and 36 (a ragged last tile of 4
+    columns), its scalar stores at 37 and 2054."""
+    from rrtmg_lw_torch.ops import rtrn_cuda
+    from rrtmg_lw_torch.utils.snapshot import (ddt_plain_planes,
+                                               ddt_plain_vjp, ddt_state,
+                                               ddt_vjp, flat_clouds)
+    args, dpl, modes = _sweep_inputs(dev, B, L)
+    taut, fr, play, plev, plankbnd, semiss, pwvcm, ngb0, wg = args
+    x = (taut, fr, play, plev,
+         rtrn.surf_rows(plankbnd, semiss, pwvcm, torch.float32, dpl))
+    cl = flat_clouds(mode, modes[mode][1])
+    kw = ddt_state(mode, x, cl, ngb0, wg)
+    rads = kw["rads"]
+    assert rads.shape == (6, L, 140, B) and torch.isfinite(rads).all()
+    ref = ddt_plain_planes(mode, x, cl, ngb0, wg)
+    for p in (0, 1):
+        assert rel_err(rads[4 + p], ref[p]) <= 1e-6, (mode, p)
+    kw0 = ddt_state(mode, (*x[:4], x[4][:3]), cl, ngb0, wg)
+    assert torch.equal(rads[:4], kw0["rads"])
+    del kw0, ref
+    fwd = (rtrn_cuda.rt_fluxes_banded(*args[:7], ngb0, wg, *cl,
+                                      dplankbnd_dt=dpl) if mode == "banded"
+           else rtrn_cuda.WRAPPERS[{"compact": "blocked"}.get(mode, mode)](
+               *args[:7], ngb0, wg, cl, dplankbnd_dt=dpl))
+    with torch.no_grad():
+        kept = (rtrn_cuda.rt_sweep_radiances(*x, *cl[1:], cl[0], ngb0, wg)
+                if mode == "compact"
+                else rtrn_cuda.rt_sweep_g_radiances(mode, *x, cl, ngb0, wg))
+    assert torch.equal(kept[0], torch.cat(fwd)), mode
+    del kept
+    lams = []
+
+    def spy(*a, **k):
+        out = operands(*a, **k)
+        lams.append(out[2])
+        return out
+    operands = rtrn_cuda._ddt_operands
+    monkeypatch.setattr(rtrn_cuda, "_ddt_operands", spy)
+    ct = _randn((4, L + 1, B), dev, B + L)
+    ct_ddt = _randn((2, L + 1, B), dev, B + L + 1)
+    for c in (ct, None):
+        before = rtrn_cuda.DDT_LAUNCHES[mode].launches
+        got = ddt_vjp(mode, x, cl, ngb0, wg, c, ct_ddt, kw)
+        assert rtrn_cuda.DDT_LAUNCHES[mode].launches == before + 1
+        want = ddt_plain_vjp(mode, x, cl, ngb0, wg, c, ct_ddt)
+        for i, (g, r) in enumerate(zip(got, want)):
+            if r is None:
+                assert g is None, (mode, i)
+                continue
+            assert g.shape == r.shape and torch.isfinite(g).all(), i
+            assert rel_err(g, r) <= 1e-3, (mode, i, c is None)
+        assert bool(got[4][3].any()), mode
+    again = ddt_vjp(mode, x, cl, ngb0, wg, None, ct_ddt, kw)
+    assert all(g is None or torch.equal(g, h) for g, h in zip(got, again))
+    assert len(lams) == 3 and all(lam is None for lam in lams), lams
+    info = rtrn_cuda.k6_g_info(mode, L, ddt=True)
+    aligned = B % (16 if mode == "compact" else 4) == 0
+    assert info["staging"] == ("tma" if aligned else "elements"), info
+    if mode == "banded":
+        assert info["shares_in_smem"] == (L <= BANDED_SHARES_MAX_L), info
 
 
 # ---- reduced spectral storage (K7) and the probes ----

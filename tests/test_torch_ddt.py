@@ -10,7 +10,14 @@ the CPU, in every mode of the RT sweep.
     are zero and whose d/dT rows are seeded: clear, compact McICA,
     banded, maxrand (on the deck clouds and on ``band_clouds``' varied
     fractions), fused and cldf-odcld, each on columns with clouds and
-    columns without (the clear twin taken and not), float64.
+    columns without (the clear twin taken and not), float64.  In the
+    modes whose K1 SAVE keeps the d/dT derivatives at idrv=1 (banded,
+    fused, cldf-odcld, compact; banded also on the icld=2/3 fractions):
+    the plain sweep's kept planes 4-5 are ``ddt_adjoint``'s forward P and
+    PC and sum to the d/dT flux rows, and the twin reading them
+    (``rt_sweep_ddt_vjp(..., rads=)``, ``ddt_adjoint(..., saved=)``)
+    equals it running them from the seed; the CPU wrappers keep each
+    mode's planes (``rtrn_cuda.rads_planes``).
 (b) The gradient step at idrv=1 (``make_grad_step``, ``impl="cuda"``:
     the kernels' autograd Functions, whose backward on the CPU is the
     plain vjp of the 6-row cotangent; and ``impl="eager"``) against
@@ -100,8 +107,8 @@ def _sweep_case(B=6, L=9):
         bc = BandClouds.from_numpy(nb, "cpu")
         taucb, _ = cldprop.cldprop_banded_blocked(bc, static, inflag=2,
                                                   iceflag=3, liqflag=1)
-        if tag == "decks":
-            clouds["banded"] = (bc.cldfrac.t().contiguous(), taucb)
+        clouds["banded" if tag == "decks" else "banded_varied"] = (
+            bc.cldfrac.t().contiguous(), taucb)
         clouds[f"maxrand_{tag}"] = (rtrnmr.overlap_rows(bc.cldfrac), taucb)
     return (tg, fr, play, plev, surf), clouds, model.ngb0, model.wg
 
@@ -211,6 +218,144 @@ def test_ddt_wrappers_send_cpu_tensors_to_plain_versions(monkeypatch, case):
         assert got[4].shape == (4, 16, B), case
     assert {m: c.launches for m, c in rtrn_cuda.DDT_LAUNCHES.items()} \
         == before
+
+
+# the modes whose K1 SAVE at idrv=1 keeps the d/dT derivatives for K6
+# (``rtrn_cuda.KEEPS_DDT``), and banded on the fractions the icld=2/3
+# cases use (``band_clouds``)
+KEEPS = ["compact", "banded", "banded_varied", "fused", "cldf_od"]
+
+
+def _kept(mode, x, cl, ngb0, wg):
+    """The plain sweep of ``mode`` keeping its state at idrv=1: (fluxes
+    (6, L+1, B), rads)."""
+    if mode == "banded":
+        return rtrn.rt_sweep_banded(*x, *cl, ngb0, wg, radiances=True)
+    return rtrn.rt_sweep_blocked(*x, ngb0, wg, cl, radiances=True)[:2]
+
+
+def _forward_derivatives(mode, x, cl, ngb0):
+    """``ddt_adjoint``'s forward derivatives P, PC entering each layer,
+    run from the seed by ``_ddt_step`` on ``_ddt_factors``: (B, L, G)
+    each."""
+    at, atot, cf, cly, anyc, d0 = rtrn._ddt_factors(mode, *x, cl, ngb0)
+    p = pc = d0
+    ps, pcs = [], []
+    for lev in range(at.shape[1]):
+        ps.append(p)
+        pcs.append(pc)
+        p, pc = rtrn._ddt_step(p, pc, at[:, lev], atot[:, lev], cf[:, lev],
+                               cly[:, lev], anyc)
+    return torch.stack(ps, 1), torch.stack(pcs, 1)
+
+
+@pytest.mark.parametrize("case", KEEPS)
+def test_sweep_keeps_the_ddt_derivatives(case):
+    """At idrv=1 the plain sweep with ``radiances=True`` keeps six planes in
+    the modes whose K1 SAVE keeps the d/dT derivatives: planes 0-3 those
+    of idrv=0, planes 4-5 ``ddt_adjoint``'s forward P and PC entering each
+    layer (within 1e-12 of max |P|, float64), whose weighted sums over g
+    at levels 0..L-1 are the duflx_dt and duflxc_dt rows (1e-12)."""
+    x, clouds, ngb0, wg = _cached_sweep_case()
+    mode, cl = case.split("_")[0], clouds[case]
+    L, _, B = x[0].shape
+    fl, rads = _kept(mode, x, cl, ngb0, wg)
+    assert rads.shape == (6, L, 140, B) and fl.shape == (6, L + 1, B)
+    _, rads0 = _kept(mode, (*x[:4], x[4][:3]), cl, ngb0, wg)
+    assert rads0.shape == (4, L, 140, B) and torch.equal(rads[:4], rads0)
+    p, pc = _forward_derivatives(mode, x, cl, ngb0)
+    for got, want in ((rads[4], p), (rads[5], pc)):
+        assert rel_err(got, want.permute(1, 2, 0).numpy()) <= 1e-12, case
+    sums = torch.einsum("plgb,g->pbl", rads[4:], wg)
+    for i in (0, 1):
+        assert rel_err(sums[i].t(), fl[4 + i, :L].numpy()) <= 1e-12, case
+    # both twins differ somewhere (a cloudy column), agree where none is
+    # (every column of the varied fractions is cloudy)
+    anyc = rtrn._ddt_factors(mode, *x, cl, ngb0)[4][:, 0]
+    assert bool(anyc.any()) and bool(anyc.all()) == (case == "banded_varied")
+    assert torch.equal(rads[4][..., ~anyc], rads[5][..., ~anyc]), case
+    assert not torch.equal(rads[4][..., anyc], rads[5][..., anyc]), case
+
+
+@pytest.mark.parametrize("case", KEEPS)
+def test_ddt_adjoint_reads_the_saved_derivatives(case):
+    """``rtrn.rt_sweep_ddt_vjp`` reading the derivatives the sweep kept
+    (``rads``, as K6 reads K1 SAVE's planes 4-5) equals it running them
+    from the seed, per output within 1e-12 of max |ref|, and does not
+    read the clear twin where a column has no cloud: NaN there changes
+    nothing."""
+    x, clouds, ngb0, wg = _cached_sweep_case()
+    mode, cl = case.split("_")[0], clouds[case]
+    L, _, B = x[0].shape
+    ct_ddt = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        (2, L + 1, B)))
+    _, rads = _kept(mode, x, cl, ngb0, wg)
+    ref = rtrn.rt_sweep_ddt_vjp(mode, *x, cl, ngb0, wg, ct_ddt)
+    got = rtrn.rt_sweep_ddt_vjp(mode, *x, cl, ngb0, wg, ct_ddt, rads=rads)
+    anyc = rtrn._ddt_factors(mode, *x, cl, ngb0)[4][:, 0]
+    nan = rads.clone()
+    nan[5][..., ~anyc] = float("nan")
+    got_nan = rtrn.rt_sweep_ddt_vjp(mode, *x, cl, ngb0, wg, ct_ddt,
+                                    rads=nan)
+    assert len(got) == len(ref) == len(got_nan)
+    for i, (g, r, h) in enumerate(zip(got, ref, got_nan)):
+        if r is None:
+            assert g is None and h is None
+            continue
+        assert rel_err(g, r.numpy()) <= 1e-12, (case, i)
+        assert torch.equal(g, h), (case, i)
+    assert bool(got[4][3].any()), case
+
+
+def test_ddt_adjoint_saved_matches_unsaved():
+    """``rtrn.ddt_adjoint`` given the forward derivatives (``saved``)
+    equals it without them, on each mode's factors, within 1e-12 of
+    max |ref| per cotangent."""
+    x, clouds, ngb0, wg = _cached_sweep_case()
+    L, _, B = x[0].shape
+    ct_ddt = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (2, L + 1, B)))
+    for case in KEEPS:
+        mode, cl = case.split("_")[0], clouds[case]
+        at, atot, cf, cly, anyc, d0 = rtrn._ddt_factors(mode, *x, cl, ngb0)
+        args = (at.detach(), atot.detach(), cf.detach(), cly, anyc,
+                d0.detach(), wg, ct_ddt)
+        saved = _forward_derivatives(mode, x, cl, ngb0)
+        ref = rtrn.ddt_adjoint(*args)
+        got = rtrn.ddt_adjoint(*args, saved=tuple(t.detach()
+                                                  for t in saved))
+        for i, (g, r) in enumerate(zip(got, ref)):
+            assert rel_err(g, r.numpy()) <= 1e-12, (case, i)
+            assert bool(r.any()), (case, i)
+
+
+@pytest.mark.parametrize("mode", ["clear", "compact", "banded", "maxrand",
+                                  "fused", "cldf_od"])
+def test_cpu_sweeps_keep_the_planes_of_each_mode(mode):
+    """On CPU tensors K1 SAVE's wrappers (``rt_sweep_radiances``,
+    ``rt_sweep_g_radiances``, ``rt_sweep_maxrand_radiances``) return the
+    planes ``rtrn_cuda.rads_planes`` gives at idrv 0 and 1: 6 at idrv=1 in
+    compact, banded, fused and cldf-odcld (the last two the d/dT
+    derivatives), 4 at idrv=0 there; clear 2 and maxrand 4 at both."""
+    from rrtmg_lw_torch.ops import rtrn_cuda
+    x, clouds, ngb0, wg = _cached_sweep_case()
+    L, _, B = x[0].shape
+    cl = clouds["maxrand_decks" if mode == "maxrand" else mode]
+    want = {"clear": (2, 2), "maxrand": (4, 4)}.get(mode, (4, 6))
+    for idrv in (0, 1):
+        xi = (*x[:4], x[4][:3 + idrv])
+        if mode in ("clear", "compact"):
+            f = (None,) * 4 if mode == "clear" else (*cl[1:], cl[0])
+            rads = rtrn_cuda.rt_sweep_radiances(*xi, *f, ngb0, wg)[1]
+        elif mode == "maxrand":
+            rads = rtrn_cuda.rt_sweep_maxrand_radiances(*xi, *cl, ngb0,
+                                                        wg)[1]
+        else:
+            rads = rtrn_cuda.rt_sweep_g_radiances(mode, *xi, cl, ngb0,
+                                                  wg)[1]
+        assert rads.shape == (want[idrv], L, 140, B), (mode, idrv)
+        if mode != "maxrand":
+            assert rtrn_cuda.rads_planes(mode, idrv) == want[idrv]
 
 
 # --------------------------------------------------------------- (b)
