@@ -109,14 +109,15 @@ Phases, each raising on failure (any failure exits non-zero):
      sweep's adjoint in the six modes (``ddt_grad_kernels``: at L=60 on
      phase 3's inputs with each mode's cell clouds, on their first 37
      and B_ODD columns and at L=140, fed the state K1 kept (compact's on
-     K6-g's tile, fed K1 SAVE compact's cloudy-layer words, staged by
-     bulk copies where B % 16 == 0), within TOL_BWD_RT of
+     K6-g's tile, fed K1 SAVE compact's cloudy-layer words; on the
+     band-group tile staged by bulk copies where the rows allow them,
+     compact's where B % 16 == 0), within TOL_BWD_RT of
      the plain vjp of the sweep on seeded flux and d/dT cotangents on
      B_SUB columns, at L=60 also without the flux cotangent, bitwise over
-     two runs, the cotangent of dplankbnd_dt nonzero; in the modes whose
-     d/dT K6 reads the derivatives K1 SAVE keeps at idrv=1 and takes no
-     scratch, ``rtrn_cuda.KEEPS_DDT``, those planes within TOL_DDT_PLANES
-     of the plain sweep's in float64); K1 keeping the
+     two runs, the cotangent of dplankbnd_dt nonzero; the d/dT
+     derivatives K1 SAVE keeps at idrv=1 in every mode but clear, which
+     their d/dT K6 reads in place of a scratch (``rtrn_cuda.KEEPS_DDT``),
+     within TOL_DDT_PLANES of the plain sweep's in float64); K1 keeping the
      state by both store paths (``k1_save_cases``): every mode at idrv 0
      and 1 on the cell, K1's edge cases, L_DEEP, B=4100 (bulk tensor
      stores, a last tile of 4 columns) and B=37 (scalar stores), the path
@@ -167,7 +168,8 @@ bytes_once (the bytes behind bound_ms); K1's and K2's entries
 CUDA events around the wrapper, holds its host gaps too), their
 instantiation's registers, spill bytes, shared memory, blocks per SM
 (K1: and ring levels) and achieved GB/s (bytes_once over device_ms),
-"rt_sweep" the table of all 72 K1 instantiations; the K1 SAVE
+"rt_sweep" the table of all 72 K1 instantiations and K1 compact's
+device, plain and bound ms at L=140 (``k1_deep``: *_deep); the K1 SAVE
 entries (rt_sweep_save*) the store path of each of their mode's
 ``k1_save_cases``; K6's entry
 (rt_adjoint) its registers, spill bytes, device_ms and GB/s, and K5's
@@ -189,11 +191,11 @@ K5's, K6's and K1 SAVE's device_ms (every mode) come from
 ``utils/snapshot.py --k5-times --k6-times --k6-ddt-times`` in a process
 of its own, started after phase 3; the entries of K6 with the d/dT
 adjoint (rt_adjoint_ddt_<mode>) also carry device_ms_deep (L=140), their
-registers, spill, shared memory and blocks per SM, scratch_gb, the
-bytes of clear's and maxrand's scratch (written and read once) beside
-the bound, and the device ms of K1 SAVE at idrv=1 in the mode and the
-pair's sum (k1_save_idrv_ms, ddt_pair_ms; at L=140 *_deep), printed on
-a ``ddt pair`` line a mode.  Without CUDA it exits non-zero and prints no result.
+registers, spill, shared memory and blocks per SM, scratch_gb (the bytes
+of clear's scratch, written and read once, beside the bound; 0 in the
+modes whose K6 reads K1 SAVE's derivatives), and the device ms of K1 SAVE
+at idrv=1 in the mode and the pair's sum (k1_save_idrv_ms, ddt_pair_ms;
+at L=140 *_deep), printed on a ``ddt pair`` line a mode.  Without CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -221,8 +223,9 @@ TOL_BWD, TOL_BWD_RT = 1e-4, 1e-3
 # K1's kept radiances against the plain sweep's, / max |plain| (the
 # recurrence that TOL_FLUX holds summed over g, per g-point)
 TOL_RADS = 1e-5
-# K1 SAVE's d/dT derivatives (rads planes 4-5, idrv=1 in KEEPS_DDT) against
-# the plain sweep's in float64 on the same inputs, of max |plain|
+# K1 SAVE's d/dT derivatives (rads planes 4-5, idrv=1 in KEEPS_DDT: every
+# mode but clear) against the plain sweep's in float64 on the same inputs,
+# of max |plain|
 TOL_DDT_PLANES = 1e-6
 # the grad step against the eager one, per Atmosphere field / max |eager|,
 # for a loss linear in the fluxes: f32 against f64 on the CPU reads
@@ -327,10 +330,11 @@ KERNELS = (  # name, source, replaced TPU kernel
 # vjp of the Pallas sweep in the JAX package, its unrolled backward taking
 # no idrv
 DDT_MODES = ("clear", "compact", "banded", "maxrand", "fused", "cldf_od")
-# K6-g fused and maxrand at two blocks per SM spill a few bytes (24 and 8),
-# 1.4-1.6x faster than spill-free at one block (PERF.md section 6): a gate
-# against heavier spilling (compact on K1's 16 x 16 tile at two blocks:
-# 386 B; on K6-g's tile it is held to two blocks)
+# K6's d/dT instantiations at two blocks per SM may spill a few bytes
+# (maxrand's 4, banded's 4; at one block per SM, spill-free, they ran
+# 1.4-1.6x longer: PERF.md section 6): a gate against heavier spilling
+# (compact on K1's 16 x 16 tile at two blocks: 386 B); each is held to 128
+# registers and two blocks per SM
 DDT_SPILL_MAX = 64
 DDT_SOURCES = {"clear": "rtrn_bwd.cu", "compact": "rtrn_bwd_g.cu",
                "maxrand": "rtrn_bwd_mr.cu", "banded": "rtrn_bwd_g.cu",
@@ -665,6 +669,40 @@ def phase_kernels(device):
     return res
 
 
+def k1_deep(device):
+    """K1 compact at L_DEEP on the mcica_cloudy_deep cell's sweep inputs
+    (``utils.snapshot.sweep_inputs``): within TOL_FLUX of the plain
+    version, its device ms, the plain version's ms and its bound, formed
+    as ``phase_kernels``' rt_sweep entry forms them at L_MAIN: ->
+    {device_ms_deep, plain_ms_deep, bound_ms_deep}."""
+    from rrtmg_lw_torch.ops import rtrn
+    from rrtmg_lw_torch.ops.rtrn_cuda import rt_fluxes_blocked
+    from rrtmg_lw_torch.utils.snapshot import compact_args, sweep_inputs
+    x = sweep_inputs(device, "mcica_cloudy_deep")
+    args, fields = x["args"], compact_args(x["static"], x["mc"])
+    L, _, B = args[0].shape
+
+    def kernel():
+        return rt_fluxes_blocked(*args, cloud_fields=fields)
+
+    def plain():
+        return rtrn.rt_fluxes_blocked(*args, cloud_fields=fields)
+    fk = kernel()
+    e = flux_err(plain(), fk)
+    need(bool(torch.isfinite(fk).all()) and e <= TOL_FLUX,
+         f"rt_sweep at L={L}: flux err {e:.3g} > {TOL_FLUX}")
+    ncld = int((fields[0][:, :140] != 0).any(1).sum())
+    out = dict(device_ms_deep=device_ms(kernel),
+               plain_ms_deep=cuda_ms(plain, 1),
+               bound_ms_deep=bound((*args, *fields), (fk,), 140 * (
+                   OPS["rt_clear"] * L * B + OPS["rt_cloud"] * ncld))[
+                       "bound_ms"])
+    print(f"rt_sweep (compact) at L={L}: flux err {e:.3g}, device "
+          f"{out['device_ms_deep']:.3f} ms, plain {out['plain_ms_deep']:.3f}"
+          f" ms, bound {out['bound_ms_deep']:.3f} ms")
+    return out
+
+
 def k1_per_g_and_idrv(device, model, args, compact, band_in):
     """K1's fused and cldf-odcld modes on the mcica_blocked and mcica_tauc
     cells' clouds, then every mode at idrv=1 against its plain version:
@@ -911,10 +949,10 @@ def ddt_build_info(log_path):
     """Registers and spill stores (``_build.ptxas_info``) and launch
     configuration (``rtrn_cuda.k6_info``, ``k6_mr_info``, ``k6_g_info``
     with ``ddt=True``, at L_MAIN and L_DEEP) of K6's instantiations with
-    the d/dT sweep's adjoint, one a mode (compact's on K6-g's tile);
-    fails where one fits no block on an SM or spills more than
-    DDT_SPILL_MAX bytes, or compact's takes more than 128 registers or
-    fits fewer than two blocks per SM.  -> {summary name: {...}}."""
+    the d/dT sweep's adjoint, one a mode (compact's on K6-g's tile); fails
+    where one spills more than DDT_SPILL_MAX bytes, takes more than 128
+    registers or fits fewer than two blocks per SM.  -> {summary name:
+    {...}}."""
     from rrtmg_lw_torch._build import ptxas_info
     from rrtmg_lw_torch.ops.rtrn_cuda import (MODES, k6_g_info, k6_info,
                                               k6_mr_info)
@@ -946,16 +984,11 @@ def ddt_build_info(log_path):
                  smem_bytes_deep=d["static_smem"] + d["dynamic_smem"],
                  blocks_per_sm_deep=d["blocks_per_sm"])
     need(all(r["spill_bytes"] <= DDT_SPILL_MAX
-             and r["local_bytes"] <= DDT_SPILL_MAX
-             and min(r["blocks_per_sm"], r["blocks_per_sm_deep"]) >= 1
+             and r["local_bytes"] <= DDT_SPILL_MAX and r["registers"] <= 128
+             and min(r["blocks_per_sm"], r["blocks_per_sm_deep"]) >= 2
              for r in out.values()),
          f"d/dT adjoint: spill stores or local memory over {DDT_SPILL_MAX} "
-         f"B, or no block per SM: {out}")
-    r = out["rt_adjoint_ddt_compact"]
-    need(r["registers"] <= 128
-         and min(r["blocks_per_sm"], r["blocks_per_sm_deep"]) >= 2,
-         f"rt_adjoint_ddt_compact: over 128 registers or fewer than two "
-         f"blocks per SM: {r}")
+         f"B, over 128 registers or fewer than two blocks per SM: {out}")
     return out
 
 
@@ -2019,14 +2052,15 @@ def ddt_grad_kernels(device):
     sweep on the cotangent (ct, ct_ddt), seeded, per output on the first
     B_SUB columns (all 37), at L_MAIN also with ct None (a loss that reads
     d/dT alone), bitwise over two runs, the cotangent of dplankbnd_dt
-    (surf's row 3) nonzero.  In KEEPS_DDT K1 SAVE's d/dT derivatives
-    (rads planes 4-5) within TOL_DDT_PLANES of the plain sweep's in float64
-    on those columns.  -> the summary entries, their bounds those of
-    K6 in the mode (its inputs read once, its outputs written once) with
-    ct_ddt and surf's row 3 and its cotangent; clear's and maxrand's
-    scratch bytes (written once, read once) beside them (device ms:
-    grad_device_times)."""
-    from rrtmg_lw_torch.ops.rtrn_cuda import KEEPS_DDT, k6_g_info
+    (surf's row 3) nonzero; on the band-group tile staged by bulk tensor
+    copies where its rows allow them.  In KEEPS_DDT (every mode but
+    clear) K1 SAVE's d/dT derivatives (rads planes 4-5) within
+    TOL_DDT_PLANES of the plain sweep's in float64 on those columns.  ->
+    the summary entries, their bounds those of K6 in the mode (its inputs
+    read once, its outputs written once) with ct_ddt and surf's row 3 and
+    its cotangent; clear's scratch bytes (written once, read once) beside
+    them (device ms: grad_device_times)."""
+    from rrtmg_lw_torch.ops.rtrn_cuda import KEEPS_DDT, k6_g_info, k6_mr_info
     from rrtmg_lw_torch.utils.snapshot import (cut_columns, ddt_cases,
                                                ddt_plain_vjp, ddt_state,
                                                ddt_vjp)
@@ -2056,7 +2090,8 @@ def ddt_grad_kernels(device):
             cln = cut_columns(cl, n, Bc)
             kw = ddt_state(mode, x, cl, ngb0, wg)
             if mode in KEEPS_DDT:
-                e = ddt_planes_err(mode, kw["rads"], xs, cln, ngb0, wg)
+                e = ddt_planes_err(mode, ddt_rads(mode, kw), xs, cln, ngb0,
+                                   wg)
                 need(e <= TOL_DDT_PLANES,
                      f"K1 SAVE {mode} idrv=1 ({tag}): the d/dT derivatives "
                      f"off by {e:.3g} of max |plain| > {TOL_DDT_PLANES}")
@@ -2073,9 +2108,11 @@ def ddt_grad_kernels(device):
             need(all(g is None or torch.equal(g, h)
                      for g, h in zip(runs[0][0], k6())),
                  f"{name} ({tag}): two runs differ")
-            if mode == "compact":
-                st = k6_g_info("compact", L, ddt=True)["staging"]
-                need(st == ("tma" if Bc % 16 == 0 else "elements"),
+            if mode != "clear":         # the band-group tile's staging
+                st = (k6_mr_info(L, ddt=True) if mode == "maxrand"
+                      else k6_g_info(mode, L, ddt=True))["staging"]
+                need(st == ("tma" if Bc % (16 if mode == "compact" else 4)
+                            == 0 else "elements"),
                      f"{name} ({tag}): staged by {st} at B={Bc}")
             if tag == f"L={L_MAIN}":
                 runs.append((k6(None), plain(None), ", ct None"))
@@ -2107,6 +2144,13 @@ def ddt_grad_kernels(device):
     return res
 
 
+def ddt_rads(mode, kw):
+    """The radiances K1 SAVE kept in ``mode`` at idrv=1, from the state
+    keywords of ``utils.snapshot.ddt_state`` (maxrand's beside its packed
+    sub-streams)."""
+    return kw["state"][0] if mode == "maxrand" else kw["rads"]
+
+
 def ddt_planes_err(mode, rads, xs, cln, ngb0, wg):
     """K1 SAVE's d/dT derivatives, planes 4-5 of ``rads`` on their first
     columns, against the plain sweep's in float64 on those columns' inputs
@@ -2120,10 +2164,12 @@ def ddt_planes_err(mode, rads, xs, cln, ngb0, wg):
 
 def ddt_cloudy_columns(mode, cl):
     """(B,) bool: the columns with a cloudy layer in ``mode``'s flat clouds
-    ``cl``, where K6 reads PC (K1 SAVE's plane 5)."""
+    ``cl`` (a mode of KEEPS_DDT), where K6 reads PC (K1 SAVE's plane 5)."""
     from rrtmg_lw_torch.ops import rtrn
     if mode == "banded":
         return (cl[0] >= rtrn.CLOUD_GATE).any(0)
+    if mode == "maxrand":
+        return cl[0][0, rtrn.ROW_ICLDDN] > 0.0
     return (cl[0][:, :140] >= 0.5).any(1).any(0)
 
 
@@ -2134,26 +2180,25 @@ def ddt_bound(mode, x, cl, ct, ct_ddt, kw, got):
     cloud inputs where the gate holds; in KEEPS_DDT K1 SAVE's derivative
     P, and its clear twin PC in the columns with a cloud), ct_ddt and
     surf's fourth row, the outputs written once; and ``scratch_gb``, the
-    bytes of clear's and maxrand's scratch, written once and read once,
-    beside the bound (0 in KEEPS_DDT)."""
+    bytes of clear's scratch, written once and read once, beside the
+    bound (0 in KEEPS_DDT)."""
     from rrtmg_lw_torch.ops import rtrn
     from rrtmg_lw_torch.ops.rtrn_cuda import KEEPS_DDT
     L, _, B = x[0].shape
-    state = kw.get("state") or (kw["rads"],)
     ops = (OPS["rt_adjoint"] + 2 * OPS["rt_ddt"]) * x[0].numel()
     nbytes, read = 0, cl
     if mode == "maxrand":
         nsub = int(rtrn.substream_slots(cl[0])[1].sum())
-        nbytes, state = 3 * 140 * 4 * nsub, state[:1]
+        nbytes = 3 * 140 * 4 * nsub
     elif mode in GATED:
         ngate = int((cl[0][:, :140] >= 0.5).sum()) if GATED[mode] else 0
         nbytes = 4 * ngate * len(GATED[mode])
         read = [c for i, c in enumerate(cl) if i not in GATED[mode]]
+    state = (ddt_rads(mode, kw),)
     if mode in KEEPS_DDT:
-        ncloudy = int(ddt_cloudy_columns(mode, cl).sum())
-        nbytes += L * 140 * ncloudy * 4
-        state = (kw["rads"][:5],)
-    nlam = {"clear": 1, "maxrand": 2}.get(mode, 0)
+        nbytes += L * 140 * int(ddt_cloudy_columns(mode, cl).sum()) * 4
+        state = (state[0][:5],)
+    nlam = 0 if mode in KEEPS_DDT else 1
     return dict(scratch_gb=2 * nlam * L * 140 * B * 4 / 1e9,
                 **bound((*x, *read, ct, ct_ddt, *state), got, ops,
                         nbytes=nbytes))
@@ -3158,6 +3203,8 @@ def main() -> int:
 
     # 3. kernels vs plain versions; then K2 and K1 in reduced storage
     res = phase_kernels(device)
+    torch.cuda.empty_cache()
+    res["rt_sweep"].update(k1_deep(device))
     torch.cuda.empty_cache()
     grad_dev = grad_device_times()
     torch.cuda.empty_cache()

@@ -60,7 +60,7 @@ SIGNATURES = {
     "rrtm_rt_bwd_mr_scratch": (I, I, P),
     "rrtm_rt_bwd_mr_layout": (P,),
     "rrtm_rt_bwd_mr_info": (I, P),
-    "rrtm_rt_bwd_mr_ddt": (P,) * 23 + (I, I, I, P),
+    "rrtm_rt_bwd_mr_ddt": (P,) * 22 + (I, I, I, P),
     "rrtm_rt_bwd_mr_ddt_info": (I, P),
     "rrtm_rt_bwd_g": (P,) * 29 + (I, I, I, P),
     "rrtm_rt_bwd_g_scratch": (I, I, I, P),

@@ -26,9 +26,9 @@
 // layer where K6 reads them, packed into npk slots a sweep, packed (2,
 // 3, npk, 140, B); fused and cldf-odcld (and compact at idrv = 1) also
 // the cloudy-layer words, words ((B + 31) / 32, L) uint32 (rtrn_kernel.cuh,
-// SAVE; null elsewhere); at idrv = 1 banded, fused, cldf-odcld and compact
-// also the d/dT derivatives entering each layer and their clear twins:
-// rads (6, L, 140, B) there.
+// SAVE; null elsewhere); at idrv = 1 banded, maxrand, fused, cldf-odcld
+// and compact also the d/dT derivatives entering each layer and their
+// clear twins: rads (6, L, 140, B) there.
 RRTM_API int rrtm_rt(const void* taut, const void* fracs, const float* play,
                      const float* plev, const float* surf, const int* ngb,
                      const float* wg, const int8_t* mask, const float* cw,

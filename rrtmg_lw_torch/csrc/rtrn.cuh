@@ -55,10 +55,12 @@ __host__ __device__ constexpr bool per_g_clouds(int mode) {
 
 // modes whose gradient-step launch of K1 at idrv=1 also keeps the d/dT
 // derivatives entering each layer (planes P_DDT, P_DDT + 1 of its
-// radiances), so that their K6 (rtrn_bwd_g.cu) takes no lam scratch
+// radiances), so that their d/dT K6 (rtrn_bwd_g.cu, rtrn_bwd_mr.cu) takes
+// no lam scratch: all but clear, whose d/dT K6 (rtrn_bwd.cu) keeps its
+// scratch (P's stores and reads cost what the scratch's do, PERF.md)
 __host__ __device__ constexpr bool keeps_ddt(int mode) {
-    return mode == COMPACT || mode == BANDED || mode == FUSED
-           || mode == CLDF_OD;
+    return mode == COMPACT || mode == BANDED || mode == MAXRAND
+           || mode == FUSED || mode == CLDF_OD;
 }
 // the plane of the d/dT derivative entering layer l, then its clear twin's,
 // in K1 SAVE's radiances of those modes at idrv=1 ((6, L, 140, B): D, U,
@@ -224,13 +226,11 @@ __device__ __forceinline__ void ddt_step_bwd(DdtStep& d, float at,
 }
 
 // The d/dT operands of K6 at idrv=1: ct (2, L+1, B) the cotangents of
-// duflx_dt and duflxc_dt; lam (1 | 2, L, 140, B) a scratch the reverse up
-// sweep writes and the reverse down sweep reads, at (l, g, b) the
-// cotangent of the derivative leaving layer l upward (plane 0: of the
-// total-sky one, the clear twin's added where the column has no cloud;
-// plane 1, maxrand: of the clear twin's, where it has one); clear's and
-// maxrand's alone (the keeps_ddt modes read the derivatives K1 kept, and
-// lam is null there).
+// duflx_dt and duflxc_dt; lam (L, 140, B) a scratch the reverse up sweep
+// writes and the reverse down sweep reads, at (l, g, b) the cotangent of
+// the derivative leaving layer l upward (of the total-sky one, the clear
+// twin's added: a clear-sky column has no cloud); clear's alone (the
+// keeps_ddt modes read the derivatives K1 kept, and lam is null there).
 struct Ddt {
     const float* ct;
     float* lam;

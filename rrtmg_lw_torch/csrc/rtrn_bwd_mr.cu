@@ -81,15 +81,26 @@
 //   clear layers and in the flag rows.  The first design summed g-lanes
 //   of two bands each: these sums differ from its in the last bits.
 // No atomics on floats: two runs are bitwise equal.
-// - The d/dT adjoint (rt_bwd_mr_ddt_kernel; the design: rtrn_bwd.cu):
-//   the d/dT recursion is advance_ddt's in this mode too, so the overlap
-//   factors and the sub-streams take no part in it.  Its two carries a
-//   g-point ride in registers through a clear step and in shared memory
-//   through a cloudy one (carries 5 and 6, MrLayoutDdt: 8 KB more); lam
-//   goes to the scratch as in K6-g.  Two blocks per SM, as the idrv=0
-//   kernel: 128 registers, 8 B of spill stores (at one block per SM, 167
-//   registers, no spill, it took 1.6x as long; with the carries in shared
-//   memory throughout, 4% longer and 16 B of spill).
+// - The d/dT adjoint (rt_bwd_mr_ddt_kernel; the design: K6-g's,
+//   rtrn_bwd_g.cu): the d/dT recursion is advance_ddt's in this mode too,
+//   so the overlap factors and the sub-streams take no part in it, and it
+//   is linear in the derivative P, so layer l's transmittances get lam x
+//   P, lam the cotangent of the derivative leaving the layer (top down)
+//   and P the derivative entering it (surface up).  K1's gradient-step
+//   launch keeps P and its clear twin PC (rads (6, L, 140, B), planes 4-5;
+//   rtrn_kernel.cuh, SAVE), so the whole d/dT adjoint runs in the reverse
+//   up sweep: lam and its clear twin's ride in registers through a clear
+//   step and in shared memory through a cloudy one (carries 5 and 6,
+//   MrLayoutDdt: 8 KB more), the step stages the group's P (and, where a
+//   column of the tile has a cloud, PC) rows into the slot's PT and PF
+//   slabs, which the up sweep does not read otherwise, and each thread
+//   reads its cells before the cloudy step writes its partials over them.
+//   The surface step sums the seed's cotangents; the down sweep is the
+//   idrv=0 kernel's.  No scratch: the first design wrote lam to 2 (L,
+//   140, B) planes in the up sweep and read them back in the down sweep,
+//   which recomputed P (2.2 GB at B=16384, L=60 beside the bound, 128
+//   registers and 8 B of spill stores).  Two blocks per SM, as the idrv=0
+//   kernel.
 //
 // Shared memory a block: a ring slot 33,024 bytes, the ring of two
 // 66,048, the rest 31,904 + 8 a layer (128 of them to align the ring);
@@ -103,8 +114,10 @@ constexpr int NCAR = 5;                 // lam, mu, cr, kr, rr cotangents
 constexpr int NPART = 7;                // R_CLDF and the sweep's factors
 constexpr int NSHARE = 1 + 12;          // a group's share of a layer
 
-// rows of the saved radiances (rtrn_kernel.cuh SAVE)
-enum Saved { S_D = 0, S_U = 1, S_DC = 2, S_UC = 3 };
+// rows of the saved radiances (rtrn_kernel.cuh SAVE), and at idrv=1 the
+// d/dT derivatives entering each layer and their clear twins
+enum Saved { S_D = 0, S_U = 1, S_DC = 2, S_UC = 3, S_P = P_DDT,
+             S_PC = P_DDT + 1 };
 
 // the tensor maps of a launch
 enum MrMap { N_TAUT, N_FRACS, N_RADS, N_GTAUT, N_GFRACS, N_PLAY, N_PLEV,
@@ -344,8 +357,9 @@ __device__ __forceinline__ StepGrads mr_step_bwd(
 // groups that have written their shares); part, the groups' shares,
 // (blocks, L, NSHARE, GX): R_CLDF, the 6 up factors, the 6 down factors.
 // The kernel's body; IDRV: with the d/dT sweep's adjoint (dt), its
-// cotangents of each layer's factors added to the down sweep's reverse
-// step of the layer.  maps: the kernel's __grid_constant__ parameter.
+// cotangents of each layer's factors added to the up sweep's reverse step
+// of the layer, from the derivatives K1 kept (rads planes S_P, S_PC).
+// maps: the kernel's __grid_constant__ parameter.
 template <bool IDRV>
 __device__ __forceinline__ void rt_bwd_mr_body(
         const MrMaps& maps, const Inputs& in, const int* __restrict__ ngb,
@@ -446,10 +460,15 @@ __device__ __forceinline__ void rt_bwd_mr_body(
     // range does, where it would read slots K1 never wrote
     if (ty == 0 && valid && max(nkept[tx], nkept[GX + tx]) > K) __trap();
     auto slot = [&](int j) { return smem + (j % G_RING) * Sl::BYTES; };
+    // IDRV: a column of the tile has a cloud (anyc, iclddn at layer 0): PC
+    // is staged only then
+    [[maybe_unused]] const bool tcloud = icdw[0] != 0u;
 
     // ---- the staging of reverse step j: up sweep j < L, layer L-1-j,
     // Planck level l+1, flux rows UP, CLR_UP at level l+1, the up
-    // radiance entering l; down sweep j >= L, layer j-L, Planck level l,
+    // radiance entering l (IDRV: and the d/dT derivatives entering l, P
+    // and, where a column of the tile has a cloud, PC, in the PT and PF
+    // slabs); down sweep j >= L, layer j-L, Planck level l,
     // rows DOWN, CLR_DOWN at level l, the down radiance at level l+1 and
     // the up sweep's outputs of layer l; taucb (and its partial) and the
     // overlap rows where a column of the tile is cloudy.  The producer
@@ -466,7 +485,8 @@ __device__ __forceinline__ void rt_bwd_mr_body(
         const int rin = up ? l : l + 1;     // the radiances' layer
         const int ct0 = (up ? UP : DOWN) * (L + 1) + lev;
         const int ct1 = (up ? CLR_UP : CLR_DOWN) * (L + 1) + lev;
-        const int nslab = 2 + (has_in ? 2 : 0) + (up ? 0 : 2);
+        const int nslab = 2 + (has_in ? 2 : 0) + (up ? 0 : 2)
+                          + (IDRV && up ? (tcloud ? 2 : 1) : 0);
         const int nband = 2 + (tc ? 1 : 0)
                           + (up ? 0 : 1 + (lev > 0) + (tc ? 1 : 0));
         const int none = 2 + (tc ? NROW : 0);
@@ -519,6 +539,12 @@ __device__ __forceinline__ void rt_bwd_mr_body(
             slab(Sl::PT, N_GTAUT, gr.taut, l * KG);
             slab(Sl::PF, N_GFRACS, gr.fracs, l * KG);
         }
+        if constexpr (IDRV) {
+            if (up) {
+                slab(Sl::PT, N_RADS, rads, (S_P * L + l) * KG);
+                if (tcloud) slab(Sl::PF, N_RADS, rads, (S_PC * L + l) * KG);
+            }
+        }
         bands(Sl::PLAY, N_PLAY, in.play, l * KNB);
         bands(Sl::PLEV, N_PLEV, in.plev, lev * KNB);
         if (tc) bands(Sl::TCB, N_TCB, in.taucb, l * KNB);
@@ -541,9 +567,9 @@ __device__ __forceinline__ void rt_bwd_mr_body(
         return car_s[(q * GPT + k) * GT + tid];
     };
     // IDRV: the d/dT sweep's carries of each g-point, the cotangents of
-    // the derivative and its clear twin in the reverse up sweep, from the
-    // surface step on the derivatives themselves (rtrn.ddt_adjoint); in
-    // registers, while a cloudy step runs in shared memory (q = 5, 6)
+    // the derivative and its clear twin in the reverse up sweep
+    // (rtrn.ddt_adjoint's lam, lamc); in registers, while a cloudy step
+    // runs in shared memory (q = 5, 6)
     constexpr int ND = IDRV ? GPT : 1;
     [[maybe_unused]] float dd[ND], ddc[ND];
 #pragma unroll
@@ -582,10 +608,11 @@ __device__ __forceinline__ void rt_bwd_mr_body(
         const bool twin = (icdw[UPW ? 0 : l] >> tx) & 1u;
         const bool has_in = UPW || l + 1 < L;
         const float cu = row(Sl::CT0)[tx], ccu = row(Sl::CT1)[tx];
-        // idrv: anyc, and the up sweep's d/dT cotangents at level lev
+        // idrv, up: anyc, and the d/dT cotangents at level lev
+        constexpr bool DDT = IDRV && UPW;
         [[maybe_unused]] const bool anyc = (icdw[0] >> tx) & 1u;
         [[maybe_unused]] float cd = 0.0f, ccd = 0.0f;
-        if constexpr (IDRV && UPW) {
+        if constexpr (DDT) {
             if (valid) {
                 cd = dt.ct[(size_t)lev * Bz + b];
                 ccd = dt.ct[((size_t)(L + 1) + lev) * Bz + b];
@@ -615,8 +642,8 @@ __device__ __forceinline__ void rt_bwd_mr_body(
             const bool read_sub = cly && !ist && valid;
             const float* sub =
                 subs + ((size_t)(UPW ? 3 : 0) * K + slot_k) * KG * Bz + b;
-            // g-point k of the thread, its carries lam and mu (and, idrv,
-            // the d/dT sweep's dl and dlc)
+            // g-point k of the thread, its carries lam and mu (and, idrv
+            // in the up sweep, the d/dT sweep's dl and dlc)
             auto gstep = [&](int k, float& lam, float& mu, float& dl,
                              float& dlc) {
                 const int r = ty + GY * k;
@@ -646,40 +673,29 @@ __device__ __forceinline__ void rt_bwd_mr_body(
                 const float rad = has_in ? rad_s[e] : 0.0f;
                 const float radc = has_in ? radc_s[e] : 0.0f;
                 // idrv, up: the cotangent of the derivative leaving layer
-                // l (the clear twin's folded in where it is the same) to
-                // the scratch; down: the layer's transmittances'
-                // cotangents, from the scratch
+                // l (the clear twin's folded in where it is the same) times
+                // the derivatives entering it, K1's P and PC staged in this
+                // thread's PT and PF cells (PC selected, not multiplied,
+                // where the column has no cloud: the cell is then not
+                // staged), the cotangents of the layer's transmittances
                 [[maybe_unused]] DdtStep ds{};
                 [[maybe_unused]] float lt = 0.0f;
-                [[maybe_unused]] const size_t li =
-                    ((size_t)l * KG + g) * Bz + b;
-                if constexpr (IDRV && UPW) {
+                if constexpr (DDT) {
                     dl += wg_s[g] * cd;
                     dlc += wg_s[g] * ccd;
                     lt = anyc ? dl : dl + dlc;
-                    if (valid) {
-                        dt.lam[li] = lt;
-                        if (anyc) dt.lam[LGB + li] = dlc;
-                    }
+                    ds.ct_t = lt * pt_s[e];
+                    ds.ct_tc = anyc ? dlc * pf_s[e] : 0.0f;
                 }
-                if constexpr (IDRV && !UPW) {
-                    ds.ct_t = valid ? dt.lam[li] * dl : 0.0f;
-                    ds.ct_tc = valid && anyc ? dt.lam[LGB + li] * dlc : 0.0f;
-                }
-                const StepGrads o = mr_step_bwd<IDRV>(
+                const StepGrads o = mr_step_bwd<DDT>(
                     tau_s[e], fr_s[e], play_s[be], plev_s[be], secd_s[be],
                     tcb, cf, cly, twin, ist, fac, rad, radc, cr, kr, rr, c,
                     ds);
                 lam = c.lam;
                 mu = c.mu;
-                if constexpr (IDRV && UPW) {
+                if constexpr (DDT) {
                     dl = lt * ds.t;
                     dlc = anyc ? dlc * ds.tc : 0.0f;
-                }
-                if constexpr (IDRV && !UPW) {
-                    const float pn = dl * ds.t;
-                    dlc = anyc ? dlc * ds.tc : pn;
-                    dl = pn;
                 }
                 if (cly) {
                     car(0, k) = c.cr;
@@ -716,12 +732,12 @@ __device__ __forceinline__ void rt_bwd_mr_body(
                 for (int k = 0; k < GPT; ++k) {
                     car(3, k) = lm[0][k];
                     car(4, k) = lm[1][k];
-                    if constexpr (IDRV) {
+                    if constexpr (DDT) {
                         car(5, k) = dd[k];
                         car(6, k) = ddc[k];
                     }
                 }
-                if constexpr (IDRV) {
+                if constexpr (DDT) {
 #pragma unroll 1
                     for (int k = 0; k < GPT; ++k)
                         gstep(k, car(3, k), car(4, k), car(5, k), car(6, k));
@@ -735,7 +751,7 @@ __device__ __forceinline__ void rt_bwd_mr_body(
                 for (int k = 0; k < GPT; ++k) {
                     lm[0][k] = car(3, k);
                     lm[1][k] = car(4, k);
-                    if constexpr (IDRV) {
+                    if constexpr (DDT) {
                         dd[k] = car(5, k);
                         ddc[k] = car(6, k);
                     }
@@ -750,7 +766,7 @@ __device__ __forceinline__ void rt_bwd_mr_body(
             } else {
 #pragma unroll
                 for (int k = 0; k < GPT; ++k) {
-                    if constexpr (IDRV) {
+                    if constexpr (DDT) {
                         gstep(k, lm[0][k], lm[1][k], dd[k], ddc[k]);
                     } else {
                         float none = 0.0f;
@@ -883,7 +899,6 @@ __device__ __forceinline__ void rt_bwd_mr_body(
                     gr.fracs[gi] =
                         gr.fracs[gi] + (ct_rad0 * pbnd + ctd0 * dpl);
                 dz[r * GX + tx] = ctd0 * fr0;
-                dd[k] = ddc[k] = fr0 * dpl;
             } else {
                 if (valid) gr.fracs[gi] = gr.fracs[gi] + ct_rad0 * pbnd;
             }
@@ -1038,8 +1053,7 @@ int bwd_mr_entry(const float* taut, const float* fracs, const float* play,
                  float* ct_taucb, int* count, float* part, const Ddt& dt,
                  int L, int K, int B, void* stream) {
     if (L <= 0 || B <= 0) return (int)cudaGetLastError();
-    if (!rads || !subs || !rows || !taucb || !count || !part || K < 1
-        || (dt.ct && !dt.lam))
+    if (!rads || !subs || !rows || !taucb || !count || !part || K < 1)
         return (int)cudaErrorInvalidValue;
     cudaError_t e = dt.ct ? prepare_bwd_mr_ddt() : prepare_bwd_mr();
     if (e != cudaSuccess) return (int)e;
@@ -1067,7 +1081,7 @@ int bwd_mr_entry(const float* taut, const float* fracs, const float* play,
         };
         const bool ok = map(N_TAUT, taut, lg, GH)
                         && map(N_FRACS, fracs, lg, GH)
-                        && map(N_RADS, rads, 4 * lg, GH)
+                        && map(N_RADS, rads, (dt.ct ? 6 : 4) * lg, GH)
                         && map(N_GTAUT, ct_taut, lg, GH)
                         && map(N_GFRACS, ct_fracs, lg, GH)
                         && map(N_PLAY, play, lb, GH)
@@ -1122,8 +1136,9 @@ RRTM_API int rrtm_rt_bwd_mr(const float* taut, const float* fracs,
 
 // rrtm_rt_bwd_mr at idrv=1 with the d/dT sweep's adjoint: surf and
 // ct_surf (4, 16, B), the fourth row dplankbnd_dt and its cotangent;
-// ct_ddt (2, L+1, B) the cotangents of duflx_dt and duflxc_dt; lam the
-// scratch of 2 x (L, 140, B) floats (rtrn.cuh Ddt).
+// ct_ddt (2, L+1, B) the cotangents of duflx_dt and duflxc_dt; rads (6,
+// L, 140, B), what K1 kept in the maxrand mode at idrv=1 (the derivatives
+// P and PC too).
 RRTM_API int rrtm_rt_bwd_mr_ddt(const float* taut, const float* fracs,
                                 const float* play, const float* plev,
                                 const float* surf, const float* rows,
@@ -1134,13 +1149,13 @@ RRTM_API int rrtm_rt_bwd_mr_ddt(const float* taut, const float* fracs,
                                 float* ct_play, float* ct_plev,
                                 float* ct_surf, float* ct_rows,
                                 float* ct_taucb, int* count, float* part,
-                                const float* ct_ddt, float* lam, int L, int K,
-                                int B, void* stream) {
+                                const float* ct_ddt, int L, int K, int B,
+                                void* stream) {
     if (!ct_ddt) return (int)cudaErrorInvalidValue;
     return bwd_mr_entry(taut, fracs, play, plev, surf, rows, taucb, ngb, wg,
                         ct, rads, subs, ct_taut, ct_fracs, ct_play, ct_plev,
                         ct_surf, ct_rows, ct_taucb, count, part,
-                        Ddt{ct_ddt, lam}, L, K, B, stream);
+                        Ddt{ct_ddt, nullptr}, L, K, B, stream);
 }
 
 // The scratch rrtm_rt_bwd_mr takes at L layers and B columns: out[0]

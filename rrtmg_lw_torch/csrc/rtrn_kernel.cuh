@@ -103,15 +103,16 @@
 // the cloudy-layer words K6 reads in those modes (a bit per column,
 // one uint32 per 32-column tile and layer: the block of columns 16u ..
 // 16u + 15 writes half u % 2 of its tile's word, the last block of an
-// odd count the whole word); at idrv=1 in the banded, fused, cldf-odcld
-// and compact modes (keeps_ddt) also the d/dT derivative entering each
-// layer and its clear twin, P and PC (rads (6, L, 140, B), planes 4-5;
-// level l, the seed fracs[0] x dplankbnd_dt at l = 0), which their d/dT
-// K6 reads in its reverse up sweep in place of a scratch of its own
-// (rtrn_bwd_g.cu), 1.1 GB more at B=16384, L=60: by scalar stores from
-// the registers in both store paths, a warp's store 16 columns x 2
-// g-points (the slot has no spare per-g tiles for them); in SAVE_BULK
-// where two blocks per SM still fit two more tiles (banded, cldf-odcld),
+// odd count the whole word); at idrv=1 in the banded, maxrand, fused,
+// cldf-odcld and compact modes (keeps_ddt) also the d/dT derivative
+// entering each layer and its clear twin, P and PC (rads (6, L, 140, B),
+// planes 4-5; level l, the seed fracs[0] x dplankbnd_dt at l = 0), which
+// their d/dT K6 reads in its reverse up sweep in place of a scratch of
+// its own (rtrn_bwd_g.cu, rtrn_bwd_mr.cu), 1.1 GB more at B=16384, L=60:
+// by scalar stores from the registers in both store paths, a warp's store
+// 16 columns x 2 g-points (the slot has no spare per-g tiles for them);
+// in SAVE_BULK where two blocks per SM still fit two more tiles (banded,
+// cldf-odcld; not maxrand, whose ring of three and sub-streams fill it),
 // staged in shared memory and written by bulk tensor stores with the
 // step's radiances (one buffer: each thread waits for the previous step's
 // tiles to be read before it writes its cells), cheaper there than the
@@ -261,8 +262,8 @@ struct Layout {
     // SAVE_BULK at idrv=1 in the keeps_ddt modes: a step's d/dT
     // derivatives staged for bulk tensor stores, two (KG, KX) tiles after
     // the ring, and the mbarrier that frees them, where two blocks still
-    // fit an SM with them at the ring's depth (banded, cldf-odcld; fused
-    // and compact store them from the registers)
+    // fit an SM with them at the ring's depth (banded, cldf-odcld; fused,
+    // compact and maxrand store them from the registers)
     static constexpr int PTILES = 2 * KG * KX * 4;
     static constexpr bool PBULK =
         BULK && IDRV && keeps_ddt(MODE)
@@ -414,8 +415,8 @@ constexpr int ELECT = KT - 32;
 // column's k-th such layer in the sweep's order (down: from the top) at
 // slot k (slots past its count are left as they were); K6 reads them
 // back there; fused, cldf-odcld and compact at idrv=1 the cloudy-layer
-// words to kept.words ((tiles of 32 columns, L) uint32); banded, fused,
-// cldf-odcld and compact at idrv=1 (keeps_ddt) the d/dT derivative
+// words to kept.words ((tiles of 32 columns, L) uint32); banded, maxrand,
+// fused, cldf-odcld and compact at idrv=1 (keeps_ddt) the d/dT derivative
 // entering layer l and its clear twin to rads' planes P_DDT, P_DDT + 1
 // (rads then (6, L, 140, B)).  Elsewhere rads and packed are not read.
 template <int MODE, bool IDRV, int SPEC, int SAVE>

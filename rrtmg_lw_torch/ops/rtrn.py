@@ -219,8 +219,9 @@ def ddt_adjoint(at, atot, cf, cly, anyc, d0, wg, ct_ddt, saved=None):
     each layer, from the surface up, and layer l's transmittance t gets
     lam P (rtrn.cuh ddt_step_bwd).  ``saved``: (P, PC) (B, L, G), the
     derivatives entering each layer as the forward sweep kept them (K1
-    SAVE's planes 4-5 in the banded, fused, cldf-odcld and compact modes,
-    ``_sweep(..., radiances=True)``'s), read in place of running P from
+    SAVE's planes 4-5 in the banded, maxrand, fused, cldf-odcld and
+    compact modes, ``_sweep(..., radiances=True)``'s and
+    ``_sweep_maxrand``'s), read in place of running P from
     d0, as K6 reads them in those modes: lam P at each layer as lam
     reaches it, the clear twin's selected where the column has a cloud
     (PC need not be finite elsewhere)."""
@@ -274,8 +275,8 @@ def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
     l = 0..L-1, the ones summed into the flux rows there; at idrv=1 (6,
     L, G, B), then the d/dT derivative entering layer l and its clear
     twin (l = 0: the seed fracs[0] x dplankbnd_dt), what K1 SAVE keeps
-    for the d/dT adjoint in the banded, fused, cldf-odcld and compact
-    modes (``ddt_adjoint``'s ``saved``)."""
+    for the d/dT adjoint in the cloudy modes (``ddt_adjoint``'s
+    ``saved``)."""
     dtype = taut.dtype
     B, L, G = taut.shape
     ngb0 = ngb0.long()
@@ -351,10 +352,11 @@ def _sweep_maxrand(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
     up) -> (up, down, clear up, clear down) (B, L+1), and the d/dT pair
     when ``dplankbnd_dt`` is given, as ``_sweep``.  rows (B, L, 16) are
     ``rtrnmr.overlap_rows`` per column; odcld_g (B, L, G) the cloud od
-    of each g's band.  ``radiances``: (that tuple, the state (10, L, G,
-    B)): as ``_sweep``'s four radiances, then the cloudy, clear and
+    of each g's band.  ``radiances``: (that tuple, the state (10 | 12, L,
+    G, B)): as ``_sweep``'s four radiances, then the cloudy, clear and
     correction sub-streams (cr, kr, rr) entering layer l in the down
-    sweep, then in the up sweep."""
+    sweep, then in the up sweep, and at idrv=1 the d/dT derivative
+    entering layer l and its clear twin, as ``_sweep``'s."""
     dtype = taut.dtype
     B, L, G = taut.shape
     ngb0 = ngb0.long()
@@ -439,6 +441,8 @@ def _sweep_maxrand(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
     rads = [torch.stack(r[:L]) for r in (drad, urad, cdrad, curad)]
     rads += [torch.stack([s[q] for s in subs]) for subs in (subs_dn, subs_up)
              for q in range(3)]
+    if idrv:
+        rads += [torch.stack(r[:L]) for r in (durad, dcurad)]
     return out, torch.stack(rads).permute(0, 1, 3, 2)
 
 
@@ -655,31 +659,33 @@ def _kept_index(rows_t):
 
 
 def pack_state(state, rows_t):
-    """The (10, L, 140, B) maxrand state (radiances, then the sub-streams
-    of each sweep at every layer) -> (rads (4, L, 140, B), subs (2, 3, K,
-    140, B)): the sub-streams of the kept layers only, at their slots
-    (``substream_slots``; K from ``kept_depth``), zeros past a column's
-    count."""
+    """The (10 | 12, L, 140, B) maxrand state (radiances, then the
+    sub-streams of each sweep at every layer, then at idrv=1 the d/dT
+    derivatives) -> (rads (4 | 6, L, 140, B): the radiances and the
+    derivatives, subs (2, 3, K, 140, B)): the sub-streams of the kept
+    layers only, at their slots (``substream_slots``; K from
+    ``kept_depth``), zeros past a column's count."""
     _, L, G, B = state.shape
-    full = state[4:].view(2, 3, L, G, B)
+    full = state[4:10].reshape(2, 3, L, G, B)
     subs = state.new_zeros((2, 3, kept_depth(substream_slots(rows_t)[1]), G,
                             B))
     for s, l, b, k in _kept_index(rows_t):
         subs[s][:, k, :, b] = full[s][:, l, :, b]
-    return state[:4].contiguous(), subs
+    return torch.cat([state[:4], state[10:]]), subs
 
 
 def unpack_state(rads, subs, rows_t):
-    """The maxrand state as K1 keeps it, rads (4, L, 140, B) and the packed
-    sub-streams subs (2, 3, K, 140, B), -> (10, L, 140, B): the radiances,
-    then the sub-streams entering each layer in the down sweep and in the
-    up sweep, zero where they are not kept (``substreams_kept``).  What
+    """The maxrand state as K1 keeps it, rads (4 | 6, L, 140, B) and the
+    packed sub-streams subs (2, 3, K, 140, B), -> (10 | 12, L, 140, B):
+    the radiances, then the sub-streams entering each layer in the down
+    sweep and in the up sweep, zero where they are not kept
+    (``substreams_kept``), then (idrv=1) the d/dT derivatives.  What
     compares two states: the slots past a column's count hold nothing."""
     _, L, G, B = rads.shape
     full = subs.new_zeros((2, 3, L, G, B))
     for s, l, b, k in _kept_index(rows_t):
         full[s][:, l, :, b] = subs[s][:, k, :, b]
-    return torch.cat([rads, full.view(6, L, G, B)])
+    return torch.cat([rads[:4], full.view(6, L, G, B), rads[4:]])
 
 
 def rt_sweep_maxrand(taut_t, fracs_t, planklay_t, planklev_t, surf, rows_t,
@@ -688,8 +694,9 @@ def rt_sweep_maxrand(taut_t, fracs_t, planklay_t, planklev_t, surf, rows_t,
     the plain version of the RT kernel's maxrand mode.  rows_t
     (L, 16, B) from ``rtrnmr.overlap_rows``, taucb_t and surf as
     ``rt_sweep_banded``.  ``radiances``: (the fluxes, rads, subs), the
-    state K6 reads: rads (4, L, 140, B) the down radiance at level l, the
-    up radiance entering layer l and their clear twins; subs (2, 3, K,
+    state K6 reads: rads (4 | 6, L, 140, B) the down radiance at level l,
+    the up radiance entering layer l and their clear twins, at idrv=1 then
+    the d/dT derivative entering layer l and its clear twin; subs (2, 3, K,
     140, B) the sub-streams (cr, kr, rr) entering a layer in the down
     sweep and in the up sweep where they are kept, packed
     (``pack_state``); the plain version of
@@ -800,10 +807,10 @@ def rt_sweep_ddt_vjp(mode, taut_t, fracs_t, planklay_t, planklev_t, surf,
     (``_ddt_factors``) carries them to the inputs, as K6's reverse steps
     do; equal to the plain vjp of the sweep on the cotangent (0, 0, 0, 0,
     *ct_ddt) up to the order of the sums.  ``rads``: the (6, L, 140, B)
-    state the sweep kept at idrv=1 (``rt_sweep_blocked`` or
-    ``rt_sweep_banded`` with ``radiances=True``), whose planes 4-5, the
-    derivatives entering each layer, ``ddt_adjoint`` reads (``saved``) as
-    K6 does in the banded, fused, cldf-odcld and compact modes."""
+    radiances the sweep kept at idrv=1 in a cloudy mode
+    (``rt_sweep_blocked``, ``rt_sweep_banded`` or ``rt_sweep_maxrand`` with
+    ``radiances=True``), whose planes 4-5, the derivatives entering each
+    layer, ``ddt_adjoint`` reads (``saved``) as K6 does in those modes."""
     saved = None if rads is None else tuple(_tb(r) for r in rads[4:6])
     xs = [x.detach().requires_grad_(x.is_floating_point())
           for x in (taut_t, fracs_t, planklay_t, planklev_t, surf, *clouds)]

@@ -28,10 +28,10 @@ derivatives with respect to the surface temperature (2, L+1, B); a
 cotangent of the latter reaches K6's instantiation in the mode that also
 runs the d/dT sweep's adjoint (``ct_ddt`` of each vjp wrapper;
 ``rtrn.ddt_adjoint`` is its plain twin), counted in ``DDT_LAUNCHES``; in
-the banded, fused, cldf-odcld and compact modes (``KEEPS_DDT``) K1's
-gradient-step launch at idrv=1 also keeps the d/dT derivatives entering
-each layer (rads (6, L, 140, B)), which that K6 reads in place of a
-scratch of its own.
+every mode but clear (``KEEPS_DDT``) K1's gradient-step launch at idrv=1
+also keeps the d/dT derivatives entering each layer (rads (6, L, 140,
+B)), which that K6 reads in place of a scratch of its own (clear's keeps
+a scratch).
 On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version (``rtrn.rt_sweep_blocked``,
 ``rtrn.rt_sweep_vjp``, ``rtrn.SWEEPS``) and, backward, its plain vjp.
@@ -78,14 +78,14 @@ CLOUD_INPUTS = {
 DDT_LAUNCHES = {mode: _build.Launches() for mode in MODES}
 # the modes whose K1 SAVE at idrv=1 keeps the d/dT derivatives P, PC
 # (planes 4-5 of its radiances; csrc/rtrn.cuh keeps_ddt): their d/dT K6
-# reads them and takes no scratch
-KEEPS_DDT = ("compact", "banded", "fused", "cldf_od")
+# reads them and takes no scratch (all but clear, whose d/dT K6 keeps one)
+KEEPS_DDT = ("compact", "banded", "maxrand", "fused", "cldf_od")
 
 
 def rads_planes(mode, idrv):
-    """The planes of the radiances K1 keeps in ``mode`` (a ``MODES`` key
-    but maxrand, whose state is ``rt_sweep_maxrand_radiances``') at
-    ``idrv``: D and U (clear), their clear twins (cloudy modes), and at
+    """The planes of the radiances K1 keeps in ``mode`` (a ``MODES`` key;
+    maxrand's beside its packed sub-streams, ``rt_sweep_maxrand_radiances``)
+    at ``idrv``: D and U (clear), their clear twins (cloudy modes), and at
     idrv=1 in ``KEEPS_DDT`` the d/dT derivatives P and PC."""
     if mode == "clear":
         return 2
@@ -221,16 +221,17 @@ class KeptCount:
 def rt_sweep_maxrand_radiances(taut_t, fracs_t, planklay_t, planklev_t,
                                surf, rows_t, taucb_t, ngb0, wg, kept=None):
     """K1 maxrand in float32 keeping the state K6 reads: -> (fluxes (4|6,
-    L+1, B), rads (4, L, 140, B), subs (2, 3, K, 140, B)), rads the down
+    L+1, B), rads (4|6, L, 140, B), subs (2, 3, K, 140, B)), rads the down
     radiance at level l, the up radiance entering layer l and their clear
-    twins, for l = 0..L-1; subs the sub-streams (cr, kr, rr) entering a
-    layer in the down sweep and in the up sweep where K6 reads them
-    (``rtrn.substreams_kept``), a column's k-th such layer of a sweep at
-    slot k (``rtrn.substream_slots``), K the most of any column
-    (``rtrn.kept_depth``): ``kept.value()``, a ``KeptCount`` of
+    twins, for l = 0..L-1, at idrv=1 then the d/dT derivative entering
+    layer l and its clear twin (``rads_planes``); subs the sub-streams
+    (cr, kr, rr) entering a layer in the down sweep and in the up sweep
+    where K6 reads them (``rtrn.substreams_kept``), a column's k-th such
+    layer of a sweep at slot k (``rtrn.substream_slots``), K the most of
+    any column (``rtrn.kept_depth``): ``kept.value()``, a ``KeptCount`` of
     ``rows_t``, else counted here, a wait on the card; the slots past a
-    column's count are left
-    unwritten (``rtrn.unpack_state`` makes two states comparable).  The
+    column's count are left unwritten (``rtrn.unpack_state`` makes two
+    states comparable).  The
     fluxes are bitwise those of the launch without them.  Arguments as
     ``RTSweepFn``'s maxrand inputs; on a CPU tensor the plain version,
     ``rtrn.rt_sweep_maxrand(..., radiances=True)``.  Counted on
@@ -245,8 +246,8 @@ def rt_sweep_maxrand_radiances(taut_t, fracs_t, planklay_t, planklev_t,
     L, B = _check(*x, None, None, None, None, ngb0, wg)
     _check_clouds("maxrand", (rows_t, taucb_t), L, B, taut_t.device)
     K = (KeptCount(rows_t) if kept is None else kept).value()
-    rads = torch.empty((4, L, NGPT, B), dtype=torch.float32,
-                       device=taut_t.device)
+    rads = torch.empty((rads_planes("maxrand", surf.shape[0] == 4), L, NGPT,
+                        B), dtype=torch.float32, device=taut_t.device)
     subs = torch.empty((2, 3, K, NGPT, B), dtype=torch.float32,
                        device=taut_t.device)
     out = _launch("maxrand", rt_fluxes_maxrand, *x, ngb0, wg, cld=rows_t,
@@ -319,10 +320,9 @@ def _full_ct(ct, ct_ddt):
 
 def _ddt_operands(ct, ct_ddt, L, B, device, nlam=0):
     """The flux cotangents K6 at idrv=1 stages (zeros where the loss reads
-    no flux, ``ct`` None), the checked d/dT cotangents and, clear and
-    maxrand, K6's scratch of ``nlam`` (L, 140, B) planes (``rtrn.cuh``
-    Ddt; None where nlam is 0: the ``KEEPS_DDT`` modes read K1's
-    derivatives instead)."""
+    no flux, ``ct`` None), the checked d/dT cotangents and, clear, K6's
+    scratch of ``nlam`` (L, 140, B) planes (``rtrn.cuh`` Ddt; None where
+    nlam is 0: the ``KEEPS_DDT`` modes read K1's derivatives instead)."""
     _build.check(ct_ddt, "ct_ddt", torch.float32, (2, L + 1, B), device)
     if ct is None:
         ct = torch.zeros((4, L + 1, B), dtype=torch.float32, device=device)
@@ -642,7 +642,9 @@ def rt_sweep_maxrand_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
     planklev_t, surf (3, 16, B), rows_t (the overlap rows: R_CLDF and the
     12 factor rows; zeros in the four flag rows), taucb_t), None where
     ``needs`` is False.  ``ct_ddt``: as ``rt_sweep_vjp``'s (surf (4, 16,
-    B); counted in ``DDT_LAUNCHES["maxrand"]``).  On the card it reads
+    B); counted in ``DDT_LAUNCHES["maxrand"]``; it reads the d/dT
+    derivatives K1 kept at idrv=1, rads' planes 4-5, and takes no
+    scratch).  On the card it reads
     ``state``, the pair (rads, subs) K1 kept on the same inputs
     (``rt_sweep_maxrand_radiances``), and raises without it; the plain
     vjp (CPU tensors, ``rtrn.rt_sweep_maxrand_vjp``) does not read it,
@@ -666,8 +668,7 @@ def rt_sweep_maxrand_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
     dev = taut_t.device
     _check_clouds("maxrand", (rows_t, taucb_t), L, B, dev)
     if ddt:
-        ct, ct_ddt, lam = _ddt_operands(ct, ct_ddt.contiguous(), L, B, dev,
-                                        2)
+        ct, ct_ddt, _ = _ddt_operands(ct, ct_ddt.contiguous(), L, B, dev)
     ct = ct.contiguous()
     _build.check(ct, "ct", torch.float32, (4, L + 1, B), dev)
     if state is None:
@@ -676,13 +677,13 @@ def rt_sweep_maxrand_vjp(taut_t, fracs_t, planklay_t, planklev_t, surf,
                          "rt_sweep_maxrand_radiances): K6 runs no forward "
                          "sweep")
     rads, subs = state
-    _build.check(rads, "rads", torch.float32, (4, L, NGPT, B), dev)
+    _check_rads(rads, "maxrand", ddt, L, B, dev)
     K = subs.shape[2]
     _build.check(subs, "subs", torch.float32, (2, 3, K, NGPT, B), dev)
     grads = [torch.empty_like(t) for t in x]
     a = (*x, ngb0, wg, ct, rads, subs, *grads, *k6_mr_scratch(L, B, dev))
     if ddt:
-        _build.launch("rrtm_rt_bwd_mr_ddt", *a, ct_ddt, lam, L, K, B)
+        _build.launch("rrtm_rt_bwd_mr_ddt", *a, ct_ddt, L, K, B)
         DDT_LAUNCHES["maxrand"].launches += 1
     else:
         _build.launch("rrtm_rt_bwd_mr", *a, L, K, B)
@@ -694,7 +695,8 @@ def _check_rads(rads, mode, ddt, L, B, device):
     """Checks the radiances K1 kept in ``mode`` for K6: at idrv=1 with a
     d/dT cotangent (``ddt``) the planes ``rads_planes(mode, 1)``, else
     those of either idrv (K6 at idrv=0 reads the first four of six where
-    the step ran K1 at idrv=1 but its loss reads no d/dT)."""
+    the step ran K1 at idrv=1 but its loss reads no d/dT; maxrand's beside
+    its sub-streams)."""
     planes = [rads_planes(mode, i) for i in ((1,) if ddt else (0, 1))]
     n = rads.shape[0] if rads.shape[0] in planes else planes[0]
     _build.check(rads, "rads", torch.float32, (n, L, NGPT, B), device)

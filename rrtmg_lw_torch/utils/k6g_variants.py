@@ -82,10 +82,8 @@ def _prof():
          "        if (j + 2 < L) issue(j + 2);\n        tick(6);\n"),
         ("        if (j + 2 < 2 * L) issue(j + 2);\n",
          "        if (j + 2 < 2 * L) issue(j + 2);\n        tick(6);\n"),
-        ("    if (ty < nb && valid) gr.surf[(size_t)(b0 + ty) * Bz + b] = "
-         "csec_s[tid];\n",
-         "    if (ty < nb && valid) gr.surf[(size_t)(b0 + ty) * Bz + b] = "
-         "csec_s[tid];\n"
+        ("        gr.surf[(size_t)(b0 + ty) * Bz + b] = cs;\n    }\n",
+         "        gr.surf[(size_t)(b0 + ty) * Bz + b] = cs;\n    }\n"
          "    tick(7);\n"
          "    if ((tid & 31) == 0)\n"
          "        for (int i = 0; i < 9; ++i)\n"
@@ -122,7 +120,7 @@ VARIANTS = {
     # the other way to the zeros: no zero stores, the caller zeroes the per-g
     # cloud cotangents (the library says so)
     "fill": ([
-        ("        if constexpr (UPW && !BND) {\n            for (int r = ty; "
+        ("        if constexpr (UPW && NCG > 0) {\n            for (int r = ty; "
          "r < nr; r += GY)\n                if (valid && !cly)",
          "        if constexpr (false) {\n            for (int r = ty; "
          "r < nr; r += GY)\n                if (valid && !cly)"),

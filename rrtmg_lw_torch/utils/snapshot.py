@@ -643,6 +643,9 @@ def ddt_plain_planes(mode, x, cl, ngb0, wg):
     if mode == "banded":
         _, rads = rtrn.rt_sweep_banded(*xd, *cd, ngb0, wg.double(),
                                        radiances=True)
+    elif mode == "maxrand":
+        _, rads, _ = rtrn.rt_sweep_maxrand(*xd, *cd, ngb0, wg.double(),
+                                           radiances=True)
     else:
         rads = rtrn.rt_sweep_blocked(*xd, ngb0, wg.double(), cd,
                                      radiances=True)[1]
@@ -761,8 +764,8 @@ def k1_save_digests(tag, args, modes, dpl) -> dict:
     clouds (``k1_cloud_args`` or ``k1_edge_args``), through the
     checkout's API: its fluxes and radiances (maxrand: the fluxes and the
     state unpacked), as ``digests``; where it keeps the d/dT derivatives
-    too (idrv=1, rads (6, L, 140, B)), those two planes as a third output,
-    so that the first two compare with a checkout that keeps four."""
+    too (idrv=1), those planes as a third output, so that the first two
+    compare with a checkout that keeps none."""
     from rrtmg_lw_torch.ops import rtrn, rtrn_cuda
     out = {}
     ngb0, wg = args[7:]
@@ -783,8 +786,10 @@ def k1_save_digests(tag, args, modes, dpl) -> dict:
                 cl = tuple(clouds) if mode == "banded" else tuple(clouds[0])
                 kept = rtrn_cuda.rt_sweep_g_radiances(mode, *x, cl, ngb0,
                                                       wg)[:2]
-            if mode != "maxrand" and kept[1].shape[0] > 4:
-                kept = (kept[0], kept[1][:4], kept[1][4:])
+            # the planes of a checkout that keeps no d/dT derivative
+            base = 10 if mode == "maxrand" else 4
+            if kept[1].shape[0] > base:
+                kept = (kept[0], kept[1][:base], kept[1][base:])
             out.update(digests(f"{tag}_{mode}_idrv{idrv}", kept))
             del kept
     return out

@@ -1260,8 +1260,8 @@ def test_rt_adjoint_launch_configurations_at_idrv(dev):
     """K6's idrv=0 instantiations keep the launch configuration PERF.md
     records from before the d/dT ones came in (registers: clear 96, the
     other modes 128; no local memory; two blocks per SM at L = 60); the
-    d/dT ones: 256 threads, at most 64 B of local memory (fused and
-    maxrand spill a few bytes at two blocks per SM), two blocks per SM at
+    d/dT ones: 256 threads, at most 64 B of local memory (maxrand and
+    banded spill a few bytes at two blocks per SM), two blocks per SM at
     L = 60 and 140 (compact's on K6-g's tile)."""
     from rrtmg_lw_torch.ops.rtrn_cuda import k6_g_info, k6_info, k6_mr_info
     old = {"clear": k6_info(False), "compact": k6_info(True),
@@ -1370,19 +1370,20 @@ BANDED_SHARES_MAX_L = 381
     ("banded", 64, 400)])
 def test_rt_ddt_adjoint_reads_k1_derivatives(dev, monkeypatch, mode, B,
                                               L):
-    """The d/dT adjoint of banded, fused, cldf-odcld and compact reads the
-    derivatives K1 SAVE keeps at idrv=1.  K1 SAVE: rads (6, L, 140, B),
-    planes 4-5 (P, PC entering each layer) within 1e-6 of max |plain| (the
-    plain sweep in float64 on the same inputs), planes 0-3 bitwise those
-    of K1 SAVE at idrv=0, the fluxes bitwise those of K1 at idrv=1 without
-    SAVE.  K6: within 1e-3 of max |plain vjp| of the 6-row cotangent per
-    output, with the flux cotangent and without; no scratch allocated;
-    one launch counted in ``DDT_LAUNCHES[mode]`` each; bitwise over two
-    runs; staged by bulk tensor copies where the rows allow them (B % 4,
-    compact's mask B % 16), element by element elsewhere (37 ragged,
-    2054 unaligned); banded's shares in its scratch at L = 400.  K1 SAVE
-    takes its bulk stores at 2048 and 36 (a ragged last tile of 4
-    columns), its scalar stores at 37 and 2054."""
+    """The d/dT adjoint of banded, maxrand, fused, cldf-odcld and compact
+    reads the derivatives K1 SAVE keeps at idrv=1.  K1 SAVE: rads (6, L,
+    140, B), planes 4-5 (P, PC entering each layer) within 1e-6 of max
+    |plain| (the plain sweep in float64 on the same inputs), planes 0-3
+    bitwise those of K1 SAVE at idrv=0 (maxrand: its kept sub-streams
+    too), the fluxes bitwise those of K1 at idrv=1 without SAVE.  K6:
+    within 1e-3 of max |plain vjp| of the 6-row cotangent per output, with
+    the flux cotangent and without; no scratch allocated; one launch
+    counted in ``DDT_LAUNCHES[mode]`` each; bitwise over two runs; staged
+    by bulk tensor copies where the rows allow them (B % 4, compact's mask
+    B % 16), element by element elsewhere (37 ragged, 2054 unaligned);
+    banded's shares in its scratch at L = 400.  K1 SAVE takes its bulk
+    stores at 2048 and 36 (a ragged last tile of 4 columns), its scalar
+    stores at 37 and 2054."""
     from rrtmg_lw_torch.ops import rtrn_cuda
     from rrtmg_lw_torch.utils.snapshot import (ddt_plain_planes,
                                                ddt_plain_vjp, ddt_state,
@@ -1392,23 +1393,31 @@ def test_rt_ddt_adjoint_reads_k1_derivatives(dev, monkeypatch, mode, B,
     x = (taut, fr, play, plev,
          rtrn.surf_rows(plankbnd, semiss, pwvcm, torch.float32, dpl))
     cl = flat_clouds(mode, modes[mode][1])
+    mr = mode == "maxrand"
+
+    def kept_rads(kw):
+        return kw["state"][0] if mr else kw["rads"]
     kw = ddt_state(mode, x, cl, ngb0, wg)
-    rads = kw["rads"]
+    rads = kept_rads(kw)
     assert rads.shape == (6, L, 140, B) and torch.isfinite(rads).all()
     ref = ddt_plain_planes(mode, x, cl, ngb0, wg)
     for p in (0, 1):
         assert rel_err(rads[4 + p], ref[p]) <= 1e-6, (mode, p)
     kw0 = ddt_state(mode, (*x[:4], x[4][:3]), cl, ngb0, wg)
-    assert torch.equal(rads[:4], kw0["rads"])
+    assert torch.equal(rads[:4], kept_rads(kw0))
+    if mr:
+        assert torch.equal(rtrn.unpack_state(rads[:4], kw["state"][1], cl[0]),
+                           rtrn.unpack_state(*kw0["state"], cl[0]))
     del kw0, ref
-    fwd = (rtrn_cuda.rt_fluxes_banded(*args[:7], ngb0, wg, *cl,
-                                      dplankbnd_dt=dpl) if mode == "banded"
-           else rtrn_cuda.WRAPPERS[{"compact": "blocked"}.get(mode, mode)](
-               *args[:7], ngb0, wg, cl, dplankbnd_dt=dpl))
+    w, extra = modes[mode]
+    fwd = WRAPPERS[w](*args, *extra, dplankbnd_dt=dpl)
     with torch.no_grad():
-        kept = (rtrn_cuda.rt_sweep_radiances(*x, *cl[1:], cl[0], ngb0, wg)
-                if mode == "compact"
-                else rtrn_cuda.rt_sweep_g_radiances(mode, *x, cl, ngb0, wg))
+        if mode == "compact":
+            kept = rtrn_cuda.rt_sweep_radiances(*x, *cl[1:], cl[0], ngb0, wg)
+        elif mr:
+            kept = rtrn_cuda.rt_sweep_maxrand_radiances(*x, *cl, ngb0, wg)
+        else:
+            kept = rtrn_cuda.rt_sweep_g_radiances(mode, *x, cl, ngb0, wg)
     assert torch.equal(kept[0], torch.cat(fwd)), mode
     del kept
     lams = []
@@ -1436,7 +1445,8 @@ def test_rt_ddt_adjoint_reads_k1_derivatives(dev, monkeypatch, mode, B,
     again = ddt_vjp(mode, x, cl, ngb0, wg, None, ct_ddt, kw)
     assert all(g is None or torch.equal(g, h) for g, h in zip(got, again))
     assert len(lams) == 3 and all(lam is None for lam in lams), lams
-    info = rtrn_cuda.k6_g_info(mode, L, ddt=True)
+    info = (rtrn_cuda.k6_mr_info(L, ddt=True) if mr
+            else rtrn_cuda.k6_g_info(mode, L, ddt=True))
     aligned = B % (16 if mode == "compact" else 4) == 0
     assert info["staging"] == ("tma" if aligned else "elements"), info
     if mode == "banded":

@@ -11,10 +11,10 @@ the CPU, in every mode of the RT sweep.
     banded, maxrand (on the deck clouds and on ``band_clouds``' varied
     fractions), fused and cldf-odcld, each on columns with clouds and
     columns without (the clear twin taken and not), float64.  In the
-    modes whose K1 SAVE keeps the d/dT derivatives at idrv=1 (banded,
-    fused, cldf-odcld, compact; banded also on the icld=2/3 fractions):
-    the plain sweep's kept planes 4-5 are ``ddt_adjoint``'s forward P and
-    PC and sum to the d/dT flux rows, and the twin reading them
+    modes whose K1 SAVE keeps the d/dT derivatives at idrv=1 (every mode
+    but clear; banded and maxrand also on the icld=2/3 fractions): the
+    plain sweep's kept planes 4-5 are ``ddt_adjoint``'s forward P and PC
+    and sum to the d/dT flux rows, and the twin reading them
     (``rt_sweep_ddt_vjp(..., rads=)``, ``ddt_adjoint(..., saved=)``)
     equals it running them from the seed; the CPU wrappers keep each
     mode's planes (``rtrn_cuda.rads_planes``).
@@ -221,9 +221,10 @@ def test_ddt_wrappers_send_cpu_tensors_to_plain_versions(monkeypatch, case):
 
 
 # the modes whose K1 SAVE at idrv=1 keeps the d/dT derivatives for K6
-# (``rtrn_cuda.KEEPS_DDT``), and banded on the fractions the icld=2/3
-# cases use (``band_clouds``)
-KEEPS = ["compact", "banded", "banded_varied", "fused", "cldf_od"]
+# (``rtrn_cuda.KEEPS_DDT``), and banded and maxrand on the fractions the
+# icld=2/3 cases use (``band_clouds``)
+KEEPS = ["compact", "banded", "banded_varied", "maxrand_decks",
+         "maxrand_varied", "fused", "cldf_od"]
 
 
 def _kept(mode, x, cl, ngb0, wg):
@@ -231,7 +232,15 @@ def _kept(mode, x, cl, ngb0, wg):
     (6, L+1, B), rads)."""
     if mode == "banded":
         return rtrn.rt_sweep_banded(*x, *cl, ngb0, wg, radiances=True)
+    if mode == "maxrand":
+        return rtrn.rt_sweep_maxrand(*x, *cl, ngb0, wg, radiances=True)[:2]
     return rtrn.rt_sweep_blocked(*x, ngb0, wg, cl, radiances=True)[:2]
+
+
+def _case_mode(case):
+    """The K1 mode of a ``KEEPS`` case."""
+    return case.rsplit("_", 1)[0] if case.endswith(("_decks", "_varied")) \
+        else case
 
 
 def _forward_derivatives(mode, x, cl, ngb0):
@@ -253,16 +262,24 @@ def _forward_derivatives(mode, x, cl, ngb0):
 def test_sweep_keeps_the_ddt_derivatives(case):
     """At idrv=1 the plain sweep with ``radiances=True`` keeps six planes in
     the modes whose K1 SAVE keeps the d/dT derivatives: planes 0-3 those
-    of idrv=0, planes 4-5 ``ddt_adjoint``'s forward P and PC entering each
-    layer (within 1e-12 of max |P|, float64), whose weighted sums over g
-    at levels 0..L-1 are the duflx_dt and duflxc_dt rows (1e-12)."""
+    of idrv=0 (maxrand: and its packed sub-streams), planes 4-5
+    ``ddt_adjoint``'s forward P and PC entering each layer (within 1e-12
+    of max |P|, float64), whose weighted sums over g at levels 0..L-1 are
+    the duflx_dt and duflxc_dt rows (1e-12)."""
+    from rrtmg_lw_torch.ops import rtrn_cuda
     x, clouds, ngb0, wg = _cached_sweep_case()
-    mode, cl = case.split("_")[0], clouds[case]
+    mode, cl = _case_mode(case), clouds[case]
     L, _, B = x[0].shape
+    n0, n1 = (rtrn_cuda.rads_planes(mode, i) for i in (0, 1))
     fl, rads = _kept(mode, x, cl, ngb0, wg)
-    assert rads.shape == (6, L, 140, B) and fl.shape == (6, L + 1, B)
+    assert rads.shape == (n1, L, 140, B) and fl.shape == (6, L + 1, B)
     _, rads0 = _kept(mode, (*x[:4], x[4][:3]), cl, ngb0, wg)
-    assert rads0.shape == (4, L, 140, B) and torch.equal(rads[:4], rads0)
+    assert rads0.shape == (n0, L, 140, B) and torch.equal(rads[:n0], rads0)
+    if mode == "maxrand":
+        subs, subs0 = (rtrn.rt_sweep_maxrand(*xi, *cl, ngb0, wg,
+                                             radiances=True)[2]
+                       for xi in (x, (*x[:4], x[4][:3])))
+        assert torch.equal(subs, subs0), case
     p, pc = _forward_derivatives(mode, x, cl, ngb0)
     for got, want in ((rads[4], p), (rads[5], pc)):
         assert rel_err(got, want.permute(1, 2, 0).numpy()) <= 1e-12, case
@@ -272,7 +289,7 @@ def test_sweep_keeps_the_ddt_derivatives(case):
     # both twins differ somewhere (a cloudy column), agree where none is
     # (every column of the varied fractions is cloudy)
     anyc = rtrn._ddt_factors(mode, *x, cl, ngb0)[4][:, 0]
-    assert bool(anyc.any()) and bool(anyc.all()) == (case == "banded_varied")
+    assert bool(anyc.any()) and bool(anyc.all()) == case.endswith("_varied")
     assert torch.equal(rads[4][..., ~anyc], rads[5][..., ~anyc]), case
     assert not torch.equal(rads[4][..., anyc], rads[5][..., anyc]), case
 
@@ -280,12 +297,12 @@ def test_sweep_keeps_the_ddt_derivatives(case):
 @pytest.mark.parametrize("case", KEEPS)
 def test_ddt_adjoint_reads_the_saved_derivatives(case):
     """``rtrn.rt_sweep_ddt_vjp`` reading the derivatives the sweep kept
-    (``rads``, as K6 reads K1 SAVE's planes 4-5) equals it running them
+    (``rads``, as K6 reads K1 SAVE's d/dT planes) equals it running them
     from the seed, per output within 1e-12 of max |ref|, and does not
     read the clear twin where a column has no cloud: NaN there changes
     nothing."""
     x, clouds, ngb0, wg = _cached_sweep_case()
-    mode, cl = case.split("_")[0], clouds[case]
+    mode, cl = _case_mode(case), clouds[case]
     L, _, B = x[0].shape
     ct_ddt = torch.as_tensor(np.random.default_rng(6).standard_normal(
         (2, L + 1, B)))
@@ -316,7 +333,7 @@ def test_ddt_adjoint_saved_matches_unsaved():
     ct_ddt = torch.as_tensor(np.random.default_rng(7).standard_normal(
         (2, L + 1, B)))
     for case in KEEPS:
-        mode, cl = case.split("_")[0], clouds[case]
+        mode, cl = _case_mode(case), clouds[case]
         at, atot, cf, cly, anyc, d0 = rtrn._ddt_factors(mode, *x, cl, ngb0)
         args = (at.detach(), atot.detach(), cf.detach(), cly, anyc,
                 d0.detach(), wg, ct_ddt)
@@ -335,13 +352,13 @@ def test_cpu_sweeps_keep_the_planes_of_each_mode(mode):
     """On CPU tensors K1 SAVE's wrappers (``rt_sweep_radiances``,
     ``rt_sweep_g_radiances``, ``rt_sweep_maxrand_radiances``) return the
     planes ``rtrn_cuda.rads_planes`` gives at idrv 0 and 1: 6 at idrv=1 in
-    compact, banded, fused and cldf-odcld (the last two the d/dT
-    derivatives), 4 at idrv=0 there; clear 2 and maxrand 4 at both."""
+    the cloudy modes (the last two the d/dT derivatives; maxrand's beside
+    its packed sub-streams), 4 at idrv=0 there; clear 2 at both."""
     from rrtmg_lw_torch.ops import rtrn_cuda
     x, clouds, ngb0, wg = _cached_sweep_case()
     L, _, B = x[0].shape
     cl = clouds["maxrand_decks" if mode == "maxrand" else mode]
-    want = {"clear": (2, 2), "maxrand": (4, 4)}.get(mode, (4, 6))
+    want = (2, 2) if mode == "clear" else (4, 6)
     for idrv in (0, 1):
         xi = (*x[:4], x[4][:3 + idrv])
         if mode in ("clear", "compact"):
@@ -354,8 +371,7 @@ def test_cpu_sweeps_keep_the_planes_of_each_mode(mode):
             rads = rtrn_cuda.rt_sweep_g_radiances(mode, *xi, cl, ngb0,
                                                   wg)[1]
         assert rads.shape == (want[idrv], L, 140, B), (mode, idrv)
-        if mode != "maxrand":
-            assert rtrn_cuda.rads_planes(mode, idrv) == want[idrv]
+        assert rtrn_cuda.rads_planes(mode, idrv) == want[idrv]
 
 
 # --------------------------------------------------------------- (b)
