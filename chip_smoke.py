@@ -26,6 +26,31 @@ Phases, each raising on failure (any failure exits non-zero):
      ring and staging printed); K6's six instantiations with the d/dT
      sweep's adjoint (one a mode: registers, spill stores, local memory,
      shared memory and blocks per SM at L=60 and L=140; none may spill);
+  2b. configs (``phase_configs``), the configurations the kernels do not
+     cover whole, through ``make_model`` at B=16384, L=60, each step
+     counted: (a) the default config (float64, use_lut=True: the plain
+     sweep on the card) against the same model on the CPU on 256 columns
+     within 1e-10 of a column's max |flux|, the lookup-table indices that
+     differ between the two counted; (b) float32 use_lut=True, clear and
+     McICA: K2, K3 and (cloudy) K4 launch, K1 does not, the fluxes within
+     5e-3 W/m2 (tests/test_f32_accuracy.py's gate) and the heating rates
+     within 0.1 K/day (the reference's contract; that test's 0.05 gate
+     printed beside) of the float64 LUT step on the card, and the closed
+     form through K1 clear against the float64 closed form, the same
+     gates (the control), with the thinnest top layer and the heating
+     rate one float32 ulp of its flux moves; (c) band subsets (16, 16)
+     and (5, 9), McICA, the same, against the CPU's float64 step on 256
+     columns; (d) per-band clouds (imca=0) on make_ncbands_clouds (final
+     ncbands 1, 5 and 16), icld 1 and 2 with (iceflag, liqflag) (1, 1),
+     (0, 1) and (3, 0), and icld=4, through K1 banded / maxrand: K1
+     against its plain twin on the inputs the step gave it within
+     TOL_FLUX, bitwise over two runs, the step against eager; (e) McICA
+     with iceflag 1, liqflag 0 (no K4) through K1 compact, the same; (f)
+     one gradient step of (b)'s McICA at 4096 columns (w.r.t. the
+     Atmosphere, water paths and radii: K5, K3b and K4b, no K1 or K6)
+     within TOL_STEP of eager per field; the wall, device busy,
+     columns/s and peak of (a), (b), (f) and one (d) step on ``configs``
+     lines;
   3. each kernel against its plain PyTorch version on the card at the
      main-path shapes (B=16384 columns, L=60 layers, float32), with the
      max error and CUDA-event times of both and the bound of each (the
@@ -200,6 +225,7 @@ at L=140 *_deep), printed on a ``ddt pair`` line a mode.  Without CUDA it exits 
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -1286,6 +1312,347 @@ def extra_steps(device, counters):
                for n in ("uflx", "dflx", "uflxc", "dflxc"))
     print(f"mcica_float_mask: flux err cuda vs eager {err:.3g}; "
           f"{'bitwise equal to' if same else 'differs from'} the int8 mask")
+
+
+# phase_configs: the configurations whose RT sweep is plain (use_lut=True,
+# the default config; band subsets) and the cloud optics with closed forms
+# or the running ncbands, through the entry points at the main width
+B_CPU = 256             # (a): columns held to the same model on the CPU
+B_CFG_GRAD = 4096       # (f): the plain LUT sweep's autograd at full width
+                        # would keep ~20 (B, 140) tensors a level
+TOL_CFG_F64 = 1e-10     # (a): per column, of its max |flux|
+# float32 against float64: tests/test_f32_accuracy.py's flux gate (W/m2),
+# and on the heating rates the reference's accuracy contract it keeps its
+# gates inside of (K/day; test_f32_accuracy.py:1-3), not its 0.05 at B=8:
+# at B=16384 on the H100 the float32 steps, the kernels' closed form too
+# (the control in phase_configs (b)), exceed 0.05 in the top two layers,
+# where one ulp of a 250 W/m2 flux moves the heating rate by ~0.02 K/day
+# (PERF.md)
+TOL_F32_FLUX, TOL_F32_HR = 5e-3, 0.1
+TEST_F32_HR = 0.05      # test_f32_accuracy.py's heating gate, printed beside
+# (d): per-band clouds without McICA through K1 banded / maxrand, use_lut
+# False: (icld, iceflag, liqflag); the running ncbands but icld=4's
+CFG_NCBANDS = ((1, 1, 1), (1, 0, 1), (1, 3, 0), (2, 1, 1), (2, 0, 1),
+               (2, 3, 0), (4, 3, 1))
+
+
+@contextlib.contextmanager
+def lut_indices(ncol):
+    """Records the first ``ncol`` columns of every lookup-table index the
+    plain sweep forms ((B, L, G) int64, ``rtrn._lut_index``), in order."""
+    from rrtmg_lw_torch.ops import rtrn
+    orig, kept = rtrn._lut_index, []
+
+    def index(x):
+        it = orig(x)
+        kept.append(it[:ncol].cpu())
+        return it
+
+    rtrn._lut_index = index
+    try:
+        yield kept
+    finally:
+        rtrn._lut_index = orig
+
+
+@contextlib.contextmanager
+def k1_calls():
+    """Records (mode, args, kwargs, output) of every call the model makes
+    to K1's wrappers (``rtrn_cuda.WRAPPERS``)."""
+    from rrtmg_lw_torch.models import radiation
+    orig, calls = radiation.WRAPPERS, []
+
+    def recording(mode, fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            calls.append((mode, a, kw, out))
+            return out
+        return call
+
+    radiation.WRAPPERS = {k: recording(k, f) for k, f in orig.items()}
+    try:
+        yield calls
+    finally:
+        radiation.WRAPPERS = orig
+
+
+def step_stats(tag, step, ncol):
+    """Wall ms (host clock around a synchronized call), device busy ms
+    (``torch.profiler``: the union of the device intervals of one call),
+    columns/s and peak GiB of ``step()`` after a warm-up call; printed."""
+    from rrtmg_lw_torch.utils.profiling import _union_ms
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    busy = _union_ms([(e.time_range.start, e.time_range.end)
+                      for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA])
+    row = dict(cell=tag, ncol=ncol, nlay=L_MAIN, wall_ms=wall, busy_ms=busy,
+               cols_per_sec=ncol / (wall * 1e-3), peak_gib=peak)
+    print(f"configs {tag}: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
+          f"{row['cols_per_sec']:.0f} cols/s, peak {peak:.2f} GiB")
+    return row
+
+
+def f32_contract(tag, f32, f64):
+    """The float32 step's fluxes and heating rates against the float64
+    step's (columns of f32 the first of f64's) within TOL_F32_FLUX and
+    TOL_F32_HR; -> (flux W/m2, heating K/day) max differences."""
+    ncol = f32.uflx.shape[0]
+    dflux = max(float((getattr(f32, n).double().cpu()
+                       - getattr(f64, n)[:ncol].double().cpu()).abs().max())
+                for n in ("uflx", "dflx", "uflxc", "dflxc"))
+    dhr = max(float((getattr(f32, n).double().cpu()
+                     - getattr(f64, n)[:ncol].double().cpu()).abs().max())
+              for n in ("hr", "hrc"))
+    need(dflux < TOL_F32_FLUX and dhr < TOL_F32_HR,
+         f"{tag}: float32 off the float64 step by {dflux:.3g} W/m2, "
+         f"{dhr:.3g} K/day")
+    below = max(float((getattr(f32, n)[:, :-2].double().cpu()
+                       - getattr(f64, n)[:ncol, :-2].double().cpu()).abs()
+                      .max()) for n in ("hr", "hrc"))
+    print(f"{tag}: float32 vs float64 {dflux:.3g} W/m2 (gate "
+          f"{TOL_F32_FLUX}), {dhr:.3g} K/day (gate {TOL_F32_HR}; "
+          f"test_f32_accuracy.py's {TEST_F32_HR} "
+          f"{'held' if dhr < TEST_F32_HR else 'not held'}), {below:.3g} "
+          "K/day below the top two layers")
+    return dflux, dhr
+
+
+def f64_inputs(atm, clouds):
+    """float32 inputs in float64 (the same values), for the reference."""
+    def up(t):
+        return t.double() if t is not None and t.is_floating_point() else t
+    return (type(atm)(*(up(x) for x in atm)),
+            None if clouds is None else type(clouds)(*(up(x)
+                                                       for x in clouds)))
+
+
+def k1_against_plain(tag, calls):
+    """Each recorded K1 call again (bitwise the model's output) and its
+    plain twin (``rtrn.FLUXES``) on the same inputs, within TOL_FLUX;
+    -> the largest error."""
+    from rrtmg_lw_torch.ops import rtrn
+    from rrtmg_lw_torch.ops.rtrn_cuda import WRAPPERS
+    need(calls, f"{tag}: the step never called K1")
+    worst = 0.0
+    for mode, a, kw, out in calls:
+        again = WRAPPERS[mode](*a, **kw)
+        need(torch.equal(again, out), f"{tag}: K1 {mode} differs over two "
+             "runs")
+        plain = rtrn.FLUXES[mode](*a, **{k: v for k, v in kw.items()
+                                         if k != "kept"})
+        err = flux_err(plain, out)
+        need(err <= TOL_FLUX, f"{tag}: K1 {mode} vs plain err {err:.3g}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_configs(device, counters):
+    """The configurations the kernels do not cover whole, each through
+    ``make_model`` at B_MAIN x L_MAIN: (a) the default config (float64,
+    use_lut=True: plain on the card) against the same model on the CPU
+    on B_CPU columns; (b) float32 use_lut=True, clear and McICA, K2, K3
+    and K4 and no K1, against the float64 LUT step; (c) band subsets
+    (16, 16) and (5, 9), McICA, against the CPU's float64 step on B_CPU
+    columns; (d) per-band clouds through K1 banded and maxrand on the
+    running ncbands (``CFG_NCBANDS``, ``make_ncbands_clouds``), K1 against
+    its plain twin on the inputs the step gave it and bitwise over two
+    runs, the step against eager; (e) McICA with the closed-form optics
+    (iceflag 1, liqflag 0) through K1 compact, the same checks; (f) a
+    gradient step of (b)'s McICA (w.r.t. the Atmosphere, the water paths
+    and the radii: K5, K3b and K4b) at B_CFG_GRAD columns against eager
+    on the card.  Every step counted.  -> rows of wall, busy, cols/s, peak."""
+    from rrtmg_lw_torch import (Atmosphere, BandClouds, LWConfig,
+                                make_model)
+    from rrtmg_lw_torch.constants import heatfac
+    from rrtmg_lw_torch.ops import cldprop
+    from rrtmg_lw_torch.ops.inatm import inatm
+    from rrtmg_lw_torch.parallel import make_grad_step
+    from rrtmg_lw_torch.utils.synthetic import (make_atmosphere,
+                                                make_ncbands_clouds)
+    rows = []
+    fwd = dict(taumol=1, planck=2)
+
+    # (a) the default config
+    natm = make_atmosphere(B_MAIN, L_MAIN, seed=0)
+    model = make_model(device=device)
+    need(model.impl == "eager" and not model.rt_kernels
+         and model.luts is not None,
+         "the default config does not take the plain LUT sweep")
+    atm = Atmosphere.from_numpy(natm, device)
+    with lut_indices(B_CPU) as idx_card:
+        fa = model(atm)
+    cpu = make_model(device="cpu")
+    with lut_indices(B_CPU) as idx_cpu:
+        fc = cpu(Atmosphere.from_numpy(
+            type(natm)(*(x[:B_CPU] for x in natm)), "cpu"))
+    err = max(flux_err(getattr(fc, n).t(), getattr(fa, n)[:B_CPU].cpu().t())
+              for n in ("uflx", "dflx", "uflxc", "dflxc"))
+    need(err <= TOL_CFG_F64,
+         f"default: card vs CPU {err:.3g} of a column's max |flux|")
+    need(len(idx_card) == len(idx_cpu) and all(
+        a.shape == b.shape for a, b in zip(idx_card, idx_cpu)),
+         "default: the card and the CPU formed different LUT lookups")
+    flips = sum(int((a != b).sum()) for a, b in zip(idx_card, idx_cpu))
+    total = sum(a.numel() for a in idx_card)
+    print(f"default (float64, use_lut=True, plain on the card): card vs CPU "
+          f"on {B_CPU} columns {err:.3g} of max |flux|; LUT indices that "
+          f"differ: {flips} of {total}")
+    rows.append(dict(step_stats("default", lambda: model(atm), B_MAIN),
+                     err_vs_cpu=err, lut_index_flips=flips))
+    del model, cpu, fa, fc, idx_card, idx_cpu
+    torch.cuda.empty_cache()
+
+    # (b) float32 with the tables, clear and McICA: K2, K3, K4, no K1; and
+    # the closed form through K1 clear, the float32 contract's control
+    for tag, cell, lut in (("lut_f32_clear", "clear", True),
+                           ("lut_f32_mcica", "mcica_cloudy", True),
+                           ("k1_f32_clear", "clear", False)):
+        atm, clouds = inputs(cell, device)
+        icld = 0 if clouds is None else 2
+        model = make_model(LWConfig(icld=icld, dtype="float32",
+                                    use_lut=lut), device=device)
+        need(model.impl == "cuda" and model.rt_kernels != lut,
+             f"{tag}: expected the kernels, with the plain sweep where "
+             "use_lut")
+        model(atm, clouds)
+        f32, _, _ = counted_steps(tag, model, atm, clouds, 1, counters,
+                                  dict(fwd, cldcoef=int(icld > 0),
+                                       rt_sweep=int(not lut)))
+        f64 = make_model(LWConfig(icld=icld, use_lut=lut), device=device)(
+            *f64_inputs(atm, clouds))
+        f32_contract(tag, f32, f64)
+        if tag == "lut_f32_mcica":
+            rows.append(step_stats(tag, lambda: model(atm, clouds), B_MAIN))
+        del model, f32, f64
+        torch.cuda.empty_cache()
+    pz = inatm(atm, torch.float32).pz
+    dp = float((pz[:, -2] - pz[:, -1]).min())
+    ulp = heatfac() * float(np.spacing(np.float32(250.0))) / dp
+    print(f"float32 contract: the thinnest top layer {dp:.3g} hPa, where one "
+          f"float32 ulp of a 250 W/m2 flux moves its heating rate by "
+          f"{ulp:.3g} K/day")
+
+    # (c) band subsets
+    atm, clouds = inputs("mcica_cloudy", device)
+    for istart, iend in ((16, 16), (5, 9)):
+        tag = f"bands_{istart}_{iend}"
+        kw = dict(icld=2, istart=istart, iend=iend)
+        model = make_model(LWConfig(dtype="float32", **kw), device=device)
+        need(model.impl == "cuda" and not model.rt_kernels,
+             f"{tag}: expected the kernels with the plain sweep")
+        model(atm, clouds)
+        f32, _, _ = counted_steps(tag, model, atm, clouds, 1, counters,
+                                  dict(fwd, cldcoef=1))
+        sub = columns(*f64_inputs(atm, clouds), slice(0, B_CPU))
+        f64 = make_model(LWConfig(**kw), device="cpu")(
+            type(sub[0])(*(x.cpu() for x in sub[0])),
+            type(sub[1])(*(x.cpu() for x in sub[1])))
+        f32_contract(tag, type(f32)(*(None if x is None else x[:B_CPU]
+                                      for x in f32)), f64)
+        del model, f32, f64
+        torch.cuda.empty_cache()
+
+    # (d) the running ncbands through K1 banded / maxrand
+    bc = BandClouds.from_numpy(make_ncbands_clouds(B_MAIN, L_MAIN), device,
+                               torch.float32)
+    atm, _ = inputs("clear", device)
+    for icld, iceflag, liqflag in CFG_NCBANDS:
+        tag = f"ncbands_icld{icld}_ice{iceflag}_liq{liqflag}"
+        cfg = LWConfig(icld=icld, imca=0, iceflag=iceflag, liqflag=liqflag,
+                       dtype="float32", use_lut=False)
+        model = make_model(cfg, device=device)
+        need(model.rt_kernels, f"{tag}: expected K1")
+        model(atm, bc)
+        mode = dict(rt_sweep_banded=1) if icld == 1 else dict(
+            rt_sweep_maxrand=1, overlap_rows=1)
+        with k1_calls() as calls:
+            fk, _, _ = counted_steps(
+                tag, model, atm, bc, 1, counters,
+                dict(fwd, **mode,
+                     cldcoef=int(cldprop.tabulated(iceflag, liqflag))))
+        kerr = k1_against_plain(tag, calls)
+        fe = make_model(cfg.replace(impl="eager"), device=device)(atm, bc)
+        err = compare_models(tag, fk, fe, True)
+        need(not torch.allclose(fk.uflx, fk.uflxc),
+             f"{tag}: the clouds left the all-sky fluxes unchanged")
+        print(f"{tag}: K1 vs plain {kerr:.3g}, step vs eager {err:.3g}")
+        if icld == 2 and iceflag == 1:
+            rows.append(step_stats(tag, lambda: model(atm, bc), B_MAIN))
+        del model, fk, fe, calls
+        torch.cuda.empty_cache()
+
+    # (e) McICA with the closed-form optics through K1 compact
+    atm, clouds = inputs("mcica_cloudy", device)
+    tag = "mcica_ice1_liq0"
+    cfg = LWConfig(icld=2, iceflag=1, liqflag=0, dtype="float32",
+                   use_lut=False)
+    model = make_model(cfg, device=device)
+    model(atm, clouds)
+    with k1_calls() as calls:
+        fk, _, _ = counted_steps(tag, model, atm, clouds, 1, counters,
+                                 dict(fwd, rt_sweep=1))
+    kerr = k1_against_plain(tag, calls)
+    fe = make_model(cfg.replace(impl="eager"), device=device)(atm, clouds)
+    err = compare_models(tag, fk, fe, True)
+    print(f"{tag}: K1 vs plain {kerr:.3g}, step vs eager {err:.3g}")
+    del model, fk, fe, calls
+    torch.cuda.empty_cache()
+
+    # (f) a gradient step of (b)'s McICA: K5, K3b and K4b in its backward
+    tag = "lut_f32_mcica_grad"
+    atm, clouds = columns(*inputs("mcica_cloudy", device),
+                          slice(0, B_CFG_GRAD))
+    gen = torch.Generator(device=device).manual_seed(7)
+    cts = [torch.randn(B_CFG_GRAD, L_MAIN + 1, generator=gen, device=device)
+           for _ in range(4)]
+
+    def linear(f):
+        return sum((c * x).sum() for c, x in zip(
+            cts, (f.uflx, f.dflx, f.uflxc, f.dflxc)))
+
+    cfg = LWConfig(icld=2, dtype="float32")
+    fields = ("ciwp", "clwp", "reicmc", "relqmc")
+    step = make_grad_step(make_model(cfg, device=device), linear, fields)
+    step(atm, clouds)
+    for fn in counters.values():
+        fn.launches = 0
+    _, gk, ck = step(atm, clouds)
+    counts = {k: fn.launches for k, fn in counters.items()}
+    want = {k: 0 for k in counters}
+    want.update(fwd, cldcoef=1, taumol_bwd=1, planck_bwd=2, cldcoef_bwd=1)
+    need(counts == want, f"{tag}: launches {counts}, expected {want}")
+    print(f"{tag}: launches in its step: {counts}")
+    _, ge, ce = make_grad_step(make_model(cfg.replace(impl="eager"),
+                                          device=device), linear, fields)(
+        atm, clouds)
+    errs = {n: rel_err(getattr(gk, n), getattr(ge, n)) for n in gk._fields}
+    errs.update({n: rel_err(a, b) for n, a, b in zip(fields, ck, ce)})
+    worst = max(errs, key=errs.get)
+    need(all(bool(torch.isfinite(g).all()) for g in (*gk, *ck))
+         and errs[worst] <= TOL_STEP,
+         f"{tag}: gradient of {worst} off by {errs[worst]:.3g} of max "
+         "|eager|")
+    print(f"{tag}: gradients on {B_CFG_GRAD} columns, kernels vs eager, "
+          f"max rel err {errs[worst]:.3g} ({worst})")
+    rows.append(dict(step_stats(tag, lambda: step(atm, clouds), B_CFG_GRAD),
+                     grad_rel_err_vs_eager=errs[worst]))
+    del step, gk, ge, ck, ce
+    torch.cuda.empty_cache()
+    for r in rows:
+        print("configs " + json.dumps(r))
+    return rows
 
 
 def phase_deep(device, counters):
@@ -3113,15 +3480,15 @@ def phase_probes(device):
     return res, launches
 
 
-def main() -> int:
-    # importing the port first: from a directory without it this fails
-    # before anything is printed
-    from rrtmg_lw_torch import _build
+def launch_counters():
+    """(counters, fwd_counters): the launch counters (the wrappers, whose
+    ``launches`` each counts) of K2, K3, K4 and K1 clear / compact, and
+    of every kernel a step can launch."""
     from rrtmg_lw_torch.ops.cldcoef_cuda import (ice_liq_coeffs_blocked,
                                                  ice_liq_coeffs_vjp)
     from rrtmg_lw_torch.ops.planck_cuda import (planck_interp_blocked,
                                                 planck_interp_vjp)
-    from rrtmg_lw_torch.ops.rtrn_cuda import (DDT_LAUNCHES, k1_info,
+    from rrtmg_lw_torch.ops.rtrn_cuda import (DDT_LAUNCHES,
                                               rt_fluxes_banded,
                                               rt_fluxes_blocked,
                                               rt_fluxes_cldf_od,
@@ -3133,6 +3500,54 @@ def main() -> int:
                                               rt_sweep_vjp)
     from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows, overlap_rows_vjp
     from rrtmg_lw_torch.ops.taumol_cuda import taumol_blocked, taumol_vjp
+    counters = {"taumol": taumol_blocked, "planck": planck_interp_blocked,
+                "cldcoef": ice_liq_coeffs_blocked,
+                "rt_sweep": rt_fluxes_blocked}
+    # the backward kernels and K1's launches that keep the radiances: 0 in
+    # every forward cell
+    bwd_counters = dict(rt_sweep_save=rt_fluxes_blocked.save,
+                        rt_sweep_save_maxrand=rt_fluxes_maxrand.save,
+                        rt_sweep_save_banded=rt_fluxes_banded.save,
+                        rt_sweep_save_fused=rt_fluxes_fused.save,
+                        rt_sweep_save_cldf_od=rt_fluxes_cldf_od.save,
+                        overlap_bwd=overlap_rows_vjp,
+                        rt_adjoint_maxrand=rt_sweep_maxrand_vjp,
+                        rt_adjoint_banded=rt_sweep_banded_vjp,
+                        rt_adjoint_fused=rt_sweep_g_vjp.fused,
+                        rt_adjoint_cldf_od=rt_sweep_g_vjp.cldf_od,
+                        cldcoef_bwd=ice_liq_coeffs_vjp,
+                        taumol_bwd=taumol_vjp, planck_bwd=planck_interp_vjp,
+                        rt_adjoint=rt_sweep_vjp,
+                        **{f"rt_adjoint_ddt_{m}": DDT_LAUNCHES[m]
+                           for m in DDT_MODES})
+    fwd_counters = dict(counters, **bwd_counters,
+                        rt_sweep_banded=rt_fluxes_banded,
+                        rt_sweep_maxrand=rt_fluxes_maxrand,
+                        overlap_rows=overlap_rows,
+                        rt_sweep_fused=rt_fluxes_fused,
+                        rt_sweep_cldf_od=rt_fluxes_cldf_od,
+                        rt_sweep_idrv=rt_fluxes_blocked.idrv,
+                        rt_sweep_banded_idrv=rt_fluxes_banded.idrv,
+                        rt_sweep_maxrand_idrv=rt_fluxes_maxrand.idrv,
+                        rt_sweep_fused_idrv=rt_fluxes_fused.idrv,
+                        rt_sweep_cldf_od_idrv=rt_fluxes_cldf_od.idrv,
+                        taumol_spec=taumol_blocked.spec,
+                        rt_sweep_spec=rt_fluxes_blocked.spec,
+                        rt_sweep_banded_spec=rt_fluxes_banded.spec,
+                        rt_sweep_maxrand_spec=rt_fluxes_maxrand.spec,
+                        rt_sweep_fused_spec=rt_fluxes_fused.spec,
+                        rt_sweep_cldf_od_spec=rt_fluxes_cldf_od.spec)
+    return counters, fwd_counters
+
+
+def main() -> int:
+    # importing the port first: from a directory without it this fails
+    # before anything is printed
+    from rrtmg_lw_torch import _build
+    from rrtmg_lw_torch.ops.planck_cuda import planck_interp_vjp
+    from rrtmg_lw_torch.ops.rtrn_cuda import (k1_info, rt_fluxes_blocked,
+                                              rt_sweep_vjp)
+    from rrtmg_lw_torch.ops.taumol_cuda import taumol_vjp
     from rrtmg_lw_torch.utils import profiling
 
     need(profiling.NCOL == B_MAIN
@@ -3201,6 +3616,15 @@ def main() -> int:
           f"{k5_build['blocks_per_sm']} blocks per SM (launch bounds "
           f"{k5_build['min_blocks']})")
 
+    counters, fwd_counters = launch_counters()
+
+    # the configurations whose sweep is plain or whose cloud optics are
+    # closed forms or the running ncbands, first: the device busy of its
+    # steps comes from torch.profiler, whose traces lose launches in a
+    # long process
+    phase_configs(device, fwd_counters)
+    torch.cuda.empty_cache()
+
     # 3. kernels vs plain versions; then K2 and K1 in reduced storage
     res = phase_kernels(device)
     torch.cuda.empty_cache()
@@ -3213,43 +3637,6 @@ def main() -> int:
 
     # 4. end to end, each cell with its own launch counts: clear and
     # McICA, then the deterministic clouds
-    counters = {"taumol": taumol_blocked, "planck": planck_interp_blocked,
-                "cldcoef": ice_liq_coeffs_blocked,
-                "rt_sweep": rt_fluxes_blocked}
-    # the backward kernels and K1's launches that keep the radiances: 0 in
-    # every forward cell
-    bwd_counters = dict(rt_sweep_save=rt_fluxes_blocked.save,
-                        rt_sweep_save_maxrand=rt_fluxes_maxrand.save,
-                        rt_sweep_save_banded=rt_fluxes_banded.save,
-                        rt_sweep_save_fused=rt_fluxes_fused.save,
-                        rt_sweep_save_cldf_od=rt_fluxes_cldf_od.save,
-                        overlap_bwd=overlap_rows_vjp,
-                        rt_adjoint_maxrand=rt_sweep_maxrand_vjp,
-                        rt_adjoint_banded=rt_sweep_banded_vjp,
-                        rt_adjoint_fused=rt_sweep_g_vjp.fused,
-                        rt_adjoint_cldf_od=rt_sweep_g_vjp.cldf_od,
-                        cldcoef_bwd=ice_liq_coeffs_vjp,
-                        taumol_bwd=taumol_vjp, planck_bwd=planck_interp_vjp,
-                        rt_adjoint=rt_sweep_vjp,
-                        **{f"rt_adjoint_ddt_{m}": DDT_LAUNCHES[m]
-                           for m in DDT_MODES})
-    fwd_counters = dict(counters, **bwd_counters,
-                        rt_sweep_banded=rt_fluxes_banded,
-                        rt_sweep_maxrand=rt_fluxes_maxrand,
-                        overlap_rows=overlap_rows,
-                        rt_sweep_fused=rt_fluxes_fused,
-                        rt_sweep_cldf_od=rt_fluxes_cldf_od,
-                        rt_sweep_idrv=rt_fluxes_blocked.idrv,
-                        rt_sweep_banded_idrv=rt_fluxes_banded.idrv,
-                        rt_sweep_maxrand_idrv=rt_fluxes_maxrand.idrv,
-                        rt_sweep_fused_idrv=rt_fluxes_fused.idrv,
-                        rt_sweep_cldf_od_idrv=rt_fluxes_cldf_od.idrv,
-                        taumol_spec=taumol_blocked.spec,
-                        rt_sweep_spec=rt_fluxes_blocked.spec,
-                        rt_sweep_banded_spec=rt_fluxes_banded.spec,
-                        rt_sweep_maxrand_spec=rt_fluxes_maxrand.spec,
-                        rt_sweep_fused_spec=rt_fluxes_fused.spec,
-                        rt_sweep_cldf_od_spec=rt_fluxes_cldf_od.spec)
     cell_launches, rows = forward_cells(
         device, fwd_counters, CELLS_MAIN + CELLS_BAND + CELLS_PER_G
         + CELLS_IDRV)

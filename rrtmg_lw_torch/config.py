@@ -7,7 +7,13 @@ package's three backend switches (``taumol_impl``, ``rt_impl``,
 
   "cuda"   the hand-written CUDA kernels (needs a CUDA device, float32)
   "eager"  the plain PyTorch versions of those kernels, on any device
-  "auto"   "cuda" on a CUDA device, "eager" on the CPU
+  "auto"   "cuda" on a CUDA device in float32, else "eager" (the JAX
+           package's "auto" picks Pallas only in float32,
+           models/radiation.py:56-69)
+
+Which stages a "cuda" step runs on the kernels also follows from the
+config (``models.radiation``): the RT sweep kernel only for
+``use_lut=False`` over all 16 bands.
 
 The entry points (``make_model``, the ``from_numpy`` of the input
 types, ``load_tables``) run on the card unless the caller names another
@@ -61,14 +67,20 @@ class LWConfig:
         return dt
 
     def resolve_impl(self, device) -> str:
-        """The implementation this config runs on ``device``."""
+        """The implementation this config runs on ``device``; raises
+        ValueError for ``impl="cuda"`` off a CUDA device or outside
+        float32."""
         device = torch.device(device)
         if self.impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {self.impl!r}")
+        f32 = self.torch_dtype == torch.float32
         if self.impl == "auto":
-            return "cuda" if device.type == "cuda" else "eager"
+            return "cuda" if device.type == "cuda" and f32 else "eager"
         if self.impl == "cuda" and device.type != "cuda":
             raise ValueError(f"impl='cuda' needs a CUDA device, got {device}")
+        if self.impl == "cuda" and not f32:
+            raise ValueError("the CUDA kernels run in float32; use "
+                             "dtype='float32' or impl='eager'")
         return self.impl
 
     def replace(self, **kw) -> "LWConfig":

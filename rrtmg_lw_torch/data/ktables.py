@@ -27,8 +27,9 @@ ASSET_DIR = (pathlib.Path(__file__).resolve().parents[2]
              / "rrtmg_lw_tpu" / "assets")
 
 # static arrays the port uses as tensors (the rest stay numpy)
-STATIC_TENSORS = ("totplnk", "totplnkderiv", "preflog", "tref", "chi_mls",
-                  "absice2", "absice3", "absliq1", "abscld1")
+STATIC_TENSORS = ("totplnk", "totplnkderiv", "totplk16", "totplk16deriv",
+                  "preflog", "tref", "chi_mls", "absice0", "absice1",
+                  "absice2", "absice3", "absliq0", "absliq1", "abscld1")
 
 
 def load_static() -> dict:

@@ -21,8 +21,13 @@ from . import cldprop
 
 def _check(reic, relq, iceflag, liqflag, tables):
     """-> (L, B, nmax, ice table, liquid table) of a kernel call."""
+    if not cldprop.tabulated(iceflag, liqflag):
+        raise NotImplementedError(
+            f"K4 interpolates the tables of iceflag 2/3 with liqflag 1, "
+            f"not iceflag={iceflag}, liqflag={liqflag}: the closed forms "
+            "run in plain PyTorch on every device "
+            "(cldprop.ice_liq_coeffs_blocked)")
     name, _, nmax = cldprop._ice_params(iceflag)
-    cldprop._check_liqflag(liqflag)
     B, L = reic.shape
     dev = reic.device
     _build.check(reic, "reic", torch.float32, (B, L), dev)
@@ -69,7 +74,9 @@ class CldCoefFn(torch.autograd.Function):
 def ice_liq_coeffs_blocked(reic, relq, iceflag, liqflag, tables):
     """(B, L) effective radii -> per-band ice and liquid absorption
     coefficients abi, abl (L, 16, B); tables hold absice2/absice3 and
-    absliq1 tensors.  iceflag 2/3 with liqflag 1 only."""
+    absliq1 tensors.  iceflag 2/3 with liqflag 1 only (``cldprop.
+    tabulated``; the model takes the closed forms to the plain
+    version)."""
     return CldCoefFn.apply(reic, relq, iceflag, liqflag, tables)
 
 

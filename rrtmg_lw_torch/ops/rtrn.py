@@ -1,8 +1,16 @@
 """Longwave radiative transfer: linear-in-tau level recurrence.
 
 Port of ``rrtmg_lw_tpu.ops.rtrn`` (rtrnmc.f90:51-595 / rtrn.f90:51-606,
-random overlap and McICA) for ``use_lut=False``: the closed-form exp
-with the two-division Planck transition ``1 - 2 (1/od - e/(1-e))``.
+random overlap and McICA).  The optical-depth factors come in the
+closed form (``use_lut=False``: exp with the two-division Planck
+transition ``1 - 2 (1/od - e/(1-e))``) or, where the caller passes the
+lookup tables ``luts`` (``ops.tables``; ``use_lut=True``), from the
+10001-entry tables at the Pade index ``int(TBLINT * od / (BPADE + od) +
+0.5)``, the gas od quantized through ``tau_tbl`` in the thick regime
+(rtrnmc.f90:361-425).  The kernels have no table mode: the model runs
+``use_lut=True`` on these plain sweeps, as the JAX package runs it on
+its XLA sweep.  A band subset (``istart``/``iend``) is the sweep over
+the selected g-points: ``ngb0`` and ``wg`` cut to them (``g_select``).
 Every quantity that does not depend on the running radiance is computed
 elementwise over (B, L, G) first; the sweeps are Python loops over
 levels carrying only the radiance (B, G).  With idrv=1 (a
@@ -45,8 +53,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..constants import (FLUXFAC, REC_6, SECDIFF_A0, SECDIFF_A1, SECDIFF_A2,
-                         SECDIFF_FIXED, WTDIFF)
+from ..constants import (BPADE, FLUXFAC, NTBL, REC_6, SECDIFF_A0,
+                         SECDIFF_A1, SECDIFF_A2, SECDIFF_FIXED, TBLINT,
+                         WTDIFF)
 from ..types import NGPT
 from ._autograd import plain_vjp
 from .cldprop import CLDMIN, cldprmc_od
@@ -74,13 +83,6 @@ class RTOut(NamedTuple):
     dtotuclfl_dt: Optional[torch.Tensor] = None
 
 
-def _lut_unported():
-    return NotImplementedError(
-        "use_lut=True (exp/tfn lookup tables) is not ported yet; "
-        "see ROADMAP.md Queue 1, use_lut=True, the default config, and "
-        "band subsets")
-
-
 def secdiff(pwvcm, dtype):
     """Per-band diffusivity secant (B, 16); rtrnmc.f90:273-281."""
     def c(x):
@@ -92,11 +94,34 @@ def secdiff(pwvcm, dtype):
     return torch.where(fixed[None, :], torch.full_like(var, 1.66), var)
 
 
-def _gas_factors(od, use_lut=False):
-    """atrans, tf_gas (Planck transition), od_eff (rtrnmc.f90:361-425)."""
-    if use_lut:
-        raise _lut_unported()
+def _lut_index(x):
+    """The lookup-table index of od x >= 0, ``int(TBLINT * x / (BPADE +
+    x) + 0.5)`` truncated (rtrnmc.f90:403)."""
+    return (TBLINT * (x / (BPADE + x)) + 0.5).to(torch.int64)
+
+
+def _lut_take(x, luts, names):
+    """The tables ``names`` of ``luts`` at x's index, NaN where it falls
+    off the table (x < 0, where the small-od branch is taken, or NaN), as
+    jnp.take's fill mode gives in the JAX package."""
+    it = _lut_index(x)
+    off = (it < 0) | (it > NTBL)
+    it = it.clamp(0, NTBL)
+    nan = x.new_tensor(float("nan"))
+    return [torch.where(off, nan, luts[n][it]) for n in names]
+
+
+def _gas_factors(od, luts=None):
+    """atrans, tf_gas (Planck transition), od_eff (rtrnmc.f90:361-425):
+    closed form, or the table branch where ``luts`` (``tau_tbl``,
+    ``exp_tbl``, ``tfn_tbl`` tensors) is given, whose od_eff is od
+    quantized through tau_tbl (:403-405)."""
     small = od <= 0.06
+    if luts is not None:
+        e, tf, tau = _lut_take(od, luts, ("exp_tbl", "tfn_tbl", "tau_tbl"))
+        return (torch.where(small, od - 0.5 * od * od, 1.0 - e),
+                torch.where(small, REC_6 * od, tf),
+                torch.where(small, od, tau))
     # clamp at the branch threshold keeps the unselected branch finite
     od_safe = torch.clamp(od, min=0.06)
     e_safe = torch.exp(-od_safe)
@@ -106,11 +131,14 @@ def _gas_factors(od, use_lut=False):
     return atrans, tf, od
 
 
-def _tot_factors(odtot, use_lut=False):
-    """atot, tf_tot for the gas+cloud optical depth."""
-    if use_lut:
-        raise _lut_unported()
+def _tot_factors(odtot, luts=None):
+    """atot, tf_tot for the gas+cloud optical depth, closed form or from
+    ``luts``."""
     small = odtot < 0.06
+    if luts is not None:
+        e, tf = _lut_take(odtot, luts, ("exp_tbl", "tfn_tbl"))
+        return (torch.where(small, odtot - 0.5 * odtot * odtot, 1.0 - e),
+                torch.where(small, REC_6 * odtot, tf))
     ots = torch.clamp(odtot, min=0.06)
     e_safe = torch.exp(-ots)
     return (torch.where(small, odtot - 0.5 * odtot * odtot, 1.0 - e_safe),
@@ -119,15 +147,19 @@ def _tot_factors(odtot, use_lut=False):
 
 
 def precompute(taut, cldf_g, odcld_g, cld_gate, fracs, planklay, planklev,
-               secd, ngb0, use_lut=False):
+               secd, ngb0, luts=None, odcld_weighted=False):
     """Elementwise (B, L, G) precompute of the RT sweep; secd is the
-    per-band diffusivity secant (B, 16)."""
+    per-band diffusivity secant (B, 16), ``luts`` as ``_gas_factors``.
+    ``odcld_weighted``: odcld_g already carries its secant (the running
+    ncbands clouds weight it by the CLOUD band's, rtrn.f90:321,
+    ``cldprop.expand_cloud_bands(..., weighted=True)``), so it is not
+    multiplied by the g-point's band's here."""
     secd_g = secd[:, ngb0]                               # (B, G)
     # maximum, not clamp: at od = 0 (g-points whose taut is zero) both
     # sides get half the gradient, as jnp.maximum gives in JAX
     od = secd_g[:, None, :] * taut
     od = torch.maximum(od, torch.zeros_like(od))
-    atrans, tf_gas, od_eff = _gas_factors(od, use_lut)
+    atrans, tf_gas, od_eff = _gas_factors(od, luts)
 
     blay = planklay[..., ngb0]                           # (B, L, G)
     dpup = planklev[:, 1:, :][..., ngb0] - blay
@@ -138,11 +170,13 @@ def precompute(taut, cldf_g, odcld_g, cld_gate, fracs, planklay, planklev,
     gassrc_dn = atrans * bbd
 
     zero = torch.zeros_like(taut)
-    odcld_eff = torch.where(cld_gate, secd_g[:, None, :] * odcld_g, zero)
+    odcld_eff = torch.where(
+        cld_gate, odcld_g if odcld_weighted else secd_g[:, None, :] * odcld_g,
+        zero)
     abscld = 1.0 - torch.exp(-odcld_eff)
     efclfrac = torch.where(cld_gate, abscld * cldf_g, zero)
 
-    atot, tf_tot = _tot_factors(od_eff + odcld_eff, use_lut)
+    atot, tf_tot = _tot_factors(od_eff + odcld_eff, luts)
     bbdtot = fracs * (blay + tf_tot * dpdn)
     bbutot = fracs * (blay + tf_tot * dpup)
     return dict(atrans=atrans, atot=atot, bbd=bbd, bbugas=bbugas,
@@ -171,18 +205,24 @@ def rt_out(fluxes, pz, heatfac_val):
 
 def rt_random_overlap(taut, fracs, planklay, planklev, plankbnd, semiss,
                       pwvcm, pz, cldf_g, odcld_g, *, cloudy_lay, cld_gate,
-                      static, use_lut=False, heatfac_val, idrv=0,
-                      dplankbnd_dt=None):
-    """Random-overlap / McICA RT (rtrnmc.f90 semantics), all 16 bands.
-    Cloud inputs per g-point: cldf_g, odcld_g (B, L, G).  idrv=1 also
-    gives d(up)/dT_sfc from ``dplankbnd_dt`` (B, 16)."""
-    ngb0, wg = g_tables(static, taut.device, taut.dtype)
-    if taut.shape[-1] != len(ngb0):
-        raise ValueError("taut g-dim must cover all 140 g-points")
+                      static, luts=None, use_lut=False, heatfac_val, idrv=0,
+                      dplankbnd_dt=None, istart=1, iend=16,
+                      odcld_weighted=False):
+    """Random-overlap / McICA RT (rtrnmc.f90 semantics) over the g-points
+    of bands istart..iend.  Cloud inputs per g-point: cldf_g, odcld_g
+    (B, L, G).  ``use_lut``: the table factors from ``luts`` (the
+    ``tables.LUT_NAMES`` tensors).  idrv=1 also gives d(up)/dT_sfc from ``dplankbnd_dt``
+    (B, 16)."""
+    gsel = g_select(static, istart, iend)
+    if taut.shape[-1] != len(gsel):
+        raise ValueError("taut g-dim must match selected bands")
+    ngb0, wg = (x[gsel] for x in g_tables(static, taut.device, taut.dtype))
     return rt_out(_sweep(taut, fracs, planklay, planklev, plankbnd, semiss,
                          secdiff(pwvcm, taut.dtype), cldf_g, odcld_g,
-                         cloudy_lay, cld_gate, ngb0, wg, use_lut,
-                         dplankbnd_dt if idrv else None),
+                         cloudy_lay, cld_gate, ngb0, wg,
+                         luts=luts if use_lut else None,
+                         dplankbnd_dt=dplankbnd_dt if idrv else None,
+                         odcld_weighted=odcld_weighted),
                   pz, heatfac_val)
 
 
@@ -192,6 +232,13 @@ def g_tables(static, device, dtype):
     return (torch.as_tensor(ngb0, dtype=torch.int32, device=device),
             torch.as_tensor(band_weights(static["delwave"], ngb0)).to(
                 device, dtype))
+
+
+def g_select(static, istart=1, iend=16):
+    """The g-points (numpy int64) of bands istart..iend (1-based), as the
+    JAX model's ``_gselect``."""
+    ngb0 = np.asarray(static["ngb"]) - 1
+    return np.nonzero((ngb0 >= istart - 1) & (ngb0 <= iend - 1))[0]
 
 
 def _ddt_step(dlu, dclru, a, ato, cf, cly, twin):
@@ -265,8 +312,8 @@ def flux(rads, wg):
 
 
 def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
-           cldf_g, odcld_g, cloudy_lay, cld_gate, ngb0, wg, use_lut,
-           dplankbnd_dt=None, radiances=False):
+           cldf_g, odcld_g, cloudy_lay, cld_gate, ngb0, wg, luts=None,
+           dplankbnd_dt=None, radiances=False, odcld_weighted=False):
     """Down and up sweeps -> (up, down, clear up, clear down) (B, L+1),
     and (d up/dT, d clear up/dT) when ``dplankbnd_dt`` (B, 16) is given
     (idrv=1).  ``radiances``: (that tuple, the per-g radiances (4, L, G,
@@ -276,13 +323,13 @@ def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
     L, G, B), then the d/dT derivative entering layer l and its clear
     twin (l = 0: the seed fracs[0] x dplankbnd_dt), what K1 SAVE keeps
     for the d/dT adjoint in the cloudy modes (``ddt_adjoint``'s
-    ``saved``)."""
+    ``saved``).  ``luts``, ``odcld_weighted``: as ``precompute``."""
     dtype = taut.dtype
     B, L, G = taut.shape
     ngb0 = ngb0.long()
 
     pre = precompute(taut, cldf_g, odcld_g, cld_gate, fracs, planklay,
-                     planklev, secd, ngb0, use_lut)
+                     planklev, secd, ngb0, luts, odcld_weighted)
     at, atot = pre["atrans"], pre["atot"]
     ef, cf = pre["efclfrac"], cldf_g
     cly = cloudy_lay[..., None]                          # (B, L, 1)
@@ -347,7 +394,7 @@ def _sweep(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
 
 def _sweep_maxrand(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
                    rows, odcld_g, ngb0, wg, dplankbnd_dt=None,
-                   radiances=False):
+                   radiances=False, luts=None, odcld_weighted=False):
     """Maximum-random overlap sweeps (rtrnmr.f90:591-615 down, 678-703
     up) -> (up, down, clear up, clear down) (B, L+1), and the d/dT pair
     when ``dplankbnd_dt`` is given, as ``_sweep``.  rows (B, L, 16) are
@@ -356,7 +403,8 @@ def _sweep_maxrand(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
     G, B)): as ``_sweep``'s four radiances, then the cloudy, clear and
     correction sub-streams (cr, kr, rr) entering layer l in the down
     sweep, then in the up sweep, and at idrv=1 the d/dT derivative
-    entering layer l and its clear twin, as ``_sweep``'s."""
+    entering layer l and its clear twin, as ``_sweep``'s.  ``luts``,
+    ``odcld_weighted``: as ``precompute``."""
     dtype = taut.dtype
     B, L, G = taut.shape
     ngb0 = ngb0.long()
@@ -364,7 +412,7 @@ def _sweep_maxrand(taut, fracs, planklay, planklev, plankbnd, semiss, secd,
     cloudy = cf >= CLOUD_GATE
     pre = precompute(taut, cf[..., None].expand(B, L, G), odcld_g,
                      cloudy[..., None].expand(B, L, G), fracs, planklay,
-                     planklev, secd, ngb0)
+                     planklev, secd, ngb0, luts, odcld_weighted)
     at, atot = pre["atrans"], pre["atot"]
     icl = rows[..., ROW_ICLDDN] > 0.0                    # cloud at or above
 
@@ -512,7 +560,7 @@ def _g_clouds(cloud_fields, taut, ngb0):
 
 
 def rt_sweep_blocked(taut_t, fracs_t, planklay_t, planklev_t, surf, ngb0,
-                     wg, cloud_fields=None, radiances=False):
+                     wg, cloud_fields=None, radiances=False, luts=None):
     """Band-integrated fluxes (4, L+1, B) = [up, down, clear up, clear
     down] from the kernel layouts, and rows 4-5 = [d up/dT, d clear
     up/dT] when surf has the fourth row (idrv=1): the plain version of
@@ -539,14 +587,19 @@ def rt_sweep_blocked(taut_t, fracs_t, planklay_t, planklev_t, surf, ngb0,
     ``rtrn_cuda.rt_sweep_radiances``, what K6 reads.
     In the per-g modes (cldf-odcld, fused) also the cloudy-layer words
     of the cloud fraction (``cloudy_words``): (the fluxes, rads, words),
-    the plain version of ``rtrn_cuda.rt_sweep_g_radiances``."""
+    the plain version of ``rtrn_cuda.rt_sweep_g_radiances``.
+
+    ``luts``: the table factors (``use_lut=True``), which no kernel
+    has.  A band subset: taut_t, fracs_t and the per-g cloud fields
+    hold the selected g-points' rows only (G of them), ngb0 and wg the
+    same G entries."""
     ngb0l = ngb0.long()
     taut = _tb(taut_t)
     cldf_g, odcld_g, gate = _g_clouds(cloud_fields, taut, ngb0l)
     secd, semiss, plankbnd, dpl = _surf(surf)
     res = _sweep(taut, _tb(fracs_t), _tb(planklay_t), _tb(planklev_t),
                  plankbnd, semiss, secd, cldf_g, odcld_g, gate.any(dim=-1),
-                 gate, ngb0, wg, use_lut=False, dplankbnd_dt=dpl,
+                 gate, ngb0, wg, luts=luts, dplankbnd_dt=dpl,
                  radiances=radiances)
     if not radiances:
         return torch.stack(res).permute(0, 2, 1).contiguous()
@@ -584,7 +637,8 @@ def _band_layouts(taut_t, fracs_t, planklay_t, planklev_t, surf, taucb_t,
 
 
 def rt_sweep_banded(taut_t, fracs_t, planklay_t, planklev_t, surf, cldf_t,
-                    taucb_t, ngb0, wg, radiances=False):
+                    taucb_t, ngb0, wg, radiances=False, luts=None,
+                    weighted=False):
     """Fluxes (4|6, L+1, B) under random overlap of per-band clouds
     (icld=1): the plain version of the RT kernel's banded mode.
     cldf_t (L, B) the cloud fraction, taucb_t (L, 16, B) the cloud od
@@ -592,7 +646,9 @@ def rt_sweep_banded(taut_t, fracs_t, planklay_t, planklev_t, surf, cldf_t,
     where cldf >= CLOUD_GATE, for every g.  surf as
     ``rt_sweep_blocked``.  ``radiances``: (the fluxes, rads (4|6, L, 140,
     B)), as ``rt_sweep_blocked``'s with clouds: the plain version of
-    ``rtrn_cuda.rt_sweep_g_radiances`` in the banded mode."""
+    ``rtrn_cuda.rt_sweep_g_radiances`` in the banded mode.  ``luts`` as
+    ``rt_sweep_blocked``'s; ``weighted``: taucb_t already carries its
+    secant (``precompute``'s ``odcld_weighted``), which no kernel takes."""
     taut, fracs, play, plev, odcld_g, secd, semiss, plankbnd, dpl = \
         _band_layouts(taut_t, fracs_t, planklay_t, planklev_t, surf,
                       taucb_t, ngb0)
@@ -601,8 +657,9 @@ def rt_sweep_banded(taut_t, fracs_t, planklay_t, planklev_t, surf, cldf_t,
     cloudy = cf >= CLOUD_GATE
     res = _sweep(taut, fracs, play, plev, plankbnd, semiss, secd,
                  cf[..., None].expand(B, L, G), odcld_g, cloudy,
-                 cloudy[..., None].expand(B, L, G), ngb0, wg,
-                 use_lut=False, dplankbnd_dt=dpl, radiances=radiances)
+                 cloudy[..., None].expand(B, L, G), ngb0, wg, luts=luts,
+                 dplankbnd_dt=dpl, radiances=radiances,
+                 odcld_weighted=weighted)
     fluxes, rads = res if radiances else (res, None)
     fluxes = torch.stack(fluxes).permute(0, 2, 1).contiguous()
     return (fluxes, rads.contiguous()) if radiances else fluxes
@@ -689,7 +746,8 @@ def unpack_state(rads, subs, rows_t):
 
 
 def rt_sweep_maxrand(taut_t, fracs_t, planklay_t, planklev_t, surf, rows_t,
-                     taucb_t, ngb0, wg, radiances=False):
+                     taucb_t, ngb0, wg, radiances=False, luts=None,
+                     weighted=False):
     """Fluxes (4|6, L+1, B) under maximum-random overlap (icld 2/3):
     the plain version of the RT kernel's maxrand mode.  rows_t
     (L, 16, B) from ``rtrnmr.overlap_rows``, taucb_t and surf as
@@ -700,13 +758,15 @@ def rt_sweep_maxrand(taut_t, fracs_t, planklay_t, planklev_t, surf, rows_t,
     140, B) the sub-streams (cr, kr, rr) entering a layer in the down
     sweep and in the up sweep where they are kept, packed
     (``pack_state``); the plain version of
-    ``rtrn_cuda.rt_sweep_maxrand_radiances``."""
+    ``rtrn_cuda.rt_sweep_maxrand_radiances``.  ``luts``, ``weighted``:
+    as ``rt_sweep_banded``'s."""
     taut, fracs, play, plev, odcld_g, secd, semiss, plankbnd, dpl = \
         _band_layouts(taut_t, fracs_t, planklay_t, planklev_t, surf,
                       taucb_t, ngb0)
     res = _sweep_maxrand(taut, fracs, play, plev, plankbnd, semiss, secd,
                          _tb(rows_t), odcld_g, ngb0, wg, dplankbnd_dt=dpl,
-                         radiances=radiances)
+                         radiances=radiances, luts=luts,
+                         odcld_weighted=weighted)
     fluxes, rads = res if radiances else (res, None)
     fluxes = torch.stack(fluxes).permute(0, 2, 1).contiguous()
     if not radiances:
@@ -841,40 +901,44 @@ def split_ddt(out):
 
 def rt_fluxes_blocked(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
                       semiss, pwvcm, ngb0, wg, cloud_fields=None,
-                      dplankbnd_dt=None, taua_t=None):
+                      dplankbnd_dt=None, taua_t=None, luts=None):
     """``rt_sweep_blocked`` with the surface rows formed from plankbnd,
     semiss, dplankbnd_dt (B, 16; None for idrv=0) and pwvcm (B,), split
     by ``split_ddt``: the plain version of ``rtrn_cuda.rt_fluxes_blocked``
     (and of ``rt_fluxes_fused`` / ``rt_fluxes_cldf_od``, whose cloud
-    fields select those modes)."""
+    fields select those modes).  ``luts``: the table factors
+    (``use_lut=True``), the route of the model's LUT steps on either
+    impl."""
     return split_ddt(rt_sweep_blocked(
         *spec_inputs(taut_t, fracs_t, taua_t, ngb0), planklay_t, planklev_t,
         surf_rows(plankbnd, semiss, pwvcm, planklay_t.dtype, dplankbnd_dt),
-        ngb0, wg, cloud_fields))
+        ngb0, wg, cloud_fields, luts=luts))
 
 
 def rt_fluxes_banded(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
                      semiss, pwvcm, ngb0, wg, cldf_t, taucb_t,
-                     dplankbnd_dt=None, taua_t=None):
+                     dplankbnd_dt=None, taua_t=None, luts=None,
+                     weighted=False):
     """``rt_sweep_banded`` with the surface rows formed as in
     ``rt_fluxes_blocked``: the plain version of
     ``rtrn_cuda.rt_fluxes_banded``."""
     return split_ddt(rt_sweep_banded(
         *spec_inputs(taut_t, fracs_t, taua_t, ngb0), planklay_t, planklev_t,
         surf_rows(plankbnd, semiss, pwvcm, planklay_t.dtype, dplankbnd_dt),
-        cldf_t, taucb_t, ngb0, wg))
+        cldf_t, taucb_t, ngb0, wg, luts=luts, weighted=weighted))
 
 
 def rt_fluxes_maxrand(taut_t, fracs_t, planklay_t, planklev_t, plankbnd,
                       semiss, pwvcm, ngb0, wg, rows_t, taucb_t,
-                      dplankbnd_dt=None, taua_t=None):
+                      dplankbnd_dt=None, taua_t=None, luts=None,
+                      weighted=False):
     """``rt_sweep_maxrand`` with the surface rows formed as in
     ``rt_fluxes_blocked``: the plain version of
     ``rtrn_cuda.rt_fluxes_maxrand``."""
     return split_ddt(rt_sweep_maxrand(
         *spec_inputs(taut_t, fracs_t, taua_t, ngb0), planklay_t, planklev_t,
         surf_rows(plankbnd, semiss, pwvcm, planklay_t.dtype, dplankbnd_dt),
-        rows_t, taucb_t, ngb0, wg))
+        rows_t, taucb_t, ngb0, wg, luts=luts, weighted=weighted))
 
 
 # the model's RT step per K1 mode, plain versions (``rtrn_cuda.WRAPPERS``

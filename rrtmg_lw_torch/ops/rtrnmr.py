@@ -1,12 +1,11 @@
 """Maximum-random cloud overlap: the per-column overlap factors.
 
-Port of ``rrtmg_lw_tpu.ops.rtrnmr`` (rrtmg_lw_rtrnmr.f90:51-806) for
-``use_lut=False``.  Two per-column passes compute the
-clear/cloud transfer factors between adjacent layers in each sweep
-direction (:347-428 up, :430-506 down), carrying the (rat1, rat2) state
-across contiguous cloudy blocks; the radiance recursion
-(``rtrn._sweep_maxrand``) then tracks cloudy and clear sub-streams that
-exchange a correction radiance.
+Port of ``rrtmg_lw_tpu.ops.rtrnmr`` (rrtmg_lw_rtrnmr.f90:51-806).  Two
+per-column passes compute the clear/cloud transfer factors between
+adjacent layers in each sweep direction (:347-428 up, :430-506 down),
+carrying the (rat1, rat2) state across contiguous cloudy blocks; the
+radiance recursion (``rtrn._sweep_maxrand``) then tracks cloudy and
+clear sub-streams that exchange a correction radiance.
 
 As in the JAX package, factors the reference leaves uninitialized on
 paths where they are never read are zero, and every division goes
@@ -131,17 +130,21 @@ def overlap_rows(cldfrac):
 
 
 def rt_maxrandom(taut, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
-                 pz, cldfrac, odcld_g, *, static, heatfac_val,
-                 use_lut=False, idrv=0, dplankbnd_dt=None):
-    """Maximum-random overlap RT (rtrnmr.f90), all 16 bands, in the
-    (B, L, G) layout: cldfrac (B, L) per layer, odcld_g (B, L, G) the
-    per-band cloud od expanded by band of g.  idrv=1 also gives
+                 pz, cldfrac, odcld_g, *, static, heatfac_val, luts=None,
+                 use_lut=False, idrv=0, dplankbnd_dt=None, istart=1,
+                 iend=16, odcld_weighted=False):
+    """Maximum-random overlap RT (rtrnmr.f90) over the g-points of bands
+    istart..iend, in the (B, L, G) layout: cldfrac (B, L) per layer,
+    odcld_g (B, L, G) the per-band cloud od expanded by band of g
+    (``odcld_weighted`` when it already carries its secant).
+    ``use_lut``: the table factors from ``luts``.  idrv=1 also gives
     d(up)/dT_sfc from ``dplankbnd_dt`` (B, 16)."""
-    if use_lut:
-        raise rtrn._lut_unported()
-    ngb0, wg = rtrn.g_tables(static, taut.device, taut.dtype)
+    gsel = rtrn.g_select(static, istart, iend)
+    ngb0, wg = (x[gsel] for x in rtrn.g_tables(static, taut.device,
+                                                taut.dtype))
     rows = overlap_rows(cldfrac).permute(2, 0, 1)      # (B, L, 16)
     return rtrn.rt_out(rtrn._sweep_maxrand(
         taut, fracs, planklay, planklev, plankbnd, semiss,
         rtrn.secdiff(pwvcm, taut.dtype), rows, odcld_g, ngb0, wg,
-        dplankbnd_dt if idrv else None), pz, heatfac_val)
+        dplankbnd_dt if idrv else None, luts=luts if use_lut else None,
+        odcld_weighted=odcld_weighted), pz, heatfac_val)

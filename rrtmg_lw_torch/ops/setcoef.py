@@ -7,6 +7,9 @@ takes them as inputs and never recomputes a log.
 
 ``interp_planck_blocked`` is the plain version of the Planck kernel
 (``ops.planck_cuda``), ``interp_planck_vjp`` that of its backward.
+With istart=16 (the band-16-only mode of a band subset) band 16's
+sources come from ``totplk16`` / ``totplk16deriv``
+(``band16_sources``), which the model writes over the kernel's band 16.
 Index arrays returned are 0-based int32.
 """
 
@@ -42,6 +45,30 @@ def _interp_planck(table, ind, frac):
     return lo + frac[..., None] * (hi - lo)
 
 
+def band16_sources(tavel, tz, static):
+    """istart=16: band 16's Planck sources at the layers (B, L) and the
+    levels (B, L+1) from ``totplk16``, which integrates 2600-3250 cm-1
+    only (setcoef.f90:233-251); level 0 keeps ``totplnk``'s slope, as the
+    JAX package has it (``lev0_16``)."""
+    dtype = tavel.dtype
+    totplk16 = static["totplk16"].to(dtype)
+    totplnk16 = static["totplnk"].to(dtype)[:, 15]
+    p16lay = _interp16(totplk16, *_planck_index(tavel))
+    indlev, fraclev = _planck_index(tz)
+    p16lev = _interp16(totplk16, indlev, fraclev)
+    i0 = indlev[:, 0].long()
+    lev0 = totplk16[i0 - 1] + fraclev[:, 0] * (totplnk16[i0]
+                                               - totplnk16[i0 - 1])
+    return p16lay, torch.cat([lev0[:, None], p16lev[:, 1:]], dim=1)
+
+
+def _interp16(table, ind, frac):
+    """table (181,); ind (...) 1-based -> (...)."""
+    lo = table[ind.long() - 1]
+    hi = table[ind.long()]
+    return lo + frac * (hi - lo)
+
+
 def interp_planck_blocked(temp_t, totplnk):
     """(N, B) temperatures -> (N, 16, B) Planck sources: the plain
     version of ``planck_cuda.planck_interp_blocked``."""
@@ -61,15 +88,12 @@ def interp_planck_vjp(temp_t, totplnk, ct):
 def setcoef(prof: Profile, static: dict, *, istart: int = 1, idrv: int = 0,
             planck: bool = True) -> SetcoefOut:
     """static: tensors preflog(59), tref(59), chi_mls(7, 59),
-    totplnk(181, 16), totplnkderiv(181, 16).
+    totplnk(181, 16), totplnkderiv(181, 16), totplk16(181),
+    totplk16deriv(181).
 
     ``planck=False`` leaves planklay/planklev as None, for callers that
-    interpolate them with the Planck kernel in its own layout."""
-    if istart != 1:
-        raise NotImplementedError(
-            "setcoef istart=16 (band-16-only Planck) is not ported yet; "
-            "see ROADMAP.md Queue 1, use_lut=True, the default config, "
-            "and band subsets")
+    interpolate them with the Planck kernel in its own layout (and, at
+    istart=16, place ``band16_sources`` in band 16 themselves)."""
     dtype = prof.pavel.dtype
     totplnk = static["totplnk"].to(dtype)
     totplnkd = static["totplnkderiv"].to(dtype)
@@ -87,6 +111,20 @@ def setcoef(prof: Profile, static: dict, *, istart: int = 1, idrv: int = 0,
         planklev = _interp_planck(totplnk, *_planck_index(tz))
     plankbnd = prof.semiss * _interp_planck(totplnk, indb, fracb)
     dplankbnd = prof.semiss * _interp_planck(totplnkd, indb, fracb)
+    if istart == 16:
+        # band-16-only mode (setcoef.f90:233-251)
+        sem16 = prof.semiss[:, 15:16]
+        plankbnd = torch.cat([plankbnd[:, :15], sem16 * _interp16(
+            static["totplk16"].to(dtype), indb, fracb)[:, None]], dim=1)
+        dplankbnd = torch.cat([dplankbnd[:, :15], sem16 * _interp16(
+            static["totplk16deriv"].to(dtype), indb, fracb)[:, None]],
+            dim=1)
+        if planck:
+            p16lay, p16lev = band16_sources(tavel, tz, static)
+            planklay = torch.cat([planklay[..., :15], p16lay[..., None]],
+                                 dim=-1)
+            planklev = torch.cat([planklev[..., :15], p16lev[..., None]],
+                                 dim=-1)
 
     # ----- pressure / temperature interpolation ----------------------------
     plog = torch.log(pavel)

@@ -3,8 +3,10 @@
 numpy-only copies of ``rrtmg_lw_tpu.utils.synthetic.make_atmosphere``,
 ``make_band_clouds`` and ``make_mcica_clouds`` (every layout): the
 same RNG calls in the same order, so for one seed the arrays are
-bitwise equal to the JAX package's.  Arrays are host numpy inside the port's NamedTuples; turn
-them into tensors with ``Atmosphere.from_numpy(atm, device, dtype)``.
+bitwise equal to the JAX package's.  ``make_ncbands_clouds`` (per-band
+clouds ordered to reach each final running ncbands) is the port's own.
+Arrays are host numpy inside the port's NamedTuples; turn them into
+tensors with ``Atmosphere.from_numpy(atm, device, dtype)``.
 """
 
 from __future__ import annotations
@@ -96,6 +98,53 @@ def make_band_clouds(ncol=4, nlay=51, seed=1, dtype=np.float64):
         ciwp=arr(ciwp), clwp=arr(clwp),
         reic=arr(np.full((ncol, nlay), 30.0)),
         relq=arr(np.full((ncol, nlay), 10.0)))
+
+
+# the column kinds of ``make_ncbands_clouds``, by the layers (of four
+# slots, bottom to top) that hold pure ice (i), ice and liquid (m) or
+# liquid only (w)
+NCBANDS_KINDS = ("imw.", "imwi", "i.i.", ".w.w", "....", "im..", "..mi",
+                 "w.i.")
+
+
+def make_ncbands_clouds(ncol=8, nlay=16, seed=3, dtype=np.float64):
+    """Per-band clouds (imca=0) whose layer order drives the reference's
+    running ncbands (rrtmg_lw_cldprop.f90:173-295) to each final value:
+    column c takes ``NCBANDS_KINDS[c % 8]``, four slots at layers 1, 3,
+    5 and max(7, nlay // 2) (where make_band_clouds puts its decks: a
+    slot at the cold layers between them takes the outgoing flux of
+    make_atmosphere's columns below 100 W/m2), each clear or holding
+    pure ice, ice and liquid, or liquid only (the pattern of the scalar
+    oracle's ordered field: pure ice below and above a mixed layer, a
+    liquid-only layer).  Under iceflag 1 / liqflag 1 the final ncbands
+    are 16 (ends on liquid) and 5 (ends on pure ice); under iceflag 0 a
+    pure-ice column stays at 1; under liqflag 0 a liquid-only column
+    stays at 1; a clear column keeps 1.  Cloud fractions 0.2-1, water
+    paths 5-40 g/m2, radii across each parameterization's bounds
+    (reic 8-140, relq 2-65 um)."""
+    rng = np.random.default_rng(seed)
+    rows = np.minimum([1, 3, 5, max(7, nlay // 2)], nlay - 1)
+    cldfrac = np.zeros((ncol, nlay))
+    ciwp = np.zeros((ncol, nlay))
+    clwp = np.zeros((ncol, nlay))
+    for c in range(ncol):
+        for row, k in zip(rows, NCBANDS_KINDS[c % len(NCBANDS_KINDS)]):
+            if k == ".":
+                continue
+            cldfrac[c, row] = 0.2 + 0.8 * rng.random()
+            if k in "im":
+                ciwp[c, row] = 5.0 + 35.0 * rng.random()
+            if k in "mw":
+                clwp[c, row] = 5.0 + 35.0 * rng.random()
+
+    def arr(x):
+        return np.asarray(x, dtype)
+
+    return BandClouds(
+        cldfrac=arr(cldfrac), tauc=arr(np.zeros((ncol, nlay, 16))),
+        ciwp=arr(ciwp), clwp=arr(clwp),
+        reic=arr(8.0 + 132.0 * rng.random((ncol, nlay))),
+        relq=arr(2.0 + 63.0 * rng.random((ncol, nlay))))
 
 
 def make_mcica_clouds(ncol=4, nlay=51, seed=2, dtype=np.float64, ngpt=140,

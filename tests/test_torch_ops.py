@@ -3,8 +3,10 @@ PyTorch version, against the JAX package's XLA counterpart in float64 on
 the same seeded numpy inputs: inatm, setcoef (+ the Planck plain
 version), the cloud coefficients, taumol, the RT sweep, and for
 deterministic clouds the per-band cloud optics (cldprop), the
-maximum-random overlap rows and the banded and maxrand sweeps, and the
-per-g sweep on K1's edge cases (clear, overcast and top-and-bottom
+maximum-random overlap rows and the banded and maxrand sweeps, the
+closed-form cloud coefficients, the running ncbands and the lookup-table
+factors (``use_lut=True``, bitwise), and the per-g sweep on K1's edge
+cases (clear, overcast and top-and-bottom
 columns, cloud fractions in (0, 0.5), od exactly 0.06 and 0).  Then,
 in float32, the spectral-storage codec (``spec_codec``) against the JAX
 package's ``taumol_pallas.spec_*`` functions, and the probes' plain
@@ -158,11 +160,23 @@ def test_cloud_coeffs_plain_match_jax(pair, iceflag):
 
 
 def test_cloud_coeffs_unported_flags_raise(pair):
-    reic, relq = (torch.full((2, 3), 20.0) for _ in range(2))
+    """The flag pairs the port once refused: the closed-form ice (iceflag
+    0/1) and liquid (liqflag 0) coefficients and their bounds against
+    the JAX package's, on radii across every bound."""
+    rng = np.random.default_rng(12)
+    reic = 1.0 + 149.0 * rng.random((B, L))
+    relq = 0.5 + 64.5 * rng.random((B, L))
     static = pair["tm"].static_tensors()
     for ice, liq in ((0, 1), (1, 1), (3, 0)):
-        with pytest.raises(NotImplementedError):
-            cldprop._ice_liq_coeffs(reic, relq, ice, liq, static)
+        ti, tl, tok = cldprop._ice_liq_coeffs(
+            torch.as_tensor(reic), torch.as_tensor(relq), ice, liq, static)
+        ji, jl, jok = jcldprop._ice_liq_coeffs(
+            jnp.asarray(reic), jnp.asarray(relq), ice, liq,
+            pair["jm"].static_np, jnp.float64)
+        assert_rel(ti, ji, tol=1e-14, name=f"abscoice {ice} {liq}")
+        assert_rel(tl, jl, tol=1e-14, name=f"abscoliq {ice} {liq}")
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+        assert tok.any() and not tok.all()
 
 
 def _band_slices():
@@ -377,8 +391,28 @@ def test_rt_sweep_plain_radiances_are_the_summed_ones(pair, cloudy):
 
 
 def test_rt_lut_unported(pair):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rtrn._gas_factors(torch.ones(3), use_lut=True)
+    """The lookup-table factors the port once refused, bitwise equal to
+    the JAX package's on ods across 0, the 0.06 branch point, the
+    table's ends and past them."""
+    jm = pair["jm"]
+    tm = make_model(device="cpu", tables=tables_from_numpy(
+        jm.ktables, jm.static_np, device="cpu"))
+    rng = np.random.default_rng(13)
+    x = np.concatenate([
+        [0.0, 1e-30, 1e-8, np.nextafter(0.06, 0), 0.06,
+         np.nextafter(0.06, 1), 0.1, 1.0, 40.0, 1e3, 1e6, 1e10, 1e300],
+        10.0 ** rng.uniform(-4, 4, 500)])
+    luts = {k: jnp.asarray(v) for k, v in tm.luts.items()}
+    for t_fn, j_fn in ((rtrn._gas_factors, jrtrn._gas_factors),
+                       (rtrn._tot_factors, jrtrn._tot_factors)):
+        got = t_fn(torch.as_tensor(x), tm.luts)
+        ref = j_fn(jnp.asarray(x), luts, True)
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    # the table branch quantizes the gas od through tau_tbl
+    _, _, od_eff = rtrn._gas_factors(torch.as_tensor(x), tm.luts)
+    assert not torch.equal(od_eff, torch.as_tensor(x))
 
 
 def overlap_patterns():
@@ -505,13 +539,29 @@ def test_cldprop_matches_jax(pair, inflag, iceflag):
 
 
 def test_cldprop_ncbands_configs_raise(pair):
-    tbc = BandClouds.from_numpy(band_clouds_np(2, 4), "cpu")
+    """The running-ncbands configurations the port once refused:
+    cldprop_ncbands (cloud-band od, final ncbands, bounds) and
+    expand_cloud_bands against the JAX package's on the ordered field."""
+    nbc = tsyn.make_ncbands_clouds(B, L)
+    jbc = type(nbc)(*(jnp.asarray(x) for x in nbc))
+    tbc = BandClouds.from_numpy(nbc, "cpu")
     static = pair["tm"].static_tensors()
+    sec = rtrn.secdiff(pair["tprof"].pwvcm, torch.float64)
+    jsec = jrtrn.secdiff(pair["jprof"].pwvcm, jnp.float64)
     for ice, liq in ((0, 1), (1, 1), (3, 0)):
         assert not cldprop.cloud_bands_static(2, ice, liq)
-        for fn in (cldprop.cldprop, cldprop.cldprop_banded_blocked):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                fn(tbc, static, inflag=2, iceflag=ice, liqflag=liq)
+        kw = dict(inflag=2, iceflag=ice, liqflag=liq)
+        tt, tn, tok = cldprop.cldprop_ncbands(tbc, static, **kw)
+        jt, jn, jok = jcldprop.cldprop_ncbands(jbc, pair["jm"].static_np,
+                                               **kw)
+        assert_rel(tt, jt, tol=1e-14, name=f"taucloud {ice} {liq}")
+        np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+        assert len(set(tn.tolist())) > 1
+        for weighted in (False, True):
+            assert_rel(cldprop.expand_cloud_bands(tt, tn, sec, weighted),
+                       jcldprop.expand_cloud_bands(jt, jn, jsec, weighted),
+                       tol=1e-14, name=f"expand {ice} {liq} {weighted}")
 
 
 @pytest.mark.parametrize("mode", ["banded", "maxrand"])

@@ -430,6 +430,16 @@ def test_config_impl_resolution():
     assert LWConfig(dtype="float32").torch_dtype == torch.float32
     with pytest.raises(ValueError):
         make_model(LWConfig(impl="cuda", use_lut=False), device="cpu")
+    # on a CUDA device (resolve_impl reads only its type): "auto" takes
+    # the kernels in float32 only, as the JAX package's auto takes Pallas
+    # (rrtmg_lw_tpu/models/radiation.py:56-69); "cuda" in float64 raises
+    assert LWConfig(dtype="float32").resolve_impl("cuda") == "cuda"
+    assert LWConfig().resolve_impl("cuda") == "eager"
+    assert LWConfig(dtype="float32", impl="cuda").resolve_impl("cuda") == \
+        "cuda"
+    with pytest.raises(ValueError, match="float32"):
+        LWConfig(impl="cuda").resolve_impl("cuda")
+    assert LWConfig(impl="eager").resolve_impl("cuda") == "eager"
 
 
 @pytest.mark.parametrize("kw", [
@@ -438,10 +448,20 @@ def test_config_impl_resolution():
     dict(icld=3, imca=0, liqflag=0), dict(istart=16),
     dict(istart=16, icld=1)])
 def test_unported_configs_raise(kw):
+    """The configurations the port once refused (use_lut=True, band
+    subsets, the running-ncbands cloud optics) run, and match the JAX
+    model (XLA engines) in float64 (tests/test_torch_lut.py's
+    tolerances)."""
+    from test_torch_lut import assert_parity, run_pair
     cfg = dict(use_lut=False)
     cfg.update(kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model(LWConfig(**cfg), device="cpu")
+    # per-band clouds ordered to drive the running ncbands, McICA's compact
+    kind = (None if not cfg.get("icld") else
+            "ncbands" if cfg.get("imca") == 0 else "compact")
+    out, ref = run_pair(cfg, kind)
+    assert_parity(out, ref)
+    if kind:
+        assert not torch.allclose(out.uflx, out.uflxc)
 
 
 @pytest.mark.parametrize("icld", [1, 2])
