@@ -51,6 +51,26 @@ Phases, each raising on failure (any failure exits non-zero):
      within TOL_STEP of eager per field; the wall, device busy,
      columns/s and peak of (a), (b), (f) and one (d) step on ``configs``
      lines;
+  2c. McICA sampling (``phase_mcica``): K8 (csrc/mcica.cu) bitwise equal
+     to its plain version (ops/mcica.py ``subcol_mask``: the Philox draw
+     and the overlap walk) at B=2048, L=60 and L=140, icld 1-5, float32
+     and float64 in, int8 and float masks, also fed given uniforms (the
+     overlap walk alone against ``mask_from_uniforms``); the hand-written
+     Philox4x32-10 equal to curand_Philox4x32_10 and to the plain version
+     on 4096 counters; tests/test_mcica.py's statistics on K8's output at
+     B=16384 (per-layer cloudy fraction, pairwise overlap, the binomial
+     envelope); the generate-then-radiate step (utils/profiling.py's
+     ``mcica_generate`` cells: K8 then K2, K3, K4 and K1 compact, icld 2
+     and icld 4 with ``get_alpha``) at B=16384, L=60, 3 steps counted on
+     every counter, held to the eager model on the same mask under
+     ``compare_models``' gates, then profiled beside ``mcica_cloudy`` (the
+     same step on fixed clouds: wall, busy, idle share, launches, K8's ms
+     in the step, peak); K8 bitwise at B=16384 too, its
+     wrapper, plain and torch.rand-of-its-uniforms ms, registers and
+     spills of its 32 instantiations (none may spill);
+  2d. the column-mode CLI (``phase_cli``): ``cli.run_case`` on a clear
+     and a McICA deck (nmca=2) written to a temporary directory, on the
+     card (its raws computed there) within 1e-10 of the CPU run;
   3. each kernel against its plain PyTorch version on the card at the
      main-path shapes (B=16384 columns, L=60 layers, float32), with the
      max error and CUDA-event times of both and the bound of each (the
@@ -212,9 +232,9 @@ bytes_moved and gbps_moved (every access the kernel makes,
 ``k6g_traffic``), their tile, ring slots and staging; the
 overlap kernels are timed on rotating copies of their inputs (L2 cold,
 ``utils.snapshot.rotating``).
-K5's, K6's and K1 SAVE's device_ms (every mode) come from
-``utils/snapshot.py --k5-times --k6-times --k6-ddt-times`` in a process
-of its own, started after phase 3; the entries of K6 with the d/dT
+K5's, K6's, K1 SAVE's (every mode) and K8's device_ms come from
+``utils/snapshot.py --k5-times --k6-times --k6-ddt-times --k8-times`` in
+a process of its own, started after phase 3; the entries of K6 with the d/dT
 adjoint (rt_adjoint_ddt_<mode>) also carry device_ms_deep (L=140), their
 registers, spill, shared memory and blocks per SM, scratch_gb (the bytes
 of clear's scratch, written and read once, beside the bound; 0 in the
@@ -298,6 +318,14 @@ K5_G_OPS = dict(post=1, corr=3, tap=24, key=7, cont=9, minor_eta=22,
                 minor=10, cfc=4, frac=3)
 K5_BAND_OPS = dict(base=30, eta=20, weights=48, tap=12, adj=45)
 
+# K8's operations, counted from csrc/mcica.cu: a Philox4x32-10 call (10
+# rounds of 2 high and 2 low 32-bit products and 4 xors; the four words'
+# shift, conversion and scale; the key schedule is shared by all calls),
+# and per (layer, g-point, column) the overlap walk's subtract, compare,
+# select or multiply, the mask's compare and conversion
+PHILOX_OPS = 92
+MCICA_OPS = 5
+
 K1_SRC = "rrtmg_lw_torch/csrc/rtrn_kernel.cuh"
 KERNELS = (  # name, source, replaced TPU kernel
     ("taumol", "rrtmg_lw_torch/csrc/taumol.cu",
@@ -370,6 +398,9 @@ KERNELS += tuple(
      "rrtmg_lw_tpu/ops/rtrn_pallas.py:" + ("1208" if m == "maxrand"
                                            else "1040"))
     for m in DDT_MODES)
+# K8, the McICA sampler: the counterpart of an XLA scan (no Pallas original)
+KERNELS += (("mcica", "rrtmg_lw_torch/csrc/mcica.cu",
+             "rrtmg_lw_tpu/ops/mcica.py:164"),)
 
 
 def need(cond, msg):
@@ -2776,8 +2807,9 @@ def k1_save_cases(device):
 def grad_device_times():
     """Device ms of K1 keeping the radiances and of K6 fed them, compact
     McICA on phase 3's inputs, maxrand and the ``G_MODES`` on their cells'
-    clouds, and of K5 (L=60; L=140 printed), from
-    ``utils/snapshot.py --k5-times --k6-times`` in a process of its own:
+    clouds, of K5 (L=60; L=140 printed) and of K8 (icld 2 at L=60; icld 4
+    and L=140 beside it), from ``utils/snapshot.py --k5-times --k6-times
+    --k8-times`` in a process of its own:
     in this script's long process the profiler's traces of these launches
     held 3 of 5 early and one or none late (phase 6 holds their results
     and their wrapper ms).  -> {summary name: device ms}."""
@@ -2785,18 +2817,20 @@ def grad_device_times():
     out6 = _build.BUILD_ROOT / "k6_times.json"
     out5 = _build.BUILD_ROOT / "k5_times.json"
     outd = _build.BUILD_ROOT / "k6_ddt_times.json"
-    for out in (out5, out6, outd):
+    out8 = _build.BUILD_ROOT / "k8_times.json"
+    for out in (out5, out6, outd, out8):
         out.unlink(missing_ok=True)
     res = subprocess.run(
         [sys.executable, "-m", "rrtmg_lw_torch.utils.snapshot",
          "--k5-times", str(out5), "--k6-times", str(out6),
-         "--k6-ddt-times", str(outd)],
+         "--k6-ddt-times", str(outd), "--k8-times", str(out8)],
         capture_output=True, text=True,
         cwd=pathlib.Path(__file__).resolve().parent, timeout=600)
     print(res.stdout, end="")
-    need(res.returncode == 0 and all(o.exists() for o in (out5, out6, outd)),
-         f"snapshot.py --k5-times --k6-times --k6-ddt-times failed:\n"
-         f"{res.stderr[-3000:]}")
+    need(res.returncode == 0
+         and all(o.exists() for o in (out5, out6, outd, out8)),
+         f"snapshot.py --k5-times --k6-times --k6-ddt-times --k8-times "
+         f"failed:\n{res.stderr[-3000:]}")
     all_rows = json.loads(out6.read_text())
     rows = {r["mode"]: r for r in all_rows if r["nlay"] == L_MAIN}
     deep = {r["mode"]: r for r in all_rows if r["nlay"] == L_DEEP}
@@ -2822,6 +2856,13 @@ def grad_device_times():
         out[f"rt_adjoint_ddt_{m}"] = dict(
             device_ms=ms[L_MAIN], device_ms_deep=ms[L_DEEP],
             k1_save_idrv_ms=k1[L_MAIN], k1_save_idrv_ms_deep=k1[L_DEEP])
+    k8 = {(r["icld"], r["nlay"]): r["device_ms"]
+          for r in json.loads(out8.read_text())}
+    out["mcica"] = dict(device_ms=k8[2, L_MAIN],
+                        device_ms_icld4=k8[4, L_MAIN],
+                        device_ms_deep=k8[2, L_DEEP])
+    print(f"device ms, K8 (icld 2, int8 mask): {k8[2, L_MAIN]:.4f} (icld 4 "
+          f"{k8[4, L_MAIN]:.4f}; L={L_DEEP} {k8[2, L_DEEP]:.4f})")
     print(f"device ms, K6 with the d/dT adjoint (at L={L_DEEP}): "
           + "; ".join(f"{m} {out[f'rt_adjoint_ddt_{m}']['device_ms']:.3f} "
                       f"({out[f'rt_adjoint_ddt_{m}']['device_ms_deep']:.3f})"
@@ -3480,6 +3521,285 @@ def phase_probes(device):
     return res, launches
 
 
+# K8, the McICA sampler: columns of its bitwise checks against the plain
+# version (the plain draw's int64 temporaries at the main width are ~275 MB
+# each), and of its statistics and the generate-then-radiate step
+B_K8 = 2048
+MCICA_CELLS = {2: "mcica_generate", 4: "mcica_generate_icld4"}
+
+
+def k8_ops(icld, B, L, dtype):
+    """K8's operations at (B, L): Philox calls (one a (g, column) at icld
+    3, else one a block of 4 (float32) or 2 (float64) layers, twice at
+    icld 4/5) and the overlap walk."""
+    from rrtmg_lw_torch.ops import mcica
+    per = mcica.per_call(dtype)
+    calls = B * 140 * (1 if icld == 3 else -(-L // per)
+                       * (2 if icld in (4, 5) else 1))
+    return calls * PHILOX_OPS + B * 140 * L * MCICA_OPS
+
+
+def k8_build_info(log_path):
+    """Registers and spill stores of K8's 32 instantiations (input
+    type, mask type, overlap, given uniforms) from the build log."""
+    from rrtmg_lw_torch import _build
+    names = dict(f="f32", d="f64", a="int8")
+    return _build.ptxas_info(
+        log_path, r"mcica_kernelI(f|d)(a|f|d)Li(\d)ELb([01])E",
+        lambda m: f"{names[m.group(1)]} {names[m.group(2)]} mask ovl"
+                  f"{m.group(3)}{' given' if m.group(4) == '1' else ''}")
+
+
+def k8_fields(B, L, dtype, device, seed):
+    """make_cloud_profile_fields' cloud fraction with random fractions,
+    zeros, ones and values below CLDMIN in a third of the cells (every
+    branch of the overlap walk), and a random alpha."""
+    from rrtmg_lw_torch.utils.synthetic import make_cloud_profile_fields
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cf = torch.as_tensor(make_cloud_profile_fields(B, L, seed=seed)
+                         ["cldfrac"], device=device).to(dtype)
+    r = torch.rand((B, L), generator=gen, device=device, dtype=dtype)
+    cf = torch.where(r < 0.3, torch.where(r < 0.03, 1e-25, (r * 4).clamp(
+        max=1.0)), cf)
+    return cf, torch.rand((B, L), generator=gen, device=device, dtype=dtype)
+
+
+def k8_statistics(device):
+    """tests/test_mcica.py's statistics on K8's output at B=16384:
+    per-layer cloudy fraction within 0.02 (icld 1-5; icld 3 level-uniform
+    decks), pairwise overlap of adjacent and separated decks (icld 1, 2,
+    3, 5), the compact binomial envelope (icld 1-3)."""
+    from rrtmg_lw_torch.ops import mcica
+    B = B_MAIN
+
+    def mask(icld, cf, alpha=None, seed=0):
+        return mcica.mcica_subcol_lw_compact(
+            mcica.key(seed), icld, cf, cf, cf, cf, cf, alpha=alpha,
+            mask_dtype=torch.int8).cldfmc[:, :140].bool()
+    cf = torch.zeros((B, 20), device=device)
+    cf[:, 4:8], cf[:, 12:14] = 0.6, 0.3
+    alpha = torch.full((B, 20), 0.8, device=device)
+    for icld in (1, 2, 3, 4, 5):
+        m = mask(icld, cf, alpha)
+        frac = m.float().mean(dim=(1, 2))
+        need(float((frac[4:8] - 0.6).abs().max()) <= 0.02
+             and float((frac[12:14] - 0.3).abs().max()) <= 0.02
+             and frac[0] == 0 and frac[-1] == 0,
+             f"K8 icld={icld}: per-layer cloudy fraction {frac.tolist()}")
+        need(icld != 3 or bool((m[4:8] == m[4:5]).all()),
+             "K8 icld=3: the deck's mask differs between layers")
+    cf = torch.zeros((B, 9), device=device)
+    cf[:, 1:3] = cf[:, 5:7] = 0.6
+    joint = {}
+    for icld, within, across in ((1, 0.36, 0.36), (2, 0.60, 0.36),
+                                 (3, 0.60, 0.60), (5, 0.552, None)):
+        m = mask(icld, cf, torch.full((B, 9), 0.8, device=device), seed=3)
+        w = float((m[1] & m[2]).float().mean())
+        a = float((m[2] & m[5]).float().mean())
+        need(abs(w - within) <= 0.02
+             and (across is None or abs(a - across) <= 0.02),
+             f"K8 icld={icld}: joint cloudy fraction {w:.4f} within a deck, "
+             f"{a:.4f} across, expected {within}, {across}")
+        joint[icld] = (w, a)
+    gen = torch.Generator(device=device).manual_seed(3)
+    cf = torch.rand((B, 12), generator=gen, device=device).clamp(0.05, 0.95)
+    sig = (cf * (1 - cf) / 140).sqrt()
+    for icld in (1, 2, 3):
+        m = mask(icld, cf, seed=11)
+        frac = m.float().mean(dim=1).t()
+        share = float(((frac - cf).abs() < 4.5 * sig + 1e-9).float().mean())
+        need(share > 0.99, f"K8 icld={icld}: {share:.4f} of the cells "
+             "inside the binomial envelope")
+        if icld == 3:
+            order = cf.t().argsort(dim=0)[:, None, :].expand(m.shape)
+            mono = m.to(torch.int8).gather(0, order).diff(dim=0) >= 0
+            need(bool(mono.all()),
+                 "K8 icld=3: the mask is not monotone in the cloud fraction")
+    print(f"mcica statistics at B={B}: per-layer fractions within 0.02, "
+          "joint (within, across) " + ", ".join(
+              f"icld {k} {w:.4f} {a:.4f}" for k, (w, a) in joint.items())
+          + "; the binomial envelope holds")
+
+
+def phase_mcica(device, counters):
+    """K8 (csrc/mcica.cu) and the generate-then-radiate step.  -> (the
+    summary entry, K8's launches on the main path, e2e rows)."""
+    from rrtmg_lw_torch import _build, make_model
+    from rrtmg_lw_torch.ops import mcica
+    from rrtmg_lw_torch.ops.mcica_cuda import philox_words, subcol_mask
+    from rrtmg_lw_torch.utils import profiling
+    t0 = time.perf_counter()
+    # (a) bitwise against the plain version: the draw, and the overlap walk
+    # on given uniforms
+    gen = torch.Generator(device=device).manual_seed(8)
+    for L in (L_MAIN, L_DEEP):
+        for dt in (torch.float32, torch.float64):
+            cf, al = k8_fields(B_K8, L, dt, device, seed=L)
+            for icld in (1, 2, 3, 4, 5):
+                alpha = al if icld in (4, 5) else None
+                k = mcica.fold_in(mcica.key(L), icld)
+                u = torch.rand((L, 140, B_K8), generator=gen, device=device,
+                               dtype=dt)
+                u2 = torch.rand((L, 140, B_K8), generator=gen, device=device,
+                                dtype=dt)
+                for mdt in (torch.int8, dt):
+                    got = mcica.mcica_subcol_lw_compact(
+                        k, icld, cf, cf, cf, cf, cf, alpha=alpha,
+                        mask_dtype=mdt).cldfmc
+                    given = subcol_mask(None, icld, cf, alpha, mask_dtype=mdt,
+                                        uniforms=(u, u2))
+                    need(torch.equal(got, mcica.subcol_mask(
+                        k, icld, cf, alpha, mask_dtype=mdt))
+                         and torch.equal(given, mcica.mask_from_uniforms(
+                             icld, cf, u, u2, alpha, mask_dtype=mdt)),
+                         f"K8 icld={icld} L={L} {dt} -> {mdt}: not bitwise "
+                         "the plain version")
+    print(f"mcica: K8 bitwise the plain version at B={B_K8}, L={L_MAIN} and "
+          f"{L_DEEP}, icld 1-5, float32 and float64 in, int8 and float "
+          "masks, drawing and on given uniforms")
+    # (b) the hand-written Philox against curand's and the plain version
+    ctr = torch.randint(-2 ** 31, 2 ** 31 - 1, (4096, 4), generator=gen,
+                        device=device, dtype=torch.int32)
+    for k in ((0, 0), (0xA4093822, 0x299F31D0), mcica.key(2 ** 40 + 5)):
+        hand = philox_words(ctr, k)
+        need(torch.equal(hand, philox_words(ctr, k, curand=True))
+             and torch.equal(hand.cpu().to(torch.int64) & mcica.M32,
+                             philox_words(ctr.cpu(), k)),
+             f"Philox4x32-10 under key {k}: K8's differs from curand's")
+    print("mcica: the hand-written Philox4x32-10 equals curand_Philox4x32_10 "
+          "and the plain version on 4096 counters under 3 keys")
+    # (c) statistics of K8's own draws at full width
+    k8_statistics(device)
+    torch.cuda.empty_cache()
+
+    # (d) the main path: generate then radiate at B=16384, L=60, each step
+    # counted on every counter
+    per_step = dict(FWD, rt_sweep=1, mcica=1)
+    rows, out = [], {}
+    for icld, cell in MCICA_CELLS.items():
+        atm, f = profiling.cell_inputs(cell, device)
+        cfg = profiling.CELLS[cell].config
+        mk = make_model(cfg(impl="cuda"), device=device)
+        me = make_model(cfg(impl="eager"), device=device)
+
+        def sample(i):
+            return mcica.mcica_subcol_lw_compact(
+                mcica.fold_in(mcica.key(0), i), icld, **f,
+                mask_dtype=torch.int8)
+        mk(atm, sample(0))                          # warm-up
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        w0 = time.perf_counter()
+        for i in range(1, STEPS + 1):
+            clouds = sample(i)
+            fk = mk(atm, clouds)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - w0) * 1e3 / STEPS
+        counts = {k: fn.launches for k, fn in counters.items()}
+        want = {k: per_step.get(k, 0) * STEPS for k in counters}
+        need(counts == want, f"{cell}: launches {counts}, expected {want}")
+        out.setdefault("launches", counts["mcica"])
+        fe = me(atm, clouds)
+        err = compare_models(cell, fk, fe, True)
+        need(not torch.allclose(fk.uflx, fk.uflxc),
+             f"{cell}: the clouds left the all-sky fluxes unchanged")
+        print(f"{cell}: launches in its {STEPS} steps {counts}; flux err "
+              f"cuda vs eager {err:.3g}; {ms:.2f} ms a step")
+        if icld == 2:
+            # K8 at the main path's shape: wrapper ms, plain ms (bitwise at
+            # full width), torch.rand of the uniforms it draws, the bound
+            cf = f["cldfrac"]
+            k = mcica.key(1)
+            mask = subcol_mask(k, 2, cf, mask_dtype=torch.int8)
+            plain = mcica.subcol_mask(k, 2, cf, mask_dtype=torch.int8)
+            need(torch.equal(mask, plain),
+                 "K8 at B=16384: not bitwise the plain version")
+            del plain
+            out.update(
+                max_abs_err=0.0,
+                ms=cuda_ms(lambda: subcol_mask(k, 2, cf,
+                                               mask_dtype=torch.int8), 20),
+                plain_ms=cuda_ms(lambda: mcica.subcol_mask(
+                    k, 2, cf, mask_dtype=torch.int8), 2),
+                rand_ms=cuda_ms(lambda: torch.rand(
+                    (L_MAIN, 140, B_MAIN), device=device), 20),
+                **{f"ms_icld{n}": cuda_ms(lambda: subcol_mask(
+                    k, n, cf, mask_dtype=torch.int8), 20) for n in (1, 3)},
+                library_note="none: a scan with carries",
+                **bound((cf,), (mask,), k8_ops(2, B_MAIN, L_MAIN,
+                                               torch.float32)))
+        else:
+            fa = f["alpha"]
+            out.update(ms_icld4=cuda_ms(lambda: subcol_mask(
+                mcica.key(1), icld, f["cldfrac"], fa,
+                mask_dtype=torch.int8), 20),
+                rand_ms_icld4=cuda_ms(lambda: torch.rand(
+                    (2, L_MAIN, 140, B_MAIN), device=device), 20))
+        del mk, me, atm, f, fk, fe, clouds
+        torch.cuda.empty_cache()
+    # the steps profiled with nothing else held, beside the same forward
+    # step on fixed McICA clouds (mcica_cloudy): K8's cost end to end
+    for cell in ("mcica_cloudy", *MCICA_CELLS.values()):
+        row = profiling.profile_cell(cell, device)
+        rows.append(row)
+        print(f"{cell}: profiled, wall {row['wall_ms_median']:.2f} ms (q1 "
+              f"{row['wall_ms_q1']:.2f}, q3 {row['wall_ms_q3']:.2f}), busy "
+              f"{row['busy_ms']:.2f} ms, idle {row['idle_share']:.3f}, "
+              f"{row['launches_per_step']:.1f} launches a step, K8 "
+              f"{row['kernel_ms'].get('K8', 0):.4f} ms, peak "
+              f"{row['peak_gib']:.2f} GiB")
+        torch.cuda.empty_cache()
+    path, _ = _build.build()
+    info = k8_build_info(path.parent / "build.log")
+    need(len(info) == 32 and all(r.get("spill_bytes", 0) == 0
+                                 for r in info.values()),
+         f"K8: {len(info)} instantiations in the build log, or a spill")
+    main = info["f32 int8 mask ovl2"]
+    out.update(registers=main["registers"], spill_bytes=0,
+               registers_max=max(r["registers"] for r in info.values()))
+    print(f"mcica (K8, f32 in, int8 mask, icld 2): wrapper {out['ms']:.4f} "
+          f"ms (icld 1: {out['ms_icld1']:.4f}, icld 3: {out['ms_icld3']:.4f}, "
+          f"icld 4: {out['ms_icld4']:.4f}), plain {out['plain_ms']:.2f} "
+          f"ms, torch.rand of its uniforms {out['rand_ms']:.4f} ms (icld 4: "
+          f"{out['rand_ms_icld4']:.4f}), bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}), {main['registers']} registers (at most "
+          f"{out['registers_max']} of 32 instantiations), no spills; "
+          f"phase {time.perf_counter() - t0:.1f} s")
+    return out, rows
+
+
+def phase_cli(device):
+    """The column-mode CLI on the card: ``run_case`` on a clear AUTLAY
+    deck and a McICA deck (icld=2, nmca=2) written to a temporary
+    directory, the model's tensors on the card, its raws within 1e-10 of
+    the same run on the CPU."""
+    import tempfile
+    from rrtmg_lw_torch import cli
+    from rrtmg_lw_torch.io import read_input_rrtm
+    from rrtmg_lw_torch.utils.synthetic import write_column_deck
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kw in (("clear", {}), ("mcica", dict(icld=2, imca=1))):
+            case = read_input_rrtm(write_column_deck(
+                pathlib.Path(tmp) / name, **kw))
+            gpu, raws = cli.run_case(case, nmca=2, return_raw=True)
+            cpu, ref = cli.run_case(case, nmca=2, return_raw=True,
+                                    device="cpu")
+            need(all(r["device"].startswith("cuda") for r in raws)
+                 and all(r["device"] == "cpu" for r in ref),
+                 f"cli {name}: ran on {[r['device'] for r in raws]}")
+            err = max(float(np.abs(a[k] - b[k]).max()) for a, b in
+                      zip(raws, ref) for k in ("uflx", "dflx", "fnet",
+                                               "htr"))
+            need(err <= 1e-10 and len(gpu) == len(cpu) == 1,
+                 f"cli {name}: card against CPU {err:.3g}")
+            same = "text-identical" if gpu == cpu else "differ in print"
+            print(f"cli {name} ({case.nlayers} layers): card against CPU "
+                  f"{err:.3g}, the blocks {same}")
+    print(f"cli: {time.perf_counter() - t0:.1f} s")
+
+
 def launch_counters():
     """(counters, fwd_counters): the launch counters (the wrappers, whose
     ``launches`` each counts) of K2, K3, K4 and K1 clear / compact, and
@@ -3498,6 +3818,7 @@ def launch_counters():
                                               rt_sweep_g_vjp,
                                               rt_sweep_maxrand_vjp,
                                               rt_sweep_vjp)
+    from rrtmg_lw_torch.ops.mcica_cuda import subcol_mask
     from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows, overlap_rows_vjp
     from rrtmg_lw_torch.ops.taumol_cuda import taumol_blocked, taumol_vjp
     counters = {"taumol": taumol_blocked, "planck": planck_interp_blocked,
@@ -3523,7 +3844,7 @@ def launch_counters():
     fwd_counters = dict(counters, **bwd_counters,
                         rt_sweep_banded=rt_fluxes_banded,
                         rt_sweep_maxrand=rt_fluxes_maxrand,
-                        overlap_rows=overlap_rows,
+                        overlap_rows=overlap_rows, mcica=subcol_mask,
                         rt_sweep_fused=rt_fluxes_fused,
                         rt_sweep_cldf_od=rt_fluxes_cldf_od,
                         rt_sweep_idrv=rt_fluxes_blocked.idrv,
@@ -3624,9 +3945,14 @@ def main() -> int:
     # long process
     phase_configs(device, fwd_counters)
     torch.cuda.empty_cache()
+    # 2c. K8 and the generate-then-radiate step; 2d. the column-mode CLI
+    mcica_res, mcica_rows = phase_mcica(device, fwd_counters)
+    torch.cuda.empty_cache()
+    phase_cli(device)
 
     # 3. kernels vs plain versions; then K2 and K1 in reduced storage
     res = phase_kernels(device)
+    res["mcica"] = mcica_res
     torch.cuda.empty_cache()
     res["rt_sweep"].update(k1_deep(device))
     torch.cuda.empty_cache()
@@ -3652,6 +3978,8 @@ def main() -> int:
         for k, n in counts.items():
             if n and k not in launches:
                 launches[k] = n
+    launches["mcica"] = mcica_res.pop("launches")
+    rows += mcica_rows
 
     # 5. deep
     rows += phase_deep(device, counters)
@@ -3791,6 +4119,14 @@ def main() -> int:
         print(f"{name} ({key}): device {r['device_ms']:.3f} ms, "
               f"{r['gbps']:.0f} GB/s of its bytes read once, bound "
               f"{r['bound_ms']:.3f} ms")
+    r = res["mcica"]
+    r["gbps"] = r["bytes_once"] / (r["device_ms"] * 1e-3) / 1e9
+    print(f"mcica (K8): device {r['device_ms']:.4f} ms (icld 4 "
+          f"{r['device_ms_icld4']:.4f}, L={L_DEEP} {r['device_ms_deep']:.4f}),"
+          f" {r['gbps']:.0f} GB/s of its bytes, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}); wrapper {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.2f} ms, torch.rand of its uniforms "
+          f"{r['rand_ms']:.4f} ms")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **res[name])
                for name, src, rep in KERNELS]

@@ -39,7 +39,7 @@ LIB_NAME = "librrtmg_lw_torch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 # entry point -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "rrtm_planck": (P, P, P, I, I, P),
@@ -75,6 +75,8 @@ SIGNATURES = {
     "rrtm_taumol_ndesc": (),
     "rrtm_probe_onehot": (P, P, P, I, I, I, I, I, P),
     "rrtm_probe_gather": (P, P, P, I, I, I, P),
+    "rrtm_mcica": (P,) * 5 + (U, U) + (I,) * 6 + (P,),
+    "rrtm_philox": (P, P, U, U, I, I, P),
 }
 
 

@@ -7,7 +7,10 @@ For each cell (``CELLS``, at ``NCOL`` columns: the forward step, or the
 gradient step of
 ``parallel.make_grad_step`` for the ``*_grad`` cells, also with respect
 to the clouds' fields ``Cell.cloud_grads``, of the default loss or, the
-``*_ddt_grad`` cells, of ``ddt_loss``, which reads the d/dT outputs):
+``*_ddt_grad`` cells, of ``ddt_loss``, which reads the d/dT outputs;
+for the ``mcica_generate*`` cells the generate-then-radiate step,
+``generate_step``: K8 samples the compact int8 mask from the (B, L)
+cloud profile, then the forward step):
 the median and
 quartiles of 20 host-timed steps (host clock around work that ends in ``torch.cuda.synchronize``),
 then ``torch.profiler`` over 5 steps: device busy ms per step (the union
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import os
 import pathlib
@@ -47,7 +51,8 @@ AOD_SPEC = 0.1
 class Cell(NamedTuple):
     icld: int
     imca: int
-    clouds: Optional[str]      # cloud generator (``cell_inputs``)
+    clouds: Optional[str]      # cloud generator (``cell_inputs``);
+    #                            "profile": the McICA generator's inputs
     nlay: int
     grad: bool = False         # the gradient step
     inflag: int = 2
@@ -105,6 +110,9 @@ CELLS = {"clear": Cell(0, 1, None, 60),
          "mcica_cloudy_logu16": Cell(2, 1, "mcica", 60, spec="logu16",
                                      aod=AOD_SPEC),
          "mcica_cloudy_deep": Cell(2, 1, "mcica", 140),
+         # generate then radiate: K8 samples the sub-columns inside the step
+         "mcica_generate": Cell(2, 1, "profile", 60),
+         "mcica_generate_icld4": Cell(4, 1, "profile", 60),
          "mcica_cloudy_grad": Cell(2, 1, "mcica", 60, True),
          "clear_grad": Cell(0, 1, None, 60, True),
          "maxrand_cloudy_grad": Cell(2, 0, "band", 60, True,
@@ -161,7 +169,8 @@ KERNEL_SYMBOLS = tuple(
     ("rt_bwd_mr_ddt_kernel", "K6 maxrand ddt")) + tuple(
     (f"rt_bwd_g{d}_kernel<{m}>", f"K6 {name}{d.replace('_', ' ')}")
     for m, name in K6_G_MODES.items() for d in ("", "_ddt")) + (
-    ("taumol_bwd_kernel", "K5"), ("planck_bwd_kernel", "K3b"))
+    ("taumol_bwd_kernel", "K5"), ("planck_bwd_kernel", "K3b"),
+    ("mcica_kernel", "K8"))
 
 
 def cell_inputs(cell, device, aod=None):
@@ -195,7 +204,41 @@ def cell_inputs(cell, device, aod=None):
     if c.clouds == "band":
         return atm, BandClouds.from_numpy(
             make_band_clouds(NCOL, c.nlay, seed=1), device, torch.float32)
+    if c.clouds == "profile":
+        return atm, cloud_profile(atm, c.icld, device)
     return atm, None
+
+
+def cloud_profile(atm, icld, device, seed=0):
+    """The McICA generator's (B, L) inputs for ``atm``'s columns
+    (``make_cloud_profile_fields`` from ``seed``, float32 on ``device``),
+    with, for icld 4/5, ``alpha`` from ``mcica.get_alpha`` of the layers'
+    hypsometric thickness (R_d / g = 29.27 m/K)."""
+    from ..ops import mcica
+    from .synthetic import make_cloud_profile_fields
+    B, L = atm.tlay.shape
+    fields = {k: torch.as_tensor(v, device=device) for k, v in
+              make_cloud_profile_fields(B, L, seed=seed).items()}
+    dz = 29.27 * atm.tlay * torch.log(atm.plev[:, :-1] / atm.plev[:, 1:])
+    fields["alpha"] = (mcica.get_alpha(dz, icld, cldfrac=fields["cldfrac"])
+                       if icld in (4, 5) else None)
+    return fields
+
+
+def generate_step(model, seed=0):
+    """The generate-then-radiate step of ``model`` (McICA, compact int8
+    mask): ``step(atm, fields)`` samples the sub-columns of the
+    ``cloud_profile`` ``fields`` with the key of ``seed`` folded with the
+    call's count (``mcica.mcica_subcol_lw_compact``: K8 on the card), then
+    runs the model on them."""
+    from ..ops import mcica
+    calls = itertools.count()
+
+    def step(atm, fields):
+        k = mcica.fold_in(mcica.key(seed), next(calls))
+        return model(atm, mcica.mcica_subcol_lw_compact(
+            k, model.config.icld, **fields, mask_dtype=torch.int8))
+    return step
 
 
 def _union_ms(intervals):
@@ -224,7 +267,7 @@ def profile_cell(cell, device, steps=20, traced=5):
     from ..parallel import make_grad_step
     c = CELLS[cell]
     model = c.make_model(device)
-    step = model
+    step = generate_step(model) if c.clouds == "profile" else model
     if c.grad:
         step = make_grad_step(model, ddt_loss(NCOL, c.nlay, device)
                               if c.ddt else None, c.cloud_grads)

@@ -36,7 +36,7 @@ plain version ``ddt_plain_vjp``, which ``chip_smoke.py`` and the tests
 share; also of K1 SAVE at idrv=1 in the mode, and their sum);
 ``--overlap-times``
 those of the overlap-rows kernel and (where the checkout has it) its
-adjoint.  ``--ddt-out`` saves the d/dT instantiations' outputs in every
+adjoint; ``--k8-times`` those of K8, the McICA sampler (``k8_times``).  ``--ddt-out`` saves the d/dT instantiations' outputs in every
 mode on ``ddt_cases`` at L=60 (``ddt_outputs``, their first 512
 columns), which ``--compare`` holds against another checkout's,
 counting the elements bitwise equal where an output differs.  The
@@ -1070,6 +1070,31 @@ def overlap_times(device, reps=20) -> list:
     return rows
 
 
+def k8_times(device, reps=5) -> list:
+    """Device ms per launch of K8 (the McICA sampler, float32 in, int8
+    mask) on the generate-then-radiate cells' cloud profiles
+    (``profiling.cloud_profile``, B=16384): icld 2 and 4 at L=60, icld 2
+    at L=140.  -> [{icld, nlay, device_ms}]."""
+    from rrtmg_lw_torch.ops import mcica
+    from rrtmg_lw_torch.ops.mcica_cuda import subcol_mask
+    from rrtmg_lw_torch.types import Atmosphere
+    from rrtmg_lw_torch.utils.profiling import NCOL, cloud_profile
+    from rrtmg_lw_torch.utils.synthetic import make_atmosphere
+    rows = []
+    for icld, nlay in ((2, 60), (4, 60), (2, 140)):
+        atm = Atmosphere.from_numpy(make_atmosphere(NCOL, nlay), device,
+                                    torch.float32)
+        f = cloud_profile(atm, icld, device)
+        k = mcica.key(0)
+        ms = kernel_ms(lambda: subcol_mask(k, icld, f["cldfrac"],
+                                           f["alpha"],
+                                           mask_dtype=torch.int8),
+                       "mcica_kernel", reps)
+        rows.append(dict(icld=icld, nlay=nlay, device_ms=ms))
+        print(rows[-1], flush=True)
+    return rows
+
+
 def k2_times(device, reps=5) -> list:
     """Device ms per launch of K2 in every storage on phase 3's inputs
     (L=60) and the mcica_cloudy_deep cell's (L=140), B=16384.  -> [{nlay,
@@ -1146,6 +1171,8 @@ def main(argv=None) -> int:
     ap.add_argument("--overlap-times", metavar="OUT",
                     help="time the overlap rows and their adjoint into OUT "
                          "(JSON)")
+    ap.add_argument("--k8-times", metavar="OUT",
+                    help="time K8, the McICA sampler, into OUT (JSON)")
     ap.add_argument("--ddt-out", metavar="OUT",
                     help="save K6's d/dT outputs in every mode (ddt_outputs) "
                          "to OUT, for --compare")
@@ -1153,7 +1180,8 @@ def main(argv=None) -> int:
     for opt, times in ((args.k1_times, k1_times), (args.k2_times, k2_times),
                        (args.k5_times, k5_times), (args.k6_times, k6_times),
                        (args.k6_ddt_times, ddt_times),
-                       (args.overlap_times, overlap_times)):
+                       (args.overlap_times, overlap_times),
+                       (args.k8_times, k8_times)):
         if not opt:
             continue
         if not torch.cuda.is_available():

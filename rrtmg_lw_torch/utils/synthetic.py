@@ -1,9 +1,12 @@
 """Deterministic synthetic inputs (atmospheres, McICA and band clouds).
 
 numpy-only copies of ``rrtmg_lw_tpu.utils.synthetic.make_atmosphere``,
-``make_band_clouds`` and ``make_mcica_clouds`` (every layout): the
+``make_band_clouds``, ``make_mcica_clouds`` (every layout) and
+``make_cloud_profile_fields`` (the McICA generator's inputs): the
 same RNG calls in the same order, so for one seed the arrays are
-bitwise equal to the JAX package's.  ``make_ncbands_clouds`` (per-band
+bitwise equal to the JAX package's.  ``write_column_deck`` writes a
+column-mode input deck (INPUT_RRTM, and IN_CLD_RRTM for a cloudy one)
+for the CLI.  ``make_ncbands_clouds`` (per-band
 clouds ordered to reach each final running ncbands) is the port's own.
 Arrays are host numpy inside the port's NamedTuples; turn them into
 tensors with ``Atmosphere.from_numpy(atm, device, dtype)``.
@@ -220,3 +223,73 @@ def make_mcica_clouds(ncol=4, nlay=51, seed=2, dtype=np.float64, ngpt=140,
         cldfmc=arr(cldf), ciwpmc=arr(ciwp), clwpmc=arr(clwp),
         taucmc=arr(np.zeros((ncol, nlay, ngpt), npdt)), reicmc=reic,
         relqmc=relq)
+
+
+def make_cloud_profile_fields(ncol=4, nlay=51, seed=0):
+    """(B, L) cloud profile fields {cldfrac, ciwp, clwp, rei, rel} —
+    the device-side McICA generator's inputs (mcica_subcol_lw_compact).
+    One 4-layer deck of partial cloud per column."""
+    rng = np.random.default_rng(seed)
+    cldfrac = np.zeros((ncol, nlay), np.float32)
+    lo = 3 + rng.integers(0, 3, ncol)
+    rows = np.minimum(lo[:, None] + np.arange(4), nlay - 1)
+    cols = np.arange(ncol)[:, None]
+    cldfrac[cols, rows] = (0.3 + 0.5 * rng.random((ncol, 1))
+                           ).astype(np.float32)
+    wet = cldfrac > 0
+    return dict(
+        cldfrac=cldfrac,
+        ciwp=np.where(wet, 20.0 + 15.0 * rng.random((ncol, nlay)),
+                      0.0).astype(np.float32),
+        clwp=np.where(wet, 15.0 + 10.0 * rng.random((ncol, nlay)),
+                      0.0).astype(np.float32),
+        rei=np.full((ncol, nlay), 25.0, np.float32),
+        rel=np.full((ncol, nlay), 12.0, np.float32))
+
+
+# the cloudy layers of write_column_deck's IN_CLD_RRTM: (layer, cloud
+# fraction, cloud water path, ice fraction, rei, rel)
+DECK_CLOUD_LAYERS = ((3, 0.6, 40.0, 0.2, 30.0, 10.0),
+                     (4, 0.8, 60.0, 0.1, 35.0, 12.0),
+                     (5, 0.3, 20.0, 0.0, 25.0, 8.0),
+                     (9, 0.5, 15.0, 0.9, 60.0, 14.0),
+                     (10, 0.5, 10.0, 1.0, 70.0, 14.0))
+
+
+def write_column_deck(path, xsec=False, icld=0, imca=0):
+    """An INPUT_RRTM in the directory ``path``: IATM=1 with AUTLAY
+    layering of the built-in MODEL 2 atmosphere from 0 to 70 km, IOUT=0
+    (one block, bands 1-16); with ``xsec`` four cross sections (XAMNTS,
+    CCL4, CFC11, CFC12, CFC22 standard profiles); with ``icld`` the cloud
+    flags (``imca``: McICA) and an IN_CLD_RRTM beside it (inflag 2,
+    iceflag 3, liqflag 1, ``DECK_CLOUD_LAYERS``), icld 4/5 with records
+    1.5 (IDCOR=1, JULDAT=200).  Record layouts:
+    doc/rrtmg_lw_instructions.txt; -> the INPUT_RRTM path."""
+    import pathlib
+
+    def put(line, col, text):
+        line = line.ljust(col - 1 + len(text))
+        return line[:col - 1] + text + line[col - 1 + len(text):]
+
+    path = pathlib.Path(path)
+    rec12 = put(put("", 50, "1"), 88, "  0")        # IATM, IOUT
+    if xsec:
+        rec12 = put(rec12, 70, "1")                 # IXSECT
+    if icld:
+        rec12 = put(put(rec12, 94, str(imca)), 95, str(icld))
+    lines = ["$ synthetic column deck", rec12, "294.2"]
+    if icld in (4, 5):
+        lines += [f"{'':8}{1:2d}", f"{'':5}{200:5d}{0.0:10.3f}"]
+    lines += ["    2    2    0    1    1    7    0",
+              f"{0.0:10.3f}{70.0:10.3f}", ""]
+    if xsec:
+        lines += ["    4    1    0",
+                  "CCL4      CFC11     CFC12     CFC22     "]
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "INPUT_RRTM").write_text("\n".join(lines + ["%"]) + "\n")
+    if icld:
+        rows = [f"   {2:2d}    {3:1d}    {1:1d}"] + [
+            f"  {lay:3d}" + "".join(f"{v:10.5f}" for v in vals)
+            for lay, *vals in DECK_CLOUD_LAYERS] + ["%"]
+        (path / "IN_CLD_RRTM").write_text("\n".join(rows) + "\n")
+    return path / "INPUT_RRTM"

@@ -44,7 +44,10 @@ threads, at least two blocks per SM, no spill) and K5's (128 threads,
 at least MIN_BLOCKS blocks per SM, no spill); K5 also at B off, on and
 past its 128-column tile, and refusing a descriptor of another band
 structure, as K2 does.  The probes
-(utils/probes.py) bitwise equal to tbl[idx].
+(utils/probes.py) bitwise equal to tbl[idx].  K8, the McICA sampler,
+bitwise its plain version (drawing and on given uniforms, icld 1-5,
+both input types and mask types, ragged shapes), its Philox equal to
+curand's, and both generator layouts launching it.
 """
 
 import functools
@@ -1567,3 +1570,89 @@ def test_probe_gather_kernel_is_the_row_gather(dev, C, R, D):
     from rrtmg_lw_torch.utils import probes
     idx, tbl = probes.probe_inputs(dev, C=C, R=R, D=D)
     assert torch.equal(probes.gather_rows(idx, tbl), tbl[idx.long()])
+
+
+# K8, the McICA sampler (csrc/mcica.cu): bitwise its plain version at
+# ragged shapes (columns off its 32-column tile, one layer, layers off the
+# 4- and 2-layer Philox blocks), drawing and fed given uniforms, int8 and
+# float masks, every byte of the mask written (pad rows zero)
+@pytest.mark.parametrize("B,L", [(1, 1), (31, 2), (33, 5), (100, 61)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("icld", [1, 2, 3, 4, 5])
+def test_mcica_kernel_matches_plain(dev, B, L, dtype, icld):
+    from rrtmg_lw_torch.ops import mcica
+    from rrtmg_lw_torch.ops.mcica_cuda import subcol_mask
+    g = torch.Generator(device=dev).manual_seed(B * L + icld)
+    cf = torch.rand((B, L), generator=g, device=dev, dtype=dtype)
+    cf = torch.where(cf < 0.3, 0.0, torch.where(cf > 0.9, 1.0, cf))
+    al = torch.rand((B, L), generator=g, device=dev, dtype=dtype)
+    k = mcica.fold_in(mcica.key(B), L)
+    u = torch.rand((L, 140, B), generator=g, device=dev, dtype=dtype)
+    u2 = torch.rand((L, 140, B), generator=g, device=dev, dtype=dtype)
+    for mdt in (torch.int8, dtype):
+        for g_pad in (144, 141):
+            n0, n1 = subcol_mask.launches, subcol_mask.given.launches
+            got = subcol_mask(k, icld, cf, al, g_pad, mdt)
+            given = subcol_mask(None, icld, cf, al, g_pad, mdt,
+                                uniforms=(u, u2))
+            torch.cuda.synchronize()
+            assert (subcol_mask.launches - n0,
+                    subcol_mask.given.launches - n1) == (1, 1)
+            assert torch.equal(got, mcica.subcol_mask(k, icld, cf, al, g_pad,
+                                                      mdt))
+            assert torch.equal(given, mcica.mask_from_uniforms(
+                icld, cf, u, u2, al, g_pad, mdt))
+            assert not got[:, 140:].any()
+
+
+def test_mcica_philox_matches_curand(dev):
+    from rrtmg_lw_torch.ops import mcica
+    from rrtmg_lw_torch.ops.mcica_cuda import philox_words
+    g = torch.Generator(device=dev).manual_seed(0)
+    ctr = torch.randint(-2 ** 31, 2 ** 31 - 1, (1000, 4), generator=g,
+                        device=dev, dtype=torch.int32)
+    for k in ((0, 0), (0xFFFFFFFF, 1), mcica.key(2 ** 40 + 5)):
+        hand = philox_words(ctr, k)
+        assert torch.equal(hand, philox_words(ctr, k, curand=True))
+        assert torch.equal(hand.cpu().to(torch.int64) & mcica.M32,
+                           philox_words(ctr.cpu(), k))
+
+
+def test_mcica_wrapper_rejects_what_k8_does_not_take(dev):
+    from rrtmg_lw_torch.ops import mcica
+    from rrtmg_lw_torch.ops.mcica_cuda import subcol_mask
+    cf = torch.rand((8, 5), device=dev)
+    k = mcica.key(0)
+    with pytest.raises(ValueError):
+        subcol_mask(k, 0, cf)
+    with pytest.raises(TypeError):
+        subcol_mask(k, 2, cf.half())
+    with pytest.raises(TypeError):
+        subcol_mask(k, 2, cf, mask_dtype=torch.float64)
+    with pytest.raises(ValueError):
+        subcol_mask(k, 2, cf, g_pad=139)
+    with pytest.raises(ValueError):
+        subcol_mask(k, 2, cf.t().contiguous().t())
+    with pytest.raises(ValueError):
+        subcol_mask(k, 4, cf, torch.rand((5, 8), device=dev))
+
+
+def test_mcica_batch_layout_runs_k8(dev):
+    """mcica_subcol_lw on the card launches K8 for its mask and equals the
+    plain version on the CPU with the same key (tauc through ngb)."""
+    from rrtmg_lw_torch.ops import mcica
+    from rrtmg_lw_torch.ops.mcica_cuda import subcol_mask
+    g = torch.Generator().manual_seed(5)
+    B, L = 40, 9
+    cpu = [torch.rand((B, L), generator=g, dtype=torch.float64)
+           for _ in range(5)] + [torch.rand((B, L, 16), generator=g,
+                                            dtype=torch.float64)]
+    for icld in (2, 4):
+        n0 = subcol_mask.launches
+        got = mcica.mcica_subcol_lw(mcica.key(9), icld,
+                                    *(x.to(dev) for x in cpu),
+                                    alpha=cpu[1].to(dev))
+        assert subcol_mask.launches - n0 == 1
+        ref = mcica.mcica_subcol_lw(mcica.key(9), icld, *cpu, alpha=cpu[1])
+        for a, b in zip(got, ref):
+            assert torch.equal(a.cpu(), b)
