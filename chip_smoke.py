@@ -53,21 +53,24 @@ Phases, each raising on failure (any failure exits non-zero):
      lines;
   2c. McICA sampling (``phase_mcica``): K8 (csrc/mcica.cu) bitwise equal
      to its plain version (ops/mcica.py ``subcol_mask``: the Philox draw
-     and the overlap walk) at B=2048, L=60 and L=140, icld 1-5, float32
+     and the overlap walk) at B=2048 and B=2051 (its two store paths:
+     whole-line vector stores where B % 4 == 0, element stores
+     elsewhere), L=60 and L=140, and at B=16384, L=60, icld 1-5, float32
      and float64 in, int8 and float masks, also fed given uniforms (the
-     overlap walk alone against ``mask_from_uniforms``); the hand-written
-     Philox4x32-10 equal to curand_Philox4x32_10 and to the plain version
-     on 4096 counters; tests/test_mcica.py's statistics on K8's output at
-     B=16384 (per-layer cloudy fraction, pairwise overlap, the binomial
-     envelope); the generate-then-radiate step (utils/profiling.py's
+     overlap walk alone against ``mask_from_uniforms``), each launch's
+     store path counted (``subcol_mask.vector`` / ``.scalar``); the
+     hand-written Philox4x32-10 equal to curand_Philox4x32_10 and to the
+     plain version on 4096 counters; tests/test_mcica.py's statistics on
+     K8's output at B=16384 (per-layer cloudy fraction, pairwise overlap,
+     the binomial envelope); the generate-then-radiate step (utils/profiling.py's
      ``mcica_generate`` cells: K8 then K2, K3, K4 and K1 compact, icld 2
      and icld 4 with ``get_alpha``) at B=16384, L=60, 3 steps counted on
      every counter, held to the eager model on the same mask under
      ``compare_models``' gates, then profiled beside ``mcica_cloudy`` (the
      same step on fixed clouds: wall, busy, idle share, launches, K8's ms
-     in the step, peak); K8 bitwise at B=16384 too, its
-     wrapper, plain and torch.rand-of-its-uniforms ms, registers and
-     spills of its 32 instantiations (none may spill);
+     in the step, peak); K8's wrapper, plain and
+     torch.rand-of-its-uniforms ms, registers and spills of its 64
+     instantiations (none may spill);
   2d. the column-mode CLI (``phase_cli``): ``cli.run_case`` on a clear
      and a McICA deck (nmca=2) written to a temporary directory, on the
      card (its raws computed there) within 1e-10 of the CPU run;
@@ -246,6 +249,7 @@ at L=140 *_deep), printed on a ``ddt pair`` line a mode.  Without CUDA it exits 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import pathlib
 import subprocess
@@ -2856,13 +2860,13 @@ def grad_device_times():
         out[f"rt_adjoint_ddt_{m}"] = dict(
             device_ms=ms[L_MAIN], device_ms_deep=ms[L_DEEP],
             k1_save_idrv_ms=k1[L_MAIN], k1_save_idrv_ms_deep=k1[L_DEEP])
-    k8 = {(r["icld"], r["nlay"]): r["device_ms"]
+    k8 = {(r["icld"], r["nlay"], r.get("dtype", "float32")): r["device_ms"]
           for r in json.loads(out8.read_text())}
-    out["mcica"] = dict(device_ms=k8[2, L_MAIN],
-                        device_ms_icld4=k8[4, L_MAIN],
-                        device_ms_deep=k8[2, L_DEEP])
-    print(f"device ms, K8 (icld 2, int8 mask): {k8[2, L_MAIN]:.4f} (icld 4 "
-          f"{k8[4, L_MAIN]:.4f}; L={L_DEEP} {k8[2, L_DEEP]:.4f})")
+    out["mcica"] = dict(device_ms=k8[2, L_MAIN, "float32"],
+                        device_ms_icld4=k8[4, L_MAIN, "float32"],
+                        device_ms_deep=k8[2, L_DEEP, "float32"])
+    print("device ms, K8 (int8 mask): " + ", ".join(
+        f"{dt} icld {i} L={n} {ms:.4f}" for (i, n, dt), ms in k8.items()))
     print(f"device ms, K6 with the d/dT adjoint (at L={L_DEEP}): "
           + "; ".join(f"{m} {out[f'rt_adjoint_ddt_{m}']['device_ms']:.3f} "
                       f"({out[f'rt_adjoint_ddt_{m}']['device_ms_deep']:.3f})"
@@ -3523,8 +3527,10 @@ def phase_probes(device):
 
 # K8, the McICA sampler: columns of its bitwise checks against the plain
 # version (the plain draw's int64 temporaries at the main width are ~275 MB
-# each), and of its statistics and the generate-then-radiate step
+# each), on its vector-store path and on its element-store path (B % 4 !=
+# 0), and of its statistics and the generate-then-radiate step
 B_K8 = 2048
+B_K8_ODD = 2051
 MCICA_CELLS = {2: "mcica_generate", 4: "mcica_generate_icld4"}
 
 
@@ -3540,14 +3546,16 @@ def k8_ops(icld, B, L, dtype):
 
 
 def k8_build_info(log_path):
-    """Registers and spill stores of K8's 32 instantiations (input
-    type, mask type, overlap, given uniforms) from the build log."""
+    """Registers and spill stores of K8's 64 instantiations (input
+    type, mask type, overlap, given uniforms, vector or element stores)
+    from the build log."""
     from rrtmg_lw_torch import _build
     names = dict(f="f32", d="f64", a="int8")
     return _build.ptxas_info(
-        log_path, r"mcica_kernelI(f|d)(a|f|d)Li(\d)ELb([01])E",
+        log_path, r"mcica_kernelI(f|d)(a|f|d)Li(\d)ELb([01])ELb([01])E",
         lambda m: f"{names[m.group(1)]} {names[m.group(2)]} mask ovl"
-                  f"{m.group(3)}{' given' if m.group(4) == '1' else ''}")
+                  f"{m.group(3)}{' given' if m.group(4) == '1' else ''}"
+                  f"{' vec' if m.group(5) == '1' else ' scalar'}")
 
 
 def k8_fields(B, L, dtype, device, seed):
@@ -3632,31 +3640,44 @@ def phase_mcica(device, counters):
     # (a) bitwise against the plain version: the draw, and the overlap walk
     # on given uniforms
     gen = torch.Generator(device=device).manual_seed(8)
-    for L in (L_MAIN, L_DEEP):
-        for dt in (torch.float32, torch.float64):
-            cf, al = k8_fields(B_K8, L, dt, device, seed=L)
+    paths = {}
+    for B, Ls in ((B_K8, (L_MAIN, L_DEEP)), (B_K8_ODD, (L_MAIN, L_DEEP)),
+                  (B_MAIN, (L_MAIN,))):
+        for L, dt in itertools.product(Ls, (torch.float32, torch.float64)):
+            cf, al = k8_fields(B, L, dt, device, seed=L)
+            u = torch.rand((L, 140, B), generator=gen, device=device,
+                           dtype=dt)
+            u2 = torch.rand((L, 140, B), generator=gen, device=device,
+                            dtype=dt)
             for icld in (1, 2, 3, 4, 5):
                 alpha = al if icld in (4, 5) else None
                 k = mcica.fold_in(mcica.key(L), icld)
-                u = torch.rand((L, 140, B_K8), generator=gen, device=device,
-                               dtype=dt)
-                u2 = torch.rand((L, 140, B_K8), generator=gen, device=device,
-                                dtype=dt)
                 for mdt in (torch.int8, dt):
+                    n = {p: getattr(subcol_mask, p).launches
+                         for p in ("vector", "scalar")}
                     got = mcica.mcica_subcol_lw_compact(
                         k, icld, cf, cf, cf, cf, cf, alpha=alpha,
                         mask_dtype=mdt).cldfmc
                     given = subcol_mask(None, icld, cf, alpha, mask_dtype=mdt,
                                         uniforms=(u, u2))
+                    for p in n:
+                        if getattr(subcol_mask, p).launches - n[p] == 2:
+                            paths.setdefault(B, set()).add(p)
                     need(torch.equal(got, mcica.subcol_mask(
                         k, icld, cf, alpha, mask_dtype=mdt))
                          and torch.equal(given, mcica.mask_from_uniforms(
                              icld, cf, u, u2, alpha, mask_dtype=mdt)),
-                         f"K8 icld={icld} L={L} {dt} -> {mdt}: not bitwise "
-                         "the plain version")
-    print(f"mcica: K8 bitwise the plain version at B={B_K8}, L={L_MAIN} and "
-          f"{L_DEEP}, icld 1-5, float32 and float64 in, int8 and float "
-          "masks, drawing and on given uniforms")
+                         f"K8 B={B} icld={icld} L={L} {dt} -> {mdt}: not "
+                         "bitwise the plain version")
+            del u, u2
+    want = {B: {"vector" if B % 4 == 0 else "scalar"}
+            for B in (B_K8, B_K8_ODD, B_MAIN)}
+    need(paths == want, f"K8's store paths {paths}, expected {want}")
+    print(f"mcica: K8 bitwise the plain version at B={B_K8} and {B_K8_ODD} "
+          f"(L={L_MAIN} and {L_DEEP}) and B={B_MAIN} (L={L_MAIN}), icld "
+          "1-5, float32 and float64 in, int8 and float masks, drawing and "
+          "on given uniforms; store paths " + ", ".join(
+              f"B={B} {'/'.join(sorted(p))}" for B, p in paths.items()))
     # (b) the hand-written Philox against curand's and the plain version
     ctr = torch.randint(-2 ** 31, 2 ** 31 - 1, (4096, 4), generator=gen,
                         device=device, dtype=torch.int32)
@@ -3752,10 +3773,10 @@ def phase_mcica(device, counters):
         torch.cuda.empty_cache()
     path, _ = _build.build()
     info = k8_build_info(path.parent / "build.log")
-    need(len(info) == 32 and all(r.get("spill_bytes", 0) == 0
+    need(len(info) == 64 and all(r.get("spill_bytes", 0) == 0
                                  for r in info.values()),
          f"K8: {len(info)} instantiations in the build log, or a spill")
-    main = info["f32 int8 mask ovl2"]
+    main = info["f32 int8 mask ovl2 vec"]
     out.update(registers=main["registers"], spill_bytes=0,
                registers_max=max(r["registers"] for r in info.values()))
     print(f"mcica (K8, f32 in, int8 mask, icld 2): wrapper {out['ms']:.4f} "
@@ -3764,7 +3785,7 @@ def phase_mcica(device, counters):
           f"ms, torch.rand of its uniforms {out['rand_ms']:.4f} ms (icld 4: "
           f"{out['rand_ms_icld4']:.4f}), bound {out['bound_ms']:.4f} ms "
           f"({out['bound_by']}), {main['registers']} registers (at most "
-          f"{out['registers_max']} of 32 instantiations), no spills; "
+          f"{out['registers_max']} of 64 instantiations), no spills; "
           f"phase {time.perf_counter() - t0:.1f} s")
     return out, rows
 

@@ -76,6 +76,7 @@ SIGNATURES = {
     "rrtm_probe_onehot": (P, P, P, I, I, I, I, I, P),
     "rrtm_probe_gather": (P, P, P, I, I, I, P),
     "rrtm_mcica": (P,) * 5 + (U, U) + (I,) * 6 + (P,),
+    "rrtm_mcica_path": (),
     "rrtm_philox": (P, P, U, U, I, I, P),
 }
 

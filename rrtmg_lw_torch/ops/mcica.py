@@ -138,6 +138,18 @@ def philox_uniforms(k, nlay: int, ncol: int, dtype=torch.float32,
     return u.reshape(nblk * per, NGPT, ncol)[:nlay].contiguous()
 
 
+def uniform_thresholds(x: torch.Tensor, strict: bool = False):
+    """K8's integer thresholds for compares with a uniform u = m 2**-k of
+    ``philox_uniforms`` (k = 24 in float32, 53 in float64): T = ceil(x
+    2**k) clamped to [0, 2**k], so that u >= x <=> m >= T and (``strict``)
+    u < x <=> m < T.  NaN compares false either way: T = 2**k, or 0 where
+    ``strict``.  ``x``: float32 or float64 -> int64 of its shape."""
+    one = 2.0 ** (24 if x.dtype == torch.float32 else 53)
+    t = torch.ceil(x * one).clamp(0.0, one)   # x 2**k is exact in the type
+    return torch.where(torch.isnan(x), 0.0 if strict else one,
+                       t).to(torch.int64)
+
+
 # ---------------------------------------------------------------------------
 # get_alpha (mcica_subcol_gen_lw.f90:68-180)
 # ---------------------------------------------------------------------------

@@ -11,8 +11,11 @@ up the layers, the (L, g_pad, B) mask written once, pad rows included.
 back); on a CPU tensor it runs the plain version, ``mcica.subcol_mask``
 (or, given uniforms, ``mcica.mask_from_uniforms``).  Its launches count
 in ``subcol_mask.launches``, those with given uniforms (the check entry)
-in ``subcol_mask.given.launches``.  ``philox_words`` is the Philox
-known-answer check: the hand-written Philox, or curand's beside it.
+in ``subcol_mask.given.launches``; every launch also counts in the
+store path the kernel took, ``subcol_mask.vector.launches`` (whole-line
+vector stores, where B % 4 == 0) or ``subcol_mask.scalar.launches``
+(element stores).  ``philox_words`` is the Philox known-answer check:
+the hand-written Philox, or curand's beside it.
 """
 
 from __future__ import annotations
@@ -72,11 +75,18 @@ def subcol_mask(k, icld: int, cldfrac, alpha=None, g_pad: int = NGPT_PAD,
         subcol_mask.launches += 1
     else:
         subcol_mask.given.launches += 1
+    path = STORE_PATHS[_build.library().rrtm_mcica_path()]
+    getattr(subcol_mask, path).launches += 1
     return mask
 
 
+# rrtm_mcica_path's codes: the store path of K8's last launch
+STORE_PATHS = {1: "vector", 2: "scalar"}
+
 subcol_mask.launches = 0
 subcol_mask.given = _build.Launches()
+subcol_mask.vector = _build.Launches()
+subcol_mask.scalar = _build.Launches()
 
 
 def philox_words(ctr, k, curand: bool = False):

@@ -1071,26 +1071,33 @@ def overlap_times(device, reps=20) -> list:
 
 
 def k8_times(device, reps=5) -> list:
-    """Device ms per launch of K8 (the McICA sampler, float32 in, int8
-    mask) on the generate-then-radiate cells' cloud profiles
-    (``profiling.cloud_profile``, B=16384): icld 2 and 4 at L=60, icld 2
-    at L=140.  -> [{icld, nlay, device_ms}]."""
+    """Device ms per launch of K8 (the McICA sampler, int8 mask) on the
+    generate-then-radiate cells' cloud profiles (``profiling.cloud_profile``,
+    B=16384): float32 in at icld 2 and 4 (L=60), icld 2 at L=140, icld 1
+    and 3, and float64 in at icld 2 and 4; with the mask's write rate.
+    -> [{icld, nlay, dtype, device_ms, mask_gb_s}]."""
     from rrtmg_lw_torch.ops import mcica
     from rrtmg_lw_torch.ops.mcica_cuda import subcol_mask
-    from rrtmg_lw_torch.types import Atmosphere
+    from rrtmg_lw_torch.types import NGPT_PAD, Atmosphere
     from rrtmg_lw_torch.utils.profiling import NCOL, cloud_profile
     from rrtmg_lw_torch.utils.synthetic import make_atmosphere
     rows = []
-    for icld, nlay in ((2, 60), (4, 60), (2, 140)):
+    for icld, nlay, dt in ((2, 60, "float32"), (4, 60, "float32"),
+                           (2, 140, "float32"), (1, 60, "float32"),
+                           (3, 60, "float32"), (2, 60, "float64"),
+                           (4, 60, "float64")):
+        dtype = getattr(torch, dt)
         atm = Atmosphere.from_numpy(make_atmosphere(NCOL, nlay), device,
-                                    torch.float32)
+                                    dtype)
         f = cloud_profile(atm, icld, device)
+        cf = f["cldfrac"].to(dtype)
+        al = None if f["alpha"] is None else f["alpha"].to(dtype)
         k = mcica.key(0)
-        ms = kernel_ms(lambda: subcol_mask(k, icld, f["cldfrac"],
-                                           f["alpha"],
+        ms = kernel_ms(lambda: subcol_mask(k, icld, cf, al,
                                            mask_dtype=torch.int8),
                        "mcica_kernel", reps)
-        rows.append(dict(icld=icld, nlay=nlay, device_ms=ms))
+        rows.append(dict(icld=icld, nlay=nlay, dtype=dt, device_ms=ms,
+                         mask_gb_s=nlay * NGPT_PAD * NCOL / ms * 1e-6))
         print(rows[-1], flush=True)
     return rows
 

@@ -46,8 +46,9 @@ past its 128-column tile, and refusing a descriptor of another band
 structure, as K2 does.  The probes
 (utils/probes.py) bitwise equal to tbl[idx].  K8, the McICA sampler,
 bitwise its plain version (drawing and on given uniforms, icld 1-5,
-both input types and mask types, ragged shapes), its Philox equal to
-curand's, and both generator layouts launching it.
+both input types and mask types, ragged shapes on both store paths,
+each launch counted in the path it took), its Philox equal to curand's,
+and both generator layouts launching it.
 """
 
 import functools
@@ -1573,10 +1574,18 @@ def test_probe_gather_kernel_is_the_row_gather(dev, C, R, D):
 
 
 # K8, the McICA sampler (csrc/mcica.cu): bitwise its plain version at
-# ragged shapes (columns off its 32-column tile, one layer, layers off the
-# 4- and 2-layer Philox blocks), drawing and fed given uniforms, int8 and
-# float masks, every byte of the mask written (pad rows zero)
-@pytest.mark.parametrize("B,L", [(1, 1), (31, 2), (33, 5), (100, 61)])
+# ragged shapes (columns off its 128-column tile and off a lane's 4
+# columns, so both store paths run: whole-line vector stores where B % 4
+# == 0, element stores elsewhere; one layer, layers off the 4- and 2-layer
+# Philox blocks, and L=140, whose float64 and icld 4/5 layers are staged in
+# chunks), drawing and fed given uniforms, int8 and float masks, every byte
+# of the mask written (pad rows zero), each launch counted in its path
+K8_SHAPES = [(1, 1), (31, 2), (33, 5), (100, 61)] + [
+    (B, L) for B in (4, 127, 128, 129, 130, 515, 2048)
+    for L in (1, 3, 4, 61, 140)]
+
+
+@pytest.mark.parametrize("B,L", K8_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("icld", [1, 2, 3, 4, 5])
 def test_mcica_kernel_matches_plain(dev, B, L, dtype, icld):
@@ -1592,12 +1601,16 @@ def test_mcica_kernel_matches_plain(dev, B, L, dtype, icld):
     for mdt in (torch.int8, dtype):
         for g_pad in (144, 141):
             n0, n1 = subcol_mask.launches, subcol_mask.given.launches
+            v0, s0 = subcol_mask.vector.launches, subcol_mask.scalar.launches
             got = subcol_mask(k, icld, cf, al, g_pad, mdt)
             given = subcol_mask(None, icld, cf, al, g_pad, mdt,
                                 uniforms=(u, u2))
             torch.cuda.synchronize()
             assert (subcol_mask.launches - n0,
                     subcol_mask.given.launches - n1) == (1, 1)
+            assert (subcol_mask.vector.launches - v0,
+                    subcol_mask.scalar.launches - s0) == (
+                        (2, 0) if B % 4 == 0 else (0, 2))
             assert torch.equal(got, mcica.subcol_mask(k, icld, cf, al, g_pad,
                                                       mdt))
             assert torch.equal(given, mcica.mask_from_uniforms(

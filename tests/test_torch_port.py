@@ -250,6 +250,49 @@ def test_taumol_kernel_launch_fits_the_card():
     assert 65536 // (tb * min_blocks) >= 32
 
 
+def test_mcica_launch_fits_the_card():
+    """K8's tile constants, read from csrc/mcica.cu: MC_MIN_BLOCKS blocks
+    of MC_THREADS (MC_MIN_BLOCKS_2S for icld 4/5, fewer) fit an SM's 2048
+    threads and 65536 registers (at least 64 a thread), a warp's lanes x
+    MC_CPL columns are one 128-byte line of the int8 mask, and the
+    launcher's chunks of staged layers (mirrored here) keep each launch's
+    shared memory within MC_STAGE_MAX, of which MC_MIN_BLOCKS blocks fit
+    an SM's 228 KB, for L = 1..400, float32 and float64, icld 1-4, the
+    chunks a multiple of the layers a Philox call gives."""
+    src = open(os.path.join(REPO, "rrtmg_lw_torch", "csrc",
+                            "mcica.cu")).read()
+
+    def const(name):
+        return int(re.search(r"\nconstexpr int %s = (\d+);" % name,
+                             src).group(1))
+
+    cpl, warps, min_blocks = (const("MC_CPL"), const("MC_WARPS"),
+                              const("MC_MIN_BLOCKS"))
+    stage_max = 1024 * int(re.search(
+        r"\nconstexpr size_t MC_STAGE_MAX = (\d+) \* 1024;", src).group(1))
+    assert "constexpr int MC_COLS = 32 * MC_CPL;" in src
+    assert "constexpr int MC_THREADS = 32 * MC_WARPS;" in src
+    assert re.search(r"__launch_bounds__\(MC_THREADS,\s+OVL == 4 \? "
+                     r"MC_MIN_BLOCKS_2S : MC_MIN_BLOCKS\)", src)
+    assert 0 < const("MC_MIN_BLOCKS_2S") <= min_blocks
+    assert "lc = ((L + nch - 1) / nch + PER - 1) / PER * PER;" in src
+    threads = 32 * warps
+    assert 32 * cpl == 128
+    assert threads * min_blocks <= 2048
+    assert 65536 // (threads * min_blocks) >= 64
+    assert min_blocks * (stage_max + 1024) <= 228 * 1024
+    for size, per in ((4, 4), (8, 2)):
+        for narr in (1, 2):
+            row = 32 * cpl * size * narr
+            for L in range(1, 401):
+                lc, nch = L, 2
+                while lc * row > stage_max:
+                    lc = (-(-L // nch) + per - 1) // per * per
+                    nch += 1
+                assert lc * row <= stage_max and 0 < lc <= L
+                assert lc == L or lc % per == 0
+
+
 def test_taumol_bwd_launch_fits_the_card():
     """K5's tile and thread constants, read from csrc/taumol_bwd.cu: its
     shared memory (the tile's NF float input rows, its NF rows of field

@@ -1,6 +1,6 @@
 """The variant harnesses of the port's kernels (``utils/k5_variants.py``,
-``k6_variants.py``, ``k6g_variants.py``, ``k1save_variants.py``) still
-apply to the sources: each variant is a list of (old, new) text
+``k6_variants.py``, ``k6g_variants.py``, ``k1save_variants.py``,
+``k8_variants.py``) still apply to the sources: each variant is a list of (old, new) text
 replacements of one file under ``csrc/``, and the harness stops where an
 old text does not occur there exactly once.  One case per (harness,
 variant), the computed anchors of the ``prof`` variants included; text
@@ -17,7 +17,8 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "rrtmg_lw_torch" / "csrc"
 # harness module -> the source its variants replace text in
 HARNESSES = {"k5_variants": "taumol_bwd.cu", "k6_variants": "rtrn_bwd.cu",
              "k6g_variants": "rtrn_bwd_g.cu",
-             "k1save_variants": "rtrn_kernel.cuh"}
+             "k1save_variants": "rtrn_kernel.cuh",
+             "k8_variants": "mcica.cu"}
 
 
 def _variants(module):
