@@ -74,6 +74,21 @@ Phases, each raising on failure (any failure exits non-zero):
   2d. the column-mode CLI (``phase_cli``): ``cli.run_case`` on a clear
      and a McICA deck (nmca=2) written to a temporary directory, on the
      card (its raws computed there) within 1e-10 of the CPU run;
+  2e. the parallel layer (``phase_parallel``) on a one-rank NCCL process
+     group: the GCM entry point (``rrtmg_lw_torch.examples.gcm_step``)
+     through ``make_sharded_step`` and ``run_epoch`` at B=16384, counted,
+     its fluxes bitwise the model's on the same batch, the metrics equal
+     torch reductions, ``make_sharded_grad_step`` within 1e-6 of
+     ``make_grad_step`` at B=4096; K9 (csrc/wire.cu) against its plain
+     twin at B=16384 and 2051 (logratio within 2 ulps, the other codecs,
+     the ok flags on six corruptions and the mask unpack bitwise); the C++
+     wire encoder required, bitwise the numpy one; the wire entry point
+     (``examples.wire_streaming``: K9, K8, K2, K3, K4, K1 compact)
+     counted, within TOL_FLUX of its step through the plain decode, and a
+     corrupted batch flagged in exactly its columns; the ``gcm_step`` and
+     ``wire_stream`` cells of utils/profiling.py (wall, the prefetch
+     overlap against depth 0, busy, idle, launches, bytes a column, peak);
+     K9's wrapper, device, plain and bound ms, registers and spills;
   3. each kernel against its plain PyTorch version on the card at the
      main-path shapes (B=16384 columns, L=60 layers, float32), with the
      max error and CUDA-event times of both and the bound of each (the
@@ -405,6 +420,10 @@ KERNELS += tuple(
 # K8, the McICA sampler: the counterpart of an XLA scan (no Pallas original)
 KERNELS += (("mcica", "rrtmg_lw_torch/csrc/mcica.cu",
              "rrtmg_lw_tpu/ops/mcica.py:164"),)
+# K9, the wire format's decode: the counterpart of XLA's fusion of the jnp
+# decoders (no Pallas original)
+KERNELS += (("wire_decode", "rrtmg_lw_torch/csrc/wire.cu",
+             "rrtmg_lw_tpu/parallel/wire.py:400"),)
 
 
 def need(cond, msg):
@@ -3821,6 +3840,450 @@ def phase_cli(device):
     print(f"cli: {time.perf_counter() - t0:.1f} s")
 
 
+# 2e. the parallel layer (phase_parallel): entry point 1, the GCM step over
+# make_sharded_step and run_epoch, and entry point 2, the wire stream, on a
+# one-rank NCCL group; K9 (csrc/wire.cu) against its plain twin
+B_GRAD_PAR = 4096       # columns of the sharded grad step's check
+TOL_GRAD_PAR = 1e-6     # sharded vs one-device grad, of max |grad| per field
+TOL_WIRE_ULP = 2        # K9's logratio (expf) against the plain twin's exp
+B_WIRE_CHECK = (B_MAIN, 2051)   # K9 against the plain twin; 2051: a tail
+#                                 off 4 and 8 columns
+WIRE_OPS = 10           # K9's operations an element (convert, scale, add,
+#                         exp, multiply, compare, select; the guards)
+ATM_CORRUPT = ("nan_ref", "inf_lo", "nan_hi", "inverted", "zero_codes",
+               "nan_uniform")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ulps(a, b):
+    """Largest distance of ``a`` from ``b`` in ulps of the larger of the
+    two (equal NaNs 0; a NaN against a number inf)."""
+    a, b = a.double().flatten(), b.double().flatten()
+    both = torch.isnan(a) & torch.isnan(b)
+    m = torch.maximum(a.abs(), b.abs()).to(torch.float32)
+    sp = (torch.nextafter(m, torch.full_like(m, float("inf"))) - m).double()
+    d = torch.where(both, 0.0, (a - b).abs() / sp)
+    return float(d.nan_to_num(nan=float("inf")).max()) if d.numel() else 0.0
+
+
+def corrupt(enc, which, cols=slice(None, None, 3)):
+    """``enc`` (a host atmosphere WireBatch) with one corruption of
+    tests/test_wire.py:434-526: play's refs (NaN row, -inf lo, NaN hi,
+    inverted range), play's codes zero (0 hPa) in ``cols``, or a NaN in a
+    uniform channel's row (co2vmr)."""
+    from rrtmg_lw_torch.parallel import wire as w
+    cols_, refs = dict(enc.cols), dict(enc.refs)
+    if which == "zero_codes":
+        p = np.array(cols_["play"])
+        p[cols] = 0
+        cols_["play"] = p
+    elif which == "nan_uniform":
+        row = np.array(refs["co2vmr"]["uniform"])
+        row[1] = np.nan
+        refs["co2vmr"] = {"uniform": row}
+    else:
+        ref, lo, hi = refs["play"]
+        refs["play"] = {"nan_ref": (np.full_like(np.asarray(ref), np.nan),
+                                    lo, hi),
+                        "inf_lo": (ref, np.float32(-np.inf), hi),
+                        "nan_hi": (ref, lo, np.float32(np.nan)),
+                        "inverted": (ref, hi, lo)}[which]
+    return w.WireBatch(cols_, refs)
+
+
+@contextlib.contextmanager
+def plain_decode():
+    """K9's wrappers (``ops.wire_cuda.wire_decode``, ``wire_unpack_mask``)
+    swapped for their plain twins (``parallel.wire.decode_plain``,
+    ``unpack_mask``) on every device: the decoders, and a step built on
+    them, then run the reference K9 is held to.  Their launch counts do
+    not move."""
+    from rrtmg_lw_torch.ops import wire_cuda
+    from rrtmg_lw_torch.parallel import wire as w
+    saved = wire_cuda.wire_decode, wire_cuda.wire_unpack_mask
+    wire_cuda.wire_decode, wire_cuda.wire_unpack_mask = (w.decode_plain,
+                                                         w.unpack_mask)
+    try:
+        yield
+    finally:
+        wire_cuda.wire_decode, wire_cuda.wire_unpack_mask = saved
+
+
+def abs_err(a, b):
+    """Largest |a - b| (equal NaNs 0; a NaN against a number inf)."""
+    a, b = a.double(), b.double()
+    d = torch.where(torch.isnan(a) & torch.isnan(b), 0.0, (a - b).abs())
+    return float(d.nan_to_num(nan=float("inf")).max()) if d.numel() else 0.0
+
+
+def k9_against_plain(mesh, B, L=L_MAIN):
+    """K9 against its plain twin on the same device tensors at (B, L):
+    every channel of an atmosphere (coded schema; auto with uniform and
+    zero channels) and of the cloud profiles, float32 and float64, plain
+    and sanitized, and the sanitized atmosphere on each corruption of
+    ``ATM_CORRUPT``: logratio within TOL_WIRE_ULP, the other codecs and
+    every ok flag bitwise; the mask unpack bitwise.  -> (the largest
+    distance from the plain twin in ulps, the largest |difference|)."""
+    from rrtmg_lw_torch.parallel import shard_batch, wire as w
+    from rrtmg_lw_torch.utils.synthetic import (make_atmosphere,
+                                                make_cloud_profile_fields,
+                                                make_mcica_clouds)
+    atm = make_atmosphere(B, L, seed=B, dtype=np.float32)
+    cp = make_cloud_profile_fields(B, L, seed=L)
+    coded = w.encode_atmosphere(atm, schema="coded")
+    auto = w.encode_atmosphere(atm._replace(covmr=np.zeros_like(atm.covmr)))
+    need(any(isinstance(r, dict) for r in auto.refs.values())
+         and any(r is None for r in auto.refs.values()),
+         "k9: the auto-schema batch has no uniform or no zero channel")
+    taua = torch.zeros((B, L, 16), device=mesh.device)
+    worst, worst_abs = 0.0, 0.0
+    cases = [("coded", coded, False), ("auto", auto, False),
+             ("coded", coded, True), ("auto", auto, True)] + [
+        (c, corrupt(auto if c == "nan_uniform" else coded, c), True)
+        for c in ATM_CORRUPT]
+    for (tag, enc, san), dt in itertools.product(
+            cases, (torch.float32, torch.float64)):
+        ea = shard_batch(enc, mesh)
+        got = w.decode_atmosphere(ea, taua, dt, sanitize=san)
+        with plain_decode():
+            ref = w.decode_atmosphere(ea, taua, dt, sanitize=san)
+        if san:
+            (got, ok), (ref, rok) = got, ref
+            need(torch.equal(ok, rok), f"k9 {tag} B={B} {dt}: ok differs")
+            need(tag in ("coded", "auto") or not ok.all(),
+                 f"k9 {tag} B={B}: the corruption left every column ok")
+        for name, kind in w.ATM_FIELDS.items():
+            a, b = getattr(got, name), getattr(ref, name)
+            need(a.is_contiguous() and a.shape == b.shape,
+                 f"k9 {name}: not contiguous or mis-shaped")
+            worst_abs = max(worst_abs, abs_err(a, b))
+            if kind == "logratio" and enc.refs[name] is not None \
+                    and not isinstance(enc.refs[name], dict):
+                u = ulps(a, b)
+                worst = max(worst, u)
+                need(u <= TOL_WIRE_ULP, f"k9 {tag} B={B} {dt} {name}: "
+                     f"{u} ulps from the plain twin")
+            else:
+                need(torch.equal(a.nan_to_num(), b.nan_to_num())
+                     and torch.equal(a.isnan(), b.isnan()),
+                     f"k9 {tag} B={B} {dt} {name}: not bitwise the plain "
+                     "twin")
+    for dt, san in itertools.product((torch.float32, torch.float64),
+                                     (False, True)):
+        ec = shard_batch(w.encode_cloud_profiles(cp, schema="coded"), mesh)
+        got = w.decode_cloud_profiles(ec, dt, sanitize=san)
+        with plain_decode():
+            ref = w.decode_cloud_profiles(ec, dt, sanitize=san)
+        if san:
+            (got, ok), (ref, rok) = got, ref
+            need(torch.equal(ok, rok), f"k9 clouds B={B}: ok differs")
+        for name in got:
+            u = ulps(got[name], ref[name])
+            worst = max(worst, u)
+            worst_abs = max(worst_abs, abs_err(got[name], ref[name]))
+            need(u == 0 or (w.CLOUD_FIELDS[name] == "logratio"
+                            and u <= TOL_WIRE_ULP),
+                 f"k9 clouds B={B} {dt} {name}: {u} ulps")
+    cw = shard_batch(w.encode_compact_clouds(make_mcica_clouds(
+        B, L, seed=4, dtype=np.float32, mask_dtype=np.int8)), mesh)
+    got = w.decode_compact_clouds(cw)
+    with plain_decode():
+        ref = w.decode_compact_clouds(cw)
+    need(torch.equal(got.cldfmc, ref.cldfmc)
+         and all(ulps(a, b) <= TOL_WIRE_ULP for a, b in zip(got[1:], ref[1:])),
+         f"k9 unpack B={B}: the mask or fields differ from the plain twin")
+    for a, b in zip(got[1:], ref[1:]):
+        worst = max(worst, ulps(a, b))
+        worst_abs = max(worst_abs, abs_err(a, b))
+    return worst, worst_abs
+
+
+def k9_build_info(log_path):
+    """Registers and spill stores of K9's instantiations (output type,
+    sanitize) and of its unpack, from the build log."""
+    from rrtmg_lw_torch import _build
+    info = _build.ptxas_info(
+        log_path, r"wire_decode_kernelI(f|d)Lb([01])E",
+        lambda m: f"decode {'f32' if m.group(1) == 'f' else 'f64'}"
+                  f"{' sanitize' if m.group(2) == '1' else ''}")
+    info.update(_build.ptxas_info(log_path, r"wire_unpack_kernel",
+                                  lambda m: "unpack"))
+    return info
+
+
+def k9_times(mesh):
+    """K9 at the main path's shape (B=16384, L=60): the sanitized decode
+    of the coded atmosphere (the streamed step's), of the cloud profiles,
+    and the mask unpack: wrapper ms, device ms, plain twin ms, the bound."""
+    from rrtmg_lw_torch.parallel import shard_batch, wire as w
+    from rrtmg_lw_torch.ops.wire_cuda import wire_unpack_mask
+    from rrtmg_lw_torch.utils.synthetic import (make_atmosphere,
+                                                make_cloud_profile_fields,
+                                                make_mcica_clouds)
+    atm = make_atmosphere(B_MAIN, L_MAIN, seed=0, dtype=np.float32)
+    ea = shard_batch(w.encode_atmosphere(atm, schema="coded"), mesh)
+    ec = shard_batch(w.encode_cloud_profiles(
+        make_cloud_profile_fields(B_MAIN, L_MAIN, 0), schema="coded"), mesh)
+    bits = shard_batch(w.encode_compact_clouds(make_mcica_clouds(
+        B_MAIN, L_MAIN, seed=2, dtype=np.float32,
+        mask_dtype=np.int8)), mesh).mask_bits
+    taua = torch.zeros((B_MAIN, L_MAIN, 16), device=mesh.device)
+
+    def atm_dec():
+        return w.decode_atmosphere(ea, taua, sanitize=True)
+
+    def cloud_dec():
+        return w.decode_cloud_profiles(ec, like=taua[..., 0], sanitize=True)
+
+    def plain(fn):
+        def run():
+            with plain_decode():
+                return fn()
+        return run
+    a, ok = atm_dec()
+    codes = [t for t in ea.cols.values()]
+    outs = [getattr(a, n) for n in w.ATM_FIELDS] + [ok]
+    n_atm = sum(t.numel() for t in codes)
+    c, ok_c = cloud_dec()
+    mask = wire_unpack_mask(bits)
+    out = dict(
+        codes=n_atm, ms=cuda_ms(atm_dec, 20),
+        device_ms=device_ms(atm_dec, symbol="wire_decode_kernel"),
+        plain_ms=cuda_ms(plain(atm_dec), 5),
+        ms_unsanitized=cuda_ms(lambda: w.decode_atmosphere(ea, taua), 20),
+        library_note="none: one PyTorch call does not decode a channel set",
+        **bound(codes, outs, WIRE_OPS * n_atm))
+    cb = bound(list(ec.cols.values()), [*c.values(), ok_c],
+               WIRE_OPS * sum(t.numel() for t in ec.cols.values()))
+    ub = bound((bits,), (mask,), 8 * bits.numel())
+    out.update(
+        cloud_ms=cuda_ms(cloud_dec, 20),
+        cloud_device_ms=device_ms(cloud_dec, symbol="wire_decode_kernel"),
+        cloud_plain_ms=cuda_ms(plain(cloud_dec), 5),
+        cloud_bound_ms=cb["bound_ms"],
+        unpack_ms=cuda_ms(lambda: wire_unpack_mask(bits), 20),
+        unpack_device_ms=device_ms(lambda: wire_unpack_mask(bits),
+                                   symbol="wire_unpack_kernel"),
+        unpack_plain_ms=cuda_ms(lambda: w.unpack_mask(bits), 5),
+        unpack_bound_ms=ub["bound_ms"])
+    for k in ("", "cloud_", "unpack_"):
+        nbytes = (out["bytes_once"] if not k else
+                  (cb if k == "cloud_" else ub)["bytes_once"])
+        out[f"{k}gbps"] = nbytes / (out[f"{k}device_ms"] * 1e-3) / 1e9
+    return out
+
+
+def phase_parallel(device, counters):
+    """The parallel layer on a one-rank NCCL process group (a TCP store on
+    a free port), destroyed at the end, also on failure.  (a) Entry point
+    1 (``examples/gcm_step``): ``make_sharded_step`` over ``run_epoch`` on
+    STEPS host batches at B=16384, counted on every counter, its last
+    fluxes bitwise ``model(atm, clouds)`` on the same batch;
+    ``make_metrics_fn`` against torch reductions of the same fluxes;
+    ``make_sharded_grad_step`` against ``make_grad_step`` at B=4096
+    (deterministic algorithms; at one rank the gather is the identity:
+    this checks its plumbing on NCCL, not the world-size factor).  (b) K9
+    against its plain twin (``k9_against_plain``) at B=16384 and 2051;
+    the C++ encoder required, its codes bitwise the numpy encoder's.
+    (c) Entry point 2 (``examples/wire_streaming``): STEPS streamed steps
+    counted, within TOL_FLUX of the same step through the plain decode; a
+    sanitized step on a batch whose play codes are zero in every seventh
+    column: finite fluxes, ``wire_ok`` False in exactly those columns.
+    (d) The ``gcm_step`` and ``wire_stream`` cells profiled.  -> (K9's
+    summary entry, its launches on the main path, e2e rows)."""
+    import os
+    import torch.distributed as dist
+    from rrtmg_lw_torch import Atmosphere, _build, make_model, native
+    from rrtmg_lw_torch import parallel as par
+    from rrtmg_lw_torch.examples import gcm_step, wire_streaming
+    from rrtmg_lw_torch.parallel import wire as w
+    from rrtmg_lw_torch.utils import profiling
+    from rrtmg_lw_torch.utils.synthetic import make_atmosphere
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = par.make_mesh()
+        one = torch.ones(1, device=mesh.device)
+        dist.all_reduce(one, group=mesh.group)
+        need(mesh.world == 1 and mesh.group is not None
+             and mesh.device == device and float(one) == 1.0,
+             f"nccl: a one-rank mesh {mesh}")
+        # (a) entry point 1
+        model, step = gcm_step.build(mesh)
+        batches = list(gcm_step.host_batches(B_MAIN, L_MAIN, STEPS))
+        step(*par.shard_batch(batches[0], mesh))          # warm-up
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        out = par.run_epoch(step, iter(batches), mesh, depth=2)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in counters.items()}
+        per_step = dict(FWD, rt_sweep=1)
+        want = {k: per_step.get(k, 0) * STEPS for k in counters}
+        need(counts == want, f"gcm_step: launches {counts}, expected {want}")
+        ref = model(*par.shard_batch(batches[-1], mesh))
+        names = ("uflx", "dflx", "hr", "uflxc", "dflxc", "hrc")
+        need(all(torch.equal(getattr(out, n), getattr(ref, n))
+                 for n in names) and torch.isfinite(out.uflx).all(),
+             "gcm_step: the sharded stream's fluxes differ from the model's "
+             "on the same batch")
+        m = par.make_metrics_fn(mesh, with_reference=True)(out, ref)
+        olr = out.uflx[:, -1]
+        direct = dict(ncol=float(B_MAIN), olr_mean=float(olr.sum() / B_MAIN),
+                      olr_min=float(olr.min()), olr_max=float(olr.max()),
+                      hr_min=float(out.hr.min()), hr_max=float(out.hr.max()),
+                      uflx_maxabs=0.0, uflx_rms=0.0)
+        need(all(float(m[k]) == v for k, v in direct.items())
+             and abs(float(m["olr_mean"]) - float(olr.mean()))
+             <= 1e-6 * float(olr.mean()),
+             f"metrics: {({k: float(m[k]) for k in direct})} against torch "
+             f"reductions {direct}")
+        print(f"gcm_step: {STEPS} batches of {B_MAIN} through "
+              f"make_sharded_step / run_epoch on a one-rank NCCL mesh, "
+              f"launches {counts}; the fluxes bitwise the model's on the "
+              f"same batch; metrics equal torch reductions (OLR mean "
+              f"{float(m['olr_mean']):.4f} W/m2)")
+        del out, ref, batches
+        atm, clouds = next(gcm_step.host_batches(B_GRAD_PAR, L_MAIN, 1))
+        atm, clouds = par.shard_batch((atm, clouds), mesh)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            ls, gs = par.make_sharded_grad_step(model, mesh)(atm, clouds)
+            l1, g1 = par.make_grad_step(model)(atm, clouds)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        gerr = max(float((a - b).abs().max() / b.abs().max().clamp(
+            min=1e-30)) for a, b in zip(gs, g1))
+        lerr = float((ls - l1).abs() / l1.abs())
+        need(lerr <= TOL_GRAD_PAR and gerr <= TOL_GRAD_PAR,
+             f"make_sharded_grad_step: loss {float(ls)} vs {float(l1)}, "
+             f"gradients {gerr:.3g} of max |grad|")
+        print(f"make_sharded_grad_step at B={B_GRAD_PAR}: loss within "
+              f"{lerr:.3g} (the gathered fluxes are summed in another "
+              f"order), gradients within {gerr:.3g} of make_grad_step's per "
+              f"field ({len(Atmosphere._fields)} fields)")
+        del model, step, atm, clouds, gs, g1
+        torch.cuda.empty_cache()
+
+        # (b) K9 against its plain twin; the C++ encoder
+        errs = [k9_against_plain(mesh, B) for B in B_WIRE_CHECK]
+        worst, worst_abs = (max(e) for e in zip(*errs))
+        print(f"k9: bitwise the plain twin at B={B_WIRE_CHECK} (logratio "
+              f"within {worst:.0f} ulps, largest |difference| "
+              f"{worst_abs:.3g}), float32 and float64, plain and "
+              f"sanitized, on {len(ATM_CORRUPT)} corruptions (ok flags "
+              "bitwise); the mask unpack bitwise")
+        need(native.wire_native_available(),
+             "the C++ wire encoder did not build (native/wirecodec.cc)")
+        hb = make_atmosphere(B_MAIN, L_MAIN, seed=3, dtype=np.float32)
+        nat = w.encode_atmosphere(hb, schema="coded")
+        os.environ["RRTMG_WIRE_NATIVE"] = "0"
+        try:
+            ref_enc = w.encode_atmosphere(hb, schema="coded")
+        finally:
+            del os.environ["RRTMG_WIRE_NATIVE"]
+        need(all(np.array_equal(nat.cols[k], ref_enc.cols[k])
+                 and all(np.array_equal(np.asarray(a), np.asarray(b))
+                         for a, b in zip(nat.refs[k], ref_enc.refs[k]))
+                 for k in nat.cols),
+             "the C++ wire encoder's codes differ from the numpy encoder's")
+        print("wire encoder: C++ (native/wirecodec.cc) built, its codes and "
+              f"refs bitwise the numpy encoder's at B={B_MAIN}")
+
+        # (c) entry point 2
+        model = make_model(wire_streaming.CONFIG, device=mesh.device)
+        step = wire_streaming.make_step(model, mesh, B_MAIN, L_MAIN)
+        host = list(wire_streaming.host_batches(B_MAIN, L_MAIN, STEPS + 1))
+        step(*par.shard_batch(host[0], mesh))             # warm-up
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        for b in par.prefetch(iter(host[1:]), mesh, depth=2):
+            fl = step(*b)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in counters.items()}
+        per_step = dict(FWD, rt_sweep=1, mcica=1, wire_decode=2)
+        want = {k: per_step.get(k, 0) * STEPS for k in counters}
+        need(counts == want, f"wire_stream: launches {counts}, expected "
+             f"{want}")
+        need(bool(fl.wire_ok.all()) and torch.isfinite(fl.uflx).all(),
+             "wire_stream: a clean batch flagged, or non-finite fluxes")
+        launches = counts["wire_decode"]
+        dev_batch = par.shard_batch(host[-1], mesh)
+        fk = wire_streaming.make_step(model, mesh, B_MAIN, L_MAIN)(*dev_batch)
+        with plain_decode():
+            fp = wire_streaming.make_step(model, mesh, B_MAIN,
+                                          L_MAIN)(*dev_batch)
+        err = max(flux_err(getattr(fk, n).t(), getattr(fp, n).t())
+                  for n in ("uflx", "dflx", "uflxc", "dflxc"))
+        need(err <= TOL_FLUX, f"wire_stream: K9's step against the plain "
+             f"decode's {err:.3g}")
+        bad = torch.zeros(B_MAIN, dtype=torch.bool)
+        bad[::7] = True
+        ea = corrupt(host[-1][0], "zero_codes", bad.numpy())
+        fc = wire_streaming.make_step(model, mesh, B_MAIN, L_MAIN)(
+            *par.shard_batch((ea, host[-1][1]), mesh))
+        need(torch.equal(fc.wire_ok.cpu(), ~bad)
+             and all(torch.isfinite(getattr(fc, n)).all() for n in names),
+             "wire_stream: the sanitized step on zeroed play codes: wire_ok "
+             "not False in exactly those columns, or non-finite fluxes")
+        print(f"wire_stream: {STEPS} streamed steps, launches {counts}; "
+              f"against the plain decode's step {err:.3g}; a batch with "
+              f"play's codes zero in {int(bad.sum())} columns: finite "
+              "fluxes, wire_ok False in exactly those")
+        del model, step, host, dev_batch, fk, fp, fc
+        torch.cuda.empty_cache()
+        res = k9_times(mesh)
+        torch.cuda.empty_cache()
+        # (d) the stream cells
+        rows = []
+        for cell in ("gcm_step", "wire_stream"):
+            rows.append(profiling.profile_cell(cell, device))
+            r = rows[-1]
+            print(f"{cell}: wall {r['wall_ms']:.1f} ms a batch (depth 0 "
+                  f"{r['wall_ms_depth0']:.1f}: prefetch gain "
+                  f"{r['prefetch_gain']:.3f}), host batch "
+                  f"{r['host_batch_ms']:.1f} ms, busy {r['busy_ms']:.2f} ms, "
+                  f"idle {r['idle_share']:.3f}, {r['launches_per_step']:.1f} "
+                  f"launches ({r['copies_per_step']:.1f} copies) a step, "
+                  f"{r['bytes_per_col']:.0f} B a column, peak "
+                  f"{r['peak_gib']:.2f} GiB, kernels {r['kernel_ms']}")
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    path, _ = _build.build()
+    info = k9_build_info(path.parent / "build.log")
+    need(len(info) == 5 and all(r.get("spill_bytes", 0) == 0
+                                for r in info.values()),
+         f"K9: {len(info)} instantiations in the build log, or a spill: "
+         f"{info}")
+    res.update(max_abs_err=worst_abs, max_ulps=worst,
+               registers=info["decode f32 sanitize"]["registers"],
+               spill_bytes=0, instantiations=info, launches_per_step=2)
+    print(f"wire_decode (K9, sanitized atmosphere, {res['codes']} codes): "
+          f"wrapper {res['ms']:.4f} ms (unsanitized "
+          f"{res['ms_unsanitized']:.4f}), device {res['device_ms']:.4f} ms "
+          f"({res['gbps']:.0f} GB/s), bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}), plain {res['plain_ms']:.3f} ms; clouds "
+          f"{res['cloud_ms']:.4f} / {res['cloud_device_ms']:.4f} / bound "
+          f"{res['cloud_bound_ms']:.4f} / plain {res['cloud_plain_ms']:.3f}; "
+          f"unpack {res['unpack_ms']:.4f} / {res['unpack_device_ms']:.4f} / "
+          f"bound {res['unpack_bound_ms']:.4f} / plain "
+          f"{res['unpack_plain_ms']:.3f}; against the plain twin "
+          f"{res['max_ulps']:.0f} ulps, |difference| "
+          f"{res['max_abs_err']:.3g}; registers "
+          f"{ {k: v['registers'] for k, v in info.items()} }, no spills; "
+          f"phase {time.perf_counter() - t0:.1f} s")
+    return res, launches, rows
+
+
 def launch_counters():
     """(counters, fwd_counters): the launch counters (the wrappers, whose
     ``launches`` each counts) of K2, K3, K4 and K1 clear / compact, and
@@ -3841,6 +4304,7 @@ def launch_counters():
                                               rt_sweep_vjp)
     from rrtmg_lw_torch.ops.mcica_cuda import subcol_mask
     from rrtmg_lw_torch.ops.rtrnmr_cuda import overlap_rows, overlap_rows_vjp
+    from rrtmg_lw_torch.ops.wire_cuda import wire_decode, wire_unpack_mask
     from rrtmg_lw_torch.ops.taumol_cuda import taumol_blocked, taumol_vjp
     counters = {"taumol": taumol_blocked, "planck": planck_interp_blocked,
                 "cldcoef": ice_liq_coeffs_blocked,
@@ -3866,6 +4330,8 @@ def launch_counters():
                         rt_sweep_banded=rt_fluxes_banded,
                         rt_sweep_maxrand=rt_fluxes_maxrand,
                         overlap_rows=overlap_rows, mcica=subcol_mask,
+                        wire_decode=wire_decode,
+                        wire_unpack=wire_unpack_mask,
                         rt_sweep_fused=rt_fluxes_fused,
                         rt_sweep_cldf_od=rt_fluxes_cldf_od,
                         rt_sweep_idrv=rt_fluxes_blocked.idrv,
@@ -3970,10 +4436,15 @@ def main() -> int:
     mcica_res, mcica_rows = phase_mcica(device, fwd_counters)
     torch.cuda.empty_cache()
     phase_cli(device)
+    # 2e. the parallel layer: both entry points, K9
+    torch.cuda.empty_cache()
+    wire_res, wire_launches, wire_rows = phase_parallel(device, fwd_counters)
+    torch.cuda.empty_cache()
 
     # 3. kernels vs plain versions; then K2 and K1 in reduced storage
     res = phase_kernels(device)
     res["mcica"] = mcica_res
+    res["wire_decode"] = wire_res
     torch.cuda.empty_cache()
     res["rt_sweep"].update(k1_deep(device))
     torch.cuda.empty_cache()
@@ -4001,6 +4472,8 @@ def main() -> int:
                 launches[k] = n
     launches["mcica"] = mcica_res.pop("launches")
     rows += mcica_rows
+    launches["wire_decode"] = wire_launches
+    rows += wire_rows
 
     # 5. deep
     rows += phase_deep(device, counters)

@@ -78,6 +78,9 @@ SIGNATURES = {
     "rrtm_mcica": (P,) * 5 + (U, U) + (I,) * 6 + (P,),
     "rrtm_mcica_path": (),
     "rrtm_philox": (P, P, U, U, I, I, P),
+    "rrtm_wire_decode": (P, I, I, I, P, P),
+    "rrtm_wire_unpack": (P, P, I, I, I, P),
+    "rrtm_wire_desc_size": (),
 }
 
 

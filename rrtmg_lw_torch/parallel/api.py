@@ -1,11 +1,11 @@
-"""Steps built around the model: the gradient step.
+"""Steps built around the model: the sharded forward step, the gradient
+step and its sharded form.
 
-One-device counterpart of ``rrtmg_lw_tpu.parallel.api.
-make_sharded_grad_step`` (rrtmg_lw_tpu/parallel/api.py:77-99), with the
-same default loss.  The mesh, the column sharding and
-``make_sharded_step`` are not ported yet (ROADMAP.md Queue 1, the
-parallel layer).
-The JAX package bounded the memory of its XLA backward with a
+Port of ``rrtmg_lw_tpu.parallel.api`` (``:31-99``), with the same default
+loss.  ``make_grad_step`` is the one-device gradient step;
+``make_sharded_step`` and ``make_sharded_grad_step`` run it on this
+rank's column shard of a ``mesh.Mesh`` (``mesh.shard_batch`` places the
+batch).  The JAX package bounded the memory of its XLA backward with a
 column-chunked vjp (``ops/_vjp_chunk.py``); the port's backward kernels
 keep their residuals at the size of taut/fracs, so it has no
 counterpart.
@@ -14,8 +14,9 @@ counterpart.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
-from ..types import Atmosphere
+from ..types import Atmosphere, Fluxes
 
 
 def default_loss(fl):
@@ -66,3 +67,79 @@ def make_grad_step(model, loss_fn=None, cloud_fields=()):
         return loss.detach(), atm_grads, tuple(grads[len(leaves):])
 
     return step
+
+
+def make_sharded_step(model, mesh):
+    """``step(atm, clouds=None) -> Fluxes``: every rank runs ``model`` on
+    its own column shard (the JAX step's ``shard_map`` mode,
+    rrtmg_lw_tpu/parallel/api.py:53-66, the only one here: the physics is
+    independent per column, and each rank launches its own kernels); the
+    outputs are this rank's columns.  JAX's ``use_shard_map`` (GSPMD
+    against ``shard_map``) and ``donate`` (XLA buffer donation) have no
+    counterpart: there is no partitioner, and eager PyTorch frees an input
+    when its last reference goes."""
+    def step(atm, clouds=None):
+        if atm.play.device != mesh.device:
+            raise ValueError(f"batch on {atm.play.device}, this rank's "
+                             f"device is {mesh.device}: place it with "
+                             "shard_batch or prefetch")
+        return model(atm, clouds)
+    return step
+
+
+class GatherColumns(torch.autograd.Function):
+    """All-gather of a (b, ...) shard along the columns, in rank order,
+    whose backward returns this rank's slice of the cotangent and nothing
+    more.  Every rank computes the same global loss, so each holds the
+    whole cotangent already; ``torch.distributed.nn``'s all_gather sums
+    the ranks' cotangents in its backward, which would scale every
+    gradient by the world size."""
+
+    @staticmethod
+    def forward(ctx, x, group, counts, rank):
+        lo = sum(counts[:rank])
+        ctx.rows = slice(lo, lo + counts[rank])
+        top = max(counts)
+        pad = x.new_zeros((top, *x.shape[1:]))
+        pad[:x.shape[0]] = x
+        parts = [torch.empty_like(pad) for _ in counts]
+        dist.all_gather(parts, pad, group=group)
+        return torch.cat([p[:n] for p, n in zip(parts, counts)])
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rows], None, None, None
+
+
+def gather_fluxes(fl: Fluxes, mesh) -> Fluxes:
+    """The global ``Fluxes`` of every rank's shard ``fl``, in column
+    order, on this rank's device; differentiable (``GatherColumns``).
+    One-rank meshes without a process group return ``fl``."""
+    if mesh.group is None:
+        return fl
+    dev = fl.uflx.device
+    n = torch.tensor([fl.uflx.shape[0]], dtype=torch.int64, device=dev)
+    parts = [torch.empty_like(n) for _ in range(mesh.world)]
+    dist.all_gather(parts, n, group=mesh.group)
+    counts = [int(p) for p in parts]
+
+    def gather(x):
+        if x is None:
+            return None
+        if x.dtype == torch.bool:
+            return GatherColumns.apply(x.to(torch.uint8).contiguous(),
+                                       mesh.group, counts, mesh.rank).bool()
+        return GatherColumns.apply(x.contiguous(), mesh.group, counts,
+                                   mesh.rank)
+    return Fluxes(*map(gather, fl))
+
+
+def make_sharded_grad_step(model, mesh, loss_fn=None):
+    """``step(atm, clouds=None) -> (loss, grads)``: ``make_grad_step`` on
+    this rank's shard (rrtmg_lw_tpu/parallel/api.py:77-99).  The loss is
+    ``loss_fn`` (default ``default_loss``) of the GLOBAL Fluxes, gathered
+    across the columns (``gather_fluxes``), so it is the same on every
+    rank; the gradients are those of that loss with respect to this
+    rank's shard of the Atmosphere."""
+    loss_fn = default_loss if loss_fn is None else loss_fn
+    return make_grad_step(model, lambda fl: loss_fn(gather_fluxes(fl, mesh)))

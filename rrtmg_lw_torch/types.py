@@ -236,3 +236,7 @@ class Fluxes(NamedTuple):
     # the parameterization range and were clamped (the reference stops
     # instead, rrtmg_lw_cldprmc.f90:204-253); None for clear sky
     cld_bounds_ok: Optional[torch.Tensor] = None
+    # per-column (B,) bool: False where the streaming wire decode
+    # (parallel/wire.py, sanitize=True) replaced corrupted inputs with
+    # finite fallbacks; the ingest step threads the decoder's ok here
+    wire_ok: Optional[torch.Tensor] = None

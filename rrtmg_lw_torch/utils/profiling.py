@@ -11,7 +11,9 @@ to the clouds' fields ``Cell.cloud_grads``, of the default loss or, the
 for the ``mcica_generate*`` cells the generate-then-radiate step,
 ``generate_step``: K8 samples the compact int8 mask from the (B, L)
 cloud profile, then the forward step):
-the median and
+for the stream cells (``gcm_step``, ``wire_stream``: the
+entry points of ``rrtmg_lw_torch.examples`` on a one-rank mesh)
+``profile_stream``; else the median and
 quartiles of 20 host-timed steps (host clock around work that ends in ``torch.cuda.synchronize``),
 then ``torch.profiler`` over 5 steps: device busy ms per step (the union
 of the CUDA kernel and memcpy/memset intervals), the idle share
@@ -113,6 +115,11 @@ CELLS = {"clear": Cell(0, 1, None, 60),
          # generate then radiate: K8 samples the sub-columns inside the step
          "mcica_generate": Cell(2, 1, "profile", 60),
          "mcica_generate_icld4": Cell(4, 1, "profile", 60),
+         # the entry points over a prefetched stream of host batches: the
+         # GCM step (McICA compact, half the columns clear, aerosol) and
+         # the wire-format stream (K9 decodes, K8 samples)
+         "gcm_step": Cell(2, 1, "gcm_stream", 60, aod=0.3),
+         "wire_stream": Cell(2, 1, "wire_stream", 60),
          "mcica_cloudy_grad": Cell(2, 1, "mcica", 60, True),
          "clear_grad": Cell(0, 1, None, 60, True),
          "maxrand_cloudy_grad": Cell(2, 0, "band", 60, True,
@@ -170,7 +177,10 @@ KERNEL_SYMBOLS = tuple(
     (f"rt_bwd_g{d}_kernel<{m}>", f"K6 {name}{d.replace('_', ' ')}")
     for m, name in K6_G_MODES.items() for d in ("", "_ddt")) + (
     ("taumol_bwd_kernel", "K5"), ("planck_bwd_kernel", "K3b"),
-    ("mcica_kernel", "K8"))
+    ("mcica_kernel", "K8"), ("wire_decode_kernel", "K9"),
+    ("wire_unpack_kernel", "K9 unpack"))
+# the stream cells' batches a timed stream, and profiled
+STREAM_STEPS, STREAM_TRACED = 6, 3
 
 
 def cell_inputs(cell, device, aod=None):
@@ -263,9 +273,95 @@ def ddt_loss(ncol, nlay, device, seed=7):
                                                                    DDT_LOSS))
 
 
+def _device_work(prof, traced):
+    """(busy ms, {kernel: ms}, launches) a step of a trace of ``traced``
+    steps."""
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _union_ms([(e.time_range.start, e.time_range.end)
+                      for e in dev_events]) / traced
+    kernels = dict.fromkeys((k for _, k in KERNEL_SYMBOLS), 0.0)
+    for e in dev_events:
+        k = next((k for sym, k in KERNEL_SYMBOLS if sym in e.name), None)
+        if k is not None:
+            kernels[k] += e.time_range.elapsed_us() / 1e3 / traced
+    return busy, {k: v for k, v in kernels.items() if v}, dev_events
+
+
+def stream_parts(cell, mesh):
+    """(step, batches(n): a fresh stream of n host batches) of a stream
+    cell, on ``mesh``: the examples' own."""
+    from .. import make_model
+    from ..examples import gcm_step, wire_streaming
+    if cell == "gcm_step":
+        _, step = gcm_step.build(mesh)
+        return step, lambda n: gcm_step.host_batches(NCOL, CELLS[cell].nlay,
+                                                     n)
+    model = make_model(wire_streaming.CONFIG, device=mesh.device)
+    L = CELLS[cell].nlay
+    return (wire_streaming.make_step(model, mesh, NCOL, L),
+            lambda n: wire_streaming.host_batches(NCOL, L, n))
+
+
+def batch_bytes(batch) -> int:
+    """Host bytes of a batch (a WireBatch's: ``wire.wire_bytes``)."""
+    from ..parallel import wire
+    if isinstance(batch, (wire.WireBatch, wire.CompactCloudsWire)):
+        return wire.wire_bytes(batch)
+    if isinstance(batch, (tuple, list)):
+        return sum(batch_bytes(b) for b in batch)
+    return 0 if batch is None else int(np.asarray(batch).nbytes)
+
+
+def profile_stream(cell, device, steps=STREAM_STEPS, traced=STREAM_TRACED):
+    """A stream cell: the wall of ``steps`` host batches through the
+    entry point's step over ``prefetch`` at depth 2 (host clock to
+    ``synchronize`` at the stream's end, a step's share), the same stream
+    at depth 0 (inline copies on the compute stream: the prefetch
+    overlap), the host ms to make one batch, then ``torch.profiler`` over
+    ``traced`` batches at depth 2: busy, idle share, kernels, launches and
+    copies a step, peak memory, host bytes a column."""
+    from ..parallel import make_mesh, prefetch
+    mesh = make_mesh(device=device)
+    step, batches = stream_parts(cell, mesh)
+
+    def stream(n, depth):
+        t0 = time.perf_counter()
+        for b in prefetch(batches(n), mesh, depth=depth):
+            step(*b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+    stream(2, 2)                                         # warm-up
+    t0 = time.perf_counter()
+    first = next(batches(1))
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    wall = stream(steps, 2)
+    wall0 = stream(steps, 0)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        traced_wall = stream(traced, 2)
+    busy, kernels, dev_events = _device_work(prof, traced)
+    copies = sum(1 for e in dev_events if "Memcpy" in e.name)
+    return dict(cell=cell, ncol=NCOL, nlay=CELLS[cell].nlay,
+                device=torch.cuda.get_device_name(0), steps=steps,
+                wall_ms=wall, wall_ms_depth0=wall0,
+                prefetch_gain=1.0 - wall / wall0, traced_wall_ms=traced_wall,
+                cols_per_sec=NCOL / (wall * 1e-3), host_batch_ms=gen_ms,
+                busy_ms=busy, idle_share=1.0 - busy / traced_wall,
+                kernel_ms=kernels, glue_ms=busy - sum(kernels.values()),
+                launches_per_step=len(dev_events) / traced,
+                copies_per_step=copies / traced,
+                bytes_per_col=batch_bytes(first) / NCOL,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
 def profile_cell(cell, device, steps=20, traced=5):
     from ..parallel import make_grad_step
     c = CELLS[cell]
+    if c.clouds in ("gcm_stream", "wire_stream"):
+        return profile_stream(cell, device)
     model = c.make_model(device)
     step = generate_step(model) if c.clouds == "profile" else model
     if c.grad:
@@ -290,22 +386,13 @@ def profile_cell(cell, device, steps=20, traced=5):
         for _ in range(traced):
             step(atm, clouds)
         torch.cuda.synchronize()
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = _union_ms([(e.time_range.start, e.time_range.end)
-                      for e in dev_events]) / traced
-    kernels = dict.fromkeys((k for _, k in KERNEL_SYMBOLS), 0.0)
-    for e in dev_events:
-        k = next((k for sym, k in KERNEL_SYMBOLS if sym in e.name), None)
-        if k is not None:
-            kernels[k] += e.time_range.elapsed_us() / 1e3 / traced
-    glue = busy - sum(kernels.values())
+    busy, kernels, dev_events = _device_work(prof, traced)
     return dict(cell=cell, ncol=NCOL, nlay=c.nlay, device=torch.cuda.
                 get_device_name(0), wall_ms_median=med, wall_ms_q1=q1,
                 wall_ms_q3=q3, cols_per_sec=NCOL / (med * 1e-3),
                 busy_ms=busy, idle_share=1.0 - busy / med,
-                kernel_ms={k: v for k, v in kernels.items() if v},
-                glue_ms=glue, launches_per_step=len(dev_events) / traced,
+                kernel_ms=kernels, glue_ms=busy - sum(kernels.values()),
+                launches_per_step=len(dev_events) / traced,
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 

@@ -1669,3 +1669,147 @@ def test_mcica_batch_layout_runs_k8(dev):
         ref = mcica.mcica_subcol_lw(mcica.key(9), icld, *cpu, alpha=cpu[1])
         for a, b in zip(got, ref):
             assert torch.equal(a.cpu(), b)
+
+
+# K9, the wire format's decode (csrc/wire.cu): every channel of a batch in
+# one launch against the plain twin on the same device tensors (logratio
+# within 2 ulps: expf against torch.exp; the other codecs, the ok flags and
+# the mask unpack bitwise), at ragged widths, off the 8-element vectors
+WIRE_SHAPES = [(1, 1), (7, 3), (8, 5), (33, 2), (130, 61), (515, 13)]
+
+
+def _ulps(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    m = torch.maximum(a.abs(), b.abs()).float()
+    sp = (torch.nextafter(m, torch.full_like(m, float("inf"))) - m).double()
+    d = torch.where(torch.isnan(a) & torch.isnan(b), 0.0, (a - b).abs() / sp)
+    return float(d.nan_to_num(nan=float("inf")).max()) if d.numel() else 0.0
+
+
+def _wire_batches(B, L):
+    from rrtmg_lw_torch.parallel import wire as w
+    atm = make_atmosphere(B, L, seed=B + L, dtype=np.float32)
+    coded = w.encode_atmosphere(atm, schema="coded")
+    auto = w.encode_atmosphere(atm._replace(covmr=np.zeros_like(atm.covmr)))
+    refs = dict(coded.refs)
+    ref, lo, hi = refs["play"]
+    refs["play"] = (ref, hi, lo)
+    inverted = w.WireBatch(dict(coded.cols), refs)
+    cols = dict(coded.cols)
+    p = np.array(cols["play"])
+    p[::2] = 0
+    cols["play"] = p
+    return {"coded": coded, "auto": auto, "inverted": inverted,
+            "zero_codes": w.WireBatch(cols, dict(coded.refs))}
+
+
+def _plain_decode(fn, *args, **kw):
+    """``fn`` (a ``parallel.wire`` decoder) with K9's wrappers swapped for
+    their plain twins, on the same device tensors."""
+    from rrtmg_lw_torch.ops import wire_cuda
+    from rrtmg_lw_torch.parallel import wire as w
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(wire_cuda, "wire_decode", w.decode_plain)
+        mp.setattr(wire_cuda, "wire_unpack_mask", w.unpack_mask)
+        return fn(*args, **kw)
+
+
+@pytest.mark.parametrize("B,L", WIRE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("sanitize", [False, True])
+def test_wire_decode_kernel_matches_plain(dev, B, L, dtype, sanitize):
+    from rrtmg_lw_torch.ops.wire_cuda import wire_decode
+    from rrtmg_lw_torch.parallel import make_mesh, shard_batch, wire as w
+    from rrtmg_lw_torch.utils.synthetic import make_cloud_profile_fields
+    mesh = make_mesh(device=dev)
+    taua = torch.zeros((B, L, 16), device=dev)
+    for tag, enc in _wire_batches(B, L).items():
+        if tag in ("inverted", "zero_codes") and not sanitize:
+            continue
+        ea = shard_batch(enc, mesh)
+        n0 = wire_decode.launches
+        got = w.decode_atmosphere(ea, taua, dtype, sanitize=sanitize)
+        assert wire_decode.launches - n0 == 1
+        ref = _plain_decode(w.decode_atmosphere, ea, taua, dtype,
+                            sanitize=sanitize)
+        if sanitize:
+            (got, ok), (ref, rok) = got, ref
+            assert torch.equal(ok, rok), tag
+        for name, kind in w.ATM_FIELDS.items():
+            a, b = getattr(got, name), getattr(ref, name)
+            assert a.is_contiguous() and a.dtype == dtype
+            if kind == "logratio":
+                assert _ulps(a, b) <= 2, (tag, name)
+            else:
+                assert torch.equal(a, b), (tag, name)
+    ec = shard_batch(w.encode_cloud_profiles(
+        make_cloud_profile_fields(B, L, seed=B), schema="coded"), mesh)
+    got = w.decode_cloud_profiles(ec, dtype, sanitize=sanitize)
+    ref = _plain_decode(w.decode_cloud_profiles, ec, dtype, sanitize=sanitize)
+    if sanitize:
+        (got, ok), (ref, rok) = got, ref
+        assert torch.equal(ok, rok)
+    for name, kind in w.CLOUD_FIELDS.items():
+        assert _ulps(got[name], ref[name]) <= (2 if kind == "logratio"
+                                               else 0), name
+
+
+@pytest.mark.parametrize("L,nb,B", [(1, 1, 1), (3, 18, 37), (5, 18, 64),
+                                    (60, 18, 130), (2, 3, 6)])
+def test_wire_unpack_kernel_matches_plain(dev, L, nb, B):
+    from rrtmg_lw_torch.ops.wire_cuda import wire_unpack_mask
+    from rrtmg_lw_torch.parallel import wire as w
+    g = torch.Generator(device=dev).manual_seed(L * B)
+    bits = torch.randint(0, 256, (L, nb, B), generator=g, device=dev,
+                         dtype=torch.uint8)
+    n0 = wire_unpack_mask.launches
+    got = wire_unpack_mask(bits)
+    assert wire_unpack_mask.launches - n0 == 1
+    assert torch.equal(got, w.unpack_mask(bits))
+    assert torch.equal(got.cpu(), w.unpack_mask(bits.cpu()))
+
+
+def test_wire_decode_wrapper_rejects_what_k9_does_not_take(dev):
+    from rrtmg_lw_torch.ops.wire_cuda import wire_decode
+    from rrtmg_lw_torch.parallel import wire as w
+    enc = _wire_batches(8, 3)["coded"]
+    shape_of = {"tsfc": (8,), "emis": (8, 16), "plev": (8, 4),
+                "tlev": (8, 4)}.get
+    chans = w._channels(w.ATM_FIELDS, enc, lambda n: shape_of(n, (8, 3)),
+                        torch.float32, dev)
+    with pytest.raises(TypeError):
+        wire_decode(chans, torch.float16, dev, 8)
+    with pytest.raises(ValueError):
+        wire_decode(chans * 2, torch.float32, dev, 8)
+    with pytest.raises(ValueError):
+        wire_decode(chans, torch.float32, dev, 9)
+    bad = chans[0]._replace(codes=chans[0].codes.t().contiguous().t())
+    with pytest.raises(ValueError):
+        wire_decode([bad], torch.float32, dev, 8)
+
+
+def test_streams_on_the_card(dev):
+    """prefetch's pinned copies on the copy stream give the host values,
+    in order; the wire step launches K9 twice a step and K8 once."""
+    from rrtmg_lw_torch.examples import wire_streaming as ws
+    from rrtmg_lw_torch.ops.mcica_cuda import subcol_mask
+    from rrtmg_lw_torch.ops.wire_cuda import wire_decode
+    from rrtmg_lw_torch.parallel import make_mesh, prefetch, shard_batch
+    mesh = make_mesh(device=dev)
+    batches = [make_atmosphere(37, 9, seed=s, dtype=np.float32)
+               for s in range(5)]
+    seen = list(prefetch(batches, mesh, depth=2))
+    assert len(seen) == 5
+    for a, b in zip(seen, batches):
+        assert a.tsfc.device == dev
+        assert torch.equal(a.play.cpu(), torch.from_numpy(b.play))
+    model = make_model(ws.CONFIG, device=dev)
+    step = ws.make_step(model, mesh, 37, 9)
+    host = list(ws.host_batches(37, 9, 3))
+    n0, k0 = wire_decode.launches, subcol_mask.launches
+    outs = [step(*b) for b in prefetch(host, mesh)]
+    assert (wire_decode.launches - n0, subcol_mask.launches - k0) == (6, 3)
+    again = ws.make_step(model, mesh, 37, 9)
+    ref = [again(*shard_batch(b, mesh)) for b in host]
+    for a, b in zip(outs, ref):
+        assert torch.equal(a.uflx, b.uflx) and bool(a.wire_ok.all())
