@@ -89,6 +89,25 @@ Phases, each raising on failure (any failure exits non-zero):
      ``wire_stream`` cells of utils/profiling.py (wall, the prefetch
      overlap against depth 0, busy, idle, launches, bytes a column, peak);
      K9's wrapper, device, plain and bound ms, registers and spills;
+  2f. observability and on-card verification (``phase_verify``): (a)
+     ``rrtmg_lw_torch.tools.gpu_verify``'s checks at their defaults (the
+     JAX package's tools/tpu_verify.py by name and tolerance: K2 and K3
+     against their plain versions, every model configuration through the
+     kernels against eager, the isothermal enclosure against the
+     blackbody quadrature, the wire format decoded and sampled on the
+     card, L=140, B=16384), each printed, all required; (b) the
+     sensitivities entry point (``examples.sensitivities.sensitivities``)
+     at B=16384, L=60, float32: K2, K3 (two launches), K1 SAVE clear at
+     idrv=1, K6 clear, K5 and K3b counted (K6's d/dT instantiation
+     never: the loss reads no d/dT), dOLR/dT, dOLR/dln q, dOLR/dTsfc and
+     the idrv derivative at the top within TOL_STEP of max |eager| (the
+     eager pass in column chunks), the dOLR/dTsfc cross-check printed,
+     with the step's wall, device busy and peak; (c)
+     ``utils.device_time.device_seconds_per_iter`` on the
+     ``mcica_cloudy`` step, positive, beside ``profile_cell``'s busy and
+     the glue's largest ops; (d) ``ThroughputMeter`` over 10
+     ``mcica_cloudy`` steps and ``device_memory_stats``, whose peak must
+     be ``max_memory_allocated``'s;
   3. each kernel against its plain PyTorch version on the card at the
      main-path shapes (B=16384 columns, L=60 layers, float32), with the
      max error and CUDA-event times of both and the bound of each (the
@@ -4284,6 +4303,133 @@ def phase_parallel(device, counters):
     return res, launches, rows
 
 
+# the sensitivities pass's launches (clear, idrv=1, the gradient with
+# respect to tlay, h2ovmr and tsfc): K3b only on the layer temperatures
+SENS_LAUNCHES = dict(taumol=1, planck=2, rt_sweep=1, rt_sweep_idrv=1,
+                     rt_sweep_save=1, rt_adjoint=1, taumol_bwd=1,
+                     planck_bwd=1)
+SENS_FIELDS = ("kernel_T", "kernel_q", "d_tsfc", "duflx_dt_toa")
+METER_STEPS = 10
+
+
+def phase_verify(device, counters):
+    """2f: the verification tool, the sensitivities entry point, device
+    time and the meters (see the module docstring).  -> e2e rows."""
+    from rrtmg_lw_torch import Atmosphere, make_model
+    from rrtmg_lw_torch.examples import sensitivities as sens
+    from rrtmg_lw_torch.tools import gpu_verify
+    from rrtmg_lw_torch.utils import profiling
+    from rrtmg_lw_torch.utils.device_time import device_seconds_per_iter
+    from rrtmg_lw_torch.utils.profiling import (ThroughputMeter,
+                                                device_memory_stats)
+    from rrtmg_lw_torch.utils.synthetic import make_atmosphere
+    t0 = time.perf_counter()
+    # (a) the verification tool at its defaults
+    out = gpu_verify.verify(device)
+    bad = [c["check"] for c in out["checks"] if not c["ok"]]
+    need(out["all_ok"] and not bad and len(out["checks"]) ==
+         len(gpu_verify.TOLS), f"gpu_verify: failing checks {bad}")
+    print(f"gpu_verify: {len(out['checks'])} checks pass at B="
+          f"{out['batch']} on {out['device']} ({out['nvidia_smi']}) in "
+          f"{out['elapsed_s']} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # (b) the sensitivities entry point against eager
+    cfg = sens.CONFIG.replace(dtype="float32")
+    atm = Atmosphere.from_numpy(make_atmosphere(B_MAIN, L_MAIN,
+                                                dtype=np.float32),
+                                device, torch.float32)
+    kern = make_model(cfg.replace(impl="cuda"), device=device)
+    sens.sensitivities(kern, atm)                       # warm-up
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    sk = sens.sensitivities(kern, atm)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    want = {k: SENS_LAUNCHES.get(k, 0) for k in counters}
+    need(counts == want, f"sensitivities: launches {counts}, expected "
+         f"{want}")
+    eager = make_model(cfg.replace(impl="eager"), device=device)
+    parts = [sens.sensitivities(eager, columns(atm, None, slice(
+        i, i + B_CHUNK))[0]) for i in range(0, B_MAIN, B_CHUNK)]
+    errs = {}
+    for k in SENS_FIELDS:
+        e = torch.cat([p[k] for p in parts])
+        errs[k] = float((sk[k] - e).abs().max() / e.abs().max())
+    olr_e = float(sum(float(p["olr"]) for p in parts) / len(parts))
+    need(all(torch.isfinite(sk[k]).all() for k in SENS_FIELDS)
+         and max(errs.values()) <= TOL_STEP
+         and abs(float(sk["olr"]) - olr_e) <= TOL_FLUX * olr_e,
+         f"sensitivities against eager: {errs}, OLR {float(sk['olr'])} "
+         f"vs {olr_e}")
+    d_tsfc, ddt = sk["d_tsfc"], sk["duflx_dt_toa"]
+    print(f"sensitivities (B={B_MAIN}, L={L_MAIN}): launches {counts}; "
+          f"against eager (of max |eager|) {errs}; OLR mean "
+          f"{float(sk['olr']):.3f} W/m2; dOLR/dTsfc adjoint "
+          f"{float(d_tsfc.mean()):+.5f}, idrv-path {float(ddt.mean()):+.5f} "
+          f"(max |diff| {float((d_tsfc - ddt).abs().max()):.2e})")
+    del parts, eager
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        sens.sensitivities(kern, atm)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    sec, detail = device_seconds_per_iter(
+        lambda: sens.sensitivities(kern, atm))
+    mem = device_memory_stats(device)
+    row = dict(cell="sensitivities", ncol=B_MAIN, nlay=L_MAIN,
+               wall_ms_median=float(np.median(walls)), busy_ms=sec * 1e3,
+               cols_per_sec=B_MAIN / (np.median(walls) * 1e-3),
+               launches_per_step=detail["launches_per_iter"],
+               kernel_ms=detail["kernel_ms"], glue_ops=detail["glue_ops"],
+               peak_gib=mem["peak_bytes_in_use"] / 2 ** 30, rel_err=errs)
+    print(f"sensitivities step: wall {row['wall_ms_median']:.2f} ms "
+          f"(median of 5), device busy {row['busy_ms']:.2f} ms, "
+          f"{row['launches_per_step']:.0f} launches, peak "
+          f"{row['peak_gib']:.2f} GiB, kernels {detail['kernel_ms']}")
+    del kern, atm, sk
+    torch.cuda.empty_cache()
+
+    # (c) device time of the mcica_cloudy step beside profile_cell's busy
+    model = profiling.CELLS["mcica_cloudy"].make_model(device)
+    atm, clouds = inputs("mcica_cloudy", device)
+    model(atm, clouds)
+    torch.cuda.synchronize()
+    sec, detail = device_seconds_per_iter(lambda: model(atm, clouds))
+    need(sec is not None and sec > 0, f"device_seconds_per_iter: {sec}, "
+         f"{detail}")
+    prof_row = profiling.profile_cell("mcica_cloudy", device)
+    print(f"device_seconds_per_iter (mcica_cloudy): {sec * 1e3:.3f} ms a "
+          f"step ({detail['launches_per_iter']:.1f} launches), "
+          f"profile_cell's busy {prof_row['busy_ms']:.3f} ms, glue "
+          f"{prof_row['glue_ms']:.3f} ms; largest glue ops "
+          f"{detail['glue_ops']}")
+
+    # (d) the meters
+    meter = ThroughputMeter()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(METER_STEPS):
+        with meter.step(ncols=B_MAIN) as h:
+            h["result"] = model(atm, clouds)
+    mem = device_memory_stats(device)
+    rep = meter.report()
+    need(rep["steps"] == METER_STEPS and rep["columns"] == METER_STEPS
+         * B_MAIN and rep["columns_per_sec"] > 0
+         and mem["peak_bytes_in_use"] == torch.cuda.max_memory_allocated()
+         and 0 < mem["bytes_in_use"] <= mem["peak_bytes_in_use"]
+         < mem["bytes_limit"], f"meters: {rep}, {mem}")
+    print(f"ThroughputMeter (mcica_cloudy, {METER_STEPS} steps): {rep}; "
+          f"device_memory_stats {mem}; phase {time.perf_counter() - t0:.1f}"
+          " s", flush=True)
+    del model, atm, clouds
+    torch.cuda.empty_cache()
+    return [row, prof_row]
+
+
 def launch_counters():
     """(counters, fwd_counters): the launch counters (the wrappers, whose
     ``launches`` each counts) of K2, K3, K4 and K1 clear / compact, and
@@ -4440,6 +4586,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     wire_res, wire_launches, wire_rows = phase_parallel(device, fwd_counters)
     torch.cuda.empty_cache()
+    # 2f. the verification tool, the sensitivities entry point, device
+    # time and the meters
+    verify_rows = phase_verify(device, fwd_counters)
+    torch.cuda.empty_cache()
 
     # 3. kernels vs plain versions; then K2 and K1 in reduced storage
     res = phase_kernels(device)
@@ -4473,7 +4623,7 @@ def main() -> int:
     launches["mcica"] = mcica_res.pop("launches")
     rows += mcica_rows
     launches["wire_decode"] = wire_launches
-    rows += wire_rows
+    rows += wire_rows + verify_rows
 
     # 5. deep
     rows += phase_deep(device, counters)

@@ -24,25 +24,168 @@ CUDA device.  ``cell_inputs`` makes each cell's synthetic inputs and
 ``Cell.make_model`` its model (a cell with ``spec`` set builds it under
 ``RRTMG_SPEC_DTYPE``, the reduced spectral storage, on an atmosphere with
 aerosol); the repository's
-``chip_smoke.py`` runs its cells on the same ones.
+``chip_smoke.py`` runs its cells on the same ones.  Beside the device
+ms of the named kernels, each line carries ``glue_ops``: the device ms
+per step of the ``GLUE_OPS`` largest other CUDA ops, by name.
+
+The observability utilities of ``rrtmg_lw_tpu.utils.profiling``, with
+its signatures and return contracts, for users' own loops:
+
+  * ``ThroughputMeter``: columns per second over steps, the clock
+    stopped after the device of the step's result has finished;
+  * ``StageTimer``: named stage timing with warm-up discard and a device
+    sync, the minimum over calls;
+  * ``trace``: ``torch.profiler`` (CPU and, on a CUDA device, CUDA
+    activities) around a block, a Chrome trace written into ``logdir``;
+  * ``device_memory_stats``: bytes in use, peak and the card's total,
+    None for a CPU device.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import dataclasses
 import itertools
 import json
 import os
 import pathlib
 import statistics
+import tempfile
 import time
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..parallel.api import CLOUD_GRADS, MCICA_GRADS, RADII_GRADS
+
+
+def _sync(tree):
+    """Wait for the devices of the CUDA tensors in ``tree`` (tensors,
+    NamedTuples, tuples, lists and dicts of them) to finish; -> tree."""
+    devices, stack = set(), [tree]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda:
+                devices.add(x.device)
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (tuple, list)):
+            stack.extend(x)
+    for d in devices:
+        torch.cuda.synchronize(d)
+    return tree
+
+
+@dataclasses.dataclass
+class ThroughputMeter:
+    """Accumulates columns processed / wall seconds across steps.
+
+    Store the step's output in the yielded holder so the meter can wait
+    for the device before stopping the clock; otherwise only the
+    asynchronous launches are timed::
+
+        meter = ThroughputMeter()
+        for atm, clouds in stream:
+            with meter.step(ncols=atm.play.shape[0]) as h:
+                h["result"] = model(atm, clouds)   # synced on exit
+        print(meter.columns_per_sec)
+    """
+
+    columns: int = 0
+    steps: int = 0
+    seconds: float = 0.0
+
+    @contextlib.contextmanager
+    def step(self, ncols: int, result=None):
+        t0 = time.perf_counter()
+        holder = {}
+        if result is not None:
+            holder["result"] = result
+        try:
+            yield holder
+        finally:
+            if "result" in holder:
+                _sync(holder["result"])
+            self.seconds += time.perf_counter() - t0
+            self.columns += int(ncols)
+            self.steps += 1
+
+    @property
+    def columns_per_sec(self) -> float:
+        return self.columns / self.seconds if self.seconds else 0.0
+
+    def report(self) -> Dict[str, float]:
+        return {"columns": self.columns, "steps": self.steps,
+                "seconds": round(self.seconds, 4),
+                "columns_per_sec": round(self.columns_per_sec, 1)}
+
+
+class StageTimer:
+    """Per-stage wall timing with device sync and warm-up discard."""
+
+    def __init__(self, warmup: int = 1):
+        self.warmup = warmup
+        self._times: Dict[str, list] = {}
+
+    def measure(self, name: str, fn, *args, iters: int = 10):
+        out = _sync(fn(*args))
+        for _ in range(max(self.warmup - 1, 0)):
+            _sync(fn(*args))
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = fn(*args)
+        _sync(out)
+        dt = (time.perf_counter() - t0) / iters
+        self._times.setdefault(name, []).append(dt)
+        return out
+
+    def report(self) -> Dict[str, float]:
+        return {k: round(min(v) * 1e3, 3) for k, v in self._times.items()}
+
+    def __str__(self):
+        return "\n".join(f"{k:12s} {v:8.3f} ms"
+                         for k, v in self.report().items())
+
+
+@contextlib.contextmanager
+def trace(logdir: str = os.path.join(tempfile.gettempdir(),
+                                     "rrtmg_lw_trace"), device=None):
+    """Trace the enclosed block with ``torch.profiler`` (CPU activities,
+    and CUDA's on a CUDA ``device``, the card when None) and write a
+    Chrome trace (``trace_<pid>_<ns>.json``, for chrome://tracing or
+    Perfetto) into ``logdir`` on exit.  Yields ``logdir``.  Wrap a few
+    warmed-up steps only: a first call's kernel build fills the trace."""
+    device = resolve_device(device)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield logdir
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(os.path.join(
+        logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def device_memory_stats(device=None) -> Optional[Dict[str, int]]:
+    """Device allocation snapshot (bytes) of one CUDA device (the card
+    when None): ``bytes_in_use`` (``torch.cuda.memory_allocated``),
+    ``peak_bytes_in_use`` (``max_memory_allocated``), ``bytes_limit``
+    (the card's total, ``mem_get_info``); None for a CPU device, as the
+    JAX package's where the backend has no memory stats."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return None
+    return {"bytes_in_use": int(torch.cuda.memory_allocated(device)),
+            "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(device)),
+            "bytes_limit": int(torch.cuda.mem_get_info(device)[1])}
+
 
 NCOL = 16384            # columns of every cell
 # the aerosol of the reduced-storage cells: K1 adds it inside the kernel
@@ -181,6 +324,9 @@ KERNEL_SYMBOLS = tuple(
     ("wire_unpack_kernel", "K9 unpack"))
 # the stream cells' batches a timed stream, and profiled
 STREAM_STEPS, STREAM_TRACED = 6, 3
+# the glue ops a JSON line names (the largest by device ms), and the
+# characters of an op's name kept there
+GLUE_OPS, GLUE_NAME = 15, 160
 
 
 def cell_inputs(cell, device, aod=None):
@@ -274,18 +420,35 @@ def ddt_loss(ncol, nlay, device, seed=7):
 
 
 def _device_work(prof, traced):
-    """(busy ms, {kernel: ms}, launches) a step of a trace of ``traced``
-    steps."""
+    """(busy ms, {kernel: ms}, the CUDA events, {glue op: ms}) a step of a
+    trace of ``traced`` steps: busy the union of the CUDA kernel, memcpy
+    and memset intervals; the hand-written kernels by ``KERNEL_SYMBOLS``;
+    every other CUDA op grouped by name (``glue_ops``)."""
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = _union_ms([(e.time_range.start, e.time_range.end)
                       for e in dev_events]) / traced
     kernels = dict.fromkeys((k for _, k in KERNEL_SYMBOLS), 0.0)
+    glue = collections.Counter()
     for e in dev_events:
         k = next((k for sym, k in KERNEL_SYMBOLS if sym in e.name), None)
+        ms = e.time_range.elapsed_us() / 1e3 / traced
         if k is not None:
-            kernels[k] += e.time_range.elapsed_us() / 1e3 / traced
-    return busy, {k: v for k, v in kernels.items() if v}, dev_events
+            kernels[k] += ms
+        else:
+            glue[e.name] += ms
+    return (busy, {k: v for k, v in kernels.items() if v}, dev_events,
+            dict(glue))
+
+
+def glue_ops(glue):
+    """The ``GLUE_OPS`` largest ops of ``_device_work``'s glue, {name:
+    ms}, largest first, each name without its leading ``void `` and cut to
+    ``GLUE_NAME`` characters (ops whose cut names meet are summed)."""
+    out = collections.Counter()
+    for name, ms in sorted(glue.items(), key=lambda kv: -kv[1])[:GLUE_OPS]:
+        out[name.removeprefix("void ")[:GLUE_NAME]] += ms
+    return dict(out.most_common())
 
 
 def stream_parts(cell, mesh):
@@ -342,7 +505,7 @@ def profile_stream(cell, device, steps=STREAM_STEPS, traced=STREAM_TRACED):
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, acc_events=True) as prof:
         traced_wall = stream(traced, 2)
-    busy, kernels, dev_events = _device_work(prof, traced)
+    busy, kernels, dev_events, glue = _device_work(prof, traced)
     copies = sum(1 for e in dev_events if "Memcpy" in e.name)
     return dict(cell=cell, ncol=NCOL, nlay=CELLS[cell].nlay,
                 device=torch.cuda.get_device_name(0), steps=steps,
@@ -351,6 +514,7 @@ def profile_stream(cell, device, steps=STREAM_STEPS, traced=STREAM_TRACED):
                 cols_per_sec=NCOL / (wall * 1e-3), host_batch_ms=gen_ms,
                 busy_ms=busy, idle_share=1.0 - busy / traced_wall,
                 kernel_ms=kernels, glue_ms=busy - sum(kernels.values()),
+                glue_ops=glue_ops(glue),
                 launches_per_step=len(dev_events) / traced,
                 copies_per_step=copies / traced,
                 bytes_per_col=batch_bytes(first) / NCOL,
@@ -386,12 +550,13 @@ def profile_cell(cell, device, steps=20, traced=5):
         for _ in range(traced):
             step(atm, clouds)
         torch.cuda.synchronize()
-    busy, kernels, dev_events = _device_work(prof, traced)
+    busy, kernels, dev_events, glue = _device_work(prof, traced)
     return dict(cell=cell, ncol=NCOL, nlay=c.nlay, device=torch.cuda.
                 get_device_name(0), wall_ms_median=med, wall_ms_q1=q1,
                 wall_ms_q3=q3, cols_per_sec=NCOL / (med * 1e-3),
                 busy_ms=busy, idle_share=1.0 - busy / med,
                 kernel_ms=kernels, glue_ms=busy - sum(kernels.values()),
+                glue_ops=glue_ops(glue),
                 launches_per_step=len(dev_events) / traced,
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
